@@ -1,0 +1,125 @@
+"""The sketch exporter of the port, reduced to this slice.
+
+Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`TpuSketchExporter`):
+dense flow batches go in through `fold_dense`, and `roll` closes the window
+into a report dict (`exporter/report.report_to_json`, with the previous
+roll's heavy-hitter index threaded so evicted keys are named). Each batch is
+padded to the fixed batch size, staged in one pinned host buffer and copied
+to the device without blocking; the next batch waits only for that copy.
+
+Not in this slice: staging rings, overload control, federation, archive,
+checkpoints and tracing.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from netobserv_tpu_torch.exporter.report import (
+    heavy_identity_index, report_numpy, report_to_json,
+)
+from netobserv_tpu_torch.sketch import state as sk
+from netobserv_tpu_torch.utils.platform import pick_device
+
+
+class TorchSketchExporter:
+    """Folds dense batches into one device-resident sketch state.
+
+    `window_s` sets a window deadline: the first `fold_dense` after it
+    passes closes the window and returns the report (None otherwise).
+    `decay_factor` / `reset_sketches` choose the roll mode as in
+    `sketch.state.roll_window`. `folds` and `rolls` count the folds of
+    fixed-size batches and the closed windows."""
+
+    def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
+                 batch_size: int = 16384,
+                 device: str | torch.device | None = None,
+                 window_s: Optional[float] = None,
+                 reset_sketches: bool = True,
+                 decay_factor: Optional[float] = None,
+                 sink: Optional[Callable[[dict], None]] = None):
+        self.device = pick_device(device)
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.window_s = window_s
+        self.reset_sketches = reset_sketches
+        self.decay_factor = decay_factor
+        self.sink = sink
+        self.state = sk.init_state(cfg, self.device)
+        cuda = self.device.type == "cuda"
+        words = batch_size * sk.DENSE_WORDS
+        self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
+        self._host_u32 = self._host.numpy().view(np.uint32)
+        self._dev = torch.zeros(words, dtype=torch.int32, device=self.device)
+        self._copied = torch.cuda.Event() if cuda else None
+        self._prev_index: Optional[dict] = None
+        self._deadline = self._next_deadline()
+        self._closed = False
+        self.folds = 0
+        self.rolls = 0
+
+    def _next_deadline(self) -> Optional[float]:
+        return (time.monotonic() + self.window_s
+                if self.window_s is not None else None)
+
+    def fold_dense(self, flat: np.ndarray) -> Optional[dict]:
+        """Fold a flat uint32 dense feed (rows of 20 words, any row count;
+        it folds in batches of `batch_size`). Returns the window report if
+        this call passed the window deadline, else None."""
+        if self._closed:
+            raise RuntimeError("exporter is closed")
+        flat = np.asarray(flat).reshape(-1).view(np.uint32)
+        if flat.size % sk.DENSE_WORDS:
+            raise ValueError(f"dense feed of {flat.size} words is not whole "
+                             f"{sk.DENSE_WORDS}-word rows")
+        step = self.batch_size * sk.DENSE_WORDS
+        for lo in range(0, flat.size, step):
+            self._fold_one(flat[lo:lo + step])
+        if self._deadline is not None and time.monotonic() >= self._deadline:
+            return self.roll()
+        return None
+
+    def _fold_one(self, chunk: np.ndarray) -> None:
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy out of _host is done
+        n = chunk.size
+        self._host_u32[:n] = chunk
+        self._host_u32[n:] = 0  # zero rows are invalid (word 14 == 0)
+        self._dev.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+        sk.ingest(self.state, sk.dense_to_arrays(self._dev),
+                  enable_fanout=self.cfg.enable_fanout,
+                  enable_asym=self.cfg.enable_asym)
+        self.folds += 1
+
+    def state_tables(self) -> dict[str, np.ndarray]:
+        """The current (pre-roll) mergeable tables, on the host."""
+        return sk.state_tables(self.state)
+
+    def roll(self) -> dict:
+        """Close the window: render its report, roll the state, pass the
+        report to the sink and return it."""
+        _, report = sk.roll_window(self.state, self.cfg, self.reset_sketches,
+                                   self.decay_factor)
+        host = report_numpy(report)
+        out = report_to_json(host, prev_heavy_index=self._prev_index)
+        self._prev_index = heavy_identity_index(host)
+        self.rolls += 1
+        self._deadline = self._next_deadline()
+        if self.sink is not None:
+            self.sink(out)
+        return out
+
+    def close(self) -> None:
+        """Wait for outstanding device work and drop the buffers."""
+        if self._closed:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._closed = True
+        self._host = self._host_u32 = self._dev = None

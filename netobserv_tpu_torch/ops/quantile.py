@@ -1,0 +1,75 @@
+"""Log-bucketed latency histograms with quantile queries.
+
+Counterpart of `netobserv_tpu/ops/quantile.py` (`gamma_for`, `init`,
+`bucket_of`, `update`, `bucket_value`, `quantile`). Buckets are log-gamma
+spaced, so a quantile estimate has bounded relative error. `update` adds in
+place (JAX donated the counts).
+
+`bucket_of` takes ceil(log(v) / log(gamma)) in f32. torch's and XLA's f32
+`log` may round a value on a bucket edge differently, so a sample can land
+one bucket apart in the two packages; the total mass is the same.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+DEFAULT_GAMMA = 1.02
+DEFAULT_MAX_VALUE = 10_000_000  # 10 s in microseconds
+
+
+def gamma_for(n_buckets: int, max_value: float = DEFAULT_MAX_VALUE) -> float:
+    """Gamma such that `max_value` still lands below the clip bucket."""
+    return float(math.exp(math.log(max_value) / max(n_buckets - 2, 1)))
+
+
+class LogHist(NamedTuple):
+    counts: torch.Tensor  # f32[n_buckets]; bucket 0 holds zero samples
+
+    @property
+    def n_buckets(self) -> int:
+        return self.counts.shape[0]
+
+
+def init(n_buckets: int, device: torch.device) -> LogHist:
+    return LogHist(torch.zeros((n_buckets,), dtype=torch.float32,
+                               device=device))
+
+
+def bucket_of(values: torch.Tensor, n_buckets: int,
+              gamma: float = DEFAULT_GAMMA) -> torch.Tensor:
+    """Bucket index (int64) for non-negative integer samples."""
+    v = values.to(torch.float32)
+    log_g = torch.tensor(math.log(gamma), dtype=torch.float32)
+    b = torch.ceil(torch.log(torch.clamp(v, min=1.0)) / log_g.to(v.device))
+    b = torch.clamp(b.to(torch.int32) + 1, 1, n_buckets - 1)
+    return torch.where(values == 0, 0, b).to(torch.int64)
+
+
+def update(h: LogHist, values: torch.Tensor, valid: torch.Tensor,
+           gamma: float = DEFAULT_GAMMA) -> LogHist:
+    h.counts.index_add_(0, bucket_of(values, h.n_buckets, gamma),
+                        valid.to(torch.float32))
+    return h
+
+
+def bucket_value(bucket: torch.Tensor,
+                 gamma: float = DEFAULT_GAMMA) -> torch.Tensor:
+    """Representative value of a bucket (midpoint estimator 2g^b/(g+1))."""
+    b = bucket.to(torch.float32) - 1.0
+    val = 2.0 * torch.pow(torch.tensor(gamma, dtype=torch.float32,
+                                       device=b.device), b) / (gamma + 1.0)
+    return torch.where(bucket == 0, 0.0, val)
+
+
+def quantile(h: LogHist, qs: torch.Tensor,
+             gamma: float = DEFAULT_GAMMA) -> torch.Tensor:
+    """Estimate quantiles qs in [0, 1]; f32[len(qs)] sample values."""
+    c = torch.cumsum(h.counts, dim=0)
+    n = c[-1]
+    targets = torch.clamp(torch.ceil(qs * torch.clamp(n, min=1.0)), min=1.0)
+    buckets = torch.searchsorted(c, targets - 0.5, side="left")
+    return torch.where(n > 0, bucket_value(buckets, gamma), 0.0)

@@ -1,0 +1,75 @@
+"""Seeded flow traffic and its exact heavy-hitter oracle.
+
+A numpy copy of the JAX package's bench traffic (`bench.py` `make_pool`,
+`check_recall`): 50,000 distinct random flow keys drawn with Zipf a = 1.2,
+bytes 64-9000, the full feature lane (TCP flags, DSCP, markers, and drops
+on about 2 % of rows). The tests and `chip_smoke.py` share it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from netobserv_tpu_torch.sketch.state import arrays_to_dense, batch_to_device
+
+BATCH = 16384
+N_BATCHES_POOL = 8
+N_DISTINCT = 50_000
+ZIPF_A = 1.2
+
+
+def make_pool(rng: np.random.Generator, batch: int = BATCH,
+              n_batches: int = N_BATCHES_POOL,
+              n_distinct: int = N_DISTINCT, zipf_a: float = ZIPF_A):
+    """(universe uint32[n_distinct, 10], [(arrays, ranks)] * n_batches):
+    each batch's column dict and the universe row of each record."""
+    universe = rng.integers(0, 2**32, (n_distinct, 10), dtype=np.uint32)
+    pool = []
+    for _ in range(n_batches):
+        ranks = np.minimum(rng.zipf(zipf_a, batch) - 1, n_distinct - 1)
+        drop_b = np.where(rng.random(batch) < 0.02,
+                          rng.integers(1, 1500, batch), 0).astype(np.int32)
+        pool.append(({
+            "keys": universe[ranks],
+            "bytes": rng.integers(64, 9000, batch).astype(np.float32),
+            "packets": rng.integers(1, 12, batch).astype(np.int32),
+            "rtt_us": rng.integers(0, 5000, batch).astype(np.int32),
+            "dns_latency_us": rng.integers(0, 2000, batch).astype(np.int32),
+            "sampling": np.zeros(batch, np.int32),
+            "valid": np.ones(batch, np.bool_),
+            "tcp_flags": rng.integers(0, 1 << 9, batch).astype(np.int32),
+            "dscp": rng.integers(0, 64, batch).astype(np.int32),
+            "markers": rng.integers(0, 4, batch).astype(np.int32),
+            "drop_bytes": drop_b,
+            "drop_packets": (drop_b > 0).astype(np.int32),
+            "drop_cause": np.where(drop_b > 0, 2, 0).astype(np.int32),
+        }, ranks))
+    return universe, pool
+
+
+def dense_pool(pool) -> list[np.ndarray]:
+    """Each pool batch as the flat uint32 dense feed."""
+    return [arrays_to_dense(arrays) for arrays, _ in pool]
+
+
+def device_pool(pool, device: str | torch.device | None = None
+                ) -> list[dict[str, torch.Tensor]]:
+    """Each pool batch as ingest-ready tensors on `device` (CUDA unless the
+    caller names the CPU)."""
+    return [batch_to_device(arrays, device) for arrays, _ in pool]
+
+
+def check_recall(heavy_words: np.ndarray, heavy_valid: np.ndarray, feed,
+                 universe: np.ndarray, pool, k: int = 100) -> float:
+    """Recall@k of a heavy-hitter table against the exact byte totals of
+    the pool batches folded in `feed` (their indices, in order)."""
+    exact: dict[int, float] = {}
+    for bi in feed:
+        arrays, ranks = pool[bi]
+        for r, b in zip(ranks, arrays["bytes"]):
+            exact[int(r)] = exact.get(int(r), 0.0) + float(b)
+    true_top = sorted(exact, key=exact.get, reverse=True)[:k]
+    got = {tuple(w) for w, v in zip(np.asarray(heavy_words, np.uint32),
+                                    np.asarray(heavy_valid)) if v}
+    return sum(tuple(universe[t]) in got for t in true_top) / k

@@ -1,0 +1,484 @@
+"""Combined sketch state, the ingest step and the window roll.
+
+Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
+`SketchState`, `WindowReport`, `init_state`, `batch_to_device`,
+`dense_to_arrays`, `arrays_to_dense`, `ingest`, `decay_state`,
+`roll_window`, `state_tables`), wide counters on one device.
+
+One `ingest` call folds a fixed-shape columnar flow batch into the Count-Min
+planes (kernel 1), the persistent-slot top-K table (kernel 2), the global
+source HLL (kernel 3), the per-dst and per-src HLL grids, the RTT and DNS
+histograms, the signal planes (kernel 4) and the window totals. On CUDA
+tensors each of the four goes through its hand-written kernel; on CPU
+tensors through its plain PyTorch twin. Where JAX donated the state, this
+module updates the preallocated tensors in place: `ingest`, `decay_state`
+and `roll_window` mutate the state they are given and return it.
+
+Not in this slice: the tiered planes (`SketchConfig.tiered`) and the
+owner-sharded ingest (`sketch_axis`) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from netobserv_tpu_torch.model.columnar import KEY_WORDS
+from netobserv_tpu_torch.model.flow import TcpFlags
+from netobserv_tpu_torch.ops import countmin, ewma, hashing, hll, quantile, topk
+from netobserv_tpu_torch.ops.kernels import signal_kernel
+from netobserv_tpu_torch.utils.platform import pick_device
+
+
+class SketchConfig(NamedTuple):
+    cm_depth: int = 4
+    cm_width: int = 1 << 16
+    hll_precision: int = 14
+    perdst_buckets: int = 4096
+    perdst_precision: int = 6
+    persrc_buckets: int = 4096
+    persrc_precision: int = 6
+    topk: int = 1024
+    hist_buckets: int = 1024
+    ewma_buckets: int = 4096
+    ewma_alpha: float = 0.3
+    #: False skips the per-source fan-out grid fold (port-scan signal)
+    enable_fanout: bool = True
+    #: False skips the conversation-asymmetry fold (one-way detection)
+    enable_asym: bool = True
+    #: tiered counter planes: not ported yet; anything but None raises
+    tiered: object = None
+
+
+class SketchState(NamedTuple):
+    cm_bytes: countmin.CountMin
+    cm_pkts: countmin.CountMin
+    heavy: topk.SlotTable
+    hll_src: hll.HLL
+    hll_per_dst: hll.PerDstHLL
+    hll_per_src: hll.PerDstHLL
+    hist_rtt: quantile.LogHist
+    hist_dns: quantile.LogHist
+    ddos: ewma.EWMA
+    syn: ewma.EWMA
+    synack: torch.Tensor          # f32[m] current-window SYN-ACK responses
+    drops_ewma: ewma.EWMA
+    drop_causes: torch.Tensor     # f32[N_DROP_CAUSES]
+    dscp_bytes: torch.Tensor      # f32[N_DSCP]
+    conv_fwd: torch.Tensor        # f32[m] bytes toward the canonical dir
+    conv_rev: torch.Tensor        # f32[m]
+    total_records: torch.Tensor   # f32[]
+    total_bytes: torch.Tensor
+    total_drop_bytes: torch.Tensor
+    total_drop_packets: torch.Tensor
+    quic_records: torch.Tensor
+    nat_records: torch.Tensor
+    heavy_evictions: torch.Tensor
+    window: torch.Tensor          # i32[]
+
+
+class WindowReport(NamedTuple):
+    """Snapshot emitted at each window roll (tensors on the state's device,
+    copies that later folds do not touch)."""
+
+    heavy: topk.SlotTable
+    distinct_src: torch.Tensor
+    per_dst_cardinality: torch.Tensor
+    per_src_fanout: torch.Tensor
+    rtt_quantiles_us: torch.Tensor
+    dns_quantiles_us: torch.Tensor
+    ddos_z: torch.Tensor
+    syn_z: torch.Tensor
+    syn_rate: torch.Tensor
+    synack_rate: torch.Tensor
+    drop_z: torch.Tensor
+    drop_causes: torch.Tensor
+    dscp_bytes: torch.Tensor
+    conv_fwd: torch.Tensor
+    conv_rev: torch.Tensor
+    total_records: torch.Tensor
+    total_bytes: torch.Tensor
+    total_drop_bytes: torch.Tensor
+    total_drop_packets: torch.Tensor
+    quic_records: torch.Tensor
+    nat_records: torch.Tensor
+    heavy_evictions: torch.Tensor
+    window: torch.Tensor
+
+
+QS = (0.5, 0.9, 0.95, 0.99, 0.999)
+#: drop-cause histogram size; causes clamp to the last bucket
+N_DROP_CAUSES = 128
+#: DSCP class histogram size (6-bit code space)
+N_DSCP = 64
+#: row width of the dense feed (flowpack.cc fp_pack_dense layout)
+DENSE_WORDS = 20
+
+_SCALARS = ("total_records", "total_bytes", "total_drop_bytes",
+            "total_drop_packets", "quic_records", "nat_records",
+            "heavy_evictions")
+
+
+def init_state(cfg: SketchConfig = SketchConfig(),
+               device: str | torch.device | None = None) -> SketchState:
+    """A zero state on `device` (CUDA unless the caller names the CPU)."""
+    if cfg.tiered is not None:
+        raise NotImplementedError(
+            "tiered counter planes are not ported yet (a later slice of the "
+            "port: tiered planes with their two kernels)")
+    dev = pick_device(device)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return SketchState(
+        cm_bytes=countmin.init(cfg.cm_depth, cfg.cm_width, dev),
+        cm_pkts=countmin.init(cfg.cm_depth, cfg.cm_width, dev),
+        heavy=topk.init_slots(cfg.topk, KEY_WORDS, dev),
+        hll_src=hll.init(cfg.hll_precision, dev),
+        hll_per_dst=hll.init_per_dst(cfg.perdst_buckets,
+                                     cfg.perdst_precision, dev),
+        hll_per_src=hll.init_per_dst(cfg.persrc_buckets,
+                                     cfg.persrc_precision, dev),
+        hist_rtt=quantile.init(cfg.hist_buckets, dev),
+        hist_dns=quantile.init(cfg.hist_buckets, dev),
+        ddos=ewma.init(cfg.ewma_buckets, dev),
+        syn=ewma.init(cfg.ewma_buckets, dev),
+        synack=zeros(cfg.ewma_buckets),
+        drops_ewma=ewma.init(cfg.ewma_buckets, dev),
+        drop_causes=zeros(N_DROP_CAUSES),
+        dscp_bytes=zeros(N_DSCP),
+        conv_fwd=zeros(cfg.ewma_buckets),
+        conv_rev=zeros(cfg.ewma_buckets),
+        **{name: zeros() for name in _SCALARS},
+        window=zeros(dtype=torch.int32),
+    )
+
+
+#: ingest dtype of every column a batch may carry (uint32 lanes as int64)
+_COLUMN_DTYPES = {
+    "keys": torch.int64, "bytes": torch.float32, "packets": torch.int32,
+    "rtt_us": torch.int32, "dns_latency_us": torch.int32,
+    "valid": torch.bool, "sampling": torch.int32, "tcp_flags": torch.int32,
+    "dscp": torch.int32, "markers": torch.int32, "drop_bytes": torch.int32,
+    "drop_packets": torch.int32, "drop_cause": torch.int32,
+}
+
+
+def batch_to_device(batch: Mapping[str, np.ndarray],
+                    device: str | torch.device | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """Put a host batch (column name -> numpy array) on `device` with the
+    dtypes `ingest` expects. Columns `ingest` does not read are dropped."""
+    dev = pick_device(device)
+    out = {}
+    for name, dtype in _COLUMN_DTYPES.items():
+        if name in batch:
+            arr = np.asarray(batch[name])
+            if name == "keys":
+                arr = arr.astype(np.uint32).astype(np.int64)
+            out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=dev, dtype=dtype)
+    return out
+
+
+def dense_to_arrays(dense: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Device-side unpack of the dense feed: int32 words holding the uint32
+    bits of (B, 20) rows, flat (B*20,) or 2-D. Row layout as in flowpack.cc
+    fp_pack_dense; word 10 is the f32 bit pattern of the byte count."""
+    if dense.dtype != torch.int32:
+        raise TypeError(f"dense feed must be int32 words, got {dense.dtype}")
+    if dense.ndim == 1:
+        dense = dense.reshape(-1, DENSE_WORDS)
+    f16, f17 = dense[:, 16], dense[:, 17]
+    return {
+        "keys": dense[:, :KEY_WORDS].to(torch.int64) & hashing.M32,
+        "bytes": dense[:, 10].contiguous().view(torch.float32),
+        "packets": dense[:, 11],
+        "rtt_us": dense[:, 12],
+        "dns_latency_us": dense[:, 13],
+        "valid": dense[:, 14] != 0,
+        "sampling": dense[:, 15],
+        "tcp_flags": f16 & 0xFFFF,
+        "dscp": (f16 >> 16) & 0xFF,
+        "markers": (f16 >> 24) & 0xFF,
+        "drop_bytes": f17 & 0xFFFF,
+        "drop_packets": (f17 >> 16) & 0xFFFF,
+        "drop_cause": dense[:, 18] & 0xFFFF,
+    }
+
+
+def arrays_to_dense(arrays: Mapping[str, np.ndarray]) -> np.ndarray:
+    """Host-side inverse of dense_to_arrays: pack an array dict into the
+    flat uint32 dense feed. Absent feature columns pack as zero; the 16-bit
+    drop lanes saturate."""
+    n = len(arrays["valid"])
+    zeros = np.zeros(n, np.uint32)
+
+    def col(name):
+        return np.asarray(arrays.get(name, zeros), np.uint32)
+
+    dense = np.zeros((n, DENSE_WORDS), np.uint32)
+    dense[:, :KEY_WORDS] = arrays["keys"]
+    dense[:, 10] = np.asarray(arrays["bytes"], np.float32).view(np.uint32)
+    dense[:, 11] = arrays["packets"]
+    dense[:, 12] = arrays["rtt_us"]
+    dense[:, 13] = arrays["dns_latency_us"]
+    dense[:, 14] = np.asarray(arrays["valid"], np.uint32)
+    dense[:, 15] = col("sampling")
+    dense[:, 16] = ((col("tcp_flags") & 0xFFFF) | (col("dscp") << 16)
+                    | (col("markers") << 24))
+    dense[:, 17] = (np.minimum(col("drop_bytes"), 0xFFFF)
+                    | (np.minimum(col("drop_packets"), 0xFFFF) << 16))
+    dense[:, 18] = np.minimum(col("drop_cause"), 0xFFFF)
+    return dense.reshape(-1)
+
+
+def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
+           sketch_axis: str | None = None,
+           enable_fanout: bool = True,
+           enable_asym: bool = True) -> SketchState:
+    """Fold one batch into every sketch, in place; returns `state`.
+
+    Feature columns (tcp_flags, dscp, markers, drop_*) are optional: a
+    batch without one skips the signals that read it, exactly as a zero
+    value row would."""
+    if sketch_axis is not None:
+        raise NotImplementedError(
+            "the owner-sharded ingest is not ported yet (the multi-GPU "
+            "slice of the port)")
+    words = arrays["keys"]
+    valid = arrays["valid"]
+    bytes_f = arrays["bytes"]
+    pkts = arrays["packets"]
+    samp = arrays.get("sampling")
+    if samp is not None:
+        # de-bias sampled traffic: a 1-in-N sampled record stands for N
+        factor = torch.clamp(samp, min=1)
+        bytes_f = bytes_f * factor.to(torch.float32)
+        pkts = pkts * factor
+
+    mh = hashing.base_hashes_multi(words)
+    h1, h2 = mh.h1, mh.h2
+    src_h1, src_h2, dst_h1 = mh.src_h1, mh.src_h2, mh.dst_h1
+
+    countmin.update_two(state.cm_bytes, state.cm_pkts, h1, h2, bytes_f, pkts,
+                        valid)
+    _, evicted = topk.slot_update(state.heavy, state.cm_bytes, words, h1, h2,
+                                  valid, window=state.window)
+    hll.update(state.hll_src, src_h1, src_h2, valid)
+    hll.update_per_dst(state.hll_per_dst, dst_h1, src_h1, src_h2, valid)
+    flags = arrays.get("tcp_flags")
+    if enable_fanout:
+        # port-scan signal: only initiator-side flows count (a flow that
+        # sent SYN+ACK together is a responder)
+        fanout_valid = valid
+        if flags is not None:
+            fanout_valid = valid & ((flags & TcpFlags.SYN_ACK) == 0)
+        hll.update_per_dst(state.hll_per_src, src_h1, mh.dp_h1, mh.dp_h2,
+                           fanout_valid)
+    rtt = arrays["rtt_us"]
+    dns = arrays["dns_latency_us"]
+    gamma = quantile.gamma_for(state.hist_rtt.n_buckets)
+    quantile.update(state.hist_rtt, rtt, valid & (rtt > 0), gamma)
+    quantile.update(state.hist_dns, dns, valid & (dns > 0), gamma)
+
+    # --- signal planes: one fused fold over eight value rows ---
+    mass = factor.to(torch.float32) if samp is not None else 1.0
+    sig_idx, sig_vals = signal_rows(arrays, mh, valid, bytes_f, mass,
+                                    state.conv_fwd.shape[0], enable_asym)
+    signal_kernel.update(signal_planes(state), sig_idx, sig_vals)
+    db = arrays.get("drop_bytes")
+    if db is not None:
+        state.total_drop_bytes.add_(sig_vals[2].sum())
+        state.total_drop_packets.add_(torch.where(
+            valid, arrays["drop_packets"].to(torch.float32) * mass,
+            0.0).sum())
+
+    mk = arrays.get("markers")
+    if mk is not None:
+        state.quic_records.add_((valid & ((mk & 1) != 0)).sum())
+        state.nat_records.add_((valid & ((mk & 2) != 0)).sum())
+    state.total_records.add_(valid.sum())
+    state.total_bytes.add_(torch.where(valid, bytes_f, 0.0).sum())
+    state.heavy_evictions.add_(evicted)
+    return state
+
+
+def signal_rows(arrays: Mapping[str, torch.Tensor],
+                mh: hashing.MultiHashes, valid: torch.Tensor,
+                bytes_f: torch.Tensor, mass: torch.Tensor | float, m: int,
+                enable_asym: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's inputs for one batch: idx int64[5, B] over the families
+    [dst, src, pair, dscp, cause] and vals f32[8, B] = [ddos, syn, drops,
+    synack, conv_fwd, conv_rev, dscp, cause] masses, already masked. An
+    absent feature column gives a zero value row, the same as skipping
+    its signal."""
+    zeros_f = torch.zeros_like(bytes_f)
+    zeros_i = torch.zeros(bytes_f.shape, dtype=torch.int64,
+                          device=bytes_f.device)
+    src_sym, dst_h1 = mh.src_sym, mh.dst_h1
+    flags = arrays.get("tcp_flags")
+    v_syn = v_synack = zeros_f
+    if flags is not None:
+        # half-open attempts bucket by victim = dst; SYN-ACK responses by
+        # victim = src (the responder), under the same seed
+        half_open = (valid & ((flags & TcpFlags.SYN) != 0)
+                     & ((flags & TcpFlags.ACK) == 0))
+        is_synack = valid & ((flags & TcpFlags.SYN_ACK) != 0)
+        v_syn = torch.where(half_open, mass, 0.0)
+        v_synack = torch.where(is_synack, mass, 0.0)
+    db = arrays.get("drop_bytes")
+    v_drops, cause_idx, v_cause = zeros_f, zeros_i, zeros_f
+    if db is not None:
+        v_drops = torch.where(valid, db.to(torch.float32) * mass, 0.0)
+        cause = arrays.get("drop_cause")
+        if cause is not None:
+            dpf = arrays["drop_packets"].to(torch.float32) * mass
+            cause_idx = torch.clamp(cause.to(torch.int64),
+                                    max=N_DROP_CAUSES - 1)
+            v_cause = torch.where(valid & (dpf > 0), dpf, 0.0)
+    pair_idx, v_fwd, v_rev = zeros_i, zeros_f, zeros_f
+    if enable_asym:
+        # the pair bucket is direction-invariant; the lower endpoint hash
+        # is the canonical "fwd"; self-pairs have no direction
+        pair_idx = (src_sym + dst_h1) & (m - 1)
+        is_fwd = src_sym < dst_h1
+        conv_ok = valid & (src_sym != dst_h1)
+        v_fwd = torch.where(conv_ok & is_fwd, bytes_f, 0.0)
+        v_rev = torch.where(conv_ok & ~is_fwd, bytes_f, 0.0)
+    dscp = arrays.get("dscp")
+    dscp_idx, v_dscp = zeros_i, zeros_f
+    if dscp is not None:
+        dscp_idx = dscp.to(torch.int64) & (N_DSCP - 1)
+        v_dscp = torch.where(valid, bytes_f, 0.0)
+    idx = torch.stack([dst_h1 & (m - 1), src_sym & (m - 1), pair_idx,
+                       dscp_idx, cause_idx])
+    vals = torch.stack([torch.where(valid, bytes_f, 0.0), v_syn, v_drops,
+                        v_synack, v_fwd, v_rev, v_dscp, v_cause])
+    return idx, vals
+
+
+def signal_planes(state: SketchState) -> signal_kernel.SignalPlanes:
+    """The state's eight signal tables, in kernel 4's row order."""
+    return signal_kernel.SignalPlanes(
+        ddos_rate=state.ddos.rate, syn_rate=state.syn.rate,
+        drops_rate=state.drops_ewma.rate, synack=state.synack,
+        conv_fwd=state.conv_fwd, conv_rev=state.conv_rev,
+        dscp_bytes=state.dscp_bytes, drop_causes=state.drop_causes)
+
+
+def decay_state(state: SketchState, factor: float) -> SketchState:
+    """Sliding-window roll in place: scale the linear sketches by `factor`
+    (HLL registers cannot decay and are reset; eviction events and the
+    SYN-ACK window reset)."""
+    topk.slot_roll(state.heavy, factor)
+    for t in (state.cm_bytes.counts, state.cm_pkts.counts,
+              state.hist_rtt.counts, state.hist_dns.counts,
+              state.drop_causes, state.dscp_bytes, state.conv_fwd,
+              state.conv_rev, *(getattr(state, n) for n in _SCALARS[:-1])):
+        t.mul_(factor)
+    for t in (state.hll_src.regs, state.hll_per_dst.regs,
+              state.hll_per_src.regs, state.synack, state.heavy_evictions):
+        t.zero_()
+    return state
+
+
+def _clone_slots(t: topk.SlotTable) -> topk.SlotTable:
+    return topk.SlotTable(*(x.clone() for x in t))
+
+
+def roll_window(state: SketchState, cfg: SketchConfig,
+                reset_sketches: bool = True,
+                decay_factor: float | None = None
+                ) -> tuple[SketchState, WindowReport]:
+    """Close the current window in place: build the report, roll the EWMA
+    baselines, and reset (or decay, or keep) the windowed state. Returns
+    (`state`, report); the report holds copies."""
+    gamma = quantile.gamma_for(state.hist_rtt.n_buckets)
+    qs = torch.tensor(QS, dtype=torch.float32, device=state.window.device)
+    pre = {n: getattr(state, n).clone() for n in
+           ("synack", "drop_causes", "dscp_bytes", "conv_fwd", "conv_rev",
+            *_SCALARS, "window")}
+    heavy = _clone_slots(state.heavy)
+    syn_rate = state.syn.rate.clone()
+    distinct_src = hll.estimate(state.hll_src.regs)
+    per_dst = hll.estimate(state.hll_per_dst.regs)
+    per_src = hll.estimate(state.hll_per_src.regs)
+    rtt_q = quantile.quantile(state.hist_rtt, qs, gamma)
+    dns_q = quantile.quantile(state.hist_dns, qs, gamma)
+    _, z = ewma.roll(state.ddos, cfg.ewma_alpha)
+    _, syn_z = ewma.roll(state.syn, cfg.ewma_alpha)
+    _, drop_z = ewma.roll(state.drops_ewma, cfg.ewma_alpha)
+    report = WindowReport(
+        heavy=heavy, distinct_src=distinct_src, per_dst_cardinality=per_dst,
+        per_src_fanout=per_src, rtt_quantiles_us=rtt_q,
+        dns_quantiles_us=dns_q, ddos_z=z, syn_z=syn_z, syn_rate=syn_rate,
+        synack_rate=pre["synack"], drop_z=drop_z,
+        drop_causes=pre["drop_causes"], dscp_bytes=pre["dscp_bytes"],
+        conv_fwd=pre["conv_fwd"], conv_rev=pre["conv_rev"],
+        **{n: pre[n] for n in _SCALARS}, window=pre["window"])
+    if decay_factor is not None:
+        decay_state(state, decay_factor)
+    elif reset_sketches:
+        # the slot table keeps its identity across the roll; only its
+        # windowed counts roll (prev_counts <- counts, counts <- 0)
+        topk.slot_roll(state.heavy, 0.0)
+        for t in (state.cm_bytes.counts, state.cm_pkts.counts,
+                  state.hll_src.regs, state.hll_per_dst.regs,
+                  state.hll_per_src.regs, state.hist_rtt.counts,
+                  state.hist_dns.counts, state.synack, state.drop_causes,
+                  state.dscp_bytes, state.conv_fwd, state.conv_rev,
+                  *(getattr(state, n) for n in _SCALARS)):
+            t.zero_()
+    else:
+        # keep mode: synack pairs with the syn EWMA's per-window rate and
+        # resets with it; eviction events stay per-window
+        topk.slot_roll(state.heavy, 1.0)
+        state.synack.zero_()
+        state.heavy_evictions.zero_()
+    state.window.add_(1)
+    return state, report
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A host copy: never a view of the live (in-place updated) state."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def state_tables(state: SketchState) -> dict[str, np.ndarray]:
+    """The mergeable table snapshot of a (pre-roll) state as host numpy
+    arrays with the JAX package's dtypes (uint32 lanes back to np.uint32):
+    the layout of the federation delta frame. EWMA baselines are absent by
+    design."""
+    h = state.heavy
+    return {
+        "cm_bytes": _np(state.cm_bytes.counts),
+        "cm_pkts": _np(state.cm_pkts.counts),
+        "heavy_words": _np(h.words).astype(np.uint32),
+        "heavy_h1": _np(h.h1).astype(np.uint32),
+        "heavy_h2": _np(h.h2).astype(np.uint32),
+        "heavy_counts": _np(h.counts),
+        "heavy_valid": _np(h.valid),
+        "heavy_prev_counts": _np(h.prev_counts),
+        "heavy_first_seen": _np(h.first_seen),
+        "heavy_epoch": _np(h.epoch),
+        "hll_src": _np(state.hll_src.regs),
+        "hll_per_dst": _np(state.hll_per_dst.regs),
+        "hll_per_src": _np(state.hll_per_src.regs),
+        "hist_rtt": _np(state.hist_rtt.counts),
+        "hist_dns": _np(state.hist_dns.counts),
+        "ddos_rate": _np(state.ddos.rate),
+        "syn_rate": _np(state.syn.rate),
+        "synack": _np(state.synack),
+        "drops_rate": _np(state.drops_ewma.rate),
+        "drop_causes": _np(state.drop_causes),
+        "dscp_bytes": _np(state.dscp_bytes),
+        "conv_fwd": _np(state.conv_fwd),
+        "conv_rev": _np(state.conv_rev),
+        # federation.delta.SCALAR_FIELDS order
+        "scalars": _np(torch.stack([getattr(state, n) for n in _SCALARS])),
+    }

@@ -1,0 +1,104 @@
+"""Kernel 1's plain twin (netobserv_tpu_torch/ops/countmin.update_two, the
+CPU path of ops/kernels/countmin_kernel.py) against the JAX package's
+`countmin.update_two` scatter form and its Pallas `update_two` in interpret
+mode, d=4, W=2048, a ragged B=1500.
+
+Float regimes:
+- integer-valued masses whose per-cell sums stay below 2^24: bit-exact;
+- production masses (bytes x sampling, cells past 2^24): a cell that took
+  n adds is within (n-1) * 2^-24 relative of the exact (float64) sum in
+  any add order, so each form is held to that, and the two forms to twice
+  it."""
+
+import numpy as np
+import torch
+
+import tests.conftest  # noqa: F401
+import jax.numpy as jnp
+
+from netobserv_tpu.ops import countmin as jcm
+from netobserv_tpu.ops import hashing as jh
+from netobserv_tpu.ops.pallas import countmin_kernel as jcmk
+from netobserv_tpu_torch.ops import countmin as tcm
+
+D, W, B = 4, 2048, 1500
+U = 2.0 ** -24
+
+
+def _batch(seed, big=False):
+    rng = np.random.default_rng(seed)
+    universe = rng.integers(0, 2**32, (300, 10), dtype=np.uint32)
+    words = universe[np.minimum(rng.zipf(1.2, B) - 1, 299)]
+    if big:  # bytes x sampling: per-cell sums far past 2^24
+        va = (rng.integers(64, 9000, B) * rng.integers(1, 2000, B)
+              ).astype(np.float32)
+    else:
+        va = rng.integers(1, 9000, B).astype(np.float32)
+    vb = rng.integers(1, 12, B).astype(np.float32)
+    valid = rng.random(B) < 0.9
+    return words, va, vb, valid
+
+
+def _hashes(words):
+    h1, h2 = jh.base_hashes(jnp.asarray(words))
+    return (h1, h2), (torch.from_numpy(np.asarray(h1).astype(np.int64)),
+                      torch.from_numpy(np.asarray(h2).astype(np.int64)))
+
+
+def _fold(batches):
+    ja, jb = jcm.init(D, W), jcm.init(D, W)
+    ta = tcm.init(D, W, torch.device("cpu"))
+    tb = tcm.init(D, W, torch.device("cpu"))
+    for words, va, vb, valid in batches:
+        (j1, j2), (t1, t2) = _hashes(words)
+        ja, jb = jcm.update_two(ja, jb, j1, j2, jnp.asarray(va),
+                                jnp.asarray(vb), jnp.asarray(valid))
+        tcm.update_two(ta, tb, t1, t2, torch.from_numpy(va),
+                       torch.from_numpy(vb), torch.from_numpy(valid))
+    return (ja, jb), (ta, tb)
+
+
+def test_update_two_and_query_integer_regime_bit_exact():
+    batches = [_batch(s) for s in (1, 2, 3)]
+    (ja, jb), (ta, tb) = _fold(batches)
+    assert float(np.asarray(ja.counts).max()) < 2**24
+    np.testing.assert_array_equal(ta.counts.numpy(), np.asarray(ja.counts))
+    np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(jb.counts))
+    (j1, j2), (t1, t2) = _hashes(batches[0][0])
+    np.testing.assert_array_equal(tcm.query(ta, t1, t2).numpy(),
+                                  np.asarray(jcm.query(ja, j1, j2)))
+    assert float(tcm.total(ta)) == float(jcm.total(ja))
+
+
+def test_update_two_production_regime_within_add_order_bound():
+    batches = [_batch(s, big=True) for s in (4, 5, 6)]
+    (ja, _), (ta, _) = _fold(batches)
+    exact = np.zeros((D, W))
+    adds = np.zeros((D, W))
+    for words, va, _, valid in batches:
+        (j1, j2), _ = _hashes(words)
+        idx = np.asarray(jh.row_indices(j1, j2, D, W))
+        for r in range(D):
+            np.add.at(exact[r], idx[r], np.where(valid, va, 0.0))
+            np.add.at(adds[r], idx[r], 1)
+    assert exact.max() > 2**24  # the regime under test
+    bound = np.maximum(adds - 1, 0) * U * exact
+    got, want = ta.counts.numpy().astype(np.float64), np.asarray(
+        ja.counts).astype(np.float64)
+    assert np.all(np.abs(got - exact) <= bound)
+    assert np.all(np.abs(want - exact) <= bound)
+    assert np.all(np.abs(got - want) <= 2 * bound)
+
+
+def test_plain_twin_matches_pallas_kernel_interpret_bit_exact():
+    words, va, vb, valid = _batch(7)
+    (j1, j2), (t1, t2) = _hashes(words)
+    pa, pb = jcmk.update_two(jcm.init(D, W), jcm.init(D, W), j1, j2,
+                             jnp.asarray(va), jnp.asarray(vb),
+                             jnp.asarray(valid), interpret=True)
+    ta = tcm.init(D, W, torch.device("cpu"))
+    tb = tcm.init(D, W, torch.device("cpu"))
+    tcm.update_two(ta, tb, t1, t2, torch.from_numpy(va),
+                   torch.from_numpy(vb), torch.from_numpy(valid))
+    np.testing.assert_array_equal(ta.counts.numpy(), np.asarray(pa.counts))
+    np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(pb.counts))

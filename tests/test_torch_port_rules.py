@@ -1,0 +1,93 @@
+"""Rules of the PyTorch port (netobserv_tpu_torch) that hold on any box:
+it imports neither JAX nor the JAX package, its entry points default to
+CUDA and never quietly fall back to the CPU, and a kernel wrapper takes its
+plain version only for a CPU tensor, without counting a launch."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+from netobserv_tpu_torch.ops.kernels import (
+    _build, countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
+)
+from netobserv_tpu_torch.scenarios import traffic
+from netobserv_tpu_torch.sketch import state as ts
+from netobserv_tpu_torch.utils.platform import pick_device
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNELS = (countmin_kernel, hll_kernel, topk_kernel, signal_kernel)
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
+    files = sorted((ROOT / "netobserv_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for name in _imported_modules(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "netobserv_tpu"), (f, name)
+
+
+def test_entry_points_default_to_cuda_and_never_fall_back():
+    if torch.cuda.is_available():
+        assert ts.init_state(ts.SketchConfig(topk=128)).window.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        ts.init_state()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchSketchExporter(batch_size=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        traffic.device_pool(traffic.make_pool(np.random.default_rng(0),
+                                              batch=8, n_batches=1)[1])
+    assert pick_device("cpu").type == "cpu"
+
+
+def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
+    for k in KERNELS:
+        k.KERNEL.launches = 0
+    cfg = ts.SketchConfig(cm_width=1024, hll_precision=10, perdst_buckets=64,
+                          persrc_buckets=64, topk=128, hist_buckets=64,
+                          ewma_buckets=256)
+    state = ts.init_state(cfg, device="cpu")
+    _, pool = traffic.make_pool(np.random.default_rng(1), batch=300,
+                                n_batches=1)
+    ts.ingest(state, traffic.device_pool(pool, "cpu")[0])
+    assert float(state.total_records) == 300.0
+    assert [k.KERNEL.launches for k in KERNELS] == [0, 0, 0, 0]
+
+
+def test_kernel_launch_without_a_toolchain_raises():
+    """With no nvcc the first launch raises: nothing falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA box builds the kernels; this checks the "
+                    "no-toolchain path")
+    try:
+        _build.nvcc_path()
+    except RuntimeError:
+        pass
+    else:
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        hll_kernel.KERNEL.launch([], [0, 0], torch.device("cpu"))
+    assert hll_kernel.KERNEL.launches == 0
+
+
+def test_wrappers_reject_other_devices():
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        hll_kernel.update(meta.to(torch.int32), meta.long(), meta.long(),
+                          meta.bool())
