@@ -5,16 +5,22 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels of the main path from `netobserv_tpu_torch/
-csrc/`, holds each against its plain PyTorch version at the main path's
-shapes, then drives the main path through `TorchSketchExporter` at the
-default `SketchConfig()` (2 windows x 32 folds of 16,384 records of the
-seeded bench traffic), counts the kernel launches of that run, checks
-heavy-hitter recall against the exact oracle, and reruns the same windows
-with the plain versions on the card to compare the tables.
+It builds the six CUDA kernels of the port from `netobserv_tpu_torch/csrc/`
+(one `nvcc` per source, all started together), holds each against its
+plain PyTorch version at the shapes its path gives it, then drives two
+paths through `TorchSketchExporter` at the default geometry, each with the
+launch counts set to 0 just before it and read just after:
 
-Every phase prints one JSON line. Any failure prints the phase's error and
-exits non-zero, with no "ok" line. The last line on success is
+- the wide main path, `SketchConfig()` (kernels 1-4): 2 windows x 32 folds
+  of 16,384 records of the seeded bench traffic;
+- the tiered path, `SketchConfig(tiered=TierSpec())` (kernels 2, 6 and 7):
+  the same 2 windows, then one window of DECAY_FOLDS folds rolled in decay
+  mode, so the tier-level decay runs on the card.
+
+Each path checks heavy-hitter recall against the exact oracle and is rerun
+with the plain versions on the card to compare the tables. Every phase
+prints one JSON line. Any failure prints the phase's error and exits
+non-zero, with no "ok" line. The last line on success is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Times. One helper (`measure`) times a kernel, its plain version and the
@@ -25,28 +31,62 @@ time held against the bound and printed in the `kernels` line;
 `kernel_ms`, `plain_ms`, `library_ms` are CUDA-event times of the same loop
 and include whatever launch overhead it cannot hide. In-place tables are
 restored from the captured state before each call, and the restore's own
-time is subtracted from both clocks.
+time is subtracted from both clocks. Kernels 6 and 7 have no library
+yardstick: no single PyTorch call decodes, folds and promotes tiers, or
+max-folds a 6-bit packed bank.
 
 Bound. The larger of the bytes the function must move over 3.35 TB/s and
 its f32 operations over 67 TFLOP/s (H100 SXM data sheet). Bytes are this
 call's: each input read once; of an in-place table only the 32-byte
-sectors that this call's non-zero values reach, read once and written once;
-a fresh output written once. The kernel phase also prints the call's
-atomic count and the most atomics that land on one address.
+sectors that this call's non-zero values reach, read once and written once
+(for kernel 6 the sectors of the base, mid and top tiers its columns fall
+in; for kernel 7 also the sectors of the packed triples its valid records
+reach); a fresh output written once. The kernel phase also prints kernel
+1's atomic count and the most atomics that land on one address.
 
-Tolerances. Kernels 2 and 3 compute maxima and a minimum row: bit-exact.
-Kernels 1 and 4 add f32 values with atomics, in an order that changes from
-run to run: with integer-valued masses whose per-cell sums stay below 2^24
-(fresh tables, small integer masses on the main path's indices) they are
-bit-exact; with the main path's own inputs (tables warmed by earlier folds,
-hot cells past 2^24: the production regime) a cell that took n adds is held
-to 2 * (n + 1) * 2^-24 relative of the plain version. Whole windows, kernel
-path against plain path: each cell of the tables kernels 1 and 4 write is
-held to the same per-cell bound, with n counted over the window by folding
-unit masses through the plain versions; every other table (HLL registers,
-histograms, the scalar totals) is exact, and the heavy-hitter table (whose
-slot choices follow the Count-Min estimates) shares at least 99 % of its
-identities.
+Tolerances. Kernels 2 and 3 compute maxima and a minimum row: bit-exact,
+and so is kernel 7's packed HLL bank, in every regime. Kernels 1 and 4
+(and kernel 7's signal tables) add f32 values with atomics, in an order
+that changes from run to run: with integer-valued masses whose per-cell
+sums stay below 2^24 (fresh tables, small integer masses on the main
+path's indices) they are bit-exact; with the main path's own inputs
+(tables warmed by earlier folds, hot cells past 2^24: the production
+regime) a cell that took n adds is held to 2 * (n + 1) * 2^-24 relative of
+the plain version.
+
+Kernel 6 (the tier-interior CM fold) is bit-exact in the integer regime:
+fresh tiers and small integer masses, chained over CHAIN folds so the
+cascade reaches the top tier. In the production regime its bound is
+derived on the tiers. A cell that took n adds in a fold has its post-fold
+wide value (dec + adds) within n * 2^-24 * S of the exact sum on either
+side, S the cell's exact value; with the subtraction new - dec, each
+side's delta is within (n + 1) * 2^-24 * S, so the two sides' units
+du = ceil(delta / unit) differ by at most
+A = 2 * (n + 1) * 2^-24 * V / unit + 1 for a touched cell (0 for an
+untouched one), with V = max(decoded value of both sides) * (1 + 2^-8)
++ unit >= S. Over a window, from equal tiers, A sums over the window's
+folds: A = 2 * (N + F) * 2^-24 * V / unit + F, N the cell's adds and F the
+folds that touched it. Base, mid and top are clamped running sums of
+those units, so |d base| <= A per cell, |d mid| <= 2 * (sum of A over
+the mid group) and |d top| <= 2 * (sum of A over the top group). The
+decoded view, units * unit with a mid cell attributed to every saturated
+base of its group and a top cell to every saturated mid, is held per cell
+to unit * (A + [base saturated on either side] * (A_mid + [mid saturated
+on either side] * A_top) + [base saturated on one side only] * mid_total
++ [mid saturated on one side only] * top) + 4 * 2^-24 * V (the decode's
+own f32 roundings): a cell one side saturates and the other does not
+switches the attribution of a whole overflow cell. `est` is the min over
+rows of the post-fold wide value, so it is held to the largest
+2 * (n + 1) * 2^-24 * V of the record's cells. Whole windows on the
+tiered path hold the decoded CM tables to the window form of the same
+bound, with N and F counted through the plain versions.
+
+Whole windows otherwise: each f32 cell of the tables kernels 1, 4 and 7
+write is held to 2 * (n + 1) * 2^-24 relative with n counted over the
+window by folding unit masses through the plain versions; every other
+table (HLL registers, histograms, the scalar totals) is exact, and the
+heavy-hitter table (whose slot choices follow the Count-Min estimates)
+shares at least 99 % of its identities.
 """
 
 from __future__ import annotations
@@ -64,7 +104,10 @@ U = 2.0 ** -24
 BATCH = 16384
 WINDOWS = 2
 FOLDS_PER_WINDOW = 32
+DECAY_FOLDS = 8
+DECAY_FACTOR = 0.5
 WARM_FOLDS = 3
+CHAIN = 8
 REPS = 50
 
 
@@ -151,48 +194,121 @@ def measure(fn, setup=None, reps: int = REPS) -> tuple[float, float]:
     return max(both[0] - alone[0], 0.0), max(both[1] - alone[1], 0.0)
 
 
+def _exact(a, b) -> bool:
+    """Bit equality of two tensors of any dtype (integer tiers compare as
+    int64, floats by value)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        return bool(torch.equal(a, b))
+    return bool(torch.equal(a.to(torch.int64), b.to(torch.int64)))
+
+
 # ----------------------------------------------------------- the kernels
 
 
 def kernel_specs():
-    """Per kernel: its module, wrapper and plain version, which arguments
-    it updates in place (and their `state_tables` names, for the f32 sums),
-    how to cut its inputs to n rows, whether its result is exact in any
-    order, and the Pallas kernel it replaces."""
+    """Per kernel: its module, launch counter, wrapper and plain version,
+    the main path that runs it, which arguments it updates in place (and
+    their `state_tables` names, for the f32 sums), how to cut its inputs to
+    n rows, whether its result is exact in any order, and the Pallas
+    kernel it replaces."""
     from netobserv_tpu_torch.ops.kernels import (
         countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
     )
+    sig_tables = signal_kernel.SignalPlanes._fields
     return [
         dict(name="countmin_fold2", mod=countmin_kernel,
+             kernel=countmin_kernel.KERNEL, path="wide",
              wrapper="update_two", plain="update_two_plain", inplace=(0, 1),
              tables=("cm_bytes", "cm_pkts"),
              rows=lambda a, n: (a[0], a[1], *(t[:n] for t in a[2:])),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:81"),
-        dict(name="topk_reduce", mod=topk_kernel, wrapper="reduce",
-             plain="reduce_plain", inplace=(),
+        dict(name="topk_reduce", mod=topk_kernel, kernel=topk_kernel.KERNEL,
+             path="wide", wrapper="reduce", plain="reduce_plain", inplace=(),
              rows=lambda a, n: (*(t[:n] for t in a[:3]), a[3]), exact=True,
              replaces="netobserv_tpu/ops/pallas/topk_kernel.py:82"),
-        dict(name="hll_fold", mod=hll_kernel, wrapper="update",
-             plain="update_plain", inplace=(0,),
+        dict(name="hll_fold", mod=hll_kernel, kernel=hll_kernel.KERNEL,
+             path="wide", wrapper="update", plain="update_plain",
+             inplace=(0,),
              rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])), exact=True,
              replaces="netobserv_tpu/ops/pallas/hll_kernel.py:70"),
-        dict(name="signal_fold", mod=signal_kernel, wrapper="update",
-             plain="update_plain", inplace=(0,),
-             tables=signal_kernel.SignalPlanes._fields,
+        dict(name="signal_fold", mod=signal_kernel,
+             kernel=signal_kernel.KERNEL, path="wide", wrapper="update",
+             plain="update_plain", inplace=(0,), tables=sig_tables,
              rows=lambda a, n: (a[0], a[1][:, :n].contiguous(),
                                 a[2][:, :n].contiguous()),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:164"),
+        dict(name="countmin_tier2", mod=countmin_kernel,
+             kernel=countmin_kernel.KERNEL_TIER2, path="tiered",
+             wrapper="update_two_tiered", plain="update_two_tiered_plain",
+             inplace=(0, 1), tables=("cm_bytes", "cm_pkts"),
+             rows=lambda a, n: (a[0], a[1], *(t[:n] for t in a[2:6]), a[6]),
+             exact=False, chain=CHAIN,
+             library_note="no single PyTorch call decodes, folds and "
+                          "promotes the tiers",
+             replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:199"),
+        dict(name="signal_fold_tiered", mod=signal_kernel,
+             kernel=signal_kernel.KERNEL_TIERED, path="tiered",
+             wrapper="update_tiered", plain="update_tiered_plain",
+             inplace=(0, 1), tables=sig_tables,
+             rows=lambda a, n: (a[0], a[1], a[2][:, :n].contiguous(),
+                                a[3][:, :n].contiguous(),
+                                *(t[:n] for t in a[4:])),
+             exact=False,
+             library_note="no single PyTorch call max-folds a 6-bit "
+                          "packed bank",
+             replaces="netobserv_tpu/ops/pallas/signal_kernel.py:214"),
     ]
 
 
+def _unit_cells(spec, args):
+    """The tables an f32-sum kernel adds into, zeroed, and the call's
+    arguments with every non-zero value replaced by 1.0 (its plain version
+    then counts each cell's adds)."""
+    import torch
+    a = _clone(args)
+    name = spec["name"]
+    if name == "countmin_fold2":
+        for t in a[:2]:
+            t.zero_()
+        return a[:2], (*a[:4], (a[4] != 0).float(), (a[5] != 0).float())
+    if name == "countmin_tier2":
+        pa, pb, h1, h2, va, vb, _ = a
+        d, w = pa.base.shape
+        wide = [torch.zeros((d, w), device=va.device) for _ in range(2)]
+        return wide, (*wide, h1, h2, (va != 0).float(), (vb != 0).float())
+    for t in a[0]:  # signal_fold, signal_fold_tiered: the eight tables
+        t.zero_()
+    idx, vals = (a[2], a[3]) if name == "signal_fold_tiered" else a[1:3]
+    return a[0], (a[0], idx, (vals != 0).to(torch.float32))
+
+
+def adds_per_cell(spec, args) -> list:
+    """How many non-zero values each cell of the kernel's f32 tables (for
+    kernel 6: of its wide view) takes in this call: the n of the bounds."""
+    from netobserv_tpu_torch.ops.kernels import (
+        countmin_kernel, signal_kernel,
+    )
+    tables, unit_args = _unit_cells(spec, args)
+    if spec["name"] in ("countmin_fold2", "countmin_tier2"):
+        countmin_kernel.update_two_plain(*unit_args)
+    else:
+        signal_kernel.update_plain(*unit_args)
+    return _tensors(tuple(tables))
+
+
 @contextlib.contextmanager
-def plain_versions(specs, adds: dict | None = None):
+def plain_versions(specs, adds: dict | None = None,
+                   touched: dict | None = None):
     """Route every wrapper to its plain version (on any device) for the
     duration: the main path then runs the kernels' PyTorch twins. With
     `adds`, every call of an f32-sum kernel also adds its per-cell count of
-    non-zero values into adds[table name] (the n of the add-order bound)."""
+    non-zero values into adds[table name], and into touched[table name]
+    one for every cell the call reached (the N and F of the bounds)."""
     saved = [(s["mod"], getattr(s["mod"], s["wrapper"])) for s in specs]
     for s in specs:
         plain = getattr(s["mod"], s["plain"])
@@ -200,6 +316,9 @@ def plain_versions(specs, adds: dict | None = None):
             def plain(*args, _s=s, _fn=plain):
                 for name, n in zip(_s["tables"], adds_per_cell(_s, args)):
                     adds[name] = adds[name] + n if name in adds else n
+                    hit = (n > 0).float()
+                    touched[name] = (touched[name] + hit if name in touched
+                                     else hit)
                 return _fn(*args)
         setattr(s["mod"], s["wrapper"], plain)
     try:
@@ -227,37 +346,108 @@ def recording(specs, calls: dict):
 
 
 def run_once(spec, fn_name: str, args):
-    """Call the kernel (or plain version) on a clone of args; return the
-    output tensors (the in-place tables, or the returned tuple)."""
-    a = _clone(args)
-    out = getattr(spec["mod"], fn_name)(*a)
-    if spec["inplace"]:
-        return _tensors(tuple(a[i] for i in spec["inplace"]))
-    return _tensors(out)
+    """Call the kernel (or plain version) on args in place; return the
+    output tensors: the in-place tables, then whatever it returned."""
+    out = getattr(spec["mod"], fn_name)(*args)
+    return _tensors(tuple(args[i] for i in spec["inplace"])) + _tensors(out)
 
 
-def adds_per_cell(spec, args):
-    """How many non-zero values each output cell takes in this call (the
-    n of the add-order bound), via the plain version on unit values."""
+def _expand(x, g: int):
+    return x.repeat_interleave(g, dim=-1)
+
+
+def tier_view_check(tk, tp, n_adds, n_folds, spec, unit: int) -> dict:
+    """Hold one plane's tiers and decoded view, kernel side `tk` against
+    plain side `tp` (base, mid, top), to the bound of the module docstring,
+    given the per-cell adds `n_adds` and touching folds `n_folds` since the
+    two sides were equal. Returns the worst reading beside its bound."""
     import torch
-    a = _clone(args)
-    if spec["name"] == "countmin_fold2":
-        for t in a[:2]:
-            t.zero_()
-        a = (a[0], a[1], a[2], a[3], (a[4] != 0).float(),
-             (a[5] != 0).float())
-    else:  # signal_fold
-        for t in a[0]:
-            t.zero_()
-        a = (a[0], a[1], (a[2] != 0).to(torch.float32))
-    getattr(spec["mod"], spec["plain"])(*a)
-    return _tensors(tuple(a[i] for i in spec["inplace"]))
+    from netobserv_tpu_torch.sketch import tiered
+    mg, tg = spec.mid_group, spec.top_group
+    tk, tp = tiered.TieredPlane(*tk), tiered.TieredPlane(*tp)
+    bk, mk, ok = (x.to(torch.int64) for x in tk)
+    bp, mp, op = (x.to(torch.int64) for x in tp)
+    dk = tiered.decode_plane(tk, spec, unit).double()
+    dp = tiered.decode_plane(tp, spec, unit).double()
+    d, w = dk.shape
+    v = torch.maximum(dk, dp) * (1 + 2.0 ** -8) + unit
+    n_adds, n_folds = n_adds.double(), n_folds.double()
+    a = 2 * (n_adds + n_folds) * U * v / unit + n_folds
+    a_mid = 2 * a.reshape(d, w // mg, mg).sum(-1)
+    a_top = 2 * a.reshape(d, w // tg, tg).sum(-1)
+    for name, x, y, lim in (("base", bk, bp, a), ("mid", mk, mp, a_mid),
+                            ("top", ok, op, a_top)):
+        check(bool(((x - y).abs() <= lim).all()),
+              f"tier {name}: kernel and plain differ past their bound")
+    satb_k, satb_p = bk == tiered.BASE_MAX, bp == tiered.BASE_MAX
+    satm_k, satm_p = mk == tiered.MID_MAX, mp == tiered.MID_MAX
+    per_mid = tg // mg
+
+    def mid_total(m, t):
+        return (m + (m == tiered.MID_MAX) * _expand(t, per_mid)).double()
+
+    sb = (satb_k | satb_p).double()
+    fb = (satb_k ^ satb_p).double()
+    sm = _expand((satm_k | satm_p).double(), mg)
+    fm = _expand((satm_k ^ satm_p).double(), mg)
+    lim = unit * (a + sb * (_expand(a_mid, mg) + sm * _expand(a_top, tg))
+                  + fb * _expand(torch.maximum(mid_total(mk, ok),
+                                               mid_total(mp, op)), mg)
+                  + sb * fm * _expand(torch.maximum(ok, op).double(), tg)
+                  ) + 4 * U * v
+    diff = (dk - dp).abs()
+    check(bool((diff <= lim).all()),
+          "decoded view: kernel and plain differ past the tier bound")
+    i = int(diff.argmax())
+    return {"max_abs_diff": float(diff.reshape(-1)[i]),
+            "bound_there": float(lim.reshape(-1)[i]),
+            "value_there": float(dp.reshape(-1)[i]),
+            "max_diff_over_bound": float((diff / lim).max()),
+            "base_saturation_flips": int(fb.sum()),
+            "mid_saturation_flips": int((satm_k ^ satm_p).sum())}
+
+
+def compare_tier2(spec, args, kern, plain) -> dict:
+    """Kernel 6 in the production regime: each plane's tiers and decoded
+    view, and est, under the bound of the module docstring."""
+    import torch
+    from netobserv_tpu_torch.ops import hashing
+    pa, pb, h1, h2, va, vb, tspec = args
+    n_a, n_b = adds_per_cell(spec, args)
+    out = {}
+    for p, (name, n, unit) in enumerate((("cm_bytes", n_a,
+                                          tspec.bytes_unit),
+                                         ("cm_pkts", n_b, 1))):
+        out[name] = tier_view_check(kern[3 * p:3 * p + 3],
+                                    plain[3 * p:3 * p + 3], n,
+                                    (n > 0).float(), tspec, unit)
+    from netobserv_tpu_torch.sketch import tiered
+    dmax = torch.maximum(
+        tiered.decode_plane(tiered.TieredPlane(*kern[:3]), tspec,
+                            tspec.bytes_unit),
+        tiered.decode_plane(tiered.TieredPlane(*plain[:3]), tspec,
+                            tspec.bytes_unit)).double()
+    delta = 2 * (n_a.double() + 1) * U * (dmax * (1 + 2.0 ** -8)
+                                          + tspec.bytes_unit)
+    d, w = dmax.shape
+    idx = hashing.row_indices(h1, h2, d, w)
+    est_lim = torch.gather(delta, 1, idx).amax(dim=0)
+    est_k, est_p = kern[6].double(), plain[6].double()
+    diff = (est_k - est_p).abs()
+    check(bool((diff <= est_lim).all()), "est: kernel and plain differ "
+          "past 2*(n+1)*2^-24*V")
+    i = int(diff.argmax())
+    out["est"] = {"max_abs_diff": float(diff[i]),
+                  "bound_there": float(est_lim[i]),
+                  "max_rel_diff": float((diff / est_p.abs().clamp(
+                      min=1e-30)).max())}
+    return out
 
 
 def compare(spec, args, regime: str) -> dict:
     import torch
-    kern = run_once(spec, spec["wrapper"], args)
-    plain = run_once(spec, spec["plain"], args)
+    kern = run_once(spec, spec["wrapper"], _clone(args))
+    plain = run_once(spec, spec["plain"], _clone(args))
     torch.cuda.synchronize()
     max_abs = max_rel = 0.0
     for k, p in zip(kern, plain):
@@ -269,25 +459,40 @@ def compare(spec, args, regime: str) -> dict:
             mag = torch.maximum(k.double().abs(), p.double().abs())
             max_rel = max(max_rel, float((d / mag.clamp(min=1e-30)).max()))
         else:
-            max_abs = max(max_abs, float((k.long() - p.long()).abs().max()))
+            max_abs = max(max_abs, float((k.to(torch.int64)
+                                          - p.to(torch.int64)).abs().max()))
+    res = {"max_abs_err": max_abs, "max_rel_err": max_rel}
+    if spec["name"] == "signal_fold_tiered":
+        check(_exact(kern[8], plain[8]),
+              f"signal_fold_tiered ({regime}): packed HLL bank differs")
     if spec["exact"] or regime == "integer":
         if regime == "integer" and not spec["exact"]:
-            top = max(float(p.abs().max()) for p in plain)
+            top = max(float(p.double().abs().max()) for p in plain)
+            if spec["name"] == "countmin_tier2":
+                from netobserv_tpu_torch.sketch import tiered
+                tspec = args[6]
+                top = max(float(tiered.decode_plane(
+                    tiered.TieredPlane(*plain[3 * p:3 * p + 3]), tspec,
+                    u).max()) for p, u in ((0, tspec.bytes_unit), (1, 1)))
             check(top < 2 ** 24, f"{spec['name']}: integer regime input "
                   f"reaches {top} >= 2^24")
-        check(all(torch.equal(k, p) for k, p in zip(kern, plain)),
+        check(all(_exact(k, p) for k, p in zip(kern, plain)),
               f"{spec['name']} ({regime}): not bit-exact, max abs err "
               f"{max_abs}")
-        bound = "bit-exact"
+        res["bound"] = "bit-exact"
+    elif spec["name"] == "countmin_tier2":
+        res.update(bound="tier bound (module docstring)",
+                   worst=compare_tier2(spec, args, kern, plain))
     else:
         adds = adds_per_cell(spec, args)
         for k, p, n in zip(kern, plain, adds):
             lim = 2 * (n.double() + 1) * U * torch.maximum(
                 k.double().abs(), p.double().abs())
             check(bool(((k.double() - p.double()).abs() <= lim).all()),
-                  f"{spec['name']} ({regime}): outside the 2*(n+1)*2^-24 bound")
-        bound = "2*(n_adds+1)*2^-24 relative per cell"
-    return {"max_abs_err": max_abs, "max_rel_err": max_rel, "bound": bound}
+                  f"{spec['name']} ({regime}): outside the 2*(n+1)*2^-24 "
+                  "bound")
+        res["bound"] = "2*(n_adds+1)*2^-24 relative per cell"
+    return res
 
 
 def integer_inputs(spec, args):
@@ -305,11 +510,41 @@ def integer_inputs(spec, args):
         return torch.where(v != 0, torch.remainder(v, 251.0).floor() + 1,
                            0.0)
 
-    if spec["name"] == "countmin_fold2":
+    name = spec["name"]
+    if name == "countmin_fold2":
         return (*a[:4], small(a[4]), small(a[5]))
-    if spec["name"] == "signal_fold":
+    if name == "countmin_tier2":
+        return (*a[:4], small(a[4]), small(a[5]), a[6])
+    if name == "signal_fold":
         return (a[0], a[1], small(a[2]))
+    if name == "signal_fold_tiered":
+        return (a[0], a[1], a[2], small(a[3]), *a[4:])
     return a
+
+
+def integer_chain(spec, args) -> list[dict]:
+    """Kernel 6 in the integer regime over CHAIN folds of the same call
+    from fresh tiers, the kernel and the plain version each on its own
+    tiers, bit-exact after every fold; the last fold must have reached the
+    top tier."""
+    from netobserv_tpu_torch.sketch import tiered
+    a = integer_inputs(spec, args)
+    ak, ap = _clone(a), _clone(a)
+    out = []
+    for fold in range(spec["chain"]):
+        kern = run_once(spec, spec["wrapper"], ak)
+        plain = run_once(spec, spec["plain"], ap)
+        top = max(float(tiered.decode_plane(
+            tiered.TieredPlane(*plain[3 * p:3 * p + 3]), a[6], u).max())
+            for p, u in ((0, a[6].bytes_unit), (1, 1)))
+        check(top < 2 ** 24, f"integer chain reaches {top} >= 2^24")
+        check(all(_exact(k, p) for k, p in zip(kern, plain)),
+              f"{spec['name']} (integer chain fold {fold}): not bit-exact")
+        out.append({"fold": fold, "max_decoded": top})
+    tops = sum(int((p.top.to("cpu").numpy() > 0).sum()) for p in ak[:2])
+    check(tops > 0, "integer chain never reached the top tier")
+    out[-1]["top_cells_active"] = tops
+    return out
 
 
 def timing(spec, args):
@@ -334,11 +569,14 @@ def timing(spec, args):
 
 def library_call(spec, args):
     """One PyTorch call computing the same function (a yardstick only; the
-    port never calls it), with its index/value prep done outside it."""
+    port never calls it), with its index/value prep done outside it; None
+    where there is none."""
     import torch
     from netobserv_tpu_torch.ops import hashing
     from netobserv_tpu_torch.ops.kernels import hll_kernel
     name = spec["name"]
+    if "library_note" in spec:
+        return None
     if name == "countmin_fold2":
         ca, cb, h1, h2, va, vb = args
         d, w = ca.shape
@@ -374,11 +612,19 @@ def library_call(spec, args):
     return lambda: table.index_add_(0, cell, flat)
 
 
-def _sector_bytes(cells) -> int:
-    """Bytes of the distinct 32-byte sectors that f32/i32 cells reach, read
-    once and written once."""
+def _sector_bytes(elems, elem_size: int = 4) -> int:
+    """Bytes of the distinct 32-byte sectors that the given element indices
+    of one array reach, read once and written once."""
     import torch
-    return 2 * 32 * int(torch.unique(cells // 8).numel())
+    return 2 * 32 * int(torch.unique(elems // (32 // elem_size)).numel())
+
+
+def _signal_bytes_ops(planes, idx, vals) -> tuple[int, int]:
+    from netobserv_tpu_torch.ops.kernels.signal_kernel import FAMILY
+    nbytes = sum(t.numel() * t.element_size() for t in (idx, vals)) + sum(
+        _sector_bytes(idx[FAMILY[j]][vals[j] != 0])
+        for j in range(len(planes)))
+    return nbytes, int((vals != 0).sum())
 
 
 def bound_of(spec, args) -> dict:
@@ -387,6 +633,7 @@ def bound_of(spec, args) -> dict:
     f32 peak (see the module docstring), with the counts behind them."""
     import torch
     from netobserv_tpu_torch.ops import hashing
+
     def read(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -402,6 +649,23 @@ def bound_of(spec, args) -> dict:
         ops = sum(c.numel() for c in hits)  # one f32 add per atomic
         extra = {"atomics": ops, "max_atomics_one_address": max(
             int(torch.bincount(c).max()) for c in hits if c.numel())}
+    elif name == "countmin_tier2":
+        pa, pb, h1, h2, va, vb, tspec = args
+        d, w = pa.base.shape
+        cols = hashing.row_indices(h1, h2, d, w)
+        rows = torch.arange(d, device=h1.device)[:, None].expand_as(cols)
+        nbytes = read((h1, h2, va, vb)) + 4 * h1.numel()  # inputs, est
+        ops = 0
+        for plane, v in ((pa, va), (pb, vb)):
+            c, r = cols[:, v != 0].reshape(-1), rows[:, v != 0].reshape(-1)
+            ops += c.numel()
+            for arr, g in ((plane.base, 1), (plane.mid, tspec.mid_group),
+                           (plane.top, tspec.top_group)):
+                nbytes += _sector_bytes(r * (w // g) + c // g,
+                                        arr.element_size())
+        extra = {"adds": ops, "max_adds_one_cell": max(
+            int(torch.bincount((cols + rows * w)[:, v != 0].reshape(-1)
+                               ).max()) for v in (va, vb))}
     elif name == "topk_reduce":
         mslot, target, est, k = args
         nbytes = read((mslot, target, est)) + 3 * k * 4  # fresh outputs
@@ -411,13 +675,16 @@ def bound_of(spec, args) -> dict:
         nbytes = read((h1, h2, valid)) + _sector_bytes(
             (h1 & (regs.shape[0] - 1))[valid])
         ops = int(valid.sum())
+    elif name == "signal_fold_tiered":
+        planes, packed, idx, vals, h1, h2, valid = args
+        nbytes, ops = _signal_bytes_ops(planes, idx, vals)
+        m_hll = packed.shape[0] // 3 * 4
+        first = 3 * ((h1 & (m_hll - 1))[valid] // 4)  # first byte of triple
+        nbytes += read((h1, h2, valid)) + _sector_bytes(
+            torch.cat([first, first + 2]), 1)
+        ops += int(valid.sum())
     else:
-        planes, idx, vals = args
-        from netobserv_tpu_torch.ops.kernels.signal_kernel import FAMILY
-        nbytes = read((idx, vals)) + sum(
-            _sector_bytes(idx[FAMILY[j]][vals[j] != 0])
-            for j in range(len(planes)))
-        ops = int((vals != 0).sum())
+        nbytes, ops = _signal_bytes_ops(*args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -426,17 +693,17 @@ def bound_of(spec, args) -> dict:
 
 
 def uniform_variant(spec, args):
-    """The same call with the hot key spread out: random hashes (kernel 1)
-    or random slots (kernel 2), to price same-address atomics."""
+    """The same call with the hot key spread out: random hashes (kernels 1
+    and 6) or random slots (kernel 2), to price same-address atomics."""
     import torch
-    g = torch.Generator(device=args[2].device if spec["name"] ==
-                        "countmin_fold2" else args[0].device).manual_seed(1)
-    if spec["name"] == "countmin_fold2":
-        ca, cb, h1, h2, va, vb = args
+    if spec["name"] in ("countmin_fold2", "countmin_tier2"):
+        h1 = args[2]
+        g = torch.Generator(device=h1.device).manual_seed(1)
         r = lambda: torch.randint(0, 2**32, h1.shape, generator=g,  # noqa
                                   device=h1.device, dtype=torch.int64)
-        return (ca, cb, r(), r() | 1, va, vb)
+        return (*args[:2], r(), r() | 1, *args[4:])
     mslot, target, est, k = args
+    g = torch.Generator(device=mslot.device).manual_seed(1)
     r = lambda: torch.randint(0, k + 1, mslot.shape, generator=g,  # noqa
                               device=mslot.device, dtype=torch.int64)
     return (r(), r(), est, k)
@@ -463,17 +730,23 @@ def phase_device() -> dict:
 def phase_build(specs) -> dict:
     from netobserv_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    secs = _build.build([s["mod"].SOURCE for s in specs])
+    secs = _build.build(sorted({s["kernel"].source for s in specs}))
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "per_source_seconds": secs}
 
 
-def capture_main_path_inputs(specs, universe, pool, dense):
-    """Warm a default-config state with WARM_FOLDS folds (plain versions),
+def tiered_cfg():
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.sketch.tiered import TierSpec
+    return sk.SketchConfig(tiered=TierSpec())
+
+
+def capture_main_path_inputs(specs, dense, cfg) -> dict:
+    """Warm a state under `cfg` with WARM_FOLDS folds (plain versions),
     then record every wrapper call of one more fold: the exact inputs the
-    main path hands each kernel, production-regime tables included."""
+    path hands each kernel, production-regime tables included."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
-    exp = TorchSketchExporter(batch_size=BATCH, device="cuda")
+    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
     calls: dict = {}
     with plain_versions(specs):
         for i in range(WARM_FOLDS):
@@ -488,9 +761,9 @@ def phase_kernels(specs, calls) -> list[dict]:
     import torch
     results = []
     for s in specs:
-        recs = calls.get(s["name"], [])
+        recs = calls[s["path"]].get(s["name"], [])
         check(len(recs) >= 1, f"{s['name']}: the main path never called it")
-        case = {"phase": "kernel", "name": s["name"],
+        case = {"phase": "kernel", "name": s["name"], "path": s["path"],
                 "calls_per_fold": len(recs), "cases": []}
         errs = []
         for ci, args in enumerate(recs):
@@ -503,14 +776,19 @@ def phase_kernels(specs, calls) -> list[dict]:
                     case["cases"].append(r)
                     errs.append(r["max_abs_err"])
         args = recs[0]
+        if "chain" in s:
+            case["integer_chain"] = integer_chain(s, args)
         (k_ms, dev_k_ms), (p_ms, dev_p_ms) = timing(s, args)
-        lib_ms, dev_lib_ms = measure(library_call(s, args))
+        lib = library_call(s, args)
+        lib_ms, dev_lib_ms = measure(lib) if lib else (None, None)
         case.update(kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                     device_kernel_ms=dev_k_ms, device_plain_ms=dev_p_ms,
                     device_library_ms=dev_lib_ms, **bound_of(s, args),
                     max_abs_err=max(errs),
                     max_rel_err=max(c["max_rel_err"] for c in case["cases"]))
-        if s["name"] in ("countmin_fold2", "topk_reduce"):
+        if "library_note" in s:
+            case["library_note"] = s["library_note"]
+        if s["name"] in ("countmin_fold2", "topk_reduce", "countmin_tier2"):
             uni = uniform_variant(s, args)
             case["device_kernel_ms_uniform_keys"] = timing(s, uni)[0][1]
         torch.cuda.synchronize()
@@ -524,57 +802,103 @@ def hot_key_rows(pool) -> list[int]:
     return [int(np.bincount(ranks).max()) for _, ranks in pool]
 
 
-def run_windows(dense, n_windows: int, plain: bool, specs):
-    """Fold n_windows x FOLDS_PER_WINDOW batches through the exporter (in
-    its default reset roll mode); per window, the pre-roll tables, the
-    report and the fold time, and on the plain run the per-cell add counts
-    of the window's f32 sums."""
+def _window(exp, dense, first: int, n_folds: int, adds: dict,
+            touched: dict) -> dict:
+    """Fold n_folds batches from dense[first:], then read the pre-roll
+    tables (and tier arrays), roll, and time each step."""
     import torch
+    from netobserv_tpu_torch.sketch import tiered
+    adds.clear()
+    touched.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feed = []
+    for i in range(n_folds):
+        bi = (first + i) % len(dense)
+        feed.append(bi)
+        exp.fold_dense(dense[bi])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tables = exp.state_tables()
+    t2 = time.perf_counter()
+    tiers = (_clone(exp.state.tables)
+             if isinstance(exp.state, tiered.TieredState) else None)
+    report = exp.roll()
+    return dict(feed=feed, seconds=secs, tables=tables, tiers=tiers,
+                report=report, tables_seconds=t2 - t1,
+                roll_seconds=time.perf_counter() - t2,
+                adds={k: v.cpu().numpy() for k, v in adds.items()},
+                touched={k: v.cpu().numpy() for k, v in touched.items()})
+
+
+def run_windows(dense, plain: bool, specs, cfg, decay_window: bool = False):
+    """Fold WINDOWS x FOLDS_PER_WINDOW batches through an exporter under
+    `cfg` (reset roll mode), and with `decay_window` one more window of
+    DECAY_FOLDS rolled in decay mode. Per window the pre-roll tables (and
+    tier arrays), the report, the times and, on the plain run, the
+    per-cell add counts of the window's f32 sums. The launch counts are set
+    to 0 just before the reset windows and read just after them."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.sketch import tiered
     adds: dict = {}
-    ctx = plain_versions(specs, adds) if plain else contextlib.nullcontext()
-    out = []
+    touched: dict = {}
+    ctx = (plain_versions(specs, adds, touched) if plain
+           else contextlib.nullcontext())
+    out = {}
     with ctx:
-        exp = TorchSketchExporter(batch_size=BATCH, device="cuda")
-        for w in range(n_windows):
-            adds.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            feed = []
-            for i in range(FOLDS_PER_WINDOW):
-                bi = (w * FOLDS_PER_WINDOW + i) % len(dense)
-                feed.append(bi)
-                exp.fold_dense(dense[bi])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            tables = exp.state_tables()
-            t2 = time.perf_counter()
-            report = exp.roll()
-            out.append(dict(feed=feed, seconds=secs, tables=tables,
-                            report=report, tables_seconds=t2 - t1,
-                            roll_seconds=time.perf_counter() - t2,
-                            adds={k: v.cpu().numpy()
-                                  for k, v in adds.items()}))
-        folds, rolls = exp.folds, exp.rolls
+        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
+        for s in specs:
+            s["kernel"].launches = 0
+        out["windows"] = [
+            _window(exp, dense, w * FOLDS_PER_WINDOW, FOLDS_PER_WINDOW, adds,
+                    touched) for w in range(WINDOWS)]
+        out["launches"] = {s["name"]: s["kernel"].launches for s in specs}
+        out["folds"], out["rolls"] = exp.folds, exp.rolls
+        out["resident_bytes"] = exp.counter_table_bytes()
+        if decay_window:
+            exp.reset_sketches, exp.decay_factor = False, DECAY_FACTOR
+            for s in specs:
+                s["kernel"].launches = 0
+            pre = _clone(exp.state.tables)
+            win = _window(exp, dense, WINDOWS * FOLDS_PER_WINDOW,
+                          DECAY_FOLDS, adds, touched)
+            win["launches"] = {s["name"]: s["kernel"].launches
+                               for s in specs}
+            decayed = [tiered.decay_plane(getattr(win["tiers"], p),
+                                          DECAY_FACTOR)
+                       for p in ("cm_bytes", "cm_pkts")]
+            got = (exp.state.tables.cm_bytes, exp.state.tables.cm_pkts)
+            win["decay_exact"] = all(_exact(x, y) for pw, pg in zip(
+                decayed, got) for x, y in zip(pw, pg))
+            win["hll_reset"] = not any(bool(t.any()) for t in (
+                exp.state.tables.hll_src, exp.state.tables.hll_per_dst,
+                exp.state.tables.hll_per_src))
+            win["tiers_moved"] = not all(_exact(x, y) for x, y in zip(
+                _tensors(pre), _tensors(exp.state.tables)))
+            out["decay"] = win
         exp.close()
-    return out, folds, rolls
+    return out
 
 
-def compare_tables(a: dict, b: dict, adds: dict) -> dict:
+def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
     """Kernel-path vs plain-path tables of one window: a cell that took n
-    f32 adds (`adds`) is held to 2 * (n + 1) * 2^-24 relative; every other
-    table is exact, apart from the heavy-hitter table (identity overlap)
-    and its eviction count, which follows it."""
+    f32 adds (`adds`) is held to 2 * (n + 1) * 2^-24 relative, except the
+    tiered CM tables, which `tier_check(name)` holds to the tier bound;
+    every other table is exact, apart from the heavy-hitter table
+    (identity overlap) and its eviction count, which follows it."""
     import numpy as np
     worst = 0.0
+    tier = {}
     for k in a:
         x, y = a[k], b[k]
         if k.startswith("heavy"):
             continue
         if k == "scalars":
             x, y = x[:-1], y[:-1]  # heavy_evictions, the last, as above
-        if k in adds:
+        if tier_check is not None and k in ("cm_bytes", "cm_pkts"):
+            tier[k] = tier_check(k)
+        elif k in adds:
             x64, y64 = x.astype(np.float64), y.astype(np.float64)
             mag = np.maximum(np.abs(x64), np.abs(y64))
             lim = 2 * (adds[k].astype(np.float64) + 1) * U * mag
@@ -590,59 +914,141 @@ def compare_tables(a: dict, b: dict, adds: dict) -> dict:
     ia, ib = ids(a), ids(b)
     overlap = len(ia & ib) / max(len(ia | ib), 1)
     check(overlap >= 0.99, f"heavy identities overlap {overlap} < 0.99")
-    return {"max_rel_diff": worst, "bound": "2*(n+1)*2^-24 per cell",
-            "max_adds_per_cell": max(float(v.max()) for v in adds.values()),
-            "heavy_identity_overlap": overlap}
+    out = {"max_rel_diff": worst, "bound": "2*(n+1)*2^-24 per cell",
+           "max_adds_per_cell": max(float(v.max()) for v in adds.values()),
+           "heavy_identity_overlap": overlap}
+    if tier:
+        out["tier_bound"] = tier
+    return out
 
 
-def phase_main_path(specs, universe, pool, dense) -> dict:
+def _check_windows(wins, universe, pool) -> list[float]:
+    """Recall@100 >= 0.99 and a sane report in every window."""
     from netobserv_tpu_torch.scenarios import traffic
-    for s in specs:
-        s["mod"].KERNEL.launches = 0
-    wins, folds, rolls = run_windows(dense, WINDOWS, False, specs)
-    launches = {s["name"]: s["mod"].KERNEL.launches for s in specs}
-    n_folds = WINDOWS * FOLDS_PER_WINDOW
-    want = {"countmin_fold2": n_folds, "topk_reduce": 2 * n_folds,
-            "hll_fold": n_folds, "signal_fold": n_folds}
-    check(launches == want, f"launch counts {launches}, want {want}")
-    check(folds == n_folds and rolls == WINDOWS,
-          f"exporter counted {folds} folds, {rolls} rolls")
     recalls = [traffic.check_recall(w["tables"]["heavy_words"],
                                     w["tables"]["heavy_valid"], w["feed"],
                                     universe, pool) for w in wins]
     check(min(recalls) >= 0.99, f"recall@100 {recalls} < 0.99")
-    rows = FOLDS_PER_WINDOW * BATCH
     for w in wins:
         rep = w["report"]
-        check(rep["Records"] == float(rows), f"report records {rep['Records']}")
+        rows = len(w["feed"]) * BATCH
+        check(rep["Records"] == float(rows),
+              f"report records {rep['Records']}")
         check(len(rep["HeavyHitters"]) == 64, "report heavy hitters")
         for v in (rep["Bytes"], rep["DistinctSrcEstimate"],
                   *rep["RttQuantilesUs"].values()):
             check(v == v and abs(v) < float("inf"), "non-finite report value")
-    plain, _, _ = run_windows(dense, WINDOWS, True, specs)
-    cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
-           for w, p in zip(wins, plain)]
+    return recalls
+
+
+def _window_summary(run: dict, plain: dict, cmp: list) -> dict:
+    wins = run["windows"]
     secs = [w["seconds"] for w in wins]
-    return {"phase": "main_path", "launches": launches, "folds": folds,
-            "rolls": rolls, "recall_at_100": recalls,
-            "records_per_window": rows, "window_seconds": secs,
+    rows = FOLDS_PER_WINDOW * BATCH
+    return {"launches": run["launches"], "folds": run["folds"],
+            "rolls": run["rolls"], "records_per_window": rows,
+            "window_seconds": secs,
             "records_per_s": [rows / s for s in secs],
             "state_tables_seconds": [w["tables_seconds"] for w in wins],
             "roll_seconds": [w["roll_seconds"] for w in wins],
-            "plain_window_seconds": [p["seconds"] for p in plain],
-            "plain_records_per_s": [rows / p["seconds"] for p in plain],
-            "vs_plain": cmp, "hot_key_rows_per_fold": hot_key_rows(pool),
+            "plain_window_seconds": [p["seconds"]
+                                     for p in plain["windows"]],
+            "plain_records_per_s": [rows / p["seconds"]
+                                    for p in plain["windows"]],
+            "vs_plain": cmp,
             "distinct_src_estimate": [w["report"]["DistinctSrcEstimate"]
                                       for w in wins]}
 
 
-def phase_profile(dense) -> dict:
-    """Device time by kernel over FOLDS_PER_WINDOW // 4 folds of the main
-    path (torch.profiler), and the device's busy share of the wall time."""
+def _want_launches(specs, path: str) -> dict:
+    """Launches over WINDOWS x FOLDS_PER_WINDOW folds: one per fold for
+    each kernel of the path, two for kernel 2 (its two rounds), zero for
+    the other path's kernels."""
+    n = WINDOWS * FOLDS_PER_WINDOW
+    return {s["name"]: (2 * n if s["name"] == "topk_reduce"
+                        else n if s["path"] == path else 0) for s in specs}
+
+
+def phase_main_path(specs, universe, pool, dense) -> dict:
+    from netobserv_tpu_torch.sketch import state as sk
+    run = run_windows(dense, False, specs, sk.SketchConfig())
+    want = _want_launches(specs, "wide")
+    check(run["launches"] == want,
+          f"launch counts {run['launches']}, want {want}")
+    check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
+          and run["rolls"] == WINDOWS,
+          f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
+    recalls = _check_windows(run["windows"], universe, pool)
+    plain = run_windows(dense, True, specs, sk.SketchConfig())
+    cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
+           for w, p in zip(run["windows"], plain["windows"])]
+    return {"phase": "main_path", "recall_at_100": recalls,
+            **_window_summary(run, plain, cmp),
+            "resident_bytes": run["resident_bytes"],
+            "hot_key_rows_per_fold": hot_key_rows(pool)}
+
+
+def _tier_checker(w: dict, p: dict, tspec):
+    """tier_check for compare_tables: hold one window's decoded CM table
+    of the kernel run `w` against the plain run `p` to the tier bound."""
+    import torch
+
+    def fn(name: str) -> dict:
+        unit = tspec.bytes_unit if name == "cm_bytes" else 1
+        n = torch.from_numpy(p["adds"][name]).cuda()
+        f = torch.from_numpy(p["touched"][name]).cuda()
+        return tier_view_check(getattr(w["tiers"], name),
+                               getattr(p["tiers"], name), n, f, tspec, unit)
+
+    return fn
+
+
+def phase_tiered_path(specs, universe, pool, dense) -> dict:
+    cfg = tiered_cfg()
+    run = run_windows(dense, False, specs, cfg, decay_window=True)
+    want = _want_launches(specs, "tiered")
+    check(run["launches"] == want,
+          f"tiered launch counts {run['launches']}, want {want}")
+    check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
+          and run["rolls"] == WINDOWS,
+          f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
+    dec = run["decay"]
+    want_decay = {k: v * DECAY_FOLDS // (WINDOWS * FOLDS_PER_WINDOW)
+                  for k, v in want.items()}
+    check(dec["launches"] == want_decay,
+          f"decay window launches {dec['launches']}, want {want_decay}")
+    check(dec["decay_exact"], "decay roll: the tiers are not decay_plane "
+          "of the pre-roll tiers")
+    check(dec["hll_reset"] and dec["tiers_moved"],
+          "decay roll: HLL banks not reset or tiers unchanged")
+    wins = run["windows"] + [dec]
+    recalls = _check_windows(wins, universe, pool)
+    plain = run_windows(dense, True, specs, cfg, decay_window=True)
+    pwins = plain["windows"] + [plain["decay"]]
+    cmp = [compare_tables(w["tables"], p["tables"], p["adds"],
+                          _tier_checker(w, p, cfg.tiered))
+           for w, p in zip(wins, pwins)]
+    from netobserv_tpu_torch.sketch import tiered
+    occ = {p: tiered.plane_occupancy(getattr(run["windows"][-1]["tiers"], p))
+           for p in ("cm_bytes", "cm_pkts")}
+    return {"phase": "tiered_path", "recall_at_100": recalls,
+            **_window_summary(run, plain, cmp),
+            "decay_window": {"folds": DECAY_FOLDS, "factor": DECAY_FACTOR,
+                             "launches": dec["launches"],
+                             "seconds": dec["seconds"],
+                             "roll_seconds": dec["roll_seconds"],
+                             "decay_plane_exact": dec["decay_exact"]},
+            "resident_bytes": run["resident_bytes"],
+            "tier_occupancy_end_of_window_2": occ}
+
+
+def phase_profile(dense, cfg, name: str) -> dict:
+    """Device time by kernel over FOLDS_PER_WINDOW // 4 folds of a path
+    (torch.profiler), and the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
-    exp = TorchSketchExporter(batch_size=BATCH, device="cuda")
+    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
     for d in dense[:2]:
         exp.fold_dense(d)
     torch.cuda.synchronize()
@@ -658,7 +1064,7 @@ def phase_profile(dense) -> dict:
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     check(busy_us > 0, "the profiler saw no device time")
-    return {"phase": "profile", "folds": n, "wall_ms_per_fold":
+    return {"phase": name, "folds": n, "wall_ms_per_fold":
             wall * 1e3 / n, "device_ms_per_fold": busy_us / 1e3 / n,
             "device_busy_share": busy_us / 1e6 / wall if wall else None,
             "top_device_ops": [{"name": k[:80], "us_per_fold": us / n,
@@ -679,6 +1085,7 @@ def main() -> int:
     try:
         import numpy as np
         from netobserv_tpu_torch.scenarios import traffic
+        from netobserv_tpu_torch.sketch import state as sk
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -686,6 +1093,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase = "device"
+    t_start = time.perf_counter()
     try:
         dev = phase_device()
         emit(dev)
@@ -699,13 +1107,23 @@ def main() -> int:
         emit({"phase": "traffic", "seconds": time.perf_counter() - t0,
               "batches": len(pool), "rows_per_batch": BATCH})
         phase = "kernels"
-        calls = capture_main_path_inputs(specs, universe, pool, dense)
+        calls = {"wide": capture_main_path_inputs(specs, dense,
+                                                  sk.SketchConfig()),
+                 "tiered": capture_main_path_inputs(specs, dense,
+                                                    tiered_cfg())}
         results = phase_kernels(specs, calls)
         phase = "main_path"
         main_res = phase_main_path(specs, universe, pool, dense)
         emit(main_res)
+        phase = "tiered_path"
+        tier_res = phase_tiered_path(specs, universe, pool, dense)
+        wide_b = sum(main_res["resident_bytes"].values())
+        tier_b = sum(tier_res["resident_bytes"].values())
+        tier_res["resident_bytes_wide_over_tiered"] = wide_b / tier_b
+        emit(tier_res)
         phase = "profile"
-        emit(phase_profile(dense))
+        emit(phase_profile(dense, sk.SketchConfig(), "profile"))
+        emit(phase_profile(dense, tiered_cfg(), "profile_tiered"))
         torch.cuda.synchronize()
     except Exception as e:  # every phase failure ends the run, loudly
         import traceback
@@ -713,11 +1131,13 @@ def main() -> int:
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
         return 1
+    launches = {"wide": main_res["launches"], "tiered": tier_res["launches"]}
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": r["name"], "route": "cuda",
-         "source": f"netobserv_tpu_torch/csrc/{s['mod'].SOURCE}",
+         "source": f"netobserv_tpu_torch/csrc/{s['kernel'].source}",
          "replaces": s["replaces"],
-         "launches": main_res["launches"][r["name"]],
+         "launches": launches[s["path"]][r["name"]],
          "max_abs_err": r["max_abs_err"], "ms": r["device_kernel_ms"],
          "plain_ms": r["device_plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["device_library_ms"]}

@@ -6,6 +6,10 @@ into a report dict (`exporter/report.report_to_json`, with the previous
 roll's heavy-hitter index threaded so evicted keys are named). Each batch is
 padded to the fixed batch size, staged in one pinned host buffer and copied
 to the device without blocking; the next batch waits only for that copy.
+With `SketchConfig(tiered=TierSpec())` the state stays resident in tiered
+form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
+and `counter_table_bytes` gives the resident bytes of the tier-covered
+tables.
 
 Not in this slice: staging rings, overload control, federation, archive,
 checkpoints and tracing.
@@ -23,6 +27,7 @@ from netobserv_tpu_torch.exporter.report import (
     heavy_identity_index, report_numpy, report_to_json,
 )
 from netobserv_tpu_torch.sketch import state as sk
+from netobserv_tpu_torch.sketch import tiered
 from netobserv_tpu_torch.utils.platform import pick_device
 
 
@@ -100,6 +105,11 @@ class TorchSketchExporter:
     def state_tables(self) -> dict[str, np.ndarray]:
         """The current (pre-roll) mergeable tables, on the host."""
         return sk.state_tables(self.state)
+
+    def counter_table_bytes(self) -> dict[str, int]:
+        """Resident bytes of each tier-covered table (CM planes, HLL
+        banks), read from the state's tensors."""
+        return tiered.counter_table_bytes(self.state)
 
     def roll(self) -> dict:
         """Close the window: render its report, roll the state, pass the

@@ -8,7 +8,8 @@ that fails, or a missing `nvcc`, raises: nothing falls back to the plain
 PyTorch versions.
 
 Libraries land in `csrc/build/` under a name that carries a digest of the
-source and the flags, so an edited source never loads a stale build. Several
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header never loads a stale build. Several
 sources build in parallel, one `nvcc` process each (`build`).
 """
 
@@ -50,8 +51,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(source: str) -> Path:
-    """Build output of one source, named by a digest of source and flags."""
+    """Build output of one source, named by a digest of the source, every
+    shared header and the flags."""
     h = hashlib.sha1((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 

@@ -1,4 +1,5 @@
-"""Kernel 1: the dual-plane Count-Min fold (`csrc/countmin_fold2.cu`).
+"""Kernels 1 and 6: the dual-plane Count-Min fold, wide
+(`csrc/countmin_fold2.cu`) and tier-interior (`csrc/countmin_tier2.cu`).
 
 Replaces the Pallas kernel `netobserv_tpu/ops/pallas/countmin_kernel.py`
 `update_two`. Both planes (bytes, packets) take the same row indices, so one
@@ -9,6 +10,16 @@ per (record, depth row), with no one-hot tiling (see the source note).
 `update_two` is the wrapper: a CUDA tensor launches the kernel, a CPU tensor
 takes `update_two_plain`, the same function written with `index_add_`. The
 fold is in place on the counter planes (JAX donated them).
+
+Kernel 6 replaces the Pallas kernel `update_two_tiered` (`_tier2_kernel`
+with `tier_tiles.py`): it folds both planes straight into their resident
+tiers (`sketch/tiered.py`: u8 base, u16 mid, u32 top), one thread block per
+TILE_W-column tile with the wide view in shared memory, and returns the
+post-fold, pre-promotion bytes estimate of every record (what the slot
+table ranks on). `update_two_tiered` is its wrapper, and
+`update_two_tiered_plain` its twin: decode, the wide fold above,
+`plane_add` of the delta, and the min over rows of the gathered wide
+values. Both write the tiers in place.
 """
 
 from __future__ import annotations
@@ -20,6 +31,12 @@ from netobserv_tpu_torch.ops.kernels._build import CudaKernel, check, on_cuda
 
 SOURCE = "countmin_fold2.cu"
 KERNEL = CudaKernel(SOURCE, "cm_fold2", n_ptrs=6, n_ints=3)
+SOURCE_TIER2 = "countmin_tier2.cu"
+KERNEL_TIER2 = CudaKernel(SOURCE_TIER2, "cm_tier2", n_ptrs=12, n_ints=7)
+#: columns per kernel-6 block: a tile holds whole top groups
+TILE_W = 512
+#: shared memory one block may use on sm_90 (bytes)
+SMEM_LIMIT = 232448
 
 
 def update_two_plain(counts_a: torch.Tensor, counts_b: torch.Tensor,
@@ -55,3 +72,69 @@ def update_two(counts_a: torch.Tensor, counts_b: torch.Tensor,
     check(va, "va", torch.float32, (n,), dev)
     check(vb, "vb", torch.float32, (n,), dev)
     KERNEL.launch([counts_a, counts_b, h1, h2, va, vb], [n, d, w], dev)
+
+
+def tiered_eligible(width: int, spec) -> bool:
+    """Static gate of the tier-interior fold: whole tiles, and whole top
+    groups per tile, so promotion never crosses a block."""
+    return width % TILE_W == 0 and TILE_W % spec.top_group == 0
+
+
+def update_two_tiered_plain(plane_a, plane_b, h1: torch.Tensor,
+                            h2: torch.Tensor, va: torch.Tensor,
+                            vb: torch.Tensor, spec) -> torch.Tensor:
+    """Kernel 6's twin: decode both planes, fold the wide view with
+    `update_two_plain`, promote `new - dec` into the tiers in place
+    (`tiered.plane_add`), and return est f32[B], the min over rows of the
+    post-fold bytes view at each record's columns."""
+    from netobserv_tpu_torch.sketch import tiered
+    d, w = plane_a.base.shape
+    dec_a = tiered.decode_plane(plane_a, spec, spec.bytes_unit)
+    dec_b = tiered.decode_plane(plane_b, spec, 1)
+    new_a, new_b = dec_a.clone(), dec_b.clone()
+    update_two_plain(new_a, new_b, h1, h2, va, vb)
+    tiered.copy_plane(plane_a, tiered.plane_add(
+        plane_a, new_a - dec_a, spec, spec.bytes_unit))
+    tiered.copy_plane(plane_b, tiered.plane_add(plane_b, new_b - dec_b,
+                                                spec, 1))
+    idx = hashing.row_indices(h1, h2, d, w)
+    return torch.gather(new_a, 1, idx).amin(dim=0)
+
+
+def update_two_tiered(plane_a, plane_b, h1: torch.Tensor, h2: torch.Tensor,
+                      va: torch.Tensor, vb: torch.Tensor,
+                      spec) -> torch.Tensor:
+    """Fold one batch into both tiered planes (bytes, packets) in place and
+    return the post-fold bytes estimate est f32[B].
+
+    plane_x: (base uint8[d, W], mid uint16[d, W/mid_group], top
+    uint32[d, W/top_group]); h1/h2: int64[B] uint32 lanes; va/vb: f32[B]
+    masked values."""
+    d, w = plane_a.base.shape
+    if not tiered_eligible(w, spec):
+        raise ValueError(f"width {w} / top_group {spec.top_group} is "
+                         "ineligible for the tier-interior fold")
+    if not on_cuda(va):
+        return update_two_tiered_plain(plane_a, plane_b, h1, h2, va, vb,
+                                       spec)
+    if w & (w - 1):
+        raise ValueError("width must be a power of two")
+    mg, tg = spec.mid_group, spec.top_group
+    if (4 * d * TILE_W + 2 * d * (TILE_W // mg)) * 4 > SMEM_LIMIT:
+        raise ValueError(f"depth {d}: a tile does not fit one block's "
+                         "shared memory")
+    n = h1.shape[0]
+    dev = va.device
+    for name, plane in (("plane_a", plane_a), ("plane_b", plane_b)):
+        check(plane.base, f"{name}.base", torch.uint8, (d, w), dev)
+        check(plane.mid, f"{name}.mid", torch.uint16, (d, w // mg), dev)
+        check(plane.top, f"{name}.top", torch.uint32, (d, w // tg), dev)
+    check(h1, "h1", torch.int64, (n,), dev)
+    check(h2, "h2", torch.int64, (n,), dev)
+    check(va, "va", torch.float32, (n,), dev)
+    check(vb, "vb", torch.float32, (n,), dev)
+    q = torch.empty((d, n), dtype=torch.float32, device=dev)
+    est = torch.empty((n,), dtype=torch.float32, device=dev)
+    KERNEL_TIER2.launch([*plane_a, *plane_b, h1, h2, va, vb, q, est],
+                        [n, d, w, mg, tg, spec.bytes_unit, 1], dev)
+    return est

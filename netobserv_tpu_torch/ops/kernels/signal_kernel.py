@@ -1,4 +1,5 @@
-"""Kernel 4: the fused signal-plane fold (`csrc/signal_fold.cu`).
+"""Kernels 4 and 7: the fused signal-plane fold (`csrc/signal_fold.cu`),
+and its tiered form with the packed global HLL (`csrc/signal_fold_tiered.cu`).
 
 Replaces the Pallas kernel `netobserv_tpu/ops/pallas/signal_kernel.py`
 `update`. Eight value rows add into six m-wide tables (ddos, syn, drops,
@@ -10,6 +11,14 @@ flushes it with global atomics; see the source note.
 `update` is the wrapper: CUDA tensors launch the kernel, CPU tensors take
 `update_plain` (eight `index_add_`). In place on the tables (JAX donated
 them).
+
+Kernel 7 replaces the Pallas kernel `update_tiered` (`_fold_tiered_kernel`):
+kernel 4's fold (the same block body, `csrc/signal_body.cuh`) plus a max
+fold of the global source HLL straight into its 6-bit packed bank
+(`sketch/tiered.pack_hll` layout), each extra block owning TILE_R packed
+triples. `update_tiered` is its wrapper, `update_tiered_plain` its twin:
+`update_plain`, then `unpack_hll`, `hll_kernel.update_plain` and
+`pack_hll`. Both update the tables and the packed bank in place.
 """
 
 from __future__ import annotations
@@ -18,10 +27,16 @@ from typing import NamedTuple
 
 import torch
 
+from netobserv_tpu_torch.ops.kernels import hll_kernel
 from netobserv_tpu_torch.ops.kernels._build import CudaKernel, check, on_cuda
 
 SOURCE = "signal_fold.cu"
 KERNEL = CudaKernel(SOURCE, "signal_fold", n_ptrs=10, n_ints=4)
+SOURCE_TIERED = "signal_fold_tiered.cu"
+KERNEL_TIERED = CudaKernel(SOURCE_TIERED, "signal_fold_tiered", n_ptrs=14,
+                           n_ints=5)
+#: packed register triples per kernel-7 HLL block
+TILE_R = 512
 
 #: value row -> index family: [ddos, syn, drops | synack | fwd, rev | dscp |
 #: cause] over families [dst, src, pair, dscp, cause]
@@ -55,6 +70,37 @@ def update_plain(planes: SignalPlanes, idx: torch.Tensor,
         table.index_add_(0, idx[FAMILY[j]], vals[j])
 
 
+def eligible(planes: SignalPlanes) -> bool:
+    """The reference's static gate of the fused signal fold: six planes of
+    one lane-aligned width, aux tables within the shared aux row."""
+    m = planes.ddos_rate.shape[0]
+    return (all(p.shape == (m,) for p in planes[1:6]) and m % 128 == 0
+            and planes.dscp_bytes.shape[0] <= AUX_W
+            and planes.drop_causes.shape[0] <= AUX_W)
+
+
+def hll_fusible(m: int) -> bool:
+    """Static gate of folding the packed global HLL bank (m registers) in
+    kernel 7: the register triples must tile evenly."""
+    n3 = m // 4
+    return m % 4 == 0 and n3 > 0 and (n3 <= TILE_R or n3 % TILE_R == 0)
+
+
+def _check_tables(planes: SignalPlanes, dev: torch.device) -> None:
+    m = planes.ddos_rate.shape[0]
+    n_dscp = planes.dscp_bytes.shape[0]
+    n_cause = planes.drop_causes.shape[0]
+    if n_dscp > AUX_W or n_cause > AUX_W:
+        raise ValueError(f"aux tables must fit {AUX_W} entries")
+    if (6 * m + 2 * AUX_W) * 4 > SMEM_LIMIT:
+        raise ValueError(f"m={m}: the tables do not fit one block's shared "
+                         "memory")
+    for name, t in zip(SignalPlanes._fields[:6], planes[:6]):
+        check(t, name, torch.float32, (m,), dev)
+    check(planes.dscp_bytes, "dscp_bytes", torch.float32, (n_dscp,), dev)
+    check(planes.drop_causes, "drop_causes", torch.float32, (n_cause,), dev)
+
+
 def update(planes: SignalPlanes, idx: torch.Tensor,
            vals: torch.Tensor) -> None:
     """Fold one batch into every signal table in one pass, in place.
@@ -65,20 +111,56 @@ def update(planes: SignalPlanes, idx: torch.Tensor,
     if not on_cuda(vals):
         update_plain(planes, idx, vals)
         return
-    m = planes.ddos_rate.shape[0]
-    n_dscp = planes.dscp_bytes.shape[0]
-    n_cause = planes.drop_causes.shape[0]
-    if n_dscp > AUX_W or n_cause > AUX_W:
-        raise ValueError(f"aux tables must fit {AUX_W} entries")
-    if (6 * m + 2 * AUX_W) * 4 > SMEM_LIMIT:
-        raise ValueError(f"m={m}: the tables do not fit one block's shared "
-                         "memory")
     n = vals.shape[1]
     dev = vals.device
-    for name, t in zip(SignalPlanes._fields[:6], planes[:6]):
-        check(t, name, torch.float32, (m,), dev)
-    check(planes.dscp_bytes, "dscp_bytes", torch.float32, (n_dscp,), dev)
-    check(planes.drop_causes, "drop_causes", torch.float32, (n_cause,), dev)
+    _check_tables(planes, dev)
     check(idx, "idx", torch.int64, (N_IDX, n), dev)
     check(vals, "vals", torch.float32, (N_VALS, n), dev)
-    KERNEL.launch([*planes, idx, vals], [n, m, n_dscp, n_cause], dev)
+    KERNEL.launch([*planes, idx, vals],
+                  [n, planes.ddos_rate.shape[0], planes.dscp_bytes.shape[0],
+                   planes.drop_causes.shape[0]], dev)
+
+
+def update_tiered_plain(planes: SignalPlanes, packed: torch.Tensor,
+                        idx: torch.Tensor, vals: torch.Tensor,
+                        h1: torch.Tensor, h2: torch.Tensor,
+                        valid: torch.Tensor) -> None:
+    """Kernel 7's twin: `update_plain`, then the packed bank unpacked,
+    max-folded by `hll_kernel.update_plain` and packed back in place."""
+    from netobserv_tpu_torch.sketch import tiered
+    update_plain(planes, idx, vals)
+    regs = tiered.unpack_hll(packed)
+    hll_kernel.update_plain(regs, h1, h2, valid)
+    packed.copy_(tiered.pack_hll(regs))
+
+
+def update_tiered(planes: SignalPlanes, packed: torch.Tensor,
+                  idx: torch.Tensor, vals: torch.Tensor, h1: torch.Tensor,
+                  h2: torch.Tensor, valid: torch.Tensor) -> None:
+    """`update` plus the global source HLL folded into its packed bank
+    uint8[m//4*3] in the same launch, in place: register h1 & (m-1) takes
+    the max of itself and rank(h2) (0 for an invalid row).
+
+    idx/vals: as for `update`; h1/h2: int64[B] uint32 lanes; valid:
+    bool[B]."""
+    n_packed = packed.shape[0]
+    m_hll = n_packed // 3 * 4
+    if n_packed % 3 or m_hll & (m_hll - 1) or not hll_fusible(m_hll):
+        raise ValueError(f"a packed HLL bank of {n_packed} bytes cannot be "
+                         "fused into the signal fold")
+    if not on_cuda(vals):
+        update_tiered_plain(planes, packed, idx, vals, h1, h2, valid)
+        return
+    n = vals.shape[1]
+    dev = vals.device
+    _check_tables(planes, dev)
+    check(idx, "idx", torch.int64, (N_IDX, n), dev)
+    check(vals, "vals", torch.float32, (N_VALS, n), dev)
+    check(packed, "packed", torch.uint8, (n_packed,), dev)
+    check(h1, "h1", torch.int64, (n,), dev)
+    check(h2, "h2", torch.int64, (n,), dev)
+    check(valid, "valid", torch.bool, (n,), dev)
+    KERNEL_TIERED.launch(
+        [*planes, idx, vals, packed, h1, h2, valid],
+        [n, planes.ddos_rate.shape[0], planes.dscp_bytes.shape[0],
+         planes.drop_causes.shape[0], n_packed], dev)

@@ -142,10 +142,15 @@ def slot_compose(table: SlotTable, match_max: torch.Tensor,
 
 def slot_update(table: SlotTable, cm: countmin.CountMin, words: torch.Tensor,
                 h1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
-                window: torch.Tensor) -> tuple[SlotTable, torch.Tensor]:
+                window: torch.Tensor,
+                query_fn=None) -> tuple[SlotTable, torch.Tensor]:
     """Fold one batch (whose mass is already in `cm`) into the table in
-    SLOT_ROUNDS rounds. Returns (the same table, f32[] evictions)."""
-    est = torch.where(valid, countmin.query(cm, h1, h2), -1.0)
+    SLOT_ROUNDS rounds. `query_fn(h1, h2) -> est` replaces the CM point
+    query (the tiered fold hands in kernel 6's estimate). Returns (the same
+    table, f32[] evictions)."""
+    if query_fn is None:
+        query_fn = lambda a, b: countmin.query(cm, a, b)  # noqa: E731
+    est = torch.where(valid, query_fn(h1, h2), -1.0)
     evicted = torch.zeros((), dtype=torch.float32, device=est.device)
     for _ in range(SLOT_ROUNDS):
         mslot, target = slot_prepare(table, h1, h2, est)

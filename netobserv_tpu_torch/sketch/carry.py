@@ -7,6 +7,15 @@ uint32 for key words and hashes). The EWMA baselines are not part of
 `state_tables`, so a window's history crosses only this way. This module
 sees numpy arrays only; flattening a JAX state into such a dict is the
 caller's side (`jax.tree_util.tree_flatten_with_path`).
+
+A tiered state (`sketch/tiered.TieredState`) carries the same way: its
+tier arrays under "tables.cm_bytes.base", "tables.cm_bytes.mid", ...,
+"tables.hll_src", ... with exactly the reference's dtypes (uint8 base and
+packed HLL bytes, uint16 mid, uint32 top), and its wide remainder under
+"rest." + the SketchState paths (the tier-covered fields there are the
+reference's zero-size placeholders). The tier geometry is not an array:
+like the reference's pytree aux data, the `TierSpec` travels beside the
+dict, as the `spec` argument of `state_from_numpy`.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import numpy as np
 import torch
 
 from netobserv_tpu_torch.ops import countmin, ewma, hll, quantile, topk
+from netobserv_tpu_torch.sketch import tiered
 from netobserv_tpu_torch.sketch.state import SketchState
 from netobserv_tpu_torch.utils.platform import pick_device
 
@@ -37,15 +47,35 @@ def field_paths() -> list[str]:
     return out
 
 
-def state_to_numpy(state: SketchState) -> dict[str, np.ndarray]:
-    """Flatten a state into host arrays with the JAX dtypes (int64 uint32
-    lanes become np.uint32)."""
+#: dotted path of every tier array of TieredState.tables -> its dtype
+TIER_DTYPES = {
+    **{f"tables.{p}.{f}": dt for p in ("cm_bytes", "cm_pkts")
+       for f, dt in zip(tiered.TieredPlane._fields,
+                        (np.uint8, np.uint16, np.uint32))},
+    **{f"tables.{h}": np.uint8
+       for h in ("hll_src", "hll_per_dst", "hll_per_src")},
+}
+
+
+def tiered_field_paths() -> list[str]:
+    """Every dotted leaf path of a TieredState, tables first."""
+    return [*TIER_DTYPES, *(f"rest.{p}" for p in field_paths())]
+
+
+def _get(obj, path: str):
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def state_to_numpy(state) -> dict[str, np.ndarray]:
+    """Flatten a SketchState or TieredState into host arrays with the JAX
+    dtypes (int64 uint32 lanes become np.uint32; tier arrays keep their
+    uint8/uint16/uint32)."""
+    tier = isinstance(state, tiered.TieredState)
     out = {}
-    for path in field_paths():
-        t = state
-        for part in path.split("."):
-            t = getattr(t, part)
-        arr = t.detach().to("cpu", copy=True).numpy()
+    for path in (tiered_field_paths() if tier else field_paths()):
+        arr = _get(state, path).detach().to("cpu", copy=True).numpy()
         out[path] = arr.astype(np.uint32) if arr.dtype == np.int64 else arr
     return out
 
@@ -54,17 +84,28 @@ _DTYPES = (np.float32, np.int32, np.bool_, np.uint32)
 
 
 def state_from_numpy(fields: dict[str, np.ndarray],
-                     device: str | torch.device | None = None
-                     ) -> SketchState:
-    """Build a state on `device` from a flat dict of every dotted path.
-    uint32 arrays become int64 tensors; every other dtype is kept."""
+                     device: str | torch.device | None = None,
+                     spec: tiered.TierSpec | None = None):
+    """Build a state on `device` from a flat dict of every dotted path: a
+    SketchState, or with `spec` a TieredState. uint32 arrays of the wide
+    state become int64 tensors; tier arrays keep their dtypes exactly."""
     dev = pick_device(device)
-    want = field_paths()
+    if spec is not None:
+        return _tiered_from_numpy(fields, dev, spec)
+    return _wide_from_numpy(fields, dev)
+
+
+def _check_paths(fields: dict, want: list[str]) -> None:
     missing = sorted(set(want) - set(fields))
     extra = sorted(set(fields) - set(want))
     if missing or extra:
         raise ValueError(f"state fields: missing {missing}, unexpected "
                          f"{extra}")
+
+
+def _wide_from_numpy(fields: dict[str, np.ndarray],
+                     dev: torch.device) -> SketchState:
+    _check_paths(fields, field_paths())
 
     def leaf(path: str) -> torch.Tensor:
         arr = np.asarray(fields[path])
@@ -81,3 +122,25 @@ def state_from_numpy(fields: dict[str, np.ndarray],
         parts[name] = (sub(*(leaf(f"{name}.{f}") for f in sub._fields))
                        if sub else leaf(name))
     return SketchState(**parts)
+
+
+def _tiered_from_numpy(fields: dict[str, np.ndarray], dev: torch.device,
+                       spec: tiered.TierSpec) -> tiered.TieredState:
+    _check_paths(fields, tiered_field_paths())
+
+    def tier(path: str) -> torch.Tensor:
+        arr = np.asarray(fields[path])
+        if arr.dtype != TIER_DTYPES[path]:
+            raise TypeError(f"{path}: dtype {arr.dtype}, expected "
+                            f"{np.dtype(TIER_DTYPES[path])}")
+        return torch.from_numpy(np.array(arr)).to(dev)
+
+    planes = {p: tiered.TieredPlane(*(tier(f"tables.{p}.{f}")
+                                      for f in tiered.TieredPlane._fields))
+              for p in ("cm_bytes", "cm_pkts")}
+    tables = tiered.TieredTables(
+        **planes, **{h: tier(f"tables.{h}")
+                     for h in ("hll_src", "hll_per_dst", "hll_per_src")})
+    rest = _wide_from_numpy({p[len("rest."):]: v for p, v in fields.items()
+                             if p.startswith("rest.")}, dev)
+    return tiered.TieredState(tables, rest, spec)

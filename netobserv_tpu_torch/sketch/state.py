@@ -2,8 +2,8 @@
 
 Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
 `SketchState`, `WindowReport`, `init_state`, `batch_to_device`,
-`dense_to_arrays`, `arrays_to_dense`, `ingest`, `decay_state`,
-`roll_window`, `state_tables`), wide counters on one device.
+`dense_to_arrays`, `arrays_to_dense`, `tiered_fold_form`, `ingest`,
+`decay_state`, `roll_window`, `state_tables`), on one device.
 
 One `ingest` call folds a fixed-shape columnar flow batch into the Count-Min
 planes (kernel 1), the persistent-slot top-K table (kernel 2), the global
@@ -14,8 +14,18 @@ tensors through its plain PyTorch twin. Where JAX donated the state, this
 module updates the preallocated tensors in place: `ingest`, `decay_state`
 and `roll_window` mutate the state they are given and return it.
 
-Not in this slice: the tiered planes (`SketchConfig.tiered`) and the
-owner-sharded ingest (`sketch_axis`) raise NotImplementedError.
+With `SketchConfig.tiered` set (a `tiered.TierSpec`) the state is a
+`tiered.TieredState`: the CM planes and HLL banks stay resident narrow.
+Where the width tiles (`countmin_kernel.tiered_eligible`), the fold is
+tier-interior: kernel 6 folds the CM tiers directly and hands the slot
+table its estimate, kernel 7 folds the packed global HLL bank with the
+signal planes (where `signal_kernel.eligible` and `hll_fusible` hold),
+and only the per-bucket HLL grids unpack. Otherwise the fold decodes the
+tiers to wide, runs the wide fold, and promotes the delta back. Rolls and
+`state_tables` see the decoded wide tables, as in the reference.
+
+Not in this slice: the owner-sharded ingest (`sketch_axis`) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ import torch
 from netobserv_tpu_torch.model.columnar import KEY_WORDS
 from netobserv_tpu_torch.model.flow import TcpFlags
 from netobserv_tpu_torch.ops import countmin, ewma, hashing, hll, quantile, topk
-from netobserv_tpu_torch.ops.kernels import signal_kernel
+from netobserv_tpu_torch.ops.kernels import countmin_kernel, signal_kernel
+from netobserv_tpu_torch.sketch import tiered
 from netobserv_tpu_torch.utils.platform import pick_device
 
 
@@ -48,8 +59,9 @@ class SketchConfig(NamedTuple):
     enable_fanout: bool = True
     #: False skips the conversation-asymmetry fold (one-way detection)
     enable_asym: bool = True
-    #: tiered counter planes: not ported yet; anything but None raises
-    tiered: object = None
+    #: tiered counter planes (SKETCH_TIERED): a tiered.TierSpec keeps the
+    #: CM planes and HLL banks resident narrow; None keeps them wide
+    tiered: tiered.TierSpec | None = None
 
 
 class SketchState(NamedTuple):
@@ -123,11 +135,14 @@ _SCALARS = ("total_records", "total_bytes", "total_drop_bytes",
 
 def init_state(cfg: SketchConfig = SketchConfig(),
                device: str | torch.device | None = None) -> SketchState:
-    """A zero state on `device` (CUDA unless the caller names the CPU)."""
+    """A zero state on `device` (CUDA unless the caller names the CPU); a
+    TieredState when `cfg.tiered` is set."""
     if cfg.tiered is not None:
-        raise NotImplementedError(
-            "tiered counter planes are not ported yet (a later slice of the "
-            "port: tiered planes with their two kernels)")
+        # from zeros the encode is exact; everything downstream branches on
+        # the state's type
+        cfg.tiered.check(cfg.cm_width)
+        return tiered.encode_state(
+            init_state(cfg._replace(tiered=None), device), cfg.tiered)
     dev = pick_device(device)
 
     def zeros(*shape, dtype=torch.float32):
@@ -236,19 +251,59 @@ def arrays_to_dense(arrays: Mapping[str, np.ndarray]) -> np.ndarray:
     return dense.reshape(-1)
 
 
+def tiered_fold_form(cfg: SketchConfig) -> str | None:
+    """Which fold a tiered state under `cfg` takes: "interior" (kernels 6
+    and 7 on the tiers), "decode" (decode to wide, wide fold, promote), or
+    None when tiers are off. The gate is static and the same on CUDA and
+    the CPU, where the kernels' plain twins run the interior form."""
+    if cfg.tiered is None:
+        return None
+    if countmin_kernel.tiered_eligible(cfg.cm_width, cfg.tiered):
+        return "interior"
+    return "decode"
+
+
+def _ingest_tiered(state: tiered.TieredState,
+                   arrays: Mapping[str, torch.Tensor],
+                   enable_fanout: bool,
+                   enable_asym: bool) -> tiered.TieredState:
+    spec = state.spec
+    if countmin_kernel.tiered_eligible(state.tables.cm_bytes.base.shape[1],
+                                       spec):
+        m_hll = state.tables.hll_src.shape[0] // 3 * 4
+        fuse = (signal_kernel.eligible(signal_planes(state.rest))
+                and signal_kernel.hll_fusible(m_hll))
+        work = tiered.widen_interior(state, fuse)
+        ingest(work, arrays, enable_fanout=enable_fanout,
+               enable_asym=enable_asym, _tier=state, _fuse_hll=fuse)
+        return tiered.interior_encode(state, fuse, work)
+    cmb = tiered.decode_plane(state.tables.cm_bytes, spec, spec.bytes_unit)
+    cmp = tiered.decode_plane(state.tables.cm_pkts, spec, 1)
+    wide = tiered.widen(state, cmb.clone(), cmp.clone())
+    ingest(wide, arrays, enable_fanout=enable_fanout,
+           enable_asym=enable_asym)
+    return tiered.fold_encode(state, cmb, cmp, wide)
+
+
 def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
            sketch_axis: str | None = None,
            enable_fanout: bool = True,
-           enable_asym: bool = True) -> SketchState:
+           enable_asym: bool = True,
+           _tier: tiered.TieredState | None = None,
+           _fuse_hll: bool = False) -> SketchState:
     """Fold one batch into every sketch, in place; returns `state`.
 
     Feature columns (tcp_flags, dscp, markers, drop_*) are optional: a
     batch without one skips the signals that read it, exactly as a zero
-    value row would."""
+    value row would. `_tier` and `_fuse_hll` are the tier-interior fold's
+    (`_ingest_tiered`): kernel 6 folds `_tier`'s CM tiers, and with
+    `_fuse_hll` kernel 7 its packed global-src bank."""
     if sketch_axis is not None:
         raise NotImplementedError(
             "the owner-sharded ingest is not ported yet (the multi-GPU "
-            "slice of the port)")
+            "slice of the port); tiered planes have no sharded form")
+    if isinstance(state, tiered.TieredState):
+        return _ingest_tiered(state, arrays, enable_fanout, enable_asym)
     words = arrays["keys"]
     valid = arrays["valid"]
     bytes_f = arrays["bytes"]
@@ -264,11 +319,23 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
     h1, h2 = mh.h1, mh.h2
     src_h1, src_h2, dst_h1 = mh.src_h1, mh.src_h2, mh.dst_h1
 
-    countmin.update_two(state.cm_bytes, state.cm_pkts, h1, h2, bytes_f, pkts,
-                        valid)
-    _, evicted = topk.slot_update(state.heavy, state.cm_bytes, words, h1, h2,
-                                  valid, window=state.window)
-    hll.update(state.hll_src, src_h1, src_h2, valid)
+    if _tier is not None:
+        # kernel 6 folds the resident tiers and returns the post-fold bytes
+        # estimate, the query the slot table ranks on
+        t = _tier.tables
+        est = countmin_kernel.update_two_tiered(
+            t.cm_bytes, t.cm_pkts, h1, h2, torch.where(valid, bytes_f, 0.0),
+            torch.where(valid, pkts.to(torch.float32), 0.0), _tier.spec)
+        _, evicted = topk.slot_update(state.heavy, state.cm_bytes, words, h1,
+                                      h2, valid, window=state.window,
+                                      query_fn=lambda a, b: est)
+    else:
+        countmin.update_two(state.cm_bytes, state.cm_pkts, h1, h2, bytes_f,
+                            pkts, valid)
+        _, evicted = topk.slot_update(state.heavy, state.cm_bytes, words,
+                                      h1, h2, valid, window=state.window)
+    if not _fuse_hll:  # else kernel 7 folds the packed bank below
+        hll.update(state.hll_src, src_h1, src_h2, valid)
     hll.update_per_dst(state.hll_per_dst, dst_h1, src_h1, src_h2, valid)
     flags = arrays.get("tcp_flags")
     if enable_fanout:
@@ -289,7 +356,12 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
     mass = factor.to(torch.float32) if samp is not None else 1.0
     sig_idx, sig_vals = signal_rows(arrays, mh, valid, bytes_f, mass,
                                     state.conv_fwd.shape[0], enable_asym)
-    signal_kernel.update(signal_planes(state), sig_idx, sig_vals)
+    if _fuse_hll:
+        signal_kernel.update_tiered(signal_planes(state),
+                                    _tier.tables.hll_src, sig_idx,
+                                    sig_vals, src_h1, src_h2, valid)
+    else:
+        signal_kernel.update(signal_planes(state), sig_idx, sig_vals)
     db = arrays.get("drop_bytes")
     if db is not None:
         state.total_drop_bytes.add_(sig_vals[2].sum())
@@ -374,7 +446,12 @@ def signal_planes(state: SketchState) -> signal_kernel.SignalPlanes:
 def decay_state(state: SketchState, factor: float) -> SketchState:
     """Sliding-window roll in place: scale the linear sketches by `factor`
     (HLL registers cannot decay and are reset; eviction events and the
-    SYN-ACK window reset)."""
+    SYN-ACK window reset). A tiered state decays its CM tiers
+    elementwise (`tiered.decay_plane`), never through a re-encode."""
+    if isinstance(state, tiered.TieredState):
+        wide = tiered.decode_state(state)
+        decay_state(wide, factor)
+        return tiered.decay_encode(state, wide, factor)
     topk.slot_roll(state.heavy, factor)
     for t in (state.cm_bytes.counts, state.cm_pkts.counts,
               state.hist_rtt.counts, state.hist_dns.counts,
@@ -397,7 +474,22 @@ def roll_window(state: SketchState, cfg: SketchConfig,
                 ) -> tuple[SketchState, WindowReport]:
     """Close the current window in place: build the report, roll the EWMA
     baselines, and reset (or decay, or keep) the windowed state. Returns
-    (`state`, report); the report holds copies."""
+    (`state`, report); the report holds copies.
+
+    A tiered state rolls its decoded wide view, then re-tiers per mode
+    without a decode -> encode round trip of live counts (which would
+    re-sum shared overflow cells every window): reset encodes the fresh
+    zeros, decay scales the tiers elementwise, keep leaves them as they
+    are."""
+    if isinstance(state, tiered.TieredState):
+        wide = tiered.decode_state(state)
+        _, report = roll_window(wide, cfg, reset_sketches, decay_factor)
+        if decay_factor is not None:
+            tiered.decay_encode(state, wide, decay_factor)
+        elif reset_sketches:
+            tiered.copy_tables(state.tables,
+                               tiered.encode_state(wide, state.spec).tables)
+        return state, report
     gamma = quantile.gamma_for(state.hist_rtt.n_buckets)
     qs = torch.tensor(QS, dtype=torch.float32, device=state.window.device)
     pre = {n: getattr(state, n).clone() for n in
@@ -453,7 +545,9 @@ def state_tables(state: SketchState) -> dict[str, np.ndarray]:
     """The mergeable table snapshot of a (pre-roll) state as host numpy
     arrays with the JAX package's dtypes (uint32 lanes back to np.uint32):
     the layout of the federation delta frame. EWMA baselines are absent by
-    design."""
+    design. A tiered state gives its decoded wide tables."""
+    if isinstance(state, tiered.TieredState):
+        return state_tables(tiered.decode_state(state))
     h = state.heavy
     return {
         "cm_bytes": _np(state.cm_bytes.counts),

@@ -16,10 +16,14 @@ from netobserv_tpu_torch.ops.kernels import (
 )
 from netobserv_tpu_torch.scenarios import traffic
 from netobserv_tpu_torch.sketch import state as ts
+from netobserv_tpu_torch.sketch import tiered
 from netobserv_tpu_torch.utils.platform import pick_device
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = (countmin_kernel, hll_kernel, topk_kernel, signal_kernel)
+#: every kernel of the port: kernels 1-4 and the tiered kernels 6-7
+KERNELS = (countmin_kernel.KERNEL, hll_kernel.KERNEL, topk_kernel.KERNEL,
+           signal_kernel.KERNEL, countmin_kernel.KERNEL_TIER2,
+           signal_kernel.KERNEL_TIERED)
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -51,23 +55,34 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     with pytest.raises(RuntimeError, match="cuda"):
         TorchSketchExporter(batch_size=64)
     with pytest.raises(RuntimeError, match="cuda"):
+        TorchSketchExporter(ts.SketchConfig(tiered=tiered.TierSpec()),
+                            batch_size=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ts.init_state(ts.SketchConfig(tiered=tiered.TierSpec()))
+    with pytest.raises(RuntimeError, match="cuda"):
         traffic.device_pool(traffic.make_pool(np.random.default_rng(0),
                                               batch=8, n_batches=1)[1])
     assert pick_device("cpu").type == "cpu"
 
 
 def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
+    """Wide and tiered (interior form, kernels 6 and 7 engaged) ingest."""
     for k in KERNELS:
-        k.KERNEL.launches = 0
+        k.launches = 0
     cfg = ts.SketchConfig(cm_width=1024, hll_precision=10, perdst_buckets=64,
                           persrc_buckets=64, topk=128, hist_buckets=64,
                           ewma_buckets=256)
-    state = ts.init_state(cfg, device="cpu")
     _, pool = traffic.make_pool(np.random.default_rng(1), batch=300,
                                 n_batches=1)
-    ts.ingest(state, traffic.device_pool(pool, "cpu")[0])
-    assert float(state.total_records) == 300.0
-    assert [k.KERNEL.launches for k in KERNELS] == [0, 0, 0, 0]
+    batch = traffic.device_pool(pool, "cpu")[0]
+    for c in (cfg, cfg._replace(tiered=tiered.TierSpec())):
+        state = ts.init_state(c, device="cpu")
+        ts.ingest(state, batch)
+        wide = state.rest if c.tiered else state
+        assert float(wide.total_records) == 300.0
+    assert ts.tiered_fold_form(cfg._replace(tiered=tiered.TierSpec())) \
+        == "interior"
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
 
 
 def test_kernel_launch_without_a_toolchain_raises():
