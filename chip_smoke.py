@@ -5,23 +5,40 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels of the port from `netobserv_tpu_torch/csrc/`
+It builds the eight CUDA kernels of the port from `netobserv_tpu_torch/csrc/`
 (one `nvcc` per source, all started together), holds each against its
-plain PyTorch version at the shapes its path gives it, then drives two
+plain PyTorch version at the shapes its path gives it, then drives three
 paths through `TorchSketchExporter` at the default geometry, each with the
 launch counts set to 0 just before it and read just after:
 
-- the wide main path, `SketchConfig()` (kernels 1-4): 2 windows x 32 folds
-  of 16,384 records of the seeded bench traffic;
-- the tiered path, `SketchConfig(tiered=TierSpec())` (kernels 2, 6 and 7):
-  the same 2 windows, then one window of DECAY_FOLDS folds rolled in decay
-  mode, so the tier-level decay runs on the card.
+- the wide main path, `SketchConfig()` through the dense feed
+  (`fold_dense`; kernels 1-4 and 8): 2 windows x 32 folds of 16,384
+  records of the seeded bench traffic;
+- the tiered path, `SketchConfig(tiered=TierSpec())` (kernels 2, 6, 7 and
+  8): the same 2 windows, then one window of DECAY_FOLDS folds rolled in
+  decay mode, so the tier-level decay runs on the card;
+- the resident path, `SketchConfig()` through the resident feed
+  (`fold_events`, the reference agent's default feed; kernels 1-4 and 8):
+  the same 2 windows of the same batches as flow events
+  (`traffic.event_pool`), default caps for B = 16,384 and 2^18 slots. It
+  also checks the key table on the card against the host dictionary and
+  prints the pack time apart from the ingest time, the bytes copied to the
+  card per record, and the ring's counters.
+
+Kernel 8 (the HLL grid fold) runs twice per fold on every path (per-dst
+and per-src grids). Kernel 5 (the single-plane Count-Min fold) runs on no
+path, as in the JAX package, where only its tests call it: the kernel phase
+checks it on the wide path's kernel-1 inputs, one plane, and its launches
+print as 0 on every path beside the kernel phase's own count.
 
 Each path checks heavy-hitter recall against the exact oracle and is rerun
-with the plain versions on the card to compare the tables. Every phase
-prints one JSON line. Any failure prints the phase's error and exits
-non-zero, with no "ok" line. The last line on success is
+with the plain versions on the card to compare the tables; on the kernel
+run no plain version may run at all. Every phase prints one JSON line. Any
+failure prints the phase's error and exits non-zero, with no "ok" line.
+The last line on success is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Nothing is cut for time: the whole run takes about 80 s of command time on
+an H100.
 
 Times. One helper (`measure`) times a kernel, its plain version and the
 library yardstick over a loop of 50 calls after a warm-up, by two clocks:
@@ -41,15 +58,18 @@ call's: each input read once; of an in-place table only the 32-byte
 sectors that this call's non-zero values reach, read once and written once
 (for kernel 6 the sectors of the base, mid and top tiers its columns fall
 in; for kernel 7 also the sectors of the packed triples its valid records
-reach); a fresh output written once. The kernel phase also prints kernel
-1's atomic count and the most atomics that land on one address.
+reach; for kernel 8 the grid cells of its valid records); a fresh output
+written once. The kernel phase also prints kernels 1's and 5's atomic
+counts and the most atomics that land on one address. Kernel 5's library
+yardstick is `index_add_` on one plane, kernel 8's `scatter_reduce_`
+("amax") on the flat grid.
 
-Tolerances. Kernels 2 and 3 compute maxima and a minimum row: bit-exact,
-and so is kernel 7's packed HLL bank, in every regime. Kernels 1 and 4
-(and kernel 7's signal tables) add f32 values with atomics, in an order
-that changes from run to run: with integer-valued masses whose per-cell
-sums stay below 2^24 (fresh tables, small integer masses on the main
-path's indices) they are bit-exact; with the main path's own inputs
+Tolerances. Kernels 2, 3 and 8 compute maxima and a minimum row:
+bit-exact, and so is kernel 7's packed HLL bank, in every regime. Kernels
+1, 4 and 5 (and kernel 7's signal tables) add f32 values with atomics, in
+an order that changes from run to run: with integer-valued masses whose
+per-cell sums stay below 2^24 (fresh tables, small integer masses on the
+main path's indices) they are bit-exact; with the main path's own inputs
 (tables warmed by earlier folds, hot cells past 2^24: the production
 regime) a cell that took n adds is held to 2 * (n + 1) * 2^-24 relative of
 the plain version.
@@ -109,6 +129,10 @@ DECAY_FACTOR = 0.5
 WARM_FOLDS = 3
 CHAIN = 8
 REPS = 50
+#: traces of one loop before `measure` gives up: a trace can come back
+#: with no device events at all (seen once on an H100, torch 2.11)
+PROFILE_TRIES = 3
+PROFILE_EMPTY: list = []
 
 
 def emit(obj: dict) -> None:
@@ -180,12 +204,17 @@ def measure(fn, setup=None, reps: int = REPS) -> tuple[float, float]:
             body()
         end.record()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                body()
-            torch.cuda.synchronize()
-        us = sum(r[0] for r in _device_rows(prof))
-        check(us > 0, "the profiler saw no device time")
+        for _ in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    body()
+                torch.cuda.synchronize()
+            us = sum(r[0] for r in _device_rows(prof))
+            if us > 0:
+                break
+            PROFILE_EMPTY.append(1)  # a trace that came back empty
+        check(us > 0, f"the profiler saw no device time in "
+              f"{PROFILE_TRIES} traces")
         return start.elapsed_time(end) / reps, us / 1e3 / reps
 
     if setup is None:
@@ -210,40 +239,57 @@ def _exact(a, b) -> bool:
 
 def kernel_specs():
     """Per kernel: its module, launch counter, wrapper and plain version,
-    the main path that runs it, which arguments it updates in place (and
-    their `state_tables` names, for the f32 sums), how to cut its inputs to
-    n rows, whether its result is exact in any order, and the Pallas
-    kernel it replaces."""
+    the path whose captured calls the kernel phase checks it on (with
+    `derive`, the calls of another kernel of that path, cut to this
+    kernel's arguments), its launches per fold on each main path, which
+    arguments it updates in place (and their `state_tables` names, for the
+    f32 sums), how to cut its inputs to n rows, whether its result is exact
+    in any order, and the Pallas kernel it replaces."""
     from netobserv_tpu_torch.ops.kernels import (
         countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
     )
     sig_tables = signal_kernel.SignalPlanes._fields
+    flat_paths = {"wide": 1, "resident": 1}
+    every_path = {"wide": 2, "tiered": 2, "resident": 2}
     return [
         dict(name="countmin_fold2", mod=countmin_kernel,
-             kernel=countmin_kernel.KERNEL, path="wide",
+             kernel=countmin_kernel.KERNEL, path="wide", per_fold=flat_paths,
              wrapper="update_two", plain="update_two_plain", inplace=(0, 1),
              tables=("cm_bytes", "cm_pkts"),
              rows=lambda a, n: (a[0], a[1], *(t[:n] for t in a[2:])),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:81"),
         dict(name="topk_reduce", mod=topk_kernel, kernel=topk_kernel.KERNEL,
-             path="wide", wrapper="reduce", plain="reduce_plain", inplace=(),
+             path="wide", per_fold=every_path, wrapper="reduce",
+             plain="reduce_plain", inplace=(),
              rows=lambda a, n: (*(t[:n] for t in a[:3]), a[3]), exact=True,
              replaces="netobserv_tpu/ops/pallas/topk_kernel.py:82"),
         dict(name="hll_fold", mod=hll_kernel, kernel=hll_kernel.KERNEL,
-             path="wide", wrapper="update", plain="update_plain",
-             inplace=(0,),
+             path="wide", per_fold=flat_paths, wrapper="update",
+             plain="update_plain", inplace=(0,),
              rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])), exact=True,
              replaces="netobserv_tpu/ops/pallas/hll_kernel.py:70"),
         dict(name="signal_fold", mod=signal_kernel,
-             kernel=signal_kernel.KERNEL, path="wide", wrapper="update",
-             plain="update_plain", inplace=(0,), tables=sig_tables,
+             kernel=signal_kernel.KERNEL, path="wide", per_fold=flat_paths,
+             wrapper="update", plain="update_plain", inplace=(0,),
+             tables=sig_tables,
              rows=lambda a, n: (a[0], a[1][:, :n].contiguous(),
                                 a[2][:, :n].contiguous()),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:164"),
+        # no path of the JAX package runs kernel 5: it is checked on the
+        # wide path's kernel-1 inputs (table, h1, h2, bytes values)
+        dict(name="countmin_fold", mod=countmin_kernel,
+             kernel=countmin_kernel.KERNEL_ONE, path="wide", per_fold={},
+             derive=("countmin_fold2", lambda a: (a[0], a[2], a[3], a[4])),
+             wrapper="update", plain="update_plain", inplace=(0,),
+             tables=("cm_bytes",),
+             rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])),
+             exact=False,
+             replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:266"),
         dict(name="countmin_tier2", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL_TIER2, path="tiered",
+             per_fold={"tiered": 1},
              wrapper="update_two_tiered", plain="update_two_tiered_plain",
              inplace=(0, 1), tables=("cm_bytes", "cm_pkts"),
              rows=lambda a, n: (a[0], a[1], *(t[:n] for t in a[2:6]), a[6]),
@@ -253,6 +299,7 @@ def kernel_specs():
              replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:199"),
         dict(name="signal_fold_tiered", mod=signal_kernel,
              kernel=signal_kernel.KERNEL_TIERED, path="tiered",
+             per_fold={"tiered": 1},
              wrapper="update_tiered", plain="update_tiered_plain",
              inplace=(0, 1), tables=sig_tables,
              rows=lambda a, n: (a[0], a[1], a[2][:, :n].contiguous(),
@@ -262,6 +309,12 @@ def kernel_specs():
              library_note="no single PyTorch call max-folds a 6-bit "
                           "packed bank",
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:214"),
+        dict(name="hll_fold_grid", mod=hll_kernel,
+             kernel=hll_kernel.KERNEL_GRID, path="wide", per_fold=every_path,
+             wrapper="update_per_dst", plain="update_per_dst_plain",
+             inplace=(0,),
+             rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])), exact=True,
+             replaces="netobserv_tpu/ops/pallas/hll_kernel.py:81"),
     ]
 
 
@@ -276,6 +329,9 @@ def _unit_cells(spec, args):
         for t in a[:2]:
             t.zero_()
         return a[:2], (*a[:4], (a[4] != 0).float(), (a[5] != 0).float())
+    if name == "countmin_fold":
+        a[0].zero_()
+        return a[:1], (*a[:3], (a[3] != 0).float())
     if name == "countmin_tier2":
         pa, pb, h1, h2, va, vb, _ = a
         d, w = pa.base.shape
@@ -294,7 +350,9 @@ def adds_per_cell(spec, args) -> list:
         countmin_kernel, signal_kernel,
     )
     tables, unit_args = _unit_cells(spec, args)
-    if spec["name"] in ("countmin_fold2", "countmin_tier2"):
+    if spec["name"] == "countmin_fold":
+        countmin_kernel.update_plain(*unit_args)
+    elif spec["name"] in ("countmin_fold2", "countmin_tier2"):
         countmin_kernel.update_two_plain(*unit_args)
     else:
         signal_kernel.update_plain(*unit_args)
@@ -513,6 +571,8 @@ def integer_inputs(spec, args):
     name = spec["name"]
     if name == "countmin_fold2":
         return (*a[:4], small(a[4]), small(a[5]))
+    if name == "countmin_fold":
+        return (*a[:3], small(a[3]))
     if name == "countmin_tier2":
         return (*a[:4], small(a[4]), small(a[5]), a[6])
     if name == "signal_fold":
@@ -595,12 +655,27 @@ def library_call(spec, args):
         vals = torch.cat([est, est])
         table = torch.full((2 * (k + 1),), -1.0, device=est.device)
         return lambda: table.scatter_reduce_(0, cell, vals, "amax")
+    if name == "countmin_fold":
+        counts, h1, h2, vals = args
+        d, w = counts.shape
+        idx = hashing.row_indices(h1, h2, d, w)
+        cell = (idx + torch.arange(d, device=idx.device)[:, None] * w
+                ).reshape(-1)
+        flat_vals = vals.expand(d, -1).reshape(-1)
+        table = counts.clone().reshape(-1)
+        return lambda: table.index_add_(0, cell, flat_vals)
     if name == "hll_fold":
         regs, h1, h2, valid = args
         m = regs.shape[0]
         cell = h1 & (m - 1)
         rank = torch.where(valid, hll_kernel.rank(h2), 0)
         table = regs.clone()
+        return lambda: table.scatter_reduce_(0, cell, rank, "amax")
+    if name == "hll_fold_grid":
+        regs, dst_h, src_h1, src_h2, valid = args
+        cell = _grid_cells(regs, dst_h, src_h1)
+        rank = torch.where(valid, hll_kernel.rank(src_h2), 0)
+        table = regs.clone().reshape(-1)
         return lambda: table.scatter_reduce_(0, cell, rank, "amax")
     planes, idx, vals = args
     from netobserv_tpu_torch.ops.kernels.signal_kernel import FAMILY
@@ -610,6 +685,12 @@ def library_call(spec, args):
     table = torch.cat([p.clone() for p in planes])
     flat = vals.reshape(-1)
     return lambda: table.index_add_(0, cell, flat)
+
+
+def _grid_cells(regs, dst_h, src_h1):
+    """Flat cell (dst_h & (D-1)) * m + (src_h1 & (m-1)) of kernel 8."""
+    dbuckets, m = regs.shape
+    return (dst_h & (dbuckets - 1)) * m + (src_h1 & (m - 1))
 
 
 def _sector_bytes(elems, elem_size: int = 4) -> int:
@@ -649,6 +730,17 @@ def bound_of(spec, args) -> dict:
         ops = sum(c.numel() for c in hits)  # one f32 add per atomic
         extra = {"atomics": ops, "max_atomics_one_address": max(
             int(torch.bincount(c).max()) for c in hits if c.numel())}
+    elif name == "countmin_fold":
+        counts, h1, h2, vals = args
+        d, w = counts.shape
+        cells = (hashing.row_indices(h1, h2, d, w)
+                 + torch.arange(d, device=h1.device)[:, None] * w)
+        hits = cells[:, vals != 0].reshape(-1)
+        nbytes = read(args[1:]) + _sector_bytes(hits)
+        ops = hits.numel()  # one f32 add per atomic
+        extra = {"atomics": ops,
+                 "max_atomics_one_address": int(torch.bincount(hits).max())
+                 if ops else 0}
     elif name == "countmin_tier2":
         pa, pb, h1, h2, va, vb, tspec = args
         d, w = pa.base.shape
@@ -674,6 +766,11 @@ def bound_of(spec, args) -> dict:
         regs, h1, h2, valid = args
         nbytes = read((h1, h2, valid)) + _sector_bytes(
             (h1 & (regs.shape[0] - 1))[valid])
+        ops = int(valid.sum())
+    elif name == "hll_fold_grid":
+        regs, dst_h, src_h1, src_h2, valid = args
+        nbytes = read(args[1:]) + _sector_bytes(
+            _grid_cells(regs, dst_h, src_h1)[valid])
         ops = int(valid.sum())
     elif name == "signal_fold_tiered":
         planes, packed, idx, vals, h1, h2, valid = args
@@ -761,10 +858,15 @@ def phase_kernels(specs, calls) -> list[dict]:
     import torch
     results = []
     for s in specs:
-        recs = calls[s["path"]].get(s["name"], [])
+        if "derive" in s:
+            src, cut = s["derive"]
+            recs = [cut(a) for a in calls[s["path"]].get(src, [])]
+        else:
+            recs = calls[s["path"]].get(s["name"], [])
         check(len(recs) >= 1, f"{s['name']}: the main path never called it")
         case = {"phase": "kernel", "name": s["name"], "path": s["path"],
                 "calls_per_fold": len(recs), "cases": []}
+        s["kernel"].launches = 0
         errs = []
         for ci, args in enumerate(recs):
             for n in (BATCH, BATCH - 1):
@@ -792,6 +894,9 @@ def phase_kernels(specs, calls) -> list[dict]:
             uni = uniform_variant(s, args)
             case["device_kernel_ms_uniform_keys"] = timing(s, uni)[0][1]
         torch.cuda.synchronize()
+        case["kernel_phase_launches"] = s["kernel"].launches
+        check(case["kernel_phase_launches"] > 0,
+              f"{s['name']}: the kernel phase never launched it")
         emit(case)
         results.append(case)
     return results
@@ -802,21 +907,51 @@ def hot_key_rows(pool) -> list[int]:
     return [int(np.bincount(ranks).max()) for _, ranks in pool]
 
 
-def _window(exp, dense, first: int, n_folds: int, adds: dict,
-            touched: dict) -> dict:
-    """Fold n_folds batches from dense[first:], then read the pre-roll
-    tables (and tier arrays), roll, and time each step."""
+def dense_feeder(dense):
+    """Fold pool batch bi through the dense feed."""
+    return lambda exp, bi: exp.fold_dense(dense[bi])
+
+
+def event_feeder(events):
+    """Fold pool batch bi through the resident feed."""
+    return lambda exp, bi: exp.fold_events(events[bi][0], **events[bi][1])
+
+
+@contextlib.contextmanager
+def counting_plains(specs, counts: dict):
+    """Count every call of a plain version (by the wrappers or anyone) in
+    counts[kernel name] for the duration."""
+    saved = [(s["mod"], s["plain"], getattr(s["mod"], s["plain"]))
+             for s in specs]
+    for s, (mod, attr, fn) in zip(specs, saved):
+        def counted(*args, _fn=fn, _name=s["name"]):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*args)
+        setattr(mod, attr, counted)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _window(exp, feed, n_batches: int, first: int, n_folds: int,
+            adds: dict, touched: dict) -> dict:
+    """Fold n_folds pool batches from `first` (mod n_batches) through
+    `feed`, then read the pre-roll tables (and tier arrays), roll, and time
+    each step; for the resident feed also the ring's pack time."""
     import torch
     from netobserv_tpu_torch.sketch import tiered
     adds.clear()
     touched.clear()
     torch.cuda.synchronize()
+    pack0 = exp.ring.pack_seconds
     t0 = time.perf_counter()
-    feed = []
+    batches = []
     for i in range(n_folds):
-        bi = (first + i) % len(dense)
-        feed.append(bi)
-        exp.fold_dense(dense[bi])
+        bi = (first + i) % n_batches
+        batches.append(bi)
+        feed(exp, bi)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -825,43 +960,52 @@ def _window(exp, dense, first: int, n_folds: int, adds: dict,
     tiers = (_clone(exp.state.tables)
              if isinstance(exp.state, tiered.TieredState) else None)
     report = exp.roll()
-    return dict(feed=feed, seconds=secs, tables=tables, tiers=tiers,
+    return dict(feed=batches, seconds=secs, tables=tables, tiers=tiers,
                 report=report, tables_seconds=t2 - t1,
                 roll_seconds=time.perf_counter() - t2,
+                pack_seconds=exp.ring.pack_seconds - pack0,
                 adds={k: v.cpu().numpy() for k, v in adds.items()},
                 touched={k: v.cpu().numpy() for k, v in touched.items()})
 
 
-def run_windows(dense, plain: bool, specs, cfg, decay_window: bool = False):
-    """Fold WINDOWS x FOLDS_PER_WINDOW batches through an exporter under
-    `cfg` (reset roll mode), and with `decay_window` one more window of
-    DECAY_FOLDS rolled in decay mode. Per window the pre-roll tables (and
-    tier arrays), the report, the times and, on the plain run, the
-    per-cell add counts of the window's f32 sums. The launch counts are set
-    to 0 just before the reset windows and read just after them."""
+def run_windows(feed, n_batches: int, plain: bool, specs, cfg,
+                decay_window: bool = False, resident: bool = False):
+    """Fold WINDOWS x FOLDS_PER_WINDOW pool batches through `feed` into an
+    exporter under `cfg` (reset roll mode), and with `decay_window` one
+    more window of DECAY_FOLDS rolled in decay mode. Per window the pre-roll
+    tables (and tier arrays), the report, the times and, on the plain run,
+    the per-cell add counts of the window's f32 sums. The launch counts are
+    set to 0 just before the reset windows and read just after them; on the
+    kernel run every call of a plain version is counted too (there must be
+    none). With `resident`, the key table and the ring's counters are read
+    before the exporter closes."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     from netobserv_tpu_torch.sketch import tiered
     adds: dict = {}
     touched: dict = {}
+    plain_calls: dict = {}
     ctx = (plain_versions(specs, adds, touched) if plain
-           else contextlib.nullcontext())
+           else counting_plains(specs, plain_calls))
     out = {}
     with ctx:
         exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
         for s in specs:
             s["kernel"].launches = 0
         out["windows"] = [
-            _window(exp, dense, w * FOLDS_PER_WINDOW, FOLDS_PER_WINDOW, adds,
-                    touched) for w in range(WINDOWS)]
+            _window(exp, feed, n_batches, w * FOLDS_PER_WINDOW,
+                    FOLDS_PER_WINDOW, adds, touched) for w in range(WINDOWS)]
         out["launches"] = {s["name"]: s["kernel"].launches for s in specs}
         out["folds"], out["rolls"] = exp.folds, exp.rolls
         out["resident_bytes"] = exp.counter_table_bytes()
+        if resident:
+            out["ring"] = exp.ring
+            out["key_table_check"] = key_table_check(exp.ring)
         if decay_window:
             exp.reset_sketches, exp.decay_factor = False, DECAY_FACTOR
             for s in specs:
                 s["kernel"].launches = 0
             pre = _clone(exp.state.tables)
-            win = _window(exp, dense, WINDOWS * FOLDS_PER_WINDOW,
+            win = _window(exp, feed, n_batches, WINDOWS * FOLDS_PER_WINDOW,
                           DECAY_FOLDS, adds, touched)
             win["launches"] = {s["name"]: s["kernel"].launches
                                for s in specs}
@@ -878,7 +1022,25 @@ def run_windows(dense, plain: bool, specs, cfg, decay_window: bool = False):
                 _tensors(pre), _tensors(exp.state.tables)))
             out["decay"] = win
         exp.close()
+    if not plain:
+        check(not plain_calls, f"plain versions ran on the card: "
+              f"{plain_calls}")
     return out
+
+
+def key_table_check(ring) -> dict:
+    """Every live slot of the key table on the card holds the words of its
+    key in the host dictionary."""
+    import numpy as np
+    from netobserv_tpu_torch.sketch import carry
+    table = carry.key_table_to_numpy(ring.key_table)
+    slots = np.fromiter(ring.kdict.slots.values(), np.int64)
+    words = np.frombuffer(b"".join(ring.kdict.slots), np.uint32).reshape(
+        -1, 10)
+    check(len(slots) > 0, "the host dictionary is empty")
+    check(np.array_equal(table[slots], words),
+          "the key table on the card differs from the host dictionary")
+    return {"live_slots": int(len(slots)), "equal": True}
 
 
 def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
@@ -960,26 +1122,32 @@ def _window_summary(run: dict, plain: dict, cmp: list) -> dict:
                                       for w in wins]}
 
 
-def _want_launches(specs, path: str) -> dict:
-    """Launches over WINDOWS x FOLDS_PER_WINDOW folds: one per fold for
-    each kernel of the path, two for kernel 2 (its two rounds), zero for
-    the other path's kernels."""
-    n = WINDOWS * FOLDS_PER_WINDOW
-    return {s["name"]: (2 * n if s["name"] == "topk_reduce"
-                        else n if s["path"] == path else 0) for s in specs}
+def _want_launches(specs, path: str, folds: int, cfg) -> dict:
+    """Launches over `folds` folds (ingest calls) of `path`: each kernel's
+    launches per fold on that path (zero off it); kernel 8 folds one grid
+    instead of two when the fan-out signal is off."""
+    out = {}
+    for s in specs:
+        n = s["per_fold"].get(path, 0)
+        if s["name"] == "hll_fold_grid" and n and not cfg.enable_fanout:
+            n = 1
+        out[s["name"]] = n * folds
+    return out
 
 
 def phase_main_path(specs, universe, pool, dense) -> dict:
     from netobserv_tpu_torch.sketch import state as sk
-    run = run_windows(dense, False, specs, sk.SketchConfig())
-    want = _want_launches(specs, "wide")
+    cfg = sk.SketchConfig()
+    feed = dense_feeder(dense)
+    run = run_windows(feed, len(dense), False, specs, cfg)
+    want = _want_launches(specs, "wide", WINDOWS * FOLDS_PER_WINDOW, cfg)
     check(run["launches"] == want,
           f"launch counts {run['launches']}, want {want}")
     check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
           and run["rolls"] == WINDOWS,
           f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
     recalls = _check_windows(run["windows"], universe, pool)
-    plain = run_windows(dense, True, specs, sk.SketchConfig())
+    plain = run_windows(feed, len(dense), True, specs, cfg)
     cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
            for w, p in zip(run["windows"], plain["windows"])]
     return {"phase": "main_path", "recall_at_100": recalls,
@@ -1005,16 +1173,16 @@ def _tier_checker(w: dict, p: dict, tspec):
 
 def phase_tiered_path(specs, universe, pool, dense) -> dict:
     cfg = tiered_cfg()
-    run = run_windows(dense, False, specs, cfg, decay_window=True)
-    want = _want_launches(specs, "tiered")
+    feed = dense_feeder(dense)
+    run = run_windows(feed, len(dense), False, specs, cfg, decay_window=True)
+    want = _want_launches(specs, "tiered", WINDOWS * FOLDS_PER_WINDOW, cfg)
     check(run["launches"] == want,
           f"tiered launch counts {run['launches']}, want {want}")
     check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
           and run["rolls"] == WINDOWS,
           f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
     dec = run["decay"]
-    want_decay = {k: v * DECAY_FOLDS // (WINDOWS * FOLDS_PER_WINDOW)
-                  for k, v in want.items()}
+    want_decay = _want_launches(specs, "tiered", DECAY_FOLDS, cfg)
     check(dec["launches"] == want_decay,
           f"decay window launches {dec['launches']}, want {want_decay}")
     check(dec["decay_exact"], "decay roll: the tiers are not decay_plane "
@@ -1023,7 +1191,8 @@ def phase_tiered_path(specs, universe, pool, dense) -> dict:
           "decay roll: HLL banks not reset or tiers unchanged")
     wins = run["windows"] + [dec]
     recalls = _check_windows(wins, universe, pool)
-    plain = run_windows(dense, True, specs, cfg, decay_window=True)
+    plain = run_windows(feed, len(dense), True, specs, cfg,
+                        decay_window=True)
     pwins = plain["windows"] + [plain["decay"]]
     cmp = [compare_tables(w["tables"], p["tables"], p["adds"],
                           _tier_checker(w, p, cfg.tiered))
@@ -1042,30 +1211,78 @@ def phase_tiered_path(specs, universe, pool, dense) -> dict:
             "tier_occupancy_end_of_window_2": occ}
 
 
-def phase_profile(dense, cfg, name: str) -> dict:
+def phase_resident_path(specs, universe, pool, events) -> dict:
+    """The resident feed at full width: `fold_events` over the event form
+    of the same pool batches, default caps and slot_cap 2^18."""
+    from netobserv_tpu_torch.datapath import flowpack
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    feed = event_feeder(events)
+    run = run_windows(feed, len(events), False, specs, cfg, resident=True)
+    ring = run["ring"]
+    records = WINDOWS * FOLDS_PER_WINDOW * BATCH
+    check(run["folds"] == ring.chunks
+          == WINDOWS * FOLDS_PER_WINDOW + ring.continuations
+          and run["rolls"] == WINDOWS,
+          f"exporter counted {run['folds']} folds ({ring.chunks} chunks, "
+          f"{ring.continuations} continuations), {run['rolls']} rolls")
+    want = _want_launches(specs, "resident", run["folds"], cfg)
+    check(run["launches"] == want,
+          f"resident launch counts {run['launches']}, want {want}")
+    recalls = _check_windows(run["windows"], traffic.event_universe(universe),
+                             pool)
+    plain = run_windows(feed, len(events), True, specs, cfg, resident=True)
+    check(plain["folds"] == run["folds"], "the plain run packed other chunks")
+    cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
+           for w, p in zip(run["windows"], plain["windows"])]
+    h2d = ring.chunks * flowpack.resident_buf_len(BATCH, ring.caps) * 4
+    wins = run["windows"]
+    return {"phase": "resident_path", "recall_at_100": recalls,
+            **_window_summary(run, plain, cmp),
+            "caps": repr(ring.caps), "slot_cap": ring.slot_cap,
+            "chunks": ring.chunks, "continuations": ring.continuations,
+            "dict_resets": ring.dict_resets, "spill_rows": ring.spill_rows,
+            "stalls": ring.stalls, "slot_wait_p95_s": ring.slot_wait_p95(),
+            "key_table": run["key_table_check"],
+            "h2d_bytes_per_record": h2d / records,
+            "dense_h2d_bytes_per_record": sk.DENSE_WORDS * 4,
+            "pack_seconds_per_fold": [w["pack_seconds"] / FOLDS_PER_WINDOW
+                                      for w in wins],
+            "ingest_seconds_per_fold": [
+                (w["seconds"] - w["pack_seconds"]) / FOLDS_PER_WINDOW
+                for w in wins]}
+
+
+def phase_profile(feed, n_batches: int, cfg, name: str,
+                  warm: int = 2) -> dict:
     """Device time by kernel over FOLDS_PER_WINDOW // 4 folds of a path
-    (torch.profiler), and the device's busy share of the wall time."""
+    (torch.profiler) after `warm` warm-up folds, and the device's busy
+    share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
-    for d in dense[:2]:
-        exp.fold_dense(d)
+    for i in range(warm):
+        feed(exp, i % n_batches)
     torch.cuda.synchronize()
     n = FOLDS_PER_WINDOW // 4
+    folds0 = exp.folds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
-            exp.fold_dense(dense[i % len(dense)])
+            feed(exp, i % n_batches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    chunks = exp.folds - folds0
     exp.close()
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     check(busy_us > 0, "the profiler saw no device time")
-    return {"phase": name, "folds": n, "wall_ms_per_fold":
-            wall * 1e3 / n, "device_ms_per_fold": busy_us / 1e3 / n,
+    return {"phase": name, "folds": n, "ingest_calls": chunks,
+            "wall_ms_per_fold": wall * 1e3 / n,
+            "device_ms_per_fold": busy_us / 1e3 / n,
             "device_busy_share": busy_us / 1e6 / wall if wall else None,
             "top_device_ops": [{"name": k[:80], "us_per_fold": us / n,
                                 "calls_per_fold": c / n}
@@ -1104,6 +1321,7 @@ def main() -> int:
         t0 = time.perf_counter()
         universe, pool = traffic.make_pool(np.random.default_rng(0))
         dense = traffic.dense_pool(pool)
+        events = traffic.event_pool(pool, np.random.default_rng(0))
         emit({"phase": "traffic", "seconds": time.perf_counter() - t0,
               "batches": len(pool), "rows_per_batch": BATCH})
         phase = "kernels"
@@ -1121,9 +1339,17 @@ def main() -> int:
         tier_b = sum(tier_res["resident_bytes"].values())
         tier_res["resident_bytes_wide_over_tiered"] = wide_b / tier_b
         emit(tier_res)
+        phase = "resident_path"
+        res_res = phase_resident_path(specs, universe, pool, events)
+        emit(res_res)
         phase = "profile"
-        emit(phase_profile(dense, sk.SketchConfig(), "profile"))
-        emit(phase_profile(dense, tiered_cfg(), "profile_tiered"))
+        emit(phase_profile(dense_feeder(dense), len(dense), sk.SketchConfig(),
+                           "profile"))
+        emit(phase_profile(dense_feeder(dense), len(dense), tiered_cfg(),
+                           "profile_tiered"))
+        emit(phase_profile(event_feeder(events), len(events),
+                           sk.SketchConfig(), "profile_resident",
+                           warm=len(events)))
         torch.cuda.synchronize()
     except Exception as e:  # every phase failure ends the run, loudly
         import traceback
@@ -1131,13 +1357,19 @@ def main() -> int:
         emit({"phase": phase, "ok": False,
               "error": f"{type(e).__name__}: {e}"})
         return 1
-    launches = {"wide": main_res["launches"], "tiered": tier_res["launches"]}
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    launches = {"wide": main_res["launches"], "tiered": tier_res["launches"],
+                "resident": res_res["launches"]}
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "empty_traces_retried": len(PROFILE_EMPTY)})
     emit({"kernels": [
         {"name": r["name"], "route": "cuda",
          "source": f"netobserv_tpu_torch/csrc/{s['kernel'].source}",
          "replaces": s["replaces"],
-         "launches": launches[s["path"]][r["name"]],
+         # the count on the kernel's first path (0 for kernel 5, which no
+         # path runs); every path's count beside it
+         "launches": next((launches[p][r["name"]] for p in s["per_fold"]),
+                          0),
+         "launches_by_path": {p: launches[p][r["name"]] for p in launches},
          "max_abs_err": r["max_abs_err"], "ms": r["device_kernel_ms"],
          "plain_ms": r["device_plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["device_library_ms"]}

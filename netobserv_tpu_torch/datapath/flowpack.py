@@ -1,0 +1,309 @@
+"""The resident feed's host packer: a key dictionary and its Python packer.
+
+Counterpart of the resident half of `netobserv_tpu/datapath/flowpack.py`
+(`RESIDENT_HDR`, `HOT_WORDS`, `NK_WORDS`, `DENSE_WORDS`, `RTT_MAX_US`,
+`ResidentCaps`, `default_resident_caps`, `resident_buf_len`,
+`zero_resident_region`, `KeyDict` in its Python form, `_fit_rows`,
+`_feature_words`, `_rtt_code11`, `_lat_code16` and the Python twin of
+`pack_resident`), kept as a copy. The layout is pinned in the reference's
+`datapath/native/flowpack.cc` `fp_pack_resident`; the device unpack is
+`sketch/state.resident_to_arrays`.
+
+One resident region is a flat uint32 buffer: a header of RESIDENT_HDR words
+(sampling, new keys, spill rows, dns | drops << 16), B hot rows of HOT_WORDS
+words, the sparse DNS lane (caps.dns words), the sparse drop lane (caps.drop
+x 2 words), the new-key lane (caps.nk x NK_WORDS words) and the full-width
+spill lane (caps.spill x DENSE_WORDS words, the dense feed's rows). A hot
+row names its key by a 20-bit slot id of the device key table; the host
+`KeyDict` assigns the slots and the new-key lane defines them on the device.
+
+The native packer of the reference (`flowpack.cc`) is not here: it comes as
+a class of its own, and nothing switches to it silently.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from netobserv_tpu_torch.model import binfmt
+from netobserv_tpu_torch.model.columnar import pack_key_words
+
+#: resident feed constants; layout pinned in flowpack.cc fp_pack_resident
+RESIDENT_HDR = 4
+HOT_WORDS = 3
+NK_WORDS = 11
+#: row width of the dense feed and of the resident spill lane
+DENSE_WORDS = 20
+#: hot-row rtt code ceiling (µs); larger samples spill full-width
+RTT_MAX_US = 0xFF << 14
+
+
+class ResidentCaps:
+    """Static side-lane capacities of the resident feed (fixed shapes keep
+    the device unpack free of data-dependent shapes; a lane that fills ends
+    the chunk, and the rest packs into the next one)."""
+
+    __slots__ = ("dns", "drop", "nk", "spill")
+
+    def __init__(self, dns: int, drop: int, nk: int, spill: int):
+        self.dns, self.drop, self.nk, self.spill = dns, drop, nk, spill
+
+    def __iter__(self):
+        return iter((self.dns, self.drop, self.nk, self.spill))
+
+    def __eq__(self, other):
+        return tuple(self) == tuple(other)
+
+    def __repr__(self):
+        return (f"ResidentCaps(dns={self.dns}, drop={self.drop}, "
+                f"nk={self.nk}, spill={self.spill})")
+
+
+def default_resident_caps(batch_size: int) -> ResidentCaps:
+    """Production sizing: DNS-latency and drop rows are minorities of live
+    traffic; new keys per batch are a trickle once the flow table is warm;
+    the spill lane only carries rows the hot row cannot represent
+    exactly."""
+    return ResidentCaps(dns=max(batch_size // 16, 64),
+                        drop=max(batch_size // 16, 64),
+                        nk=max(batch_size // 32, 64),
+                        spill=max(batch_size // 64, 32))
+
+
+def resident_buf_len(batch_size: int, caps: ResidentCaps) -> int:
+    """Flat word count of a resident feed buffer (header + all lanes)."""
+    return (RESIDENT_HDR + batch_size * HOT_WORDS + caps.dns + caps.drop * 2
+            + caps.nk * NK_WORDS + caps.spill * DENSE_WORDS)
+
+
+def zero_resident_region(out: np.ndarray, batch_size: int,
+                         caps: ResidentCaps) -> None:
+    """Mask a resident region as empty by zeroing only the words the device
+    unpack reads as validity gates: the header, hot-row word 0 (valid bit,
+    slot, rtt code), the sparse dns/drop lanes (their entries scatter by
+    embedded row index), new-key word 0 (defined bit) and spill word 14
+    (valid). Every other word of an invalid row is masked on the device."""
+    hot_off = RESIDENT_HDR
+    dns_off = hot_off + batch_size * HOT_WORDS
+    nk_off = dns_off + caps.dns + caps.drop * 2
+    spill_off = nk_off + caps.nk * NK_WORDS
+    out[:RESIDENT_HDR] = 0
+    out[hot_off:dns_off:HOT_WORDS] = 0
+    out[dns_off:nk_off] = 0
+    out[nk_off:spill_off:NK_WORDS] = 0
+    out[spill_off + 14::DENSE_WORDS] = 0
+
+
+class KeyDict:
+    """Host key -> slot dictionary backing the resident feed, in Python.
+
+    Slots are assigned sequentially in first-seen order. `reset` empties
+    the dictionary; the device key table needs no matching reset, because
+    every live slot is redefined through the new-key lane before a hot row
+    references it. `slots` maps a key's 40 packed bytes to its slot."""
+
+    def __init__(self, slot_cap: int = 1 << 18):
+        if slot_cap <= 0 or slot_cap > (1 << 20):
+            raise ValueError("slot_cap must be in 1..2^20 (20-bit slot ids)")
+        self.slot_cap = slot_cap
+        self.slots: dict[bytes, int] = {}
+
+    def count(self) -> int:
+        return len(self.slots)
+
+    def reset(self) -> None:
+        self.slots.clear()
+
+
+def _fit_rows(arr, n, dtype):
+    """Contiguous, exactly n rows (zero-padded), or None for a missing or
+    empty lane."""
+    if arr is None or not len(arr):
+        return None
+    a = np.ascontiguousarray(arr[:n], dtype=dtype)
+    if len(a) < n:
+        a = np.concatenate([a, np.zeros(n - len(a), dtype)])
+    return np.ascontiguousarray(a)
+
+
+def _feature_words(stats, ex, xl, qc, dr) -> np.ndarray:
+    """(n, 4) u32 feature words 16..19 of the dense row (w16 = tcp_flags |
+    dscp << 16 | markers << 24, w17 = drop bytes | packets << 16, w18 =
+    drop cause | state << 16, w19 = 0). Markers: bit 0 QUIC seen, bit 1 a
+    complete NAT translation, bit 2 IPsec encrypted, bit 3 an IPsec
+    return code."""
+    n = len(stats)
+    w = np.zeros((n, 4), np.uint32)
+    markers = np.zeros(n, np.uint32)
+    if qc is not None:
+        markers |= ((qc["version"] != 0) | (qc["seen_long_hdr"] != 0)
+                    | (qc["seen_short_hdr"] != 0)).astype(np.uint32)
+    if xl is not None:
+        # complete translation = both endpoints observed
+        both = xl["src_ip"].any(axis=1) & xl["dst_ip"].any(axis=1)
+        markers |= both.astype(np.uint32) << 1
+    if ex is not None:
+        markers |= (ex["ipsec_encrypted"] != 0).astype(np.uint32) << 2
+        markers |= (ex["ipsec_ret"] != 0).astype(np.uint32) << 3
+    w[:, 0] = (stats["tcp_flags"].astype(np.uint32)
+               | (stats["dscp"].astype(np.uint32) << 16)
+               | (markers << 24))
+    if dr is not None:
+        w[:, 1] = (dr["bytes"].astype(np.uint32)
+                   | (dr["packets"].astype(np.uint32) << 16))
+        # saturate, don't mask: subsystem drop reasons carry the subsystem
+        # in bits 16+, and saturation lands them in the overflow bucket
+        w[:, 2] = (np.minimum(dr["latest_cause"], np.uint32(0xFFFF))
+                   | (dr["latest_state"].astype(np.uint32) << 16))
+    return w
+
+
+def _rtt_code11(rtt_us: int) -> int:
+    """8-bit mantissa and 3-bit base-4 exponent: m << (2 * e) <= rtt_us."""
+    e = 0
+    while (rtt_us >> (2 * e)) > 0xFF:
+        e += 1
+    return ((rtt_us >> (2 * e)) & 0xFF) | (e << 8)
+
+
+def _lat_code16(us: int) -> int:
+    """12-bit mantissa and 4-bit exponent, saturating: m << e <= us."""
+    e = 0
+    while (us >> e) > 0xFFF and e < 15:
+        e += 1
+    return min(us >> e, 0xFFF) | (e << 12)
+
+
+def pack_resident(events_raw: bytes | np.ndarray,
+                  batch_size: int,
+                  kdict: KeyDict,
+                  caps: ResidentCaps,
+                  start: int = 0,
+                  extra: Optional[np.ndarray] = None,
+                  dns: Optional[np.ndarray] = None,
+                  drops: Optional[np.ndarray] = None,
+                  xlat: Optional[np.ndarray] = None,
+                  quic: Optional[np.ndarray] = None,
+                  out: Optional[np.ndarray] = None
+                  ) -> tuple[np.ndarray, int]:
+    """Raw flow events -> one resident region. Packs events[start:] until
+    the hot or spill lane fills; returns (buffer, rows consumed). The
+    caller ships the (always self-consistent) prefix and calls again from
+    the next row, so the dictionary and the device key table learn
+    monotonically even under cold-start key floods.
+
+    A row rides the hot lane when its key has a slot (known, or new while
+    the new-key lane and the dictionary have room), its packets and flags
+    fit 11 bits, its DSCP 6 bits, its sampling equals the region's (the
+    first row's), its rtt is at most RTT_MAX_US, and its DNS latency and
+    drops fit their lanes; otherwise it rides the spill lane in full."""
+    if isinstance(events_raw, np.ndarray):
+        events = np.ascontiguousarray(events_raw,
+                                      dtype=binfmt.FLOW_EVENT_DTYPE)
+    else:
+        events = binfmt.decode_flow_events(events_raw)
+    n = len(events)
+    if batch_size > 0xFFFF:
+        raise ValueError("resident feed row indices are 16-bit")
+    if min(caps.spill, caps.nk) < 1:
+        raise ValueError("resident caps must be >= 1 (progress guarantee)")
+    if not 0 <= start <= n:
+        raise ValueError(f"start {start} out of range 0..{n}")
+    total = resident_buf_len(batch_size, caps)
+    if out is None:
+        out = np.empty(total, dtype=np.uint32)
+    elif (out.shape != (total,) or out.dtype != np.uint32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous ({total},) uint32")
+    ex = _fit_rows(extra, n, binfmt.EXTRA_REC_DTYPE)
+    dn = _fit_rows(dns, n, binfmt.DNS_REC_DTYPE)
+    dr = _fit_rows(drops, n, binfmt.DROPS_REC_DTYPE)
+    xl = _fit_rows(xlat, n, binfmt.XLAT_REC_DTYPE)
+    qc = _fit_rows(quic, n, binfmt.QUIC_REC_DTYPE)
+    hot_off = RESIDENT_HDR
+    dns_off = hot_off + batch_size * HOT_WORDS
+    drop_off = dns_off + caps.dns
+    nk_off = drop_off + caps.drop * 2
+    spill_off = nk_off + caps.nk * NK_WORDS
+    out[:] = 0
+    def_sampling = int(events["stats"]["sampling"][start]) if start < n else 0
+    out[0] = def_sampling
+    if start >= n:
+        return out, 0
+    # derived arrays over the remainder only: a batch split into many
+    # continuation chunks must not recompute the whole batch per chunk
+    sl = slice(start, n)
+    kw_rel = pack_key_words(events["key"][sl])
+    fw_rel = _feature_words(events["stats"][sl],
+                            ex[sl] if ex is not None else None,
+                            xl[sl] if xl is not None else None,
+                            qc[sl] if qc is not None else None,
+                            dr[sl] if dr is not None else None)
+    stats = events["stats"]
+    # u32 wrap, as the native packer's cast and the dense feed's u32 column
+    rtt_rel = ((ex["rtt_ns"][sl] // 1000).astype(np.uint32)
+               if ex is not None else np.zeros(n - start, np.uint32))
+    dlat_rel = ((dn["latency_ns"][sl] // 1000).astype(np.uint64)
+                if dn is not None else np.zeros(n - start, np.uint64))
+    slots = kdict.slots
+    nh = nd = nr = nk = ns = 0
+    i = start
+    # per row, because the dictionary evolves first-seen-sequentially
+    while i < n and nh < batch_size:
+        j = i - start
+        kb = kw_rel[j].tobytes()
+        slot = slots.get(kb)
+        if slot is None and nk < caps.nk and len(slots) < kdict.slot_cap:
+            slot = len(slots)
+            slots[kb] = slot
+            row = nk_off + nk * NK_WORDS
+            out[row] = 0x80000000 | slot
+            out[row + 1:row + 11] = kw_rel[j]
+            nk += 1
+        rtt = int(rtt_rel[j])
+        dlat = int(dlat_rel[j])
+        has_drops = dr is not None and bool(dr["bytes"][i] or dr["packets"][i])
+        pk, fl = int(stats["packets"][i]), int(stats["tcp_flags"][i])
+        hot_ok = (slot is not None and pk < 0x800 and fl < 0x800
+                  and int(stats["dscp"][i]) < 0x40
+                  and int(stats["sampling"][i]) == def_sampling
+                  and rtt <= RTT_MAX_US
+                  and (not dlat or nd < caps.dns)
+                  and (not has_drops or nr < caps.drop))
+        if hot_ok:
+            row = hot_off + nh * HOT_WORDS
+            out[row] = 0x80000000 | (_rtt_code11(rtt) << 20) | slot
+            out[row + 1] = np.float32(stats["bytes"][i]).view(np.uint32)
+            out[row + 2] = (pk | (fl << 11)
+                            | (int(stats["dscp"][i]) << 22)
+                            | ((int(fw_rel[j, 0]) >> 24) << 28))
+            if dlat:
+                out[dns_off + nd] = (nh << 16) | _lat_code16(dlat)
+                nd += 1
+            if has_drops:
+                cause = min(int(dr["latest_cause"][i]), 0xFFFF)
+                out[drop_off + nr * 2] = (nh << 16) | cause
+                out[drop_off + nr * 2 + 1] = ((int(dr["packets"][i]) << 16)
+                                              | int(dr["bytes"][i]))
+                nr += 1
+            nh += 1
+        else:
+            if ns >= caps.spill:
+                break  # chunk full: the caller continues from row i
+            row = spill_off + ns * DENSE_WORDS
+            out[row:row + 10] = kw_rel[j]
+            out[row + 10] = np.float32(stats["bytes"][i]).view(np.uint32)
+            out[row + 11] = pk
+            out[row + 12] = rtt
+            # explicit u32 wrap: np.uint32(x) raises for x >= 2^32 (a DNS
+            # latency over about 71 minutes in µs)
+            out[row + 13] = np.uint32(dlat & 0xFFFFFFFF)
+            out[row + 14] = 1
+            out[row + 15] = stats["sampling"][i]
+            out[row + 16:row + 20] = fw_rel[j]
+            ns += 1
+        i += 1
+    out[1], out[2], out[3] = nk, ns, nd | (nr << 16)
+    return out, i - start

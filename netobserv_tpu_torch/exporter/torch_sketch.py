@@ -1,18 +1,25 @@
 """The sketch exporter of the port, reduced to this slice.
 
-Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`TpuSketchExporter`):
-dense flow batches go in through `fold_dense`, and `roll` closes the window
-into a report dict (`exporter/report.report_to_json`, with the previous
-roll's heavy-hitter index threaded so evicted keys are named). Each batch is
-padded to the fixed batch size, staged in one pinned host buffer and copied
-to the device without blocking; the next batch waits only for that copy.
+Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`TpuSketchExporter`).
+Flow records go in through one of two entry points, and `roll` closes the
+window into a report dict (`exporter/report.report_to_json`, with the
+previous roll's heavy-hitter index threaded so evicted keys are named):
+
+- `fold_events` takes raw flow events with their feature lanes and folds
+  them through an owned `sketch/staging.ResidentStagingRing`: the resident
+  feed, the reference agent's default (`SKETCH_FEED=resident`);
+- `fold_dense` takes the dense feed (20 words per record): each batch is
+  padded to the fixed batch size, staged in one pinned host buffer and
+  copied to the device without blocking; the next batch waits only for
+  that copy.
+
 With `SketchConfig(tiered=TierSpec())` the state stays resident in tiered
 form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
 and `counter_table_bytes` gives the resident bytes of the tier-covered
 tables.
 
-Not in this slice: staging rings, overload control, federation, archive,
-checkpoints and tracing.
+Not in this slice: the lane-sharded and dense staging rings, overload
+control, federation, archive, checkpoints and tracing.
 """
 
 from __future__ import annotations
@@ -28,17 +35,20 @@ from netobserv_tpu_torch.exporter.report import (
 )
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch import tiered
+from netobserv_tpu_torch.sketch.staging import ResidentStagingRing
 from netobserv_tpu_torch.utils.platform import pick_device
 
 
 class TorchSketchExporter:
-    """Folds dense batches into one device-resident sketch state.
+    """Folds flow records into one device-resident sketch state.
 
-    `window_s` sets a window deadline: the first `fold_dense` after it
-    passes closes the window and returns the report (None otherwise).
+    `window_s` sets a window deadline: the first fold after it passes
+    closes the window and returns the report (None otherwise).
     `decay_factor` / `reset_sketches` choose the roll mode as in
     `sketch.state.roll_window`. `folds` and `rolls` count the folds of
-    fixed-size batches and the closed windows."""
+    fixed-size batches (dense batches and resident regions alike) and the
+    closed windows. `ring` is the resident feed's staging ring (default
+    caps for `batch_size`, 2^18 slots)."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -61,6 +71,9 @@ class TorchSketchExporter:
         self._host_u32 = self._host.numpy().view(np.uint32)
         self._dev = torch.zeros(words, dtype=torch.int32, device=self.device)
         self._copied = torch.cuda.Event() if cuda else None
+        self.ring = ResidentStagingRing(
+            batch_size, device=self.device,
+            enable_fanout=cfg.enable_fanout, enable_asym=cfg.enable_asym)
         self._prev_index: Optional[dict] = None
         self._deadline = self._next_deadline()
         self._closed = False
@@ -70,6 +83,27 @@ class TorchSketchExporter:
     def _next_deadline(self) -> Optional[float]:
         return (time.monotonic() + self.window_s
                 if self.window_s is not None else None)
+
+    def _maybe_roll(self) -> Optional[dict]:
+        if self._deadline is not None and time.monotonic() >= self._deadline:
+            return self.roll()
+        return None
+
+    def fold_events(self, events: np.ndarray, extra=None, dns=None,
+                    drops=None, xlat=None, quic=None) -> Optional[dict]:
+        """Fold raw flow events (`model/binfmt.FLOW_EVENT_DTYPE` rows, any
+        count) and their optional feature lanes (`EXTRA_REC_DTYPE`,
+        `DNS_REC_DTYPE`, `DROPS_REC_DTYPE`, `XLAT_REC_DTYPE`,
+        `QUIC_REC_DTYPE`, row for row) through the resident feed. Returns
+        the window report if this call passed the window deadline, else
+        None."""
+        if self._closed:
+            raise RuntimeError("exporter is closed")
+        chunks = self.ring.chunks
+        self.ring.fold(self.state, events, extra=extra, dns=dns, drops=drops,
+                       xlat=xlat, quic=quic)
+        self.folds += self.ring.chunks - chunks
+        return self._maybe_roll()
 
     def fold_dense(self, flat: np.ndarray) -> Optional[dict]:
         """Fold a flat uint32 dense feed (rows of 20 words, any row count;
@@ -84,9 +118,7 @@ class TorchSketchExporter:
         step = self.batch_size * sk.DENSE_WORDS
         for lo in range(0, flat.size, step):
             self._fold_one(flat[lo:lo + step])
-        if self._deadline is not None and time.monotonic() >= self._deadline:
-            return self.roll()
-        return None
+        return self._maybe_roll()
 
     def _fold_one(self, chunk: np.ndarray) -> None:
         if self._copied is not None:
@@ -126,10 +158,12 @@ class TorchSketchExporter:
         return out
 
     def close(self) -> None:
-        """Wait for outstanding device work and drop the buffers."""
+        """Wait for outstanding device work and drop the buffers, the
+        ring's pinned buffers included."""
         if self._closed:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._closed = True
+        self.ring.close()
         self._host = self._host_u32 = self._dev = None

@@ -1,29 +1,20 @@
 """The packed flow-key word layout.
 
 Counterpart of `netobserv_tpu/model/columnar.py` (`KEY_WORDS`,
-`pack_key_words`, `unpack_key_words`) and of `model/binfmt.FLOW_KEY_DTYPE`,
-kept as numpy copies. A 40-byte flow key packs into KEY_WORDS little-endian
-uint32 words: 4 src-address words, 4 dst-address words, a ports word
-(src << 16 | dst) and a proto word (proto << 16 | icmp_type << 8 |
-icmp_code).
+`pack_key_words`, `unpack_key_words`), kept as numpy copies; the key's
+dtype is `model/binfmt.FLOW_KEY_DTYPE`. A 40-byte flow key packs into
+KEY_WORDS little-endian uint32 words: 4 src-address words, 4 dst-address
+words, a ports word (src << 16 | dst) and a proto word (proto << 16 |
+icmp_type << 8 | icmp_code).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-KEY_WORDS = 10
+from netobserv_tpu_torch.model.binfmt import FLOW_KEY_DTYPE
 
-FLOW_KEY_DTYPE = np.dtype([
-    ("src_ip", "u1", 16),
-    ("dst_ip", "u1", 16),
-    ("src_port", "u2"),
-    ("dst_port", "u2"),
-    ("proto", "u1"),
-    ("icmp_type", "u1"),
-    ("icmp_code", "u1"),
-    ("pad0", "u1"),
-])
+KEY_WORDS = 10
 
 
 def pack_key_words(key_arr: np.ndarray) -> np.ndarray:

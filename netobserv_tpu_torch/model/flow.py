@@ -1,7 +1,8 @@
 """Copies of the flow-model pieces the sketch plane needs.
 
-Counterpart of `netobserv_tpu/model/flow.py` (`TcpFlags`, `ip_from_16`),
-kept as a copy so the port imports nothing of the JAX package.
+Counterpart of `netobserv_tpu/model/flow.py` (`TcpFlags`, `ip_from_16`,
+`MAX_OBSERVED_INTERFACES`), kept as a copy so the port imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ import enum
 import socket
 
 IP4_IN_6_PREFIX = b"\x00" * 10 + b"\xff\xff"
+#: interfaces a flow record lists (the datapath's NO_MAX_OBSERVED_INTERFACES)
+MAX_OBSERVED_INTERFACES = 6
 
 
 class TcpFlags(enum.IntFlag):

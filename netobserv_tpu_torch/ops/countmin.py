@@ -1,13 +1,13 @@
 """Count-Min sketch: a point-queryable frequency table in O(d*w) memory.
 
-Counterpart of `netobserv_tpu/ops/countmin.py` (`init`, `update_two`,
-`query`, `total`). Counters are a dense f32 [depth, width] tensor. With
+Counterpart of `netobserv_tpu/ops/countmin.py` (`init`, `update`,
+`update_two`, `query`, `total`). Counters are a dense f32 [depth, width] tensor. With
 w = 2^k and depth d, a point query overestimates by at most e/w * N with
 probability 1 - e^-d (Cormode & Muthukrishnan).
 
-`update_two` folds in place (JAX donated the planes): on CUDA through
-kernel 1 (`ops/kernels/countmin_kernel.py`), on the CPU through its plain
-twin.
+`update_two` and `update` fold in place (JAX donated the planes): on CUDA
+through kernels 1 and 5 (`ops/kernels/countmin_kernel.py`), on the CPU
+through their plain twins.
 """
 
 from __future__ import annotations
@@ -39,6 +39,17 @@ def init(depth: int, width: int, device: torch.device) -> CountMin:
         raise ValueError("width must be a power of two")
     return CountMin(torch.zeros((depth, width), dtype=torch.float32,
                                 device=device))
+
+
+def update(cm: CountMin, h1: torch.Tensor, h2: torch.Tensor,
+           values: torch.Tensor, valid: torch.Tensor) -> CountMin:
+    """Fold one batch into the sketch in place; returns the same sketch.
+
+    h1/h2: int64[B] uint32 base hashes; values: [B]; valid: bool[B].
+    Duplicate keys within a batch accumulate (scatter-add semantics)."""
+    vals = torch.where(valid, values.to(torch.float32), 0.0)
+    countmin_kernel.update(cm.counts, h1, h2, vals)
+    return cm
 
 
 def update_two(cm_a: CountMin, cm_b: CountMin, h1: torch.Tensor,

@@ -4,10 +4,11 @@ Counterpart of `netobserv_tpu/ops/hll.py` (`init`, `init_per_dst`, `_rank`,
 `update`, `update_per_dst`, `estimate`). Registers are int32; the index comes
 from h1's low bits, the rank from the leading zeros of h2.
 
-`update` folds in place through kernel 3 (`ops/kernels/hll_kernel.py`) on
-CUDA and its plain twin on the CPU. `update_per_dst` stays a torch
-`scatter_reduce_` on every device, as the JAX package keeps the grids on
-XLA scatter. Both are in place on the registers (JAX donated them).
+`update` folds in place through kernel 3 and `update_per_dst` through kernel
+8 (`ops/kernels/hll_kernel.py`) on CUDA, and through their plain twins on
+the CPU. The JAX package keeps the grids on XLA scatter, because its TPU
+kernel pays D*m lane compares per record; kernel 8 pays one atomic, as the
+scatter does. Both are in place on the registers (JAX donated them).
 """
 
 from __future__ import annotations
@@ -57,10 +58,7 @@ def update(h: HLL, h1: torch.Tensor, h2: torch.Tensor,
 def update_per_dst(s: PerDstHLL, dst_h: torch.Tensor, src_h1: torch.Tensor,
                    src_h2: torch.Tensor, valid: torch.Tensor) -> PerDstHLL:
     """Fold (dst, src) pairs: register (dst_bucket, src_reg) <- max rank."""
-    dbuckets, m = s.regs.shape
-    cell = (dst_h & (dbuckets - 1)) * m + (src_h1 & (m - 1))
-    rank = torch.where(valid, _rank(src_h2), 0)
-    s.regs.view(-1).scatter_reduce_(0, cell, rank, "amax")
+    hll_kernel.update_per_dst(s.regs, dst_h, src_h1, src_h2, valid)
     return s
 
 

@@ -1,5 +1,6 @@
-"""Kernels 1 and 6: the dual-plane Count-Min fold, wide
-(`csrc/countmin_fold2.cu`) and tier-interior (`csrc/countmin_tier2.cu`).
+"""Kernels 1, 5 and 6: the dual-plane Count-Min fold, wide
+(`csrc/countmin_fold2.cu`) and tier-interior (`csrc/countmin_tier2.cu`), and
+the single-plane fold (`csrc/countmin_fold.cu`).
 
 Replaces the Pallas kernel `netobserv_tpu/ops/pallas/countmin_kernel.py`
 `update_two`. Both planes (bytes, packets) take the same row indices, so one
@@ -10,6 +11,12 @@ per (record, depth row), with no one-hot tiling (see the source note).
 `update_two` is the wrapper: a CUDA tensor launches the kernel, a CPU tensor
 takes `update_two_plain`, the same function written with `index_add_`. The
 fold is in place on the counter planes (JAX donated them).
+
+Kernel 5 replaces the Pallas kernel `update` (`_fold_kernel`): kernel 1 with
+one value row, one atomicAdd per (record, depth row). `update` is its
+wrapper and `update_plain` its twin. No path of the JAX package runs it (only
+its tests do), so no path of the port does either: `ops/countmin.update`
+reaches it.
 
 Kernel 6 replaces the Pallas kernel `update_two_tiered` (`_tier2_kernel`
 with `tier_tiles.py`): it folds both planes straight into their resident
@@ -31,6 +38,8 @@ from netobserv_tpu_torch.ops.kernels._build import CudaKernel, check, on_cuda
 
 SOURCE = "countmin_fold2.cu"
 KERNEL = CudaKernel(SOURCE, "cm_fold2", n_ptrs=6, n_ints=3)
+SOURCE_ONE = "countmin_fold.cu"
+KERNEL_ONE = CudaKernel(SOURCE_ONE, "cm_fold", n_ptrs=4, n_ints=3)
 SOURCE_TIER2 = "countmin_tier2.cu"
 KERNEL_TIER2 = CudaKernel(SOURCE_TIER2, "cm_tier2", n_ptrs=12, n_ints=7)
 #: columns per kernel-6 block: a tile holds whole top groups
@@ -39,14 +48,50 @@ TILE_W = 512
 SMEM_LIMIT = 232448
 
 
+def _flat_cells(counts: torch.Tensor, h1: torch.Tensor,
+                h2: torch.Tensor) -> torch.Tensor:
+    """Flat index r * W + ((h1 + r*h2) & (W-1)) of every (row r, record)."""
+    d, w = counts.shape
+    idx = hashing.row_indices(h1, h2, d, w)
+    return (idx + torch.arange(d, device=idx.device)[:, None] * w).reshape(-1)
+
+
+def update_plain(counts: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+                 vals: torch.Tensor) -> None:
+    """counts[r, (h1 + r*h2) & (W-1)] += vals for every record and row r,
+    in place. vals are already masked (0 for invalid rows)."""
+    d = counts.shape[0]
+    counts.view(-1).index_add_(0, _flat_cells(counts, h1, h2),
+                               vals.expand(d, -1).reshape(-1))
+
+
+def update(counts: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+           vals: torch.Tensor) -> None:
+    """Fold one batch into an f32 [d, W] plane in place.
+
+    h1/h2: int64[B] uint32 lanes; vals: f32[B] masked values."""
+    if not on_cuda(counts):
+        update_plain(counts, h1, h2, vals)
+        return
+    d, w = counts.shape
+    if w & (w - 1):
+        raise ValueError("width must be a power of two")
+    n = h1.shape[0]
+    dev = counts.device
+    check(counts, "counts", torch.float32, (d, w), dev)
+    check(h1, "h1", torch.int64, (n,), dev)
+    check(h2, "h2", torch.int64, (n,), dev)
+    check(vals, "vals", torch.float32, (n,), dev)
+    KERNEL_ONE.launch([counts, h1, h2, vals], [n, d, w], dev)
+
+
 def update_two_plain(counts_a: torch.Tensor, counts_b: torch.Tensor,
                      h1: torch.Tensor, h2: torch.Tensor, va: torch.Tensor,
                      vb: torch.Tensor) -> None:
     """counts_x[r, (h1 + r*h2) & (W-1)] += vx for every record and row r,
     in place. va/vb are already masked (0 for invalid rows)."""
-    d, w = counts_a.shape
-    idx = hashing.row_indices(h1, h2, d, w)
-    flat = (idx + torch.arange(d, device=idx.device)[:, None] * w).reshape(-1)
+    d = counts_a.shape[0]
+    flat = _flat_cells(counts_a, h1, h2)
     counts_a.view(-1).index_add_(0, flat, va.expand(d, -1).reshape(-1))
     counts_b.view(-1).index_add_(0, flat, vb.expand(d, -1).reshape(-1))
 

@@ -4,6 +4,8 @@ A numpy copy of the JAX package's bench traffic (`bench.py` `make_pool`,
 `check_recall`): 50,000 distinct random flow keys drawn with Zipf a = 1.2,
 bytes 64-9000, the full feature lane (TCP flags, DSCP, markers, and drops
 on about 2 % of rows). The tests and `chip_smoke.py` share it.
+`event_pool` gives the same batches as raw flow events with feature lanes,
+the input of the resident feed.
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from netobserv_tpu_torch.model import binfmt
+from netobserv_tpu_torch.model.columnar import (
+    pack_key_words, unpack_key_words,
+)
 from netobserv_tpu_torch.sketch.state import arrays_to_dense, batch_to_device
 
 BATCH = 16384
@@ -51,6 +57,58 @@ def make_pool(rng: np.random.Generator, batch: int = BATCH,
 def dense_pool(pool) -> list[np.ndarray]:
     """Each pool batch as the flat uint32 dense feed."""
     return [arrays_to_dense(arrays) for arrays, _ in pool]
+
+
+def event_pool(pool, rng: np.random.Generator, dns_share: float = 0.05
+               ) -> list[tuple[np.ndarray, dict[str, np.ndarray]]]:
+    """Each pool batch as (flow events, feature lanes for
+    `TorchSketchExporter.fold_events`): keys, bytes, packets, TCP flags,
+    DSCP and sampling in the events; rtt in `extra`; drop bytes, packets
+    and cause in `drops`; marker bit 0 as a QUIC version in `quic` and bit
+    1 as a complete NAT translation in `xlat`, as the packer reads them
+    back. The keys are the flow keys of the universe's rows: word 9's top
+    byte is no field of a flow key, so it is lost (`event_universe` gives
+    the universe as the events carry it). The one departure from the dense
+    feed's traffic: the DNS latency is kept on a `dns_share` of the rows,
+    drawn from `rng`, and is zero elsewhere, since the resident feed's DNS
+    lane is sized for DNS rows as a minority (B/16)."""
+    out = []
+    for arrays, _ in pool:
+        n = len(arrays["valid"])
+        ev = np.zeros(n, binfmt.FLOW_EVENT_DTYPE)
+        ev["key"] = unpack_key_words(arrays["keys"])
+        st = ev["stats"]
+        st["bytes"] = arrays["bytes"]
+        st["packets"] = arrays["packets"]
+        st["tcp_flags"] = arrays["tcp_flags"]
+        st["dscp"] = arrays["dscp"]
+        st["sampling"] = arrays["sampling"]
+        extra = np.zeros(n, binfmt.EXTRA_REC_DTYPE)
+        extra["rtt_ns"] = arrays["rtt_us"].astype(np.uint64) * 1000
+        dns = np.zeros(n, binfmt.DNS_REC_DTYPE)
+        keep = rng.random(n) < dns_share
+        dns["latency_ns"] = np.where(
+            keep, arrays["dns_latency_us"].astype(np.uint64) * 1000, 0)
+        drops = np.zeros(n, binfmt.DROPS_REC_DTYPE)
+        drops["bytes"] = arrays["drop_bytes"]
+        drops["packets"] = arrays["drop_packets"]
+        drops["latest_cause"] = arrays["drop_cause"]
+        quic = np.zeros(n, binfmt.QUIC_REC_DTYPE)
+        quic["version"] = arrays["markers"] & 1
+        xlat = np.zeros(n, binfmt.XLAT_REC_DTYPE)
+        nat = (arrays["markers"] & 2) != 0
+        xlat["src_ip"][nat, 0] = 1
+        xlat["dst_ip"][nat, 0] = 1
+        out.append((ev, dict(extra=extra, dns=dns, drops=drops, xlat=xlat,
+                             quic=quic)))
+    return out
+
+
+def event_universe(universe: np.ndarray) -> np.ndarray:
+    """The universe's key words as `event_pool`'s flow keys carry them
+    (word 9 masked to its 24 bits of fields): the oracle keys of the
+    resident feed."""
+    return pack_key_words(unpack_key_words(universe))
 
 
 def device_pool(pool, device: str | torch.device | None = None

@@ -16,6 +16,10 @@ packed HLL bytes, uint16 mid, uint32 top), and its wide remainder under
 reference's zero-size placeholders). The tier geometry is not an array:
 like the reference's pytree aux data, the `TierSpec` travels beside the
 dict, as the `spec` argument of `state_from_numpy`.
+
+The resident feed's device key table crosses as the JAX package's
+(slot_cap, 10) uint32 array (`key_table_to_numpy`, `key_table_from_numpy`);
+the port's table has one more row, the sink of undefined new-key rows.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from netobserv_tpu_torch.ops import countmin, ewma, hll, quantile, topk
 from netobserv_tpu_torch.sketch import tiered
-from netobserv_tpu_torch.sketch.state import SketchState
+from netobserv_tpu_torch.sketch.state import KEY_WORDS, SketchState
 from netobserv_tpu_torch.utils.platform import pick_device
 
 #: the NamedTuple type of every nested field of SketchState
@@ -144,3 +148,23 @@ def _tiered_from_numpy(fields: dict[str, np.ndarray], dev: torch.device,
     rest = _wide_from_numpy({p[len("rest."):]: v for p, v in fields.items()
                              if p.startswith("rest.")}, dev)
     return tiered.TieredState(tables, rest, spec)
+
+
+def key_table_to_numpy(table: torch.Tensor) -> np.ndarray:
+    """The port's key table as the JAX package's (slot_cap, 10) uint32
+    array: a host copy with the sink row stripped."""
+    return (table[:-1].detach().to("cpu", copy=True).numpy()
+            .view(np.uint32))
+
+
+def key_table_from_numpy(arr: np.ndarray,
+                         device: str | torch.device | None = None
+                         ) -> torch.Tensor:
+    """A JAX package's (slot_cap, 10) uint32 key table on `device`, with the
+    port's sink row added."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint32 or arr.ndim != 2 or arr.shape[1] != KEY_WORDS:
+        raise ValueError(f"key table must be (slot_cap, {KEY_WORDS}) "
+                         f"uint32, got {arr.dtype} {arr.shape}")
+    rows = np.concatenate([arr, np.zeros((1, KEY_WORDS), np.uint32)])
+    return torch.from_numpy(rows.view(np.int32)).to(pick_device(device))

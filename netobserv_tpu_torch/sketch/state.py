@@ -3,13 +3,15 @@
 Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
 `SketchState`, `WindowReport`, `init_state`, `batch_to_device`,
 `dense_to_arrays`, `arrays_to_dense`, `tiered_fold_form`, `ingest`,
-`decay_state`, `roll_window`, `state_tables`), on one device.
+`decay_state`, `roll_window`, `state_tables`, and the resident feed's
+`init_key_table`, `resident_to_arrays` and the ingest of
+`make_ingest_resident_fn`), on one device.
 
 One `ingest` call folds a fixed-shape columnar flow batch into the Count-Min
 planes (kernel 1), the persistent-slot top-K table (kernel 2), the global
-source HLL (kernel 3), the per-dst and per-src HLL grids, the RTT and DNS
-histograms, the signal planes (kernel 4) and the window totals. On CUDA
-tensors each of the four goes through its hand-written kernel; on CPU
+source HLL (kernel 3), the per-dst and per-src HLL grids (kernel 8), the RTT
+and DNS histograms, the signal planes (kernel 4) and the window totals. On
+CUDA tensors each of the five goes through its hand-written kernel; on CPU
 tensors through its plain PyTorch twin. Where JAX donated the state, this
 module updates the preallocated tensors in place: `ingest`, `decay_state`
 and `roll_window` mutate the state they are given and return it.
@@ -24,6 +26,13 @@ and only the per-bucket HLL grids unpack. Otherwise the fold decodes the
 tiers to wide, runs the wide fold, and promotes the delta back. Rolls and
 `state_tables` see the decoded wide tables, as in the reference.
 
+Two host feeds reach `ingest`. The dense feed (`dense_to_arrays`) ships 20
+words per record. The resident feed (`resident_to_arrays`, `ingest_resident`)
+ships a 3-word hot row naming its key by a slot of a device key table
+(`init_key_table`), sparse DNS and drop lanes, a new-key lane that defines
+slots, and a full-width spill lane; the host side is
+`datapath/flowpack.pack_resident`.
+
 Not in this slice: the owner-sharded ingest (`sketch_axis`) raises
 NotImplementedError.
 """
@@ -35,6 +44,10 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from netobserv_tpu_torch.datapath.flowpack import (
+    DENSE_WORDS, HOT_WORDS, NK_WORDS, RESIDENT_HDR, ResidentCaps,
+    resident_buf_len,
+)
 from netobserv_tpu_torch.model.columnar import KEY_WORDS
 from netobserv_tpu_torch.model.flow import TcpFlags
 from netobserv_tpu_torch.ops import countmin, ewma, hashing, hll, quantile, topk
@@ -125,8 +138,6 @@ QS = (0.5, 0.9, 0.95, 0.99, 0.999)
 N_DROP_CAUSES = 128
 #: DSCP class histogram size (6-bit code space)
 N_DSCP = 64
-#: row width of the dense feed (flowpack.cc fp_pack_dense layout)
-DENSE_WORDS = 20
 
 _SCALARS = ("total_records", "total_bytes", "total_drop_bytes",
             "total_drop_packets", "quic_records", "nat_records",
@@ -249,6 +260,111 @@ def arrays_to_dense(arrays: Mapping[str, np.ndarray]) -> np.ndarray:
                     | (np.minimum(col("drop_packets"), 0xFFFF) << 16))
     dense[:, 18] = np.minimum(col("drop_cause"), 0xFFFF)
     return dense.reshape(-1)
+
+
+def init_key_table(slot_cap: int,
+                   device: str | torch.device | None = None) -> torch.Tensor:
+    """Device twin of the host `KeyDict`: the key words of each slot as
+    int32 bits, (slot_cap + 1, KEY_WORDS), updated from the new-key lane
+    and gathered by hot-row slot id. The last row is a sink that takes the
+    undefined new-key rows, so the update needs no mask. Auxiliary state,
+    not part of the sketch state: rolls leave it alone."""
+    return torch.zeros((slot_cap + 1, KEY_WORDS), dtype=torch.int32,
+                       device=pick_device(device))
+
+
+def _region_nk(flat: torch.Tensor, batch_size: int, caps: ResidentCaps,
+               slot_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A region's new-key lane as (slot indices, key words): undefined rows
+    index the sink row `slot_cap`."""
+    nk_off = (RESIDENT_HDR + batch_size * HOT_WORDS + caps.dns
+              + caps.drop * 2)
+    nk = flat[nk_off:nk_off + caps.nk * NK_WORDS].reshape(caps.nk, NK_WORDS)
+    # the defined bit is bit 31: `>> 31` of int32 gives -1 or 0
+    nk_def = (nk[:, 0] >> 31) != 0
+    nk_slot = torch.where(nk_def, nk[:, 0] & 0xFFFFF, slot_cap)
+    return nk_slot.to(torch.int64), nk[:, 1:]
+
+
+def resident_to_arrays(flat: torch.Tensor, key_table: torch.Tensor,
+                       batch_size: int, caps: ResidentCaps
+                       ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """Device-side unpack of one resident region: int32 words holding the
+    uint32 bits of a `flowpack.pack_resident` buffer.
+
+    Writes the new-key lane into `key_table` in place first (a slot a hot
+    row references may be defined by this same region), then gathers the
+    10-word keys by slot id, decodes the range-coded rtt and DNS codes,
+    scatters the sparse DNS and drop lanes onto their rows, and appends the
+    spill lane's rows. Returns (arrays for `ingest`, key_table); the arrays
+    have batch_size + caps.spill rows, the hot lane's then the spill
+    lane's. The words are uint32 held in int32, so every right shift whose
+    top bit can be set is masked."""
+    if flat.dtype != torch.int32:
+        raise TypeError(f"resident feed must be int32 words, got {flat.dtype}")
+    if flat.shape != (resident_buf_len(batch_size, caps),):
+        raise ValueError(f"resident region of {tuple(flat.shape)} words, "
+                         f"expected {resident_buf_len(batch_size, caps)}")
+    hot_off = RESIDENT_HDR
+    dns_off = hot_off + batch_size * HOT_WORDS
+    drop_off = dns_off + caps.dns
+    nk_off = drop_off + caps.drop * 2
+    spill_off = nk_off + caps.nk * NK_WORDS
+    hot = flat[hot_off:dns_off].reshape(batch_size, HOT_WORDS)
+    dnsl = flat[dns_off:drop_off]
+    dropl = flat[drop_off:nk_off].reshape(caps.drop, 2)
+    spill = dense_to_arrays(flat[spill_off:])
+
+    nk_slot, nk_words = _region_nk(flat, batch_size, caps,
+                                   key_table.shape[0] - 1)
+    key_table.index_copy_(0, nk_slot, nk_words)
+    w0 = hot[:, 0]
+    keys = key_table[(w0 & 0xFFFFF).to(torch.int64)]
+    rtt = ((w0 >> 20) & 0xFF) << (2 * ((w0 >> 28) & 0x7))
+    w2 = hot[:, 2]
+    # sparse lanes: unused entries are all-zero, so they add 0 to row 0
+    # and max 0 into row 0
+    d_idx = ((dnsl >> 16) & 0xFFFF).to(torch.int64)
+    d_val = (dnsl & 0xFFF) << ((dnsl >> 12) & 0xF)
+    dns_arr = torch.zeros(batch_size, dtype=torch.int32, device=flat.device)
+    dns_arr.index_add_(0, d_idx, d_val)
+    r_idx = ((dropl[:, 0] >> 16) & 0xFFFF).to(torch.int64)
+    drop_bytes = torch.zeros_like(dns_arr).index_add_(
+        0, r_idx, dropl[:, 1] & 0xFFFF)
+    drop_pkts = torch.zeros_like(dns_arr).index_add_(
+        0, r_idx, (dropl[:, 1] >> 16) & 0xFFFF)
+    # the cause is a value, not a count: max, as the reference scatters it
+    drop_cause = torch.zeros_like(dns_arr).scatter_reduce_(
+        0, r_idx, dropl[:, 0] & 0xFFFF, "amax")
+    comp = {
+        "keys": keys.to(torch.int64) & hashing.M32,
+        "bytes": hot[:, 1].contiguous().view(torch.float32),
+        "packets": w2 & 0x7FF,
+        "rtt_us": rtt,
+        "dns_latency_us": dns_arr,
+        "valid": (w0 >> 31) != 0,
+        "sampling": flat[0].expand(batch_size),
+        "tcp_flags": (w2 >> 11) & 0x7FF,
+        "dscp": (w2 >> 22) & 0x3F,
+        "markers": (w2 >> 28) & 0xF,
+        "drop_bytes": drop_bytes,
+        "drop_packets": drop_pkts,
+        "drop_cause": drop_cause,
+    }
+    arrays = {k: torch.cat([v, spill[k]]) for k, v in comp.items()}
+    return arrays, key_table
+
+
+def ingest_resident(state: SketchState, key_table: torch.Tensor,
+                    flat: torch.Tensor, batch_size: int, caps: ResidentCaps,
+                    enable_fanout: bool = True,
+                    enable_asym: bool = True) -> SketchState:
+    """Fold one resident region: `resident_to_arrays` (which updates
+    `key_table` in place), then `ingest`. The counterpart of the function
+    `make_ingest_resident_fn` builds; returns `state`, updated in place."""
+    arrays, _ = resident_to_arrays(flat, key_table, batch_size, caps)
+    return ingest(state, arrays, enable_fanout=enable_fanout,
+                  enable_asym=enable_asym)
 
 
 def tiered_fold_form(cfg: SketchConfig) -> str | None:

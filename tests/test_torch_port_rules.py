@@ -17,13 +17,19 @@ from netobserv_tpu_torch.ops.kernels import (
 from netobserv_tpu_torch.scenarios import traffic
 from netobserv_tpu_torch.sketch import state as ts
 from netobserv_tpu_torch.sketch import tiered
+from netobserv_tpu_torch.sketch.staging import ResidentStagingRing
 from netobserv_tpu_torch.utils.platform import pick_device
 
 ROOT = Path(__file__).resolve().parents[1]
-#: every kernel of the port: kernels 1-4 and the tiered kernels 6-7
+#: every kernel of the port: kernels 1-4, the single-plane CM fold 5, the
+#: tiered kernels 6-7 and the HLL grid fold 8
 KERNELS = (countmin_kernel.KERNEL, hll_kernel.KERNEL, topk_kernel.KERNEL,
-           signal_kernel.KERNEL, countmin_kernel.KERNEL_TIER2,
-           signal_kernel.KERNEL_TIERED)
+           signal_kernel.KERNEL, countmin_kernel.KERNEL_ONE,
+           countmin_kernel.KERNEL_TIER2, signal_kernel.KERNEL_TIERED,
+           hll_kernel.KERNEL_GRID)
+#: modules each slice added, which the import scan must reach
+SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
+                 "sketch/staging.py", "sketch/tiered.py", "sketch/state.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -40,6 +46,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     files = sorted((ROOT / "netobserv_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for rel in SLICE_MODULES:
+        assert ROOT / "netobserv_tpu_torch" / rel in files, rel
     for f in files:
         for name in _imported_modules(f):
             top = name.split(".")[0]
@@ -60,13 +68,18 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     with pytest.raises(RuntimeError, match="cuda"):
         ts.init_state(ts.SketchConfig(tiered=tiered.TierSpec()))
     with pytest.raises(RuntimeError, match="cuda"):
+        ResidentStagingRing(64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ts.init_key_table(64)
+    with pytest.raises(RuntimeError, match="cuda"):
         traffic.device_pool(traffic.make_pool(np.random.default_rng(0),
                                               batch=8, n_batches=1)[1])
     assert pick_device("cpu").type == "cpu"
 
 
 def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
-    """Wide and tiered (interior form, kernels 6 and 7 engaged) ingest."""
+    """Wide and tiered (interior form, kernels 6 and 7 engaged) ingest of a
+    batch, the same batch through the resident feed, and kernel 5."""
     for k in KERNELS:
         k.launches = 0
     cfg = ts.SketchConfig(cm_width=1024, hll_precision=10, perdst_buckets=64,
@@ -80,6 +93,14 @@ def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
         ts.ingest(state, batch)
         wide = state.rest if c.tiered else state
         assert float(wide.total_records) == 300.0
+    (events, feats), = traffic.event_pool(pool, np.random.default_rng(2))
+    ring = ResidentStagingRing(256, device="cpu")
+    state = ring.fold(ts.init_state(cfg, device="cpu"), events, **feats)
+    assert float(state.total_records) == 300.0 and ring.chunks == 2
+    counts = torch.zeros((2, 64))
+    countmin_kernel.update(counts, batch["keys"][:, 0], batch["keys"][:, 1],
+                           batch["bytes"])
+    assert float(counts[0].sum()) == float(batch["bytes"].sum())
     assert ts.tiered_fold_form(cfg._replace(tiered=tiered.TierSpec())) \
         == "interior"
     assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
@@ -106,3 +127,10 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         hll_kernel.update(meta.to(torch.int32), meta.long(), meta.long(),
                           meta.bool())
+    with pytest.raises(ValueError, match="device"):
+        hll_kernel.update_per_dst(meta.reshape(2, 2).to(torch.int32),
+                                  meta.long(), meta.long(), meta.long(),
+                                  meta.bool())
+    with pytest.raises(ValueError, match="device"):
+        countmin_kernel.update(meta.reshape(2, 2), meta.long(), meta.long(),
+                               meta)
