@@ -6,8 +6,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the eight CUDA kernels of the port from `netobserv_tpu_torch/csrc/`
-(one `nvcc` per source, all started together), holds each against its
-plain PyTorch version at the shapes its path gives it, then drives three
+and the empty kernel of the launch floor (one `nvcc` per source, all
+started together), holds each against its plain PyTorch version at the
+shapes its path gives it, then drives three
 paths through `TorchSketchExporter` at the default geometry, each with the
 launch counts set to 0 just before it and read just after:
 
@@ -25,11 +26,21 @@ launch counts set to 0 just before it and read just after:
   prints the pack time apart from the ingest time, the bytes copied to the
   card per record, and the ring's counters.
 
-Kernel 8 (the HLL grid fold) runs twice per fold on every path (per-dst
-and per-src grids). Kernel 5 (the single-plane Count-Min fold) runs on no
-path, as in the JAX package, where only its tests call it: the kernel phase
-checks it on the wide path's kernel-1 inputs, one plane, and its launches
-print as 0 on every path beside the kernel phase's own count.
+Kernels 2 (the top-K slot reduce, one thread-block cluster) and 4 (the
+signal fold, warp-aggregated atomics into L2) are also held bit-exact
+against their plain versions on the seeded contract cases of
+`netobserv_tpu_torch/ops/kernels/cases.py` (empty and one-row batches, one
+row past a CTA's or block's share, every row on one slot or bucket, ties
+in different CTAs, dead rows, the inactive slot, table edges, zero values;
+kernel 2 also at a K of three slot tiles), which the CPU tests hold
+against the JAX package; the kernel phase prints, for each, the launch
+floor: the device time of an empty kernel (`csrc/launch_floor.cu`) at its
+grid, cluster and shared memory, and for kernel 2 with its two cluster
+barriers. Kernel 8 (the HLL grid fold) runs twice per fold on every path
+(per-dst and per-src grids). Kernel 5 (the single-plane Count-Min fold)
+runs on no path, as in the JAX package, where only its tests call it: the
+kernel phase checks it on the wide path's kernel-1 inputs, one plane, and
+its launches print as 0 on every path beside the kernel phase's own count.
 
 Each path checks heavy-hitter recall against the exact oracle and is rerun
 with the plain versions on the card to compare the tables; on the kernel
@@ -48,7 +59,11 @@ time held against the bound and printed in the `kernels` line;
 `kernel_ms`, `plain_ms`, `library_ms` are CUDA-event times of the same loop
 and include whatever launch overhead it cannot hide. In-place tables are
 restored from the captured state before each call, and the restore's own
-time is subtracted from both clocks. Kernels 6 and 7 have no library
+time is subtracted from both clocks: a device difference that is not
+positive fails the phase, an event difference that is negative prints as
+null (the two loops' host overhead, not the kernel, set it). A trace must
+be whole, every kernel counted a multiple of the loop's calls, or the
+phase fails. Kernels 6 and 7 have no library
 yardstick: no single PyTorch call decodes, folds and promotes tiers, or
 max-folds a 6-bit packed bank.
 
@@ -60,9 +75,10 @@ sectors that this call's non-zero values reach, read once and written once
 in; for kernel 7 also the sectors of the packed triples its valid records
 reach; for kernel 8 the grid cells of its valid records); a fresh output
 written once. The kernel phase also prints kernels 1's and 5's atomic
-counts and the most atomics that land on one address. Kernel 5's library
-yardstick is `index_add_` on one plane, kernel 8's `scatter_reduce_`
-("amax") on the flat grid.
+counts and the most atomics that land on one address, and the device time
+of kernels 1, 2, 4 and 6 with the hot key spread out (uniform keys).
+Kernel 5's library yardstick is `index_add_` on one plane, kernel 8's
+`scatter_reduce_` ("amax") on the flat grid.
 
 Tolerances. Kernels 2, 3 and 8 compute maxima and a minimum row:
 bit-exact, and so is kernel 7's packed HLL bank, in every regime. Kernels
@@ -129,10 +145,18 @@ DECAY_FACTOR = 0.5
 WARM_FOLDS = 3
 CHAIN = 8
 REPS = 50
-#: traces of one loop before `measure` gives up: a trace can come back
-#: with no device events at all (seen once on an H100, torch 2.11)
-PROFILE_TRIES = 3
-PROFILE_EMPTY: list = []
+#: the kernels redesigned for Hopper, with contract cases and a launch
+#: floor in the kernel phase
+REDESIGNED = ("topk_reduce", "signal_fold")
+#: the empty kernel of the launch floor
+FLOOR_SOURCE = "launch_floor.cu"
+#: traces of one loop before `measure` fails the phase: a trace can come
+#: back with no device events at all (seen about once a run on an H100,
+#: torch 2.11), or with some missing (a kernel counted fewer times than the
+#: loop ran it, seen as an in-place kernel's time below its restore's)
+PROFILE_TRIES = 5
+#: traces retried
+PROFILE_RETRIED: list = []
 
 
 def emit(obj: dict) -> None:
@@ -184,12 +208,15 @@ def _device_rows(prof) -> list[tuple[float, str, int]]:
     return sorted(rows, reverse=True)
 
 
-def measure(fn, setup=None, reps: int = REPS) -> tuple[float, float]:
+def measure(fn, setup=None,
+            reps: int = REPS) -> tuple[float | None, float]:
     """(event ms, device ms) per call of fn() over `reps` calls after a
     warm-up: CUDA events around the loop, then the same loop under
-    torch.profiler for the device's own kernel and copy time. With `setup`
-    (which restores in-place inputs), setup alone is measured the same way
-    and subtracted from both."""
+    torch.profiler for the device's own kernel and copy time, from a whole
+    trace (every kernel counted a multiple of `reps` times) or the phase
+    fails. With `setup` (which restores in-place inputs), setup alone is
+    measured the same way and subtracted from both: the device difference
+    must be positive, and a negative event difference is None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,18 +236,25 @@ def measure(fn, setup=None, reps: int = REPS) -> tuple[float, float]:
                 for _ in range(reps):
                     body()
                 torch.cuda.synchronize()
-            us = sum(r[0] for r in _device_rows(prof))
-            if us > 0:
-                break
-            PROFILE_EMPTY.append(1)  # a trace that came back empty
-        check(us > 0, f"the profiler saw no device time in "
-              f"{PROFILE_TRIES} traces")
-        return start.elapsed_time(end) / reps, us / 1e3 / reps
+            rows = _device_rows(prof)
+            # every call runs the same kernels: a whole trace counts each
+            # a multiple of reps times
+            if rows and all(c % reps == 0 for _, _, c in rows):
+                us = sum(r[0] for r in rows)
+                return start.elapsed_time(end) / reps, us / 1e3 / reps
+            PROFILE_RETRIED.append(1)
+        raise PhaseError(f"no whole profiler trace (device events, every "
+                         f"kernel a multiple of {reps} times) in "
+                         f"{PROFILE_TRIES} traces")
 
     if setup is None:
         return loop(fn)
     both, alone = loop(lambda: (setup(), fn())), loop(setup)
-    return max(both[0] - alone[0], 0.0), max(both[1] - alone[1], 0.0)
+    device = both[1] - alone[1]
+    check(device > 0, f"the call's device time, {both[1]} ms with the "
+          f"restore, is not above the restore's {alone[1]} ms")
+    event = both[0] - alone[0]
+    return (event if event >= 0 else None), device
 
 
 def _exact(a, b) -> bool:
@@ -791,8 +825,18 @@ def bound_of(spec, args) -> dict:
 
 def uniform_variant(spec, args):
     """The same call with the hot key spread out: random hashes (kernels 1
-    and 6) or random slots (kernel 2), to price same-address atomics."""
+    and 6), random slots (kernel 2) or random indices in every table
+    (kernel 4), to price same-address atomics."""
     import torch
+    if spec["name"] == "signal_fold":
+        planes, idx, vals = args
+        g = torch.Generator(device=idx.device).manual_seed(1)
+        sizes = [planes.ddos_rate.shape[0]] * 3 + [
+            planes.dscp_bytes.shape[0], planes.drop_causes.shape[0]]
+        uni = torch.stack([torch.randint(0, size, idx.shape[1:], generator=g,
+                                         device=idx.device)
+                           for size in sizes])
+        return (planes, uni, vals)
     if spec["name"] in ("countmin_fold2", "countmin_tier2"):
         h1 = args[2]
         g = torch.Generator(device=h1.device).manual_seed(1)
@@ -804,6 +848,64 @@ def uniform_variant(spec, args):
     r = lambda: torch.randint(0, k + 1, mslot.shape, generator=g,  # noqa
                               device=mslot.device, dtype=torch.int64)
     return (r(), r(), est, k)
+
+
+def contract_cases(spec, args) -> list[dict]:
+    """Kernels 2 and 4 against their plain versions, bit-exact, on the
+    seeded contract cases of `ops/kernels/cases.py` (the CPU tests hold the
+    plain versions against the JAX package on the same cases): kernel 2 at
+    K = 128, the path's K and a K of three slot tiles, kernel 4 at the
+    path's m onto tables of small integers."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.ops.kernels import (
+        cases, signal_kernel, topk_kernel,
+    )
+    dev = args[2].device  # the path's device: est of kernel 2, vals of 4
+    out = []
+    if spec["name"] == "topk_reduce":
+        # the path's K, a small one, and one of three tiles
+        for k in (128, args[3], 2 * topk_kernel.TILE + 5):
+            for name, c in cases.topk_cases(k):
+                a = (*(torch.from_numpy(c[f]).to(dev)
+                       for f in ("mslot", "target", "est")), k)
+                r = compare(spec, a, "integer")
+                out.append({"case": name, "k": k, "rows": len(c["est"]),
+                            "max_abs_err": r["max_abs_err"]})
+        return out
+    m = args[0].ddos_rate.shape[0]
+    rng = np.random.default_rng(3)
+    for name, c in cases.signal_cases(m):
+        planes = signal_kernel.SignalPlanes(*(
+            torch.from_numpy(rng.integers(0, 50, p.shape[0]).astype(
+                np.float32)).to(dev) for p in args[0]))
+        a = (planes, torch.from_numpy(c["idx"]).to(dev),
+             torch.from_numpy(c["vals"]).to(dev))
+        r = compare(spec, a, "integer")
+        out.append({"case": name, "m": m, "rows": c["vals"].shape[1],
+                    "max_abs_err": r["max_abs_err"]})
+    return out
+
+
+def launch_floor(spec, args) -> dict:
+    """Device and event time of an empty kernel launched at the kernel's
+    own grid, cluster, block and shared memory (csrc/launch_floor.cu),
+    alone and, for kernel 2, with the two cluster barriers of its one slot
+    tile: the least a launch of that shape takes, beside the byte bound."""
+    import torch
+    from netobserv_tpu_torch.ops.kernels import signal_kernel, topk_kernel
+    from netobserv_tpu_torch.ops.kernels._build import CudaKernel
+    if spec["name"] == "topk_reduce":
+        shape, barriers = topk_kernel.launch_shape(args[3]), 2
+    else:
+        shape, barriers = signal_kernel.launch_shape(args[2].shape[1]), 0
+    floor = CudaKernel(FLOOR_SOURCE, "launch_floor", n_ptrs=0, n_ints=5)
+    dev = torch.device("cuda")
+    out = {"shape": shape._asdict()}
+    for syncs in sorted({0, barriers}):
+        ev, dv = measure(lambda: floor.launch([], [*shape, syncs], dev))
+        out[f"syncs_{syncs}"] = {"device_ms": dv, "event_ms": ev}
+    return out
 
 
 # --------------------------------------------------------------- phases
@@ -827,7 +929,8 @@ def phase_device() -> dict:
 def phase_build(specs) -> dict:
     from netobserv_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    secs = _build.build(sorted({s["kernel"].source for s in specs}))
+    secs = _build.build(sorted({s["kernel"].source for s in specs}
+                               | {FLOOR_SOURCE}))
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "per_source_seconds": secs}
 
@@ -890,9 +993,13 @@ def phase_kernels(specs, calls) -> list[dict]:
                     max_rel_err=max(c["max_rel_err"] for c in case["cases"]))
         if "library_note" in s:
             case["library_note"] = s["library_note"]
-        if s["name"] in ("countmin_fold2", "topk_reduce", "countmin_tier2"):
+        if s["name"] in ("countmin_fold2", "topk_reduce", "signal_fold",
+                         "countmin_tier2"):
             uni = uniform_variant(s, args)
             case["device_kernel_ms_uniform_keys"] = timing(s, uni)[0][1]
+        if s["name"] in REDESIGNED:
+            case["contract_cases"] = contract_cases(s, args)
+            case["launch_floor"] = launch_floor(s, args)
         torch.cuda.synchronize()
         case["kernel_phase_launches"] = s["kernel"].launches
         check(case["kernel_phase_launches"] > 0,
@@ -1360,7 +1467,7 @@ def main() -> int:
     launches = {"wide": main_res["launches"], "tiered": tier_res["launches"],
                 "resident": res_res["launches"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "empty_traces_retried": len(PROFILE_EMPTY)})
+          "traces_retried": len(PROFILE_RETRIED)})
     emit({"kernels": [
         {"name": r["name"], "route": "cuda",
          "source": f"netobserv_tpu_torch/csrc/{s['kernel'].source}",

@@ -1,7 +1,7 @@
-// The fused signal-plane fold of one thread block, shared by kernel 4
-// (signal_fold.cu) and kernel 7 (signal_fold_tiered.cu), so the two
-// cannot drift; the counterpart of `_signal_fold_body` in
-// netobserv_tpu/ops/pallas/signal_kernel.py.
+// The fused signal-plane fold of one thread block, kernel 7's
+// (signal_fold_tiered.cu); the counterpart of `_signal_fold_body` in
+// netobserv_tpu/ops/pallas/signal_kernel.py. It is the first design of
+// kernel 4, which now folds on thread-block clusters (signal_fold.cu).
 //
 // Eight value rows add into six m-wide tables and two small aux tables:
 //   rows 0-2 (ddos, syn, drops)   <- idx 0 (dst bucket)

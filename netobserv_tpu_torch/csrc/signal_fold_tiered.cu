@@ -1,4 +1,4 @@
-// Tiered signal megakernel: kernel 4's fused signal fold plus a max fold
+// Tiered signal megakernel: the fused signal fold plus a max fold
 // of the global source HLL straight into its 6-bit packed bank, in one
 // launch. The bank is never unpacked into device memory.
 //
@@ -6,7 +6,7 @@
 // `update_tiered` (`_fold_tiered_kernel`), whose grid tiles the packed
 // register triples and runs the signal fold on its first step. Here the
 // first signal_blocks(B) blocks run `signal_fold_block` (signal_body.cuh,
-// the body kernel 4 runs), and each of the remaining n3 / TILE_R blocks
+// kernel 4's first design), and each of the remaining n3 / TILE_R blocks
 // owns TILE_R packed triples (4 * TILE_R registers, 8 at the default
 // p = 14): it unpacks them into shared memory (tier_tiles.cuh), walks all
 // B records, computes register h1 & (m-1) and rank clz(h2) + 1 itself

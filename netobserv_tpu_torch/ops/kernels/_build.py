@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -30,7 +31,20 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: shared memory one block may use on sm_90 (bytes)
+SMEM_LIMIT = 232448
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchShape(NamedTuple):
+    """Grid of a cluster kernel: `clusters` clusters of `cluster` CTAs of
+    `threads` threads, each with `smem` bytes of dynamic shared memory."""
+
+    clusters: int
+    cluster: int
+    threads: int
+    smem: int
 
 
 def nvcc_path() -> str:

@@ -1,0 +1,126 @@
+"""Seeded edge cases of the contracts of kernel 2 (the top-K slot reduce)
+and kernel 4 (the signal fold), as numpy arrays.
+
+The CPU tests hold the plain twins against the JAX package on these cases
+(`tests/test_torch_topk.py`, `tests/test_torch_signal.py`), and
+`chip_smoke.py` holds the CUDA kernels against the plain twins on the same
+cases. Each case is named after the edge it covers; the sizes follow the
+kernels' launch shapes (a top-K CTA's pass is THREADS rows, a cluster's
+pass CLUSTER * THREADS; a signal block's THREADS rows), so "one row past" lands
+in the next CTA or block. Signal values
+are integers whose per-cell sums stay below 2^24, where the f32 adds are
+exact in any order, so every case is held bit-exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from netobserv_tpu_torch.ops.kernels import signal_kernel, topk_kernel
+from netobserv_tpu_torch.sketch.state import N_DROP_CAUSES as N_CAUSE
+from netobserv_tpu_torch.sketch.state import N_DSCP
+
+
+def topk_cases(k: int, seed: int = 0) -> list[tuple[str, dict]]:
+    """(name, {"mslot", "target": int64[B] in [0, k], "est": f32[B]}) for
+    K = k slots (k >= 8). Slot k marks an inactive row."""
+    rng = np.random.default_rng(seed)
+    share = topk_kernel.THREADS
+    cluster_pass = topk_kernel.CLUSTER * share
+
+    def rows(n: int) -> dict:
+        est = rng.integers(0, 500, n).astype(np.float32)
+        est[rng.random(n) < 0.1] = -1.0      # dead rows
+        est[rng.random(n) < 0.05] = -3.0     # below the -1 floor
+        est[rng.random(n) < 0.05] = -0.5     # live, negative
+        return {"mslot": rng.integers(0, k + 1, n),
+                "target": rng.integers(0, k + 1, n), "est": est}
+
+    cases = [("empty", rows(0)),
+             ("one_row", {"mslot": np.array([k - 1]),
+                          "target": np.array([3]),
+                          "est": np.array([5.0], np.float32)}),
+             ("cta_share_plus_one", rows(share + 1)),
+             ("cluster_pass_plus_one", rows(cluster_pass + 1))]
+
+    one = rows(2 * share + 3)
+    one["mslot"][:] = k // 2
+    one["target"][:] = k // 2
+    cases.append(("every_row_one_slot", one))
+
+    # the maximum of slot 1 on rows in CTAs 1, 3 and 5 (and a warp-mate):
+    # the lowest of them must win
+    ties = rows(cluster_pass + 64)
+    ties["target"][ties["target"] == 1] = 2
+    ties["est"][ties["target"] == 2] = np.minimum(
+        ties["est"][ties["target"] == 2], 100.0)
+    tie_rows = [3 * share + 5, share + 2, 5 * share + 1, share + 3]
+    ties["target"][tie_rows] = 1
+    ties["est"][tie_rows] = 777.0
+    ties["target"][[10, 11]] = 2    # a tie within one warp on slot 2
+    ties["est"][[10, 11]] = 400.0
+    cases.append(("equal_est_far_apart", ties))
+
+    # slot 0's challengers and members are all at or below -1: no winner,
+    # and chall_max / match_max stay -1
+    dead = rows(share + 40)
+    live_slot0 = (dead["target"] == 0) | (dead["mslot"] == 0)
+    dead["est"][live_slot0] = -1.0
+    at = np.arange(share, share + 40)
+    dead["target"][at] = 0
+    dead["mslot"][at] = 0
+    dead["est"][at] = np.where(at % 2, -1.0, -3.0)
+    cases.append(("est_at_or_below_minus_one", dead))
+
+    # almost every row inactive (slot k) with the largest estimates
+    idle = rows(cluster_pass + 3)
+    idle["mslot"][:] = k
+    idle["target"][:] = k
+    idle["est"][:] = 1e6
+    idle["mslot"][[7, cluster_pass]] = [k - 1, 0]
+    idle["target"][[7, cluster_pass]] = [0, k - 1]
+    idle["est"][[7, cluster_pass]] = 12.0
+    cases.append(("inactive_slot", idle))
+    return [(name, {"mslot": c["mslot"].astype(np.int64),
+                    "target": c["target"].astype(np.int64),
+                    "est": c["est"].astype(np.float32)})
+            for name, c in cases]
+
+
+def signal_cases(m: int, seed: int = 0) -> list[tuple[str, dict]]:
+    """(name, {"idx": int64[5, B], "vals": f32[8, B]}) for m-wide tables
+    and the N_DSCP / N_CAUSE aux tables; every index is in its table."""
+    rng = np.random.default_rng(seed)
+    share = signal_kernel.THREADS
+    blocks = 8 * share  # rows of eight full blocks
+
+    def batch(n: int) -> dict:
+        idx = np.stack([rng.integers(0, m, n), rng.integers(0, m, n),
+                        rng.integers(0, m, n), rng.integers(0, N_DSCP, n),
+                        rng.integers(0, N_CAUSE, n)])
+        vals = rng.integers(0, 4000, (8, n)).astype(np.float32)
+        vals *= rng.random((8, n)) < 0.8
+        return {"idx": idx, "vals": vals}
+
+    cases = [("empty", batch(0)), ("one_row", batch(1)),
+             ("block_plus_one", batch(share + 1)),
+             ("ragged_last_block", batch(3 * blocks + 77))]
+
+    hot = batch(2 * blocks + 5)
+    hot["idx"][0] = m // 2 + 1
+    cases.append(("every_row_one_dst_bucket", hot))
+
+    edges = batch(blocks + 9)
+    ends = np.where(np.arange(edges["idx"].shape[1]) % 2, m - 1, 0)
+    edges["idx"][:3] = ends
+    edges["idx"][3] = N_DSCP - 1
+    edges["idx"][4] = N_CAUSE - 1
+    cases.append(("index_0_and_m_minus_1_dscp_63_cause_127", edges))
+
+    zeros = batch(blocks + 31)
+    zeros["vals"] *= rng.random(zeros["vals"].shape) < 0.1
+    zeros["vals"][[2, 5]] = 0.0
+    cases.append(("zero_values", zeros))
+    return [(name, {"idx": c["idx"].astype(np.int64),
+                    "vals": c["vals"].astype(np.float32)})
+            for name, c in cases]

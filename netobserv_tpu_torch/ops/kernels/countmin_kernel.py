@@ -34,7 +34,9 @@ from __future__ import annotations
 import torch
 
 from netobserv_tpu_torch.ops import hashing
-from netobserv_tpu_torch.ops.kernels._build import CudaKernel, check, on_cuda
+from netobserv_tpu_torch.ops.kernels._build import (
+    SMEM_LIMIT, CudaKernel, check, on_cuda,
+)
 
 SOURCE = "countmin_fold2.cu"
 KERNEL = CudaKernel(SOURCE, "cm_fold2", n_ptrs=6, n_ints=3)
@@ -44,8 +46,6 @@ SOURCE_TIER2 = "countmin_tier2.cu"
 KERNEL_TIER2 = CudaKernel(SOURCE_TIER2, "cm_tier2", n_ptrs=12, n_ints=7)
 #: columns per kernel-6 block: a tile holds whole top groups
 TILE_W = 512
-#: shared memory one block may use on sm_90 (bytes)
-SMEM_LIMIT = 232448
 
 
 def _flat_cells(counts: torch.Tensor, h1: torch.Tensor,

@@ -4,21 +4,23 @@ and its tiered form with the packed global HLL (`csrc/signal_fold_tiered.cu`).
 Replaces the Pallas kernel `netobserv_tpu/ops/pallas/signal_kernel.py`
 `update`. Eight value rows add into six m-wide tables (ddos, syn, drops,
 synack, conv_fwd, conv_rev) and two aux tables (dscp bytes, drop causes)
-over five index families (dst, src, pair, dscp, cause). Each block folds
-its slice of the batch into a shared-memory copy of all eight tables and
-flushes it with global atomics; see the source note.
+over five index families (dst, src, pair, dscp, cause). Kernel 4 takes
+one thread per record: the lanes of a warp with the same index combine
+their values, and the group's leader adds the sum straight into the
+L2-resident global table with one atomic; see the source note.
 
 `update` is the wrapper: CUDA tensors launch the kernel, CPU tensors take
 `update_plain` (eight `index_add_`). In place on the tables (JAX donated
 them).
 
 Kernel 7 replaces the Pallas kernel `update_tiered` (`_fold_tiered_kernel`):
-kernel 4's fold (the same block body, `csrc/signal_body.cuh`) plus a max
-fold of the global source HLL straight into its 6-bit packed bank
-(`sketch/tiered.pack_hll` layout), each extra block owning TILE_R packed
-triples. `update_tiered` is its wrapper, `update_tiered_plain` its twin:
-`update_plain`, then `unpack_hll`, `hll_kernel.update_plain` and
-`pack_hll`. Both update the tables and the packed bank in place.
+the first signal-fold design, where every block keeps a private copy of
+all eight tables (`csrc/signal_body.cuh`), plus a max fold of the global
+source HLL straight into its 6-bit packed bank (`sketch/tiered.pack_hll`
+layout), each extra block owning TILE_R packed triples. `update_tiered` is
+its wrapper, `update_tiered_plain` its twin: `update_plain`, then
+`unpack_hll`, `hll_kernel.update_plain` and `pack_hll`. Both update the
+tables and the packed bank in place.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from typing import NamedTuple
 import torch
 
 from netobserv_tpu_torch.ops.kernels import hll_kernel
-from netobserv_tpu_torch.ops.kernels._build import CudaKernel, check, on_cuda
+from netobserv_tpu_torch.ops.kernels._build import (
+    SMEM_LIMIT, CudaKernel, LaunchShape, check, on_cuda,
+)
 
 SOURCE = "signal_fold.cu"
 KERNEL = CudaKernel(SOURCE, "signal_fold", n_ptrs=10, n_ints=4)
@@ -37,16 +41,24 @@ KERNEL_TIERED = CudaKernel(SOURCE_TIERED, "signal_fold_tiered", n_ptrs=14,
                            n_ints=5)
 #: packed register triples per kernel-7 HLL block
 TILE_R = 512
+#: kernel 4's records per block, one per thread (SIGNAL_THREADS of the
+#: source)
+THREADS = 128
 
 #: value row -> index family: [ddos, syn, drops | synack | fwd, rev | dscp |
 #: cause] over families [dst, src, pair, dscp, cause]
 FAMILY = (0, 0, 0, 1, 2, 2, 3, 4)
 N_VALS = 8
 N_IDX = 5
-#: width of the kernel's shared-memory aux rows (dscp, causes)
+#: most entries of an aux table (dscp, causes): the width of kernel 7's
+#: shared-memory aux rows
 AUX_W = 256
-#: shared memory one block may use on sm_90 (bytes)
-SMEM_LIMIT = 232448
+
+
+def launch_shape(n: int) -> LaunchShape:
+    """Kernel 4's grid for B = n records: ceil(n / THREADS) blocks of
+    THREADS threads, no cluster and no shared memory."""
+    return LaunchShape(max(1, -(-n // THREADS)), 1, THREADS, 0)
 
 
 class SignalPlanes(NamedTuple):
@@ -92,9 +104,6 @@ def _check_tables(planes: SignalPlanes, dev: torch.device) -> None:
     n_cause = planes.drop_causes.shape[0]
     if n_dscp > AUX_W or n_cause > AUX_W:
         raise ValueError(f"aux tables must fit {AUX_W} entries")
-    if (6 * m + 2 * AUX_W) * 4 > SMEM_LIMIT:
-        raise ValueError(f"m={m}: the tables do not fit one block's shared "
-                         "memory")
     for name, t in zip(SignalPlanes._fields[:6], planes[:6]):
         check(t, name, torch.float32, (m,), dev)
     check(planes.dscp_bytes, "dscp_bytes", torch.float32, (n_dscp,), dev)
@@ -116,6 +125,8 @@ def update(planes: SignalPlanes, idx: torch.Tensor,
     _check_tables(planes, dev)
     check(idx, "idx", torch.int64, (N_IDX, n), dev)
     check(vals, "vals", torch.float32, (N_VALS, n), dev)
+    if n == 0:
+        return  # nothing to fold: no launch
     KERNEL.launch([*planes, idx, vals],
                   [n, planes.ddos_rate.shape[0], planes.dscp_bytes.shape[0],
                    planes.drop_causes.shape[0]], dev)
@@ -154,6 +165,9 @@ def update_tiered(planes: SignalPlanes, packed: torch.Tensor,
     n = vals.shape[1]
     dev = vals.device
     _check_tables(planes, dev)
+    if (6 * planes.ddos_rate.shape[0] + 2 * AUX_W) * 4 > SMEM_LIMIT:
+        raise ValueError(f"m={planes.ddos_rate.shape[0]}: the tables do not "
+                         "fit one block's shared memory")
     check(idx, "idx", torch.int64, (N_IDX, n), dev)
     check(vals, "vals", torch.float32, (N_VALS, n), dev)
     check(packed, "packed", torch.uint8, (n_packed,), dev)

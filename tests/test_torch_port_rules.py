@@ -134,3 +134,76 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         countmin_kernel.update(meta.reshape(2, 2), meta.long(), meta.long(),
                                meta)
+
+
+def _c_entry_body(source: str, symbol: str) -> str:
+    """The body of the `extern "C"` function `symbol` of csrc/`source`."""
+    text = (ROOT / "netobserv_tpu_torch" / "csrc" / source).read_text()
+    start = text.index(f'extern "C" int {symbol}(')
+    i = text.index("{", text.index(")", start))
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[i:j + 1]
+    raise AssertionError(f"{symbol}: unbalanced braces")
+
+
+@pytest.mark.parametrize("source,symbol", [("topk_reduce.cu", "topk_reduce"),
+                                           ("signal_fold.cu", "signal_fold")])
+def test_redesigned_kernels_make_one_launch_per_call(source, symbol):
+    body = _c_entry_body(source, symbol)
+    launches = (body.count("<<<") + body.count("cudaLaunchKernelEx")
+                + body.count("launch_clusters("))
+    assert launches == 1, (source, launches)
+
+
+@pytest.mark.parametrize("mod,macros", [
+    (topk_kernel, {"TOPK_CLUSTER": "CLUSTER", "TOPK_THREADS": "THREADS",
+                   "TOPK_TILE": "TILE"}),
+    (signal_kernel, {"SIGNAL_THREADS": "THREADS"})])
+def test_launch_shapes_agree_with_their_sources(mod, macros):
+    """The wrapper sizes the grid, the slot split and the contract cases
+    from the same cluster, block and tile sizes the kernel was compiled
+    with."""
+    text = (ROOT / "netobserv_tpu_torch" / "csrc" / mod.SOURCE).read_text()
+    for macro, const in macros.items():
+        line = next(x for x in text.splitlines()
+                    if x.startswith(f"#define {macro} "))
+        value = line.split(None, 2)[2].replace("(", "").replace(")", "")
+        a, _, b = value.partition(" / ")
+        assert (int(a) // int(b) if b else int(a)) == getattr(mod, const)
+
+
+@pytest.mark.parametrize("mod", [topk_kernel, signal_kernel])
+def test_redesigned_wrappers_catch_nothing_around_the_launch(mod):
+    tree = ast.parse(Path(mod.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_topk_reduce_allocates_only_its_outputs(monkeypatch):
+    """On a CUDA tensor the wrapper makes one launch whose pointers are the
+    three outputs it returns and the three inputs: no scratch, whatever K
+    (a K past one tile of slots still fits one CTA's shared memory)."""
+    seen = []
+    monkeypatch.setattr(topk_kernel, "on_cuda", lambda t: True)
+    monkeypatch.setattr(topk_kernel, "check", lambda *a: None)
+    monkeypatch.setattr(topk_kernel.KERNEL, "launch",
+                        lambda ptrs, ints, dev: seen.append((ptrs, ints)))
+    mslot = torch.zeros(5, dtype=torch.int64)
+    est = torch.ones(5)
+    out = topk_kernel.reduce(mslot, mslot, est, 1024)
+    (ptrs, ints), = seen
+    assert len(ptrs) == 6 and all(p is o for p, o in zip(ptrs, out))
+    assert ptrs[3] is mslot and ptrs[5] is est and ints == [5, 1024]
+    assert len(topk_kernel.KERNEL.argtypes) == 6 + 2 + 1
+    big = 3 * topk_kernel.TILE + 5
+    out = topk_kernel.reduce(mslot, mslot, est, big)
+    assert len(seen) == 2 and seen[1][1] == [5, big]
+    assert [tuple(o.shape) for o in out] == [(big,)] * 3
+    assert topk_kernel.launch_shape(big).smem <= _build.SMEM_LIMIT
+
+
+def test_signal_launch_shape_takes_one_thread_per_record():
+    for n, blocks in ((0, 1), (1, 1), (129, 2), (16384, 128)):
+        assert signal_kernel.launch_shape(n) == (blocks, 1, 128, 0)

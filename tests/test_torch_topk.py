@@ -9,6 +9,7 @@ integer byte counts whose Count-Min cells stay below 2^24 (bit-exact
 regime)."""
 
 import numpy as np
+import pytest
 import torch
 
 import tests.conftest  # noqa: F401
@@ -22,9 +23,11 @@ from netobserv_tpu.ops.pallas import topk_kernel as jtk
 from netobserv_tpu_torch.ops import countmin as tcm
 from netobserv_tpu_torch.ops import hashing as th
 from netobserv_tpu_torch.ops import topk as ttopk
+from netobserv_tpu_torch.ops.kernels import cases
 from netobserv_tpu_torch.ops.kernels import topk_kernel as ttk
 
 K = 128
+TOPK_CASES = [name for name, _ in cases.topk_cases(K)]
 CPU = torch.device("cpu")
 
 
@@ -67,6 +70,38 @@ def test_reductions_bit_exact_vs_scatter_and_pallas_on_adversarial_rows():
     assert int(got[2][7]) == 10
     assert int(got[2][9]) == ttk.NO_WINNER and float(got[1][9]) == -1.0
     assert got[2].dtype == torch.int32 and got[0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("k", [128, 1024])
+@pytest.mark.parametrize("name", TOPK_CASES)
+def test_reductions_bit_exact_vs_jax_on_contract_cases(name, k):
+    """The contract cases the cluster kernel must get right (cases.py),
+    through the wrapper's CPU path, against the JAX scatter form and, for
+    B > 0, the Pallas kernel in interpret mode (whose chunk walk cannot
+    take an empty batch)."""
+    c = dict(cases.topk_cases(k))[name]
+    got = ttk.reduce(torch.from_numpy(c["mslot"]),
+                     torch.from_numpy(c["target"]),
+                     torch.from_numpy(c["est"]), k)
+    args = (jnp.asarray(c["mslot"].astype(np.int32)),
+            jnp.asarray(c["target"].astype(np.int32)),
+            jnp.asarray(c["est"]))
+    refs = [jtopk._slot_reduce_scatter(*args, k)]
+    if c["est"].shape[0]:
+        refs.append(jtk.reduce(*args, k, interpret=True))
+    for ref in refs:
+        for field, g, r in zip(("match_max", "chall_max", "win_row"), got,
+                               ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                          err_msg=f"{name}: {field}")
+    if name == "empty":
+        assert (got[0] == -1).all() and (got[1] == -1).all()
+        assert (got[2] == ttk.NO_WINNER).all()
+    if name == "equal_est_far_apart":
+        assert int(got[2][1]) == ttk.THREADS + 2 and int(got[2][2]) == 10
+    if name == "est_at_or_below_minus_one":
+        assert float(got[0][0]) == -1.0 and float(got[1][0]) == -1.0
+        assert int(got[2][0]) == ttk.NO_WINNER
 
 
 _jax_slot_update = jax.jit(
