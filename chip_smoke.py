@@ -26,17 +26,22 @@ launch counts set to 0 just before it and read just after:
   prints the pack time apart from the ingest time, the bytes copied to the
   card per record, and the ring's counters.
 
-Kernels 2 (the top-K slot reduce, one thread-block cluster) and 4 (the
-signal fold, warp-aggregated atomics into L2) are also held bit-exact
-against their plain versions on the seeded contract cases of
-`netobserv_tpu_torch/ops/kernels/cases.py` (empty and one-row batches, one
-row past a CTA's or block's share, every row on one slot or bucket, ties
-in different CTAs, dead rows, the inactive slot, table edges, zero values;
-kernel 2 also at a K of three slot tiles), which the CPU tests hold
-against the JAX package; the kernel phase prints, for each, the launch
-floor: the device time of an empty kernel (`csrc/launch_floor.cu`) at its
-grid, cluster and shared memory, and for kernel 2 with its two cluster
-barriers. Kernel 8 (the HLL grid fold) runs twice per fold on every path
+The four kernels redesigned for the H100, 1 (the wide Count-Min fold,
+warp-aggregated atomics into L2), 2 (the top-K slot reduce, one
+thread-block cluster), 4 (the signal fold, warp-aggregated atomics into
+L2) and 6 (the tier-interior Count-Min fold, the batch binned by tile),
+are also held bit-exact against their plain versions on the seeded
+contract cases of `netobserv_tpu_torch/ops/kernels/cases.py` (empty and
+one-row batches, one row past a warp's, CTA's or block's share, every row
+on one slot, bucket or key, ties in different CTAs, dead rows, the
+inactive slot, table and tile edges, zero values, hashes that wrap past
+2^32; kernel 2 also at a K of three slot tiles, kernels 1 and 6 at a width
+of one tile), which the CPU tests hold against the JAX package. For every
+kernel the kernel phase prints the launch floor: the device time of an
+empty kernel (`csrc/launch_floor.cu`) at its grid, cluster and shared
+memory, for kernel 2 with its two cluster barriers, and for kernel 6 the
+sum over its four launches (its memset of the bin counts left out).
+Kernel 8 (the HLL grid fold) runs twice per fold on every path
 (per-dst and per-src grids). Kernel 5 (the single-plane Count-Min fold)
 runs on no path, as in the JAX package, where only its tests call it: the
 kernel phase checks it on the wide path's kernel-1 inputs, one plane, and
@@ -74,9 +79,13 @@ sectors that this call's non-zero values reach, read once and written once
 (for kernel 6 the sectors of the base, mid and top tiers its columns fall
 in; for kernel 7 also the sectors of the packed triples its valid records
 reach; for kernel 8 the grid cells of its valid records); a fresh output
-written once. The kernel phase also prints kernels 1's and 5's atomic
-counts and the most atomics that land on one address, and the device time
-of kernels 1, 2, 4 and 6 with the hot key spread out (uniform keys).
+written once. The kernel phase also prints kernel 5's atomic count and
+the most atomics that land on one address; kernel 1's as its design
+makes them, one per distinct (warp, cell) of each plane's non-zero
+values, beside one per (record, row) as kernel 5's design makes them;
+kernel 6's bin sizes (the entries the hottest tile's block walks); and
+the device time of kernels 1, 2, 4 and 6 with the hot key spread out
+(uniform keys).
 Kernel 5's library yardstick is `index_add_` on one plane, kernel 8's
 `scatter_reduce_` ("amax") on the flat grid.
 
@@ -145,9 +154,12 @@ DECAY_FACTOR = 0.5
 WARM_FOLDS = 3
 CHAIN = 8
 REPS = 50
-#: the kernels redesigned for Hopper, with contract cases and a launch
-#: floor in the kernel phase
-REDESIGNED = ("topk_reduce", "signal_fold")
+#: the kernels redesigned for Hopper, with contract cases in the kernel
+#: phase
+REDESIGNED = ("topk_reduce", "signal_fold", "countmin_fold2",
+              "countmin_tier2")
+#: threads of a warp, for kernel 1's count of warp-aggregated atomics
+WARP = 32
 #: the empty kernel of the launch floor
 FLOOR_SOURCE = "launch_floor.cu"
 #: traces of one loop before `measure` fails the phase: a trace can come
@@ -545,6 +557,8 @@ def compare(spec, args, regime: str) -> dict:
     for k, p in zip(kern, plain):
         check(k.shape == p.shape and k.dtype == p.dtype,
               f"{spec['name']}: output shape/dtype differ")
+        if not k.numel():
+            continue  # kernel 6's est of an empty batch
         if k.dtype.is_floating_point:
             d = (k.double() - p.double()).abs()
             max_abs = max(max_abs, float(d.max()))
@@ -559,7 +573,8 @@ def compare(spec, args, regime: str) -> dict:
               f"signal_fold_tiered ({regime}): packed HLL bank differs")
     if spec["exact"] or regime == "integer":
         if regime == "integer" and not spec["exact"]:
-            top = max(float(p.double().abs().max()) for p in plain)
+            top = max(float(p.double().abs().max()) for p in plain
+                      if p.numel())
             if spec["name"] == "countmin_tier2":
                 from netobserv_tpu_torch.sketch import tiered
                 tspec = args[6]
@@ -748,6 +763,7 @@ def bound_of(spec, args) -> dict:
     f32 peak (see the module docstring), with the counts behind them."""
     import torch
     from netobserv_tpu_torch.ops import hashing
+    from netobserv_tpu_torch.ops.kernels import countmin_kernel
 
     def read(ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -761,9 +777,22 @@ def bound_of(spec, args) -> dict:
                  + torch.arange(d, device=h1.device)[:, None] * w)
         hits = [cells[:, v != 0].reshape(-1) for v in (va, vb)]
         nbytes = read(args[2:]) + sum(_sector_bytes(c) for c in hits)
-        ops = sum(c.numel() for c in hits)  # one f32 add per atomic
-        extra = {"atomics": ops, "max_atomics_one_address": max(
-            int(torch.bincount(c).max()) for c in hits if c.numel())}
+        ops = sum(c.numel() for c in hits)  # one f32 add per (record, row)
+        # the kernel's thread t = r * n + b, its warp t // 32: the leader of
+        # each distinct (warp, cell) with a non-zero value makes one atomic
+        n = h1.numel()
+        warp = (torch.arange(d, device=h1.device)[:, None] * n
+                + torch.arange(n, device=h1.device)) // WARP
+        groups = [torch.unique(warp[:, v != 0] * (d * w) + cells[:, v != 0])
+                  % (d * w) for v in (va, vb)]
+        extra = {"atomics": sum(g.numel() for g in groups),
+                 "max_atomics_one_address": max(
+                     (int(torch.bincount(g).max()) for g in groups
+                      if g.numel()), default=0),
+                 "atomics_one_per_row": ops,
+                 "max_atomics_one_address_one_per_row": max(
+                     (int(torch.bincount(c).max()) for c in hits
+                      if c.numel()), default=0)}
     elif name == "countmin_fold":
         counts, h1, h2, vals = args
         d, w = counts.shape
@@ -789,9 +818,13 @@ def bound_of(spec, args) -> dict:
                            (plane.top, tspec.top_group)):
                 nbytes += _sector_bytes(r * (w // g) + c // g,
                                         arr.element_size())
+        tiles = torch.bincount((cols // countmin_kernel.TILE_W).reshape(-1))
         extra = {"adds": ops, "max_adds_one_cell": max(
             int(torch.bincount((cols + rows * w)[:, v != 0].reshape(-1)
-                               ).max()) for v in (va, vb))}
+                               ).max()) for v in (va, vb)),
+            "bin_entries": cols.numel(),
+            "max_bin_entries": int(tiles.max()),
+            "median_bin_entries": float(tiles.float().median())}
     elif name == "topk_reduce":
         mslot, target, est, k = args
         nbytes = read((mslot, target, est)) + 3 * k * 4  # fresh outputs
@@ -851,18 +884,44 @@ def uniform_variant(spec, args):
 
 
 def contract_cases(spec, args) -> list[dict]:
-    """Kernels 2 and 4 against their plain versions, bit-exact, on the
-    seeded contract cases of `ops/kernels/cases.py` (the CPU tests hold the
-    plain versions against the JAX package on the same cases): kernel 2 at
-    K = 128, the path's K and a K of three slot tiles, kernel 4 at the
-    path's m onto tables of small integers."""
+    """The redesigned kernels against their plain versions, bit-exact, on
+    the seeded contract cases of `ops/kernels/cases.py` (the CPU tests hold
+    the plain versions against the JAX package on the same cases): kernel 2
+    at K = 128, the path's K and a K of three slot tiles, kernel 4 at the
+    path's m onto tables of small integers, kernels 1 and 6 at a width of
+    one tile and the path's width (kernel 1 onto tables of small integers,
+    kernel 6 onto `cases.tier_planes` under the path's TierSpec)."""
     import numpy as np
     import torch
     from netobserv_tpu_torch.ops.kernels import (
-        cases, signal_kernel, topk_kernel,
+        cases, countmin_kernel, signal_kernel, topk_kernel,
     )
-    dev = args[2].device  # the path's device: est of kernel 2, vals of 4
+    from netobserv_tpu_torch.sketch import tiered
+    dev = args[2].device  # the path's device: est of kernel 2, h1 or vals
     out = []
+    if spec["name"] in ("countmin_fold2", "countmin_tier2"):
+        tier = spec["name"] == "countmin_tier2"
+        d, w = args[0].base.shape if tier else args[0].shape
+        rng = np.random.default_rng(3)
+        for width in (countmin_kernel.TILE_W, w):
+            for name, c in cases.countmin_cases(width):
+                batch = [torch.from_numpy(c[f]).to(dev)
+                         for f in ("h1", "h2", "va", "vb")]
+                if tier:
+                    tspec = args[6]
+                    a = (*(tiered.TieredPlane(*(torch.from_numpy(x).to(dev)
+                                                for x in p))
+                           for p in cases.tier_planes(
+                               d, width, tspec.mid_group, tspec.top_group)),
+                         *batch, tspec)
+                else:
+                    a = (*(torch.from_numpy(rng.integers(0, 50, (
+                        d, width)).astype(np.float32)).to(dev)
+                        for _ in range(2)), *batch)
+                r = compare(spec, a, "integer")
+                out.append({"case": name, "w": width, "rows": len(c["va"]),
+                            "max_abs_err": r["max_abs_err"]})
+        return out
     if spec["name"] == "topk_reduce":
         # the path's K, a small one, and one of three tiles
         for k in (128, args[3], 2 * topk_kernel.TILE + 5):
@@ -887,24 +946,52 @@ def contract_cases(spec, args) -> list[dict]:
     return out
 
 
+def launch_shapes(spec, args) -> tuple[list, int]:
+    """The grids a call of the kernel launches at these arguments (the
+    wrappers' `launch_shape*`), and its cluster barriers (kernel 2: two
+    per slot tile)."""
+    from netobserv_tpu_torch.ops.kernels import (
+        countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
+    )
+    name = spec["name"]
+    if name == "topk_reduce":
+        return [topk_kernel.launch_shape(args[3])], 2
+    if name == "signal_fold":
+        return [signal_kernel.launch_shape(args[2].shape[1])], 0
+    if name == "signal_fold_tiered":
+        planes, packed, _, vals = args[:4]
+        return [signal_kernel.launch_shape_tiered(
+            vals.shape[1], planes.ddos_rate.shape[0], packed.shape[0])], 0
+    if name == "countmin_fold2":
+        return [countmin_kernel.launch_shape(args[2].shape[0],
+                                             args[0].shape[0])], 0
+    if name == "countmin_fold":
+        return [countmin_kernel.launch_shape(args[1].shape[0],
+                                             args[0].shape[0])], 0
+    if name == "countmin_tier2":
+        d, w = args[0].base.shape
+        return countmin_kernel.launch_shapes_tier2(
+            args[2].shape[0], d, w, args[6].mid_group, args[6].top_group), 0
+    return [hll_kernel.launch_shape(args[1].shape[0])], 0  # kernels 3, 8
+
+
 def launch_floor(spec, args) -> dict:
-    """Device and event time of an empty kernel launched at the kernel's
-    own grid, cluster, block and shared memory (csrc/launch_floor.cu),
-    alone and, for kernel 2, with the two cluster barriers of its one slot
-    tile: the least a launch of that shape takes, beside the byte bound."""
+    """Device and event time of an empty kernel launched at each of the
+    kernel's own grids, clusters, blocks and shared memory
+    (csrc/launch_floor.cu), summed over its launches, alone and, for
+    kernel 2, with the two cluster barriers of its one slot tile: the least
+    a call of that shape takes, beside the byte bound."""
     import torch
-    from netobserv_tpu_torch.ops.kernels import signal_kernel, topk_kernel
     from netobserv_tpu_torch.ops.kernels._build import CudaKernel
-    if spec["name"] == "topk_reduce":
-        shape, barriers = topk_kernel.launch_shape(args[3]), 2
-    else:
-        shape, barriers = signal_kernel.launch_shape(args[2].shape[1]), 0
+    shapes, barriers = launch_shapes(spec, args)
     floor = CudaKernel(FLOOR_SOURCE, "launch_floor", n_ptrs=0, n_ints=5)
     dev = torch.device("cuda")
-    out = {"shape": shape._asdict()}
+    out = {"shapes": [s._asdict() for s in shapes]}
     for syncs in sorted({0, barriers}):
-        ev, dv = measure(lambda: floor.launch([], [*shape, syncs], dev))
-        out[f"syncs_{syncs}"] = {"device_ms": dv, "event_ms": ev}
+        times = [measure(lambda s=s: floor.launch([], [*s, syncs], dev))
+                 for s in shapes]
+        out[f"syncs_{syncs}"] = {"device_ms": sum(dv for _, dv in times),
+                                 "event_ms": sum(ev for ev, _ in times)}
     return out
 
 
@@ -999,7 +1086,7 @@ def phase_kernels(specs, calls) -> list[dict]:
             case["device_kernel_ms_uniform_keys"] = timing(s, uni)[0][1]
         if s["name"] in REDESIGNED:
             case["contract_cases"] = contract_cases(s, args)
-            case["launch_floor"] = launch_floor(s, args)
+        case["launch_floor"] = launch_floor(s, args)
         torch.cuda.synchronize()
         case["kernel_phase_launches"] = s["kernel"].launches
         check(case["kernel_phase_launches"] > 0,

@@ -34,11 +34,12 @@ __device__ __forceinline__ float tier_decode(int b, int m, uint32_t t,
 
 // tiered.plane_add's base step for one counter: the fold's delta
 // new - dec, ceiled to the unit, onto base b. Writes the new base and
-// returns the overflow that group-sums into mid.
+// returns the overflow that group-sums into mid. The unit is a power of two
+// (TierSpec), so multiplying by inv_unit = 1 / unit is the division exactly.
 __device__ __forceinline__ float tier_promote_base(int b, float dec,
-                                                   float nw, float unit,
+                                                   float nw, float inv_unit,
                                                    uint8_t* base_out) {
-  float du = ceilf(__fdiv_rn(fmaxf(__fsub_rn(nw, dec), 0.0f), unit));
+  float du = ceilf(__fmul_rn(fmaxf(__fsub_rn(nw, dec), 0.0f), inv_unit));
   float s = __fadd_rn((float)b, du);
   float nb = fminf(s, (float)BASE_MAX);
   *base_out = (uint8_t)nb;

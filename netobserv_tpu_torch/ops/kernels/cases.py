@@ -1,22 +1,28 @@
-"""Seeded edge cases of the contracts of kernel 2 (the top-K slot reduce)
-and kernel 4 (the signal fold), as numpy arrays.
+"""Seeded edge cases of the contracts of kernel 2 (the top-K slot reduce),
+kernel 4 (the signal fold) and kernels 1 and 6 (the wide and the
+tier-interior Count-Min folds), as numpy arrays.
 
 The CPU tests hold the plain twins against the JAX package on these cases
-(`tests/test_torch_topk.py`, `tests/test_torch_signal.py`), and
+(`tests/test_torch_topk.py`, `tests/test_torch_signal.py`,
+`tests/test_torch_countmin.py`, `tests/test_torch_tiered.py`), and
 `chip_smoke.py` holds the CUDA kernels against the plain twins on the same
 cases. Each case is named after the edge it covers; the sizes follow the
 kernels' launch shapes (a top-K CTA's pass is THREADS rows, a cluster's
-pass CLUSTER * THREADS; a signal block's THREADS rows), so "one row past" lands
-in the next CTA or block. Signal values
-are integers whose per-cell sums stay below 2^24, where the f32 adds are
-exact in any order, so every case is held bit-exact.
+pass CLUSTER * THREADS; a signal block's THREADS rows; a Count-Min warp 32
+records, a kernel-1 block and a kernel-6 count or scatter block 256, a
+kernel-6 fold block's round TIER2_THREADS bin entries), so "one row past"
+lands in the next warp, CTA, block or round. Signal and Count-Min values are integers whose
+per-cell sums stay below 2^24, where the f32 adds are exact in any order,
+so every case is held bit-exact.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from netobserv_tpu_torch.ops.kernels import signal_kernel, topk_kernel
+from netobserv_tpu_torch.ops.kernels import (
+    countmin_kernel, signal_kernel, topk_kernel,
+)
 from netobserv_tpu_torch.sketch.state import N_DROP_CAUSES as N_CAUSE
 from netobserv_tpu_torch.sketch.state import N_DSCP
 
@@ -124,3 +130,82 @@ def signal_cases(m: int, seed: int = 0) -> list[tuple[str, dict]]:
     return [(name, {"idx": c["idx"].astype(np.int64),
                     "vals": c["vals"].astype(np.float32)})
             for name, c in cases]
+
+
+def countmin_cases(w: int, seed: int = 0) -> list[tuple[str, dict]]:
+    """(name, {"h1", "h2": int64[B] uint32 lanes, "va", "vb": f32[B]
+    masked values}) for kernels 1 and 6 at width w (a power of two and a
+    multiple of TILE_W) and any depth up to 8. Columns are
+    (h1 + r * h2) & (w - 1) in uint32 arithmetic."""
+    rng = np.random.default_rng(seed)
+    warp = 32
+    block = max(countmin_kernel.THREADS, countmin_kernel.BIN_THREADS)
+    fold_block = countmin_kernel.TIER2_THREADS
+    tile = countmin_kernel.TILE_W
+
+    def rows(n: int, keys: int = 64) -> dict:
+        universe = rng.integers(0, 2 ** 32, (keys, 2))
+        hk = universe[np.minimum(rng.zipf(1.3, n) - 1, keys - 1)]
+        va = rng.integers(1, 1000, n).astype(np.float32)
+        vb = rng.integers(1, 12, n).astype(np.float32)
+        dead = rng.random(n) < 0.1  # invalid rows: both values masked
+        va[dead] = 0.0
+        vb[dead] = 0.0
+        return {"h1": hk[:, 0], "h2": hk[:, 1], "va": va, "vb": vb}
+
+    cases = [("empty", rows(0)), ("one_row", rows(1)),
+             ("warp_plus_one", rows(warp + 1)),
+             ("block_plus_one", rows(block + 1)),
+             ("ragged_hot_key", rows(3 * block + 77, keys=50))]
+
+    # every row on one key whose d columns lie in one tile: one bin holds
+    # all d x B entries, more rounds of the fold block than a lane keeps
+    one = rows(2 * fold_block + 3)
+    one["h1"][:] = rng.integers(0, w // tile) * tile + 7
+    one["h2"][:] = 1
+    cases.append(("every_row_one_key", one))
+
+    zeros = rows(block + 31)
+    pick = rng.random(len(zeros["va"]))
+    zeros["va"][pick < 0.5] = 0.0                   # both zero or va zero
+    zeros["vb"][(pick < 0.3) | (pick > 0.8)] = 0.0  # both zero or vb zero
+    cases.append(("zero_values_both_and_one", zeros))
+
+    # the last column of a tile and the first of the next (h2 = 1), and the
+    # first of a tile and the last of the one below (h2 = 2^32 - 1)
+    edges = rows(2 * warp + 5)
+    k = rng.integers(0, w // tile, len(edges["h1"]))
+    up = np.arange(len(k)) % 2 == 0
+    edges["h1"] = np.where(up, k * tile + tile - 1, k * tile)
+    edges["h2"] = np.where(up, 1, 2 ** 32 - 1)
+    cases.append(("tile_edges", edges))
+
+    wrap = rows(block + 5)
+    wrap["h1"] = rng.integers(2 ** 32 - 2 ** 16, 2 ** 32, len(wrap["h1"]))
+    wrap["h2"] = rng.integers(2 ** 31, 2 ** 32, len(wrap["h1"]))
+    cases.append(("h1_plus_r_h2_wraps_2_32", wrap))
+    return [(name, {"h1": c["h1"].astype(np.int64),
+                    "h2": c["h2"].astype(np.int64),
+                    "va": c["va"].astype(np.float32),
+                    "vb": c["vb"].astype(np.float32)})
+            for name, c in cases]
+
+
+def tier_planes(d: int, w: int, mid_group: int, top_group: int,
+                seed: int = 0) -> list[tuple[np.ndarray, ...]]:
+    """Pre-fold tiers (base uint8[d, w], mid uint16[d, w / mid_group], top
+    uint32[d, w / top_group]) of the two planes for kernel 6's cases: a
+    quarter of the bases saturated, mids below 200 (never saturated), so a
+    decoded cell stays below 455 units and, at a unit up to 256, the fold's
+    sums stay integers below 2^24."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        base = rng.integers(0, 255, (d, w))
+        base[rng.random((d, w)) < 0.25] = 255
+        out.append((base.astype(np.uint8),
+                    rng.integers(0, 200, (d, w // mid_group)).astype(
+                        np.uint16),
+                    rng.integers(0, 50, (d, w // top_group)).astype(
+                        np.uint32)))
+    return out

@@ -2,29 +2,37 @@
 (`csrc/countmin_fold2.cu`) and tier-interior (`csrc/countmin_tier2.cu`), and
 the single-plane fold (`csrc/countmin_fold.cu`).
 
-Replaces the Pallas kernel `netobserv_tpu/ops/pallas/countmin_kernel.py`
+Kernel 1 replaces the Pallas kernel `netobserv_tpu/ops/pallas/countmin_kernel.py`
 `update_two`. Both planes (bytes, packets) take the same row indices, so one
-launch folds both. On this card L2 atomic throughput bounds the fold; the
-kernel computes each column from (h1, h2) itself and makes two atomicAdds
-per (record, depth row), with no one-hot tiling (see the source note).
+launch folds both. On this card L2 atomic throughput bounds the fold, and a
+hot key's rows serialize on its d cells. One thread per (row, record),
+row-major, so a warp holds 32 records of one row: the lanes with the same
+cell sum their values and one lane makes the two atomicAdds (see the source
+note). No one-hot tiling.
 
 `update_two` is the wrapper: a CUDA tensor launches the kernel, a CPU tensor
 takes `update_two_plain`, the same function written with `index_add_`. The
 fold is in place on the counter planes (JAX donated them).
 
-Kernel 5 replaces the Pallas kernel `update` (`_fold_kernel`): kernel 1 with
-one value row, one atomicAdd per (record, depth row). `update` is its
-wrapper and `update_plain` its twin. No path of the JAX package runs it (only
-its tests do), so no path of the port does either: `ops/countmin.update`
-reaches it.
+Kernel 5 replaces the Pallas kernel `update` (`_fold_kernel`): one value
+row, one thread per (record, depth row), record-major, and one atomicAdd
+each, with no warp aggregation. `update` is its wrapper and `update_plain`
+its twin. No path of the JAX package runs it (only its tests do), so no
+path of the port does either: `ops/countmin.update` reaches it.
 
 Kernel 6 replaces the Pallas kernel `update_two_tiered` (`_tier2_kernel`
 with `tier_tiles.py`): it folds both planes straight into their resident
-tiers (`sketch/tiered.py`: u8 base, u16 mid, u32 top), one thread block per
-TILE_W-column tile with the wide view in shared memory, and returns the
+tiers (`sketch/tiered.py`: u8 base, u16 mid, u32 top) and returns the
 post-fold, pre-promotion bytes estimate of every record (what the slot
-table ranks on). `update_two_tiered` is its wrapper, and
-`update_two_tiered_plain` its twin: decode, the wide fold above,
+table ranks on). One C call makes TIER2_LAUNCHES launches: the batch's
+(record, row) pairs are counted and binned by TILE_W-column tile, then one
+thread block per tile decodes its tiles into a wide view in shared memory,
+folds only its bin (warp-aggregated), gathers the estimate and promotes,
+and a last launch takes the min over rows (see the source note). The
+wrapper allocates the outputs q and est and two int32 scratch arrays: the
+per-tile counts and cursors (2 x W / TILE_W) and the bins' d x B entries;
+no device buffer holds a wide counter. `update_two_tiered` is its wrapper,
+and `update_two_tiered_plain` its twin: decode, the wide fold above,
 `plane_add` of the delta, and the min over rows of the gathered wide
 values. Both write the tiers in place.
 """
@@ -35,7 +43,7 @@ import torch
 
 from netobserv_tpu_torch.ops import hashing
 from netobserv_tpu_torch.ops.kernels._build import (
-    SMEM_LIMIT, CudaKernel, check, on_cuda,
+    SMEM_LIMIT, CudaKernel, LaunchShape, check, on_cuda,
 )
 
 SOURCE = "countmin_fold2.cu"
@@ -43,9 +51,51 @@ KERNEL = CudaKernel(SOURCE, "cm_fold2", n_ptrs=6, n_ints=3)
 SOURCE_ONE = "countmin_fold.cu"
 KERNEL_ONE = CudaKernel(SOURCE_ONE, "cm_fold", n_ptrs=4, n_ints=3)
 SOURCE_TIER2 = "countmin_tier2.cu"
-KERNEL_TIER2 = CudaKernel(SOURCE_TIER2, "cm_tier2", n_ptrs=12, n_ints=7)
-#: columns per kernel-6 block: a tile holds whole top groups
+KERNEL_TIER2 = CudaKernel(SOURCE_TIER2, "cm_tier2", n_ptrs=14, n_ints=7)
+#: threads per block of kernels 1 and 5, one per (row, record) pair
+#: (CM2_THREADS of countmin_fold2.cu; countmin_fold.cu's `threads`)
+THREADS = 256
+#: columns per kernel-6 fold block: a tile holds whole top groups
 TILE_W = 512
+#: kernel 6's threads per fold block (TIER2_THREADS), per count and
+#: scatter block, one per record (BIN_THREADS), and per est block
+#: (EST_THREADS)
+TIER2_THREADS = 1024
+BIN_THREADS = 256
+EST_THREADS = 256
+#: kernel launches of kernel 6's one C call (count, scatter, fold, est;
+#: besides, one memset of the counts)
+TIER2_LAUNCHES = 4
+
+
+def launch_shape(n: int, d: int) -> LaunchShape:
+    """Kernel 1's grid (and kernel 5's) for B = n records and d rows: one
+    thread per (row, record) pair in blocks of THREADS."""
+    return LaunchShape(max(1, -(-n * d // THREADS)), 1, THREADS, 0)
+
+
+def tier2_smem(d: int, mid_group: int, top_group: int) -> int:
+    """Shared memory of one kernel-6 fold block, over both planes' tiles:
+    `dec` (padded by one f32 per mid group), `wide` and the mid spill in
+    f32, and the top (u32), mid (u16) and base (u8) tiers."""
+    cells = 2 * d * TILE_W
+    mcells, tcells = cells // mid_group, cells // top_group
+    return (2 * cells + 2 * mcells) * 4 + tcells * 4 + mcells * 2 + cells
+
+
+def launch_shapes_tier2(n: int, d: int, w: int, mid_group: int,
+                        top_group: int) -> list[LaunchShape]:
+    """Kernel 6's TIER2_LAUNCHES grids for B = n records, d rows and width
+    w: count and scatter (one thread per record; per-tile tables in shared
+    memory, one for the count, three for the scatter), fold (one block per
+    tile) and est."""
+    tiles = w // TILE_W
+    blocks = max(1, -(-n // BIN_THREADS))
+    return [LaunchShape(blocks, 1, BIN_THREADS, 4 * tiles),
+            LaunchShape(blocks, 1, BIN_THREADS, 3 * 4 * tiles),
+            LaunchShape(tiles, 1, TIER2_THREADS,
+                        tier2_smem(d, mid_group, top_group)),
+            LaunchShape(max(1, -(-n // EST_THREADS)), 1, EST_THREADS, 0)]
 
 
 def _flat_cells(counts: torch.Tensor, h1: torch.Tensor,
@@ -109,6 +159,9 @@ def update_two(counts_a: torch.Tensor, counts_b: torch.Tensor,
     if w & (w - 1):
         raise ValueError("width must be a power of two")
     n = h1.shape[0]
+    if d * max(w, n) >= 2 ** 31:
+        raise ValueError(f"depth {d} x {max(w, n)}: the kernel's int32 cell "
+                         "and thread indices would overflow")
     dev = counts_a.device
     check(counts_a, "counts_a", torch.float32, (d, w), dev)
     check(counts_b, "counts_b", torch.float32, (d, w), dev)
@@ -162,16 +215,25 @@ def update_two_tiered(plane_a, plane_b, h1: torch.Tensor, h2: torch.Tensor,
     if not on_cuda(va):
         return update_two_tiered_plain(plane_a, plane_b, h1, h2, va, vb,
                                        spec)
-    if w & (w - 1):
-        raise ValueError("width must be a power of two")
     mg, tg = spec.mid_group, spec.top_group
-    if (4 * d * TILE_W + 2 * d * (TILE_W // mg)) * 4 > SMEM_LIMIT:
+    if any(x & (x - 1) for x in (w, mg, tg, spec.bytes_unit)):
+        raise ValueError("width, tier groups and unit must be powers of two")
+    if tier2_smem(d, mg, tg) > SMEM_LIMIT:
         raise ValueError(f"depth {d}: a tile does not fit one block's "
                          "shared memory")
+    if 3 * 4 * (w // TILE_W) > SMEM_LIMIT:
+        raise ValueError(f"width {w}: the scatter's three per-tile tables "
+                         "do not fit one block's shared memory")
     n = h1.shape[0]
+    if d * n >= 2 ** 31:
+        raise ValueError(f"depth {d} x {n} records: the int32 bin entries "
+                         "would overflow")
     dev = va.device
     for name, plane in (("plane_a", plane_a), ("plane_b", plane_b)):
         check(plane.base, f"{name}.base", torch.uint8, (d, w), dev)
+        if plane.base.data_ptr() % 4:
+            raise ValueError(f"{name}.base: the kernel moves it in 32-bit "
+                             "words and needs 4-byte alignment")
         check(plane.mid, f"{name}.mid", torch.uint16, (d, w // mg), dev)
         check(plane.top, f"{name}.top", torch.uint32, (d, w // tg), dev)
     check(h1, "h1", torch.int64, (n,), dev)
@@ -180,6 +242,8 @@ def update_two_tiered(plane_a, plane_b, h1: torch.Tensor, h2: torch.Tensor,
     check(vb, "vb", torch.float32, (n,), dev)
     q = torch.empty((d, n), dtype=torch.float32, device=dev)
     est = torch.empty((n,), dtype=torch.float32, device=dev)
-    KERNEL_TIER2.launch([*plane_a, *plane_b, h1, h2, va, vb, q, est],
-                        [n, d, w, mg, tg, spec.bytes_unit, 1], dev)
+    counts = torch.empty((2 * (w // TILE_W),), dtype=torch.int32, device=dev)
+    entries = torch.empty((d * n,), dtype=torch.int32, device=dev)
+    KERNEL_TIER2.launch([*plane_a, *plane_b, h1, h2, va, vb, q, est, counts,
+                         entries], [n, d, w, mg, tg, spec.bytes_unit, 1], dev)
     return est

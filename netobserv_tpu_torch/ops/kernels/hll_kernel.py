@@ -19,11 +19,22 @@ from __future__ import annotations
 
 import torch
 
-from netobserv_tpu_torch.ops.kernels._build import CudaKernel, check, on_cuda
+from netobserv_tpu_torch.ops.kernels._build import (
+    CudaKernel, LaunchShape, check, on_cuda,
+)
 
 SOURCE = "hll_fold.cu"
 KERNEL = CudaKernel(SOURCE, "hll_fold", n_ptrs=4, n_ints=2)
 KERNEL_GRID = CudaKernel(SOURCE, "hll_fold_grid", n_ptrs=5, n_ints=3)
+#: threads per block of both kernels, one per record (the source's
+#: `threads`)
+THREADS = 256
+
+
+def launch_shape(n: int) -> LaunchShape:
+    """The grid of kernels 3 and 8 for B = n records: one thread per record
+    in blocks of THREADS."""
+    return LaunchShape(max(1, -(-n // THREADS)), 1, THREADS, 0)
 
 
 def rank(h2: torch.Tensor) -> torch.Tensor:

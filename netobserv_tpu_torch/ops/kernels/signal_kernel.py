@@ -44,6 +44,10 @@ TILE_R = 512
 #: kernel 4's records per block, one per thread (SIGNAL_THREADS of the
 #: source)
 THREADS = 128
+#: kernel 7's threads per block and records per signal block
+#: (SIGNAL_THREADS and SIGNAL_ROWS_PER_BLOCK of signal_body.cuh)
+TIERED_THREADS = 512
+TIERED_ROWS = 1024
 
 #: value row -> index family: [ddos, syn, drops | synack | fwd, rev | dscp |
 #: cause] over families [dst, src, pair, dscp, cause]
@@ -59,6 +63,18 @@ def launch_shape(n: int) -> LaunchShape:
     """Kernel 4's grid for B = n records: ceil(n / THREADS) blocks of
     THREADS threads, no cluster and no shared memory."""
     return LaunchShape(max(1, -(-n // THREADS)), 1, THREADS, 0)
+
+
+def launch_shape_tiered(n: int, m: int, n_packed: int) -> LaunchShape:
+    """Kernel 7's grid: ceil(n / TIERED_ROWS) signal blocks, each with a
+    private copy of the tables, and one block per TILE_R packed triples of
+    the HLL bank, all of TIERED_THREADS threads with the larger of the two
+    shared-memory needs."""
+    n3 = n_packed // 3
+    tile_r = min(n3, TILE_R)
+    smem = max((6 * m + 2 * AUX_W) * 4, 4 * tile_r * 4)
+    return LaunchShape(max(1, -(-n // TIERED_ROWS)) + n3 // tile_r, 1,
+                       TIERED_THREADS, smem)
 
 
 class SignalPlanes(NamedTuple):

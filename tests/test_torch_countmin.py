@@ -1,7 +1,9 @@
 """Kernel 1's plain twin (netobserv_tpu_torch/ops/countmin.update_two, the
 CPU path of ops/kernels/countmin_kernel.py) against the JAX package's
 `countmin.update_two` scatter form and its Pallas `update_two` in interpret
-mode, d=4, W=2048, a ragged B=1500.
+mode, d=4, W=2048, a ragged B=1500; and on the seeded contract cases of
+`netobserv_tpu_torch/ops/kernels/cases.py` at W = 512 (one kernel-6 tile)
+and 2048, through the wrapper's CPU path, onto tables of small integers.
 
 Float regimes:
 - integer-valued masses whose per-cell sums stay below 2^24: bit-exact;
@@ -11,6 +13,7 @@ Float regimes:
   it."""
 
 import numpy as np
+import pytest
 import torch
 
 import tests.conftest  # noqa: F401
@@ -20,6 +23,8 @@ from netobserv_tpu.ops import countmin as jcm
 from netobserv_tpu.ops import hashing as jh
 from netobserv_tpu.ops.pallas import countmin_kernel as jcmk
 from netobserv_tpu_torch.ops import countmin as tcm
+from netobserv_tpu_torch.ops.kernels import cases
+from netobserv_tpu_torch.ops.kernels import countmin_kernel as tcmk
 
 D, W, B = 4, 2048, 1500
 U = 2.0 ** -24
@@ -102,3 +107,37 @@ def test_plain_twin_matches_pallas_kernel_interpret_bit_exact():
                    torch.from_numpy(vb), torch.from_numpy(valid))
     np.testing.assert_array_equal(ta.counts.numpy(), np.asarray(pa.counts))
     np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(pb.counts))
+
+
+CASE_NAMES = [name for name, _ in cases.countmin_cases(512)]
+
+
+@pytest.mark.parametrize("w", [512, 2048])
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_update_two_bit_exact_vs_jax_on_contract_cases(name, w):
+    """Kernel 1's plain twin (the wrapper on CPU tensors) against the JAX
+    scatter form and, for B > 0, the Pallas kernel in interpret mode (whose
+    chunk walk cannot take an empty batch), onto non-zero tables."""
+    c = dict(cases.countmin_cases(w))[name]
+    rng = np.random.default_rng(5)
+    init = [rng.integers(0, 50, (D, w)).astype(np.float32) for _ in "ab"]
+    ta, tb = (torch.from_numpy(x.copy()) for x in init)
+    tcmk.update_two(ta, tb, *(torch.from_numpy(c[f])
+                              for f in ("h1", "h2", "va", "vb")))
+    h1, h2 = (jnp.asarray(c[f].astype(np.uint32)) for f in ("h1", "h2"))
+    jargs = (jcm.CountMin(jnp.asarray(init[0])),
+             jcm.CountMin(jnp.asarray(init[1])), h1, h2,
+             jnp.asarray(c["va"]), jnp.asarray(c["vb"]),
+             jnp.ones(len(c["va"]), bool))
+    refs = [jcm.update_two(*jargs)]
+    if len(c["va"]):
+        refs.append(jcmk.update_two(*jargs, interpret=True))
+    assert float(refs[0][0].counts.max()) < 2 ** 24
+    for ja, jb in refs:
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja.counts))
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb.counts))
+    if name == "every_row_one_key":
+        cols = (c["h1"][0] + np.arange(D)) % w
+        np.testing.assert_array_equal(
+            ta.numpy()[np.arange(D), cols] - init[0][np.arange(D), cols],
+            np.full(D, c["va"].sum()))

@@ -4,6 +4,7 @@ CUDA and never quietly fall back to the CPU, and a kernel wrapper takes its
 plain version only for a CPU tensor, without counting a launch."""
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -150,7 +151,8 @@ def _c_entry_body(source: str, symbol: str) -> str:
 
 
 @pytest.mark.parametrize("source,symbol", [("topk_reduce.cu", "topk_reduce"),
-                                           ("signal_fold.cu", "signal_fold")])
+                                           ("signal_fold.cu", "signal_fold"),
+                                           ("countmin_fold2.cu", "cm_fold2")])
 def test_redesigned_kernels_make_one_launch_per_call(source, symbol):
     body = _c_entry_body(source, symbol)
     launches = (body.count("<<<") + body.count("cudaLaunchKernelEx")
@@ -158,24 +160,56 @@ def test_redesigned_kernels_make_one_launch_per_call(source, symbol):
     assert launches == 1, (source, launches)
 
 
+def _defined(text: str, macro: str) -> list[int]:
+    """Values of `#define macro v` or `const int macro = v;` lines (v an
+    integer or "(a / b)")."""
+    vals = []
+    for m in re.finditer(rf"^\s*(?:#define {macro} (.+)|const int {macro} = "
+                         rf"(.+);)$", text, re.M):
+        value = (m.group(1) or m.group(2)).split("//")[0].strip()
+        value = value.replace("(", "").replace(")", "")
+        a, _, b = value.partition(" / ")
+        vals.append(int(a) // int(b) if b else int(a))
+    return vals
+
+
+def _defining_source(mod, macros) -> str:
+    """The first of the module's sources, then of the headers they include,
+    that defines every macro."""
+    csrc = ROOT / "netobserv_tpu_torch" / "csrc"
+    files = [getattr(mod, a) for a in sorted(dir(mod))
+             if a.startswith("SOURCE")]
+    files += [h for f in list(files)
+              for h in re.findall(r'#include "(\w+\.cuh)"',
+                                  (csrc / f).read_text())]
+    for f in files:
+        text = (csrc / f).read_text()
+        if all(_defined(text, m) for m in macros):
+            return text
+    raise AssertionError(f"no source of {mod.__name__} defines {macros}")
+
+
 @pytest.mark.parametrize("mod,macros", [
     (topk_kernel, {"TOPK_CLUSTER": "CLUSTER", "TOPK_THREADS": "THREADS",
                    "TOPK_TILE": "TILE"}),
-    (signal_kernel, {"SIGNAL_THREADS": "THREADS"})])
+    (signal_kernel, {"SIGNAL_THREADS": "THREADS"}),
+    (countmin_kernel, {"CM2_THREADS": "THREADS"}),
+    (countmin_kernel, {"TILE_W": "TILE_W", "TIER2_THREADS": "TIER2_THREADS",
+                       "BIN_THREADS": "BIN_THREADS",
+                       "EST_THREADS": "EST_THREADS"}),
+    (signal_kernel, {"SIGNAL_THREADS": "TIERED_THREADS",
+                     "SIGNAL_ROWS_PER_BLOCK": "TIERED_ROWS"}),
+    (hll_kernel, {"threads": "THREADS"})])
 def test_launch_shapes_agree_with_their_sources(mod, macros):
-    """The wrapper sizes the grid, the slot split and the contract cases
-    from the same cluster, block and tile sizes the kernel was compiled
-    with."""
-    text = (ROOT / "netobserv_tpu_torch" / "csrc" / mod.SOURCE).read_text()
+    """The wrapper sizes the grid, the slot split, the launch floor and the
+    contract cases from the same cluster, block and tile sizes the kernel
+    was compiled with."""
+    text = _defining_source(mod, macros)
     for macro, const in macros.items():
-        line = next(x for x in text.splitlines()
-                    if x.startswith(f"#define {macro} "))
-        value = line.split(None, 2)[2].replace("(", "").replace(")", "")
-        a, _, b = value.partition(" / ")
-        assert (int(a) // int(b) if b else int(a)) == getattr(mod, const)
+        assert set(_defined(text, macro)) == {getattr(mod, const)}, macro
 
 
-@pytest.mark.parametrize("mod", [topk_kernel, signal_kernel])
+@pytest.mark.parametrize("mod", [topk_kernel, signal_kernel, countmin_kernel])
 def test_redesigned_wrappers_catch_nothing_around_the_launch(mod):
     tree = ast.parse(Path(mod.__file__).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -207,3 +241,77 @@ def test_topk_reduce_allocates_only_its_outputs(monkeypatch):
 def test_signal_launch_shape_takes_one_thread_per_record():
     for n, blocks in ((0, 1), (1, 1), (129, 2), (16384, 128)):
         assert signal_kernel.launch_shape(n) == (blocks, 1, 128, 0)
+
+
+def test_kernel6_makes_the_launches_its_source_note_states():
+    """One C entry makes TIER2_LAUNCHES kernel launches and one memset, as
+    the source note says, and the wrapper has a grid for each."""
+    text = (ROOT / "netobserv_tpu_torch" / "csrc"
+            / countmin_kernel.SOURCE_TIER2).read_text()
+    said = re.search(r"(\w+) launches and one\W+memset", text).group(1)
+    words = {"Three": 3, "Four": 4, "Five": 5}
+    body = _c_entry_body(countmin_kernel.SOURCE_TIER2, "cm_tier2")
+    assert words[said] == body.count("<<<") == countmin_kernel.TIER2_LAUNCHES
+    assert body.count("cudaMemsetAsync") == 1
+    assert "launch_clusters(" not in body and "cudaLaunchKernelEx" not in body
+    assert len(countmin_kernel.launch_shapes_tier2(
+        16384, 4, 65536, 32, 256)) == countmin_kernel.TIER2_LAUNCHES
+
+
+@pytest.mark.parametrize("w", [512, 65536, 1 << 20])
+def test_kernel6_allocates_only_q_est_counts_and_entries(monkeypatch, w):
+    """On a CUDA tensor the wrapper makes one C call whose new tensors are
+    q [d, B], est [B], the per-tile counts and cursors [2 W / TILE_W] and
+    the bins' entries [d B]: nothing of W f32 counters, whatever W."""
+    seen, made = [], []
+    monkeypatch.setattr(countmin_kernel, "on_cuda", lambda t: True)
+    monkeypatch.setattr(countmin_kernel, "check", lambda *a: None)
+    monkeypatch.setattr(countmin_kernel.KERNEL_TIER2, "launch",
+                        lambda ptrs, ints, dev: seen.append((ptrs, ints)))
+    for name in ("empty", "zeros", "full", "empty_like", "zeros_like"):
+        real = getattr(torch, name)
+
+        def alloc(*a, _real=real, **k):
+            t = _real(*a, **k)
+            made.append(t)
+            return t
+        monkeypatch.setattr(torch, name, alloc)
+    spec = tiered.TierSpec()
+    d, n = 4, 300
+    planes = [tiered.init_plane(d, w, spec, torch.device("cpu"))
+              for _ in range(2)]
+    h = torch.zeros(n, dtype=torch.int64)
+    v = torch.ones(n)
+    made.clear()
+    est = countmin_kernel.update_two_tiered(*planes, h, h, v, v, spec)
+    (ptrs, ints), = seen
+    assert len(ptrs) == 14 == len(countmin_kernel.KERNEL_TIER2.argtypes) - 8
+    assert ptrs[:6] == [*planes[0], *planes[1]]
+    q, est_p, counts, entries = ptrs[10:]
+    assert est_p is est and len(made) == 4
+    assert all(m is t for m, t in zip(made, (q, est, counts, entries)))
+    assert [tuple(t.shape) for t in made] == [
+        (d, n), (n,), (2 * w // countmin_kernel.TILE_W,), (d * n,)]
+    assert counts.dtype == entries.dtype == torch.int32
+    assert ints == [n, d, w, spec.mid_group, spec.top_group,
+                    spec.bytes_unit, 1]
+
+
+def test_countmin_launch_shapes():
+    """Kernel 1: one thread per (row, record); kernel 6: count and scatter
+    one thread per record, one fold block per tile, est one thread per
+    record."""
+    assert countmin_kernel.launch_shape(16384, 4) == (256, 1, 256, 0)
+    assert countmin_kernel.launch_shape(0, 4) == (1, 1, 256, 0)
+    count, scatter, fold, est = countmin_kernel.launch_shapes_tier2(
+        16384, 4, 65536, 32, 256)
+    assert count == (64, 1, 256, 4 * 128)
+    assert scatter == (64, 1, 256, 3 * 4 * 128)
+    cells = 2 * 4 * 512  # both planes' tiles
+    mids, tops = cells // 32, cells // 256
+    assert fold == (128, 1, 1024, (2 * cells + 2 * mids) * 4 + tops * 4
+                    + mids * 2 + cells)
+    assert est == (64, 1, 256, 0)
+    assert hll_kernel.launch_shape(16384) == (64, 1, 256, 0)
+    assert signal_kernel.launch_shape_tiered(16384, 4096, 3072) == (
+        16 + 2, 1, 512, (6 * 4096 + 2 * 256) * 4)

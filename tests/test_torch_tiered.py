@@ -7,7 +7,10 @@ Geometry and schedule are the reference's own (tests/test_tiered.py):
 `_interior_cfg` (d=2, W=512, HLL p=6, grids 32x16, K=16, EWMA m=32) under
 the specs `u1` (mid 8, top 32, unit 1) and `u64` (mid 8, top 64, unit 64),
 and `_boundary_batches`, whose folds cross base -> mid -> top while every
-decoded cell plus its fold sum stays an integer below 2^24.
+decoded cell plus its fold sum stays an integer below 2^24. Kernel 6's
+twin is also held on the seeded contract cases of
+`netobserv_tpu_torch/ops/kernels/cases.py` (d=4, W = 512 and 2048, the
+default TierSpec).
 
 Tolerance: bit-exact. Every table value here is an integer-valued f32
 below 2^24 (masses, per-fold group sums, decoded cells, slot counts), so
@@ -35,12 +38,14 @@ import tests.conftest  # noqa: F401
 import jax
 import jax.numpy as jnp
 
+from netobserv_tpu.ops import countmin as jcm
 from netobserv_tpu.ops import hashing as jhash
 from netobserv_tpu.ops.pallas import countmin_kernel as jcmk
 from netobserv_tpu.ops.pallas import signal_kernel as jsig
 from netobserv_tpu.sketch import state as js
 from netobserv_tpu.sketch import tiered as jt
 from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+from netobserv_tpu_torch.ops.kernels import cases
 from netobserv_tpu_torch.ops.kernels import countmin_kernel as tcmk
 from netobserv_tpu_torch.ops.kernels import signal_kernel as tsig
 from netobserv_tpu_torch.scenarios import traffic
@@ -267,6 +272,62 @@ def test_kernel6_twin_matches_pallas_interpret(spec):
     assert (ta.base.numpy() == tt.BASE_MAX).any()
     assert (ta.mid.numpy() == tt.MID_MAX).any()
     assert (ta.top.numpy() > 0).any()
+
+
+CM_CASE_NAMES = [name for name, _ in cases.countmin_cases(512)]
+
+
+def _jax_tier2_scatter(ja, jb, h1, h2, va, vb, spec):
+    """Kernel 6's function in the JAX package's scatter form: decode both
+    planes, `countmin.update_two`, `plane_add` of the delta, and the min
+    over rows of the post-fold bytes view at each record's columns."""
+    d, w = ja.base.shape
+    dec = [jt.decode_plane(p, spec, u)
+           for p, u in ((ja, spec.bytes_unit), (jb, 1))]
+    na, nb = jcm.update_two(jcm.CountMin(dec[0]), jcm.CountMin(dec[1]), h1,
+                            h2, va, vb, jnp.ones(va.shape[0], bool))
+    idx = jhash.row_indices(h1, h2, d, w)
+    est = jnp.take_along_axis(na.counts, idx.astype(jnp.int32), 1).min(
+        axis=0)
+    return (jt.plane_add(ja, na.counts - dec[0], spec, spec.bytes_unit),
+            jt.plane_add(jb, nb.counts - dec[1], spec, 1), est)
+
+
+@pytest.mark.parametrize("w", [512, 2048])
+@pytest.mark.parametrize("name", CM_CASE_NAMES)
+def test_kernel6_twin_bit_exact_vs_jax_on_contract_cases(name, w):
+    """Kernel 6's twin (the wrapper on CPU tensors) on the contract cases of
+    cases.py, at the default TierSpec (unit 256) onto pre-fold tiers with
+    saturated bases, against the JAX scatter form and, for B > 0,
+    `update_two_tiered` in interpret mode (whose chunk walk cannot take an
+    empty batch): tier arrays and est bit-exact."""
+    spec = jt.TierSpec()
+    c = dict(cases.countmin_cases(w))[name]
+    planes = cases.tier_planes(4, w, spec.mid_group, spec.top_group)
+    ta, tb = (tt.TieredPlane(*(torch.from_numpy(x.copy()) for x in p))
+              for p in planes)
+    est = tcmk.update_two_tiered(
+        ta, tb, *(torch.from_numpy(c[f]) for f in ("h1", "h2", "va", "vb")),
+        _tspec(spec))
+    ja, jb = (jt.TieredPlane(*(jnp.asarray(x) for x in p)) for p in planes)
+    h1, h2 = (jnp.asarray(c[f].astype(np.uint32)) for f in ("h1", "h2"))
+    va, vb = jnp.asarray(c["va"]), jnp.asarray(c["vb"])
+    refs = [_jax_tier2_scatter(ja, jb, h1, h2, va, vb, spec)]
+    if len(c["va"]):
+        refs.append(jcmk.update_two_tiered(
+            ja, jb, h1, h2, va, vb, jnp.ones(len(c["va"]), bool), spec,
+            interpret=True))
+    top = float(jt.decode_plane(refs[0][0], spec, spec.bytes_unit).max())
+    assert top < 2 ** 24
+    for ra, rb, rest in refs:
+        np.testing.assert_array_equal(est.numpy(), np.asarray(rest))
+        for field, t, j in zip(("a.base", "a.mid", "a.top", "b.base",
+                                "b.mid", "b.top"), (*ta, *tb), (*ra, *rb)):
+            assert t.numpy().dtype == np.asarray(j).dtype, field
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j),
+                                          err_msg=f"{name}: {field}")
+    if name == "every_row_one_key":
+        assert (ta.mid.numpy() != planes[0][1]).any()  # the cascade moved
 
 
 @pytest.mark.parametrize("m_hll", [64, 4096])
