@@ -26,17 +26,29 @@ launch counts set to 0 just before it and read just after:
   prints the pack time apart from the ingest time, the bytes copied to the
   card per record, and the ring's counters.
 
-The four kernels redesigned for the H100, 1 (the wide Count-Min fold,
+A last short phase folds C1_FOLDS batches under each of two tiered shapes
+that the tier gates once sent to a kernel that could not launch them:
+`cm_depth=25`, whose kernel-6 tile passes one block's shared memory (the
+gate now sends it to the decode form: kernels 1-4 and 8), and
+`ewma_buckets=16384`, past the table width kernel 7's first design could
+hold (now the interior form, kernel 7 fused). Each is held against the
+plain run under the whole-window bounds below.
+
+The five kernels redesigned for the H100, 1 (the wide Count-Min fold,
 warp-aggregated atomics into L2), 2 (the top-K slot reduce, one
 thread-block cluster), 4 (the signal fold, warp-aggregated atomics into
-L2) and 6 (the tier-interior Count-Min fold, the batch binned by tile),
-are also held bit-exact against their plain versions on the seeded
-contract cases of `netobserv_tpu_torch/ops/kernels/cases.py` (empty and
+L2), 6 (the tier-interior Count-Min fold, the batch binned by tile) and 7
+(kernel 4's per-record body beside packed-HLL tile blocks that test
+membership on h1 alone), are also held bit-exact against their plain
+versions on the seeded contract cases of
+`netobserv_tpu_torch/ops/kernels/cases.py` (empty and
 one-row batches, one row past a warp's, CTA's or block's share, every row
-on one slot, bucket or key, ties in different CTAs, dead rows, the
-inactive slot, table and tile edges, zero values, hashes that wrap past
-2^32; kernel 2 also at a K of three slot tiles, kernels 1 and 6 at a width
-of one tile), which the CPU tests hold against the JAX package. For every
+on one slot, bucket, key or HLL register, ties in different CTAs, dead
+rows, the inactive slot, table, tile and triple edges, zero values, rank
+33, hashes that wrap past 2^32; kernel 2 also at a K of three slot tiles,
+kernels 1 and 6 at a width of one tile, kernel 7 at a bank of one small
+tile and at a table width of 16,384), which the CPU tests hold against the
+JAX package. For every
 kernel the kernel phase prints the launch floor: the device time of an
 empty kernel (`csrc/launch_floor.cu`) at its grid, cluster and shared
 memory, for kernel 2 with its two cluster barriers, and for kernel 6 the
@@ -84,7 +96,7 @@ the most atomics that land on one address; kernel 1's as its design
 makes them, one per distinct (warp, cell) of each plane's non-zero
 values, beside one per (record, row) as kernel 5's design makes them;
 kernel 6's bin sizes (the entries the hottest tile's block walks); and
-the device time of kernels 1, 2, 4 and 6 with the hot key spread out
+the device time of kernels 1, 2, 4, 6 and 7 with the hot key spread out
 (uniform keys).
 Kernel 5's library yardstick is `index_add_` on one plane, kernel 8's
 `scatter_reduce_` ("amax") on the flat grid.
@@ -157,7 +169,9 @@ REPS = 50
 #: the kernels redesigned for Hopper, with contract cases in the kernel
 #: phase
 REDESIGNED = ("topk_reduce", "signal_fold", "countmin_fold2",
-              "countmin_tier2")
+              "countmin_tier2", "signal_fold_tiered")
+#: folds of each tiered shape of the C1 phase
+C1_FOLDS = 4
 #: threads of a warp, for kernel 1's count of warp-aggregated atomics
 WARP = 32
 #: the empty kernel of the launch floor
@@ -859,17 +873,23 @@ def bound_of(spec, args) -> dict:
 def uniform_variant(spec, args):
     """The same call with the hot key spread out: random hashes (kernels 1
     and 6), random slots (kernel 2) or random indices in every table
-    (kernel 4), to price same-address atomics."""
+    (kernel 4; kernel 7 also random HLL registers), to price same-address
+    atomics."""
     import torch
-    if spec["name"] == "signal_fold":
-        planes, idx, vals = args
+    if spec["name"] in ("signal_fold", "signal_fold_tiered"):
+        tiered = spec["name"] == "signal_fold_tiered"
+        planes, idx = args[0], args[2 if tiered else 1]
         g = torch.Generator(device=idx.device).manual_seed(1)
         sizes = [planes.ddos_rate.shape[0]] * 3 + [
             planes.dscp_bytes.shape[0], planes.drop_causes.shape[0]]
         uni = torch.stack([torch.randint(0, size, idx.shape[1:], generator=g,
                                          device=idx.device)
                            for size in sizes])
-        return (planes, uni, vals)
+        if not tiered:
+            return (planes, uni, args[2])
+        h1 = torch.randint(0, 2**32, idx.shape[1:], generator=g,
+                           device=idx.device, dtype=torch.int64)
+        return (planes, args[1], uni, args[3], h1, *args[5:])
     if spec["name"] in ("countmin_fold2", "countmin_tier2"):
         h1 = args[2]
         g = torch.Generator(device=h1.device).manual_seed(1)
@@ -888,7 +908,9 @@ def contract_cases(spec, args) -> list[dict]:
     the seeded contract cases of `ops/kernels/cases.py` (the CPU tests hold
     the plain versions against the JAX package on the same cases): kernel 2
     at K = 128, the path's K and a K of three slot tiles, kernel 4 at the
-    path's m onto tables of small integers, kernels 1 and 6 at a width of
+    path's m onto tables of small integers, kernel 7 the same with the
+    path's bank and one of 64 registers (one tile of 16 triples), the
+    last case at m = 16,384, kernels 1 and 6 at a width of
     one tile and the path's width (kernel 1 onto tables of small integers,
     kernel 6 onto `cases.tier_planes` under the path's TierSpec)."""
     import numpy as np
@@ -934,6 +956,23 @@ def contract_cases(spec, args) -> list[dict]:
         return out
     m = args[0].ddos_rate.shape[0]
     rng = np.random.default_rng(3)
+    if spec["name"] == "signal_fold_tiered":
+        for m_hll in (args[1].shape[0] // 3 * 4, 64):
+            for name, c in cases.tiered_signal_cases(m, m_hll):
+                planes = signal_kernel.SignalPlanes(*(
+                    torch.from_numpy(rng.integers(0, 50, size).astype(
+                        np.float32)).to(dev)
+                    for size in (c["m"],) * 6 + tuple(
+                        p.shape[0] for p in args[0][6:])))
+                packed = tiered.pack_hll(torch.from_numpy(c["regs"]).to(dev))
+                a = (planes, packed, *(torch.from_numpy(c[f]).to(dev) for f
+                                       in ("idx", "vals", "h1", "h2",
+                                           "valid")))
+                r = compare(spec, a, "integer")
+                out.append({"case": name, "m": c["m"], "m_hll": m_hll,
+                            "rows": c["vals"].shape[1],
+                            "max_abs_err": r["max_abs_err"]})
+        return out
     for name, c in cases.signal_cases(m):
         planes = signal_kernel.SignalPlanes(*(
             torch.from_numpy(rng.integers(0, 50, p.shape[0]).astype(
@@ -956,12 +995,11 @@ def launch_shapes(spec, args) -> tuple[list, int]:
     name = spec["name"]
     if name == "topk_reduce":
         return [topk_kernel.launch_shape(args[3])], 2
+    if name == "signal_fold_tiered":
+        return [signal_kernel.launch_shape_tiered(args[3].shape[1],
+                                                  args[1].shape[0])], 0
     if name == "signal_fold":
         return [signal_kernel.launch_shape(args[2].shape[1])], 0
-    if name == "signal_fold_tiered":
-        planes, packed, _, vals = args[:4]
-        return [signal_kernel.launch_shape_tiered(
-            vals.shape[1], planes.ddos_rate.shape[0], packed.shape[0])], 0
     if name == "countmin_fold2":
         return [countmin_kernel.launch_shape(args[2].shape[0],
                                              args[0].shape[0])], 0
@@ -1080,11 +1118,9 @@ def phase_kernels(specs, calls) -> list[dict]:
                     max_rel_err=max(c["max_rel_err"] for c in case["cases"]))
         if "library_note" in s:
             case["library_note"] = s["library_note"]
-        if s["name"] in ("countmin_fold2", "topk_reduce", "signal_fold",
-                         "countmin_tier2"):
+        if s["name"] in REDESIGNED:
             uni = uniform_variant(s, args)
             case["device_kernel_ms_uniform_keys"] = timing(s, uni)[0][1]
-        if s["name"] in REDESIGNED:
             case["contract_cases"] = contract_cases(s, args)
         case["launch_floor"] = launch_floor(s, args)
         torch.cuda.synchronize()
@@ -1448,6 +1484,64 @@ def phase_resident_path(specs, universe, pool, events) -> dict:
                 for w in wins]}
 
 
+def _c1_run(specs, dense, cfg, plain: bool) -> dict:
+    """C1_FOLDS pool batches through the dense feed under `cfg`, with the
+    kernels (no plain version may run) or the plain versions (counting the
+    adds of the window bounds); the launch counts are set to 0 just before
+    and read just after."""
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    adds: dict = {}
+    touched: dict = {}
+    plain_calls: dict = {}
+    ctx = (plain_versions(specs, adds, touched) if plain
+           else counting_plains(specs, plain_calls))
+    with ctx:
+        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
+        for s in specs:
+            s["kernel"].launches = 0
+        win = _window(exp, dense_feeder(dense), len(dense), 0, C1_FOLDS,
+                      adds, touched)
+        win["launches"] = {s["name"]: s["kernel"].launches for s in specs}
+        exp.close()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    return win
+
+
+def phase_c1(specs, dense) -> dict:
+    """Fault C1's two shapes on the card: a depth whose kernel-6 tile
+    passes one block's shared memory, which the gate sends to the decode
+    form (the wide path's kernels), and a table width past what kernel 7's
+    first design held, which folds on the interior form through kernel 7.
+    Each is held against the plain run: tables under the whole-window
+    bounds (the tiered CM tables under the tier bound), the packed HLL
+    banks bit-exact."""
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.sketch.tiered import TierSpec
+    out = {"phase": "c1_shapes", "folds": C1_FOLDS, "shapes": []}
+    for cfg, form, path in (
+            (sk.SketchConfig(cm_depth=25, tiered=TierSpec()), "decode",
+             "wide"),
+            (sk.SketchConfig(ewma_buckets=16384, tiered=TierSpec()),
+             "interior", "tiered")):
+        got = sk.tiered_fold_form(cfg)
+        check(got == form, f"{cfg}: fold form {got}, want {form}")
+        run = _c1_run(specs, dense, cfg, plain=False)
+        want = _want_launches(specs, path, C1_FOLDS, cfg)
+        check(run["launches"] == want,
+              f"{form} form launches {run['launches']}, want {want}")
+        plain = _c1_run(specs, dense, cfg, plain=True)
+        check(all(_exact(x, y) for x, y in zip(
+            _tensors(run["tiers"][2:]), _tensors(plain["tiers"][2:]))),
+            f"{form} form: the packed HLL banks differ")
+        cmp = compare_tables(run["tables"], plain["tables"], plain["adds"],
+                             _tier_checker(run, plain, cfg.tiered))
+        out["shapes"].append({
+            "cm_depth": cfg.cm_depth, "ewma_buckets": cfg.ewma_buckets,
+            "form": got, "launches": run["launches"], "vs_plain": cmp,
+            "seconds": run["seconds"], "plain_seconds": plain["seconds"]})
+    return out
+
+
 def phase_profile(feed, n_batches: int, cfg, name: str,
                   warm: int = 2) -> dict:
     """Device time by kernel over FOLDS_PER_WINDOW // 4 folds of a path
@@ -1536,6 +1630,8 @@ def main() -> int:
         phase = "resident_path"
         res_res = phase_resident_path(specs, universe, pool, events)
         emit(res_res)
+        phase = "c1_shapes"
+        emit(phase_c1(specs, dense))
         phase = "profile"
         emit(phase_profile(dense_feeder(dense), len(dense), sk.SketchConfig(),
                            "profile"))

@@ -12,13 +12,14 @@
 // An index outside its table is dropped, as the scatter's mode="drop" does.
 //
 // Design. One thread per record, SIGNAL_THREADS records per block, so the
-// batch spreads over the card (128 blocks at B = 16,384). A warp first
-// combines the lanes with the same index, once per index family
-// (warp_agg.cuh); the group's leader then adds each non-zero sum straight
-// into the global table with one atomicAdd whose result is unused (a
-// reduction the L2 performs). All eight tables together are 98 KiB at
-// m = 4096 and stay in L2, and a hot bucket costs one atomic per warp and
-// table instead of one per record. No shared memory, so any m fits.
+// batch spreads over the card (128 blocks at B = 16,384). Each thread runs
+// the per-record body of signal_agg.cuh (shared with kernel 7): the lanes
+// of a warp with the same index combine their values once per index family,
+// and the group's leader adds each non-zero sum straight into the global
+// table with one atomic (a reduction the L2 performs). All eight tables
+// together are 98 KiB at m = 4096 and stay in L2, and a hot bucket costs
+// one atomic per warp and table instead of one per record. No shared
+// memory, so any m fits.
 //
 // Two designs measured slower on the H100: a private copy of all eight
 // tables in each block's shared memory, zeroed, folded and flushed (the
@@ -36,54 +37,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_agg.cuh"
+#include "signal_agg.cuh"
 
 #define SIGNAL_THREADS 128
-
-struct SignalTables {
-  float* t[8];
-};
-
-// one index family: warp-combine its NR value rows by index `key` (-1:
-// dropped), then the leader adds each non-zero sum into tab[r][key]
-template <int NR>
-__device__ __forceinline__ void fold_family(float* const* tab, int key,
-                                            float (&v)[NR]) {
-  const unsigned peers = warp_peers(key);
-  group_sum<NR>(peers, v);
-  if (key < 0 || !group_leader(peers)) return;
-#pragma unroll
-  for (int r = 0; r < NR; ++r)
-    if (v[r] != 0.0f) atomicAdd(tab[r] + key, v[r]);
-}
 
 __global__ void __launch_bounds__(SIGNAL_THREADS)
 signal_fold_kernel(SignalTables tabs, const int64_t* __restrict__ idx,
                    const float* __restrict__ vals, int n, int m, int n_dscp,
                    int n_cause) {
   // every lane of a warp runs the warp calls: none returns early
-  const int b = blockIdx.x * SIGNAL_THREADS + (int)threadIdx.x;
-  const bool live = b < n;
-  float v[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = live ? vals[(size_t)j * n + b] : 0.0f;
-  int key[5];
-#pragma unroll
-  for (int f = 0; f < 5; ++f) {
-    const int size = f < 3 ? m : (f == 3 ? n_dscp : n_cause);
-    const int64_t i = live ? idx[(size_t)f * n + b] : -1;
-    key[f] = (i >= 0 && i < size) ? (int)i : -1;
-  }
-  float dst[3] = {v[0], v[1], v[2]};
-  fold_family<3>(tabs.t, key[0], dst);
-  float src[1] = {v[3]};
-  fold_family<1>(tabs.t + 3, key[1], src);
-  float pair[2] = {v[4], v[5]};
-  fold_family<2>(tabs.t + 4, key[2], pair);
-  float dscp[1] = {v[6]};
-  fold_family<1>(tabs.t + 6, key[3], dscp);
-  float cause[1] = {v[7]};
-  fold_family<1>(tabs.t + 7, key[4], cause);
+  signal_fold_record(tabs, idx, vals,
+                     blockIdx.x * SIGNAL_THREADS + (int)threadIdx.x, n, m,
+                     n_dscp, n_cause);
 }
 
 // One launch of ceil(n / SIGNAL_THREADS) blocks (the wrapper's

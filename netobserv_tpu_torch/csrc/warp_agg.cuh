@@ -1,10 +1,11 @@
-// Warp aggregation of equal keys (kernels 1, 4 and 6: countmin_fold2.cu,
-// signal_fold.cu, countmin_tier2.cu).
+// Warp aggregation of equal keys (kernels 1, 4, 6 and 7: countmin_fold2.cu,
+// signal_agg.cuh for signal_fold.cu and signal_fold_tiered.cu,
+// countmin_tier2.cu).
 //
 // Before an atomic, the lanes of a warp that target the same cell sum
 // their values and only the group's first lane issues the atomic, so a hot
 // key costs one atomic per warp instead of one per record. It pays where
-// the atomics go to L2 (kernels 1 and 4) and for f32 adds into shared
+// the atomics go to L2 (kernels 1, 4 and 7) and for f32 adds into shared
 // memory, which sm_90 runs as a compare-and-swap loop (kernel 6); kernel
 // 2's integer max atomics into a CTA's own shared memory were cheaper than
 // the aggregation on the H100 (PERF.md). The pattern:

@@ -1,6 +1,7 @@
 """Seeded edge cases of the contracts of kernel 2 (the top-K slot reduce),
-kernel 4 (the signal fold) and kernels 1 and 6 (the wide and the
-tier-interior Count-Min folds), as numpy arrays.
+kernels 4 and 7 (the signal fold, and its tiered form with the packed
+global HLL bank) and kernels 1 and 6 (the wide and the tier-interior
+Count-Min folds), as numpy arrays.
 
 The CPU tests hold the plain twins against the JAX package on these cases
 (`tests/test_torch_topk.py`, `tests/test_torch_signal.py`,
@@ -8,12 +9,14 @@ The CPU tests hold the plain twins against the JAX package on these cases
 `chip_smoke.py` holds the CUDA kernels against the plain twins on the same
 cases. Each case is named after the edge it covers; the sizes follow the
 kernels' launch shapes (a top-K CTA's pass is THREADS rows, a cluster's
-pass CLUSTER * THREADS; a signal block's THREADS rows; a Count-Min warp 32
-records, a kernel-1 block and a kernel-6 count or scatter block 256, a
-kernel-6 fold block's round TIER2_THREADS bin entries), so "one row past"
-lands in the next warp, CTA, block or round. Signal and Count-Min values are integers whose
-per-cell sums stay below 2^24, where the f32 adds are exact in any order,
-so every case is held bit-exact.
+pass CLUSTER * THREADS; a signal block's THREADS rows, a kernel-7 block's
+TIERED_THREADS and an HLL block's round TIERED_THREADS * HLL_UNROLL; a
+Count-Min warp 32 records, a kernel-1 block and a kernel-6 count or
+scatter block 256, a kernel-6 fold block's round TIER2_THREADS bin
+entries), so "one row past" lands in the next warp, CTA, block or round.
+Signal and Count-Min values are integers whose per-cell sums stay below
+2^24, where the f32 adds are exact in any order, so every case is held
+bit-exact; kernel 7's max fold is exact in any order.
 """
 
 from __future__ import annotations
@@ -129,6 +132,77 @@ def signal_cases(m: int, seed: int = 0) -> list[tuple[str, dict]]:
     cases.append(("zero_values", zeros))
     return [(name, {"idx": c["idx"].astype(np.int64),
                     "vals": c["vals"].astype(np.float32)})
+            for name, c in cases]
+
+
+def tiered_signal_cases(m: int, m_hll: int,
+                        seed: int = 0) -> list[tuple[str, dict]]:
+    """(name, {"m": table width, "idx": int64[5, B], "vals": f32[8, B],
+    "regs": int32[m_hll] pre-fold registers, "h1", "h2": int64[B] uint32
+    lanes, "valid": bool[B]}) for kernel 7 at table width m (the last case
+    at 16,384, past the shared-memory bound of kernel 7's first design) and
+    a packed bank of m_hll registers (a power of two, m_hll // 4 triples
+    within one TILE_R tile or a multiple of it). Register h1 & (m_hll - 1)
+    takes rank clz(h2) + 1 on a valid row. Pre-fold registers are below 6,
+    so most hits raise theirs."""
+    rng = np.random.default_rng(seed)
+    share = signal_kernel.TIERED_THREADS
+    blocks = 8 * share  # rows of eight full signal blocks
+    hll_round = signal_kernel.TIERED_THREADS * signal_kernel.HLL_UNROLL
+    bits = m_hll.bit_length() - 1
+
+    def batch(n: int, width: int = m) -> dict:
+        idx = np.stack([rng.integers(0, width, n), rng.integers(0, width, n),
+                        rng.integers(0, width, n), rng.integers(0, N_DSCP, n),
+                        rng.integers(0, N_CAUSE, n)])
+        vals = rng.integers(0, 4000, (8, n)).astype(np.float32)
+        vals *= rng.random((8, n)) < 0.8
+        return {"m": width, "idx": idx, "vals": vals,
+                "regs": rng.integers(0, 6, m_hll),
+                "h1": rng.integers(0, 2 ** 32, n),
+                "h2": rng.integers(0, 2 ** 32, n),
+                "valid": rng.random(n) < 0.9}
+
+    def on_register(c: dict, reg) -> None:
+        """Keep each row's high h1 bits, with register `reg` below them."""
+        c["h1"] = (c["h1"] >> bits << bits) | reg
+
+    cases = [("empty", batch(0)), ("one_row", batch(1)),
+             ("block_plus_one", batch(share + 1)),
+             ("ragged_last_block", batch(hll_round + 3 * share + 77))]
+
+    hot = batch(2 * blocks + 5)
+    hot["idx"][0] = m // 2 + 1
+    hot["vals"] %= 1000  # the hot cells' sums stay below 2^24
+    cases.append(("every_row_one_dst_bucket", hot))
+
+    one = batch(2 * blocks + 5)
+    on_register(one, m_hll // 2 + 3)
+    cases.append(("every_valid_row_one_register", one))
+
+    # registers 0 and m_hll - 1, and the four fields of one triple
+    t = m_hll // 8
+    edges = batch(blocks + 9)
+    picks = np.array([0, m_hll - 1, 4 * t, 4 * t + 1, 4 * t + 2, 4 * t + 3])
+    on_register(edges, picks[np.arange(len(edges["h1"])) % len(picks)])
+    edges["h2"][::7] = 0
+    cases.append(("registers_0_and_last_and_one_triple", edges))
+
+    dead = batch(blocks + 31)
+    dead["valid"][:] = False
+    cases.append(("all_rows_invalid", dead))
+
+    zero = batch(share + 31)
+    zero["h2"][:] = 0
+    cases.append(("h2_zero_rank_33", zero))
+
+    cases.append(("table_width_16384", batch(share + 9, width=16384)))
+    return [(name, {"m": c["m"], "idx": c["idx"].astype(np.int64),
+                    "vals": c["vals"].astype(np.float32),
+                    "regs": c["regs"].astype(np.int32),
+                    "h1": c["h1"].astype(np.int64),
+                    "h2": c["h2"].astype(np.int64),
+                    "valid": c["valid"].astype(np.bool_)})
             for name, c in cases]
 
 

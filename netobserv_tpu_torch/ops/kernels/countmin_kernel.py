@@ -178,6 +178,15 @@ def tiered_eligible(width: int, spec) -> bool:
     return width % TILE_W == 0 and TILE_W % spec.top_group == 0
 
 
+def tier2_fits(depth: int, width: int, spec) -> bool:
+    """Whether kernel 6 can launch at this depth and width under `spec`:
+    a fold block's tiles (`tier2_smem`) and the scatter's three per-tile
+    tables each fit one block's shared memory. The port's tier gates
+    require it beside `tiered_eligible`, the reference's gate."""
+    return (tier2_smem(depth, spec.mid_group, spec.top_group) <= SMEM_LIMIT
+            and 3 * 4 * (width // TILE_W) <= SMEM_LIMIT)
+
+
 def update_two_tiered_plain(plane_a, plane_b, h1: torch.Tensor,
                             h2: torch.Tensor, va: torch.Tensor,
                             vb: torch.Tensor, spec) -> torch.Tensor:
@@ -218,12 +227,12 @@ def update_two_tiered(plane_a, plane_b, h1: torch.Tensor, h2: torch.Tensor,
     mg, tg = spec.mid_group, spec.top_group
     if any(x & (x - 1) for x in (w, mg, tg, spec.bytes_unit)):
         raise ValueError("width, tier groups and unit must be powers of two")
-    if tier2_smem(d, mg, tg) > SMEM_LIMIT:
-        raise ValueError(f"depth {d}: a tile does not fit one block's "
-                         "shared memory")
-    if 3 * 4 * (w // TILE_W) > SMEM_LIMIT:
-        raise ValueError(f"width {w}: the scatter's three per-tile tables "
-                         "do not fit one block's shared memory")
+    if not tier2_fits(d, w, spec):
+        raise ValueError(
+            f"depth {d}: a tile does not fit one block's shared memory"
+            if tier2_smem(d, mg, tg) > SMEM_LIMIT else
+            f"width {w}: the scatter's three per-tile tables do not fit one "
+            "block's shared memory")
     n = h1.shape[0]
     if d * n >= 2 ** 31:
         raise ValueError(f"depth {d} x {n} records: the int32 bin entries "

@@ -14,13 +14,19 @@ L2-resident global table with one atomic; see the source note.
 them).
 
 Kernel 7 replaces the Pallas kernel `update_tiered` (`_fold_tiered_kernel`):
-the first signal-fold design, where every block keeps a private copy of
-all eight tables (`csrc/signal_body.cuh`), plus a max fold of the global
-source HLL straight into its 6-bit packed bank (`sketch/tiered.pack_hll`
-layout), each extra block owning TILE_R packed triples. `update_tiered` is
-its wrapper, `update_tiered_plain` its twin: `update_plain`, then
-`unpack_hll`, `hll_kernel.update_plain` and `pack_hll`. Both update the
-tables and the packed bank in place.
+kernel 4's fold plus a max fold of the global source HLL straight into its
+6-bit packed bank (`sketch/tiered.pack_hll` layout), in one launch of two
+roles. The first blocks each own TILE_R packed triples: they unpack them
+into shared memory, walk the batch testing tile membership on h1 alone,
+load h2 and valid only for their hits, max-fold with shared-memory
+atomics, and pack back. The other blocks run kernel 4's per-record body
+(`csrc/signal_agg.cuh`, shared by both kernels), so no table lives in
+shared memory and the table width has no bound. The design it replaces
+(a private copy of the eight tables in each block's shared memory, HLL
+blocks loading all three HLL columns) is in the source note and PERF.md.
+`update_tiered` is its wrapper, `update_tiered_plain` its twin:
+`update_plain`, then `unpack_hll`, `hll_kernel.update_plain` and
+`pack_hll`. Both update the tables and the packed bank in place.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from netobserv_tpu_torch.ops.kernels import hll_kernel
 from netobserv_tpu_torch.ops.kernels._build import (
-    SMEM_LIMIT, CudaKernel, LaunchShape, check, on_cuda,
+    CudaKernel, LaunchShape, check, on_cuda,
 )
 
 SOURCE = "signal_fold.cu"
@@ -44,18 +50,20 @@ TILE_R = 512
 #: kernel 4's records per block, one per thread (SIGNAL_THREADS of the
 #: source)
 THREADS = 128
-#: kernel 7's threads per block and records per signal block
-#: (SIGNAL_THREADS and SIGNAL_ROWS_PER_BLOCK of signal_body.cuh)
-TIERED_THREADS = 512
-TIERED_ROWS = 1024
+#: kernel 7's threads per block, one record a thread in a signal block
+#: (TIERED_THREADS of the source), and h1 loads in flight a thread of an
+#: HLL block (HLL_UNROLL), which walks the batch in rounds of
+#: TIERED_THREADS * HLL_UNROLL records
+TIERED_THREADS = 1024
+HLL_UNROLL = 8
 
 #: value row -> index family: [ddos, syn, drops | synack | fwd, rev | dscp |
 #: cause] over families [dst, src, pair, dscp, cause]
 FAMILY = (0, 0, 0, 1, 2, 2, 3, 4)
 N_VALS = 8
 N_IDX = 5
-#: most entries of an aux table (dscp, causes): the width of kernel 7's
-#: shared-memory aux rows
+#: most entries of an aux table (dscp, causes): the reference's shared
+#: aux row
 AUX_W = 256
 
 
@@ -65,16 +73,16 @@ def launch_shape(n: int) -> LaunchShape:
     return LaunchShape(max(1, -(-n // THREADS)), 1, THREADS, 0)
 
 
-def launch_shape_tiered(n: int, m: int, n_packed: int) -> LaunchShape:
-    """Kernel 7's grid: ceil(n / TIERED_ROWS) signal blocks, each with a
-    private copy of the tables, and one block per TILE_R packed triples of
-    the HLL bank, all of TIERED_THREADS threads with the larger of the two
-    shared-memory needs."""
+def launch_shape_tiered(n: int, n_packed: int) -> LaunchShape:
+    """Kernel 7's grid for B = n records and a packed bank of n_packed
+    bytes: one HLL block per tile of min(n3, TILE_R) triples, with the
+    tile's registers (4 ints a triple) in shared memory, then
+    ceil(n / TIERED_THREADS) signal blocks, all of TIERED_THREADS
+    threads."""
     n3 = n_packed // 3
     tile_r = min(n3, TILE_R)
-    smem = max((6 * m + 2 * AUX_W) * 4, 4 * tile_r * 4)
-    return LaunchShape(max(1, -(-n // TIERED_ROWS)) + n3 // tile_r, 1,
-                       TIERED_THREADS, smem)
+    return LaunchShape(n3 // tile_r + max(1, -(-n // TIERED_THREADS)), 1,
+                       TIERED_THREADS, 4 * tile_r * 4)
 
 
 class SignalPlanes(NamedTuple):
@@ -166,7 +174,8 @@ def update_tiered(planes: SignalPlanes, packed: torch.Tensor,
                   h2: torch.Tensor, valid: torch.Tensor) -> None:
     """`update` plus the global source HLL folded into its packed bank
     uint8[m//4*3] in the same launch, in place: register h1 & (m-1) takes
-    the max of itself and rank(h2) (0 for an invalid row).
+    the max of itself and rank(h2) (0 for an invalid row). Any table width
+    m: the kernel keeps no table in shared memory.
 
     idx/vals: as for `update`; h1/h2: int64[B] uint32 lanes; valid:
     bool[B]."""
@@ -181,15 +190,14 @@ def update_tiered(planes: SignalPlanes, packed: torch.Tensor,
     n = vals.shape[1]
     dev = vals.device
     _check_tables(planes, dev)
-    if (6 * planes.ddos_rate.shape[0] + 2 * AUX_W) * 4 > SMEM_LIMIT:
-        raise ValueError(f"m={planes.ddos_rate.shape[0]}: the tables do not "
-                         "fit one block's shared memory")
     check(idx, "idx", torch.int64, (N_IDX, n), dev)
     check(vals, "vals", torch.float32, (N_VALS, n), dev)
     check(packed, "packed", torch.uint8, (n_packed,), dev)
     check(h1, "h1", torch.int64, (n,), dev)
     check(h2, "h2", torch.int64, (n,), dev)
     check(valid, "valid", torch.bool, (n,), dev)
+    if n == 0:
+        return  # nothing to fold: no launch
     KERNEL_TIERED.launch(
         [*planes, idx, vals, packed, h1, h2, valid],
         [n, planes.ddos_rate.shape[0], planes.dscp_bytes.shape[0],

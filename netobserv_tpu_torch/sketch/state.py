@@ -18,8 +18,9 @@ and `roll_window` mutate the state they are given and return it.
 
 With `SketchConfig.tiered` set (a `tiered.TierSpec`) the state is a
 `tiered.TieredState`: the CM planes and HLL banks stay resident narrow.
-Where the width tiles (`countmin_kernel.tiered_eligible`), the fold is
-tier-interior: kernel 6 folds the CM tiers directly and hands the slot
+Where the width tiles (`countmin_kernel.tiered_eligible`) and kernel 6
+can launch at the depth and width (`countmin_kernel.tier2_fits`), the fold
+is tier-interior: kernel 6 folds the CM tiers directly and hands the slot
 table its estimate, kernel 7 folds the packed global HLL bank with the
 signal planes (where `signal_kernel.eligible` and `hll_fusible` hold),
 and only the per-bucket HLL grids unpack. Otherwise the fold decodes the
@@ -367,6 +368,13 @@ def ingest_resident(state: SketchState, key_table: torch.Tensor,
                   enable_asym=enable_asym)
 
 
+def _interior(depth: int, width: int, spec: tiered.TierSpec) -> bool:
+    """The tier-interior gate: the reference's (`tiered_eligible`), and a
+    shape kernel 6 can launch (`tier2_fits`)."""
+    return (countmin_kernel.tiered_eligible(width, spec)
+            and countmin_kernel.tier2_fits(depth, width, spec))
+
+
 def tiered_fold_form(cfg: SketchConfig) -> str | None:
     """Which fold a tiered state under `cfg` takes: "interior" (kernels 6
     and 7 on the tiers), "decode" (decode to wide, wide fold, promote), or
@@ -374,7 +382,7 @@ def tiered_fold_form(cfg: SketchConfig) -> str | None:
     the CPU, where the kernels' plain twins run the interior form."""
     if cfg.tiered is None:
         return None
-    if countmin_kernel.tiered_eligible(cfg.cm_width, cfg.tiered):
+    if _interior(cfg.cm_depth, cfg.cm_width, cfg.tiered):
         return "interior"
     return "decode"
 
@@ -384,8 +392,7 @@ def _ingest_tiered(state: tiered.TieredState,
                    enable_fanout: bool,
                    enable_asym: bool) -> tiered.TieredState:
     spec = state.spec
-    if countmin_kernel.tiered_eligible(state.tables.cm_bytes.base.shape[1],
-                                       spec):
+    if _interior(*state.tables.cm_bytes.base.shape, spec):
         m_hll = state.tables.hll_src.shape[0] // 3 * 4
         fuse = (signal_kernel.eligible(signal_planes(state.rest))
                 and signal_kernel.hll_fusible(m_hll))

@@ -152,7 +152,9 @@ def _c_entry_body(source: str, symbol: str) -> str:
 
 @pytest.mark.parametrize("source,symbol", [("topk_reduce.cu", "topk_reduce"),
                                            ("signal_fold.cu", "signal_fold"),
-                                           ("countmin_fold2.cu", "cm_fold2")])
+                                           ("countmin_fold2.cu", "cm_fold2"),
+                                           ("signal_fold_tiered.cu",
+                                            "signal_fold_tiered")])
 def test_redesigned_kernels_make_one_launch_per_call(source, symbol):
     body = _c_entry_body(source, symbol)
     launches = (body.count("<<<") + body.count("cudaLaunchKernelEx")
@@ -197,8 +199,8 @@ def _defining_source(mod, macros) -> str:
     (countmin_kernel, {"TILE_W": "TILE_W", "TIER2_THREADS": "TIER2_THREADS",
                        "BIN_THREADS": "BIN_THREADS",
                        "EST_THREADS": "EST_THREADS"}),
-    (signal_kernel, {"SIGNAL_THREADS": "TIERED_THREADS",
-                     "SIGNAL_ROWS_PER_BLOCK": "TIERED_ROWS"}),
+    (signal_kernel, {"TIERED_THREADS": "TIERED_THREADS",
+                     "HLL_UNROLL": "HLL_UNROLL", "TILE_R": "TILE_R"}),
     (hll_kernel, {"threads": "THREADS"})])
 def test_launch_shapes_agree_with_their_sources(mod, macros):
     """The wrapper sizes the grid, the slot split, the launch floor and the
@@ -236,6 +238,20 @@ def test_topk_reduce_allocates_only_its_outputs(monkeypatch):
     assert len(seen) == 2 and seen[1][1] == [5, big]
     assert [tuple(o.shape) for o in out] == [(big,)] * 3
     assert topk_kernel.launch_shape(big).smem <= _build.SMEM_LIMIT
+
+
+def test_kernels_4_and_7_share_one_per_record_body():
+    """Kernel 7's first table body (a private shared-memory copy of the
+    tables, `signal_body.cuh`) is gone; kernels 4 and 7 both fold through
+    the warp-aggregated per-record body of `signal_agg.cuh`."""
+    csrc = ROOT / "netobserv_tpu_torch" / "csrc"
+    assert not (csrc / "signal_body.cuh").exists()
+    for f in sorted(csrc.glob("*.cu*")):
+        assert "signal_body.cuh" not in f.read_text(), f.name
+    for source in (signal_kernel.SOURCE, signal_kernel.SOURCE_TIERED):
+        text = (csrc / source).read_text()
+        assert '#include "signal_agg.cuh"' in text, source
+        assert "signal_fold_record(" in text, source
 
 
 def test_signal_launch_shape_takes_one_thread_per_record():
@@ -313,5 +329,11 @@ def test_countmin_launch_shapes():
                     + mids * 2 + cells)
     assert est == (64, 1, 256, 0)
     assert hll_kernel.launch_shape(16384) == (64, 1, 256, 0)
-    assert signal_kernel.launch_shape_tiered(16384, 4096, 3072) == (
-        16 + 2, 1, 512, (6 * 4096 + 2 * 256) * 4)
+    # kernel 7: one HLL block per tile of 512 triples, holding its
+    # registers, then one signal block per 1,024 records
+    assert signal_kernel.launch_shape_tiered(16384, 12288) == (
+        8 + 16, 1, 1024, 4 * 512 * 4)
+    assert signal_kernel.launch_shape_tiered(16384, 3072) == (
+        2 + 16, 1, 1024, 4 * 512 * 4)
+    assert signal_kernel.launch_shape_tiered(100, 48) == (1 + 1, 1, 1024,
+                                                          4 * 16 * 4)

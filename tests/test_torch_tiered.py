@@ -10,7 +10,8 @@ and `_boundary_batches`, whose folds cross base -> mid -> top while every
 decoded cell plus its fold sum stays an integer below 2^24. Kernel 6's
 twin is also held on the seeded contract cases of
 `netobserv_tpu_torch/ops/kernels/cases.py` (d=4, W = 512 and 2048, the
-default TierSpec).
+default TierSpec), and kernel 7's on its own (m = 128 and 16,384, packed
+banks of 64 and 4,096 registers).
 
 Tolerance: bit-exact. Every table value here is an integer-valued f32
 below 2^24 (masses, per-fold group sums, decoded cells, slot counts), so
@@ -40,12 +41,13 @@ import jax.numpy as jnp
 
 from netobserv_tpu.ops import countmin as jcm
 from netobserv_tpu.ops import hashing as jhash
+from netobserv_tpu.ops import hll as jhll
 from netobserv_tpu.ops.pallas import countmin_kernel as jcmk
 from netobserv_tpu.ops.pallas import signal_kernel as jsig
 from netobserv_tpu.sketch import state as js
 from netobserv_tpu.sketch import tiered as jt
 from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
-from netobserv_tpu_torch.ops.kernels import cases
+from netobserv_tpu_torch.ops.kernels import _build, cases
 from netobserv_tpu_torch.ops.kernels import countmin_kernel as tcmk
 from netobserv_tpu_torch.ops.kernels import signal_kernel as tsig
 from netobserv_tpu_torch.scenarios import traffic
@@ -354,7 +356,6 @@ def test_kernel7_twin_matches_pallas_interpret(m_hll):
     src_h2[:40] = 0  # rank 33
     valid = rng.random(n) < 0.8
     hll_idx = (src_h1 & np.uint32(m_hll - 1)).astype(np.int32)
-    from netobserv_tpu.ops import hll as jhll
     hll_rank = np.where(valid, np.asarray(jhll._rank(jnp.asarray(src_h2))),
                         0).astype(np.int32)
     jplanes, jpacked = jsig.update_tiered(
@@ -375,6 +376,100 @@ def test_kernel7_twin_matches_pallas_interpret(m_hll):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j),
                                       err_msg=name)
     assert tsig.hll_fusible(m_hll)
+
+
+KERNEL7_M_HLL = (64, 4096)
+K7_CASE_NAMES = [name for name, _ in cases.tiered_signal_cases(128, 64)]
+
+
+def _jax_tiered_scatter(planes, packed, idx, vals, h1, h2, valid):
+    """Kernel 7's function in the JAX package's scatter form: the signal
+    tables' scatter chain, and the bank unpacked, `hll.update` and packed
+    back."""
+    out = [t.at[idx[tsig.FAMILY[j]]].add(vals[j], mode="drop")
+           for j, t in enumerate(planes)]
+    regs = jhll.update(jhll.HLL(jt.unpack_hll(packed)), h1, h2, valid).regs
+    return jsig.SignalPlanes(*out), jt.pack_hll(regs)
+
+
+@pytest.mark.parametrize("m_hll", KERNEL7_M_HLL)
+@pytest.mark.parametrize("name", K7_CASE_NAMES)
+def test_kernel7_twin_bit_exact_vs_jax_on_contract_cases(name, m_hll):
+    """Kernel 7's twin (the wrapper on CPU tensors) on its contract cases
+    (cases.py) onto tables of small integers and a packed bank of small
+    ranks, against the JAX scatter form and, for B > 0,
+    `signal_kernel.update_tiered` in interpret mode (whose chunk walk
+    cannot take an empty batch): packed bank and all eight tables
+    bit-exact."""
+    c = dict(cases.tiered_signal_cases(128, m_hll))[name]
+    rng = np.random.default_rng(11)
+    sizes = (c["m"],) * 6 + (ts.N_DSCP, ts.N_DROP_CAUSES)
+    start = [rng.integers(0, 50, k).astype(np.float32) for k in sizes]
+    packed = np.asarray(jt.pack_hll(jnp.asarray(c["regs"])))
+    tplanes = tsig.SignalPlanes(*(torch.from_numpy(t.copy()) for t in start))
+    tpacked = torch.from_numpy(packed.copy())
+    tsig.update_tiered(tplanes, tpacked, *(torch.from_numpy(c[f]) for f in
+                                           ("idx", "vals", "h1", "h2",
+                                            "valid")))
+    jplanes = jsig.SignalPlanes(*map(jnp.asarray, start))
+    idx, vals = jnp.asarray(c["idx"].astype(np.int32)), jnp.asarray(c["vals"])
+    h1, h2 = (jnp.asarray(c[f].astype(np.uint32)) for f in ("h1", "h2"))
+    valid = jnp.asarray(c["valid"])
+    refs = [_jax_tiered_scatter(jplanes, jnp.asarray(packed), idx, vals, h1,
+                                h2, valid)]
+    if len(c["valid"]):
+        rank = jnp.where(valid, jhll._rank(h2), 0)
+        refs.append(jsig.update_tiered(
+            jplanes, jnp.asarray(packed), idx, vals,
+            (h1 & np.uint32(m_hll - 1)).astype(jnp.int32), rank,
+            interpret=True))
+    for rplanes, rpacked in refs:
+        np.testing.assert_array_equal(tpacked.numpy(), np.asarray(rpacked),
+                                      err_msg=f"{name}: packed bank")
+        for field, t, r in zip(tsig.SignalPlanes._fields, tplanes, rplanes):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(r),
+                                          err_msg=f"{name}: {field}")
+    assert max(float(t.max()) for t in tplanes) < 2 ** 24
+    regs = tt.unpack_hll(tpacked).numpy()
+    if name == "all_rows_invalid":
+        np.testing.assert_array_equal(regs, c["regs"])
+    elif name == "h2_zero_rank_33":
+        assert regs.max() == 33
+    elif name == "every_valid_row_one_register":
+        hot = m_hll // 2 + 3
+        assert (regs != c["regs"]).sum() == (regs[hot] != c["regs"][hot])
+    if len(c["valid"]) > 1 and name != "all_rows_invalid":
+        assert (regs != c["regs"]).any()
+
+
+def test_kernel7_wrapper_has_no_table_width_bound(monkeypatch):
+    """On a CUDA tensor, `update_tiered` launches at any table width: at
+    m = 16,384, past the 9,600 buckets where kernel 7's first design ran
+    out of shared memory, it makes one launch of the shape
+    `launch_shape_tiered` states, whose shared memory is the HLL tile's
+    alone; an empty batch makes none."""
+    seen = []
+    monkeypatch.setattr(tsig, "on_cuda", lambda t: True)
+    monkeypatch.setattr(tsig, "check", lambda *a: None)
+    monkeypatch.setattr(tsig.KERNEL_TIERED, "launch",
+                        lambda ptrs, ints, dev: seen.append((ptrs, ints)))
+    c = dict(cases.tiered_signal_cases(128, 4096))["table_width_16384"]
+    planes = tsig.SignalPlanes(*(torch.zeros(k) for k in (
+        (16384,) * 6 + (ts.N_DSCP, ts.N_DROP_CAUSES))))
+    packed = torch.zeros(3072, dtype=torch.uint8)
+    args = [torch.from_numpy(c[f]) for f in ("idx", "vals", "h1", "h2",
+                                             "valid")]
+    tsig.update_tiered(planes, packed, *args)
+    (ptrs, ints), = seen
+    n = c["vals"].shape[1]
+    assert len(ptrs) == 14 and all(p is t for p, t in zip(
+        ptrs, [*planes, *args[:2], packed, *args[2:]]))
+    assert ints == [n, 16384, ts.N_DSCP, ts.N_DROP_CAUSES, 3072]
+    shape = tsig.launch_shape_tiered(n, 3072)
+    assert shape.smem == 4 * tsig.TILE_R * 4
+    assert shape.clusters == 2 + -(-n // tsig.TIERED_THREADS)
+    tsig.update_tiered(planes, packed, *(a[..., :0] for a in args))
+    assert len(seen) == 1
 
 
 # ------------------------------------------------------ the slice as a whole
@@ -491,10 +586,73 @@ def test_decode_form_on_an_ineligible_width_matches_jax():
     assert (state.tables.cm_bytes.mid.numpy() > 0).any()
 
 
+def test_decode_form_past_the_tile_bound_matches_jax():
+    """A narrow width at the least depth whose kernel-6 tile passes one
+    block's shared memory (`tier2_fits`) takes the decode form, as the
+    gate sends every shape the CUDA wrapper would refuse, and agrees bit
+    for bit with the JAX package, whose own gate has no such bound."""
+    depth = next(d for d in range(1, 64)
+                 if not tcmk.tier2_fits(d, 512, SMALL_TIERS))
+    assert tcmk.tier2_fits(depth - 1, 512, SMALL_TIERS)
+    jcfg = _interior_cfg(SMALL_TIERS, cm_depth=depth)
+    tcfg = _port_cfg(jcfg)
+    assert ts.tiered_fold_form(tcfg) == "decode"
+    assert js.tiered_fold_form(jcfg._replace(use_pallas=True)) == "interior"
+    state = ts.init_state(tcfg, device="cpu")
+    jstate = js.init_state(jcfg)
+    for i, b in enumerate(_boundary_batches(SMALL_TIERS, folds=3)):
+        jstate = _jax_ingest(False)(jstate, b)
+        ts.ingest(state, _to_port(b))
+        _assert_tiers_equal(state, jstate, f"depth {depth}")
+        _assert_state_tables(state, jstate, 96 * (i + 1), f"depth {depth}")
+    assert (state.tables.cm_bytes.mid.numpy() > 0).any()
+
+
+@pytest.mark.parametrize("w", [512, 65536, 1 << 23, 1 << 24])
+@pytest.mark.parametrize("spec", [
+    tt.TierSpec(), tt.TierSpec(mid_group=2, top_group=4, bytes_unit=1),
+    tt.TierSpec(mid_group=8, top_group=32, bytes_unit=1)],
+    ids=["default", "m2_t4", "m8_t32"])
+def test_tier2_fits_agrees_with_the_wrapper(monkeypatch, spec, w):
+    """Over depths 1-40 at width w: kernel 6's CUDA wrapper raises exactly
+    where `tier2_fits` fails, with the message of the limit it passes (the
+    tensors are stand-ins of the right shapes, the launch recorded)."""
+    seen = []
+    monkeypatch.setattr(tcmk, "on_cuda", lambda t: True)
+    monkeypatch.setattr(tcmk, "check", lambda *a: None)
+    monkeypatch.setattr(tcmk.KERNEL_TIER2, "launch",
+                        lambda ptrs, ints, dev: seen.append(ints))
+    h = torch.zeros(4, dtype=torch.int64)
+    v = torch.zeros(4)
+    fits = []
+    for d in range(1, 41):
+        plane = tt.TieredPlane(*(torch.zeros(1, dtype=dt).expand(d, w // g)
+                                 for dt, g in ((torch.uint8, 1),
+                                               (torch.uint16, spec.mid_group),
+                                               (torch.uint32, spec.top_group))))
+        ok = tcmk.tier2_fits(d, w, spec)
+        fits.append(ok)
+        if ok:
+            tcmk.update_two_tiered(plane, plane, h, h, v, v, spec)
+            assert seen[-1][:3] == [4, d, w]
+            continue
+        tile = tcmk.tier2_smem(d, spec.mid_group, spec.top_group) \
+            > _build.SMEM_LIMIT
+        with pytest.raises(ValueError, match="a tile does not fit" if tile
+                           else "per-tile tables do not fit"):
+            tcmk.update_two_tiered(plane, plane, h, h, v, v, spec)
+    assert len(seen) == sum(fits)
+    if w < 1 << 24:
+        assert fits[0] and not fits[-1]  # the depth bound lies in the grid
+    else:
+        assert not any(fits)  # the width bound, at every depth
+
+
 def test_tiered_fold_form_gate():
     """The static gate, as tests/test_tiered.py pins it for the reference,
-    but on the port's device rule: interior wherever the width tiles and a
-    tile holds whole top groups, on CUDA and the CPU alike."""
+    but on the port's device rule: interior wherever the width tiles, a
+    tile holds whole top groups and kernel 6 can launch at the depth and
+    width (`tier2_fits`), on CUDA and the CPU alike."""
     cfg = _port_cfg(_interior_cfg(SMALL_TIERS))
     assert ts.tiered_fold_form(ts.SketchConfig()) is None
     assert ts.tiered_fold_form(cfg) == "interior"
@@ -503,6 +661,19 @@ def test_tiered_fold_form_gate():
     assert ts.tiered_fold_form(cfg._replace(cm_width=2048,
                                             tiered=wide_top)) == "decode"
     assert ts.tiered_fold_form(ts.SketchConfig(tiered=tt.TierSpec())) \
+        == "interior"
+    assert tcmk.tier2_smem(25, 32, 256) > _build.SMEM_LIMIT
+    assert ts.tiered_fold_form(ts.SketchConfig(cm_depth=25,
+                                               tiered=tt.TierSpec())) \
+        == "decode"
+    assert ts.tiered_fold_form(ts.SketchConfig(cm_depth=24,
+                                               tiered=tt.TierSpec())) \
+        == "interior"
+    assert ts.tiered_fold_form(ts.SketchConfig(cm_width=1 << 24,
+                                               tiered=tt.TierSpec())) \
+        == "decode"
+    assert ts.tiered_fold_form(ts.SketchConfig(ewma_buckets=16384,
+                                               tiered=tt.TierSpec())) \
         == "interior"
     with pytest.raises(ValueError, match="ineligible"):
         state = ts.init_state(cfg._replace(cm_width=256), device="cpu")
