@@ -5,21 +5,25 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the eight CUDA kernels of the port from `netobserv_tpu_torch/csrc/`
-and the empty kernel of the launch floor (one `nvcc` per source, all
-started together), holds each against its plain PyTorch version at the
-shapes its path gives it, then drives three
+It builds the CUDA kernels of the port from `netobserv_tpu_torch/csrc/` (nine
+C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
+the launch floor (one `nvcc` per source, all started together), holds each
+against its plain PyTorch version at the shapes its path gives it, then
+drives three
 paths through `TorchSketchExporter` at the default geometry, each with the
 launch counts set to 0 just before it and read just after:
 
 - the wide main path, `SketchConfig()` through the dense feed
-  (`fold_dense`; kernels 1-4 and 8): 2 windows x 32 folds of 16,384
-  records of the seeded bench traffic;
-- the tiered path, `SketchConfig(tiered=TierSpec())` (kernels 2, 6, 7 and
-  8): the same 2 windows, then one window of DECAY_FOLDS folds rolled in
-  decay mode, so the tier-level decay runs on the card;
+  (`fold_dense`; kernels 1, 2 and 4, and the HLL folds launch, which runs
+  kernels 3 and 8's one body on the global HLL and both grids): 2 windows
+  x 32 folds of 16,384 records of the seeded bench traffic;
+- the tiered path, `SketchConfig(tiered=TierSpec())` (kernels 2, 6 and 7,
+  and the folds launch on the two grids): the same 2 windows, then one
+  window of DECAY_FOLDS folds rolled in decay mode, so the tier-level
+  decay runs on the card;
 - the resident path, `SketchConfig()` through the resident feed
-  (`fold_events`, the reference agent's default feed; kernels 1-4 and 8):
+  (`fold_events`, the reference agent's default feed; the wide path's
+  kernels):
   the same 2 windows of the same batches as flow events
   (`traffic.event_pool`), default caps for B = 16,384 and 2^18 slots. It
   also checks the key table on the card against the host dictionary and
@@ -29,23 +33,25 @@ launch counts set to 0 just before it and read just after:
 A last short phase folds C1_FOLDS batches under each of two tiered shapes
 that the tier gates once sent to a kernel that could not launch them:
 `cm_depth=25`, whose kernel-6 tile passes one block's shared memory (the
-gate now sends it to the decode form: kernels 1-4 and 8), and
+gate now sends it to the decode form: the wide path's kernels), and
 `ewma_buckets=16384`, past the table width kernel 7's first design could
 hold (now the interior form, kernel 7 fused). Each is held against the
 plain run under the whole-window bounds below.
 
-The five kernels redesigned for the H100, 1 (the wide Count-Min fold,
+The kernels redesigned for the H100, 1 (the wide Count-Min fold,
 warp-aggregated atomics into L2), 2 (the top-K slot reduce, one
 thread-block cluster), 4 (the signal fold, warp-aggregated atomics into
-L2), 6 (the tier-interior Count-Min fold, the batch binned by tile) and 7
+L2), 6 (the tier-interior Count-Min fold, the batch binned by tile), 7
 (kernel 4's per-record body beside packed-HLL tile blocks that test
-membership on h1 alone), are also held bit-exact against their plain
-versions on the seeded contract cases of
+membership on h1 alone), and 3 and 8 with the folds launch (one
+warp-aggregated max body, up to three folds a launch), are also held
+bit-exact against their plain versions on the seeded contract cases of
 `netobserv_tpu_torch/ops/kernels/cases.py` (empty and
 one-row batches, one row past a warp's, CTA's or block's share, every row
 on one slot, bucket, key or HLL register, ties in different CTAs, dead
 rows, the inactive slot, table, tile and triple edges, zero values, rank
-33, hashes that wrap past 2^32; kernel 2 also at a K of three slot tiles,
+33, hashes that wrap past 2^32, several groups of equal cells in one
+warp; kernel 2 also at a K of three slot tiles,
 kernels 1 and 6 at a width of one tile, kernel 7 at a bank of one small
 tile and at a table width of 16,384), which the CPU tests hold against the
 JAX package. For every
@@ -53,11 +59,15 @@ kernel the kernel phase prints the launch floor: the device time of an
 empty kernel (`csrc/launch_floor.cu`) at its grid, cluster and shared
 memory, for kernel 2 with its two cluster barriers, and for kernel 6 the
 sum over its four launches (its memset of the bin counts left out).
-Kernel 8 (the HLL grid fold) runs twice per fold on every path
-(per-dst and per-src grids). Kernel 5 (the single-plane Count-Min fold)
-runs on no path, as in the JAX package, where only its tests call it: the
-kernel phase checks it on the wide path's kernel-1 inputs, one plane, and
-its launches print as 0 on every path beside the kernel phase's own count.
+The HLL folds launch runs once per fold on every path (the global HLL
+and both grids on the wide and resident paths, the two grids on the
+tiered path). Kernels 3 and 8, its folds as C entries of their own, run
+on no path: the kernel phase checks each on its folds of the wide path's
+folds call. Kernel 5 (the single-plane Count-Min fold) runs on no path,
+as in the JAX package, where only its tests call it: the kernel phase
+checks it on the wide path's kernel-1 inputs, one plane. The launches of
+kernels 3, 5 and 8 print as 0 on every path beside the kernel phase's own
+count.
 
 Each path checks heavy-hitter recall against the exact oracle and is rerun
 with the plain versions on the card to compare the tables; on the kernel
@@ -90,19 +100,23 @@ call's: each input read once; of an in-place table only the 32-byte
 sectors that this call's non-zero values reach, read once and written once
 (for kernel 6 the sectors of the base, mid and top tiers its columns fall
 in; for kernel 7 also the sectors of the packed triples its valid records
-reach; for kernel 8 the grid cells of its valid records); a fresh output
-written once. The kernel phase also prints kernel 5's atomic count and
+reach; for kernels 3 and 8 and the folds launch the register cells of
+their valid records, each lane once however many folds read it); a fresh
+output written once. The kernel phase also prints kernel 5's atomic count and
 the most atomics that land on one address; kernel 1's as its design
 makes them, one per distinct (warp, cell) of each plane's non-zero
 values, beside one per (record, row) as kernel 5's design makes them;
 kernel 6's bin sizes (the entries the hottest tile's block walks); and
 the device time of kernels 1, 2, 4, 6 and 7 with the hot key spread out
-(uniform keys).
-Kernel 5's library yardstick is `index_add_` on one plane, kernel 8's
-`scatter_reduce_` ("amax") on the flat grid.
+(uniform keys), and of kernels 3 and 8 and the folds launch with random
+hash lanes.
+Kernel 5's library yardstick is `index_add_` on one plane; kernels 3 and
+8's `scatter_reduce_` ("amax") on the flat register file, the folds
+launch's one `scatter_reduce_` over its register files end to end.
 
-Tolerances. Kernels 2, 3 and 8 compute maxima and a minimum row:
-bit-exact, and so is kernel 7's packed HLL bank, in every regime. Kernels
+Tolerances. Kernels 2, 3 and 8 and the folds launch compute maxima and a
+minimum row: bit-exact, and so is kernel 7's packed HLL bank, in every
+regime. Kernels
 1, 4 and 5 (and kernel 7's signal tables) add f32 values with atomics, in
 an order that changes from run to run: with integer-valued masses whose
 per-cell sums stay below 2^24 (fresh tables, small integer masses on the
@@ -169,7 +183,8 @@ REPS = 50
 #: the kernels redesigned for Hopper, with contract cases in the kernel
 #: phase
 REDESIGNED = ("topk_reduce", "signal_fold", "countmin_fold2",
-              "countmin_tier2", "signal_fold_tiered")
+              "countmin_tier2", "signal_fold_tiered", "hll_fold",
+              "hll_fold_grid", "hll_fold_folds")
 #: folds of each tiered shape of the C1 phase
 C1_FOLDS = 4
 #: threads of a warp, for kernel 1's count of warp-aggregated atomics
@@ -201,14 +216,21 @@ def check(cond: bool, msg: str) -> None:
 # --------------------------------------------------------------- helpers
 
 
-def _clone(x):
+def _clone(x, memo: dict | None = None):
+    """A copy of every tensor in x (nested tuples, named or not). A tensor
+    that x holds twice (a lane that several HLL folds read) is copied once
+    and stays shared, as in the call it was captured from."""
     import torch
+    memo = {} if memo is None else memo
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        key = (x.data_ptr(), x.dtype, tuple(x.shape), x.stride())
+        if key not in memo:
+            memo[key] = x.clone()
+        return memo[key]
     if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_clone(v) for v in x))
+        return type(x)(*(_clone(v, memo) for v in x))
     if isinstance(x, tuple):
-        return tuple(_clone(v) for v in x)
+        return tuple(_clone(v, memo) for v in x)
     return x
 
 
@@ -300,17 +322,19 @@ def _exact(a, b) -> bool:
 def kernel_specs():
     """Per kernel: its module, launch counter, wrapper and plain version,
     the path whose captured calls the kernel phase checks it on (with
-    `derive`, the calls of another kernel of that path, cut to this
-    kernel's arguments), its launches per fold on each main path, which
-    arguments it updates in place (and their `state_tables` names, for the
-    f32 sums), how to cut its inputs to n rows, whether its result is exact
-    in any order, and the Pallas kernel it replaces."""
+    `derive`, the calls of another kernel of that path, each cut into this
+    kernel's calls), its launches per fold on each main path, which
+    arguments it updates in place (indices, or a function of the arguments
+    giving the tensors; and their `state_tables` names, for the f32 sums),
+    how to cut its inputs to n rows, whether its result is exact in any
+    order, and the Pallas kernel it replaces."""
     from netobserv_tpu_torch.ops.kernels import (
         countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
     )
     sig_tables = signal_kernel.SignalPlanes._fields
     flat_paths = {"wide": 1, "resident": 1}
     every_path = {"wide": 2, "tiered": 2, "resident": 2}
+    one_fold = lambda a, n: (a[0], *(t[:n] for t in a[1:]))  # noqa: E731
     return [
         dict(name="countmin_fold2", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL, path="wide", per_fold=flat_paths,
@@ -324,10 +348,14 @@ def kernel_specs():
              plain="reduce_plain", inplace=(),
              rows=lambda a, n: (*(t[:n] for t in a[:3]), a[3]), exact=True,
              replaces="netobserv_tpu/ops/pallas/topk_kernel.py:82"),
+        # kernels 3 and 8 run on every path inside the folds launch below;
+        # each is checked on its fold of the wide path's folds call
         dict(name="hll_fold", mod=hll_kernel, kernel=hll_kernel.KERNEL,
-             path="wide", per_fold=flat_paths, wrapper="update",
-             plain="update_plain", inplace=(0,),
-             rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])), exact=True,
+             path="wide", per_fold={},
+             derive=("hll_fold_folds",
+                     lambda a: [f for f in a[0] if len(f) == 4]),
+             wrapper="update", plain="update_plain", inplace=(0,),
+             rows=one_fold, exact=True,
              replaces="netobserv_tpu/ops/pallas/hll_kernel.py:70"),
         dict(name="signal_fold", mod=signal_kernel,
              kernel=signal_kernel.KERNEL, path="wide", per_fold=flat_paths,
@@ -341,7 +369,7 @@ def kernel_specs():
         # wide path's kernel-1 inputs (table, h1, h2, bytes values)
         dict(name="countmin_fold", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL_ONE, path="wide", per_fold={},
-             derive=("countmin_fold2", lambda a: (a[0], a[2], a[3], a[4])),
+             derive=("countmin_fold2", lambda a: [(a[0], a[2], a[3], a[4])]),
              wrapper="update", plain="update_plain", inplace=(0,),
              tables=("cm_bytes",),
              rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])),
@@ -370,11 +398,22 @@ def kernel_specs():
                           "packed bank",
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:214"),
         dict(name="hll_fold_grid", mod=hll_kernel,
-             kernel=hll_kernel.KERNEL_GRID, path="wide", per_fold=every_path,
+             kernel=hll_kernel.KERNEL_GRID, path="wide", per_fold={},
+             derive=("hll_fold_folds",
+                     lambda a: [f for f in a[0] if len(f) == 5]),
              wrapper="update_per_dst", plain="update_per_dst_plain",
-             inplace=(0,),
-             rows=lambda a, n: (a[0], *(t[:n] for t in a[1:])), exact=True,
+             inplace=(0,), rows=one_fold, exact=True,
              replaces="netobserv_tpu/ops/pallas/hll_kernel.py:81"),
+        # the global-src HLL (not on the tiered path: kernel 7 folds its
+        # packed bank) and both grids of a fold in one launch
+        dict(name="hll_fold_folds", mod=hll_kernel,
+             kernel=hll_kernel.KERNEL_FOLDS, path="wide",
+             per_fold={"wide": 1, "tiered": 1, "resident": 1},
+             wrapper="update_folds", plain="update_folds_plain",
+             inplace=lambda a: [f[0] for f in a[0]],
+             rows=lambda a, n: (tuple(one_fold(f, n) for f in a[0]),),
+             exact=True,
+             replaces="netobserv_tpu/ops/pallas/hll_kernel.py:40"),
     ]
 
 
@@ -463,11 +502,19 @@ def recording(specs, calls: dict):
             setattr(mod, s["wrapper"], fn)
 
 
+def _inplace(spec, args) -> list:
+    """The tensors a call of the kernel updates in place."""
+    sel = spec["inplace"]
+    if callable(sel):
+        return sel(args)
+    return _tensors(tuple(args[i] for i in sel))
+
+
 def run_once(spec, fn_name: str, args):
     """Call the kernel (or plain version) on args in place; return the
     output tensors: the in-place tables, then whatever it returned."""
     out = getattr(spec["mod"], fn_name)(*args)
-    return _tensors(tuple(args[i] for i in spec["inplace"])) + _tensors(out)
+    return _inplace(spec, args) + _tensors(out)
 
 
 def _expand(x, g: int):
@@ -623,9 +670,8 @@ def integer_inputs(spec, args):
     the same cells take the same number of atomics as on the main path."""
     import torch
     a = _clone(args)
-    for i in spec["inplace"]:
-        for t in _tensors(a[i]):
-            t.zero_()
+    for t in _inplace(spec, a):
+        t.zero_()
 
     def small(v):
         return torch.where(v != 0, torch.remainder(v, 251.0).floor() + 1,
@@ -675,8 +721,7 @@ def timing(spec, args):
     inputs; in-place tables are restored from the captured state before
     every launch."""
     work = _clone(args)
-    src = _tensors(tuple(args[i] for i in spec["inplace"]))
-    dst = _tensors(tuple(work[i] for i in spec["inplace"]))
+    src, dst = _inplace(spec, args), _inplace(spec, work)
 
     def restore():
         for d, s in zip(dst, src):
@@ -727,18 +772,15 @@ def library_call(spec, args):
         flat_vals = vals.expand(d, -1).reshape(-1)
         table = counts.clone().reshape(-1)
         return lambda: table.index_add_(0, cell, flat_vals)
-    if name == "hll_fold":
-        regs, h1, h2, valid = args
-        m = regs.shape[0]
-        cell = h1 & (m - 1)
-        rank = torch.where(valid, hll_kernel.rank(h2), 0)
-        table = regs.clone()
-        return lambda: table.scatter_reduce_(0, cell, rank, "amax")
-    if name == "hll_fold_grid":
-        regs, dst_h, src_h1, src_h2, valid = args
-        cell = _grid_cells(regs, dst_h, src_h1)
-        rank = torch.where(valid, hll_kernel.rank(src_h2), 0)
-        table = regs.clone().reshape(-1)
+    if name.startswith("hll_fold"):
+        # the folds' register files end to end, one scatter over them all
+        cells, ranks, tables = [], [], []
+        for f in _hll_folds(name, args):
+            cells.append(_hll_cells(f) + sum(t.numel() for t in tables))
+            ranks.append(torch.where(f[-1], hll_kernel.rank(f[-2]), 0))
+            tables.append(f[0].reshape(-1))
+        cell, rank = torch.cat(cells), torch.cat(ranks)
+        table = torch.cat(tables)
         return lambda: table.scatter_reduce_(0, cell, rank, "amax")
     planes, idx, vals = args
     from netobserv_tpu_torch.ops.kernels.signal_kernel import FAMILY
@@ -750,10 +792,19 @@ def library_call(spec, args):
     return lambda: table.index_add_(0, cell, flat)
 
 
-def _grid_cells(regs, dst_h, src_h1):
-    """Flat cell (dst_h & (D-1)) * m + (src_h1 & (m-1)) of kernel 8."""
-    dbuckets, m = regs.shape
-    return (dst_h & (dbuckets - 1)) * m + (src_h1 & (m - 1))
+def _hll_folds(name: str, args) -> tuple:
+    """The folds of a call of kernel 3, kernel 8 or the folds launch."""
+    return args[0] if name == "hll_fold_folds" else (args,)
+
+
+def _hll_cells(fold):
+    """Flat cell of every row of an HLL fold: h1 & (m-1) for kernel 3's
+    (regs, h1, h2, valid), (dst_h & (D-1)) * m + (src_h1 & (m-1)) for
+    kernel 8's (regs, dst_h, src_h1, src_h2, valid)."""
+    if len(fold) == 4:
+        return fold[1] & (fold[0].shape[0] - 1)
+    dbuckets, m = fold[0].shape
+    return (fold[1] & (dbuckets - 1)) * m + (fold[2] & (m - 1))
 
 
 def _sector_bytes(elems, elem_size: int = 4) -> int:
@@ -843,16 +894,25 @@ def bound_of(spec, args) -> dict:
         mslot, target, est, k = args
         nbytes = read((mslot, target, est)) + 3 * k * 4  # fresh outputs
         ops = 3 * est.numel()  # two maxima and a minimum per row
-    elif name == "hll_fold":
-        regs, h1, h2, valid = args
-        nbytes = read((h1, h2, valid)) + _sector_bytes(
-            (h1 & (regs.shape[0] - 1))[valid])
-        ops = int(valid.sum())
-    elif name == "hll_fold_grid":
-        regs, dst_h, src_h1, src_h2, valid = args
-        nbytes = read(args[1:]) + _sector_bytes(
-            _grid_cells(regs, dst_h, src_h1)[valid])
-        ops = int(valid.sum())
+    elif name.startswith("hll_fold"):
+        # each lane once, though several folds read it; each register file's
+        # sectors that its valid rows reach
+        folds = _hll_folds(name, args)
+        lanes = {t.data_ptr(): t for f in folds for t in f[1:]}
+        nbytes = read(lanes.values()) + sum(
+            _sector_bytes(_hll_cells(f)[f[-1]]) for f in folds)
+        ops = sum(int(f[-1].sum()) for f in folds)
+        # the kernel's warps as it makes them (row b of a fold in warp
+        # b // 32): one atomic per distinct (warp, cell) of valid rows
+        groups = [torch.unique(
+            (torch.arange(f[-1].numel(), device=f[-1].device) // WARP
+             * f[0].numel() + _hll_cells(f))[f[-1]]) % f[0].numel()
+            for f in folds]
+        extra = {"atomics": sum(g.numel() for g in groups),
+                 "max_atomics_one_address": max(
+                     (int(torch.bincount(g).max()) for g in groups
+                      if g.numel()), default=0),
+                 "atomics_one_per_row": ops}
     elif name == "signal_fold_tiered":
         planes, packed, idx, vals, h1, h2, valid = args
         nbytes, ops = _signal_bytes_ops(planes, idx, vals)
@@ -871,11 +931,27 @@ def bound_of(spec, args) -> dict:
 
 
 def uniform_variant(spec, args):
-    """The same call with the hot key spread out: random hashes (kernels 1
-    and 6), random slots (kernel 2) or random indices in every table
-    (kernel 4; kernel 7 also random HLL registers), to price same-address
-    atomics."""
+    """The same call with the hot key spread out: random hashes (kernels 1,
+    3, 6 and 8, and the HLL folds launch), random slots (kernel 2) or
+    random indices in every table (kernel 4; kernel 7 also random HLL
+    registers), to price same-address atomics."""
     import torch
+    if spec["name"].startswith("hll_fold"):
+        # every hash lane random (a lane several folds read stays shared)
+        folds = _hll_folds(spec["name"], args)
+        g = torch.Generator(device=folds[0][-1].device).manual_seed(1)
+        rand: dict = {}
+
+        def spread(f):
+            for t in f[1:-1]:
+                if t.data_ptr() not in rand:
+                    rand[t.data_ptr()] = torch.randint(
+                        0, 2**32, t.shape, generator=g, device=t.device,
+                        dtype=torch.int64)
+            return (f[0], *(rand[t.data_ptr()] for t in f[1:-1]), f[-1])
+
+        folds = tuple(spread(f) for f in folds)
+        return (folds,) if spec["name"] == "hll_fold_folds" else folds[0]
     if spec["name"] in ("signal_fold", "signal_fold_tiered"):
         tiered = spec["name"] == "signal_fold_tiered"
         planes, idx = args[0], args[2 if tiered else 1]
@@ -912,13 +988,18 @@ def contract_cases(spec, args) -> list[dict]:
     path's bank and one of 64 registers (one tile of 16 triples), the
     last case at m = 16,384, kernels 1 and 6 at a width of
     one tile and the path's width (kernel 1 onto tables of small integers,
-    kernel 6 onto `cases.tier_planes` under the path's TierSpec)."""
+    kernel 6 onto `cases.tier_planes` under the path's TierSpec), kernels 3
+    and 8 and the folds launch at the path's geometry of each fold and at
+    a small one (64 registers, a 32 x 16 grid), from the cases' pre-fold
+    registers."""
     import numpy as np
     import torch
     from netobserv_tpu_torch.ops.kernels import (
         cases, countmin_kernel, signal_kernel, topk_kernel,
     )
     from netobserv_tpu_torch.sketch import tiered
+    if spec["name"].startswith("hll_fold"):
+        return hll_contract_cases(spec, args)
     dev = args[2].device  # the path's device: est of kernel 2, h1 or vals
     out = []
     if spec["name"] in ("countmin_fold2", "countmin_tier2"):
@@ -985,6 +1066,39 @@ def contract_cases(spec, args) -> list[dict]:
     return out
 
 
+def hll_contract_cases(spec, args) -> list[dict]:
+    """contract_cases of kernels 3 and 8 and the folds launch: each fold
+    of the call takes the case of one name from `cases.hll_fold_cases` at
+    its geometry (seeded by its place), so a folds call runs its folds on
+    one batch size in one launch."""
+    import torch
+    from netobserv_tpu_torch.ops.kernels import cases
+    folds = _hll_folds(spec["name"], args)
+    dev = folds[0][0].device
+    path = [(1, f[0].shape[0]) if len(f) == 4 else tuple(f[0].shape)
+            for f in folds]
+    small = [(1, 64) if d == 1 else (32, 16) for d, _ in path]
+    out = []
+    for geometry in (path, small):
+        per_fold = [cases.hll_fold_cases(d, m, seed)
+                    for seed, (d, m) in enumerate(geometry)]
+        for named in zip(*per_fold):
+            name = named[0][0]
+            fs = []
+            for (_, c), f in zip(named, folds):
+                t = {k: torch.from_numpy(v).to(dev) for k, v in c.items()}
+                fs.append((t["regs"].reshape(-1), t["h1"], t["h2"],
+                           t["valid"]) if len(f) == 4 else
+                          (t["regs"], t["dst"], t["h1"], t["h2"],
+                           t["valid"]))
+            a = (tuple(fs),) if spec["name"] == "hll_fold_folds" else fs[0]
+            r = compare(spec, a, "integer")
+            out.append({"case": name, "geometry": geometry,
+                        "rows": len(named[0][1]["valid"]),
+                        "max_abs_err": r["max_abs_err"]})
+    return out
+
+
 def launch_shapes(spec, args) -> tuple[list, int]:
     """The grids a call of the kernel launches at these arguments (the
     wrappers' `launch_shape*`), and its cluster barriers (kernel 2: two
@@ -1010,7 +1124,8 @@ def launch_shapes(spec, args) -> tuple[list, int]:
         d, w = args[0].base.shape
         return countmin_kernel.launch_shapes_tier2(
             args[2].shape[0], d, w, args[6].mid_group, args[6].top_group), 0
-    return [hll_kernel.launch_shape(args[1].shape[0])], 0  # kernels 3, 8
+    folds = _hll_folds(name, args)  # kernels 3 and 8, the folds launch
+    return [hll_kernel.launch_shape(folds[0][1].shape[0], len(folds))], 0
 
 
 def launch_floor(spec, args) -> dict:
@@ -1088,7 +1203,7 @@ def phase_kernels(specs, calls) -> list[dict]:
     for s in specs:
         if "derive" in s:
             src, cut = s["derive"]
-            recs = [cut(a) for a in calls[s["path"]].get(src, [])]
+            recs = [c for a in calls[s["path"]].get(src, []) for c in cut(a)]
         else:
             recs = calls[s["path"]].get(s["name"], [])
         check(len(recs) >= 1, f"{s['name']}: the main path never called it")
@@ -1352,17 +1467,12 @@ def _window_summary(run: dict, plain: dict, cmp: list) -> dict:
                                       for w in wins]}
 
 
-def _want_launches(specs, path: str, folds: int, cfg) -> dict:
+def _want_launches(specs, path: str, folds: int) -> dict:
     """Launches over `folds` folds (ingest calls) of `path`: each kernel's
-    launches per fold on that path (zero off it); kernel 8 folds one grid
-    instead of two when the fan-out signal is off."""
-    out = {}
-    for s in specs:
-        n = s["per_fold"].get(path, 0)
-        if s["name"] == "hll_fold_grid" and n and not cfg.enable_fanout:
-            n = 1
-        out[s["name"]] = n * folds
-    return out
+    launches per fold on that path (zero off it). The HLL folds launch
+    makes one a fold whatever its folds: three on the wide and resident
+    paths, two on the tiered path and with the fan-out signal off."""
+    return {s["name"]: s["per_fold"].get(path, 0) * folds for s in specs}
 
 
 def phase_main_path(specs, universe, pool, dense) -> dict:
@@ -1370,7 +1480,7 @@ def phase_main_path(specs, universe, pool, dense) -> dict:
     cfg = sk.SketchConfig()
     feed = dense_feeder(dense)
     run = run_windows(feed, len(dense), False, specs, cfg)
-    want = _want_launches(specs, "wide", WINDOWS * FOLDS_PER_WINDOW, cfg)
+    want = _want_launches(specs, "wide", WINDOWS * FOLDS_PER_WINDOW)
     check(run["launches"] == want,
           f"launch counts {run['launches']}, want {want}")
     check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
@@ -1405,14 +1515,14 @@ def phase_tiered_path(specs, universe, pool, dense) -> dict:
     cfg = tiered_cfg()
     feed = dense_feeder(dense)
     run = run_windows(feed, len(dense), False, specs, cfg, decay_window=True)
-    want = _want_launches(specs, "tiered", WINDOWS * FOLDS_PER_WINDOW, cfg)
+    want = _want_launches(specs, "tiered", WINDOWS * FOLDS_PER_WINDOW)
     check(run["launches"] == want,
           f"tiered launch counts {run['launches']}, want {want}")
     check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
           and run["rolls"] == WINDOWS,
           f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
     dec = run["decay"]
-    want_decay = _want_launches(specs, "tiered", DECAY_FOLDS, cfg)
+    want_decay = _want_launches(specs, "tiered", DECAY_FOLDS)
     check(dec["launches"] == want_decay,
           f"decay window launches {dec['launches']}, want {want_decay}")
     check(dec["decay_exact"], "decay roll: the tiers are not decay_plane "
@@ -1457,7 +1567,7 @@ def phase_resident_path(specs, universe, pool, events) -> dict:
           and run["rolls"] == WINDOWS,
           f"exporter counted {run['folds']} folds ({ring.chunks} chunks, "
           f"{ring.continuations} continuations), {run['rolls']} rolls")
-    want = _want_launches(specs, "resident", run["folds"], cfg)
+    want = _want_launches(specs, "resident", run["folds"])
     check(run["launches"] == want,
           f"resident launch counts {run['launches']}, want {want}")
     recalls = _check_windows(run["windows"], traffic.event_universe(universe),
@@ -1526,7 +1636,7 @@ def phase_c1(specs, dense) -> dict:
         got = sk.tiered_fold_form(cfg)
         check(got == form, f"{cfg}: fold form {got}, want {form}")
         run = _c1_run(specs, dense, cfg, plain=False)
-        want = _want_launches(specs, path, C1_FOLDS, cfg)
+        want = _want_launches(specs, path, C1_FOLDS)
         check(run["launches"] == want,
               f"{form} form launches {run['launches']}, want {want}")
         plain = _c1_run(specs, dense, cfg, plain=True)

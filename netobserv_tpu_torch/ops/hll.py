@@ -6,9 +6,11 @@ from h1's low bits, the rank from the leading zeros of h2.
 
 `update` folds in place through kernel 3 and `update_per_dst` through kernel
 8 (`ops/kernels/hll_kernel.py`) on CUDA, and through their plain twins on
-the CPU. The JAX package keeps the grids on XLA scatter, because its TPU
-kernel pays D*m lane compares per record; kernel 8 pays one atomic, as the
-scatter does. Both are in place on the registers (JAX donated them).
+the CPU. The ingest folds the global HLL and both grids of a batch in one
+launch of the same body (`hll_kernel.update_folds`). The JAX package keeps
+the grids on XLA scatter, because its TPU kernel pays D*m lane compares per
+record; kernel 8 pays at most one atomic, as the scatter does. Both are in
+place on the registers (JAX donated them).
 """
 
 from __future__ import annotations

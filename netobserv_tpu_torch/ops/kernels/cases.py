@@ -1,11 +1,12 @@
 """Seeded edge cases of the contracts of kernel 2 (the top-K slot reduce),
 kernels 4 and 7 (the signal fold, and its tiered form with the packed
-global HLL bank) and kernels 1 and 6 (the wide and the tier-interior
-Count-Min folds), as numpy arrays.
+global HLL bank), kernels 1 and 6 (the wide and the tier-interior
+Count-Min folds) and kernels 3 and 8 (the HLL max folds), as numpy arrays.
 
 The CPU tests hold the plain twins against the JAX package on these cases
 (`tests/test_torch_topk.py`, `tests/test_torch_signal.py`,
-`tests/test_torch_countmin.py`, `tests/test_torch_tiered.py`), and
+`tests/test_torch_countmin.py`, `tests/test_torch_tiered.py`,
+`tests/test_torch_hll.py`), and
 `chip_smoke.py` holds the CUDA kernels against the plain twins on the same
 cases. Each case is named after the edge it covers; the sizes follow the
 kernels' launch shapes (a top-K CTA's pass is THREADS rows, a cluster's
@@ -13,7 +14,8 @@ pass CLUSTER * THREADS; a signal block's THREADS rows, a kernel-7 block's
 TIERED_THREADS and an HLL block's round TIERED_THREADS * HLL_UNROLL; a
 Count-Min warp 32 records, a kernel-1 block and a kernel-6 count or
 scatter block 256, a kernel-6 fold block's round TIER2_THREADS bin
-entries), so "one row past" lands in the next warp, CTA, block or round.
+entries, an HLL fold's warp 32 records and its block THREADS), so "one row
+past" lands in the next warp, CTA, block or round.
 Signal and Count-Min values are integers whose per-cell sums stay below
 2^24, where the f32 adds are exact in any order, so every case is held
 bit-exact; kernel 7's max fold is exact in any order.
@@ -24,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 
 from netobserv_tpu_torch.ops.kernels import (
-    countmin_kernel, signal_kernel, topk_kernel,
+    countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
 )
 from netobserv_tpu_torch.sketch.state import N_DROP_CAUSES as N_CAUSE
 from netobserv_tpu_torch.sketch.state import N_DSCP
@@ -262,6 +264,78 @@ def countmin_cases(w: int, seed: int = 0) -> list[tuple[str, dict]]:
                     "h2": c["h2"].astype(np.int64),
                     "va": c["va"].astype(np.float32),
                     "vb": c["vb"].astype(np.float32)})
+            for name, c in cases]
+
+
+def hll_fold_cases(dbuckets: int, m: int,
+                   seed: int = 0) -> list[tuple[str, dict]]:
+    """(name, {"regs": int32[D, m] pre-fold registers, "dst", "h1", "h2":
+    int64[B] uint32 lanes, "valid": bool[B]}) for one fold of kernels 3 and
+    8 at D x m (powers of two; D = 1 is kernel 3's fold, whose register file
+    is regs[0]). Cell (dst & (D-1)) * m + (h1 & (m-1)) takes rank
+    clz(h2) + 1 on a valid row. A case's B follows from the launch shape
+    alone, so the cases of one name at several geometries make one launch
+    of several folds. Pre-fold registers are below 6, so most hits raise
+    theirs."""
+    rng = np.random.default_rng(seed)
+    warp, block = 32, hll_kernel.THREADS
+    cells = dbuckets * m
+
+    def rows(n: int) -> dict:
+        return {"regs": rng.integers(0, 6, (dbuckets, m)),
+                "dst": rng.integers(0, 2 ** 32, n),
+                "h1": rng.integers(0, 2 ** 32, n),
+                "h2": rng.integers(0, 2 ** 32, n),
+                "valid": rng.random(n) < 0.9}
+
+    def on_cells(c: dict, cell) -> None:
+        """Keep each row's bits above the masks, with `cell` below them."""
+        hi = ~np.int64(m - 1) & (2 ** 32 - 1)
+        c["h1"] = (c["h1"] & hi) | (cell % m)
+        c["dst"] = (c["dst"] & (~np.int64(dbuckets - 1) & (2 ** 32 - 1))
+                    ) | (cell // m)
+
+    cases = [("empty", rows(0)), ("one_row", rows(1)),
+             ("warp_plus_one", rows(warp + 1)),
+             ("block_plus_one", rows(block + 1))]
+
+    hot = rows(2 * block + 5)
+    on_cells(hot, rng.integers(0, cells))
+    cases.append(("every_row_one_cell", hot))
+
+    # three cells shared by the lanes of every warp: disjoint groups of one
+    # match, each taking its own maximum; in even warps the first lane of
+    # each group (the one that makes the group's atomic) is invalid
+    groups = rows(4 * warp + 7)
+    pick = rng.integers(0, 3, len(groups["h1"]))
+    on_cells(groups, rng.choice(cells, 3, replace=False)[pick])
+    for w in range(0, len(pick), 2 * warp):
+        for g in range(3):
+            lanes = np.flatnonzero(pick[w:w + warp] == g)
+            if len(lanes):
+                groups["valid"][w + lanes[0]] = False
+    cases.append(("three_groups_a_warp", groups))
+
+    edges = rows(2 * warp + 5)
+    on_cells(edges, np.where(np.arange(len(edges["h1"])) % 2 == 0, 0,
+                             cells - 1))
+    cases.append(("first_and_last_cell", edges))
+
+    ranks = rows(block + 31)
+    h2s = np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 31 - 1, 0xFFFF])
+    ranks["h2"] = h2s[np.arange(len(ranks["h2"])) % len(h2s)]
+    cases.append(("rank_33_32_17_2_1", ranks))
+
+    dead = rows(block + 31)
+    dead["valid"][:] = False
+    cases.append(("all_rows_invalid", dead))
+
+    full = rows(block + 9)
+    full["regs"][:, ::2] = 33
+    cases.append(("half_the_registers_at_33", full))
+    return [(name, {"regs": c["regs"].astype(np.int32),
+                    **{f: c[f].astype(np.int64) for f in ("dst", "h1", "h2")},
+                    "valid": c["valid"].astype(np.bool_)})
             for name, c in cases]
 
 

@@ -9,10 +9,11 @@ Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
 
 One `ingest` call folds a fixed-shape columnar flow batch into the Count-Min
 planes (kernel 1), the persistent-slot top-K table (kernel 2), the global
-source HLL (kernel 3), the per-dst and per-src HLL grids (kernel 8), the RTT
-and DNS histograms, the signal planes (kernel 4) and the window totals. On
-CUDA tensors each of the five goes through its hand-written kernel; on CPU
-tensors through its plain PyTorch twin. Where JAX donated the state, this
+source HLL (kernel 3) and the per-dst and per-src HLL grids (kernel 8, the
+three folds in one launch of their shared body), the RTT and DNS
+histograms, the signal planes (kernel 4) and the window totals. On CUDA
+tensors each goes through its hand-written kernel; on CPU tensors through
+its plain PyTorch twin. Where JAX donated the state, this
 module updates the preallocated tensors in place: `ingest`, `decay_state`
 and `roll_window` mutate the state they are given and return it.
 
@@ -52,7 +53,9 @@ from netobserv_tpu_torch.datapath.flowpack import (
 from netobserv_tpu_torch.model.columnar import KEY_WORDS
 from netobserv_tpu_torch.model.flow import TcpFlags
 from netobserv_tpu_torch.ops import countmin, ewma, hashing, hll, quantile, topk
-from netobserv_tpu_torch.ops.kernels import countmin_kernel, signal_kernel
+from netobserv_tpu_torch.ops.kernels import (
+    countmin_kernel, hll_kernel, signal_kernel,
+)
 from netobserv_tpu_torch.sketch import tiered
 from netobserv_tpu_torch.utils.platform import pick_device
 
@@ -457,9 +460,11 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
                             pkts, valid)
         _, evicted = topk.slot_update(state.heavy, state.cm_bytes, words,
                                       h1, h2, valid, window=state.window)
-    if not _fuse_hll:  # else kernel 7 folds the packed bank below
-        hll.update(state.hll_src, src_h1, src_h2, valid)
-    hll.update_per_dst(state.hll_per_dst, dst_h1, src_h1, src_h2, valid)
+    # the HLL folds in one launch: the global-src HLL (unless kernel 7
+    # folds its packed bank below), the per-dst grid and the per-src grid
+    hll_folds = [] if _fuse_hll else [
+        (state.hll_src.regs, src_h1, src_h2, valid)]
+    hll_folds.append((state.hll_per_dst.regs, dst_h1, src_h1, src_h2, valid))
     flags = arrays.get("tcp_flags")
     if enable_fanout:
         # port-scan signal: only initiator-side flows count (a flow that
@@ -467,8 +472,9 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
         fanout_valid = valid
         if flags is not None:
             fanout_valid = valid & ((flags & TcpFlags.SYN_ACK) == 0)
-        hll.update_per_dst(state.hll_per_src, src_h1, mh.dp_h1, mh.dp_h2,
-                           fanout_valid)
+        hll_folds.append((state.hll_per_src.regs, src_h1, mh.dp_h1, mh.dp_h2,
+                          fanout_valid))
+    hll_kernel.update_folds(tuple(hll_folds))
     rtt = arrays["rtt_us"]
     dns = arrays["dns_latency_us"]
     gamma = quantile.gamma_for(state.hist_rtt.n_buckets)

@@ -4,6 +4,7 @@ CUDA and never quietly fall back to the CPU, and a kernel wrapper takes its
 plain version only for a CPU tensor, without counting a launch."""
 
 import ast
+import importlib.util
 import re
 from pathlib import Path
 
@@ -23,11 +24,11 @@ from netobserv_tpu_torch.utils.platform import pick_device
 
 ROOT = Path(__file__).resolve().parents[1]
 #: every kernel of the port: kernels 1-4, the single-plane CM fold 5, the
-#: tiered kernels 6-7 and the HLL grid fold 8
+#: tiered kernels 6-7, the HLL grid fold 8 and the HLL folds launch
 KERNELS = (countmin_kernel.KERNEL, hll_kernel.KERNEL, topk_kernel.KERNEL,
            signal_kernel.KERNEL, countmin_kernel.KERNEL_ONE,
            countmin_kernel.KERNEL_TIER2, signal_kernel.KERNEL_TIERED,
-           hll_kernel.KERNEL_GRID)
+           hll_kernel.KERNEL_GRID, hll_kernel.KERNEL_FOLDS)
 #: modules each slice added, which the import scan must reach
 SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "sketch/staging.py", "sketch/tiered.py", "sketch/state.py")
@@ -201,7 +202,7 @@ def _defining_source(mod, macros) -> str:
                        "EST_THREADS": "EST_THREADS"}),
     (signal_kernel, {"TIERED_THREADS": "TIERED_THREADS",
                      "HLL_UNROLL": "HLL_UNROLL", "TILE_R": "TILE_R"}),
-    (hll_kernel, {"threads": "THREADS"})])
+    (hll_kernel, {"HLL_THREADS": "THREADS", "HLL_MAX_FOLDS": "MAX_FOLDS"})])
 def test_launch_shapes_agree_with_their_sources(mod, macros):
     """The wrapper sizes the grid, the slot split, the launch floor and the
     contract cases from the same cluster, block and tile sizes the kernel
@@ -211,7 +212,8 @@ def test_launch_shapes_agree_with_their_sources(mod, macros):
         assert set(_defined(text, macro)) == {getattr(mod, const)}, macro
 
 
-@pytest.mark.parametrize("mod", [topk_kernel, signal_kernel, countmin_kernel])
+@pytest.mark.parametrize("mod", [topk_kernel, signal_kernel, countmin_kernel,
+                                 hll_kernel])
 def test_redesigned_wrappers_catch_nothing_around_the_launch(mod):
     tree = ast.parse(Path(mod.__file__).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -238,6 +240,44 @@ def test_topk_reduce_allocates_only_its_outputs(monkeypatch):
     assert len(seen) == 2 and seen[1][1] == [5, big]
     assert [tuple(o.shape) for o in out] == [(big,)] * 3
     assert topk_kernel.launch_shape(big).smem <= _build.SMEM_LIMIT
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_every_c_entry_has_a_chip_smoke_kernel_spec():
+    """chip_smoke.py builds, checks and times each C entry of every kernel
+    source (csrc/*.cu but the launch floor's) through its own spec and
+    launch counter: the HLL folds launch and the entries of kernels 3 and
+    8, which share its body, included."""
+    specs = _chip_smoke().kernel_specs()
+    have = {(s["kernel"].source, s["kernel"].symbol) for s in specs}
+    csrc = ROOT / "netobserv_tpu_torch" / "csrc"
+    want = {(f.name, sym) for f in sorted(csrc.glob("*.cu"))
+            if f.name != "launch_floor.cu"
+            for sym in re.findall(r'extern "C" int (\w+)\(', f.read_text())}
+    assert ("hll_fold.cu", "hll_fold_folds") in want
+    assert have == want
+    assert len(specs) == len(have)
+
+
+def test_hll_entries_launch_one_fold_body():
+    """Kernels 3 and 8 and the folds launch are one __global__, launched at
+    one place; each C entry goes through it."""
+    text = (ROOT / "netobserv_tpu_torch" / "csrc"
+            / hll_kernel.SOURCE).read_text()
+    assert text.count("__global__ void") == 1 and text.count("<<<") == 1
+    for symbol in ("hll_fold", "hll_fold_grid", "hll_fold_folds"):
+        assert "return launch(folds, " in _c_entry_body(hll_kernel.SOURCE,
+                                                        symbol)
+    assert len(hll_kernel.KERNEL_FOLDS.argtypes) == (
+        5 * hll_kernel.MAX_FOLDS + 2 + 2 * hll_kernel.MAX_FOLDS + 1)
+    assert hll_kernel.launch_shape(16384, 3) == (3 * 64, 1, 256, 0)
 
 
 def test_kernels_4_and_7_share_one_per_record_body():

@@ -33,9 +33,11 @@ from netobserv_tpu.ops import quantile as jq
 from netobserv_tpu.sketch import state as js
 from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
 from netobserv_tpu_torch.ops import quantile as tq
+from netobserv_tpu_torch.ops.kernels import hll_kernel
 from netobserv_tpu_torch.scenarios import traffic
 from netobserv_tpu_torch.sketch import carry
 from netobserv_tpu_torch.sketch import state as ts
+from netobserv_tpu_torch.sketch import tiered
 
 GEOM = dict(cm_width=2048, hll_precision=10, perdst_buckets=256,
             perdst_precision=5, persrc_buckets=256, persrc_precision=5,
@@ -190,6 +192,43 @@ def test_production_regime_within_add_order_bound():
                                        atol=0, err_msg=k)
         elif not k.startswith("heavy"):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kind,n_folds", [("wide", 3), ("fanout_off", 2),
+                                          ("tiered", 2)])
+def test_ingest_folds_every_hll_in_one_call(kind, n_folds, monkeypatch):
+    """One ingest makes one `update_folds` call (one launch on the card):
+    the global-src HLL and both grids on the wide state, the global HLL and
+    the per-dst grid with fan-out off, and the two grids on the tiered
+    state's interior form, where kernel 7 folds the packed global bank."""
+    calls = []
+    real = hll_kernel.update_folds
+
+    def spy(folds):
+        calls.append([tuple(f[0].shape) for f in folds])
+        return real(folds)
+
+    monkeypatch.setattr(hll_kernel, "update_folds", spy)
+    cfg = TCFG._replace(enable_fanout=kind != "fanout_off",
+                        tiered=tiered.TierSpec() if kind == "tiered"
+                        else None)
+    assert ts.tiered_fold_form(cfg) == ("interior" if kind == "tiered"
+                                        else None)
+    _, pool = _pool(seed=5, n_batches=1)
+    state = ts.init_state(cfg, device="cpu")
+    dense = traffic.dense_pool(pool)[0]
+    ts.ingest(state, ts.dense_to_arrays(torch.from_numpy(dense.view(
+        np.int32))), enable_fanout=cfg.enable_fanout)
+    grids = {"global": (1 << GEOM["hll_precision"],),
+             "per_dst": (GEOM["perdst_buckets"], 1 << GEOM["perdst_precision"]),
+             "per_src": (GEOM["persrc_buckets"],
+                         1 << GEOM["persrc_precision"])}
+    want = {"wide": ["global", "per_dst", "per_src"],
+            "fanout_off": ["global", "per_dst"],
+            "tiered": ["per_dst", "per_src"]}[kind]
+    assert calls == [[grids[k] for k in want]] and len(want) == n_folds
+    wide = state.rest if kind == "tiered" else state
+    assert float(wide.total_records) == float(pool[0][0]["valid"].sum())
 
 
 def test_carry_round_trip_then_fold_agrees():
