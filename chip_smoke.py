@@ -38,13 +38,14 @@ gate now sends it to the decode form: the wide path's kernels), and
 hold (now the interior form, kernel 7 fused). Each is held against the
 plain run under the whole-window bounds below.
 
-The kernels redesigned for the H100, 1 (the wide Count-Min fold,
-warp-aggregated atomics into L2), 2 (the top-K slot reduce, one
-thread-block cluster), 4 (the signal fold, warp-aggregated atomics into
-L2), 6 (the tier-interior Count-Min fold, the batch binned by tile), 7
-(kernel 4's per-record body beside packed-HLL tile blocks that test
-membership on h1 alone), and 3 and 8 with the folds launch (one
-warp-aggregated max body, up to three folds a launch), are also held
+The kernels redesigned for the H100, 1 and 5 (the wide and single-plane
+Count-Min folds, one warp-aggregated body of atomics into L2), 2 (the
+top-K slot reduce, one thread-block cluster), 4 (the signal fold,
+warp-aggregated atomics into L2), 6 (the tier-interior Count-Min fold,
+the batch binned by tile), 7 (kernel 4's per-record body beside
+packed-HLL tile blocks that test membership on h1 alone), and 3 and 8
+with the folds launch (one warp-aggregated max body, up to three folds a
+launch), are all held
 bit-exact against their plain versions on the seeded contract cases of
 `netobserv_tpu_torch/ops/kernels/cases.py` (empty and
 one-row batches, one row past a warp's, CTA's or block's share, every row
@@ -52,7 +53,7 @@ on one slot, bucket, key or HLL register, ties in different CTAs, dead
 rows, the inactive slot, table, tile and triple edges, zero values, rank
 33, hashes that wrap past 2^32, several groups of equal cells in one
 warp; kernel 2 also at a K of three slot tiles,
-kernels 1 and 6 at a width of one tile, kernel 7 at a bank of one small
+kernels 1, 5 and 6 at a width of one tile, kernel 7 at a bank of one small
 tile and at a table width of 16,384), which the CPU tests hold against the
 JAX package. For every
 kernel the kernel phase prints the launch floor: the device time of an
@@ -63,9 +64,10 @@ The HLL folds launch runs once per fold on every path (the global HLL
 and both grids on the wide and resident paths, the two grids on the
 tiered path). Kernels 3 and 8, its folds as C entries of their own, run
 on no path: the kernel phase checks each on its folds of the wide path's
-folds call. Kernel 5 (the single-plane Count-Min fold) runs on no path,
-as in the JAX package, where only its tests call it: the kernel phase
-checks it on the wide path's kernel-1 inputs, one plane. The launches of
+folds call. Kernel 5 (the single-plane Count-Min fold, kernel 1's body
+with one value row) runs on no path, as in the JAX package, where only
+its tests call it: the kernel phase checks it on the wide path's kernel-1
+inputs, one plane. The launches of
 kernels 3, 5 and 8 print as 0 on every path beside the kernel phase's own
 count.
 
@@ -102,14 +104,14 @@ sectors that this call's non-zero values reach, read once and written once
 in; for kernel 7 also the sectors of the packed triples its valid records
 reach; for kernels 3 and 8 and the folds launch the register cells of
 their valid records, each lane once however many folds read it); a fresh
-output written once. The kernel phase also prints kernel 5's atomic count and
-the most atomics that land on one address; kernel 1's as its design
-makes them, one per distinct (warp, cell) of each plane's non-zero
-values, beside one per (record, row) as kernel 5's design makes them;
-kernel 6's bin sizes (the entries the hottest tile's block walks); and
-the device time of kernels 1, 2, 4, 6 and 7 with the hot key spread out
-(uniform keys), and of kernels 3 and 8 and the folds launch with random
-hash lanes.
+output written once. The kernel phase also prints the atomic count of
+kernels 1 and 5 and the most atomics that land on one address as their
+design makes them, one per distinct (warp, cell) of each plane's non-zero
+values, beside one per (record, row) as a design without warp
+aggregation makes them; kernel 6's bin sizes (the entries the hottest
+tile's block walks); and the device time of kernels 1, 2, 4, 5, 6 and 7
+with the hot key spread out (uniform keys), and of kernels 3 and 8 and
+the folds launch with random hash lanes.
 Kernel 5's library yardstick is `index_add_` on one plane; kernels 3 and
 8's `scatter_reduce_` ("amax") on the flat register file, the folds
 launch's one `scatter_reduce_` over its register files end to end.
@@ -184,10 +186,10 @@ REPS = 50
 #: phase
 REDESIGNED = ("topk_reduce", "signal_fold", "countmin_fold2",
               "countmin_tier2", "signal_fold_tiered", "hll_fold",
-              "hll_fold_grid", "hll_fold_folds")
+              "hll_fold_grid", "hll_fold_folds", "countmin_fold")
 #: folds of each tiered shape of the C1 phase
 C1_FOLDS = 4
-#: threads of a warp, for kernel 1's count of warp-aggregated atomics
+#: threads of a warp, for the count of warp-aggregated atomics
 WARP = 32
 #: the empty kernel of the launch floor
 FLOOR_SOURCE = "launch_floor.cu"
@@ -365,8 +367,9 @@ def kernel_specs():
                                 a[2][:, :n].contiguous()),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:164"),
-        # no path of the JAX package runs kernel 5: it is checked on the
-        # wide path's kernel-1 inputs (table, h1, h2, bytes values)
+        # no path of the JAX package runs kernel 5 (kernel 1's body with
+        # one value row): it is checked on the wide path's kernel-1 inputs
+        # (table, h1, h2, bytes values)
         dict(name="countmin_fold", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL_ONE, path="wide", per_fold={},
              derive=("countmin_fold2", lambda a: [(a[0], a[2], a[3], a[4])]),
@@ -822,6 +825,31 @@ def _signal_bytes_ops(planes, idx, vals) -> tuple[int, int]:
     return nbytes, int((vals != 0).sum())
 
 
+def _cm_atomics(cells, values, size: int) -> dict:
+    """The atomics of kernels 1 and 5 as their design makes them, for the
+    cells r * W + col [d, n] of a call and each plane's values [n]: thread
+    t = r * n + b sits in warp t // 32, and the leader of each distinct
+    (warp, cell) with a non-zero value makes one atomic a plane. Beside
+    them, one per (record, row) of a non-zero value, as a design without
+    warp aggregation makes them."""
+    import torch
+    d, n = cells.shape
+    warp = (torch.arange(d, device=cells.device)[:, None] * n
+            + torch.arange(n, device=cells.device)) // WARP
+    hits = [cells[:, v != 0].reshape(-1) for v in values]
+    groups = [torch.unique(warp[:, v != 0] * size + cells[:, v != 0]) % size
+              for v in values]
+
+    def most(cs):
+        return max((int(torch.bincount(c).max()) for c in cs if c.numel()),
+                   default=0)
+
+    return {"atomics": sum(g.numel() for g in groups),
+            "max_atomics_one_address": most(groups),
+            "atomics_one_per_row": sum(c.numel() for c in hits),
+            "max_atomics_one_address_one_per_row": most(hits)}
+
+
 def bound_of(spec, args) -> dict:
     """Least time the card could take for this call: the larger of the
     bytes it must move over HBM bandwidth and its f32 operations over the
@@ -835,40 +863,18 @@ def bound_of(spec, args) -> dict:
 
     name = spec["name"]
     extra = {}
-    if name == "countmin_fold2":
-        ca, cb, h1, h2, va, vb = args
-        d, w = ca.shape
+    if name in ("countmin_fold2", "countmin_fold"):
+        # kernel 1 (ca, cb, h1, h2, va, vb) or kernel 5 (counts, h1, h2, vals)
+        planes = 2 if name == "countmin_fold2" else 1
+        h1, h2 = args[planes:planes + 2]
+        values = args[planes + 2:]
+        d, w = args[0].shape
         cells = (hashing.row_indices(h1, h2, d, w)
                  + torch.arange(d, device=h1.device)[:, None] * w)
-        hits = [cells[:, v != 0].reshape(-1) for v in (va, vb)]
-        nbytes = read(args[2:]) + sum(_sector_bytes(c) for c in hits)
+        hits = [cells[:, v != 0].reshape(-1) for v in values]
+        nbytes = read(args[planes:]) + sum(_sector_bytes(c) for c in hits)
         ops = sum(c.numel() for c in hits)  # one f32 add per (record, row)
-        # the kernel's thread t = r * n + b, its warp t // 32: the leader of
-        # each distinct (warp, cell) with a non-zero value makes one atomic
-        n = h1.numel()
-        warp = (torch.arange(d, device=h1.device)[:, None] * n
-                + torch.arange(n, device=h1.device)) // WARP
-        groups = [torch.unique(warp[:, v != 0] * (d * w) + cells[:, v != 0])
-                  % (d * w) for v in (va, vb)]
-        extra = {"atomics": sum(g.numel() for g in groups),
-                 "max_atomics_one_address": max(
-                     (int(torch.bincount(g).max()) for g in groups
-                      if g.numel()), default=0),
-                 "atomics_one_per_row": ops,
-                 "max_atomics_one_address_one_per_row": max(
-                     (int(torch.bincount(c).max()) for c in hits
-                      if c.numel()), default=0)}
-    elif name == "countmin_fold":
-        counts, h1, h2, vals = args
-        d, w = counts.shape
-        cells = (hashing.row_indices(h1, h2, d, w)
-                 + torch.arange(d, device=h1.device)[:, None] * w)
-        hits = cells[:, vals != 0].reshape(-1)
-        nbytes = read(args[1:]) + _sector_bytes(hits)
-        ops = hits.numel()  # one f32 add per atomic
-        extra = {"atomics": ops,
-                 "max_atomics_one_address": int(torch.bincount(hits).max())
-                 if ops else 0}
+        extra = _cm_atomics(cells, values, d * w)
     elif name == "countmin_tier2":
         pa, pb, h1, h2, va, vb, tspec = args
         d, w = pa.base.shape
@@ -932,7 +938,7 @@ def bound_of(spec, args) -> dict:
 
 def uniform_variant(spec, args):
     """The same call with the hot key spread out: random hashes (kernels 1,
-    3, 6 and 8, and the HLL folds launch), random slots (kernel 2) or
+    3, 5, 6 and 8, and the HLL folds launch), random slots (kernel 2) or
     random indices in every table (kernel 4; kernel 7 also random HLL
     registers), to price same-address atomics."""
     import torch
@@ -966,12 +972,13 @@ def uniform_variant(spec, args):
         h1 = torch.randint(0, 2**32, idx.shape[1:], generator=g,
                            device=idx.device, dtype=torch.int64)
         return (planes, args[1], uni, args[3], h1, *args[5:])
-    if spec["name"] in ("countmin_fold2", "countmin_tier2"):
-        h1 = args[2]
+    if spec["name"] in ("countmin_fold2", "countmin_tier2", "countmin_fold"):
+        lanes = 1 if spec["name"] == "countmin_fold" else 2  # tables first
+        h1 = args[lanes]
         g = torch.Generator(device=h1.device).manual_seed(1)
         r = lambda: torch.randint(0, 2**32, h1.shape, generator=g,  # noqa
                                   device=h1.device, dtype=torch.int64)
-        return (*args[:2], r(), r() | 1, *args[4:])
+        return (*args[:lanes], r(), r() | 1, *args[lanes + 2:])
     mslot, target, est, k = args
     g = torch.Generator(device=mslot.device).manual_seed(1)
     r = lambda: torch.randint(0, k + 1, mslot.shape, generator=g,  # noqa
@@ -986,12 +993,12 @@ def contract_cases(spec, args) -> list[dict]:
     at K = 128, the path's K and a K of three slot tiles, kernel 4 at the
     path's m onto tables of small integers, kernel 7 the same with the
     path's bank and one of 64 registers (one tile of 16 triples), the
-    last case at m = 16,384, kernels 1 and 6 at a width of
-    one tile and the path's width (kernel 1 onto tables of small integers,
-    kernel 6 onto `cases.tier_planes` under the path's TierSpec), kernels 3
-    and 8 and the folds launch at the path's geometry of each fold and at
-    a small one (64 registers, a 32 x 16 grid), from the cases' pre-fold
-    registers."""
+    last case at m = 16,384, kernels 1, 5 and 6 at a width of one tile and
+    the path's width (kernels 1 and 5 onto tables of small integers, kernel
+    5 with `va` as its one value row, kernel 6 onto `cases.tier_planes`
+    under the path's TierSpec), kernels 3 and 8 and the folds launch at the
+    path's geometry of each fold and at a small one (64 registers, a 32 x
+    16 grid), from the cases' pre-fold registers."""
     import numpy as np
     import torch
     from netobserv_tpu_torch.ops.kernels import (
@@ -1002,14 +1009,15 @@ def contract_cases(spec, args) -> list[dict]:
         return hll_contract_cases(spec, args)
     dev = args[2].device  # the path's device: est of kernel 2, h1 or vals
     out = []
-    if spec["name"] in ("countmin_fold2", "countmin_tier2"):
+    if spec["name"].startswith("countmin"):
         tier = spec["name"] == "countmin_tier2"
+        planes = 1 if spec["name"] == "countmin_fold" else 2
         d, w = args[0].base.shape if tier else args[0].shape
         rng = np.random.default_rng(3)
         for width in (countmin_kernel.TILE_W, w):
             for name, c in cases.countmin_cases(width):
                 batch = [torch.from_numpy(c[f]).to(dev)
-                         for f in ("h1", "h2", "va", "vb")]
+                         for f in ("h1", "h2", "va", "vb")[:2 + planes]]
                 if tier:
                     tspec = args[6]
                     a = (*(tiered.TieredPlane(*(torch.from_numpy(x).to(dev)
@@ -1020,7 +1028,7 @@ def contract_cases(spec, args) -> list[dict]:
                 else:
                     a = (*(torch.from_numpy(rng.integers(0, 50, (
                         d, width)).astype(np.float32)).to(dev)
-                        for _ in range(2)), *batch)
+                        for _ in range(planes)), *batch)
                 r = compare(spec, a, "integer")
                 out.append({"case": name, "w": width, "rows": len(c["va"]),
                             "max_abs_err": r["max_abs_err"]})

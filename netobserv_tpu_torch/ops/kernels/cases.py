@@ -1,19 +1,20 @@
 """Seeded edge cases of the contracts of kernel 2 (the top-K slot reduce),
 kernels 4 and 7 (the signal fold, and its tiered form with the packed
-global HLL bank), kernels 1 and 6 (the wide and the tier-interior
-Count-Min folds) and kernels 3 and 8 (the HLL max folds), as numpy arrays.
+global HLL bank), kernels 1, 5 and 6 (the wide, the single-plane and the
+tier-interior Count-Min folds) and kernels 3 and 8 (the HLL max folds), as
+numpy arrays.
 
 The CPU tests hold the plain twins against the JAX package on these cases
 (`tests/test_torch_topk.py`, `tests/test_torch_signal.py`,
-`tests/test_torch_countmin.py`, `tests/test_torch_tiered.py`,
-`tests/test_torch_hll.py`), and
+`tests/test_torch_countmin.py`, `tests/test_torch_grid_kernels.py`,
+`tests/test_torch_tiered.py`, `tests/test_torch_hll.py`), and
 `chip_smoke.py` holds the CUDA kernels against the plain twins on the same
 cases. Each case is named after the edge it covers; the sizes follow the
 kernels' launch shapes (a top-K CTA's pass is THREADS rows, a cluster's
 pass CLUSTER * THREADS; a signal block's THREADS rows, a kernel-7 block's
 TIERED_THREADS and an HLL block's round TIERED_THREADS * HLL_UNROLL; a
-Count-Min warp 32 records, a kernel-1 block and a kernel-6 count or
-scatter block 256, a kernel-6 fold block's round TIER2_THREADS bin
+Count-Min warp 32 records, a kernel-1 or kernel-5 block and a kernel-6
+count or scatter block 256, a kernel-6 fold block's round TIER2_THREADS bin
 entries, an HLL fold's warp 32 records and its block THREADS), so "one row
 past" lands in the next warp, CTA, block or round.
 Signal and Count-Min values are integers whose per-cell sums stay below
@@ -210,9 +211,10 @@ def tiered_signal_cases(m: int, m_hll: int,
 
 def countmin_cases(w: int, seed: int = 0) -> list[tuple[str, dict]]:
     """(name, {"h1", "h2": int64[B] uint32 lanes, "va", "vb": f32[B]
-    masked values}) for kernels 1 and 6 at width w (a power of two and a
-    multiple of TILE_W) and any depth up to 8. Columns are
-    (h1 + r * h2) & (w - 1) in uint32 arithmetic."""
+    masked values}) for kernels 1 and 6, and kernel 5 with `va` as its
+    value row, at width w (a power of two and a multiple of TILE_W) and
+    any depth up to 8. Columns are (h1 + r * h2) & (w - 1) in uint32
+    arithmetic."""
     rng = np.random.default_rng(seed)
     warp = 32
     block = max(countmin_kernel.THREADS, countmin_kernel.BIN_THREADS)

@@ -1,24 +1,26 @@
-"""Kernels 1, 5 and 6: the dual-plane Count-Min fold, wide
-(`csrc/countmin_fold2.cu`) and tier-interior (`csrc/countmin_tier2.cu`), and
-the single-plane fold (`csrc/countmin_fold.cu`).
+"""Kernels 1, 5 and 6: the dual-plane Count-Min fold (kernel 1) and the
+single-plane fold (kernel 5), one body behind two C entries
+(`csrc/countmin_fold2.cu`), and the tier-interior fold (kernel 6,
+`csrc/countmin_tier2.cu`).
 
 Kernel 1 replaces the Pallas kernel `netobserv_tpu/ops/pallas/countmin_kernel.py`
 `update_two`. Both planes (bytes, packets) take the same row indices, so one
 launch folds both. On this card L2 atomic throughput bounds the fold, and a
 hot key's rows serialize on its d cells. One thread per (row, record),
 row-major, so a warp holds 32 records of one row: the lanes with the same
-cell sum their values and one lane makes the two atomicAdds (see the source
+cell sum their values and one lane makes the atomicAdds (see the source
 note). No one-hot tiling.
 
-`update_two` is the wrapper: a CUDA tensor launches the kernel, a CPU tensor
-takes `update_two_plain`, the same function written with `index_add_`. The
-fold is in place on the counter planes (JAX donated them).
+Kernel 5 replaces the Pallas kernel `update` (`_fold_kernel`): the same
+body with one value row (C entry `cm_fold`; kernel 1's is `cm_fold2`).
+No path of the JAX package runs it (only its tests do), so no path of the
+port does either: `ops/countmin.update` reaches it.
 
-Kernel 5 replaces the Pallas kernel `update` (`_fold_kernel`): one value
-row, one thread per (record, depth row), record-major, and one atomicAdd
-each, with no warp aggregation. `update` is its wrapper and `update_plain`
-its twin. No path of the JAX package runs it (only its tests do), so no
-path of the port does either: `ops/countmin.update` reaches it.
+`update_two` and `update` are the wrappers: a CUDA tensor launches the
+kernel, a CPU tensor takes `update_two_plain` or `update_plain`, the same
+function written with `index_add_`. The fold is in place on the counter
+planes (JAX donated them). Both launch only where `fold_fits`: the
+kernel's cell and thread indices are 32-bit.
 
 Kernel 6 replaces the Pallas kernel `update_two_tiered` (`_tier2_kernel`
 with `tier_tiles.py`): it folds both planes straight into their resident
@@ -48,12 +50,11 @@ from netobserv_tpu_torch.ops.kernels._build import (
 
 SOURCE = "countmin_fold2.cu"
 KERNEL = CudaKernel(SOURCE, "cm_fold2", n_ptrs=6, n_ints=3)
-SOURCE_ONE = "countmin_fold.cu"
-KERNEL_ONE = CudaKernel(SOURCE_ONE, "cm_fold", n_ptrs=4, n_ints=3)
+KERNEL_ONE = CudaKernel(SOURCE, "cm_fold", n_ptrs=4, n_ints=3)
 SOURCE_TIER2 = "countmin_tier2.cu"
 KERNEL_TIER2 = CudaKernel(SOURCE_TIER2, "cm_tier2", n_ptrs=14, n_ints=7)
 #: threads per block of kernels 1 and 5, one per (row, record) pair
-#: (CM2_THREADS of countmin_fold2.cu; countmin_fold.cu's `threads`)
+#: (CM2_THREADS of countmin_fold2.cu)
 THREADS = 256
 #: columns per kernel-6 fold block: a tile holds whole top groups
 TILE_W = 512
@@ -72,6 +73,19 @@ def launch_shape(n: int, d: int) -> LaunchShape:
     """Kernel 1's grid (and kernel 5's) for B = n records and d rows: one
     thread per (row, record) pair in blocks of THREADS."""
     return LaunchShape(max(1, -(-n * d // THREADS)), 1, THREADS, 0)
+
+
+def fold_fits(d: int, w: int, n: int) -> bool:
+    """Whether kernels 1 and 5 can fold n records into d x w planes: their
+    int32 cell index r * W + col and thread index r * n + b cannot
+    overflow. Both wrappers raise on a CUDA tensor where it is false."""
+    return d * max(w, n) < 2 ** 31
+
+
+def _refuse_unfit(d: int, w: int, n: int) -> None:
+    if not fold_fits(d, w, n):
+        raise ValueError(f"depth {d} x {max(w, n)}: the kernel's int32 cell "
+                         "and thread indices would overflow")
 
 
 def tier2_smem(d: int, mid_group: int, top_group: int) -> int:
@@ -127,6 +141,7 @@ def update(counts: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
     if w & (w - 1):
         raise ValueError("width must be a power of two")
     n = h1.shape[0]
+    _refuse_unfit(d, w, n)
     dev = counts.device
     check(counts, "counts", torch.float32, (d, w), dev)
     check(h1, "h1", torch.int64, (n,), dev)
@@ -159,9 +174,7 @@ def update_two(counts_a: torch.Tensor, counts_b: torch.Tensor,
     if w & (w - 1):
         raise ValueError("width must be a power of two")
     n = h1.shape[0]
-    if d * max(w, n) >= 2 ** 31:
-        raise ValueError(f"depth {d} x {max(w, n)}: the kernel's int32 cell "
-                         "and thread indices would overflow")
+    _refuse_unfit(d, w, n)
     dev = counts_a.device
     check(counts_a, "counts_a", torch.float32, (d, w), dev)
     check(counts_b, "counts_b", torch.float32, (d, w), dev)

@@ -141,3 +141,42 @@ def test_update_two_bit_exact_vs_jax_on_contract_cases(name, w):
         np.testing.assert_array_equal(
             ta.numpy()[np.arange(D), cols] - init[0][np.arange(D), cols],
             np.full(D, c["va"].sum()))
+
+
+#: (d, w, n) about d * max(w, n) = 2^31, on either side of it
+FIT_SHAPES = [(4, 1 << 16, 16384), (4, 1 << 28, 16384), (4, 1 << 29, 16384),
+              (4, 1 << 16, (1 << 29) - 1), (4, 1 << 16, 1 << 29),
+              (1, 1 << 30, (1 << 31) - 1), (1, 1 << 31, 1),
+              (3, 1 << 28, 715827882), (3, 1 << 28, 715827883),
+              (3, 1 << 29, 64)]
+
+
+@pytest.mark.parametrize("d,w,n", FIT_SHAPES)
+def test_fold_fits_agrees_with_the_wrappers(monkeypatch, d, w, n):
+    """On the CUDA branch (`on_cuda` patched, launches recorded) kernels 1
+    and 5's wrappers raise exactly where `fold_fits` is false, before any
+    launch, and launch once where it is true. Meta tensors: d * n = 2^31
+    costs no memory."""
+    seen = []
+    monkeypatch.setattr(tcmk, "on_cuda", lambda t: True)
+    monkeypatch.setattr(tcmk, "check", lambda *a: None)
+    for k in (tcmk.KERNEL, tcmk.KERNEL_ONE):
+        monkeypatch.setattr(k, "launch", lambda ptrs, ints, dev, _k=k:
+                            seen.append((_k.symbol, ints)))
+    table = torch.empty((d, w), device="meta")
+    lane = torch.empty((n,), dtype=torch.int64, device="meta")
+    vals = torch.empty((n,), device="meta")
+    calls = {"cm_fold2": lambda: tcmk.update_two(table, table, lane, lane,
+                                                 vals, vals),
+             "cm_fold": lambda: tcmk.update(table, lane, lane, vals)}
+    fits = tcmk.fold_fits(d, w, n)
+    assert fits == (d * max(w, n) < 2 ** 31)
+    for symbol, call in calls.items():
+        if fits:
+            call()
+            assert seen[-1] == (symbol, [n, d, w])
+        else:
+            with pytest.raises(ValueError, match="int32 cell and thread "
+                                                 "indices would overflow"):
+                call()
+    assert len(seen) == (2 if fits else 0)

@@ -10,8 +10,10 @@ twins, against the JAX package.
   update`, reached through `ops/countmin.update`), against the reference's
   `countmin.update` and its Pallas `countmin_kernel.update` in interpret
   mode, on the schedules of `tests/test_pallas_kernels.py`'s Count-Min
-  tests. The masses are integers whose per-cell sums stay below 2^24, so
-  add order cannot change a bit: bit-exact."""
+  tests, and on the seeded contract cases of `ops/kernels/cases.py` at
+  widths TILE_W and 4,096 (`va` as the value row). The masses are integers
+  whose per-cell sums stay below 2^24, so add order cannot change a bit:
+  bit-exact."""
 
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from netobserv_tpu.ops.pallas import countmin_kernel as jck
 from netobserv_tpu.ops.pallas import hll_kernel as jhk
 from netobserv_tpu_torch.ops import countmin as tcm
 from netobserv_tpu_torch.ops import hll as thll
+from netobserv_tpu_torch.ops.kernels import cases
 from netobserv_tpu_torch.ops.kernels import countmin_kernel as tck
 from netobserv_tpu_torch.ops.kernels import hll_kernel as thk
 
@@ -128,3 +131,36 @@ def test_single_plane_twin_equals_one_plane_of_the_dual_fold():
     tck.update_two_plain(a, b, _t(h1), _t(h2), v, 2 * v)
     np.testing.assert_array_equal(one.numpy(), a.numpy())
     np.testing.assert_array_equal(2 * one.numpy(), b.numpy())
+
+
+CASE_NAMES = [name for name, _ in cases.countmin_cases(tck.TILE_W)]
+
+
+@pytest.mark.parametrize("w", [tck.TILE_W, 4096])
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_single_plane_twin_bit_exact_vs_jax_on_contract_cases(name, w):
+    """Kernel 5's plain twin (the wrapper on CPU tensors), `va` as its one
+    value row, onto a table of small integers, against the JAX scatter
+    form and, for B > 0, the Pallas kernel in interpret mode (whose chunk
+    walk cannot take an empty batch): the contract cases `chip_smoke.py`
+    holds the kernel to on the card."""
+    c = dict(cases.countmin_cases(w))[name]
+    d = 4
+    init = np.random.default_rng(6).integers(0, 50, (d, w)).astype(
+        np.float32)
+    port = torch.from_numpy(init.copy())
+    tck.update(port, *(torch.from_numpy(c[f]) for f in ("h1", "h2", "va")))
+    h1, h2 = (jnp.asarray(c[f].astype(np.uint32)) for f in ("h1", "h2"))
+    jargs = (jcm.CountMin(jnp.asarray(init)), h1, h2, jnp.asarray(c["va"]),
+             jnp.ones(len(c["va"]), bool))
+    refs = [jcm.update(*jargs)]
+    if len(c["va"]):
+        refs.append(jck.update(*jargs, interpret=True))
+    assert float(refs[0].counts.max()) < 2 ** 24
+    for ref in refs:
+        np.testing.assert_array_equal(port.numpy(), np.asarray(ref.counts))
+    if name == "every_row_one_key":
+        cols = (c["h1"][0] + np.arange(d)) % w
+        np.testing.assert_array_equal(
+            port.numpy()[np.arange(d), cols] - init[np.arange(d), cols],
+            np.full(d, c["va"].sum()))

@@ -154,6 +154,7 @@ def _c_entry_body(source: str, symbol: str) -> str:
 @pytest.mark.parametrize("source,symbol", [("topk_reduce.cu", "topk_reduce"),
                                            ("signal_fold.cu", "signal_fold"),
                                            ("countmin_fold2.cu", "cm_fold2"),
+                                           ("countmin_fold2.cu", "cm_fold"),
                                            ("signal_fold_tiered.cu",
                                             "signal_fold_tiered")])
 def test_redesigned_kernels_make_one_launch_per_call(source, symbol):
@@ -280,6 +281,25 @@ def test_hll_entries_launch_one_fold_body():
     assert hll_kernel.launch_shape(16384, 3) == (3 * 64, 1, 256, 0)
 
 
+def test_countmin_entries_launch_one_fold_body():
+    """Kernels 1 and 5 are one __global__ template on the number of planes,
+    in one source: `cm_fold2` launches it with two planes and `cm_fold`
+    with one, each once. The single-plane source of its own is gone."""
+    csrc = ROOT / "netobserv_tpu_torch" / "csrc"
+    assert not (csrc / "countmin_fold.cu").exists()
+    text = (csrc / countmin_kernel.SOURCE).read_text()
+    assert text.count("__global__ void") == 1
+    assert "template <int NP>\n__global__ void cm_fold2_kernel(" in text
+    for symbol, planes in (("cm_fold2", 2), ("cm_fold", 1)):
+        body = _c_entry_body(countmin_kernel.SOURCE, symbol)
+        assert body.count("<<<") == 1
+        assert f"cm_fold2_kernel<{planes}><<<" in body, symbol
+    assert countmin_kernel.KERNEL.source == countmin_kernel.SOURCE
+    assert countmin_kernel.KERNEL_ONE.source == countmin_kernel.SOURCE
+    assert (countmin_kernel.KERNEL.symbol,
+            countmin_kernel.KERNEL_ONE.symbol) == ("cm_fold2", "cm_fold")
+
+
 def test_kernels_4_and_7_share_one_per_record_body():
     """Kernel 7's first table body (a private shared-memory copy of the
     tables, `signal_body.cuh`) is gone; kernels 4 and 7 both fold through
@@ -354,11 +374,21 @@ def test_kernel6_allocates_only_q_est_counts_and_entries(monkeypatch, w):
 
 
 def test_countmin_launch_shapes():
-    """Kernel 1: one thread per (row, record); kernel 6: count and scatter
-    one thread per record, one fold block per tile, est one thread per
-    record."""
+    """Kernels 1 and 5: one thread per (row, record); kernel 6: count and
+    scatter one thread per record, one fold block per tile, est one thread
+    per record."""
     assert countmin_kernel.launch_shape(16384, 4) == (256, 1, 256, 0)
     assert countmin_kernel.launch_shape(0, 4) == (1, 1, 256, 0)
+    # kernel 5 at the wide path's kernel-1 inputs, as chip_smoke.py's
+    # launch floor takes its grid
+    spec = next(s for s in _chip_smoke().kernel_specs()
+                if s["name"] == "countmin_fold")
+    meta = {"device": "meta"}
+    args = (torch.empty((4, 65536), **meta),
+            *(torch.empty(16384, dtype=torch.int64, **meta) for _ in "12"),
+            torch.empty(16384, **meta))
+    assert _chip_smoke().launch_shapes(spec, args) == ([(256, 1, 256, 0)],
+                                                       0)
     count, scatter, fold, est = countmin_kernel.launch_shapes_tier2(
         16384, 4, 65536, 32, 256)
     assert count == (64, 1, 256, 4 * 128)
