@@ -35,8 +35,11 @@ that the tier gates once sent to a kernel that could not launch them:
 `cm_depth=25`, whose kernel-6 tile passes one block's shared memory (the
 gate now sends it to the decode form: the wide path's kernels), and
 `ewma_buckets=16384`, past the table width kernel 7's first design could
-hold (now the interior form, kernel 7 fused). Each is held against the
-plain run under the whole-window bounds below.
+hold (now the interior form, kernel 7 fused). A third tiered shape,
+`cm_depth=6`, has a kernel-6 fold tile of 57,312 B, past the 48 KiB a
+launch gets without the function's shared-memory attribute: kernel 6
+sets it at every launch, so the captured run sets it inside the capture.
+Each is held against the plain run under the whole-window bounds below.
 
 The kernels redesigned for the H100, 1 and 5 (the wide and single-plane
 Count-Min folds, one warp-aggregated body of atomics into L2), 2 (the
@@ -71,13 +74,40 @@ inputs, one plane. The launches of
 kernels 3, 5 and 8 print as 0 on every path beside the kernel phase's own
 count.
 
+The resident path packs with the native packer (`csrc/flowpack.cc`, host
+C++ built with g++ at first use), the exporter's default. A phase before
+the paths (`native_pack`) holds it against the Python packer on the first
+window's batches as flow events: the same regions word for word, the
+same rows consumed and the same dictionary count, chunk by chunk; it
+times both.
+
+Every path runs as the exporter runs on CUDA by default: each fold
+replays a CUDA graph captured at the feed's first fold
+(`sketch/capture.py`), and captured again only if what it is bound to
+changed (a retrace). Each path, and each C1 shape, runs three times over
+the same batches: captured, eager with the kernels (`capture=False`: the
+fold op by op) and eager with the plain versions. The captured run's
+tables are held against both under the whole-window bounds below (kernel
+against plain, captured against eager), its launch counts (a replay adds
+the launches its capture recorded; the capture's warm-up fold, on clones,
+counts as one fold more) against the path's launches per fold, and its
+compile watch (`utils/retrace`) must show one capture per graph, a call
+per fold and no retrace; the `retrace_watch` phase prints the watch's
+snapshot of each captured exporter, taken while it lived, and fails on
+any retrace. The first window of a captured run holds its capture's
+seconds; the second is steady state. The profile phases trace 8
+folds of each path, captured and eager, check that the trace counts each
+kernel of the path as often as its launch count says, and print wall and
+device ms per fold, the device's busy share and, for the resident path,
+the pack seconds per fold (the `per_fold` line sums them up).
+
 Each path checks heavy-hitter recall against the exact oracle and is rerun
 with the plain versions on the card to compare the tables; on the kernel
-run no plain version may run at all. Every phase prints one JSON line. Any
+runs no plain version may run at all. Every phase prints one JSON line. Any
 failure prints the phase's error and exits non-zero, with no "ok" line.
 The last line on success is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Nothing is cut for time: the whole run takes about 80 s of command time on
+Nothing is cut for time: the whole run takes about 70 s of command time on
 an H100.
 
 Times. One helper (`measure`) times a kernel, its plain version and the
@@ -200,6 +230,11 @@ FLOOR_SOURCE = "launch_floor.cu"
 PROFILE_TRIES = 5
 #: traces retried
 PROFILE_RETRIED: list = []
+#: compile-watch stats of every captured exporter of the run
+WATCHED: list = []
+#: the runs of a path: CUDA graphs replayed, the fold op by op with the
+#: kernels, the fold op by op with the plain versions
+MODES = ("captured", "eager", "plain")
 
 
 def emit(obj: dict) -> None:
@@ -218,22 +253,12 @@ def check(cond: bool, msg: str) -> None:
 # --------------------------------------------------------------- helpers
 
 
-def _clone(x, memo: dict | None = None):
+def _clone(x):
     """A copy of every tensor in x (nested tuples, named or not). A tensor
     that x holds twice (a lane that several HLL folds read) is copied once
     and stays shared, as in the call it was captured from."""
-    import torch
-    memo = {} if memo is None else memo
-    if isinstance(x, torch.Tensor):
-        key = (x.data_ptr(), x.dtype, tuple(x.shape), x.stride())
-        if key not in memo:
-            memo[key] = x.clone()
-        return memo[key]
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_clone(v, memo) for v in x))
-    if isinstance(x, tuple):
-        return tuple(_clone(v, memo) for v in x)
-    return x
+    from netobserv_tpu_torch.sketch.capture import clone
+    return clone(x)
 
 
 def _tensors(x) -> list:
@@ -329,7 +354,9 @@ def kernel_specs():
     arguments it updates in place (indices, or a function of the arguments
     giving the tensors; and their `state_tables` names, for the f32 sums),
     how to cut its inputs to n rows, whether its result is exact in any
-    order, and the Pallas kernel it replaces."""
+    order, the Pallas kernel it replaces, and how a trace names its
+    `__global__` (`trace`: demangled or mangled; the HLL entries share
+    one, and kernel 6's C call counts by its fold kernel)."""
     from netobserv_tpu_torch.ops.kernels import (
         countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
     )
@@ -340,20 +367,22 @@ def kernel_specs():
     return [
         dict(name="countmin_fold2", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL, path="wide", per_fold=flat_paths,
+             trace=("cm_fold2_kernel<2>", "cm_fold2_kernelILi2E"),
              wrapper="update_two", plain="update_two_plain", inplace=(0, 1),
              tables=("cm_bytes", "cm_pkts"),
              rows=lambda a, n: (a[0], a[1], *(t[:n] for t in a[2:])),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:81"),
         dict(name="topk_reduce", mod=topk_kernel, kernel=topk_kernel.KERNEL,
-             path="wide", per_fold=every_path, wrapper="reduce",
+             path="wide", per_fold=every_path, trace=("topk_reduce_kernel",),
+             wrapper="reduce",
              plain="reduce_plain", inplace=(),
              rows=lambda a, n: (*(t[:n] for t in a[:3]), a[3]), exact=True,
              replaces="netobserv_tpu/ops/pallas/topk_kernel.py:82"),
         # kernels 3 and 8 run on every path inside the folds launch below;
         # each is checked on its fold of the wide path's folds call
         dict(name="hll_fold", mod=hll_kernel, kernel=hll_kernel.KERNEL,
-             path="wide", per_fold={},
+             path="wide", per_fold={}, trace=("hll_fold_kernel",),
              derive=("hll_fold_folds",
                      lambda a: [f for f in a[0] if len(f) == 4]),
              wrapper="update", plain="update_plain", inplace=(0,),
@@ -361,6 +390,7 @@ def kernel_specs():
              replaces="netobserv_tpu/ops/pallas/hll_kernel.py:70"),
         dict(name="signal_fold", mod=signal_kernel,
              kernel=signal_kernel.KERNEL, path="wide", per_fold=flat_paths,
+             trace=("signal_fold_kernel",),
              wrapper="update", plain="update_plain", inplace=(0,),
              tables=sig_tables,
              rows=lambda a, n: (a[0], a[1][:, :n].contiguous(),
@@ -372,6 +402,7 @@ def kernel_specs():
         # (table, h1, h2, bytes values)
         dict(name="countmin_fold", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL_ONE, path="wide", per_fold={},
+             trace=("cm_fold2_kernel<1>", "cm_fold2_kernelILi1E"),
              derive=("countmin_fold2", lambda a: [(a[0], a[2], a[3], a[4])]),
              wrapper="update", plain="update_plain", inplace=(0,),
              tables=("cm_bytes",),
@@ -380,7 +411,7 @@ def kernel_specs():
              replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:266"),
         dict(name="countmin_tier2", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL_TIER2, path="tiered",
-             per_fold={"tiered": 1},
+             per_fold={"tiered": 1}, trace=("cm_tier2_kernel",),
              wrapper="update_two_tiered", plain="update_two_tiered_plain",
              inplace=(0, 1), tables=("cm_bytes", "cm_pkts"),
              rows=lambda a, n: (a[0], a[1], *(t[:n] for t in a[2:6]), a[6]),
@@ -390,7 +421,7 @@ def kernel_specs():
              replaces="netobserv_tpu/ops/pallas/countmin_kernel.py:199"),
         dict(name="signal_fold_tiered", mod=signal_kernel,
              kernel=signal_kernel.KERNEL_TIERED, path="tiered",
-             per_fold={"tiered": 1},
+             per_fold={"tiered": 1}, trace=("signal_fold_tiered_kernel",),
              wrapper="update_tiered", plain="update_tiered_plain",
              inplace=(0, 1), tables=sig_tables,
              rows=lambda a, n: (a[0], a[1], a[2][:, :n].contiguous(),
@@ -402,6 +433,7 @@ def kernel_specs():
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:214"),
         dict(name="hll_fold_grid", mod=hll_kernel,
              kernel=hll_kernel.KERNEL_GRID, path="wide", per_fold={},
+             trace=("hll_fold_kernel",),
              derive=("hll_fold_folds",
                      lambda a: [f for f in a[0] if len(f) == 5]),
              wrapper="update_per_dst", plain="update_per_dst_plain",
@@ -412,6 +444,7 @@ def kernel_specs():
         dict(name="hll_fold_folds", mod=hll_kernel,
              kernel=hll_kernel.KERNEL_FOLDS, path="wide",
              per_fold={"wide": 1, "tiered": 1, "resident": 1},
+             trace=("hll_fold_kernel",),
              wrapper="update_folds", plain="update_folds_plain",
              inplace=lambda a: [f[0] for f in a[0]],
              rows=lambda a, n: (tuple(one_fold(f, n) for f in a[0]),),
@@ -1175,12 +1208,18 @@ def phase_device() -> dict:
 
 
 def phase_build(specs) -> dict:
+    """Every kernel library (one nvcc each, all at once), then the native
+    packer's (g++)."""
+    from netobserv_tpu_torch.datapath import flowpack
     from netobserv_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     secs = _build.build(sorted({s["kernel"].source for s in specs}
                                | {FLOOR_SOURCE}))
+    t1 = time.perf_counter()
+    flowpack.native_lib()
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "per_source_seconds": secs}
+            "per_source_seconds": secs,
+            "packer_seconds": time.perf_counter() - t1}
 
 
 def tiered_cfg():
@@ -1194,7 +1233,9 @@ def capture_main_path_inputs(specs, dense, cfg) -> dict:
     then record every wrapper call of one more fold: the exact inputs the
     path hands each kernel, production-regime tables included."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
-    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
+    # eager: a replayed graph calls no wrapper
+    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                              capture=False)
     calls: dict = {}
     with plain_versions(specs):
         for i in range(WARM_FOLDS):
@@ -1288,6 +1329,25 @@ def counting_plains(specs, counts: dict):
             setattr(mod, attr, fn)
 
 
+def _pack_seconds(exp) -> float:
+    """The host seconds the exporter's resident packer took so far (0
+    before its first resident fold makes the ring)."""
+    return exp.ring.pack_seconds if exp.ring is not None else 0.0
+
+
+def _watch_stats(exp) -> list:
+    """The compile watch's snapshot, taken while the exporter lives: the
+    entries of its captured folds, which must stand in it. Kept in
+    WATCHED for the `retrace_watch` line."""
+    from netobserv_tpu_torch.utils import retrace
+    snap = retrace.snapshot()
+    mine = [c.stats() for c in exp.captures]
+    check(all(m in snap for m in mine),
+          f"captured folds {mine} missing from the watch's snapshot")
+    WATCHED.extend(mine)
+    return mine
+
+
 def _window(exp, feed, n_batches: int, first: int, n_folds: int,
             adds: dict, touched: dict) -> dict:
     """Fold n_folds pool batches from `first` (mod n_batches) through
@@ -1298,7 +1358,7 @@ def _window(exp, feed, n_batches: int, first: int, n_folds: int,
     adds.clear()
     touched.clear()
     torch.cuda.synchronize()
-    pack0 = exp.ring.pack_seconds
+    pack0 = _pack_seconds(exp)
     t0 = time.perf_counter()
     batches = []
     for i in range(n_folds):
@@ -1316,32 +1376,37 @@ def _window(exp, feed, n_batches: int, first: int, n_folds: int,
     return dict(feed=batches, seconds=secs, tables=tables, tiers=tiers,
                 report=report, tables_seconds=t2 - t1,
                 roll_seconds=time.perf_counter() - t2,
-                pack_seconds=exp.ring.pack_seconds - pack0,
+                pack_seconds=_pack_seconds(exp) - pack0,
                 adds={k: v.cpu().numpy() for k, v in adds.items()},
                 touched={k: v.cpu().numpy() for k, v in touched.items()})
 
 
-def run_windows(feed, n_batches: int, plain: bool, specs, cfg,
+def run_windows(feed, n_batches: int, mode: str, specs, cfg,
                 decay_window: bool = False, resident: bool = False):
     """Fold WINDOWS x FOLDS_PER_WINDOW pool batches through `feed` into an
     exporter under `cfg` (reset roll mode), and with `decay_window` one
-    more window of DECAY_FOLDS rolled in decay mode. Per window the pre-roll
-    tables (and tier arrays), the report, the times and, on the plain run,
-    the per-cell add counts of the window's f32 sums. The launch counts are
-    set to 0 just before the reset windows and read just after them; on the
-    kernel run every call of a plain version is counted too (there must be
-    none). With `resident`, the key table and the ring's counters are read
-    before the exporter closes."""
+    more window of DECAY_FOLDS rolled in decay mode. `mode` (one of MODES)
+    picks the fold: the captured graphs, or op by op with the kernels or
+    with the plain versions. Per window the pre-roll tables (and tier
+    arrays), the report, the times and, on the plain run, the per-cell add
+    counts of the window's f32 sums. The launch counts are set to 0 just
+    before the reset windows and read just after them; on the kernel runs
+    every call of a plain version is counted too (there must be none). The
+    captured run also keeps its graphs' compile-watch stats. With
+    `resident`, the key table and the ring's counters are read before the
+    exporter closes."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     from netobserv_tpu_torch.sketch import tiered
+    check(mode in MODES, f"unknown mode {mode}")
     adds: dict = {}
     touched: dict = {}
     plain_calls: dict = {}
-    ctx = (plain_versions(specs, adds, touched) if plain
+    ctx = (plain_versions(specs, adds, touched) if mode == "plain"
            else counting_plains(specs, plain_calls))
     out = {}
     with ctx:
-        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
+        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                                  capture=mode == "captured")
         for s in specs:
             s["kernel"].launches = 0
         out["windows"] = [
@@ -1374,8 +1439,11 @@ def run_windows(feed, n_batches: int, plain: bool, specs, cfg,
             win["tiers_moved"] = not all(_exact(x, y) for x, y in zip(
                 _tensors(pre), _tensors(exp.state.tables)))
             out["decay"] = win
+        out["watch"] = _watch_stats(exp)
+        check(mode == "captured" or not out["watch"],
+              f"{mode} run captured {out['watch']}")
         exp.close()
-    if not plain:
+    if mode != "plain":
         check(not plain_calls, f"plain versions ran on the card: "
               f"{plain_calls}")
     return out
@@ -1383,17 +1451,26 @@ def run_windows(feed, n_batches: int, plain: bool, specs, cfg,
 
 def key_table_check(ring) -> dict:
     """Every live slot of the key table on the card holds the words of its
-    key in the host dictionary."""
+    key in the host dictionary: for the native dictionary, the words of
+    each slot below its count look up to that slot."""
     import numpy as np
+    from netobserv_tpu_torch.datapath import flowpack
     from netobserv_tpu_torch.sketch import carry
     table = carry.key_table_to_numpy(ring.key_table)
-    slots = np.fromiter(ring.kdict.slots.values(), np.int64)
-    words = np.frombuffer(b"".join(ring.kdict.slots), np.uint32).reshape(
-        -1, 10)
+    kd = ring.kdict
+    if isinstance(kd, flowpack.NativeKeyDict):
+        n = kd.count()
+        check(n > 0, "the host dictionary is empty")
+        check(np.array_equal(kd.slots_of(table[:n]), np.arange(n)),
+              "the key table on the card differs from the host dictionary")
+        return {"live_slots": n, "equal": True, "packer": "native"}
+    slots = np.fromiter(kd.slots.values(), np.int64)
+    words = np.frombuffer(b"".join(kd.slots), np.uint32).reshape(-1, 10)
     check(len(slots) > 0, "the host dictionary is empty")
     check(np.array_equal(table[slots], words),
           "the key table on the card differs from the host dictionary")
-    return {"live_slots": int(len(slots)), "equal": True}
+    return {"live_slots": int(len(slots)), "equal": True,
+            "packer": "python"}
 
 
 def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
@@ -1456,23 +1533,38 @@ def _check_windows(wins, universe, pool) -> list[float]:
     return recalls
 
 
-def _window_summary(run: dict, plain: dict, cmp: list) -> dict:
-    wins = run["windows"]
-    secs = [w["seconds"] for w in wins]
+
+
+def _runs(feed, n_batches: int, specs, cfg, **kw) -> dict:
+    """A path's three runs over the same batches (MODES)."""
+    return {m: run_windows(feed, n_batches, m, specs, cfg, **kw)
+            for m in MODES}
+
+
+def _window_summary(runs: dict, cmp: list, cmp_eager: list) -> dict:
+    run, eager, plain = (runs[m] for m in MODES)
     rows = FOLDS_PER_WINDOW * BATCH
+
+    def secs(r):
+        return [w["seconds"] for w in r["windows"]]
+
     return {"launches": run["launches"], "folds": run["folds"],
             "rolls": run["rolls"], "records_per_window": rows,
-            "window_seconds": secs,
-            "records_per_s": [rows / s for s in secs],
-            "state_tables_seconds": [w["tables_seconds"] for w in wins],
-            "roll_seconds": [w["roll_seconds"] for w in wins],
-            "plain_window_seconds": [p["seconds"]
-                                     for p in plain["windows"]],
-            "plain_records_per_s": [rows / p["seconds"]
-                                    for p in plain["windows"]],
-            "vs_plain": cmp,
+            "window_seconds": secs(run),
+            "records_per_s": [rows / s for s in secs(run)],
+            "state_tables_seconds": [w["tables_seconds"]
+                                     for w in run["windows"]],
+            "roll_seconds": [w["roll_seconds"] for w in run["windows"]],
+            "eager_window_seconds": secs(eager),
+            "eager_records_per_s": [rows / s for s in secs(eager)],
+            "plain_window_seconds": secs(plain),
+            "plain_records_per_s": [rows / s for s in secs(plain)],
+            "vs_plain": cmp, "vs_eager": cmp_eager,
+            "captured_folds": [{k: v for k, v in w.items()
+                                if k != "last_signature"}
+                               for w in run["watch"]],
             "distinct_src_estimate": [w["report"]["DistinctSrcEstimate"]
-                                      for w in wins]}
+                                      for w in run["windows"]]}
 
 
 def _want_launches(specs, path: str, folds: int) -> dict:
@@ -1483,36 +1575,74 @@ def _want_launches(specs, path: str, folds: int) -> dict:
     return {s["name"]: s["per_fold"].get(path, 0) * folds for s in specs}
 
 
+def _captures(watch: list) -> int:
+    """The captures of a run's graphs. Each capture's warm-up runs the
+    fold once, eagerly, on clones, and its launches count."""
+    return sum(w["compiles"] for w in watch)
+
+
+def _check_launches(runs: dict, specs, path: str, folds: int,
+                    what: str) -> None:
+    """The kernel runs launched what the path launches per fold: the eager
+    run for each fold, the captured run for each fold and each capture's
+    warm-up fold (the captures made within the counted folds)."""
+    for m in ("captured", "eager"):
+        warm = _captures(runs[m]["watch"]) if m == "captured" else 0
+        want = _want_launches(specs, path, folds + warm)
+        check(runs[m]["launches"] == want,
+              f"{what} {m} launch counts {runs[m]['launches']}, want {want}")
+
+
+def _check_watch(run: dict, replays: dict) -> None:
+    """The captured run's graphs: a graph for each feed it folded, one
+    capture each, a call per fold of the feed (`replays`, by graph name)
+    and no retrace; a graph whose feed was not folded never captured."""
+    names = {w["fn"] for w in run["watch"]}
+    check(set(replays) <= names, f"graphs {sorted(names)}, want "
+          f"{sorted(replays)}")
+    for w in run["watch"]:
+        want = replays.get(w["fn"], 0)
+        check(w["compiles"] == min(want, 1) and w["retraces"] == 0,
+              f"{w['fn']}: {w['compiles']} captures, {w['retraces']} "
+              "retraces")
+        check(w["calls"] == want,
+              f"{w['fn']}: {w['calls']} calls, want {want}")
+
+
 def phase_main_path(specs, universe, pool, dense) -> dict:
     from netobserv_tpu_torch.sketch import state as sk
     cfg = sk.SketchConfig()
-    feed = dense_feeder(dense)
-    run = run_windows(feed, len(dense), False, specs, cfg)
-    want = _want_launches(specs, "wide", WINDOWS * FOLDS_PER_WINDOW)
-    check(run["launches"] == want,
-          f"launch counts {run['launches']}, want {want}")
-    check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
-          and run["rolls"] == WINDOWS,
-          f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
+    runs = _runs(dense_feeder(dense), len(dense), specs, cfg)
+    run, eager, plain = (runs[m] for m in MODES)
+    folds = WINDOWS * FOLDS_PER_WINDOW
+    _check_launches(runs, specs, "wide", folds, "wide")
+    for r in (run, eager):
+        check(r["folds"] == folds and r["rolls"] == WINDOWS,
+              f"exporter counted {r['folds']} folds, {r['rolls']} rolls")
+    _check_watch(run, {"fold_dense": folds})
     recalls = _check_windows(run["windows"], universe, pool)
-    plain = run_windows(feed, len(dense), True, specs, cfg)
     cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
            for w, p in zip(run["windows"], plain["windows"])]
+    cmp_eager = [compare_tables(w["tables"], e["tables"], p["adds"])
+                 for w, e, p in zip(run["windows"], eager["windows"],
+                                    plain["windows"])]
     return {"phase": "main_path", "recall_at_100": recalls,
-            **_window_summary(run, plain, cmp),
+            **_window_summary(runs, cmp, cmp_eager),
             "resident_bytes": run["resident_bytes"],
             "hot_key_rows_per_fold": hot_key_rows(pool)}
 
 
-def _tier_checker(w: dict, p: dict, tspec):
+def _tier_checker(w: dict, p: dict, tspec, counted: dict | None = None):
     """tier_check for compare_tables: hold one window's decoded CM table
-    of the kernel run `w` against the plain run `p` to the tier bound."""
+    of the run `w` against the run `p` to the tier bound, with the adds
+    counted by the plain run `counted` (default `p`)."""
     import torch
+    counted = p if counted is None else counted
 
     def fn(name: str) -> dict:
         unit = tspec.bytes_unit if name == "cm_bytes" else 1
-        n = torch.from_numpy(p["adds"][name]).cuda()
-        f = torch.from_numpy(p["touched"][name]).cuda()
+        n = torch.from_numpy(counted["adds"][name]).cuda()
+        f = torch.from_numpy(counted["touched"][name]).cuda()
         return tier_view_check(getattr(w["tiers"], name),
                                getattr(p["tiers"], name), n, f, tspec, unit)
 
@@ -1521,53 +1651,107 @@ def _tier_checker(w: dict, p: dict, tspec):
 
 def phase_tiered_path(specs, universe, pool, dense) -> dict:
     cfg = tiered_cfg()
-    feed = dense_feeder(dense)
-    run = run_windows(feed, len(dense), False, specs, cfg, decay_window=True)
-    want = _want_launches(specs, "tiered", WINDOWS * FOLDS_PER_WINDOW)
-    check(run["launches"] == want,
-          f"tiered launch counts {run['launches']}, want {want}")
-    check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW
-          and run["rolls"] == WINDOWS,
-          f"exporter counted {run['folds']} folds, {run['rolls']} rolls")
+    runs = _runs(dense_feeder(dense), len(dense), specs, cfg,
+                 decay_window=True)
+    run, eager, plain = (runs[m] for m in MODES)
+    folds = WINDOWS * FOLDS_PER_WINDOW
+    _check_launches(runs, specs, "tiered", folds, "tiered")
+    for r in (run, eager):
+        check(r["folds"] == folds and r["rolls"] == WINDOWS,
+              f"exporter counted {r['folds']} folds, {r['rolls']} rolls")
+        dec = r["decay"]
+        want_decay = _want_launches(specs, "tiered", DECAY_FOLDS)
+        check(dec["launches"] == want_decay,
+              f"decay window launches {dec['launches']}, want {want_decay}")
+        check(dec["decay_exact"], "decay roll: the tiers are not "
+              "decay_plane of the pre-roll tiers")
+        check(dec["hll_reset"] and dec["tiers_moved"],
+              "decay roll: HLL banks not reset or tiers unchanged")
+    _check_watch(run, {"fold_dense": folds + DECAY_FOLDS})
     dec = run["decay"]
-    want_decay = _want_launches(specs, "tiered", DECAY_FOLDS)
-    check(dec["launches"] == want_decay,
-          f"decay window launches {dec['launches']}, want {want_decay}")
-    check(dec["decay_exact"], "decay roll: the tiers are not decay_plane "
-          "of the pre-roll tiers")
-    check(dec["hll_reset"] and dec["tiers_moved"],
-          "decay roll: HLL banks not reset or tiers unchanged")
     wins = run["windows"] + [dec]
     recalls = _check_windows(wins, universe, pool)
-    plain = run_windows(feed, len(dense), True, specs, cfg,
-                        decay_window=True)
+    ewins = eager["windows"] + [eager["decay"]]
     pwins = plain["windows"] + [plain["decay"]]
     cmp = [compare_tables(w["tables"], p["tables"], p["adds"],
                           _tier_checker(w, p, cfg.tiered))
            for w, p in zip(wins, pwins)]
+    cmp_eager = [compare_tables(w["tables"], e["tables"], p["adds"],
+                                _tier_checker(w, e, cfg.tiered, p))
+                 for w, e, p in zip(wins, ewins, pwins)]
     from netobserv_tpu_torch.sketch import tiered
     occ = {p: tiered.plane_occupancy(getattr(run["windows"][-1]["tiers"], p))
            for p in ("cm_bytes", "cm_pkts")}
     return {"phase": "tiered_path", "recall_at_100": recalls,
-            **_window_summary(run, plain, cmp),
+            **_window_summary(runs, cmp, cmp_eager),
             "decay_window": {"folds": DECAY_FOLDS, "factor": DECAY_FACTOR,
                              "launches": dec["launches"],
                              "seconds": dec["seconds"],
+                             "eager_seconds": eager["decay"]["seconds"],
                              "roll_seconds": dec["roll_seconds"],
                              "decay_plane_exact": dec["decay_exact"]},
             "resident_bytes": run["resident_bytes"],
             "tier_occupancy_end_of_window_2": occ}
 
 
+def phase_native_pack(events) -> dict:
+    """The native packer against the Python one on the host of the card's
+    machine: the pool's batches as flow events (the resident path's first
+    batches), packed chunk by chunk from one start row with each packer and
+    its own dictionary (default caps, 2^18 slots): the same regions word
+    for word, the same rows consumed and dictionary count, and in the end
+    the same slot for every key; with each packer's seconds per batch."""
+    import numpy as np
+    from netobserv_tpu_torch.datapath import flowpack
+    caps = flowpack.default_resident_caps(BATCH)
+    kd_n = flowpack.NativeKeyDict(1 << 18)
+    kd_p = flowpack.KeyDict(1 << 18)
+    secs = {"native": 0.0, "python": 0.0}
+    chunks = 0
+    for ev, feats in events:
+        start = 0
+        while start < len(ev):
+            t0 = time.perf_counter()
+            bn, cn = flowpack.pack_resident_native(ev, BATCH, kd_n, caps,
+                                                   start=start, **feats)
+            t1 = time.perf_counter()
+            bp, cp = flowpack.pack_resident(ev, BATCH, kd_p, caps,
+                                            start=start, **feats)
+            secs["native"] += t1 - t0
+            secs["python"] += time.perf_counter() - t1
+            check(cn == cp and cn > 0,
+                  f"chunk {chunks}: consumed {cn} native, {cp} Python")
+            check(np.array_equal(bn, bp), f"chunk {chunks}: regions differ")
+            check(kd_n.count() == kd_p.count(),
+                  f"chunk {chunks}: {kd_n.count()} keys native, "
+                  f"{kd_p.count()} Python")
+            chunks += 1
+            start += cn
+    words = np.frombuffer(b"".join(kd_p.slots), np.uint32).reshape(-1, 10)
+    check(np.array_equal(kd_n.slots_of(words),
+                         np.fromiter(kd_p.slots.values(), np.int64)),
+          "the dictionaries give other slots")
+    n = len(events)
+    out = {"phase": "native_pack", "batches": n, "chunks": chunks,
+           "keys": kd_n.count(), "regions_equal": True,
+           "native_seconds_per_batch": secs["native"] / n,
+           "python_seconds_per_batch": secs["python"] / n,
+           "python_over_native": secs["python"] / secs["native"]}
+    kd_n.close()
+    return out
+
+
 def phase_resident_path(specs, universe, pool, events) -> dict:
     """The resident feed at full width: `fold_events` over the event form
-    of the same pool batches, default caps and slot_cap 2^18."""
+    of the same pool batches, default caps and slot_cap 2^18, the native
+    packer."""
     from netobserv_tpu_torch.datapath import flowpack
     from netobserv_tpu_torch.scenarios import traffic
     from netobserv_tpu_torch.sketch import state as sk
     cfg = sk.SketchConfig()
-    feed = event_feeder(events)
-    run = run_windows(feed, len(events), False, specs, cfg, resident=True)
+    runs = _runs(event_feeder(events), len(events), specs, cfg,
+                 resident=True)
+    run, eager, plain = (runs[m] for m in MODES)
     ring = run["ring"]
     records = WINDOWS * FOLDS_PER_WINDOW * BATCH
     check(run["folds"] == ring.chunks
@@ -1575,51 +1759,65 @@ def phase_resident_path(specs, universe, pool, events) -> dict:
           and run["rolls"] == WINDOWS,
           f"exporter counted {run['folds']} folds ({ring.chunks} chunks, "
           f"{ring.continuations} continuations), {run['rolls']} rolls")
-    want = _want_launches(specs, "resident", run["folds"])
-    check(run["launches"] == want,
-          f"resident launch counts {run['launches']}, want {want}")
+    check(eager["folds"] == plain["folds"] == run["folds"],
+          "the eager or plain run packed other chunks")
+    check(isinstance(ring.kdict, flowpack.NativeKeyDict),
+          "the exporter's ring does not pack natively")
+    _check_launches(runs, specs, "resident", run["folds"], "resident")
+    _check_watch(run, {"fold_resident": run["folds"]})
     recalls = _check_windows(run["windows"], traffic.event_universe(universe),
                              pool)
-    plain = run_windows(feed, len(events), True, specs, cfg, resident=True)
-    check(plain["folds"] == run["folds"], "the plain run packed other chunks")
     cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
            for w, p in zip(run["windows"], plain["windows"])]
+    cmp_eager = [compare_tables(w["tables"], e["tables"], p["adds"])
+                 for w, e, p in zip(run["windows"], eager["windows"],
+                                    plain["windows"])]
     h2d = ring.chunks * flowpack.resident_buf_len(BATCH, ring.caps) * 4
-    wins = run["windows"]
+
+    def per_fold(r, key):
+        return [w[key] / FOLDS_PER_WINDOW for w in r["windows"]]
+
+    def ingest(r):
+        return [(w["seconds"] - w["pack_seconds"]) / FOLDS_PER_WINDOW
+                for w in r["windows"]]
+
     return {"phase": "resident_path", "recall_at_100": recalls,
-            **_window_summary(run, plain, cmp),
+            **_window_summary(runs, cmp, cmp_eager),
             "caps": repr(ring.caps), "slot_cap": ring.slot_cap,
+            "packer": "native",
             "chunks": ring.chunks, "continuations": ring.continuations,
             "dict_resets": ring.dict_resets, "spill_rows": ring.spill_rows,
             "stalls": ring.stalls, "slot_wait_p95_s": ring.slot_wait_p95(),
             "key_table": run["key_table_check"],
             "h2d_bytes_per_record": h2d / records,
             "dense_h2d_bytes_per_record": sk.DENSE_WORDS * 4,
-            "pack_seconds_per_fold": [w["pack_seconds"] / FOLDS_PER_WINDOW
-                                      for w in wins],
-            "ingest_seconds_per_fold": [
-                (w["seconds"] - w["pack_seconds"]) / FOLDS_PER_WINDOW
-                for w in wins]}
+            "pack_seconds_per_fold": per_fold(run, "pack_seconds"),
+            "ingest_seconds_per_fold": ingest(run),
+            "eager_pack_seconds_per_fold": per_fold(eager, "pack_seconds"),
+            "eager_ingest_seconds_per_fold": ingest(eager)}
 
 
-def _c1_run(specs, dense, cfg, plain: bool) -> dict:
-    """C1_FOLDS pool batches through the dense feed under `cfg`, with the
-    kernels (no plain version may run) or the plain versions (counting the
-    adds of the window bounds); the launch counts are set to 0 just before
-    and read just after."""
+def _c1_run(specs, dense, cfg, mode: str) -> dict:
+    """C1_FOLDS pool batches through the dense feed under `cfg`, folded as
+    `mode` says (MODES): the kernel runs count every call of a plain
+    version (there must be none), the plain run the adds of the window
+    bounds; the launch counts are set to 0 just before and read just
+    after."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     adds: dict = {}
     touched: dict = {}
     plain_calls: dict = {}
-    ctx = (plain_versions(specs, adds, touched) if plain
+    ctx = (plain_versions(specs, adds, touched) if mode == "plain"
            else counting_plains(specs, plain_calls))
     with ctx:
-        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
+        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                                  capture=mode == "captured")
         for s in specs:
             s["kernel"].launches = 0
         win = _window(exp, dense_feeder(dense), len(dense), 0, C1_FOLDS,
                       adds, touched)
         win["launches"] = {s["name"]: s["kernel"].launches for s in specs}
+        win["watch"] = _watch_stats(exp)
         exp.close()
     check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
     return win
@@ -1629,10 +1827,12 @@ def phase_c1(specs, dense) -> dict:
     """Fault C1's two shapes on the card: a depth whose kernel-6 tile
     passes one block's shared memory, which the gate sends to the decode
     form (the wide path's kernels), and a table width past what kernel 7's
-    first design held, which folds on the interior form through kernel 7.
-    Each is held against the plain run: tables under the whole-window
-    bounds (the tiered CM tables under the tier bound), the packed HLL
-    banks bit-exact."""
+    first design held, which folds on the interior form through kernel 7;
+    and a depth whose kernel-6 tile needs the shared-memory attribute set
+    at launch, inside the capture too (interior form).
+    Each runs captured, eager and plain: the captured run's tables are held
+    against both under the whole-window bounds (the tiered CM tables under
+    the tier bound), the packed HLL banks bit-exact."""
     from netobserv_tpu_torch.sketch import state as sk
     from netobserv_tpu_torch.sketch.tiered import TierSpec
     out = {"phase": "c1_shapes", "folds": C1_FOLDS, "shapes": []}
@@ -1640,59 +1840,168 @@ def phase_c1(specs, dense) -> dict:
             (sk.SketchConfig(cm_depth=25, tiered=TierSpec()), "decode",
              "wide"),
             (sk.SketchConfig(ewma_buckets=16384, tiered=TierSpec()),
-             "interior", "tiered")):
+             "interior", "tiered"),
+            (sk.SketchConfig(cm_depth=6, tiered=TierSpec()), "interior",
+             "tiered")):
         got = sk.tiered_fold_form(cfg)
         check(got == form, f"{cfg}: fold form {got}, want {form}")
-        run = _c1_run(specs, dense, cfg, plain=False)
-        want = _want_launches(specs, path, C1_FOLDS)
-        check(run["launches"] == want,
-              f"{form} form launches {run['launches']}, want {want}")
-        plain = _c1_run(specs, dense, cfg, plain=True)
-        check(all(_exact(x, y) for x, y in zip(
-            _tensors(run["tiers"][2:]), _tensors(plain["tiers"][2:]))),
-            f"{form} form: the packed HLL banks differ")
+        runs = {m: _c1_run(specs, dense, cfg, m) for m in MODES}
+        run, eager, plain = (runs[m] for m in MODES)
+        _check_launches(runs, specs, path, C1_FOLDS, f"{form} form")
+        _check_watch(run, {"fold_dense": C1_FOLDS})
+        for other in (eager, plain):
+            check(all(_exact(x, y) for x, y in zip(
+                _tensors(run["tiers"][2:]), _tensors(other["tiers"][2:]))),
+                f"{form} form: the packed HLL banks differ")
         cmp = compare_tables(run["tables"], plain["tables"], plain["adds"],
                              _tier_checker(run, plain, cfg.tiered))
+        cmp_eager = compare_tables(run["tables"], eager["tables"],
+                                   plain["adds"],
+                                   _tier_checker(run, eager, cfg.tiered,
+                                                 plain))
         out["shapes"].append({
             "cm_depth": cfg.cm_depth, "ewma_buckets": cfg.ewma_buckets,
             "form": got, "launches": run["launches"], "vs_plain": cmp,
-            "seconds": run["seconds"], "plain_seconds": plain["seconds"]})
+            "vs_eager": cmp_eager, "seconds": run["seconds"],
+            "eager_seconds": eager["seconds"],
+            "plain_seconds": plain["seconds"]})
     return out
 
 
-def phase_profile(feed, n_batches: int, cfg, name: str,
-                  warm: int = 2) -> dict:
+def _traced(specs, rows) -> dict:
+    """Per kernel `__global__` (the first of its `trace` names), the kernel
+    events a trace counts under it."""
+    return {s["trace"][0]: sum(c for _, k, c in rows
+                               if any(t in k for t in s["trace"]))
+            for s in specs}
+
+
+def _traced_want(specs, launches: dict) -> dict:
+    """The kernel events `launches` make: one per launch, the HLL entries
+    (one `__global__`) summed."""
+    want: dict = {}
+    for s in specs:
+        key = s["trace"][0]
+        want[key] = want.get(key, 0) + launches[s["name"]]
+    return want
+
+
+def phase_profile(specs, feed, n_batches: int, cfg, name: str, path: str,
+                  capture: bool, warm: int = 2) -> dict:
     """Device time by kernel over FOLDS_PER_WINDOW // 4 folds of a path
-    (torch.profiler) after `warm` warm-up folds, and the device's busy
-    share of the wall time."""
+    (torch.profiler) after `warm` warm-up folds, captured or eager, and the
+    device's busy share of the wall time. The trace must count each kernel
+    of the path as often as the launch counts say (a replay adds its
+    capture's launches), and the launch counts must be the path's per
+    fold, or the loop runs again, up to PROFILE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
-    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda")
+    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                              capture=capture)
     for i in range(warm):
         feed(exp, i % n_batches)
     torch.cuda.synchronize()
     n = FOLDS_PER_WINDOW // 4
-    folds0 = exp.folds
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            feed(exp, i % n_batches)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    chunks = exp.folds - folds0
+    for _ in range(PROFILE_TRIES):
+        for s in specs:
+            s["kernel"].launches = 0
+        folds0, pack0 = exp.folds, _pack_seconds(exp)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                feed(exp, i % n_batches)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        chunks = exp.folds - folds0
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        rows = _device_rows(prof)
+        if rows and _traced(specs, rows) == _traced_want(specs, launches):
+            break
+        PROFILE_RETRIED.append(1)
+    else:
+        raise PhaseError(f"{name}: no trace in {PROFILE_TRIES} counted the "
+                         f"launches {launches}: {_traced(specs, rows)}")
+    want = _want_launches(specs, path, chunks)
+    check(launches == want, f"{name}: launches {launches}, want {want}")
+    pack = _pack_seconds(exp) - pack0
+    _watch_stats(exp)
     exp.close()
-    rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     check(busy_us > 0, "the profiler saw no device time")
-    return {"phase": name, "folds": n, "ingest_calls": chunks,
+    return {"phase": name, "path": path, "captured": capture, "folds": n,
+            "ingest_calls": chunks, "launches": launches,
             "wall_ms_per_fold": wall * 1e3 / n,
             "device_ms_per_fold": busy_us / 1e3 / n,
             "device_busy_share": busy_us / 1e6 / wall if wall else None,
+            "pack_seconds_per_fold": pack / n,
             "top_device_ops": [{"name": k[:80], "us_per_fold": us / n,
                                 "calls_per_fold": c / n}
                                for us, k, c in rows[:15]]}
+
+
+def phase_watch() -> dict:
+    """The compile watch over the run: every captured fold of every
+    captured exporter captured once, at its first call, and never again
+    (a graph whose feed was not folded, never); no retrace in the process.
+    `snapshot` is the watch's snapshot of each captured exporter, taken
+    while it lived (`_watch_stats`)."""
+    from netobserv_tpu_torch.utils import retrace
+    total = retrace.total_retraces()
+    check(total == 0, f"{total} retraces")
+    check(WATCHED and all(w["compiles"] == min(w["calls"], 1)
+                          and w["retraces"] == 0 for w in WATCHED),
+          f"captured folds {WATCHED}")
+    used = [w for w in WATCHED if w["calls"]]
+    return {"phase": "retrace_watch", "total_retraces": total,
+            "captured_folds": len(used),
+            "captures": sum(w["compiles"] for w in WATCHED),
+            "replays": sum(w["calls"] for w in WATCHED),
+            "capture_seconds": [w["compile_seconds"] for w in used],
+            "snapshot": [{k: v for k, v in w.items()
+                          if k != "last_signature"} for w in WATCHED],
+            "signatures": {w["fn"]: w.get("last_signature", "")
+                           for w in used}}
+
+
+#: profile phases: (path, name, feed kind, warm-up folds: None = the pool)
+PROFILES = (("wide", "profile", "dense", 2),
+            ("tiered", "profile_tiered", "dense", 2),
+            ("resident", "profile_resident", "events", None))
+
+
+def phase_profiles(specs, dense, events, paths: dict) -> dict:
+    """The profile phases, each path captured then eager; emits each and
+    returns the `per_fold` line: per path and fold (a batch of the pool),
+    the profiled wall and device ms, busy share and pack seconds, and from
+    the path phase's unprofiled windows (`paths`, by path) the wall ms
+    (of the last reset window, steady state: a captured run's first
+    window holds its capture) and the device ms over it."""
+    from netobserv_tpu_torch.sketch import state as sk
+    cfgs = {"wide": sk.SketchConfig(), "tiered": tiered_cfg(),
+            "resident": sk.SketchConfig()}
+    out = {"phase": "per_fold"}
+    for path, name, kind, warm in PROFILES:
+        pool, feeder = ((dense, dense_feeder) if kind == "dense"
+                        else (events, event_feeder))
+        out[path] = {}
+        for capture in (True, False):
+            r = phase_profile(specs, feeder(pool), len(pool), cfgs[path],
+                              name + ("" if capture else "_eager"), path,
+                              capture, len(pool) if warm is None else warm)
+            emit(r)
+            secs = paths[path]["window_seconds" if capture
+                               else "eager_window_seconds"]
+            window_ms = secs[-1] * 1e3 / FOLDS_PER_WINDOW
+            out[path]["captured" if capture else "eager"] = {
+                **{k: r[k] for k in ("wall_ms_per_fold", "device_ms_per_fold",
+                                     "device_busy_share",
+                                     "pack_seconds_per_fold")},
+                "window_wall_ms_per_fold": window_ms,
+                "device_over_window_wall": r["device_ms_per_fold"]
+                / window_ms}
+    return out
 
 
 def main() -> int:
@@ -1730,6 +2039,8 @@ def main() -> int:
         events = traffic.event_pool(pool, np.random.default_rng(0))
         emit({"phase": "traffic", "seconds": time.perf_counter() - t0,
               "batches": len(pool), "rows_per_batch": BATCH})
+        phase = "native_pack"
+        emit(phase_native_pack(events))
         phase = "kernels"
         calls = {"wide": capture_main_path_inputs(specs, dense,
                                                   sk.SketchConfig()),
@@ -1751,13 +2062,10 @@ def main() -> int:
         phase = "c1_shapes"
         emit(phase_c1(specs, dense))
         phase = "profile"
-        emit(phase_profile(dense_feeder(dense), len(dense), sk.SketchConfig(),
-                           "profile"))
-        emit(phase_profile(dense_feeder(dense), len(dense), tiered_cfg(),
-                           "profile_tiered"))
-        emit(phase_profile(event_feeder(events), len(events),
-                           sk.SketchConfig(), "profile_resident",
-                           warm=len(events)))
+        emit(phase_profiles(specs, dense, events, {
+            "wide": main_res, "tiered": tier_res, "resident": res_res}))
+        phase = "retrace_watch"
+        emit(phase_watch())
         torch.cuda.synchronize()
     except Exception as e:  # every phase failure ends the run, loudly
         import traceback

@@ -17,18 +17,37 @@ spill lane (caps.spill x DENSE_WORDS words, the dense feed's rows). A hot
 row names its key by a 20-bit slot id of the device key table; the host
 `KeyDict` assigns the slots and the new-key lane defines them on the device.
 
-The native packer of the reference (`flowpack.cc`) is not here: it comes as
-a class of its own, and nothing switches to it silently.
+Two packers fill a region, each with its own dictionary, and the two do
+not mix:
+
+- the native packer, `NativeKeyDict` with `pack_resident_native`: the
+  port's copy of the reference's C++ packer (`csrc/flowpack.cc`, from
+  `netobserv_tpu/datapath/native/flowpack.cc`), built with the host C++
+  compiler at first use (`ops/kernels/_build.build_host`). The staging
+  ring's default on every device. A missing compiler, a failed build or
+  a library whose ABI version or record sizes disagree with this package
+  raises; nothing falls back to the Python packer;
+- the Python packer, `KeyDict` with `pack_resident`: the layout oracle,
+  per row in Python.
+
+The two give the same region word for word, the same rows consumed and
+the same dictionary count, chunk after chunk, with one exception: the
+native dictionary keys on a 64-bit fingerprint of the 40 key bytes, the
+Python one on the bytes. Two keys with one fingerprint (p ~ n^2 / 2^65,
+about 1e-6 with 2^18 keys) share a slot in the native dictionary, where
+the Python one gives the second key a slot of its own.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
 
 from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.model.columnar import pack_key_words
+from netobserv_tpu_torch.ops.kernels import _build
 
 #: resident feed constants; layout pinned in flowpack.cc fp_pack_resident
 RESIDENT_HDR = 4
@@ -176,6 +195,38 @@ def _lat_code16(us: int) -> int:
     return min(us >> e, 0xFFF) | (e << 12)
 
 
+#: feature lanes of a pack call, in argument order, with their dtypes
+_LANE_DTYPES = (binfmt.EXTRA_REC_DTYPE, binfmt.DNS_REC_DTYPE,
+                binfmt.DROPS_REC_DTYPE, binfmt.XLAT_REC_DTYPE,
+                binfmt.QUIC_REC_DTYPE)
+
+
+def _pack_args(events_raw, batch_size: int, caps: ResidentCaps, start: int,
+               out: Optional[np.ndarray], lanes: tuple):
+    """The checks both packers make: (events, out, the feature lanes
+    fitted to the event count, None where absent)."""
+    if isinstance(events_raw, np.ndarray):
+        events = np.ascontiguousarray(events_raw,
+                                      dtype=binfmt.FLOW_EVENT_DTYPE)
+    else:
+        events = binfmt.decode_flow_events(events_raw)
+    n = len(events)
+    if batch_size > 0xFFFF:
+        raise ValueError("resident feed row indices are 16-bit")
+    if min(caps.spill, caps.nk) < 1:
+        raise ValueError("resident caps must be >= 1 (progress guarantee)")
+    if not 0 <= start <= n:
+        raise ValueError(f"start {start} out of range 0..{n}")
+    total = resident_buf_len(batch_size, caps)
+    if out is None:
+        out = np.empty(total, dtype=np.uint32)
+    elif (out.shape != (total,) or out.dtype != np.uint32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous ({total},) uint32")
+    return events, out, tuple(_fit_rows(a, n, dt)
+                              for a, dt in zip(lanes, _LANE_DTYPES))
+
+
 def pack_resident(events_raw: bytes | np.ndarray,
                   batch_size: int,
                   kdict: KeyDict,
@@ -199,29 +250,13 @@ def pack_resident(events_raw: bytes | np.ndarray,
     fit 11 bits, its DSCP 6 bits, its sampling equals the region's (the
     first row's), its rtt is at most RTT_MAX_US, and its DNS latency and
     drops fit their lanes; otherwise it rides the spill lane in full."""
-    if isinstance(events_raw, np.ndarray):
-        events = np.ascontiguousarray(events_raw,
-                                      dtype=binfmt.FLOW_EVENT_DTYPE)
-    else:
-        events = binfmt.decode_flow_events(events_raw)
+    if not isinstance(kdict, KeyDict):
+        raise TypeError("pack_resident takes the Python KeyDict; a "
+                        "NativeKeyDict packs with pack_resident_native")
+    events, out, (ex, dn, dr, xl, qc) = _pack_args(
+        events_raw, batch_size, caps, start, out,
+        (extra, dns, drops, xlat, quic))
     n = len(events)
-    if batch_size > 0xFFFF:
-        raise ValueError("resident feed row indices are 16-bit")
-    if min(caps.spill, caps.nk) < 1:
-        raise ValueError("resident caps must be >= 1 (progress guarantee)")
-    if not 0 <= start <= n:
-        raise ValueError(f"start {start} out of range 0..{n}")
-    total = resident_buf_len(batch_size, caps)
-    if out is None:
-        out = np.empty(total, dtype=np.uint32)
-    elif (out.shape != (total,) or out.dtype != np.uint32
-          or not out.flags.c_contiguous):
-        raise ValueError(f"out must be C-contiguous ({total},) uint32")
-    ex = _fit_rows(extra, n, binfmt.EXTRA_REC_DTYPE)
-    dn = _fit_rows(dns, n, binfmt.DNS_REC_DTYPE)
-    dr = _fit_rows(drops, n, binfmt.DROPS_REC_DTYPE)
-    xl = _fit_rows(xlat, n, binfmt.XLAT_REC_DTYPE)
-    qc = _fit_rows(quic, n, binfmt.QUIC_REC_DTYPE)
     hot_off = RESIDENT_HDR
     dns_off = hot_off + batch_size * HOT_WORDS
     drop_off = dns_off + caps.dns
@@ -307,3 +342,137 @@ def pack_resident(events_raw: bytes | np.ndarray,
         i += 1
     out[1], out[2], out[3] = nk, ns, nd | (nr << 16)
     return out, i - start
+
+
+# ------------------------------------------------------ the native packer
+
+#: the packer's source in csrc/, and the ABI version it must report
+NATIVE_SOURCE = "flowpack.cc"
+ABI_VERSION = 1
+#: the records the packer reads, in `fp_struct_sizes` order
+_NATIVE_RECORDS = (binfmt.FLOW_KEY_DTYPE, binfmt.FLOW_STATS_DTYPE,
+                   binfmt.FLOW_EVENT_DTYPE, *_LANE_DTYPES)
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+    for name, res, args in (
+            ("fp_abi_version", ctypes.c_uint32, []),
+            ("fp_struct_sizes", ctypes.c_uint32, [vp, ctypes.c_uint32]),
+            ("fp_dict_new", vp, [ctypes.c_uint32]),
+            ("fp_dict_free", None, [vp]),
+            ("fp_dict_reset", None, [vp]),
+            ("fp_dict_count", ctypes.c_uint32, [vp]),
+            ("fp_dict_lookup", None, [vp, vp, sz, vp]),
+            ("fp_pack_resident", ctypes.c_int64,
+             [vp, sz, sz, vp, vp, vp, vp, vp, vp, vp, sz, sz, sz, sz, sz])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+
+
+def _check_abi(lib: ctypes.CDLL, path) -> None:
+    """Raise unless the library reports ABI_VERSION and the record sizes
+    of `model/binfmt`'s dtypes."""
+    ver = int(lib.fp_abi_version())
+    if ver != ABI_VERSION:
+        raise RuntimeError(f"{path}: packer ABI version {ver}, this package "
+                           f"needs {ABI_VERSION}")
+    sizes = np.zeros(len(_NATIVE_RECORDS), np.uint64)
+    n = int(lib.fp_struct_sizes(sizes.ctypes.data, len(sizes)))
+    want = [dt.itemsize for dt in _NATIVE_RECORDS]
+    if n != len(want) or sizes.tolist() != want:
+        raise RuntimeError(f"{path}: record sizes {sizes.tolist()[:n]} "
+                           f"differ from model/binfmt's {want}")
+
+
+def native_lib() -> ctypes.CDLL:
+    """The native packer's library: built at first use (`_build.build_host`),
+    loaded, declared and checked once per process. Raises if it cannot be
+    built or fails the check."""
+    global _LIB
+    if _LIB is None:
+        path = _build.build_host(NATIVE_SOURCE)
+        lib = ctypes.CDLL(str(path))
+        _declare(lib)
+        _check_abi(lib, path)
+        _LIB = lib
+    return _LIB
+
+
+class NativeKeyDict:
+    """Host key -> slot dictionary of the native packer (`csrc/flowpack.cc`
+    `fp_dict`: open addressing on a 64-bit key fingerprint). Slots are
+    assigned sequentially in first-seen order, as `KeyDict` assigns them;
+    `reset` empties it. `close` frees it (also on garbage collection)."""
+
+    def __init__(self, slot_cap: int = 1 << 18):
+        if slot_cap <= 0 or slot_cap > (1 << 20):
+            raise ValueError("slot_cap must be in 1..2^20 (20-bit slot ids)")
+        self.slot_cap = slot_cap
+        self._lib = native_lib()
+        self._handle = self._lib.fp_dict_new(slot_cap)
+        if not self._handle:
+            raise MemoryError("fp_dict_new failed")
+
+    def _live_handle(self) -> int:
+        """The C dictionary's address; raises once closed."""
+        if not self._handle:
+            raise ValueError("NativeKeyDict is closed")
+        return self._handle
+
+    def count(self) -> int:
+        return int(self._lib.fp_dict_count(self._live_handle()))
+
+    def reset(self) -> None:
+        self._lib.fp_dict_reset(self._live_handle())
+
+    def slots_of(self, words: np.ndarray) -> np.ndarray:
+        """int64 slot of each (n, 10) row of packed key words, -1 where the
+        dictionary has none."""
+        kw = np.ascontiguousarray(words, dtype=np.uint32).reshape(-1, 10)
+        out = np.empty(len(kw), np.int64)
+        self._lib.fp_dict_lookup(self._live_handle(), kw.ctypes.data, len(kw),
+                                 out.ctypes.data)
+        return out
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.fp_dict_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()
+
+
+def _addr(a: Optional[np.ndarray]) -> Optional[int]:
+    return a.ctypes.data if a is not None else None
+
+
+def pack_resident_native(events_raw: bytes | np.ndarray,
+                         batch_size: int,
+                         kdict: NativeKeyDict,
+                         caps: ResidentCaps,
+                         start: int = 0,
+                         extra: Optional[np.ndarray] = None,
+                         dns: Optional[np.ndarray] = None,
+                         drops: Optional[np.ndarray] = None,
+                         xlat: Optional[np.ndarray] = None,
+                         quic: Optional[np.ndarray] = None,
+                         out: Optional[np.ndarray] = None
+                         ) -> tuple[np.ndarray, int]:
+    """`pack_resident` in C++: the same arguments, checks, region and rows
+    consumed, with a `NativeKeyDict` (the module docstring says where the
+    two dictionaries can part)."""
+    if not isinstance(kdict, NativeKeyDict):
+        raise TypeError("pack_resident_native takes a NativeKeyDict; the "
+                        "Python KeyDict packs with pack_resident")
+    events, out, lanes = _pack_args(events_raw, batch_size, caps, start, out,
+                                    (extra, dns, drops, xlat, quic))
+    consumed = kdict._lib.fp_pack_resident(
+        events.ctypes.data, start, len(events), *(_addr(a) for a in lanes),
+        kdict._live_handle(), out.ctypes.data, batch_size, caps.dns, caps.drop,
+        caps.nk, caps.spill)
+    return out, int(consumed)

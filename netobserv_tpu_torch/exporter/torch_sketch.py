@@ -13,6 +13,17 @@ previous roll's heavy-hitter index threaded so evicted keys are named):
   copied to the device without blocking; the next batch waits only for
   that copy.
 
+On CUDA each feed's fold runs as a CUDA graph (`sketch/capture.py`),
+captured at the feed's first fold against the state and the feed's
+device buffer and replayed every fold after; both graphs share one memory
+pool and are watched entries of `utils/retrace` ("fold_dense",
+"fold_resident"). A capture that fails raises. `capture=False` folds
+eagerly, op by op, as the CPU always does: `chip_smoke.py` holds the
+captured run against it.
+
+The resident feed's ring, with its native packer, is made at the first
+`fold_events`: an exporter fed only dense batches builds no packer.
+
 With `SketchConfig(tiered=TierSpec())` the state stays resident in tiered
 form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
 and `counter_table_bytes` gives the resident bytes of the tier-covered
@@ -35,6 +46,7 @@ from netobserv_tpu_torch.exporter.report import (
 )
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch import tiered
+from netobserv_tpu_torch.sketch.capture import CapturedFold
 from netobserv_tpu_torch.sketch.staging import ResidentStagingRing
 from netobserv_tpu_torch.utils.platform import pick_device
 
@@ -48,7 +60,11 @@ class TorchSketchExporter:
     `sketch.state.roll_window`. `folds` and `rolls` count the folds of
     fixed-size batches (dense batches and resident regions alike) and the
     closed windows. `ring` is the resident feed's staging ring (default
-    caps for `batch_size`, 2^18 slots)."""
+    caps for `batch_size`, 2^18 slots), made by the first `fold_events`,
+    with the packer `packer` names ("native", the default, or "python":
+    `sketch/staging.ResidentStagingRing`). On a CUDA device `capture`
+    folds through CUDA graphs, listed in `captures`; the CPU folds
+    eagerly."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -56,8 +72,10 @@ class TorchSketchExporter:
                  window_s: Optional[float] = None,
                  reset_sketches: bool = True,
                  decay_factor: Optional[float] = None,
-                 sink: Optional[Callable[[dict], None]] = None):
+                 sink: Optional[Callable[[dict], None]] = None,
+                 packer: str = "native", capture: bool = True):
         self.device = pick_device(device)
+        cuda = self.device.type == "cuda"
         self.cfg = cfg
         self.batch_size = batch_size
         self.window_s = window_s
@@ -65,20 +83,34 @@ class TorchSketchExporter:
         self.decay_factor = decay_factor
         self.sink = sink
         self.state = sk.init_state(cfg, self.device)
-        cuda = self.device.type == "cuda"
         words = batch_size * sk.DENSE_WORDS
         self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
         self._host_u32 = self._host.numpy().view(np.uint32)
         self._dev = torch.zeros(words, dtype=torch.int32, device=self.device)
         self._copied = torch.cuda.Event() if cuda else None
-        self.ring = ResidentStagingRing(
-            batch_size, device=self.device,
-            enable_fanout=cfg.enable_fanout, enable_asym=cfg.enable_asym)
+        if packer not in ("native", "python"):
+            raise ValueError(f"packer must be 'native' or 'python', not "
+                             f"{packer!r}")
+        self.ring: Optional[ResidentStagingRing] = None
+        self._packer = packer
+        self._capture = capture and cuda
+        self._pool = torch.cuda.graph_pool_handle() if self._capture else None
+        self._fold_dense = (CapturedFold("fold_dense", self._ingest_dense,
+                                         self._pool)
+                            if self._capture else None)
         self._prev_index: Optional[dict] = None
         self._deadline = self._next_deadline()
         self._closed = False
         self.folds = 0
         self.rolls = 0
+
+    @property
+    def captures(self) -> list[CapturedFold]:
+        """The captured folds made so far: the dense feed's, and the
+        resident ring's once the ring is made."""
+        return [c for c in (self._fold_dense,
+                            self.ring and self.ring.captured)
+                if c is not None]
 
     def _next_deadline(self) -> Optional[float]:
         return (time.monotonic() + self.window_s
@@ -99,6 +131,12 @@ class TorchSketchExporter:
         None."""
         if self._closed:
             raise RuntimeError("exporter is closed")
+        if self.ring is None:
+            self.ring = ResidentStagingRing(
+                self.batch_size, device=self.device,
+                enable_fanout=self.cfg.enable_fanout,
+                enable_asym=self.cfg.enable_asym, packer=self._packer,
+                capture=self._capture, graph_pool=self._pool)
         chunks = self.ring.chunks
         self.ring.fold(self.state, events, extra=extra, dns=dns, drops=drops,
                        xlat=xlat, quic=quic)
@@ -129,10 +167,16 @@ class TorchSketchExporter:
         self._dev.copy_(self._host, non_blocking=True)
         if self._copied is not None:
             self._copied.record()
-        sk.ingest(self.state, sk.dense_to_arrays(self._dev),
-                  enable_fanout=self.cfg.enable_fanout,
-                  enable_asym=self.cfg.enable_asym)
+        if self._fold_dense is not None:
+            self._fold_dense(self.state, self._dev)
+        else:
+            self._ingest_dense(self.state, self._dev)
         self.folds += 1
+
+    def _ingest_dense(self, state, dev: torch.Tensor):
+        return sk.ingest(state, sk.dense_to_arrays(dev),
+                         enable_fanout=self.cfg.enable_fanout,
+                         enable_asym=self.cfg.enable_asym)
 
     def state_tables(self) -> dict[str, np.ndarray]:
         """The current (pre-roll) mergeable tables, on the host."""
@@ -159,11 +203,13 @@ class TorchSketchExporter:
 
     def close(self) -> None:
         """Wait for outstanding device work and drop the buffers, the
-        ring's pinned buffers included."""
+        ring's pinned buffers and the captured graphs included."""
         if self._closed:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._closed = True
-        self.ring.close()
+        if self.ring is not None:
+            self.ring.close()
+        self._fold_dense = None
         self._host = self._host_u32 = self._dev = None

@@ -11,6 +11,12 @@ Libraries land in `csrc/build/` under a name that carries a digest of the
 source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
 source or header never loads a stale build. Several
 sources build in parallel, one `nvcc` process each (`build`).
+
+Host code of `csrc/` (the resident packer, `flowpack.cc` with
+`records.h`) builds the same way with the host C++ compiler
+(`build_host`: `g++ -O2 -std=c++17 -shared -fPIC`), keyed on a digest of
+the source, the host headers (`csrc/*.h`) and the flags; a missing
+compiler or a failed build raises as well.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 #: shared memory one block may use on sm_90 (bytes)
 SMEM_LIMIT = 232448
@@ -109,6 +116,48 @@ def build(sources: list[str]) -> dict[str, float]:
     return secs
 
 
+def gxx_path() -> str:
+    """The host C++ compiler: $CXX (a name on PATH or a path), else g++ on
+    PATH."""
+    want = os.environ.get("CXX") or "g++"
+    found = shutil.which(want)
+    if found is None:
+        raise RuntimeError(f"host C++ compiler {want!r} not found (set CXX "
+                           "or put g++ on PATH); the packer cannot be built")
+    return found
+
+
+def host_lib_path(source: str) -> Path:
+    """Build output of one host source, named by a digest of the source,
+    every host header and the flags."""
+    h = hashlib.sha1((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.h")):
+        h.update(header.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
+
+
+def build_host(source: str) -> Path:
+    """Compile a host C++ source of csrc/ with `gxx_path()` unless its
+    library is already built; return the library's path. Raises if there
+    is no compiler, and with the compiler's output if the build fails."""
+    out = host_lib_path(source)
+    if out.exists():
+        return out
+    cxx = gxx_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp),
+                           str(CSRC / source)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build of {source} failed ({cxx} rc="
+                           f"{proc.returncode}):\n"
+                           + (proc.stdout + proc.stderr)[-4000:])
+    os.replace(tmp, out)
+    return out
+
+
 def _load(source: str) -> ctypes.CDLL:
     lib = _LIBS.get(source)
     if lib is None:
@@ -122,9 +171,15 @@ class CudaKernel:
     """One exported C function of a kernel library, with its launch count.
 
     `launches` rises by one each time `launch` runs the function, and
-    nowhere else; callers reset it by assignment."""
+    nowhere else; callers reset it by assignment. A captured CUDA graph
+    (`sketch/capture.py`) takes back the launches its capture counted and
+    adds them again at every replay, so the count stays the launches run.
+    `instances` lists every kernel made, for that bookkeeping."""
+
+    instances: list["CudaKernel"] = []
 
     def __init__(self, source: str, symbol: str, n_ptrs: int, n_ints: int):
+        CudaKernel.instances.append(self)
         self.source = source
         self.symbol = symbol
         #: argument order of every kernel: pointers, ints, then the stream

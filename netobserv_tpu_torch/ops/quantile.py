@@ -39,12 +39,29 @@ def init(n_buckets: int, device: torch.device) -> LogHist:
                                device=device))
 
 
+#: f32 log(gamma) per (device, gamma), made once (`_log_gamma`)
+_LOG_GAMMA: dict[tuple[torch.device, float], torch.Tensor] = {}
+
+
+def _log_gamma(gamma: float, device: torch.device) -> torch.Tensor:
+    """f32 log(gamma) as a 0-d tensor on `device`, made on first use and
+    kept: a fold then copies nothing from host memory, which a CUDA graph
+    could not capture. The value is the f32 rounding of math.log(gamma),
+    as before."""
+    key = (device, gamma)
+    t = _LOG_GAMMA.get(key)
+    if t is None:
+        t = torch.tensor(math.log(gamma), dtype=torch.float32).to(device)
+        _LOG_GAMMA[key] = t
+    return t
+
+
 def bucket_of(values: torch.Tensor, n_buckets: int,
               gamma: float = DEFAULT_GAMMA) -> torch.Tensor:
     """Bucket index (int64) for non-negative integer samples."""
     v = values.to(torch.float32)
-    log_g = torch.tensor(math.log(gamma), dtype=torch.float32)
-    b = torch.ceil(torch.log(torch.clamp(v, min=1.0)) / log_g.to(v.device))
+    b = torch.ceil(torch.log(torch.clamp(v, min=1.0))
+                   / _log_gamma(gamma, v.device))
     b = torch.clamp(b.to(torch.int32) + 1, 1, n_buckets - 1)
     return torch.where(values == 0, 0, b).to(torch.int64)
 

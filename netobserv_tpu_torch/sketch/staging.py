@@ -5,13 +5,14 @@ Counterpart of `netobserv_tpu/sketch/staging.py` (`_SlotRing`,
 lets chunk i+1 be packed while chunk i's copy to the device is in flight.
 
 Slot protocol: each slot has a pinned host buffer (viewed as uint32 for the
-packer) and a device buffer of its own. A chunk is copied with
+packer); the slots share one device buffer. A chunk is copied into it with
 `non_blocking=True` on the current stream, and a CUDA event is recorded
 after the copy. Before a slot is packed again its event is synchronized, so
 the packer never writes a pinned buffer that a copy still reads. The device
-buffer needs no guard: its next copy and the ingest that reads it are on
-the same stream, in order. On the CPU the copy is synchronous and no event
-is kept.
+buffer needs no guard: each copy into it and the fold that reads it run on
+one stream, in order, so a device buffer per slot would overlap nothing,
+and one buffer lets one captured fold (`sketch/capture.py`) serve every
+slot. On the CPU the copy is synchronous and no event is kept.
 
 Not in this slice: the dense and lane-sharded rings, the pending-event
 buffer, the slot-wait budget (`StagingWedged`), tracing, fault injection
@@ -28,6 +29,7 @@ import torch
 
 from netobserv_tpu_torch.datapath import flowpack
 from netobserv_tpu_torch.sketch import state as sk
+from netobserv_tpu_torch.sketch.capture import CapturedFold
 from netobserv_tpu_torch.utils.platform import pick_device
 
 
@@ -44,8 +46,7 @@ class _SlotRing:
         self._host = [torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
                       for _ in range(n_slots)]
         self._bufs = [h.numpy().view(np.uint32) for h in self._host]
-        self._dev = [torch.zeros(words, dtype=torch.int32, device=device)
-                     for _ in range(n_slots)]
+        self._dev = torch.zeros(words, dtype=torch.int32, device=device)
         self._copied: list[Optional[torch.cuda.Event]] = [None] * n_slots
         self._slot = 0
         self.stalls = 0
@@ -78,9 +79,9 @@ class _SlotRing:
         return slot
 
     def _ship(self, slot: int) -> torch.Tensor:
-        """Copy the slot's host buffer to its device buffer (without
+        """Copy the slot's host buffer to the device buffer (without
         blocking on CUDA) and return the device buffer."""
-        dev = self._dev[slot]
+        dev = self._dev
         dev.copy_(self._host[slot], non_blocking=True)
         if self.device.type == "cuda":
             ev = self._copied[slot] or torch.cuda.Event()
@@ -100,16 +101,25 @@ class _SlotRing:
     def close(self) -> None:
         """Drain, then drop the pinned and device buffers."""
         self.drain()
-        self._host = self._bufs = self._dev = []
+        self._host = self._bufs = []
+        self._dev = None
         self._copied = []
 
 
 class ResidentStagingRing(_SlotRing):
     """Staging ring for the resident feed: 15.4 B per record at B = 16,384
-    when a fold fits one chunk (251,920 B), against the dense feed's 80. The host keeps the key -> slot
-    dictionary (`flowpack.KeyDict`), the device the matching key table
-    (`sketch.state.init_key_table`), which `fold` threads through
+    when a fold fits one chunk (251,920 B), against the dense feed's 80.
+    The host keeps the key -> slot dictionary, the device the matching key
+    table (`sketch.state.init_key_table`), which `fold` threads through
     `sketch.state.ingest_resident`.
+
+    `packer` picks the dictionary and its packer: "native" (the default on
+    every device: `flowpack.NativeKeyDict` with `pack_resident_native`) or
+    "python" (`flowpack.KeyDict` with `pack_resident`, the layout oracle).
+    A native packer that cannot be built or loaded raises; the ring never
+    falls back to the Python one. On a CUDA device `capture` folds each
+    chunk by replaying one CUDA graph (`sketch/capture.py`, "fold_resident",
+    with its memory from `graph_pool` if given); the CPU folds eagerly.
 
     The packer packs until a lane fills and says how many rows it used; the
     ring ships that self-consistent prefix and continues from the stop row
@@ -127,15 +137,29 @@ class ResidentStagingRing(_SlotRing):
                  caps: Optional[flowpack.ResidentCaps] = None,
                  slot_cap: int = 1 << 18, n_slots: int = 4,
                  device: str | torch.device | None = None,
-                 enable_fanout: bool = True, enable_asym: bool = True):
+                 enable_fanout: bool = True, enable_asym: bool = True,
+                 packer: str = "native", capture: bool = True,
+                 graph_pool=None):
         self.batch_size = batch_size
         self.caps = caps or flowpack.default_resident_caps(batch_size)
-        self.slot_cap = slot_cap
         self.enable_fanout = enable_fanout
         self.enable_asym = enable_asym
         dev = pick_device(device)
-        self.kdict = flowpack.KeyDict(slot_cap)
+        if packer == "native":
+            self.kdict = flowpack.NativeKeyDict(slot_cap)
+            self._pack = flowpack.pack_resident_native
+        elif packer == "python":
+            self.kdict = flowpack.KeyDict(slot_cap)
+            self._pack = flowpack.pack_resident
+        else:
+            raise ValueError(f"packer must be 'native' or 'python', not "
+                             f"{packer!r}")
+        self.slot_cap = slot_cap
         self.key_table = sk.init_key_table(slot_cap, dev)
+        #: the captured fold (`capture` on a CUDA device), else None
+        self.captured = (CapturedFold("fold_resident", self._ingest,
+                                      graph_pool)
+                         if capture and dev.type == "cuda" else None)
         self.continuations = 0
         self.dict_resets = 0
         self.spill_rows = 0
@@ -144,6 +168,11 @@ class ResidentStagingRing(_SlotRing):
         self._init_slots(n_slots,
                          flowpack.resident_buf_len(batch_size, self.caps),
                          dev)
+
+    def _ingest(self, state, key_table: torch.Tensor, flat: torch.Tensor):
+        return sk.ingest_resident(state, key_table, flat, self.batch_size,
+                                  self.caps, enable_fanout=self.enable_fanout,
+                                  enable_asym=self.enable_asym)
 
     def fold(self, state, events: np.ndarray, extra=None, dns=None,
              drops=None, xlat=None, quic=None):
@@ -160,7 +189,7 @@ class ResidentStagingRing(_SlotRing):
                 self.dict_resets += 1
             slot = self._wait_slot()
             t0 = time.perf_counter()
-            buf, consumed = flowpack.pack_resident(
+            buf, consumed = self._pack(
                 events, batch_size=self.batch_size, kdict=self.kdict,
                 caps=self.caps, start=start, out=self._bufs[slot], **feats)
             self.pack_seconds += time.perf_counter() - t0
@@ -169,10 +198,16 @@ class ResidentStagingRing(_SlotRing):
             self.spill_rows += int(buf[2])
             self.continuations += start > 0
             start += consumed
-            state = sk.ingest_resident(
-                state, self.key_table, self._ship(slot), self.batch_size,
-                self.caps, enable_fanout=self.enable_fanout,
-                enable_asym=self.enable_asym)
+            flat = self._ship(slot)
+            if self.captured is not None:
+                self.captured(state, self.key_table, flat)
+            else:
+                state = self._ingest(state, self.key_table, flat)
             self.chunks += 1
             self._advance(slot)
         return state
+
+    def close(self) -> None:
+        """Drain, then drop the buffers and the captured fold."""
+        super().close()
+        self.captured = None

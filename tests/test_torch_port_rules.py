@@ -56,6 +56,46 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
             assert top not in ("jax", "jaxlib", "netobserv_tpu"), (f, name)
 
 
+def test_port_sources_include_no_header_of_the_jax_package():
+    """Every C, C++ and CUDA source of the port includes system headers
+    and headers of its own csrc/ only: it keeps copies (records.h), never
+    a path into netobserv_tpu/."""
+    csrc = ROOT / "netobserv_tpu_torch" / "csrc"
+    files = sorted(f for f in csrc.iterdir()
+                   if f.suffix in (".cu", ".cuh", ".cc", ".h"))
+    assert {"flowpack.cc", "records.h"} <= {f.name for f in files}
+    for f in files:
+        for inc in re.findall(r'^\s*#\s*include\s*([<"][^>"]+[>"])',
+                              f.read_text(), re.M):
+            assert "netobserv_tpu" not in inc and ".." not in inc, (f, inc)
+            if inc.startswith('"'):
+                assert "/" not in inc and (csrc / inc[1:-1]).is_file(), (
+                    f, inc)
+
+
+def test_a_failed_packer_build_raises_and_nothing_falls_back(monkeypatch,
+                                                             tmp_path):
+    """With no host compiler the native packer cannot build: the ring, and
+    the exporter at its first resident fold, raise rather than take the
+    Python packer, which they use only when it is asked for. A dense feed
+    needs no packer."""
+    from netobserv_tpu_torch.datapath import flowpack
+    monkeypatch.setattr(flowpack, "_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
+    with pytest.raises(RuntimeError, match="compiler"):
+        ResidentStagingRing(64, device="cpu")
+    exp = TorchSketchExporter(ts.SketchConfig(topk=128), batch_size=64,
+                              device="cpu")
+    exp.fold_dense(np.zeros(64 * ts.DENSE_WORDS, np.uint32))
+    with pytest.raises(RuntimeError, match="compiler"):
+        exp.fold_events(np.zeros(0, traffic.binfmt.FLOW_EVENT_DTYPE))
+    assert exp.ring is None
+    assert flowpack._LIB is None and not list(tmp_path.iterdir())
+    ring = ResidentStagingRing(64, device="cpu", packer="python")
+    assert isinstance(ring.kdict, flowpack.KeyDict)
+
+
 def test_entry_points_default_to_cuda_and_never_fall_back():
     if torch.cuda.is_available():
         assert ts.init_state(ts.SketchConfig(topk=128)).window.is_cuda

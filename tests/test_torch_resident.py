@@ -331,15 +331,18 @@ def _make_feed(n_batches, n_distinct=200, seed=5):
 @pytest.mark.parametrize("slot_cap", [1 << 12, 150])
 def test_ring_folds_equal_the_reference_ring(slot_cap):
     """Six batches through the JAX ring (scatter form, Python packer) and
-    the port's ring: state tables, key table and counters equal; slot_cap
-    150 under 200 keys forces dictionary epochs."""
+    the port's ring with its Python packer: state tables, key table and
+    counters equal; slot_cap 150 under 200 keys forces dictionary epochs.
+    (`tests/test_torch_native_pack.py` holds the native packer's ring to
+    this one.)"""
     caps = jfp.default_resident_caps(B)
     jring = JRing(B, js.make_ingest_resident_fn(B, caps, with_token=True,
                                                 use_pallas=False),
                   caps=caps, slot_cap=slot_cap)
     jring.kdict = jfp.KeyDict(slot_cap, use_native=False)
     tring = ResidentStagingRing(B, caps=tfp.ResidentCaps(*caps),
-                                slot_cap=slot_cap, device="cpu")
+                                slot_cap=slot_cap, device="cpu",
+                                packer="python")
     jstate = js.init_state(js.SketchConfig(**GEOM))
     tstate = ts.init_state(ts.SketchConfig(**GEOM), device="cpu")
     for events, feats in _make_feed(6):
