@@ -9,7 +9,7 @@ It builds the CUDA kernels of the port from `netobserv_tpu_torch/csrc/` (nine
 C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
 the launch floor (one `nvcc` per source, all started together), holds each
 against its plain PyTorch version at the shapes its path gives it, then
-drives three
+drives five
 paths through `TorchSketchExporter` at the default geometry, each with the
 launch counts set to 0 just before it and read just after:
 
@@ -21,14 +21,31 @@ launch counts set to 0 just before it and read just after:
   and the folds launch on the two grids): the same 2 windows, then one
   window of DECAY_FOLDS folds rolled in decay mode, so the tier-level
   decay runs on the card;
-- the resident path, `SketchConfig()` through the resident feed
-  (`fold_events`, the reference agent's default feed; the wide path's
-  kernels):
-  the same 2 windows of the same batches as flow events
-  (`traffic.event_pool`), default caps for B = 16,384 and 2^18 slots. It
-  also checks the key table on the card against the host dictionary and
-  prints the pack time apart from the ingest time, the bytes copied to the
-  card per record, and the ring's counters.
+- the resident path, `SketchConfig()` through the resident feed at one
+  lane and the ladder (1,) (`fold_events`; the wide path's kernels): the
+  same 2 windows of the same batches as flow events
+  (`traffic.event_pool`), default caps for B = 16,384 and 2^18 slots, the
+  bytes of the one-lane `ResidentStagingRing`. It also checks the key
+  table on the card against the host dictionary and prints the pack time
+  apart from the rest, the bytes copied to the card per record, and the
+  ring's counters;
+- the lanes path, the reference agent's default feed
+  (`exporter/tpu_sketch.py:1575-1612`): 8 lanes of 2,048 rows (the auto
+  pack threads of an 8-CPU node, set explicitly), the superbatch ladder
+  (1, 2, 4) and 2^18 slots a lane, fed the same records as evictions
+  (`export_evicted`) of EVICT_ROWS rows three times in four, else of
+  40,000-70,000 (`LaneFeeder`, sizes from `numpy.random.default_rng(1)`),
+  each window rolled after its 32 x 16,384 records. It checks that every
+  ladder entry folded, one capture each (all three captured when the ring
+  is made), every lane's key table against its dictionary, and that
+  evictions took the pending buffer's direct path; it prints records/s,
+  pack and ingest seconds per 16,384 records, the lanes and
+  `os.cpu_count()`;
+- the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
+  fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
+  keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
+  compact feed's spill lane, so its dense fallback runs at least once),
+  with the bytes copied to the card per record.
 
 A last short phase folds C1_FOLDS batches under each of two tiered shapes
 that the tier gates once sent to a kernel that could not launch them:
@@ -82,11 +99,12 @@ same rows consumed and the same dictionary count, chunk by chunk; it
 times both.
 
 Every path runs as the exporter runs on CUDA by default: each fold
-replays a CUDA graph captured at the feed's first fold
-(`sketch/capture.py`), and captured again only if what it is bound to
-changed (a retrace). Each path, and each C1 shape, runs three times over
-the same batches: captured, eager with the kernels (`capture=False`: the
-fold op by op) and eager with the plain versions. The captured run's
+replays a CUDA graph captured at the feed's first fold, or for a ladder
+entry when its ring is made (`sketch/capture.py`), and captured again only
+if what it is bound to changed (a retrace). Each path, and each C1 shape,
+runs three times over the same batches: captured, eager with the
+kernels (`capture=False`: the fold op by op) and eager with the plain
+versions. The captured run's
 tables are held against both under the whole-window bounds below (kernel
 against plain, captured against eager), its launch counts (a replay adds
 the launches its capture recorded; the capture's warm-up fold, on clones,
@@ -96,10 +114,13 @@ per fold and no retrace; the `retrace_watch` phase prints the watch's
 snapshot of each captured exporter, taken while it lived, and fails on
 any retrace. The first window of a captured run holds its capture's
 seconds; the second is steady state. The profile phases trace 8
-folds of each path, captured and eager, check that the trace counts each
+folds of each path (the lanes path as 8 evictions of 4 batches, each one
+k = 4 superbatch), captured and eager, check that the trace counts each
 kernel of the path as often as its launch count says, and print wall and
-device ms per fold, the device's busy share and, for the resident path,
-the pack seconds per fold (the `per_fold` line sums them up).
+device ms per 16,384 records, the device's busy share and, for the
+resident and lanes paths, the pack seconds (the `per_fold` line sums them
+up). The launch counts are per ingest dispatch, whatever its rows: a
+k-superbatch is one.
 
 Each path checks heavy-hitter recall against the exact oracle and is rerun
 with the plain versions on the card to compare the tables; on the kernel
@@ -107,8 +128,7 @@ runs no plain version may run at all. Every phase prints one JSON line. Any
 failure prints the phase's error and exits non-zero, with no "ok" line.
 The last line on success is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Nothing is cut for time: the whole run takes about 70 s of command time on
-an H100.
+Nothing is cut for time.
 
 Times. One helper (`measure`) times a kernel, its plain version and the
 library yardstick over a loop of 50 calls after a warm-up, by two clocks:
@@ -235,6 +255,23 @@ WATCHED: list = []
 #: the runs of a path: CUDA graphs replayed, the fold op by op with the
 #: kernels, the fold op by op with the plain versions
 MODES = ("captured", "eager", "plain")
+#: the paths that fold wide (kernels 1, 2 and 4 and the HLL folds launch
+#: on each ingest): the dense entry, the resident feed at one lane, the
+#: lanes feed with its ladder, and the dense and compact rings
+WIDE_PATHS = ("wide", "resident", "lanes", "dense_ring", "compact_ring")
+#: the exporter of the resident path: one lane, no ladder (the bytes of
+#: the one-lane `ResidentStagingRing`)
+RESIDENT_KW = {"pack_threads": 1, "superbatch": (1,)}
+#: the exporter of the lanes path: the reference agent's default on an
+#: 8-CPU node (pack threads set, so the lanes do not follow this host)
+LANES_KW = {"pack_threads": 8, "superbatch": (1, 2, 4)}
+#: eviction sizes of the lanes path: the default flow cache's 5,000 rows
+#: (CACHE_MAX_FLOWS) three times in four, else uniform over these bounds
+EVICT_ROWS = 5000
+EVICT_LARGE = (40_000, 70_000)
+#: the v6 share of each batch of the dense-ring pool: the last batch is a
+#: burst past the compact feed's spill lane (B / 8 rows)
+V6_SHARES = (0.05,) * 7 + (0.25,)
 
 
 def emit(obj: dict) -> None:
@@ -361,8 +398,8 @@ def kernel_specs():
         countmin_kernel, hll_kernel, signal_kernel, topk_kernel,
     )
     sig_tables = signal_kernel.SignalPlanes._fields
-    flat_paths = {"wide": 1, "resident": 1}
-    every_path = {"wide": 2, "tiered": 2, "resident": 2}
+    flat_paths = {p: 1 for p in WIDE_PATHS}
+    every_path = {"tiered": 2, **{p: 2 for p in WIDE_PATHS}}
     one_fold = lambda a, n: (a[0], *(t[:n] for t in a[1:]))  # noqa: E731
     return [
         dict(name="countmin_fold2", mod=countmin_kernel,
@@ -443,7 +480,7 @@ def kernel_specs():
         # packed bank) and both grids of a fold in one launch
         dict(name="hll_fold_folds", mod=hll_kernel,
              kernel=hll_kernel.KERNEL_FOLDS, path="wide",
-             per_fold={"wide": 1, "tiered": 1, "resident": 1},
+             per_fold={"tiered": 1, **{p: 1 for p in WIDE_PATHS}},
              trace=("hll_fold_kernel",),
              wrapper="update_folds", plain="update_folds_plain",
              inplace=lambda a: [f[0] for f in a[0]],
@@ -1307,8 +1344,89 @@ def dense_feeder(dense):
 
 
 def event_feeder(events):
-    """Fold pool batch bi through the resident feed."""
+    """Fold pool batch bi through the exporter's feed of events."""
     return lambda exp, bi: exp.fold_events(events[bi][0], **events[bi][1])
+
+
+def _concat(parts):
+    """One (events, feature lanes) of the parts' rows, in order."""
+    import numpy as np
+    return (np.concatenate([e for e, _ in parts]),
+            {k: np.concatenate([f[k] for _, f in parts])
+             for k in parts[0][1]})
+
+
+class LaneFeeder:
+    """The lanes path's traffic: a window is the pool batches it names
+    (FOLDS_PER_WINDOW of them, as on every path), delivered as evictions
+    (`export_evicted`) of seeded sizes: EVICT_ROWS three times in four,
+    else uniform over EVICT_LARGE, the last one cut at the window's end.
+    The call for a window's i-th batch delivers every eviction that ends
+    within its first i + 1 batches; the last call flushes the pending
+    tail, so the window's tables hold all its records. Every exporter gets
+    the same evictions (the sizes come from `numpy.random.default_rng(1)`,
+    drawn anew for each exporter)."""
+
+    def __init__(self, events):
+        import numpy as np
+        n = len(events)
+        # both windows fold batches 0..n-1 in turn: one stream serves them
+        self.stream = _concat([events[i % n]
+                               for i in range(FOLDS_PER_WINDOW)])
+        self.n_batches = n
+        self._exp = None
+        self._np = np
+
+    def _cuts(self) -> list[int]:
+        """The ends of one window's evictions in the stream."""
+        total, ends = FOLDS_PER_WINDOW * BATCH, []
+        end = 0
+        while end < total:
+            if self._rng.random() < 0.75:
+                size = EVICT_ROWS
+            else:
+                size = int(self._rng.integers(*EVICT_LARGE))
+            end = min(end + size, total)
+            ends.append(end)
+        return ends
+
+    def __call__(self, exp, bi: int) -> None:
+        from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+        if exp is not self._exp:
+            self._exp, self._calls = exp, 0
+            self._rng = self._np.random.default_rng(1)
+            self.sizes = []
+        i = self._calls % FOLDS_PER_WINDOW
+        if i == 0:
+            self._ends, self._start = self._cuts(), 0
+            self.sizes += [b - a for a, b in zip([0, *self._ends],
+                                                 self._ends)]
+        self._calls += 1
+        ev, lanes = self.stream
+        upto = (i + 1) * BATCH
+        while self._ends and self._ends[0] <= upto:
+            lo, hi = self._start, self._ends.pop(0)
+            exp.export_evicted(EvictedFlows(
+                ev[lo:hi], **{k: v[lo:hi] for k, v in lanes.items()}))
+            self._start = hi
+        if i == FOLDS_PER_WINDOW - 1:
+            exp.flush()
+
+
+class SuperbatchFeeder:
+    """Folds of k pool batches at once (one eviction of k * BATCH rows,
+    which the lanes feed dispatches as one k-superbatch): call j folds
+    batches jk .. jk + k - 1 (mod the pool)."""
+
+    def __init__(self, events, k: int):
+        n = len(events)
+        self.k = k
+        self.parts = [_concat([events[(j * k + i) % n] for i in range(k)])
+                      for j in range(n)]
+
+    def __call__(self, exp, bi: int) -> None:
+        ev, lanes = self.parts[bi % len(self.parts)]
+        exp.fold_events(ev, **lanes)
 
 
 @contextlib.contextmanager
@@ -1330,8 +1448,8 @@ def counting_plains(specs, counts: dict):
 
 
 def _pack_seconds(exp) -> float:
-    """The host seconds the exporter's resident packer took so far (0
-    before its first resident fold makes the ring)."""
+    """The host seconds the exporter's ring spent packing so far (0 before
+    its first fold of events makes the ring)."""
     return exp.ring.pack_seconds if exp.ring is not None else 0.0
 
 
@@ -1382,7 +1500,8 @@ def _window(exp, feed, n_batches: int, first: int, n_folds: int,
 
 
 def run_windows(feed, n_batches: int, mode: str, specs, cfg,
-                decay_window: bool = False, resident: bool = False):
+                decay_window: bool = False, ring: bool = False,
+                exp_kw: dict | None = None):
     """Fold WINDOWS x FOLDS_PER_WINDOW pool batches through `feed` into an
     exporter under `cfg` (reset roll mode), and with `decay_window` one
     more window of DECAY_FOLDS rolled in decay mode. `mode` (one of MODES)
@@ -1392,9 +1511,11 @@ def run_windows(feed, n_batches: int, mode: str, specs, cfg,
     counts of the window's f32 sums. The launch counts are set to 0 just
     before the reset windows and read just after them; on the kernel runs
     every call of a plain version is counted too (there must be none). The
-    captured run also keeps its graphs' compile-watch stats. With
-    `resident`, the key table and the ring's counters are read before the
-    exporter closes."""
+    captured run also keeps its graphs' compile-watch stats. The exporter
+    takes `exp_kw` (its feed, pack threads, ladder). With `ring`, the
+    ring (its counters), the key tables against the host dictionaries
+    (resident rings), the pending buffer's direct rows and the records are
+    read before the exporter closes."""
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     from netobserv_tpu_torch.sketch import tiered
     check(mode in MODES, f"unknown mode {mode}")
@@ -1406,7 +1527,8 @@ def run_windows(feed, n_batches: int, mode: str, specs, cfg,
     out = {}
     with ctx:
         exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
-                                  capture=mode == "captured")
+                                  capture=mode == "captured",
+                                  **(exp_kw or {}))
         for s in specs:
             s["kernel"].launches = 0
         out["windows"] = [
@@ -1415,9 +1537,13 @@ def run_windows(feed, n_batches: int, mode: str, specs, cfg,
         out["launches"] = {s["name"]: s["kernel"].launches for s in specs}
         out["folds"], out["rolls"] = exp.folds, exp.rolls
         out["resident_bytes"] = exp.counter_table_bytes()
-        if resident:
+        if ring:
+            from netobserv_tpu_torch.sketch import staging
             out["ring"] = exp.ring
-            out["key_table_check"] = key_table_check(exp.ring)
+            out["records"] = exp.records
+            out["direct_rows"] = exp.pending.direct_rows
+            if isinstance(exp.ring, staging.ShardedResidentStagingRing):
+                out["key_table_check"] = key_table_check(exp.ring)
         if decay_window:
             exp.reset_sketches, exp.decay_factor = False, DECAY_FACTOR
             for s in specs:
@@ -1450,27 +1576,33 @@ def run_windows(feed, n_batches: int, mode: str, specs, cfg,
 
 
 def key_table_check(ring) -> dict:
-    """Every live slot of the key table on the card holds the words of its
-    key in the host dictionary: for the native dictionary, the words of
-    each slot below its count look up to that slot."""
+    """Every live slot of each region's key table on the card holds the
+    words of its key in that region's host dictionary: for a native
+    dictionary, the words of each slot below its count look up to that
+    slot."""
     import numpy as np
     from netobserv_tpu_torch.datapath import flowpack
     from netobserv_tpu_torch.sketch import carry
-    table = carry.key_table_to_numpy(ring.key_table)
-    kd = ring.kdict
-    if isinstance(kd, flowpack.NativeKeyDict):
-        n = kd.count()
-        check(n > 0, "the host dictionary is empty")
-        check(np.array_equal(kd.slots_of(table[:n]), np.arange(n)),
-              "the key table on the card differs from the host dictionary")
-        return {"live_slots": n, "equal": True, "packer": "native"}
-    slots = np.fromiter(kd.slots.values(), np.int64)
-    words = np.frombuffer(b"".join(kd.slots), np.uint32).reshape(-1, 10)
-    check(len(slots) > 0, "the host dictionary is empty")
-    check(np.array_equal(table[slots], words),
-          "the key table on the card differs from the host dictionary")
-    return {"live_slots": int(len(slots)), "equal": True,
-            "packer": "python"}
+    tables = carry.key_table_to_numpy(ring.key_tables)
+    live = []
+    for r, (table, kd) in enumerate(zip(tables, ring.kdicts)):
+        if isinstance(kd, flowpack.NativeKeyDict):
+            n = kd.count()
+            ok = np.array_equal(kd.slots_of(table[:n]), np.arange(n))
+        else:
+            slots = np.fromiter(kd.slots.values(), np.int64)
+            words = np.frombuffer(b"".join(kd.slots), np.uint32).reshape(
+                -1, 10)
+            n = len(slots)
+            ok = np.array_equal(table[slots], words)
+        check(ok, f"region {r}: the key table on the card differs from the "
+              "host dictionary")
+        live.append(n)
+    check(live[0] > 0, "the host dictionary is empty")
+    return {"regions": len(live), "live_slots": live, "equal": True,
+            "packer": ("native" if isinstance(ring.kdicts[0],
+                                              flowpack.NativeKeyDict)
+                       else "python")}
 
 
 def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
@@ -1593,16 +1725,24 @@ def _check_launches(runs: dict, specs, path: str, folds: int,
               f"{what} {m} launch counts {runs[m]['launches']}, want {want}")
 
 
+def _warm_captured(name: str) -> bool:
+    """A ladder entry of the resident feed, captured when its ring is made
+    (`warm_superbatch_ladder`) whether or not a fold calls it."""
+    return name.startswith("fold_resident_lanes_x")
+
+
 def _check_watch(run: dict, replays: dict) -> None:
     """The captured run's graphs: a graph for each feed it folded, one
     capture each, a call per fold of the feed (`replays`, by graph name)
-    and no retrace; a graph whose feed was not folded never captured."""
+    and no retrace; a graph whose feed was not folded never captured,
+    but for a ladder entry, captured at warm-up."""
     names = {w["fn"] for w in run["watch"]}
     check(set(replays) <= names, f"graphs {sorted(names)}, want "
           f"{sorted(replays)}")
     for w in run["watch"]:
         want = replays.get(w["fn"], 0)
-        check(w["compiles"] == min(want, 1) and w["retraces"] == 0,
+        captures = 1 if _warm_captured(w["fn"]) else min(want, 1)
+        check(w["compiles"] == captures and w["retraces"] == 0,
               f"{w['fn']}: {w['compiles']} captures, {w['retraces']} "
               "retraces")
         check(w["calls"] == want,
@@ -1741,60 +1881,198 @@ def phase_native_pack(events) -> dict:
     return out
 
 
-def phase_resident_path(specs, universe, pool, events) -> dict:
-    """The resident feed at full width: `fold_events` over the event form
-    of the same pool batches, default caps and slot_cap 2^18, the native
-    packer."""
-    from netobserv_tpu_torch.datapath import flowpack
-    from netobserv_tpu_torch.scenarios import traffic
-    from netobserv_tpu_torch.sketch import state as sk
-    cfg = sk.SketchConfig()
-    runs = _runs(event_feeder(events), len(events), specs, cfg,
-                 resident=True)
-    run, eager, plain = (runs[m] for m in MODES)
-    ring = run["ring"]
+def _ring_summary(run: dict, eager: dict, plain: dict, cfg_note: dict
+                  ) -> dict:
+    """The checks every feed of events shares, and its per-16,384-record
+    numbers: the three runs folded the same dispatches and records, and
+    the pack time apart from the rest of a window's time."""
     records = WINDOWS * FOLDS_PER_WINDOW * BATCH
-    check(run["folds"] == ring.chunks
-          == WINDOWS * FOLDS_PER_WINDOW + ring.continuations
-          and run["rolls"] == WINDOWS,
-          f"exporter counted {run['folds']} folds ({ring.chunks} chunks, "
-          f"{ring.continuations} continuations), {run['rolls']} rolls")
-    check(eager["folds"] == plain["folds"] == run["folds"],
-          "the eager or plain run packed other chunks")
-    check(isinstance(ring.kdict, flowpack.NativeKeyDict),
-          "the exporter's ring does not pack natively")
-    _check_launches(runs, specs, "resident", run["folds"], "resident")
-    _check_watch(run, {"fold_resident": run["folds"]})
-    recalls = _check_windows(run["windows"], traffic.event_universe(universe),
-                             pool)
+    check(run["records"] == records and run["rolls"] == WINDOWS,
+          f"exporter counted {run['records']} records, {run['rolls']} "
+          "rolls")
+    for other in (eager, plain):
+        check(other["folds"] == run["folds"]
+              and other["records"] == run["records"],
+              "the eager or plain run folded other dispatches")
+    ring = run["ring"]
+    check(run["folds"] == ring.chunks, f"exporter counted {run['folds']} "
+          f"folds, the ring {ring.chunks} dispatches")
+    per_batch = FOLDS_PER_WINDOW  # batches of BATCH records in a window
+
+    def per(r, key):
+        return [w[key] / per_batch for w in r["windows"]]
+
+    def rest(r):
+        return [(w["seconds"] - w["pack_seconds"]) / per_batch
+                for w in r["windows"]]
+
+    return {**cfg_note, "dispatches": ring.chunks,
+            "records": run["records"], "stalls": ring.stalls,
+            "slot_wait_p95_s": ring.slot_wait_p95(),
+            "direct_rows": run["direct_rows"],
+            "pack_seconds_per_16384": per(run, "pack_seconds"),
+            "ingest_seconds_per_16384": rest(run),
+            "eager_pack_seconds_per_16384": per(eager, "pack_seconds"),
+            "eager_ingest_seconds_per_16384": rest(eager)}
+
+
+def _compare_runs(runs: dict) -> tuple[list, list]:
+    run, eager, plain = (runs[m] for m in MODES)
     cmp = [compare_tables(w["tables"], p["tables"], p["adds"])
            for w, p in zip(run["windows"], plain["windows"])]
     cmp_eager = [compare_tables(w["tables"], e["tables"], p["adds"])
                  for w, e, p in zip(run["windows"], eager["windows"],
                                     plain["windows"])]
+    return cmp, cmp_eager
+
+
+def phase_resident_path(specs, universe, pool, events) -> dict:
+    """The resident feed at full width: `fold_events` over the event form
+    of the same pool batches, at one lane and the ladder (1,) (one region
+    of B = 16,384, default caps, 2^18 slots, what the one-lane ring
+    ships), the native packer."""
+    from netobserv_tpu_torch.datapath import flowpack
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    runs = _runs(event_feeder(events), len(events), specs, cfg, ring=True,
+                 exp_kw=RESIDENT_KW)
+    run, eager, plain = (runs[m] for m in MODES)
+    ring = run["ring"]
+    check(ring.lanes == 1 and ring.ladder == (1,),
+          f"{ring.lanes} lanes, ladder {ring.ladder}")
+    check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW + ring.continuations,
+          f"{run['folds']} dispatches, {ring.continuations} continuations")
+    check(isinstance(ring.kdicts[0], flowpack.NativeKeyDict),
+          "the exporter's ring does not pack natively")
+    _check_launches(runs, specs, "resident", run["folds"], "resident")
+    _check_watch(run, {"fold_resident_lanes_x1": run["folds"]})
+    recalls = _check_windows(run["windows"], traffic.event_universe(universe),
+                             pool)
+    cmp, cmp_eager = _compare_runs(runs)
+    records = WINDOWS * FOLDS_PER_WINDOW * BATCH
     h2d = ring.chunks * flowpack.resident_buf_len(BATCH, ring.caps) * 4
-
-    def per_fold(r, key):
-        return [w[key] / FOLDS_PER_WINDOW for w in r["windows"]]
-
-    def ingest(r):
-        return [(w["seconds"] - w["pack_seconds"]) / FOLDS_PER_WINDOW
-                for w in r["windows"]]
-
     return {"phase": "resident_path", "recall_at_100": recalls,
             **_window_summary(runs, cmp, cmp_eager),
-            "caps": repr(ring.caps), "slot_cap": ring.slot_cap,
-            "packer": "native",
-            "chunks": ring.chunks, "continuations": ring.continuations,
+            **_ring_summary(run, eager, plain, {
+                "caps": repr(ring.caps), "slot_cap": ring.slot_cap,
+                "packer": "native", "lanes": ring.lanes,
+                "ladder": list(ring.ladder)}),
+            "continuations": ring.continuations,
             "dict_resets": ring.dict_resets, "spill_rows": ring.spill_rows,
-            "stalls": ring.stalls, "slot_wait_p95_s": ring.slot_wait_p95(),
             "key_table": run["key_table_check"],
             "h2d_bytes_per_record": h2d / records,
-            "dense_h2d_bytes_per_record": sk.DENSE_WORDS * 4,
-            "pack_seconds_per_fold": per_fold(run, "pack_seconds"),
-            "ingest_seconds_per_fold": ingest(run),
-            "eager_pack_seconds_per_fold": per_fold(eager, "pack_seconds"),
-            "eager_ingest_seconds_per_fold": ingest(eager)}
+            "dense_h2d_bytes_per_record": sk.DENSE_WORDS * 4}
+
+
+def phase_lanes_path(specs, universe, pool, events) -> dict:
+    """The reference agent's default feed at full width: the default
+    exporter (8 lanes of 2,048 rows, ladder (1, 2, 4), 2^18 slots a lane,
+    the native packer) fed the pool's records as evictions of seeded sizes
+    (`LaneFeeder`), each window rolled after its 32 x 16,384 records."""
+    import os
+    from netobserv_tpu_torch.datapath import flowpack
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    feeder = LaneFeeder(events)
+    runs = _runs(feeder, len(events), specs, cfg, ring=True,
+                 exp_kw=LANES_KW)
+    run, eager, plain = (runs[m] for m in MODES)
+    ring = run["ring"]
+    check(ring.lanes == 8 and ring.ladder == (1, 2, 4),
+          f"{ring.lanes} lanes, ladder {ring.ladder}")
+    check(all(ring.superbatch_folds.get(k, 0) > 0 for k in (1, 2, 4)),
+          f"superbatch folds {ring.superbatch_folds}")
+    for other in (eager, plain):
+        check(other["ring"].superbatch_folds == ring.superbatch_folds,
+              "the eager or plain run took other ladder entries")
+    check(run["direct_rows"] > 0, "no eviction took the direct path")
+    check(all(isinstance(kd, flowpack.NativeKeyDict) for kd in ring.kdicts),
+          "the exporter's ring does not pack natively")
+    _check_launches(runs, specs, "lanes", run["folds"], "lanes")
+    _check_watch(run, {f"fold_resident_lanes_x{k}": n
+                       for k, n in ring.superbatch_folds.items()})
+    check(_captures(run["watch"]) == 3, f"captures {run['watch']}")
+    recalls = _check_windows(run["windows"], traffic.event_universe(universe),
+                             pool)
+    cmp, cmp_eager = _compare_runs(runs)
+    records = WINDOWS * FOLDS_PER_WINDOW * BATCH
+    h2d = sum(n * k * ring.n_regions * ring._region_words * 4
+              for k, n in ring.superbatch_folds.items())
+    sizes = feeder.sizes
+    return {"phase": "lanes_path", "recall_at_100": recalls,
+            **_window_summary(runs, cmp, cmp_eager),
+            **_ring_summary(run, eager, plain, {
+                "lanes": ring.lanes, "ladder": list(ring.ladder),
+                "pack_threads": ring.pack_threads,
+                "cpu_count": os.cpu_count(), "caps": repr(ring.caps),
+                "slot_cap": ring.slot_cap, "packer": "native"}),
+            "evictions": len(sizes), "eviction_rows_min": min(sizes),
+            "eviction_rows_max": max(sizes),
+            "superbatch_folds": {str(k): v for k, v in
+                                 sorted(ring.superbatch_folds.items())},
+            "continuations": ring.continuations,
+            "dict_resets": ring.dict_resets, "spill_rows": ring.spill_rows,
+            "key_table": run["key_table_check"],
+            "h2d_bytes_per_record": h2d / records}
+
+
+def phase_dense_ring(specs) -> dict:
+    """The dense and compact rings at full width, fed flow events of a v4
+    pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
+    burst past the compact feed's spill lane, so its dense fallback runs):
+    each feed captured, eager and plain, 2 windows x 32 batches."""
+    import numpy as np
+    from netobserv_tpu_torch.datapath import flowpack
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import staging
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    universe, pool = traffic.make_pool(np.random.default_rng(2), v4=True,
+                                       v6_share=V6_SHARES)
+    events = traffic.event_pool(pool, np.random.default_rng(3))
+    out = {"phase": "dense_ring", "v6_share_per_batch": list(V6_SHARES),
+           "feeds": {}}
+    records = WINDOWS * FOLDS_PER_WINDOW * BATCH
+    for feed, path in (("dense", "dense_ring"), ("compact", "compact_ring")):
+        runs = _runs(event_feeder(events), len(events), specs, cfg,
+                     ring=True, exp_kw={"feed": feed, **LANES_KW})
+        run, eager, plain = (runs[m] for m in MODES)
+        ring = run["ring"]
+        check(isinstance(ring, staging.DenseStagingRing)
+              and (ring.spill_cap is not None) == (feed == "compact"),
+              f"{feed}: ring {ring}")
+        check(run["folds"] == WINDOWS * FOLDS_PER_WINDOW,
+              f"{feed}: {run['folds']} dispatches")
+        _check_launches(runs, specs, path, run["folds"], feed)
+        if feed == "compact":
+            check(ring.dense_fallbacks >= 1, "no dense fallback")
+            for other in (eager, plain):
+                check(other["ring"].dense_fallbacks == ring.dense_fallbacks,
+                      "the eager or plain run fell back otherwise")
+            fb = ring.dense_fallbacks
+            _check_watch(run, {"fold_compact": run["folds"] - fb,
+                               "fold_compact_dense": fb})
+            h2d = ((run["folds"] - fb)
+                   * flowpack.compact_buf_len(BATCH, ring.spill_cap) * 4
+                   + fb * BATCH * sk.DENSE_WORDS * 4)
+        else:
+            _check_watch(run, {"fold_dense_ring": run["folds"]})
+            h2d = run["folds"] * BATCH * sk.DENSE_WORDS * 4
+        recalls = _check_windows(run["windows"],
+                                 traffic.event_universe(universe), pool)
+        cmp, cmp_eager = _compare_runs(runs)
+        res = {"recall_at_100": recalls,
+               **_window_summary(runs, cmp, cmp_eager),
+               **_ring_summary(run, eager, plain, {
+                   "pack_threads": ring.pack_threads,
+                   "spill_cap": ring.spill_cap}),
+               "dense_fallbacks": ring.dense_fallbacks,
+               "h2d_bytes_per_record": h2d / records}
+        out["feeds"][feed] = res
+        out[path] = res["launches"]
+    return out
 
 
 def _c1_run(specs, dense, cfg, mode: str) -> dict:
@@ -1887,18 +2165,21 @@ def _traced_want(specs, launches: dict) -> dict:
 
 
 def phase_profile(specs, feed, n_batches: int, cfg, name: str, path: str,
-                  capture: bool, warm: int = 2) -> dict:
-    """Device time by kernel over FOLDS_PER_WINDOW // 4 folds of a path
-    (torch.profiler) after `warm` warm-up folds, captured or eager, and the
-    device's busy share of the wall time. The trace must count each kernel
-    of the path as often as the launch counts say (a replay adds its
-    capture's launches), and the launch counts must be the path's per
-    fold, or the loop runs again, up to PROFILE_TRIES times."""
+                  capture: bool, warm: int = 2, exp_kw: dict | None = None,
+                  batches_per_call: int = 1) -> dict:
+    """Device time by kernel over FOLDS_PER_WINDOW // 4 calls of a path's
+    feed (torch.profiler) after `warm` warm-up calls, captured or eager,
+    and the device's busy share of the wall time; each call folds
+    `batches_per_call` batches of BATCH records, and the times are per
+    batch ("per_fold", per 16,384 records). The trace must count each
+    kernel of the path as often as the launch counts say (a replay adds
+    its capture's launches), and the launch counts must be the path's per
+    ingest dispatch, or the loop runs again, up to PROFILE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
-                              capture=capture)
+                              capture=capture, **(exp_kw or {}))
     for i in range(warm):
         feed(exp, i % n_batches)
     torch.cuda.synchronize()
@@ -1930,29 +2211,34 @@ def phase_profile(specs, feed, n_batches: int, cfg, name: str, path: str,
     exp.close()
     busy_us = sum(r[0] for r in rows)
     check(busy_us > 0, "the profiler saw no device time")
-    return {"phase": name, "path": path, "captured": capture, "folds": n,
+    nb = n * batches_per_call  # batches of BATCH records folded
+    return {"phase": name, "path": path, "captured": capture, "calls": n,
+            "batches_per_call": batches_per_call, "folds": nb,
             "ingest_calls": chunks, "launches": launches,
-            "wall_ms_per_fold": wall * 1e3 / n,
-            "device_ms_per_fold": busy_us / 1e3 / n,
+            "wall_ms_per_fold": wall * 1e3 / nb,
+            "device_ms_per_fold": busy_us / 1e3 / nb,
             "device_busy_share": busy_us / 1e6 / wall if wall else None,
-            "pack_seconds_per_fold": pack / n,
-            "top_device_ops": [{"name": k[:80], "us_per_fold": us / n,
-                                "calls_per_fold": c / n}
+            "pack_seconds_per_fold": pack / nb,
+            "top_device_ops": [{"name": k[:80], "us_per_fold": us / nb,
+                                "calls_per_fold": c / nb}
                                for us, k, c in rows[:15]]}
 
 
 def phase_watch() -> dict:
     """The compile watch over the run: every captured fold of every
-    captured exporter captured once, at its first call, and never again
-    (a graph whose feed was not folded, never); no retrace in the process.
+    captured exporter captured once, at its first call (a ladder entry
+    when its ring was made), and never again (a graph whose feed was not
+    folded, never, but for a ladder entry); no retrace in the process.
     `snapshot` is the watch's snapshot of each captured exporter, taken
     while it lived (`_watch_stats`)."""
     from netobserv_tpu_torch.utils import retrace
     total = retrace.total_retraces()
     check(total == 0, f"{total} retraces")
-    check(WATCHED and all(w["compiles"] == min(w["calls"], 1)
-                          and w["retraces"] == 0 for w in WATCHED),
-          f"captured folds {WATCHED}")
+    check(WATCHED and all(
+        w["compiles"] == (1 if _warm_captured(w["fn"])
+                          else min(w["calls"], 1))
+        and w["retraces"] == 0 for w in WATCHED),
+        f"captured folds {WATCHED}")
     used = [w for w in WATCHED if w["calls"]]
     return {"phase": "retrace_watch", "total_retraces": total,
             "captured_folds": len(used),
@@ -1965,31 +2251,41 @@ def phase_watch() -> dict:
                            for w in used}}
 
 
-#: profile phases: (path, name, feed kind, warm-up folds: None = the pool)
-PROFILES = (("wide", "profile", "dense", 2),
-            ("tiered", "profile_tiered", "dense", 2),
-            ("resident", "profile_resident", "events", None))
+#: profile phases: (path, name, feed kind, warm-up calls: None = the
+#: pool, exporter arguments, batches a call)
+PROFILES = (("wide", "profile", "dense", 2, None, 1),
+            ("tiered", "profile_tiered", "dense", 2, None, 1),
+            ("resident", "profile_resident", "events", None, RESIDENT_KW, 1),
+            ("lanes", "profile_lanes", "superbatch", 2, LANES_KW, 4))
 
 
 def phase_profiles(specs, dense, events, paths: dict) -> dict:
     """The profile phases, each path captured then eager; emits each and
-    returns the `per_fold` line: per path and fold (a batch of the pool),
-    the profiled wall and device ms, busy share and pack seconds, and from
+    returns the `per_fold` line: per path and batch of 16,384 records, the
+    profiled wall and device ms, busy share and pack seconds, and from
     the path phase's unprofiled windows (`paths`, by path) the wall ms
     (of the last reset window, steady state: a captured run's first
-    window holds its capture) and the device ms over it."""
+    window holds its capture) and the device ms over it. The lanes path
+    is profiled at k = 4 (each call one eviction of 4 batches, one
+    superbatch dispatch); its window is the lanes phase's eviction mix."""
     from netobserv_tpu_torch.sketch import state as sk
     cfgs = {"wide": sk.SketchConfig(), "tiered": tiered_cfg(),
-            "resident": sk.SketchConfig()}
+            "resident": sk.SketchConfig(), "lanes": sk.SketchConfig()}
     out = {"phase": "per_fold"}
-    for path, name, kind, warm in PROFILES:
-        pool, feeder = ((dense, dense_feeder) if kind == "dense"
-                        else (events, event_feeder))
+    for path, name, kind, warm, kw, per_call in PROFILES:
+        if kind == "dense":
+            pool, feeder = dense, dense_feeder(dense)
+        elif kind == "events":
+            pool, feeder = events, event_feeder(events)
+        else:
+            feeder = SuperbatchFeeder(events, per_call)
+            pool = feeder.parts
         out[path] = {}
         for capture in (True, False):
-            r = phase_profile(specs, feeder(pool), len(pool), cfgs[path],
+            r = phase_profile(specs, feeder, len(pool), cfgs[path],
                               name + ("" if capture else "_eager"), path,
-                              capture, len(pool) if warm is None else warm)
+                              capture, len(pool) if warm is None else warm,
+                              kw, per_call)
             emit(r)
             secs = paths[path]["window_seconds" if capture
                                else "eager_window_seconds"]
@@ -2059,11 +2355,18 @@ def main() -> int:
         phase = "resident_path"
         res_res = phase_resident_path(specs, universe, pool, events)
         emit(res_res)
+        phase = "lanes_path"
+        lanes_res = phase_lanes_path(specs, universe, pool, events)
+        emit(lanes_res)
+        phase = "dense_ring"
+        ring_res = phase_dense_ring(specs)
+        emit(ring_res)
         phase = "c1_shapes"
         emit(phase_c1(specs, dense))
         phase = "profile"
         emit(phase_profiles(specs, dense, events, {
-            "wide": main_res, "tiered": tier_res, "resident": res_res}))
+            "wide": main_res, "tiered": tier_res, "resident": res_res,
+            "lanes": lanes_res}))
         phase = "retrace_watch"
         emit(phase_watch())
         torch.cuda.synchronize()
@@ -2074,7 +2377,10 @@ def main() -> int:
               "error": f"{type(e).__name__}: {e}"})
         return 1
     launches = {"wide": main_res["launches"], "tiered": tier_res["launches"],
-                "resident": res_res["launches"]}
+                "resident": res_res["launches"],
+                "lanes": lanes_res["launches"],
+                "dense_ring": ring_res["dense_ring"],
+                "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "traces_retried": len(PROFILE_RETRIED)})
     emit({"kernels": [

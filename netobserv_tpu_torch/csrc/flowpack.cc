@@ -1,20 +1,24 @@
-// flowpack.cc: the resident feed's host packer in C++ (host code, not a
-// kernel; built with g++ by ops/kernels/_build.build_host and loaded with
-// ctypes by datapath/flowpack.py).
+// flowpack.cc: the host packers of the dense, compact and resident feeds
+// in C++ (host code, not a kernel; built with g++ by
+// ops/kernels/_build.build_host and loaded with ctypes by
+// datapath/flowpack.py).
 //
 // The port's trimmed copy of the reference's native packer,
 // netobserv_tpu/datapath/native/flowpack.cc: feature_markers and
-// fill_feature_words (:97-139), the FP_* layout constants (:95, :311-315),
-// the fingerprint dictionary key_fp64 / fp_dict_* (:317-404), make_kw,
-// rtt_code11 and lat_code16 (:406-430) and fp_pack_resident (:432-570).
-// The dense and compact packers, the per-CPU merges, CRC32C and the fused
-// drain are not here. Two entries are the port's own: fp_struct_sizes,
-// which the loader holds against model/binfmt's dtypes, and
+// fill_feature_words (:97-139), fp_pack_dense (:140-178), the compact
+// layout, is_v4_mapped and fp_pack_compact (:180-274), the FP_* layout
+// constants (:95, :311-315), the fingerprint dictionary key_fp64 /
+// fp_dict_* (:317-404), make_kw, rtt_code11 and lat_code16 (:406-430)
+// and fp_pack_resident (:432-570). The per-CPU merges, CRC32C and the
+// fused drain are not here. Three entries are the port's own:
+// fp_struct_sizes and fp_layout_words, which the loader holds against
+// model/binfmt's dtypes and datapath/flowpack.py's layout constants, and
 // fp_dict_lookup, which the checks use to read the dictionary.
 //
-// The region layout is the Python packer's (datapath/flowpack.py
-// pack_resident), word for word; sketch/state.resident_to_arrays unpacks
-// it on the device. C ABI only; every buffer is the caller's.
+// Each layout is its Python twin's (datapath/flowpack.py pack_dense,
+// pack_compact, pack_resident), word for word; sketch/state's
+// dense_to_arrays, compact_to_arrays and resident_to_arrays unpack them on
+// the device. C ABI only; every buffer is the caller's.
 
 #include <cstddef>
 #include <cstdint>
@@ -22,10 +26,13 @@
 
 #include "records.h"
 
-#define FP_ABI_VERSION 1
+#define FP_ABI_VERSION 2
 
 // row width of the dense feed and of the resident spill lane
 #define FP_DENSE_WORDS 20
+// compact (v4) row width, and bytes 8..11 of a v4-in-v6 mapped address
+#define FP_COMPACT_WORDS 10
+#define FP_V4_PREFIX_WORD2 0xffff0000u
 #define FP_HOT_WORDS 3
 #define FP_RESIDENT_HDR 4
 #define FP_NK_WORDS 11
@@ -47,6 +54,17 @@ uint32_t fp_struct_sizes(uint64_t *out, uint32_t n) {
         sizeof(struct no_xlat_rec), sizeof(struct no_quic_rec)};
     for (uint32_t i = 0; i < n && i < 8; i++) out[i] = sizes[i];
     return 8;
+}
+
+// The layout constants of the three feeds, in this order: dense row words,
+// compact row words, resident header words, hot row words, new-key row
+// words, and the v4-mapped prefix word. Writes min(n, 6) and returns 6.
+uint32_t fp_layout_words(uint32_t *out, uint32_t n) {
+    const uint32_t words[6] = {FP_DENSE_WORDS, FP_COMPACT_WORDS,
+                               FP_RESIDENT_HDR, FP_HOT_WORDS, FP_NK_WORDS,
+                               FP_V4_PREFIX_WORD2};
+    for (uint32_t i = 0; i < n && i < 6; i++) out[i] = words[i];
+    return 6;
 }
 
 // Feature words 16..19 of a dense row (the spill lane's rows):
@@ -96,6 +114,143 @@ static inline void fill_feature_words(const struct no_flow_stats *s,
     w16[2] = dr ? (cause | (static_cast<uint32_t>(dr[i].latest_state) << 16))
                 : 0;
     w16[3] = 0;
+}
+
+// Dense feed: one row of FP_DENSE_WORDS per event, batch_size rows, the
+// rows past n zeroed. Row (must match sketch/state.py dense_to_arrays):
+//   w0..3 src ip, w4..7 dst ip (16 bytes each, as the key holds them)
+//   w8 src_port << 16 | dst_port   w9 proto << 16 | icmp_type << 8 | code
+//   w10 bytes f32 bitcast   w11 packets   w12 rtt_us   w13 dns latency us
+//   w14 valid (1)   w15 sampling   w16..19 fill_feature_words
+void fp_pack_dense(const uint8_t *events, size_t n,
+                   const uint8_t *extra, const uint8_t *dns,
+                   const uint8_t *drops, const uint8_t *xlat,
+                   const uint8_t *quic,
+                   uint32_t *out, size_t batch_size) {
+    const struct no_flow_event *ev =
+        reinterpret_cast<const struct no_flow_event *>(events);
+    const struct no_extra_rec *ex =
+        reinterpret_cast<const struct no_extra_rec *>(extra);
+    const struct no_dns_rec *dn =
+        reinterpret_cast<const struct no_dns_rec *>(dns);
+    const struct no_drops_rec *dr =
+        reinterpret_cast<const struct no_drops_rec *>(drops);
+    const struct no_xlat_rec *xl =
+        reinterpret_cast<const struct no_xlat_rec *>(xlat);
+    const struct no_quic_rec *qc =
+        reinterpret_cast<const struct no_quic_rec *>(quic);
+    for (size_t i = 0; i < n; i++) {
+        const struct no_flow_key *k = &ev[i].key;
+        const struct no_flow_stats *s = &ev[i].stats;
+        uint32_t *row = out + i * FP_DENSE_WORDS;
+        std::memcpy(row, k->src_ip, 16);      // words 0..3
+        std::memcpy(row + 4, k->dst_ip, 16);  // words 4..7
+        row[8] = (static_cast<uint32_t>(k->src_port) << 16) | k->dst_port;
+        row[9] = (static_cast<uint32_t>(k->proto) << 16) |
+                 (static_cast<uint32_t>(k->icmp_type) << 8) | k->icmp_code;
+        float b = static_cast<float>(s->bytes);
+        std::memcpy(&row[10], &b, 4);
+        row[11] = s->packets;
+        row[12] = ex ? static_cast<uint32_t>(ex[i].rtt_ns / 1000) : 0;
+        row[13] = dn ? static_cast<uint32_t>(dn[i].latency_ns / 1000) : 0;
+        row[14] = 1;
+        row[15] = s->sampling;
+        fill_feature_words(s, ex, xl, qc, dr, i, row + 16);
+    }
+    if (n < batch_size)
+        std::memset(out + n * FP_DENSE_WORDS, 0,
+                    (batch_size - n) * FP_DENSE_WORDS * sizeof(uint32_t));
+}
+
+// Compact feed: v4 flows (both addresses v4-in-v6 mapped) collapse their
+// 10 key words to 4; non-v4 rows, and rows carrying drop data, go to a
+// full-width (FP_DENSE_WORDS) spill lane. One flat buffer:
+//   [batch_size * FP_COMPACT_WORDS compact words | spill_cap * 20 words]
+// Compact row (must match sketch/state.py compact_to_arrays):
+//   w0 src_v4 (key word 3)   w1 dst_v4 (key word 7)   w2 ports
+//   w3 bit31 = valid, low 24 = proto << 16 | icmp_type << 8 | icmp_code
+//   w4 bytes f32 bitcast     w5 packets     w6 rtt_us     w7 dns us
+//   w8 sampling              w9 tcp_flags | dscp << 16 | markers << 24
+// Returns the spill rows used, or -1 if they would pass spill_cap (the
+// caller then packs the batch dense).
+static inline bool is_v4_mapped(const uint8_t *ip16) {
+    uint32_t w0, w1, w2;
+    std::memcpy(&w0, ip16, 4);
+    std::memcpy(&w1, ip16 + 4, 4);
+    std::memcpy(&w2, ip16 + 8, 4);
+    return w0 == 0 && w1 == 0 && w2 == FP_V4_PREFIX_WORD2;
+}
+
+int fp_pack_compact(const uint8_t *events, size_t n,
+                    const uint8_t *extra, const uint8_t *dns,
+                    const uint8_t *drops, const uint8_t *xlat,
+                    const uint8_t *quic,
+                    uint32_t *out, size_t batch_size, size_t spill_cap) {
+    const struct no_flow_event *ev =
+        reinterpret_cast<const struct no_flow_event *>(events);
+    const struct no_extra_rec *ex =
+        reinterpret_cast<const struct no_extra_rec *>(extra);
+    const struct no_dns_rec *dn =
+        reinterpret_cast<const struct no_dns_rec *>(dns);
+    const struct no_drops_rec *dr =
+        reinterpret_cast<const struct no_drops_rec *>(drops);
+    const struct no_xlat_rec *xl =
+        reinterpret_cast<const struct no_xlat_rec *>(xlat);
+    const struct no_quic_rec *qc =
+        reinterpret_cast<const struct no_quic_rec *>(quic);
+    uint32_t *spill = out + batch_size * FP_COMPACT_WORDS;
+    size_t nc = 0, ns = 0;
+    for (size_t i = 0; i < n; i++) {
+        const struct no_flow_key *k = &ev[i].key;
+        const struct no_flow_stats *s = &ev[i].stats;
+        uint32_t rtt = ex ? static_cast<uint32_t>(ex[i].rtt_ns / 1000) : 0;
+        uint32_t dlat = dn ? static_cast<uint32_t>(dn[i].latency_ns / 1000) : 0;
+        bool has_drops = dr && (dr[i].bytes || dr[i].packets);
+        if (!has_drops && is_v4_mapped(k->src_ip) && is_v4_mapped(k->dst_ip)) {
+            uint32_t *row = out + nc * FP_COMPACT_WORDS;
+            std::memcpy(&row[0], k->src_ip + 12, 4);
+            std::memcpy(&row[1], k->dst_ip + 12, 4);
+            row[2] = (static_cast<uint32_t>(k->src_port) << 16) | k->dst_port;
+            row[3] = 0x80000000u | (static_cast<uint32_t>(k->proto) << 16) |
+                     (static_cast<uint32_t>(k->icmp_type) << 8) | k->icmp_code;
+            float b = static_cast<float>(s->bytes);
+            std::memcpy(&row[4], &b, 4);
+            row[5] = s->packets;
+            row[6] = rtt;
+            row[7] = dlat;
+            row[8] = s->sampling;
+            row[9] = (s->tcp_flags & 0xFFFFu) |
+                     (static_cast<uint32_t>(s->dscp & 0xFFu) << 16) |
+                     (static_cast<uint32_t>(feature_markers(ex, xl, qc, i))
+                      << 24);
+            nc++;
+        } else {
+            if (ns >= spill_cap)
+                return -1;
+            uint32_t *row = spill + ns * FP_DENSE_WORDS;
+            std::memcpy(row, k->src_ip, 16);
+            std::memcpy(row + 4, k->dst_ip, 16);
+            row[8] = (static_cast<uint32_t>(k->src_port) << 16) | k->dst_port;
+            row[9] = (static_cast<uint32_t>(k->proto) << 16) |
+                     (static_cast<uint32_t>(k->icmp_type) << 8) | k->icmp_code;
+            float b = static_cast<float>(s->bytes);
+            std::memcpy(&row[10], &b, 4);
+            row[11] = s->packets;
+            row[12] = rtt;
+            row[13] = dlat;
+            row[14] = 1;
+            row[15] = s->sampling;
+            fill_feature_words(s, ex, xl, qc, dr, i, row + 16);
+            ns++;
+        }
+    }
+    if (nc < batch_size)
+        std::memset(out + nc * FP_COMPACT_WORDS, 0,
+                    (batch_size - nc) * FP_COMPACT_WORDS * sizeof(uint32_t));
+    if (ns < spill_cap)
+        std::memset(spill + ns * FP_DENSE_WORDS, 0,
+                    (spill_cap - ns) * FP_DENSE_WORDS * sizeof(uint32_t));
+    return static_cast<int>(ns);
 }
 
 // The key -> slot dictionary. 16-byte entries: a 64-bit key FINGERPRINT

@@ -1,4 +1,4 @@
-// records.h: the flow records the resident packer (flowpack.cc) reads, as
+// records.h: the flow records the host packers (flowpack.cc) read, as
 // the datapath lays them out.
 //
 // The port's trimmed copy of netobserv_tpu/datapath/bpf/records.h (the

@@ -1,47 +1,65 @@
-"""The resident feed's host packer: a key dictionary and its Python packer.
+"""The host packers of the three device feeds: dense, compact and resident.
 
-Counterpart of the resident half of `netobserv_tpu/datapath/flowpack.py`
-(`RESIDENT_HDR`, `HOT_WORDS`, `NK_WORDS`, `DENSE_WORDS`, `RTT_MAX_US`,
-`ResidentCaps`, `default_resident_caps`, `resident_buf_len`,
-`zero_resident_region`, `KeyDict` in its Python form, `_fit_rows`,
-`_feature_words`, `_rtt_code11`, `_lat_code16` and the Python twin of
-`pack_resident`), kept as a copy. The layout is pinned in the reference's
-`datapath/native/flowpack.cc` `fp_pack_resident`; the device unpack is
-`sketch/state.resident_to_arrays`.
+Counterpart of `netobserv_tpu/datapath/flowpack.py`: the layout constants
+(`DENSE_WORDS`, `COMPACT_WORDS`, `RESIDENT_HDR`, `HOT_WORDS`, `NK_WORDS`,
+`RTT_MAX_US`), `compact_buf_len`, `ResidentCaps`, `default_resident_caps`,
+`resident_buf_len`, `zero_resident_region`, `KeyDict` in its Python form,
+`_fit_rows`, `_feature_words`, `_rtt_code11`, `_lat_code16`, `pack_dense`
+with `pack_dense_sharded` and `_pack_submit` (`:341-466`), `pack_compact`
+(`:468-565`) and the Python twin of `pack_resident`, kept as a copy. The
+layouts are pinned in the reference's `datapath/native/flowpack.cc`
+(`fp_pack_dense`, `fp_pack_compact`, `fp_pack_resident`); the device
+unpacks are `sketch/state.dense_to_arrays`, `compact_to_arrays` and
+`resident_to_arrays`.
 
-One resident region is a flat uint32 buffer: a header of RESIDENT_HDR words
-(sampling, new keys, spill rows, dns | drops << 16), B hot rows of HOT_WORDS
-words, the sparse DNS lane (caps.dns words), the sparse drop lane (caps.drop
-x 2 words), the new-key lane (caps.nk x NK_WORDS words) and the full-width
-spill lane (caps.spill x DENSE_WORDS words, the dense feed's rows). A hot
-row names its key by a 20-bit slot id of the device key table; the host
-`KeyDict` assigns the slots and the new-key lane defines them on the device.
+- The dense feed is B rows of DENSE_WORDS words, one per event, the rows
+  past the event count zeroed.
+- The compact feed is one flat buffer: B v4 rows of COMPACT_WORDS words
+  (both addresses v4-in-v6 mapped, no drop data), then a spill lane of
+  `spill_cap` dense rows for the rest; a batch whose spill rows pass
+  `spill_cap` does not pack (`pack_compact` returns None, and the caller
+  packs it dense).
+- One resident region is a flat uint32 buffer: a header of RESIDENT_HDR
+  words (sampling, new keys, spill rows, dns | drops << 16), B hot rows of
+  HOT_WORDS words, the sparse DNS lane (caps.dns words), the sparse drop
+  lane (caps.drop x 2 words), the new-key lane (caps.nk x NK_WORDS words)
+  and the full-width spill lane (caps.spill x DENSE_WORDS words, the dense
+  feed's rows). A hot row names its key by a 20-bit slot id of the device
+  key table; the host `KeyDict` assigns the slots and the new-key lane
+  defines them on the device.
 
-Two packers fill a region, each with its own dictionary, and the two do
-not mix:
+Every feed has a native packer, the port's copy of the reference's C++
+(`csrc/flowpack.cc`, from `netobserv_tpu/datapath/native/flowpack.cc`),
+built with the host C++ compiler at first use
+(`ops/kernels/_build.build_host`), and a Python twin, the layout oracle:
 
-- the native packer, `NativeKeyDict` with `pack_resident_native`: the
-  port's copy of the reference's C++ packer (`csrc/flowpack.cc`, from
-  `netobserv_tpu/datapath/native/flowpack.cc`), built with the host C++
-  compiler at first use (`ops/kernels/_build.build_host`). The staging
-  ring's default on every device. A missing compiler, a failed build or
-  a library whose ABI version or record sizes disagree with this package
-  raises; nothing falls back to the Python packer;
-- the Python packer, `KeyDict` with `pack_resident`: the layout oracle,
-  per row in Python.
+- dense and compact: `pack_dense` and `pack_compact` run the native pass by
+  default and the twin with `native=False`; `pack_dense_sharded` splits
+  the rows over threads of one pool (`_pack_submit`), each a native pass
+  on its own row range (ctypes releases the GIL, so they run at once);
+- resident: `NativeKeyDict` with `pack_resident_native`, the staging
+  rings' default on every device, or `KeyDict` with `pack_resident`. The
+  two dictionaries do not mix.
 
-The two give the same region word for word, the same rows consumed and
-the same dictionary count, chunk after chunk, with one exception: the
-native dictionary keys on a 64-bit fingerprint of the 40 key bytes, the
-Python one on the bytes. Two keys with one fingerprint (p ~ n^2 / 2^65,
-about 1e-6 with 2^18 keys) share a slot in the native dictionary, where
-the Python one gives the second key a slot of its own.
+A missing compiler, a failed build or a library whose ABI version, record
+sizes or layout constants disagree with this package raises; nothing
+falls back to a Python packer.
+
+The native and Python packers give the same buffers word for word (and
+for the resident feed the same rows consumed and dictionary count, chunk
+after chunk), with one exception: the native dictionary keys on a 64-bit
+fingerprint of the 40 key bytes, the Python one on the bytes. Two keys
+with one fingerprint (p ~ n^2 / 2^65, about 1e-6 with 2^18 keys) share a
+slot in the native dictionary, where the Python one gives the second key a
+slot of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -55,8 +73,18 @@ HOT_WORDS = 3
 NK_WORDS = 11
 #: row width of the dense feed and of the resident spill lane
 DENSE_WORDS = 20
+#: row width of the compact (v4) feed; layout pinned in fp_pack_compact
+COMPACT_WORDS = 10
+#: bytes 8..11 of a v4-in-v6 mapped address as a little-endian u32
+V4_PREFIX_WORD2 = 0xFFFF0000
 #: hot-row rtt code ceiling (µs); larger samples spill full-width
 RTT_MAX_US = 0xFF << 14
+
+
+def compact_buf_len(batch_size: int, spill_cap: int) -> int:
+    """Flat word count of a compact feed buffer: compact lane + spill
+    lane."""
+    return batch_size * COMPACT_WORDS + spill_cap * DENSE_WORDS
 
 
 class ResidentCaps:
@@ -348,10 +376,13 @@ def pack_resident(events_raw: bytes | np.ndarray,
 
 #: the packer's source in csrc/, and the ABI version it must report
 NATIVE_SOURCE = "flowpack.cc"
-ABI_VERSION = 1
+ABI_VERSION = 2
 #: the records the packer reads, in `fp_struct_sizes` order
 _NATIVE_RECORDS = (binfmt.FLOW_KEY_DTYPE, binfmt.FLOW_STATS_DTYPE,
                    binfmt.FLOW_EVENT_DTYPE, *_LANE_DTYPES)
+#: the layout constants, in `fp_layout_words` order
+_NATIVE_LAYOUT = (DENSE_WORDS, COMPACT_WORDS, RESIDENT_HDR, HOT_WORDS,
+                  NK_WORDS, V4_PREFIX_WORD2)
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -361,6 +392,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name, res, args in (
             ("fp_abi_version", ctypes.c_uint32, []),
             ("fp_struct_sizes", ctypes.c_uint32, [vp, ctypes.c_uint32]),
+            ("fp_layout_words", ctypes.c_uint32, [vp, ctypes.c_uint32]),
+            ("fp_pack_dense", None, [vp, sz, vp, vp, vp, vp, vp, vp, sz]),
+            ("fp_pack_compact", ctypes.c_int,
+             [vp, sz, vp, vp, vp, vp, vp, vp, sz, sz]),
             ("fp_dict_new", vp, [ctypes.c_uint32]),
             ("fp_dict_free", None, [vp]),
             ("fp_dict_reset", None, [vp]),
@@ -373,8 +408,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _check_abi(lib: ctypes.CDLL, path) -> None:
-    """Raise unless the library reports ABI_VERSION and the record sizes
-    of `model/binfmt`'s dtypes."""
+    """Raise unless the library reports ABI_VERSION, the record sizes of
+    `model/binfmt`'s dtypes and this module's layout constants."""
     ver = int(lib.fp_abi_version())
     if ver != ABI_VERSION:
         raise RuntimeError(f"{path}: packer ABI version {ver}, this package "
@@ -385,6 +420,11 @@ def _check_abi(lib: ctypes.CDLL, path) -> None:
     if n != len(want) or sizes.tolist() != want:
         raise RuntimeError(f"{path}: record sizes {sizes.tolist()[:n]} "
                            f"differ from model/binfmt's {want}")
+    words = np.zeros(len(_NATIVE_LAYOUT), np.uint32)
+    n = int(lib.fp_layout_words(words.ctypes.data, len(words)))
+    if n != len(_NATIVE_LAYOUT) or words.tolist() != list(_NATIVE_LAYOUT):
+        raise RuntimeError(f"{path}: layout words {words.tolist()[:n]} "
+                           f"differ from this module's {_NATIVE_LAYOUT}")
 
 
 def native_lib() -> ctypes.CDLL:
@@ -476,3 +516,193 @@ def pack_resident_native(events_raw: bytes | np.ndarray,
         kdict._live_handle(), out.ctypes.data, batch_size, caps.dns, caps.drop,
         caps.nk, caps.spill)
     return out, int(consumed)
+
+
+# ------------------------------------------------- the dense and compact feeds
+
+def _events_of(events_raw) -> np.ndarray:
+    """Flow events as a contiguous FLOW_EVENT_DTYPE array (raw bytes are
+    decoded)."""
+    if isinstance(events_raw, np.ndarray):
+        return np.ascontiguousarray(events_raw, dtype=binfmt.FLOW_EVENT_DTYPE)
+    return binfmt.decode_flow_events(events_raw)
+
+
+def _out_buffer(out: Optional[np.ndarray], shape: tuple) -> np.ndarray:
+    if out is None:
+        return np.empty(shape, dtype=np.uint32)
+    if (out.shape != shape or out.dtype != np.uint32
+            or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous {shape} uint32")
+    return out
+
+
+def pack_dense(events_raw: bytes | np.ndarray,
+               batch_size: Optional[int] = None,
+               extra: Optional[np.ndarray] = None,
+               dns: Optional[np.ndarray] = None,
+               drops: Optional[np.ndarray] = None,
+               xlat: Optional[np.ndarray] = None,
+               quic: Optional[np.ndarray] = None,
+               out: Optional[np.ndarray] = None,
+               native: bool = True) -> np.ndarray:
+    """Raw flow events -> one (batch_size, DENSE_WORDS) u32 array, the dense
+    feed (`sketch/state.dense_to_arrays` unpacks it). The rows past the
+    event count are zeroed, so a reused `out` never leaks stale rows.
+    `native=False` runs the Python twin."""
+    events = _events_of(events_raw)
+    n = len(events)
+    batch_size = batch_size or max(n, 1)
+    if n > batch_size:
+        raise ValueError(f"{n} events exceed batch size {batch_size}")
+    out = _out_buffer(out, (batch_size, DENSE_WORDS))
+    ex, dn, dr, xl, qc = (_fit_rows(a, n, dt) for a, dt in zip(
+        (extra, dns, drops, xlat, quic), _LANE_DTYPES))
+    if native:
+        native_lib().fp_pack_dense(
+            events.ctypes.data, n, *(_addr(a) for a in (ex, dn, dr, xl, qc)),
+            out.ctypes.data, batch_size)
+        return out
+    out[n:] = 0
+    if n:
+        stats = events["stats"]
+        out[:n, :10] = pack_key_words(events["key"])
+        out[:n, 10] = stats["bytes"].astype(np.float32).view(np.uint32)
+        out[:n, 11] = stats["packets"]
+        out[:n, 12] = ex["rtt_ns"] // 1000 if ex is not None else 0
+        out[:n, 13] = dn["latency_ns"] // 1000 if dn is not None else 0
+        out[:n, 14] = 1
+        out[:n, 15] = stats["sampling"]
+        out[:n, 16:] = _feature_words(stats, ex, xl, qc, dr)
+    return out
+
+
+_PACK_POOL: Optional[ThreadPoolExecutor] = None
+_PACK_POOL_SIZE = 0
+_PACK_POOL_LOCK = threading.Lock()
+
+
+def _pack_submit(threads: int, fns: list[Callable]) -> list[Future]:
+    """Submit pack jobs to the one packer pool under its lock: making the
+    pool, growing it (retiring the old pool's workers) and submitting are
+    one step, so a concurrent grower never shuts a pool down between
+    another caller getting it and submitting to it. `shutdown(wait=False)`
+    lets jobs already submitted run to their end."""
+    global _PACK_POOL, _PACK_POOL_SIZE
+    with _PACK_POOL_LOCK:
+        if _PACK_POOL is None or _PACK_POOL_SIZE < threads:
+            if _PACK_POOL is not None:
+                _PACK_POOL.shutdown(wait=False)
+            _PACK_POOL = ThreadPoolExecutor(max_workers=threads,
+                                            thread_name_prefix="flowpack")
+            _PACK_POOL_SIZE = threads
+        return [_PACK_POOL.submit(fn) for fn in fns]
+
+
+def pack_dense_sharded(events_raw: bytes | np.ndarray,
+                       batch_size: int,
+                       threads: int,
+                       extra: Optional[np.ndarray] = None,
+                       dns: Optional[np.ndarray] = None,
+                       drops: Optional[np.ndarray] = None,
+                       xlat: Optional[np.ndarray] = None,
+                       quic: Optional[np.ndarray] = None,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
+    """`pack_dense` (native) with the rows split over `threads` packer
+    threads, each packing a disjoint row range of the same `out`; the last
+    also zeroes the rows past the events. The same buffer as `pack_dense`;
+    one thread, or fewer than two rows a thread, packs in one pass."""
+    events = _events_of(events_raw)
+    n = len(events)
+    if n > batch_size:
+        raise ValueError(f"{n} events exceed batch size {batch_size}")
+    feats = {"extra": extra, "dns": dns, "drops": drops, "xlat": xlat,
+             "quic": quic}
+    if threads <= 1 or n < 2 * threads:
+        return pack_dense(events, batch_size=batch_size, out=out, **feats)
+    out = _out_buffer(out, (batch_size, DENSE_WORDS))
+    bounds = [n * i // threads for i in range(threads + 1)]
+
+    def shard(i):
+        lo, hi = bounds[i], bounds[i + 1]
+        bs = (batch_size - lo) if i == threads - 1 else (hi - lo)
+        pack_dense(events[lo:hi], batch_size=bs, out=out[lo:lo + bs],
+                   **{k: (v[lo:hi] if v is not None and len(v) else None)
+                      for k, v in feats.items()})
+
+    for f in _pack_submit(threads, [lambda i=i: shard(i)
+                                    for i in range(threads)]):
+        f.result()
+    return out
+
+
+def pack_compact(events_raw: bytes | np.ndarray,
+                 batch_size: int,
+                 spill_cap: int,
+                 extra: Optional[np.ndarray] = None,
+                 dns: Optional[np.ndarray] = None,
+                 drops: Optional[np.ndarray] = None,
+                 xlat: Optional[np.ndarray] = None,
+                 quic: Optional[np.ndarray] = None,
+                 out: Optional[np.ndarray] = None,
+                 native: bool = True) -> Optional[np.ndarray]:
+    """Raw flow events -> one flat u32 buffer `[batch_size * COMPACT_WORDS
+    v4 rows | spill_cap * DENSE_WORDS dense rows]`, the compact feed
+    (`sketch/state.compact_to_arrays` unpacks it). Non-v4 flows, and rows
+    that carry drop data, ride the spill lane; returns None when they pass
+    `spill_cap` (the caller packs that batch dense). `native=False` runs
+    the Python twin."""
+    events = _events_of(events_raw)
+    n = len(events)
+    if n > batch_size:
+        raise ValueError(f"{n} events exceed batch size {batch_size}")
+    out = _out_buffer(out, (compact_buf_len(batch_size, spill_cap),))
+    ex, dn, dr, xl, qc = (_fit_rows(a, n, dt) for a, dt in zip(
+        (extra, dns, drops, xlat, quic), _LANE_DTYPES))
+    if native:
+        ns = native_lib().fp_pack_compact(
+            events.ctypes.data, n, *(_addr(a) for a in (ex, dn, dr, xl, qc)),
+            out.ctypes.data, batch_size, spill_cap)
+        return None if ns < 0 else out
+    comp = out[:batch_size * COMPACT_WORDS].reshape(batch_size, COMPACT_WORDS)
+    spill = out[batch_size * COMPACT_WORDS:].reshape(spill_cap, DENSE_WORDS)
+    comp[:] = 0
+    spill[:] = 0
+    if not n:
+        return out
+    kw = pack_key_words(events["key"])
+    stats = events["stats"]
+    fw = _feature_words(stats, ex, xl, qc, dr)
+    has_drops = (fw[:, 1] != 0) if dr is not None else np.zeros(n, np.bool_)
+    is4 = ((kw[:, 0] == 0) & (kw[:, 1] == 0) & (kw[:, 2] == V4_PREFIX_WORD2)
+           & (kw[:, 4] == 0) & (kw[:, 5] == 0) & (kw[:, 6] == V4_PREFIX_WORD2)
+           & ~has_drops)
+    n_sp = int((~is4).sum())
+    if n_sp > spill_cap:
+        return None
+    rtt = ((ex["rtt_ns"] // 1000).astype(np.uint32) if ex is not None
+           else np.zeros(n, np.uint32))
+    dlat = ((dn["latency_ns"] // 1000).astype(np.uint32) if dn is not None
+            else np.zeros(n, np.uint32))
+    c = comp[:int(is4.sum())]
+    c[:, 0] = kw[is4, 3]
+    c[:, 1] = kw[is4, 7]
+    c[:, 2] = kw[is4, 8]
+    c[:, 3] = kw[is4, 9] | np.uint32(0x80000000)
+    c[:, 4] = stats["bytes"][is4].astype(np.float32).view(np.uint32)
+    c[:, 5] = stats["packets"][is4]
+    c[:, 6] = rtt[is4]
+    c[:, 7] = dlat[is4]
+    c[:, 8] = stats["sampling"][is4]
+    c[:, 9] = fw[is4, 0]
+    if n_sp:
+        sp = spill[:n_sp]
+        sp[:, :10] = kw[~is4]
+        sp[:, 10] = stats["bytes"][~is4].astype(np.float32).view(np.uint32)
+        sp[:, 11] = stats["packets"][~is4]
+        sp[:, 12] = rtt[~is4]
+        sp[:, 13] = dlat[~is4]
+        sp[:, 14] = 1
+        sp[:, 15] = stats["sampling"][~is4]
+        sp[:, 16:] = fw[~is4]
+    return out

@@ -5,7 +5,8 @@ A numpy copy of the JAX package's bench traffic (`bench.py` `make_pool`,
 bytes 64-9000, the full feature lane (TCP flags, DSCP, markers, and drops
 on about 2 % of rows). The tests and `chip_smoke.py` share it.
 `event_pool` gives the same batches as raw flow events with feature lanes,
-the input of the resident feed.
+the input of the resident feed. With `v4=True` the keys are v4-in-v6
+mapped, as the compact feed packs them, with a share of v6 rows.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from netobserv_tpu_torch.datapath.flowpack import V4_PREFIX_WORD2
 from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.model.columnar import (
     pack_key_words, unpack_key_words,
@@ -27,13 +29,29 @@ ZIPF_A = 1.2
 
 def make_pool(rng: np.random.Generator, batch: int = BATCH,
               n_batches: int = N_BATCHES_POOL,
-              n_distinct: int = N_DISTINCT, zipf_a: float = ZIPF_A):
+              n_distinct: int = N_DISTINCT, zipf_a: float = ZIPF_A,
+              v4: bool = False, v6_share=0.05):
     """(universe uint32[n_distinct, 10], [(arrays, ranks)] * n_batches):
-    each batch's column dict and the universe row of each record."""
+    each batch's column dict and the universe row of each record.
+
+    With `v4` both addresses of the universe's keys are v4-in-v6 mapped
+    (words 0-1 and 4-5 zero, words 2 and 6 the mapped prefix), and the
+    universe has a v6 twin of each key (rows n_distinct.., words 0-2 and
+    4-6 random) that a row takes with probability `v6_share` (a float, or
+    one a batch). The draws of a pool without `v4` are unchanged."""
     universe = rng.integers(0, 2**32, (n_distinct, 10), dtype=np.uint32)
+    if v4:
+        v6 = universe.copy()
+        universe[:, [0, 1, 4, 5]] = 0
+        universe[:, [2, 6]] = V4_PREFIX_WORD2
+        universe = np.concatenate([universe, v6])
+        shares = (list(v6_share) if np.ndim(v6_share)
+                  else [v6_share] * n_batches)
     pool = []
-    for _ in range(n_batches):
+    for bi in range(n_batches):
         ranks = np.minimum(rng.zipf(zipf_a, batch) - 1, n_distinct - 1)
+        if v4:
+            ranks = ranks + n_distinct * (rng.random(batch) < shares[bi])
         drop_b = np.where(rng.random(batch) < 0.02,
                           rng.integers(1, 1500, batch), 0).astype(np.int32)
         pool.append(({

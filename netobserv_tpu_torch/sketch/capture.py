@@ -39,6 +39,11 @@ entry of the compile watch (`utils/retrace`) under its name, its captures
 the entry's compiles, and a capture after the entry's warm-up calls is
 counted and logged as an alarm.
 
+`prepare` is the capture alone: the warm-up on clones and the capture,
+with no replay, so no fold runs on the arguments. The exporter prepares
+every entry of the resident feed's superbatch ladder when it makes the
+ring, so no live fold of a ladder entry captures.
+
 A capture that fails raises; nothing falls back to an eager fold.
 
 Launch counts: `CudaKernel.launches` rises when Python calls `launch`. The
@@ -123,16 +128,23 @@ class CapturedFold:
         self._entry(*args)
 
     def _call(self, *args) -> None:
-        key = binding(args)
-        if key != self._binding:
-            t0 = time.perf_counter()
-            self._capture(args)
-            self._binding = key
-            self.captures += 1
-            if isinstance(self._entry, retrace.Watched):
-                self._entry.note_compile(time.perf_counter() - t0,
-                                         retrace.describe(args))
+        self.prepare(*args)
         self._replay()
+
+    def prepare(self, *args) -> None:
+        """Capture for `args` unless the graph is bound to them already,
+        and replay nothing. The capture is a compile of the watched entry;
+        made before the entry's first call, it is warm-up."""
+        key = binding(args)
+        if key == self._binding:
+            return
+        t0 = time.perf_counter()
+        self._capture(args)
+        self._binding = key
+        self.captures += 1
+        if isinstance(self._entry, retrace.Watched):
+            self._entry.note_compile(time.perf_counter() - t0,
+                                     retrace.describe(args))
 
     def _capture(self, args: tuple) -> None:
         first = _first_tensor(args)

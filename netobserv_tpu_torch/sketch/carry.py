@@ -18,8 +18,10 @@ like the reference's pytree aux data, the `TierSpec` travels beside the
 dict, as the `spec` argument of `state_from_numpy`.
 
 The resident feed's device key table crosses as the JAX package's
-(slot_cap, 10) uint32 array (`key_table_to_numpy`, `key_table_from_numpy`);
-the port's table has one more row, the sink of undefined new-key rows.
+(slot_cap, 10) uint32 array (`key_table_to_numpy`, `key_table_from_numpy`),
+and the lane-sharded feed's tables as its (R, slot_cap, 10) uint32 array
+(`init_key_tables`, one table a region); each of the port's tables has one
+more row, the sink of undefined new-key rows.
 """
 
 from __future__ import annotations
@@ -151,20 +153,26 @@ def _tiered_from_numpy(fields: dict[str, np.ndarray], dev: torch.device,
 
 
 def key_table_to_numpy(table: torch.Tensor) -> np.ndarray:
-    """The port's key table as the JAX package's (slot_cap, 10) uint32
-    array: a host copy with the sink row stripped."""
-    return (table[:-1].detach().to("cpu", copy=True).numpy()
+    """The port's key table, (slot_cap + 1, 10), or lane tables, (R,
+    slot_cap + 1, 10), as the JAX package's (slot_cap, 10) or (R,
+    slot_cap, 10) uint32 array: a host copy with the sink rows stripped."""
+    if table.ndim not in (2, 3) or table.shape[-1] != KEY_WORDS:
+        raise ValueError(f"key table must be ([R,] slot_cap + 1, "
+                         f"{KEY_WORDS}), got {tuple(table.shape)}")
+    return (table[..., :-1, :].detach().to("cpu", copy=True).numpy()
             .view(np.uint32))
 
 
 def key_table_from_numpy(arr: np.ndarray,
                          device: str | torch.device | None = None
                          ) -> torch.Tensor:
-    """A JAX package's (slot_cap, 10) uint32 key table on `device`, with the
-    port's sink row added."""
+    """A JAX package's (slot_cap, 10) key table, or (R, slot_cap, 10) lane
+    tables, uint32, on `device`, with the port's sink row added to each."""
     arr = np.asarray(arr)
-    if arr.dtype != np.uint32 or arr.ndim != 2 or arr.shape[1] != KEY_WORDS:
-        raise ValueError(f"key table must be (slot_cap, {KEY_WORDS}) "
+    if (arr.dtype != np.uint32 or arr.ndim not in (2, 3)
+            or arr.shape[-1] != KEY_WORDS):
+        raise ValueError(f"key table must be ([R,] slot_cap, {KEY_WORDS}) "
                          f"uint32, got {arr.dtype} {arr.shape}")
-    rows = np.concatenate([arr, np.zeros((1, KEY_WORDS), np.uint32)])
+    sink = np.zeros((*arr.shape[:-2], 1, KEY_WORDS), np.uint32)
+    rows = np.concatenate([arr, sink], axis=-2)
     return torch.from_numpy(rows.view(np.int32)).to(pick_device(device))

@@ -3,9 +3,13 @@
 Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
 `SketchState`, `WindowReport`, `init_state`, `batch_to_device`,
 `dense_to_arrays`, `arrays_to_dense`, `tiered_fold_form`, `ingest`,
-`decay_state`, `roll_window`, `state_tables`, and the resident feed's
-`init_key_table`, `resident_to_arrays` and the ingest of
-`make_ingest_resident_fn`), on one device.
+`decay_state`, `roll_window`, `state_tables`, the compact feed's
+`COMPACT_WORDS` and `compact_to_arrays` with the ingest of
+`make_ingest_compact_fn` (`:709-770`), and the resident feed's
+`init_key_table`, `resident_to_arrays`, `init_key_tables`,
+`_resident_region_words`, `resident_lane_arrays` and the ingests of
+`make_ingest_resident_fn` and `make_ingest_resident_lanes_fn`
+(`:773-965`)), on one device.
 
 One `ingest` call folds a fixed-shape columnar flow batch into the Count-Min
 planes (kernel 1), the persistent-slot top-K table (kernel 2), the global
@@ -28,12 +32,16 @@ and only the per-bucket HLL grids unpack. Otherwise the fold decodes the
 tiers to wide, runs the wide fold, and promotes the delta back. Rolls and
 `state_tables` see the decoded wide tables, as in the reference.
 
-Two host feeds reach `ingest`. The dense feed (`dense_to_arrays`) ships 20
-words per record. The resident feed (`resident_to_arrays`, `ingest_resident`)
-ships a 3-word hot row naming its key by a slot of a device key table
+Three host feeds reach `ingest`. The dense feed (`dense_to_arrays`) ships
+20 words per record. The compact feed (`compact_to_arrays`,
+`ingest_compact`) ships 10 words per v4 record and a dense spill lane for
+the rest. The resident feed (`resident_to_arrays`, `ingest_resident`) ships
+a 3-word hot row naming its key by a slot of a device key table
 (`init_key_table`), sparse DNS and drop lanes, a new-key lane that defines
-slots, and a full-width spill lane; the host side is
-`datapath/flowpack.pack_resident`.
+slots, and a full-width spill lane; split into lanes
+(`resident_lane_arrays`, `ingest_resident_lanes`), each region has a key
+table of its own, a row of `init_key_tables`. The host side is
+`datapath/flowpack` (`pack_dense`, `pack_compact`, `pack_resident`).
 
 Not in this slice: the owner-sharded ingest (`sketch_axis`) raises
 NotImplementedError.
@@ -47,8 +55,8 @@ import numpy as np
 import torch
 
 from netobserv_tpu_torch.datapath.flowpack import (
-    DENSE_WORDS, HOT_WORDS, NK_WORDS, RESIDENT_HDR, ResidentCaps,
-    resident_buf_len,
+    COMPACT_WORDS, DENSE_WORDS, HOT_WORDS, NK_WORDS, RESIDENT_HDR,
+    V4_PREFIX_WORD2, ResidentCaps, resident_buf_len,
 )
 from netobserv_tpu_torch.model.columnar import KEY_WORDS
 from netobserv_tpu_torch.model.flow import TcpFlags
@@ -266,6 +274,59 @@ def arrays_to_dense(arrays: Mapping[str, np.ndarray]) -> np.ndarray:
     return dense.reshape(-1)
 
 
+def compact_to_arrays(flat: torch.Tensor, batch_size: int,
+                      spill_cap: int) -> dict[str, torch.Tensor]:
+    """Device-side unpack of the compact feed: int32 words holding the
+    uint32 bits of a flat `[batch_size * 10 v4 rows | spill_cap * 20 dense
+    rows]` buffer (`flowpack.pack_compact`). Rebuilds each v4 row's 10-word
+    v4-mapped key from its 4 words and appends the spill lane's rows, so the
+    arrays have batch_size + spill_cap rows for `ingest`. The drop columns
+    of the v4 rows are zero: rows with drop data ride the spill lane. Every
+    right shift whose top bit can be set is masked."""
+    if flat.dtype != torch.int32:
+        raise TypeError(f"compact feed must be int32 words, got {flat.dtype}")
+    if flat.shape != (batch_size * COMPACT_WORDS + spill_cap * DENSE_WORDS,):
+        raise ValueError(f"compact feed of {tuple(flat.shape)} words, "
+                         f"expected {batch_size} v4 and {spill_cap} spill "
+                         "rows")
+    c = flat[:batch_size * COMPACT_WORDS].reshape(batch_size, COMPACT_WORDS)
+    spill = dense_to_arrays(flat[batch_size * COMPACT_WORDS:])
+    c64 = c.to(torch.int64) & hashing.M32
+    zeros = torch.zeros(batch_size, dtype=torch.int64, device=flat.device)
+    prefix = torch.full_like(zeros, V4_PREFIX_WORD2)
+    keys = torch.stack([zeros, zeros, prefix, c64[:, 0],
+                        zeros, zeros, prefix, c64[:, 1],
+                        c64[:, 2], c64[:, 3] & 0x00FFFFFF], dim=1)
+    izeros = torch.zeros(batch_size, dtype=torch.int32, device=flat.device)
+    w9 = c[:, 9]
+    comp = {
+        "keys": keys,
+        "bytes": c[:, 4].contiguous().view(torch.float32),
+        "packets": c[:, 5],
+        "rtt_us": c[:, 6],
+        "dns_latency_us": c[:, 7],
+        "valid": (c[:, 3] >> 31) != 0,
+        "sampling": c[:, 8],
+        "tcp_flags": w9 & 0xFFFF,
+        "dscp": (w9 >> 16) & 0xFF,
+        "markers": (w9 >> 24) & 0xFF,
+        "drop_bytes": izeros,
+        "drop_packets": izeros,
+        "drop_cause": izeros,
+    }
+    return {k: torch.cat([v, spill[k]]) for k, v in comp.items()}
+
+
+def ingest_compact(state: SketchState, flat: torch.Tensor, batch_size: int,
+                   spill_cap: int, enable_fanout: bool = True,
+                   enable_asym: bool = True) -> SketchState:
+    """Fold one compact-feed buffer: `compact_to_arrays`, then `ingest`.
+    The counterpart of the function `make_ingest_compact_fn` builds;
+    returns `state`, updated in place."""
+    return ingest(state, compact_to_arrays(flat, batch_size, spill_cap),
+                  enable_fanout=enable_fanout, enable_asym=enable_asym)
+
+
 def init_key_table(slot_cap: int,
                    device: str | torch.device | None = None) -> torch.Tensor:
     """Device twin of the host `KeyDict`: the key words of each slot as
@@ -277,85 +338,152 @@ def init_key_table(slot_cap: int,
                        device=pick_device(device))
 
 
-def _region_nk(flat: torch.Tensor, batch_size: int, caps: ResidentCaps,
-               slot_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """A region's new-key lane as (slot indices, key words): undefined rows
-    index the sink row `slot_cap`."""
-    nk_off = (RESIDENT_HDR + batch_size * HOT_WORDS + caps.dns
-              + caps.drop * 2)
-    nk = flat[nk_off:nk_off + caps.nk * NK_WORDS].reshape(caps.nk, NK_WORDS)
+def init_key_tables(n_lanes: int, slot_cap: int,
+                    device: str | torch.device | None = None
+                    ) -> torch.Tensor:
+    """Key tables of the lane-sharded resident feed, one a region:
+    (n_lanes, slot_cap + 1, KEY_WORDS) int32, each row an `init_key_table`
+    with its own sink row. The reference's is (n_lanes, slot_cap,
+    KEY_WORDS) u32 (`sketch/carry` converts)."""
+    return torch.zeros((n_lanes, slot_cap + 1, KEY_WORDS), dtype=torch.int32,
+                       device=pick_device(device))
+
+
+def _resident_region_words(batch_size: int, caps: ResidentCaps) -> int:
+    """Flat word count of one resident region: the layout twin of
+    `flowpack.resident_buf_len`."""
+    return (RESIDENT_HDR + batch_size * HOT_WORDS + caps.dns + caps.drop * 2
+            + caps.nk * NK_WORDS + caps.spill * DENSE_WORDS)
+
+
+def _row_index(local: torch.Tensor, base: torch.Tensor, n_b: int,
+               rows: int) -> torch.Tensor:
+    """Flat row of each sparse-lane entry: its region's base plus its row
+    in the region, or `rows` (a sink row, cut off) for a row at or past
+    n_b, which the reference's mode="drop" scatter drops."""
+    return torch.where(local < n_b, local + base, rows).reshape(-1).to(
+        torch.int64)
+
+
+def _scatter_rows(rows: int, idx: torch.Tensor, vals: torch.Tensor,
+                  reduce: str) -> torch.Tensor:
+    """Scatter `vals` onto `rows` zero rows at `idx` (`_row_index`), by sum
+    ("sum") or max ("amax")."""
+    out = torch.zeros(rows + 1, dtype=vals.dtype, device=vals.device)
+    if reduce == "sum":
+        out.index_add_(0, idx, vals)
+    else:
+        out.scatter_reduce_(0, idx, vals, reduce)
+    return out[:rows]
+
+
+def resident_lane_arrays(flat: torch.Tensor, key_tables: torch.Tensor,
+                         batch_per_lane: int, caps: ResidentCaps,
+                         n_lanes: int
+                         ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """Device-side unpack of `n_lanes` concatenated resident regions, each
+    against its own key table (row i of `key_tables`, which may hold more
+    rows: the superbatch ladder's entries share one table array sized for
+    the largest), into one array dict for `ingest`: region 0's hot rows and
+    spill rows, then region 1's, and so on, n_lanes * (batch_per_lane +
+    caps.spill) rows. Returns (arrays, key_tables).
+
+    Every region's new-key lane is written into `key_tables` in place, in
+    one `index_put_`, before any hot row is gathered: a slot a hot row
+    references may be defined by the same region, and regions are
+    row-disjoint (undefined new-key rows go to the region's sink row). The
+    regions have one shape, so each step runs once over all of them. The
+    words are uint32 held in int32: every right shift whose top bit can be
+    set is masked."""
+    words = _resident_region_words(batch_per_lane, caps)
+    if flat.dtype != torch.int32:
+        raise TypeError(f"resident feed must be int32 words, got {flat.dtype}")
+    if flat.shape != (n_lanes * words,):
+        raise ValueError(f"resident feed of {tuple(flat.shape)} words, "
+                         f"expected {n_lanes} regions of {words}")
+    if (key_tables.ndim != 3 or key_tables.shape[0] < n_lanes
+            or key_tables.shape[2] != KEY_WORDS):
+        raise ValueError(f"key tables {tuple(key_tables.shape)} for "
+                         f"{n_lanes} regions")
+    n_b, dev = batch_per_lane, flat.device
+    hot_off = RESIDENT_HDR
+    dns_off = hot_off + n_b * HOT_WORDS
+    drop_off = dns_off + caps.dns
+    nk_off = drop_off + caps.drop * 2
+    spill_off = nk_off + caps.nk * NK_WORDS
+    reg = flat.reshape(n_lanes, words)
+    hot = reg[:, hot_off:dns_off].reshape(n_lanes, n_b, HOT_WORDS)
+    dnsl = reg[:, dns_off:drop_off]
+    dropl = reg[:, drop_off:nk_off].reshape(n_lanes, caps.drop, 2)
+    nk = reg[:, nk_off:spill_off].reshape(n_lanes, caps.nk, NK_WORDS)
+    spill = dense_to_arrays(reg[:, spill_off:].reshape(-1, DENSE_WORDS))
+
     # the defined bit is bit 31: `>> 31` of int32 gives -1 or 0
-    nk_def = (nk[:, 0] >> 31) != 0
-    nk_slot = torch.where(nk_def, nk[:, 0] & 0xFFFFF, slot_cap)
-    return nk_slot.to(torch.int64), nk[:, 1:]
+    sink = key_tables.shape[1] - 1
+    nk_slot = torch.where((nk[:, :, 0] >> 31) != 0, nk[:, :, 0] & 0xFFFFF,
+                          sink).to(torch.int64)
+    lane = torch.arange(n_lanes, device=dev).unsqueeze(1)
+    key_tables.index_put_((lane.expand(-1, caps.nk).reshape(-1),
+                           nk_slot.reshape(-1)),
+                          nk[:, :, 1:].reshape(-1, KEY_WORDS))
+    w0 = hot[:, :, 0]
+    keys = key_tables[lane, (w0 & 0xFFFFF).to(torch.int64)]
+    rtt = ((w0 >> 20) & 0xFF) << (2 * ((w0 >> 28) & 0x7))
+    w2 = hot[:, :, 2]
+    # sparse lanes, by row of the flattened regions: unused entries are
+    # all-zero, so they add 0 to (and max 0 into) their region's row 0
+    base = lane * n_b
+    rows = n_lanes * n_b
+    d_idx = _row_index((dnsl >> 16) & 0xFFFF, base, n_b, rows)
+    d_val = ((dnsl & 0xFFF) << ((dnsl >> 12) & 0xF)).reshape(-1)
+    r_idx = _row_index((dropl[:, :, 0] >> 16) & 0xFFFF, base, n_b, rows)
+    dw = dropl[:, :, 1].reshape(-1)
+    comp = {
+        "keys": keys.to(torch.int64) & hashing.M32,
+        "bytes": hot[:, :, 1].contiguous().view(torch.float32),
+        "packets": w2 & 0x7FF,
+        "rtt_us": rtt,
+        "dns_latency_us": _scatter_rows(rows, d_idx, d_val, "sum"),
+        "valid": (w0 >> 31) != 0,
+        "sampling": reg[:, :1].expand(n_lanes, n_b),
+        "tcp_flags": (w2 >> 11) & 0x7FF,
+        "dscp": (w2 >> 22) & 0x3F,
+        "markers": (w2 >> 28) & 0xF,
+        "drop_bytes": _scatter_rows(rows, r_idx, dw & 0xFFFF, "sum"),
+        "drop_packets": _scatter_rows(rows, r_idx, (dw >> 16) & 0xFFFF,
+                                      "sum"),
+        # the cause is a value, not a count: max, as the reference
+        # scatters it
+        "drop_cause": _scatter_rows(
+            rows, r_idx, (dropl[:, :, 0] & 0xFFFF).reshape(-1), "amax"),
+    }
+    arrays = {}
+    for k, v in comp.items():
+        v = v.reshape(n_lanes, n_b, *v.shape[2:])
+        s = spill[k].reshape(n_lanes, caps.spill, *v.shape[2:])
+        arrays[k] = torch.cat([v, s], dim=1).reshape(-1, *v.shape[2:])
+    return arrays, key_tables
 
 
 def resident_to_arrays(flat: torch.Tensor, key_table: torch.Tensor,
                        batch_size: int, caps: ResidentCaps
                        ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """Device-side unpack of one resident region: int32 words holding the
-    uint32 bits of a `flowpack.pack_resident` buffer.
+    uint32 bits of a `flowpack.pack_resident` buffer, against one key table
+    (`init_key_table`), as `resident_lane_arrays` unpacks a region.
 
-    Writes the new-key lane into `key_table` in place first (a slot a hot
-    row references may be defined by this same region), then gathers the
-    10-word keys by slot id, decodes the range-coded rtt and DNS codes,
+    Writes the new-key lane into `key_table` in place first, then gathers
+    the 10-word keys by slot id, decodes the range-coded rtt and DNS codes,
     scatters the sparse DNS and drop lanes onto their rows, and appends the
     spill lane's rows. Returns (arrays for `ingest`, key_table); the arrays
     have batch_size + caps.spill rows, the hot lane's then the spill
-    lane's. The words are uint32 held in int32, so every right shift whose
-    top bit can be set is masked."""
-    if flat.dtype != torch.int32:
-        raise TypeError(f"resident feed must be int32 words, got {flat.dtype}")
-    if flat.shape != (resident_buf_len(batch_size, caps),):
+    lane's."""
+    if flat.dtype == torch.int32 and flat.shape != (
+            resident_buf_len(batch_size, caps),):
         raise ValueError(f"resident region of {tuple(flat.shape)} words, "
                          f"expected {resident_buf_len(batch_size, caps)}")
-    hot_off = RESIDENT_HDR
-    dns_off = hot_off + batch_size * HOT_WORDS
-    drop_off = dns_off + caps.dns
-    nk_off = drop_off + caps.drop * 2
-    spill_off = nk_off + caps.nk * NK_WORDS
-    hot = flat[hot_off:dns_off].reshape(batch_size, HOT_WORDS)
-    dnsl = flat[dns_off:drop_off]
-    dropl = flat[drop_off:nk_off].reshape(caps.drop, 2)
-    spill = dense_to_arrays(flat[spill_off:])
-
-    nk_slot, nk_words = _region_nk(flat, batch_size, caps,
-                                   key_table.shape[0] - 1)
-    key_table.index_copy_(0, nk_slot, nk_words)
-    w0 = hot[:, 0]
-    keys = key_table[(w0 & 0xFFFFF).to(torch.int64)]
-    rtt = ((w0 >> 20) & 0xFF) << (2 * ((w0 >> 28) & 0x7))
-    w2 = hot[:, 2]
-    # sparse lanes: unused entries are all-zero, so they add 0 to row 0
-    # and max 0 into row 0
-    d_idx = ((dnsl >> 16) & 0xFFFF).to(torch.int64)
-    d_val = (dnsl & 0xFFF) << ((dnsl >> 12) & 0xF)
-    dns_arr = torch.zeros(batch_size, dtype=torch.int32, device=flat.device)
-    dns_arr.index_add_(0, d_idx, d_val)
-    r_idx = ((dropl[:, 0] >> 16) & 0xFFFF).to(torch.int64)
-    drop_bytes = torch.zeros_like(dns_arr).index_add_(
-        0, r_idx, dropl[:, 1] & 0xFFFF)
-    drop_pkts = torch.zeros_like(dns_arr).index_add_(
-        0, r_idx, (dropl[:, 1] >> 16) & 0xFFFF)
-    # the cause is a value, not a count: max, as the reference scatters it
-    drop_cause = torch.zeros_like(dns_arr).scatter_reduce_(
-        0, r_idx, dropl[:, 0] & 0xFFFF, "amax")
-    comp = {
-        "keys": keys.to(torch.int64) & hashing.M32,
-        "bytes": hot[:, 1].contiguous().view(torch.float32),
-        "packets": w2 & 0x7FF,
-        "rtt_us": rtt,
-        "dns_latency_us": dns_arr,
-        "valid": (w0 >> 31) != 0,
-        "sampling": flat[0].expand(batch_size),
-        "tcp_flags": (w2 >> 11) & 0x7FF,
-        "dscp": (w2 >> 22) & 0x3F,
-        "markers": (w2 >> 28) & 0xF,
-        "drop_bytes": drop_bytes,
-        "drop_packets": drop_pkts,
-        "drop_cause": drop_cause,
-    }
-    arrays = {k: torch.cat([v, spill[k]]) for k, v in comp.items()}
+    arrays, _ = resident_lane_arrays(flat, key_table.unsqueeze(0), batch_size,
+                                     caps, 1)
     return arrays, key_table
 
 
@@ -367,6 +495,22 @@ def ingest_resident(state: SketchState, key_table: torch.Tensor,
     `key_table` in place), then `ingest`. The counterpart of the function
     `make_ingest_resident_fn` builds; returns `state`, updated in place."""
     arrays, _ = resident_to_arrays(flat, key_table, batch_size, caps)
+    return ingest(state, arrays, enable_fanout=enable_fanout,
+                  enable_asym=enable_asym)
+
+
+def ingest_resident_lanes(state: SketchState, key_tables: torch.Tensor,
+                          flat: torch.Tensor, batch_per_lane: int,
+                          caps: ResidentCaps, n_lanes: int,
+                          enable_fanout: bool = True,
+                          enable_asym: bool = True) -> SketchState:
+    """Fold `n_lanes` resident regions in one ingest:
+    `resident_lane_arrays` (which updates `key_tables` in place), then
+    `ingest`. The counterpart of the function
+    `make_ingest_resident_lanes_fn` builds; returns `state`, updated in
+    place."""
+    arrays, _ = resident_lane_arrays(flat, key_tables, batch_per_lane, caps,
+                                     n_lanes)
     return ingest(state, arrays, enable_fanout=enable_fanout,
                   enable_asym=enable_asym)
 

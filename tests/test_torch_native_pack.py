@@ -1,14 +1,17 @@
-"""The port's native resident packer (netobserv_tpu_torch/csrc/flowpack.cc,
+"""The port's native packers (netobserv_tpu_torch/csrc/flowpack.cc:
 datapath/flowpack.NativeKeyDict and pack_resident_native, and the staging
-ring that takes it) against the port's Python packer and the JAX
-package's Python twin, on the CPU.
+ring that takes them; pack_dense, pack_dense_sharded and pack_compact)
+against the port's Python packers and the JAX package's Python twins, on
+the CPU.
 
 The library is built with the host C++ compiler once per module (a failed
 build fails these tests: nothing skips). Everything is held bit for bit:
 each chunk's region word for word, its rows consumed and the dictionary's
 count, chunk by chunk, on the eight packer cases of
 `tests/test_torch_resident.py`; the ring's state tables, key table and
-counters after whole folds. Sizes: B = 512, a small sketch geometry."""
+counters after whole folds; the dense and compact buffers word for word
+(a dirty output buffer included). Sizes: B = 512, a small sketch
+geometry."""
 
 import ctypes
 
@@ -119,6 +122,16 @@ def test_native_library_reports_its_abi_and_the_binfmt_record_sizes(
     monkeypatch.setattr(tfp, "_NATIVE_RECORDS",
                         (tbin.FLOW_KEY_DTYPE,) * 8)
     with pytest.raises(RuntimeError, match="record sizes"):
+        tfp._check_abi(native, "lib")
+    monkeypatch.undo()
+    words = np.zeros(6, np.uint32)
+    assert native.fp_layout_words(words.ctypes.data, 6) == 6
+    assert words.tolist() == [jfp.DENSE_WORDS, jfp.COMPACT_WORDS,
+                              jfp.RESIDENT_HDR, jfp.HOT_WORDS, jfp.NK_WORDS,
+                              jfp._V4_PREFIX_WORD2]
+    monkeypatch.setattr(tfp, "_NATIVE_LAYOUT", (20, 11, 4, 3, 11,
+                                                0xFFFF0000))
+    with pytest.raises(RuntimeError, match="layout words"):
         tfp._check_abi(native, "lib")
 
 
@@ -244,10 +257,70 @@ def test_ring_and_exporter_take_the_packer_they_are_given(native):
                                   device="cpu", **kw)
         assert exp.ring is None  # a dense-only exporter builds no packer
         exp.fold_events(events, **feats)
-        assert isinstance(exp.ring.kdict, kind)
+        assert all(isinstance(kd, kind) for kd in exp.ring.kdicts)
         exp.close()
     with pytest.raises(ValueError, match="packer"):
         ResidentStagingRing(B, device="cpu", packer="rust")
     with pytest.raises(ValueError, match="packer"):
         TorchSketchExporter(ts.SketchConfig(**GEOM), batch_size=B,
                             device="cpu", packer="rust")
+
+
+def _dense_compact_cases():
+    """(name, events, feature lanes) of the dense and compact packers:
+    every lane, short and absent lanes, v6 and drop rows, wrapping rtt and
+    DNS latency, and an empty batch."""
+    from tests.test_torch_resident import _events
+    rng = np.random.default_rng(90)
+    out = []
+    ev, f = _events(rng, B - 3)
+    out.append(("every_lane", ev, f))
+    ev, f = _events(rng, B, drop_share=0.0)
+    for side in ("src_ip", "dst_ip"):
+        ev["key"][side][:, :10] = 0
+        ev["key"][side][:, 10:12] = 0xFF
+    ev["key"]["src_ip"][::12, 0] = 0x20  # v6 rows spill
+    f["extra"]["rtt_ns"][::5] = ((1 << 32) + 3) * 1000  # u32 wrap
+    f["dns"]["latency_ns"][1::5] = ((1 << 32) + 9) * 1000
+    f["drops"]["bytes"][2::50] = 7  # drop rows spill
+    out.append(("v4_with_spills", ev, f))
+    ev, f = _events(rng, 100)
+    out.append(("short_and_absent_lanes", ev,
+                dict(f, extra=f["extra"][:40], dns=None, quic=f["quic"][:0])))
+    ev, f = _events(rng, 0)
+    out.append(("empty", ev, f))
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_native_dense_and_compact_packers_equal_the_python_twins(native,
+                                                                 case):
+    name, ev, f = _dense_compact_cases()[case]
+    out = np.full((B, tfp.DENSE_WORDS), 0xDEADBEEF, np.uint32)
+    got = tfp.pack_dense(ev, B, out=out, **f)
+    assert got is out
+    np.testing.assert_array_equal(got, tfp.pack_dense(ev, B, native=False,
+                                                      **f), err_msg=name)
+    np.testing.assert_array_equal(got, jfp.pack_dense(ev, B, use_native=False,
+                                                      **f), err_msg=name)
+    for threads in (2, 3, 8):
+        sharded = np.full_like(out, 0xDEADBEEF)
+        tfp.pack_dense_sharded(ev, B, threads, out=sharded, **f)
+        np.testing.assert_array_equal(sharded, got, err_msg=name)
+    for spill_cap in (64, 8):
+        buf = np.full(tfp.compact_buf_len(B, spill_cap), 0xDEADBEEF,
+                      np.uint32)
+        got = tfp.pack_compact(ev, B, spill_cap, out=buf, **f)
+        twin = tfp.pack_compact(ev, B, spill_cap, native=False, **f)
+        want = jfp.pack_compact(ev, B, spill_cap, use_native=False, **f)
+        assert (got is None) == (twin is None) == (want is None), name
+        if got is not None:
+            np.testing.assert_array_equal(got, twin, err_msg=name)
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    if name == "v4_with_spills":
+        assert tfp.pack_compact(ev, B, 8, **f) is None
+        assert tfp.pack_compact(ev, B, 64, **f) is not None
+    with pytest.raises(ValueError, match="exceed"):
+        tfp.pack_dense(np.zeros(B + 1, tbin.FLOW_EVENT_DTYPE), B)
+    with pytest.raises(ValueError, match="out"):
+        tfp.pack_compact(ev, B, 64, out=np.zeros(7, np.uint32))

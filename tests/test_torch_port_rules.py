@@ -19,7 +19,9 @@ from netobserv_tpu_torch.ops.kernels import (
 from netobserv_tpu_torch.scenarios import traffic
 from netobserv_tpu_torch.sketch import state as ts
 from netobserv_tpu_torch.sketch import tiered
-from netobserv_tpu_torch.sketch.staging import ResidentStagingRing
+from netobserv_tpu_torch.sketch.staging import (
+    DenseStagingRing, ResidentStagingRing, ShardedResidentStagingRing,
+)
 from netobserv_tpu_torch.utils.platform import pick_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +33,8 @@ KERNELS = (countmin_kernel.KERNEL, hll_kernel.KERNEL, topk_kernel.KERNEL,
            hll_kernel.KERNEL_GRID, hll_kernel.KERNEL_FOLDS)
 #: modules each slice added, which the import scan must reach
 SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
-                 "sketch/staging.py", "sketch/tiered.py", "sketch/state.py")
+                 "sketch/staging.py", "sketch/tiered.py", "sketch/state.py",
+                 "datapath/fetcher.py", "config.py", "sketch/capture.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -75,22 +78,28 @@ def test_port_sources_include_no_header_of_the_jax_package():
 
 def test_a_failed_packer_build_raises_and_nothing_falls_back(monkeypatch,
                                                              tmp_path):
-    """With no host compiler the native packer cannot build: the ring, and
-    the exporter at its first resident fold, raise rather than take the
-    Python packer, which they use only when it is asked for. A dense feed
-    needs no packer."""
+    """With no host compiler the native packer cannot build: every ring,
+    and the exporter at its first fold of events on each feed, raise
+    rather than take a Python packer, which the resident rings use only
+    when it is asked for. The pre-packed dense entry needs no packer."""
     from netobserv_tpu_torch.datapath import flowpack
     monkeypatch.setattr(flowpack, "_LIB", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
     with pytest.raises(RuntimeError, match="compiler"):
         ResidentStagingRing(64, device="cpu")
-    exp = TorchSketchExporter(ts.SketchConfig(topk=128), batch_size=64,
-                              device="cpu")
-    exp.fold_dense(np.zeros(64 * ts.DENSE_WORDS, np.uint32))
+    for ring in (ShardedResidentStagingRing, DenseStagingRing):
+        with pytest.raises(RuntimeError, match="compiler"):
+            ring(64, device="cpu")
     with pytest.raises(RuntimeError, match="compiler"):
-        exp.fold_events(np.zeros(0, traffic.binfmt.FLOW_EVENT_DTYPE))
-    assert exp.ring is None
+        DenseStagingRing(64, spill_cap=64, device="cpu")
+    for feed in ("resident", "compact", "dense"):
+        exp = TorchSketchExporter(ts.SketchConfig(topk=128), batch_size=64,
+                                  device="cpu", feed=feed)
+        exp.fold_dense(np.zeros(64 * ts.DENSE_WORDS, np.uint32))
+        with pytest.raises(RuntimeError, match="compiler"):
+            exp.fold_events(np.zeros(0, traffic.binfmt.FLOW_EVENT_DTYPE))
+        assert exp.ring is None and exp.pending is None
     assert flowpack._LIB is None and not list(tmp_path.iterdir())
     ring = ResidentStagingRing(64, device="cpu", packer="python")
     assert isinstance(ring.kdict, flowpack.KeyDict)
@@ -113,6 +122,11 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         ResidentStagingRing(64)
     with pytest.raises(RuntimeError, match="cuda"):
         ts.init_key_table(64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ts.init_key_tables(2, 64)
+    for ring in (ShardedResidentStagingRing, DenseStagingRing):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ring(64)
     with pytest.raises(RuntimeError, match="cuda"):
         traffic.device_pool(traffic.make_pool(np.random.default_rng(0),
                                               batch=8, n_batches=1)[1])

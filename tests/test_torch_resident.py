@@ -370,27 +370,38 @@ def test_ring_folds_equal_the_reference_ring(slot_cap):
 
 
 def test_fold_events_then_roll_equals_ring_then_roll_window():
-    """The exporter's resident entry against the ring it owns, driven by
-    hand: the same report, and the key table carries across."""
+    """The exporter's resident entry against a ring driven by hand: the
+    four evictions (353 rows, under one batch) wait in the pending buffer
+    and fold at the roll as one chunk, as one hand fold of all their rows
+    does; the same report, and the key table carries across. At one lane
+    and the ladder (1,) the exporter's ring ships what
+    `ResidentStagingRing` ships."""
     cfg = ts.SketchConfig(**GEOM)
-    exp = TorchSketchExporter(cfg, batch_size=B, device="cpu")
+    exp = TorchSketchExporter(cfg, batch_size=B, device="cpu",
+                              pack_threads=1, superbatch=(1,))
     ring = ResidentStagingRing(B, device="cpu")
     state = ts.init_state(cfg, device="cpu")
     feed = _make_feed(4, seed=6)
     for events, feats in feed:
         assert exp.fold_events(events, **feats) is None
-        ring.fold(state, events, **feats)
-    assert exp.folds == ring.chunks == 4 + ring.continuations
+    assert exp.folds == 0 and len(exp.pending) == sum(len(e) for e, _ in
+                                                      feed)
+    ring.fold(state, np.concatenate([e for e, _ in feed]),
+              **{k: np.concatenate([f[k] for _, f in feed])
+                 for k in feed[0][1]})
     got = exp.roll()
+    assert exp.folds == ring.chunks == 1 + ring.continuations
     _, rep = ts.roll_window(state, cfg)
     assert got == report_to_json(report_numpy(rep))
     assert got["Records"] == float(sum(len(e) for e, _ in feed))
-    table = carry.key_table_to_numpy(exp.ring.key_table)
+    assert exp.records == got["Records"]
+    assert exp.ring.key_tables.shape == (1, (1 << 18) + 1, 10)
+    table = carry.key_table_to_numpy(exp.ring.key_tables[0])
     np.testing.assert_array_equal(table,
                                   carry.key_table_to_numpy(ring.key_table))
     back = carry.key_table_from_numpy(table, "cpu")
     assert back.shape == ((1 << 18) + 1, 10) and not back[-1].any()
-    assert torch.equal(back, exp.ring.key_table)
+    assert torch.equal(back, exp.ring.key_tables[0])
     with pytest.raises(ValueError):
         carry.key_table_from_numpy(table.astype(np.int64), "cpu")
     exp.close()

@@ -172,7 +172,7 @@ def test_folds_and_rolls_keep_every_bound_tensor_in_place(tiers):
     cfg = ts.SketchConfig(tiered=tiers, **GEOM)
     exp = TorchSketchExporter(cfg, batch_size=256, device="cpu")
     bound = lambda: (binding((exp.state, exp._dev))  # noqa: E731
-                     + binding((exp.state, exp.ring.key_table,
+                     + binding((exp.state, exp.ring.key_tables,
                                 exp.ring._dev)))
     _, pool = traffic.make_pool(np.random.default_rng(6), batch=256,
                                 n_batches=2)
