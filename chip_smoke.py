@@ -41,6 +41,26 @@ launch counts set to 0 just before it and read just after:
   evictions took the pending buffer's direct path; it prints records/s,
   pack and ingest seconds per 16,384 records, the lanes and
   `os.cpu_count()`;
+- the window thread (`window_thread`), the lanes path's exporter with its
+  window thread on (`window_s` = WINDOW_S), a metrics registry where
+  `prometheus_client` imports, tracing at sample 1.0 and a sink that
+  takes SINK_SLEEP_S a report, fed the lanes path's eviction stream for
+  about WT_SECONDS of wall. In its third window one fold's first
+  dispatch raises after its chunk packed (a seam of this script that
+  wraps the ring's ladder entry, not a fault point of the package): the
+  exporter must contain it (one ingest error, every lane dictionary's
+  epoch rolled, no new capture), every report must reach the sink once
+  and in order, `close` must publish the last partial window, the
+  reports' records must sum to the rows fed less the dropped fold's, and
+  every lane's key table must match its dictionary after it. The run is
+  then replayed eagerly with the plain versions (`window_s=None`), with
+  the same failure and a roll after the same evictions as each roll of
+  the window thread: each window's pre-roll tables are held against
+  their twin under the whole-window bounds below, its report's Records
+  and Bytes exactly, and its heavy hitters to recall@100 >= 0.99 against
+  the exact oracle of the window's rows. It prints records/s, the
+  longest and median `export_evicted` time and the longest while a sink
+  call was in progress, and each window's roll and publish spans;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -269,6 +289,12 @@ LANES_KW = {"pack_threads": 8, "superbatch": (1, 2, 4)}
 #: (CACHE_MAX_FLOWS) three times in four, else uniform over these bounds
 EVICT_ROWS = 5000
 EVICT_LARGE = (40_000, 70_000)
+#: the window_thread phase: window length, the sink's seconds a report,
+#: the seconds of feed, and the window (0-based) whose fold fails once
+WINDOW_S = 0.5
+SINK_SLEEP_S = 0.2
+WT_SECONDS = 3.75  # ends mid-window: close has a partial window to publish
+WT_FAIL_WINDOW = 2
 #: the v6 share of each batch of the dense-ring pool: the last batch is a
 #: burst past the compact feed's spill lane (B / 8 rows)
 V6_SHARES = (0.05,) * 7 + (0.25,)
@@ -276,6 +302,10 @@ V6_SHARES = (0.05,) * 7 + (0.25,)
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _discard(report: dict) -> None:
+    """The report sink of the phases that read `roll()`'s return value."""
 
 
 class PhaseError(RuntimeError):
@@ -1272,7 +1302,7 @@ def capture_main_path_inputs(specs, dense, cfg) -> dict:
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     # eager: a replayed graph calls no wrapper
     exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
-                              capture=False)
+                              sink=_discard, capture=False)
     calls: dict = {}
     with plain_versions(specs):
         for i in range(WARM_FOLDS):
@@ -1362,8 +1392,8 @@ class LaneFeeder:
     (`export_evicted`) of seeded sizes: EVICT_ROWS three times in four,
     else uniform over EVICT_LARGE, the last one cut at the window's end.
     The call for a window's i-th batch delivers every eviction that ends
-    within its first i + 1 batches; the last call flushes the pending
-    tail, so the window's tables hold all its records. Every exporter gets
+    within its first i + 1 batches; a window is whole batches, so the
+    pending buffer is empty after its last call. Every exporter gets
     the same evictions (the sizes come from `numpy.random.default_rng(1)`,
     drawn anew for each exporter)."""
 
@@ -1409,8 +1439,6 @@ class LaneFeeder:
             exp.export_evicted(EvictedFlows(
                 ev[lo:hi], **{k: v[lo:hi] for k, v in lanes.items()}))
             self._start = hi
-        if i == FOLDS_PER_WINDOW - 1:
-            exp.flush()
 
 
 class SuperbatchFeeder:
@@ -1527,7 +1555,7 @@ def run_windows(feed, n_batches: int, mode: str, specs, cfg,
     out = {}
     with ctx:
         exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
-                                  capture=mode == "captured",
+                                  sink=_discard, capture=mode == "captured",
                                   **(exp_kw or {}))
         for s in specs:
             s["kernel"].launches = 0
@@ -1636,10 +1664,12 @@ def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
     ids = lambda t: {(int(h1), int(h2)) for h1, h2, v in zip(  # noqa: E731
         t["heavy_h1"], t["heavy_h2"], t["heavy_valid"]) if v}
     ia, ib = ids(a), ids(b)
-    overlap = len(ia & ib) / max(len(ia | ib), 1)
+    # two empty tables (a window that folded nothing) are the same table
+    overlap = len(ia & ib) / len(ia | ib) if ia | ib else 1.0
     check(overlap >= 0.99, f"heavy identities overlap {overlap} < 0.99")
     out = {"max_rel_diff": worst, "bound": "2*(n+1)*2^-24 per cell",
-           "max_adds_per_cell": max(float(v.max()) for v in adds.values()),
+           "max_adds_per_cell": max((float(v.max()) for v in adds.values()),
+                                    default=0.0),
            "heavy_identity_overlap": overlap}
     if tier:
         out["tier_bound"] = tier
@@ -2018,6 +2048,317 @@ def phase_lanes_path(specs, universe, pool, events) -> dict:
             "h2d_bytes_per_record": h2d / records}
 
 
+class WindowSink:
+    """The window_thread phase's sink: keeps each report and the span of
+    each call, sleeping `sleep` seconds a call (a slow sink)."""
+
+    def __init__(self, sleep: float = 0.0):
+        self.sleep = sleep
+        self.reports: list = []
+        self.spans: list = []
+
+    def __call__(self, report: dict) -> None:
+        t0 = time.perf_counter()
+        if self.sleep:
+            time.sleep(self.sleep)
+        self.reports.append(report)
+        self.spans.append((t0, time.perf_counter()))
+
+
+class DispatchFailure:
+    """A seam of this script on a lane ring: the `at`-th fold call of the
+    ring (1-based; `arm_next` names the next one) raises at its first
+    dispatch of a ladder entry, after its chunk packed, once. Keeps that
+    call's events, and at the raise the ring's `dict_resets` and the
+    exporter's open window (its `rolls`)."""
+
+    def __init__(self, exp, at: int | None = None):
+        self.exp = exp
+        ring = self.ring = exp.ring
+        self.at = at
+        self.calls = 0
+        self.armed = False
+        self.fired = 0
+        self.events = None
+        self.resets_at_raise = None
+        self.window = None
+        self._fold, self._dispatch = ring.fold, ring._dispatch
+        ring.fold, ring._dispatch = self.fold, self.dispatch
+
+    def arm_next(self) -> None:
+        self.at = self.calls + 1
+
+    def fold(self, state, events, *args, **kw):
+        self.calls += 1
+        self.armed = self.calls == self.at
+        if self.armed:
+            self.events = events.copy()
+        return self._fold(state, events, *args, **kw)
+
+    def dispatch(self, k, state, flat):
+        if self.armed:
+            self.armed = False
+            self.fired += 1
+            self.resets_at_raise = self.ring.dict_resets
+            self.window = self.exp.rolls
+            raise RuntimeError("injected dispatch failure")
+        return self._dispatch(k, state, flat)
+
+
+class RollSeam:
+    """Counts the evictions appended to an exporter's pending buffer (under
+    its lock) and, at each roll, notes that count and a device clone of the
+    pre-roll state, and on the plain replay the window's per-cell adds."""
+
+    def __init__(self, exp, adds: dict | None = None,
+                 touched: dict | None = None):
+        self.exp = exp
+        self.appended = 0
+        self.rolls: list = []  # (evictions appended, state clone, adds)
+        self._adds, self._touched = adds, touched
+        self._append, self._roll = exp.pending.append, exp._roll_locked
+        exp.pending.append, exp._roll_locked = self.append, self.roll
+
+    def append(self, evicted, fold) -> None:
+        self.appended += 1
+        self._append(evicted, fold)
+
+    def roll(self, *args):
+        adds = None
+        if self._adds is not None:
+            adds = {k: v.cpu().numpy() for k, v in self._adds.items()}
+            self._adds.clear()
+            self._touched.clear()
+        self.rolls.append((self.appended, _clone(self.exp.state), adds))
+        return self._roll(*args)
+
+
+def _stream_evictions(n_rows: int):
+    """(lo, hi) of the lanes path's evictions over a stream of n_rows,
+    pass after pass: EVICT_ROWS three times in four, else uniform over
+    EVICT_LARGE, the last of a pass cut at its end (sizes from
+    `numpy.random.default_rng(1)`, as `LaneFeeder` draws them)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    while True:
+        end = 0
+        while end < n_rows:
+            size = (EVICT_ROWS if rng.random() < 0.75
+                    else int(rng.integers(*EVICT_LARGE)))
+            lo, end = end, min(end + size, n_rows)
+            yield lo, end
+
+
+def _window_recall(words, valid, evictions, ranks, nbytes, universe,
+                   dropped=None, index=None, k: int = 100) -> float:
+    """Recall@k of a heavy-hitter table against the exact byte totals of
+    the stream rows of `evictions` ((lo, hi) each), less the `dropped`
+    flow events (keys looked up in `index`)."""
+    import numpy as np
+    from netobserv_tpu_torch.model.columnar import pack_key_words
+    n = len(universe)
+    totals = np.zeros(n)
+    for lo, hi in evictions:
+        totals += np.bincount(ranks[lo:hi], weights=nbytes[lo:hi],
+                              minlength=n)
+    if dropped is not None:
+        r = np.array([index[w.tobytes()]
+                      for w in pack_key_words(dropped["key"])])
+        totals -= np.bincount(r, weights=dropped["stats"]["bytes"].astype(
+            np.float64), minlength=n)
+    top = np.argsort(-totals, kind="stable")[:k]
+    got = {tuple(w) for w, v in zip(np.asarray(words, np.uint32),
+                                    np.asarray(valid)) if v}
+    return sum(tuple(universe[t]) in got for t in top) / k
+
+
+def phase_window_thread(specs, universe, pool, events) -> dict:
+    """The exporter's window thread at full width on the lanes path (the
+    module docstring's `window_thread`): WT_SECONDS of the lanes path's
+    evictions with the thread closing WINDOW_S windows and a sink of
+    SINK_SLEEP_S a report, one contained dispatch failure in window
+    WT_FAIL_WINDOW, then the same stream replayed eagerly with the plain
+    versions, rolled after the same evictions, window held against
+    window."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import retrace, tracing
+    try:
+        from netobserv_tpu_torch.metrics.registry import Metrics
+        metrics = Metrics()
+    except ImportError:  # prometheus_client is optional
+        metrics = None
+    cfg = sk.SketchConfig()
+    ev_all, lanes_all = LaneFeeder(events).stream
+    n_rows = len(ev_all)
+    n = len(events)
+    ranks = np.concatenate([pool[i % n][1] for i in range(FOLDS_PER_WINDOW)])
+    nbytes = ev_all["stats"]["bytes"].astype(np.float64)
+    uni = traffic.event_universe(universe)
+    index = {w.tobytes(): r for r, w in enumerate(uni)}
+
+    def eviction(lo, hi):
+        return EvictedFlows(ev_all[lo:hi],
+                            **{k: v[lo:hi] for k, v in lanes_all.items()})
+
+    # the timed run: the window thread on, captured folds, the kernels
+    sink = WindowSink(SINK_SLEEP_S)
+    tracing.configure(sample=1.0, capacity=1 << 14)
+    retraces0 = retrace.total_retraces()
+    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                              window_s=WINDOW_S, sink=sink, metrics=metrics,
+                              **LANES_KW)
+    try:
+        with exp._lock:
+            exp._ensure_ring()  # the ladder's captures, before the clock
+            ring = exp.ring
+            fail = DispatchFailure(exp)
+            seam = RollSeam(exp)
+            rolls0 = exp.rolls
+            # the first window starts with the feed, not with the ring's
+            # captures
+            exp._deadline = time.monotonic() + WINDOW_S
+        check(rolls0 == 0, "the window thread rolled before the feed")
+        captures0 = [c.captures for c in exp.captures]
+        for s in specs:
+            s["kernel"].launches = 0
+        gen = _stream_evictions(n_rows)
+        fed, samples = [], []
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < WT_SECONDS:
+            if fail.at is None and exp.rolls >= WT_FAIL_WINDOW:
+                fail.arm_next()
+            lo, hi = next(gen)
+            t0 = time.perf_counter()
+            exp.export_evicted(eviction(lo, hi))
+            samples.append((t0, time.perf_counter() - t0))
+            fed.append((lo, hi))
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t_start
+        captures1 = [c.captures for c in exp.captures]
+        watch = _watch_stats(exp)
+        t0 = time.perf_counter()
+        exp.close()
+        close_s = time.perf_counter() - t0
+    finally:
+        tracing.configure(sample=0.0)
+    kt = key_table_check(ring)  # the dictionaries and key tables outlive it
+    launches = {s["name"]: s["kernel"].launches for s in specs}
+    traces = [t for t in tracing.snapshot() if t["kind"] == "window"]
+    rows_fed = sum(hi - lo for lo, hi in fed)
+    dropped = len(fail.events) if fail.events is not None else 0
+
+    # each report once, in order; the failure contained; no new capture
+    reps = sink.reports
+    check([r["Window"] for r in reps] == list(range(exp.rolls)),
+          f"windows {[r['Window'] for r in reps]}, {exp.rolls} rolls")
+    check(exp.reports_published == exp.rolls and exp.reports_shed == 0,
+          f"{exp.reports_published} published, {exp.reports_shed} shed")
+    check(exp.rolls >= WT_FAIL_WINDOW + 2, f"{exp.rolls} windows")
+    check(reps[-1]["Records"] > 0, "close published no partial window")
+    check(fail.fired == 1 and exp.ingest_errors == 1,
+          f"{fail.fired} failures, {exp.ingest_errors} ingest errors")
+    check(ring.dict_resets - fail.resets_at_raise == len(ring.kdicts),
+          f"dict_resets {fail.resets_at_raise} -> {ring.dict_resets}, "
+          f"{len(ring.kdicts)} dictionaries")
+    check(sum(r["Records"] for r in reps) == float(rows_fed - dropped),
+          f"records {sum(r['Records'] for r in reps)}, fed {rows_fed}, "
+          f"dropped {dropped}")
+    check(exp.records == rows_fed - dropped, f"exporter records "
+          f"{exp.records}")
+    check(captures1 == captures0 and retrace.total_retraces() == retraces0,
+          f"captures {captures1} (was {captures0}), retraces "
+          f"{retrace.total_retraces() - retraces0}")
+    check(all(w["compiles"] == (1 if _warm_captured(w["fn"]) else 0)
+              and w["retraces"] == 0 for w in watch),
+          f"captured folds {watch}")
+    want = _want_launches(specs, "lanes", exp.folds)
+    check(launches == want, f"launches {launches}, want {want}")
+    check(len(traces) == exp.rolls, f"{len(traces)} window traces")
+
+    # the replay: plain versions, eager, rolled after the same evictions
+    adds: dict = {}
+    touched: dict = {}
+    sink2 = WindowSink()
+    with plain_versions(specs, adds, touched):
+        exp2 = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                                   capture=False, sink=sink2, **LANES_KW)
+        with exp2._lock:
+            exp2._ensure_ring()
+        fail2 = DispatchFailure(exp2, at=fail.at)
+        seam2 = RollSeam(exp2, adds, touched)
+        at = [a for a, _, _ in seam.rolls]
+        j = 0
+        for i, (lo, hi) in enumerate(fed):
+            while j < len(at) - 1 and at[j] == i:
+                exp2.roll()
+                j += 1
+            exp2.export_evicted(eviction(lo, hi))
+        while j < len(at) - 1:
+            exp2.roll()
+            j += 1
+        exp2.close()  # the last roll, as close made it on the timed run
+    check(fail2.fired == 1 and exp2.ingest_errors == 1
+          and len(fail2.events) == dropped and fail2.window == fail.window
+          and fail.window == WT_FAIL_WINDOW, "the replay failed otherwise")
+    check(len(sink2.reports) == len(reps), f"{len(sink2.reports)} replayed "
+          f"reports, {len(reps)} timed")
+    cmp, recalls = [], []
+    bounds = [0] + at
+    for w, (rep, rep2) in enumerate(zip(reps, sink2.reports)):
+        check(rep["Records"] == rep2["Records"]
+              and rep["Bytes"] == rep2["Bytes"],
+              f"window {w}: records {rep['Records']} / {rep2['Records']}, "
+              f"bytes {rep['Bytes']} / {rep2['Bytes']}")
+        tables = sk.state_tables(seam.rolls[w][1])
+        tables2 = sk.state_tables(seam2.rolls[w][1])
+        cmp.append(compare_tables(tables, tables2, seam2.rolls[w][2]))
+        if rep["Records"] >= BATCH:
+            recalls.append(_window_recall(
+                tables["heavy_words"], tables["heavy_valid"],
+                fed[bounds[w]:bounds[w + 1]], ranks, nbytes, uni,
+                dropped=fail.events if w == fail.window else None,
+                index=index))
+    check(recalls and min(recalls) >= 0.99, f"recall@100 {recalls}")
+
+    dts = [dt for _, dt in samples]
+    during = [dt for t, dt in samples
+              if any(a <= t <= b for a, b in sink.spans)]
+
+    def span(t, name):
+        return sum(s["dur_ms"] for s in t["stages"] if s["stage"] == name)
+
+    traces.sort(key=lambda t: t["start_unix_ms"])
+    return {"phase": "window_thread", "window_s": WINDOW_S,
+            "sink_sleep_s": SINK_SLEEP_S, "registry": metrics is not None,
+            "tracing_sample": 1.0, "feed_seconds": feed_s,
+            "evictions": len(fed), "records_fed": rows_fed,
+            "records_per_s": rows_fed / feed_s,
+            "export_evicted_max_s": max(dts),
+            "export_evicted_median_s": float(np.median(dts)),
+            "export_evicted_max_during_sink_s": max(during, default=None),
+            "evictions_during_sink": len(during),
+            "close_seconds": close_s,
+            "roll_drain_ms": [span(t, "roll_drain") for t in traces],
+            "roll_dispatch_ms": [span(t, "roll_dispatch") for t in traces],
+            "report_render_ms": [span(t, "report_render") for t in traces],
+            "report_sink_ms": [span(t, "report_sink") for t in traces],
+            "windows": exp.rolls, "reports_published": exp.reports_published,
+            "reports_shed": exp.reports_shed, "folds": exp.folds,
+            "ingest_errors": exp.ingest_errors, "dropped_records": dropped,
+            "failed_fold_call": fail.at, "failed_window": fail.window,
+            "dict_resets": ring.dict_resets,
+            "records_per_window": [r["Records"] for r in reps],
+            "superbatch_folds": {str(k): v for k, v in
+                                 sorted(ring.superbatch_folds.items())},
+            "launches": launches, "key_table": kt,
+            "recall_at_100": recalls, "vs_plain_replay": cmp}
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -2089,7 +2430,7 @@ def _c1_run(specs, dense, cfg, mode: str) -> dict:
            else counting_plains(specs, plain_calls))
     with ctx:
         exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
-                                  capture=mode == "captured")
+                                  sink=_discard, capture=mode == "captured")
         for s in specs:
             s["kernel"].launches = 0
         win = _window(exp, dense_feeder(dense), len(dense), 0, C1_FOLDS,
@@ -2179,7 +2520,8 @@ def phase_profile(specs, feed, n_batches: int, cfg, name: str, path: str,
     from torch.profiler import ProfilerActivity, profile
     from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
     exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
-                              capture=capture, **(exp_kw or {}))
+                              sink=_discard, capture=capture,
+                              **(exp_kw or {}))
     for i in range(warm):
         feed(exp, i % n_batches)
     torch.cuda.synchronize()
@@ -2358,6 +2700,9 @@ def main() -> int:
         phase = "lanes_path"
         lanes_res = phase_lanes_path(specs, universe, pool, events)
         emit(lanes_res)
+        phase = "window_thread"
+        wt_res = phase_window_thread(specs, universe, pool, events)
+        emit(wt_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -2379,6 +2724,7 @@ def main() -> int:
     launches = {"wide": main_res["launches"], "tiered": tier_res["launches"],
                 "resident": res_res["launches"],
                 "lanes": lanes_res["launches"],
+                "window_thread": wt_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -1,15 +1,22 @@
-"""Render a window report into the host JSON object.
+"""Render a window report into the host JSON object, and the report sinks.
 
 Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`_slot_key_entries`,
-`heavy_identity_index`, `report_to_json`), a copy with its imports pointed
-at this package's copies of the key layout, thresholds, victim naming and
-drop-reason names. A report's tensors are read through `np.asarray` after
-`report_numpy` has moved them to the host.
+`heavy_identity_index`, `report_to_json`, `_default_sink`,
+`make_report_sink`), a copy with its imports pointed at this package's
+copies of the key layout, thresholds, victim naming and drop-reason names,
+and of `SIGNAL_FIELDS` (`netobserv_tpu/alerts/rules.py:34`), the signal
+name of each report's suspect list. A report's tensors are read through
+`np.asarray` after `report_numpy` has moved them to the host.
+
+Not here: the Kafka report sink (`KafkaReportSink`, with its copy of the
+reference's Kafka client), ROADMAP A4.6.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import sys
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -23,6 +30,40 @@ from netobserv_tpu_torch.model.columnar import unpack_key_words
 from netobserv_tpu_torch.model.flow import ip_from_16
 from netobserv_tpu_torch.query.core import victim_bucket_names
 from netobserv_tpu_torch.utils.drop_reasons import drop_reason_name
+
+#: signal name -> rendered-report suspect-list key (a copy of
+#: `netobserv_tpu/alerts/rules.py:34`)
+SIGNAL_FIELDS = {
+    "ddos": "DdosSuspectBuckets",
+    "syn_flood": "SynFloodSuspectBuckets",
+    "port_scan": "PortScanSuspectBuckets",
+    "drop_storm": "DropAnomalyBuckets",
+    "asym_conv": "AsymmetricConversationBuckets",
+}
+
+ReportSink = Callable[[dict], None]
+
+
+def _default_sink(report: dict) -> None:
+    """One JSON line a report on standard output (the reference's default
+    sink, `tpu_sketch.py:51-53`)."""
+    sys.stdout.write(json.dumps(report, separators=(",", ":")) + "\n")
+    sys.stdout.flush()
+
+
+def make_report_sink(cfg) -> ReportSink:
+    """The SKETCH_REPORT_SINK switch (`tpu_sketch.py:89-97`): `cfg` is any
+    object with a `sketch_report_sink` setting. "" or "stdout" gives the
+    JSON-lines sink; "kafka" raises, since the port's Kafka sink is not
+    ported yet (ROADMAP A4.6)."""
+    if cfg.sketch_report_sink == "kafka":
+        raise NotImplementedError("the Kafka report sink is not ported yet "
+                                  "(ROADMAP A4.6)")
+    if cfg.sketch_report_sink not in ("", "stdout"):
+        raise ValueError(
+            f"SKETCH_REPORT_SINK={cfg.sketch_report_sink!r} (want "
+            "stdout|kafka)")
+    return _default_sink
 
 
 def _host(x):

@@ -1,16 +1,13 @@
-"""The sketch exporter of the port, reduced to this slice.
+"""The sketch exporter of the port: feeds, window plane and fold containment.
 
 Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`TpuSketchExporter`
-on one device). Flow records go in through one of three entry points, and
-`roll` closes the window into a report dict (`exporter/report.report_to_json`,
-with the previous roll's heavy-hitter index threaded so evicted keys are
-named):
+on one device). Flow records go in through one of three entry points:
 
 - `export_evicted` takes one map eviction (`datapath/fetcher.EvictedFlows`:
   flow events and their feature lanes) into a
   `sketch/staging.PendingEventBuffer`, which folds batch-aligned prefixes
   through the feed's staging ring and keeps each sub-batch tail for the
-  next eviction, `flush` or `roll`;
+  next eviction or the window's close;
 - `fold_events` takes raw flow events with their feature lanes as one
   eviction, the same way;
 - `fold_dense` takes the pre-packed dense feed (20 words per record): each
@@ -37,62 +34,161 @@ per-lane key tables and gain only where parallel packs scale,
 `tpu_sketch.py:466-473`).
 
 The ring is made at the feed's first use: an exporter fed only dense
-batches builds no packer. On CUDA each fold runs as a CUDA graph
-(`sketch/capture.py`) in one memory pool: the exporter's "fold_dense"
-(captured at its first fold), the dense ring's "fold_dense_ring", the
+batches builds no packer. On CUDA, making the ring (or the dense entry's
+first use) builds and loads every kernel library (`_build.load_all`), and
+each fold runs as a CUDA graph (`sketch/capture.py`) in one memory pool:
+the exporter's "fold_dense", the dense ring's "fold_dense_ring", the
 compact ring's "fold_compact" and "fold_compact_dense", and one graph per
-ladder entry, "fold_resident_lanes_x{k}", all captured by
-`warm_superbatch_ladder` when the ring is made, before any fold: each
-entry becomes selectable as its capture lands. A capture that fails
-raises; nothing falls back to eager folds or to a smaller ladder.
-`capture=False` folds eagerly, op by op, as the CPU always does, and every
-ladder entry is selectable at once.
+ladder entry, "fold_resident_lanes_x{k}". Every graph is captured before
+any fold: the rings' when they are made (`warm_superbatch_ladder`,
+`DenseStagingRing.warm`), the dense entry's at its first use. A build,
+load or capture that fails there raises; nothing falls back to eager
+folds, to plain kernels or to a smaller ladder. `capture=False` folds
+eagerly, op by op, as the CPU always does.
+
+**A failed fold is contained** (the reference's `_fold_events`, `_fold`
+and `_count_ingest_error`, `tpu_sketch.py:1343-1425`, `:1636-1689`): a
+fold that raises (the `sketch.ingest` fault point fires inside the same
+`try`) is logged, its rows are dropped and counted in `ingest_errors` (and
+`sketch_ingest_errors_total`), and every dictionary of a resident ring is
+reset: an epoch roll, so that no hot row references a slot whose new-key
+row never reached the device key table. The exception never reaches the
+caller of `export_evicted`, `fold_events` or `fold_dense`. What such a
+failure can leave behind:
+
+- every ingest runs `sketch.state.check_fold_shapes` before its first
+  in-place update, so a shape a kernel cannot hold raises with every table
+  and key table untouched;
+- past that point, eager folds update the state op by op: a device fault
+  in the middle leaves the tables before it folded (in order: the key
+  tables' new-key rows, the Count-Min planes, the heavy-hitter slot table,
+  the HLL registers, the histograms, the signal planes and the window
+  totals). The reference's jitted ingest folds a batch whole or not at
+  all;
+- a captured fold is one `graph.replay()`. A CUDA fault there is sticky
+  for the context: every later CUDA call fails, and each later fold is
+  contained and counted in turn. Containment cannot mend the context and
+  does not try.
+
+**The window plane** (`tpu_sketch.py:482-505`, `:947-1001`, `:1446-1470`,
+`:1529-1556`, `:1691-2095`). With `window_s` set, a window thread
+(`start_window_timer`) wakes every `min(1.0, window_s / 10)` seconds and
+closes the window once its deadline has passed, so an idle exporter still
+publishes. `export_evicted` and `fold_dense` also close a window whose
+deadline passed, under the exporter lock, and return None. Closing a
+window drains the pending rows (span `roll_drain`), rolls the state and
+copies the report to the host (`roll_dispatch`), and queues the report;
+the window thread renders it (`report_render`) and hands it to the sink
+(`report_sink`) outside the lock, so a slow sink never blocks a fold. The
+queue holds at most 8 reports: past that the oldest is shed, counted in
+`reports_shed` and `sketch_reports_shed_total`. A sink or render failure
+loses that report, counted and logged; the window has rolled. `flush()`
+closes the window now and publishes synchronously; `roll()` does the same
+and returns the rendered report; `close()` stops the thread, publishes the
+last window (`flush`), closes the sink and frees the device buffers. With
+`window_s=None` there is no thread, and only `roll`, `flush` and `close`
+close windows.
+
+Every CUDA call of the window plane runs under the exporter lock, on the
+same stream as the folds: a capture (ring creation, a rebind) never sees
+another thread's CUDA work, and the report is a host snapshot before the
+lock is released. The window thread's render and sink are host work only.
+
+Fault points (`utils/faultinject`): `sketch.ingest`, `sketch.window_timer`
+(outside the roll's `try`: a crash there is the supervisor's),
+`sketch.window_roll` (a roll error is swallowed and counted) and
+`sketch.window_publish`; the rings fire `sketch.staging_wait`.
+`register_supervised` registers the window thread with any supervisor that
+has the reference's `Supervisor.register` signature.
+
+Metrics: with a `metrics` facade (`metrics/registry.Metrics`) the exporter,
+its ring and its pending buffer count the reference's `sketch_*` families,
+and `utils/retrace` and `utils/tracing` are bound to it. Without one the
+plain counters below still count.
 
 With `SketchConfig(tiered=TierSpec())` the state stays resident in tiered
 form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
-and `counter_table_bytes` gives the resident bytes of the tier-covered
-tables.
+`counter_table_bytes` gives the resident bytes of the tier-covered tables,
+and with metrics each window counts its new promotions
+(`sketch_tier_promotions_total`).
 
-Not in this slice: overload control, the fold thread, federation,
-archive, checkpoints, metrics and tracing.
+Not in this slice: overload control and `StagingWedged` (A4.5), the
+overlapped fold thread, the query snapshot and its mid-window refresh
+(A4.2), the federation delta export (A4.3), archive and checkpoints
+(A4.4), the Kafka report sink (A4.6), batch traces riding evictions (the
+map tracer's), tenants (A5) and the mesh (A6).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import logging
 import os
+import threading
 import time
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
 from netobserv_tpu_torch import config
+from netobserv_tpu_torch.config import (
+    DEFAULT_ASYM_MIN_BYTES, DEFAULT_ASYM_RATIO, DEFAULT_CHURN_ASCENT,
+    DEFAULT_CHURN_MIN_BYTES, DEFAULT_DDOS_Z, DEFAULT_DROP_Z,
+    DEFAULT_SCAN_FANOUT, DEFAULT_SYNFLOOD_MIN, DEFAULT_SYNFLOOD_RATIO,
+)
 from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
 from netobserv_tpu_torch.exporter.report import (
-    heavy_identity_index, report_numpy, report_to_json,
+    SIGNAL_FIELDS, ReportSink, _default_sink, heavy_identity_index,
+    report_numpy, report_to_json,
 )
+from netobserv_tpu_torch.ops.kernels import _build
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch import staging, tiered
 from netobserv_tpu_torch.sketch.capture import CapturedFold
+from netobserv_tpu_torch.utils import faultinject, retrace, tracing
 from netobserv_tpu_torch.utils.platform import pick_device
 
+log = logging.getLogger("netobserv_tpu_torch.exporter.torch_sketch")
+
 FEEDS = ("resident", "compact", "dense")
+#: reports a window close may queue before the oldest is shed
+MAX_QUEUED_REPORTS = 8
+
+
+class _Queued:
+    """A closed window waiting for its publish: the host report, the
+    pre-roll tables where a consumer needs them, the window trace, and the
+    rendered object once published."""
+
+    __slots__ = ("report", "tables", "trace", "out")
+
+    def __init__(self, report, tables, trace):
+        self.report = report
+        self.tables = tables
+        self.trace = trace
+        self.out: Optional[dict] = None
 
 
 class TorchSketchExporter:
-    """Folds flow records into one device-resident sketch state.
+    """Folds flow records into one device-resident sketch state and
+    publishes a report each window (module docstring).
 
-    `window_s` sets a window deadline: the first fold after it passes
-    closes the window and returns the report (None otherwise).
     `decay_factor` / `reset_sketches` choose the roll mode as in
-    `sketch.state.roll_window`. `folds` counts ingest dispatches (a
-    superbatch of k batches is one), `records` the records handed to a
-    fold, `rolls` the closed windows. `ring` is the feed's staging ring
-    (module docstring; `resident_slots` slots a region, the packer
-    `packer` names for the resident feed: "native", the default, or
-    "python"), made at the feed's first use, and `pending` its
-    `PendingEventBuffer`. On a CUDA device `capture` folds through CUDA
-    graphs, listed in `captures`; the CPU folds eagerly."""
+    `sketch.state.roll_window`; the thresholds (`scan_fanout_threshold`
+    ... `churn_min_bytes`) are the renderer's (`exporter/report.py`);
+    `sink` takes each rendered report (default: JSON lines on standard
+    output). Plain counters: `folds` (ingest dispatches; a superbatch of k
+    batches is one), `records` (records of the folds that succeeded),
+    `rolls` (closed windows), `ingest_errors` (folds contained),
+    `reports_published` (reports the sink took) and `reports_shed`; the
+    ring keeps `dict_resets`. `ring` is the feed's staging ring
+    (`resident_slots` slots a region, the packer `packer` names for the
+    resident feed: "native", the default, or "python"), made at the feed's
+    first use, and `pending` its `PendingEventBuffer`. On a CUDA device
+    `capture` folds through CUDA graphs, listed in `captures`; the CPU
+    folds eagerly."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -100,10 +196,20 @@ class TorchSketchExporter:
                  window_s: Optional[float] = None,
                  reset_sketches: bool = True,
                  decay_factor: Optional[float] = None,
-                 sink: Optional[Callable[[dict], None]] = None,
+                 sink: Optional[ReportSink] = None,
                  packer: str = "native", capture: bool = True,
                  feed: str = "resident", pack_threads: int = 0,
-                 superbatch=(1, 2, 4), resident_slots: int = 1 << 18):
+                 superbatch=(1, 2, 4), resident_slots: int = 1 << 18,
+                 metrics=None,
+                 scan_fanout_threshold: float = DEFAULT_SCAN_FANOUT,
+                 ddos_z_threshold: float = DEFAULT_DDOS_Z,
+                 synflood_min: float = DEFAULT_SYNFLOOD_MIN,
+                 synflood_ratio: float = DEFAULT_SYNFLOOD_RATIO,
+                 drop_z_threshold: float = DEFAULT_DROP_Z,
+                 asym_min_bytes: float = DEFAULT_ASYM_MIN_BYTES,
+                 asym_ratio: float = DEFAULT_ASYM_RATIO,
+                 churn_ascent: float = DEFAULT_CHURN_ASCENT,
+                 churn_min_bytes: float = DEFAULT_CHURN_MIN_BYTES):
         self.device = pick_device(device)
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
@@ -116,8 +222,14 @@ class TorchSketchExporter:
         self.window_s = window_s
         self.reset_sketches = reset_sketches
         self.decay_factor = decay_factor
-        self.sink = sink
+        self.sink = sink or _default_sink
         self.feed = feed
+        self._thresholds = dict(
+            scan_fanout_threshold=scan_fanout_threshold,
+            ddos_z_threshold=ddos_z_threshold, synflood_min=synflood_min,
+            synflood_ratio=synflood_ratio, drop_z_threshold=drop_z_threshold,
+            asym_min_bytes=asym_min_bytes, asym_ratio=asym_ratio,
+            churn_ascent=churn_ascent, churn_min_bytes=churn_min_bytes)
         self.superbatch = config.parse_superbatch_ladder(superbatch)
         self.pack_threads = config.resolved_pack_threads(pack_threads)
         # pack lanes wanted: an auto count engages lanes only on a host of
@@ -125,6 +237,14 @@ class TorchSketchExporter:
         self._lane_threads = (self.pack_threads if pack_threads > 0
                               or (os.cpu_count() or 1) >= 4 else 1)
         self.resident_slots = resident_slots
+        self._metrics = metrics
+        if metrics is not None:
+            retrace.set_metrics(metrics)
+            tracing.set_metrics(metrics)
+        self._tier_form = sk.tiered_fold_form(cfg)
+        #: previous window's promoted-counter masks, by CM table: in decay
+        #: mode promotions persist, and only new ones count
+        self._tier_prev_promoted: dict = {}
         self.state = sk.init_state(cfg, self.device)
         words = batch_size * sk.DENSE_WORDS
         self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
@@ -139,12 +259,28 @@ class TorchSketchExporter:
         self._fold_dense = (CapturedFold("fold_dense", self._ingest_dense,
                                          self._pool)
                             if self._capture else None)
+        self._dense_ready = False
         self._prev_index: Optional[dict] = None
+        # folds, rolls and every CUDA call of the window plane hold _lock;
+        # _roll_mutex serializes the roll itself; _publish_lock the
+        # publishes of the queued reports
+        self._lock = threading.Lock()
+        self._roll_mutex = threading.Lock()
+        self._publish_lock = threading.Lock()
+        self._closed = threading.Event()
+        self._reports: collections.deque = collections.deque()
         self._deadline = self._next_deadline()
-        self._closed = False
         self.folds = 0
         self.records = 0
         self.rolls = 0
+        self.ingest_errors = 0
+        self.reports_published = 0
+        self.reports_shed = 0
+        #: supervision hook of the window thread (`register_supervised`)
+        self.heartbeat = lambda: None
+        self._timer: Optional[threading.Thread] = None
+        if window_s is not None:
+            self.start_window_timer()
 
     @property
     def captures(self) -> list[CapturedFold]:
@@ -157,23 +293,33 @@ class TorchSketchExporter:
         return (time.monotonic() + self.window_s
                 if self.window_s is not None else None)
 
-    def _maybe_roll(self) -> Optional[dict]:
-        if self._deadline is not None and time.monotonic() >= self._deadline:
-            return self.roll()
-        return None
+    def _due(self) -> bool:
+        return self._deadline is not None and time.monotonic() >= \
+            self._deadline
 
     def _check_open(self) -> None:
-        if self._closed:
+        if self._closed.is_set():
             raise RuntimeError("exporter is closed")
 
+    def _on_device(self):
+        """The exporter's device as the calling thread's current CUDA
+        device (a new thread's is device 0)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def _ensure_ring(self) -> None:
-        """Make the feed's ring and pending buffer at first use; the
-        resident feed warms its ladder there."""
+        """Make the feed's ring and pending buffer at first use (under the
+        lock); on CUDA build and load the kernels first, and capture the
+        ring's graphs. Any failure here raises."""
         if self.ring is not None:
             return
+        if self.device.type == "cuda":
+            _build.load_all()
         kw = dict(device=self.device, enable_fanout=self.cfg.enable_fanout,
                   enable_asym=self.cfg.enable_asym, capture=self._capture,
-                  graph_pool=self._pool, pack_threads=self.pack_threads)
+                  graph_pool=self._pool, pack_threads=self.pack_threads,
+                  metrics=self._metrics)
         if self.feed == "resident":
             ring = staging.ShardedResidentStagingRing(
                 self.batch_size, 1, slot_cap=self.resident_slots,
@@ -186,9 +332,13 @@ class TorchSketchExporter:
                 spill_cap=(staging.default_spill_cap(self.batch_size)
                            if self.feed == "compact" else None), **kw)
         self.pending = staging.PendingEventBuffer(
-            self.batch_size, getattr(ring, "superbatch_max", 1))
+            self.batch_size, getattr(ring, "superbatch_max", 1),
+            metrics=self._metrics)
         self.ring = ring
-        self.warm_superbatch_ladder()
+        if isinstance(ring, staging.DenseStagingRing):
+            ring.warm(self.state)
+        else:
+            self.warm_superbatch_ladder()
 
     def warm_superbatch_ladder(self) -> None:
         """Capture every ladder entry of the resident ring against the
@@ -202,66 +352,140 @@ class TorchSketchExporter:
         for k in ring.ladder:
             ring.warm(self.state, k)
 
-    def export_evicted(self, evicted: EvictedFlows) -> Optional[dict]:
+    # ------------------------------------------------------------ folds
+
+    def export_evicted(self, evicted: EvictedFlows) -> None:
         """Take one eviction into the pending buffer, which folds its
-        batch-aligned rows and keeps the sub-batch tail. Returns the window
-        report if this call passed the window deadline, else None."""
+        batch-aligned rows and keeps the sub-batch tail; close the window
+        if its deadline passed. A fold that fails is contained (module
+        docstring)."""
         self._check_open()
-        self._ensure_ring()
-        self.pending.append(evicted, self._fold_events)
-        return self._maybe_roll()
+        with self._lock:
+            self._ensure_ring()
+            self.pending.append(evicted, self._fold_events)
+            if self._due():
+                self._close_window_locked()
 
     def fold_events(self, events: np.ndarray, extra=None, dns=None,
-                    drops=None, xlat=None, quic=None) -> Optional[dict]:
+                    drops=None, xlat=None, quic=None) -> None:
         """Fold raw flow events (`model/binfmt.FLOW_EVENT_DTYPE` rows, any
         count) and their optional feature lanes (`EXTRA_REC_DTYPE`,
         `DNS_REC_DTYPE`, `DROPS_REC_DTYPE`, `XLAT_REC_DTYPE`,
         `QUIC_REC_DTYPE`, row for row) as one eviction
         (`export_evicted`)."""
-        return self.export_evicted(EvictedFlows(
+        self.export_evicted(EvictedFlows(
             events, dns=dns, drops=drops, extra=extra, xlat=xlat, quic=quic))
 
     def _fold_events(self, events: np.ndarray, feats: dict) -> None:
+        """The pending buffer's fold: the ring's, contained."""
+        t0 = time.perf_counter()
+        n = len(events)
         chunks = self.ring.chunks
-        self.ring.fold(self.state, events, **feats)
-        self.folds += self.ring.chunks - chunks
-        self.records += len(events)
+        trace = tracing.start_trace("fold")
+        try:
+            with trace.stage("fold"):
+                faultinject.fire("sketch.ingest")
+                self.ring.fold(self.state, events, trace=trace, **feats)
+        except Exception as exc:
+            self._count_ingest_error(n, exc)
+            return
+        finally:
+            self.folds += self.ring.chunks - chunks
+            trace.finish()
+        self._count_fold(n, t0)
 
-    def flush(self) -> None:
-        """Fold the pending buffer's tail (a partial batch)."""
-        self._check_open()
-        if self.pending is not None:
-            self.pending.flush_to(self._fold_events)
+    def _count_fold(self, n: int, t0: float) -> None:
+        self.records += n
+        m = self._metrics
+        if m is not None:
+            m.sketch_batches_total.inc()
+            if self._tier_form == "interior":
+                m.sketch_tiered_interior_folds_total.inc()
+            m.sketch_records_total.inc(n)
+            m.sketch_ingest_seconds.observe(time.perf_counter() - t0)
 
-    def fold_dense(self, flat: np.ndarray) -> Optional[dict]:
+    def _count_ingest_error(self, n: int, exc: Exception) -> None:
+        """Count a contained fold of n rows, and roll the epoch of every
+        dictionary of a resident ring: the dropped chunk may have committed
+        slots whose new-key rows never reached the device key tables
+        (`tpu_sketch.py:1399-1425`)."""
+        log.error("sketch ingest failed (batch of %d dropped): %s", n, exc)
+        self.ingest_errors += 1
+        m = self._metrics
+        if m is not None:
+            m.sketch_ingest_errors_total.inc()
+            m.count_error("tpu-sketch-ingest")
+        kdicts = getattr(self.ring, "kdicts", None)
+        if kdicts is None:
+            kd = getattr(self.ring, "kdict", None)
+            kdicts = [kd] if kd is not None else []
+        for kd in kdicts:
+            kd.reset()
+        if kdicts:
+            self.ring.dict_resets += len(kdicts)
+            if m is not None:
+                m.sketch_resident_dict_epochs_total.inc(len(kdicts))
+
+    def fold_dense(self, flat: np.ndarray) -> None:
         """Fold a flat uint32 dense feed (rows of 20 words, any row count;
-        it folds in batches of `batch_size`). Returns the window report if
-        this call passed the window deadline, else None."""
+        it folds in batches of `batch_size`), each batch contained; close
+        the window if its deadline passed. A feed that is not whole rows
+        raises."""
         self._check_open()
         flat = np.asarray(flat).reshape(-1).view(np.uint32)
         if flat.size % sk.DENSE_WORDS:
             raise ValueError(f"dense feed of {flat.size} words is not whole "
                              f"{sk.DENSE_WORDS}-word rows")
         step = self.batch_size * sk.DENSE_WORDS
-        for lo in range(0, flat.size, step):
-            self._fold_one(flat[lo:lo + step])
-        self.records += flat.size // sk.DENSE_WORDS
-        return self._maybe_roll()
+        with self._lock:
+            self._ensure_dense()
+            for lo in range(0, flat.size, step):
+                self._fold_one(flat[lo:lo + step])
+            if self._due():
+                self._close_window_locked()
+
+    def _ensure_dense(self) -> None:
+        """The dense entry's first use (under the lock): on CUDA build and
+        load the kernels and capture its graph, before any fold; any
+        failure here raises."""
+        if self._dense_ready:
+            return
+        if self.device.type == "cuda":
+            _build.load_all()
+        if self._fold_dense is not None:
+            self._fold_dense.prepare(self.state, self._dev)
+        self._dense_ready = True
 
     def _fold_one(self, chunk: np.ndarray) -> None:
-        if self._copied is not None:
-            self._copied.synchronize()  # the last copy out of _host is done
-        n = chunk.size
-        self._host_u32[:n] = chunk
-        self._host_u32[n:] = 0  # zero rows are invalid (word 14 == 0)
-        self._dev.copy_(self._host, non_blocking=True)
-        if self._copied is not None:
-            self._copied.record()
-        if self._fold_dense is not None:
-            self._fold_dense(self.state, self._dev)
-        else:
-            self._ingest_dense(self.state, self._dev)
-        self.folds += 1
+        """Stage and fold one dense batch, contained (reference `_fold`,
+        `tpu_sketch.py:1636-1689`)."""
+        t0 = time.perf_counter()
+        n = chunk.size // sk.DENSE_WORDS
+        trace = tracing.start_trace("fold")
+        try:
+            with trace.stage("pack"):
+                if self._copied is not None:
+                    self._copied.synchronize()  # the last copy is done
+                self._host_u32[:chunk.size] = chunk
+                self._host_u32[chunk.size:] = 0  # zero rows are invalid
+            try:
+                faultinject.fire("sketch.ingest")
+                with trace.stage("ingest_dispatch"):
+                    self._dev.copy_(self._host, non_blocking=True)
+                    if self._copied is not None:
+                        self._copied.record(
+                            torch.cuda.current_stream(self.device))
+                    if self._fold_dense is not None:
+                        self._fold_dense(self.state, self._dev)
+                    else:
+                        self._ingest_dense(self.state, self._dev)
+                    self.folds += 1
+            except Exception as exc:
+                self._count_ingest_error(n, exc)
+                return
+        finally:
+            trace.finish()
+        self._count_fold(n, t0)
 
     def _ingest_dense(self, state, dev: torch.Tensor):
         return sk.ingest(state, sk.dense_to_arrays(dev),
@@ -270,39 +494,233 @@ class TorchSketchExporter:
 
     def state_tables(self) -> dict[str, np.ndarray]:
         """The current (pre-roll) mergeable tables, on the host."""
-        return sk.state_tables(self.state)
+        with self._lock, self._on_device():
+            return sk.state_tables(self.state)
 
     def counter_table_bytes(self) -> dict[str, int]:
         """Resident bytes of each tier-covered table (CM planes, HLL
         banks), read from the state's tensors."""
         return tiered.counter_table_bytes(self.state)
 
-    def roll(self) -> dict:
-        """Close the window: fold the pending buffer's tail, render the
-        report, roll the state, pass the report to the sink and return
-        it."""
-        self.flush()
-        _, report = sk.roll_window(self.state, self.cfg, self.reset_sketches,
-                                   self.decay_factor)
-        host = report_numpy(report)
-        out = report_to_json(host, prev_heavy_index=self._prev_index)
-        self._prev_index = heavy_identity_index(host)
-        self.rolls += 1
+    # ---------------------------------------------------- window plane
+
+    def _drain_pending(self) -> None:
+        """Fold the pending buffer's rows, a partial batch included
+        (reference `_drain_pending_locked`, `tpu_sketch.py:1427-1431`)."""
+        if self.pending is not None:
+            self.pending.flush_to(self._fold_events)
+
+    def _close_window_locked(self) -> _Queued:
+        """Drain the pending rows and roll, under one window trace
+        (`roll_drain`, `roll_dispatch`); returns the queued report."""
+        wtrace = tracing.start_trace("window")
+        try:
+            with wtrace.stage("roll_drain"):
+                self._drain_pending()
+            return self._roll_locked(wtrace)
+        except BaseException:
+            wtrace.finish()  # a failed roll never reaches the queue
+            raise
+
+    def _roll_locked(self, wtrace=tracing.NULL_TRACE) -> _Queued:
+        """Close the window under the lock: advance the deadline, roll the
+        state and copy the report (and the tables a consumer needs) to the
+        host, queue it, and shed the oldest report beyond
+        MAX_QUEUED_REPORTS. Rendering and the sink are `_publish_queued`'s
+        (`tpu_sketch.py:1691-1738`)."""
         self._deadline = self._next_deadline()
-        if self.sink is not None:
-            self.sink(out)
-        return out
+        with wtrace.stage("roll_dispatch"):
+            with self._roll_mutex:
+                tables = self._tier_tables()
+                _, report = sk.roll_window(self.state, self.cfg,
+                                           self.reset_sketches,
+                                           self.decay_factor)
+                report = report_numpy(report)
+        self.rolls += 1
+        entry = _Queued(report, tables, wtrace)
+        self._reports.append(entry)
+        while len(self._reports) > MAX_QUEUED_REPORTS:
+            try:
+                shed = self._reports.popleft()
+            except IndexError:
+                break  # the publisher took it between len() and pop
+            shed.trace.finish()
+            self.reports_shed += 1
+            log.error("window report queue full (sink stalled?); "
+                      "dropping the oldest unpublished report")
+            if self._metrics is not None:
+                self._metrics.sketch_reports_shed_total.inc()
+        return entry
+
+    def _tier_tables(self) -> Optional[dict]:
+        """The pre-roll wide CM planes of a tiered state, on the host, for
+        the tier-promotion metric; None where nothing consumes them."""
+        if self._metrics is None or self.cfg.tiered is None:
+            return None
+        t, spec = self.state.tables, self.state.spec
+        return {"cm_bytes": tiered.decode_plane(t.cm_bytes, spec,
+                                                spec.bytes_unit).cpu().numpy(),
+                "cm_pkts": tiered.decode_plane(t.cm_pkts, spec,
+                                               1).cpu().numpy()}
+
+    def _publish_queued(self) -> None:
+        """Render and deliver every queued report (the window thread, or
+        `flush`). A render or sink failure loses that report, counted and
+        logged (`tpu_sketch.py:1740-1759`)."""
+        with self._publish_lock:
+            while self._reports:
+                try:
+                    entry = self._reports.popleft()
+                except IndexError:
+                    return  # _roll_locked's shed loop emptied it first
+                try:
+                    self._publish_report(entry)
+                except Exception as exc:
+                    log.error("window report publish failed "
+                              "(report lost): %s", exc)
+                    if self._metrics is not None:
+                        self._metrics.count_error("tpu-sketch")
+                finally:
+                    entry.trace.finish()
+
+    def _render_report(self, report) -> dict:
+        """Render a host report with this exporter's thresholds, against
+        the previous roll's heavy index, and rotate that index."""
+        obj = report_to_json(report, prev_heavy_index=self._prev_index,
+                             **self._thresholds)
+        self._prev_index = heavy_identity_index(report)
+        return obj
+
+    def _publish_report(self, entry: _Queued) -> None:
+        """Render, stamp, sink, then the window's metrics
+        (`tpu_sketch.py:1981-2095`, without the delta export, the query
+        snapshot and the archive)."""
+        wtrace = entry.trace
+        with wtrace.stage("report_render"):
+            obj = self._render_report(entry.report)
+        obj["TimestampMs"] = time.time_ns() // 1_000_000
+        entry.out = obj
+        m = self._metrics
+        if m is not None:
+            m.sketch_heavy_evictions_total.inc(
+                obj["HeavyChurn"]["evictions"])
+        with wtrace.stage("report_sink"):
+            self.sink(obj)
+        self.reports_published += 1
+        if m is not None:
+            if entry.tables is not None:
+                try:
+                    self._publish_tier_metrics(entry.tables)
+                except Exception as exc:  # telemetry never loses a report
+                    log.warning("tier metrics publish failed: %s", exc)
+            m.sketch_window_reports_total.inc()
+            m.sketch_window_records.set(obj["Records"])
+            m.sketch_window_drop_bytes.set(obj["DropBytes"])
+            for sig, key in SIGNAL_FIELDS.items():
+                m.sketch_window_suspects.labels(sig).set(len(obj[key]))
+
+    def _publish_tier_metrics(self, tables: dict) -> None:
+        """Count the window's new promotions out of the u8 base plane, per
+        CM table: counters at or past base saturation that were not at the
+        previous publish (decay mode keeps promotions across windows; reset
+        mode starts each window from fresh planes, so there every promoted
+        counter is new) (`tpu_sketch.py:1957-1979`)."""
+        spec = self.cfg.tiered
+        for table, span in (("cm_bytes", tiered.BASE_MAX * spec.bytes_unit),
+                            ("cm_pkts", tiered.BASE_MAX)):
+            promoted = np.asarray(tables[table]) >= span
+            fresh = promoted
+            if self.decay_factor is not None:
+                prev = self._tier_prev_promoted.get(table)
+                if prev is not None:
+                    fresh = promoted & ~prev
+                self._tier_prev_promoted[table] = promoted
+            self._metrics.sketch_tier_promotions_total.labels(
+                table=table).inc(int(fresh.sum()))
+
+    def roll(self) -> Optional[dict]:
+        """Close the window now: fold the pending rows, roll, publish every
+        queued report synchronously, and return this window's rendered
+        report (None if it was shed or failed to render)."""
+        self._check_open()
+        return self._roll_now()
+
+    def _roll_now(self) -> Optional[dict]:
+        with self._lock, self._on_device():
+            entry = self._close_window_locked()
+        self._publish_queued()
+        return entry.out
+
+    def flush(self) -> None:
+        """Fold the pending rows, close the window now and publish its
+        report synchronously (`tpu_sketch.py:1462-1470`)."""
+        self.roll()
+
+    @property
+    def _window_poll_s(self) -> float:
+        """The window thread's wake-up period; the supervisor's heartbeat
+        deadline rides on top of it."""
+        return min(1.0, self.window_s / 10)
+
+    def start_window_timer(self) -> None:
+        """(Re)start the window thread; a supervisor uses this as the
+        "sketch-window" stage's restart callable."""
+        self._timer = threading.Thread(
+            target=self._window_loop, name="sketch-window", daemon=True)
+        self._timer.start()
+
+    def register_supervised(self, supervisor, heartbeat_timeout_s=None,
+                            **kwargs) -> None:
+        """Register the window thread with a supervisor (the reference's
+        `Supervisor.register` signature); its heartbeat deadline rides on
+        top of the thread's poll period."""
+        self.heartbeat = supervisor.register(
+            "sketch-window", restart=self.start_window_timer,
+            thread_getter=lambda: self._timer,
+            heartbeat_timeout_s=(heartbeat_timeout_s or 10.0)
+            + self._window_poll_s, **kwargs)
+
+    def _window_loop(self) -> None:
+        """Close a window whose deadline passed, then publish the queue
+        outside the lock (`tpu_sketch.py:1529-1556`)."""
+        while not self._closed.wait(timeout=self._window_poll_s):
+            self.heartbeat()
+            # outside the try: a fault of the thread itself is the
+            # supervisor's (restart), not the swallow-and-retry path
+            faultinject.fire("sketch.window_timer")
+            try:
+                faultinject.fire("sketch.window_roll")
+                with self._lock:
+                    if self._due():
+                        with self._on_device():
+                            self._close_window_locked()
+            except Exception as exc:
+                log.error("window roll failed (will retry next window): %s",
+                          exc)
+                if self._metrics is not None:
+                    self._metrics.count_error("tpu-sketch")
+            # a crash here restarts the thread; the queued report then
+            # publishes once, since its deadline advanced at the roll
+            if self._reports:
+                faultinject.fire("sketch.window_publish")
+            self._publish_queued()
 
     def close(self) -> None:
-        """Wait for outstanding device work and drop the buffers, the
-        ring's pinned buffers and the captured graphs included. Rows still
-        pending are dropped with the window's state: `roll` first to keep
-        them."""
-        if self._closed:
+        """Stop the window thread, publish the last window (`flush`), close
+        the sink if it has `close`, wait for the device, and drop the
+        buffers, the ring's pinned buffers and the captured graphs. A
+        second call does nothing (`tpu_sketch.py:1472-1527`)."""
+        if self._closed.is_set():
             return
+        self._closed.set()
+        if self._timer is not None:
+            self._timer.join(timeout=2.0)
+        self._roll_now()
+        sink_close = getattr(self.sink, "close", None)
+        if sink_close is not None:
+            sink_close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self._closed = True
         if self.ring is not None:
             self.ring.close()
         self.pending = None

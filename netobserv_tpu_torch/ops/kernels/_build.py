@@ -188,18 +188,33 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
-    def launch(self, ptrs: list[torch.Tensor], ints: list[int],
-               device: torch.device) -> None:
+    def load(self) -> None:
+        """Build the library if need be, load it and resolve the function;
+        raises if it cannot."""
         if self._fn is None:
             fn = getattr(_load(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
+
+    def launch(self, ptrs: list[torch.Tensor], ints: list[int],
+               device: torch.device) -> None:
+        self.load()
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = self._fn(*[t.data_ptr() for t in ptrs], *ints, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc}")
         self.launches += 1
+
+
+def load_all() -> None:
+    """Build every kernel's library (the missing ones in parallel, `build`)
+    and load each kernel: an exporter calls it when it makes a ring on a
+    CUDA device, so a kernel that cannot build or load raises there, and
+    never inside a fold, whose failures the exporter contains."""
+    build(sorted({k.source for k in CudaKernel.instances}))
+    for k in CudaKernel.instances:
+        k.load()
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

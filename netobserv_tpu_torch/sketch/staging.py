@@ -29,10 +29,27 @@ and no event is kept.
   `ResidentStagingRing` ships.
 - `PendingEventBuffer` coalesces evictions into batch-aligned folds.
 
-Not here: `StagingWedged` and the slot-wait budget, tracing, fault
-injection and metrics (A4), the sharded rings of a mesh (A6), and
-`ShardedResidentStagingRing.fold_packed` with `ResidentPackSurface`, which
-need the reference's fused drain pipeline.
+The reference's seams (`sketch/staging.py:108-170`, `:251-329`,
+`:443-444`, `:650-680`): every ring and the pending buffer take an
+optional `metrics` facade (`metrics/registry.Metrics`) and count
+`sketch_direct_fold_rows_total`, `sketch_staging_stalls_total`,
+`sketch_slot_wait_seconds`, `sketch_resident_continuations_total`,
+`sketch_resident_dict_epochs_total`, `sketch_resident_spill_rows_total`,
+`sketch_superbatch_folds_total{k}` and `sketch_dense_fallback_total`
+where the reference does. Every ring's `fold` takes `trace=`, the
+caller's trace (`utils/tracing`), and records its spans on it:
+`staging_wait` (a slot wait that stalled), `pack` (dense and compact),
+`resident_pack` and `ingest_dispatch`; with no trace given it samples one
+of its own (`_fold_trace`) and finishes only that one. `_wait_slot` fires
+the `sketch.staging_wait` fault point (`utils/faultinject`).
+
+A ring's `fold` raises whatever its pack or dispatch raises: containment
+is the exporter's (`exporter/torch_sketch.py`), as in the reference.
+
+Not here: `StagingWedged` and the slot-wait budget (ROADMAP A4.5), the
+sharded rings of a mesh (A6), and `ShardedResidentStagingRing.fold_packed`
+with `ResidentPackSurface`, which need the reference's fused drain
+pipeline (A7).
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ from netobserv_tpu_torch.datapath import flowpack
 from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch.capture import CapturedFold
+from netobserv_tpu_torch.utils import faultinject, tracing
 from netobserv_tpu_torch.utils.platform import pick_device
 
 
@@ -124,7 +142,8 @@ class PendingEventBuffer:
 
     A fold that raises drops only the rows it was given; the rows still
     buffered stay. Counterpart of the reference's `PendingEventBuffer`
-    (`sketch/staging.py:66-238`), without metrics. Rows move as bytes
+    (`sketch/staging.py:66-238`); with `metrics` the direct rows also go
+    to `sketch_direct_fold_rows_total`. Rows move as bytes
     (`_set_rows`): numpy's assignment of structured rows, field by field,
     is some 20x slower than the memcpy of the same bytes."""
 
@@ -136,9 +155,6 @@ class PendingEventBuffer:
 
     def __init__(self, batch_size: int, superbatch_max: int = 1,
                  metrics=None):
-        if metrics is not None:
-            raise NotImplementedError("the port has no metrics registry "
-                                      "yet (ROADMAP A4)")
         self.batch_size = batch_size
         self.capacity = batch_size * max(1, superbatch_max)
         self.n = 0
@@ -146,6 +162,7 @@ class PendingEventBuffer:
         self._lanes = {name: np.zeros(self.capacity, dt)
                        for name, dt in self.LANES}
         self._live = {name: False for name, _ in self.LANES}
+        self._metrics = metrics
         #: rows folded from views of an eviction's arrays (no copy)
         self.direct_rows = 0
 
@@ -188,6 +205,8 @@ class PendingEventBuffer:
                     raise
                 off += take
                 self.direct_rows += take
+                if self._metrics is not None:
+                    self._metrics.sketch_direct_fold_rows_total.inc(take)
             if off == len(ev):
                 return
         self._copy_in(evicted, off, fold)
@@ -265,9 +284,10 @@ class _SlotRing:
     WAIT_WINDOW = 64
 
     def _init_slots(self, n_slots: int, words: int,
-                    device: torch.device) -> None:
+                    device: torch.device, metrics) -> None:
         cuda = device.type == "cuda"
         self.device = device
+        self._metrics = metrics
         self._host = [torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
                       for _ in range(n_slots)]
         self._bufs = [h.numpy().view(np.uint32) for h in self._host]
@@ -290,16 +310,32 @@ class _SlotRing:
             return 0.0
         return float(np.percentile(self._waits[:self._wait_n], 95))
 
-    def _wait_slot(self) -> int:
-        """The next slot, once the copy out of its host buffer is done."""
+    def _fold_trace(self, trace):
+        """A fold's trace and whether the ring owns it: the caller's (it
+        finishes it), else one sampled here, which the ring finishes
+        (reference `_fold_trace`, `sketch/staging.py:280-288`)."""
+        if trace is not None:
+            return trace, False
+        return tracing.start_trace("fold"), True
+
+    def _wait_slot(self, trace=tracing.NULL_TRACE) -> int:
+        """The next slot, once the copy out of its host buffer is done. A
+        hang armed at the `sketch.staging_wait` fault point models a
+        wedged copy stalling the feed here."""
+        faultinject.fire("sketch.staging_wait")
         slot = self._slot
         ev = self._copied[slot]
         wait_s = 0.0
         if ev is not None and not ev.query():
             self.stalls += 1
+            if self._metrics is not None:
+                self._metrics.sketch_staging_stalls_total.inc()
             t0 = time.perf_counter()
-            ev.synchronize()
+            with trace.stage("staging_wait"):
+                ev.synchronize()
             wait_s = time.perf_counter() - t0
+            if self._metrics is not None:
+                self._metrics.sketch_slot_wait_seconds.observe(wait_s)
         self._record_wait(wait_s)
         return slot
 
@@ -367,7 +403,7 @@ class ResidentStagingRing(_SlotRing):
                  device: str | torch.device | None = None,
                  enable_fanout: bool = True, enable_asym: bool = True,
                  packer: str = "native", capture: bool = True,
-                 graph_pool=None):
+                 graph_pool=None, metrics=None):
         self.batch_size = batch_size
         self.caps = caps or flowpack.default_resident_caps(batch_size)
         self.enable_fanout = enable_fanout
@@ -388,7 +424,7 @@ class ResidentStagingRing(_SlotRing):
         self.pack_seconds = 0.0
         self._init_slots(n_slots,
                          flowpack.resident_buf_len(batch_size, self.caps),
-                         dev)
+                         dev, metrics)
 
     def _ingest(self, state, key_table: torch.Tensor, flat: torch.Tensor):
         return sk.ingest_resident(state, key_table, flat, self.batch_size,
@@ -396,37 +432,55 @@ class ResidentStagingRing(_SlotRing):
                                   enable_asym=self.enable_asym)
 
     def fold(self, state, events: np.ndarray, extra=None, dns=None,
-             drops=None, xlat=None, quic=None):
+             drops=None, xlat=None, quic=None, trace=None):
         """Pack `events` (flow event rows, `model/binfmt.FLOW_EVENT_DTYPE`,
         with optional feature lanes row for row) into ring slots in one or
-        more chunks, ship and ingest each. Returns `state`, updated in
-        place; the device work is not waited for."""
+        more chunks, ship and ingest each, with spans on `trace`. Returns
+        `state`, updated in place; the device work is not waited for."""
         feats = dict(extra=extra, dns=dns, drops=drops, xlat=xlat, quic=quic)
         n = len(events)
-        start = 0
-        while start < n:
-            if self.kdict.count() >= self.slot_cap:
-                self.kdict.reset()
-                self.dict_resets += 1
-            slot = self._wait_slot()
-            t0 = time.perf_counter()
-            buf, consumed = self._pack(
-                events, batch_size=self.batch_size, kdict=self.kdict,
-                caps=self.caps, start=start, out=self._bufs[slot], **feats)
-            self.pack_seconds += time.perf_counter() - t0
-            if consumed == 0:
-                raise RuntimeError("resident pack made no progress")
-            self.spill_rows += int(buf[2])
-            self.continuations += start > 0
-            start += consumed
-            flat = self._ship(slot)
-            if self.captured is not None:
-                self.captured(state, self.key_table, flat)
-            else:
-                state = self._ingest(state, self.key_table, flat)
-            self.chunks += 1
-            self._advance(slot)
-        return state
+        if n == 0:
+            return state
+        m = self._metrics
+        trace, owned = self._fold_trace(trace)
+        try:
+            start = 0
+            while start < n:
+                if self.kdict.count() >= self.slot_cap:
+                    self.kdict.reset()
+                    self.dict_resets += 1
+                    if m is not None:
+                        m.sketch_resident_dict_epochs_total.inc()
+                slot = self._wait_slot(trace)
+                t0 = time.perf_counter()
+                with trace.stage("resident_pack"):
+                    buf, consumed = self._pack(
+                        events, batch_size=self.batch_size, kdict=self.kdict,
+                        caps=self.caps, start=start, out=self._bufs[slot],
+                        **feats)
+                self.pack_seconds += time.perf_counter() - t0
+                if consumed == 0:
+                    raise RuntimeError("resident pack made no progress")
+                self.spill_rows += int(buf[2])
+                self.continuations += start > 0
+                if m is not None:
+                    if buf[2]:
+                        m.sketch_resident_spill_rows_total.inc(int(buf[2]))
+                    if start > 0:
+                        m.sketch_resident_continuations_total.inc()
+                start += consumed
+                with trace.stage("ingest_dispatch"):
+                    flat = self._ship(slot)
+                    if self.captured is not None:
+                        self.captured(state, self.key_table, flat)
+                    else:
+                        state = self._ingest(state, self.key_table, flat)
+                self.chunks += 1
+                self._advance(slot)
+            return state
+        finally:
+            if owned:
+                trace.finish()
 
     def close(self) -> None:
         """Drain, then drop the buffers and the captured fold."""
@@ -452,7 +506,10 @@ class DenseStagingRing(_SlotRing):
     On a CUDA device `capture` folds each slot by replaying one CUDA graph
     (`sketch/capture.py`): "fold_dense_ring" for the dense feed,
     "fold_compact" and "fold_compact_dense" (the fallback's) for the
-    compact feed, with their memory from `graph_pool` if given. Counters:
+    compact feed, with their memory from `graph_pool` if given; `warm`
+    captures them before any fold (the exporter calls it when it makes the
+    ring, so a capture that fails raises there), else each captures at its
+    first fold. Counters:
     `chunks` (ingest dispatches), `dense_fallbacks`, `stalls`,
     `slot_wait_p95` and `pack_seconds` (host time in the packer).
     Counterpart of the reference's `DenseStagingRing`
@@ -462,7 +519,7 @@ class DenseStagingRing(_SlotRing):
                  n_slots: int = 4, device: str | torch.device | None = None,
                  enable_fanout: bool = True, enable_asym: bool = True,
                  pack_threads: int = 1, capture: bool = True,
-                 graph_pool=None):
+                 graph_pool=None, metrics=None):
         dev = pick_device(device)
         flowpack.native_lib()  # a packer that cannot be built raises here
         self.batch_size = batch_size
@@ -489,7 +546,7 @@ class DenseStagingRing(_SlotRing):
         self.dense_fallbacks = 0
         self.chunks = 0
         self.pack_seconds = 0.0
-        self._init_slots(n_slots, words, dev)
+        self._init_slots(n_slots, words, dev, metrics)
 
     @property
     def captures(self) -> list[CapturedFold]:
@@ -501,6 +558,33 @@ class DenseStagingRing(_SlotRing):
         return sk.ingest(state, sk.dense_to_arrays(flat),
                          enable_fanout=self.enable_fanout,
                          enable_asym=self.enable_asym)
+
+    def warm(self, state) -> None:
+        """Capture the ring's graphs against `state` (on CUDA with
+        `capture`: warm-up on clones and the capture, no fold): the
+        slots', and the compact feed's dense fallback's with its
+        buffers."""
+        if not self._capture:
+            return
+        self.captured.prepare(state, self._dev)
+        if self.spill_cap is not None:
+            self._fallback_buffers()
+            self.captured_fallback.prepare(state, self._fb_dev)
+
+    def _fallback_buffers(self) -> None:
+        """The dense fallback's pinned and device buffers and captured
+        fold, made once."""
+        if self._fb_host is not None:
+            return
+        cuda = self.device.type == "cuda"
+        words = self.batch_size * sk.DENSE_WORDS
+        self._fb_host = torch.zeros(words, dtype=torch.int32,
+                                    pin_memory=cuda)
+        self._fb_dev = torch.zeros(words, dtype=torch.int32,
+                                   device=self.device)
+        if self._capture:
+            self.captured_fallback = CapturedFold(
+                "fold_compact_dense", self._ingest_dense, self._pool)
 
     def _ingest_compact(self, state, flat: torch.Tensor):
         return sk.ingest_compact(state, flat, self.batch_size, self.spill_cap,
@@ -516,45 +600,48 @@ class DenseStagingRing(_SlotRing):
         self.chunks += 1
 
     def fold(self, state, events: np.ndarray, extra=None, dns=None,
-             drops=None, xlat=None, quic=None):
+             drops=None, xlat=None, quic=None, trace=None):
         """Pack `events` (at most `batch_size` rows) into the next free
-        slot, ship and ingest it. Returns `state`, updated in place; the
-        device work is not waited for, except on the dense fallback."""
+        slot, ship and ingest it, with spans on `trace`. Returns `state`,
+        updated in place; the device work is not waited for, except on the
+        dense fallback."""
         feats = dict(extra=extra, dns=dns, drops=drops, xlat=xlat, quic=quic)
-        slot = self._wait_slot()
-        t0 = time.perf_counter()
-        if self.spill_cap is not None:
-            buf = flowpack.pack_compact(
-                events, batch_size=self.batch_size, spill_cap=self.spill_cap,
-                out=self._bufs[slot], **feats)
+        trace, owned = self._fold_trace(trace)
+        try:
+            slot = self._wait_slot(trace)
+            t0 = time.perf_counter()
+            with trace.stage("pack"):
+                if self.spill_cap is not None:
+                    buf = flowpack.pack_compact(
+                        events, batch_size=self.batch_size,
+                        spill_cap=self.spill_cap, out=self._bufs[slot],
+                        **feats)
+                else:
+                    buf = flowpack.pack_dense_sharded(
+                        events, batch_size=self.batch_size,
+                        threads=self.pack_threads,
+                        out=self._bufs[slot].reshape(self.batch_size,
+                                                     sk.DENSE_WORDS),
+                        **feats)
             self.pack_seconds += time.perf_counter() - t0
             if buf is None:
                 return self._fold_dense_fallback(state, events, feats)
-        else:
-            flowpack.pack_dense_sharded(
-                events, batch_size=self.batch_size,
-                threads=self.pack_threads,
-                out=self._bufs[slot].reshape(self.batch_size,
-                                             sk.DENSE_WORDS), **feats)
-            self.pack_seconds += time.perf_counter() - t0
-        self._dispatch(self.captured, self._fold_fn, state, self._ship(slot))
-        self._advance(slot)
-        return state
+            with trace.stage("ingest_dispatch"):
+                self._dispatch(self.captured, self._fold_fn, state,
+                               self._ship(slot))
+            self._advance(slot)
+            return state
+        finally:
+            if owned:
+                trace.finish()
 
     def _fold_dense_fallback(self, state, events: np.ndarray, feats: dict):
         """The compact feed's batch whose non-v4 rows pass the spill lane,
         shipped dense from the fallback's own buffers and waited for."""
         self.dense_fallbacks += 1
-        cuda = self.device.type == "cuda"
-        words = self.batch_size * sk.DENSE_WORDS
-        if self._fb_host is None:
-            self._fb_host = torch.zeros(words, dtype=torch.int32,
-                                        pin_memory=cuda)
-            self._fb_dev = torch.zeros(words, dtype=torch.int32,
-                                       device=self.device)
-            if self._capture:
-                self.captured_fallback = CapturedFold(
-                    "fold_compact_dense", self._ingest_dense, self._pool)
+        if self._metrics is not None:
+            self._metrics.sketch_dense_fallback_total.inc()
+        self._fallback_buffers()
         t0 = time.perf_counter()
         flowpack.pack_dense_sharded(
             events, batch_size=self.batch_size, threads=self.pack_threads,
@@ -564,7 +651,7 @@ class DenseStagingRing(_SlotRing):
         self._fb_dev.copy_(self._fb_host, non_blocking=True)
         self._dispatch(self.captured_fallback, self._ingest_dense, state,
                        self._fb_dev)
-        if cuda:
+        if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return state
 
@@ -621,7 +708,8 @@ class ShardedResidentStagingRing(_SlotRing):
                  enable_fanout: bool = True, enable_asym: bool = True,
                  packer: str = "native", capture: bool = True,
                  graph_pool=None, pack_threads: int = 1, lanes: int = 1,
-                 ladder: tuple = (1,), lazy_ladder: bool = False):
+                 ladder: tuple = (1,), lazy_ladder: bool = False,
+                 metrics=None):
         if n_shards != 1:
             raise NotImplementedError(
                 "a resident ring over several shards needs the mesh, which "
@@ -667,7 +755,7 @@ class ShardedResidentStagingRing(_SlotRing):
         self.chunks = 0
         self.pack_seconds = 0.0
         self._init_slots(n_slots, self.superbatch_max * self.n_regions
-                         * self._region_words, dev)
+                         * self._region_words, dev, metrics)
 
     @property
     def captures(self) -> list[CapturedFold]:
@@ -680,6 +768,14 @@ class ShardedResidentStagingRing(_SlotRing):
             state, key_tables, flat, self.batch_per_region, self.caps,
             k * self.n_regions, enable_fanout=self.enable_fanout,
             enable_asym=self.enable_asym)
+
+    def _dispatch(self, k: int, state, flat: torch.Tensor) -> None:
+        """Fold one shipped k-chunk through ladder entry k: its captured
+        graph, or eagerly."""
+        if self.captured is not None:
+            self.captured[k](state, self.key_tables, flat)
+        else:
+            self._ingest(k, state, self.key_tables, flat)
 
     def _ship_words(self, k: int) -> int:
         return k * self.n_regions * self._region_words
@@ -698,31 +794,38 @@ class ShardedResidentStagingRing(_SlotRing):
         self.mark_warm(k)
 
     def fold(self, state, events: np.ndarray, extra=None, dns=None,
-             drops=None, xlat=None, quic=None):
+             drops=None, xlat=None, quic=None, trace=None):
         """Pack `events` (any count; with optional feature lanes row for
         row) split over the regions, in one or more chunks, into ring
-        slots; ship and ingest each. Rows past one batch dispatch through
-        the largest fitting ladder entries. Returns `state`, updated in
-        place; the device work is not waited for."""
+        slots; ship and ingest each, with spans on `trace`. Rows past one
+        batch dispatch through the largest fitting ladder entries. Returns
+        `state`, updated in place; the device work is not waited for."""
         n = len(events)
+        if n == 0:
+            return state
         feats = dict(extra=extra, dns=dns, drops=drops, xlat=xlat, quic=quic)
-        start = 0
-        while start < n:
-            remaining = n - start
-            k = max((x for x in self.ladder if x in self._available
-                     and x * self.batch_size <= remaining), default=1)
-            take = min(remaining, k * self.batch_size)
-            chunk_feats = {
-                name: (v[start:start + take]
-                       if v is not None and len(v) else None)
-                for name, v in feats.items()}
-            self._fold_chunk(state, events[start:start + take], chunk_feats,
-                             k)
-            start += take
-        return state
+        trace, owned = self._fold_trace(trace)
+        try:
+            start = 0
+            while start < n:
+                remaining = n - start
+                k = max((x for x in self.ladder if x in self._available
+                         and x * self.batch_size <= remaining), default=1)
+                take = min(remaining, k * self.batch_size)
+                chunk_feats = {
+                    name: (v[start:start + take]
+                           if v is not None and len(v) else None)
+                    for name, v in feats.items()}
+                self._fold_chunk(state, events[start:start + take],
+                                 chunk_feats, k, trace)
+                start += take
+            return state
+        finally:
+            if owned:
+                trace.finish()
 
     def _fold_chunk(self, state, events: np.ndarray, feats: dict,
-                    k: int) -> None:
+                    k: int, trace) -> None:
         """Pack and dispatch one k-superbatch chunk (<= k * batch_size
         rows) through ladder entry k, in as many slots as its regions
         need."""
@@ -739,8 +842,9 @@ class ShardedResidentStagingRing(_SlotRing):
             for i in range(nr)]
         starts = [0] * nr
         first = True
+        m = self._metrics
         while any(starts[i] < len(shard_ev[i]) for i in range(nr)):
-            slot = self._wait_slot()
+            slot = self._wait_slot(trace)
             buf = self._bufs[slot]
 
             def pack_region(i):
@@ -768,23 +872,33 @@ class ShardedResidentStagingRing(_SlotRing):
                 return int(region[2]), resets
 
             t0 = time.perf_counter()
-            if self.pack_threads > 1 and nr > 1:
-                outs = [f.result() for f in flowpack._pack_submit(
-                    min(self.pack_threads, nr),
-                    [functools.partial(pack_region, i) for i in range(nr)])]
-            else:
-                outs = [pack_region(i) for i in range(nr)]
+            with trace.stage("resident_pack"):
+                if self.pack_threads > 1 and nr > 1:
+                    outs = [f.result() for f in flowpack._pack_submit(
+                        min(self.pack_threads, nr),
+                        [functools.partial(pack_region, i)
+                         for i in range(nr)])]
+                else:
+                    outs = [pack_region(i) for i in range(nr)]
             self.pack_seconds += time.perf_counter() - t0
-            self.spill_rows += sum(o[0] for o in outs)
-            self.dict_resets += sum(o[1] for o in outs)
+            spills = sum(o[0] for o in outs)
+            resets = sum(o[1] for o in outs)
+            self.spill_rows += spills
+            self.dict_resets += resets
             self.superbatch_folds[k] = self.superbatch_folds.get(k, 0) + 1
             self.continuations += not first
+            if m is not None:
+                if spills:
+                    m.sketch_resident_spill_rows_total.inc(spills)
+                if resets:
+                    m.sketch_resident_dict_epochs_total.inc(resets)
+                if not first:
+                    m.sketch_resident_continuations_total.inc()
+                m.sketch_superbatch_folds_total.labels(str(k)).inc()
             first = False
-            flat = self._ship(slot, self._ship_words(k))
-            if self.captured is not None:
-                self.captured[k](state, self.key_tables, flat)
-            else:
-                self._ingest(k, state, self.key_tables, flat)
+            with trace.stage("ingest_dispatch"):
+                self._dispatch(k, state, self._ship(slot,
+                                                    self._ship_words(k)))
             self.chunks += 1
             self._advance(slot)
 

@@ -43,6 +43,13 @@ slots, and a full-width spill lane; split into lanes
 table of its own, a row of `init_key_tables`. The host side is
 `datapath/flowpack` (`pack_dense`, `pack_compact`, `pack_resident`).
 
+Each ingest entry (`ingest`, `ingest_compact`, `ingest_resident`,
+`ingest_resident_lanes`, and so the tiered form) first calls
+`check_fold_shapes`, which raises for a fold that a kernel of the path
+cannot hold, before the first in-place update of a table or a key table:
+the reference's jitted ingest folds a batch whole or not at all, and an
+eager ingest that raised midway would leave its tables partly folded.
+
 Not in this slice: the owner-sharded ingest (`sketch_axis`) raises
 NotImplementedError.
 """
@@ -323,6 +330,7 @@ def ingest_compact(state: SketchState, flat: torch.Tensor, batch_size: int,
     """Fold one compact-feed buffer: `compact_to_arrays`, then `ingest`.
     The counterpart of the function `make_ingest_compact_fn` builds;
     returns `state`, updated in place."""
+    check_fold_shapes(state, batch_size + spill_cap)
     return ingest(state, compact_to_arrays(flat, batch_size, spill_cap),
                   enable_fanout=enable_fanout, enable_asym=enable_asym)
 
@@ -494,6 +502,7 @@ def ingest_resident(state: SketchState, key_table: torch.Tensor,
     """Fold one resident region: `resident_to_arrays` (which updates
     `key_table` in place), then `ingest`. The counterpart of the function
     `make_ingest_resident_fn` builds; returns `state`, updated in place."""
+    check_fold_shapes(state, batch_size + caps.spill)
     arrays, _ = resident_to_arrays(flat, key_table, batch_size, caps)
     return ingest(state, arrays, enable_fanout=enable_fanout,
                   enable_asym=enable_asym)
@@ -509,6 +518,7 @@ def ingest_resident_lanes(state: SketchState, key_tables: torch.Tensor,
     `ingest`. The counterpart of the function
     `make_ingest_resident_lanes_fn` builds; returns `state`, updated in
     place."""
+    check_fold_shapes(state, n_lanes * (batch_per_lane + caps.spill))
     arrays, _ = resident_lane_arrays(flat, key_tables, batch_per_lane, caps,
                                      n_lanes)
     return ingest(state, arrays, enable_fanout=enable_fanout,
@@ -532,6 +542,56 @@ def tiered_fold_form(cfg: SketchConfig) -> str | None:
     if _interior(cfg.cm_depth, cfg.cm_width, cfg.tiered):
         return "interior"
     return "decode"
+
+
+def _pow2(x: int) -> bool:
+    return x > 0 and not x & (x - 1)
+
+
+def check_fold_shapes(state, n: int) -> None:
+    """Raise ValueError where a kernel of the fold path cannot fold n rows
+    into `state`, before any table changes: the wrappers' shape gates,
+    checked here on CUDA and the CPU alike. Count-Min planes: kernel 1's
+    `countmin_kernel.fold_fits` (the decode form's wide fold too); the
+    tier-interior form: kernel 6's power-of-two geometry and int32 bin
+    entries (its tiles already passed `tier2_fits` in the form's gate);
+    the HLL folds launch: power-of-two grids of at most 2^31 registers;
+    the signal fold: aux tables of at most `signal_kernel.AUX_W` entries.
+    A fold that passes can still raise on a device fault, which is the
+    exporter's to contain (`exporter/torch_sketch.py`)."""
+    if isinstance(state, tiered.TieredState):
+        t, spec, rest = state.tables, state.spec, state.rest
+        d, w = t.cm_bytes.base.shape
+        grids = [(1, t.hll_src.shape[0] // 3 * 4),
+                 (t.hll_per_dst.shape[0], t.hll_per_dst.shape[1] // 3 * 4),
+                 (t.hll_per_src.shape[0], t.hll_per_src.shape[1] // 3 * 4)]
+        if _interior(d, w, spec):
+            if not all(map(_pow2, (w, spec.mid_group, spec.top_group,
+                                   spec.bytes_unit))):
+                raise ValueError("width, tier groups and unit must be "
+                                 "powers of two")
+            if d * n >= 2 ** 31:
+                raise ValueError(f"depth {d} x {n} records: kernel 6's "
+                                 "int32 bin entries would overflow")
+            d = w = 0  # no wide Count-Min fold
+    else:
+        rest = state
+        d, w = state.cm_bytes.counts.shape
+        grids = [(1, state.hll_src.regs.shape[0]),
+                 tuple(state.hll_per_dst.regs.shape),
+                 tuple(state.hll_per_src.regs.shape)]
+    if d and not countmin_kernel.fold_fits(d, w, n):
+        raise ValueError(f"depth {d} x {max(w, n)}: kernel 1's int32 cell "
+                         "and thread indices would overflow")
+    for gd, m in grids:
+        if not (_pow2(gd) and _pow2(m)) or gd * m > 1 << 31:
+            raise ValueError(f"an HLL grid of {gd} x {m} registers: the "
+                             "folds launch takes powers of two, at most "
+                             "2^31 registers")
+    if max(rest.dscp_bytes.shape[0],
+           rest.drop_causes.shape[0]) > signal_kernel.AUX_W:
+        raise ValueError(f"aux tables must fit {signal_kernel.AUX_W} "
+                         "entries")
 
 
 def _ingest_tiered(state: tiered.TieredState,
@@ -572,6 +632,8 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
         raise NotImplementedError(
             "the owner-sharded ingest is not ported yet (the multi-GPU "
             "slice of the port); tiered planes have no sharded form")
+    if _tier is None:
+        check_fold_shapes(state, arrays["keys"].shape[0])
     if isinstance(state, tiered.TieredState):
         return _ingest_tiered(state, arrays, enable_fanout, enable_asym)
     words = arrays["keys"]

@@ -21,9 +21,14 @@ That second capture is what the watch is for:
 untouched and nothing is counted. The wrapper costs one clock pair per
 call, once a fold, never per record.
 
-Not here: the Metrics binding, the kernel-library builds (they happen
-once per process, outside any graph), and the `/debug/executables` route
-of `server/debug.py`, which waits for the port's server.
+`set_metrics` binds a metrics facade (`metrics/registry.Metrics`, as the
+reference's `set_metrics`, `utils/retrace.py:261-265`): each call's host
+seconds go to `executable_dispatch_seconds_total{fn}` and each retrace to
+`sketch_retraces_total{fn}`.
+
+Not here: the kernel-library builds (they happen once per process,
+outside any graph), and the `/debug/executables` route of
+`server/debug.py`, which waits for the port's server (ROADMAP A4.2).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ _lock = threading.Lock()
 _registry: list["weakref.ref[Watched]"] = []
 #: process-lifetime alarm count; survives the entries
 _retraces_total = 0
+#: the bound metrics facade (`set_metrics`), or None
+_metrics = None
 
 
 def describe(args: Any, limit: int = 600) -> str:
@@ -90,7 +97,11 @@ class Watched:
         try:
             return self._fn(*args, **kwargs)
         finally:
-            self.dispatch_seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.dispatch_seconds += dt
+            m = _metrics
+            if m is not None:
+                m.observe_dispatch(self.name, dt)
 
     def note_compile(self, seconds: float, signature: str) -> None:
         """Count a compile made by the current call, for arguments of
@@ -109,6 +120,9 @@ class Watched:
                   "compile %d): a bound tensor or a fold shape changed; "
                   "signature: %s",
                   self.name, self.calls, self.compiles, signature)
+        m = _metrics
+        if m is not None:
+            m.count_retrace(self.name)
 
     def stats(self) -> dict:
         return {"fn": self.name, "calls": self.calls,
@@ -135,6 +149,14 @@ def watch(fn: Callable, name: str,
         if len(_registry) % 64 == 0:  # sweep dead entries now and then
             _registry[:] = [r for r in _registry if r() is not None]
     return w
+
+
+def set_metrics(metrics) -> None:
+    """Bind the metrics facade whose `count_retrace` receives post-warm-up
+    captures (`sketch_retraces_total{fn=...}`) and whose
+    `observe_dispatch` receives each call's host seconds; None unbinds."""
+    global _metrics
+    _metrics = metrics
 
 
 def snapshot() -> list[dict]:

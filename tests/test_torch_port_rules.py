@@ -34,7 +34,9 @@ KERNELS = (countmin_kernel.KERNEL, hll_kernel.KERNEL, topk_kernel.KERNEL,
 #: modules each slice added, which the import scan must reach
 SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "sketch/staging.py", "sketch/tiered.py", "sketch/state.py",
-                 "datapath/fetcher.py", "config.py", "sketch/capture.py")
+                 "datapath/fetcher.py", "config.py", "sketch/capture.py",
+                 "utils/faultinject.py", "utils/tracing.py",
+                 "metrics/registry.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -57,6 +59,22 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         for name in _imported_modules(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "netobserv_tpu"), (f, name)
+
+
+def test_only_the_metrics_facade_imports_prometheus_client():
+    """`prometheus_client` is optional where the port runs: no module
+    imports it at module level, and the metrics facade imports it only
+    when a `Metrics` is made."""
+    for f in sorted((ROOT / "netobserv_tpu_torch").rglob("*.py")):
+        tree = ast.parse(f.read_text(), str(f))
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom)]
+        assert "prometheus_client" not in names, f
+        if f.name != "registry.py":
+            assert "prometheus_client" not in _imported_modules(f), f
 
 
 def test_port_sources_include_no_header_of_the_jax_package():

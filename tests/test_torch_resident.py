@@ -390,6 +390,8 @@ def test_fold_events_then_roll_equals_ring_then_roll_window():
               **{k: np.concatenate([f[k] for _, f in feed])
                  for k in feed[0][1]})
     got = exp.roll()
+    # the publish stamps the reference's TimestampMs
+    assert isinstance(got.pop("TimestampMs"), int)
     assert exp.folds == ring.chunks == 1 + ring.continuations
     _, rep = ts.roll_window(state, cfg)
     assert got == report_to_json(report_numpy(rep))

@@ -40,6 +40,7 @@ from netobserv_tpu_torch import config as tconfig
 from netobserv_tpu_torch.datapath import flowpack as tfp
 from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
 from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+from netobserv_tpu_torch.metrics.registry import Metrics
 from netobserv_tpu_torch.ops import quantile as tq
 from netobserv_tpu_torch.ops.kernels import countmin_kernel
 from netobserv_tpu_torch.sketch import carry
@@ -166,11 +167,14 @@ def _recording_fold(calls, raise_at=()):
 def test_pending_buffer_makes_the_reference_fold_calls(superbatch_max):
     """The same evictions through both buffers give the same fold calls,
     rows and lane values, the direct path included; a fold that raises
-    (the 3rd and 7th) drops only its rows in both."""
+    (the 3rd and 7th) drops only its rows in both. The port's buffer, given
+    a metrics facade, counts its direct rows in
+    `sketch_direct_fold_rows_total`."""
     rng = np.random.default_rng(11 + superbatch_max)
     schedule = _evictions(rng, superbatch_max)
     got_calls, want_calls = [], []
-    tbuf = tstg.PendingEventBuffer(B, superbatch_max)
+    metrics = Metrics()
+    tbuf = tstg.PendingEventBuffer(B, superbatch_max, metrics=metrics)
     jbuf = jstg.PendingEventBuffer(B, superbatch_max)
     for ev, lanes in schedule:
         for buf, calls, mk in ((tbuf, got_calls, EvictedFlows),
@@ -185,8 +189,8 @@ def test_pending_buffer_makes_the_reference_fold_calls(superbatch_max):
     assert len(got_calls) == len(want_calls) > 4
     assert got_calls == want_calls
     assert tbuf.direct_rows == jbuf.direct_rows > 0
-    with pytest.raises(NotImplementedError, match="A4"):
-        tstg.PendingEventBuffer(B, metrics=object())
+    assert (metrics.sketch_direct_fold_rows_total._value.get()
+            == tbuf.direct_rows)
 
 
 def test_pick_lanes_and_spill_cap_equal_the_reference():
@@ -506,7 +510,7 @@ def test_sub_batch_evictions_fold_as_the_reference_folds_them():
                 jstate = jring.fold(jstate, events, **feats)
             jbuf.append(jfetch.EvictedFlows(ev, **f), jfold)
         jbuf.flush_to(jfold)
-        exp.flush()
+        exp._drain_pending()  # the tail, without closing the window
         jring.drain()
         _assert_tables(exp.state, jstate, f"window {window}", samples)
         assert exp.folds == sum(jring.superbatch_folds.values())
@@ -520,27 +524,32 @@ def test_sub_batch_evictions_fold_as_the_reference_folds_them():
 
 
 def test_exporter_feeds_and_flush():
-    """Each feed of the exporter folds only whole batches until `flush` (or
-    a roll) folds the tail; `folds` counts dispatches and `records` rows;
-    an unknown feed, a bad ladder and a mesh raise."""
+    """Each feed of the exporter folds only whole batches until `flush`
+    folds the tail, closes the window and publishes its report to the sink
+    (the reference's `flush`); `folds` counts dispatches and `records`
+    rows; `close` publishes one more, empty, window; an unknown feed, a
+    bad ladder and a mesh raise."""
     rng = np.random.default_rng(80)
     ev, f = _feed(rng, 5 * B + 100, v4_share=0.97)
     for feed, rings in (("resident", tstg.ShardedResidentStagingRing),
                         ("compact", tstg.DenseStagingRing),
                         ("dense", tstg.DenseStagingRing)):
+        reports = []
         exp = TorchSketchExporter(ts.SketchConfig(**GEOM), batch_size=B,
                                   device="cpu", feed=feed, pack_threads=2,
-                                  superbatch="1,2")
+                                  superbatch="1,2", sink=reports.append)
         exp.fold_events(ev[:100], **{k: v[:100] for k, v in f.items()})
         assert exp.folds == 0 and isinstance(exp.ring, rings)
         exp.fold_events(ev[100:], **{k: v[100:] for k, v in f.items()})
         want = {"resident": 3, "compact": 5, "dense": 5}[feed]
         assert exp.folds == want and exp.records == 5 * B
-        exp.flush()
+        assert exp.flush() is None
         assert exp.folds == want + 1 and exp.records == len(ev)
-        rep = exp.roll()
-        assert rep["Records"] == float(len(ev))
+        assert exp.rolls == 1 and len(reports) == 1
+        assert reports[0]["Records"] == float(len(ev))
+        assert reports[0]["Window"] == 0
         exp.close()
+        assert [r["Records"] for r in reports] == [float(len(ev)), 0.0]
     with pytest.raises(ValueError, match="feed"):
         TorchSketchExporter(batch_size=B, device="cpu", feed="fast")
     with pytest.raises(ValueError, match="ladder"):

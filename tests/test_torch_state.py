@@ -19,6 +19,7 @@ Float regimes and tolerances:
   swept over every integer sample below 10^7."""
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -161,8 +162,10 @@ def test_fold_and_roll_schedule_matches_jax(mode):
         got = exp.roll()
         want = jexp.report_to_json(jrep, prev_heavy_index=jprev)
         jprev = jexp.heavy_identity_index(jrep)
-        _assert_json_close(got, want)
         assert reports[-1] is got
+        # the publish stamps the reference's TimestampMs
+        assert isinstance(got.pop("TimestampMs"), int)
+        _assert_json_close(got, want)
         assert tstate_pre["window"] == w
     assert exp.folds == 9 and exp.rolls == 3
     _, trep = ts.roll_window(exp.state, TCFG, reset, decay)
@@ -288,16 +291,23 @@ def test_quantile_bucket_edges_at_most_one_bucket_apart():
 
 
 def test_exporter_window_deadline_and_padding():
+    """A fold past the window deadline closes the window (the entry returns
+    None, as the reference's does) and the report reaches the sink;
+    `close` publishes it if the window thread has not, then the last
+    window. A partial batch pads to the batch size."""
     _, pool = _pool(seed=5, n_batches=1)
+    reports = []
     exp = TorchSketchExporter(TCFG, batch_size=1024, device="cpu",
-                              window_s=0.0)
+                              window_s=3600.0, sink=reports.append)
+    exp._deadline = time.monotonic()  # the window is due
     dense = traffic.dense_pool(pool)[0]  # 1500 rows: two folds of 1024
-    report = exp.fold_dense(dense)
+    assert exp.fold_dense(dense) is None
     assert exp.folds == 2 and exp.rolls == 1
-    assert report["Records"] == 1500.0 and report["Window"] == 0
     with pytest.raises(ValueError):
         exp.fold_dense(dense[:7])
     exp.close()
+    assert [(r["Window"], r["Records"]) for r in reports] == [
+        (0, 1500.0), (1, 0.0)]
     with pytest.raises(RuntimeError):
         exp.fold_dense(dense)
 

@@ -741,6 +741,8 @@ def test_exporter_tiered_dense_path_matches_jax():
         _assert_tiers_equal(exp.state, jstate, f"window {w}")
         jstate, jrep = jroll(jstate)
         got = exp.roll()
+        # the publish stamps the reference's TimestampMs
+        assert isinstance(got.pop("TimestampMs"), int)
         _assert_json_close(got, jexp.report_to_json(
             jrep, prev_heavy_index=jprev))
         jprev = jexp.heavy_identity_index(jrep)
