@@ -5,6 +5,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --poll ...` is the query_plane phase's child
+process of pollers; nothing else runs it.)
+
 It builds the CUDA kernels of the port from `netobserv_tpu_torch/csrc/` (nine
 C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
 the launch floor (one `nvcc` per source, all started together), holds each
@@ -61,6 +64,34 @@ launch counts set to 0 just before it and read just after:
   the exact oracle of the window's rows. It prints records/s, the
   longest and median `export_evicted` time and the longest while a sink
   call was in progress, and each window's roll and publish spans;
+- the query plane (`query_plane`), the lanes path's exporter with its
+  window thread on (QP_WINDOW_S windows), a mid-window refresh every
+  QP_REFRESH_S (a quarter of the window), QP_HISTORY closed windows kept
+  for `?window=`, an alert engine under `default_rules()` with the log
+  sink, the port's metrics server (`serve`) and debug server on
+  ephemeral ports of 127.0.0.1, fed the lanes path's eviction stream (its
+  ICMP type and code zeroed, so that a 5-tuple names each key) for about
+  WT_SECONDS. Four pollers, threads of a child process of this script
+  (`--poll`, so their client work does not share the exporter's
+  interpreter lock), ask `/query/topk`, `/query/frequency` (the stream's
+  top key by bytes), `/query/cardinality`, `/query/victims`,
+  `/query/churn`, `/query/status`, `/query/alerts`, a `?window=` read 1-10
+  windows back and `/debug/executables`, in a loop. It checks: every
+  answer 200, but 503 before the first publish and 404 for a `?window=`
+  evicted from the ring; no poller sees (window, seq) go back, of the
+  snapshot routes or of the alert view; every window one closed snapshot,
+  and each window the timer closed a mid-window one; each closed window's
+  Records equal to the rows fed in it, its Bytes and every row sum of its
+  `cm_bytes` within 2 * n * 2^-24 relative of the bytes fed (n its rows);
+  `/query/frequency` on each window of the ring at least the exact bytes
+  of that window's top key less the same bound; a refresh with the folds
+  paused leaves the live `state_tables` bit-identical; no capture or
+  retrace, the launches of the folds made, no plain version. It prints
+  each route's p50 and p99 latency (from each poller's second turn; the
+  first turn's longest apart), the refreshes with the exporter lock
+  held and their whole time (median, max), the roll's added CM-plane copy
+  (synchronized, then timed), the longest `export_evicted` while a
+  refresh ran, and records/s beside `window_thread`'s;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -2107,15 +2138,17 @@ class DispatchFailure:
 
 class RollSeam:
     """Counts the evictions appended to an exporter's pending buffer (under
-    its lock) and, at each roll, notes that count and a device clone of the
-    pre-roll state, and on the plain replay the window's per-cell adds."""
+    its lock) and, at each roll, notes that count and (with `keep_state`)
+    a device clone of the pre-roll state, and on the plain replay the
+    window's per-cell adds."""
 
     def __init__(self, exp, adds: dict | None = None,
-                 touched: dict | None = None):
+                 touched: dict | None = None, keep_state: bool = True):
         self.exp = exp
         self.appended = 0
         self.rolls: list = []  # (evictions appended, state clone, adds)
         self._adds, self._touched = adds, touched
+        self._keep = keep_state
         self._append, self._roll = exp.pending.append, exp._roll_locked
         exp.pending.append, exp._roll_locked = self.append, self.roll
 
@@ -2129,7 +2162,9 @@ class RollSeam:
             adds = {k: v.cpu().numpy() for k, v in self._adds.items()}
             self._adds.clear()
             self._touched.clear()
-        self.rolls.append((self.appended, _clone(self.exp.state), adds))
+        self.rolls.append((self.appended,
+                           _clone(self.exp.state) if self._keep else None,
+                           adds))
         return self._roll(*args)
 
 
@@ -2357,6 +2392,473 @@ def phase_window_thread(specs, universe, pool, events) -> dict:
                                  sorted(ring.superbatch_folds.items())},
             "launches": launches, "key_table": kt,
             "recall_at_100": recalls, "vs_plain_replay": cmp}
+
+
+#: the query_plane phase: its window, twice window_thread's (under the
+#: pollers' tight loop a fold can take most of a second, and a 0.5 s window
+#: once saw its only refresh slot pass while one ran), the mid-window
+#: refresh period (a quarter of the window), the poller threads and the
+#: closed windows the ring keeps
+QP_WINDOW_S = 1.0
+QP_REFRESH_S = QP_WINDOW_S / 4
+QP_POLLERS = 4
+QP_HISTORY = 8
+#: seconds each poller waits after asking every route once (0: a tight
+#: loop; `scripts/query_plane_load.py` sets others)
+QP_PACE_S = 0.0
+#: the routes the pollers ask, in turn; "window" is a `?window=` read of
+#: a closed window (the pollers step it back 1-10 windows, so past 8 it
+#: reads an evicted one)
+QP_ROUTES = ("topk", "frequency", "cardinality", "victims", "churn",
+             "status", "alerts", "window", "executables")
+#: the routes that read the published snapshot (ordered by window and seq)
+QP_SNAPSHOT_ROUTES = ("topk", "frequency", "cardinality", "victims", "churn",
+                      "status")
+
+
+class TimedLock:
+    """An exporter's lock, each hold timed while the holding thread runs a
+    mid-window refresh (`refresh_on`/`refresh_off`)."""
+
+    def __init__(self, lock):
+        import threading
+        self._lock = lock
+        self._local = threading.local()
+        self.holds: list = []  # seconds of each hold a refresh made
+
+    def refresh_on(self) -> int:
+        self._local.refresh = True
+        return len(self.holds)
+
+    def refresh_off(self) -> None:
+        self._local.refresh = False
+
+    def refreshing(self) -> bool:
+        return getattr(self._local, "refresh", False)
+
+    def __enter__(self):
+        self._lock.acquire()
+        self._local.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._local.t0
+        self._lock.release()
+        if self.refreshing():
+            self.holds.append(dt)
+        return False
+
+
+def _five_tuple(words) -> dict:
+    """The /query/frequency parameters naming a key of key words."""
+    import numpy as np
+    from netobserv_tpu_torch.model.columnar import unpack_key_words
+    from netobserv_tpu_torch.model.flow import ip_from_16
+    k = unpack_key_words(np.asarray(words, np.uint32).reshape(1, -1))[0]
+    return {"src": ip_from_16(k["src_ip"].tobytes()),
+            "dst": ip_from_16(k["dst_ip"].tobytes()),
+            "src_port": str(int(k["src_port"])),
+            "dst_port": str(int(k["dst_port"])),
+            "proto": str(int(k["proto"]))}
+
+
+def _poll(base: str, debug: str, key: dict, idx: int, stop,
+          answers: list, pace: float = 0.0) -> None:
+    """One poller: asks QP_ROUTES in turn until `stop`, waiting `pace`
+    seconds after each turn, keeping each answer's (route, send and receive
+    times on the monotonic clock, status, window, seq, the `?window=`
+    asked) in order."""
+    import json as _json
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    freq = urllib.parse.urlencode(key)
+    back = idx % 10
+    last_window = 0
+    while not stop.is_set():
+        for route in QP_ROUTES:
+            wid = None
+            if route == "executables":
+                url = f"{debug}/debug/executables"
+            elif route == "window":
+                back = back % 10 + 1
+                wid = last_window - back
+                url = f"{base}/query/topk?n=10&window={wid}"
+            elif route == "frequency":
+                url = f"{base}/query/frequency?{freq}"
+            else:
+                url = f"{base}/query/{route}"
+            t0 = time.monotonic()
+            try:
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    code, body = resp.status, resp.read()
+            except urllib.error.HTTPError as err:
+                code, body = err.code, err.read()
+            t1 = time.monotonic()
+            window = seq = None
+            if code == 200 and route != "executables":
+                obj = _json.loads(body)
+                window, seq = obj.get("window"), obj.get("seq")
+                if route in QP_SNAPSHOT_ROUTES and window is not None:
+                    last_window = max(last_window, int(window))
+            answers.append((route, t0, t1, code, window, seq, wid))
+        stop.wait(pace)
+
+
+def poll_main(argv) -> int:
+    """`chip_smoke.py --poll BASE DEBUG KEY_JSON N PACE`: the query_plane
+    phase's pollers, N threads of `_poll` in a process of their own (so
+    their client work does not share the exporter's interpreter lock, as a
+    dashboard's would not), until standard input closes; then each
+    poller's answers as one JSON line."""
+    import threading
+    base, debug, key, n = argv[0], argv[1], json.loads(argv[2]), int(argv[3])
+    pace = float(argv[4])
+    stop = threading.Event()
+    answered: list = [[] for _ in range(n)]
+    threads = [threading.Thread(target=_poll, args=(base, debug, key, i,
+                                                    stop, answered[i], pace))
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    sys.stdin.read()
+    stop.set()
+    for t in threads:
+        t.join()
+    print(json.dumps(answered), flush=True)
+    return 0
+
+
+def phase_query_plane(specs, universe, pool, events, wt_records_per_s
+                      ) -> dict:
+    """The query plane at full width on the lanes path (the module
+    docstring's `query_plane`): the window thread with its mid-window
+    refresh, an alert engine, the metrics and debug servers and four
+    pollers (`poll_main`), fed the lanes path's evictions for about
+    WT_SECONDS."""
+    import logging
+    import os
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.alerts import engine as aengine
+    from netobserv_tpu_torch.alerts import rules as arules
+    from netobserv_tpu_torch.alerts import sinks as asinks
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.server.debug import start_debug_server
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import retrace
+    try:
+        from netobserv_tpu_torch.metrics.registry import Metrics
+        metrics = Metrics()
+    except ImportError:  # prometheus_client is optional
+        metrics = None
+    cfg = sk.SketchConfig()
+    ev_all, lanes_all = LaneFeeder(events).stream
+    # a 5-tuple names a key with no ICMP type or code (the query surface's
+    # key form); the bench universe draws them at random
+    ev_all = ev_all.copy()
+    ev_all["key"]["icmp_type"] = 0
+    ev_all["key"]["icmp_code"] = 0
+    n_rows = len(ev_all)
+    n = len(events)
+    ranks = np.concatenate([pool[i % n][1] for i in range(FOLDS_PER_WINDOW)])
+    nbytes = ev_all["stats"]["bytes"].astype(np.float64)
+    uni = traffic.event_universe(universe)
+    uni[:, 9] &= np.uint32(0x00FF0000)
+    stream_top = int(np.argmax(np.bincount(ranks, weights=nbytes,
+                                           minlength=len(uni))))
+    key = _five_tuple(uni[stream_top])
+
+    def eviction(lo, hi):
+        return EvictedFlows(ev_all[lo:hi],
+                            **{k: v[lo:hi] for k, v in lanes_all.items()})
+
+    # the log sink's transitions, counted here rather than printed
+    alert_log = logging.getLogger("netobserv_tpu_torch.alerts")
+    logged = []
+
+    class _Count(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+    handler = _Count()
+    alert_log.addHandler(handler)
+    alert_log.propagate = False
+    engine = aengine.AlertEngine(arules.default_rules(), metrics=metrics,
+                                 sinks=[asinks.LogSink()],
+                                 history=QP_HISTORY)
+    sink = WindowSink()
+    plain_calls: dict = {}
+    copies: list = []  # (the live state's, seconds) of each CM-plane copy
+    real_planes = sk.host_cm_planes
+    retraces0 = retrace.total_retraces()
+    srv = dbg = proc = None
+    try:
+        with counting_plains(specs, plain_calls):
+            exp = TorchSketchExporter(
+                cfg, batch_size=BATCH, device="cuda", window_s=QP_WINDOW_S,
+                sink=sink, metrics=metrics, query_refresh_s=QP_REFRESH_S,
+                query_history=QP_HISTORY, alerts=engine, agent_id="smoke",
+                **LANES_KW)
+
+            def timed_planes(state):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                planes = real_planes(state)
+                copies.append((state is exp.state,
+                               time.perf_counter() - t0))
+                return planes
+            sk.host_cm_planes = timed_planes
+            lock = exp._lock = TimedLock(exp._lock)
+            refreshes: list = []  # (start, end, seconds under the lock)
+            real_refresh = exp._refresh_query_snapshot
+
+            def refresh():
+                first = lock.refresh_on()
+                t0 = time.monotonic()
+                try:
+                    real_refresh()
+                finally:
+                    lock.refresh_off()
+                    refreshes.append((t0, time.monotonic(),
+                                      sum(lock.holds[first:])))
+            exp._refresh_query_snapshot = refresh
+            drains: list = []  # seconds of the pending drain of a refresh
+            real_drain = exp._drain_pending
+
+            def drain():
+                t0 = time.perf_counter()
+                real_drain()
+                if lock.refreshing():
+                    drains.append(time.perf_counter() - t0)
+            exp._drain_pending = drain
+            pubs: list = []  # (time, window, seq, mid, Records, Bytes, rows)
+            real_publish = exp.query.publish
+
+            def publish(snap, mid_window=False):
+                seq = real_publish(snap, mid_window)
+                rep = snap["report"]
+                pubs.append((time.monotonic(), snap["window"], seq,
+                             mid_window, rep["Records"], rep["Bytes"],
+                             snap["cm_bytes"].astype(np.float64).sum(axis=1)))
+                return seq
+            exp.query.publish = publish
+            with exp._lock:
+                exp._ensure_ring()  # the ladder's captures, before the clock
+                ring = exp.ring
+                seam = RollSeam(exp, keep_state=False)
+                exp._deadline = time.monotonic() + QP_WINDOW_S
+            srv = exp.serve()
+            dbg = start_debug_server("127.0.0.1:0")
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            debug = f"http://127.0.0.1:{dbg.server_address[1]}"
+            captures0 = [c.captures for c in exp.captures]
+            for s in specs:
+                s["kernel"].launches = 0
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--poll", base,
+                 debug, json.dumps(key), str(QP_POLLERS), str(QP_PACE_S)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            t_start = time.perf_counter()
+            gen = _stream_evictions(n_rows)
+            fed, samples = [], []
+            while time.perf_counter() - t_start < WT_SECONDS:
+                lo, hi = next(gen)
+                t0 = time.monotonic()
+                exp.export_evicted(eviction(lo, hi))
+                samples.append((t0, time.monotonic() - t0))
+                fed.append((lo, hi))
+            torch.cuda.synchronize()
+            feed_s = time.perf_counter() - t_start
+            answered = json.loads(proc.communicate("", timeout=60)[0])
+            check(proc.returncode == 0 and len(answered) == QP_POLLERS,
+                  f"pollers exited {proc.returncode}")
+            launches = {s["name"]: s["kernel"].launches for s in specs}
+            folds = exp.folds
+            captures1 = [c.captures for c in exp.captures]
+            watch = _watch_stats(exp)
+            # a refresh with the folds paused (no feed, no close due)
+            with exp._lock:
+                exp._deadline = None
+                exp._drain_pending()
+            live0 = exp.state_tables()
+            refresh()
+            live1 = exp.state_tables()
+            paused_identical = all(np.array_equal(live0[k], live1[k])
+                                   for k in live0)
+            metrics_code = None
+            if metrics is not None:
+                import urllib.request
+                with urllib.request.urlopen(f"{base}/metrics",
+                                            timeout=10) as resp:
+                    metrics_code = resp.status
+            exp.close()
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        sk.host_cm_planes = real_planes
+        alert_log.removeHandler(handler)
+        alert_log.propagate = True
+        for server in (srv, dbg):
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    check(paused_identical, "a refresh with the folds paused changed the "
+          "live tables")
+
+    # reports and the window plane, as window_thread holds them
+    reps = sink.reports
+    check([r["Window"] for r in reps] == list(range(exp.rolls)),
+          f"windows {[r['Window'] for r in reps]}, {exp.rolls} rolls")
+    check(exp.reports_published == exp.rolls and exp.reports_shed == 0
+          and exp.ingest_errors == 0 and exp.rolls >= 3,
+          f"{exp.rolls} rolls, {exp.reports_published} published, "
+          f"{exp.reports_shed} shed, {exp.ingest_errors} ingest errors")
+    check(captures1 == captures0 and retrace.total_retraces() == retraces0,
+          f"captures {captures1} (was {captures0}), retraces "
+          f"{retrace.total_retraces() - retraces0}")
+    check(all(w["compiles"] == (1 if _warm_captured(w["fn"]) else 0)
+              and w["retraces"] == 0 for w in watch),
+          f"captured folds {watch}")
+    want = _want_launches(specs, "lanes", folds)
+    check(launches == want, f"launches {launches}, want {want}")
+
+    # the snapshots: every window one closed snapshot and (closed by the
+    # timer) a mid-window one before it; seq rising
+    check([p[2] for p in pubs] == list(range(1, len(pubs) + 1)),
+          "publish sequence")
+    closed = {p[1]: p for p in pubs if not p[3]}
+    check(sorted(closed) == list(range(exp.rolls))
+          and len(closed) == sum(1 for p in pubs if not p[3]),
+          f"closed snapshots {sorted(closed)}")
+    mids = {w: sum(1 for p in pubs if p[3] and p[1] == w)
+            for w in range(exp.rolls)}
+    check(all(mids[w] >= 1 for w in range(exp.rolls - 1)),
+          f"mid-window snapshots per window {mids}")
+    at = [a for a, _, _ in seam.rolls]
+    bounds = [0] + at
+    exact_rows, worst = [], 0.0
+    check(len(at) == exp.rolls, f"{len(at)} rolls seen, {exp.rolls} made")
+    for w in range(exp.rolls):
+        ev_w = fed[bounds[w]:bounds[w + 1]]
+        rows = sum(hi - lo for lo, hi in ev_w)
+        byts = sum(float(nbytes[lo:hi].sum()) for lo, hi in ev_w)
+        _, _, _, _, recs, b, row_sums = closed[w]
+        tol = 2 * max(rows, 1) * U
+        check(recs == float(rows), f"window {w}: Records {recs}, fed {rows}")
+        check(abs(b - byts) <= tol * byts,
+              f"window {w}: Bytes {b}, fed {byts}")
+        rel = [abs(r - b) / max(b, 1.0) for r in row_sums]
+        check(max(rel) <= tol, f"window {w}: CM row sums {row_sums} "
+              f"against Bytes {b}")
+        worst = max(worst, max(rel))
+        exact_rows.append(rows)
+
+    # /query/frequency on each closed window still in the ring, for the
+    # window's exact top key
+    freq = []
+    for w in exp.query.windows():
+        totals = np.zeros(len(uni))
+        for lo, hi in fed[bounds[w]:bounds[w + 1]]:
+            totals += np.bincount(ranks[lo:hi], weights=nbytes[lo:hi],
+                                  minlength=len(uni))
+        top = int(np.argmax(totals))
+        code, body = exp.query_routes.handle(
+            "/query/frequency", {**_five_tuple(uni[top]), "window": str(w)})
+        b = closed[w][5]
+        slack = 2 * max(exact_rows[w], 1) * U * b
+        check(code == 200 and body["est_bytes"] >= totals[top] - slack,
+              f"window {w}: frequency {code} {body}, exact {totals[top]}")
+        freq.append({"window": w, "top_is_stream_top": top == stream_top,
+                     "exact_bytes": float(totals[top]),
+                     "est_bytes": body["est_bytes"],
+                     "bound_bytes": body["overestimate_bound_bytes"]})
+
+    # the pollers' answers: each status allowed, and (window, seq) of the
+    # snapshot routes, and of the alert view, never going back in a poller
+    first_pub = pubs[0][0] if pubs else float("inf")
+    answers = [a for one in answered for a in one]
+    codes: dict = {}
+    for route, t0, t1, code, window, seq, wid in answers:
+        codes.setdefault(route, {}).setdefault(code, 0)
+        codes[route][code] += 1
+        if route in QP_SNAPSHOT_ROUTES:
+            ok = code == 200 or (code == 503 and t0 < first_pub
+                                 and route != "status")
+        elif route == "window":
+            latest = max((p[1] for p in pubs if not p[3] and p[0] <= t1),
+                         default=-1)
+            ok = (code == 200 and window == wid) or (
+                code == 404 and (wid < 0 or wid <= latest - QP_HISTORY))
+        else:
+            ok = code == 200
+        check(ok, f"{route}: {code} (window {wid}) at {t0 - first_pub:.3f} "
+              "s from the first publish")
+    for one in answered:
+        last = {"snapshot": (-1, -1), "alerts": (-1, -1)}
+        for route, _, _, code, window, seq, _ in one:
+            kind = ("snapshot" if route in QP_SNAPSHOT_ROUTES else
+                    "alerts" if route == "alerts" else None)
+            if kind is None or code != 200 or window is None:
+                continue
+            cur = (int(window), int(seq))
+            check(cur >= last[kind], f"{route}: (window, seq) {cur} after "
+                  f"{last[kind]}")
+            last[kind] = cur
+    # latency from each poller's second turn on: its first turn holds the
+    # connection's and both processes' first-use costs
+    turn = len(QP_ROUTES)
+    lat = {r: sorted(t1 - t0 for one in answered
+                     for rr, t0, t1, *_ in one[turn:] if rr == r)
+           for r in QP_ROUTES}
+    first_turn = [t1 - t0 for one in answered for _, t0, t1, *_ in one[:turn]]
+    check(all(lat[r] for r in QP_ROUTES), "a route was never asked")
+    holds = [h for _, _, h in refreshes]
+    totals_ms = [1e3 * (t1 - t0) for t0, t1, _ in refreshes]
+    during = [dt for t, dt in samples
+              if any(a <= t + dt and t <= b for a, b, _ in refreshes)]
+    roll_copies = [1e3 * s for live, s in copies if live]
+    dts = [dt for _, dt in samples]
+    rows_fed = sum(hi - lo for lo, hi in fed)
+
+    def pct(v, q):
+        return 1e3 * float(np.percentile(v, q))
+    return {"phase": "query_plane", "window_s": QP_WINDOW_S,
+            "refresh_s": QP_REFRESH_S, "history": QP_HISTORY,
+            "pollers": QP_POLLERS, "poll_pace_s": QP_PACE_S,
+            "registry": metrics is not None,
+            "metrics_route": metrics_code, "feed_seconds": feed_s,
+            "evictions": len(fed), "records_fed": rows_fed,
+            "records_per_s": rows_fed / feed_s,
+            "window_thread_records_per_s": wt_records_per_s,
+            "windows": exp.rolls, "folds": folds, "launches": launches,
+            "snapshots": len(pubs), "mid_window_snapshots": mids,
+            "refreshes": len(refreshes),
+            "refresh_lock_ms_median": 1e3 * float(np.median(holds)),
+            "refresh_lock_ms_max": 1e3 * max(holds),
+            "refresh_drain_ms_median": 1e3 * float(np.median(drains)),
+            "refresh_drain_ms_max": 1e3 * max(drains),
+            "refresh_total_ms_median": float(np.median(totals_ms)),
+            "refresh_total_ms_max": max(totals_ms),
+            "roll_cm_copy_ms_median": float(np.median(roll_copies)),
+            "roll_cm_copy_ms_max": max(roll_copies),
+            "roll_cm_copy_mib": 2 * cfg.cm_depth * cfg.cm_width * 4 / 2**20,
+            "export_evicted_max_s": max(dts),
+            "export_evicted_median_s": float(np.median(dts)),
+            "export_evicted_max_during_refresh_s": max(during, default=None),
+            "evictions_during_refresh": len(during),
+            "route_ms": {r: {"p50": pct(v, 50), "p99": pct(v, 99),
+                             "n": len(v)} for r, v in lat.items()},
+            "first_turn_ms_max": 1e3 * max(first_turn),
+            "route_codes": {r: {str(c): k for c, k in sorted(v.items())}
+                            for r, v in codes.items()},
+            "cm_row_sum_worst_rel": worst, "frequency": freq,
+            "alert_transitions_logged": len(logged),
+            "alerts": engine.summary(),
+            "paused_refresh_identical": paused_identical}
 
 
 def phase_dense_ring(specs) -> dict:
@@ -2703,6 +3205,10 @@ def main() -> int:
         phase = "window_thread"
         wt_res = phase_window_thread(specs, universe, pool, events)
         emit(wt_res)
+        phase = "query_plane"
+        qp_res = phase_query_plane(specs, universe, pool, events,
+                                   wt_res["records_per_s"])
+        emit(qp_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -2725,6 +3231,7 @@ def main() -> int:
                 "resident": res_res["launches"],
                 "lanes": lanes_res["launches"],
                 "window_thread": wt_res["launches"],
+                "query_plane": qp_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -2748,4 +3255,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--poll"]:
+        sys.exit(poll_main(sys.argv[2:]))
     sys.exit(main())

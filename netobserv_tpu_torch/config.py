@@ -5,11 +5,16 @@ kept as a copy: the window report renderer (`exporter/report.py`) reads
 them as its defaults. `resolved_pack_threads` and `parse_superbatch_ladder`
 are copies of `AgentConfig.resolved_pack_threads` and
 `parsed_superbatch_ladder` (`:592-620`) as functions of their setting.
+`QuerySettings` holds the query and alerting planes' settings of
+`AgentConfig` (`:443-451`, `:495-518`) with their defaults and checks
+(`:693-733`): the port has no `AgentConfig`, and `alerts/engine.maybe_engine`
+takes these.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 #: port-scan fan-out: distinct (dst addr, dst port) pairs per source bucket
 DEFAULT_SCAN_FANOUT = 512
@@ -56,3 +61,48 @@ def parse_superbatch_ladder(spec) -> tuple[int, ...]:
                          "almost certainly a typo (each costs k*batch-sized "
                          "buffers and key-table rows)")
     return ladder
+
+
+@dataclass
+class QuerySettings:
+    """The query plane's and the alerting plane's settings, under the
+    reference's names: `sketch_query_refresh` (SKETCH_QUERY_REFRESH, the
+    mid-window refresh period in seconds, 0 = off), `sketch_query_history`
+    (SKETCH_QUERY_HISTORY, the closed-window snapshots kept for
+    ``?window=``), `alert_rules` (ALERT_RULES, "" = no engine),
+    `alert_raise_evals`, `alert_clear_evals`, `alert_sinks`,
+    `alert_webhook_url`, `alert_webhook_interval` (seconds) and
+    `alert_ring`. A value the reference refuses raises here."""
+
+    sketch_query_refresh: float = 0.0
+    sketch_query_history: int = 8
+    alert_rules: str = ""
+    alert_raise_evals: int = 2
+    alert_clear_evals: int = 2
+    alert_sinks: str = "log,metrics"
+    alert_webhook_url: str = ""
+    alert_webhook_interval: float = 1.0
+    alert_ring: int = 256
+
+    def __post_init__(self):
+        if self.sketch_query_refresh < 0:
+            raise ValueError(
+                "SKETCH_QUERY_REFRESH must be >= 0 (0 disables the "
+                "mid-window refresh)")
+        if self.sketch_query_history < 0:
+            raise ValueError("SKETCH_QUERY_HISTORY must be >= 0 "
+                             "(0 disables the back-scroll ring)")
+        if self.alert_raise_evals < 1 or self.alert_clear_evals < 1:
+            raise ValueError("ALERT_RAISE_EVALS and ALERT_CLEAR_EVALS "
+                             "must be >= 1")
+        if self.alert_ring < 1:
+            raise ValueError("ALERT_RING must be >= 1")
+        if self.alert_webhook_interval < 0:
+            raise ValueError("ALERT_WEBHOOK_INTERVAL must be >= 0")
+        if self.alert_rules:
+            # a malformed rule spec or sink set fails here, not at the
+            # exporter's construction
+            from netobserv_tpu_torch.alerts.rules import parse_rules
+            from netobserv_tpu_torch.alerts.sinks import build_sinks
+            parse_rules(self.alert_rules)
+            build_sinks(self)

@@ -3,9 +3,9 @@
 Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`_slot_key_entries`,
 `heavy_identity_index`, `report_to_json`, `_default_sink`,
 `make_report_sink`), a copy with its imports pointed at this package's
-copies of the key layout, thresholds, victim naming and drop-reason names,
-and of `SIGNAL_FIELDS` (`netobserv_tpu/alerts/rules.py:34`), the signal
-name of each report's suspect list. A report's tensors are read through
+copies of the key layout, thresholds, victim naming and drop-reason names.
+`SIGNAL_FIELDS`, the signal name of each report's suspect list, is the
+alerting plane's (`alerts/rules.py`), re-exported here. A report's tensors are read through
 `np.asarray` after `report_numpy` has moved them to the host.
 
 Not here: the Kafka report sink (`KafkaReportSink`, with its copy of the
@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from netobserv_tpu_torch.alerts.rules import SIGNAL_FIELDS  # noqa: F401
 from netobserv_tpu_torch.config import (
     DEFAULT_ASYM_MIN_BYTES, DEFAULT_ASYM_RATIO, DEFAULT_CHURN_ASCENT,
     DEFAULT_CHURN_MIN_BYTES, DEFAULT_DDOS_Z, DEFAULT_DROP_Z,
@@ -30,16 +31,6 @@ from netobserv_tpu_torch.model.columnar import unpack_key_words
 from netobserv_tpu_torch.model.flow import ip_from_16
 from netobserv_tpu_torch.query.core import victim_bucket_names
 from netobserv_tpu_torch.utils.drop_reasons import drop_reason_name
-
-#: signal name -> rendered-report suspect-list key (a copy of
-#: `netobserv_tpu/alerts/rules.py:34`)
-SIGNAL_FIELDS = {
-    "ddos": "DdosSuspectBuckets",
-    "syn_flood": "SynFloodSuspectBuckets",
-    "port_scan": "PortScanSuspectBuckets",
-    "drop_storm": "DropAnomalyBuckets",
-    "asym_conv": "AsymmetricConversationBuckets",
-}
 
 ReportSink = Callable[[dict], None]
 

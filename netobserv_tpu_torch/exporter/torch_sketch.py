@@ -94,10 +94,43 @@ same stream as the folds: a capture (ring creation, a rebind) never sees
 another thread's CUDA work, and the report is a host snapshot before the
 lock is released. The window thread's render and sink are host work only.
 
-Fault points (`utils/faultinject`): `sketch.ingest`, `sketch.window_timer`
-(outside the roll's `try`: a crash there is the supervisor's),
-`sketch.window_roll` (a roll error is swallowed and counted) and
-`sketch.window_publish`; the rings fire `sketch.staging_wait`.
+**The query plane** (`tpu_sketch.py:723-794`, `:1558-1572`, `:1794-1939`,
+`:2036-2058`). Every roll also copies the pre-roll wide Count-Min planes
+to the host under the lock (`sketch/state.host_cm_planes`); they ride the
+queued report. Its publish renders the report, stamps it, then publishes
+a query snapshot (`window`, `ts_ms`, `report`, `cm_bytes`, `cm_pkts`;
+`seq` and `mid_window` stamped by `query`, a `query/snapshot.
+SnapshotPublisher` keeping `query_history` closed windows) in a `try` of
+its own under the `query_snapshot` span and fault point, and only then
+calls the sink: a failed publish is logged and counted
+(`count_error("tpu-sketch-query")`) and never loses the report. The alert
+engine (`alerts=`, an `alerts/engine.AlertEngine` or None) evaluates every
+snapshot published (`safe_evaluate`). `query_routes` (a
+`query/routes.QueryRoutes`) answers `/query/*` from the snapshots only;
+`serve` starts the port's metrics server (`metrics/server.py`) with them,
+and `query_status` is `/query/status`'s body.
+
+With `query_refresh_s` > 0 the window thread also publishes a mid-window
+snapshot every `query_refresh_s` seconds (`_refresh_query_snapshot`):
+under the lock it folds the pending rows, copies the live state into a
+staging state made once (`sketch/state.copy_state_`; a tiered state gets a
+tiered twin, whose roll re-encodes the twin's tiers, never the live
+ones), rolls the staging state and copies its report and planes to the
+host; off the lock it publishes any closed window still queued (so
+snapshots publish in window order, where the reference can publish a
+queued closed window after the next window's refresh), then renders the
+partial window and publishes it with `mid_window=True`. The live window
+accumulates on, untouched. A failed refresh is logged, counted and tried
+again at the next tick. The reference rolls its staged copy off the
+lock; here the staged roll stays under it, with every other CUDA call of
+the window plane (ROADMAP C2 names the off-lock roll as later work).
+
+Fault points (`utils/faultinject`): `sketch.ingest`,
+`sketch.query_snapshot`, `sketch.window_timer` (outside the roll's `try`:
+a crash there is the supervisor's), `sketch.window_roll` (a roll error is
+swallowed and counted) and `sketch.window_publish`; the rings fire
+`sketch.staging_wait`, the alert engine `alerts.evaluate` and its sinks
+`alerts.sink`.
 `register_supervised` registers the window thread with any supervisor that
 has the reference's `Supervisor.register` signature.
 
@@ -112,11 +145,12 @@ form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
 and with metrics each window counts its new promotions
 (`sketch_tier_promotions_total`).
 
-Not in this slice: overload control and `StagingWedged` (A4.5), the
-overlapped fold thread, the query snapshot and its mid-window refresh
-(A4.2), the federation delta export (A4.3), archive and checkpoints
-(A4.4), the Kafka report sink (A4.6), batch traces riding evictions (the
-map tracer's), tenants (A5) and the mesh (A6).
+Not in this slice: overload control and `StagingWedged` (A4.5; the
+status's `overloaded` is always False), the overlapped fold thread, the
+federation delta export (A4.3), archive and checkpoints (A4.4;
+`/query/range` answers 404), the Kafka report sink (A4.6), batch traces
+riding evictions (the map tracer's), tenants (A5; the routes get no tenant
+publishers) and the mesh (A6).
 """
 
 from __future__ import annotations
@@ -144,6 +178,8 @@ from netobserv_tpu_torch.exporter.report import (
     report_numpy, report_to_json,
 )
 from netobserv_tpu_torch.ops.kernels import _build
+from netobserv_tpu_torch.query.routes import QueryRoutes
+from netobserv_tpu_torch.query.snapshot import SnapshotPublisher
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch import staging, tiered
 from netobserv_tpu_torch.sketch.capture import CapturedFold
@@ -159,7 +195,7 @@ MAX_QUEUED_REPORTS = 8
 
 class _Queued:
     """A closed window waiting for its publish: the host report, the
-    pre-roll tables where a consumer needs them, the window trace, and the
+    pre-roll wide CM planes on the host, the window trace, and the
     rendered object once published."""
 
     __slots__ = ("report", "tables", "trace", "out")
@@ -188,7 +224,9 @@ class TorchSketchExporter:
     resident feed: "native", the default, or "python"), made at the feed's
     first use, and `pending` its `PendingEventBuffer`. On a CUDA device
     `capture` folds through CUDA graphs, listed in `captures`; the CPU
-    folds eagerly."""
+    folds eagerly. `query_refresh_s`, `query_history` and `alerts` set up
+    the query plane (module docstring); `agent_id` names the exporter in
+    `/query/status`."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -209,7 +247,9 @@ class TorchSketchExporter:
                  asym_min_bytes: float = DEFAULT_ASYM_MIN_BYTES,
                  asym_ratio: float = DEFAULT_ASYM_RATIO,
                  churn_ascent: float = DEFAULT_CHURN_ASCENT,
-                 churn_min_bytes: float = DEFAULT_CHURN_MIN_BYTES):
+                 churn_min_bytes: float = DEFAULT_CHURN_MIN_BYTES,
+                 query_refresh_s: float = 0.0, query_history: int = 8,
+                 alerts=None, agent_id: str = ""):
         self.device = pick_device(device)
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
@@ -217,6 +257,8 @@ class TorchSketchExporter:
                              f"{packer!r}")
         if feed not in FEEDS:
             raise ValueError(f"feed must be one of {FEEDS}, not {feed!r}")
+        if query_refresh_s < 0 or query_history < 0:
+            raise ValueError("query_refresh_s and query_history must be >= 0")
         self.cfg = cfg
         self.batch_size = batch_size
         self.window_s = window_s
@@ -246,6 +288,20 @@ class TorchSketchExporter:
         #: mode promotions persist, and only new ones count
         self._tier_prev_promoted: dict = {}
         self.state = sk.init_state(cfg, self.device)
+        #: the mid-window refresh's staging state, made at its first use
+        self._staging = None
+        self._agent_id = agent_id
+        self.query = SnapshotPublisher(history=query_history)
+        self._alerts = alerts
+        self.query_routes = QueryRoutes(
+            self.query.get, self.query_status, metrics=metrics,
+            history_fn=self.query.get_window, windows_fn=self.query.windows,
+            alerts=alerts)
+        if metrics is not None:
+            metrics.query_snapshot_age_seconds.set_function(self.query.age_s)
+        self._query_refresh_s = float(query_refresh_s)
+        self._next_refresh = (time.monotonic() + self._query_refresh_s
+                              if self._query_refresh_s else None)
         words = batch_size * sk.DENSE_WORDS
         self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
         self._host_u32 = self._host.numpy().view(np.uint32)
@@ -523,15 +579,15 @@ class TorchSketchExporter:
             raise
 
     def _roll_locked(self, wtrace=tracing.NULL_TRACE) -> _Queued:
-        """Close the window under the lock: advance the deadline, roll the
-        state and copy the report (and the tables a consumer needs) to the
-        host, queue it, and shed the oldest report beyond
-        MAX_QUEUED_REPORTS. Rendering and the sink are `_publish_queued`'s
-        (`tpu_sketch.py:1691-1738`)."""
+        """Close the window under the lock: advance the deadline, copy the
+        pre-roll wide CM planes to the host, roll the state and copy the
+        report to the host, queue both, and shed the oldest report beyond
+        MAX_QUEUED_REPORTS. Rendering, the query snapshot and the sink are
+        `_publish_queued`'s (`tpu_sketch.py:1691-1738`)."""
         self._deadline = self._next_deadline()
         with wtrace.stage("roll_dispatch"):
             with self._roll_mutex:
-                tables = self._tier_tables()
+                tables = sk.host_cm_planes(self.state)
                 _, report = sk.roll_window(self.state, self.cfg,
                                            self.reset_sketches,
                                            self.decay_factor)
@@ -551,17 +607,6 @@ class TorchSketchExporter:
             if self._metrics is not None:
                 self._metrics.sketch_reports_shed_total.inc()
         return entry
-
-    def _tier_tables(self) -> Optional[dict]:
-        """The pre-roll wide CM planes of a tiered state, on the host, for
-        the tier-promotion metric; None where nothing consumes them."""
-        if self._metrics is None or self.cfg.tiered is None:
-            return None
-        t, spec = self.state.tables, self.state.spec
-        return {"cm_bytes": tiered.decode_plane(t.cm_bytes, spec,
-                                                spec.bytes_unit).cpu().numpy(),
-                "cm_pkts": tiered.decode_plane(t.cm_pkts, spec,
-                                               1).cpu().numpy()}
 
     def _publish_queued(self) -> None:
         """Render and deliver every queued report (the window thread, or
@@ -583,18 +628,21 @@ class TorchSketchExporter:
                 finally:
                     entry.trace.finish()
 
-    def _render_report(self, report) -> dict:
+    def _render_report(self, report, roll: bool = True) -> dict:
         """Render a host report with this exporter's thresholds, against
-        the previous roll's heavy index, and rotate that index."""
+        the previous roll's heavy index. A closed window's render (`roll`)
+        rotates that index; a mid-window refresh renders a partial window
+        and keeps it (`tpu_sketch.py:1761-1792`)."""
         obj = report_to_json(report, prev_heavy_index=self._prev_index,
-                             **self._thresholds)
-        self._prev_index = heavy_identity_index(report)
+                             partial_window=not roll, **self._thresholds)
+        if roll:
+            self._prev_index = heavy_identity_index(report)
         return obj
 
     def _publish_report(self, entry: _Queued) -> None:
-        """Render, stamp, sink, then the window's metrics
-        (`tpu_sketch.py:1981-2095`, without the delta export, the query
-        snapshot and the archive)."""
+        """Render, stamp, publish the query snapshot in its own `try`, sink,
+        then the window's metrics (`tpu_sketch.py:1981-2095`, without the
+        delta export and the archive)."""
         wtrace = entry.trace
         with wtrace.stage("report_render"):
             obj = self._render_report(entry.report)
@@ -604,11 +652,23 @@ class TorchSketchExporter:
         if m is not None:
             m.sketch_heavy_evictions_total.inc(
                 obj["HeavyChurn"]["evictions"])
+        # before the sink and contained: a failed publish never loses the
+        # report, and a blocked sink never delays the snapshot
+        try:
+            with wtrace.stage("query_snapshot"):
+                faultinject.fire("sketch.query_snapshot")
+                self._publish_query_snapshot(obj, entry.tables)
+        except Exception as exc:
+            log.error("query snapshot publish failed (window report still "
+                      "publishes; /query serves the previous snapshot): %s",
+                      exc)
+            if m is not None:
+                m.count_error("tpu-sketch-query")
         with wtrace.stage("report_sink"):
             self.sink(obj)
         self.reports_published += 1
         if m is not None:
-            if entry.tables is not None:
+            if self.cfg.tiered is not None:
                 try:
                     self._publish_tier_metrics(entry.tables)
                 except Exception as exc:  # telemetry never loses a report
@@ -618,6 +678,108 @@ class TorchSketchExporter:
             m.sketch_window_drop_bytes.set(obj["DropBytes"])
             for sig, key in SIGNAL_FIELDS.items():
                 m.sketch_window_suspects.labels(sig).set(len(obj[key]))
+
+    def _publish_query_snapshot(self, obj: dict, tables: dict,
+                                mid_window: bool = False) -> None:
+        """Publish a fresh snapshot of a rendered report and its host CM
+        planes, then let the alert engine evaluate it (`safe_evaluate`
+        contains a failed evaluation) (`tpu_sketch.py:1794-1823`)."""
+        snap = {"window": obj["Window"], "ts_ms": obj["TimestampMs"],
+                "report": obj, "cm_bytes": tables["cm_bytes"],
+                "cm_pkts": tables["cm_pkts"]}
+        self.query.publish(snap, mid_window=mid_window)
+        if self._alerts is not None:
+            self._alerts.safe_evaluate(snap, mid_window=mid_window)
+
+    def query_status(self) -> dict:
+        """`/query/status`'s body: the publisher's counters and freshness,
+        read once (`tpu_sketch.py:1825-1879`, without the archive and
+        tenant blocks)."""
+        snap = self.query.get()
+        st = self.query.stats()
+        # no overload controller sheds yet (ROADMAP A4.5)
+        st.update({"agent_id": self._agent_id, "window_s": self.window_s,
+                   "refresh_s": self._query_refresh_s, "overloaded": False})
+        if self._alerts is not None:
+            st["alerts"] = self._alerts.summary()
+        if snap is not None:
+            st.update({"published": True, "seq": snap["seq"],
+                       "window": snap["window"],
+                       "mid_window": snap["mid_window"]})
+            rep = snap["report"]
+            st.update({
+                "records": rep["Records"], "bytes": rep["Bytes"],
+                "distinct_src_estimate": rep["DistinctSrcEstimate"],
+                "drop_bytes": rep["DropBytes"],
+                "quic_records": rep["QuicRecords"],
+                "nat_records": rep["NatRecords"],
+                "rtt_quantiles_us": rep["RttQuantilesUs"],
+                "dns_latency_quantiles_us": rep["DnsLatencyQuantilesUs"],
+                "suspects": {sig: len(rep[key]) for sig, key
+                             in SIGNAL_FIELDS.items()},
+            })
+        return st
+
+    def serve(self, address: str = "127.0.0.1", port: int = 0,
+              health_source=None, tls_cert_path: str = "",
+              tls_key_path: str = ""):
+        """Start the port's metrics server (`metrics/server.
+        start_metrics_server`) with this exporter's `/query/*` routes and,
+        where it has a registry, `/metrics`; returns the server (stop it
+        with `shutdown()` and `server_close()`)."""
+        from netobserv_tpu_torch.metrics.server import start_metrics_server
+        return start_metrics_server(
+            self._metrics.registry if self._metrics is not None else None,
+            address, port, tls_cert_path=tls_cert_path,
+            tls_key_path=tls_key_path, health_source=health_source,
+            query_routes=self.query_routes)
+
+    def _maybe_refresh_query(self) -> None:
+        """The window thread's refresh tick (`tpu_sketch.py:1558-1572`): a
+        due refresh runs, and a failed one is logged, counted and tried
+        again at the next tick. Off (`query_refresh_s` 0) it does
+        nothing."""
+        nxt = self._next_refresh
+        if nxt is None or self._closed.is_set() or time.monotonic() < nxt:
+            return
+        self._next_refresh = time.monotonic() + self._query_refresh_s
+        try:
+            self._refresh_query_snapshot()
+        except Exception as exc:
+            log.error("mid-window query refresh failed (will retry): %s",
+                      exc)
+            if self._metrics is not None:
+                self._metrics.count_error("tpu-sketch-query")
+
+    def _refresh_query_snapshot(self) -> None:
+        """Publish the live window as a mid-window snapshot without closing
+        it (`tpu_sketch.py:1881-1939`): under the lock, fold the pending
+        rows, copy the live state into the staging state, and roll that
+        copy with its CM planes and report copied to the host; then, off
+        the lock, publish the closed windows still queued and render and
+        publish the partial window. The live state is read, never written.
+
+        The queued windows go first: a window an eviction closed after the
+        window thread's last publish would otherwise publish after the
+        next window's refresh, and a poller would see the window go back
+        (the reference publishes them at its next tick)."""
+        with self._lock, self._on_device():
+            self._drain_pending()
+            if self._staging is None:
+                self._staging = sk.init_state(self.cfg, self.device)
+            staged = self._staging
+            sk.copy_state_(staged, self.state)
+            with self._roll_mutex:
+                tables = sk.host_cm_planes(staged)
+                _, report = sk.roll_window(staged, self.cfg,
+                                           self.reset_sketches,
+                                           self.decay_factor)
+                report = report_numpy(report)
+        self._publish_queued()
+        obj = self._render_report(report, roll=False)
+        obj["TimestampMs"] = time.time_ns() // 1_000_000
+        faultinject.fire("sketch.query_snapshot")
+        self._publish_query_snapshot(obj, tables, mid_window=True)
 
     def _publish_tier_metrics(self, tables: dict) -> None:
         """Count the window's new promotions out of the u8 base plane, per
@@ -704,17 +866,19 @@ class TorchSketchExporter:
             if self._reports:
                 faultinject.fire("sketch.window_publish")
             self._publish_queued()
+            self._maybe_refresh_query()
 
     def close(self) -> None:
-        """Stop the window thread, publish the last window (`flush`), close
-        the sink if it has `close`, wait for the device, and drop the
-        buffers, the ring's pinned buffers and the captured graphs. A
-        second call does nothing (`tpu_sketch.py:1472-1527`)."""
+        """Stop the window thread (within 10 s when a refresh may be running,
+        else 2 s), publish the last window (`flush`), close the sink if it
+        has `close`, wait for the device, and drop the buffers, the ring's
+        pinned buffers, the staging state and the captured graphs. A second
+        call does nothing (`tpu_sketch.py:1472-1527`)."""
         if self._closed.is_set():
             return
         self._closed.set()
         if self._timer is not None:
-            self._timer.join(timeout=2.0)
+            self._timer.join(timeout=10.0 if self._query_refresh_s else 2.0)
         self._roll_now()
         sink_close = getattr(self.sink, "close", None)
         if sink_close is not None:
@@ -724,5 +888,6 @@ class TorchSketchExporter:
         if self.ring is not None:
             self.ring.close()
         self.pending = None
+        self._staging = None
         self._fold_dense = None
         self._host = self._host_u32 = self._dev = None

@@ -6,20 +6,32 @@ A copy of the sketch-plane part of `netobserv_tpu/metrics/registry.py`
 staging rings and the pending buffer (`sketch/staging.py`) touch; the
 retrace families of `utils/retrace.py` (`count_retrace`,
 `observe_dispatch`); and the trace families of `utils/tracing.py`
-(`observe_stage`, `trace_context_propagated_total`). Each family has the
-reference family's name, type, help text, labels and buckets. The
-families of the agent's other stages (evictions, interfaces, supervision)
-and of overload, tenants, federation, archive and the query plane come
-with the steps that port those planes (ROADMAP A4-A5).
+(`observe_stage`, `trace_context_propagated_total`); and the query and
+alerting planes' (`query_requests_total`, `query_snapshot_age_seconds`,
+`alerts_active`, `alerts_transitions_total`, `alert_sink_errors_total`,
+`alert_eval_seconds`, `:303-340`). Each family has the reference family's
+name, type, help text, labels and buckets. The families of the agent's
+other stages (evictions, interfaces, supervision) and of overload,
+tenants, federation and archive come with the steps that port those
+planes (ROADMAP A4-A5).
 
-`prometheus_client` is imported only when a `Metrics` is made: no module
-of the fold path imports it, and the exporter keeps plain integer counters
-of its own that work without a registry.
+`prometheus_client` is imported only when a `Metrics` is made, or when
+`exposition` renders a registry for the metrics server's `/metrics`: no
+other module imports it, and the exporter keeps plain integer counters of
+its own that work without a registry.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+def exposition(registry) -> tuple[bytes, str]:
+    """The text exposition of a `CollectorRegistry` and its content type
+    (what the reference's server writes for `/metrics`)."""
+    from prometheus_client import generate_latest
+    from prometheus_client.exposition import CONTENT_TYPE_LATEST
+    return generate_latest(registry), CONTENT_TYPE_LATEST
+
 
 @dataclass
 class MetricsSettings:
@@ -186,6 +198,44 @@ class Metrics:
             "into a frame; continued = the aggregator adopted a frame's "
             "context and recorded child spans under the same trace id)",
             ["result"], registry=self.registry)
+        # query plane (query/ and the /query/* routes of metrics/server.py)
+        self.query_requests_total = Counter(
+            p + "query_requests_total",
+            "Agent query-surface requests by route (topk / frequency / "
+            "cardinality / victims / status) and result (ok / no_window / "
+            "bad_request / not_found / error)", ["route", "result"],
+            registry=self.registry)
+        self.query_snapshot_age_seconds = Gauge(
+            p + "query_snapshot_age_seconds",
+            "Seconds since the agent's query snapshot was last published "
+            "(resets at every window roll; with SKETCH_QUERY_REFRESH set "
+            "it also resets at each mid-window refresh — growth past the "
+            "window period means the publish path is failing)",
+            registry=self.registry)
+        # alerting plane (alerts/ and /query/alerts)
+        self.alerts_active = Gauge(
+            p + "alerts_active",
+            "Alerts currently RAISED by the continuous detection plane "
+            "(hysteresis state machine over every snapshot publish; 0 with "
+            "ALERT_RULES unset — no engine exists)",
+            registry=self.registry)
+        self.alerts_transitions_total = Counter(
+            p + "alerts_transitions_total",
+            "Alert state transitions by rule and action (raise / clear), "
+            "exactly one per hysteresis crossing (incremented by the "
+            "metrics sink)", ["rule", "action"], registry=self.registry)
+        self.alert_sink_errors_total = Counter(
+            p + "alert_sink_errors_total",
+            "Alert transitions a sink failed to deliver after its bounded "
+            "retries (swallowed + counted; the engine state machine and "
+            "the other sinks were unaffected)", ["sink"],
+            registry=self.registry)
+        self.alert_eval_seconds = Histogram(
+            p + "alert_eval_seconds",
+            "Alert-engine evaluation latency per snapshot publish (host-"
+            "only rule walk on the timer thread; sink I/O excluded)",
+            buckets=(.0001, .0005, .001, .005, .01, .05, .1, .5),
+            registry=self.registry)
 
     def count_error(self, component: str, severity: str = "error") -> None:
         self.errors_total.labels(component, severity).inc()

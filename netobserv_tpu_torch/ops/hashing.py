@@ -1,9 +1,10 @@
 """Vectorized flow-key hashing with uint32 lanes carried in int64.
 
 Counterpart of `netobserv_tpu/ops/hashing.py` (`fmix32`, `hash_words`,
-`base_hashes`, `base_hashes_multi`, `row_indices`, `hash_words_np` and the
-seed constants). Murmur3-style mixing over the KEY_WORDS uint32 words of each
-flow key; Kirsch–Mitzenmacher double hashing derives the Count-Min rows.
+`base_hashes`, `base_hashes_multi`, `row_indices`, `hash_words_np`,
+`base_hashes_multi_np` (`:164-197`) and the seed constants). Murmur3-style
+mixing over the KEY_WORDS uint32 words of each flow key;
+Kirsch–Mitzenmacher double hashing derives the Count-Min rows.
 
 torch lacks ``<<``, ``>>``, ``+`` and ``%`` on ``torch.uint32``, so every
 uint32 lane here is an ``int64`` tensor holding a value in ``[0, 2**32)``.
@@ -170,3 +171,45 @@ def hash_words_np(words: np.ndarray, seed: int = 0) -> np.ndarray:
         h = h * f2
         h = h ^ (h >> np.uint32(16))
     return h
+
+
+def base_hashes_multi_np(words: np.ndarray) -> dict[str, np.ndarray]:
+    """Numpy twin of `base_hashes_multi` (the same field names, as a dict of
+    uint32 arrays), for host-side point queries that must not launch
+    device work (`query/core.frequency_payload`)."""
+    w = np.ascontiguousarray(words, dtype=np.uint32)
+    if w.shape[-1] != 10:
+        raise ValueError("base_hashes_multi_np expects KEY_WORDS=10")
+    c1, c2, m5, n1 = (np.uint32(c) for c in (_C1, _C2, _M5, _N1))
+    f1, f2 = np.uint32(_F1), np.uint32(_F2)
+    with np.errstate(over="ignore"):
+        def k_mix(col):
+            k = col * c1
+            return ((k << np.uint32(15)) | (k >> np.uint32(17))) * c2
+
+        ks = [k_mix(w[..., i]) for i in range(10)]
+        ks.append(k_mix(w[..., 8] & np.uint32(0xFFFF)))
+
+        def run(seed: int, idxs: tuple[int, ...]) -> np.ndarray:
+            h = np.full(w.shape[:-1], np.uint32(seed), np.uint32)
+            for i in idxs:
+                h = h ^ ks[i]
+                h = ((h << np.uint32(13)) | (h >> np.uint32(19))) * m5 + n1
+            h = h ^ np.uint32(len(idxs) * 4)
+            h = h ^ (h >> np.uint32(16))
+            h = h * f1
+            h = h ^ (h >> np.uint32(13))
+            h = h * f2
+            return h ^ (h >> np.uint32(16))
+
+        one = np.uint32(1)
+        return {
+            "h1": run(_H1_SEED, _FLOW_IDXS),
+            "h2": run(_H2_SEED, _FLOW_IDXS) | one,
+            "src_h1": run(_H1_SEED ^ SRC_BUCKET_SEED, _SRC_IDXS),
+            "src_h2": run(_H2_SEED ^ SRC_BUCKET_SEED, _SRC_IDXS) | one,
+            "dst_h1": run(_H1_SEED ^ DST_BUCKET_SEED, _DST_IDXS),
+            "dp_h1": run(_H1_SEED ^ DSTPORT_FANOUT_SEED, _DP_IDXS),
+            "dp_h2": run(_H2_SEED ^ DSTPORT_FANOUT_SEED, _DP_IDXS) | one,
+            "src_sym": run(_H1_SEED ^ DST_BUCKET_SEED, _SRC_IDXS),
+        }

@@ -3,7 +3,9 @@
 Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
 `SketchState`, `WindowReport`, `init_state`, `batch_to_device`,
 `dense_to_arrays`, `arrays_to_dense`, `tiered_fold_form`, `ingest`,
-`decay_state`, `roll_window`, `state_tables`, the compact feed's
+`decay_state`, `roll_window`, `state_tables`, `copy_state_` and
+`host_cm_planes` (the query plane's staged copy and the CM planes of its
+snapshots, `exporter/tpu_sketch.py:1881-1939`), the compact feed's
 `COMPACT_WORDS` and `compact_to_arrays` with the ingest of
 `make_ingest_compact_fn` (`:709-770`), and the resident feed's
 `init_key_table`, `resident_to_arrays`, `init_key_tables`,
@@ -911,3 +913,35 @@ def state_tables(state: SketchState) -> dict[str, np.ndarray]:
         # federation.delta.SCALAR_FIELDS order
         "scalars": _np(torch.stack([getattr(state, n) for n in _SCALARS])),
     }
+
+
+def copy_state_(dst, src) -> None:
+    """Copy every tensor of `src` into the same tensor of `dst` in place: a
+    state, wide or tiered, into a twin made once by `init_state` with the
+    same config (the torch form of the reference's
+    `jax.tree.map(jnp.copy, state)`, with no allocation). A leaf that is
+    not a tensor (the tier geometry) must be equal."""
+    if isinstance(src, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(src, tuple):
+        if type(dst) is not type(src) or len(dst) != len(src):
+            raise ValueError(f"cannot copy a {type(src).__name__} into a "
+                             f"{type(dst).__name__}")
+        for d, s_ in zip(dst, src):
+            copy_state_(d, s_)
+    elif dst != src:
+        raise ValueError(f"states differ in a fixed leaf: {src!r} vs "
+                         f"{dst!r}")
+
+
+def host_cm_planes(state) -> dict[str, np.ndarray]:
+    """The wide Count-Min planes of a (pre-roll) state as host f32 copies,
+    `cm_bytes` and `cm_pkts`; a tiered state gives its decoded planes
+    (`tiered.decode_plane`), as `state_tables` does."""
+    if isinstance(state, tiered.TieredState):
+        t, spec = state.tables, state.spec
+        return {"cm_bytes": _np(tiered.decode_plane(t.cm_bytes, spec,
+                                                    spec.bytes_unit)),
+                "cm_pkts": _np(tiered.decode_plane(t.cm_pkts, spec, 1))}
+    return {"cm_bytes": _np(state.cm_bytes.counts),
+            "cm_pkts": _np(state.cm_pkts.counts)}

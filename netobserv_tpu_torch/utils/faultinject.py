@@ -14,7 +14,10 @@ allocations, no locks, nothing on the fold path.
 The port's points: ``sketch.ingest`` (the exporter's fold, inside its
 containment), ``sketch.staging_wait`` (a staging ring's slot wait),
 ``sketch.window_timer``, ``sketch.window_roll`` and
-``sketch.window_publish`` (the window thread).
+``sketch.window_publish`` (the window thread), ``sketch.query_snapshot``
+(a snapshot publish, inside its own containment), ``alerts.evaluate`` (the
+alert engine's evaluation) and ``alerts.sink`` (each delivery attempt of
+an alert sink).
 
 Arming:
 

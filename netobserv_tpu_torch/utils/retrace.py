@@ -26,9 +26,9 @@ reference's `set_metrics`, `utils/retrace.py:261-265`): each call's host
 seconds go to `executable_dispatch_seconds_total{fn}` and each retrace to
 `sketch_retraces_total{fn}`.
 
-Not here: the kernel-library builds (they happen once per process,
-outside any graph), and the `/debug/executables` route of
-`server/debug.py`, which waits for the port's server (ROADMAP A4.2).
+`snapshot` and `total_retraces` also serve `/debug/executables` and
+`/debug/torch` (`server/debug.py`). Not here: the kernel-library builds
+(they happen once per process, outside any graph).
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ A *trace* follows one unit of work through the pipeline — a "fold" trace
 wraps one fold of the exporter (its staging ring's `staging_wait`, `pack`
 or `resident_pack` and `ingest_dispatch` spans ride it); a "window" trace
 is born at window roll (`roll_drain`, `roll_dispatch`) and rides the queued
-report through render and sink delivery (`report_render`, `report_sink`)
-on the window thread. Each pipeline stage wraps its work in a *span*
+report through render, the query snapshot's publish and sink delivery
+(`report_render`, `query_snapshot`, `report_sink`) on the window thread. Each pipeline stage wraps its work in a *span*
 (``with trace.stage("resident_pack"): ...``); completed traces land in a
 fixed-size ring buffer (the flight recorder, :func:`snapshot`) and every
 span duration feeds the ``stage_seconds{stage=...}`` histogram family when

@@ -36,7 +36,9 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "sketch/staging.py", "sketch/tiered.py", "sketch/state.py",
                  "datapath/fetcher.py", "config.py", "sketch/capture.py",
                  "utils/faultinject.py", "utils/tracing.py",
-                 "metrics/registry.py")
+                 "metrics/registry.py", "query/core.py", "query/snapshot.py",
+                 "query/routes.py", "alerts/rules.py", "alerts/engine.py",
+                 "alerts/sinks.py", "metrics/server.py", "server/debug.py")
 
 
 def _imported_modules(path: Path) -> list[str]:

@@ -72,7 +72,9 @@ FAMILIES = (
     "sketch_window_records", "sketch_window_drop_bytes",
     "sketch_window_suspects", "sketch_ingest_errors_total", "stage_seconds",
     "sketch_retraces_total", "executable_dispatch_seconds_total",
-    "trace_context_propagated_total")
+    "trace_context_propagated_total", "query_requests_total",
+    "query_snapshot_age_seconds", "alerts_active", "alerts_transitions_total",
+    "alert_sink_errors_total", "alert_eval_seconds")
 
 
 @pytest.fixture(autouse=True)
@@ -637,9 +639,9 @@ def test_metric_family_equals_the_reference(name):
 
 def test_trace_spans_equal_the_reference():
     """With sampling at 1.0 the port's fold and window traces carry the
-    JAX exporter's span names on the same feed. The reference's window
-    trace also has `query_snapshot`, the query plane's (ROADMAP A4.2), and
-    a fold that waits on a busy slot adds `staging_wait` in either."""
+    JAX exporter's span names on the same feed, the query plane's
+    `query_snapshot` included; a fold that waits on a busy slot adds
+    `staging_wait` in either."""
     rng = np.random.default_rng(190)
     feed = _evictions(rng, [300, 2 * B + 9, B])
     for mod in (tracing, jtracing):
@@ -666,11 +668,10 @@ def test_trace_spans_equal_the_reference():
         return out
 
     got, want = spans(tracing.snapshot()), spans(jtracing.snapshot())
-    want["window"].discard("query_snapshot")
     assert got == want
     assert got["fold"] == {"fold", "resident_pack", "ingest_dispatch"}
     assert got["window"] == {"roll_drain", "roll_dispatch", "report_render",
-                             "report_sink"}
+                             "query_snapshot", "report_sink"}
     stages = {s.labels(st)._sum.get() > 0
               for st in ("resident_pack", "report_sink")
               for s in (tm.stage_seconds,)}
