@@ -13,7 +13,8 @@ C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
 the launch floor (one `nvcc` per source, all started together), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives five
-paths through `TorchSketchExporter` at the default geometry, each with the
+paths through `TorchSketchExporter` at the default geometry (and three
+planes on the lanes path after them), each with the
 launch counts set to 0 just before it and read just after:
 
 - the wide main path, `SketchConfig()` through the dense feed
@@ -92,6 +93,35 @@ launch counts set to 0 just before it and read just after:
   held and their whole time (median, max), the roll's added CM-plane copy
   (synchronized, then timed), the longest `export_evicted` while a
   refresh ran, and records/s beside `window_thread`'s;
+- the federation plane (`federation`): one `FederationAggregator` at the
+  default geometry (its merge captured as one CUDA graph when it is made,
+  before any other capture or thread, an alert engine under the default
+  rules, a list sink) and FED_AGENTS lanes-path agents
+  (`TorchSketchExporter`, `agent_id` agent-0 to agent-3, `delta_sink`
+  the aggregator's `ingest_frame`), each folding its seeded quarter of
+  the lanes path's stream as evictions, two windows closed by `flush()`.
+  Then a fan-in: FED_IDS sources per live agent, each live frame
+  re-headered (`federation/pbwire.py`) under its own agent id with a
+  fresh uuid, 256 frames a window for FED_FANIN_WINDOWS windows (some
+  1.1 GB of tables a window). Inside the first fan-in window a
+  redelivered frame must ack `duplicate`, a stale one `stale`, a v2 frame
+  `ok` with zero churn tensors and a v1 frame merge `legacy`; a
+  truncated frame and one of another geometry are rejected with every
+  table unchanged. Each cluster window's added tables (CM planes,
+  histograms, rates, `synack`, `drop_causes`, `dscp_bytes`, `conv_*`,
+  scalars) must equal a host numpy replay of the same f32 adds in the
+  same frame order bit for bit, its HLL banks the elementwise max, and
+  every table (the heavy table included) an eager replay of
+  `statemerge.merge_tables` on the card; each live cluster report's
+  Records the sum of the agents'; `federation_merge` one capture, no
+  retrace, the agents' launches those of their folds. It prints the
+  frame bytes raw and zlib, `ingest_frame` p50/p99 split into decode,
+  host-to-device copy and merge dispatch (spans of the delta traces),
+  the merge's device time and kernels per replay (torch.profiler), fan-in
+  frames/s, the cluster flush (roll and publish) ms, each agent's
+  `roll_dispatch` on empty windows with a delta sink (the whole
+  `state_tables` copied under the lock) and without, and the agents'
+  records/s beside `window_thread`'s;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -2861,6 +2891,459 @@ def phase_query_plane(specs, universe, pool, events, wt_records_per_s
             "paused_refresh_identical": paused_identical}
 
 
+#: the federation phase: live agents, the sources a fan-in window sends
+#: (each live agent's frame under FED_IDS ids), its fan-in windows, and
+#: the roll-cost comparison's empty windows per agent and mode
+FED_AGENTS = 4
+FED_IDS = 64
+FED_FANIN_WINDOWS = 2
+FED_ROLL_PAIRS = 3
+#: the tables of a frame, by how the aggregator merges them
+FED_ADDED = ("cm_bytes", "cm_pkts", "hist_rtt", "hist_dns", "ddos_rate",
+             "syn_rate", "synack", "drops_rate", "drop_causes", "dscp_bytes",
+             "conv_fwd", "conv_rev", "scalars")
+FED_MAXED = ("hll_src", "hll_per_dst", "hll_per_src")
+
+
+class FrameTap:
+    """An agent's delta sink: hands each frame to the aggregator's
+    `ingest_frame`, and keeps the frame, its ack and the ingest's wall
+    seconds."""
+
+    def __init__(self, agg):
+        self.agg = agg
+        self.frames: list = []
+        self.acks: list = []
+        self.seconds: list = []
+
+    def __call__(self, frame: bytes):
+        t0 = time.perf_counter()
+        ack = self.agg.ingest_frame(frame)
+        self.seconds.append(time.perf_counter() - t0)
+        self.frames.append(frame)
+        self.acks.append(ack)
+        return ack
+
+
+def _pct(xs, q: float):
+    import numpy as np
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def _span_ms(trace: dict, name: str) -> float:
+    return sum(s["dur_ms"] for s in trace["stages"] if s["stage"] == name)
+
+
+def _agent_quarters(events):
+    """Each agent's seeded quarter of the lanes path's stream (one window
+    of the pool, as every path's), as its rows in order."""
+    import numpy as np
+    ev, lanes = LaneFeeder(events).stream
+    owner = np.random.default_rng(13).integers(0, FED_AGENTS, len(ev))
+    return [(ev[owner == a], {k: v[owner == a] for k, v in lanes.items()})
+            for a in range(FED_AGENTS)]
+
+
+def _evict(exp, part, rng) -> int:
+    """Deliver a quarter as evictions of the lanes path's sizes."""
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    ev, lanes = part
+    lo = 0
+    while lo < len(ev):
+        size = (EVICT_ROWS if rng.random() < 0.75
+                else int(rng.integers(*EVICT_LARGE)))
+        hi = min(lo + size, len(ev))
+        exp.export_evicted(EvictedFlows(
+            ev[lo:hi], **{k: v[lo:hi] for k, v in lanes.items()}))
+        lo = hi
+    return len(ev)
+
+
+def phase_federation(specs, universe, pool, events, wt_records_per_s
+                     ) -> dict:
+    """The federation plane at the default geometry (module docstring's
+    `federation`): FED_AGENTS lanes-path agents export one delta frame a
+    closed window into one aggregator on the card, then FED_IDS sources
+    per live agent send a frame each for FED_FANIN_WINDOWS windows; each
+    cluster window is held against a host numpy replay and an eager
+    replay on the card of the frames it merged."""
+    import uuid
+
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch import config as tconfig
+    from netobserv_tpu_torch.alerts import engine as aengine
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.federation import delta as fdelta
+    from netobserv_tpu_torch.federation import pbwire, statemerge
+    from netobserv_tpu_torch.federation.aggregator import (
+        FederationAggregator,
+    )
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import retrace, tracing
+    try:
+        from netobserv_tpu_torch.metrics.registry import Metrics
+        metrics = Metrics()
+    except ImportError:  # prometheus_client is optional
+        metrics = None
+    cfg = sk.SketchConfig()
+    retraces0 = retrace.total_retraces()
+    tracing.configure(sample=1.0, capacity=1 << 14)
+    engine = aengine.maybe_engine(tconfig.QuerySettings(
+        alert_rules="default", alert_sinks="metrics"), metrics=metrics,
+        source="aggregator")
+    cluster: list = []
+    published: dict = {}
+    agents: list = []
+    agg = None
+    try:
+        # the aggregator first: its merge is captured here, before any
+        # thread folds (ROADMAP C4)
+        t0 = time.perf_counter()
+        agg = FederationAggregator(cfg, window_s=3600.0, metrics=metrics,
+                                   sink=cluster.append, alerts=engine)
+        agg_make_s = time.perf_counter() - t0
+        check(agg.device.type == "cuda" and agg._fold.captures == 1,
+              f"aggregator on {agg.device}, {agg._fold.captures} captures")
+        publish = agg._publish
+
+        def tap(report, tables, agent_ids, wtrace):
+            published[int(report.window)] = tables
+            return publish(report, tables, agent_ids, wtrace)
+        agg._publish = tap
+        taps = [FrameTap(agg) for _ in range(FED_AGENTS)]
+        sinks = [WindowSink() for _ in range(FED_AGENTS)]
+        for a in range(FED_AGENTS):
+            exp = TorchSketchExporter(
+                cfg, batch_size=BATCH, device="cuda", sink=sinks[a],
+                agent_id=f"agent-{a}", delta_sink=taps[a], **LANES_KW)
+            with exp._lock:
+                exp._ensure_ring()  # every capture before any fold
+            agents.append(exp)
+        captures0 = [[c.captures for c in e.captures] for e in agents]
+        quarters = _agent_quarters(events)
+        for s in specs:
+            s["kernel"].launches = 0
+
+        # live windows: each agent folds its quarter, then flushes (its
+        # frame reaches the aggregator in its publish); the aggregator
+        # closes the cluster window by flush()
+        fold_s, records, roll_live, flush_ms = 0.0, 0, [], []
+        for w in range(WINDOWS):
+            rng = np.random.default_rng(100 + w)
+            for a, exp in enumerate(agents):
+                t0 = time.perf_counter()
+                records += _evict(exp, quarters[a], rng)
+                with exp._lock:
+                    exp._drain_pending()
+                torch.cuda.synchronize()
+                fold_s += time.perf_counter() - t0
+            for exp in agents:
+                exp.flush()
+                wt = next(t for t in tracing.snapshot()
+                          if t["kind"] == "window")
+                roll_live.append(_span_ms(wt, "roll_dispatch"))
+            t0 = time.perf_counter()
+            agg.flush()
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        folds = sum(e.folds for e in agents)
+        want = _want_launches(specs, "lanes", folds)
+        check(launches == want, f"launches {launches}, want {want}")
+        for exp, c0 in zip(agents, captures0):
+            check([c.captures for c in exp.captures] == c0,
+                  f"an agent captured again: {c0}")
+            _watch_stats(exp)
+        for a, tp in enumerate(taps):
+            check(len(tp.acks) == WINDOWS and all(
+                k.accepted == 1 and k.duplicate == 0 for k in tp.acks),
+                f"agent-{a} acks {tp.acks}")
+        check(len(cluster) == WINDOWS, f"{len(cluster)} cluster reports")
+        for w, rep in enumerate(cluster):
+            mine = [s.reports[w]["Records"] for s in sinks]
+            check(rep["Records"] == sum(mine) and rep["Window"] == w,
+                  f"window {w}: cluster records {rep['Records']}, agents "
+                  f"{mine}")
+            check(rep["Agents"] == [f"agent-{a}" for a in
+                                    range(FED_AGENTS)],
+                  f"window {w} agents {rep['Agents']}")
+
+        # the decoded tables of each frame the aggregator merged, by
+        # window, in its order (the fan-in sends copies of live frames)
+        cache = {(a, w): fdelta.upgrade_tables(fdelta.decode_frame(f))
+                 for a, tp in enumerate(taps)
+                 for w, f in enumerate(tp.frames)}
+        merged = {w: [(a, w) for a in range(FED_AGENTS)]
+                  for w in range(WINDOWS)}
+        raw_bytes = sum(v.nbytes for v in cache[(0, 0)].values())
+        raw_frame = len(fdelta.encode_frame(
+            sk.state_tables(agg._state), agent_id="agent-0", window=0,
+            ts_ms=0, dims=agg._dims, codec=fdelta.CODEC_RAW))
+
+        # the fan-in: FED_IDS sources per live agent, one frame each a
+        # window, re-headered from the live frames with fresh uuids
+        msgs = {k: pbwire.SketchDelta.FromString(taps[k[0]].frames[k[1]])
+                for k in cache}
+        ingest_s, spans, fanin_s, checks = [], [], [], {}
+        for fw in range(FED_FANIN_WINDOWS):
+            w = WINDOWS + fw
+            merged[w] = []
+            tracing.recorder.clear()
+            t_loop = 0.0
+            for i in range(FED_IDS):
+                for a in range(FED_AGENTS):
+                    m = msgs[(a, fw % WINDOWS)]
+                    m.agent_id = f"agent-{a}.{i}"
+                    m.frame_uuid = uuid.uuid4().hex
+                    m.window = m.window_seq = w
+                    m.agent_epoch, m.trace_ctx = 1 + a, None
+                    data = m.SerializeToString()
+                    t0 = time.perf_counter()
+                    ack = agg.ingest_frame(data)
+                    dt = time.perf_counter() - t0
+                    t_loop += dt
+                    ingest_s.append(dt)
+                    check(ack.accepted == 1 and ack.duplicate == 0,
+                          f"fan-in ack {ack}")
+                    merged[w].append((a, fw % WINDOWS))
+            torch.cuda.synchronize()
+            fanin_s.append(t_loop)
+            spans += [t for t in tracing.snapshot() if t["kind"] == "delta"]
+            if fw == 0:
+                checks = _ledger_checks(agg, taps, cache, merged[w], data,
+                                        metrics)
+            t0 = time.perf_counter()
+            agg.flush()
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(cluster) == WINDOWS + FED_FANIN_WINDOWS,
+              f"{len(cluster)} cluster reports")
+
+        # each window against a host numpy replay and an eager replay on
+        # the card of the frames it merged
+        replay = sk.init_state(cfg, "cuda")
+        cmp = []
+        for w in sorted(merged):
+            got = published[w]
+            acc = {}
+            for key in merged[w]:
+                t = cache[key]
+                for k in FED_ADDED:
+                    acc[k] = (acc[k] + t[k]) if k in acc else \
+                        np.float32(0) + t[k]
+                for k in FED_MAXED:
+                    acc[k] = np.maximum(acc[k], t[k]) if k in acc else \
+                        np.maximum(np.int32(0), t[k])
+            for k in (*FED_ADDED, *FED_MAXED):
+                check(got[k].dtype == acc[k].dtype
+                      and np.array_equal(got[k], acc[k]),
+                      f"window {w}: {k} differs from the numpy replay")
+            for key in merged[w]:
+                host = fdelta.localize_churn(cache[key], w)
+                statemerge.merge_tables(replay, {
+                    k: torch.from_numpy(np.array(
+                        v, dtype=np.int64 if v.dtype == np.uint32
+                        else v.dtype)).cuda() for k, v in host.items()})
+            eager = sk.state_tables(replay)
+            diff = [k for k in eager if not (
+                eager[k].dtype == got[k].dtype
+                and np.array_equal(eager[k], got[k]))]
+            check(not diff, f"window {w}: captured merge differs from the "
+                  f"eager replay in {diff}")
+            sk.roll_window(replay, cfg)
+            cmp.append({"window": w, "frames": len(merged[w]),
+                        "records": float(got["scalars"][0]),
+                        "heavy_valid": int(got["heavy_valid"].sum())})
+
+        # the roll's cost of the whole state_tables copy: each agent's
+        # roll_dispatch on empty windows, with a sink and without
+        roll_with, roll_without = [], []
+        for exp in agents:
+            for _ in range(FED_ROLL_PAIRS):
+                for sink, out in ((lambda f: None, roll_with),
+                                  (None, roll_without)):
+                    exp._delta_sink = sink
+                    exp.flush()
+                    wt = next(t for t in tracing.snapshot()
+                              if t["kind"] == "window")
+                    out.append(_span_ms(wt, "roll_dispatch"))
+            exp._delta_sink = None
+
+        # the merge's device time and launches (the aggregate is spent
+        # after this)
+        agg_watch = agg._fold.stats()
+        check(agg._fold.captures == 1 and agg_watch["retraces"] == 0
+              and agg_watch["calls"] == sum(len(v) for v in merged.values()),
+              f"federation_merge {agg_watch}")
+        check(retrace.total_retraces() == retraces0,
+              f"{retrace.total_retraces() - retraces0} retraces")
+        WATCHED.append(agg_watch)
+        merge_prof = _profile_merge(agg)
+    finally:
+        tracing.configure(sample=0.0)
+        for exp in agents:
+            exp._delta_sink = None
+            exp.close()
+        if agg is not None:
+            agg.close()
+    check(retrace.total_retraces() == retraces0, "retraces at close")
+
+    def split(name):
+        return [_span_ms(t, name) for t in spans]
+    decode, h2d = split("delta_decode"), split("delta_h2d")
+    dispatch = [d - h - l for d, h, l in zip(
+        split("delta_merge_dispatch"), h2d, split("delta_ledger"))]
+    return {"phase": "federation", "agents": FED_AGENTS,
+            "fanin_sources": FED_AGENTS * FED_IDS,
+            "fanin_windows": FED_FANIN_WINDOWS, "cluster_windows": cmp,
+            "frame_raw_bytes": raw_frame, "tables_raw_bytes": raw_bytes,
+            "frame_zlib_bytes": [len(f) for tp in taps for f in tp.frames],
+            "aggregator_make_s": agg_make_s,
+            "ingest_ms_p50": _pct(ingest_s, 50) * 1e3,
+            "ingest_ms_p99": _pct(ingest_s, 99) * 1e3,
+            "decode_ms_p50": _pct(decode, 50), "decode_ms_p99": _pct(decode, 99),
+            "h2d_ms_p50": _pct(h2d, 50), "h2d_ms_p99": _pct(h2d, 99),
+            "merge_dispatch_ms_p50": _pct(dispatch, 50),
+            "merge_dispatch_ms_p99": _pct(dispatch, 99),
+            "live_ingest_ms": [s * 1e3 for tp in taps for s in tp.seconds],
+            **merge_prof,
+            "fanin_frames_per_s": [FED_AGENTS * FED_IDS / s
+                                   for s in fanin_s],
+            "fanin_tables_gb_per_window": FED_AGENTS * FED_IDS * raw_bytes
+            / 1e9,
+            "cluster_flush_ms": flush_ms,
+            "agent_roll_dispatch_live_ms": roll_live,
+            "agent_roll_dispatch_with_sink_ms_median":
+                float(np.median(roll_with)),
+            "agent_roll_dispatch_without_sink_ms_median":
+                float(np.median(roll_without)),
+            "agent_roll_dispatch_with_sink_ms": roll_with,
+            "agent_roll_dispatch_without_sink_ms": roll_without,
+            "agents_records": records, "agents_fold_s": fold_s,
+            "agents_records_per_s": records / fold_s,
+            "window_thread_records_per_s": wt_records_per_s,
+            "alert_transitions": (engine.view()["transition_seq"]
+                                  if engine is not None else None),
+            "ledger": checks, "launches": launches,
+            "federation_merge": agg_watch}
+
+
+def _profile_merge(agg, n: int = 10) -> dict:
+    """The captured merge's replays (the aggregate is spent after them):
+    CUDA-event ms a replay over REPS replays, and device ms and kernels a
+    replay from a torch.profiler trace of n replays, which must be whole
+    (every kernel a multiple of n times) within PROFILE_TRIES traces, or
+    the phase fails. A trace that starts with a replay came back five
+    records short, the graph's first five kernels (`profile()` alone,
+    after a full run's earlier phases), so one replay runs as the
+    profiler's warm-up step, whose events it drops, before the n that it
+    keeps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def replay():
+        agg._fold(agg._state, agg._dev)
+    for _ in range(5):
+        replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        replay()
+    end.record()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        rows: list = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: rows.extend(
+                         _device_rows(p))) as prof:
+            replay()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(n):
+                replay()
+            torch.cuda.synchronize()
+            prof.step()
+        short = [[name[:90], count] for _, name, count in rows
+                 if count % n]
+        if rows and not short:
+            break
+        PROFILE_RETRIED.append(1)
+    else:
+        raise PhaseError(f"no whole trace of the merge in {PROFILE_TRIES} "
+                         f"traces; the last one's rows short: {short}")
+    return {"merge_event_ms": start.elapsed_time(end) / REPS,
+            "merge_device_ms": sum(r[0] for r in rows) / 1e3 / n,
+            "merge_kernels_per_replay": sum(r[2] for r in rows) / n,
+            "merge_top_kernels": [[r[1][:60], r[0] / n, r[2] / n]
+                                  for r in rows[:8]]}
+
+
+def _ledger_checks(agg, taps, cache, merged: list, last: bytes,
+                   metrics) -> dict:
+    """The verdicts on the card, inside the first fan-in window: a
+    redelivered frame, a stale one, a v2 and a v1 frame (each merged, so
+    added to `merged`), then a truncated frame and one of another
+    geometry, rejected with every table unchanged."""
+    import numpy as np
+    from netobserv_tpu_torch.federation import delta as fdelta
+    from netobserv_tpu_torch.federation import pbwire
+    from netobserv_tpu_torch.sketch import state as sk
+    out = {}
+    ack = agg.ingest_frame(last)
+    check(ack.accepted == 1 and ack.duplicate == 1
+          and ack.reason == fdelta.ACK_REASON_DUPLICATE,
+          f"redelivery ack {ack}")
+    out["duplicate"] = ack.reason
+    m = pbwire.SketchDelta.FromString(last)
+    m.window_seq -= 1
+    m.frame_uuid = "stale-" + m.frame_uuid
+    ack = agg.ingest_frame(m.SerializeToString())
+    check(ack.accepted == 1 and ack.duplicate == 1
+          and ack.reason == fdelta.ACK_REASON_STALE, f"stale ack {ack}")
+    out["stale"] = ack.reason
+    live = fdelta.decode_frame(taps[0].frames[0]).tables
+    for version in (2, 1):
+        data = fdelta.encode_frame(
+            live, agent_id=f"legacy-v{version}", window=agg._window_host,
+            ts_ms=0, dims=agg._dims, agent_epoch=7, version=version)
+        frame = fdelta.decode_frame(data)
+        up = fdelta.upgrade_tables(frame)
+        check(all(not up[k].any() for k in ("heavy_prev_counts",
+                                            "heavy_first_seen",
+                                            "heavy_epoch")),
+              f"v{version}: churn tensors not zero")
+        ack = agg.ingest_frame(data)
+        check(ack.accepted == 1 and ack.duplicate == 0 and not ack.reason,
+              f"v{version} ack {ack}")
+        cache[(f"v{version}",)] = up
+        merged.append((f"v{version}",))
+    check("legacy-v2" in agg._ledger and "legacy-v1" not in agg._ledger
+          and "legacy-v1" in agg._agents, "v1 did not merge as legacy")
+    if metrics is not None:
+        get = metrics.registry.get_sample_value
+        out["legacy"] = get("ebpf_agent_federation_deltas_total",
+                            {"result": "legacy"})
+        check(out["legacy"] == 1.0, f"legacy count {out['legacy']}")
+    with agg._lock, agg._on_device():
+        before = sk.state_tables(agg._state)
+    other = sk.SketchConfig(cm_width=1 << 15)
+    wrong = fdelta.encode_frame(
+        sk.state_tables(sk.init_state(other, "cuda")), agent_id="skewed",
+        window=0, ts_ms=0, dims={**agg._dims, "cm_width": 1 << 15})
+    for name, data in (("truncated", last[:len(last) // 2]),
+                       ("wrong_geometry", wrong)):
+        ack = agg.ingest_frame(data)
+        check(ack.accepted == 0, f"{name} frame accepted")
+        out[name] = ack.reason[:80]
+    with agg._lock, agg._on_device():
+        after = sk.state_tables(agg._state)
+    check(all(np.array_equal(before[k], after[k]) for k in before),
+          "a rejected frame changed a table")
+    return out
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -3209,6 +3692,10 @@ def main() -> int:
         qp_res = phase_query_plane(specs, universe, pool, events,
                                    wt_res["records_per_s"])
         emit(qp_res)
+        phase = "federation"
+        fed_res = phase_federation(specs, universe, pool, events,
+                                   wt_res["records_per_s"])
+        emit(fed_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -3232,6 +3719,7 @@ def main() -> int:
                 "lanes": lanes_res["launches"],
                 "window_thread": wt_res["launches"],
                 "query_plane": qp_res["launches"],
+                "federation": fed_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -8,13 +8,18 @@ are copies of `AgentConfig.resolved_pack_threads` and
 `QuerySettings` holds the query and alerting planes' settings of
 `AgentConfig` (`:443-451`, `:495-518`) with their defaults and checks
 (`:693-733`): the port has no `AgentConfig`, and `alerts/engine.maybe_engine`
-takes these.
+takes these. `FederationSettings` holds the federation aggregator's and the
+delta sender's settings (`:545-590`) with the reference's defaults, and
+`parse_duration` is a copy of the reference's (`:18-43`), which reads the
+duration settings.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass
+from typing import Mapping, Optional
 
 #: port-scan fan-out: distinct (dst addr, dst port) pairs per source bucket
 DEFAULT_SCAN_FANOUT = 512
@@ -106,3 +111,64 @@ class QuerySettings:
             from netobserv_tpu_torch.alerts.sinks import build_sinks
             parse_rules(self.alert_rules)
             build_sinks(self)
+
+
+_DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
+_DURATION_UNITS = {
+    "ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3, "s": 1.0, "m": 60.0,
+    "h": 3600.0,
+}
+
+
+def parse_duration(text: str) -> float:
+    """Parse a Go-style duration string ("5s", "300ms", "1m30s") into
+    seconds; a plain number is seconds, an empty string 0."""
+    text = text.strip()
+    if not text:
+        return 0.0
+    try:
+        return float(text)
+    except ValueError:
+        pass
+    total = 0.0
+    pos = 0
+    for m in _DURATION_RE.finditer(text):
+        if m.start() != pos:
+            raise ValueError(f"invalid duration: {text!r}")
+        total += float(m.group(1)) * _DURATION_UNITS[m.group(2)]
+        pos = m.end()
+    if pos != len(text):
+        raise ValueError(f"invalid duration: {text!r}")
+    return total
+
+
+@dataclass
+class FederationSettings:
+    """The federation plane's settings, under the reference's names and
+    defaults: `federation_window` (FEDERATION_WINDOW, the aggregator's
+    window in seconds), `federation_stale_after` (FEDERATION_STALE_AFTER,
+    seconds without a delta before an agent reads as stale),
+    `federation_agent_ttl` (FEDERATION_AGENT_TTL, seconds before a silent
+    agent is evicted, 0 = never) and `federation_agent_id`
+    (FEDERATION_AGENT_ID, the agent identity its frames carry; "" = the
+    host name). `from_env` reads them as the reference does: the three
+    durations through `parse_duration`, which raises on a malformed one."""
+
+    federation_window: float = 60.0
+    federation_stale_after: float = 120.0
+    federation_agent_ttl: float = 600.0
+    federation_agent_id: str = ""
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "FederationSettings":
+        env = os.environ if environ is None else environ
+        out = cls()
+        for name in ("federation_window", "federation_stale_after",
+                     "federation_agent_ttl"):
+            raw = env.get(name.upper())
+            if raw:  # set but empty reads as unset, as the reference's
+                setattr(out, name, parse_duration(raw))
+        out.federation_agent_id = env.get("FEDERATION_AGENT_ID",
+                                          out.federation_agent_id)
+        return out

@@ -145,9 +145,27 @@ form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
 and with metrics each window counts its new promotions
 (`sketch_tier_promotions_total`).
 
+**The delta export** (`tpu_sketch.py:380-455`, `:1095-1126`,
+`:1981-2035`). With a `delta_sink` (a callable taking the frame's bytes,
+such as `federation/aggregator.FederationAggregator.ingest_frame`), every
+roll copies the whole pre-roll `state_tables` to the host under the lock
+(without one, only the CM planes), and the publish pushes one delta frame
+(`federation/delta.encode_frame`) before it renders the report, in a `try`
+of its own: the span `report_serialize` covers the fault point
+`sketch.delta_export` and the encode, the span `delta_push` the sink. A
+failure there is logged and counted (`count_error("federation")`) and
+never loses the report. The frame carries `agent_id` (default: the host
+name), `agent_epoch` (`time.time_ns()` when the exporter was made), the
+window as its `window_seq`, the telemetry block (`_telemetry_block`; the
+shed factor is 1.0 until overload control, A4.5) and, for a sampled
+window trace, its `trace_ctx` (counted
+`trace_context_propagated_total{stamped}`). Decay mode keeps cumulative
+tables, which an aggregator would count twice: the sink is dropped (and
+closed) with the reference's warning. `close()` closes the sink.
+
 Not in this slice: overload control and `StagingWedged` (A4.5; the
 status's `overloaded` is always False), the overlapped fold thread, the
-federation delta export (A4.3), archive and checkpoints (A4.4;
+gRPC delta transport (A4.3's transport), archive and checkpoints (A4.4;
 `/query/range` answers 404), the Kafka report sink (A4.6), batch traces
 riding evictions (the map tracer's), tenants (A5; the routes get no tenant
 publishers) and the mesh (A6).
@@ -159,6 +177,7 @@ import collections
 import contextlib
 import logging
 import os
+import socket
 import threading
 import time
 from typing import Optional
@@ -225,8 +244,10 @@ class TorchSketchExporter:
     first use, and `pending` its `PendingEventBuffer`. On a CUDA device
     `capture` folds through CUDA graphs, listed in `captures`; the CPU
     folds eagerly. `query_refresh_s`, `query_history` and `alerts` set up
-    the query plane (module docstring); `agent_id` names the exporter in
-    `/query/status`."""
+    the query plane (module docstring); `agent_id` (default: the host
+    name) names the exporter in `/query/status` and in its delta frames;
+    `delta_sink` takes one delta frame per closed window (module
+    docstring)."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -249,7 +270,7 @@ class TorchSketchExporter:
                  churn_ascent: float = DEFAULT_CHURN_ASCENT,
                  churn_min_bytes: float = DEFAULT_CHURN_MIN_BYTES,
                  query_refresh_s: float = 0.0, query_history: int = 8,
-                 alerts=None, agent_id: str = ""):
+                 alerts=None, agent_id: str = "", delta_sink=None):
         self.device = pick_device(device)
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
@@ -290,7 +311,23 @@ class TorchSketchExporter:
         self.state = sk.init_state(cfg, self.device)
         #: the mid-window refresh's staging state, made at its first use
         self._staging = None
-        self._agent_id = agent_id
+        self._agent_id = agent_id or socket.gethostname()
+        #: this process incarnation's delivery epoch (delta frames)
+        self._agent_epoch = time.time_ns()
+        self._delta_sink = delta_sink
+        # the frames' telemetry block: windows published and a records/s
+        # EWMA over publishes
+        self._windows_published = 0
+        self._host_rate_ewma = 0.0
+        self._last_publish_mono: Optional[float] = None
+        if delta_sink is not None and decay_factor is not None:
+            # decayed tables are cumulative (a sliding window): a frame per
+            # window would count every earlier window's mass again at the
+            # aggregator, whose merge takes per-window deltas
+            log.warning("federation delta export requires "
+                        "SKETCH_WINDOW_MODE=reset (decay frames are "
+                        "cumulative); disabling delta export")
+            self._drop_delta_sink()
         self.query = SnapshotPublisher(history=query_history)
         self._alerts = alerts
         self.query_routes = QueryRoutes(
@@ -580,14 +617,17 @@ class TorchSketchExporter:
 
     def _roll_locked(self, wtrace=tracing.NULL_TRACE) -> _Queued:
         """Close the window under the lock: advance the deadline, copy the
-        pre-roll wide CM planes to the host, roll the state and copy the
-        report to the host, queue both, and shed the oldest report beyond
-        MAX_QUEUED_REPORTS. Rendering, the query snapshot and the sink are
-        `_publish_queued`'s (`tpu_sketch.py:1691-1738`)."""
+        pre-roll tables to the host (all of `state_tables` with a delta
+        sink, else the wide CM planes), roll the state and copy the report
+        to the host, queue both, and shed the oldest report beyond
+        MAX_QUEUED_REPORTS. The delta frame, rendering, the query snapshot
+        and the sink are `_publish_queued`'s (`tpu_sketch.py:1691-1738`)."""
         self._deadline = self._next_deadline()
         with wtrace.stage("roll_dispatch"):
             with self._roll_mutex:
-                tables = sk.host_cm_planes(self.state)
+                tables = (sk.state_tables(self.state)
+                          if self._delta_sink is not None
+                          else sk.host_cm_planes(self.state))
                 _, report = sk.roll_window(self.state, self.cfg,
                                            self.reset_sketches,
                                            self.decay_factor)
@@ -640,10 +680,21 @@ class TorchSketchExporter:
         return obj
 
     def _publish_report(self, entry: _Queued) -> None:
-        """Render, stamp, publish the query snapshot in its own `try`, sink,
-        then the window's metrics (`tpu_sketch.py:1981-2095`, without the
-        delta export and the archive)."""
+        """Push the delta frame in its own `try`, render, stamp, publish the
+        query snapshot in its own `try`, sink, then the window's metrics
+        (`tpu_sketch.py:1981-2095`, without the archive)."""
         wtrace = entry.trace
+        self._windows_published += 1  # telemetry: counts this window
+        if self._delta_sink is not None:
+            # first and contained: a dead aggregator or an encode fault
+            # loses the frame, never the report below
+            try:
+                self._push_delta(entry)
+            except Exception as exc:
+                log.error("delta frame serialize/push failed "
+                          "(frame lost, report still publishes): %s", exc)
+                if self._metrics is not None:
+                    self._metrics.count_error("federation")
         with wtrace.stage("report_render"):
             obj = self._render_report(entry.report)
         obj["TimestampMs"] = time.time_ns() // 1_000_000
@@ -678,6 +729,73 @@ class TorchSketchExporter:
             m.sketch_window_drop_bytes.set(obj["DropBytes"])
             for sig, key in SIGNAL_FIELDS.items():
                 m.sketch_window_suspects.labels(sig).set(len(obj[key]))
+
+    def _push_delta(self, entry: _Queued) -> None:
+        """Encode the window's delta frame and hand it to the sink
+        (`tpu_sketch.py:1990-2035`). The frame is encoded once: a sink's
+        retries resend these bytes, so the aggregator's ledger dedups."""
+        from netobserv_tpu_torch.federation import delta as fdelta
+
+        wtrace, tables = entry.trace, entry.tables
+        with wtrace.stage("report_serialize"):
+            faultinject.fire("sketch.delta_export")
+            ctx = tracing.context_of(wtrace, origin=f"window@{self._agent_id}")
+            if ctx is not None and self._metrics is not None:
+                self._metrics.trace_context_propagated_total.labels(
+                    "stamped").inc()
+            frame = fdelta.encode_frame(
+                tables, agent_id=self._agent_id,
+                window=int(entry.report.window),
+                ts_ms=time.time_ns() // 1_000_000,
+                agent_epoch=self._agent_epoch, trace_ctx=ctx,
+                telemetry=self._telemetry_block(
+                    int(float(tables["scalars"][0]))),
+                dims={"cm_depth": self.cfg.cm_depth,
+                      "cm_width": self.cfg.cm_width,
+                      "hll_precision": self.cfg.hll_precision,
+                      "topk": self.cfg.topk,
+                      "ewma_buckets": self.cfg.ewma_buckets})
+        with wtrace.stage("delta_push"):
+            self._delta_sink(frame)
+
+    def _telemetry_block(self, records: int) -> dict:
+        """The frame's agent telemetry, from values the exporter holds
+        (`tpu_sketch.py:1095-1126`): the records/s EWMA over publishes
+        (alpha 0.3, the first window seeds it); shed factor 1.0 until
+        overload control (A4.5); ALERTING while the alert engine has an
+        active alert."""
+        now = time.monotonic()
+        if self._last_publish_mono is not None:
+            elapsed = max(now - self._last_publish_mono, 1e-6)
+            rate = records / elapsed
+            self._host_rate_ewma = (rate if self._host_rate_ewma == 0.0
+                                    else 0.3 * rate
+                                    + 0.7 * self._host_rate_ewma)
+        self._last_publish_mono = now
+        conditions = []
+        eng = self._alerts
+        if eng is not None:
+            try:
+                if eng.condition().get("active"):
+                    conditions.append("ALERTING")
+            except Exception:  # telemetry never loses the frame
+                pass
+        return {
+            "shed_factor": 1.0,
+            "conditions": conditions,
+            "host_records_per_s": round(self._host_rate_ewma, 3),
+            # the kernel map's occupancy comes from the map tracer, which
+            # the port does not have yet
+            "map_occupancy": 0.0,
+            "windows_published": self._windows_published,
+        }
+
+    def _drop_delta_sink(self) -> None:
+        """Disable the delta export, closing the sink."""
+        sink_close = getattr(self._delta_sink, "close", None)
+        if sink_close is not None:
+            sink_close()
+        self._delta_sink = None
 
     def _publish_query_snapshot(self, obj: dict, tables: dict,
                                 mid_window: bool = False) -> None:
@@ -870,8 +988,8 @@ class TorchSketchExporter:
 
     def close(self) -> None:
         """Stop the window thread (within 10 s when a refresh may be running,
-        else 2 s), publish the last window (`flush`), close the sink if it
-        has `close`, wait for the device, and drop the buffers, the ring's
+        else 2 s), publish the last window (`flush`), close the sink and the
+        delta sink where they have `close`, wait for the device, and drop the buffers, the ring's
         pinned buffers, the staging state and the captured graphs. A second
         call does nothing (`tpu_sketch.py:1472-1527`)."""
         if self._closed.is_set():
@@ -880,9 +998,10 @@ class TorchSketchExporter:
         if self._timer is not None:
             self._timer.join(timeout=10.0 if self._query_refresh_s else 2.0)
         self._roll_now()
-        sink_close = getattr(self.sink, "close", None)
-        if sink_close is not None:
-            sink_close()
+        for sink in (self.sink, self._delta_sink):
+            sink_close = getattr(sink, "close", None)
+            if sink_close is not None:
+                sink_close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if self.ring is not None:

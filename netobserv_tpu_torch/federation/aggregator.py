@@ -1,0 +1,671 @@
+"""The federation aggregator on one device: the fleet's one sketch-merge plane.
+
+Counterpart of `netobserv_tpu/federation/aggregator.py` on a single
+device. Hundreds of per-host agents each send one delta frame per closed
+window (`federation/delta.py`); this tier decodes, validates and merges
+them on the device into one wide `SketchState`, rolls a cluster window on
+a timer and publishes the cluster report and a host-side snapshot that
+the query surface (`federation/query.py`) reads.
+
+**Ingest** (`ingest_frame`, the reference's steps, `:332-554`): the fault
+point `federation.delta_ingest`; decode and `upgrade_tables` (span
+`delta_decode`); shape and geometry validation (`delta_validate`); an
+advisory ledger verdict that discards a duplicate or stale frame before
+any copy (`delta_ledger`); then, under the lock, the authoritative
+verdict, the copy and the merge (`delta_merge_dispatch`), the ledger and
+the agent view. Verdicts: `legacy` (a v1 frame, merged unconditionally),
+`ok`, `duplicate` (same epoch, window_seq and frame_uuid as the last
+applied) and `stale` (behind it). The ack is the port's
+`pbwire.DeltaAck`, byte for byte the reference's.
+
+**The device copy.** The device tables live in one flat buffer made once
+from `delta.expected_shapes`, with a pinned host twin of the same layout.
+A frame's tables (read-only views over its bytes) are copied into the
+host twin under the lock (span `delta_h2d`, the port's own: the
+reference's `device_put` is asynchronous and unspanned), then one
+asynchronous copy moves the whole buffer; the next frame waits on that
+copy's event before it writes the twin. uint32 lanes travel as their
+int32 bits and widen to the port's int64 lanes inside the merge.
+
+**The merge** is `statemerge.merge_tables` in place. On CUDA it runs as
+one CUDA graph (`sketch/capture.CapturedFold("federation_merge")`),
+captured when the aggregator is made, before any frame and before the
+window thread starts; a capture that fails raises. Its compile watch is
+named `federation_merge`, as the reference's jitted merge is. The CPU
+merges eagerly, op by op.
+
+**The window plane** (`:557-750`): a window thread wakes every
+`min(1.0, window_s / 10)` seconds, closes a window whose deadline passed
+(`_close_window_locked`: the pre-roll `state_tables` copied to the host,
+then `roll_window`, span `roll_dispatch`, a report queue of 4 whose oldest
+is shed and counted), evicts agents silent past `agent_ttl_s`, refreshes
+the staleness gauges and the fleet snapshot, and publishes the queue
+(`_publish`: the report rendered with the cluster-tier `EvictedKeys`
+index, stamped `Type`/`Agents`/`TimestampMs`; the snapshot with the host
+CM planes and heavy table; `alerts.safe_evaluate`;
+`federation_active_agents`; then the sink). A merged, sampled agent trace
+(`tracing.continue_trace`) is parked until its window closes, and the
+window trace is a `tracing.group` of the aggregator's own and the parked
+ones. `flush()` closes the window now and publishes synchronously;
+`close()` stops the thread and flushes.
+
+Every CUDA call runs under the aggregator's lock, on the caller's current
+stream of the aggregator's device.
+
+Not in this slice, each refused with an error that names its step: the
+mesh fold (`mesh_shape`, ROADMAP A6), checkpoints and the archive
+(`checkpoint_dir`, `archive`, A4.4). A tiered `sketch_cfg` is refused
+too: the merge reads the wide tables of the aggregate (the reference's
+`merge_tables` reads `state.cm_bytes.counts`, which its tiered state does
+not have, so each frame would be rejected as a `merge_error`). A tiered
+agent sends wide tables and merges as any other.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import logging
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from netobserv_tpu_torch.exporter.report import (
+    heavy_identity_index, report_numpy, report_to_json,
+)
+from netobserv_tpu_torch.federation import delta as fdelta
+from netobserv_tpu_torch.federation import statemerge
+from netobserv_tpu_torch.federation.pbwire import DeltaAck
+from netobserv_tpu_torch.sketch import state as sk
+from netobserv_tpu_torch.sketch.capture import CapturedFold
+from netobserv_tpu_torch.utils import faultinject, retrace, tracing
+from netobserv_tpu_torch.utils.platform import pick_device
+
+log = logging.getLogger("netobserv_tpu_torch.federation.aggregator")
+
+#: closed windows the report queue holds before the oldest is shed
+MAX_QUEUED_REPORTS = 4
+
+
+class FederationAggregator:
+    """Delta ingest, the device merge and the cluster window (module
+    docstring). A bad frame is acked `accepted=0` and counted, a merge
+    failure loses that frame (counted), a roll failure retries next
+    window."""
+
+    def __init__(self, sketch_cfg: Optional[sk.SketchConfig] = None,
+                 window_s: float = 60.0, mesh_shape: str = "",
+                 metrics=None, sink: Optional[Callable[[dict], None]] = None,
+                 stale_after_s: float = 120.0,
+                 report_kwargs: Optional[dict] = None,
+                 checkpoint_dir: str = "", agent_ttl_s: float = 0.0,
+                 alerts=None, archive=None,
+                 device: str | torch.device | None = None):
+        if mesh_shape:
+            raise NotImplementedError(
+                "the mesh aggregator (mesh_shape) is not ported yet "
+                "(ROADMAP A6)")
+        if checkpoint_dir or archive is not None:
+            raise NotImplementedError(
+                "aggregator checkpoints and the archive are not ported yet "
+                "(ROADMAP A4.4)")
+        self._cfg = sketch_cfg or sk.SketchConfig()
+        if self._cfg.tiered is not None:
+            raise ValueError(
+                "a tiered sketch_cfg cannot aggregate: the merge reads the "
+                "aggregate's wide tables (tiered agents send wide tables "
+                "and merge into a wide aggregator)")
+        self.device = pick_device(device)
+        self._window_s = window_s
+        self._metrics = metrics
+        self._sink = sink
+        self._stale_after_s = stale_after_s
+        self._report_kwargs = report_kwargs or {}
+        #: previous merged window's heavy identity index (EvictedKeys diff)
+        self._prev_heavy_index: Optional[dict] = None
+        if metrics is not None:
+            retrace.set_metrics(metrics)
+            tracing.set_metrics(metrics)
+        self._dims = {"cm_depth": self._cfg.cm_depth,
+                      "cm_width": self._cfg.cm_width,
+                      "hll_precision": self._cfg.hll_precision,
+                      "topk": self._cfg.topk,
+                      "ewma_buckets": self._cfg.ewma_buckets}
+        cuda = self.device.type == "cuda"
+        with self._on_device():
+            self._state = sk.init_state(self._cfg, self.device)
+            self._expected_shapes = fdelta.expected_shapes(
+                sk.state_tables(self._state))
+            self._make_buffers(cuda)
+            if cuda:
+                # the captured merge: made now, before any frame and
+                # before the window thread, so no other thread's CUDA
+                # call can meet the capture
+                self._fold = CapturedFold(
+                    "federation_merge", self._merge,
+                    torch.cuda.graph_pool_handle())
+                self._fold.prepare(self._state, self._dev)
+            else:
+                self._fold = retrace.watch(self._merge, "federation_merge")
+        self._roll = retrace.watch(self._roll_tables, "federation_roll")
+
+        self._lock = threading.Lock()          # aggregate state + counters
+        self._publish_lock = threading.Lock()
+        self._reports: collections.deque = collections.deque()
+        self._window_deadline = time.monotonic() + window_s
+        #: agent id -> {"frames", "window", "last_ms", "last_mono",
+        #: "telemetry"?}
+        self._agents: dict[str, dict] = {}
+        #: idempotent-delivery ledger: source -> {"epoch", "window_seq",
+        #: "frame_uuid"} of the last applied v2+ frame
+        self._ledger: dict[str, dict] = {}
+        self._window_agents: set[str] = set()
+        self._frames_total = 0
+        self._agent_ttl_s = agent_ttl_s
+        #: host mirror of the aggregate's window counter (delta churn
+        #: tensors re-base into the cluster window domain before merging)
+        self._window_host = 0
+        self._snapshot: Optional[dict] = None
+        self._snap_lock = threading.Lock()
+        self._snap_seq = 0
+        #: continued agent traces parked for the current window
+        self._window_traces: list = []
+        self._max_window_traces = 32
+        self._fleet: Optional[dict] = None
+        self._fleet_lock = threading.Lock()
+        self._fleet_seq = 0
+        self._closed = threading.Event()
+        self.alerts = alerts
+        #: the archive plane (A4.4); /federation/range reads it
+        self.archive = None
+        self.heartbeat = lambda: None
+        self._timer: Optional[threading.Thread] = None
+        self.start_window_timer()
+
+    # --- device buffers and the merge -----------------------------------
+    def _on_device(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _make_buffers(self, cuda: bool) -> None:
+        """One flat int32 device buffer holding every frame table at its
+        spec dtype's bits, and its pinned host twin (module docstring)."""
+        layout, off = [], 0
+        for name, dt in fdelta.TABLE_SPEC:
+            shape = self._expected_shapes[name]
+            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+            layout.append((name, dt, shape, off, n))
+            off += n
+        self._layout = layout
+        self._host = torch.zeros(off, dtype=torch.int32, pin_memory=cuda)
+        host = self._host.numpy()
+        self._host_views = {
+            name: host[o:o + n].view(dt).reshape(shape)
+            for name, dt, shape, o, n in layout}
+        self._dev = torch.zeros(off, dtype=torch.int32, device=self.device)
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def _device_tables(self, dev: torch.Tensor) -> dict:
+        """The frame tables as views of the flat buffer, uint32 lanes
+        widened to int64."""
+        out = {}
+        for name, dt, shape, o, n in self._layout:
+            v = dev[o:o + n]
+            if dt == "<f4":
+                v = v.view(torch.float32)
+            elif dt == "<u4":
+                v = v.to(torch.int64) & 0xFFFFFFFF
+            out[name] = v.view(shape)
+        return out
+
+    def _merge(self, state: sk.SketchState, dev: torch.Tensor) -> None:
+        statemerge.merge_tables(state, self._device_tables(dev))
+
+    def _copy_in(self, host_tables: dict) -> None:
+        """Copy a frame's host tables into the device buffer (under the
+        lock): wait for the last copy to leave the host twin, fill the
+        twin, and enqueue one asynchronous copy on the current stream."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for name, view in self._host_views.items():
+            np.copyto(view, host_tables[name], casting="unsafe")
+        self._dev.copy_(self._host, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self.device))
+
+    def _roll_tables(self, state: sk.SketchState):
+        """The cluster roll: the pre-roll tables to the host, then the
+        roll in place; returns (host report, host tables)."""
+        tables = sk.state_tables(state)
+        _, report = sk.roll_window(state, self._cfg)
+        return report_numpy(report), tables
+
+    # --- delta ingest ----------------------------------------------------
+    def ingest_frame(self, data: bytes) -> DeltaAck:
+        """Decode, validate, ledger-check and merge one frame; always
+        returns an ack. A redelivered v2+ frame (same agent, epoch,
+        window_seq and frame_uuid) acks accepted and duplicate without
+        merging, and a stale window acks and is discarded."""
+        t0 = time.perf_counter()
+        trace = tracing.start_trace("delta")
+        cont = tracing.NULL_TRACE
+        parked = False
+        try:
+            data = faultinject.fire("federation.delta_ingest", data)
+            try:
+                with trace.stage("delta_decode"):
+                    frame = fdelta.decode_frame(data)
+                    frame = frame._replace(
+                        tables=fdelta.upgrade_tables(frame))
+            except fdelta.DeltaVersionError as exc:
+                return self._reject("version_mismatch", str(exc))
+            except fdelta.DeltaFrameError as exc:
+                return self._reject("decode_error", str(exc))
+            cont = tracing.continue_trace(frame.trace_ctx,
+                                          "federation_delta")
+            if cont.sampled and self._metrics is not None:
+                self._metrics.trace_context_propagated_total.labels(
+                    "continued").inc()
+            tr = tracing.group(trace, cont)
+            try:
+                with tr.stage("delta_validate"):
+                    fdelta.validate_shapes(frame, self._expected_shapes)
+                    if frame.dims != self._dims:
+                        raise fdelta.DeltaFrameError(
+                            f"frame geometry {frame.dims} != aggregator's "
+                            f"{self._dims} (agent {frame.agent_id!r})")
+            except fdelta.DeltaFrameError as exc:
+                return self._reject("shape_mismatch", str(exc))
+            try:
+                with tr.stage("delta_merge_dispatch"):
+                    result = self._merge_frame(frame, tr)
+            except Exception as exc:
+                log.error("delta merge failed (frame from %r dropped): %s",
+                          frame.agent_id, exc)
+                return self._reject("merge_error", str(exc))
+            if cont.sampled and result in ("ok", "legacy"):
+                parked = self._park_window_trace(cont)
+        finally:
+            trace.finish()
+            if cont.sampled and not parked:
+                cont.finish()
+        m = self._metrics
+        if m is not None:
+            m.federation_deltas_total.labels(result).inc()
+            m.federation_delta_bytes_total.inc(len(data))
+            if result in ("ok", "legacy"):
+                m.federation_merge_seconds.observe(time.perf_counter() - t0)
+        return DeltaAck(
+            accepted=1, version=fdelta.DELTA_FORMAT_VERSION,
+            duplicate=1 if result in ("duplicate", "stale") else 0,
+            reason=(fdelta.ACK_REASON_DUPLICATE if result == "duplicate"
+                    else fdelta.ACK_REASON_STALE if result == "stale"
+                    else ""))
+
+    def _reject(self, result: str, reason: str) -> DeltaAck:
+        log.warning("delta frame rejected (%s): %s", result, reason)
+        if self._metrics is not None:
+            self._metrics.federation_deltas_total.labels(result).inc()
+        return DeltaAck(accepted=0, version=fdelta.DELTA_FORMAT_VERSION,
+                        reason=reason)
+
+    def _ledger_verdict_locked(self, frame: fdelta.DeltaFrame) -> str:
+        """`legacy` (v1), `ok` (a new window or a new epoch), `duplicate`
+        (same epoch, window_seq and frame_uuid as the last applied) or
+        `stale` (at or behind it, or a dead epoch's straggler); the
+        caller holds the lock (reference `:420-449`)."""
+        if frame.version < 2:
+            return "legacy"
+        last = self._ledger.get(fdelta.source_key(frame))
+        if last is None or frame.agent_epoch > last["epoch"]:
+            return "ok"
+        if frame.agent_epoch < last["epoch"]:
+            return "stale"
+        if frame.window_seq > last["window_seq"]:
+            return "ok"
+        if (frame.window_seq == last["window_seq"]
+                and frame.frame_uuid == last["frame_uuid"]):
+            return "duplicate"
+        return "stale"
+
+    def _note_discard_locked(self, frame: fdelta.DeltaFrame,
+                             verdict: str) -> None:
+        """A duplicate refreshes its agent's liveness; a stale frame does
+        not, so a poisoned ledger entry can age out through the TTL."""
+        src = fdelta.source_key(frame)
+        last = self._ledger.get(src)
+        if last is not None and frame.agent_epoch < last["epoch"]:
+            log.warning(
+                "agent %r sent epoch %d below its ledger epoch %d (clock "
+                "step-back across a restart?) — frames discarded as stale "
+                "until the FEDERATION_AGENT_TTL eviction re-admits it",
+                src, frame.agent_epoch, last["epoch"])
+        if verdict == "duplicate" and src in self._agents:
+            info = self._agents[src]
+            info["last_ms"] = time.time() * 1e3
+            info["last_mono"] = time.monotonic()
+
+    def _park_window_trace(self, cont) -> bool:
+        """Hold a continued agent trace until its window closes; past 32
+        the oldest parked trace seals early."""
+        with self._lock:
+            self._window_traces.append(cont)
+            shed = (self._window_traces.pop(0)
+                    if len(self._window_traces) > self._max_window_traces
+                    else None)
+        if shed is not None:
+            shed.finish()
+        return True
+
+    def _merge_frame(self, frame: fdelta.DeltaFrame,
+                     tr=tracing.NULL_TRACE) -> str:
+        # advisory pre-check: a redelivered or stale frame pays no copy
+        with tr.stage("delta_ledger"):
+            with self._lock:
+                early = self._ledger_verdict_locked(frame)
+                if early in ("duplicate", "stale"):
+                    self._note_discard_locked(frame, early)
+                    return early
+        host_tables = fdelta.localize_churn(frame.tables, self._window_host)
+        with self._lock, self._on_device():
+            # authoritative verdict, copy, merge and ledger update are one
+            # critical section: two racing copies of a frame serialize here
+            verdict = self._ledger_verdict_locked(frame)
+            if verdict not in ("ok", "legacy"):
+                self._note_discard_locked(frame, verdict)
+                return verdict
+            with tr.stage("delta_h2d"):
+                self._copy_in(host_tables)
+            self._fold(self._state, self._dev)
+            src = fdelta.source_key(frame)
+            if verdict == "ok":
+                self._ledger[src] = {
+                    "epoch": frame.agent_epoch,
+                    "window_seq": frame.window_seq,
+                    "frame_uuid": frame.frame_uuid}
+            self._frames_total += 1
+            self._window_agents.add(src)
+            info = self._agents.setdefault(
+                src, {"frames": 0, "window": 0, "last_ms": 0.0,
+                      "last_mono": 0.0})
+            info["frames"] += 1
+            info["window"] = frame.window
+            info["last_ms"] = time.time() * 1e3
+            info["last_mono"] = time.monotonic()
+            if frame.telemetry is not None:
+                info["telemetry"] = frame.telemetry
+            if time.monotonic() >= self._window_deadline:
+                self._close_window_locked()
+        return verdict
+
+    # --- window roll -----------------------------------------------------
+    def start_window_timer(self) -> None:
+        self._timer = threading.Thread(
+            target=self._window_loop, name="federation-window", daemon=True)
+        self._timer.start()
+
+    @property
+    def _window_poll_s(self) -> float:
+        return min(1.0, self._window_s / 10)
+
+    def register_supervised(self, supervisor, heartbeat_timeout_s=None,
+                            **kwargs) -> None:
+        """Register the window thread with a supervisor (the reference's
+        `Supervisor.register` signature)."""
+        self.heartbeat = supervisor.register(
+            "federation-window", restart=self.start_window_timer,
+            thread_getter=lambda: self._timer,
+            heartbeat_timeout_s=(heartbeat_timeout_s or 10.0)
+            + self._window_poll_s, **kwargs)
+
+    def _window_loop(self) -> None:
+        while not self._closed.wait(timeout=self._window_poll_s):
+            self.heartbeat()
+            faultinject.fire("federation.window_timer")
+            try:
+                faultinject.fire("federation.window_roll")
+                with self._lock:
+                    if time.monotonic() >= self._window_deadline:
+                        with self._on_device():
+                            self._close_window_locked()
+            except Exception as exc:
+                log.error("federation window roll failed (will retry): %s",
+                          exc)
+                if self._metrics is not None:
+                    self._metrics.count_error("federation")
+            self._evict_stale_agents()
+            self._update_staleness()
+            self._update_fleet()
+            self._publish_queued()
+
+    def _close_window_locked(self) -> None:
+        """Roll under the lock (the caller holds it, on the device); the
+        render and publish happen outside it."""
+        conts, self._window_traces = self._window_traces, []
+        wtrace = tracing.group(
+            tracing.start_trace("federation_window"), *conts)
+        self._window_deadline = time.monotonic() + self._window_s
+        try:
+            with wtrace.stage("roll_dispatch"):
+                report, tables = self._roll(self._state)
+        except BaseException:
+            wtrace.finish()
+            raise
+        self._window_host += 1
+        agents = sorted(self._window_agents)
+        self._window_agents = set()
+        self._reports.append((report, tables, agents, wtrace))
+        while len(self._reports) > MAX_QUEUED_REPORTS:
+            try:
+                _r, _t, _a, shed = self._reports.popleft()
+            except IndexError:
+                break
+            shed.finish()
+            log.error("federation report queue full; dropping the oldest "
+                      "unpublished window")
+            if self._metrics is not None:
+                self._metrics.count_error("federation")
+
+    def _publish_queued(self, timeout_s: Optional[float] = None) -> None:
+        if not self._publish_lock.acquire(
+                timeout=-1 if timeout_s is None else timeout_s):
+            log.error("publish lock busy past %.1fs — skipping publish on "
+                      "this path", timeout_s)
+            if self._metrics is not None:
+                self._metrics.count_error("federation")
+            return
+        try:
+            while self._reports:
+                try:
+                    report, tables, agents, wtrace = self._reports.popleft()
+                except IndexError:
+                    return
+                try:
+                    self._publish(report, tables, agents, wtrace)
+                except Exception as exc:
+                    log.error("federation report publish failed "
+                              "(report lost): %s", exc)
+                    if self._metrics is not None:
+                        self._metrics.count_error("federation")
+                finally:
+                    wtrace.finish()
+        finally:
+            self._publish_lock.release()
+
+    def _publish(self, report, tables: dict, agents: list, wtrace) -> None:
+        with wtrace.stage("report_render"):
+            obj = report_to_json(report,
+                                 prev_heavy_index=self._prev_heavy_index,
+                                 **self._report_kwargs)
+            self._prev_heavy_index = heavy_identity_index(report)
+            obj["Type"] = "federation_window_report"
+            obj["Agents"] = agents
+            obj["TimestampMs"] = time.time_ns() // 1_000_000
+            heavy = {k: tables["heavy_" + k]
+                     for k in ("words", "h1", "h2", "counts", "valid",
+                               "prev_counts", "first_seen", "epoch")}
+        with self._snap_lock:
+            self._snap_seq += 1
+            seq = self._snap_seq
+        snap = {
+            "window": obj["Window"],
+            "ts_ms": obj["TimestampMs"],
+            "seq": seq,
+            "report": obj,
+            "agents": {a: dict(v) for a, v in self._agents_view().items()},
+            "cm_bytes": tables["cm_bytes"],
+            "cm_pkts": tables["cm_pkts"],
+            "heavy": heavy,
+            "total_records": obj["Records"],
+            "total_bytes": obj["Bytes"],
+        }
+        with self._snap_lock:
+            self._snapshot = snap
+        if self.alerts is not None:
+            self.alerts.safe_evaluate(snap)
+        m = self._metrics
+        if m is not None:
+            m.federation_active_agents.set(len(agents))
+            m.sketch_window_reports_total.inc()
+        if self._sink is not None:
+            with wtrace.stage("report_sink"):
+                self._sink(obj)
+
+    def _agents_view(self) -> dict:
+        now = time.monotonic()
+        with self._lock:
+            return {a: {"frames": v["frames"], "window": v["window"],
+                        "last_ms": v["last_ms"],
+                        "staleness_s": round(now - v["last_mono"], 3),
+                        "stale": (now - v["last_mono"])
+                        > self._stale_after_s,
+                        "epoch": self._ledger.get(a, {}).get("epoch", 0),
+                        "window_seq": self._ledger.get(a, {})
+                        .get("window_seq", 0),
+                        "telemetry": v.get("telemetry")}
+                    for a, v in self._agents.items()}
+
+    def _update_fleet(self) -> None:
+        """Rebuild and swap the published fleet snapshot (window thread,
+        and `flush`)."""
+        agents = self._agents_view()
+        counts = {"agents": len(agents),
+                  "stale": sum(1 for v in agents.values() if v["stale"]),
+                  "overloaded": 0, "degraded": 0, "alerting": 0}
+        for v in agents.values():
+            conditions = (v.get("telemetry") or {}).get("conditions", ())
+            if "OVERLOADED" in conditions:
+                counts["overloaded"] += 1
+            if "DEGRADED" in conditions:
+                counts["degraded"] += 1
+            if "ALERTING" in conditions:
+                counts["alerting"] += 1
+        with self._fleet_lock:
+            self._fleet_seq += 1
+            self._fleet = {"seq": self._fleet_seq,
+                           "ts_ms": time.time_ns() // 1_000_000,
+                           "window_s": self._window_s,
+                           "stale_after_s": self._stale_after_s,
+                           "counts": counts,
+                           "agents": agents}
+
+    def fleet(self) -> Optional[dict]:
+        """The published fleet snapshot (None before the first rebuild)."""
+        with self._fleet_lock:
+            return self._fleet
+
+    def _update_staleness(self) -> None:
+        m = self._metrics
+        if m is None:
+            return
+        for agent, info in self._agents_view().items():
+            m.federation_agent_staleness_seconds.labels(agent).set(
+                info["staleness_s"])
+
+    def _evict_stale_agents(self) -> None:
+        """Drop agents silent past `agent_ttl_s` (0 = never) from the
+        agent view and the ledger, and delete their staleness series."""
+        ttl = self._agent_ttl_s
+        if not ttl:
+            return
+        now = time.monotonic()
+        with self._lock:
+            dead = [a for a, v in self._agents.items()
+                    if now - v["last_mono"] > ttl]
+            for a in dead:
+                del self._agents[a]
+                self._ledger.pop(a, None)
+                self._window_agents.discard(a)
+        m = self._metrics
+        for a in dead:
+            log.warning("evicting dark agent %r (no delta for > %.0fs)",
+                        a, ttl)
+            if m is not None:
+                m.remove_labeled(m.federation_agent_staleness_seconds, a)
+                m.federation_agent_evictions_total.inc()
+
+    # --- query surface (host-side, never a device op) --------------------
+    def snapshot(self) -> Optional[dict]:
+        """The last closed window's published snapshot (None before the
+        first publish)."""
+        with self._snap_lock:
+            return self._snapshot
+
+    def status(self) -> dict:
+        with self._lock:
+            frames = self._frames_total
+            window_agents = sorted(self._window_agents)
+        snap = self.snapshot()
+        out = {
+            "frames_total": frames,
+            "agents": self._agents_view(),
+            "current_window_agents": window_agents,
+            "last_published_window": None if snap is None
+            else snap["window"],
+            "window_s": self._window_s,
+            "mesh": False,
+            "format_version": fdelta.DELTA_FORMAT_VERSION,
+            "supported_versions": list(fdelta.SUPPORTED_VERSIONS),
+            "agent_ttl_s": self._agent_ttl_s,
+            "checkpointing": False,
+        }
+        if self.alerts is not None:
+            out["alerts"] = self.alerts.summary()
+        return out
+
+    def query_frequency(self, src: str, dst: str, src_port: int = 0,
+                        dst_port: int = 0, proto: int = 0) -> Optional[dict]:
+        """CM point query with error bars against the last closed window's
+        merged tables (the query core, host numpy only)."""
+        snap = self.snapshot()
+        if snap is None:
+            return None
+        from netobserv_tpu_torch.query import core as qcore
+        return qcore.frequency_payload(snap, src, dst, src_port, dst_port,
+                                       proto)
+
+    # --- lifecycle -------------------------------------------------------
+    def flush(self, timeout_s: Optional[float] = None) -> None:
+        """Close the current window now and publish synchronously."""
+        with self._lock, self._on_device():
+            self._close_window_locked()
+        self._update_fleet()
+        self._publish_queued(timeout_s)
+
+    def close(self) -> None:
+        """Stop the window thread and publish the last window."""
+        self._closed.set()
+        if self._timer is not None:
+            self._timer.join(timeout=2.0)
+        self.flush(timeout_s=10.0)
+
+    def kill(self) -> None:
+        """Stop the window thread without the final flush or publish, as a
+        crash would."""
+        self._closed.set()
+        if self._timer is not None:
+            self._timer.join(timeout=2.0)

@@ -9,11 +9,12 @@ retrace families of `utils/retrace.py` (`count_retrace`,
 (`observe_stage`, `trace_context_propagated_total`); and the query and
 alerting planes' (`query_requests_total`, `query_snapshot_age_seconds`,
 `alerts_active`, `alerts_transitions_total`, `alert_sink_errors_total`,
-`alert_eval_seconds`, `:303-340`). Each family has the reference family's
-name, type, help text, labels and buckets. The families of the agent's
-other stages (evictions, interfaces, supervision) and of overload,
-tenants, federation and archive come with the steps that port those
-planes (ROADMAP A4-A5).
+`alert_eval_seconds`, `:303-340`); and the federation plane's
+(`federation_*`, `:401-450`, with `remove_labeled`). Each family has the
+reference family's name, type, help text, labels and buckets. The families
+of the agent's other stages (evictions, interfaces, supervision) and of
+overload, tenants and archive come with the steps that port those planes
+(ROADMAP A4-A5).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -198,6 +199,60 @@ class Metrics:
             "into a frame; continued = the aggregator adopted a frame's "
             "context and recorded child spans under the same trace id)",
             ["result"], registry=self.registry)
+        # federation plane (federation/aggregator.py; the sent counter is
+        # the agent-side delta sink's, which the reference's gRPC sink
+        # counts)
+        self.federation_deltas_total = Counter(
+            p + "federation_deltas_total",
+            "Delta frames received by the aggregator, by outcome (ok / "
+            "duplicate / stale / legacy / version_mismatch / "
+            "shape_mismatch / decode_error / merge_error). duplicate and "
+            "stale are acked-and-discarded by the idempotency ledger; "
+            "legacy is a merged v1 frame with no delivery header",
+            ["result"], registry=self.registry)
+        self.federation_delta_bytes_total = Counter(
+            p + "federation_delta_bytes_total",
+            "Wire bytes of received delta frames (the federation plane's "
+            "ingress volume)", registry=self.registry)
+        self.federation_deltas_sent_total = Counter(
+            p + "federation_deltas_sent_total",
+            "Delta frames pushed by this agent, by outcome (ok / "
+            "duplicate / stale / rejected / terminal / error). duplicate "
+            "= an ambiguous-deadline retry the aggregator's ledger safely "
+            "deduplicated; stale = the aggregator acked-and-DISCARDED the "
+            "window as out-of-order (that window's data is lost); "
+            "terminal = a non-retryable gRPC status "
+            "(INVALID_ARGUMENT class) failed fast; error = the retry "
+            "ladder was exhausted and the window's frame was dropped",
+            ["result"], registry=self.registry)
+        self.federation_merge_seconds = Histogram(
+            p + "federation_merge_seconds",
+            "On-device hierarchical merge latency per accepted delta frame",
+            buckets=(.0005, .001, .005, .01, .05, .1, .5, 1, 5),
+            registry=self.registry)
+        self.federation_agent_staleness_seconds = Gauge(
+            p + "federation_agent_staleness_seconds",
+            "Seconds since each known agent's last accepted delta "
+            "(cardinality = LIVE fleet size: series are deleted when the "
+            "agent is evicted past FEDERATION_AGENT_TTL; an agent past "
+            "~2 windows is dark)",
+            ["agent"], registry=self.registry)
+        self.federation_active_agents = Gauge(
+            p + "federation_active_agents",
+            "Agents that contributed a delta to the last aggregator window",
+            registry=self.registry)
+        self.federation_fleet_requests_total = Counter(
+            p + "federation_fleet_requests_total",
+            "Fleet-table requests (/federation/fleet), by result (ok / "
+            "error). Served from the aggregator's published host-side "
+            "fleet snapshot only — no device op, no merge lock",
+            ["result"], registry=self.registry)
+        self.federation_agent_evictions_total = Counter(
+            p + "federation_agent_evictions_total",
+            "Agents evicted from the aggregator's ownership view after "
+            "FEDERATION_AGENT_TTL seconds without a delta (their "
+            "staleness gauge series is deleted at the same time)",
+            registry=self.registry)
         # query plane (query/ and the /query/* routes of metrics/server.py)
         self.query_requests_total = Counter(
             p + "query_requests_total",
@@ -239,6 +294,15 @@ class Metrics:
 
     def count_error(self, component: str, severity: str = "error") -> None:
         self.errors_total.labels(component, severity).inc()
+
+    def remove_labeled(self, metric, *labelvalues: str) -> None:
+        """Delete one labeled series from a metric family (departed
+        federation agents); removing a series that never existed is a
+        no-op, so callers can evict blindly."""
+        try:
+            metric.remove(*labelvalues)
+        except KeyError:
+            pass
 
     def observe_stage(self, stage: str, seconds: float) -> None:
         self.stage_seconds.labels(stage).observe(seconds)

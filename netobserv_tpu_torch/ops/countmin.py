@@ -1,13 +1,14 @@
 """Count-Min sketch: a point-queryable frequency table in O(d*w) memory.
 
 Counterpart of `netobserv_tpu/ops/countmin.py` (`init`, `update`,
-`update_two`, `query`, `total`). Counters are a dense f32 [depth, width] tensor. With
+`update_two`, `query`, `total`, `merge`). Counters are a dense f32 [depth, width] tensor. With
 w = 2^k and depth d, a point query overestimates by at most e/w * N with
 probability 1 - e^-d (Cormode & Muthukrishnan).
 
 `update_two` and `update` fold in place (JAX donated the planes): on CUDA
 through kernels 1 and 5 (`ops/kernels/countmin_kernel.py`), on the CPU
-through their plain twins.
+through their plain twins. `merge` is the linear merge, and `merge_` its
+in-place form, which the federation aggregator's captured merge uses.
 """
 
 from __future__ import annotations
@@ -76,3 +77,14 @@ def query(cm: CountMin, h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
 def total(cm: CountMin) -> torch.Tensor:
     """Total inserted mass (any single row sums to N)."""
     return cm.counts[0].sum()
+
+
+def merge(a: CountMin, b: CountMin) -> CountMin:
+    """Linear merge: a new sketch of the elementwise sum."""
+    return CountMin(a.counts + b.counts)
+
+
+def merge_(a: CountMin, b: CountMin | torch.Tensor) -> CountMin:
+    """`merge` into `a` in place (b a sketch or its counts); returns a."""
+    a.counts.add_(b.counts if isinstance(b, CountMin) else b)
+    return a

@@ -1,7 +1,7 @@
 """HyperLogLog cardinality sketches, flat and per-destination-bucket.
 
 Counterpart of `netobserv_tpu/ops/hll.py` (`init`, `init_per_dst`, `_rank`,
-`update`, `update_per_dst`, `estimate`). Registers are int32; the index comes
+`update`, `update_per_dst`, `estimate`, `merge_regs`). Registers are int32; the index comes
 from h1's low bits, the rank from the leading zeros of h2.
 
 `update` folds in place through kernel 3 and `update_per_dst` through kernel
@@ -10,7 +10,9 @@ the CPU. The ingest folds the global HLL and both grids of a batch in one
 launch of the same body (`hll_kernel.update_folds`). The JAX package keeps
 the grids on XLA scatter, because its TPU kernel pays D*m lane compares per
 record; kernel 8 pays at most one atomic, as the scatter does. Both are in
-place on the registers (JAX donated them).
+place on the registers (JAX donated them). `merge_regs` merges two
+register files by their elementwise max; `merge_regs_` writes it into the
+first in place.
 """
 
 from __future__ import annotations
@@ -88,3 +90,13 @@ def estimate(regs: torch.Tensor) -> torch.Tensor:
     two32 = 2.0 ** 32
     return torch.where(est > two32 / 30.0,
                        -two32 * torch.log1p(-est / two32), est)
+
+
+def merge_regs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge: the elementwise max of two register files (either form)."""
+    return torch.maximum(a, b)
+
+
+def merge_regs_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`merge_regs` into `a` in place; returns a."""
+    return torch.maximum(a, b, out=a)

@@ -1,9 +1,10 @@
 """Log-bucketed latency histograms with quantile queries.
 
 Counterpart of `netobserv_tpu/ops/quantile.py` (`gamma_for`, `init`,
-`bucket_of`, `update`, `bucket_value`, `quantile`). Buckets are log-gamma
+`bucket_of`, `update`, `bucket_value`, `quantile`, `merge`). Buckets are log-gamma
 spaced, so a quantile estimate has bounded relative error. `update` adds in
-place (JAX donated the counts).
+place (JAX donated the counts). `merge` adds two histograms; `merge_` adds
+into the first in place.
 
 `bucket_of` takes ceil(log(v) / log(gamma)) in f32. torch's and XLA's f32
 `log` may round a value on a bucket edge differently, so a sample can land
@@ -90,3 +91,13 @@ def quantile(h: LogHist, qs: torch.Tensor,
     targets = torch.clamp(torch.ceil(qs * torch.clamp(n, min=1.0)), min=1.0)
     buckets = torch.searchsorted(c, targets - 0.5, side="left")
     return torch.where(n > 0, bucket_value(buckets, gamma), 0.0)
+
+
+def merge(a: LogHist, b: LogHist) -> LogHist:
+    return LogHist(a.counts + b.counts)
+
+
+def merge_(a: LogHist, b: LogHist | torch.Tensor) -> LogHist:
+    """`merge` into `a` in place (b a histogram or its counts)."""
+    a.counts.add_(b.counts if isinstance(b, LogHist) else b)
+    return a

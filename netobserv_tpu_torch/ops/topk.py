@@ -2,7 +2,7 @@
 
 Counterpart of the SlotTable half of `netobserv_tpu/ops/topk.py`
 (`init_slots`, `slot_candidates`, `slot_prepare`, `_slot_reduce_scatter`,
-`slot_compose`, `slot_update`, `slot_roll`). A SpaceSaving-style
+`slot_compose`, `slot_update`, `slot_roll`, `merge_slot_tables`). A SpaceSaving-style
 SLOT_WAYS-way set-associative table: a key keeps its slot, and its
 `first_seen` window, until a heavier key evicts it, across folds and window
 rolls. Counts are Count-Min point estimates.
@@ -12,6 +12,22 @@ per-slot reductions run through kernel 2 (`ops/kernels/topk_kernel.py`) on
 CUDA and its plain twin on the CPU; `slot_prepare` and `slot_compose` are
 shared by both. `slot_update` and `slot_roll` write the table in place (JAX
 donated it).
+
+`merge_slot_tables` is the one roll-time reconciliation of tables stacked
+along their first axis (an aggregate and a delta frame's table, at the
+federation tier). Its shapes depend on the stacked size only, never on the
+data, so it runs inside a captured CUDA graph. Three points hold it to the
+reference bit for bit:
+
+- `jax.lax.sort((h1, h2, idx), num_keys=2)` is a stable lexicographic sort
+  on uint32 keys. Here the lanes are int64, where `h1 << 32 | h2`
+  overflows, so h1 is biased by -2^31 first: the key then fits an int64
+  and orders as the pair does, and a stable sort keeps the index order;
+- `jax.lax.top_k` puts the lower index first among equal values, which
+  `torch.topk` does not promise. CM estimates are integer-valued f32
+  masses, so ties are common: the selection is a stable descending sort;
+- the segment sum, min and max are fixed-shape `index_add_` and
+  `scatter_reduce_` calls, with XLA's identities for empty segments.
 """
 
 from __future__ import annotations
@@ -26,6 +42,9 @@ from netobserv_tpu_torch.ops.kernels import topk_kernel
 SLOT_WAYS = 8
 _SLOT_SEED = 0x705C
 SLOT_ROUNDS = 2
+#: no insertion winner (the reference's NO_WINNER): the empty first_seen
+NO_WINNER = 0x7FFFFFFF
+_I32_MIN = -(1 << 31)
 
 
 class SlotTable(NamedTuple):
@@ -168,3 +187,52 @@ def slot_roll(table: SlotTable, carry: float = 0.0) -> SlotTable:
     table.prev_counts.copy_(table.counts)
     table.counts.mul_(carry)
     return table
+
+
+def merge_slot_tables(stacked: SlotTable, cm_merged: countmin.CountMin,
+                      k: int, query_fn=None) -> SlotTable:
+    """Merge slot tables stacked along axis 0 into one new size-k table.
+    Counts re-score against the merged CM (`query_fn(h1, h2) -> est`
+    replaces the point query); duplicate identities collapse, with
+    `prev_counts` summed, `first_seen` the min (clamped to 0x7FFFFFFE)
+    and `epoch` the max of their valid rows; the top k by estimate with
+    an estimate above 0 survive, lower stacked index first among ties
+    (module docstring)."""
+    if query_fn is None:
+        query_fn = lambda a, b: countmin.query(cm_merged, a, b)  # noqa: E731
+    valid = stacked.valid
+    est = torch.where(valid, query_fn(stacked.h1, stacked.h2), -1.0)
+    n = stacked.h1.shape[0]
+    key = ((stacked.h1 - (1 << 31)) << 32) | stacked.h2
+    s_idx = torch.sort(key, stable=True).indices
+    s_h1 = stacked.h1[s_idx]
+    s_h2 = stacked.h2[s_idx]
+    s_valid = valid[s_idx]
+    first = torch.ones(n, dtype=torch.bool, device=key.device)
+    first[1:] = (s_h1[1:] != s_h1[:-1]) | (s_h2[1:] != s_h2[:-1])
+    seg = torch.cumsum(first, 0) - 1
+    prev_sum = torch.zeros(n, dtype=torch.float32, device=key.device)
+    prev_sum.index_add_(0, seg, torch.where(
+        s_valid, stacked.prev_counts[s_idx], 0.0))
+    fs_min = torch.full((n,), NO_WINNER, dtype=torch.int32,
+                        device=key.device)
+    fs_min.scatter_reduce_(0, seg, torch.where(
+        s_valid, stacked.first_seen[s_idx], NO_WINNER), "amin",
+        include_self=False)
+    ep_max = torch.full((n,), _I32_MIN, dtype=torch.int32, device=key.device)
+    ep_max.scatter_reduce_(0, seg, torch.where(
+        s_valid, stacked.epoch[s_idx], 0), "amax", include_self=False)
+    s_est = torch.where(first & s_valid, est[s_idx], -1.0)
+    ranked = torch.sort(s_est, descending=True, stable=True)
+    top_est, top_pos = ranked.values[:k], ranked.indices[:k]
+    sid = seg[top_pos]
+    sel = top_est > 0
+    return SlotTable(
+        words=torch.where(sel[:, None], stacked.words[s_idx[top_pos]], 0),
+        h1=torch.where(sel, s_h1[top_pos], 0),
+        h2=torch.where(sel, s_h2[top_pos], 0),
+        counts=torch.where(sel, top_est, 0.0),
+        prev_counts=torch.where(sel, prev_sum[sid], 0.0),
+        first_seen=torch.where(sel, fs_min[sid].clamp(max=0x7FFFFFFE), 0),
+        epoch=torch.where(sel, ep_max[sid], 0),
+        valid=sel)

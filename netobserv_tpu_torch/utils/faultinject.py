@@ -16,8 +16,12 @@ containment), ``sketch.staging_wait`` (a staging ring's slot wait),
 ``sketch.window_timer``, ``sketch.window_roll`` and
 ``sketch.window_publish`` (the window thread), ``sketch.query_snapshot``
 (a snapshot publish, inside its own containment), ``alerts.evaluate`` (the
-alert engine's evaluation) and ``alerts.sink`` (each delivery attempt of
-an alert sink).
+alert engine's evaluation), ``alerts.sink`` (each delivery attempt of
+an alert sink), ``sketch.delta_export`` (the exporter's delta frame
+encode, inside its own containment), ``federation.delta_ingest`` (each
+frame the aggregator receives, before its decode) and
+``federation.window_timer`` and ``federation.window_roll`` (the
+aggregator's window thread).
 
 Arming:
 

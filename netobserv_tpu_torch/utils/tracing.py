@@ -1,10 +1,11 @@
 """Flight recorder: sampled end-to-end batch tracing with stage spans.
 
 A copy of `netobserv_tpu/utils/tracing.py` (lines 1-443) without the
-parts that serve planes the port does not have yet: trace groups
-(`group`, the aggregator's), `continue_trace` (the federation wire's
-receiver) and the per-thread active trace (the map tracer's drain).
-`context_of` stays, for the delta frame's sender.
+per-thread active trace (the map tracer's drain, which the port does not
+have yet). `context_of` serves the delta frame's sender; `continue_trace`
+(its receiver) and trace groups (`group`, `TraceGroup`) serve the
+federation aggregator, which continues a sampled agent's trace and parks
+it until the window it fed closes.
 
 A *trace* follows one unit of work through the pipeline — a "fold" trace
 wraps one fold of the exporter (its staging ring's `staging_wait`, `pack`
@@ -47,7 +48,7 @@ from typing import NamedTuple, Optional
 __all__ = [
     "NULL_SPAN", "NULL_TRACE", "Trace", "FlightRecorder", "TraceContext",
     "start_trace", "configure", "set_metrics", "snapshot", "enabled",
-    "context_of",
+    "context_of", "continue_trace", "group", "TraceGroup",
 ]
 
 
@@ -210,6 +211,58 @@ class Trace:
         return out
 
 
+class _GroupSpan:
+    """Context manager fanning one stage span out to several traces."""
+
+    __slots__ = ("_ctxs",)
+
+    def __init__(self, ctxs: list):
+        self._ctxs = ctxs
+
+    def __enter__(self):
+        for c in self._ctxs:
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for c in self._ctxs:
+            c.__exit__(*exc)
+        return False
+
+
+class TraceGroup:
+    """Several sampled traces sharing the same spans — the aggregator's
+    window close, where one roll/publish serves every agent trace continued
+    into that window plus the aggregator's own window trace. stage() fans
+    out to each member; finish() seals them all (Trace.finish is
+    idempotent, so a member finished elsewhere is harmless)."""
+
+    __slots__ = ("traces",)
+    sampled = True
+
+    def __init__(self, traces: list):
+        self.traces = traces
+
+    def stage(self, name: str) -> _GroupSpan:
+        return _GroupSpan([t.stage(name) for t in self.traces])
+
+    def finish(self) -> None:
+        for t in self.traces:
+            t.finish()
+
+
+def group(*traces):
+    """Combine traces for shared spans: drops unsampled members, collapses
+    to the single member or the shared NULL_TRACE when possible (so the
+    common nothing-sampled case allocates nothing)."""
+    live = [t for t in traces if t.sampled]
+    if not live:
+        return NULL_TRACE
+    if len(live) == 1:
+        return live[0]
+    return TraceGroup(live)
+
+
 class FlightRecorder:
     """Fixed-size ring of completed traces."""
 
@@ -320,6 +373,18 @@ def context_of(trace, origin: str = "") -> Optional[TraceContext]:
     if not trace.sampled:
         return None
     return TraceContext(trace.trace_id, origin or trace.kind, True)
+
+
+def continue_trace(ctx, kind: str = "batch"):
+    """Continue a propagated trace in THIS process: a live :class:`Trace`
+    adopting the context's trace id, or the shared NULL_TRACE when tracing
+    is disabled here or the context is absent/unsampled. The origin's
+    sampling verdict is honored as-is — the local period applies only to
+    locally-born traces."""
+    if not _enabled or ctx is None or not ctx.sampled or not ctx.trace_id:
+        return NULL_TRACE
+    return Trace(kind, next(_next_id), trace_id=ctx.trace_id,
+                 origin=ctx.origin)
 
 
 def set_metrics(metrics) -> None:

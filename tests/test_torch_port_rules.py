@@ -1,5 +1,6 @@
 """Rules of the PyTorch port (netobserv_tpu_torch) that hold on any box:
-it imports neither JAX nor the JAX package, its entry points default to
+it imports neither JAX nor the JAX package, nor protobuf or gRPC (the
+card's machine has neither), its entry points default to
 CUDA and never quietly fall back to the CPU, and a kernel wrapper takes its
 plain version only for a CPU tensor, without counting a launch."""
 
@@ -38,7 +39,10 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "utils/faultinject.py", "utils/tracing.py",
                  "metrics/registry.py", "query/core.py", "query/snapshot.py",
                  "query/routes.py", "alerts/rules.py", "alerts/engine.py",
-                 "alerts/sinks.py", "metrics/server.py", "server/debug.py")
+                 "alerts/sinks.py", "metrics/server.py", "server/debug.py",
+                 "utils/tensorcodec.py", "federation/pbwire.py",
+                 "federation/delta.py", "federation/statemerge.py",
+                 "federation/aggregator.py", "federation/query.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -61,6 +65,20 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         for name in _imported_modules(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "netobserv_tpu"), (f, name)
+
+
+def test_port_imports_neither_protobuf_nor_grpc():
+    """The delta wire is the port's own proto3 writer and parser
+    (federation/pbwire.py): no module imports `google.protobuf`, `grpc`
+    or the generated messages, at any level."""
+    files = sorted((ROOT / "netobserv_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        for name in _imported_modules(f):
+            assert name.split(".")[0] not in ("grpc", "grpcio"), (f, name)
+            assert not name.startswith("google"), (f, name)
+            assert "_pb2" not in name, (f, name)
+        assert "import_module(\"google" not in f.read_text(), f
 
 
 def test_only_the_metrics_facade_imports_prometheus_client():
@@ -151,6 +169,36 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         traffic.device_pool(traffic.make_pool(np.random.default_rng(0),
                                               batch=8, n_batches=1)[1])
     assert pick_device("cpu").type == "cpu"
+
+
+def test_the_aggregator_defaults_to_cuda_and_never_falls_back():
+    """`FederationAggregator()` names no device: it takes CUDA, captures
+    its merge there, and raises on a box without CUDA (before any window
+    thread starts); `device="cpu"` merges eagerly."""
+    import threading
+
+    from netobserv_tpu_torch.federation.aggregator import (
+        FederationAggregator,
+    )
+    cfg = ts.SketchConfig(cm_width=1024, topk=64, ewma_buckets=64)
+    if torch.cuda.is_available():
+        agg = FederationAggregator(cfg, window_s=3600.0)
+        try:
+            assert agg.device.type == "cuda"
+            assert agg._fold.captures == 1
+        finally:
+            agg.close()
+        return
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="cuda"):
+        FederationAggregator(cfg, window_s=3600.0)
+    assert threading.active_count() == before
+    agg = FederationAggregator(cfg, window_s=3600.0, device="cpu")
+    try:
+        assert agg._state.window.device.type == "cpu"
+        assert agg._fold.name == "federation_merge"
+    finally:
+        agg.close()
 
 
 def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():

@@ -74,7 +74,11 @@ FAMILIES = (
     "sketch_retraces_total", "executable_dispatch_seconds_total",
     "trace_context_propagated_total", "query_requests_total",
     "query_snapshot_age_seconds", "alerts_active", "alerts_transitions_total",
-    "alert_sink_errors_total", "alert_eval_seconds")
+    "alert_sink_errors_total", "alert_eval_seconds",
+    "federation_deltas_total", "federation_delta_bytes_total",
+    "federation_deltas_sent_total", "federation_merge_seconds",
+    "federation_agent_staleness_seconds", "federation_active_agents",
+    "federation_fleet_requests_total", "federation_agent_evictions_total")
 
 
 @pytest.fixture(autouse=True)
