@@ -122,6 +122,42 @@ launch counts set to 0 just before it and read just after:
   `roll_dispatch` on empty windows with a delta sink (the whole
   `state_tables` copied under the lock) and without, and the agents'
   records/s beside `window_thread`'s;
+- the archive and checkpoint planes (`archive`): an `archive.SketchArchive`
+  at the default geometry (ARC_RAW raw windows a level, groups of
+  ARC_GROUP, ARC_LEVELS levels, a ladder to ARC_LADDER), its merge ladder
+  captured when it is made (one CUDA graph an entry), before the agent's
+  ring; then one lanes-path agent that checkpoints every roll and
+  archives every window, ARC_WINDOWS windows of ARC_ROWS records of the
+  lanes stream closed by `flush()`, fed as evictions by a thread of their
+  own (window w + 1's once window w rolled, so folds run while the
+  publish compacts) while another thread asks `/query/range` over raw,
+  compacted and chained (past the ladder, more than ARC_LADDER segments)
+  spans in turn. ARC_RAW, ARC_GROUP and ARC_LEVELS are set so that in
+  ARC_WINDOWS windows both compactions (at every level) and the top
+  level's retention happen, and more than ARC_LADDER segments are live.
+  It checks: every range answer 200; every segment decodes with its
+  header; raw segments hold the archived windows' tables; three ranges
+  (5 raw segments in one dispatch, 3 padded to 4, every segment chained
+  through two dispatches) bit-exact against a host numpy replay (the f32
+  adds in the engine's order, the HLL maxima) and every table (the heavy
+  table included) against an eager `statemerge.merge_tables` replay of
+  the ladder on the card; the compacted span's CM planes within the
+  add-order bound of the windows' sum, and every key's estimate within
+  the widened bars (true <= est <= true + (e/w) * N, each side widened by
+  2 * n * 2^-24 for the f32 sums of n records); one capture per ladder
+  entry and of each agent graph, no retrace, no error in either thread;
+  the launches of the agent's folds; a restarted agent restores its last
+  checkpoint bit for bit, in place (the same tensor addresses), and a
+  restarted aggregator (checkpoint every roll) its state and ledger (a
+  redelivered frame then acks duplicate). It prints segment encode and
+  decode ms, the archive write and compaction ms, the ladder graphs'
+  CUDA-event ms (x1, x16), range p50/p99 by span kind, the roll's lock
+  hold on empty windows with the archive and checkpoint and without,
+  the checkpoint's host copy (under the lock) and write (off it), the
+  restores, and `export_evicted` ms (median and longest of the run);
+  then a thread folds the stream's evictions while ARC_CONTEND more
+  windows are archived straight through the archive, and it prints
+  `export_evicted` ms while a compaction ran and apart from one;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -3344,6 +3380,567 @@ def _ledger_checks(agg, taps, cache, merged: list, last: bytes,
     return out
 
 
+#: the archive phase: windows closed by `flush()`, records a window (two
+#: batches), and the archive's retention and ladder (module docstring)
+ARC_WINDOWS = 48
+ARC_ROWS = 2 * BATCH
+ARC_RAW, ARC_GROUP, ARC_LEVELS, ARC_LADDER = 6, 2, 2, 16
+#: empty-window roll pairs timed with the archive and checkpoint on and off
+ARC_ROLL_PAIRS = 3
+#: the range thread's pause between requests
+ARC_POLL_PAUSE_S = 0.1
+#: windows archived straight through the archive while a thread folds
+#: (the longest `export_evicted` while a compaction runs)
+ARC_CONTEND = 8
+
+
+def _timed(fn, out: list, when=None):
+    """`fn`, appending each call's (start, end) perf_counter span to `out`
+    (only calls whose result passes `when`, if given)."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        if when is None or when(res):
+            out.append((t0, time.perf_counter()))
+        return res
+    return wrapped
+
+
+def _ms(spans) -> list:
+    return [(b - a) * 1e3 for a, b in spans]
+
+
+def _replay_ladder(engine, table_dicts, cfg) -> dict:
+    """The engine's merge, eagerly on the card: `merge_tables_host`'s
+    chunks of ladder_max (the merged tables re-entering first), each into
+    a zero state with its zero pads, through `statemerge.merge_tables` op
+    by op; returns the last chunk's pre-roll tables."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.federation import statemerge
+    from netobserv_tpu_torch.sketch import state as sk
+    cap = engine.ladder[-1]
+    pending = list(table_dicts)
+    while True:
+        chunk, pending = pending[:cap], pending[cap:]
+        k = engine._ladder_fit(len(chunk))
+        state = sk.init_state(cfg, "cuda")
+        for t in chunk + [engine._zero_template()] * (k - len(chunk)):
+            statemerge.merge_tables(state, {
+                name: torch.from_numpy(np.array(
+                    v, dtype=np.int64 if v.dtype == np.uint32
+                    else v.dtype)).cuda() for name, v in t.items()})
+        tables = sk.state_tables(state)
+        if not pending:
+            return tables
+        pending = [tables] + pending
+
+
+def _numpy_replay(table_dicts) -> dict:
+    """The added tables summed in order in f32 and the HLL banks' maxima,
+    on the host."""
+    import numpy as np
+    acc: dict = {}
+    for t in table_dicts:
+        for k in FED_ADDED:
+            acc[k] = (acc[k] + t[k]) if k in acc else np.float32(0) + t[k]
+        for k in FED_MAXED:
+            acc[k] = np.maximum(acc[k], t[k]) if k in acc else \
+                np.maximum(np.int32(0), t[k])
+    return acc
+
+
+def _chain_replay(engine, table_dicts) -> dict:
+    """`_numpy_replay` chunked as the engine chains: chunks of ladder_max,
+    each chunk's result re-entering the next first."""
+    cap = engine.ladder[-1]
+    pending = list(table_dicts)
+    while True:
+        chunk, pending = pending[:cap], pending[cap:]
+        acc = _numpy_replay(chunk)
+        if not pending:
+            return acc
+        pending = [acc] + pending
+
+
+def phase_archive(specs, universe, pool, events) -> dict:
+    """The archive and checkpoint planes on the card (module docstring's
+    `archive`): the merge ladder captured first, then one lanes-path agent
+    that checkpoints every roll and archives every window, ARC_WINDOWS
+    windows of ARC_ROWS records closed by `flush()` while a folding thread
+    and a range-query thread run beside it; then the checks and a
+    restarted agent and aggregator."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.archive import ArchiveStore, SketchArchive
+    from netobserv_tpu_torch.archive import segment as aseg
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.federation import delta as fdelta
+    from netobserv_tpu_torch.federation.aggregator import (
+        FederationAggregator,
+    )
+    from netobserv_tpu_torch.ops.hashing import base_hashes_multi_np
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import carry
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import retrace, tracing
+    try:
+        from netobserv_tpu_torch.metrics.registry import Metrics
+        metrics = Metrics()
+    except ImportError:  # prometheus_client is optional
+        metrics = None
+    cfg = sk.SketchConfig()
+    ev_all, lanes_all = LaneFeeder(events).stream
+    n = len(events)
+    ranks = np.concatenate([pool[i % n][1] for i in range(FOLDS_PER_WINDOW)])
+    nbytes = ev_all["stats"]["bytes"].astype(np.float64)
+    uni = traffic.event_universe(universe)
+    per_pass = len(ev_all) // ARC_ROWS
+
+    def rows(w: int) -> tuple[int, int]:
+        lo = (w % per_pass) * ARC_ROWS
+        return lo, lo + ARC_ROWS
+
+    t_phase = time.perf_counter()
+    retraces0 = retrace.total_retraces()
+    root = tempfile.mkdtemp(prefix="chip_smoke_archive_")
+    exp = exp2 = agg = agg2 = None
+    errors: list = []
+    stop = threading.Event()
+    threads: list = []
+    try:
+        # the engine first: every ladder entry captured before any ring
+        t0 = time.perf_counter()
+        store = ArchiveStore(os.path.join(root, "archive"),
+                             raw_windows=ARC_RAW, compact_group=ARC_GROUP,
+                             max_levels=ARC_LEVELS, metrics=metrics)
+        arch = SketchArchive(store, cfg, metrics=metrics,
+                             agent_id="agent-0", ladder_max=ARC_LADDER)
+        engine = arch.engine
+        ladder_capture_s = time.perf_counter() - t0
+        ladder = [e.captures for e in engine._entries.values()]
+        check(engine.device.type == "cuda"
+              and ladder == [1] * len(engine.ladder),
+              f"ladder captures {ladder}")
+        written: dict = {}
+        write = arch.write_window
+        write_spans: list = []
+
+        def tap(host_tables, window, ts_ms):
+            written[int(window)] = {k: np.array(v)
+                                    for k, v in host_tables.items()}
+            t0 = time.perf_counter()
+            try:
+                write(host_tables, window, ts_ms)
+            finally:
+                write_spans.append((t0, time.perf_counter()))
+        arch.write_window = tap
+        compactions: list = []
+        engine.compact_once = _timed(engine.compact_once, compactions,
+                                     when=bool)
+
+        sink = WindowSink()
+        exp = TorchSketchExporter(
+            cfg, batch_size=BATCH, device="cuda", sink=sink,
+            agent_id="agent-0", checkpoint_dir=os.path.join(root, "ck"),
+            checkpoint_every=1, archive=arch, **LANES_KW)
+        with exp._lock:
+            exp._ensure_ring()  # its captures before any fold or thread
+        captures0 = [c.captures for c in exp.captures]
+        ck = exp._ckpt
+        stage_spans, ck_write_spans, lock_spans = [], [], []
+        ck.stage = _timed(ck.stage, stage_spans)
+        ck._write = _timed(ck._write, ck_write_spans)
+        exp._roll_locked = _timed(exp._roll_locked, lock_spans)
+        for s in specs:
+            s["kernel"].launches = 0
+
+        # the folding thread: window w's evictions once window w - 1 rolled
+        evict_spans: list = []
+        fed = [threading.Event() for _ in range(ARC_WINDOWS)]
+
+        def feeder():
+            try:
+                for w in range(ARC_WINDOWS):
+                    while exp.rolls < w and not stop.is_set():
+                        time.sleep(0.0005)
+                    lo, hi = rows(w)
+                    for a in range(lo, hi, EVICT_ROWS):
+                        b = min(a + EVICT_ROWS, hi)
+                        t0 = time.perf_counter()
+                        exp.export_evicted(EvictedFlows(
+                            ev_all[a:b],
+                            **{k: v[a:b] for k, v in lanes_all.items()}))
+                        evict_spans.append((t0, time.perf_counter()))
+                    fed[w].set()
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(f"feeder: {type(e).__name__}: {e}")
+                for ev in fed:
+                    ev.set()
+
+        # the range thread: raw, compacted and chained spans in turn
+        ranges: dict = {"raw": [], "compacted": [], "chained": []}
+
+        def spans_now():
+            with engine.lock:
+                segs = store.segments()
+            out = []
+            raw = [s for s in segs if s.level == 0][-4:]
+            if raw:
+                out.append(("raw", raw[0].window_from, raw[-1].window_to,
+                            len(raw)))
+            comp = [i for i, s in enumerate(segs) if s.level > 0]
+            if comp:
+                upto = min(comp[-1] + 2, len(segs) - 1)
+                out.append(("compacted", segs[comp[0]].window_from,
+                            segs[upto].window_to, upto - comp[0] + 1))
+            if len(segs) > ARC_LADDER:
+                out.append(("chained", segs[0].window_from,
+                            segs[-1].window_to, len(segs)))
+            return out
+
+        def poller():
+            try:
+                while not stop.is_set():
+                    for kind, lo, hi, _ in spans_now():
+                        t0 = time.perf_counter()
+                        code, body = exp.query_routes.handle(
+                            "/query/range", {"from": str(lo), "to": str(hi)})
+                        dt = time.perf_counter() - t0
+                        if code != 200:
+                            errors.append(f"range [{lo}, {hi}]: {code} "
+                                          f"{body}")
+                            continue
+                        ranges[kind].append(
+                            (dt, body["range"]["segments_merged"],
+                             body["range"]["merge_dispatches"]))
+                        stop.wait(ARC_POLL_PAUSE_S)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(f"poller: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=f, name=f.__name__, daemon=True)
+                   for f in (feeder, poller)]
+        t_run = time.perf_counter()
+        for t in threads:
+            t.start()
+        flush_ms = []
+        for w in range(ARC_WINDOWS):
+            check(fed[w].wait(timeout=120), f"window {w} was not fed")
+            check(not errors, f"thread errors: {errors}")
+            t0 = time.perf_counter()
+            exp.flush()
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+        run_s = time.perf_counter() - t_run
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        check(not any(t.is_alive() for t in threads), "a thread hung")
+        check(not errors, f"thread errors: {errors}")
+        torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        want = _want_launches(specs, "lanes", exp.folds)
+        check(launches == want, f"launches {launches}, want {want}")
+        check([c.captures for c in exp.captures] == captures0,
+              "the agent captured again")
+        _watch_stats(exp)
+        check(len(sink.reports) == ARC_WINDOWS and all(
+            r["Records"] == ARC_ROWS for r in sink.reports),
+            f"reports {[r['Records'] for r in sink.reports]}")
+        check(sorted(written) == list(range(ARC_WINDOWS)),
+              f"windows written {sorted(written)}")
+
+        # retention: compactions ran, and the top level dropped its oldest
+        segs = store.segments()
+        levels = sorted({s.level for s in segs})
+        check(compactions and levels == list(range(ARC_LEVELS + 1))
+              and segs[0].window_from > 0 and len(segs) > ARC_LADDER,
+              f"levels {levels}, {len(compactions)} compactions, first "
+              f"window {segs[0].window_from}, {len(segs)} segments")
+        # every segment decodes with the right header
+        decode_ms = []
+        decoded = []
+        for s in segs:
+            data = store.read(s)
+            t0 = time.perf_counter()
+            seg = aseg.decode_segment(data)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            check((seg.agent_id, seg.level, seg.window_from, seg.window_to,
+                   seg.n_windows, seg.dims) == (
+                "agent-0", s.level, s.window_from, s.window_to,
+                s.window_to - s.window_from + 1, engine.dims)
+                and seg.ts_ms > 0, f"segment {s.name} header")
+            decoded.append(seg.tables)
+        t0 = time.perf_counter()
+        enc = [aseg.encode_segment(written[ARC_WINDOWS - 1], agent_id="x",
+                                   level=0, window_from=0, window_to=0,
+                                   n_windows=1, ts_ms=0, dims=engine.dims)
+               for _ in range(3)]
+        encode_ms = (time.perf_counter() - t0) * 1e3 / 3
+
+        # raw ranges bit-exact: the last raw segments (one dispatch), three
+        # of them (padded to 4), and every segment (chained)
+        raw = [i for i, s in enumerate(segs) if s.level == 0]
+        cases = {"raw": raw[-5:], "padded": raw[-3:],
+                 "chained": list(range(len(segs)))}
+        exact = {}
+        for name, idx in cases.items():
+            tabs = [decoded[i] for i in idx]
+            with engine.lock:
+                _, merged, n_disp = engine.merge_tables_host(tabs)
+            if name != "chained":
+                # raw segments hold the archived windows' tables exactly
+                for i in idx:
+                    for k, v in written[segs[i].window_from].items():
+                        check(np.array_equal(decoded[i][k],
+                                             np.asarray(v, decoded[i][k]
+                                                        .dtype)),
+                              f"segment {segs[i].name}: {k} differs from "
+                              "the window's tables")
+            acc = _chain_replay(engine, tabs)
+            for k in (*FED_ADDED, *FED_MAXED):
+                check(merged[k].dtype == acc[k].dtype
+                      and np.array_equal(merged[k], acc[k]),
+                      f"{name}: {k} differs from the numpy replay")
+            eager = _replay_ladder(engine, tabs, cfg)
+            diff = [k for k in eager if not np.array_equal(
+                np.asarray(eager[k], merged[k].dtype), merged[k])]
+            check(not diff, f"{name}: the captured ladder differs from the "
+                  f"eager replay in {diff}")
+            exact[name] = {"segments": len(idx), "dispatches": n_disp,
+                           "heavy_valid": int(merged["heavy_valid"].sum())}
+
+        # a compacted range within the widened CM bars
+        comp = [i for i, s in enumerate(segs) if s.level > 0]
+        lo_w, hi_w = segs[comp[0]].window_from, segs[comp[-1]].window_to
+        snap = engine.range_snapshot(lo_w, hi_w)
+        check(snap["range"]["compacted"], "the range has no super-window")
+        cm = snap["cm_bytes"]
+        d, width = cm.shape
+        windows = range(lo_w, hi_w + 1)
+        exact_sum = sum(written[w]["cm_bytes"].astype(np.float64)
+                        for w in windows)
+        tol = (len(windows) - 1) * U * exact_sum
+        check(bool(np.all(np.abs(cm - exact_sum) <= tol)),
+              "compacted CM planes differ from the windows' sum past the "
+              "add-order bound")
+        true = np.zeros(len(uni))
+        n_rows = 0
+        for w in windows:
+            a, b = rows(w)
+            true += np.bincount(ranks[a:b], weights=nbytes[a:b],
+                                minlength=len(uni))
+            n_rows += b - a
+        h = base_hashes_multi_np(uni)
+        with np.errstate(over="ignore"):
+            idx = (h["h1"][:, None] + np.arange(d, dtype=np.uint32)
+                   * h["h2"][:, None]) & np.uint32(width - 1)
+        est = cm[np.arange(d)[None, :], idx].min(axis=1).astype(np.float64)
+        bound = np.e / width * float(np.sum(cm[0], dtype=np.float64))
+        slack = 2 * n_rows * U
+        keys = np.flatnonzero(true)
+        lo_ok = est[keys] >= true[keys] * (1 - slack)
+        hi_ok = est[keys] <= (true[keys] + bound) * (1 + slack)
+        check(bool(lo_ok.all() and hi_ok.all()),
+              f"{int((~lo_ok).sum())} keys under, {int((~hi_ok).sum())} "
+              f"over the widened CM bars")
+        bars = {"windows": [lo_w, hi_w], "keys": int(len(keys)),
+                "bound_bytes": bound,
+                "max_over_true_bytes": float(np.max(est[keys] - true[keys]))}
+
+        # the roll's lock hold with the archive and checkpoint on and off
+        # (empty windows)
+        hold_on, hold_off = [], []
+        for _ in range(ARC_ROLL_PAIRS):
+            for on, out in ((True, hold_on), (False, hold_off)):
+                exp._archive = arch if on else None
+                exp._ckpt_every = 1 if on else 0
+                before = len(lock_spans)
+                exp.flush()
+                out.append(_ms(lock_spans[before:])[-1])
+        exp._archive, exp._ckpt_every = arch, 1
+
+        # folds while compactions run: a thread folds the lanes stream's
+        # evictions into the open window while this thread archives
+        # ARC_CONTEND more windows (copies of archived tables, window ids
+        # from 1000) straight through the archive, landing compactions
+        contend_spans, done = [], threading.Event()
+
+        def folder():
+            try:
+                a = 0
+                while not done.is_set():
+                    b = min(a + EVICT_ROWS, len(ev_all))
+                    t0 = time.perf_counter()
+                    exp.export_evicted(EvictedFlows(
+                        ev_all[a:b],
+                        **{k: v[a:b] for k, v in lanes_all.items()}))
+                    contend_spans.append((t0, time.perf_counter()))
+                    a = b % len(ev_all)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(f"folder: {type(e).__name__}: {e}")
+        threads = [threading.Thread(target=folder, daemon=True)]
+        threads[0].start()
+        n_comp = len(compactions)
+        for i in range(ARC_CONTEND):
+            write(written[i], 1000 + i, 1)
+        done.set()
+        threads[0].join(timeout=60)
+        check(not threads[0].is_alive() and not errors,
+              f"folder: {errors}")
+        check([c.captures for c in exp.captures] == captures0,
+              "the agent captured again")
+        contended = compactions[n_comp:]
+        check(len(contended) >= ARC_CONTEND // ARC_GROUP,
+              f"{len(contended)} compactions while folding")
+        during = [b - a for a, b in contend_spans if any(
+            a < c1 and b > c0 for c0, c1 in contended)]
+        apart = [b - a for a, b in contend_spans if not any(
+            a < c1 and b > c0 for c0, c1 in contended)]
+        check(bool(during), "no fold overlapped a compaction")
+
+        # the ladder's device time: CUDA events over replays of x1 and x16
+        merge_ms = {}
+        for k in (1, ARC_LADDER):
+            with exp._lock:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(REPS // 5):
+                    engine._entries[k].graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+            merge_ms[f"x{k}"] = start.elapsed_time(end) / (REPS // 5)
+        for k, e in engine._entries.items():
+            st = e.stats()
+            check(e.captures == 1 and st["retraces"] == 0,
+                  f"archive_merge_x{k} {st}")
+            WATCHED.append(st)
+
+        # a restarted agent restores the last checkpoint in place
+        exp.close()
+        saved = carry.state_to_numpy(exp.state)
+        t0 = time.perf_counter()
+        exp2 = TorchSketchExporter(
+            cfg, batch_size=BATCH, device="cuda", sink=_discard,
+            agent_id="agent-0", checkpoint_dir=os.path.join(root, "ck"),
+            **LANES_KW)
+        restore_s = time.perf_counter() - t0
+        got = carry.state_to_numpy(exp2.state)
+        check(all(np.array_equal(got[k], saved[k]) for k in saved),
+              "the restarted agent's state differs from its checkpoint")
+        ptrs = [carry.get_leaf(exp2.state, p).data_ptr()
+                for p in carry.field_paths()]
+        t0 = time.perf_counter()
+        exp2._maybe_restore()
+        torch.cuda.synchronize()
+        restore_in_place_ms = (time.perf_counter() - t0) * 1e3
+        check(ptrs == [carry.get_leaf(exp2.state, p).data_ptr()
+                       for p in carry.field_paths()]
+              and int(exp2.state.window) == ARC_WINDOWS + 2 * ARC_ROLL_PAIRS
+              + 1, "the restore moved a tensor or lost the window")
+
+        # a restarted aggregator restores its state and ledger in place
+        agg_dir = os.path.join(root, "agg")
+        agg = FederationAggregator(cfg, window_s=3600.0,
+                                   checkpoint_dir=agg_dir, sink=_discard)
+        frames = [fdelta.encode_frame(
+            written[w], agent_id=f"agent-{w}", window=0, ts_ms=0,
+            dims=engine.dims, agent_epoch=7, frame_uuid=f"u{w}")
+            for w in (0, 1)]
+        for f in frames:
+            check(agg.ingest_frame(f).accepted == 1, "frame refused")
+        agg.flush()
+        agg_saved = sk.state_tables(agg._state)
+        ledger = {k: dict(v) for k, v in agg._ledger.items()}
+        agg.kill()
+        agg = None  # killed: no final flush into agg2's directory
+        t0 = time.perf_counter()
+        agg2 = FederationAggregator(cfg, window_s=3600.0,
+                                    checkpoint_dir=agg_dir, sink=_discard)
+        agg_restore_s = time.perf_counter() - t0
+        agg_got = sk.state_tables(agg2._state)
+        check(all(np.array_equal(agg_got[k], agg_saved[k])
+                  for k in agg_saved) and agg2._ledger == ledger
+              and agg2._window_host == 1 and agg2._fold.captures == 1,
+              "the restarted aggregator differs from its checkpoint")
+        ack = agg2.ingest_frame(frames[0])
+        check(ack.accepted == 1 and ack.duplicate == 1,
+              f"a redelivered frame after the restart: {ack}")
+        check(retrace.total_retraces() == retraces0,
+              f"{retrace.total_retraces() - retraces0} retraces")
+        stages, writes = _ms(stage_spans), _ms(ck_write_spans)
+        compaction_ms = _ms(compactions)
+        busy = sorted(b - a for a, b in evict_spans)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        for x in (exp, exp2):
+            if x is not None:
+                x.close()
+        for x in (agg, agg2):
+            if x is not None:
+                x.close()
+        tracing.configure(sample=0.0)
+        shutil.rmtree(root, ignore_errors=True)
+
+    def pct(kind):
+        dts = [r[0] * 1e3 for r in ranges[kind]]
+        return {"n": len(dts), "p50_ms": _pct(dts, 50),
+                "p99_ms": _pct(dts, 99),
+                "segments": sorted({r[1] for r in ranges[kind]}),
+                "dispatches": sorted({r[2] for r in ranges[kind]})}
+    return {"phase": "archive", "windows": ARC_WINDOWS,
+            "records_per_window": ARC_ROWS,
+            "archive": {"raw_windows": ARC_RAW, "compact_group": ARC_GROUP,
+                        "max_levels": ARC_LEVELS, "ladder_max": ARC_LADDER},
+            "ladder_capture_s": ladder_capture_s,
+            "segments": len(segs), "levels": levels,
+            "first_window_kept": segs[0].window_from,
+            "segment_raw_bytes": sum(v.nbytes for v in written[0].values()),
+            "segment_zlib_bytes": len(enc[0]),
+            "segment_encode_ms": encode_ms,
+            "segment_decode_ms_p50": _pct(decode_ms, 50),
+            "segment_decode_ms_max": max(decode_ms),
+            "archive_write_ms_p50": _pct(_ms(write_spans), 50),
+            "archive_write_ms_max": max(_ms(write_spans)),
+            "compactions": len(compaction_ms),
+            "compaction_ms_p50": _pct(compaction_ms, 50),
+            "compaction_ms_max": max(compaction_ms),
+            "merge_graph_event_ms": merge_ms,
+            "range": {k: pct(k) for k in ranges},
+            "exact": exact, "compacted_bars": bars,
+            "roll_lock_hold_ms_with_archive_and_ckpt": hold_on,
+            "roll_lock_hold_ms_without": hold_off,
+            "roll_lock_hold_ms_live_p50": _pct(_ms(lock_spans), 50),
+            "ckpt_stage_ms_p50": _pct(stages, 50),
+            "ckpt_stage_ms_max": max(stages),
+            "ckpt_write_ms_p50": _pct(writes, 50),
+            "ckpt_write_ms_max": max(writes),
+            "agent_restore_s": restore_s,
+            "agent_restore_in_place_ms": restore_in_place_ms,
+            "aggregator_restore_s": agg_restore_s,
+            "flush_ms_p50": _pct(flush_ms, 50), "flush_ms_max": max(flush_ms),
+            "export_evicted_ms_p50": _pct(busy, 50) * 1e3,
+            "export_evicted_ms_max": busy[-1] * 1e3,
+            "contended": {
+                "compactions": len(contended),
+                "export_evicted": len(during) + len(apart),
+                "during_compaction_ms_max": max(during) * 1e3,
+                "during_compaction_ms_p50": _pct(during, 50) * 1e3,
+                "apart_ms_max": max(apart) * 1e3 if apart else None,
+                "apart_ms_p50": _pct(apart, 50) * 1e3 if apart else None},
+            "run_s": run_s,
+            "seconds": time.perf_counter() - t_phase,
+            "launches": launches}
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -3696,6 +4293,9 @@ def main() -> int:
         fed_res = phase_federation(specs, universe, pool, events,
                                    wt_res["records_per_s"])
         emit(fed_res)
+        phase = "archive"
+        arc_res = phase_archive(specs, universe, pool, events)
+        emit(arc_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -3720,6 +4320,7 @@ def main() -> int:
                 "window_thread": wt_res["launches"],
                 "query_plane": qp_res["launches"],
                 "federation": fed_res["launches"],
+                "archive": arc_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -11,7 +11,10 @@ are copies of `AgentConfig.resolved_pack_threads` and
 takes these. `FederationSettings` holds the federation aggregator's and the
 delta sender's settings (`:545-590`) with the reference's defaults, and
 `parse_duration` is a copy of the reference's (`:18-43`), which reads the
-duration settings.
+duration settings. `ArchiveSettings` holds the archive's settings
+(`:520-544`) with their checks (`:735-750`), which `archive.maybe_archive`
+takes, and `CheckpointSettings` the exporter's and the aggregator's
+checkpoint settings (`:325-326`, `:581-590`).
 """
 
 from __future__ import annotations
@@ -172,3 +175,86 @@ class FederationSettings:
         out.federation_agent_id = env.get("FEDERATION_AGENT_ID",
                                           out.federation_agent_id)
         return out
+
+
+def _env_int(env: Mapping[str, str], name: str, default: int) -> int:
+    """An integer setting; set but empty reads as unset, as the
+    reference's."""
+    raw = env.get(name)
+    return int(raw) if raw else default
+
+
+@dataclass
+class ArchiveSettings:
+    """The archive's settings, under the reference's names and defaults:
+    `archive_dir` (ARCHIVE_DIR, "" = no archive), `archive_raw_windows`
+    (ARCHIVE_RAW_WINDOWS, raw segments a level keeps before its oldest
+    group compacts), `archive_compact_group` (ARCHIVE_COMPACT_GROUP, the
+    coarsening factor), `archive_max_levels` (ARCHIVE_MAX_LEVELS) and
+    `archive_merge_ladder_max` (ARCHIVE_MERGE_LADDER_MAX, the largest
+    merge of one dispatch, a power of two in [1, 64]: every power of two
+    up to it is a CUDA graph). A value the reference refuses raises
+    here."""
+
+    archive_dir: str = ""
+    archive_raw_windows: int = 64
+    archive_compact_group: int = 8
+    archive_max_levels: int = 3
+    archive_merge_ladder_max: int = 16
+
+    def __post_init__(self):
+        if self.archive_compact_group < 2:
+            raise ValueError("ARCHIVE_COMPACT_GROUP must be >= 2 (it is "
+                             "the RRD coarsening factor)")
+        if self.archive_raw_windows < self.archive_compact_group:
+            raise ValueError(
+                f"ARCHIVE_RAW_WINDOWS ({self.archive_raw_windows}) must "
+                f"be >= ARCHIVE_COMPACT_GROUP "
+                f"({self.archive_compact_group})")
+        if self.archive_max_levels < 1:
+            raise ValueError("ARCHIVE_MAX_LEVELS must be >= 1")
+        v = self.archive_merge_ladder_max
+        if v < 1 or v & (v - 1) or v > 64:
+            raise ValueError(
+                f"ARCHIVE_MERGE_LADDER_MAX must be a power of two in "
+                f"[1, 64] (got {v}) — every power of two up to it costs "
+                "a pre-built merge executable")
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "ArchiveSettings":
+        env = os.environ if environ is None else environ
+        d = cls.__dataclass_fields__
+        return cls(archive_dir=env.get("ARCHIVE_DIR", ""), **{
+            name: _env_int(env, name.upper(), d[name].default)
+            for name in ("archive_raw_windows", "archive_compact_group",
+                         "archive_max_levels", "archive_merge_ladder_max")})
+
+
+@dataclass
+class CheckpointSettings:
+    """The checkpoint settings, under the reference's names and defaults:
+    `sketch_checkpoint_dir` (SKETCH_CHECKPOINT_DIR, "" = none) and
+    `sketch_checkpoint_every` (SKETCH_CHECKPOINT_EVERY, every Nth window
+    roll, 0 = never) of the exporter; `federation_checkpoint_dir`
+    (FEDERATION_CHECKPOINT_DIR) and `federation_checkpoint_every`
+    (FEDERATION_CHECKPOINT_EVERY, default every roll) of the
+    aggregator."""
+
+    sketch_checkpoint_dir: str = ""
+    sketch_checkpoint_every: int = 0
+    federation_checkpoint_dir: str = ""
+    federation_checkpoint_every: int = 1
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "CheckpointSettings":
+        env = os.environ if environ is None else environ
+        d = cls.__dataclass_fields__
+        return cls(
+            sketch_checkpoint_dir=env.get("SKETCH_CHECKPOINT_DIR", ""),
+            federation_checkpoint_dir=env.get("FEDERATION_CHECKPOINT_DIR",
+                                              ""),
+            **{name: _env_int(env, name.upper(), d[name].default)
+               for name in ("sketch_checkpoint_every",
+                            "federation_checkpoint_every")})

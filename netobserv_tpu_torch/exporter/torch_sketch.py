@@ -163,12 +163,36 @@ window trace, its `trace_ctx` (counted
 tables, which an aggregator would count twice: the sink is dropped (and
 closed) with the reference's warning. `close()` closes the sink.
 
+**Checkpoints** (`tpu_sketch.py:515-519`, `:807-832`, `:1730-1738`,
+`:1941-1956`). With `checkpoint_dir` the exporter restores the latest
+checkpoint when it is made (`sketch/checkpoint.SketchCheckpointer`), in
+place, before any ring captures: a tiered exporter restores the wide form
+and encodes it into its tiers. A checkpoint that is rejected or does not
+fit logs and leaves a fresh window; it never raises. With
+`checkpoint_every` N > 0 every Nth roll saves the post-roll state (a
+tiered state's wide decode) as the window's step: its host copy is taken
+under the lock at the roll (`SketchCheckpointer.stage`), and the publish
+writes it off the lock after the window's report; a roll before that
+write supersedes it. A failed write is logged and counted
+(`count_error("tpu-sketch")`). `close()` publishes, so it writes the
+last staged checkpoint before it returns.
+
+**The archive** (`tpu_sketch.py:745-772`, `:1846-1849`, `:2063-2082`).
+With `archive` (an `archive.SketchArchive`) every roll copies all of
+`state_tables`, and the publish writes the window's segment after the
+sink, in a `try` of its own: span `archive_write`, fault point
+`sketch.archive_write`, a failure logged and counted
+(`count_error("tpu-sketch-archive")`) and never losing the report.
+`/query/range` answers from it, and `query_status` has its `archive`
+block. The archive's device work holds the exporter lock (`SketchArchive.
+share_device_lock`, ROADMAP C4).
+
 Not in this slice: overload control and `StagingWedged` (A4.5; the
 status's `overloaded` is always False), the overlapped fold thread, the
-gRPC delta transport (A4.3's transport), archive and checkpoints (A4.4;
-`/query/range` answers 404), the Kafka report sink (A4.6), batch traces
-riding evictions (the map tracer's), tenants (A5; the routes get no tenant
-publishers) and the mesh (A6).
+gRPC delta transport (A4.3's transport), the Kafka report sink (A4.6),
+batch traces riding evictions (the map tracer's), tenants (A5; the routes
+get no tenant publishers, and a tenant archive set waits for them) and
+the mesh (A6).
 """
 
 from __future__ import annotations
@@ -246,8 +270,9 @@ class TorchSketchExporter:
     folds eagerly. `query_refresh_s`, `query_history` and `alerts` set up
     the query plane (module docstring); `agent_id` (default: the host
     name) names the exporter in `/query/status` and in its delta frames;
-    `delta_sink` takes one delta frame per closed window (module
-    docstring)."""
+    `delta_sink` takes one delta frame per closed window;
+    `checkpoint_dir`, `checkpoint_every` and `archive` set up checkpoints
+    and the archive (module docstring)."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -270,7 +295,9 @@ class TorchSketchExporter:
                  churn_ascent: float = DEFAULT_CHURN_ASCENT,
                  churn_min_bytes: float = DEFAULT_CHURN_MIN_BYTES,
                  query_refresh_s: float = 0.0, query_history: int = 8,
-                 alerts=None, agent_id: str = "", delta_sink=None):
+                 alerts=None, agent_id: str = "", delta_sink=None,
+                 checkpoint_dir: str = "", checkpoint_every: int = 0,
+                 archive=None):
         self.device = pick_device(device)
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
@@ -309,6 +336,17 @@ class TorchSketchExporter:
         #: mode promotions persist, and only new ones count
         self._tier_prev_promoted: dict = {}
         self.state = sk.init_state(cfg, self.device)
+        self._ckpt = None
+        self._ckpt_every = checkpoint_every
+        self._n_windows_saved = 0
+        #: (step, staged host copy) of the last checkpoint roll, unwritten
+        self._pending_ckpt = None
+        if checkpoint_dir:
+            from netobserv_tpu_torch.sketch.checkpoint import (
+                SketchCheckpointer,
+            )
+            self._ckpt = SketchCheckpointer(checkpoint_dir)
+            self._maybe_restore()
         #: the mid-window refresh's staging state, made at its first use
         self._staging = None
         self._agent_id = agent_id or socket.gethostname()
@@ -330,10 +368,12 @@ class TorchSketchExporter:
             self._drop_delta_sink()
         self.query = SnapshotPublisher(history=query_history)
         self._alerts = alerts
+        #: the archive plane (None: no archive object, one is-None check)
+        self._archive = archive
         self.query_routes = QueryRoutes(
             self.query.get, self.query_status, metrics=metrics,
             history_fn=self.query.get_window, windows_fn=self.query.windows,
-            alerts=alerts)
+            alerts=alerts, archive=archive)
         if metrics is not None:
             metrics.query_snapshot_age_seconds.set_function(self.query.age_s)
         self._query_refresh_s = float(query_refresh_s)
@@ -358,6 +398,8 @@ class TorchSketchExporter:
         # _roll_mutex serializes the roll itself; _publish_lock the
         # publishes of the queued reports
         self._lock = threading.Lock()
+        if archive is not None:
+            archive.share_device_lock(self._lock)
         self._roll_mutex = threading.Lock()
         self._publish_lock = threading.Lock()
         self._closed = threading.Event()
@@ -374,6 +416,30 @@ class TorchSketchExporter:
         self._timer: Optional[threading.Thread] = None
         if window_s is not None:
             self.start_window_timer()
+
+    def _maybe_restore(self) -> None:
+        """Restore the latest checkpoint into the state in place; a tiered
+        state restores the wide form, then encodes it. A rejected or
+        incompatible checkpoint logs and leaves a fresh window
+        (`tpu_sketch.py:807-832`)."""
+        step = self._ckpt.latest_step()
+        if step is None:
+            return
+        try:
+            with self._on_device():
+                if self.cfg.tiered is not None:
+                    wide = self._ckpt.restore(self.cfg._replace(tiered=None),
+                                              device=self.device)
+                    sk.copy_state_(self.state, tiered.encode_state(
+                        wide, self.cfg.tiered))
+                else:
+                    self._ckpt.restore(self.state)
+            log.info("restored sketch state from checkpoint step %s", step)
+        except Exception as exc:
+            log.warning(
+                "sketch checkpoint at step %s is incompatible with this "
+                "version (%s); starting from a fresh window", step, exc)
+            sk.copy_state_(self.state, sk.init_state(self.cfg, self.device))
 
     @property
     def captures(self) -> list[CapturedFold]:
@@ -618,15 +684,17 @@ class TorchSketchExporter:
     def _roll_locked(self, wtrace=tracing.NULL_TRACE) -> _Queued:
         """Close the window under the lock: advance the deadline, copy the
         pre-roll tables to the host (all of `state_tables` with a delta
-        sink, else the wide CM planes), roll the state and copy the report
-        to the host, queue both, and shed the oldest report beyond
-        MAX_QUEUED_REPORTS. The delta frame, rendering, the query snapshot
-        and the sink are `_publish_queued`'s (`tpu_sketch.py:1691-1738`)."""
+        sink or an archive, else the wide CM planes), roll the state and
+        copy the report to the host, queue both, shed the oldest report
+        beyond MAX_QUEUED_REPORTS, and stage every Nth roll's checkpoint.
+        The delta frame, rendering, the query snapshot, the sink and the
+        archive are `_publish_queued`'s (`tpu_sketch.py:1691-1738`)."""
         self._deadline = self._next_deadline()
         with wtrace.stage("roll_dispatch"):
             with self._roll_mutex:
                 tables = (sk.state_tables(self.state)
                           if self._delta_sink is not None
+                          or self._archive is not None
                           else sk.host_cm_planes(self.state))
                 _, report = sk.roll_window(self.state, self.cfg,
                                            self.reset_sketches,
@@ -646,18 +714,35 @@ class TorchSketchExporter:
                       "dropping the oldest unpublished report")
             if self._metrics is not None:
                 self._metrics.sketch_reports_shed_total.inc()
+        # the post-roll state, copied to the host here; the publish writes
+        # it off the lock (`_write_pending_checkpoint`)
+        if self._ckpt is not None and self._ckpt_every:
+            self._n_windows_saved += 1
+            if self._n_windows_saved % self._ckpt_every == 0:
+                superseded = (self._pending_ckpt[1] if self._pending_ckpt
+                              else None)
+                self._pending_ckpt = (int(report.window), self._ckpt.stage(
+                    self._ckpt_state_view(), replace=superseded))
         return entry
+
+    def _ckpt_state_view(self):
+        """What a checkpoint saves: the state, or a tiered state's wide
+        decode (`tpu_sketch.py:1941-1956`)."""
+        if self.cfg.tiered is None:
+            return self.state
+        return tiered.decode_state(self.state)
 
     def _publish_queued(self) -> None:
         """Render and deliver every queued report (the window thread, or
-        `flush`). A render or sink failure loses that report, counted and
-        logged (`tpu_sketch.py:1740-1759`)."""
+        `flush`), then write the staged checkpoint. A render or sink
+        failure loses that report, counted and logged
+        (`tpu_sketch.py:1740-1759`)."""
         with self._publish_lock:
             while self._reports:
                 try:
                     entry = self._reports.popleft()
                 except IndexError:
-                    return  # _roll_locked's shed loop emptied it first
+                    break  # _roll_locked's shed loop emptied it first
                 try:
                     self._publish_report(entry)
                 except Exception as exc:
@@ -667,6 +752,24 @@ class TorchSketchExporter:
                         self._metrics.count_error("tpu-sketch")
                 finally:
                     entry.trace.finish()
+            self._write_pending_checkpoint()
+
+    def _write_pending_checkpoint(self) -> None:
+        """Write the last roll's staged checkpoint off the lock; a failure
+        is logged and counted, and the window rolls on without it."""
+        with self._lock:
+            pending, self._pending_ckpt = self._pending_ckpt, None
+        if pending is None:
+            return
+        step, staged = pending
+        try:
+            self._ckpt.save(step, staged)
+        except Exception as exc:
+            log.error("sketch checkpoint of step %d failed: %s", step, exc)
+            if self._metrics is not None:
+                self._metrics.count_error("tpu-sketch")
+        finally:
+            self._ckpt.release(staged)  # a no-op once written
 
     def _render_report(self, report, roll: bool = True) -> dict:
         """Render a host report with this exporter's thresholds, against
@@ -681,8 +784,9 @@ class TorchSketchExporter:
 
     def _publish_report(self, entry: _Queued) -> None:
         """Push the delta frame in its own `try`, render, stamp, publish the
-        query snapshot in its own `try`, sink, then the window's metrics
-        (`tpu_sketch.py:1981-2095`, without the archive)."""
+        query snapshot in its own `try`, sink, write the archive segment in
+        its own `try`, then the window's metrics
+        (`tpu_sketch.py:1981-2095`)."""
         wtrace = entry.trace
         self._windows_published += 1  # telemetry: counts this window
         if self._delta_sink is not None:
@@ -718,6 +822,22 @@ class TorchSketchExporter:
         with wtrace.stage("report_sink"):
             self.sink(obj)
         self.reports_published += 1
+        # last and contained: the report reached the sink and the snapshot
+        # swapped in, so a failing or wedged archive disk loses only this
+        # window's segment (counted); the tables are the roll's host copies
+        if self._archive is not None:
+            try:
+                with wtrace.stage("archive_write"):
+                    faultinject.fire("sketch.archive_write")
+                    self._archive.write_window(
+                        entry.tables, window=int(obj["Window"]),
+                        ts_ms=int(obj["TimestampMs"]))
+            except Exception as exc:
+                log.error("archive segment write failed (window %s not "
+                          "archived; report already published): %s",
+                          obj["Window"], exc)
+                if m is not None:
+                    m.count_error("tpu-sketch-archive")
         if m is not None:
             if self.cfg.tiered is not None:
                 try:
@@ -811,8 +931,8 @@ class TorchSketchExporter:
 
     def query_status(self) -> dict:
         """`/query/status`'s body: the publisher's counters and freshness,
-        read once (`tpu_sketch.py:1825-1879`, without the archive and
-        tenant blocks)."""
+        read once, and the archive's block (`tpu_sketch.py:1825-1879`,
+        without the tenant block)."""
         snap = self.query.get()
         st = self.query.stats()
         # no overload controller sheds yet (ROADMAP A4.5)
@@ -820,6 +940,8 @@ class TorchSketchExporter:
                    "refresh_s": self._query_refresh_s, "overloaded": False})
         if self._alerts is not None:
             st["alerts"] = self._alerts.summary()
+        if self._archive is not None:
+            st["archive"] = self._archive.stats()
         if snap is not None:
             st.update({"published": True, "seq": snap["seq"],
                        "window": snap["window"],
@@ -988,16 +1110,19 @@ class TorchSketchExporter:
 
     def close(self) -> None:
         """Stop the window thread (within 10 s when a refresh may be running,
-        else 2 s), publish the last window (`flush`), close the sink and the
-        delta sink where they have `close`, wait for the device, and drop the buffers, the ring's
-        pinned buffers, the staging state and the captured graphs. A second
-        call does nothing (`tpu_sketch.py:1472-1527`)."""
+        else 2 s), publish the last window (`flush`) and write its staged
+        checkpoint, close the checkpointer, the sink and the delta sink
+        where they have `close`, wait for the device, and drop the buffers,
+        the ring's pinned buffers, the staging state and the captured
+        graphs. A second call does nothing (`tpu_sketch.py:1472-1527`)."""
         if self._closed.is_set():
             return
         self._closed.set()
         if self._timer is not None:
             self._timer.join(timeout=10.0 if self._query_refresh_s else 2.0)
         self._roll_now()
+        if self._ckpt is not None:
+            self._ckpt.close()
         for sink in (self.sink, self._delta_sink):
             sink_close = getattr(sink, "close", None)
             if sink_close is not None:

@@ -49,13 +49,33 @@ window trace is a `tracing.group` of the aggregator's own and the parked
 ones. `flush()` closes the window now and publishes synchronously;
 `close()` stops the thread and flushes.
 
+**Checkpoints** (`:193-330`, `:615-620`, `:706-718`). With
+`checkpoint_dir` the aggregate state and the delivery ledger are restored
+when the aggregator is made (in place, after the merge's capture, which
+stays bound), with the publish marker's window fast-forward, and a
+restore that fails quarantines the directory (`<dir>.corrupt-<pid>-<ns>`)
+and checkpoints into a fresh one. Every `checkpoint_every`-th roll stages
+its checkpoint under the lock (fault point `federation.checkpoint` at the
+write): the post-roll state copied to host buffers made once
+(`sketch/checkpoint.SketchCheckpointer.stage`) and the ledger. The window
+thread writes the ledger sidecar, then the tensors, off the lock and
+before the window publishes, so a hung disk stalls only that thread; each
+publish writes the publish marker before the sink.
+
+**The archive** (`:733-750`, `:863-864`). With `archive` (an
+`archive.SketchArchive`) each merged window's tables are written at
+publish, last, in a `try` of their own (fault point
+`sketch.archive_write`, `count_error("federation-archive")`);
+`/federation/range` answers from it (`federation/query.py`) and `status`
+has its `archive` block. The archive's device work holds the aggregator's
+lock (`SketchArchive.share_device_lock`).
+
 Every CUDA call runs under the aggregator's lock, on the caller's current
 stream of the aggregator's device.
 
-Not in this slice, each refused with an error that names its step: the
-mesh fold (`mesh_shape`, ROADMAP A6), checkpoints and the archive
-(`checkpoint_dir`, `archive`, A4.4). A tiered `sketch_cfg` is refused
-too: the merge reads the wide tables of the aggregate (the reference's
+Not in this slice, refused with an error that names its step: the mesh
+fold (`mesh_shape`, ROADMAP A6). A tiered `sketch_cfg` is refused too: the
+merge reads the wide tables of the aggregate (the reference's
 `merge_tables` reads `state.cm_bytes.counts`, which its tiered state does
 not have, so each frame would be rejected as a `merge_error`). A tiered
 agent sends wide tables and merges as any other.
@@ -101,17 +121,13 @@ class FederationAggregator:
                  metrics=None, sink: Optional[Callable[[dict], None]] = None,
                  stale_after_s: float = 120.0,
                  report_kwargs: Optional[dict] = None,
-                 checkpoint_dir: str = "", agent_ttl_s: float = 0.0,
-                 alerts=None, archive=None,
+                 checkpoint_dir: str = "", checkpoint_every: int = 1,
+                 agent_ttl_s: float = 0.0, alerts=None, archive=None,
                  device: str | torch.device | None = None):
         if mesh_shape:
             raise NotImplementedError(
                 "the mesh aggregator (mesh_shape) is not ported yet "
                 "(ROADMAP A6)")
-        if checkpoint_dir or archive is not None:
-            raise NotImplementedError(
-                "aggregator checkpoints and the archive are not ported yet "
-                "(ROADMAP A4.4)")
         self._cfg = sketch_cfg or sk.SketchConfig()
         if self._cfg.tiered is not None:
             raise ValueError(
@@ -179,11 +195,152 @@ class FederationAggregator:
         self._fleet_seq = 0
         self._closed = threading.Event()
         self.alerts = alerts
-        #: the archive plane (A4.4); /federation/range reads it
-        self.archive = None
+        #: the archive plane; /federation/range reads it
+        self.archive = archive
+        if archive is not None:
+            archive.share_device_lock(self._lock)
+        # checkpoints: the post-roll state and the ledger, saved at a roll
+        self._ckpt = None
+        self._ckpt_dir = checkpoint_dir
+        self._ckpt_every = max(1, int(checkpoint_every))
+        self._n_rolls = 0
+        self._pending_ckpt: Optional[tuple] = None
+        if checkpoint_dir:
+            from netobserv_tpu_torch.sketch.checkpoint import (
+                SketchCheckpointer,
+            )
+            self._ckpt = SketchCheckpointer(checkpoint_dir)
+            self._maybe_restore()
         self.heartbeat = lambda: None
         self._timer: Optional[threading.Thread] = None
         self.start_window_timer()
+
+    # --- checkpoint/restore -----------------------------------------------
+    def _maybe_restore(self) -> None:
+        """Restore the aggregate state in place and the delivery ledger
+        from the latest checkpoint, then fast-forward past the publish
+        marker's window; a failure starts a fresh window (logged, counted)
+        and quarantines the directory (reference `:193-235`)."""
+        try:
+            with self._on_device():
+                step = self._ckpt.latest_step()
+                if step is not None:
+                    self._ckpt.restore(self._state)
+                    self._apply_restored_meta(
+                        self._ckpt.read_metadata(step) or {})
+                # with checkpoint_every > 1 (or before the first tensor
+                # save) the published windows past the newest checkpoint
+                # keep their ids and their ledger: the skipped windows'
+                # tensors are the documented every-N loss
+                pub = self._ckpt.read_publish_marker()
+                restored_w = int(self._state.window)
+                if pub is not None and pub["window"] >= restored_w:
+                    self._apply_restored_meta(pub["meta"])
+                    self._state.window.add_(pub["window"] + 1 - restored_w)
+                elif step is None:
+                    return
+                self._window_host = int(self._state.window)
+            log.info("restored federation aggregate (checkpoint step %s, "
+                     "next window %d, %d agents in the ledger)", step,
+                     self._window_host, len(self._ledger))
+        except Exception as exc:
+            log.error("aggregator checkpoint restore failed "
+                      "(starting a fresh window): %s", exc)
+            if self._metrics is not None:
+                self._metrics.count_error("federation")
+            with self._on_device():
+                sk.copy_state_(self._state,
+                               sk.init_state(self._cfg, self.device))
+            self._ledger, self._window_host = {}, 0
+            self._agents.clear()
+            self._quarantine_checkpoints()
+
+    def _quarantine_checkpoints(self) -> None:
+        """Move an unrestorable checkpoint directory aside (kept for
+        forensics) and checkpoint into a clean one: the fresh window
+        counter restarts at 0, and the retention (highest steps win) of
+        the old directory would delete every new checkpoint while
+        `latest_step` kept answering the broken one. If even the rename
+        fails, checkpointing is disabled for this run."""
+        import os
+        from netobserv_tpu_torch.sketch.checkpoint import SketchCheckpointer
+        try:
+            self._ckpt.close()
+        except Exception:
+            pass
+        dest = f"{self._ckpt_dir}.corrupt-{os.getpid()}-{time.time_ns()}"
+        try:
+            os.rename(self._ckpt_dir, dest)
+            self._ckpt = SketchCheckpointer(self._ckpt_dir)
+            log.warning("quarantined unrestorable checkpoint dir to %s; "
+                        "checkpointing continues into a fresh %s",
+                        dest, self._ckpt_dir)
+        except Exception as exc:
+            self._ckpt = None
+            log.error("could not quarantine checkpoint dir %s (%s) — "
+                      "checkpointing DISABLED for this run",
+                      self._ckpt_dir, exc)
+
+    def _apply_restored_meta(self, meta: dict) -> None:
+        """Re-seat the delivery ledger and the agent view from checkpointed
+        metadata (the roll's sidecar, or the newer publish marker);
+        staleness restarts from the checkpointed wall-clock gap."""
+        self._ledger = {a: dict(v)
+                        for a, v in (meta.get("ledger") or {}).items()}
+        now_ms, now_mono = time.time() * 1e3, time.monotonic()
+        self._agents.clear()
+        for a, info in (meta.get("agents") or {}).items():
+            gap_s = max(0.0, (now_ms - float(info.get("last_ms", 0.0)))
+                        / 1e3)
+            self._agents[a] = {
+                "frames": int(info.get("frames", 0)),
+                "window": int(info.get("window", 0)),
+                "last_ms": float(info.get("last_ms", 0.0)),
+                "last_mono": now_mono - gap_s}
+
+    def _delivery_meta_locked(self) -> dict:
+        """JSON-able ledger and agent view (the caller holds the lock)."""
+        return {"ledger": {a: dict(v) for a, v in self._ledger.items()},
+                "agents": {a: {"frames": v["frames"], "window": v["window"],
+                               "last_ms": v["last_ms"]}
+                           for a, v in self._agents.items()}}
+
+    def _stage_checkpoint_locked(self, report) -> None:
+        """Stage this roll's checkpoint under the lock: the post-roll state
+        copied to the checkpointer's host buffers (later merges update the
+        state in place) and the ledger. The disk write happens off the
+        lock (`_run_pending_checkpoint`)."""
+        superseded = self._pending_ckpt[2] if self._pending_ckpt else None
+        self._pending_ckpt = (int(report.window),
+                              self._delivery_meta_locked(),
+                              self._ckpt.stage(self._state,
+                                               replace=superseded))
+
+    def _run_pending_checkpoint(self) -> None:
+        """Write the staged ledger sidecar, then the tensors, off the lock
+        and before any queued publish (durable checkpoint, then publish:
+        exactly-once across a restart). A failure is logged and counted: a
+        wedged disk loses durability, never the live plane."""
+        with self._lock:
+            payload, self._pending_ckpt = self._pending_ckpt, None
+        if payload is None or self._ckpt is None:
+            return
+        step, meta, staged = payload
+        m = self._metrics
+        try:
+            faultinject.fire("federation.checkpoint")
+            self._ckpt.save_metadata(step, meta)
+            self._ckpt.save(step, staged)
+            if m is not None:
+                m.federation_checkpoints_total.labels("ok").inc()
+        except Exception as exc:
+            log.error("federation checkpoint failed (window keeps "
+                      "rolling without durability): %s", exc)
+            if m is not None:
+                m.federation_checkpoints_total.labels("error").inc()
+                m.count_error("federation")
+        finally:
+            self._ckpt.release(staged)  # a no-op once written
 
     # --- device buffers and the merge -----------------------------------
     def _on_device(self):
@@ -194,33 +351,16 @@ class FederationAggregator:
     def _make_buffers(self, cuda: bool) -> None:
         """One flat int32 device buffer holding every frame table at its
         spec dtype's bits, and its pinned host twin (module docstring)."""
-        layout, off = [], 0
-        for name, dt in fdelta.TABLE_SPEC:
-            shape = self._expected_shapes[name]
-            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-            layout.append((name, dt, shape, off, n))
-            off += n
-        self._layout = layout
-        self._host = torch.zeros(off, dtype=torch.int32, pin_memory=cuda)
-        host = self._host.numpy()
-        self._host_views = {
-            name: host[o:o + n].view(dt).reshape(shape)
-            for name, dt, shape, o, n in layout}
-        self._dev = torch.zeros(off, dtype=torch.int32, device=self.device)
+        self._buf = statemerge.TableStack(self._expected_shapes, 1,
+                                          self.device)
+        self._host, self._dev = self._buf.host, self._buf.dev
+        self._host_views = self._buf.host_views()
         self._copied = torch.cuda.Event() if cuda else None
 
     def _device_tables(self, dev: torch.Tensor) -> dict:
         """The frame tables as views of the flat buffer, uint32 lanes
         widened to int64."""
-        out = {}
-        for name, dt, shape, o, n in self._layout:
-            v = dev[o:o + n]
-            if dt == "<f4":
-                v = v.view(torch.float32)
-            elif dt == "<u4":
-                v = v.to(torch.int64) & 0xFFFFFFFF
-            out[name] = v.view(shape)
-        return out
+        return self._buf.device_tables(dev)
 
     def _merge(self, state: sk.SketchState, dev: torch.Tensor) -> None:
         statemerge.merge_tables(state, self._device_tables(dev))
@@ -458,6 +598,12 @@ class FederationAggregator:
         self._window_host += 1
         agents = sorted(self._window_agents)
         self._window_agents = set()
+        # the post-roll state and the ledger at this step: a restore
+        # resumes the fresh window, and redelivered frames dedup
+        if self._ckpt is not None:
+            self._n_rolls += 1
+            if self._n_rolls % self._ckpt_every == 0:
+                self._stage_checkpoint_locked(report)
         self._reports.append((report, tables, agents, wtrace))
         while len(self._reports) > MAX_QUEUED_REPORTS:
             try:
@@ -479,6 +625,7 @@ class FederationAggregator:
                 self._metrics.count_error("federation")
             return
         try:
+            self._run_pending_checkpoint()
             while self._reports:
                 try:
                     report, tables, agents, wtrace = self._reports.popleft()
@@ -531,9 +678,38 @@ class FederationAggregator:
         if m is not None:
             m.federation_active_agents.set(len(agents))
             m.sketch_window_reports_total.inc()
+        if self._ckpt is not None:
+            # the publish-commit marker, before the sink: a restore from an
+            # older tensor checkpoint fast-forwards past this window id and
+            # keeps the ledger it committed
+            try:
+                with self._lock:
+                    meta = self._delivery_meta_locked()
+                self._ckpt.save_publish_marker(obj["Window"], meta)
+            except Exception as exc:
+                log.error("publish marker write failed (a restart may "
+                          "re-publish window %s): %s", obj["Window"], exc)
+                if m is not None:
+                    m.count_error("federation")
         if self._sink is not None:
             with wtrace.stage("report_sink"):
                 self._sink(obj)
+        # the cluster archive last, in its own try: the snapshot and the
+        # sink committed, so a wedged archive disk loses only this merged
+        # window's segment (counted) and stalls only the window thread
+        if self.archive is not None:
+            try:
+                faultinject.fire("sketch.archive_write")
+                self.archive.write_window(
+                    {name: tables[name] for name, _ in fdelta.TABLE_SPEC},
+                    window=int(obj["Window"]),
+                    ts_ms=int(obj["TimestampMs"]))
+            except Exception as exc:
+                log.error("cluster archive write failed (window %s not "
+                          "archived; report already published): %s",
+                          obj["Window"], exc)
+                if m is not None:
+                    m.count_error("federation-archive")
 
     def _agents_view(self) -> dict:
         now = time.monotonic()
@@ -631,10 +807,12 @@ class FederationAggregator:
             "format_version": fdelta.DELTA_FORMAT_VERSION,
             "supported_versions": list(fdelta.SUPPORTED_VERSIONS),
             "agent_ttl_s": self._agent_ttl_s,
-            "checkpointing": False,
+            "checkpointing": self._ckpt is not None,
         }
         if self.alerts is not None:
             out["alerts"] = self.alerts.summary()
+        if self.archive is not None:
+            out["archive"] = self.archive.stats()
         return out
 
     def query_frequency(self, src: str, dst: str, src_port: int = 0,
@@ -657,15 +835,22 @@ class FederationAggregator:
         self._publish_queued(timeout_s)
 
     def close(self) -> None:
-        """Stop the window thread and publish the last window."""
+        """Stop the window thread, publish the last window (waiting at most
+        10 s for the publish lock, which a hung checkpoint disk holds) and
+        close the checkpointer."""
         self._closed.set()
         if self._timer is not None:
             self._timer.join(timeout=2.0)
         self.flush(timeout_s=10.0)
+        if self._ckpt is not None:
+            try:
+                self._ckpt.close()
+            except Exception as exc:
+                log.error("checkpointer close failed: %s", exc)
 
     def kill(self) -> None:
-        """Stop the window thread without the final flush or publish, as a
-        crash would."""
+        """Stop the window thread without the final flush, publish or
+        checkpoint, as a crash would."""
         self._closed.set()
         if self._timer is not None:
             self._timer.join(timeout=2.0)

@@ -29,8 +29,12 @@ Routes (all GET, JSON):
                             debug server's; an agent's trace id answers
                             here too)
 - /debug/executables        the compile watch (`utils/retrace`)
-- /federation/range         404 until the archive plane is ported
-                            (ROADMAP A4.4): the aggregator has none
+- /federation/range         cluster-wide time-range answers from the
+                            aggregator's archive (?from=&to=;
+                            /federation/range/topk|frequency|cardinality|
+                            victims), 404 without one; the one route that
+                            merges on the device (`archive/query.py`,
+                            under the aggregator's lock)
 """
 
 from __future__ import annotations
@@ -87,8 +91,9 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             if path == "/federation/range" or \
                     path.startswith("/federation/range/"):
-                # the archive plane's body function once it is ported
-                # (ROADMAP A4.4); the aggregator has none until then
+                # thin adapter over the archive plane's one body builder
+                # (archive/query.py route_payload), fed by the
+                # aggregator's merged windows
                 arch = self.aggregator.archive
                 if arch is None:
                     self._json(404, {"error": "archive disabled "

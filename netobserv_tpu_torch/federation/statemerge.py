@@ -10,12 +10,20 @@ cluster-wide report unchanged. The reference returns a new state (JAX
 donated the old one); here every table is written in place, and the
 function's shapes depend on the geometry only, so the aggregator captures
 it as one CUDA graph (`federation/aggregator.py`).
+
+`TableStack` holds table snapshots on the device for such a merge: the
+aggregator's frame buffer (one snapshot) and the archive's merge ladder
+(`archive/query.py`, `ladder_max` snapshots) share its layout.
 """
 
 from __future__ import annotations
 
+from typing import Mapping
+
+import numpy as np
 import torch
 
+from netobserv_tpu_torch.federation.delta import TABLE_SPEC
 from netobserv_tpu_torch.ops import countmin, hll, quantile, topk
 from netobserv_tpu_torch.sketch import state as sk
 
@@ -74,3 +82,66 @@ def merge_tables(state: sk.SketchState, t: dict, query_fn=None,
     for i, name in enumerate(_SCALARS):
         getattr(state, name).add_(scalars[i])
     return state
+
+
+class TableStack:
+    """`n` table snapshots of `shapes` (TABLE_SPEC names) in one flat
+    int32 device buffer, every table at its spec dtype's bits, snapshot i
+    at words [i * words, (i + 1) * words), and a host twin of the same
+    layout, pinned on CUDA. uint32 lanes cross as their int32 bits and
+    widen to the port's int64 lanes on the device, once, here
+    (`device_tables`, `write_`)."""
+
+    def __init__(self, shapes: Mapping[str, tuple], n: int,
+                 device: torch.device):
+        layout, off = [], 0
+        for name, dt in TABLE_SPEC:
+            shape = tuple(shapes[name])
+            size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+            layout.append((name, dt, shape, off, size))
+            off += size
+        self.layout = layout
+        self.words = off
+        self.n = n
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(n * off, dtype=torch.int32, pin_memory=cuda)
+        self.dev = torch.zeros(n * off, dtype=torch.int32, device=device)
+
+    def host_views(self, i: int = 0) -> dict[str, np.ndarray]:
+        """Snapshot i of the host twin as spec-dtype numpy views."""
+        host = self.host.numpy()[i * self.words:(i + 1) * self.words]
+        return {name: host[o:o + size].view(dt).reshape(shape)
+                for name, dt, shape, o, size in self.layout}
+
+    def device_tables(self, buf: torch.Tensor, i: int = 0) -> dict:
+        """Snapshot i of `buf` (this layout's device buffer or a prefix of
+        it) as the tables `merge_tables` takes: views, uint32 lanes widened
+        to int64."""
+        base = i * self.words
+        out = {}
+        for name, dt, shape, o, size in self.layout:
+            v = buf[base + o:base + o + size]
+            if dt == "<f4":
+                v = v.view(torch.float32)
+            elif dt == "<u4":
+                v = v.to(torch.int64) & 0xFFFFFFFF
+            out[name] = v.view(shape)
+        return out
+
+    def write_(self, buf: torch.Tensor, tables: Mapping[str, torch.Tensor],
+               i: int = 0) -> None:
+        """Write device tables in the port's dtypes (`sketch.state.
+        table_tensors`) into snapshot i of `buf` at their spec dtype's
+        bits, in place."""
+        base = i * self.words
+        for name, dt, shape, o, size in self.layout:
+            v = buf[base + o:base + o + size].view(shape)
+            t = tables[name]
+            if dt == "<f4":
+                v.view(torch.float32).copy_(t)
+            elif dt == "<u4":
+                # the low 32 bits as int32: values at or past 2^31 wrap
+                t = t.to(torch.int64)
+                v.copy_(torch.where(t >= 1 << 31, t - (1 << 32), t))
+            else:
+                v.copy_(t)

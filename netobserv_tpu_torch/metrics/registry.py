@@ -9,12 +9,14 @@ retrace families of `utils/retrace.py` (`count_retrace`,
 (`observe_stage`, `trace_context_propagated_total`); and the query and
 alerting planes' (`query_requests_total`, `query_snapshot_age_seconds`,
 `alerts_active`, `alerts_transitions_total`, `alert_sink_errors_total`,
-`alert_eval_seconds`, `:303-340`); and the federation plane's
-(`federation_*`, `:401-450`, with `remove_labeled`). Each family has the
+`alert_eval_seconds`, `:303-340`); the federation plane's
+(`federation_*`, `:401-450`, with `remove_labeled`); and the archive's
+and the aggregator's checkpoints' (`archive_*`,
+`federation_checkpoints_total`, `:452-480`). Each family has the
 reference family's name, type, help text, labels and buckets. The families
 of the agent's other stages (evictions, interfaces, supervision) and of
-overload, tenants and archive come with the steps that port those planes
-(ROADMAP A4-A5).
+overload and tenants come with the steps that port those planes (ROADMAP
+A4-A5).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -253,6 +255,33 @@ class Metrics:
             "FEDERATION_AGENT_TTL seconds without a delta (their "
             "staleness gauge series is deleted at the same time)",
             registry=self.registry)
+        # sketch warehouse (archive/): on-disk window archive and
+        # device-merged range queries
+        self.archive_segments_total = Counter(
+            p + "archive_segments_total",
+            "Archive segments written (raw closed-window segments AND "
+            "compacted super-windows)", registry=self.registry)
+        self.archive_bytes_total = Counter(
+            p + "archive_bytes_total",
+            "Bytes written into the archive directory (the warehouse's "
+            "write amplification numerator; compaction rewrites count)",
+            registry=self.registry)
+        self.archive_compactions_total = Counter(
+            p + "archive_compactions_total",
+            "Retention compactions: ARCHIVE_COMPACT_GROUP segments merged "
+            "into one coarser super-window one level up",
+            registry=self.registry)
+        self.archive_range_requests_total = Counter(
+            p + "archive_range_requests_total",
+            "Range-query requests against the archive (/query/range and "
+            "/federation/range), by result (ok / bad_request / "
+            "not_found / error)", ["result"], registry=self.registry)
+        self.federation_checkpoints_total = Counter(
+            p + "federation_checkpoints_total",
+            "Aggregator state+ledger checkpoints at window roll, by "
+            "outcome (ok / error — error means the window rolled without "
+            "durability; a restart then loses back to the previous "
+            "checkpoint)", ["result"], registry=self.registry)
         # query plane (query/ and the /query/* routes of metrics/server.py)
         self.query_requests_total = Counter(
             p + "query_requests_total",

@@ -49,11 +49,20 @@ def _log_gamma(gamma: float, device: torch.device) -> torch.Tensor:
     kept: a fold then copies nothing from host memory, which a CUDA graph
     could not capture. The value is the f32 rounding of math.log(gamma),
     as before."""
+    return _constant(_LOG_GAMMA, math.log(gamma), gamma, device)
+
+
+#: f32 gamma per (device, gamma), made once (`bucket_value`)
+_GAMMA: dict[tuple[torch.device, float], torch.Tensor] = {}
+
+
+def _constant(cache: dict, value: float, gamma: float,
+              device: torch.device) -> torch.Tensor:
     key = (device, gamma)
-    t = _LOG_GAMMA.get(key)
+    t = cache.get(key)
     if t is None:
-        t = torch.tensor(math.log(gamma), dtype=torch.float32).to(device)
-        _LOG_GAMMA[key] = t
+        t = torch.tensor(value, dtype=torch.float32).to(device)
+        cache[key] = t
     return t
 
 
@@ -78,8 +87,10 @@ def bucket_value(bucket: torch.Tensor,
                  gamma: float = DEFAULT_GAMMA) -> torch.Tensor:
     """Representative value of a bucket (midpoint estimator 2g^b/(g+1))."""
     b = bucket.to(torch.float32) - 1.0
-    val = 2.0 * torch.pow(torch.tensor(gamma, dtype=torch.float32,
-                                       device=b.device), b) / (gamma + 1.0)
+    # the f32 gamma made once per device, as `_log_gamma`: a roll inside a
+    # CUDA graph copies nothing from host memory
+    val = 2.0 * torch.pow(_constant(_GAMMA, gamma, gamma, b.device),
+                          b) / (gamma + 1.0)
     return torch.where(bucket == 0, 0.0, val)
 
 

@@ -4,16 +4,17 @@ A copy of `netobserv_tpu/query/routes.py` (`QueryRoutes`, `ROUTES`,
 `:1-196`). The metrics server (`metrics/server.py`) hands a parsed
 ``(path, params)`` in and writes the returned ``(status, body)`` out;
 tests drive the routes without a socket. Every request is counted in
-``query_requests_total{route, result}``, and every answer reads only a
-published snapshot (`query/snapshot.py`): no device work, no exporter
-lock.
+``query_requests_total{route, result}``, and every answer but
+``/query/range`` reads only a published snapshot (`query/snapshot.py`):
+no device work, no exporter lock. ``/query/range`` merges archived
+segments on the device, under the exporter lock (`archive/query.py`).
 
 Routes (GET, JSON): ``/query/topk`` (``?n=`` caps the list),
 ``/query/frequency`` (``?src=&dst=&src_port=&dst_port=&proto=``),
 ``/query/churn``, ``/query/cardinality``, ``/query/victims``,
 ``/query/alerts`` (404 with no alert engine), ``/query/status`` and
-``/query/range`` (404 with no archive: the port's archive plane is
-ROADMAP A4.4, so the exporter passes none).
+``/query/range`` (the archive's range answers, `archive/query.py`; 404
+with no archive).
 
 Status codes: 200; 400 for a malformed parameter (``?n=bogus``, a bad
 address) or a missing ``src``/``dst`` or tenant; 404 for an unknown

@@ -68,7 +68,8 @@ def tiered_field_paths() -> list[str]:
     return [*TIER_DTYPES, *(f"rest.{p}" for p in field_paths())]
 
 
-def _get(obj, path: str):
+def get_leaf(obj, path: str):
+    """The tensor of a state at a dotted field path."""
     for part in path.split("."):
         obj = getattr(obj, part)
     return obj
@@ -81,7 +82,7 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
     tier = isinstance(state, tiered.TieredState)
     out = {}
     for path in (tiered_field_paths() if tier else field_paths()):
-        arr = _get(state, path).detach().to("cpu", copy=True).numpy()
+        arr = get_leaf(state, path).detach().to("cpu", copy=True).numpy()
         out[path] = arr.astype(np.uint32) if arr.dtype == np.int64 else arr
     return out
 

@@ -801,6 +801,21 @@ def decay_state(state: SketchState, factor: float) -> SketchState:
     return state
 
 
+#: QS as an f32 tensor per device, made once (`_qs`)
+_QS: dict[torch.device, torch.Tensor] = {}
+
+
+def _qs(device: torch.device) -> torch.Tensor:
+    """QS on `device`, made on first use and kept: a roll then copies
+    nothing from host memory, which a CUDA graph could not capture
+    (`archive/query.py` captures the roll)."""
+    t = _QS.get(device)
+    if t is None:
+        t = torch.tensor(QS, dtype=torch.float32).to(device)
+        _QS[device] = t
+    return t
+
+
 def _clone_slots(t: topk.SlotTable) -> topk.SlotTable:
     return topk.SlotTable(*(x.clone() for x in t))
 
@@ -828,7 +843,7 @@ def roll_window(state: SketchState, cfg: SketchConfig,
                                tiered.encode_state(wide, state.spec).tables)
         return state, report
     gamma = quantile.gamma_for(state.hist_rtt.n_buckets)
-    qs = torch.tensor(QS, dtype=torch.float32, device=state.window.device)
+    qs = _qs(state.window.device)
     pre = {n: getattr(state, n).clone() for n in
            ("synack", "drop_causes", "dscp_bytes", "conv_fwd", "conv_rev",
             *_SCALARS, "window")}
@@ -878,6 +893,42 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+def table_tensors(state: SketchState) -> dict[str, torch.Tensor]:
+    """The mergeable tables of a (pre-roll) wide state on its device, in
+    `federation.delta.TABLE_SPEC` order: the state's own tensors (uint32
+    lanes in int64, `heavy_valid` bool, no copy) and the window totals
+    stacked in SCALAR_FIELDS order. No host copy, so a CUDA graph can take
+    it (`archive/query.py`)."""
+    h = state.heavy
+    return {
+        "cm_bytes": state.cm_bytes.counts,
+        "cm_pkts": state.cm_pkts.counts,
+        "heavy_words": h.words,
+        "heavy_h1": h.h1,
+        "heavy_h2": h.h2,
+        "heavy_counts": h.counts,
+        "heavy_valid": h.valid,
+        "heavy_prev_counts": h.prev_counts,
+        "heavy_first_seen": h.first_seen,
+        "heavy_epoch": h.epoch,
+        "hll_src": state.hll_src.regs,
+        "hll_per_dst": state.hll_per_dst.regs,
+        "hll_per_src": state.hll_per_src.regs,
+        "hist_rtt": state.hist_rtt.counts,
+        "hist_dns": state.hist_dns.counts,
+        "ddos_rate": state.ddos.rate,
+        "syn_rate": state.syn.rate,
+        "synack": state.synack,
+        "drops_rate": state.drops_ewma.rate,
+        "drop_causes": state.drop_causes,
+        "dscp_bytes": state.dscp_bytes,
+        "conv_fwd": state.conv_fwd,
+        "conv_rev": state.conv_rev,
+        # federation.delta.SCALAR_FIELDS order
+        "scalars": torch.stack([getattr(state, n) for n in _SCALARS]),
+    }
+
+
 def state_tables(state: SketchState) -> dict[str, np.ndarray]:
     """The mergeable table snapshot of a (pre-roll) state as host numpy
     arrays with the JAX package's dtypes (uint32 lanes back to np.uint32):
@@ -885,34 +936,10 @@ def state_tables(state: SketchState) -> dict[str, np.ndarray]:
     design. A tiered state gives its decoded wide tables."""
     if isinstance(state, tiered.TieredState):
         return state_tables(tiered.decode_state(state))
-    h = state.heavy
-    return {
-        "cm_bytes": _np(state.cm_bytes.counts),
-        "cm_pkts": _np(state.cm_pkts.counts),
-        "heavy_words": _np(h.words).astype(np.uint32),
-        "heavy_h1": _np(h.h1).astype(np.uint32),
-        "heavy_h2": _np(h.h2).astype(np.uint32),
-        "heavy_counts": _np(h.counts),
-        "heavy_valid": _np(h.valid),
-        "heavy_prev_counts": _np(h.prev_counts),
-        "heavy_first_seen": _np(h.first_seen),
-        "heavy_epoch": _np(h.epoch),
-        "hll_src": _np(state.hll_src.regs),
-        "hll_per_dst": _np(state.hll_per_dst.regs),
-        "hll_per_src": _np(state.hll_per_src.regs),
-        "hist_rtt": _np(state.hist_rtt.counts),
-        "hist_dns": _np(state.hist_dns.counts),
-        "ddos_rate": _np(state.ddos.rate),
-        "syn_rate": _np(state.syn.rate),
-        "synack": _np(state.synack),
-        "drops_rate": _np(state.drops_ewma.rate),
-        "drop_causes": _np(state.drop_causes),
-        "dscp_bytes": _np(state.dscp_bytes),
-        "conv_fwd": _np(state.conv_fwd),
-        "conv_rev": _np(state.conv_rev),
-        # federation.delta.SCALAR_FIELDS order
-        "scalars": _np(torch.stack([getattr(state, n) for n in _SCALARS])),
-    }
+    out = {k: _np(v) for k, v in table_tensors(state).items()}
+    for k in ("heavy_words", "heavy_h1", "heavy_h2"):
+        out[k] = out[k].astype(np.uint32)
+    return out
 
 
 def copy_state_(dst, src) -> None:

@@ -21,7 +21,10 @@ an alert sink), ``sketch.delta_export`` (the exporter's delta frame
 encode, inside its own containment), ``federation.delta_ingest`` (each
 frame the aggregator receives, before its decode) and
 ``federation.window_timer`` and ``federation.window_roll`` (the
-aggregator's window thread).
+aggregator's window thread), ``federation.checkpoint`` (the aggregator's
+checkpoint write, inside its own containment) and
+``sketch.archive_write`` (an archive segment write of the exporter or the
+aggregator, inside its own containment).
 
 Arming:
 

@@ -689,15 +689,33 @@ def test_aggregator_equals_the_reference(universe):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"mesh_shape": "4x1"}, "A6"), ({"checkpoint_dir": "/nonexistent"},
-                                     "A4.4"),
-    ({"archive": object()}, "A4.4"),
+    ({"mesh_shape": "4x1"}, "A6"), ({"checkpoint_dir": "ck"}, None),
+    ({"archive": "archive"}, None),
     ({"sketch_cfg": TCFG._replace(tiered=tiered.TierSpec())}, "tiered")],
     ids=["mesh", "checkpoint", "archive", "tiered"])
-def test_aggregator_refuses_what_this_slice_does_not_port(kw, err):
+def test_aggregator_refuses_what_this_slice_does_not_port(kw, err,
+                                                          tmp_path):
+    """The mesh (ROADMAP A6) and a tiered aggregate are refused; since
+    the archive and checkpoint slice, `checkpoint_dir` and `archive` are
+    taken (tests/test_torch_checkpoint.py, tests/test_torch_archive.py)."""
     kw = {"sketch_cfg": TCFG, **kw}
-    with pytest.raises((NotImplementedError, ValueError), match=err):
-        FederationAggregator(device="cpu", window_s=3600.0, **kw)
+    if err is not None:
+        with pytest.raises((NotImplementedError, ValueError), match=err):
+            FederationAggregator(device="cpu", window_s=3600.0, **kw)
+        return
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
+    if "archive" in kw:
+        from netobserv_tpu_torch.archive import ArchiveStore, SketchArchive
+        kw["archive"] = SketchArchive(ArchiveStore(str(tmp_path / "a")),
+                                      TCFG, ladder_max=1, device="cpu")
+    agg = FederationAggregator(device="cpu", window_s=3600.0, **kw)
+    try:
+        st = agg.status()
+        assert st["checkpointing"] is ("checkpoint_dir" in kw)
+        assert ("archive" in st) is ("archive" in kw)
+    finally:
+        agg.close()
 
 
 def test_reference_rejects_each_frame_of_a_tiered_aggregate(universe):

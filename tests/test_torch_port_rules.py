@@ -42,7 +42,10 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "alerts/sinks.py", "metrics/server.py", "server/debug.py",
                  "utils/tensorcodec.py", "federation/pbwire.py",
                  "federation/delta.py", "federation/statemerge.py",
-                 "federation/aggregator.py", "federation/query.py")
+                 "federation/aggregator.py", "federation/query.py",
+                 "utils/atomicio.py", "archive/__init__.py",
+                 "archive/segment.py", "archive/store.py",
+                 "archive/query.py", "sketch/checkpoint.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -64,7 +67,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     for f in files:
         for name in _imported_modules(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "netobserv_tpu"), (f, name)
+            assert top not in ("jax", "jaxlib", "netobserv_tpu",
+                               "orbax"), (f, name)
 
 
 def test_port_imports_neither_protobuf_nor_grpc():
@@ -199,6 +203,37 @@ def test_the_aggregator_defaults_to_cuda_and_never_falls_back():
         assert agg._fold.name == "federation_merge"
     finally:
         agg.close()
+
+
+def test_archive_and_checkpoint_entry_points_default_to_cuda(tmp_path):
+    """`ArchiveQueryEngine`, `SketchArchive` and `SketchCheckpointer.
+    restore` name no device: they take CUDA (the engine capturing its
+    ladder there) and raise on a box without CUDA; `device="cpu"` runs
+    on the CPU."""
+    from netobserv_tpu_torch.archive import (
+        ArchiveQueryEngine, ArchiveStore, SketchArchive,
+    )
+    from netobserv_tpu_torch.sketch.checkpoint import SketchCheckpointer
+    cfg = ts.SketchConfig(cm_width=1024, topk=64, ewma_buckets=64)
+    store = ArchiveStore(str(tmp_path / "a"))
+    ck = SketchCheckpointer(str(tmp_path / "ck"))
+    ck.save(0, ts.init_state(cfg, device="cpu"))
+    if torch.cuda.is_available():
+        eng = ArchiveQueryEngine(store, cfg, ladder_max=2)
+        assert eng.device.type == "cuda"
+        assert [e.captures for e in eng._entries.values()] == [1, 1]
+        assert ck.restore(cfg).window.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        ArchiveQueryEngine(store, cfg, ladder_max=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SketchArchive(store, cfg, ladder_max=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ck.restore(cfg)
+    assert ArchiveQueryEngine(store, cfg, ladder_max=2,
+                              device="cpu").device.type == "cpu"
+    assert ck.restore(cfg, device="cpu").window.device.type == "cpu"
+    ck.close()
 
 
 def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
