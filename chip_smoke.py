@@ -13,8 +13,9 @@ C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
 the launch floor (one `nvcc` per source, all started together), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives five
-paths through `TorchSketchExporter` at the default geometry (and three
-planes on the lanes path after them), each with the
+paths through `TorchSketchExporter` at the default geometry (and five
+planes on the lanes path after them: the window thread, the query,
+federation and archive planes and overload control), each with the
 launch counts set to 0 just before it and read just after:
 
 - the wide main path, `SketchConfig()` through the dense feed
@@ -158,6 +159,51 @@ launch counts set to 0 just before it and read just after:
   then a thread folds the stream's evictions while ARC_CONTEND more
   windows are archived straight through the archive, and it prints
   `export_evicted` ms while a compaction ran and apart from one;
+- overload control (`overload`), at the default geometry on the lanes
+  feed, its evictions drawn as the lanes path draws them. (1) The same
+  OV_EVICTIONS evictions of an integer-mass copy of the stream (bytes
+  1-63, packets 1-3, drop bytes 0-63 and packets 0-3, unsampled: no
+  per-cell f32 sum passes 2^24) through an exporter with no controller,
+  one armed but idle (`shed_watermark=1e9`) and one idle behind the
+  overlapped fold thread (`overlap_depth=2`): the same tables bit for bit.
+  (2) A shed pinned at 4 (`shed_seed=1`) over the same evictions:
+  captured equal to an eager replay with the plain versions bit for bit;
+  the exact top-12 keys' CM estimates within 2e * total / width + 4 sigma
+  of the unshed run's, their mean signed relative deviation within
+  0.15, and recall of the exact top-8 at most 0.25 below the unshed
+  run's. (3) An overdrive: `shed_watermark=2.0`, `shed_max=64`,
+  `overlap_depth=2`, OV_WINDOW_S windows, a delta sink, registered with
+  the port's `agent/supervisor.Supervisor` and served by the port's
+  metrics server with a health source built as the reference agent's; a
+  producer thread offers the lanes stream's evictions as fast as
+  `export_evicted` returns for OV_DRIVE_S (held on, at most 3 s more,
+  until the factor is above 1), then stops. It checks: the
+  factor rises above 1; `overloaded` active in the supervisor's
+  conditions and in `/healthz`'s body over a socket, `/readyz` 200; the
+  pending buffer within its capacity; every window's report published
+  once; a delta frame carrying the factor and OVERLOADED; the factor at 1
+  within one clean window (two rolls) of the stop; the launches of the
+  folds made, no new capture, no retrace, no thread or ingest error. It
+  prints offered and admitted records/s, the factor's maximum and seconds
+  above 1, the shed rows and batches, the busy EWMA, the slot-wait p95,
+  `export_evicted` p50/p99/max through the handoff and, for OV_SYNC_S of
+  the same feed, synchronously. (5) Supervision: the fold thread
+  stopped as tests/test_overlap.py stops it (which stops the window
+  thread too), two evictions handed off, the supervisor revives both and
+  the handoff drains (`stage_restarts_total{stage="sketch-fold"}`); then
+  a window closed under the lock with a crash armed at the window
+  thread's `sketch.window_timer`: the thread restarts and the queued
+  report publishes exactly once. (4) A wedged stream: the slot-wait
+  budget at OV_BUDGET_S, a spin of about OV_SPIN_S (`torch.cuda._sleep`,
+  a test tool of torch's, no kernel of the port) enqueued on the
+  exporter's stream between folds of the integer stream, then folds on:
+  the first trip within `n_slots` slot waits of the spin, each fold that
+  trips back within the budget plus 0.2 s, one
+  `sketch_ingest_errors_total` a trip, no dictionary epoch rolled, no
+  CUDA error after it, folds after the spin; and the tables equal bit for
+  bit to an eager replay with the plain versions fed the same evictions,
+  a never-ready copy event standing in at the same slot waits. Every
+  number prints beside the card's name and power limit (`card`);
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -3941,6 +3987,601 @@ def phase_archive(specs, universe, pool, events) -> dict:
             "launches": launches}
 
 
+#: the overload phase: the evictions of its exactness steps, the overdrive's
+#: seconds and window, the wedge's slot-wait budget and spin, and the sync
+#: run's seconds beside the overdrive
+OV_EVICTIONS = 16
+OV_DRIVE_S = 6.0
+OV_WINDOW_S = 1.0
+OV_SYNC_S = 2.0
+OV_BUDGET_S = 0.25
+OV_SPIN_S = 2.0
+
+
+class NeverReady:
+    """A slot's copy event that never completes: the stand-in that drops
+    the overload replay's folds where the timed run's budget tripped."""
+
+    def query(self) -> bool:
+        return False
+
+    def synchronize(self) -> None:
+        raise PhaseError("a budgeted slot wait synchronized")
+
+
+def _integer_stream(events):
+    """The lanes stream with every summed mass an integer small enough that
+    no per-cell f32 sum of the phase passes 2^24 (bytes 1-63, packets
+    1-3, drop bytes 0-63 and packets 0-3, unsampled): add order then
+    cannot change a bit, and captured, eager and plain folds agree
+    exactly."""
+    ev_all, lanes_all = LaneFeeder(events).stream
+    ev = ev_all.copy()
+    st = ev["stats"]
+    st["bytes"] = 1 + st["bytes"] % 63
+    st["packets"] = 1 + st["packets"] % 3
+    st["sampling"] = 0
+    lanes = dict(lanes_all)
+    if "drops" in lanes:
+        drops = lanes["drops"].copy()
+        drops["bytes"] %= 64
+        drops["packets"] %= 4
+        lanes["drops"] = drops
+    return ev, lanes
+
+
+def _health(sup) -> dict:
+    """The health source of the reference agent's `health_snapshot`
+    (`agent/agent.py:239-255`), written here: the port has no agent."""
+    conditions = sup.conditions()
+    return {"status": "Started", "degraded": sup.degraded,
+            "overloaded": bool(conditions.get("overloaded", {})
+                               .get("active")),
+            "conditions": conditions, "stages": sup.snapshot()}
+
+
+def _http_json(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=5) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _spin_cycles(seconds: float) -> int:
+    """Cycles of `torch.cuda._sleep` (a test tool of torch's, no port of a
+    kernel) that hold the current stream about `seconds`, from a timed
+    probe."""
+    import torch
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    probe = 50_000_000
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    return int(probe * seconds * 1e3 / start.elapsed_time(end))
+
+
+def phase_overload(specs, universe, pool, events, card: str) -> dict:
+    """Overload control on the card (module docstring's `overload`): the
+    unshedded exporters alike, a pinned shed against its plain replay and
+    the exact oracle, an overdrive under the port's supervisor and metrics
+    server with recovery, a wedged stream against the slot-wait budget,
+    and the supervised threads' restarts."""
+    import threading
+
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.agent.supervisor import Supervisor
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.federation import delta as fdelta
+    from netobserv_tpu_torch.metrics.registry import Metrics
+    from netobserv_tpu_torch.ops.hashing import base_hashes_multi_np
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import staging
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import faultinject, retrace
+    cfg = sk.SketchConfig()
+    t_phase = time.perf_counter()
+    real = LaneFeeder(events).stream
+    ints = _integer_stream(events)
+    n_rows = len(real[0])
+    gen = _stream_evictions(n_rows)
+    cuts = [next(gen) for _ in range(OV_EVICTIONS)]
+
+    def eviction(stream, lo, hi):
+        ev, lanes = stream
+        return EvictedFlows(ev[lo:hi],
+                            **{k: v[lo:hi] for k, v in lanes.items()})
+
+    def settled(exp) -> dict:
+        """The exporter's tables once its handoff and pending rows
+        folded."""
+        exp._drain_handoff()
+        with exp._lock:
+            exp._drain_pending()
+        return exp.state_tables()
+
+    def same(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a)
+
+    out = {"phase": "overload", "card": card}
+    retraces0 = retrace.total_retraces()
+
+    # 1. no controller, an idle one, and an idle one behind the overlap
+    tabs = {}
+    for name, kw in (("disabled", {}), ("idle", {"shed_watermark": 1e9}),
+                     ("overlap_idle", {"shed_watermark": 1e9,
+                                       "overlap_depth": 2})):
+        exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                                  sink=_discard, **LANES_KW, **kw)
+        try:
+            if name == "disabled":
+                check(exp._overload is None and exp._handoff is None,
+                      "a disabled exporter made a controller or thread")
+            for lo, hi in cuts:
+                exp.export_evicted(eviction(ints, lo, hi))
+            tabs[name] = settled(exp)
+            if exp._overload is not None:
+                check(exp.ring.slot_wait_budget_s == 30.0
+                      and exp._overload.shed_rows == 0,
+                      f"idle controller {exp.overload_snapshot()}")
+        finally:
+            exp.close()
+    check(same(tabs["disabled"], tabs["idle"])
+          and same(tabs["disabled"], tabs["overlap_idle"]),
+          "an idle controller or the overlap changed the tables")
+    out["unshedded_equal"] = sorted(tabs)
+
+    # 2. a shed pinned at 4 (shed_seed=1): captured against its plain
+    # replay bit for bit (integer masses), and against the unshed run and
+    # the exact oracle within the reference test's budget
+    def pinned(exp, factor):
+        ctl = exp._overload
+        ctl.shed = factor
+        ctl.update = lambda *a, **k: factor
+
+    shed_kw = {"shed_watermark": 0.5, "shed_max": 4, "shed_seed": 1}
+    runs = {}
+    for name in ("unshed", "shed", "shed_plain"):
+        ctx = plain_versions(specs) if name == "shed_plain" else \
+            contextlib.nullcontext()
+        with ctx:
+            exp = TorchSketchExporter(
+                cfg, batch_size=BATCH, device="cuda", sink=_discard,
+                capture=name != "shed_plain", **LANES_KW,
+                **({} if name == "unshed" else shed_kw))
+            try:
+                if name != "unshed":
+                    pinned(exp, 4)
+                for lo, hi in cuts:
+                    exp.export_evicted(eviction(ints, lo, hi))
+                runs[name] = (settled(exp), exp.overload_snapshot())
+            finally:
+                exp.close()
+    (unshed, _), (shed, snap), (shed_plain, snap_plain) = (
+        runs["unshed"], runs["shed"], runs["shed_plain"])
+    check(same(shed, shed_plain) and snap == snap_plain,
+          "the captured shed differs from its plain replay")
+    check(snap["shed_rows"] > 0, f"the pinned run shed nothing: {snap}")
+    ranks = np.concatenate([pool[i % len(pool)][1]
+                            for i in range(FOLDS_PER_WINDOW)])
+    uni = traffic.event_universe(universe)
+    nb = ints[0]["stats"]["bytes"].astype(np.float64)
+    exact = np.zeros(len(uni))
+    sq = np.zeros(len(uni))
+    for lo, hi in cuts:
+        exact += np.bincount(ranks[lo:hi], weights=nb[lo:hi],
+                             minlength=len(uni))
+        sq += np.bincount(ranks[lo:hi], weights=nb[lo:hi] ** 2,
+                          minlength=len(uni))
+    top = np.argsort(-exact, kind="stable")[:12]
+    h = base_hashes_multi_np(uni[top])
+    d, width = cfg.cm_depth, cfg.cm_width
+    with np.errstate(over="ignore"):
+        idx = (h["h1"][:, None] + np.arange(d, dtype=np.uint32)
+               * h["h2"][:, None]) & np.uint32(width - 1)
+
+    def est(tables):
+        cm = np.asarray(tables["cm_bytes"], np.float64)
+        return cm[np.arange(d)[None, :], idx].min(axis=1)
+
+    est_a, est_b = est(unshed), est(shed)
+    total = float(exact.sum())
+    tol = 2 * np.e * total / width + 4 * np.sqrt((4 - 1) * sq[top])
+    diff = np.abs(est_b - est_a)
+    check(bool((diff <= tol).all()),
+          f"shed estimates off the unshed run: {diff.tolist()} > "
+          f"{tol.tolist()}")
+    rel = (est_b - est_a) / np.maximum(est_a, 1.0)
+    check(abs(float(rel.mean())) <= 0.15,
+          f"mean relative deviation {rel.mean():+.3f}")
+
+    def recall(tables):
+        got = {tuple(w) for w, v in zip(np.asarray(tables["heavy_words"],
+                                                   np.uint32),
+                                        np.asarray(tables["heavy_valid"]))
+               if v}
+        return sum(tuple(uni[t]) in got for t in top[:8]) / 8
+
+    rec_a, rec_b = recall(unshed), recall(shed)
+    check(rec_b >= rec_a - 0.25, f"shed recall {rec_b} against {rec_a}")
+    out["pinned_shed"] = {
+        "factor": 4, "evictions": len(cuts),
+        "rows": sum(hi - lo for lo, hi in cuts),
+        "shed_rows": snap["shed_rows"], "shed_batches": snap["shed_batches"],
+        "captured_equals_plain": True,
+        "top12_abs_diff_over_tol_max": float((diff / tol).max()),
+        "mean_rel_dev": float(rel.mean()),
+        "recall_top8_unshed": rec_a, "recall_top8_shed": rec_b}
+
+    # 3. the overdrive: a producer as fast as export_evicted returns, the
+    # overlap and the controller under the port's supervisor and server
+    metrics = Metrics()
+    sink = WindowSink()
+    frames: list = []
+    sup = Supervisor(metrics=metrics, check_period_s=0.1)
+    exp = TorchSketchExporter(
+        cfg, batch_size=BATCH, device="cuda", window_s=OV_WINDOW_S,
+        sink=sink, metrics=metrics, delta_sink=frames.append,
+        shed_watermark=2.0, shed_max=64, overlap_depth=2, **LANES_KW)
+    srv = None
+    thread_errors: list = []
+    hook = threading.excepthook
+    threading.excepthook = lambda a: thread_errors.append(
+        f"{a.thread.name if a.thread else '?'}: {a.exc_type.__name__}: "
+        f"{a.exc_value}")
+    try:
+        exp.register_supervised(sup, heartbeat_timeout_s=10.0,
+                                backoff_initial_s=0.1, backoff_max_s=0.5)
+        sup.start()
+        srv = exp.serve(health_source=lambda: _health(sup))
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        captures0 = [c.captures for c in exp.captures]
+        for s in specs:
+            s["kernel"].launches = 0
+        folds0, rolls0 = exp.folds, exp.rolls
+        ctl = exp._overload
+        put_ms: list = []
+        offered = [0]
+        stop = threading.Event()
+        most_pending = [0]
+
+        def produce():
+            g = _stream_evictions(n_rows)
+            while not stop.is_set():
+                lo, hi = next(g)
+                t0 = time.perf_counter()
+                exp.export_evicted(eviction(real, lo, hi))
+                put_ms.append((time.perf_counter() - t0) * 1e3)
+                offered[0] += hi - lo
+
+        producer = threading.Thread(target=produce, name="ov-producer")
+        t0 = time.perf_counter()
+        producer.start()
+        factors, busy, waits = [], [], []
+        healthz = readyz = None
+        cond_seen = False
+        # the drive, held on (at most 3 s) until the factor is above 1,
+        # so that the recovery starts from a shed
+        while time.perf_counter() - t0 < OV_DRIVE_S or (
+                ctl.shed == 1 and time.perf_counter() - t0 < OV_DRIVE_S + 3):
+            time.sleep(0.01)
+            factors.append((time.perf_counter(), ctl.shed))
+            busy.append(ctl.last_busy)
+            waits.append(exp.ring.slot_wait_p95())
+            most_pending[0] = max(most_pending[0], exp.pending.n)
+            if ctl.shed > 1 and not cond_seen:
+                cond = sup.conditions().get("overloaded", {})
+                if cond.get("active"):
+                    code, body = _http_json(base + "/healthz")
+                    if code == 200 and body.get("overloaded") is True and \
+                            body["conditions"]["overloaded"]["active"]:
+                        cond_seen = True
+                        healthz = {"code": code, "shed_factor": body[
+                            "conditions"]["overloaded"]["shed_factor"]}
+                        readyz = _http_json(base + "/readyz")[0]
+        stop.set()
+        shed_at_stop = ctl.shed
+        producer.join(timeout=30)
+        check(not producer.is_alive(), "the producer did not stop")
+        t_stop = time.perf_counter()
+        drive_s = t_stop - t0
+        exp._drain_handoff()
+        snap_drive = exp.overload_snapshot()
+        admitted = offered[0] - snap_drive["shed_rows"]
+        # recovery: the factor at 1 within one clean window after the stop
+        rolls_stop = exp.rolls
+        deadline = t_stop + 3 * OV_WINDOW_S + 1.0
+        while ctl.shed > 1 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        recovered_s = time.perf_counter() - t_stop
+        recover_windows = exp.rolls - rolls_stop
+        check(ctl.shed == 1, f"factor {ctl.shed} {recovered_s:.2f} s after "
+              "the producer stopped")
+        check(recover_windows <= 2, f"recovery took {recover_windows} "
+              "window rolls (one clean window: at most 2)")
+        exp.flush()
+        torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        folds = exp.folds - folds0
+        captures1 = [c.captures for c in exp.captures]
+        watch = _watch_stats(exp)
+        max_factor = max(f for _, f in factors)
+        above = sum(b - a for (a, fa), (b, _) in zip(factors, factors[1:])
+                    if fa > 1)
+        check(max_factor > 1, "the overdrive never raised the factor")
+        check(cond_seen and readyz == 200,
+              f"overloaded condition over /healthz {healthz}, /readyz "
+              f"{readyz}")
+        check(most_pending[0] <= exp.pending.capacity,
+              f"pending {most_pending[0]} past {exp.pending.capacity}")
+        reps = sink.reports
+        check([r["Window"] for r in reps] == list(range(exp.rolls))
+              and exp.reports_published == exp.rolls
+              and exp.reports_shed == 0,
+              f"windows {[r['Window'] for r in reps]}, {exp.rolls} rolls, "
+              f"{exp.reports_shed} shed")
+        tel = [fdelta.decode_frame(f).telemetry for f in frames]
+        check(any(t["shed_factor"] > 1 and "OVERLOADED" in t["conditions"]
+                  for t in tel), f"no frame carried the overload: {tel}")
+        check(captures1 == captures0
+              and retrace.total_retraces() == retraces0,
+              f"captures {captures1} (was {captures0}), retraces "
+              f"{retrace.total_retraces() - retraces0}")
+        check(all(w["compiles"] == (1 if _warm_captured(w["fn"]) else 0)
+                  and w["retraces"] == 0 for w in watch),
+              f"captured folds {watch}")
+        check(exp.ingest_errors == 0 and not thread_errors,
+              f"{exp.ingest_errors} ingest errors, threads {thread_errors}")
+        want = _want_launches(specs, "lanes", folds)
+        check(launches == want, f"launches {launches}, want {want}")
+        out["overdrive"] = {
+            "seconds": drive_s, "window_s": OV_WINDOW_S,
+            "offered_records_per_s": offered[0] / drive_s,
+            "admitted_records_per_s": admitted / drive_s,
+            "shed_factor_max": max_factor, "seconds_above_1": above,
+            "shed_rows": snap_drive["shed_rows"],
+            "shed_batches": snap_drive["shed_batches"],
+            "busy_ewma_p50": _pct(busy, 50), "busy_ewma_max": max(busy),
+            "slot_wait_p95_max_s": max(waits),
+            "export_evicted_overlap_ms": {
+                "p50": _pct(put_ms, 50), "p99": _pct(put_ms, 99),
+                "max": max(put_ms), "n": len(put_ms)},
+            "pending_max": most_pending[0],
+            "healthz": healthz, "readyz": readyz,
+            "windows": exp.rolls, "shed_factor_at_stop": shed_at_stop,
+            "recover_seconds": recovered_s,
+            "recover_windows": recover_windows,
+            "frames_overloaded": sum("OVERLOADED" in t["conditions"]
+                                     for t in tel),
+            "folds": folds}
+        out["launches"] = launches
+
+        # 5. supervision: the fold thread killed (tests/test_overlap.py),
+        # then a window-thread crash at `sketch.window_timer`
+        restarts = metrics.stage_restarts_total
+        exp._closed.set()
+        exp._fold_thread.join(timeout=5)
+        exp._closed.clear()
+        check(not exp._fold_thread.is_alive(), "the fold thread lives on")
+        for lo, hi in cuts[:2]:
+            exp.export_evicted(eviction(real, lo, hi))
+        t1 = time.perf_counter()
+        while (exp._handoff.unfinished_tasks
+               or restarts.labels("sketch-fold")._value.get() < 1) and \
+                time.perf_counter() - t1 < 15:
+            time.sleep(0.01)
+        fold_restart_s = time.perf_counter() - t1
+        check(exp._handoff.unfinished_tasks == 0
+              and restarts.labels("sketch-fold")._value.get() >= 1,
+              "the supervisor did not revive the fold thread")
+        t1 = time.perf_counter()
+        while (restarts.labels("sketch-window")._value.get() < 1
+               or not exp._timer.is_alive()) and \
+                time.perf_counter() - t1 < 15:
+            time.sleep(0.01)  # the kill stopped the window thread too
+        win0 = restarts.labels("sketch-window")._value.get()
+        check(win0 >= 1 and exp._timer.is_alive(),
+              "the supervisor did not revive the window thread")
+        with exp._lock:  # a queued report, and the thread's crash armed
+            queued = exp._close_window_locked()
+            faultinject.arm("sketch.window_timer", "crash", times=1)
+        t1 = time.perf_counter()
+        while (restarts.labels("sketch-window")._value.get() < win0 + 1
+               or queued.out is None) and time.perf_counter() - t1 < 15:
+            time.sleep(0.01)
+        faultinject.clear("sketch.window_timer")
+        window_restart_s = time.perf_counter() - t1
+        wins = [r["Window"] for r in sink.reports]
+        check(queued.out is not None
+              and wins.count(int(queued.report.window)) == 1
+              and len(wins) == len(set(wins)),
+              f"the queued window {int(queued.report.window)} published "
+              f"{wins.count(int(queued.report.window))} times: {wins}")
+        check(restarts.labels("sketch-window")._value.get() >= win0 + 1,
+              "no window thread restart")
+        thread_errors[:] = [e for e in thread_errors
+                            if "FaultInjected" not in e]
+        check(not thread_errors, f"thread errors {thread_errors}")
+        out["supervision"] = {
+            "fold_restart_s": fold_restart_s,
+            "window_restart_s": window_restart_s,
+            "stage_restarts": {s: restarts.labels(s)._value.get()
+                               for s in ("sketch-fold", "sketch-window")}}
+
+    finally:
+        threading.excepthook = hook
+        faultinject.clear()
+        sup.stop()
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        exp.close()
+
+    # the same feed synchronously: export_evicted without the overlap
+    # (the overdrive's exporter closed first: its window thread's rolls
+    # must not run beside this ring's captures, ROADMAP C4)
+    exp_sync = TorchSketchExporter(
+        cfg, batch_size=BATCH, device="cuda", sink=_discard,
+        shed_watermark=2.0, shed_max=64, **LANES_KW)
+    try:
+        with exp_sync._lock:
+            exp_sync._ensure_ring()
+        sync_ms, sync_shed = [], 1
+        g = _stream_evictions(n_rows)
+        t1 = time.perf_counter()
+        while time.perf_counter() - t1 < OV_SYNC_S:
+            lo, hi = next(g)
+            t2 = time.perf_counter()
+            exp_sync.export_evicted(eviction(real, lo, hi))
+            sync_ms.append((time.perf_counter() - t2) * 1e3)
+            sync_shed = max(sync_shed, exp_sync._overload.shed)
+        out["overdrive"]["export_evicted_sync_ms"] = {
+            "p50": _pct(sync_ms, 50), "p99": _pct(sync_ms, 99),
+            "max": max(sync_ms), "n": len(sync_ms),
+            "shed_factor_max": sync_shed}
+    finally:
+        exp_sync.close()
+
+    # 4. a wedged stream: a spin of about OV_SPIN_S on the exporter's
+    # stream between folds, the slot-wait budget at OV_BUDGET_S
+    metrics = Metrics()
+    cycles = _spin_cycles(OV_SPIN_S)
+    exp = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                              sink=_discard, metrics=metrics,
+                              shed_watermark=1e9,
+                              shed_slot_budget_s=OV_BUDGET_S, **LANES_KW)
+    try:
+        with exp._lock:
+            exp._ensure_ring()
+        ring = exp.ring
+        calls = {"n": 0, "trips": [], "spin_at": None}
+        wait = ring._wait_slot
+
+        def counted(trace=None):
+            i = calls["n"]
+            calls["n"] += 1
+            t1 = time.perf_counter()
+            try:
+                return wait(trace) if trace is not None else wait()
+            except staging.StagingWedged:
+                calls["trips"].append((i, time.perf_counter() - t1))
+                raise
+        ring._wait_slot = counted
+        fold_spans = []
+        fold = exp._fold_events
+
+        def timed_fold(events, feats):
+            e0 = exp.ingest_errors
+            t1 = time.perf_counter()
+            fold(events, feats)
+            fold_spans.append((time.perf_counter() - t1,
+                               exp.ingest_errors > e0))
+        exp._fold_events = timed_fold
+        resets0 = ring.dict_resets
+        errs0 = metrics.sketch_ingest_errors_total._value.get()
+        g = _stream_evictions(n_rows)
+        fed = []
+        for _ in range(4):
+            fed.append(next(g))
+            exp.export_evicted(eviction(ints, *fed[-1]))
+        torch.cuda.synchronize()
+        calls["spin_at"] = calls["n"]
+        t_spin = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
+        while not spun.query():  # fold on until the spin has run
+            fed.append(next(g))
+            exp.export_evicted(eviction(ints, *fed[-1]))
+            check(len(fed) < 100, "the wedge never cleared")
+        spin_s = time.perf_counter() - t_spin
+        spin_done = calls["n"]
+        for _ in range(4):
+            fed.append(next(g))
+            exp.export_evicted(eviction(ints, *fed[-1]))
+        timed = settled(exp)
+        torch.cuda.synchronize()  # no CUDA error after the wedge
+        trips = calls["trips"]
+        errs = metrics.sketch_ingest_errors_total._value.get() - errs0
+        tripped = [dt for dt, t in fold_spans if t]
+        check(trips and errs == len(trips) == exp.ingest_errors
+              == len(tripped),
+              f"{len(trips)} trips, {errs} counted, {exp.ingest_errors} "
+              f"ingest errors, {len(tripped)} tripped folds")
+        check(max(tripped) <= OV_BUDGET_S + 0.2,
+              f"a tripped fold took {max(tripped):.3f} s")
+        check(ring.dict_resets == resets0, "the wedge rolled an epoch")
+        first = trips[0][0] - calls["spin_at"]
+        check(0 <= first <= len(ring._bufs),
+              f"the first trip came {first} slot waits after the spin "
+              f"({len(ring._bufs)} slots)")
+        check(trips[-1][0] < spin_done and calls["n"] > trips[-1][0] + 1,
+              "the feed did not fold on after the spin")
+        trip_at = {i for i, _ in trips}
+        # the replay: the plain versions, eager, the same folds dropped by
+        # a never-ready copy event at the same slot waits
+        with plain_versions(specs):
+            rep = TorchSketchExporter(cfg, batch_size=BATCH, device="cuda",
+                                      sink=_discard, capture=False,
+                                      shed_watermark=1e9, **LANES_KW)
+            try:
+                with rep._lock:
+                    rep._ensure_ring()
+                rring = rep.ring
+                rwait = rring._wait_slot
+                rcalls = [0]
+
+                def replay_wait(trace=None):
+                    i = rcalls[0]
+                    rcalls[0] += 1
+                    args = () if trace is None else (trace,)
+                    if i not in trip_at:
+                        return rwait(*args)
+                    slot = rring._slot
+                    real_ev = rring._copied[slot]
+                    rring._copied[slot] = NeverReady()
+                    rring.slot_wait_budget_s = 0.001
+                    try:
+                        return rwait(*args)
+                    finally:
+                        rring._copied[slot] = real_ev
+                        rring.slot_wait_budget_s = 30.0
+                rring._wait_slot = replay_wait
+                for lo, hi in fed:
+                    rep.export_evicted(eviction(ints, lo, hi))
+                replayed = settled(rep)
+                check(rcalls[0] == calls["n"]
+                      and rep.ingest_errors == exp.ingest_errors,
+                      f"replay slot waits {rcalls[0]} / {calls['n']}, "
+                      f"errors {rep.ingest_errors}")
+            finally:
+                rep.close()
+        check(same(timed, replayed),
+              "the wedged run's tables differ from the plain replay's")
+        out["wedge"] = {
+            "budget_s": OV_BUDGET_S, "spin_s": OV_SPIN_S,
+            "spin_seen_s": spin_s,
+            "spin_cycles": cycles, "slots": len(ring._bufs),
+            "trips": len(trips),
+            "first_trip_wait_s": trips[0][1],
+            "first_trip_slot_waits_after_spin": first,
+            "tripped_fold_s_max": max(tripped),
+            "evictions": len(fed), "slot_waits": calls["n"],
+            "replay_equal": True}
+    finally:
+        exp.close()
+    check(retrace.total_retraces() == retraces0, "a retrace in the phase")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -4296,6 +4937,10 @@ def main() -> int:
         phase = "archive"
         arc_res = phase_archive(specs, universe, pool, events)
         emit(arc_res)
+        phase = "overload"
+        ov_res = phase_overload(specs, universe, pool, events,
+                                dev["nvidia_smi"])
+        emit(ov_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -4321,6 +4966,7 @@ def main() -> int:
                 "query_plane": qp_res["launches"],
                 "federation": fed_res["launches"],
                 "archive": arc_res["launches"],
+                "overload": ov_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -14,7 +14,12 @@ delta sender's settings (`:545-590`) with the reference's defaults, and
 duration settings. `ArchiveSettings` holds the archive's settings
 (`:520-544`) with their checks (`:735-750`), which `archive.maybe_archive`
 takes, and `CheckpointSettings` the exporter's and the aggregator's
-checkpoint settings (`:325-326`, `:581-590`).
+checkpoint settings (`:325-326`, `:581-590`). `OverloadSettings` holds the
+overload controller's and the overlapped fold thread's settings
+(`:455-482`) with their checks (`:697-712`), and `SupervisorSettings` the
+stage supervisor's (`:247-270`); both read durations as the reference
+does (`_DURATION_FIELDS`, `:776-784`) and booleans through `_parse_bool`
+(`:45-46`).
 """
 
 from __future__ import annotations
@@ -258,3 +263,97 @@ class CheckpointSettings:
             **{name: _env_int(env, name.upper(), d[name].default)
                for name in ("sketch_checkpoint_every",
                             "federation_checkpoint_every")})
+
+
+def _parse_bool(text: str) -> bool:
+    """A boolean setting as the reference reads one."""
+    return text.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_typed(env: Mapping[str, str], fields: dict, durations=()) -> dict:
+    """The settings of `fields` (name -> default) that `env` sets under
+    their upper-case names, each read as its default's type (a name in
+    `durations` through `parse_duration`); set but empty reads as unset,
+    as the reference's."""
+    out = {}
+    for name, default in fields.items():
+        raw = env.get(name.upper())
+        if not raw:
+            continue
+        if name in durations:
+            out[name] = parse_duration(raw)
+        elif isinstance(default, bool):
+            out[name] = _parse_bool(raw)
+        else:
+            out[name] = type(default)(raw)
+    return out
+
+
+@dataclass
+class OverloadSettings:
+    """The overload controller's and the overlapped fold thread's settings,
+    under the reference's names and defaults: `sketch_shed_watermark`
+    (SKETCH_SHED_WATERMARK, the pressure score in batches above which the
+    exporter sheds; 0 = no controller), `sketch_shed_max`
+    (SKETCH_SHED_MAX, the largest 1-in-N factor), `sketch_shed_slot_budget`
+    (SKETCH_SHED_SLOT_BUDGET, a duration: the longest one fold waits for a
+    staging slot while a controller exists) and `sketch_overlap`
+    (SKETCH_OVERLAP, the handoff depth of the fold thread; 0 = no thread).
+    A value the reference refuses raises here. The exporter takes them as
+    `shed_watermark`, `shed_max`, `shed_slot_budget_s` and
+    `overlap_depth`."""
+
+    sketch_shed_watermark: float = 0.0
+    sketch_shed_max: int = 64
+    sketch_shed_slot_budget: float = 30.0
+    sketch_overlap: int = 0
+
+    def __post_init__(self):
+        if self.sketch_shed_watermark < 0:
+            raise ValueError("SKETCH_SHED_WATERMARK must be >= 0 (0 disables)")
+        if self.sketch_overlap < 0:
+            raise ValueError("SKETCH_OVERLAP must be >= 0 (0 keeps the "
+                             "synchronous export seam)")
+        if self.sketch_shed_max < 2:
+            raise ValueError("SKETCH_SHED_MAX must be >= 2 (it bounds the "
+                             "1-in-N shed factor)")
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "OverloadSettings":
+        env = os.environ if environ is None else environ
+        d = cls.__dataclass_fields__
+        return cls(**_env_typed(env, {n: f.default for n, f in d.items()},
+                                durations=("sketch_shed_slot_budget",)))
+
+
+@dataclass
+class SupervisorSettings:
+    """The stage supervisor's settings, under the reference's names and
+    defaults: `supervisor_enable` (SUPERVISOR_ENABLE), and the durations
+    `supervisor_check_period` (SUPERVISOR_CHECK_PERIOD),
+    `supervisor_backoff_initial`, `supervisor_backoff_max`,
+    `supervisor_healthy_reset` and `supervisor_heartbeat_timeout`, and
+    `supervisor_max_restarts` (the consecutive failures before a stage is
+    DEGRADED). `agent/supervisor.Supervisor` takes the check period;
+    `register_supervised` the rest."""
+
+    supervisor_enable: bool = True
+    supervisor_check_period: float = 0.25
+    supervisor_max_restarts: int = 5
+    supervisor_backoff_initial: float = 0.2
+    supervisor_backoff_max: float = 30.0
+    supervisor_healthy_reset: float = 30.0
+    supervisor_heartbeat_timeout: float = 300.0
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "SupervisorSettings":
+        env = os.environ if environ is None else environ
+        d = cls.__dataclass_fields__
+        return cls(**_env_typed(
+            env, {n: f.default for n, f in d.items()},
+            durations=("supervisor_check_period",
+                       "supervisor_backoff_initial", "supervisor_backoff_max",
+                       "supervisor_healthy_reset",
+                       "supervisor_heartbeat_timeout")))

@@ -156,8 +156,9 @@ of its own: the span `report_serialize` covers the fault point
 failure there is logged and counted (`count_error("federation")`) and
 never loses the report. The frame carries `agent_id` (default: the host
 name), `agent_epoch` (`time.time_ns()` when the exporter was made), the
-window as its `window_seq`, the telemetry block (`_telemetry_block`; the
-shed factor is 1.0 until overload control, A4.5) and, for a sampled
+window as its `window_seq`, the telemetry block (`_telemetry_block`: the
+overload controller's shed factor, the OVERLOADED and ALERTING conditions,
+the kernel map's occupancy) and, for a sampled
 window trace, its `trace_ctx` (counted
 `trace_context_propagated_total{stamped}`). Decay mode keeps cumulative
 tables, which an aggregator would count twice: the sink is dropped (and
@@ -187,12 +188,46 @@ sink, in a `try` of its own: span `archive_write`, fault point
 block. The archive's device work holds the exporter lock (`SketchArchive.
 share_device_lock`, ROADMAP C4).
 
-Not in this slice: overload control and `StagingWedged` (A4.5; the
-status's `overloaded` is always False), the overlapped fold thread, the
-gRPC delta transport (A4.3's transport), the Kafka report sink (A4.6),
-batch traces riding evictions (the map tracer's), tenants (A5; the routes
-get no tenant publishers, and a tenant archive set waits for them) and
-the mesh (A6).
+**Overload control** (`tpu_sketch.py:705-722`, `:1080-1126`,
+`:1218-1298`, `:1365-1391`, `:1699-1702`). With `shed_watermark` > 0 the
+exporter makes a `sketch/overload.OverloadController` (else
+`_overload` is None: one is-None check, no RNG, no copy) and sets its
+ring's `slot_wait_budget_s` to `shed_slot_budget_s` when the ring is made.
+`export_evicted` admits each eviction under the lock
+(`_export_evicted_now`): busy is fold seconds per wall second between
+arrivals (an EWMA, alpha 0.5), the controller updates on the pending rows
+plus the eviction plus the rows still in the overlap handoff, the ring's
+slot-wait p95 and busy, and `admit` thins the eviction 1 in N, N
+multiplied into each kept row's `sampling`, before the pending buffer
+takes it. `fold_dense` has no admission, as the reference's
+`export_batch` has none. A fold that meets the slot-wait budget
+(`staging.StagingWedged`) drops the rows not yet packed, counted in
+`ingest_errors`, `sketch_ingest_errors_total` and
+`count_error("tpu-sketch-ingest")`, with no dictionary epoch roll: no
+slot was committed for them. Each roll calls the controller's
+`window_roll`. `overloaded`, `overload_snapshot`, `note_map_occupancy`,
+the frames' telemetry and `query_status` report it.
+
+**The overlapped fold thread** (`tpu_sketch.py:837-859`, `:1218-1341`,
+`:1462-1500`). With `overlap_depth` > 0 `export_evicted` puts the eviction
+into a bounded handoff (`queue.Queue(maxsize=overlap_depth)`, blocking
+while it is full) and returns; a "sketch-fold" thread takes each and runs
+the admission and fold above, on the exporter's device. The ring is made,
+and its ladder captured, in the constructor, on the caller's thread,
+before that thread starts, so no capture runs on it (ROADMAP C4).
+`flush` waits for the handoff first; `close` stops the thread, joins it
+and folds what it left synchronously, each batch contained, before its
+last roll. With depth 0 there is no queue and no thread.
+
+`register_supervised` registers the window thread ("sketch-window"), the
+fold thread ("sketch-fold") where there is one, and the `overloaded` and
+`alerting` conditions (`tpu_sketch.py:954-1001`) with any supervisor of
+the reference's signature, such as the port's `agent/supervisor.py`.
+
+Not in this slice: the gRPC delta transport (A4.3's transport), the Kafka
+report sink (A4.6), batch traces riding evictions (the map tracer's),
+tenants (A5; the routes get no tenant publishers, and a tenant archive
+set waits for them) and the mesh (A6).
 """
 
 from __future__ import annotations
@@ -201,6 +236,7 @@ import collections
 import contextlib
 import logging
 import os
+import queue
 import socket
 import threading
 import time
@@ -224,7 +260,7 @@ from netobserv_tpu_torch.ops.kernels import _build
 from netobserv_tpu_torch.query.routes import QueryRoutes
 from netobserv_tpu_torch.query.snapshot import SnapshotPublisher
 from netobserv_tpu_torch.sketch import state as sk
-from netobserv_tpu_torch.sketch import staging, tiered
+from netobserv_tpu_torch.sketch import overload, staging, tiered
 from netobserv_tpu_torch.sketch.capture import CapturedFold
 from netobserv_tpu_torch.utils import faultinject, retrace, tracing
 from netobserv_tpu_torch.utils.platform import pick_device
@@ -272,7 +308,9 @@ class TorchSketchExporter:
     name) names the exporter in `/query/status` and in its delta frames;
     `delta_sink` takes one delta frame per closed window;
     `checkpoint_dir`, `checkpoint_every` and `archive` set up checkpoints
-    and the archive (module docstring)."""
+    and the archive; `shed_watermark`, `shed_max`, `shed_slot_budget_s`
+    and `shed_seed` the overload controller, and `overlap_depth` the
+    overlapped fold thread (module docstring)."""
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -297,7 +335,9 @@ class TorchSketchExporter:
                  query_refresh_s: float = 0.0, query_history: int = 8,
                  alerts=None, agent_id: str = "", delta_sink=None,
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
-                 archive=None):
+                 archive=None, shed_watermark: float = 0.0,
+                 shed_max: int = 64, shed_slot_budget_s: float = 30.0,
+                 shed_seed: int = 2026, overlap_depth: int = 0):
         self.device = pick_device(device)
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
@@ -307,6 +347,8 @@ class TorchSketchExporter:
             raise ValueError(f"feed must be one of {FEEDS}, not {feed!r}")
         if query_refresh_s < 0 or query_history < 0:
             raise ValueError("query_refresh_s and query_history must be >= 0")
+        if overlap_depth < 0:
+            raise ValueError("overlap_depth must be >= 0")
         self.cfg = cfg
         self.batch_size = batch_size
         self.window_s = window_s
@@ -331,6 +373,18 @@ class TorchSketchExporter:
         if metrics is not None:
             retrace.set_metrics(metrics)
             tracing.set_metrics(metrics)
+        #: the overload controller (None: no shedding, one is-None check)
+        self._overload = overload.maybe_controller(
+            batch_size, shed_watermark, shed_max, metrics=metrics,
+            seed=shed_seed)
+        self._shed_slot_budget_s = shed_slot_budget_s
+        # the controller's busy weight: fold seconds since the last
+        # arrival, that arrival's time, and their EWMA
+        self._busy_fold_s = 0.0
+        self._busy_last_t: Optional[float] = None
+        self._busy_ewma = 0.0
+        #: the kernel map's occupancy at its last drain (telemetry)
+        self._map_occupancy = 0.0
         self._tier_form = sk.tiered_fold_form(cfg)
         #: previous window's promoted-counter masks, by CM table: in decay
         #: mode promotions persist, and only new ones count
@@ -414,6 +468,19 @@ class TorchSketchExporter:
         #: supervision hook of the window thread (`register_supervised`)
         self.heartbeat = lambda: None
         self._timer: Optional[threading.Thread] = None
+        # the overlapped fold thread: a bounded handoff, the rows put and
+        # not yet taken, and its supervision hook
+        self._handoff: Optional[queue.Queue] = None
+        self._inflight_rows = 0
+        self._inflight_lock = threading.Lock()
+        self.fold_heartbeat = lambda: None
+        self._fold_thread: Optional[threading.Thread] = None
+        if overlap_depth > 0:
+            self._handoff = queue.Queue(maxsize=overlap_depth)
+            # the ring's captures run here, before the fold thread exists
+            with self._lock, self._on_device():
+                self._ensure_ring()
+            self._start_fold_worker()
         if window_s is not None:
             self.start_window_timer()
 
@@ -493,6 +560,8 @@ class TorchSketchExporter:
         self.pending = staging.PendingEventBuffer(
             self.batch_size, getattr(ring, "superbatch_max", 1),
             metrics=self._metrics)
+        if self._overload is not None:
+            ring.slot_wait_budget_s = self._shed_slot_budget_s
         self.ring = ring
         if isinstance(ring, staging.DenseStagingRing):
             ring.warm(self.state)
@@ -514,16 +583,111 @@ class TorchSketchExporter:
     # ------------------------------------------------------------ folds
 
     def export_evicted(self, evicted: EvictedFlows) -> None:
-        """Take one eviction into the pending buffer, which folds its
-        batch-aligned rows and keeps the sub-batch tail; close the window
-        if its deadline passed. A fold that fails is contained (module
-        docstring)."""
+        """Take one eviction: with the overlap, put it into the handoff
+        (blocking while it is full) and return; else admit and fold it
+        here (`_export_evicted_now`, reference `tpu_sketch.py:1218-1233`).
+        A fold that fails is contained (module docstring)."""
         self._check_open()
+        if self._handoff is not None:
+            with self._inflight_lock:
+                self._inflight_rows += len(evicted)
+            self._handoff.put(evicted)
+            return
+        self._export_evicted_now(evicted)
+
+    def _queued_overlap_rows(self) -> int:
+        """Rows in the overlap handoff, not yet taken by the fold thread (0
+        without one): part of the pending depth the controller sees. The
+        eviction in hand was taken off before its own update, so it never
+        counts twice (`tpu_sketch.py:1235-1243`)."""
+        if self._handoff is None:
+            return 0
+        with self._inflight_lock:
+            return self._inflight_rows
+
+    def _export_evicted_now(self, evicted: EvictedFlows) -> None:
+        """Under the lock: admit the eviction through the controller, if
+        any, take it into the pending buffer, which folds its batch-aligned
+        rows and keeps the sub-batch tail, and close the window if its
+        deadline passed (`tpu_sketch.py:1245-1298`)."""
         with self._lock:
             self._ensure_ring()
+            ctl = self._overload
+            if ctl is not None:
+                # busy: fold seconds per wall second since the last arrival
+                now = time.perf_counter()
+                last, self._busy_last_t = self._busy_last_t, now
+                if last is not None:
+                    inst = min(1.0, self._busy_fold_s
+                               / max(now - last, 1e-6))
+                    self._busy_ewma = 0.5 * self._busy_ewma + 0.5 * inst
+                self._busy_fold_s = 0.0
+                ctl.update(self.pending.n + len(evicted)
+                           + self._queued_overlap_rows(),
+                           self.ring.slot_wait_p95(), busy=self._busy_ewma)
+                evicted = ctl.admit(evicted)
             self.pending.append(evicted, self._fold_events)
             if self._due():
                 self._close_window_locked()
+
+    def _start_fold_worker(self) -> None:
+        """(Re)start the overlap fold thread; a supervisor uses this as the
+        "sketch-fold" stage's restart callable."""
+        self._fold_thread = threading.Thread(
+            target=self._fold_loop, name="sketch-fold", daemon=True)
+        self._fold_thread.start()
+
+    def _fold_loop(self) -> None:
+        """Take each handoff item and fold it on the exporter's device
+        (`tpu_sketch.py:1308-1327`)."""
+        with self._on_device():
+            while not self._closed.is_set():
+                self.fold_heartbeat()
+                try:
+                    evicted = self._handoff.get(timeout=0.2)
+                except queue.Empty:
+                    continue
+                self._fold_handed_off(evicted)
+
+    def _fold_handed_off(self, evicted: EvictedFlows) -> None:
+        """Admit and fold one handoff item; a batch whose fold path raises
+        is dropped and counted, and the caller lives on."""
+        try:
+            with self._inflight_lock:
+                self._inflight_rows -= len(evicted)
+            self._export_evicted_now(evicted)
+        except Exception as exc:
+            log.error("overlap fold failed (batch of %d dropped): %s",
+                      len(evicted), exc)
+            if self._metrics is not None:
+                self._metrics.count_error("tpu-sketch")
+        finally:
+            self._handoff.task_done()
+
+    def _drain_handoff(self, timeout_s: float = 30.0) -> None:
+        """Wait until every handed-off eviction is folded, at most
+        `timeout_s`; a dead fold thread returns at once (`close` folds what
+        it left) (`tpu_sketch.py:1329-1341`)."""
+        if self._handoff is None:
+            return
+        deadline = time.monotonic() + timeout_s
+        while self._handoff.unfinished_tasks and \
+                time.monotonic() < deadline:
+            if (self._fold_thread is None
+                    or not self._fold_thread.is_alive()):
+                return
+            time.sleep(0.005)
+
+    def _fold_leftovers(self) -> None:
+        """Fold what the handoff still holds on this thread (`close`, after
+        the fold thread's join)."""
+        with self._on_device():
+            while True:
+                try:
+                    evicted = self._handoff.get_nowait()
+                except queue.Empty:
+                    return
+                self._fold_handed_off(evicted)
 
     def fold_events(self, events: np.ndarray, extra=None, dns=None,
                     drops=None, xlat=None, quic=None) -> None:
@@ -545,12 +709,28 @@ class TorchSketchExporter:
             with trace.stage("fold"):
                 faultinject.fire("sketch.ingest")
                 self.ring.fold(self.state, events, trace=trace, **feats)
+        except staging.StagingWedged as exc:
+            # the slot-wait budget tripped at a chunk boundary: the rows not
+            # yet packed drop, with no slot committed for them, so no epoch
+            # roll; the chunks before it dispatched into exc.state, the
+            # state itself (updated in place)
+            if exc.state is not None:
+                self.state = exc.state
+            log.error("staging slot-wait budget exceeded (up to %d rows "
+                      "dropped): %s", n, exc)
+            self.ingest_errors += 1
+            if self._metrics is not None:
+                self._metrics.sketch_ingest_errors_total.inc()
+                self._metrics.count_error("tpu-sketch-ingest")
+            return
         except Exception as exc:
             self._count_ingest_error(n, exc)
             return
         finally:
             self.folds += self.ring.chunks - chunks
             trace.finish()
+            if self._overload is not None:
+                self._busy_fold_s += time.perf_counter() - t0
         self._count_fold(n, t0)
 
     def _count_fold(self, n: int, t0: float) -> None:
@@ -665,7 +845,8 @@ class TorchSketchExporter:
 
     def _drain_pending(self) -> None:
         """Fold the pending buffer's rows, a partial batch included
-        (reference `_drain_pending_locked`, `tpu_sketch.py:1427-1431`)."""
+        (reference `_drain_pending_locked`, `tpu_sketch.py:1427-1444`,
+        without its tenant part); a wedged fold is `_fold_events`'s."""
         if self.pending is not None:
             self.pending.flush_to(self._fold_events)
 
@@ -690,6 +871,9 @@ class TorchSketchExporter:
         The delta frame, rendering, the query snapshot, the sink and the
         archive are `_publish_queued`'s (`tpu_sketch.py:1691-1738`)."""
         self._deadline = self._next_deadline()
+        if self._overload is not None:
+            # a window with no pressure snaps the shed factor back to 1
+            self._overload.window_roll()
         with wtrace.stage("roll_dispatch"):
             with self._roll_mutex:
                 tables = (sk.state_tables(self.state)
@@ -878,12 +1062,29 @@ class TorchSketchExporter:
         with wtrace.stage("delta_push"):
             self._delta_sink(frame)
 
+    @property
+    def overloaded(self) -> bool:
+        """True while the overload controller sheds (the OVERLOADED
+        condition; False without a controller)."""
+        return self._overload is not None and self._overload.overloaded
+
+    def overload_snapshot(self) -> Optional[dict]:
+        """The controller's state for the health surface (None without
+        one)."""
+        return None if self._overload is None else self._overload.snapshot()
+
+    def note_map_occupancy(self, ratio: float) -> None:
+        """Keep the kernel map's occupancy at its last drain for the
+        frames' telemetry (a map tracer's occupancy sink)."""
+        self._map_occupancy = float(ratio)
+
     def _telemetry_block(self, records: int) -> dict:
         """The frame's agent telemetry, from values the exporter holds
         (`tpu_sketch.py:1095-1126`): the records/s EWMA over publishes
-        (alpha 0.3, the first window seeds it); shed factor 1.0 until
-        overload control (A4.5); ALERTING while the alert engine has an
-        active alert."""
+        (alpha 0.3, the first window seeds it); the controller's shed
+        factor (1.0 without one); OVERLOADED while it sheds and ALERTING
+        while the alert engine has an active alert; the map occupancy
+        last noted."""
         now = time.monotonic()
         if self._last_publish_mono is not None:
             elapsed = max(now - self._last_publish_mono, 1e-6)
@@ -893,6 +1094,8 @@ class TorchSketchExporter:
                                     + 0.7 * self._host_rate_ewma)
         self._last_publish_mono = now
         conditions = []
+        if self.overloaded:
+            conditions.append("OVERLOADED")
         eng = self._alerts
         if eng is not None:
             try:
@@ -900,13 +1103,12 @@ class TorchSketchExporter:
                     conditions.append("ALERTING")
             except Exception:  # telemetry never loses the frame
                 pass
+        ctl = self._overload
         return {
-            "shed_factor": 1.0,
+            "shed_factor": float(ctl.shed) if ctl is not None else 1.0,
             "conditions": conditions,
             "host_records_per_s": round(self._host_rate_ewma, 3),
-            # the kernel map's occupancy comes from the map tracer, which
-            # the port does not have yet
-            "map_occupancy": 0.0,
+            "map_occupancy": round(self._map_occupancy, 6),
             "windows_published": self._windows_published,
         }
 
@@ -935,9 +1137,9 @@ class TorchSketchExporter:
         without the tenant block)."""
         snap = self.query.get()
         st = self.query.stats()
-        # no overload controller sheds yet (ROADMAP A4.5)
         st.update({"agent_id": self._agent_id, "window_s": self.window_s,
-                   "refresh_s": self._query_refresh_s, "overloaded": False})
+                   "refresh_s": self._query_refresh_s,
+                   "overloaded": self.overloaded})
         if self._alerts is not None:
             st["alerts"] = self._alerts.summary()
         if self._archive is not None:
@@ -1054,8 +1256,10 @@ class TorchSketchExporter:
         return entry.out
 
     def flush(self) -> None:
-        """Fold the pending rows, close the window now and publish its
-        report synchronously (`tpu_sketch.py:1462-1470`)."""
+        """Fold the handed-off evictions and the pending rows, close the
+        window now and publish its report synchronously
+        (`tpu_sketch.py:1462-1470`)."""
+        self._drain_handoff()
         self.roll()
 
     @property
@@ -1073,14 +1277,33 @@ class TorchSketchExporter:
 
     def register_supervised(self, supervisor, heartbeat_timeout_s=None,
                             **kwargs) -> None:
-        """Register the window thread with a supervisor (the reference's
-        `Supervisor.register` signature); its heartbeat deadline rides on
-        top of the thread's poll period."""
-        self.heartbeat = supervisor.register(
-            "sketch-window", restart=self.start_window_timer,
-            thread_getter=lambda: self._timer,
-            heartbeat_timeout_s=(heartbeat_timeout_s or 10.0)
-            + self._window_poll_s, **kwargs)
+        """Register with a supervisor of the reference's signature
+        (`tpu_sketch.py:954-1001`): the window thread, its heartbeat
+        deadline on top of the thread's poll period; the `overloaded`
+        condition with a controller and the `alerting` one with an alert
+        engine, where the supervisor takes conditions; and the fold thread,
+        its deadline 0.2 s above the timeout, where there is one. With
+        `window_s=None` there is no window thread to register."""
+        if self.window_s is not None:
+            self.heartbeat = supervisor.register(
+                "sketch-window", restart=self.start_window_timer,
+                thread_getter=lambda: self._timer,
+                heartbeat_timeout_s=(heartbeat_timeout_s or 10.0)
+                + self._window_poll_s, **kwargs)
+        conditions = hasattr(supervisor, "register_condition")
+        ctl = self._overload
+        if ctl is not None and conditions:
+            supervisor.register_condition(
+                "overloaded",
+                lambda: {"active": ctl.overloaded, **ctl.snapshot()})
+        if self._alerts is not None and conditions:
+            supervisor.register_condition("alerting", self._alerts.condition)
+        if self._handoff is not None:
+            self.fold_heartbeat = supervisor.register(
+                "sketch-fold", restart=self._start_fold_worker,
+                thread_getter=lambda: self._fold_thread,
+                heartbeat_timeout_s=(heartbeat_timeout_s or 10.0) + 0.2,
+                **kwargs)
 
     def _window_loop(self) -> None:
         """Close a window whose deadline passed, then publish the queue
@@ -1109,7 +1332,9 @@ class TorchSketchExporter:
             self._maybe_refresh_query()
 
     def close(self) -> None:
-        """Stop the window thread (within 10 s when a refresh may be running,
+        """Stop the fold thread (after the handoff drains, at most 30 s,
+        and a 10 s join) and fold what it left here, each batch contained;
+        stop the window thread (within 10 s when a refresh may be running,
         else 2 s), publish the last window (`flush`) and write its staged
         checkpoint, close the checkpointer, the sink and the delta sink
         where they have `close`, wait for the device, and drop the buffers,
@@ -1118,6 +1343,10 @@ class TorchSketchExporter:
         if self._closed.is_set():
             return
         self._closed.set()
+        if self._fold_thread is not None:
+            self._drain_handoff()
+            self._fold_thread.join(timeout=10.0)
+            self._fold_leftovers()
         if self._timer is not None:
             self._timer.join(timeout=10.0 if self._query_refresh_s else 2.0)
         self._roll_now()

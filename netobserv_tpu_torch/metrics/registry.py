@@ -12,11 +12,15 @@ alerting planes' (`query_requests_total`, `query_snapshot_age_seconds`,
 `alert_eval_seconds`, `:303-340`); the federation plane's
 (`federation_*`, `:401-450`, with `remove_labeled`); and the archive's
 and the aggregator's checkpoints' (`archive_*`,
-`federation_checkpoints_total`, `:452-480`). Each family has the
+`federation_checkpoints_total`, `:452-480`); the overload controller's
+(`sketch_shed_factor`, `sketch_shed_rows_total`,
+`sketch_shed_batches_total`, `:199-215`) and the supervisor's
+(`stage_failures_total`, `stage_restarts_total`, `stage_degraded`,
+`:352-366`, with `count_stage_failure`, `count_stage_restart` and
+`set_stage_degraded`, `:530-537`). Each family has the
 reference family's name, type, help text, labels and buckets. The families
-of the agent's other stages (evictions, interfaces, supervision) and of
-overload and tenants come with the steps that port those planes (ROADMAP
-A4-A5).
+of the agent's other stages (evictions, interfaces) and of tenants come
+with the steps that port those planes (ROADMAP A5, A8).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -119,6 +123,23 @@ class Metrics:
             "coalesced into one fixed-shape device dispatch; a healthy "
             "overloaded host shows mass at the largest k, an idle one at "
             "k=1)", ["k"], registry=self.registry)
+        # overload control plane (sketch/overload.py)
+        self.sketch_shed_factor = Gauge(
+            p + "sketch_shed_factor",
+            "Current 1-in-N load-shedding factor at the exporter seam "
+            "(1 = no shedding). Driven by the AIMD overload controller "
+            "when SKETCH_SHED_WATERMARK is set; surviving rows carry the "
+            "factor in their sampling field so estimates stay unbiased",
+            registry=self.registry)
+        self.sketch_shed_rows_total = Counter(
+            p + "sketch_shed_rows_total",
+            "Rows dropped by overload shedding (unbiased 1-in-N row "
+            "sampling; the surviving rows stand in for these, scaled)",
+            registry=self.registry)
+        self.sketch_shed_batches_total = Counter(
+            p + "sketch_shed_batches_total",
+            "Eviction batches thinned by overload shedding",
+            registry=self.registry)
         self.sketch_slot_wait_seconds = Histogram(
             p + "sketch_slot_wait_seconds",
             "Staging-ring slot wait per fold (time the feed spent blocked "
@@ -168,6 +189,20 @@ class Metrics:
             p + "sketch_window_suspects",
             "Anomaly suspects reported in the last window, by signal",
             ["signal"], registry=self.registry)
+        # supervision layer (agent/supervisor.py)
+        self.stage_failures_total = Counter(
+            p + "stage_failures_total",
+            "Supervised-stage failures detected (crash = dead thread, "
+            "hang = heartbeat deadline exceeded)", ["stage", "kind"],
+            registry=self.registry)
+        self.stage_restarts_total = Counter(
+            p + "stage_restarts_total",
+            "Supervised-stage restarts performed", ["stage"],
+            registry=self.registry)
+        self.stage_degraded = Gauge(
+            p + "stage_degraded",
+            "1 when a stage exhausted its restart budget and was marked "
+            "DEGRADED", ["stage"], registry=self.registry)
         self.sketch_ingest_errors_total = Counter(
             p + "sketch_ingest_errors_total",
             "Device ingest failures absorbed by dropping the batch "
@@ -341,3 +376,12 @@ class Metrics:
 
     def observe_dispatch(self, fn: str, seconds: float) -> None:
         self.executable_dispatch_seconds_total.labels(fn).inc(seconds)
+
+    def count_stage_failure(self, stage: str, kind: str) -> None:
+        self.stage_failures_total.labels(stage, kind).inc()
+
+    def count_stage_restart(self, stage: str) -> None:
+        self.stage_restarts_total.labels(stage).inc()
+
+    def set_stage_degraded(self, stage: str, degraded: bool) -> None:
+        self.stage_degraded.labels(stage).set(1 if degraded else 0)

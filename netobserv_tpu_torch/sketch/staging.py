@@ -46,10 +46,24 @@ the `sketch.staging_wait` fault point (`utils/faultinject`).
 A ring's `fold` raises whatever its pack or dispatch raises: containment
 is the exporter's (`exporter/torch_sketch.py`), as in the reference.
 
-Not here: `StagingWedged` and the slot-wait budget (ROADMAP A4.5), the
-sharded rings of a mesh (A6), and `ShardedResidentStagingRing.fold_packed`
-with `ResidentPackSurface`, which need the reference's fused drain
-pipeline (A7).
+The slot-wait budget (reference `StagingWedged`, `_SlotRing`'s
+`slot_wait_budget_s` and its bounded wait, `sketch/staging.py:33-50`,
+`:250-329`): with `slot_wait_budget_s` set (the exporter sets it when an
+overload controller exists), `_wait_slot` polls the slot's copy event
+(`query()`, 2 ms apart) until the budget runs out, then records the wait
+and raises `StagingWedged`, leaving the event in place, so a later fold
+waits on it again. Every ring raises it at a chunk boundary before it
+packs, so no dictionary slot is committed for the rows it drops
+(reference `:402`, `:612`, `:889`); `StagingWedged.state` is the state the
+ring was folding into, which the port updates in place, so it holds
+exactly the chunks that dispatched before the wait tripped. The token a
+slot waits on is its host-to-device copy event, which follows everything
+queued on the stream before it; the reference's is the ingest that read
+the slot (ROADMAP C5).
+
+Not here: the sharded rings of a mesh (A6), and
+`ShardedResidentStagingRing.fold_packed` with `ResidentPackSurface`,
+which need the reference's fused drain pipeline (A7).
 """
 
 from __future__ import annotations
@@ -67,6 +81,18 @@ from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch.capture import CapturedFold
 from netobserv_tpu_torch.utils import faultinject, tracing
 from netobserv_tpu_torch.utils.platform import pick_device
+
+
+class StagingWedged(RuntimeError):
+    """A fold waited past its ring's slot-wait budget: the device, or its
+    copy stream, is wedged (reference `sketch/staging.py:33-50`). Raised
+    only when `slot_wait_budget_s` is set; the exporter catches it, drops
+    the rows not yet packed (counted, no dictionary epoch roll) and keeps
+    the eviction feed's cadence. `state` is the state the ring was folding
+    into: the port updates it in place, so it is the caller's own object,
+    holding the chunks that dispatched before the trip."""
+
+    state = None
 
 
 def default_spill_cap(batch_size: int) -> int:
@@ -295,6 +321,9 @@ class _SlotRing:
         self._copied: list[Optional[torch.cuda.Event]] = [None] * n_slots
         self._slot = 0
         self.stalls = 0
+        #: the longest one fold waits for a slot, in seconds (None: no
+        #: bound); past it `_wait_slot` raises `StagingWedged`
+        self.slot_wait_budget_s: Optional[float] = None
         self._waits = np.zeros(self.WAIT_WINDOW, np.float64)
         self._wait_i = 0
         self._wait_n = 0
@@ -321,7 +350,9 @@ class _SlotRing:
     def _wait_slot(self, trace=tracing.NULL_TRACE) -> int:
         """The next slot, once the copy out of its host buffer is done. A
         hang armed at the `sketch.staging_wait` fault point models a
-        wedged copy stalling the feed here."""
+        wedged copy stalling the feed here. With `slot_wait_budget_s` the
+        wait polls the copy event and raises `StagingWedged` past the
+        budget, the event left in place (reference `:290-329`)."""
         faultinject.fire("sketch.staging_wait")
         slot = self._slot
         ev = self._copied[slot]
@@ -332,7 +363,18 @@ class _SlotRing:
                 self._metrics.sketch_staging_stalls_total.inc()
             t0 = time.perf_counter()
             with trace.stage("staging_wait"):
-                ev.synchronize()
+                budget = self.slot_wait_budget_s
+                if budget is None:
+                    ev.synchronize()
+                else:
+                    deadline = t0 + budget
+                    while not ev.query():
+                        if time.perf_counter() >= deadline:
+                            self._record_wait(time.perf_counter() - t0)
+                            raise StagingWedged(
+                                f"staging slot busy past the {budget:.2f}s "
+                                "slot-wait budget (device or copy wedged)")
+                        time.sleep(0.002)
             wait_s = time.perf_counter() - t0
             if self._metrics is not None:
                 self._metrics.sketch_slot_wait_seconds.observe(wait_s)
@@ -451,7 +493,11 @@ class ResidentStagingRing(_SlotRing):
                     self.dict_resets += 1
                     if m is not None:
                         m.sketch_resident_dict_epochs_total.inc()
-                slot = self._wait_slot(trace)
+                try:
+                    slot = self._wait_slot(trace)
+                except StagingWedged as exc:
+                    exc.state = state  # the chunks before it dispatched
+                    raise
                 t0 = time.perf_counter()
                 with trace.stage("resident_pack"):
                     buf, consumed = self._pack(
@@ -608,7 +654,11 @@ class DenseStagingRing(_SlotRing):
         feats = dict(extra=extra, dns=dns, drops=drops, xlat=xlat, quic=quic)
         trace, owned = self._fold_trace(trace)
         try:
-            slot = self._wait_slot(trace)
+            try:
+                slot = self._wait_slot(trace)
+            except StagingWedged as exc:
+                exc.state = state  # nothing dispatched
+                raise
             t0 = time.perf_counter()
             with trace.stage("pack"):
                 if self.spill_cap is not None:
@@ -844,7 +894,11 @@ class ShardedResidentStagingRing(_SlotRing):
         first = True
         m = self._metrics
         while any(starts[i] < len(shard_ev[i]) for i in range(nr)):
-            slot = self._wait_slot(trace)
+            try:
+                slot = self._wait_slot(trace)
+            except StagingWedged as exc:
+                exc.state = state  # the chunks before it dispatched
+                raise
             buf = self._bufs[slot]
 
             def pack_region(i):

@@ -22,9 +22,10 @@ encode, inside its own containment), ``federation.delta_ingest`` (each
 frame the aggregator receives, before its decode) and
 ``federation.window_timer`` and ``federation.window_roll`` (the
 aggregator's window thread), ``federation.checkpoint`` (the aggregator's
-checkpoint write, inside its own containment) and
+checkpoint write, inside its own containment),
 ``sketch.archive_write`` (an archive segment write of the exporter or the
-aggregator, inside its own containment).
+aggregator, inside its own containment) and ``sketch.overload_shed``
+(the overload controller's thin of one eviction).
 
 Arming:
 

@@ -45,7 +45,9 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "federation/aggregator.py", "federation/query.py",
                  "utils/atomicio.py", "archive/__init__.py",
                  "archive/segment.py", "archive/store.py",
-                 "archive/query.py", "sketch/checkpoint.py")
+                 "archive/query.py", "sketch/checkpoint.py",
+                 "sketch/overload.py", "agent/__init__.py",
+                 "agent/supervisor.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
