@@ -50,7 +50,8 @@ launch counts set to 0 just before it and read just after:
   window thread on (`window_s` = WINDOW_S), a metrics registry where
   `prometheus_client` imports, tracing at sample 1.0 and a sink that
   takes SINK_SLEEP_S a report, fed the lanes path's eviction stream for
-  about WT_SECONDS of wall. In its third window one fold's first
+  about WT_SECONDS of wall (then on until the last eviction lands in a
+  window with WT_MARGIN_S left). In its third window one fold's first
   dispatch raises after its chunk packed (a seam of this script that
   wraps the ring's ladder entry, not a fault point of the package): the
   exporter must contain it (one ingest error, every lane dictionary's
@@ -204,6 +205,39 @@ launch counts set to 0 just before it and read just after:
   bit to an eager replay with the plain versions fed the same evictions,
   a never-ready copy event standing in at the same slot waits. Every
   number prints beside the card's name and power limit (`card`);
+- the agent entry (`agent_entry`). (a) In process: a `FlowsAgent` of
+  the port built from `config.load_config` (EXPORT=tpu-sketch,
+  SKETCH_BATCH_SIZE=16384, 1 s windows, a CACHE_ACTIVE_TIMEOUT of AE_TICK,
+  the default geometry and lanes) over the port's `FakeFetcher`, which a
+  feeder thread keeps supplied with the lanes path's eviction stream
+  (`_stream_evictions`), at most AE_BACKLOG evictions ahead of the
+  exporter, for AE_SECONDS; then the agent stops as SIGTERM stops it (the
+  map tracer's final eviction, the drains, `close`). It checks: the
+  folds' launches (kernels 1, 2, 4 and the folds launch), no drop, no
+  ingest error, no new capture or retrace, the reports' Records summing
+  to the rows fed, every lane's key table against its dictionary, and
+  each window's pre-roll tables against an exporter fed the same
+  evictions in the same order and rolled after the same ones: under the
+  whole-window bounds of `window_thread` against an eager replay with the
+  plain versions on the production stream, and bit for bit against a
+  captured exporter on an integer-mass copy of it (AE_INT_SECONDS at
+  AE_INT_RATE records/s, so that no per-cell sum passes 2^24). It
+  prints records/s from the first eviction to the last report beside the
+  lanes path's direct `export_evicted` rate and `window_thread`'s, and
+  per eviction the spans `evict` (the map tracer's drain), `limiter`
+  (evicted queue to export queue), `export_wait` and `export` (the
+  terminal's call). (b) As a process: a pcap built with the port's
+  `scenarios/synth.py` (a SYN flood on 10.0.0.80, a port scan, an
+  elephant) replayed by `python3 -m netobserv_tpu_torch` as a child on
+  the card (DATAPATH=pcap:..., METRICS_ENABLE on a free port, 1 s
+  windows): `/healthz` and `/readyz` 200 with status Started, `/metrics`
+  with the eviction families, `/query/status` 200, the flood in a
+  report's SynFloodSuspectBuckets with its victim named, the reports'
+  Records and Bytes equal to the replay fetcher's own totals, SIGTERM
+  ending it with exit 0 within 15 s after publishing its last window;
+  then a DATAPATH=synthetic child that starts, answers `/healthz` and
+  stops on SIGTERM, and one with no DATAPATH that exits 2 naming ROADMAP
+  A8. It prints each child's start-to-Started and SIGTERM-to-exit times;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -437,6 +471,12 @@ EVICT_LARGE = (40_000, 70_000)
 WINDOW_S = 0.5
 SINK_SLEEP_S = 0.2
 WT_SECONDS = 3.75  # ends mid-window: close has a partial window to publish
+#: past WT_SECONDS the feed stops only when its last eviction went into the
+#: open window and that window's deadline is at least this far: a window
+#: closing on its own between the feed's end and `close` (the window thread
+#: may be inside a sink call of SINK_SLEEP_S) would leave `close` an empty
+#: window to publish
+WT_MARGIN_S = 0.3
 WT_FAIL_WINDOW = 2
 #: the v6 share of each batch of the dense-ring pool: the last batch is a
 #: burst past the compact feed's spill lane (B / 8 rows)
@@ -2376,14 +2416,18 @@ def phase_window_thread(specs, universe, pool, events) -> dict:
         gen = _stream_evictions(n_rows)
         fed, samples = [], []
         t_start = time.perf_counter()
-        while time.perf_counter() - t_start < WT_SECONDS:
+        last_open = False  # the last eviction went into the open window
+        while not (time.perf_counter() - t_start >= WT_SECONDS and last_open
+                   and exp._deadline - time.monotonic() >= WT_MARGIN_S):
             if fail.at is None and exp.rolls >= WT_FAIL_WINDOW:
                 fail.arm_next()
             lo, hi = next(gen)
+            rolls = exp.rolls
             t0 = time.perf_counter()
             exp.export_evicted(eviction(lo, hi))
             samples.append((t0, time.perf_counter() - t0))
             fed.append((lo, hi))
+            last_open = exp.rolls == rolls
         torch.cuda.synchronize()
         feed_s = time.perf_counter() - t_start
         captures1 = [c.captures for c in exp.captures]
@@ -4032,7 +4076,8 @@ def _integer_stream(events):
 
 def _health(sup) -> dict:
     """The health source of the reference agent's `health_snapshot`
-    (`agent/agent.py:239-255`), written here: the port has no agent."""
+    (`agent/agent.py:239-255`), written here over a supervisor that no
+    agent owns (the overload phase drives the exporter alone)."""
     conditions = sup.conditions()
     return {"status": "Started", "degraded": sup.degraded,
             "overloaded": bool(conditions.get("overloaded", {})
@@ -4392,18 +4437,22 @@ def phase_overload(specs, universe, pool, events, card: str) -> dict:
         with exp._lock:  # a queued report, and the thread's crash armed
             queued = exp._close_window_locked()
             faultinject.arm("sketch.window_timer", "crash", times=1)
+        # wait for the sink itself: `out` is set before the query snapshot
+        # and the sink call, so a poll between them saw no report there
+        queued_win = int(queued.report.window)
         t1 = time.perf_counter()
         while (restarts.labels("sketch-window")._value.get() < win0 + 1
-               or queued.out is None) and time.perf_counter() - t1 < 15:
+               or queued_win not in [r["Window"] for r in sink.reports]) \
+                and time.perf_counter() - t1 < 15:
             time.sleep(0.01)
         faultinject.clear("sketch.window_timer")
         window_restart_s = time.perf_counter() - t1
         wins = [r["Window"] for r in sink.reports]
         check(queued.out is not None
-              and wins.count(int(queued.report.window)) == 1
+              and wins.count(queued_win) == 1
               and len(wins) == len(set(wins)),
-              f"the queued window {int(queued.report.window)} published "
-              f"{wins.count(int(queued.report.window))} times: {wins}")
+              f"the queued window {queued_win} published "
+              f"{wins.count(queued_win)} times: {wins}")
         check(restarts.labels("sketch-window")._value.get() >= win0 + 1,
               "no window thread restart")
         thread_errors[:] = [e for e in thread_errors
@@ -4580,6 +4629,483 @@ def phase_overload(specs, universe, pool, events, card: str) -> dict:
     check(retrace.total_retraces() == retraces0, "a retrace in the phase")
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+#: the agent_entry phase: seconds of the production stream's feed and of
+#: the integer-mass copy's, the in-process agent's CACHE_ACTIVE_TIMEOUT,
+#: the evictions the feeder keeps ahead of the exporter at most (the
+#: fetcher's, the evicted and the export queues together: the limiter
+#: drops nothing), and the child agent's eviction period over the pcap
+AE_SECONDS = 3.0
+AE_INT_SECONDS = 1.5
+#: the integer-mass copy's feed rate (records/s): at most about 1 M records
+#: a 1 s window keeps every per-cell f32 sum below 2^24 (the hottest key,
+#: about a fifth of the Zipf 1.2 stream at 32 bytes a row on average, puts
+#: some 6.4 bytes a record into its cells), where add order cannot change
+#: a bit; the unthrottled feed passes 2.6 M records a window and breaks it
+AE_INT_RATE = 800_000
+AE_TICK = "2ms"
+AE_BACKLOG = 2
+AE_CHILD_TICK = "200ms"
+#: the eviction families the child's /metrics must carry
+AE_FAMILIES = ("ebpf_agent_evictions_total", "ebpf_agent_evicted_flows_total",
+               "ebpf_agent_evicted_flows_per_drain",
+               "ebpf_agent_lookup_and_delete_map_duration_seconds",
+               "ebpf_agent_map_occupancy_ratio",
+               "ebpf_agent_exported_flows_total")
+
+
+def _lanes_rate(lanes_res: dict) -> float:
+    """The lanes path's steady records/s: its last window's."""
+    return lanes_res["records_per_s"][-1]
+
+
+def _agent_env(**extra) -> dict:
+    return {"EXPORT": "tpu-sketch", "SKETCH_BATCH_SIZE": str(BATCH),
+            "SKETCH_WINDOW": "1s", "CACHE_ACTIVE_TIMEOUT": AE_TICK,
+            "AGENT_IP": "127.0.0.1", **extra}
+
+
+def _pcts(xs) -> dict:
+    import numpy as np
+    if not xs:
+        return {}
+    a = np.asarray(xs)
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "max": float(a.max())}
+
+
+def _agent_run(stream, seconds: float, specs,
+               max_rate: float | None = None) -> dict:
+    """One in-process agent of the port (module docstring, `agent_entry`
+    (a)) fed `stream`'s evictions for `seconds`, at most `max_rate`
+    records/s when given, then stopped; its reports, roll seam, evictions
+    fed and timings."""
+    import threading
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.agent import FlowsAgent, Status
+    from netobserv_tpu_torch.config import load_config
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows, FakeFetcher
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.metrics.registry import Metrics, MetricsSettings
+    from netobserv_tpu_torch.utils import retrace, tracing
+    ev_all, lanes_all = stream
+    cfg = load_config(_agent_env())
+    cfg.validate()
+    metrics = Metrics(MetricsSettings())
+    sink = WindowSink()
+    tracing.configure(sample=1.0, capacity=1 << 14)
+    retraces0 = retrace.total_retraces()
+    exp = TorchSketchExporter.from_config(cfg, metrics=metrics, sink=sink)
+    fake = FakeFetcher()
+    agent = FlowsAgent(cfg, fake, exp, metrics=metrics)
+    marks: dict = {}  # id(eviction) -> [evicted put, export put, start, end]
+
+    def timed_put(q, slot):
+        put = q.put_nowait
+
+        def put_nowait(item):
+            marks.setdefault(id(item), [None] * 4)[slot] = \
+                time.perf_counter()
+            return put(item)
+        q.put_nowait = put_nowait
+
+    timed_put(agent._evicted_q, 0)
+    timed_put(agent._export_q, 1)
+    export = agent.terminal._export
+
+    def timed_export(batch):
+        m = marks[id(batch)]
+        m[2] = time.perf_counter()
+        export(batch)
+        m[3] = time.perf_counter()
+    agent.terminal._export = timed_export
+    objs, fed = [], []
+    gen = _stream_evictions(len(ev_all))
+
+    def backlog() -> int:
+        return (fake._evictions.qsize() + agent._evicted_q.qsize()
+                + agent._export_q.qsize())
+
+    def feeder():
+        t0 = time.perf_counter()
+        rows = 0
+        while time.perf_counter() < t0 + seconds:
+            if backlog() >= AE_BACKLOG or (
+                    max_rate is not None
+                    and rows > max_rate * (time.perf_counter() - t0)):
+                time.sleep(0.0002)
+                continue
+            lo, hi = next(gen)
+            rows += hi - lo
+            ev = EvictedFlows(ev_all[lo:hi],
+                              **{k: v[lo:hi] for k, v in lanes_all.items()})
+            objs.append(ev)
+            fed.append((lo, hi))
+            fake.inject_eviction(ev)
+
+    try:
+        with exp._lock:
+            exp._ensure_ring()  # the ladder's captures, before the clock
+            ring = exp.ring
+            seam = RollSeam(exp)
+        captures0 = [c.captures for c in exp.captures]
+        for s in specs:
+            s["kernel"].launches = 0
+        stop = threading.Event()
+        runner = threading.Thread(target=agent.run, args=(stop,),
+                                  daemon=True)
+        runner.start()
+        deadline = time.monotonic() + 10
+        while agent.status != Status.STARTED and time.monotonic() < deadline:
+            time.sleep(0.001)
+        check(agent.status == Status.STARTED, "the agent did not start")
+        with exp._lock:  # the first window starts with the feed
+            exp._deadline = time.monotonic() + exp.window_s
+        feed = threading.Thread(target=feeder, daemon=True)
+        feed.start()
+        feed.join()
+        rows_fed = sum(hi - lo for lo, hi in fed)
+
+        def exported() -> float:
+            return metrics.exported_flows_total.labels(
+                exp.name)._value.get()
+        deadline = time.monotonic() + 30
+        while exported() < rows_fed and time.monotonic() < deadline:
+            time.sleep(0.001)
+        torch.cuda.synchronize()
+        captures1 = [c.captures for c in exp.captures]  # close drops them
+        t_stop = time.perf_counter()
+        stop.set()
+        runner.join(timeout=30)
+        stop_s = time.perf_counter() - t_stop
+        check(not runner.is_alive() and agent.status == Status.STOPPED,
+              f"the agent did not stop ({agent.status})")
+    finally:
+        tracing.configure(sample=0.0)
+    launches = {s["name"]: s["kernel"].launches for s in specs}
+    traces = [t for t in tracing.snapshot() if t["kind"] == "batch"]
+    dropped = sum(m.value for fam in metrics.dropped_flows_total.collect()
+                  for m in fam.samples if m.name.endswith("_total"))
+    reps = sink.reports
+    check(len(marks) == len(fed) and all(None not in m
+                                         for m in marks.values()),
+          f"{len(marks)} evictions marked of {len(fed)} fed")
+    check(dropped == 0, f"{dropped} rows dropped")
+    check([r["Window"] for r in reps] == list(range(exp.rolls))
+          and exp.reports_published == exp.rolls
+          and exp.reports_shed == 0, f"windows {[r['Window'] for r in reps]}")
+    check(sum(r["Records"] for r in reps) == float(rows_fed)
+          and exp.records == rows_fed and exp.ingest_errors == 0,
+          f"records {sum(r['Records'] for r in reps)}, fed {rows_fed}")
+    check(captures1 == captures0 and retrace.total_retraces() == retraces0,
+          f"captures {captures1} (was {captures0}), retraces "
+          f"{retrace.total_retraces() - retraces0}")
+    want = _want_launches(specs, "lanes", exp.folds)
+    check(launches == want and all(
+        launches[n] > 0 for n, v in want.items() if v),
+        f"launches {launches}, want {want}")
+    t_first = min(m[0] for m in marks.values())
+    t_last = sink.spans[-1][1]
+    ms = [[(b - a) * 1e3 for a, b in zip(m, m[1:])] for m in marks.values()]
+    return {"exp": exp, "ring": ring, "seam": seam, "fed": fed,
+            "reports": reps, "launches": launches,
+            "records_fed": rows_fed, "evictions": len(fed),
+            "windows": exp.rolls, "folds": exp.folds,
+            "lanes": ring.lanes, "feed_seconds": seconds,
+            "records_per_s": rows_fed / (t_last - t_first),
+            "records_per_s_to_last_export": rows_fed / (
+                max(m[3] for m in marks.values()) - t_first),
+            "stop_seconds": stop_s,
+            "evict_ms": _pcts([st["dur_ms"] for t in traces
+                               for st in t["stages"]
+                               if st["stage"] == "evict"]),
+            "limiter_ms": _pcts([m[0] for m in ms]),
+            "export_wait_ms": _pcts([m[1] for m in ms]),
+            "export_ms": _pcts([m[2] for m in ms]),
+            "export_ms_per_16384": float(np.sum([m[2] for m in ms]))
+            * BATCH / rows_fed,
+            "dropped": dropped}
+
+
+def _replay_agent_run(run: dict, stream, specs, plain: bool):
+    """An exporter of the agent's settings fed the same evictions in the
+    same order, rolled after the same ones (the agent's last window
+    closed by `close`): eager with the plain versions and their per-cell
+    add counts (`plain`), or captured with the kernels. Its roll seam."""
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    exp, ev_all, lanes_all = run["exp"], *stream
+    adds, touched = ({}, {}) if plain else (None, None)
+    ctx = (plain_versions(specs, adds, touched) if plain
+           else contextlib.nullcontext())
+    with ctx:
+        exp2 = TorchSketchExporter(
+            exp.cfg, batch_size=exp.batch_size, device="cuda",
+            capture=not plain, sink=_discard, pack_threads=exp.pack_threads,
+            superbatch=exp.superbatch, resident_slots=exp.resident_slots)
+        with exp2._lock:
+            exp2._ensure_ring()
+        seam2 = RollSeam(exp2, adds, touched, keep_state=True)
+        at = [a for a, _, _ in run["seam"].rolls]
+        j = 0
+        for i, (lo, hi) in enumerate(run["fed"]):
+            while j < len(at) - 1 and at[j] == i:
+                exp2.roll()
+                j += 1
+            exp2.export_evicted(EvictedFlows(
+                ev_all[lo:hi], **{k: v[lo:hi] for k, v in lanes_all.items()}))
+        while j < len(at) - 1:
+            exp2.roll()
+            j += 1
+        exp2.close()
+    check(len(seam2.rolls) == len(at), f"{len(seam2.rolls)} replayed rolls, "
+          f"{len(at)} of the agent")
+    return seam2
+
+
+def _read_reports(path) -> list:
+    with open(path) as fh:
+        return [json.loads(x) for x in fh if x.strip()]
+
+
+def _metric(text: str, name: str, label: str = "") -> float:
+    import re
+    m = re.search(rf"^{name}{re.escape(label)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _agent_child(root: str, env: dict, out_dir: str, name: str):
+    """`python3 -m netobserv_tpu_torch` from `root` with `env` over a clean
+    environment (no SKETCH_*, DATAPATH or EXPORT of this one), its
+    standard output and error into files of `out_dir`."""
+    import os
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("SKETCH_", "DATAPATH", "EXPORT",
+                                 "METRICS_", "FAULT_POINTS", "TRACE_"))}
+    base.update(PYTHONPATH=root, AGENT_IP="127.0.0.1", **env)
+    out = open(os.path.join(out_dir, f"{name}.out"), "wb")
+    err = open(os.path.join(out_dir, f"{name}.err"), "wb")
+    proc = subprocess.Popen([sys.executable, "-m", "netobserv_tpu_torch"],
+                            cwd=root, env=base, stdout=out, stderr=err)
+    return proc, out, err
+
+
+def _wait_started(proc, base: str, timeout: float = 90.0) -> float:
+    """Seconds until the child's /healthz answers 200 with status
+    Started."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        check(proc.poll() is None, f"the child exited {proc.returncode} "
+              "before it started")
+        try:
+            code, body = _http_json(base + "/healthz")
+            if code == 200 and body.get("status") == "Started":
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise PhaseError("the child never answered /healthz Started")
+
+
+def _sigterm(proc, timeout: float = 15.0) -> float:
+    import signal
+    import subprocess
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise PhaseError(f"the child outlived SIGTERM by {timeout} s")
+    return time.perf_counter() - t0
+
+
+def _scenario_pcap(path: str):
+    """A SYN flood (300 spoofed sources, victim 10.0.0.80, never
+    answered), a port scan (one source, 600 ports) and an elephant (50
+    packets claiming 60,000 bytes each) over 2 s of capture, built with
+    the port's `scenarios/synth.py` as tests/test_e2e_replay.py and
+    tests/test_scenarios.py build theirs."""
+    from netobserv_tpu_torch.scenarios import synth
+    b = synth.PcapBuilder()
+    for i in range(300):
+        b.add(i * 1000, f"172.16.{i % 250}.{i // 250 + 1}", "10.0.0.80", 6,
+              synth.tcp(1024 + i, 80, 0x02), sport=1024 + i, dport=80)
+    for p in range(600):
+        b.add(400_000 + p * 1000, "192.0.2.7", "10.0.0.9", 6,
+              synth.tcp(40000, 1 + p, 0x02), sport=40000, dport=1 + p)
+    for i in range(50):
+        b.add(1_000_000 + i * 20_000, "10.0.0.1", "10.0.0.2", 6,
+              synth.tcp(5001, 443, 0x18), claim_len=60_000, sport=5001,
+              dport=443)
+    b.write(path)
+    return b
+
+
+def _agent_children(root: str, out_dir: str) -> dict:
+    """`agent_entry` (b): the pcap child, the synthetic child and the one
+    with no DATAPATH (module docstring)."""
+    import os
+    import socket
+    import urllib.request
+    from netobserv_tpu_torch.config import parse_duration
+    from netobserv_tpu_torch.datapath.replay import PcapReplayFetcher
+    pcap = os.path.join(out_dir, "scenario.pcap")
+    _scenario_pcap(pcap)
+    replay = PcapReplayFetcher(pcap, window_s=parse_duration(AE_CHILD_TICK))
+    want_rows = sum(len(w[0]) for w in replay._windows)
+    want_bytes = sum(float(w[0]["stats"]["bytes"].sum())
+                     for w in replay._windows)
+
+    def free_port() -> int:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    out = {"pcap_rows": want_rows, "pcap_bytes": want_bytes,
+           "pcap_evictions": replay.n_windows}
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    proc, fo, fe = _agent_child(root, {
+        "DATAPATH": f"pcap:{pcap}", "EXPORT": "tpu-sketch",
+        "METRICS_ENABLE": "true", "METRICS_SERVER_ADDRESS": "127.0.0.1",
+        "METRICS_SERVER_PORT": str(port), "SKETCH_WINDOW": "1s",
+        "CACHE_ACTIVE_TIMEOUT": AE_CHILD_TICK}, out_dir, "pcap")
+    try:
+        out["pcap_start_to_started_s"] = _wait_started(proc, base)
+        for route in ("/healthz", "/readyz"):
+            code, body = _http_json(base + route)
+            check(code == 200 and body["status"] == "Started",
+                  f"{route}: {code} {body.get('status')}")
+        deadline = time.monotonic() + 60
+        text = ""
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+                text = r.read().decode()
+            if _metric(text, "ebpf_agent_exported_flows_total",
+                       '{exporter="tpu-sketch"}') >= want_rows:
+                break
+            time.sleep(0.02)
+        check(_metric(text, "ebpf_agent_exported_flows_total",
+                      '{exporter="tpu-sketch"}') == want_rows,
+              "the child did not export every row of the pcap")
+        missing = [f for f in AE_FAMILIES if f not in text]
+        check(not missing, f"/metrics lacks {missing}")
+        code, status = _http_json(base + "/query/status")
+        check(code == 200, f"/query/status {code}")
+        fo.flush()
+        before = len(_read_reports(fo.name))
+        out["pcap_sigterm_to_exit_s"] = _sigterm(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+    err = open(fe.name, "rb").read()
+    check(proc.returncode == 0, f"the pcap child exited {proc.returncode}: "
+          f"{err[-2000:]!r}")
+    reps = _read_reports(fo.name)
+    check([r["Window"] for r in reps] == list(range(len(reps))),
+          f"windows {[r['Window'] for r in reps]}")
+    check(len(reps) > before, "SIGTERM published no last window")
+    check(sum(r["Records"] for r in reps) == float(want_rows)
+          and sum(r["Bytes"] for r in reps) == want_bytes,
+          f"records {sum(r['Records'] for r in reps)} of {want_rows}, "
+          f"bytes {sum(r['Bytes'] for r in reps)} of {want_bytes}")
+    floods = [b for r in reps for b in r["SynFloodSuspectBuckets"]]
+    check(any("10.0.0.80" in b["probable_victims"] for b in floods),
+          f"the flood's victim not named: {floods}")
+    out.update(pcap_windows=len(reps), pcap_last_window_records=reps[-1][
+        "Records"], pcap_reports_after_sigterm=len(reps) - before,
+        syn_flood=next(b for b in floods
+                       if "10.0.0.80" in b["probable_victims"]),
+        port_scan_buckets=sum(
+            len(r["PortScanSuspectBuckets"]) for r in reps),
+        query_status_windows=status.get("window"))
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    proc, fo, fe = _agent_child(root, {
+        "DATAPATH": "synthetic", "EXPORT": "tpu-sketch",
+        "METRICS_ENABLE": "true", "METRICS_SERVER_ADDRESS": "127.0.0.1",
+        "METRICS_SERVER_PORT": str(port), "SKETCH_WINDOW": "1s"},
+        out_dir, "synthetic")
+    try:
+        out["synthetic_start_to_started_s"] = _wait_started(proc, base)
+        out["synthetic_sigterm_to_exit_s"] = _sigterm(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+    check(proc.returncode == 0, f"the synthetic child exited "
+          f"{proc.returncode}")
+
+    proc, fo, fe = _agent_child(root, {"EXPORT": "tpu-sketch"}, out_dir,
+                                "no_datapath")
+    try:
+        proc.wait(timeout=90)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+    err = open(fe.name, "rb").read()
+    check(proc.returncode == 2 and b"A8" in err,
+          f"no DATAPATH: exit {proc.returncode}, {err[-500:]!r}")
+    out["no_datapath_exit"] = proc.returncode
+    return out
+
+
+def phase_agent_entry(specs, events, lanes_rate: float, wt_rate: float,
+                      card: str) -> dict:
+    """The port's agent entry on the card (module docstring,
+    `agent_entry`)."""
+    import os
+    import tempfile
+    import numpy as np
+    from netobserv_tpu_torch.sketch import state as sk
+    t_phase = time.perf_counter()
+    stream = LaneFeeder(events).stream
+    run = _agent_run(stream, AE_SECONDS, specs)
+    check(run["windows"] >= 2, f"{run['windows']} windows")
+    kt = key_table_check(run["ring"])
+    seam2 = _replay_agent_run(run, stream, specs, plain=True)
+    cmp = []
+    for w, (reps, rep2) in enumerate(zip(run["seam"].rolls, seam2.rolls)):
+        tables = sk.state_tables(reps[1])
+        tables2 = sk.state_tables(rep2[1])
+        cmp.append(compare_tables(tables, tables2, rep2[2]))
+    ints = _integer_stream(events)
+    irun = _agent_run(ints, AE_INT_SECONDS, specs, max_rate=AE_INT_RATE)
+    iseam = _replay_agent_run(irun, ints, specs, plain=False)
+    for w, (a, b) in enumerate(zip(irun["seam"].rolls, iseam.rolls)):
+        ta, tb = sk.state_tables(a[1]), sk.state_tables(b[1])
+        diff = [k for k in ta if not np.array_equal(ta[k], tb[k])]
+        check(not diff, f"integer window {w}: tables {diff} differ")
+    with tempfile.TemporaryDirectory() as tmp:
+        children = _agent_children(
+            os.path.dirname(os.path.abspath(__file__)), tmp)
+    drop = ("exp", "ring", "seam", "fed", "reports", "launches")
+    return {"phase": "agent_entry", "card": card,
+            "in_process": {k: v for k, v in run.items() if k not in drop},
+            "lanes_path_records_per_s": lanes_rate,
+            "window_thread_records_per_s": wt_rate,
+            "agent_over_lanes": run["records_per_s"] / lanes_rate,
+            "launches": run["launches"], "key_table": kt,
+            "vs_plain_replay": cmp,
+            "integer_windows_exact": irun["windows"],
+            "integer_records_fed": irun["records_fed"],
+            "integer_records_per_window": [r["Records"]
+                                           for r in irun["reports"]],
+            "children": children,
+            "seconds": time.perf_counter() - t_phase}
 
 
 def phase_dense_ring(specs) -> dict:
@@ -4941,6 +5467,11 @@ def main() -> int:
         ov_res = phase_overload(specs, universe, pool, events,
                                 dev["nvidia_smi"])
         emit(ov_res)
+        phase = "agent_entry"
+        ae_res = phase_agent_entry(specs, events,
+                                   _lanes_rate(lanes_res),
+                                   wt_res["records_per_s"], dev["nvidia_smi"])
+        emit(ae_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -4967,6 +5498,7 @@ def main() -> int:
                 "federation": fed_res["launches"],
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
+                "agent_entry": ae_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -1,7 +1,11 @@
-"""Agent orchestration of the port: so far the stage supervisor
-(`supervisor.py`, a copy of `netobserv_tpu/agent/supervisor.py`). The
-agent entry comes with ROADMAP A4.6."""
+"""Agent orchestration of the port: the flow agent (`agent.py`, a copy of
+`netobserv_tpu/agent/agent.py`) and the stage supervisor
+(`supervisor.py`, a copy of `netobserv_tpu/agent/supervisor.py`).
+`python -m netobserv_tpu_torch` runs the agent."""
 
+from netobserv_tpu_torch.agent.agent import (  # noqa: F401
+    FlowsAgent, Status, build_fetcher, resolve_agent_ip,
+)
 from netobserv_tpu_torch.agent.supervisor import (  # noqa: F401
     StageState, Supervisor,
 )

@@ -5,8 +5,9 @@ A copy of `netobserv_tpu/agent/supervisor.py` (lines 1-272): `StageState`,
 exporter's window thread ("sketch-window") and overlapped fold thread
 ("sketch-fold"), and the federation aggregator's window thread, register
 with it (`register_supervised`); the exporter also registers its
-`overloaded` and `alerting` conditions. The agent that owns a supervisor
-in the reference (`agent/agent.py`) is not ported yet (ROADMAP A4.6).
+`overloaded` and `alerting` conditions. The agent (`agent/agent.py`) owns
+one and registers its stages with it: the map tracer, the limiter and the
+terminal ("map-tracer", "capacity-limiter", "exporter").
 
 Every pipeline thread registers with the supervisor: a *thread getter*
 (so crashes — dead threads — are detected), a *restart callable* (the

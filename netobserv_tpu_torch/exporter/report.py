@@ -2,14 +2,13 @@
 
 Counterpart of `netobserv_tpu/exporter/tpu_sketch.py` (`_slot_key_entries`,
 `heavy_identity_index`, `report_to_json`, `_default_sink`,
-`make_report_sink`), a copy with its imports pointed at this package's
-copies of the key layout, thresholds, victim naming and drop-reason names.
+`KafkaReportSink`, `make_report_sink`), a copy with its imports pointed at
+this package's copies of the key layout, thresholds, victim naming,
+drop-reason names and Kafka client (`kafka/producer.py`); `_read_secret`
+is a copy of `netobserv_tpu/exporter/kafka.py:65-69`.
 `SIGNAL_FIELDS`, the signal name of each report's suspect list, is the
 alerting plane's (`alerts/rules.py`), re-exported here. A report's tensors are read through
 `np.asarray` after `report_numpy` has moved them to the host.
-
-Not here: the Kafka report sink (`KafkaReportSink`, with its copy of the
-reference's Kafka client), ROADMAP A4.6.
 """
 
 from __future__ import annotations
@@ -42,14 +41,55 @@ def _default_sink(report: dict) -> None:
     sys.stdout.flush()
 
 
+class KafkaReportSink:
+    """Publishes window reports as JSON Kafka messages, key
+    "sketch_report", one message a report; closeable
+    (`tpu_sketch.py:56-86`). `cfg` is an `AgentConfig`: its `KAFKA_*`
+    settings pick the brokers, topic, acks (0 when `kafka_async`), TLS,
+    SASL and compression."""
+
+    def __init__(self, cfg):
+        from netobserv_tpu_torch.kafka.producer import (
+            KafkaProducer, SASLSettings, TLSSettings,
+        )
+        sasl = SASLSettings(enable=cfg.kafka_enable_sasl,
+                            mechanism=cfg.kafka_sasl_type)
+        if sasl.enable:
+            sasl.username = _read_secret(cfg.kafka_sasl_client_id_path)
+            sasl.password = _read_secret(cfg.kafka_sasl_client_secret_path)
+        self._producer = KafkaProducer(
+            brokers=cfg.kafka_brokers, topic=cfg.kafka_topic,
+            acks=0 if cfg.kafka_async else 1,
+            tls=TLSSettings(
+                enable=cfg.kafka_enable_tls,
+                insecure_skip_verify=cfg.kafka_tls_insecure_skip_verify,
+                ca_path=cfg.kafka_tls_ca_cert_path,
+                cert_path=cfg.kafka_tls_user_cert_path,
+                key_path=cfg.kafka_tls_user_key_path),
+            sasl=sasl, compression=cfg.kafka_compression)
+
+    def __call__(self, report: dict) -> None:
+        self._producer.send_batch([
+            (b"sketch_report",
+             json.dumps(report, separators=(",", ":")).encode())])
+
+    def close(self) -> None:
+        self._producer.close()
+
+
+def _read_secret(path: str) -> str:
+    if not path:
+        return ""
+    with open(path) as fh:
+        return fh.read().strip()
+
+
 def make_report_sink(cfg) -> ReportSink:
-    """The SKETCH_REPORT_SINK switch (`tpu_sketch.py:89-97`): `cfg` is any
-    object with a `sketch_report_sink` setting. "" or "stdout" gives the
-    JSON-lines sink; "kafka" raises, since the port's Kafka sink is not
-    ported yet (ROADMAP A4.6)."""
+    """The SKETCH_REPORT_SINK switch (`tpu_sketch.py:89-97`): "" or
+    "stdout" gives the JSON-lines sink, "kafka" a `KafkaReportSink` over
+    `cfg`'s `KAFKA_*` settings."""
     if cfg.sketch_report_sink == "kafka":
-        raise NotImplementedError("the Kafka report sink is not ported yet "
-                                  "(ROADMAP A4.6)")
+        return KafkaReportSink(cfg)
     if cfg.sketch_report_sink not in ("", "stdout"):
         raise ValueError(
             f"SKETCH_REPORT_SINK={cfg.sketch_report_sink!r} (want "

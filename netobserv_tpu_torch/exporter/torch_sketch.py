@@ -224,8 +224,29 @@ fold thread ("sketch-fold") where there is one, and the `overloaded` and
 `alerting` conditions (`tpu_sketch.py:954-1001`) with any supervisor of
 the reference's signature, such as the port's `agent/supervisor.py`.
 
-Not in this slice: the gRPC delta transport (A4.3's transport), the Kafka
-report sink (A4.6), batch traces riding evictions (the map tracer's),
+**The agent's seam** (`tpu_sketch.py:1004-1078`, `:1208-1216`,
+`:1257-1295`, `:1346-1349`). `name` ("tpu-sketch", the metrics label)
+and `supports_columnar` are the `exporter/base.Exporter` seam: the map
+tracer then forwards evictions as they are, and the terminal stage calls
+`export_evicted`. `export_batch` takes the record path's records, as
+flow events with their RTT, DNS and drop lanes (`_records_to_evicted`,
+the fields the reference's `FlowBatch.from_records` reads), into the
+pending buffer, without admission, as the reference's takes them.
+`from_config` builds the exporter an `AgentConfig` describes
+(`config.py`): the SKETCH_* geometry, batch, window, feed, ladder,
+thresholds, overload, query, alert, archive and checkpoint settings, the
+report sink of SKETCH_REPORT_SINK (stdout or Kafka) and the decay factor
+of SKETCH_WINDOW_MODE=decay. SKETCH_DEVICES "" means the card
+(`pick_device`, which raises without CUDA) and "cpu" the CPU with the
+plain versions; SKETCH_MESH_SHAPE (ROADMAP A6), SKETCH_TENANTS (A5),
+FEDERATION_TARGET (its gRPC sender, A8) and any other SKETCH_DEVICES raise
+`ValueError`. A sampled batch trace riding an eviction (`evicted.trace`,
+the map tracer's) is parked until the next fold, which finishes it with
+its `fold` span; a second one arriving before that fold is finished at
+once. The reference's fused-drain branch (`evicted.packed`) waits for a
+fused drain (ROADMAP A7).
+
+Not in this slice: the gRPC delta transport (A4.3's transport, A8),
 tenants (A5; the routes get no tenant publishers, and a tenant archive
 set waits for them) and the mesh (A6).
 """
@@ -254,8 +275,9 @@ from netobserv_tpu_torch.config import (
 from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
 from netobserv_tpu_torch.exporter.report import (
     SIGNAL_FIELDS, ReportSink, _default_sink, heavy_identity_index,
-    report_numpy, report_to_json,
+    make_report_sink, report_numpy, report_to_json,
 )
+from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.ops.kernels import _build
 from netobserv_tpu_torch.query.routes import QueryRoutes
 from netobserv_tpu_torch.query.snapshot import SnapshotPublisher
@@ -311,6 +333,11 @@ class TorchSketchExporter:
     and the archive; `shed_watermark`, `shed_max`, `shed_slot_budget_s`
     and `shed_seed` the overload controller, and `overlap_depth` the
     overlapped fold thread (module docstring)."""
+
+    #: the `exporter/base.Exporter` seam: the metrics label, and evictions
+    #: taken as they are (`export_evicted`)
+    name = "tpu-sketch"
+    supports_columnar = True
 
     def __init__(self, cfg: sk.SketchConfig = sk.SketchConfig(),
                  batch_size: int = 16384,
@@ -448,6 +475,9 @@ class TorchSketchExporter:
                             if self._capture else None)
         self._dense_ready = False
         self._prev_index: Optional[dict] = None
+        #: a sampled batch trace riding an eviction, parked for the next
+        #: fold, which finishes it
+        self._pending_trace = None
         # folds, rolls and every CUDA call of the window plane hold _lock;
         # _roll_mutex serializes the roll itself; _publish_lock the
         # publishes of the queued reports
@@ -483,6 +513,65 @@ class TorchSketchExporter:
             self._start_fold_worker()
         if window_s is not None:
             self.start_window_timer()
+
+    @classmethod
+    def from_config(cls, cfg, metrics=None, sink=None
+                    ) -> "TorchSketchExporter":
+        """The exporter an `AgentConfig` describes (module docstring,
+        `tpu_sketch.py:1004-1078`); `sink` overrides SKETCH_REPORT_SINK's.
+        A setting that asks for what the port lacks raises `ValueError`
+        naming its ROADMAP item."""
+        from netobserv_tpu_torch.alerts.engine import maybe_engine
+        from netobserv_tpu_torch.archive import maybe_archive
+        if cfg.sketch_mesh_shape:
+            raise ValueError(
+                f"SKETCH_MESH_SHAPE={cfg.sketch_mesh_shape!r}: the port "
+                "folds on one device; the mesh is ROADMAP A6")
+        if cfg.sketch_tenants > 0:
+            raise ValueError(
+                f"SKETCH_TENANTS={cfg.sketch_tenants}: tenant planes are "
+                "ROADMAP A5")
+        if cfg.federation_target:
+            raise ValueError(
+                f"FEDERATION_TARGET={cfg.federation_target!r}: the gRPC "
+                "delta sender (FederationDeltaSink) is ROADMAP A8")
+        if cfg.sketch_devices not in ("", "cpu"):
+            raise ValueError(
+                f"SKETCH_DEVICES={cfg.sketch_devices!r} (want empty, the "
+                "card, or cpu)")
+        device = pick_device("cpu" if cfg.sketch_devices == "cpu" else None)
+        sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
+        if sink is None:
+            sink = make_report_sink(cfg)
+        return cls(
+            sketch_cfg, batch_size=cfg.sketch_batch_size, device=device,
+            window_s=cfg.sketch_window, sink=sink, metrics=metrics,
+            decay_factor=(cfg.sketch_decay_factor
+                          if cfg.sketch_window_mode == "decay" else None),
+            feed=cfg.sketch_feed, pack_threads=cfg.sketch_pack_threads,
+            superbatch=cfg.parsed_superbatch_ladder(),
+            resident_slots=cfg.sketch_resident_slots,
+            scan_fanout_threshold=cfg.sketch_scan_fanout,
+            ddos_z_threshold=cfg.sketch_ddos_z,
+            synflood_min=cfg.sketch_synflood_min,
+            synflood_ratio=cfg.sketch_synflood_ratio,
+            drop_z_threshold=cfg.sketch_drop_z,
+            asym_min_bytes=cfg.sketch_asym_min_bytes,
+            asym_ratio=cfg.sketch_asym_ratio,
+            churn_ascent=cfg.sketch_churn_ascent,
+            churn_min_bytes=cfg.sketch_churn_min_bytes,
+            query_refresh_s=cfg.sketch_query_refresh,
+            query_history=cfg.sketch_query_history,
+            alerts=maybe_engine(cfg, metrics),
+            agent_id=cfg.federation_agent_id,
+            checkpoint_dir=cfg.sketch_checkpoint_dir,
+            checkpoint_every=cfg.sketch_checkpoint_every,
+            archive=maybe_archive(cfg, sketch_cfg, metrics=metrics,
+                                  device=device),
+            shed_watermark=cfg.sketch_shed_watermark,
+            shed_max=cfg.sketch_shed_max,
+            shed_slot_budget_s=cfg.sketch_shed_slot_budget,
+            overlap_depth=cfg.sketch_overlap)
 
     def _maybe_restore(self) -> None:
         """Restore the latest checkpoint into the state in place; a tiered
@@ -595,6 +684,19 @@ class TorchSketchExporter:
             return
         self._export_evicted_now(evicted)
 
+    def export_batch(self, records: list) -> None:
+        """Take the record path's records (`model/record.Record`) as one
+        eviction of flow events into the pending buffer, without admission,
+        and close the window if its deadline passed
+        (`tpu_sketch.py:1208-1216`)."""
+        self._check_open()
+        evicted = _records_to_evicted(records)
+        with self._lock:
+            self._ensure_ring()
+            self.pending.append(evicted, self._fold_events)
+            if self._due():
+                self._close_window_locked()
+
     def _queued_overlap_rows(self) -> int:
         """Rows in the overlap handoff, not yet taken by the fold thread (0
         without one): part of the pending depth the controller sees. The
@@ -609,7 +711,9 @@ class TorchSketchExporter:
         """Under the lock: admit the eviction through the controller, if
         any, take it into the pending buffer, which folds its batch-aligned
         rows and keeps the sub-batch tail, and close the window if its
-        deadline passed (`tpu_sketch.py:1245-1298`)."""
+        deadline passed (`tpu_sketch.py:1245-1298`). A sampled batch
+        trace riding the eviction waits for the next fold."""
+        trace = evicted.trace
         with self._lock:
             self._ensure_ring()
             ctl = self._overload
@@ -626,6 +730,11 @@ class TorchSketchExporter:
                            + self._queued_overlap_rows(),
                            self.ring.slot_wait_p95(), busy=self._busy_ewma)
                 evicted = ctl.admit(evicted)
+            if trace is not None:
+                if self._pending_trace is None:
+                    self._pending_trace = trace  # the next fold finishes it
+                else:
+                    trace.finish()  # two sampled evictions in one fold
             self.pending.append(evicted, self._fold_events)
             if self._due():
                 self._close_window_locked()
@@ -704,7 +813,12 @@ class TorchSketchExporter:
         t0 = time.perf_counter()
         n = len(events)
         chunks = self.ring.chunks
-        trace = tracing.start_trace("fold")
+        # the batch trace of an eviction this fold takes (the gap from its
+        # evict span to this fold span is the export queue's wait), else a
+        # fold trace of its own
+        trace, self._pending_trace = self._pending_trace, None
+        if trace is None:
+            trace = tracing.start_trace("fold")
         try:
             with trace.stage("fold"):
                 faultinject.fire("sketch.ingest")
@@ -1364,3 +1478,36 @@ class TorchSketchExporter:
         self._staging = None
         self._fold_dense = None
         self._host = self._host_u32 = self._dev = None
+
+
+def _records_to_evicted(records: list) -> EvictedFlows:
+    """Records (`model/record.Record`) as one eviction: flow events with the
+    RTT, DNS and drop lanes, from the fields the reference's
+    `FlowBatch.from_records` reads (`model/columnar.py:160-197`)."""
+    n = len(records)
+    events = np.zeros(n, binfmt.FLOW_EVENT_DTYPE)
+    extra = np.zeros(n, binfmt.EXTRA_REC_DTYPE)
+    dns = np.zeros(n, binfmt.DNS_REC_DTYPE)
+    drops = np.zeros(n, binfmt.DROPS_REC_DTYPE)
+    key, st = events["key"], events["stats"]
+    for i, r in enumerate(records):
+        k, f = r.key, r.features
+        key[i]["src_ip"] = np.frombuffer(k.src_ip, np.uint8)
+        key[i]["dst_ip"] = np.frombuffer(k.dst_ip, np.uint8)
+        key[i]["src_port"], key[i]["dst_port"] = k.src_port, k.dst_port
+        key[i]["proto"] = k.proto
+        key[i]["icmp_type"], key[i]["icmp_code"] = k.icmp_type, k.icmp_code
+        st[i]["bytes"], st[i]["packets"] = r.bytes_, r.packets
+        st[i]["tcp_flags"], st[i]["eth_protocol"] = r.tcp_flags, \
+            r.eth_protocol
+        st[i]["direction_first"], st[i]["if_index_first"] = r.direction, \
+            r.if_index
+        st[i]["dscp"], st[i]["sampling"] = r.dscp, r.sampling
+        st[i]["first_seen_ns"], st[i]["last_seen_ns"] = r.mono_start_ns, \
+            r.mono_end_ns
+        extra[i]["rtt_ns"] = f.rtt_ns
+        dns[i]["latency_ns"], dns[i]["dns_id"] = f.dns_latency_ns, f.dns_id
+        dns[i]["dns_flags"], dns[i]["errno"] = f.dns_flags, f.dns_errno
+        drops[i]["bytes"], drops[i]["packets"] = f.drop_bytes, \
+            f.drop_packets
+    return EvictedFlows(events, dns=dns, drops=drops, extra=extra)

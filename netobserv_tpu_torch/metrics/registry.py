@@ -17,10 +17,23 @@ and the aggregator's checkpoints' (`archive_*`,
 `sketch_shed_batches_total`, `:199-215`) and the supervisor's
 (`stage_failures_total`, `stage_restarts_total`, `stage_degraded`,
 `:352-366`, with `count_stage_failure`, `count_stage_restart` and
-`set_stage_degraded`, `:530-537`). Each family has the
-reference family's name, type, help text, labels and buckets. The families
-of the agent's other stages (evictions, interfaces) and of tenants come
-with the steps that port those planes (ROADMAP A5, A8).
+`set_stage_degraded`, `:530-537`); and the families of the agent's
+stages, the map tracer, the limiter, the terminal and the agent
+(`evictions_total`, `evicted_flows_total`, `dropped_flows_total`,
+`kernel_counters_total`, `exported_*`, `export_errors_total`,
+`buffer_size`, `sampling_rate`, the eviction histograms,
+`flowpack_*`, `host_native_pipeline_seconds`, `map_occupancy_ratio`,
+`map_pressure_evictions_total` and `evict_ringbuf_fallback_total`,
+`:70-143`, `:282-300`, with `observe_eviction`, `count_dropped`,
+`add_global_counter`, `count_exported` and `count_export_error`,
+`:483-506`). Each family has the reference family's name, type, help
+text, labels and buckets. The port's packer raises on an ABI mismatch
+instead of falling back (`datapath/flowpack.py`), so
+`flowpack_abi_fallback_total` stays 0; no port datapath takes the fused
+drain, so `flowpack_native_calls_total` and
+`host_native_pipeline_seconds` stay empty. The families of the
+interfaces and the ring buffer, and of tenants, come with the steps that
+port those planes (ROADMAP A5, A8).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -32,6 +45,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from netobserv_tpu_torch.model.flow import GlobalCounter
+
 def exposition(registry) -> tuple[bytes, str]:
     """The text exposition of a `CollectorRegistry` and its content type
     (what the reference's server writes for `/metrics`)."""
@@ -40,14 +55,26 @@ def exposition(registry) -> tuple[bytes, str]:
     return generate_latest(registry), CONTENT_TYPE_LATEST
 
 
+LEVELS = ("info", "debug", "trace")
+
+
 @dataclass
 class MetricsSettings:
-    """The family prefix of the reference's settings
-    (`metrics/registry.py:37-48`); its verbosity level and series TTL
-    serve the agent's interface-event families, which the port does not
-    have."""
+    """The family prefix and verbosity level of the reference's settings
+    (`metrics/registry.py:37-48`). The level is checked as the
+    reference checks it (METRICS_LEVEL), and selects nothing here: it
+    sets the cardinality of the interface-event families, which the port
+    does not have (ROADMAP A8), as it does not have their series TTL."""
 
     prefix: str = "ebpf_agent_"
+    level: str = "info"
+
+    def normalized_level(self) -> str:
+        lvl = self.level.rstrip("!").lower()  # reference spells trace "trace!"
+        if lvl not in LEVELS:
+            raise ValueError(
+                f"invalid METRICS_LEVEL {self.level!r} (one of {LEVELS})")
+        return lvl
 
 
 class Metrics:
@@ -62,6 +89,7 @@ class Metrics:
         if settings is None:
             settings = MetricsSettings()
         self.settings = settings
+        self.level = settings.normalized_level()
         self.registry = (registry if registry is not None
                          else CollectorRegistry())
         p = settings.prefix
@@ -69,6 +97,91 @@ class Metrics:
         self.errors_total = Counter(
             p + "errors_total", "Agent errors by component and severity",
             ["component", "severity"], registry=self.registry)
+        # the agent's stages: map tracer, limiter, terminal, agent
+        self.evictions_total = Counter(
+            p + "evictions_total", "Eviction cycles", ["source"],
+            registry=self.registry)
+        self.evicted_flows_total = Counter(
+            p + "evicted_flows_total", "Flows evicted", ["source"],
+            registry=self.registry)
+        self.dropped_flows_total = Counter(
+            p + "dropped_flows_total", "Flows dropped by the pipeline",
+            ["source"], registry=self.registry)
+        self.kernel_counters_total = Counter(
+            p + "kernel_counters_total",
+            "Datapath global counters (scraped each eviction)", ["name"],
+            registry=self.registry)
+        self.exported_batches_total = Counter(
+            p + "exported_batches_total", "Batches exported", ["exporter"],
+            registry=self.registry)
+        self.exported_flows_total = Counter(
+            p + "exported_flows_total", "Flows exported", ["exporter"],
+            registry=self.registry)
+        self.export_errors_total = Counter(
+            p + "export_errors_total", "Export errors", ["exporter", "error"],
+            registry=self.registry)
+        self.buffer_size = Gauge(
+            p + "buffer_size", "Pipeline buffer occupancy", ["name"],
+            registry=self.registry)
+        self.sampling_rate = Gauge(
+            p + "sampling_rate", "Configured sampling (1/N; 0=all)",
+            registry=self.registry)
+        self.eviction_seconds = Histogram(
+            p + "lookup_and_delete_map_duration_seconds",
+            "Map eviction (lookup+delete) latency",
+            buckets=(.001, .005, .01, .025, .05, .1, .25, .5, 1, 2.5, 5),
+            registry=self.registry)
+        self.eviction_decode_seconds = Histogram(
+            p + "eviction_decode_seconds",
+            "Columnar eviction-plane latency per drain (decode + per-CPU "
+            "merge + key alignment, the userspace half of an eviction)",
+            buckets=(.0001, .0005, .001, .005, .01, .05, .1, .5, 1),
+            registry=self.registry)
+        self.evicted_flows_per_drain = Histogram(
+            p + "evicted_flows_per_drain",
+            "Flows returned by one map drain (eviction batch size)",
+            buckets=(0, 10, 100, 1000, 10000, 100000, 1000000),
+            registry=self.registry)
+        self.flowpack_abi_fallback_total = Counter(
+            p + "flowpack_abi_fallback_total",
+            "Native flowpack library loads that failed (missing .so or "
+            "stale ABI) — the pure-python twins carried the host path; "
+            "rebuild with `make native`", registry=self.registry)
+        self.flowpack_native_calls_total = Counter(
+            p + "flowpack_native_calls_total",
+            "Eviction drains by host path while EVICT_NATIVE_PIPELINE is "
+            "enabled (fused = one fp_drain_to_resident native call; chain "
+            "= the python island chain, incl. the batch-support probe "
+            "drain)", ["path"], registry=self.registry)
+        self.host_native_pipeline_seconds = Histogram(
+            p + "host_native_pipeline_seconds",
+            "Per-stage seconds inside the fused native drain pipeline "
+            "(drain = batched bpf(2) syscalls, merge = per-CPU columnar "
+            "merge, join = key join + feature alignment, pack = resident "
+            "region pack)", ["stage"],
+            buckets=(.0001, .0005, .001, .005, .01, .05, .1, .5),
+            registry=self.registry)
+        self.map_occupancy_ratio = Histogram(
+            p + "map_occupancy_ratio",
+            "Kernel aggregation-map occupancy at each drain, as a "
+            "fraction of the map capacity (the probed max_entries in "
+            "bpfman mode, else CACHE_MAX_FLOWS; mass near 1.0 means the "
+            "map fills between evictions — the ringbuf fallback engages)",
+            buckets=(.1, .25, .5, .75, .9, .95, 1.0),
+            registry=self.registry)
+        self.map_pressure_evictions_total = Counter(
+            p + "map_pressure_evictions_total",
+            "Early (half-period) evictions triggered by the map-occupancy "
+            "watermark (MAP_PRESSURE_WATERMARK)", registry=self.registry)
+        self.evict_ringbuf_fallback_total = Counter(
+            p + "evict_ringbuf_fallback_total",
+            "Feature rows whose flow was missing from the aggregation "
+            "drain and became standalone appended events (ringbuf-fallback "
+            "singles or a racing eviction — the one bounded double-count "
+            "overload path, shared with the reference)",
+            registry=self.registry)
+        # query plane (netobserv_tpu/query + the /query/* routes on the
+        # metrics server)
         self.sketch_batches_total = Counter(
             p + "sketch_batches_total", "Columnar batches folded on device",
             registry=self.registry)
@@ -355,6 +468,28 @@ class Metrics:
             "only rule walk on the timer thread; sink I/O excluded)",
             buckets=(.0001, .0005, .001, .005, .01, .05, .1, .5),
             registry=self.registry)
+
+    def observe_eviction(self, source: str, n_flows: int, seconds: float) -> None:
+        self.evictions_total.labels(source).inc()
+        if n_flows:
+            self.evicted_flows_total.labels(source).inc(n_flows)
+        if seconds > 0:
+            self.eviction_seconds.observe(seconds)
+
+    def count_dropped(self, n: int, source: str) -> None:
+        self.dropped_flows_total.labels(source).inc(n)
+
+    def add_global_counter(self, key: GlobalCounter, val: int) -> None:
+        if val:
+            self.kernel_counters_total.labels(key.name.lower()).inc(val)
+
+    def count_exported(self, exporter: str, n_flows: int) -> None:
+        self.exported_batches_total.labels(exporter).inc()
+        if n_flows:
+            self.exported_flows_total.labels(exporter).inc(n_flows)
+
+    def count_export_error(self, exporter: str, error: str) -> None:
+        self.export_errors_total.labels(exporter, error).inc()
 
     def count_error(self, component: str, severity: str = "error") -> None:
         self.errors_total.labels(component, severity).inc()

@@ -52,12 +52,18 @@ cannot hold, before the first in-place update of a table or a key table:
 the reference's jitted ingest folds a batch whole or not at all, and an
 eager ingest that raised midway would leave its tables partly folded.
 
+`SketchConfig.from_agent_config` is a copy of the reference's
+(`:70-87`) without `use_pallas`: on CUDA the port always folds through
+its kernels. It reads SKETCH_USE_PALLAS, which selects nothing here, and
+logs a warning once when it asks for no kernels.
+
 Not in this slice: the owner-sharded ingest (`sketch_axis`) raises
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Mapping, NamedTuple
 
 import numpy as np
@@ -76,6 +82,9 @@ from netobserv_tpu_torch.ops.kernels import (
 from netobserv_tpu_torch.sketch import tiered
 from netobserv_tpu_torch.utils.platform import pick_device
 
+log = logging.getLogger("netobserv_tpu_torch.sketch.state")
+#: whether the SKETCH_USE_PALLAS warning was logged (once a process)
+_use_pallas_warned = False
 
 class SketchConfig(NamedTuple):
     cm_depth: int = 4
@@ -96,6 +105,30 @@ class SketchConfig(NamedTuple):
     #: tiered counter planes (SKETCH_TIERED): a tiered.TierSpec keeps the
     #: CM planes and HLL banks resident narrow; None keeps them wide
     tiered: tiered.TierSpec | None = None
+
+    @classmethod
+    def from_agent_config(cls, cfg) -> "SketchConfig":
+        """The geometry of an `AgentConfig` (`config.py`): SKETCH_CM_DEPTH,
+        SKETCH_CM_WIDTH, SKETCH_HLL_PRECISION, SKETCH_TOPK,
+        SKETCH_EWMA_ALPHA and, with SKETCH_TIERED, the tier geometry."""
+        global _use_pallas_warned
+        raw = str(cfg.sketch_use_pallas).strip().lower()
+        if raw not in ("auto", "", "1", "true", "yes", "on") \
+                and not _use_pallas_warned:
+            _use_pallas_warned = True
+            log.warning("SKETCH_USE_PALLAS=%s selects nothing in the port: "
+                        "on CUDA every fold runs its CUDA kernels",
+                        cfg.sketch_use_pallas)
+        tiers = None
+        if getattr(cfg, "sketch_tiered", False):
+            tiers = tiered.TierSpec(
+                mid_group=cfg.sketch_tier_mid_group,
+                top_group=cfg.sketch_tier_top_group,
+                bytes_unit=cfg.sketch_tier_bytes_unit)
+        return cls(cm_depth=cfg.sketch_cm_depth, cm_width=cfg.sketch_cm_width,
+                   hll_precision=cfg.sketch_hll_precision,
+                   topk=cfg.sketch_topk, ewma_alpha=cfg.sketch_ewma_alpha,
+                   tiered=tiers)
 
 
 class SketchState(NamedTuple):

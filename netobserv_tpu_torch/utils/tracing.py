@@ -1,8 +1,11 @@
 """Flight recorder: sampled end-to-end batch tracing with stage spans.
 
 A copy of `netobserv_tpu/utils/tracing.py` (lines 1-443) without the
-per-thread active trace (the map tracer's drain, which the port does not
-have yet). `context_of` serves the delta frame's sender; `continue_trace`
+per-thread active trace (`set_active`, `clear_active`, `active_trace`,
+`:402-423`), which only the kernel drains read (ROADMAP A8). The map
+tracer (`flow/map_tracer.py`) births a "batch" trace at each eviction
+(span `evict`) and hangs a sampled one on the eviction; the exporter's
+next fold finishes it (span `fold` and the ring's spans). `context_of` serves the delta frame's sender; `continue_trace`
 (its receiver) and trace groups (`group`, `TraceGroup`) serve the
 federation aggregator, which continues a sampled agent's trace and parks
 it until the window it fed closes.

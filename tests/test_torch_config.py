@@ -1,0 +1,330 @@
+"""The port's agent settings (netobserv_tpu_torch/config.py: `AgentConfig`,
+`load_config`, `validate`; sketch/state.py `SketchConfig.
+from_agent_config`; exporter/torch_sketch.py `TorchSketchExporter.
+from_config`; exporter.build_exporter) against the JAX package's, on the
+CPU.
+
+- `load_config` of both packages gives equal configurations
+  (`dataclasses.asdict`) over a set of environments: the default, every
+  SKETCH_* and KAFKA_* field set, durations, booleans and lists in every
+  spelling, set-but-empty values; a malformed value raises `ValueError`
+  in both, and so does `validate` on an invalid configuration.
+- `from_config` with SKETCH_DEVICES=cpu builds an exporter whose
+  geometry, batch, window, feed, ladder, lanes, thresholds, overload,
+  query, alert, archive, checkpoint and decay settings and sink type are
+  the JAX `TpuSketchExporter.from_config`'s on the same environment.
+- Every setting the port has not ported raises `ValueError` naming its
+  ROADMAP item.
+"""
+
+import dataclasses
+
+import pytest
+
+import tests.conftest  # noqa: F401
+import jax
+from netobserv_tpu import config as jcfg
+from netobserv_tpu.exporter.tpu_sketch import TpuSketchExporter
+from netobserv_tpu.sketch import state as js
+from netobserv_tpu_torch import config as tcfg
+from netobserv_tpu_torch.exporter import build_exporter
+from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+from netobserv_tpu_torch.sketch import state as ts
+
+#: a value of each type, unlike every default
+_VALUES = {"int": "7", "float": "0.25", "bool": "true", "str": "x",
+           "list[str]": "a, b,,c"}
+
+def _fields_with_prefix(*prefixes):
+    return [f for f in dataclasses.fields(jcfg.AgentConfig)
+            if f.metadata["env"].startswith(prefixes)]
+
+
+def _every_sketch_and_kafka_field() -> dict:
+    env = {f.metadata["env"]: ("false" if f.default is True
+                               else _VALUES[f.type])
+           for f in _fields_with_prefix("SKETCH_", "KAFKA_")}
+    env["SKETCH_WINDOW"] = "1m30s"
+    env["SKETCH_SHED_SLOT_BUDGET"] = "250ms"
+    env["SKETCH_QUERY_REFRESH"] = "1.5"
+    return env
+
+
+ENVS = {
+    "default": {},
+    "sketch_and_kafka": _every_sketch_and_kafka_field(),
+    "durations": {"CACHE_ACTIVE_TIMEOUT": "300ms", "SKETCH_WINDOW": "2h",
+                  "LISTEN_POLL_PERIOD": "1m30s",
+                  "STALE_ENTRIES_EVICT_TIMEOUT": "10us",
+                  "SUPERVISOR_CHECK_PERIOD": "5µs",
+                  "SUPERVISOR_BACKOFF_MAX": "2.5",
+                  "SUPERVISOR_HEARTBEAT_TIMEOUT": "100ns",
+                  "FEDERATION_WINDOW": "1h1m1s", "ALERT_WEBHOOK_INTERVAL": ""},
+    "bools_on": {"KAFKA_ASYNC": "0", "KAFKA_ENABLE_TLS": "1",
+                 "SKETCH_TIERED": " True ", "METRICS_ENABLE": "yes",
+                 "ENABLE_RTT": "on", "FORCE_GARBAGE_COLLECTION": "off",
+                 "SUPERVISOR_ENABLE": "no", "ENABLE_PCA": "TRUE"},
+    "bools_odd": {"KAFKA_ASYNC": "maybe", "SKETCH_TIERED": "",
+                  "METRICS_ENABLE": "2", "ENABLE_DNS_TRACKING": "False"},
+    "lists_and_empty": {"KAFKA_BROKERS": "b1:9092 , b2:9093,",
+                        "EXCLUDE_INTERFACES": "", "INTERFACES": "eth0,eth1",
+                        "KAFKA_TOPIC": "", "SKETCH_BATCH_SIZE": "",
+                        "FLOWS_TARGET_HOST": "h", "FLOWS_TARGET_PORT": "9",
+                        "ENABLE_PCA": "true", "PCA_SERVER_PORT": "7"},
+    "agent_run": {"EXPORT": "tpu-sketch", "DATAPATH": "pcap:/x.pcap",
+                  "CACHE_ACTIVE_TIMEOUT": "100ms", "SKETCH_BATCH_SIZE": "512",
+                  "SKETCH_WINDOW": "3s", "SKETCH_SYNFLOOD_MIN": "128",
+                  "METRICS_LEVEL": "trace!", "LOG_LEVEL": "debug"},
+}
+
+#: environments whose values cannot be read, or which `validate` refuses,
+#: in both packages
+INVALID_LOAD = {"SKETCH_WINDOW": "5x", "SKETCH_BATCH_SIZE": "abc",
+                "SKETCH_DDOS_Z": "high", "CACHE_ACTIVE_TIMEOUT": "1s5"}
+INVALID = [
+    {"EXPORT": "nope"}, {"EXPORT": "grpc"}, {"EXPORT": "kafka"},
+    {"SKETCH_CM_WIDTH": "1000"}, {"SKETCH_HLL_PRECISION": "3"},
+    {"SKETCH_WINDOW_MODE": "slide"},
+    {"SKETCH_WINDOW_MODE": "decay", "SKETCH_DECAY_FACTOR": "1"},
+    {"SKETCH_REPORT_SINK": "file"}, {"SKETCH_SUPERBATCH": "2,4"},
+    {"SKETCH_SUPERBATCH": "1,x"}, {"SKETCH_SUPERBATCH": "1,128"},
+    {"SKETCH_QUERY_REFRESH": "-1"}, {"SKETCH_SHED_WATERMARK": "-1"},
+    {"SKETCH_SHED_MAX": "1"}, {"SKETCH_OVERLAP": "-1"},
+    {"MAP_PRESSURE_WATERMARK": "1.0"}, {"ALERT_RAISE_EVALS": "0"},
+    {"ALERT_RULES": "nope"}, {"ALERT_RULES": "default",
+                              "ALERT_SINKS": "webhook"},
+    {"SKETCH_CHURN_ASCENT": "1"}, {"ALERT_RING": "0"},
+    {"ARCHIVE_COMPACT_GROUP": "1"}, {"ARCHIVE_MERGE_LADDER_MAX": "3"},
+    {"FEDERATION_MODE": "hub"}, {"FEDERATION_TARGET": "nohost"},
+    {"SKETCH_TIERED": "true", "SKETCH_TIER_TOP_GROUP": "16"},
+    {"SKETCH_TENANTS": "-1"}, {"EVICT_DRAIN_LANES": "-1"},
+]
+
+
+@pytest.mark.parametrize("name", sorted(ENVS))
+def test_load_config_equals_the_reference(name):
+    env = ENVS[name]
+    ours, ref = tcfg.load_config(env), jcfg.load_config(env)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert [(f.name, dict(f.metadata)) for f in
+            dataclasses.fields(tcfg.AgentConfig)] == [
+        (f.name, dict(f.metadata)) for f in
+        dataclasses.fields(jcfg.AgentConfig)]
+    assert ours.resolved_pack_threads() == ref.resolved_pack_threads()
+    if name in ("default", "agent_run"):
+        assert ours.parsed_superbatch_ladder() == \
+            ref.parsed_superbatch_ladder()
+
+
+def test_the_sketch_and_kafka_environment_sets_every_field():
+    env = ENVS["sketch_and_kafka"]
+    cfg = tcfg.load_config(env)
+    default = tcfg.AgentConfig()
+    fields = _fields_with_prefix("SKETCH_", "KAFKA_")
+    assert len(fields) > 40
+    for f in fields:
+        assert getattr(cfg, f.name) != getattr(default, f.name), f.name
+
+
+@pytest.mark.parametrize("name", sorted(INVALID_LOAD))
+def test_malformed_values_raise_in_both(name):
+    env = {name: INVALID_LOAD[name]}
+    with pytest.raises(ValueError):
+        jcfg.load_config(env)
+    with pytest.raises(ValueError):
+        tcfg.load_config(env)
+
+
+@pytest.mark.parametrize("env", INVALID, ids=lambda e: ",".join(
+    f"{k}={v}" for k, v in e.items()))
+def test_invalid_configurations_fail_validate_in_both(env):
+    env = {"EXPORT": "tpu-sketch", **env}
+    with pytest.raises(ValueError):
+        jcfg.load_config(env).validate()
+    with pytest.raises(ValueError):
+        tcfg.load_config(env).validate()
+
+
+def test_the_agent_run_configuration_validates_in_both():
+    env = ENVS["agent_run"]
+    jcfg.load_config(env).validate()
+    tcfg.load_config(env).validate()
+
+
+@pytest.mark.parametrize("name,env_name",
+                         [(n, e) for n, e, _ in tcfg._UNPORTED])
+def test_validate_refuses_unported_features(name, env_name):
+    """The reference takes each (its `validate` passes); the port names
+    ROADMAP A8."""
+    env = {"EXPORT": "tpu-sketch",
+           env_name: "[{}]" if name == "flow_filter_rules" else "true"}
+    jcfg.load_config(env).validate()
+    cfg = tcfg.load_config(env)
+    assert getattr(cfg, name)
+    with pytest.raises(ValueError, match=f"{env_name}.*A8"):
+        cfg.validate()
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"SKETCH_TIERED": "yes", "SKETCH_TIER_MID_GROUP": "16",
+         "SKETCH_TIER_TOP_GROUP": "512", "SKETCH_TIER_BYTES_UNIT": "64",
+         "SKETCH_CM_DEPTH": "3", "SKETCH_CM_WIDTH": "4096",
+         "SKETCH_HLL_PRECISION": "12", "SKETCH_TOPK": "128",
+         "SKETCH_EWMA_ALPHA": "0.5", "SKETCH_USE_PALLAS": "false"}],
+    ids=["default", "tiered"])
+def test_sketch_config_from_agent_config_matches_the_reference(env):
+    cfg = tcfg.load_config(env)
+    ours = ts.SketchConfig.from_agent_config(cfg)
+    ref = js.SketchConfig.from_agent_config(jcfg.load_config(env))
+    want = ref._asdict()
+    want.pop("use_pallas")
+    got = ours._asdict()
+    if ref.tiered is not None:
+        assert tuple(got.pop("tiered")) == tuple(want.pop("tiered"))
+    assert got == want
+
+
+#: environments of the from_config comparison: a small default, every
+#: plane on (overload, overlap, query refresh, alerts, archive,
+#: checkpoints, decay), and the dense feed with its thresholds
+FROM_CONFIG = {
+    "small": {},
+    "planes": {"SKETCH_SHED_WATERMARK": "4", "SKETCH_SHED_MAX": "16",
+               "SKETCH_SHED_SLOT_BUDGET": "2s", "SKETCH_OVERLAP": "2",
+               "SKETCH_QUERY_REFRESH": "30s", "SKETCH_QUERY_HISTORY": "3",
+               "ALERT_RULES": "default", "ARCHIVE_DIR": "{tmp}/arc",
+               "ARCHIVE_RAW_WINDOWS": "8", "ARCHIVE_COMPACT_GROUP": "2",
+               "ARCHIVE_MERGE_LADDER_MAX": "2",
+               "SKETCH_CHECKPOINT_DIR": "{tmp}/ck",
+               "SKETCH_CHECKPOINT_EVERY": "3", "SKETCH_WINDOW_MODE": "decay",
+               "SKETCH_DECAY_FACTOR": "0.25", "SKETCH_SUPERBATCH": "1,2,4",
+               "SKETCH_PACK_THREADS": "2"},
+    "dense": {"SKETCH_FEED": "dense", "SKETCH_SCAN_FANOUT": "9",
+              "SKETCH_DDOS_Z": "3.5", "SKETCH_SYNFLOOD_MIN": "5",
+              "SKETCH_SYNFLOOD_RATIO": "2", "SKETCH_DROP_Z": "4",
+              "SKETCH_ASYM_MIN_BYTES": "100", "SKETCH_ASYM_RATIO": "0.5",
+              "SKETCH_CHURN_ASCENT": "3", "SKETCH_CHURN_MIN_BYTES": "7",
+              "SKETCH_WINDOW": "90s", "SKETCH_SUPERBATCH": "1"},
+}
+_SMALL_ENV = {"EXPORT": "tpu-sketch", "SKETCH_DEVICES": "cpu",
+              "SKETCH_BATCH_SIZE": "256", "SKETCH_CM_WIDTH": "1024",
+              "SKETCH_TOPK": "64", "SKETCH_HLL_PRECISION": "10",
+              "SKETCH_RESIDENT_SLOTS": "4096", "SKETCH_WINDOW": "1h"}
+
+
+def _discard(report):
+    pass
+
+
+def one_device_reference(cfg, **kw):
+    """The reference exporter on one device: the tests' CPU backend has 8
+    devices, and `from_config` would shard over all of them; it is shown
+    one while it is built (as tests/test_torch_window.py does)."""
+    devices = jax.devices
+    jax.devices = lambda *a, **k: devices(*a, **k)[:1]
+    try:
+        return TpuSketchExporter.from_config(cfg, **kw)
+    finally:
+        jax.devices = devices
+
+
+@pytest.mark.parametrize("name", sorted(FROM_CONFIG))
+def test_from_config_matches_the_reference(name, tmp_path):
+    env = {**_SMALL_ENV, **{k: v.format(tmp=tmp_path / "ref")
+                            for k, v in FROM_CONFIG[name].items()}}
+    ref = one_device_reference(jcfg.load_config(env))
+    env = {**env, **{k: v.format(tmp=tmp_path / "port")
+                     for k, v in FROM_CONFIG[name].items()}}
+    ours = TorchSketchExporter.from_config(tcfg.load_config(env))
+    try:
+        with ours._lock:
+            ours._ensure_ring()
+        assert ours.device.type == "cpu"
+        assert ours.batch_size == ref._batch_size == 256
+        assert ours.window_s == ref._window_s
+        want = ref._cfg._asdict()
+        want.pop("use_pallas")
+        assert ours.cfg._asdict() == want
+        assert type(ours.ring).__name__ == type(ref._ring).__name__
+        assert getattr(ours.ring, "ladder", None) == getattr(
+            ref._ring, "ladder", None)
+        assert getattr(ours.ring, "lanes", None) == getattr(
+            ref._ring, "lanes", None)
+        assert getattr(ours.ring, "slot_cap", None) == getattr(
+            ref._ring, "slot_cap", None)
+        assert ours._thresholds == dict(
+            scan_fanout_threshold=ref._scan_fanout,
+            ddos_z_threshold=ref._ddos_z, synflood_min=ref._synflood_min,
+            synflood_ratio=ref._synflood_ratio,
+            drop_z_threshold=ref._drop_z,
+            asym_min_bytes=ref._asym_min_bytes,
+            asym_ratio=ref._asym_ratio, churn_ascent=ref._churn_ascent,
+            churn_min_bytes=ref._churn_min_bytes)
+        assert (ours._overload is None) == (ref._overload is None)
+        if ref._overload is not None:
+            for attr in ("batch_size", "high", "low", "shed_max"):
+                assert getattr(ours._overload, attr) == getattr(
+                    ref._overload, attr), attr
+            assert ours.ring.slot_wait_budget_s == \
+                ref._ring.slot_wait_budget_s == 2.0
+        assert (ours._handoff is None) == (ref._handoff is None)
+        if ref._handoff is not None:
+            assert ours._handoff.maxsize == ref._handoff.maxsize == 2
+        assert ours._query_refresh_s == ref._query_refresh_s
+        assert ours.query._history_cap == ref.query._history_cap
+        assert (ours._alerts is None) == (ref._alerts is None)
+        assert (ours._archive is None) == (ref._archive is None)
+        assert (ours._ckpt is None) == (ref._ckpt is None)
+        assert ours._ckpt_every == ref._ckpt_every
+        assert (ours.decay_factor is not None) == \
+            ref._tier_sticky_promotions
+        if ours.decay_factor is not None:
+            assert ours.decay_factor == 0.25
+        assert type(ours.sink).__name__ == type(ref._sink).__name__
+        assert ours._delta_sink is None and ref._delta_sink is None
+        assert ours.name == ref.name and ours.supports_columnar
+    finally:
+        ours.close()
+        ref.close()
+
+
+@pytest.mark.parametrize("env,item", [
+    ({"SKETCH_MESH_SHAPE": "2x1"}, "A6"), ({"SKETCH_TENANTS": "2"}, "A5"),
+    ({"FEDERATION_TARGET": "agg:9999"}, "A8"),
+    ({"SKETCH_DEVICES": "tpu"}, "SKETCH_DEVICES"),
+    ({"EXPORT": "grpc", "TARGET_HOST": "h", "TARGET_PORT": "1"}, "A8"),
+    ({"EXPORT": "stdout"}, "A8"), ({"EXPORT": "direct-flp"}, "A8")],
+    ids=["mesh", "tenants", "federation", "devices", "grpc", "stdout",
+         "direct-flp"])
+def test_build_exporter_refuses_what_the_port_lacks(env, item):
+    cfg = tcfg.load_config({**_SMALL_ENV, **env})
+    with pytest.raises(ValueError, match=item):
+        build_exporter(cfg)
+
+
+def test_from_config_takes_the_card_unless_asked_for_the_cpu():
+    import torch
+    cfg = tcfg.load_config({**_SMALL_ENV, "SKETCH_DEVICES": ""})
+    if torch.cuda.is_available():
+        exp = TorchSketchExporter.from_config(cfg, sink=_discard)
+        try:
+            assert exp.device.type == "cuda"
+        finally:
+            exp.close()
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchSketchExporter.from_config(cfg, sink=_discard)
+
+
+def test_from_config_takes_the_environments_batch_size():
+    """SKETCH_BATCH_SIZE defaults to 8192 in the environment (the
+    constructor's default is 16384): `from_config` takes the setting."""
+    cfg = tcfg.load_config({"EXPORT": "tpu-sketch", "SKETCH_DEVICES": "cpu",
+                            "SKETCH_CM_WIDTH": "1024", "SKETCH_TOPK": "64",
+                            "SKETCH_WINDOW": "1h"})
+    exp = TorchSketchExporter.from_config(cfg, sink=_discard)
+    try:
+        assert exp.batch_size == 8192 == jcfg.AgentConfig().sketch_batch_size
+        assert exp.sink is _discard
+    finally:
+        exp.close()

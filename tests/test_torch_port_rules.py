@@ -47,7 +47,13 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "archive/segment.py", "archive/store.py",
                  "archive/query.py", "sketch/checkpoint.py",
                  "sketch/overload.py", "agent/__init__.py",
-                 "agent/supervisor.py")
+                 "agent/supervisor.py", "kafka/__init__.py",
+                 "kafka/wire.py", "kafka/producer.py", "exporter/report.py",
+                 "exporter/base.py", "exporter/__init__.py",
+                 "model/flow.py", "model/record.py", "utils/dnsnames.py",
+                 "flow/__init__.py", "flow/map_tracer.py", "flow/limiter.py",
+                 "datapath/replay.py", "model/packet_record.py",
+                 "scenarios/synth.py", "agent/agent.py", "__main__.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -175,6 +181,28 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         traffic.device_pool(traffic.make_pool(np.random.default_rng(0),
                                               batch=8, n_batches=1)[1])
     assert pick_device("cpu").type == "cpu"
+
+
+def test_the_agent_entry_refuses_to_run_on_the_cpu_unasked():
+    """`python -m netobserv_tpu_torch` with SKETCH_DEVICES unset folds on
+    the card: on a box without CUDA it exits 2 naming CUDA, before any
+    window is published; only SKETCH_DEVICES=cpu runs it on the CPU
+    (tests/test_torch_entry.py)."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA box runs the agent on its card")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SKETCH_", "DATAPATH", "EXPORT"))}
+    env.update(PYTHONPATH=str(ROOT), AGENT_IP="127.0.0.1",
+               EXPORT="tpu-sketch", DATAPATH="synthetic")
+    proc = subprocess.run([sys.executable, "-m", "netobserv_tpu_torch"],
+                          cwd=str(ROOT), env=env, capture_output=True,
+                          timeout=60)
+    assert proc.returncode == 2
+    assert b"torch.cuda.is_available() is False" in proc.stderr
+    assert proc.stdout == b""
 
 
 def test_the_aggregator_defaults_to_cuda_and_never_falls_back():

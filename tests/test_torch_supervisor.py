@@ -328,7 +328,7 @@ def test_alerting_condition_follows_the_engine():
 
 def _health(sup):
     """The reference agent's `health_snapshot` (`agent/agent.py:239-255`),
-    written inline: the port has no agent yet."""
+    written inline over a supervisor that no agent owns."""
     conditions = sup.conditions()
     return {"status": "Started", "degraded": sup.degraded,
             "overloaded": bool(conditions.get("overloaded", {})

@@ -611,15 +611,29 @@ def test_ingest_error_rolls_every_dictionary_epoch():
 
 
 def test_report_sinks():
-    """SKETCH_REPORT_SINK: "" and "stdout" give the JSON-lines sink, "kafka"
-    waits for its port (ROADMAP A4.6), anything else raises."""
+    """SKETCH_REPORT_SINK: "" and "stdout" give the JSON-lines sink,
+    "kafka" a `KafkaReportSink` over the KAFKA_* settings, connected to
+    its broker when made (tests/test_torch_kafka.py sends through it),
+    anything else raises."""
+    from netobserv_tpu_torch.config import load_config
+    from netobserv_tpu_torch.exporter.report import KafkaReportSink
+    from tests.test_kafka_broker import FakeBroker
+
     class Cfg:
         def __init__(self, sink):
             self.sketch_report_sink = sink
 
     assert make_report_sink(Cfg("")) is make_report_sink(Cfg("stdout"))
-    with pytest.raises(NotImplementedError, match="A4.6"):
-        make_report_sink(Cfg("kafka"))
+    broker = FakeBroker()
+    broker.start()
+    try:
+        sink = make_report_sink(load_config({
+            "SKETCH_REPORT_SINK": "kafka",
+            "KAFKA_BROKERS": f"127.0.0.1:{broker.port}"}))
+        assert isinstance(sink, KafkaReportSink)
+        sink.close()
+    finally:
+        broker.stop()
     with pytest.raises(ValueError):
         make_report_sink(Cfg("grpc"))
 
