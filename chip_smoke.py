@@ -238,6 +238,44 @@ launch counts set to 0 just before it and read just after:
   then a DATAPATH=synthetic child that starts, answers `/healthz` and
   stops on SIGTERM, and one with no DATAPATH that exits 2 naming ROADMAP
   A8. It prints each child's start-to-Started and SIGTERM-to-exit times;
+- the tenant planes (`tenants`, SKETCH_TENANTS: `sketch/tenancy.py`, N
+  tenant states stacked on a leading axis, one captured graph a tenant
+  count folding every tenant's rows). (a) The ladder of the reference's
+  `bench.py:1151-1243` at the default geometry, TN_B rows a tenant, N in
+  TN_LADDER: the stacked arm (a `TenantStack`, each dispatch one copy of
+  every tenant's rows to the card and one replay, through the stack's own
+  `_dispatch`) against a sequential arm (N single-tenant captured folds
+  of the same rows, each with its own copy from pinned buffers made
+  once), TN_ITERS dispatches after TN_WARMUP; then TN_CHECK dispatches of
+  the stacked graph on a fresh state, every tenant's tables bit for bit
+  against its eager plain folds of the same rows (integer masses). Then
+  the router's block (`bench.py:1245-1275`): TN_RECALL's Zipf rows
+  through `fold_rows` at N = 8, B = 256, every tenant's recall@100
+  against its exact oracle (>= 0.99) and its tables bit for bit against
+  an eager stack of the plain versions (byte masses whose per-cell sums
+  stay below 2^24). It prints records/s of each arm and their ratio, the
+  stacked dispatch's CUDA-event ms, its launches by kernel (N times a
+  single fold's), the capture seconds and the graph pool's bytes (a pool
+  a rung; `memory_reserved` across the capture, the cache emptied
+  first). (b) The exporter
+  `load_config` builds for SKETCH_TENANTS=TN_EXP_N at the default
+  geometry and B = 16,384 (its windows closed by `roll()`), with a
+  callable delta sink set on it, fed the lanes stream's evictions
+  (`_stream_evictions`) for TN_EXP_WINDOWS windows: every tenant's
+  Records exact (the router's count of the stream), the launches N times
+  a fold's per stacked dispatch, no capture or retrace,
+  `/query/topk?tenant=3` the tenant's report and the 400/404 contract,
+  the frames 8 a window with their `TenantInfo`; each tenant's pre-roll
+  tables (its frame) within the whole-window bounds of a plain routed
+  replay (an eager exporter of the same tenants under the plain versions,
+  each tenant's per-cell adds counted on its own), heavy identities
+  equal; an integer-mass copy of one window bit for bit against its plain
+  replay; one tiered window (SKETCH_TIERED), kernels 6 and 7 N times a
+  dispatch, Records exact. It prints records/s (with and without the
+  rolls' time), the router's host ms per 16,384 rows (`route` and the
+  per-tenant selection), the roll's lock hold and each `roll()`'s
+  seconds (the publish of 8 reports and frames included), and the
+  stacked dispatches;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -5108,6 +5146,500 @@ def phase_agent_entry(specs, events, lanes_rate: float, wt_rate: float,
             "seconds": time.perf_counter() - t_phase}
 
 
+#: the stack ladder (`tenants` (a)): tenant counts, rows a tenant a
+#: dispatch, timed and warm-up dispatches, and the dispatches held bit for
+#: bit against the plain versions
+TN_LADDER = (1, 8, 64)
+TN_B = 32
+TN_ITERS = 24
+TN_WARMUP = 3
+TN_CHECK = 2
+#: the router's recall block: tenants, rows a tenant a dispatch, folds of
+#: Zipf-1.2 rows over a universe, and the byte masses (integers whose
+#: per-cell sums stay below 2^24, so the plain replay is exact)
+TN_RECALL = dict(n=8, batch=256, folds=200, rows=512, universe=4096,
+                 zipf=1.2, bytes=(64, 513))
+#: the exporter's tenants (`tenants` (b)) and windows
+TN_EXP_N = 8
+TN_EXP_WINDOWS = 2
+
+
+def _tenant_bufs(rng, n: int, count: int = 8) -> list:
+    """`count` stacked slots of n tenants x TN_B rows (the reference bench's
+    rows, `bench.py:1173-1186`): random keys, integer-valued bytes
+    64-8999, packets 1-11, every row valid."""
+    import numpy as np
+    from netobserv_tpu_torch.sketch.state import DENSE_WORDS
+    out = []
+    for _ in range(count):
+        rows = np.zeros((n, TN_B, DENSE_WORDS), np.uint32)
+        rows[..., :10] = rng.integers(0, 2**32, (n, TN_B, 10),
+                                      dtype=np.uint32)
+        rows[..., 10] = rng.integers(64, 9000, (n, TN_B)).astype(
+            np.float32).view(np.uint32)
+        rows[..., 11] = rng.integers(1, 12, (n, TN_B))
+        rows[..., 14] = 1
+        out.append(rows)
+    return out
+
+
+def _tables_equal(a: dict, b: dict) -> list:
+    """The names of the tables that differ in any bit."""
+    import numpy as np
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def _stack_rung(specs, cfg, n: int, graph_pool) -> dict:
+    """One rung of the ladder (module docstring, `tenants` (a)): the
+    stacked arm, the sequential arm, the launches and the bit-exact
+    check against eager plain folds."""
+    import gc
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.sketch import tenancy
+    from netobserv_tpu_torch.sketch.capture import CapturedFold
+    from netobserv_tpu_torch.utils import tracing
+    bufs = _tenant_bufs(np.random.default_rng(7 + n), n)
+    names = {s["kernel"]: s["name"] for s in specs}
+    # stacked arm: the production stack, one slot copy and one replay a
+    # dispatch of every tenant's TN_B rows
+    stack = tenancy.TenantStack(n, cfg, TN_B, graph_pool=graph_pool)
+    state = tenancy.init_stacked_state(cfg, n)
+    torch.cuda.synchronize()
+    # a capture empties the allocator's cache as it starts: empty it
+    # first, so that what the capture adds is its graph's pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    stack.warm(state)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_bytes = torch.cuda.memory_reserved() - reserved
+    per_dispatch = {names[k]: v for k, v in stack.captured.launches.items()}
+    want = _want_launches(specs, "wide", n)
+    check(per_dispatch == {k: v for k, v in want.items() if v},
+          f"n={n}: launches a stacked dispatch {per_dispatch}, want {want}")
+
+    def stacked(i: int) -> None:
+        stack._fillbuf[...] = bufs[i % len(bufs)]
+        stack._fill = [TN_B] * n
+        stack._dispatch(state, tracing.NULL_TRACE)
+
+    def timed(body) -> tuple[float, float]:
+        for i in range(TN_WARMUP):
+            body(i)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for i in range(TN_ITERS):
+            body(i)
+        ev1.record()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, ev0.elapsed_time(ev1) / TN_ITERS
+
+    for s in specs:
+        s["kernel"].launches = 0
+    stacked_s, stacked_ms = timed(stacked)
+    launches = {s["name"]: s["kernel"].launches for s in specs}
+    want = _want_launches(specs, "wide", n * (TN_WARMUP + TN_ITERS))
+    check(launches == want, f"n={n}: stacked launches {launches}, want "
+          f"{want}")
+    # sequential arm: n single-tenant captured folds of the same rows, each
+    # its own copy to the card (from pinned buffers made once) and replay
+    seq_state = tenancy.init_stacked_state(cfg, n)
+    views = [tenancy.tenant_view(seq_state, t) for t in range(n)]
+    hosts = [torch.from_numpy(b.reshape(n, -1).view(np.int32)).pin_memory()
+             for b in bufs]
+    dev = torch.zeros((n, TN_B * sk.DENSE_WORDS), dtype=torch.int32,
+                      device=stack.device)
+
+    def one(s, flat):
+        sk.ingest(s, sk.dense_to_arrays(flat))
+
+    folds = [CapturedFold(f"tenant_seq_n{n}", one, graph_pool)
+             for _ in range(n)]
+    t0 = time.perf_counter()
+    for t in range(n):
+        folds[t].prepare(views[t], dev[t])
+    torch.cuda.synchronize()
+    seq_capture_s = time.perf_counter() - t0
+
+    def sequential(i: int) -> None:
+        host = hosts[i % len(hosts)]
+        for t in range(n):
+            dev[t].copy_(host[t], non_blocking=True)
+            folds[t](views[t], dev[t])
+
+    seq_s, seq_ms = timed(sequential)
+    rows = n * TN_B * TN_ITERS
+    # the stacked graph on a fresh state, TN_CHECK dispatches, against
+    # each tenant's eager plain fold of the same rows
+    sk.copy_state_(state, tenancy.init_stacked_state(cfg, n))
+    for i in range(TN_CHECK):
+        stacked(i)
+    with plain_versions(specs):
+        for t in range(n):
+            one_state = sk.init_state(cfg)
+            for i in range(TN_CHECK):
+                flat = torch.from_numpy(
+                    bufs[i][t].reshape(-1).view(np.int32)).cuda()
+                sk.ingest(one_state, sk.dense_to_arrays(flat))
+            diff = _tables_equal(
+                sk.state_tables(tenancy.tenant_view(state, t)),
+                sk.state_tables(one_state))
+            check(not diff, f"n={n} tenant {t}: tables {diff} differ from "
+                  "the eager plain folds")
+    watch = stack.captured.stats()
+    check(watch["compiles"] == 1 and watch["retraces"] == 0
+          and watch["tenants"] == n, f"n={n}: tenant_ingest {watch}")
+    stack.close()
+    return {"tenants": n, "rows_a_tenant": TN_B,
+            "stacked_records_per_s": rows / stacked_s,
+            "sequential_records_per_s": rows / seq_s,
+            "stacked_over_sequential": seq_s / stacked_s,
+            "stacked_dispatch_ms": stacked_ms,
+            "sequential_round_ms": seq_ms,
+            "launches_per_stacked_dispatch": per_dispatch,
+            "capture_seconds": capture_s,
+            "sequential_capture_seconds": seq_capture_s,
+            "graph_pool_bytes": pool_bytes,
+            "stacked_state_bytes": sum(
+                x.numel() * x.element_size() for x in _tensors(state)),
+            "bit_exact_tenants": n}
+
+
+def _recall_block(specs, cfg, graph_pool) -> dict:
+    """`tenants` (a)'s router block: Zipf rows through `fold_rows`, every
+    tenant's recall@100 against its exact oracle, and its tables bit for
+    bit against an eager stack of the plain versions fed the same rows."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.ops import hashing
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.sketch import tenancy
+    p = TN_RECALL
+    n = p["n"]
+    rng = np.random.default_rng(7)
+    universe = rng.integers(0, 2**32, (p["universe"], 10), dtype=np.uint32)
+    exact = np.zeros(p["universe"])
+    batches = []
+    for _ in range(p["folds"]):
+        ranks = np.minimum(rng.zipf(p["zipf"], p["rows"]) - 1,
+                           p["universe"] - 1)
+        nbytes = rng.integers(*p["bytes"], p["rows"]).astype(np.float32)
+        rows = np.zeros((p["rows"], sk.DENSE_WORDS), np.uint32)
+        rows[:, :10] = universe[ranks]
+        rows[:, 10] = nbytes.view(np.uint32)
+        rows[:, 11] = 1
+        rows[:, 14] = 1
+        batches.append(rows)
+        exact += np.bincount(ranks, weights=nbytes, minlength=len(exact))
+    stack = tenancy.TenantStack(n, cfg, p["batch"], graph_pool=graph_pool)
+    state = tenancy.init_stacked_state(cfg, n)
+    stack.warm(state)
+    t0 = time.perf_counter()
+    for rows in batches:
+        stack.fold_rows(state, rows)
+    stack.flush(state)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    with plain_versions(specs):
+        plain = tenancy.TenantStack(n, cfg, p["batch"], capture=False)
+        pstate = tenancy.init_stacked_state(cfg, n)
+        for rows in batches:
+            plain.fold_rows(pstate, rows)
+        plain.flush(pstate)
+    check(plain.folds == stack.folds, f"{plain.folds} plain dispatches, "
+          f"{stack.folds} captured")
+    owners = hashing.tenant_of_np(universe, n)
+    recalls = []
+    for t in range(n):
+        got = sk.state_tables(tenancy.tenant_view(state, t))
+        want = sk.state_tables(tenancy.tenant_view(pstate, t))
+        diff = _tables_equal(got, want)
+        check(not diff, f"recall block tenant {t}: tables {diff} differ "
+              "from the plain replay")
+        mine = np.flatnonzero(owners == t)
+        top = mine[np.argsort(-exact[mine], kind="stable")[:100]]
+        held = {tuple(w) for w, v in zip(got["heavy_words"],
+                                         got["heavy_valid"]) if v}
+        recalls.append(sum(tuple(universe[r]) in held for r in top)
+                       / max(len(top), 1))
+    check(min(recalls) >= 0.99, f"per-tenant recall@100 {recalls}")
+    stack.close()
+    plain.close()
+    return {"tenants": n, "rows_a_tenant": p["batch"],
+            "folds": p["folds"], "rows_a_fold": p["rows"],
+            "stacked_dispatches": stack.folds,
+            "recall_at_100": recalls,
+            "records_per_s": p["folds"] * p["rows"] / fold_s}
+
+
+def _tenant_cuts(n_rows: int, windows: int) -> list:
+    """The lanes path's evictions (`_stream_evictions`) over `windows`
+    passes of the stream, one list of (lo, hi) a pass."""
+    gen = _stream_evictions(n_rows)
+    out = []
+    for _ in range(windows):
+        cuts = []
+        while not cuts or cuts[-1][1] < n_rows:
+            cuts.append(next(gen))
+        out.append(cuts)
+    return out
+
+
+def _tenant_exporter_run(exp, stream, cuts, specs) -> dict:
+    """Feed `exp` the evictions of `cuts` (a window a list), rolling after
+    each window; its reports, launches, roll and route timings."""
+    import torch
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.utils import retrace
+    ev_all, lanes_all = stream
+    holds = []
+    close_window = exp._close_window_locked
+
+    def timed_close(*args):
+        t0 = time.perf_counter()
+        try:
+            return close_window(*args)
+        finally:
+            holds.append((time.perf_counter() - t0) * 1e3)
+    exp._close_window_locked = timed_close
+    captures0 = [c.captures for c in exp.captures]
+    retraces0 = retrace.total_retraces()
+    folds0 = exp.ring.folds
+    torch.cuda.synchronize()
+    for s in specs:
+        s["kernel"].launches = 0
+    t0 = time.perf_counter()
+    reports, roll_s = [], []
+    for cut in cuts:
+        for lo, hi in cut:
+            exp.export_evicted(EvictedFlows(
+                ev_all[lo:hi], **{k: v[lo:hi] for k, v in lanes_all.items()}))
+        t1 = time.perf_counter()
+        reports.append(exp.roll())
+        roll_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {s["name"]: s["kernel"].launches for s in specs}
+    check([c.captures for c in exp.captures] == captures0
+          and retrace.total_retraces() == retraces0,
+          "a capture or retrace during the tenant run")
+    return {"reports": reports, "launches": launches, "holds_ms": holds,
+            "dispatches": exp.ring.folds - folds0, "wall": wall,
+            "roll_s": roll_s,
+            "rows": sum(hi - lo for cut in cuts for lo, hi in cut)}
+
+
+def _route_ms(ring, stream, cuts) -> float:
+    """Host ms per 16,384 rows of the router: `route` (the pack and
+    `tenant_of_np`) and the per-tenant selection, over the evictions."""
+    ev_all, lanes_all = stream
+    t = rows = 0
+    for lo, hi in cuts:
+        t0 = time.perf_counter()
+        packed, owners = ring.route(
+            ev_all[lo:hi], **{k: v[lo:hi] for k, v in lanes_all.items()})
+        for tn in range(ring.n_tenants):
+            packed[owners == tn]
+        t += time.perf_counter() - t0
+        rows += hi - lo
+    return t * 1e3 * BATCH / rows
+
+
+def _plain_tenant_exporter(exp, frames: list):
+    """An eager exporter of `exp`'s geometry and tenants, with a callable
+    delta sink: under `plain_versions`, the plain routed replay."""
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    return TorchSketchExporter(
+        exp.cfg, batch_size=exp.batch_size, device="cuda", capture=False,
+        sink=_discard, tenants=exp.tenants, delta_sink=frames.append)
+
+
+def _frames_of(frames: list, n: int, windows: int) -> list:
+    """The decoded delta frames, a list of n a window."""
+    from netobserv_tpu_torch.federation import delta as fdelta
+    out = [fdelta.decode_frame(f) for f in frames[:n * windows]]
+    return [out[w * n:(w + 1) * n] for w in range(windows)]
+
+
+def _heavy_ids(t: dict) -> set:
+    return {(int(h1), int(h2)) for h1, h2, v in zip(
+        t["heavy_h1"], t["heavy_h2"], t["heavy_valid"]) if v}
+
+
+def _tenant_exporter(extra: dict, frames: list):
+    """The exporter `load_config` builds for SKETCH_TENANTS=TN_EXP_N at the
+    default geometry and B = BATCH (windows closed by `roll`), with a
+    callable delta sink (set on the built exporter)."""
+    from netobserv_tpu_torch.config import load_config
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    cfg = load_config(_agent_env(SKETCH_TENANTS=str(TN_EXP_N),
+                                 SKETCH_WINDOW="1h", **extra))
+    cfg.validate()
+    exp = TorchSketchExporter.from_config(cfg, sink=_discard)
+    exp._delta_sink = frames.append
+    return exp
+
+
+def phase_tenants(specs, events, card: str) -> dict:
+    """The tenant planes on the card (module docstring, `tenants`)."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    from netobserv_tpu_torch.model.columnar import pack_key_words
+    from netobserv_tpu_torch.ops import hashing
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.sketch import tenancy
+    t_phase = time.perf_counter()
+    cfg = sk.SketchConfig()
+    # a graph pool a rung, so that each rung's capture shows its own
+    ladder = [_stack_rung(specs, cfg, n, torch.cuda.graph_pool_handle())
+              for n in TN_LADDER]
+    recall = _recall_block(specs, cfg, torch.cuda.graph_pool_handle())
+    # (b) the exporter on the lanes stream
+    stream = LaneFeeder(events).stream
+    n_rows = len(stream[0])
+    cuts = _tenant_cuts(n_rows, TN_EXP_WINDOWS)
+    owners = hashing.tenant_of_np(pack_key_words(stream[0]["key"]),
+                                  TN_EXP_N)
+    per_tenant = np.bincount(owners, minlength=TN_EXP_N).astype(float)
+    frames: list = []
+    exp = _tenant_exporter({}, frames)
+    try:
+        run = _tenant_exporter_run(exp, stream, cuts, specs)
+        route_ms = _route_ms(exp.ring, stream, cuts[0])
+        code, body = exp.query_routes.handle("/query/topk", {"tenant": "3"})
+        check(code == 200 and body["topk"]
+              == run["reports"][-1][3]["HeavyHitters"][:100],
+              f"/query/topk?tenant=3: {code}")
+        check([exp.query_routes.handle("/query/topk", p)[0]
+               for p in ({}, {"tenant": "8"})] == [400, 404],
+              "the tenant route contract")
+        status = exp.query_status()["tenants"]
+    finally:
+        exp.close()
+    for w, reps in enumerate(run["reports"]):
+        check([r["Tenant"] for r in reps] == list(range(TN_EXP_N))
+              and [r["Records"] for r in reps] == list(per_tenant),
+              f"window {w}: records {[r['Records'] for r in reps]}, want "
+              f"{list(per_tenant)}")
+    check(run["rows"] == TN_EXP_WINDOWS * n_rows, "rows fed")
+    want = _want_launches(specs, "wide", TN_EXP_N * run["dispatches"])
+    check(run["launches"] == want, f"tenant launches {run['launches']}, "
+          f"want {want}")
+    # the plain routed replay: the same evictions, rolled at the same
+    # points, each tenant's per-cell adds counted on its own
+    pframes: list = []
+    adds_by_window: list = []
+    adds, touched = {}, {}
+    with plain_versions(specs, adds, touched):
+        pexp = _plain_tenant_exporter(exp, pframes)
+        ring = pexp.ring
+        cur: list = []
+
+        def ingest(state, dev, _n=ring.n_tenants, _b=ring.batch_size):
+            flat = dev.view(_n, _b * sk.DENSE_WORDS)
+            for t in range(_n):
+                sk.ingest(tenancy.tenant_view(state, t),
+                          sk.dense_to_arrays(flat[t]))
+                acc = cur[t]
+                for k, v in adds.items():
+                    acc[k] = acc[k] + v if k in acc else v.clone()
+                adds.clear()
+                touched.clear()
+        ring._ingest = ingest
+        try:
+            ev_all, lanes_all = stream
+            for cut in cuts:
+                cur[:] = [{} for _ in range(TN_EXP_N)]
+                for lo, hi in cut:
+                    pexp.export_evicted(EvictedFlows(
+                        ev_all[lo:hi],
+                        **{k: v[lo:hi] for k, v in lanes_all.items()}))
+                pexp.roll()
+                adds_by_window.append([{k: v.cpu().numpy()
+                                        for k, v in a.items()} for a in cur])
+        finally:
+            pexp.close()
+    cmp = []
+    got, ref = (_frames_of(f, TN_EXP_N, TN_EXP_WINDOWS)
+                for f in (frames, pframes))
+    for w in range(TN_EXP_WINDOWS):
+        for t in range(TN_EXP_N):
+            a, b = got[w][t], ref[w][t]
+            check(a.tenant == (t, TN_EXP_N) and a.window == w,
+                  f"frame {w}/{t}: tenant {a.tenant}, window {a.window}")
+            cmp.append(compare_tables(a.tables, b.tables,
+                                      adds_by_window[w][t]))
+            check(_heavy_ids(a.tables) == _heavy_ids(b.tables),
+                  f"window {w} tenant {t}: heavy identities differ from "
+                  "the plain replay's")
+    # an integer-mass copy, one window: bit for bit against the plain
+    # routed replay
+    ints = _integer_stream(events)
+    iframes, ipframes = [], []
+    iexp = _tenant_exporter({}, iframes)
+    try:
+        irun = _tenant_exporter_run(iexp, ints, cuts[:1], specs)
+    finally:
+        iexp.close()
+    with plain_versions(specs):
+        ipexp = _plain_tenant_exporter(iexp, ipframes)
+        try:
+            ev_all, lanes_all = ints
+            for lo, hi in cuts[0]:
+                ipexp.export_evicted(EvictedFlows(
+                    ev_all[lo:hi],
+                    **{k: v[lo:hi] for k, v in lanes_all.items()}))
+            ipexp.roll()
+        finally:
+            ipexp.close()
+    for t, (a, b) in enumerate(zip(*(_frames_of(f, TN_EXP_N, 1)[0]
+                                     for f in (iframes, ipframes)))):
+        diff = _tables_equal(a.tables, b.tables)
+        check(not diff, f"integer window tenant {t}: tables {diff} differ")
+    # one tiered window: kernels 6 and 7, N to a stacked dispatch
+    tframes: list = []
+    texp = _tenant_exporter({"SKETCH_TIERED": "true"}, tframes)
+    try:
+        trun = _tenant_exporter_run(texp, stream, cuts[:1], specs)
+    finally:
+        texp.close()
+    twant = _want_launches(specs, "tiered", TN_EXP_N * trun["dispatches"])
+    check(trun["launches"] == twant, f"tiered tenant launches "
+          f"{trun['launches']}, want {twant}")
+    check([r["Records"] for r in trun["reports"][0]] == list(per_tenant),
+          "tiered records")
+    holds = run["holds_ms"]
+    return {"phase": "tenants", "card": card, "ladder": ladder,
+            "recall": recall,
+            "exporter": {
+                "tenants": TN_EXP_N, "batch": BATCH,
+                "windows": TN_EXP_WINDOWS, "records_fed": run["rows"],
+                "stacked_dispatches": run["dispatches"],
+                "records_per_s": run["rows"] / run["wall"],
+                "records_per_s_between_rolls": run["rows"] / (
+                    run["wall"] - sum(run["roll_s"])),
+                "roll_publish_s": run["roll_s"],
+                "route_ms_per_16384": route_ms,
+                "roll_lock_hold_ms": holds,
+                "records_per_tenant": list(per_tenant),
+                "status": status, "vs_plain": cmp,
+                "integer_window_exact": True,
+                "tiered_dispatches": trun["dispatches"],
+                "tiered_records_per_s": trun["rows"] / trun["wall"],
+                "tiered_roll_lock_hold_ms": trun["holds_ms"]},
+            "launches": run["launches"],
+            "tiered_launches": trun["launches"],
+            "seconds": time.perf_counter() - t_phase}
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -5472,6 +6004,9 @@ def main() -> int:
                                    _lanes_rate(lanes_res),
                                    wt_res["records_per_s"], dev["nvidia_smi"])
         emit(ae_res)
+        phase = "tenants"
+        tn_res = phase_tenants(specs, events, dev["nvidia_smi"])
+        emit(tn_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -5499,6 +6034,8 @@ def main() -> int:
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
                 "agent_entry": ae_res["launches"],
+                "tenants": tn_res["launches"],
+                "tenants_tiered": tn_res["tiered_launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -25,8 +25,8 @@ thread and no `warm` argument.
 
 `TenantArchiveSet` and `tenant_archives` are the per-tenant host routing
 (one store a tenant under ``<archive_dir>/tenant-<t>``, with the
-reference's 400 and 404 contract). The exporter takes a tenant set once
-the port has tenants (ROADMAP A5).
+reference's 400 and 404 contract): a tenant-mode exporter
+(SKETCH_TENANTS) writes each tenant's window to its own store.
 """
 
 from __future__ import annotations

@@ -236,19 +236,44 @@ pending buffer, without admission, as the reference's takes them.
 (`config.py`): the SKETCH_* geometry, batch, window, feed, ladder,
 thresholds, overload, query, alert, archive and checkpoint settings, the
 report sink of SKETCH_REPORT_SINK (stdout or Kafka) and the decay factor
-of SKETCH_WINDOW_MODE=decay. SKETCH_DEVICES "" means the card
-(`pick_device`, which raises without CUDA) and "cpu" the CPU with the
-plain versions; SKETCH_MESH_SHAPE (ROADMAP A6), SKETCH_TENANTS (A5),
-FEDERATION_TARGET (its gRPC sender, A8) and any other SKETCH_DEVICES raise
-`ValueError`. A sampled batch trace riding an eviction (`evicted.trace`,
-the map tracer's) is parked until the next fold, which finishes it with
-its `fold` span; a second one arriving before that fold is finished at
-once. The reference's fused-drain branch (`evicted.packed`) waits for a
-fused drain (ROADMAP A7).
+of SKETCH_WINDOW_MODE=decay, and with SKETCH_TENANTS the tenant planes,
+with a per-tenant archive set (`archive.tenant_archives`) where
+ARCHIVE_DIR is set. SKETCH_DEVICES "" means the card (`pick_device`,
+which raises without CUDA) and "cpu" the CPU with the plain versions;
+SKETCH_MESH_SHAPE (ROADMAP A6), FEDERATION_TARGET (its gRPC sender, A8)
+and any other SKETCH_DEVICES raise `ValueError`. A sampled batch trace
+riding an eviction (`evicted.trace`, the map tracer's) is parked until
+the next fold, which finishes it with its `fold` span; a second one
+arriving before that fold is finished at once. The reference's
+fused-drain branch (`evicted.packed`) waits for a fused drain (ROADMAP
+A7).
 
-Not in this slice: the gRPC delta transport (A4.3's transport, A8),
-tenants (A5; the routes get no tenant publishers, and a tenant archive
-set waits for them) and the mesh (A6).
+**Tenant planes** (`tenants=N`, SKETCH_TENANTS; `tpu_sketch.py:524-535`,
+`:646-693`, `:732-781`, `:1427-1444`, `:1761-1860`, `:1915-1934`,
+`:2097-2210`). The state is N tenant states stacked on a leading axis
+(`sketch/tenancy.py`), and the ring is a `tenancy.TenantStack`, made and
+captured in the constructor ("tenant_ingest", one graph a tenant count):
+the pending buffer's folds route every row to its tenant's buffer, and a
+stacked dispatch folds every tenant's rows. SKETCH_FEED does not apply
+(logged), `fold_dense` raises, and `export_batch` folds its records as
+evictions, so only real rows are routed. The window's drain also flushes
+the tenant buffers, its wedge logged and counted; the roll rolls every
+tenant under the lock and copies each tenant's report and tables to the
+host (`_roll_tenants`); the publish fans each window out per tenant
+(`_publish_report_tenants`): N reports with their `Tenant`, each diffed
+against its own previous heavy index, N delta frames with
+`tenant=(t, N)`, one snapshot a tenant to its own `SnapshotPublisher`
+(the routes require ``?tenant=``; `query_snapshot_age_seconds` is the
+youngest; `query_status` has a `tenants` block), the per-tenant archive
+segments (a single-store `archive` is disabled with a warning), the tier
+metrics by tenant and `sketch_tenant_window_records{tenant}`. A refresh
+rolls a staged copy of the whole stack and publishes every tenant's
+partial window. Checkpoints have no stacked form: `checkpoint_dir` is
+disabled with a warning. `close()` evicts the per-tenant series.
+`sketch_resident_hbm_bytes` is the state's bytes, stacked or not.
+
+Not in this slice: the gRPC delta transport (A4.3's transport, A8) and
+the mesh (A6).
 """
 
 from __future__ import annotations
@@ -282,7 +307,7 @@ from netobserv_tpu_torch.ops.kernels import _build
 from netobserv_tpu_torch.query.routes import QueryRoutes
 from netobserv_tpu_torch.query.snapshot import SnapshotPublisher
 from netobserv_tpu_torch.sketch import state as sk
-from netobserv_tpu_torch.sketch import overload, staging, tiered
+from netobserv_tpu_torch.sketch import overload, staging, tenancy, tiered
 from netobserv_tpu_torch.sketch.capture import CapturedFold
 from netobserv_tpu_torch.utils import faultinject, retrace, tracing
 from netobserv_tpu_torch.utils.platform import pick_device
@@ -331,8 +356,9 @@ class TorchSketchExporter:
     `delta_sink` takes one delta frame per closed window;
     `checkpoint_dir`, `checkpoint_every` and `archive` set up checkpoints
     and the archive; `shed_watermark`, `shed_max`, `shed_slot_budget_s`
-    and `shed_seed` the overload controller, and `overlap_depth` the
-    overlapped fold thread (module docstring)."""
+    and `shed_seed` the overload controller, `overlap_depth` the
+    overlapped fold thread, and `tenants` the tenant planes (module
+    docstring)."""
 
     #: the `exporter/base.Exporter` seam: the metrics label, and evictions
     #: taken as they are (`export_evicted`)
@@ -364,7 +390,8 @@ class TorchSketchExporter:
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
                  archive=None, shed_watermark: float = 0.0,
                  shed_max: int = 64, shed_slot_budget_s: float = 30.0,
-                 shed_seed: int = 2026, overlap_depth: int = 0):
+                 shed_seed: int = 2026, overlap_depth: int = 0,
+                 tenants: int = 0):
         self.device = pick_device(device)
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
@@ -376,6 +403,8 @@ class TorchSketchExporter:
             raise ValueError("query_refresh_s and query_history must be >= 0")
         if overlap_depth < 0:
             raise ValueError("overlap_depth must be >= 0")
+        if tenants < 0:
+            raise ValueError("tenants must be >= 0")
         self.cfg = cfg
         self.batch_size = batch_size
         self.window_s = window_s
@@ -416,13 +445,23 @@ class TorchSketchExporter:
         #: previous window's promoted-counter masks, by CM table: in decay
         #: mode promotions persist, and only new ones count
         self._tier_prev_promoted: dict = {}
-        self.state = sk.init_state(cfg, self.device)
+        #: the tenant count (0: one state, no tenant plane)
+        self.tenants = tenants
+        #: each tenant's previous closed window's heavy index
+        self._tenant_prev_index: dict[int, Optional[dict]] = {}
+        self.state = (tenancy.init_stacked_state(cfg, tenants, self.device)
+                      if tenants else sk.init_state(cfg, self.device))
         self._ckpt = None
         self._ckpt_every = checkpoint_every
         self._n_windows_saved = 0
         #: (step, staged host copy) of the last checkpoint roll, unwritten
         self._pending_ckpt = None
-        if checkpoint_dir:
+        if checkpoint_dir and tenants:
+            # a stacked state has no checkpoint layout: a single-tenant
+            # restore into the stack (or the reverse) would tear
+            log.warning("sketch checkpointing has no stacked-tenant form; "
+                        "disabling it while SKETCH_TENANTS is set")
+        elif checkpoint_dir:
             from netobserv_tpu_torch.sketch.checkpoint import (
                 SketchCheckpointer,
             )
@@ -448,15 +487,36 @@ class TorchSketchExporter:
                         "cumulative); disabling delta export")
             self._drop_delta_sink()
         self.query = SnapshotPublisher(history=query_history)
+        #: tenant mode's query plane: one publisher a tenant, which the
+        #: data routes pick by ?tenant= (`self.query` stays unused)
+        self._tenant_query = ([SnapshotPublisher(history=query_history)
+                               for _ in range(tenants)] if tenants else None)
         self._alerts = alerts
+        if tenants and archive is not None and \
+                not hasattr(archive, "write_tenant_window"):
+            # one store would merge tenants at range-query time
+            log.warning("tenant mode needs a per-tenant archive set "
+                        "(archive.tenant_archives); disabling the archive "
+                        "on this exporter")
+            archive = None
         #: the archive plane (None: no archive object, one is-None check)
         self._archive = archive
         self.query_routes = QueryRoutes(
             self.query.get, self.query_status, metrics=metrics,
             history_fn=self.query.get_window, windows_fn=self.query.windows,
-            alerts=alerts, archive=archive)
+            alerts=alerts, archive=archive,
+            tenant_publishers=self._tenant_query)
         if metrics is not None:
-            metrics.query_snapshot_age_seconds.set_function(self.query.age_s)
+            if self._tenant_query is not None:
+                # every tenant publishes at each roll and refresh
+                pubs = self._tenant_query
+                metrics.query_snapshot_age_seconds.set_function(
+                    lambda: min(p.age_s() for p in pubs))
+            else:
+                metrics.query_snapshot_age_seconds.set_function(
+                    self.query.age_s)
+            metrics.sketch_resident_hbm_bytes.set(
+                tiered.array_bytes(self.state))
         self._query_refresh_s = float(query_refresh_s)
         self._next_refresh = (time.monotonic() + self._query_refresh_s
                               if self._query_refresh_s else None)
@@ -505,11 +565,17 @@ class TorchSketchExporter:
         self._inflight_lock = threading.Lock()
         self.fold_heartbeat = lambda: None
         self._fold_thread: Optional[threading.Thread] = None
+        if tenants and feed != "dense":
+            log.info("tenant mode ships the dense stacked feed; "
+                     "SKETCH_FEED=%r does not apply", feed)
         if overlap_depth > 0:
             self._handoff = queue.Queue(maxsize=overlap_depth)
-            # the ring's captures run here, before the fold thread exists
+        if tenants or overlap_depth > 0:
+            # the ring's captures run here, before the window thread or
+            # the fold thread exists (ROADMAP C4)
             with self._lock, self._on_device():
                 self._ensure_ring()
+        if overlap_depth > 0:
             self._start_fold_worker()
         if window_s is not None:
             self.start_window_timer()
@@ -522,15 +588,11 @@ class TorchSketchExporter:
         A setting that asks for what the port lacks raises `ValueError`
         naming its ROADMAP item."""
         from netobserv_tpu_torch.alerts.engine import maybe_engine
-        from netobserv_tpu_torch.archive import maybe_archive
+        from netobserv_tpu_torch.archive import maybe_archive, tenant_archives
         if cfg.sketch_mesh_shape:
             raise ValueError(
                 f"SKETCH_MESH_SHAPE={cfg.sketch_mesh_shape!r}: the port "
                 "folds on one device; the mesh is ROADMAP A6")
-        if cfg.sketch_tenants > 0:
-            raise ValueError(
-                f"SKETCH_TENANTS={cfg.sketch_tenants}: tenant planes are "
-                "ROADMAP A5")
         if cfg.federation_target:
             raise ValueError(
                 f"FEDERATION_TARGET={cfg.federation_target!r}: the gRPC "
@@ -543,6 +605,14 @@ class TorchSketchExporter:
         sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
         if sink is None:
             sink = make_report_sink(cfg)
+        if cfg.sketch_tenants > 0:
+            # one store a tenant under ARCHIVE_DIR/tenant-<t>: ranges stay
+            # tenant-scoped
+            archive = tenant_archives(cfg, sketch_cfg, cfg.sketch_tenants,
+                                      metrics=metrics, device=device)
+        else:
+            archive = maybe_archive(cfg, sketch_cfg, metrics=metrics,
+                                    device=device)
         return cls(
             sketch_cfg, batch_size=cfg.sketch_batch_size, device=device,
             window_s=cfg.sketch_window, sink=sink, metrics=metrics,
@@ -566,12 +636,11 @@ class TorchSketchExporter:
             agent_id=cfg.federation_agent_id,
             checkpoint_dir=cfg.sketch_checkpoint_dir,
             checkpoint_every=cfg.sketch_checkpoint_every,
-            archive=maybe_archive(cfg, sketch_cfg, metrics=metrics,
-                                  device=device),
+            archive=archive,
             shed_watermark=cfg.sketch_shed_watermark,
             shed_max=cfg.sketch_shed_max,
             shed_slot_budget_s=cfg.sketch_shed_slot_budget,
-            overlap_depth=cfg.sketch_overlap)
+            overlap_depth=cfg.sketch_overlap, tenants=cfg.sketch_tenants)
 
     def _maybe_restore(self) -> None:
         """Restore the latest checkpoint into the state in place; a tiered
@@ -625,8 +694,9 @@ class TorchSketchExporter:
 
     def _ensure_ring(self) -> None:
         """Make the feed's ring and pending buffer at first use (under the
-        lock); on CUDA build and load the kernels first, and capture the
-        ring's graphs. Any failure here raises."""
+        lock), or in tenant mode the tenant stack; on CUDA build and load
+        the kernels first, and capture the ring's graphs. Any failure here
+        raises."""
         if self.ring is not None:
             return
         if self.device.type == "cuda":
@@ -635,7 +705,13 @@ class TorchSketchExporter:
                   enable_asym=self.cfg.enable_asym, capture=self._capture,
                   graph_pool=self._pool, pack_threads=self.pack_threads,
                   metrics=self._metrics)
-        if self.feed == "resident":
+        if self.tenants:
+            ring = tenancy.TenantStack(
+                self.tenants, self.cfg, self.batch_size,
+                metrics=self._metrics, reset_sketches=self.reset_sketches,
+                decay_factor=self.decay_factor, device=self.device,
+                capture=self._capture, graph_pool=self._pool)
+        elif self.feed == "resident":
             ring = staging.ShardedResidentStagingRing(
                 self.batch_size, 1, slot_cap=self.resident_slots,
                 packer=self._packer,
@@ -652,7 +728,7 @@ class TorchSketchExporter:
         if self._overload is not None:
             ring.slot_wait_budget_s = self._shed_slot_budget_s
         self.ring = ring
-        if isinstance(ring, staging.DenseStagingRing):
+        if isinstance(ring, (staging.DenseStagingRing, tenancy.TenantStack)):
             ring.warm(self.state)
         else:
             self.warm_superbatch_ladder()
@@ -883,8 +959,13 @@ class TorchSketchExporter:
         """Fold a flat uint32 dense feed (rows of 20 words, any row count;
         it folds in batches of `batch_size`), each batch contained; close
         the window if its deadline passed. A feed that is not whole rows
-        raises."""
+        raises, and so does tenant mode, which takes evictions and records
+        only."""
         self._check_open()
+        if self.tenants:
+            raise ValueError("tenant mode folds evictions and records "
+                             "(export_evicted, export_batch), not a dense "
+                             "feed")
         flat = np.asarray(flat).reshape(-1).view(np.uint32)
         if flat.size % sk.DENSE_WORDS:
             raise ValueError(f"dense feed of {flat.size} words is not whole "
@@ -945,9 +1026,13 @@ class TorchSketchExporter:
                          enable_fanout=self.cfg.enable_fanout,
                          enable_asym=self.cfg.enable_asym)
 
-    def state_tables(self) -> dict[str, np.ndarray]:
-        """The current (pre-roll) mergeable tables, on the host."""
+    def state_tables(self):
+        """The current (pre-roll) mergeable tables, on the host; in tenant
+        mode a list of them, one a tenant."""
         with self._lock, self._on_device():
+            if self.tenants:
+                return [sk.state_tables(tenancy.tenant_view(self.state, t))
+                        for t in range(self.tenants)]
             return sk.state_tables(self.state)
 
     def counter_table_bytes(self) -> dict[str, int]:
@@ -958,11 +1043,29 @@ class TorchSketchExporter:
     # ---------------------------------------------------- window plane
 
     def _drain_pending(self) -> None:
-        """Fold the pending buffer's rows, a partial batch included
-        (reference `_drain_pending_locked`, `tpu_sketch.py:1427-1444`,
-        without its tenant part); a wedged fold is `_fold_events`'s."""
+        """Fold the pending buffer's rows, a partial batch included, and
+        in tenant mode ship the partial tenant buffers as one last stacked
+        fold (reference `_drain_pending_locked`, `tpu_sketch.py:1427-1444`);
+        a wedged fold is `_fold_events`'s, and a wedged flush is logged and
+        counted here, its rows left in the tenant buffers."""
         if self.pending is not None:
             self.pending.flush_to(self._fold_events)
+        if not self.tenants:
+            return
+        folds = self.ring.folds
+        try:
+            self.ring.flush(self.state)
+        except staging.StagingWedged as exc:
+            if exc.state is not None:
+                self.state = exc.state
+            log.error("tenant flush hit the slot-wait budget (buffered rows "
+                      "dropped): %s", exc)
+            self.ingest_errors += 1
+            if self._metrics is not None:
+                self._metrics.sketch_ingest_errors_total.inc()
+                self._metrics.count_error("tpu-sketch-ingest")
+        finally:
+            self.folds += self.ring.folds - folds
 
     def _close_window_locked(self) -> _Queued:
         """Drain the pending rows and roll, under one window trace
@@ -988,16 +1091,21 @@ class TorchSketchExporter:
         if self._overload is not None:
             # a window with no pressure snaps the shed factor back to 1
             self._overload.window_roll()
+        whole = self._delta_sink is not None or self._archive is not None
         with wtrace.stage("roll_dispatch"):
             with self._roll_mutex:
-                tables = (sk.state_tables(self.state)
-                          if self._delta_sink is not None
-                          or self._archive is not None
-                          else sk.host_cm_planes(self.state))
-                _, report = sk.roll_window(self.state, self.cfg,
-                                           self.reset_sketches,
-                                           self.decay_factor)
-                report = report_numpy(report)
+                if self.tenants:
+                    # every tenant's window, rolled here; the publish fans
+                    # the per-tenant host copies out
+                    report, tables = self._roll_tenants(
+                        self.state, None if whole else tenancy.CM_TABLES)
+                else:
+                    tables = (sk.state_tables(self.state) if whole
+                              else sk.host_cm_planes(self.state))
+                    _, report = sk.roll_window(self.state, self.cfg,
+                                               self.reset_sketches,
+                                               self.decay_factor)
+                    report = report_numpy(report)
         self.rolls += 1
         entry = _Queued(report, tables, wtrace)
         self._reports.append(entry)
@@ -1022,6 +1130,14 @@ class TorchSketchExporter:
                 self._pending_ckpt = (int(report.window), self._ckpt.stage(
                     self._ckpt_state_view(), replace=superseded))
         return entry
+
+    def _roll_tenants(self, state, keys) -> tuple[list, list]:
+        """Roll every tenant's window of the stacked `state` in place (the
+        stack's `roll`) and copy the reports and the pre-roll tables (all,
+        or `keys`) to the host: one list each, one entry a tenant."""
+        _, report, tables = self.ring.roll(state, table_keys=keys)
+        return (tenancy.split_tenants(report, self.tenants),
+                tenancy.split_tenants(tables, self.tenants))
 
     def _ckpt_state_view(self):
         """What a checkpoint saves: the state, or a tiered state's wide
@@ -1069,22 +1185,36 @@ class TorchSketchExporter:
         finally:
             self._ckpt.release(staged)  # a no-op once written
 
-    def _render_report(self, report, roll: bool = True) -> dict:
+    def _render_report(self, report, roll: bool = True,
+                       tenant: Optional[int] = None) -> dict:
         """Render a host report with this exporter's thresholds, against
         the previous roll's heavy index. A closed window's render (`roll`)
         rotates that index; a mid-window refresh renders a partial window
-        and keeps it (`tpu_sketch.py:1761-1792`)."""
-        obj = report_to_json(report, prev_heavy_index=self._prev_index,
+        and keeps it. A tenant's report diffs against that tenant's own
+        index and carries its `Tenant` (`tpu_sketch.py:1761-1792`)."""
+        prev = (self._prev_index if tenant is None
+                else self._tenant_prev_index.get(tenant))
+        obj = report_to_json(report, prev_heavy_index=prev,
                              partial_window=not roll, **self._thresholds)
         if roll:
-            self._prev_index = heavy_identity_index(report)
+            idx = heavy_identity_index(report)
+            if tenant is None:
+                self._prev_index = idx
+            else:
+                self._tenant_prev_index[tenant] = idx
+        if tenant is not None:
+            obj["Tenant"] = int(tenant)
         return obj
 
     def _publish_report(self, entry: _Queued) -> None:
         """Push the delta frame in its own `try`, render, stamp, publish the
         query snapshot in its own `try`, sink, write the archive segment in
         its own `try`, then the window's metrics
-        (`tpu_sketch.py:1981-2095`)."""
+        (`tpu_sketch.py:1981-2095`); tenant mode fans out
+        (`_publish_report_tenants`)."""
+        if self.tenants:
+            self._publish_report_tenants(entry)
+            return
         wtrace = entry.trace
         self._windows_published += 1  # telemetry: counts this window
         if self._delta_sink is not None:
@@ -1148,6 +1278,114 @@ class TorchSketchExporter:
             for sig, key in SIGNAL_FIELDS.items():
                 m.sketch_window_suspects.labels(sig).set(len(obj[key]))
 
+    def _publish_report_tenants(self, entry: _Queued) -> None:
+        """Tenant mode's publish (`tpu_sketch.py:2097-2210`): every
+        tenant's report rendered against its own heavy index, then, each
+        in its own `try` as in `_publish_report`: one delta frame a tenant
+        (`tenant=(t, n)`, one telemetry block a window), the snapshots to
+        the tenants' publishers, the sink once a tenant, the per-tenant
+        archive segments; then the tier metrics by tenant, the aggregate
+        gauges and `sketch_tenant_window_records{tenant}`. `entry.out` is
+        the list of reports."""
+        wtrace, n = entry.trace, self.tenants
+        reps, tabs = entry.report, entry.tables
+        m = self._metrics
+        self._windows_published += 1  # telemetry: counts this window
+        with wtrace.stage("report_render"):
+            objs = [self._render_report(rep, roll=True, tenant=t)
+                    for t, rep in enumerate(reps)]
+        ts_ms = time.time_ns() // 1_000_000
+        for obj in objs:
+            obj["TimestampMs"] = ts_ms
+        entry.out = objs
+        if self._delta_sink is not None:
+            try:
+                self._push_tenant_deltas(wtrace, reps, tabs, ts_ms)
+            except Exception as exc:
+                log.error("tenant delta frame serialize/push failed "
+                          "(frames lost, reports still publish): %s", exc)
+                if m is not None:
+                    m.count_error("federation")
+        with wtrace.stage("query_snapshot"):
+            for t, (obj, tab) in enumerate(zip(objs, tabs)):
+                try:
+                    faultinject.fire("sketch.query_snapshot")
+                    self._publish_query_snapshot(obj, tab, tenant=t)
+                except Exception as exc:
+                    log.error("tenant %d query snapshot publish failed "
+                              "(window report still publishes): %s", t, exc)
+                    if m is not None:
+                        m.count_error("tpu-sketch-query")
+        with wtrace.stage("report_sink"):
+            for obj in objs:
+                self.sink(obj)
+        self.reports_published += n
+        if self._archive is not None:
+            try:
+                with wtrace.stage("archive_write"):
+                    faultinject.fire("sketch.archive_write")
+                    for t, tab in enumerate(tabs):
+                        self._archive.write_tenant_window(
+                            tab, window=int(objs[t]["Window"]), ts_ms=ts_ms,
+                            tenant=t)
+            except Exception as exc:
+                log.error("tenant archive segment write failed (window %s "
+                          "not fully archived; reports already "
+                          "published): %s", objs[0]["Window"], exc)
+                if m is not None:
+                    m.count_error("tpu-sketch-archive")
+        if m is None:
+            return
+        m.sketch_heavy_evictions_total.inc(
+            sum(o["HeavyChurn"]["evictions"] for o in objs))
+        if self.cfg.tiered is not None:
+            try:
+                for t, tab in enumerate(tabs):
+                    self._publish_tier_metrics(tab, tenant=t)
+            except Exception as exc:  # telemetry never loses a report
+                log.warning("tier metrics publish failed: %s", exc)
+        m.sketch_window_reports_total.inc()
+        # the agent's gauges sum the tenants; the labelled series holds
+        # each tenant's own records
+        m.sketch_window_records.set(sum(o["Records"] for o in objs))
+        m.sketch_window_drop_bytes.set(sum(o["DropBytes"] for o in objs))
+        for t, obj in enumerate(objs):
+            m.sketch_tenant_window_records.labels(str(t)).set(obj["Records"])
+        for sig, key in SIGNAL_FIELDS.items():
+            m.sketch_window_suspects.labels(sig).set(
+                sum(len(o[key]) for o in objs))
+
+    def _push_tenant_deltas(self, wtrace, reps: list, tabs: list,
+                            ts_ms: int) -> None:
+        """Encode one delta frame a tenant, `tenant=(t, n)`, all with the
+        window's one telemetry block, and hand them to the sink; the
+        aggregator's ledger keys each by (agent, tenant)
+        (`federation/delta.source_key`)."""
+        from netobserv_tpu_torch.federation import delta as fdelta
+
+        with wtrace.stage("report_serialize"):
+            faultinject.fire("sketch.delta_export")
+            ctx = tracing.context_of(wtrace, origin=f"window@{self._agent_id}")
+            if ctx is not None and self._metrics is not None:
+                self._metrics.trace_context_propagated_total.labels(
+                    "stamped").inc()
+            tel = self._telemetry_block(
+                sum(int(float(tab["scalars"][0])) for tab in tabs))
+            frames = [fdelta.encode_frame(
+                tab, agent_id=self._agent_id, window=int(reps[0].window),
+                ts_ms=ts_ms, agent_epoch=self._agent_epoch, trace_ctx=ctx,
+                telemetry=tel, tenant=(t, self.tenants), dims=self._dims())
+                for t, tab in enumerate(tabs)]
+        with wtrace.stage("delta_push"):
+            for frame in frames:
+                self._delta_sink(frame)
+
+    def _dims(self) -> dict:
+        """The frame's sketch geometry."""
+        return {"cm_depth": self.cfg.cm_depth, "cm_width": self.cfg.cm_width,
+                "hll_precision": self.cfg.hll_precision,
+                "topk": self.cfg.topk, "ewma_buckets": self.cfg.ewma_buckets}
+
     def _push_delta(self, entry: _Queued) -> None:
         """Encode the window's delta frame and hand it to the sink
         (`tpu_sketch.py:1990-2035`). The frame is encoded once: a sink's
@@ -1168,11 +1406,7 @@ class TorchSketchExporter:
                 agent_epoch=self._agent_epoch, trace_ctx=ctx,
                 telemetry=self._telemetry_block(
                     int(float(tables["scalars"][0]))),
-                dims={"cm_depth": self.cfg.cm_depth,
-                      "cm_width": self.cfg.cm_width,
-                      "hll_precision": self.cfg.hll_precision,
-                      "topk": self.cfg.topk,
-                      "ewma_buckets": self.cfg.ewma_buckets})
+                dims=self._dims())
         with wtrace.stage("delta_push"):
             self._delta_sink(frame)
 
@@ -1234,21 +1468,27 @@ class TorchSketchExporter:
         self._delta_sink = None
 
     def _publish_query_snapshot(self, obj: dict, tables: dict,
-                                mid_window: bool = False) -> None:
+                                mid_window: bool = False,
+                                tenant: Optional[int] = None) -> None:
         """Publish a fresh snapshot of a rendered report and its host CM
-        planes, then let the alert engine evaluate it (`safe_evaluate`
-        contains a failed evaluation) (`tpu_sketch.py:1794-1823`)."""
+        planes, to the tenant's publisher with its `tenant` in tenant mode,
+        then let the alert engine evaluate it (`safe_evaluate` contains a
+        failed evaluation) (`tpu_sketch.py:1794-1823`)."""
         snap = {"window": obj["Window"], "ts_ms": obj["TimestampMs"],
                 "report": obj, "cm_bytes": tables["cm_bytes"],
                 "cm_pkts": tables["cm_pkts"]}
-        self.query.publish(snap, mid_window=mid_window)
+        if tenant is not None:
+            snap["tenant"] = int(tenant)
+            self._tenant_query[tenant].publish(snap, mid_window=mid_window)
+        else:
+            self.query.publish(snap, mid_window=mid_window)
         if self._alerts is not None:
             self._alerts.safe_evaluate(snap, mid_window=mid_window)
 
     def query_status(self) -> dict:
         """`/query/status`'s body: the publisher's counters and freshness,
-        read once, and the archive's block (`tpu_sketch.py:1825-1879`,
-        without the tenant block)."""
+        read once, the archive's block and in tenant mode the tenants'
+        (`tpu_sketch.py:1825-1879`)."""
         snap = self.query.get()
         st = self.query.stats()
         st.update({"agent_id": self._agent_id, "window_s": self.window_s,
@@ -1258,6 +1498,17 @@ class TorchSketchExporter:
             st["alerts"] = self._alerts.summary()
         if self._archive is not None:
             st["archive"] = self._archive.stats()
+        if self._tenant_query is not None:
+            # each tenant's publisher read once
+            snaps_t = [p.get() for p in self._tenant_query]
+            st["tenants"] = {
+                "n": len(self._tenant_query),
+                "published": sum(1 for x in snaps_t if x is not None),
+                "stacked_folds": self.ring.folds,
+                "routed_rows": self.ring.routed_rows,
+                "windows": {str(t): (None if x is None else x["window"])
+                            for t, x in enumerate(snaps_t)},
+            }
         if snap is not None:
             st.update({"published": True, "seq": snap["seq"],
                        "window": snap["window"],
@@ -1322,22 +1573,40 @@ class TorchSketchExporter:
         with self._lock, self._on_device():
             self._drain_pending()
             if self._staging is None:
-                self._staging = sk.init_state(self.cfg, self.device)
+                self._staging = (
+                    tenancy.init_stacked_state(self.cfg, self.tenants,
+                                               self.device)
+                    if self.tenants else sk.init_state(self.cfg, self.device))
             staged = self._staging
             sk.copy_state_(staged, self.state)
             with self._roll_mutex:
-                tables = sk.host_cm_planes(staged)
-                _, report = sk.roll_window(staged, self.cfg,
-                                           self.reset_sketches,
-                                           self.decay_factor)
-                report = report_numpy(report)
+                if self.tenants:
+                    reports, tabs = self._roll_tenants(staged,
+                                                       tenancy.CM_TABLES)
+                else:
+                    tables = sk.host_cm_planes(staged)
+                    _, report = sk.roll_window(staged, self.cfg,
+                                               self.reset_sketches,
+                                               self.decay_factor)
+                    report = report_numpy(report)
         self._publish_queued()
+        if self.tenants:
+            # every tenant's partial window, to its publisher
+            ts_ms = time.time_ns() // 1_000_000
+            faultinject.fire("sketch.query_snapshot")
+            for t, (rep, tab) in enumerate(zip(reports, tabs)):
+                obj = self._render_report(rep, roll=False, tenant=t)
+                obj["TimestampMs"] = ts_ms
+                self._publish_query_snapshot(obj, tab, mid_window=True,
+                                             tenant=t)
+            return
         obj = self._render_report(report, roll=False)
         obj["TimestampMs"] = time.time_ns() // 1_000_000
         faultinject.fire("sketch.query_snapshot")
         self._publish_query_snapshot(obj, tables, mid_window=True)
 
-    def _publish_tier_metrics(self, tables: dict) -> None:
+    def _publish_tier_metrics(self, tables: dict,
+                              tenant: Optional[int] = None) -> None:
         """Count the window's new promotions out of the u8 base plane, per
         CM table: counters at or past base saturation that were not at the
         previous publish (decay mode keeps promotions across windows; reset
@@ -1349,17 +1618,18 @@ class TorchSketchExporter:
             promoted = np.asarray(tables[table]) >= span
             fresh = promoted
             if self.decay_factor is not None:
-                prev = self._tier_prev_promoted.get(table)
+                prev = self._tier_prev_promoted.get((table, tenant))
                 if prev is not None:
                     fresh = promoted & ~prev
-                self._tier_prev_promoted[table] = promoted
+                self._tier_prev_promoted[(table, tenant)] = promoted
             self._metrics.sketch_tier_promotions_total.labels(
                 table=table).inc(int(fresh.sum()))
 
-    def roll(self) -> Optional[dict]:
+    def roll(self):
         """Close the window now: fold the pending rows, roll, publish every
         queued report synchronously, and return this window's rendered
-        report (None if it was shed or failed to render)."""
+        report, in tenant mode the list of them (None if it was shed or
+        failed to render)."""
         self._check_open()
         return self._roll_now()
 

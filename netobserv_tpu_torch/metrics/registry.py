@@ -26,14 +26,17 @@ stages, the map tracer, the limiter, the terminal and the agent
 `map_pressure_evictions_total` and `evict_ringbuf_fallback_total`,
 `:70-143`, `:282-300`, with `observe_eviction`, `count_dropped`,
 `add_global_counter`, `count_exported` and `count_export_error`,
-`:483-506`). Each family has the reference family's name, type, help
-text, labels and buckets. The port's packer raises on an ABI mismatch
+`:483-506`); and the tenant planes' (`sketch_tenant_folds_total`,
+`sketch_tenants_active`, `sketch_tenant_window_records{tenant}`,
+`:248-268`) with `sketch_resident_hbm_bytes` (`:269-275`). Each
+family has the reference family's name, type, help text, labels and
+buckets. The port's packer raises on an ABI mismatch
 instead of falling back (`datapath/flowpack.py`), so
 `flowpack_abi_fallback_total` stays 0; no port datapath takes the fused
 drain, so `flowpack_native_calls_total` and
 `host_native_pipeline_seconds` stay empty. The families of the
-interfaces and the ring buffer, and of tenants, come with the steps that
-port those planes (ROADMAP A5, A8).
+interfaces and the ring buffer come with the step that ports those
+planes (ROADMAP A8).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -284,6 +287,34 @@ class Metrics:
             "packed u8/u16/u32 tiles, no wide decode temporary — compare "
             "against sketch_batches_total to confirm the interior form is "
             "the one actually engaged)",
+            registry=self.registry)
+        # multi-tenant sketch planes (sketch/tenancy.py)
+        self.sketch_tenant_folds_total = Counter(
+            p + "sketch_tenant_folds_total",
+            "Stacked tenant-fold dispatches (SKETCH_TENANTS): each folds "
+            "EVERY tenant's pending rows as one vmapped executable — the "
+            "dispatch-amortization the tenant stack exists for (compare "
+            "against sketch_records_total for rows-per-dispatch)",
+            registry=self.registry)
+        self.sketch_tenants_active = Gauge(
+            p + "sketch_tenants_active",
+            "Tenant states stacked in the live tenant plane (0 = "
+            "single-tenant path; set at exporter construction, zeroed at "
+            "close when the per-tenant labelled series are evicted)",
+            registry=self.registry)
+        self.sketch_tenant_window_records = Gauge(
+            p + "sketch_tenant_window_records",
+            "Per-tenant records in the last closed window (cardinality = "
+            "LIVE tenants: series ride Metrics.remove_labeled when a "
+            "tenant plane is drained/closed — the federation "
+            "agent-eviction hygiene pattern)",
+            ["tenant"], registry=self.registry)
+        self.sketch_resident_hbm_bytes = Gauge(
+            p + "sketch_resident_hbm_bytes",
+            "Resident sketch-state bytes on device (sum over all state "
+            "arrays; shape math, set once at exporter construction). "
+            "SKETCH_TIERED shrinks this ~4x over the counter tables — "
+            "the windows/tenants-per-HBM capacity signal",
             registry=self.registry)
         self.sketch_reports_shed_total = Counter(
             p + "sketch_reports_shed_total",

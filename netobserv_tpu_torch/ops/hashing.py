@@ -2,7 +2,9 @@
 
 Counterpart of `netobserv_tpu/ops/hashing.py` (`fmix32`, `hash_words`,
 `base_hashes`, `base_hashes_multi`, `row_indices`, `hash_words_np`,
-`base_hashes_multi_np` (`:164-197`) and the seed constants). Murmur3-style
+`base_hashes_multi_np` (`:164-197`), `tenant_of` and `tenant_of_np`
+(`:231-246`) and the seed constants, `TENANT_SEED` among them
+(`:79-84`)). Murmur3-style
 mixing over the KEY_WORDS uint32 words of each flow key;
 Kirsch–Mitzenmacher double hashing derives the Count-Min rows.
 
@@ -36,6 +38,11 @@ DST_BUCKET_SEED = 0x0D57
 SRC_BUCKET_SEED = 0x0517
 #: seed of the (dst addr, dst port) fan-out family
 DSTPORT_FANOUT_SEED = 0x5CA7
+#: seed of the tenant-owner family (tenant planes): the host router assigns
+#: every evicted flow to a tenant by this hash of the full flow key, so a
+#: flow's tenant is stable across windows and agents; `tenant_of` and
+#: `tenant_of_np` both derive from it
+TENANT_SEED = 0x7E4A
 _H1_SEED = 0x9747B28C
 _H2_SEED = 0x5BD1E995
 
@@ -171,6 +178,24 @@ def hash_words_np(words: np.ndarray, seed: int = 0) -> np.ndarray:
         h = h * f2
         h = h ^ (h >> np.uint32(16))
     return h
+
+
+def tenant_of(words: torch.Tensor, n_tenants: int) -> torch.Tensor:
+    """Tenant owner of each flow key: int32[...] in [0, n_tenants).
+
+    The full key words hashed under TENANT_SEED (h1 family), mod the tenant
+    count, decorrelated from every sketch family. `n_tenants` need not be a
+    power of two; the `%` is taken on the int64 lane (`torch.uint32` has
+    none)."""
+    h = hash_words(words, _H1_SEED ^ TENANT_SEED)
+    return (h % n_tenants).to(torch.int32)
+
+
+def tenant_of_np(words: np.ndarray, n_tenants: int) -> np.ndarray:
+    """Numpy twin of `tenant_of`: the host router (`sketch/tenancy.py`)
+    assigns evicted rows with it."""
+    h = hash_words_np(words, TENANT_SEED)
+    return (h % np.uint32(n_tenants)).astype(np.int32)
 
 
 def base_hashes_multi_np(words: np.ndarray) -> dict[str, np.ndarray]:

@@ -23,8 +23,9 @@ disabled plane; 500 when a route raises; 503 before the first publish.
 
 Back-scroll: every data route takes ``?window=<id>`` for a closed window
 of the publisher's ring. Tenants: with `tenant_publishers` (one
-`SnapshotPublisher` a tenant) the data routes require ``?tenant=<id>``;
-the exporter passes None until the port has tenants (ROADMAP A5).
+`SnapshotPublisher` a tenant, which a tenant-mode exporter passes) the
+data routes require ``?tenant=<id>`` and answer from that tenant's
+publisher.
 """
 
 from __future__ import annotations

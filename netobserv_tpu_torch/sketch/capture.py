@@ -111,10 +111,12 @@ def binding(x: Any) -> tuple:
 class CapturedFold:
     """`fold(*args)`, captured as a CUDA graph at its first call and
     replayed at every later call with the same binding (module
-    docstring). `launches` maps each kernel to its launches per replay;
-    `captures` counts the captures."""
+    docstring); `tenants` marks a tenant-stacked fold in the compile
+    watch (`utils/retrace.watch`). `launches` maps each kernel to its
+    launches per replay; `captures` counts the captures."""
 
-    def __init__(self, name: str, fold: Callable[..., Any], pool=None):
+    def __init__(self, name: str, fold: Callable[..., Any], pool=None,
+                 tenants: int | None = None):
         self.name = name
         self._fold = fold
         self._pool = pool
@@ -122,7 +124,7 @@ class CapturedFold:
         self._binding: tuple | None = None
         self.launches: dict[CudaKernel, int] = {}
         self.captures = 0
-        self._entry = retrace.watch(self._call, name)
+        self._entry = retrace.watch(self._call, name, tenants=tenants)
 
     def __call__(self, *args) -> None:
         self._entry(*args)

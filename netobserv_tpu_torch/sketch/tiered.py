@@ -381,9 +381,12 @@ COUNTER_TABLES = ("cm_bytes", "cm_pkts", "hll_src", "hll_per_dst",
 
 
 def array_bytes(tree) -> int:
-    """Total bytes of the tensors in a nest of tuples (shape math only)."""
+    """Total bytes of the tensors in a nest of tuples (shape math only);
+    a leaf that is not a tensor (the tier geometry) counts nothing."""
     if isinstance(tree, torch.Tensor):
         return math.prod(tree.shape) * tree.element_size()
+    if not isinstance(tree, tuple):
+        return 0
     return sum(array_bytes(x) for x in tree)
 
 

@@ -2,7 +2,8 @@
 after warm-up raised as an alarm.
 
 Counterpart of `netobserv_tpu/utils/retrace.py` (`Watched`, `watch`,
-`snapshot`, `total_retraces`). JAX compiles a jitted fold once per
+`snapshot`, `total_retraces`, with the `tenants=` attribution of
+`:114-207`, `:235-249`). JAX compiles a jitted fold once per
 abstract signature, and compiles again when a call's signature changes.
 The port captures its fold as a CUDA graph (`sketch/capture.py`) bound to
 the storage of its arguments, and captures again when a call's binding
@@ -12,6 +13,9 @@ That second capture is what the watch is for:
 - each captured fold is a watched entry (`watch`), with its calls, their
   host seconds (`dispatch_seconds`), its compiles (graph captures, noted
   by the fold with `Watched.note_compile`) and their seconds;
+- a tenant-stacked entry (`watch(..., tenants=N)`, the tenant stack's
+  `tenant_ingest`, `sketch/tenancy.py`) is one entry with `tenants` in
+  its stats and `tenants=N ` before its signature;
 - a compile within an entry's first `warmup_calls` calls (default 1,
   `RETRACE_WARMUP_CALLS`) is warm-up. A compile on a later call is a
   retrace: it adds to the entry's `retraces` and to `total_retraces()`,
@@ -77,9 +81,11 @@ class Watched:
 
     __slots__ = ("_fn", "name", "warmup_calls", "calls", "compiles",
                  "retraces", "last_retrace", "dispatch_seconds",
-                 "compile_seconds", "last_signature", "__weakref__")
+                 "compile_seconds", "last_signature", "tenants",
+                 "__weakref__")
 
-    def __init__(self, fn: Callable, name: str, warmup_calls: int):
+    def __init__(self, fn: Callable, name: str, warmup_calls: int,
+                 tenants: Optional[int] = None):
         self._fn = fn
         self.name = name
         self.warmup_calls = warmup_calls
@@ -90,6 +96,9 @@ class Watched:
         self.dispatch_seconds = 0.0
         self.compile_seconds = 0.0
         self.last_signature = ""
+        #: tenant count of a tenant-stacked entry: the stacked fold is one
+        #: entry with its tenant axis named, never N anonymous ones
+        self.tenants = tenants
 
     def __call__(self, *args, **kwargs):
         self.calls += 1
@@ -109,6 +118,8 @@ class Watched:
         global _retraces_total
         self.compiles += 1
         self.compile_seconds += seconds
+        if self.tenants is not None:
+            signature = f"tenants={self.tenants} {signature}"
         self.last_signature = signature
         if self.calls <= self.warmup_calls:
             return  # warm-up
@@ -130,6 +141,8 @@ class Watched:
                 "warmup_calls": self.warmup_calls,
                 "dispatch_seconds": round(self.dispatch_seconds, 6),
                 "compile_seconds": round(self.compile_seconds, 6),
+                **({"tenants": self.tenants}
+                   if self.tenants is not None else {}),
                 **({"last_signature": self.last_signature}
                    if self.last_signature else {}),
                 **({"last_retrace": self.last_retrace}
@@ -137,13 +150,16 @@ class Watched:
 
 
 def watch(fn: Callable, name: str,
-          warmup_calls: Optional[int] = None) -> Callable:
+          warmup_calls: Optional[int] = None,
+          tenants: Optional[int] = None) -> Callable:
     """Wrap `fn` as a watched entry named `name`. Returns `fn` unchanged
-    when the watch is disabled; never wraps twice."""
+    when the watch is disabled; never wraps twice. `tenants` marks a
+    tenant-stacked entry: it is listed as one entry with the tenant count
+    in its stats and its signature."""
     if not _enabled or isinstance(fn, Watched):
         return fn
     w = Watched(fn, name, _default_warmup if warmup_calls is None
-                else warmup_calls)
+                else warmup_calls, tenants=tenants)
     with _lock:
         _registry.append(weakref.ref(w))
         if len(_registry) % 64 == 0:  # sweep dead entries now and then

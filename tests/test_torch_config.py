@@ -30,6 +30,7 @@ from netobserv_tpu_torch import config as tcfg
 from netobserv_tpu_torch.exporter import build_exporter
 from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
 from netobserv_tpu_torch.sketch import state as ts
+from netobserv_tpu_torch.sketch.tenancy import TenantStack
 
 #: a value of each type, unlike every default
 _VALUES = {"int": "7", "float": "0.25", "bool": "true", "str": "x",
@@ -289,7 +290,7 @@ def test_from_config_matches_the_reference(name, tmp_path):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"SKETCH_MESH_SHAPE": "2x1"}, "A6"), ({"SKETCH_TENANTS": "2"}, "A5"),
+    ({"SKETCH_MESH_SHAPE": "2x1"}, "A6"), ({"SKETCH_TENANTS": "2"}, None),
     ({"FEDERATION_TARGET": "agg:9999"}, "A8"),
     ({"SKETCH_DEVICES": "tpu"}, "SKETCH_DEVICES"),
     ({"EXPORT": "grpc", "TARGET_HOST": "h", "TARGET_PORT": "1"}, "A8"),
@@ -297,7 +298,18 @@ def test_from_config_matches_the_reference(name, tmp_path):
     ids=["mesh", "tenants", "federation", "devices", "grpc", "stdout",
          "direct-flp"])
 def test_build_exporter_refuses_what_the_port_lacks(env, item):
+    """Each setting the port lacks raises naming its ROADMAP item; the
+    tenants case (item None, ported since) builds the tenant planes: a
+    `TenantStack` ring and one query publisher a tenant."""
     cfg = tcfg.load_config({**_SMALL_ENV, **env})
+    if item is None:
+        exp = build_exporter(cfg)
+        try:
+            assert isinstance(exp.ring, TenantStack)
+            assert exp.ring.n_tenants == 2 and len(exp._tenant_query) == 2
+        finally:
+            exp.close()
+        return
     with pytest.raises(ValueError, match=item):
         build_exporter(cfg)
 

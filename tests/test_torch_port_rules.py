@@ -53,7 +53,8 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "model/flow.py", "model/record.py", "utils/dnsnames.py",
                  "flow/__init__.py", "flow/map_tracer.py", "flow/limiter.py",
                  "datapath/replay.py", "model/packet_record.py",
-                 "scenarios/synth.py", "agent/agent.py", "__main__.py")
+                 "scenarios/synth.py", "agent/agent.py", "__main__.py",
+                 "sketch/tenancy.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
