@@ -276,6 +276,42 @@ launch counts set to 0 just before it and read just after:
   per-tenant selection), the roll's lock hold and each `roll()`'s
   seconds (the publish of 8 reports and frames included), and the
   stacked dispatches;
+- the mesh (`mesh`, `parallel/`: one process drives a (data, sketch)
+  grid of devices, each shard folding its rows into its own partial, the
+  cross-shard merge at the roll), on MESH_SLOTS devices taken round robin
+  over the visible cards (`cuda:0` four times on one card, so nothing
+  here measures a link between cards). (a) A 4x1 and a 2x2 mesh, the
+  pool's dense batches copied as they are into a `DenseStagingRing` on
+  the mesh (one captured graph of every shard's fold a device), 2
+  windows x 32 dispatches, each window rolled through
+  `parallel/merge.make_merge_fn`: the 4x1 merged tables within the
+  whole-window bounds of one card's plain wide fold of the same batches
+  (the window totals within the add-order bound of the window's rows;
+  the heavy tables' identity overlap printed, since the merge
+  re-selects from four local tables), the 2x2 shards' tables against an
+  eager plain replay of the same mesh, recall@100 >= 0.99 on both
+  against the exact oracle, an integer-mass copy of MESH_INT_FOLDS
+  batches bit for bit against one card's captured fold, one capture a
+  graph, no plain version run, and the launches: a wide fold's per shard
+  fold, kernel 1's traded for two of kernel 5 on the 2x2 mesh. It prints
+  wall and CUDA-event device ms per 16,384 records, the main path's wall
+  beside them, and each roll's ms with its merge. (b) A
+  `TorchSketchExporter(mesh_shape="4x1")` on the lanes path's evictions
+  (4 shards x 2 lanes, the ladder (1, 2, 4), a callable delta sink,
+  checkpoints every roll), 2 windows closed by `flush()`; between them the
+  state is zeroed and the checkpoint restored in place (the graphs stay
+  bound) and must read back as saved; each window's frame within the
+  whole-window bounds of an eager plain replay with no restore, every
+  lane's key table against its dictionary, one capture a ladder entry, no
+  retrace; it prints records/s. (c) A 4x1 `FederationAggregator` and one
+  on one card, made before any agent's ring, over the frames of FED_AGENTS
+  lanes-path agents (the integer-mass stream split by a seeded owner), 2
+  windows: every cluster window's CM planes and totals bit for bit; it
+  prints `ingest_frame` p50, each flush's ms and the heavy tables'
+  identity overlap. The path keys `mesh_4x1`, `mesh_2x2`,
+  `mesh_exporter` (over its shard folds) and `mesh_aggregator` (the
+  agents' folds) join the `kernels` line's `launches_by_path`, and kernel
+  5's `launches` is its 2x2 count;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -320,11 +356,11 @@ and both grids on the wide and resident paths, the two grids on the
 tiered path). Kernels 3 and 8, its folds as C entries of their own, run
 on no path: the kernel phase checks each on its folds of the wide path's
 folds call. Kernel 5 (the single-plane Count-Min fold, kernel 1's body
-with one value row) runs on no path, as in the JAX package, where only
-its tests call it: the kernel phase checks it on the wide path's kernel-1
-inputs, one plane. The launches of
-kernels 3, 5 and 8 print as 0 on every path beside the kernel phase's own
-count.
+with one value row) runs only on a width-sharded mesh (`mesh`, the 2x2
+mesh: twice a shard fold), as the reference's owner-sharded fold calls
+it: the kernel phase checks it on the wide path's kernel-1 inputs, one
+plane. The launches of kernels 3 and 8 print as 0 on every path beside
+the kernel phase's own count.
 
 The resident path packs with the native packer (`csrc/flowpack.cc`, host
 C++ built with g++ at first use), the exporter's default. A phase before
@@ -685,11 +721,13 @@ def kernel_specs():
                                 a[2][:, :n].contiguous()),
              exact=False,
              replaces="netobserv_tpu/ops/pallas/signal_kernel.py:164"),
-        # no path of the JAX package runs kernel 5 (kernel 1's body with
-        # one value row): it is checked on the wide path's kernel-1 inputs
-        # (table, h1, h2, bytes values)
+        # kernel 5 (kernel 1's body with one value row) runs on a
+        # width-sharded mesh's shard folds (`mesh_2x2`, two launches a
+        # shard fold, off every one-device path): it is checked on the
+        # wide path's kernel-1 inputs (table, h1, h2, bytes values)
         dict(name="countmin_fold", mod=countmin_kernel,
              kernel=countmin_kernel.KERNEL_ONE, path="wide", per_fold={},
+             launch_path="mesh_2x2",
              trace=("cm_fold2_kernel<1>", "cm_fold2_kernelILi1E"),
              derive=("countmin_fold2", lambda a: [(a[0], a[2], a[3], a[4])]),
              wrapper="update", plain="update_plain", inplace=(0,),
@@ -1832,7 +1870,7 @@ def key_table_check(ring) -> dict:
     import numpy as np
     from netobserv_tpu_torch.datapath import flowpack
     from netobserv_tpu_torch.sketch import carry
-    tables = carry.key_table_to_numpy(ring.key_tables)
+    tables = carry.key_table_to_numpy(ring.flat_key_tables())
     live = []
     for r, (table, kd) in enumerate(zip(tables, ring.kdicts)):
         if isinstance(kd, flowpack.NativeKeyDict):
@@ -1854,12 +1892,14 @@ def key_table_check(ring) -> dict:
                        else "python")}
 
 
-def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
+def compare_tables(a: dict, b: dict, adds: dict, tier_check=None,
+                   min_overlap: float = 0.99) -> dict:
     """Kernel-path vs plain-path tables of one window: a cell that took n
     f32 adds (`adds`) is held to 2 * (n + 1) * 2^-24 relative, except the
     tiered CM tables, which `tier_check(name)` holds to the tier bound;
     every other table is exact, apart from the heavy-hitter table
-    (identity overlap) and its eviction count, which follows it."""
+    (identity overlap, at least `min_overlap`) and its eviction count,
+    which follows it."""
     import numpy as np
     worst = 0.0
     tier = {}
@@ -1887,7 +1927,8 @@ def compare_tables(a: dict, b: dict, adds: dict, tier_check=None) -> dict:
     ia, ib = ids(a), ids(b)
     # two empty tables (a window that folded nothing) are the same table
     overlap = len(ia & ib) / len(ia | ib) if ia | ib else 1.0
-    check(overlap >= 0.99, f"heavy identities overlap {overlap} < 0.99")
+    check(overlap >= min_overlap,
+          f"heavy identities overlap {overlap} < {min_overlap}")
     out = {"max_rel_diff": worst, "bound": "2*(n+1)*2^-24 per cell",
            "max_adds_per_cell": max((float(v.max()) for v in adds.values()),
                                     default=0.0),
@@ -5640,6 +5681,479 @@ def phase_tenants(specs, events, card: str) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+#: the mesh phase (module docstring, `mesh`): the grid's devices, a card
+#: index a slot, and (a)'s integer-mass dispatches
+MESH_SLOTS = 4
+MESH_INT_FOLDS = 8
+
+
+def mesh_devices() -> list:
+    """`MESH_SLOTS` mesh devices over the visible cards, round robin: the
+    one card repeated where there is one."""
+    import torch
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(MESH_SLOTS)]
+
+
+def _mesh_want(specs, shard_folds: int, n_sketch: int) -> dict:
+    """Launches over `shard_folds` shard folds of a mesh: a wide fold's
+    each, kernel 1 traded for two launches of kernel 5 on a
+    width-sharded mesh (bytes and packets, `countmin.update_sharded`)."""
+    want = _want_launches(specs, "wide", shard_folds)
+    if n_sketch > 1:
+        want["countmin_fold2"] = 0
+        want["countmin_fold"] = 2 * shard_folds
+    return want
+
+
+def _integer_dense(flat):
+    """A dense batch with every summed mass a small integer (bytes 1-63,
+    packets 1-3, drop bytes 0-63 and packets 0-3, unsampled): sums in any
+    order are then exact."""
+    import numpy as np
+    rows = flat.reshape(-1, 20).copy()
+    b = rows[:, 10].view(np.float32)
+    rows[:, 10] = (1 + b.astype(np.int64) % 63).astype(np.float32).view(
+        np.uint32)
+    rows[:, 11] = 1 + rows[:, 11] % 3
+    rows[:, 15] = 0
+    rows[:, 17] = (rows[:, 17] & 0xFFFF) % 64 | (
+        ((rows[:, 17] >> 16) % 4) << 16)
+    return rows.reshape(-1)
+
+
+class MeshDenseRun:
+    """One run of (a): a dense ring (on the mesh, or on one card with
+    `mesh` None) whose slots take the pool's dense batches as they are,
+    folded and rolled window by window; the device ms of each dispatch
+    (CUDA events around its copy and fold) and the wall of each window."""
+
+    def __init__(self, cfg, mesh, capture: bool):
+        import torch
+        from netobserv_tpu_torch.parallel import merge as pmerge
+        from netobserv_tpu_torch.sketch import staging
+        from netobserv_tpu_torch.sketch import state as sk
+        self.cfg, self.mesh = cfg, mesh
+        self.ring = staging.DenseStagingRing(
+            BATCH, device="cuda", mesh=mesh, capture=capture,
+            graph_pool=torch.cuda.graph_pool_handle() if capture else None)
+        if mesh is None:
+            self.state = sk.init_state(cfg, "cuda")
+        else:
+            self.state = pmerge.init_dist_state(cfg, mesh)
+            self.roll_fn = pmerge.make_merge_fn(
+                mesh, cfg, with_tables=mesh.sketch == 1)
+        self.ring.warm(self.state)
+        self.device_ms: list = []
+
+    def fold(self, flat) -> None:
+        import torch
+        ring = self.ring
+        slot = ring._wait_slot()
+        ring._bufs[slot][:] = flat
+        ev0, ev1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        ev0.record()
+        dev = ring._ship(slot)
+        if self.mesh is None:
+            ring._dispatch(ring.captured, ring._fold_fn, self.state, dev)
+        else:
+            ring._dispatch_mesh(self.state, dev)
+        ev1.record()
+        ring._advance(slot)
+        self.device_ms.append((ev0, ev1))
+
+    def roll(self):
+        """(pre-roll tables or None, report, per-shard tables or None,
+        roll seconds): the merged tables on a data-axis mesh, each shard's
+        on a width-sharded one."""
+        import torch
+        from netobserv_tpu_torch.sketch import state as sk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = None
+        if self.mesh is None:
+            tables = sk.state_tables(self.state)
+            _, report = sk.roll_window(self.state, self.cfg)
+        elif self.mesh.sketch == 1:
+            _, report, tables = self.roll_fn(self.state)
+        else:
+            shards = [sk.state_tables(s) for s in self.state.flat()]
+            tables = None
+            _, report = self.roll_fn(self.state)
+        torch.cuda.synchronize()
+        return tables, report, shards, time.perf_counter() - t0
+
+    def close(self) -> None:
+        self.ring.close()
+
+
+def _mesh_windows(run, dense, n_folds: int, adds=None, touched=None):
+    """WINDOWS windows of n_folds pool batches each through `run`; per
+    window its batches, pre-roll tables, report, the per-cell adds of a
+    plain run (`adds` and `touched` as `plain_versions` fills them) and
+    the timings."""
+    import torch
+    out = []
+    n = len(dense)
+    for w in range(WINDOWS):
+        if adds is not None:
+            adds.clear()
+            touched.clear()
+        feed = [(w * n_folds + i) % n for i in range(n_folds)]
+        torch.cuda.synchronize()
+        run.device_ms.clear()
+        t0 = time.perf_counter()
+        for bi in feed:
+            run.fold(dense[bi])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev_ms = [a.elapsed_time(b) for a, b in run.device_ms]
+        tables, report, shards, roll_s = run.roll()
+        out.append({"feed": feed, "wall": wall, "device_ms": dev_ms,
+                    "tables": tables, "shards": shards, "report": report,
+                    "roll_s": roll_s,
+                    "adds": ({k: v.cpu().numpy() for k, v in adds.items()}
+                             if adds is not None else None)})
+    return out
+
+
+def _report_heavy(report):
+    """The report's heavy words and validity as host arrays."""
+    import numpy as np
+    return (report.heavy.words.cpu().numpy().astype(np.uint32),
+            report.heavy.valid.cpu().numpy())
+
+
+def _mesh_ingest(specs, universe, pool, dense, devices, main_res) -> dict:
+    """(a): the 4x1 and 2x2 meshes on the pool's dense batches, against one
+    card's wide fold (4x1) and an eager plain replay (2x2)."""
+    import numpy as np
+    from netobserv_tpu_torch.parallel import mesh as pmesh
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    m41 = pmesh.make_mesh(pmesh.MeshSpec(4, 1), devices)
+    m22 = pmesh.make_mesh(pmesh.MeshSpec(2, 2), devices)
+    out = {}
+    launches = {}
+    # one card's fold, plain, with its per-cell adds: the bounds' reference
+    adds: dict = {}
+    touched: dict = {}
+    with plain_versions(specs, adds, touched):
+        single = MeshDenseRun(cfg, None, capture=False)
+        ref = _mesh_windows(single, dense, FOLDS_PER_WINDOW, adds, touched)
+        single.close()
+    runs = {}
+    for name, mesh in (("4x1", m41), ("2x2", m22)):
+        plain_calls: dict = {}
+        with counting_plains(specs, plain_calls):
+            run = MeshDenseRun(cfg, mesh, capture=True)
+            captures0 = [c.captures for c in run.ring.captures]
+            for s in specs:
+                s["kernel"].launches = 0
+            wins = _mesh_windows(run, dense, FOLDS_PER_WINDOW)
+            launches[name] = {s["name"]: s["kernel"].launches for s in specs}
+            check([c.captures for c in run.ring.captures] == captures0
+                  == [1] * len(mesh.distinct()),
+                  f"{name}: captures {captures0}")
+            run.close()
+        check(not plain_calls, f"{name}: plain versions ran on the card: "
+              f"{plain_calls}")
+        shard_folds = WINDOWS * FOLDS_PER_WINDOW * 4
+        want = _mesh_want(specs, shard_folds, mesh.sketch)
+        check(launches[name] == want, f"mesh {name} launches "
+              f"{launches[name]}, want {want}")
+        runs[name] = wins
+    # 4x1: the merged tables against one card's plain fold, whole-window
+    # bounds; the heavy table is the merge's, so its overlap is reported.
+    # The window totals sum in another order on the mesh (four partials,
+    # then the merge): each is held to the add-order bound of the
+    # window's rows (the heavy-eviction count, last, is left out)
+    cmp41 = [compare_tables(w["tables"], r["tables"], {
+        **r["adds"], "scalars": np.full(len(r["tables"]["scalars"]) - 1,
+                                        len(r["feed"]) * BATCH)},
+        min_overlap=0.0) for w, r in zip(runs["4x1"], ref)]
+    # 2x2: every shard against an eager plain replay of the same mesh
+    adds22: dict = {}
+    touched22: dict = {}
+    with plain_versions(specs, adds22, touched22):
+        prun = MeshDenseRun(cfg, m22, capture=False)
+        pwins = _mesh_windows(prun, dense, FOLDS_PER_WINDOW, adds22,
+                              touched22)
+        prun.close()
+    cmp22 = [[compare_tables(a, b, p["adds"]) for a, b in
+              zip(w["shards"], p["shards"])]
+             for w, p in zip(runs["2x2"], pwins)]
+    recalls = {}
+    for name, wins in runs.items():
+        recalls[name] = [traffic.check_recall(*_report_heavy(w["report"]),
+                                              w["feed"], universe, pool)
+                         for w in wins]
+        check(min(recalls[name]) >= 0.99,
+              f"mesh {name} recall@100 {recalls[name]}")
+        for w in wins:
+            check(float(w["report"].total_records) == len(w["feed"]) * BATCH,
+                  f"mesh {name} records {float(w['report'].total_records)}")
+    # the integer copy: 4x1 merged tables equal one card's captured fold,
+    # bit for bit (but the heavy table and its evictions)
+    ints = [_integer_dense(d) for d in dense[:MESH_INT_FOLDS]]
+    got = {}
+    for name, mesh in (("single", None), ("4x1", m41)):
+        run = MeshDenseRun(cfg, mesh, capture=True)
+        for flat in ints:
+            run.fold(flat)
+        got[name] = run.roll()[0]
+        run.close()
+    diff = [k for k in _tables_equal(got["4x1"], got["single"])
+            if not k.startswith("heavy")]
+    check(diff in ([], ["scalars"]) and np.array_equal(
+        got["4x1"]["scalars"][:-1], got["single"]["scalars"][:-1]),
+        f"integer window: mesh tables {diff} differ from one card's")
+    wide_wall = main_res["window_seconds"][-1] * 1e3 / FOLDS_PER_WINDOW
+    for name, wins in runs.items():
+        last = wins[-1]
+        out[name] = {
+            "wall_ms_per_16384": last["wall"] * 1e3 / FOLDS_PER_WINDOW,
+            "device_ms_per_16384": float(np.median(last["device_ms"])),
+            "device_ms_per_16384_mean": float(np.mean(last["device_ms"])),
+            "roll_with_merge_ms": [w["roll_s"] * 1e3 for w in wins],
+            "recall_at_100": recalls[name],
+            "launches_per_dispatch": {
+                k: v / (WINDOWS * FOLDS_PER_WINDOW)
+                for k, v in launches[name].items() if v}}
+    out["single_card_wide"] = {
+        "wall_ms_per_16384_main_path": wide_wall,
+        "plain_wall_ms_per_16384": ref[-1]["wall"] * 1e3
+        / FOLDS_PER_WINDOW}
+    out["4x1_vs_single_card_plain"] = cmp41
+    out["2x2_vs_plain_replay"] = [
+        {"max_rel_diff": max(c["max_rel_diff"] for c in row),
+         "min_heavy_identity_overlap": min(c["heavy_identity_overlap"]
+                                           for c in row)}
+        for row in cmp22]
+    out["integer_window_exact"] = True
+    return out, launches
+
+
+def _mesh_exporter(specs, events, devices) -> dict:
+    """(b): `TorchSketchExporter(mesh_shape="4x1")` on the lanes path's
+    evictions, against its plain replay; a checkpoint restored in place
+    mid-run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.federation import delta as fdelta
+    from netobserv_tpu_torch.parallel import merge as pmerge
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import retrace
+    stream = LaneFeeder(events).stream
+    cuts = _tenant_cuts(len(stream[0]), WINDOWS)
+    ev_all, lanes_all = stream
+
+    def feed(exp, cut):
+        from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+        for lo, hi in cut:
+            exp.export_evicted(EvictedFlows(
+                ev_all[lo:hi], **{k: v[lo:hi] for k, v in lanes_all.items()}))
+
+    def make(frames, **kw):
+        exp = TorchSketchExporter(
+            sk.SketchConfig(), batch_size=BATCH, devices=devices,
+            mesh_shape="4x1", sink=_discard, delta_sink=frames.append,
+            **LANES_KW, **kw)
+        with exp._lock, exp._on_device():
+            exp._ensure_ring()  # the ladder's captures, before the counts
+        return exp
+
+    ckdir = tempfile.mkdtemp(prefix="mesh-ck-")
+    frames: list = []
+    exp = make(frames, checkpoint_dir=ckdir, checkpoint_every=1)
+    try:
+        ring = exp.ring
+        check(ring.n_shards == 4 and ring.lanes == 2
+              and ring.ladder == (1, 2, 4), f"ring: {ring.n_shards} shards, "
+              f"{ring.lanes} lanes, ladder {ring.ladder}")
+        captures0 = [c.captures for c in exp.captures]
+        check(captures0 == [1, 1, 1], f"ladder captures {captures0}")
+        retraces0 = retrace.total_retraces()
+        torch.cuda.synchronize()
+        for s in specs:
+            s["kernel"].launches = 0
+        folds0 = exp.folds
+        t0 = time.perf_counter()
+        feed(exp, cuts[0])
+        exp.flush()
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter() - t0
+        # window 0's post-roll checkpoint, restored in place over a state
+        # zeroed as a crash would lose it (the graphs stay bound); the
+        # dictionaries are untouched, so window 1 packs as the replay's
+        with exp._lock, exp._on_device():
+            saved = pmerge.dist_tables(exp.state)
+            for t in _tensors(exp.state):
+                t.zero_()
+            exp._ckpt.restore(exp.state)
+            back = pmerge.dist_tables(exp.state)
+        check(all(np.array_equal(saved[k], back[k]) for k in saved),
+              "the restored state differs from the saved one")
+        t1 = time.perf_counter()
+        feed(exp, cuts[1])
+        exp.flush()
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t1
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        dispatches = exp.folds - folds0
+        want = _mesh_want(specs, 4 * dispatches, 1)
+        check(launches == want, f"mesh exporter launches {launches}, "
+              f"want {want}")
+        check([c.captures for c in exp.captures] == captures0
+              and retrace.total_retraces() == retraces0,
+              "a capture or retrace during the mesh exporter run")
+        kt = key_table_check(ring)
+        rows = sum(hi - lo for cut in cuts for lo, hi in cut)
+        check(exp.records == rows, f"records {exp.records}, fed {rows}")
+    finally:
+        exp.close()
+    # the plain replay: the same evictions, no restore
+    pframes: list = []
+    adds: dict = {}
+    touched: dict = {}
+    adds_by_window = []
+    with plain_versions(specs, adds, touched):
+        pexp = make(pframes, capture=False)
+        try:
+            for cut in cuts:
+                adds.clear()
+                touched.clear()
+                feed(pexp, cut)
+                pexp.flush()
+                adds_by_window.append({k: v.cpu().numpy()
+                                       for k, v in adds.items()})
+        finally:
+            pexp.close()
+    got = [fdelta.decode_frame(f) for f in frames[:WINDOWS]]
+    ref = [fdelta.decode_frame(f) for f in pframes[:WINDOWS]]
+    cmp = [compare_tables(a.tables, b.tables, adds_by_window[w])
+           for w, (a, b) in enumerate(zip(got, ref))]
+    return {"records_per_s": [sum(hi - lo for lo, hi in cuts[0]) / wall0,
+                              sum(hi - lo for lo, hi in cuts[1]) / wall1],
+            "dispatches": dispatches, "lanes": 2, "shards": 4,
+            "key_table_check": kt, "vs_plain": cmp,
+            "checkpoint_restored_in_place": True}, launches
+
+
+def _mesh_aggregator(specs, events, devices) -> dict:
+    """(c): a 4x1 `FederationAggregator` over 4 lanes-path agents' frames
+    of the integer-mass stream, 2 windows, against one card's aggregator
+    over the same frames."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.federation.aggregator import (
+        FederationAggregator,
+    )
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    # the aggregators first, their graphs captured before any agent's ring
+    aggs = {name: FederationAggregator(
+        cfg, window_s=3600.0, sink=_discard,
+        **({"mesh_shape": "4x1", "devices": devices} if name == "mesh"
+           else {})) for name in ("mesh", "single")}
+    ev, lanes = _integer_stream(events)
+    owner = np.random.default_rng(13).integers(0, FED_AGENTS, len(ev))
+    frames: list = [[] for _ in range(WINDOWS)]
+    launches = {}
+    agents = []
+    try:
+        for a in range(FED_AGENTS):
+            sink: list = []
+            exp = TorchSketchExporter(
+                cfg, batch_size=BATCH, sink=_discard, agent_id=f"agent-{a}",
+                delta_sink=sink.append, **LANES_KW)
+            with exp._lock, exp._on_device():
+                exp._ensure_ring()
+            agents.append((exp, sink))
+        torch.cuda.synchronize()
+        for s in specs:
+            s["kernel"].launches = 0
+        folds = 0
+        rng = np.random.default_rng(4)
+        for w in range(WINDOWS):
+            for a, (exp, sink) in enumerate(agents):
+                mine = np.flatnonzero(owner == a)
+                half = mine[w * len(mine) // WINDOWS:
+                            (w + 1) * len(mine) // WINDOWS]
+                f0 = exp.folds
+                _evict(exp, (ev[half], {k: v[half]
+                                        for k, v in lanes.items()}), rng)
+                exp.flush()
+                folds += exp.folds - f0
+                frames[w].append(sink[-1])
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        want = _want_launches(specs, "lanes", folds)
+        check(launches == want, f"agents' launches {launches}, want {want}")
+        snaps = {n: [] for n in aggs}
+        ingest_ms = {n: [] for n in aggs}
+        flush_ms = {n: [] for n in aggs}
+        for w in range(WINDOWS):
+            for name, agg in aggs.items():
+                for f in frames[w]:
+                    t0 = time.perf_counter()
+                    ack = agg.ingest_frame(f)
+                    ingest_ms[name].append((time.perf_counter() - t0) * 1e3)
+                    check(ack.accepted == 1, f"{name} refused a frame")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                agg.flush()
+                flush_ms[name].append((time.perf_counter() - t0) * 1e3)
+                snaps[name].append(agg.snapshot())
+        check(aggs["mesh"].status()["mesh"] is True, "mesh status")
+        overlap = []
+        for a, b in zip(snaps["mesh"], snaps["single"]):
+            for k in ("cm_bytes", "cm_pkts"):
+                check(np.array_equal(a[k], b[k]), f"cluster {k} differs")
+            for k in ("total_records", "total_bytes", "window"):
+                check(a[k] == b[k], f"cluster {k} {a[k]} != {b[k]}")
+            ids = [{(int(x), int(y)) for x, y, v in zip(
+                s["heavy"]["h1"], s["heavy"]["h2"], s["heavy"]["valid"])
+                if v} for s in (a, b)]
+            overlap.append(len(ids[0] & ids[1]) / max(1, len(ids[0]
+                                                            | ids[1])))
+    finally:
+        for exp, _ in agents:
+            exp.close()
+        for agg in aggs.values():
+            agg.close()
+    return {"agents": FED_AGENTS, "windows": WINDOWS,
+            "frames": sum(len(f) for f in frames),
+            "cluster_cm_exact": True,
+            "heavy_identity_overlap_vs_single_card": overlap,
+            "ingest_frame_ms_p50": {n: _pct(v, 50)
+                                    for n, v in ingest_ms.items()},
+            "flush_ms": flush_ms}, launches
+
+
+def phase_mesh(specs, universe, pool, dense, events, main_res,
+               card: str) -> dict:
+    """The mesh on the card (module docstring, `mesh`)."""
+    import torch
+    t_phase = time.perf_counter()
+    devices = mesh_devices()
+    ingest, launches = _mesh_ingest(specs, universe, pool, dense, devices,
+                                    main_res)
+    exp_res, exp_launches = _mesh_exporter(specs, events, devices)
+    agg_res, agg_launches = _mesh_aggregator(specs, events, devices)
+    return {"phase": "mesh", "card": card,
+            "device_count": torch.cuda.device_count(), "devices": devices,
+            "ingest": ingest, "exporter": exp_res, "aggregator": agg_res,
+            "launches": {"mesh_4x1": launches["4x1"],
+                         "mesh_2x2": launches["2x2"],
+                         "mesh_exporter": exp_launches,
+                         "mesh_aggregator": agg_launches},
+            "seconds": time.perf_counter() - t_phase}
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -6007,6 +6521,10 @@ def main() -> int:
         phase = "tenants"
         tn_res = phase_tenants(specs, events, dev["nvidia_smi"])
         emit(tn_res)
+        phase = "mesh"
+        mesh_res = phase_mesh(specs, universe, pool, dense, events,
+                              main_res, dev["nvidia_smi"])
+        emit(mesh_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -6036,6 +6554,7 @@ def main() -> int:
                 "agent_entry": ae_res["launches"],
                 "tenants": tn_res["launches"],
                 "tenants_tiered": tn_res["tiered_launches"],
+                **mesh_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -6044,10 +6563,12 @@ def main() -> int:
         {"name": r["name"], "route": "cuda",
          "source": f"netobserv_tpu_torch/csrc/{s['kernel'].source}",
          "replaces": s["replaces"],
-         # the count on the kernel's first path (0 for kernel 5, which no
-         # path runs); every path's count beside it
-         "launches": next((launches[p][r["name"]] for p in s["per_fold"]),
-                          0),
+         # the count on the kernel's first path (kernel 5's on the 2x2
+         # mesh); every path's count beside it
+         "launches": (launches[s["launch_path"]][r["name"]]
+                      if "launch_path" in s else
+                      next((launches[p][r["name"]] for p in s["per_fold"]),
+                           0)),
          "launches_by_path": {p: launches[p][r["name"]] for p in launches},
          "max_abs_err": r["max_abs_err"], "ms": r["device_kernel_ms"],
          "plain_ms": r["device_plain_ms"], "bound_ms": r["bound_ms"],

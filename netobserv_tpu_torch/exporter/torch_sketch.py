@@ -238,11 +238,12 @@ thresholds, overload, query, alert, archive and checkpoint settings, the
 report sink of SKETCH_REPORT_SINK (stdout or Kafka) and the decay factor
 of SKETCH_WINDOW_MODE=decay, and with SKETCH_TENANTS the tenant planes,
 with a per-tenant archive set (`archive.tenant_archives`) where
-ARCHIVE_DIR is set. SKETCH_DEVICES "" means the card (`pick_device`,
-which raises without CUDA) and "cpu" the CPU with the plain versions;
-SKETCH_MESH_SHAPE (ROADMAP A6), FEDERATION_TARGET (its gRPC sender, A8)
-and any other SKETCH_DEVICES raise `ValueError`. A sampled batch trace
-riding an eviction (`evicted.trace`, the map tracer's) is parked until
+ARCHIVE_DIR is set, and with SKETCH_MESH_SHAPE the mesh. SKETCH_DEVICES
+"" means the cards (`pick_device`, which raises without CUDA) and "cpu"
+the CPU with the plain versions, repeated for a mesh; FEDERATION_TARGET
+(its gRPC sender, A8) and any other SKETCH_DEVICES raise `ValueError`.
+A sampled batch trace riding an eviction (`evicted.trace`, the map
+tracer's) is parked until
 the next fold, which finishes it with its `fold` span; a second one
 arriving before that fold is finished at once. The reference's
 fused-drain branch (`evicted.packed`) waits for a fused drain (ROADMAP
@@ -272,8 +273,31 @@ partial window. Checkpoints have no stacked form: `checkpoint_dir` is
 disabled with a warning. `close()` evicts the per-tenant series.
 `sketch_resident_hbm_bytes` is the state's bytes, stacked or not.
 
+**The mesh** (`mesh_shape`, `devices`; `tpu_sketch.py:521-647`). With a
+mesh shape, or with more than one device (`devices`, else every visible
+card when `device` is None, all on the data axis), the state is a
+`parallel/merge.DistState` over `parallel/mesh.make_mesh` (a shape that
+needs more devices than these raises, naming both counts; it never
+shrinks). The batch rounds up to a multiple of the data axis. The ring
+is a `ShardedResidentStagingRing` over the data shards,
+`pick_lanes(rows a shard, lane_threads // data)` lanes each, or a
+`DenseStagingRing` on the mesh (SKETCH_FEED=compact logs and takes it,
+as the reference does); each device's shards fold as one captured graph
+a ladder entry. The roll is `parallel/merge.make_merge_fn`: the merged
+report and tables, every shard rolled in place, its slot table kept. A
+width-sharded mesh has no whole-width tables: the delta sink and the
+archive are dropped with the reference's warnings, the query snapshots
+carry no CM planes (`/query/frequency` answers 503) and `state_tables`
+raises. Tenants run as one tenant and SKETCH_TIERED as wide tables,
+each with the reference's warning; the latter also shows as the
+`tiered_degraded` supervisor condition and in `query_status`. The
+refresh rolls a staged `DistState` through the merge; checkpoints save
+and restore the `DistState` in place (`sketch/checkpoint.py`).
+`fold_dense` takes one device only. `sketch_resident_hbm_bytes` sums
+every shard.
+
 Not in this slice: the gRPC delta transport (A4.3's transport, A8) and
-the mesh (A6).
+the multi-host mesh (`parallel/distributed.py`, A6b).
 """
 
 from __future__ import annotations
@@ -304,6 +328,8 @@ from netobserv_tpu_torch.exporter.report import (
 )
 from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.ops.kernels import _build
+from netobserv_tpu_torch.parallel import merge as pmerge
+from netobserv_tpu_torch.parallel import mesh as pmesh
 from netobserv_tpu_torch.query.routes import QueryRoutes
 from netobserv_tpu_torch.query.snapshot import SnapshotPublisher
 from netobserv_tpu_torch.sketch import state as sk
@@ -313,6 +339,9 @@ from netobserv_tpu_torch.utils import faultinject, retrace, tracing
 from netobserv_tpu_torch.utils.platform import pick_device
 
 log = logging.getLogger("netobserv_tpu_torch.exporter.torch_sketch")
+#: whether the mesh's SKETCH_TIERED degradation was logged (once a
+#: process: exporters are rebuilt on restarts)
+_TIERED_DEGRADE_WARNED = False
 
 FEEDS = ("resident", "compact", "dense")
 #: reports a window close may queue before the oldest is shed
@@ -391,8 +420,11 @@ class TorchSketchExporter:
                  archive=None, shed_watermark: float = 0.0,
                  shed_max: int = 64, shed_slot_budget_s: float = 30.0,
                  shed_seed: int = 2026, overlap_depth: int = 0,
-                 tenants: int = 0):
-        self.device = pick_device(device)
+                 tenants: int = 0, mesh_shape: str = "", devices=None):
+        #: the mesh (`parallel/mesh.Mesh`), or None: one device
+        self.mesh = self._make_mesh(device, devices, mesh_shape)
+        self.device = (self.mesh.first if self.mesh is not None
+                       else pick_device(device))
         cuda = self.device.type == "cuda"
         if packer not in ("native", "python"):
             raise ValueError(f"packer must be 'native' or 'python', not "
@@ -405,6 +437,11 @@ class TorchSketchExporter:
             raise ValueError("overlap_depth must be >= 0")
         if tenants < 0:
             raise ValueError("tenants must be >= 0")
+        #: SKETCH_TIERED asked for and degraded to wide tables on a mesh
+        self._tiered_degraded = False
+        if self.mesh is not None:
+            cfg, tenants, batch_size = self._mesh_degrade(cfg, tenants,
+                                                          batch_size)
         self.cfg = cfg
         self.batch_size = batch_size
         self.window_s = window_s
@@ -449,8 +486,20 @@ class TorchSketchExporter:
         self.tenants = tenants
         #: each tenant's previous closed window's heavy index
         self._tenant_prev_index: dict[int, Optional[dict]] = {}
-        self.state = (tenancy.init_stacked_state(cfg, tenants, self.device)
-                      if tenants else sk.init_state(cfg, self.device))
+        if self.mesh is not None:
+            self.state = pmerge.init_dist_state(cfg, self.mesh)
+        elif tenants:
+            self.state = tenancy.init_stacked_state(cfg, tenants,
+                                                    self.device)
+        else:
+            self.state = sk.init_state(cfg, self.device)
+        #: whether a roll has the whole-width merged tables (all but a
+        #: width-sharded mesh), and the mesh's roll
+        self._with_tables = self.mesh is None or self.mesh.sketch == 1
+        self._mesh_roll = (pmerge.make_merge_fn(
+            self.mesh, cfg, reset_sketches, decay_factor,
+            with_tables=self._with_tables)
+            if self.mesh is not None else None)
         self._ckpt = None
         self._ckpt_every = checkpoint_every
         self._n_windows_saved = 0
@@ -486,12 +535,24 @@ class TorchSketchExporter:
                         "SKETCH_WINDOW_MODE=reset (decay frames are "
                         "cumulative); disabling delta export")
             self._drop_delta_sink()
+        if self._delta_sink is not None and not self._with_tables:
+            # width-sharded CM planes are independent local-width sketches:
+            # there is no whole-width snapshot to frame
+            log.warning("federation delta export needs a data-axis-only "
+                        "mesh; disabling it on this %dx%d exporter",
+                        self.mesh.data, self.mesh.sketch)
+            self._drop_delta_sink()
         self.query = SnapshotPublisher(history=query_history)
         #: tenant mode's query plane: one publisher a tenant, which the
         #: data routes pick by ?tenant= (`self.query` stays unused)
         self._tenant_query = ([SnapshotPublisher(history=query_history)
                                for _ in range(tenants)] if tenants else None)
         self._alerts = alerts
+        if archive is not None and not self._with_tables:
+            # no whole-width table snapshot to archive (the delta rule)
+            log.warning("sketch archive needs a data-axis-only mesh; "
+                        "disabling it on this exporter")
+            archive = None
         if tenants and archive is not None and \
                 not hasattr(archive, "write_tenant_window"):
             # one store would merge tenants at range-query time
@@ -520,7 +581,8 @@ class TorchSketchExporter:
         self._query_refresh_s = float(query_refresh_s)
         self._next_refresh = (time.monotonic() + self._query_refresh_s
                               if self._query_refresh_s else None)
-        words = batch_size * sk.DENSE_WORDS
+        # the dense entry's buffers (`fold_dense`, one device only)
+        words = batch_size * sk.DENSE_WORDS if self.mesh is None else 0
         self._host = torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
         self._host_u32 = self._host.numpy().view(np.uint32)
         self._dev = torch.zeros(words, dtype=torch.int32, device=self.device)
@@ -532,7 +594,8 @@ class TorchSketchExporter:
         self._pool = torch.cuda.graph_pool_handle() if self._capture else None
         self._fold_dense = (CapturedFold("fold_dense", self._ingest_dense,
                                          self._pool)
-                            if self._capture else None)
+                            if self._capture and self.mesh is None
+                            else None)
         self._dense_ready = False
         self._prev_index: Optional[dict] = None
         #: a sampled batch trace riding an eviction, parked for the next
@@ -589,10 +652,6 @@ class TorchSketchExporter:
         naming its ROADMAP item."""
         from netobserv_tpu_torch.alerts.engine import maybe_engine
         from netobserv_tpu_torch.archive import maybe_archive, tenant_archives
-        if cfg.sketch_mesh_shape:
-            raise ValueError(
-                f"SKETCH_MESH_SHAPE={cfg.sketch_mesh_shape!r}: the port "
-                "folds on one device; the mesh is ROADMAP A6")
         if cfg.federation_target:
             raise ValueError(
                 f"FEDERATION_TARGET={cfg.federation_target!r}: the gRPC "
@@ -601,11 +660,28 @@ class TorchSketchExporter:
             raise ValueError(
                 f"SKETCH_DEVICES={cfg.sketch_devices!r} (want empty, the "
                 "card, or cpu)")
-        device = pick_device("cpu" if cfg.sketch_devices == "cpu" else None)
+        cpu = cfg.sketch_devices == "cpu"
+        device = pick_device("cpu" if cpu else None)
+        spec = (pmesh.MeshSpec.parse(cfg.sketch_mesh_shape, 1)
+                if cfg.sketch_mesh_shape else None)
+        # a CPU mesh repeats the CPU; on CUDA the mesh takes the visible
+        # cards, and a shape that needs more raises in the constructor
+        devices = ([device] * (spec.data * spec.sketch)
+                   if cpu and spec is not None else None)
         sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
         if sink is None:
             sink = make_report_sink(cfg)
-        if cfg.sketch_tenants > 0:
+        if spec is not None and spec.sketch > 1:
+            # no whole-width table snapshot to archive: decided from the
+            # shape alone, so no store is opened (it would heal and rewrite
+            # its manifest for a feature that is off)
+            archive = None
+            if cfg.archive_dir:
+                log.warning("ARCHIVE_DIR set on a width-sharded mesh "
+                            "(SKETCH_MESH_SHAPE=%s): no whole-width "
+                            "table snapshot exists — archive disabled",
+                            cfg.sketch_mesh_shape)
+        elif cfg.sketch_tenants > 0:
             # one store a tenant under ARCHIVE_DIR/tenant-<t>: ranges stay
             # tenant-scoped
             archive = tenant_archives(cfg, sketch_cfg, cfg.sketch_tenants,
@@ -614,7 +690,9 @@ class TorchSketchExporter:
             archive = maybe_archive(cfg, sketch_cfg, metrics=metrics,
                                     device=device)
         return cls(
-            sketch_cfg, batch_size=cfg.sketch_batch_size, device=device,
+            sketch_cfg, batch_size=cfg.sketch_batch_size,
+            device=device if cpu else None, devices=devices,
+            mesh_shape=cfg.sketch_mesh_shape,
             window_s=cfg.sketch_window, sink=sink, metrics=metrics,
             decay_factor=(cfg.sketch_decay_factor
                           if cfg.sketch_window_mode == "decay" else None),
@@ -642,6 +720,45 @@ class TorchSketchExporter:
             shed_slot_budget_s=cfg.sketch_shed_slot_budget,
             overlap_depth=cfg.sketch_overlap, tenants=cfg.sketch_tenants)
 
+    @staticmethod
+    def _make_mesh(device, devices, mesh_shape: str):
+        """The exporter's mesh (reference `tpu_sketch.py:521-583`), or
+        None: `devices` if given, else every visible CUDA device when
+        `device` is None, else `device` alone; a mesh when `mesh_shape`
+        is set or there is more than one device (then all of them on the
+        data axis). A shape that needs more devices than these raises."""
+        if devices is not None:
+            devs = list(devices)
+        elif device is None:
+            devs = pmesh.visible_devices()
+        else:
+            devs = [device]
+        if not mesh_shape and len(devs) <= 1:
+            return None
+        return pmesh.make_mesh(pmesh.MeshSpec.parse(mesh_shape, len(devs)),
+                               devs)
+
+    def _mesh_degrade(self, cfg, tenants: int, batch_size: int):
+        """What a mesh has no sharded form of (reference `:529-552`,
+        `:580-581`): tenants run as one, with a warning; tiered planes
+        run wide, with a warning once a process and the
+        `tiered_degraded` condition; the batch rounds up to a multiple of
+        the data axis."""
+        global _TIERED_DEGRADE_WARNED
+        if tenants:
+            log.warning("SKETCH_TENANTS has no mesh-sharded form; running "
+                        "the mesh exporter single-tenant")
+            tenants = 0
+        if cfg.tiered is not None:
+            if not _TIERED_DEGRADE_WARNED:
+                _TIERED_DEGRADE_WARNED = True
+                log.warning("SKETCH_TIERED has no sharded form; running the "
+                            "mesh exporter with wide-resident tables")
+            self._tiered_degraded = True
+            cfg = cfg._replace(tiered=None)
+        n = self.mesh.data
+        return cfg, tenants, -(-batch_size // n) * n
+
     def _maybe_restore(self) -> None:
         """Restore the latest checkpoint into the state in place; a tiered
         state restores the wide form, then encodes it. A rejected or
@@ -664,7 +781,10 @@ class TorchSketchExporter:
             log.warning(
                 "sketch checkpoint at step %s is incompatible with this "
                 "version (%s); starting from a fresh window", step, exc)
-            sk.copy_state_(self.state, sk.init_state(self.cfg, self.device))
+            sk.copy_state_(self.state, (
+                pmerge.init_dist_state(self.cfg, self.mesh)
+                if self.mesh is not None
+                else sk.init_state(self.cfg, self.device)))
 
     @property
     def captures(self) -> list[CapturedFold]:
@@ -705,7 +825,9 @@ class TorchSketchExporter:
                   enable_asym=self.cfg.enable_asym, capture=self._capture,
                   graph_pool=self._pool, pack_threads=self.pack_threads,
                   metrics=self._metrics)
-        if self.tenants:
+        if self.mesh is not None:
+            ring = self._make_mesh_ring(kw)
+        elif self.tenants:
             ring = tenancy.TenantStack(
                 self.tenants, self.cfg, self.batch_size,
                 metrics=self._metrics, reset_sketches=self.reset_sketches,
@@ -732,6 +854,26 @@ class TorchSketchExporter:
             ring.warm(self.state)
         else:
             self.warm_superbatch_ladder()
+
+    def _make_mesh_ring(self, kw: dict):
+        """The mesh's ring (reference `tpu_sketch.py:607-647`): the
+        resident feed over the data shards, each shard's rows in
+        `pick_lanes(rows, lane_threads // data)` lanes; else the dense
+        feed, SKETCH_FEED=compact included, which has no sharded form."""
+        mesh = self.mesh
+        del kw["device"]
+        if self.feed == "resident":
+            bps = self.batch_size // mesh.data
+            return staging.ShardedResidentStagingRing(
+                self.batch_size, mesh.data, slot_cap=self.resident_slots,
+                packer=self._packer,
+                lanes=staging.pick_lanes(
+                    bps, max(1, self._lane_threads // mesh.data)),
+                ladder=self.superbatch, lazy_ladder=True, mesh=mesh, **kw)
+        if self.feed == "compact":
+            log.info("SKETCH_FEED=compact has no sharded form (spill "
+                     "compaction breaks the row split); using dense")
+        return staging.DenseStagingRing(self.batch_size, mesh=mesh, **kw)
 
     def warm_superbatch_ladder(self) -> None:
         """Capture every ladder entry of the resident ring against the
@@ -962,10 +1104,10 @@ class TorchSketchExporter:
         raises, and so does tenant mode, which takes evictions and records
         only."""
         self._check_open()
-        if self.tenants:
-            raise ValueError("tenant mode folds evictions and records "
-                             "(export_evicted, export_batch), not a dense "
-                             "feed")
+        if self.tenants or self.mesh is not None:
+            raise ValueError("tenant mode and a mesh fold evictions and "
+                             "records (export_evicted, export_batch), not "
+                             "a dense feed")
         flat = np.asarray(flat).reshape(-1).view(np.uint32)
         if flat.size % sk.DENSE_WORDS:
             raise ValueError(f"dense feed of {flat.size} words is not whole "
@@ -1028,17 +1170,31 @@ class TorchSketchExporter:
 
     def state_tables(self):
         """The current (pre-roll) mergeable tables, on the host; in tenant
-        mode a list of them, one a tenant."""
+        mode a list of them, one a tenant; on a data-axis mesh the merged
+        tables of every shard (`parallel/merge.merge_states`; a
+        width-sharded mesh has none and raises)."""
         with self._lock, self._on_device():
             if self.tenants:
                 return [sk.state_tables(tenancy.tenant_view(self.state, t))
                         for t in range(self.tenants)]
+            if self.mesh is not None:
+                if not self._with_tables:
+                    raise ValueError("a width-sharded mesh has no "
+                                     "whole-width tables")
+                return sk.state_tables(pmerge.merge_states(self.state))
             return sk.state_tables(self.state)
 
     def counter_table_bytes(self) -> dict[str, int]:
         """Resident bytes of each tier-covered table (CM planes, HLL
-        banks), read from the state's tensors."""
-        return tiered.counter_table_bytes(self.state)
+        banks), read from the state's tensors; on a mesh, summed over the
+        shards."""
+        if self.mesh is None:
+            return tiered.counter_table_bytes(self.state)
+        out: dict[str, int] = {}
+        for state in self.state.flat():
+            for k, v in tiered.counter_table_bytes(state).items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     # ---------------------------------------------------- window plane
 
@@ -1099,6 +1255,8 @@ class TorchSketchExporter:
                     # the per-tenant host copies out
                     report, tables = self._roll_tenants(
                         self.state, None if whole else tenancy.CM_TABLES)
+                elif self.mesh is not None:
+                    report, tables = self._roll_mesh(self.state, whole)
                 else:
                     tables = (sk.state_tables(self.state) if whole
                               else sk.host_cm_planes(self.state))
@@ -1130,6 +1288,15 @@ class TorchSketchExporter:
                 self._pending_ckpt = (int(report.window), self._ckpt.stage(
                     self._ckpt_state_view(), replace=superseded))
         return entry
+
+    def _roll_mesh(self, state, whole: bool) -> tuple:
+        """Roll every shard of the mesh `state` in place through the merge
+        (`parallel/merge.make_merge_fn`) and copy the merged report and
+        pre-roll tables (all, or with `whole` False the CM planes) to the
+        host; a width-sharded mesh has no tables (None)."""
+        out = self._mesh_roll(state, cm_only=not whole)
+        tables = out[2] if self._with_tables else None
+        return report_numpy(out[1]), tables
 
     def _roll_tenants(self, state, keys) -> tuple[list, list]:
         """Roll every tenant's window of the stacked `state` in place (the
@@ -1475,8 +1642,9 @@ class TorchSketchExporter:
         then let the alert engine evaluate it (`safe_evaluate` contains a
         failed evaluation) (`tpu_sketch.py:1794-1823`)."""
         snap = {"window": obj["Window"], "ts_ms": obj["TimestampMs"],
-                "report": obj, "cm_bytes": tables["cm_bytes"],
-                "cm_pkts": tables["cm_pkts"]}
+                "report": obj,
+                "cm_bytes": None if tables is None else tables["cm_bytes"],
+                "cm_pkts": None if tables is None else tables["cm_pkts"]}
         if tenant is not None:
             snap["tenant"] = int(tenant)
             self._tenant_query[tenant].publish(snap, mid_window=mid_window)
@@ -1494,6 +1662,9 @@ class TorchSketchExporter:
         st.update({"agent_id": self._agent_id, "window_s": self.window_s,
                    "refresh_s": self._query_refresh_s,
                    "overloaded": self.overloaded})
+        if self._tiered_degraded:
+            # why resident memory is wide despite SKETCH_TIERED
+            st["tiered_degraded"] = True
         if self._alerts is not None:
             st["alerts"] = self._alerts.summary()
         if self._archive is not None:
@@ -1573,16 +1744,22 @@ class TorchSketchExporter:
         with self._lock, self._on_device():
             self._drain_pending()
             if self._staging is None:
-                self._staging = (
-                    tenancy.init_stacked_state(self.cfg, self.tenants,
-                                               self.device)
-                    if self.tenants else sk.init_state(self.cfg, self.device))
+                if self.mesh is not None:
+                    self._staging = pmerge.init_dist_state(self.cfg,
+                                                           self.mesh)
+                elif self.tenants:
+                    self._staging = tenancy.init_stacked_state(
+                        self.cfg, self.tenants, self.device)
+                else:
+                    self._staging = sk.init_state(self.cfg, self.device)
             staged = self._staging
             sk.copy_state_(staged, self.state)
             with self._roll_mutex:
                 if self.tenants:
                     reports, tabs = self._roll_tenants(staged,
                                                        tenancy.CM_TABLES)
+                elif self.mesh is not None:
+                    report, tables = self._roll_mesh(staged, False)
                 else:
                     tables = sk.host_cm_planes(staged)
                     _, report = sk.roll_window(staged, self.cfg,
@@ -1682,6 +1859,13 @@ class TorchSketchExporter:
                 lambda: {"active": ctl.overloaded, **ctl.snapshot()})
         if self._alerts is not None and conditions:
             supervisor.register_condition("alerting", self._alerts.condition)
+        if self._tiered_degraded and conditions:
+            # a documented fallback, never DEGRADED: readiness is untouched
+            supervisor.register_condition(
+                "tiered_degraded",
+                lambda: {"active": True,
+                         "reason": "SKETCH_TIERED has no sharded form; "
+                                   "resident tables are wide"})
         if self._handoff is not None:
             self.fold_heartbeat = supervisor.register(
                 "sketch-fold", restart=self._start_fold_worker,

@@ -70,15 +70,27 @@ publish, last, in a `try` of their own (fault point
 has its `archive` block. The archive's device work holds the aggregator's
 lock (`SketchArchive.share_device_lock`).
 
+**The mesh** (`mesh_shape`, reference `:44-47`, `:99-110`, `:505-530`):
+the aggregate is a `parallel/merge.DistState` over a data-axis mesh
+(`parallel/mesh.make_mesh` of `devices`, by default every visible CUDA
+device; a list may repeat one). Each agent's frames fold into the data
+shard that owns it (`agent_owner_shard`, a crc32 of its source key), the
+owner's step of `parallel/merge.make_fold_delta_fn`: the frame is copied
+into a buffer on the owner's device and merged into that shard's partial
+(on CUDA one captured graph a shard, "federation_fold_delta"). The roll is
+`make_merge_fn(with_tables=True)`: the merged report and tables, and every
+shard rolled. A width-sharded mesh is refused with the reference's
+message; `status()["mesh"]` is True. Make the aggregator, and so capture
+its graphs, before any agent's ring (ROADMAP C4).
+
 Every CUDA call runs under the aggregator's lock, on the caller's current
 stream of the aggregator's device.
 
-Not in this slice, refused with an error that names its step: the mesh
-fold (`mesh_shape`, ROADMAP A6). A tiered `sketch_cfg` is refused too: the
-merge reads the wide tables of the aggregate (the reference's
-`merge_tables` reads `state.cm_bytes.counts`, which its tiered state does
-not have, so each frame would be rejected as a `merge_error`). A tiered
-agent sends wide tables and merges as any other.
+A tiered `sketch_cfg` is refused: the merge reads the wide tables of the
+aggregate (the reference's `merge_tables` reads `state.cm_bytes.counts`,
+which its tiered state does not have, so each frame would be rejected as
+a `merge_error`). A tiered agent sends wide tables and merges as any
+other.
 """
 
 from __future__ import annotations
@@ -88,6 +100,7 @@ import contextlib
 import logging
 import threading
 import time
+import zlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -99,6 +112,8 @@ from netobserv_tpu_torch.exporter.report import (
 from netobserv_tpu_torch.federation import delta as fdelta
 from netobserv_tpu_torch.federation import statemerge
 from netobserv_tpu_torch.federation.pbwire import DeltaAck
+from netobserv_tpu_torch.parallel import merge as pmerge
+from netobserv_tpu_torch.parallel import mesh as pmesh
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.sketch.capture import CapturedFold
 from netobserv_tpu_torch.utils import faultinject, retrace, tracing
@@ -108,6 +123,13 @@ log = logging.getLogger("netobserv_tpu_torch.federation.aggregator")
 
 #: closed windows the report queue holds before the oldest is shed
 MAX_QUEUED_REPORTS = 4
+
+
+def agent_owner_shard(agent_id: str, n_shards: int) -> int:
+    """Stable agent -> data-shard assignment (mesh mode): one agent's
+    deltas always fold into the same shard's partial (reference
+    `federation/aggregator.py:44-47`)."""
+    return zlib.crc32(agent_id.encode()) % max(1, n_shards)
 
 
 class FederationAggregator:
@@ -123,18 +145,23 @@ class FederationAggregator:
                  report_kwargs: Optional[dict] = None,
                  checkpoint_dir: str = "", checkpoint_every: int = 1,
                  agent_ttl_s: float = 0.0, alerts=None, archive=None,
-                 device: str | torch.device | None = None):
-        if mesh_shape:
-            raise NotImplementedError(
-                "the mesh aggregator (mesh_shape) is not ported yet "
-                "(ROADMAP A6)")
+                 device: str | torch.device | None = None, devices=None):
         self._cfg = sketch_cfg or sk.SketchConfig()
         if self._cfg.tiered is not None:
             raise ValueError(
                 "a tiered sketch_cfg cannot aggregate: the merge reads the "
                 "aggregate's wide tables (tiered agents send wide tables "
                 "and merge into a wide aggregator)")
-        self.device = pick_device(device)
+        #: the mesh (module docstring), or None: one device
+        self.mesh = None
+        if mesh_shape:
+            devs = (list(devices) if devices is not None
+                    else pmesh.visible_devices() if device is None
+                    else [device])
+            self.mesh = pmesh.make_mesh(
+                pmesh.MeshSpec.parse(mesh_shape, len(devs)), devs)
+        self.device = (self.mesh.first if self.mesh is not None
+                       else pick_device(device))
         self._window_s = window_s
         self._metrics = metrics
         self._sink = sink
@@ -152,21 +179,26 @@ class FederationAggregator:
                       "ewma_buckets": self._cfg.ewma_buckets}
         cuda = self.device.type == "cuda"
         with self._on_device():
-            self._state = sk.init_state(self._cfg, self.device)
             self._expected_shapes = fdelta.expected_shapes(
-                sk.state_tables(self._state))
-            self._make_buffers(cuda)
-            if cuda:
-                # the captured merge: made now, before any frame and
-                # before the window thread, so no other thread's CUDA
-                # call can meet the capture
-                self._fold = CapturedFold(
-                    "federation_merge", self._merge,
-                    torch.cuda.graph_pool_handle())
-                self._fold.prepare(self._state, self._dev)
+                sk.state_tables(sk.init_state(self._cfg, self.device)))
+            if self.mesh is not None:
+                self._init_mesh(cuda)
             else:
-                self._fold = retrace.watch(self._merge, "federation_merge")
-        self._roll = retrace.watch(self._roll_tables, "federation_roll")
+                self._state = sk.init_state(self._cfg, self.device)
+                self._make_buffers(cuda)
+                if cuda:
+                    # the captured merge: made now, before any frame and
+                    # before the window thread, so no other thread's
+                    # CUDA call can meet the capture
+                    self._fold = CapturedFold(
+                        "federation_merge", self._merge,
+                        torch.cuda.graph_pool_handle())
+                    self._fold.prepare(self._state, self._dev)
+                else:
+                    self._fold = retrace.watch(self._merge,
+                                               "federation_merge")
+                self._roll = retrace.watch(self._roll_tables,
+                                           "federation_roll")
 
         self._lock = threading.Lock()          # aggregate state + counters
         self._publish_lock = threading.Lock()
@@ -215,6 +247,98 @@ class FederationAggregator:
         self._timer: Optional[threading.Thread] = None
         self.start_window_timer()
 
+    @classmethod
+    def from_config(cls, cfg, metrics=None, sink=None
+                    ) -> "FederationAggregator":
+        """The aggregator an `AgentConfig` describes, with the arguments
+        the reference's aggregator process gives it
+        (`federation/service.py:29-64`): the SKETCH_* geometry and
+        thresholds, FEDERATION_WINDOW, FEDERATION_MESH_SHAPE,
+        FEDERATION_STALE_AFTER, FEDERATION_AGENT_TTL, the
+        FEDERATION_CHECKPOINT_* settings, ALERT_RULES, ARCHIVE_DIR and the
+        report sink (`sink` overrides it). SKETCH_DEVICES=cpu runs on the
+        CPU, repeated for a mesh; "" on the cards. The process around it
+        (gRPC, supervision) is ROADMAP A8."""
+        from netobserv_tpu_torch.alerts.engine import maybe_engine
+        from netobserv_tpu_torch.archive import maybe_archive
+        from netobserv_tpu_torch.exporter.report import make_report_sink
+        cpu = cfg.sketch_devices == "cpu"
+        device = pick_device("cpu" if cpu else None)
+        devices = None
+        if cpu and cfg.federation_mesh_shape:
+            spec = pmesh.MeshSpec.parse(cfg.federation_mesh_shape, 1)
+            devices = [device] * (spec.data * spec.sketch)
+        sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
+        return cls(
+            sketch_cfg=sketch_cfg, window_s=cfg.federation_window,
+            mesh_shape=cfg.federation_mesh_shape, metrics=metrics,
+            sink=sink if sink is not None else make_report_sink(cfg),
+            stale_after_s=cfg.federation_stale_after,
+            report_kwargs=dict(
+                scan_fanout_threshold=cfg.sketch_scan_fanout,
+                ddos_z_threshold=cfg.sketch_ddos_z,
+                synflood_min=cfg.sketch_synflood_min,
+                synflood_ratio=cfg.sketch_synflood_ratio,
+                drop_z_threshold=cfg.sketch_drop_z,
+                asym_min_bytes=cfg.sketch_asym_min_bytes,
+                asym_ratio=cfg.sketch_asym_ratio,
+                churn_ascent=cfg.sketch_churn_ascent,
+                churn_min_bytes=cfg.sketch_churn_min_bytes),
+            checkpoint_dir=cfg.federation_checkpoint_dir,
+            checkpoint_every=cfg.federation_checkpoint_every,
+            agent_ttl_s=cfg.federation_agent_ttl,
+            alerts=maybe_engine(cfg, metrics, source="federation"),
+            archive=maybe_archive(cfg, sketch_cfg, metrics=metrics,
+                                  agent_id="federation", device=device),
+            device=device if cpu else None, devices=devices)
+
+    def _init_mesh(self, cuda: bool) -> None:
+        """The mesh's aggregate, its fold and its roll (module docstring):
+        one frame buffer a data shard's device, and on CUDA one captured
+        fold a data shard, made here before any frame."""
+        mesh = self.mesh
+        self._fold_delta = pmerge.make_fold_delta_fn(mesh, self._cfg)
+        self._state = pmerge.init_dist_state(self._cfg, mesh)
+        self._mesh_roll = pmerge.make_merge_fn(mesh, self._cfg,
+                                               with_tables=True)
+        self._roll = self._roll_mesh
+        self._stacks = {}
+        for row in mesh.devices:
+            dev = row[0]
+            if dev not in self._stacks:
+                stack = statemerge.TableStack(self._expected_shapes, 1, dev)
+                self._stacks[dev] = (stack, stack.host_views(),
+                                     torch.cuda.Event() if cuda else None)
+        self._buf = next(iter(self._stacks.values()))[0]
+        self._fold = None
+        self._shard_folds = None
+        if cuda:
+            pool = torch.cuda.graph_pool_handle()
+            self._shard_folds = []
+            for d, row in enumerate(mesh.devices):
+                fold = CapturedFold("federation_fold_delta", self._merge,
+                                    pool)
+                fold.prepare(self._state.shards[d][0],
+                             self._stacks[row[0]][0].dev)
+                self._shard_folds.append(fold)
+
+    def _roll_mesh(self, state):
+        """The mesh's cluster roll: the merged pre-roll tables and report
+        to the host, every shard rolled in place."""
+        _, report, tables = self._mesh_roll(state)
+        return report_numpy(report), tables
+
+    def _windows(self) -> list[torch.Tensor]:
+        """The aggregate's window counters: one, or every shard's."""
+        if self.mesh is None:
+            return [self._state.window]
+        return [s.window for s in self._state.flat()]
+
+    def _fresh_state(self):
+        if self.mesh is not None:
+            return pmerge.init_dist_state(self._cfg, self.mesh)
+        return sk.init_state(self._cfg, self.device)
+
     # --- checkpoint/restore -----------------------------------------------
     def _maybe_restore(self) -> None:
         """Restore the aggregate state in place and the delivery ledger
@@ -236,7 +360,8 @@ class FederationAggregator:
                 restored_w = int(self._state.window)
                 if pub is not None and pub["window"] >= restored_w:
                     self._apply_restored_meta(pub["meta"])
-                    self._state.window.add_(pub["window"] + 1 - restored_w)
+                    for w in self._windows():
+                        w.add_(pub["window"] + 1 - restored_w)
                 elif step is None:
                     return
                 self._window_host = int(self._state.window)
@@ -249,8 +374,7 @@ class FederationAggregator:
             if self._metrics is not None:
                 self._metrics.count_error("federation")
             with self._on_device():
-                sk.copy_state_(self._state,
-                               sk.init_state(self._cfg, self.device))
+                sk.copy_state_(self._state, self._fresh_state())
             self._ledger, self._window_host = {}, 0
             self._agents.clear()
             self._quarantine_checkpoints()
@@ -376,6 +500,25 @@ class FederationAggregator:
         self._dev.copy_(self._host, non_blocking=True)
         if self._copied is not None:
             self._copied.record(torch.cuda.current_stream(self.device))
+
+    def _fold_owner(self, src: str, host_tables: dict, tr) -> None:
+        """Mesh mode: copy a frame's tables to its owner shard's device
+        and fold them into that shard's partial (under the lock)."""
+        d = agent_owner_shard(src, self.mesh.data)
+        dev = self.mesh.devices[d][0]
+        stack, views, ev = self._stacks[dev]
+        with tr.stage("delta_h2d"):
+            if ev is not None:
+                ev.synchronize()
+            for name, view in views.items():
+                np.copyto(view, host_tables[name], casting="unsafe")
+            stack.dev.copy_(stack.host, non_blocking=True)
+            if ev is not None:
+                ev.record(torch.cuda.current_stream(dev))
+        if self._shard_folds is not None:
+            self._shard_folds[d](self._state.shards[d][0], stack.dev)
+        else:
+            self._fold_delta(self._state, stack.device_tables(stack.dev), d)
 
     def _roll_tables(self, state: sk.SketchState):
         """The cluster roll: the pre-roll tables to the host, then the
@@ -518,10 +661,13 @@ class FederationAggregator:
             if verdict not in ("ok", "legacy"):
                 self._note_discard_locked(frame, verdict)
                 return verdict
-            with tr.stage("delta_h2d"):
-                self._copy_in(host_tables)
-            self._fold(self._state, self._dev)
             src = fdelta.source_key(frame)
+            if self.mesh is not None:
+                self._fold_owner(src, host_tables, tr)
+            else:
+                with tr.stage("delta_h2d"):
+                    self._copy_in(host_tables)
+                self._fold(self._state, self._dev)
             if verdict == "ok":
                 self._ledger[src] = {
                     "epoch": frame.agent_epoch,
@@ -803,7 +949,7 @@ class FederationAggregator:
             "last_published_window": None if snap is None
             else snap["window"],
             "window_s": self._window_s,
-            "mesh": False,
+            "mesh": self.mesh is not None,
             "format_version": fdelta.DELTA_FORMAT_VERSION,
             "supported_versions": list(fdelta.SUPPORTED_VERSIONS),
             "agent_ttl_s": self._agent_ttl_s,

@@ -44,6 +44,11 @@ with no replay, so no fold runs on the arguments. The exporter prepares
 every entry of the resident feed's superbatch ladder when it makes the
 ring, so no live fold of a ladder entry captures.
 
+A graph cannot span devices: every tensor of a capture's arguments lies
+on one device, which is made current for the capture and each replay (a
+mesh's shards on several cards have one captured fold a card,
+`sketch/staging.py`).
+
 A capture that fails raises; nothing falls back to an eager fold.
 
 Launch counts: `CudaKernel.launches` rises when Python calls `launch`. The
@@ -124,6 +129,7 @@ class CapturedFold:
         self._binding: tuple | None = None
         self.launches: dict[CudaKernel, int] = {}
         self.captures = 0
+        self._device: torch.device | None = None
         self._entry = retrace.watch(self._call, name, tenants=tenants)
 
     def __call__(self, *args) -> None:
@@ -156,24 +162,29 @@ class CapturedFold:
         dev = first.device
         self.graph = None  # the old graph's pool memory goes back first
         graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._fold(*clone(args))
-        stream.wait_stream(side)
-        before = [k.launches for k in CudaKernel.instances]
-        with torch.cuda.graph(graph, pool=self._pool):
-            self._fold(*args)
+        # the arguments' device is current for the capture (a mesh's
+        # shards may sit on any device): its streams, its graph
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                self._fold(*clone(args))
+            stream.wait_stream(side)
+            before = [k.launches for k in CudaKernel.instances]
+            with torch.cuda.graph(graph, pool=self._pool):
+                self._fold(*args)
         self.launches = {}
         for k, n in zip(CudaKernel.instances, before):
             if k.launches != n:
                 self.launches[k] = k.launches - n
                 k.launches = n
         self.graph = graph
+        self._device = dev
 
     def _replay(self) -> None:
-        self.graph.replay()
+        with torch.cuda.device(self._device):
+            self.graph.replay()
         for k, n in self.launches.items():
             k.launches += n
 

@@ -34,6 +34,15 @@ its `state.npz` (a crash before the rename) does not exist. A tiered state
 checkpoints its wide decode (`sketch/tiered.decode_state`), as the
 reference's exporter does.
 
+**A mesh's state** (`parallel/merge.DistState`) checkpoints in the
+reference's leading-axis layout (`parallel/merge.dist_tables`): every
+leaf `[n_data, ...]`, the Count-Min planes `[n_data, depth, width]` and
+the slot table `[n_data, n_sketch, ...]`, under the same dotted paths. The
+sidecars are the same files, byte for byte. A restore checks that layout
+against the target's and copies each part into its shards in place, every
+sketch replica of a data shard included, so captured graphs stay bound; a
+one-device checkpoint does not restore into a mesh, nor the reverse.
+
 **Restore** checks every path, shape and dtype of the file against the
 target state, as orbax's structural check does, and raises on a mismatch
 before it writes a tensor; then it copies each tensor into the target in
@@ -181,16 +190,14 @@ class SketchCheckpointer:
         return steps[-1] if steps else None
 
     # --- save ------------------------------------------------------------
-    def stage(self, state: sk.SketchState,
-              replace: Optional[Staged] = None) -> Staged:
-        """Copy a wide state into a host buffer set and wait for the copy
-        (callers hold their lock; no disk I/O here). The set is the one of
-        `replace`, a staged copy this one supersedes, while that is still
-        unwritten; else a free one. A staged copy holds its set until it
-        is written (`save`) or released (`release`)."""
-        if not isinstance(state, sk.SketchState):
-            raise TypeError("a checkpoint holds a wide SketchState; stage "
-                            "a tiered state's decode (tiered.decode_state)")
+    def stage(self, state, replace: Optional[Staged] = None) -> Staged:
+        """Copy a wide state (or a mesh's `DistState`) into a host buffer
+        set and wait for the copy (callers hold their lock; no disk I/O
+        here). The set is the one of `replace`, a staged copy this one
+        supersedes, while that is still unwritten; else a free one. A
+        staged copy holds its set until it is written (`save`) or released
+        (`release`)."""
+        layout = self._layout(state)
         with self._state_lock:
             if replace is not None and self._sets_state[
                     replace.index] == ("staged", replace.generation):
@@ -210,12 +217,16 @@ class SketchCheckpointer:
         if bufs is None:
             pin = dev.type == "cuda"
             bufs = self._sets[i] = {
-                p: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
-                for p, t in self._leaves(state)}
-        for p, t in self._leaves(state):
-            bufs[p].copy_(t, non_blocking=True)
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
+                p: torch.empty(shape, dtype=dtype, pin_memory=pin)
+                for p, shape, dtype, _ in layout}
+        devs = set()
+        for p, _, _, parts in layout:
+            for idx, ts in parts:
+                bufs[p][idx].copy_(ts[0], non_blocking=True)
+                devs.add(ts[0].device)
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
         return staged
 
     def release(self, staged: Staged) -> None:
@@ -227,8 +238,23 @@ class SketchCheckpointer:
                 self._sets_state[staged.index] = None
 
     @staticmethod
-    def _leaves(state) -> list[tuple[str, torch.Tensor]]:
-        return [(p, carry.get_leaf(state, p)) for p in carry.field_paths()]
+    def _layout(state) -> list[tuple]:
+        """(dotted path, shape, dtype, parts) of each leaf to checkpoint, a
+        part (index into the leaf, the tensors that hold it): a wide state
+        leaf for leaf, a mesh's in the leading-axis layout
+        (`parallel/merge.dist_layout`)."""
+        from netobserv_tpu_torch.parallel import merge as pmerge
+        if isinstance(state, pmerge.DistState):
+            return pmerge.dist_layout(state)
+        if not isinstance(state, sk.SketchState):
+            raise TypeError("a checkpoint holds a wide SketchState or a "
+                            "mesh's DistState; stage a tiered state's "
+                            "decode (tiered.decode_state)")
+        out = []
+        for p in carry.field_paths():
+            t = carry.get_leaf(state, p)
+            out.append((p, tuple(t.shape), t.dtype, [((), [t])]))
+        return out
 
     def save(self, step: int, state) -> None:
         """Write `state` (a wide state, or a `Staged` host copy) as `step`,
@@ -340,14 +366,14 @@ class SketchCheckpointer:
             return {k: z[k] for k in z.files}
 
     def restore(self, template, step: Optional[int] = None,
-                device: str | torch.device | None = None
-                ) -> sk.SketchState:
+                device: str | torch.device | None = None):
         """Restore `step` (default: the latest) into `template` in place
-        and return it: a wide SketchState, or a wide SketchConfig, for
-        which a zero state is made on `device` (CUDA unless the caller
-        names the CPU). The stamp is checked first (a rejected format
-        raises before any tensor is read); every path, shape and dtype is
-        checked against the target before any tensor is written."""
+        and return it: a wide SketchState, a mesh's DistState, or a wide
+        SketchConfig, for which a zero state is made on `device` (CUDA
+        unless the caller names the CPU). The stamp is checked first (a
+        rejected format raises before any tensor is read); every path,
+        shape and dtype is checked against the target before any tensor
+        is written."""
         old_version = self.check_format()  # raises on reject
         step = self.latest_step() if step is None else step
         if step is None:
@@ -357,33 +383,34 @@ class SketchCheckpointer:
                 raise TypeError("checkpoints restore the wide form; encode "
                                 "it into the tiered state afterwards")
             template = sk.init_state(template, device)
-        if not isinstance(template, sk.SketchState):
-            raise TypeError("checkpoints restore into a wide SketchState")
+        layout = self._layout(template)
         fields = self._load(step)
         if old_version is not None:
             log.info("upgrading sketch checkpoint format %d -> %d",
                      old_version, CHECKPOINT_FORMAT_VERSION)
             fields = _UPGRADERS[old_version](fields)
-        leaves = self._leaves(template)
-        want = {p for p, _ in leaves}
+        want = {p for p, *_ in layout}
         if set(fields) != want:
             raise ValueError(
                 f"checkpoint step {step} under {self._dir}: fields missing "
                 f"{sorted(want - set(fields))}, unexpected "
                 f"{sorted(set(fields) - want)}")
-        for p, t in leaves:
+        for p, shape, dtype, _ in layout:
             arr = fields[p]
-            if (tuple(arr.shape) != tuple(t.shape)
-                    or arr.dtype != _JAX_DTYPES[t.dtype]):
+            if (tuple(arr.shape) != tuple(shape)
+                    or arr.dtype != _JAX_DTYPES[dtype]):
                 raise ValueError(
                     f"checkpoint step {step}: {p} is {arr.dtype}"
                     f"{list(arr.shape)}, the state's "
-                    f"{np.dtype(_JAX_DTYPES[t.dtype])}{list(t.shape)}")
-        for p, t in leaves:
+                    f"{np.dtype(_JAX_DTYPES[dtype])}{list(shape)}")
+        for p, _, _, parts in layout:
             arr = fields[p]
             if arr.dtype == np.uint32:
                 arr = arr.astype(np.int64)
-            t.copy_(torch.from_numpy(np.array(arr)))
+            for idx, ts in parts:
+                part = torch.from_numpy(np.array(arr[idx]))
+                for t in ts:
+                    t.copy_(part)
         return template
 
     def close(self) -> None:

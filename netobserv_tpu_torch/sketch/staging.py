@@ -61,9 +61,23 @@ slot waits on is its host-to-device copy event, which follows everything
 queued on the stream before it; the reference's is the ingest that read
 the slot (ROADMAP C5).
 
-Not here: the sharded rings of a mesh (A6), and
-`ShardedResidentStagingRing.fold_packed` with `ResidentPackSurface`,
-which need the reference's fused drain pipeline (A7).
+**On a mesh** (`mesh=`, a `parallel/mesh.Mesh`; reference
+`sketch/staging.py:456-682` at `n_shards` > 1): a slot's words split
+evenly over the data shards, and each shard's slice is copied to a device
+buffer of its own on its device (once a device for the sketch replicas of
+one data shard), with one copy event a device; the slot waits for all of
+them. `ShardedResidentStagingRing` packs `n_shards * k * lanes` regions, a
+data shard's `k * lanes` regions contiguous, each shard with its own key
+tables (`parallel/merge.init_resident_tables`); `DenseStagingRing` (dense
+feed only) ships each shard its rows. One dispatch folds every shard,
+each into its partial of the `parallel/merge.DistState` it is given. On
+CUDA each ladder entry is captured once per device of the mesh: one CUDA
+graph of every shard's fold where the shards share one device (a graph
+cannot span devices).
+
+Not here: `ShardedResidentStagingRing.fold_packed` with
+`ResidentPackSurface`, which need the reference's fused drain pipeline
+(A7).
 """
 
 from __future__ import annotations
@@ -303,11 +317,44 @@ class PendingEventBuffer:
             self.n = tail
 
 
+class _Events:
+    """The copy events of one slot on a mesh, one a device: ready when
+    all are."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events: list):
+        self.events = events
+
+    def record(self) -> None:
+        for dev, ev in self.events:
+            ev.record(torch.cuda.current_stream(dev))
+
+    def query(self) -> bool:
+        return all(ev.query() for _, ev in self.events)
+
+    def synchronize(self) -> None:
+        for _, ev in self.events:
+            ev.synchronize()
+
+
+def _mesh_groups(mesh) -> list[tuple[torch.device, list[tuple[int, int]]]]:
+    """The mesh's shards grouped by device, in grid order: one captured
+    fold a group."""
+    groups: dict = {}
+    for d, row in enumerate(mesh.devices):
+        for s, dev in enumerate(row):
+            groups.setdefault(dev, []).append((d, s))
+    return list(groups.items())
+
+
 class _SlotRing:
     """The slot protocol of the module docstring, shared by the rings."""
 
     #: recent slot-wait samples kept for `slot_wait_p95`
     WAIT_WINDOW = 64
+    #: the mesh the ring ships to, or None (one device)
+    mesh = None
 
     def _init_slots(self, n_slots: int, words: int,
                     device: torch.device, metrics) -> None:
@@ -317,8 +364,15 @@ class _SlotRing:
         self._host = [torch.zeros(words, dtype=torch.int32, pin_memory=cuda)
                       for _ in range(n_slots)]
         self._bufs = [h.numpy().view(np.uint32) for h in self._host]
-        self._dev = torch.zeros(words, dtype=torch.int32, device=device)
-        self._copied: list[Optional[torch.cuda.Event]] = [None] * n_slots
+        if self.mesh is None:
+            self._dev = torch.zeros(words, dtype=torch.int32, device=device)
+        else:
+            # a device buffer a (data shard, device) of its slice's words
+            from netobserv_tpu_torch.parallel import merge as pmerge
+            per = words // self.mesh.data
+            self._dev = pmerge._per_device(self.mesh, lambda d, dev: (
+                torch.zeros(per, dtype=torch.int32, device=dev)))
+        self._copied: list = [None] * n_slots
         self._slot = 0
         self.stalls = 0
         #: the longest one fold waits for a slot, in seconds (None: no
@@ -381,10 +435,13 @@ class _SlotRing:
         self._record_wait(wait_s)
         return slot
 
-    def _ship(self, slot: int, words: Optional[int] = None) -> torch.Tensor:
+    def _ship(self, slot: int, words: Optional[int] = None):
         """Copy the slot's host buffer, or its first `words` words, to the
         device buffer (without blocking on CUDA) and return the device
-        buffer, or its prefix view."""
+        buffer, or its prefix view; on a mesh each data shard's slice to
+        its devices, returning the grid of views."""
+        if self.mesh is not None:
+            return self._ship_mesh(slot, words)
         dev, host = self._dev, self._host[slot]
         if words is not None:
             dev, host = dev[:words], host[:words]
@@ -394,6 +451,28 @@ class _SlotRing:
             ev.record(torch.cuda.current_stream(self.device))
             self._copied[slot] = ev
         return dev
+
+    def _ship_mesh(self, slot: int, words: Optional[int]) -> tuple:
+        host = self._host[slot]
+        words = host.shape[0] if words is None else words
+        per = words // self.mesh.data
+        grid, done = [], {}
+        for d, row in enumerate(self._dev):
+            for buf in row:
+                if id(buf) not in done:
+                    view = buf[:per]
+                    view.copy_(host[d * per:(d + 1) * per],
+                               non_blocking=True)
+                    done[id(buf)] = view
+            grid.append(tuple(done[id(buf)] for buf in row))
+        if self.device.type == "cuda":
+            evs = self._copied[slot]
+            if evs is None:
+                evs = _Events([(dev, torch.cuda.Event())
+                               for dev in self.mesh.distinct()])
+                self._copied[slot] = evs
+            evs.record()
+        return tuple(grid)
 
     def _advance(self, slot: int) -> None:
         self._slot = (slot + 1) % len(self._bufs)
@@ -559,14 +638,25 @@ class DenseStagingRing(_SlotRing):
     `chunks` (ingest dispatches), `dense_fallbacks`, `stalls`,
     `slot_wait_p95` and `pack_seconds` (host time in the packer).
     Counterpart of the reference's `DenseStagingRing`
-    (`sketch/staging.py:349-453`), on one device."""
+    (`sketch/staging.py:349-453`). With `mesh` (dense feed only, as the
+    reference's compact mode is single-device) each data shard gets its
+    rows and folds them into its partial of the `parallel/merge.
+    DistState` the fold is given, captured once per device (module
+    docstring)."""
 
     def __init__(self, batch_size: int, spill_cap: Optional[int] = None,
                  n_slots: int = 4, device: str | torch.device | None = None,
                  enable_fanout: bool = True, enable_asym: bool = True,
                  pack_threads: int = 1, capture: bool = True,
-                 graph_pool=None, metrics=None):
-        dev = pick_device(device)
+                 graph_pool=None, metrics=None, mesh=None):
+        if mesh is not None and spill_cap is not None:
+            raise ValueError("the compact feed has no sharded form (spill "
+                             "compaction breaks the row split)")
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError("batch_size must divide evenly over the data "
+                             "shards")
+        self.mesh = mesh
+        dev = mesh.first if mesh is not None else pick_device(device)
         flowpack.native_lib()  # a packer that cannot be built raises here
         self.batch_size = batch_size
         self.spill_cap = spill_cap
@@ -581,9 +671,17 @@ class DenseStagingRing(_SlotRing):
         else:
             words = flowpack.compact_buf_len(batch_size, spill_cap)
             self._fold_fn, name = self._ingest_compact, "fold_compact"
-        #: the captured fold of the slots (`capture` on CUDA), else None
-        self.captured = (CapturedFold(name, self._fold_fn, graph_pool)
-                         if self._capture else None)
+        #: the captured fold of the slots (`capture` on CUDA), else None;
+        #: on a mesh, the list of (captured fold, its shards), one a device
+        self.captured = None
+        if self._capture and mesh is None:
+            self.captured = CapturedFold(name, self._fold_fn, graph_pool)
+        elif self._capture:
+            groups = _mesh_groups(mesh)
+            self.captured = [(CapturedFold(
+                name if len(groups) == 1 else f"{name}@{gdev}",
+                functools.partial(self._ingest_dense_group, shards),
+                graph_pool), shards) for gdev, shards in groups]
         #: the compact feed's dense fallback: pinned and device buffers
         #: and captured fold, made at the first fallback
         self._fb_host: Optional[torch.Tensor] = None
@@ -597,6 +695,8 @@ class DenseStagingRing(_SlotRing):
     @property
     def captures(self) -> list[CapturedFold]:
         """The ring's captured folds so far (none on the CPU)."""
+        if self.mesh is not None:
+            return [c for c, _ in self.captured or []]
         return [c for c in (self.captured, self.captured_fallback)
                 if c is not None]
 
@@ -605,12 +705,42 @@ class DenseStagingRing(_SlotRing):
                          enable_fanout=self.enable_fanout,
                          enable_asym=self.enable_asym)
 
+    def _ingest_dense_group(self, shards: list, states: tuple,
+                            flats: tuple) -> None:
+        """One mesh device's shards: each folds its rows."""
+        n_sk = self.mesh.sketch
+        for (d, s), state, flat in zip(shards, states, flats):
+            sk.ingest(state, sk.dense_to_arrays(flat),
+                      sketch_shard=(s, n_sk) if n_sk > 1 else None,
+                      enable_fanout=self.enable_fanout,
+                      enable_asym=self.enable_asym)
+
+    def _dispatch_mesh(self, dist, flats: tuple) -> None:
+        """Fold every shard's rows: each device's captured graph, or
+        eagerly."""
+        groups = self.captured or [(None, [
+            (d, s) for d in range(self.mesh.data)
+            for s in range(self.mesh.sketch)])]
+        for fold, shards in groups:
+            args = (tuple(dist.shards[d][s] for d, s in shards),
+                    tuple(flats[d][s] for d, s in shards))
+            if fold is not None:
+                fold(*args)
+            else:
+                self._ingest_dense_group(shards, *args)
+        self.chunks += 1
+
     def warm(self, state) -> None:
         """Capture the ring's graphs against `state` (on CUDA with
         `capture`: warm-up on clones and the capture, no fold): the
         slots', and the compact feed's dense fallback's with its
-        buffers."""
+        buffers; on a mesh, each device's."""
         if not self._capture:
+            return
+        if self.mesh is not None:
+            for fold, shards in self.captured:
+                fold.prepare(tuple(state.shards[d][s] for d, s in shards),
+                             tuple(self._dev[d][s] for d, s in shards))
             return
         self.captured.prepare(state, self._dev)
         if self.spill_cap is not None:
@@ -677,8 +807,11 @@ class DenseStagingRing(_SlotRing):
             if buf is None:
                 return self._fold_dense_fallback(state, events, feats)
             with trace.stage("ingest_dispatch"):
-                self._dispatch(self.captured, self._fold_fn, state,
-                               self._ship(slot))
+                if self.mesh is not None:
+                    self._dispatch_mesh(state, self._ship(slot))
+                else:
+                    self._dispatch(self.captured, self._fold_fn, state,
+                                   self._ship(slot))
             self._advance(slot)
             return state
         finally:
@@ -714,9 +847,14 @@ class DenseStagingRing(_SlotRing):
 
 class ShardedResidentStagingRing(_SlotRing):
     """Staging ring of the resident feed split into pack lanes, with the
-    superbatch ladder, on one device (one shard). Counterpart of the
-    reference's `ShardedResidentStagingRing` (`sketch/staging.py:456-682`)
-    at `n_shards == 1`; more shards raise (ROADMAP A6, multi-GPU).
+    superbatch ladder, on one device or over a mesh's data shards.
+    Counterpart of the reference's `ShardedResidentStagingRing`
+    (`sketch/staging.py:456-682`). With `mesh` (and `n_shards` its data
+    axis) the batch splits into `n_shards * lanes` regions, shard d's
+    `lanes` (of a k-chunk, `k * lanes`) contiguous, and each shard folds
+    its regions into its partial of the `parallel/merge.DistState` the
+    fold is given, against key tables of its own (`key_tables`, a grid
+    from `parallel/merge.init_resident_tables`); module docstring.
 
     Lanes: a batch splits into `lanes` contiguous row blocks, each packed
     by its own dictionary into its own resident region (caps for
@@ -759,17 +897,21 @@ class ShardedResidentStagingRing(_SlotRing):
                  packer: str = "native", capture: bool = True,
                  graph_pool=None, pack_threads: int = 1, lanes: int = 1,
                  ladder: tuple = (1,), lazy_ladder: bool = False,
-                 metrics=None):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "a resident ring over several shards needs the mesh, which "
-                "the port does not have yet (ROADMAP A6, multi-GPU)")
+                 metrics=None, mesh=None):
+        if mesh is None and n_shards != 1:
+            raise ValueError("a resident ring over several shards needs "
+                             "their mesh (mesh=)")
+        if mesh is not None and n_shards != mesh.data:
+            raise ValueError(f"n_shards {n_shards} is not the mesh's data "
+                             f"axis ({mesh.data})")
         self.ladder = tuple(sorted({int(k) for k in ladder}))
         if not self.ladder or self.ladder[0] != 1:
             raise ValueError("superbatch ladder must include 1")
-        if batch_size % lanes:
-            raise ValueError("batch_size must divide evenly over lanes")
-        dev = pick_device(device)
+        if batch_size % (n_shards * lanes):
+            raise ValueError(
+                "batch_size must divide evenly over shards x lanes")
+        self.mesh = mesh
+        dev = mesh.first if mesh is not None else pick_device(device)
         make_dict, self._pack = _pick_packer(packer, slot_cap)
         self.superbatch_max = self.ladder[-1]
         self._available = {1} if lazy_ladder else set(self.ladder)
@@ -787,17 +929,32 @@ class ShardedResidentStagingRing(_SlotRing):
         self.enable_asym = enable_asym
         self.kdicts = [make_dict()
                        for _ in range(self.n_regions * self.superbatch_max)]
-        self.key_tables = sk.init_key_tables(
-            self.superbatch_max * self.n_regions, slot_cap, dev)
+        if mesh is None:
+            self.key_tables = sk.init_key_tables(
+                self.superbatch_max * self.n_regions, slot_cap, dev)
+        else:
+            from netobserv_tpu_torch.parallel import merge as pmerge
+            self.key_tables = pmerge.init_resident_tables(
+                mesh, slot_cap, self.superbatch_max * lanes)
         self._region_words = flowpack.resident_buf_len(self.batch_per_region,
                                                        self.caps)
         #: the captured fold of each ladder entry (`capture` on a CUDA
-        #: device), else None
-        self.captured = ({k: CapturedFold(f"fold_resident_lanes_x{k}",
-                                          functools.partial(self._ingest, k),
-                                          graph_pool)
-                          for k in self.ladder}
-                         if capture and dev.type == "cuda" else None)
+        #: device), else None; on a mesh, each entry's list of (captured
+        #: fold, its shards), one a device
+        self.captured = None
+        if capture and dev.type == "cuda" and mesh is None:
+            self.captured = {k: CapturedFold(
+                f"fold_resident_lanes_x{k}",
+                functools.partial(self._ingest, k), graph_pool)
+                for k in self.ladder}
+        elif capture and dev.type == "cuda":
+            groups = _mesh_groups(mesh)
+            self.captured = {k: [(CapturedFold(
+                f"fold_resident_lanes_x{k}" if len(groups) == 1 else
+                f"fold_resident_lanes_x{k}@{gdev}",
+                functools.partial(self._ingest_group, k, shards),
+                graph_pool), shards) for gdev, shards in groups]
+                for k in self.ladder}
         self.continuations = 0
         self.dict_resets = 0
         self.spill_rows = 0
@@ -810,7 +967,11 @@ class ShardedResidentStagingRing(_SlotRing):
     @property
     def captures(self) -> list[CapturedFold]:
         """The ladder's captured folds (none on the CPU)."""
-        return list(self.captured.values()) if self.captured else []
+        if not self.captured:
+            return []
+        if self.mesh is None:
+            return list(self.captured.values())
+        return [c for entry in self.captured.values() for c, _ in entry]
 
     def _ingest(self, k: int, state, key_tables: torch.Tensor,
                 flat: torch.Tensor):
@@ -819,16 +980,52 @@ class ShardedResidentStagingRing(_SlotRing):
             k * self.n_regions, enable_fanout=self.enable_fanout,
             enable_asym=self.enable_asym)
 
-    def _dispatch(self, k: int, state, flat: torch.Tensor) -> None:
+    def _ingest_group(self, k: int, shards: list, states: tuple,
+                      tables: tuple, flats: tuple) -> None:
+        """One mesh device's shards of ladder entry k: each folds its
+        `k * lanes` regions (`states`, `tables` and `flats` in `shards`'
+        order)."""
+        n_sk = self.mesh.sketch
+        for (d, s), state, table, flat in zip(shards, states, tables, flats):
+            sk.ingest_resident_lanes(
+                state, table, flat, self.batch_per_region, self.caps,
+                k * self.lanes, enable_fanout=self.enable_fanout,
+                enable_asym=self.enable_asym,
+                sketch_shard=(s, n_sk) if n_sk > 1 else None)
+
+    @staticmethod
+    def _group_args(shards: list, dist, tables: tuple, flats: tuple):
+        return (tuple(dist.shards[d][s] for d, s in shards),
+                tuple(tables[d][s] for d, s in shards),
+                tuple(flats[d][s] for d, s in shards))
+
+    def _dispatch(self, k: int, state, flat) -> None:
         """Fold one shipped k-chunk through ladder entry k: its captured
-        graph, or eagerly."""
-        if self.captured is not None:
-            self.captured[k](state, self.key_tables, flat)
+        graph (on a mesh, each device's), or eagerly."""
+        if self.mesh is None:
+            if self.captured is not None:
+                self.captured[k](state, self.key_tables, flat)
+            else:
+                self._ingest(k, state, self.key_tables, flat)
+        elif self.captured is not None:
+            for fold, shards in self.captured[k]:
+                fold(*self._group_args(shards, state, self.key_tables, flat))
         else:
-            self._ingest(k, state, self.key_tables, flat)
+            every = [(d, s) for d in range(self.mesh.data)
+                     for s in range(self.mesh.sketch)]
+            self._ingest_group(k, every, *self._group_args(
+                every, state, self.key_tables, flat))
 
     def _ship_words(self, k: int) -> int:
         return k * self.n_regions * self._region_words
+
+    def flat_key_tables(self) -> torch.Tensor:
+        """Every region's key table in dictionary order, one row a
+        dictionary of `kdicts`: `key_tables` itself on one device, the
+        data shards' tables stacked on the first device on a mesh."""
+        if self.mesh is None:
+            return self.key_tables
+        return torch.cat([row[0].to(self.device) for row in self.key_tables])
 
     def mark_warm(self, *ks: int) -> None:
         """Make ladder entries selectable."""
@@ -836,11 +1033,17 @@ class ShardedResidentStagingRing(_SlotRing):
 
     def warm(self, state, k: int) -> None:
         """Capture ladder entry k against `state` (on a CUDA device with
-        `capture`: warm-up on clones and the capture, no fold), then make
-        it selectable."""
-        if self.captured is not None:
+        `capture`: warm-up on clones and the capture, no fold; on a mesh,
+        each device's), then make it selectable."""
+        if self.captured is not None and self.mesh is None:
             self.captured[k].prepare(state, self.key_tables,
                                      self._dev[:self._ship_words(k)])
+        elif self.captured is not None:
+            per = self._ship_words(k) // self.mesh.data
+            flats = tuple(tuple(b[:per] for b in row) for row in self._dev)
+            for fold, shards in self.captured[k]:
+                fold.prepare(*self._group_args(shards, state,
+                                               self.key_tables, flats))
         self.mark_warm(k)
 
     def fold(self, state, events: np.ndarray, extra=None, dns=None,

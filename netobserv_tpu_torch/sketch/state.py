@@ -3,7 +3,8 @@
 Counterpart of `netobserv_tpu/sketch/state.py` (`SketchConfig`,
 `SketchState`, `WindowReport`, `init_state`, `batch_to_device`,
 `dense_to_arrays`, `arrays_to_dense`, `tiered_fold_form`, `ingest`,
-`decay_state`, `roll_window`, `state_tables`, `copy_state_` and
+`decay_state`, `roll_window` (its mode step `roll_tables_`),
+`state_tables`, `copy_state_` and
 `host_cm_planes` (the query plane's staged copy and the CM planes of its
 snapshots, `exporter/tpu_sketch.py:1881-1939`), the compact feed's
 `COMPACT_WORDS` and `compact_to_arrays` with the ingest of
@@ -57,8 +58,15 @@ eager ingest that raised midway would leave its tables partly folded.
 its kernels. It reads SKETCH_USE_PALLAS, which selects nothing here, and
 logs a warning once when it asks for no kernels.
 
-Not in this slice: the owner-sharded ingest (`sketch_axis`) raises
-NotImplementedError.
+The owner-sharded ingest of a mesh's sketch axis (`sketch_shard=(index,
+n_shards)`, the reference's `sketch_axis` branch, `:470-490`): the
+Count-Min folds are `countmin.update_sharded` (kernel 5 on CUDA, once a
+plane) into the shard's local width, and the slot table ranks on
+`countmin.query_sharded_local`, so each sketch shard tracks the keys it
+owns. The HLL and signal folds keep the kernels of the whole-width fold;
+they compute the same function as the reference's scatter forms there. A
+tiered state has no sharded form and raises NotImplementedError, as the
+reference's does (`:358-362`).
 """
 
 from __future__ import annotations
@@ -547,17 +555,20 @@ def ingest_resident_lanes(state: SketchState, key_tables: torch.Tensor,
                           flat: torch.Tensor, batch_per_lane: int,
                           caps: ResidentCaps, n_lanes: int,
                           enable_fanout: bool = True,
-                          enable_asym: bool = True) -> SketchState:
+                          enable_asym: bool = True,
+                          sketch_shard: tuple[int, int] | None = None
+                          ) -> SketchState:
     """Fold `n_lanes` resident regions in one ingest:
     `resident_lane_arrays` (which updates `key_tables` in place), then
-    `ingest`. The counterpart of the function
-    `make_ingest_resident_lanes_fn` builds; returns `state`, updated in
-    place."""
+    `ingest` (`sketch_shard` as there). The counterpart of the function
+    `make_ingest_resident_lanes_fn` builds, and of one shard's step of
+    `parallel/merge.make_sharded_ingest_resident_fn`; returns `state`,
+    updated in place."""
     check_fold_shapes(state, n_lanes * (batch_per_lane + caps.spill))
     arrays, _ = resident_lane_arrays(flat, key_tables, batch_per_lane, caps,
                                      n_lanes)
-    return ingest(state, arrays, enable_fanout=enable_fanout,
-                  enable_asym=enable_asym)
+    return ingest(state, arrays, sketch_shard=sketch_shard,
+                  enable_fanout=enable_fanout, enable_asym=enable_asym)
 
 
 def _interior(depth: int, width: int, spec: tiered.TierSpec) -> bool:
@@ -651,7 +662,7 @@ def _ingest_tiered(state: tiered.TieredState,
 
 
 def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
-           sketch_axis: str | None = None,
+           sketch_shard: tuple[int, int] | None = None,
            enable_fanout: bool = True,
            enable_asym: bool = True,
            _tier: tiered.TieredState | None = None,
@@ -660,13 +671,18 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
 
     Feature columns (tcp_flags, dscp, markers, drop_*) are optional: a
     batch without one skips the signals that read it, exactly as a zero
-    value row would. `_tier` and `_fuse_hll` are the tier-interior fold's
+    value row would. `sketch_shard=(index, n_shards)` with n_shards > 1
+    folds the owner-sharded Count-Min of that sketch shard (module
+    docstring). `_tier` and `_fuse_hll` are the tier-interior fold's
     (`_ingest_tiered`): kernel 6 folds `_tier`'s CM tiers, and with
     `_fuse_hll` kernel 7 its packed global-src bank."""
-    if sketch_axis is not None:
+    if sketch_shard is not None and isinstance(state, tiered.TieredState):
         raise NotImplementedError(
-            "the owner-sharded ingest is not ported yet (the multi-GPU "
-            "slice of the port); tiered planes have no sharded form")
+            "SKETCH_TIERED has no owner-sharded form yet — tiered counter "
+            "planes are single-device (config.validate blocks "
+            "SKETCH_MESH_SHAPE with SKETCH_TIERED)")
+    if sketch_shard is not None and sketch_shard[1] <= 1:
+        sketch_shard = None
     if _tier is None:
         check_fold_shapes(state, arrays["keys"].shape[0])
     if isinstance(state, tiered.TieredState):
@@ -696,6 +712,18 @@ def ingest(state: SketchState, arrays: Mapping[str, torch.Tensor],
         _, evicted = topk.slot_update(state.heavy, state.cm_bytes, words, h1,
                                       h2, valid, window=state.window,
                                       query_fn=lambda a, b: est)
+    elif sketch_shard is not None:
+        # each sketch shard folds and ranks only the keys it owns
+        shard, n_sh = sketch_shard
+        countmin.update_sharded(state.cm_bytes, h1, h2, bytes_f, valid,
+                                shard, n_sh)
+        countmin.update_sharded(state.cm_pkts, h1, h2, pkts, valid, shard,
+                                n_sh)
+        _, evicted = topk.slot_update(
+            state.heavy, state.cm_bytes, words, h1, h2, valid,
+            window=state.window,
+            query_fn=lambda a, b: countmin.query_sharded_local(
+                state.cm_bytes, a, b, shard, n_sh))
     else:
         countmin.update_two(state.cm_bytes, state.cm_pkts, h1, h2, bytes_f,
                             pkts, valid)
@@ -898,6 +926,17 @@ def roll_window(state: SketchState, cfg: SketchConfig,
         drop_causes=pre["drop_causes"], dscp_bytes=pre["dscp_bytes"],
         conv_fwd=pre["conv_fwd"], conv_rev=pre["conv_rev"],
         **{n: pre[n] for n in _SCALARS}, window=pre["window"])
+    roll_tables_(state, reset_sketches, decay_factor)
+    state.window.add_(1)
+    return state, report
+
+
+def roll_tables_(state: SketchState, reset_sketches: bool = True,
+                 decay_factor: float | None = None) -> SketchState:
+    """The window roll's mode step on a wide state, in place: decay the
+    windowed tables, reset them, or keep them. The EWMA baselines and the
+    window counter are the caller's (`roll_window`; a mesh shard's local
+    partial in `parallel/merge.make_merge_fn`)."""
     if decay_factor is not None:
         decay_state(state, decay_factor)
     elif reset_sketches:
@@ -917,8 +956,7 @@ def roll_window(state: SketchState, cfg: SketchConfig,
         topk.slot_roll(state.heavy, 1.0)
         state.synack.zero_()
         state.heavy_evictions.zero_()
-    state.window.add_(1)
-    return state, report
+    return state
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

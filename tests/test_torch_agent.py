@@ -77,12 +77,23 @@ SMALL = ts.SketchConfig(cm_depth=2, cm_width=1 << 10, hll_precision=6,
                         hist_buckets=64, ewma_buckets=64)
 
 
-@pytest.fixture(autouse=True)
-def _clean_faults():
-    yield
+def _reset_globals():
+    """Leave both packages' fault registries cleared and both flight
+    recorders empty and disabled: a sampled trace left in the JAX
+    package's recorder fails that package's own tracing tests when they
+    share this process (fault C11)."""
     for fi in (faultinject, jfault):
         fi.clear()
         fi.hits.clear()
+    for trc in (tracing, jtracing):
+        trc.configure(sample=0.0)
+        trc.recorder.clear()
+
+
+@pytest.fixture(autouse=True)
+def _clean_faults():
+    yield
+    _reset_globals()
     time.sleep(0.05)
 
 
@@ -338,6 +349,18 @@ def test_the_batch_trace_is_finished_by_the_next_fold():
     parked, done = got["port"]
     assert parked == [] and len(done) == 2 and done[1] == ["evict"]
     assert {"evict", "fold"} <= set(done[0])
+
+
+def test_the_batch_trace_case_leaves_both_recorders_empty():
+    """Fault C11: the batch-trace case samples into both packages' flight
+    recorders. Run its schedule, then this module's clean-up, and the JAX
+    package's recorder must be empty and disabled, as its own tracing
+    tests expect to find it."""
+    test_the_batch_trace_is_finished_by_the_next_fold()
+    assert len(jtracing.recorder) > 0  # the case did sample
+    _reset_globals()
+    assert len(jtracing.recorder) == 0 and not jtracing.enabled()
+    assert len(tracing.recorder) == 0 and not tracing.enabled()
 
 
 class _Collect:

@@ -290,7 +290,7 @@ def test_from_config_matches_the_reference(name, tmp_path):
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"SKETCH_MESH_SHAPE": "2x1"}, "A6"), ({"SKETCH_TENANTS": "2"}, None),
+    ({"SKETCH_MESH_SHAPE": "2x1"}, None), ({"SKETCH_TENANTS": "2"}, None),
     ({"FEDERATION_TARGET": "agg:9999"}, "A8"),
     ({"SKETCH_DEVICES": "tpu"}, "SKETCH_DEVICES"),
     ({"EXPORT": "grpc", "TARGET_HOST": "h", "TARGET_PORT": "1"}, "A8"),
@@ -299,12 +299,18 @@ def test_from_config_matches_the_reference(name, tmp_path):
          "direct-flp"])
 def test_build_exporter_refuses_what_the_port_lacks(env, item):
     """Each setting the port lacks raises naming its ROADMAP item; the
-    tenants case (item None, ported since) builds the tenant planes: a
-    `TenantStack` ring and one query publisher a tenant."""
+    tenants and mesh cases (item None, ported since) build the tenant
+    planes (a `TenantStack` ring and one query publisher a tenant) and
+    the mesh exporter (a 2x1 mesh of the CPU, its state a `DistState`)."""
     cfg = tcfg.load_config({**_SMALL_ENV, **env})
     if item is None:
         exp = build_exporter(cfg)
         try:
+            if "SKETCH_MESH_SHAPE" in env:
+                from netobserv_tpu_torch.parallel.merge import DistState
+                assert exp.mesh.shape == {"data": 2, "sketch": 1}
+                assert isinstance(exp.state, DistState)
+                return
             assert isinstance(exp.ring, TenantStack)
             assert exp.ring.n_tenants == 2 and len(exp._tenant_query) == 2
         finally:

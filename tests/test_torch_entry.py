@@ -89,14 +89,15 @@ def _get(url: str) -> tuple[int, dict]:
 
 
 def run_tenant_child(pcap, tenants: int, until_reports: int,
-                     timeout_s: float = 60.0) -> tuple:
-    """`python -m netobserv_tpu_torch` on `pcap` with SKETCH_TENANTS on the
-    CPU, stopped by SIGTERM once it printed `until_reports` reports:
-    (exit code, every report printed, standard error)."""
+                     timeout_s: float = 60.0, **extra_env) -> tuple:
+    """`python -m netobserv_tpu_torch` on `pcap` with SKETCH_TENANTS (and
+    `extra_env`) on the CPU, stopped by SIGTERM once it printed
+    `until_reports` reports: (exit code, every report printed, standard
+    error)."""
     env = _child_env(SKETCH_DEVICES="cpu", DATAPATH=f"pcap:{pcap}",
                      EXPORT="tpu-sketch", CACHE_ACTIVE_TIMEOUT="100ms",
                      SKETCH_BATCH_SIZE="128", SKETCH_WINDOW="2s",
-                     SKETCH_TENANTS=str(tenants))
+                     SKETCH_TENANTS=str(tenants), **extra_env)
     proc = subprocess.Popen([sys.executable, "-m", "netobserv_tpu_torch"],
                             cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE)

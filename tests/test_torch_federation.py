@@ -689,16 +689,20 @@ def test_aggregator_equals_the_reference(universe):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"mesh_shape": "4x1"}, "A6"), ({"checkpoint_dir": "ck"}, None),
+    ({"mesh_shape": "4x1"}, None), ({"checkpoint_dir": "ck"}, None),
     ({"archive": "archive"}, None),
     ({"sketch_cfg": TCFG._replace(tiered=tiered.TierSpec())}, "tiered")],
     ids=["mesh", "checkpoint", "archive", "tiered"])
 def test_aggregator_refuses_what_this_slice_does_not_port(kw, err,
                                                           tmp_path):
-    """The mesh (ROADMAP A6) and a tiered aggregate are refused; since
-    the archive and checkpoint slice, `checkpoint_dir` and `archive` are
-    taken (tests/test_torch_checkpoint.py, tests/test_torch_archive.py)."""
+    """A tiered aggregate is refused; since the archive and checkpoint
+    slice, `checkpoint_dir` and `archive` are taken
+    (tests/test_torch_checkpoint.py, tests/test_torch_archive.py), and
+    since the mesh slice `mesh_shape`, on the CPU repeated
+    (tests/test_torch_mesh_planes.py)."""
     kw = {"sketch_cfg": TCFG, **kw}
+    if "mesh_shape" in kw:
+        kw["devices"] = ["cpu"] * 4
     if err is not None:
         with pytest.raises((NotImplementedError, ValueError), match=err):
             FederationAggregator(device="cpu", window_s=3600.0, **kw)
@@ -714,6 +718,7 @@ def test_aggregator_refuses_what_this_slice_does_not_port(kw, err,
         st = agg.status()
         assert st["checkpointing"] is ("checkpoint_dir" in kw)
         assert ("archive" in st) is ("archive" in kw)
+        assert st["mesh"] is ("mesh_shape" in kw)
     finally:
         agg.close()
 

@@ -54,7 +54,8 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "flow/__init__.py", "flow/map_tracer.py", "flow/limiter.py",
                  "datapath/replay.py", "model/packet_record.py",
                  "scenarios/synth.py", "agent/agent.py", "__main__.py",
-                 "sketch/tenancy.py")
+                 "sketch/tenancy.py", "parallel/mesh.py",
+                 "parallel/merge.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -92,6 +93,19 @@ def test_port_imports_neither_protobuf_nor_grpc():
             assert not name.startswith("google"), (f, name)
             assert "_pb2" not in name, (f, name)
         assert "import_module(\"google" not in f.read_text(), f
+
+
+def test_port_imports_no_torch_distributed():
+    """The mesh runs in one process over a grid of devices
+    (`parallel/`): no module of the port (nor chip_smoke.py) imports
+    `torch.distributed`, at any level; the multi-host tier (ROADMAP A6b)
+    brings it."""
+    files = sorted((ROOT / "netobserv_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        for name in _imported_modules(f):
+            assert not name.startswith("torch.distributed"), (f, name)
+        assert "torch.distributed" not in f.read_text(), f
 
 
 def test_only_the_metrics_facade_imports_prometheus_client():

@@ -528,7 +528,7 @@ def test_exporter_feeds_and_flush():
     folds the tail, closes the window and publishes its report to the sink
     (the reference's `flush`); `folds` counts dispatches and `records`
     rows; `close` publishes one more, empty, window; an unknown feed, a
-    bad ladder and a mesh raise."""
+    bad ladder and several shards without their mesh raise."""
     rng = np.random.default_rng(80)
     ev, f = _feed(rng, 5 * B + 100, v4_share=0.97)
     for feed, rings in (("resident", tstg.ShardedResidentStagingRing),
@@ -554,7 +554,7 @@ def test_exporter_feeds_and_flush():
         TorchSketchExporter(batch_size=B, device="cpu", feed="fast")
     with pytest.raises(ValueError, match="ladder"):
         TorchSketchExporter(batch_size=B, device="cpu", superbatch=(2, 4))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="mesh"):
         tstg.ShardedResidentStagingRing(B, 2, device="cpu")
 
 

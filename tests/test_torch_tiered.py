@@ -685,7 +685,7 @@ def test_tiered_fold_form_gate():
                       device="cpu")
     with pytest.raises(NotImplementedError):
         ts.ingest(ts.init_state(cfg, device="cpu"),
-                  _to_port(_batch(8)), sketch_axis="sketch")
+                  _to_port(_batch(8)), sketch_shard=(0, 2))
 
 
 def test_carry_round_trip_of_a_jax_tiered_state_then_fold():

@@ -89,6 +89,7 @@ def _clean():
         mod.hits.clear()
     for mod in (tracing, jtracing):
         mod.configure(sample=0.0)
+        mod.recorder.clear()
         mod.set_metrics(None)
 
 
