@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --poll ...` is the query_plane phase's child
-process of pollers; nothing else runs it.)
+process of pollers, and `python3 chip_smoke.py --dist-rank ...` a rank
+of the distributed phase; nothing else runs them.)
 
 It builds the CUDA kernels of the port from `netobserv_tpu_torch/csrc/` (nine
 C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
@@ -312,6 +313,30 @@ launch counts set to 0 just before it and read just after:
   `mesh_exporter` (over its shard folds) and `mesh_aggregator` (the
   agents' folds) join the `kernels` line's `launches_by_path`, and kernel
   5's `launches` is its 2x2 count;
+- the mesh across processes (`distributed`, `parallel/distributed.py`):
+  two ranks of this script (`--dist-rank`, child processes that must
+  both end within DIST_TIMEOUT_S, killed when it runs out; a rank that
+  fails fails the phase), each one data shard of a 2x1 mesh that spans them, joined
+  over 127.0.0.1 with NCCL and rank r on `cuda:r` where there are two
+  cards or more, else gloo with both on `cuda:0` (NCCL refuses two ranks
+  on one device; a line before the phase's says which ran). Each rank
+  builds nothing (it loads the kernels this process built). (a) The
+  pool's dense batches into a `DenseStagingRing` on the spanning mesh,
+  each rank shipping its half of every batch, 2 windows x 32 dispatches,
+  each window closed by the merge across ranks: both ranks' merged
+  reports and tables bit for bit equal; against a one-process 2x1
+  mesh's plain replay of the same batches within the whole-window
+  bounds, and an integer-mass copy of MESH_INT_FOLDS batches bit for bit
+  against a one-process 2x1 mesh's captured fold; recall@100 >= 0.99;
+  no plain version run in a rank; each rank's launches a wide fold's per
+  dispatch. (b) A `TorchSketchExporter(mesh_shape="2")` on the dense
+  feed in each rank, 2 windows of DIST_EXP_BATCHES pool batches closed
+  by `roll()`: its reports equal on both ranks, each window's records
+  the rows fed. It prints per rank the wall and CUDA-event device ms per
+  16,384 records, the roll's ms split into the local merge, the
+  cross-rank step and the re-selection, the bytes each roll reduces and
+  gathers, and launches per dispatch by kernel. The path key
+  `distributed` (both ranks' launches) joins `launches_by_path`;
 - the dense and compact rings (`dense_ring`, feeds "dense" and "compact"),
   fed flow events of a v4 pool (`traffic.make_pool(v4=True)`: v4-mapped
   keys, 5 % v6 rows a batch, the last batch a burst of 25 % past the
@@ -6154,6 +6179,287 @@ def phase_mesh(specs, universe, pool, dense, events, main_res,
             "seconds": time.perf_counter() - t_phase}
 
 
+#: the distributed phase: its two ranks' time limit, in seconds (both
+#: within it), and the exporter's batches a window (pool batches of BATCH
+#: rows)
+DIST_TIMEOUT_S = 120
+DIST_EXP_BATCHES = 8
+
+
+def dist_topology() -> tuple[str, list]:
+    """(backend, each rank's device) of the distributed phase: NCCL with
+    rank r on cuda:r where there are two cards or more, else gloo with
+    both ranks on cuda:0 (NCCL refuses two ranks on one device)."""
+    import torch
+    if torch.cuda.device_count() >= 2:
+        return "nccl", ["cuda:0", "cuda:1"]
+    return "gloo", ["cuda:0", "cuda:0"]
+
+
+def _dist_ingest(specs, dense, mesh, cfg, pool, universe) -> dict:
+    """(a) in one rank: the pool's dense batches into a `DenseStagingRing`
+    on the 2x1 mesh that spans the ranks, WINDOWS windows of
+    FOLDS_PER_WINDOW dispatches, each closed by the merge across ranks
+    (its stats kept); then an integer copy of MESH_INT_FOLDS batches."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.scenarios import traffic
+    plain_calls: dict = {}
+    with counting_plains(specs, plain_calls):
+        run = MeshDenseRun(cfg, mesh, capture=True)
+        for s in specs:
+            s["kernel"].launches = 0
+        wins = []
+        for w in range(WINDOWS):
+            feed = [(w * FOLDS_PER_WINDOW + i) % len(dense)
+                    for i in range(FOLDS_PER_WINDOW)]
+            torch.cuda.synchronize()
+            run.device_ms.clear()
+            t0 = time.perf_counter()
+            for bi in feed:
+                run.fold(dense[bi])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            dev_ms = [a.elapsed_time(b) for a, b in run.device_ms]
+            run.roll_fn.stats = stats = {}
+            tables, report, _, roll_s = run.roll()
+            run.roll_fn.stats = None
+            words, valid = _report_heavy(report)
+            wins.append({
+                "feed": feed, "wall_ms_per_16384":
+                    wall * 1e3 / FOLDS_PER_WINDOW,
+                "device_ms_per_16384": float(np.median(dev_ms)),
+                "roll_ms": roll_s * 1e3, "merge": stats,
+                "records": float(report.total_records),
+                "recall_at_100": traffic.check_recall(
+                    words, valid, feed, universe, pool),
+                "tables": tables,
+                "heavy": (words, valid)})
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        run.close()
+        ints = MeshDenseRun(cfg, mesh, capture=True)
+        for flat in dense[:MESH_INT_FOLDS]:
+            ints.fold(_integer_dense(flat))
+        int_tables = ints.roll()[0]
+        ints.close()
+    check(not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    return {"windows": wins, "launches": launches, "integer": int_tables}
+
+
+def _dist_exporter(events, device: str) -> dict:
+    """(b) in one rank: `TorchSketchExporter(mesh_shape="2")` on the dense
+    feed over the ranks, WINDOWS windows of DIST_EXP_BATCHES pool batches,
+    each closed by `roll()`; its reports without their publish times."""
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.sketch import state as sk
+    reports: list = []
+    t0 = time.perf_counter()
+    exp = TorchSketchExporter(sk.SketchConfig(), batch_size=BATCH,
+                              mesh_shape="2", devices=[device], feed="dense",
+                              sink=reports.append)
+    try:
+        check(exp.mesh.multiprocess and exp.ring is not None,
+              "the exporter's mesh does not span the ranks")
+        for w in range(WINDOWS):
+            for i in range(DIST_EXP_BATCHES):
+                ev, f = events[(w * DIST_EXP_BATCHES + i) % len(events)]
+                exp.fold_events(ev, **f)
+            exp.roll()
+    finally:
+        exp.close()
+    return {"reports": [{k: v for k, v in r.items() if k != "TimestampMs"}
+                        for r in reports],
+            "folds": exp.folds, "seconds": time.perf_counter() - t0}
+
+
+def dist_child_main(argv) -> int:
+    """`chip_smoke.py --dist-rank R PORT BACKEND DEVICE OUT`: one rank of
+    the distributed phase. It joins the two-rank group at 127.0.0.1:PORT
+    with BACKEND on DEVICE, runs (a) and (b) on the kernels the parent
+    built and writes its results to OUT/rank<R>.pkl."""
+    import os
+    import pickle
+    rank, port, backend, device, out = (int(argv[0]), argv[1], argv[2],
+                                        argv[3], argv[4])
+    os.environ.update(SKETCH_COORDINATOR=f"127.0.0.1:{port}",
+                      SKETCH_NUM_PROCESSES="2", SKETCH_PROCESS_ID=str(rank))
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.ops.kernels import _build
+    from netobserv_tpu_torch.parallel import distributed
+    from netobserv_tpu_torch.parallel import mesh as pmesh
+    from netobserv_tpu_torch.scenarios import traffic
+    from netobserv_tpu_torch.sketch import state as sk
+    torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    check(distributed.maybe_initialize_distributed(backend=backend,
+                                                   devices=[device]),
+          "no process group")
+    init_s = time.perf_counter() - t0
+    specs = kernel_specs()
+    _build.load_all()
+    universe, pool = traffic.make_pool(np.random.default_rng(0))
+    dense = traffic.dense_pool(pool)
+    events = traffic.event_pool(pool, np.random.default_rng(0))
+    mesh = pmesh.make_mesh(pmesh.MeshSpec(2, 1), [device])
+    check(mesh.ranks == ((0,), (1,)) and mesh.addressable() == [(rank, 0)],
+          f"mesh cells {mesh.ranks}")
+    res = _dist_ingest(specs, dense, mesh, sk.SketchConfig(), pool,
+                       universe)
+    res["exporter"] = _dist_exporter(events, device)
+    res.update(rank=rank, backend=distributed.backend(),
+               world=distributed.process_count(), init_s=init_s,
+               device=device)
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+    distributed.destroy()
+    print(f"DIST_CHILD_OK rank={rank}", flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _dist_children(backend: str, devices: list, out: str) -> list:
+    """Run the two ranks (`--dist-rank`) to their end; a rank that fails
+    or outlives DIST_TIMEOUT_S fails the phase, and every rank left is
+    killed."""
+    import os
+    import pickle
+    port = _free_port()
+    procs, logs = [], [os.path.join(out, f"rank{r}.log") for r in range(2)]
+    for r in range(2):
+        with open(logs[r], "w") as log:  # a file: no pipe fills up
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank",
+                 str(r), str(port), backend, devices[r], out],
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        check(False, f"a rank outlived {DIST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as fh:
+            log = fh.read()
+        check(p.returncode == 0 and "DIST_CHILD_OK" in log,
+              f"rank {r} failed (rc {p.returncode}):\n{log[-4000:]}")
+    out_ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.pkl"), "rb") as fh:
+            out_ranks.append(pickle.load(fh))
+    return out_ranks
+
+
+def phase_distributed(specs, universe, pool, dense, card: str) -> dict:
+    """The mesh over two processes (module docstring, `distributed`): two
+    ranks of this script, each one data shard of a 2x1 mesh that spans
+    them; (a) their merged reports and tables against each other and
+    against a one-process 2x1 mesh's replay of the same batches, (b) the
+    exporter's reports against each other."""
+    import tempfile
+    import numpy as np
+    from netobserv_tpu_torch.parallel import mesh as pmesh
+    from netobserv_tpu_torch.sketch import state as sk
+    t_phase = time.perf_counter()
+    backend, devices = dist_topology()
+    emit({"phase": "distributed_topology", "backend": backend,
+          "world": 2, "devices": devices, "card": card})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as out:
+        ranks = _dist_children(backend, devices, out)
+    t_children = time.perf_counter() - t_phase
+    for r in ranks:
+        check(r["backend"] == backend and r["world"] == 2,
+              f"rank {r['rank']}: {r['backend']} x {r['world']}")
+    a, b = ranks
+    # both ranks' merged reports and tables, bit for bit
+    for w, (wa, wb) in enumerate(zip(a["windows"], b["windows"])):
+        check(not _tables_equal(wa["tables"], wb["tables"])
+              and all(np.array_equal(x, y) for x, y in
+                      zip(wa["heavy"], wb["heavy"]))
+              and wa["records"] == wb["records"],
+              f"window {w}: the ranks' merged tables differ")
+    check(not _tables_equal(a["integer"], b["integer"]),
+          "integer window: the ranks' merged tables differ")
+    check(a["exporter"]["reports"] == b["exporter"]["reports"],
+          "the exporter's reports differ between the ranks")
+    # a one-process 2x1 mesh's replay of the same batches: plain (for the
+    # whole-window bounds) and, on the integer copy, captured, bit for bit
+    cfg = sk.SketchConfig()
+    one = pmesh.make_mesh(pmesh.MeshSpec(2, 1), [devices[0]] * 2)
+    adds: dict = {}
+    touched: dict = {}
+    cmp = []
+    with plain_versions(specs, adds, touched):
+        prun = MeshDenseRun(cfg, one, capture=False)
+        for w, win in enumerate(a["windows"]):
+            adds.clear()
+            touched.clear()
+            for bi in win["feed"]:
+                prun.fold(dense[bi])
+            tables = prun.roll()[0]
+            cmp.append(compare_tables(win["tables"], tables, {
+                **{k: v.cpu().numpy() for k, v in adds.items()},
+                "scalars": np.full(len(tables["scalars"]) - 1,
+                                   len(win["feed"]) * BATCH)}))
+        prun.close()
+    ints = MeshDenseRun(cfg, one, capture=True)
+    for flat in dense[:MESH_INT_FOLDS]:
+        ints.fold(_integer_dense(flat))
+    want_int = ints.roll()[0]
+    ints.close()
+    diff = _tables_equal(a["integer"], want_int)
+    check(not diff, f"integer window: tables {diff} differ from one "
+          "process's 2x1 mesh")
+    recalls = [w["recall_at_100"] for w in a["windows"]]
+    check(min(recalls) >= 0.99, f"recall@100 {recalls}")
+    for w in a["windows"]:
+        check(w["records"] == len(w["feed"]) * BATCH,
+              f"records {w['records']}")
+    want = _mesh_want(specs, WINDOWS * FOLDS_PER_WINDOW, 1)
+    for r in ranks:
+        check(r["launches"] == want, f"rank {r['rank']} launches "
+              f"{r['launches']}, want {want}")
+    exp_records = [rep["Records"] for rep in a["exporter"]["reports"]]
+    check(exp_records[:WINDOWS] == [float(DIST_EXP_BATCHES * BATCH)]
+          * WINDOWS, f"exporter records {exp_records}")
+    folds = WINDOWS * FOLDS_PER_WINDOW
+    per_rank = [{
+        "rank": r["rank"], "device": r["device"], "init_s": r["init_s"],
+        "wall_ms_per_16384": r["windows"][-1]["wall_ms_per_16384"],
+        "device_ms_per_16384": r["windows"][-1]["device_ms_per_16384"],
+        "roll_ms": [w["roll_ms"] for w in r["windows"]],
+        "merge_local_ms": [w["merge"]["local_ms"] for w in r["windows"]],
+        "merge_cross_ms": [w["merge"]["cross_ms"] for w in r["windows"]],
+        "merge_select_ms": [w["merge"]["select_ms"] for w in r["windows"]],
+        "reduce_bytes": r["windows"][-1]["merge"]["reduce_bytes"],
+        "gather_bytes": r["windows"][-1]["merge"]["gather_bytes"],
+        "launches_per_dispatch": {k: v / folds for k, v in
+                                  r["launches"].items() if v},
+        "exporter_seconds": r["exporter"]["seconds"]} for r in ranks]
+    return {"phase": "distributed", "card": card, "backend": backend,
+            "world": 2, "devices": devices, "ranks": per_rank,
+            "recall_at_100": recalls,
+            "vs_one_process_plain": cmp, "integer_window_exact": True,
+            "exporter_windows": len(a["exporter"]["reports"]),
+            "children_seconds": t_children,
+            "launches": {k: a["launches"][k] + b["launches"][k]
+                         for k in a["launches"]},
+            "seconds": time.perf_counter() - t_phase}
+
+
 def phase_dense_ring(specs) -> dict:
     """The dense and compact rings at full width, fed flow events of a v4
     pool (v4-mapped keys, V6_SHARES of v6 rows a batch; the last batch a
@@ -6525,6 +6831,10 @@ def main() -> int:
         mesh_res = phase_mesh(specs, universe, pool, dense, events,
                               main_res, dev["nvidia_smi"])
         emit(mesh_res)
+        phase = "distributed"
+        dist_res = phase_distributed(specs, universe, pool, dense,
+                                     dev["nvidia_smi"])
+        emit(dist_res)
         phase = "dense_ring"
         ring_res = phase_dense_ring(specs)
         emit(ring_res)
@@ -6555,6 +6865,7 @@ def main() -> int:
                 "tenants": tn_res["launches"],
                 "tenants_tiered": tn_res["tiered_launches"],
                 **mesh_res["launches"],
+                "distributed": dist_res["launches"],
                 "dense_ring": ring_res["dense_ring"],
                 "compact_ring": ring_res["compact_ring"]}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -6582,4 +6893,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--poll"]:
         sys.exit(poll_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_child_main(sys.argv[2:]))
     sys.exit(main())

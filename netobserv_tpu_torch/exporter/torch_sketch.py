@@ -294,10 +294,34 @@ each with the reference's warning; the latter also shows as the
 refresh rolls a staged `DistState` through the merge; checkpoints save
 and restore the `DistState` in place (`sketch/checkpoint.py`).
 `fold_dense` takes one device only. `sketch_resident_hbm_bytes` sums
-every shard.
+every shard this process holds.
 
-Not in this slice: the gRPC delta transport (A4.3's transport, A8) and
-the multi-host mesh (`parallel/distributed.py`, A6b).
+**Across processes** (`parallel/distributed.py`; reference `:508-513`,
+`:785-792`, `:875-925`): the constructor's first step joins the process
+group when SKETCH_COORDINATOR, SKETCH_NUM_PROCESSES and
+SKETCH_PROCESS_ID say so (a no-op otherwise, and a second call does not
+init again), before any tensor is made. The mesh then spans every rank's
+devices (`parallel/mesh.make_mesh`; with no shape, all of them on the
+data axis), each rank is given the same evictions and folds its own
+shards, and each roll is a collective: every rank must close its windows
+in the same order, and every rank returns the same report. So on a
+multi-process mesh:
+
+- SKETCH_QUERY_REFRESH is turned off, with the reference's warning: each
+  rank's timer would run the roll's collectives on its own schedule;
+- the ring is made, and every ladder entry warmed, in the constructor,
+  synchronously, in ladder order, on every rank; a warm failure raises;
+- a fold never closes a window (the deadline is read by the window
+  thread, `roll` and `flush`), so neither the fold thread nor the caller
+  of `export_evicted` ever waits on another rank;
+- `state_tables` is a collective too; checkpoints are gathered to and
+  written by rank 0 into a directory every rank shares
+  (`sketch/checkpoint.py`).
+
+Every CUDA call of the roll, the collectives included, holds the
+exporter's lock (ROADMAP C4).
+
+Not in this slice: the gRPC delta transport (A4.3's transport, A8).
 """
 
 from __future__ import annotations
@@ -328,6 +352,7 @@ from netobserv_tpu_torch.exporter.report import (
 )
 from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.ops.kernels import _build
+from netobserv_tpu_torch.parallel import distributed
 from netobserv_tpu_torch.parallel import merge as pmerge
 from netobserv_tpu_torch.parallel import mesh as pmesh
 from netobserv_tpu_torch.query.routes import QueryRoutes
@@ -421,8 +446,15 @@ class TorchSketchExporter:
                  shed_max: int = 64, shed_slot_budget_s: float = 30.0,
                  shed_seed: int = 2026, overlap_depth: int = 0,
                  tenants: int = 0, mesh_shape: str = "", devices=None):
+        # the process group comes first, before any tensor (module
+        # docstring); a no-op without its settings
+        distributed.maybe_initialize_distributed(
+            devices=self._local_devices(device, devices))
         #: the mesh (`parallel/mesh.Mesh`), or None: one device
         self.mesh = self._make_mesh(device, devices, mesh_shape)
+        #: whether the mesh belongs to several processes
+        self._multiprocess = self.mesh is not None and \
+            self.mesh.multiprocess
         self.device = (self.mesh.first if self.mesh is not None
                        else pick_device(device))
         cuda = self.device.type == "cuda"
@@ -579,6 +611,13 @@ class TorchSketchExporter:
             metrics.sketch_resident_hbm_bytes.set(
                 tiered.array_bytes(self.state))
         self._query_refresh_s = float(query_refresh_s)
+        if self._query_refresh_s and self._multiprocess:
+            # each rank's timer would dispatch the roll's collectives on its
+            # own schedule: divergent collective order is a hang
+            log.warning("SKETCH_QUERY_REFRESH disabled on multi-process "
+                        "meshes (refresh rolls would run collectives on "
+                        "unsynchronized timers)")
+            self._query_refresh_s = 0.0
         self._next_refresh = (time.monotonic() + self._query_refresh_s
                               if self._query_refresh_s else None)
         # the dense entry's buffers (`fold_dense`, one device only)
@@ -633,9 +672,10 @@ class TorchSketchExporter:
                      "SKETCH_FEED=%r does not apply", feed)
         if overlap_depth > 0:
             self._handoff = queue.Queue(maxsize=overlap_depth)
-        if tenants or overlap_depth > 0:
+        if tenants or overlap_depth > 0 or self._multiprocess:
             # the ring's captures run here, before the window thread or
-            # the fold thread exists (ROADMAP C4)
+            # the fold thread exists (ROADMAP C4); on a multi-process mesh
+            # every rank warms its whole ladder before it takes a row
             with self._lock, self._on_device():
                 self._ensure_ring()
         if overlap_depth > 0:
@@ -664,10 +704,14 @@ class TorchSketchExporter:
         device = pick_device("cpu" if cpu else None)
         spec = (pmesh.MeshSpec.parse(cfg.sketch_mesh_shape, 1)
                 if cfg.sketch_mesh_shape else None)
-        # a CPU mesh repeats the CPU; on CUDA the mesh takes the visible
-        # cards, and a shape that needs more raises in the constructor
-        devices = ([device] * (spec.data * spec.sketch)
-                   if cpu and spec is not None else None)
+        # a CPU mesh repeats the CPU, each rank's share of it across
+        # processes (the group joined first); on CUDA the mesh takes the
+        # visible cards, and a shape that needs more raises in the
+        # constructor
+        devices = None
+        if cpu and spec is not None:
+            distributed.maybe_initialize_distributed(devices=[device])
+            devices = pmesh.local_share(device, spec)
         sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
         if sink is None:
             sink = make_report_sink(cfg)
@@ -721,22 +765,29 @@ class TorchSketchExporter:
             overlap_depth=cfg.sketch_overlap, tenants=cfg.sketch_tenants)
 
     @staticmethod
-    def _make_mesh(device, devices, mesh_shape: str):
-        """The exporter's mesh (reference `tpu_sketch.py:521-583`), or
-        None: `devices` if given, else every visible CUDA device when
-        `device` is None, else `device` alone; a mesh when `mesh_shape`
-        is set or there is more than one device (then all of them on the
-        data axis). A shape that needs more devices than these raises."""
+    def _local_devices(device, devices) -> list:
+        """This process's devices: `devices` if given, else every visible
+        CUDA device when `device` is None, else `device` alone."""
         if devices is not None:
-            devs = list(devices)
-        elif device is None:
-            devs = pmesh.visible_devices()
-        else:
-            devs = [device]
-        if not mesh_shape and len(devs) <= 1:
+            return list(devices)
+        if device is None:
+            return pmesh.visible_devices()
+        return [device]
+
+    @classmethod
+    def _make_mesh(cls, device, devices, mesh_shape: str):
+        """The exporter's mesh (reference `tpu_sketch.py:521-583`), or
+        None: over `_local_devices`, a mesh when `mesh_shape` is set, when
+        there is more than one device or when the process group has more
+        than one process (with no shape, every device of every rank on the
+        data axis). A shape that needs more devices than there are
+        raises."""
+        devs = cls._local_devices(device, devices)
+        if not mesh_shape and len(devs) <= 1 and \
+                distributed.process_count() == 1:
             return None
-        return pmesh.make_mesh(pmesh.MeshSpec.parse(mesh_shape, len(devs)),
-                               devs)
+        spec = pmesh.MeshSpec.parse(mesh_shape, 0) if mesh_shape else None
+        return pmesh.make_mesh(spec, devs)
 
     def _mesh_degrade(self, cfg, tenants: int, batch_size: int):
         """What a mesh has no sharded form of (reference `:529-552`,
@@ -800,6 +851,11 @@ class TorchSketchExporter:
     def _due(self) -> bool:
         return self._deadline is not None and time.monotonic() >= \
             self._deadline
+
+    def _fold_due(self) -> bool:
+        """Whether a fold path closes the window: never on a multi-process
+        mesh, whose roll is a collective (module docstring)."""
+        return not self._multiprocess and self._due()
 
     def _check_open(self) -> None:
         if self._closed.is_set():
@@ -912,7 +968,7 @@ class TorchSketchExporter:
         with self._lock:
             self._ensure_ring()
             self.pending.append(evicted, self._fold_events)
-            if self._due():
+            if self._fold_due():
                 self._close_window_locked()
 
     def _queued_overlap_rows(self) -> int:
@@ -954,7 +1010,7 @@ class TorchSketchExporter:
                 else:
                     trace.finish()  # two sampled evictions in one fold
             self.pending.append(evicted, self._fold_events)
-            if self._due():
+            if self._fold_due():
                 self._close_window_locked()
 
     def _start_fold_worker(self) -> None:
@@ -1174,6 +1230,7 @@ class TorchSketchExporter:
         tables of every shard (`parallel/merge.merge_states`; a
         width-sharded mesh has none and raises)."""
         with self._lock, self._on_device():
+            # on a multi-process mesh a collective: every rank calls it
             if self.tenants:
                 return [sk.state_tables(tenancy.tenant_view(self.state, t))
                         for t in range(self.tenants)]
@@ -1181,7 +1238,8 @@ class TorchSketchExporter:
                 if not self._with_tables:
                     raise ValueError("a width-sharded mesh has no "
                                      "whole-width tables")
-                return sk.state_tables(pmerge.merge_states(self.state))
+                return sk.state_tables(pmerge.merge_states(
+                    self.state, mesh=self.mesh))
             return sk.state_tables(self.state)
 
     def counter_table_bytes(self) -> dict[str, int]:

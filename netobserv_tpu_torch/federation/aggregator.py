@@ -83,6 +83,19 @@ shard rolled. A width-sharded mesh is refused with the reference's
 message; `status()["mesh"]` is True. Make the aggregator, and so capture
 its graphs, before any agent's ring (ROADMAP C4).
 
+**Across processes** (`parallel/distributed.py`, reference `:66-71`,
+`:99-110`, `:510-530`): the constructor first joins the process group
+that FEDERATION_COORDINATOR, FEDERATION_NUM_PROCESSES and
+FEDERATION_PROCESS_ID describe, else the SKETCH_ ones (the three from one
+prefix only), before any tensor. The mesh then spans every rank's
+devices. Every rank ingests the same frames, in the same order, so the
+ledgers agree; a frame folds only on the rank that holds its owner shard
+(`make_fold_delta_fn`), and every rank's ledger takes it. The roll is a
+collective: every rank closes its windows in the same order (`flush`, or
+the window thread; a frame never closes one there) and publishes the same
+report. Checkpoints are gathered to and written by rank 0 into a
+directory every rank shares (`sketch/checkpoint.py`).
+
 Every CUDA call runs under the aggregator's lock, on the caller's current
 stream of the aggregator's device.
 
@@ -112,6 +125,7 @@ from netobserv_tpu_torch.exporter.report import (
 from netobserv_tpu_torch.federation import delta as fdelta
 from netobserv_tpu_torch.federation import statemerge
 from netobserv_tpu_torch.federation.pbwire import DeltaAck
+from netobserv_tpu_torch.parallel import distributed
 from netobserv_tpu_torch.parallel import merge as pmerge
 from netobserv_tpu_torch.parallel import mesh as pmesh
 from netobserv_tpu_torch.sketch import state as sk
@@ -123,6 +137,9 @@ log = logging.getLogger("netobserv_tpu_torch.federation.aggregator")
 
 #: closed windows the report queue holds before the oldest is shed
 MAX_QUEUED_REPORTS = 4
+#: the environment prefixes of the aggregator tier's process group
+#: (reference `:66-71`): its own first, then the agents' shared one
+_PREFIXES = ("FEDERATION_", "SKETCH_")
 
 
 def agent_owner_shard(agent_id: str, n_shards: int) -> int:
@@ -146,6 +163,12 @@ class FederationAggregator:
                  checkpoint_dir: str = "", checkpoint_every: int = 1,
                  agent_ttl_s: float = 0.0, alerts=None, archive=None,
                  device: str | torch.device | None = None, devices=None):
+        # the aggregator tier's group joins under its own prefix first, then
+        # the shared one, before any tensor (module docstring)
+        devs = (list(devices) if devices is not None
+                else pmesh.visible_devices() if device is None
+                else [device])
+        distributed.maybe_initialize_distributed(_PREFIXES, devices=devs)
         self._cfg = sketch_cfg or sk.SketchConfig()
         if self._cfg.tiered is not None:
             raise ValueError(
@@ -155,9 +178,6 @@ class FederationAggregator:
         #: the mesh (module docstring), or None: one device
         self.mesh = None
         if mesh_shape:
-            devs = (list(devices) if devices is not None
-                    else pmesh.visible_devices() if device is None
-                    else [device])
             self.mesh = pmesh.make_mesh(
                 pmesh.MeshSpec.parse(mesh_shape, len(devs)), devs)
         self.device = (self.mesh.first if self.mesh is not None
@@ -266,8 +286,10 @@ class FederationAggregator:
         device = pick_device("cpu" if cpu else None)
         devices = None
         if cpu and cfg.federation_mesh_shape:
-            spec = pmesh.MeshSpec.parse(cfg.federation_mesh_shape, 1)
-            devices = [device] * (spec.data * spec.sketch)
+            distributed.maybe_initialize_distributed(_PREFIXES,
+                                                     devices=[device])
+            devices = pmesh.local_share(device, pmesh.MeshSpec.parse(
+                cfg.federation_mesh_shape, 1))
         sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
         return cls(
             sketch_cfg=sketch_cfg, window_s=cfg.federation_window,
@@ -303,8 +325,9 @@ class FederationAggregator:
                                                with_tables=True)
         self._roll = self._roll_mesh
         self._stacks = {}
-        for row in mesh.devices:
-            dev = row[0]
+        owned = [d for d in range(mesh.data) if mesh.is_local(d, 0)]
+        for d in owned:
+            dev = mesh.devices[d][0]
             if dev not in self._stacks:
                 stack = statemerge.TableStack(self._expected_shapes, 1, dev)
                 self._stacks[dev] = (stack, stack.host_views(),
@@ -314,13 +337,13 @@ class FederationAggregator:
         self._shard_folds = None
         if cuda:
             pool = torch.cuda.graph_pool_handle()
-            self._shard_folds = []
-            for d, row in enumerate(mesh.devices):
+            self._shard_folds = {}
+            for d in owned:
                 fold = CapturedFold("federation_fold_delta", self._merge,
                                     pool)
                 fold.prepare(self._state.shards[d][0],
-                             self._stacks[row[0]][0].dev)
-                self._shard_folds.append(fold)
+                             self._stacks[mesh.devices[d][0]][0].dev)
+                self._shard_folds[d] = fold
 
     def _roll_mesh(self, state):
         """The mesh's cluster roll: the merged pre-roll tables and report
@@ -385,25 +408,33 @@ class FederationAggregator:
         counter restarts at 0, and the retention (highest steps win) of
         the old directory would delete every new checkpoint while
         `latest_step` kept answering the broken one. If even the rename
-        fails, checkpointing is disabled for this run."""
+        fails, checkpointing is disabled for this run. Across processes
+        rank 0 moves the shared directory aside, and checkpointing (a
+        collective) goes on on every rank or on none."""
         import os
         from netobserv_tpu_torch.sketch.checkpoint import SketchCheckpointer
         try:
             self._ckpt.close()
         except Exception:
             pass
-        dest = f"{self._ckpt_dir}.corrupt-{os.getpid()}-{time.time_ns()}"
-        try:
-            os.rename(self._ckpt_dir, dest)
+        if distributed.process_index() != 0:
             self._ckpt = SketchCheckpointer(self._ckpt_dir)
-            log.warning("quarantined unrestorable checkpoint dir to %s; "
-                        "checkpointing continues into a fresh %s",
-                        dest, self._ckpt_dir)
-        except Exception as exc:
+        else:
+            dest = (f"{self._ckpt_dir}.corrupt-{os.getpid()}-"
+                    f"{time.time_ns()}")
+            try:
+                os.rename(self._ckpt_dir, dest)
+                self._ckpt = SketchCheckpointer(self._ckpt_dir)
+                log.warning("quarantined unrestorable checkpoint dir to "
+                            "%s; checkpointing continues into a fresh %s",
+                            dest, self._ckpt_dir)
+            except Exception as exc:
+                self._ckpt = None
+                log.error("could not quarantine checkpoint dir %s (%s) — "
+                          "checkpointing DISABLED for this run",
+                          self._ckpt_dir, exc)
+        if not all(distributed.all_gather_object(self._ckpt is not None)):
             self._ckpt = None
-            log.error("could not quarantine checkpoint dir %s (%s) — "
-                      "checkpointing DISABLED for this run",
-                      self._ckpt_dir, exc)
 
     def _apply_restored_meta(self, meta: dict) -> None:
         """Re-seat the delivery ledger and the agent view from checkpointed
@@ -503,8 +534,11 @@ class FederationAggregator:
 
     def _fold_owner(self, src: str, host_tables: dict, tr) -> None:
         """Mesh mode: copy a frame's tables to its owner shard's device
-        and fold them into that shard's partial (under the lock)."""
+        and fold them into that shard's partial (under the lock); across
+        processes only on the rank that holds the owner shard."""
         d = agent_owner_shard(src, self.mesh.data)
+        if not self.mesh.is_local(d, 0):
+            return  # another rank holds the owner shard and folds it
         dev = self.mesh.devices[d][0]
         stack, views, ev = self._stacks[dev]
         with tr.stage("delta_h2d"):
@@ -684,7 +718,9 @@ class FederationAggregator:
             info["last_mono"] = time.monotonic()
             if frame.telemetry is not None:
                 info["telemetry"] = frame.telemetry
-            if time.monotonic() >= self._window_deadline:
+            if time.monotonic() >= self._window_deadline and not (
+                    self.mesh is not None and self.mesh.multiprocess):
+                # a multi-process roll is a collective: never from ingest
                 self._close_window_locked()
         return verdict
 

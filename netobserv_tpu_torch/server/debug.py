@@ -18,7 +18,11 @@ Counterpart of `netobserv_tpu/server/debug.py` (`_threads_dump`,
                           initialised, the device name and count and
                           `memory_allocated` / `memory_reserved` of each
                           device once CUDA is initialised, the captured
-                          graphs and the compile watch. It reads CUDA state
+                          graphs and the compile watch, and (reference
+                          `debug.py:100`) the process group's
+                          `process_index`, `process_count` and
+                          `global_device_count`
+                          (`parallel/distributed.py`). It reads CUDA state
                           only where the process already initialised CUDA,
                           so touching it never initialises CUDA on a CPU
                           exporter.
@@ -103,10 +107,14 @@ def _executables_dump(q=None) -> str:
 def _torch_dump(q=None) -> str:
     import torch
 
+    from netobserv_tpu_torch.parallel import distributed
     from netobserv_tpu_torch.utils import retrace
 
     out: dict = {"torch": torch.__version__,
-                 "cuda_version": torch.version.cuda}
+                 "cuda_version": torch.version.cuda,
+                 "process_index": distributed.process_index(),
+                 "process_count": distributed.process_count(),
+                 "global_device_count": distributed.global_device_count()}
     try:
         out["cuda_available"] = torch.cuda.is_available()
         out["cuda_initialized"] = torch.cuda.is_initialized()

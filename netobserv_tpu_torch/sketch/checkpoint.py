@@ -43,6 +43,19 @@ against the target's and copies each part into its shards in place, every
 sketch replica of a data shard included, so captured graphs stay bound; a
 one-device checkpoint does not restore into a mesh, nor the reverse.
 
+**A mesh that spans processes** (`parallel/distributed.py`) checkpoints
+into a directory every rank shares, as orbax requires of multi-host
+saves. `stage` is then a collective: each rank copies its own parts to
+the host and rank 0 gathers the others'; only rank 0 writes (the tensor
+file, the stamp and the sidecars), so its file equals, byte for byte, the
+file a one-process mesh of the same shape writes for the same tables. A
+restore is a collective too: every rank reads the file and checks it
+against its own layout, the ranks agree on the verdict, and only then
+does each copy its own parts in place; a mesh of another shape, on any
+rank, raises on every rank before any tensor is written. The file holds
+the mesh's layout, not the process count: a mesh of the same shape over
+another number of processes restores it.
+
 **Restore** checks every path, shape and dtype of the file against the
 target state, as orbax's structural check does, and raises on a mismatch
 before it writes a tensor; then it copies each tensor into the target in
@@ -76,6 +89,7 @@ import numpy as np
 import torch
 
 from netobserv_tpu_torch.federation import delta as fdelta
+from netobserv_tpu_torch.parallel import distributed
 from netobserv_tpu_torch.sketch import carry
 from netobserv_tpu_torch.sketch import state as sk
 from netobserv_tpu_torch.utils.atomicio import fsync_dir, write_json_atomic
@@ -103,6 +117,12 @@ def _spec_fingerprint() -> int:
     return fdelta.table_spec_fingerprint()
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoint files: rank 0, or the only
+    process."""
+    return distributed.process_index() == 0
+
+
 class Staged(NamedTuple):
     """A host copy taken by `stage`: its buffer set and that set's
     generation (a later stage into the set supersedes it)."""
@@ -118,7 +138,8 @@ class SketchCheckpointer:
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self._max_to_keep = int(max_to_keep)
-        for name in os.listdir(self._dir):  # a crash mid-write leaves these
+        for name in (os.listdir(self._dir) if _writer() else []):
+            # a crash mid-write leaves these
             if name.startswith(_TMP_PREFIX):
                 shutil.rmtree(os.path.join(self._dir, name),
                               ignore_errors=True)
@@ -137,6 +158,8 @@ class SketchCheckpointer:
         return os.path.join(self._dir, _STAMP_FILE)
 
     def _write_stamp(self) -> None:
+        if not _writer():
+            return
         stamp = {"format_version": CHECKPOINT_FORMAT_VERSION,
                  "table_spec_crc": _spec_fingerprint(),
                  "delta_format_version": fdelta.DELTA_FORMAT_VERSION}
@@ -197,7 +220,7 @@ class SketchCheckpointer:
         supersedes, while that is still unwritten; else a free one. A
         staged copy holds its set until it is written (`save`) or released
         (`release`)."""
-        layout = self._layout(state)
+        layout = self._layout(state, reading=True)
         with self._state_lock:
             if replace is not None and self._sets_state[
                     replace.index] == ("staged", replace.generation):
@@ -217,7 +240,7 @@ class SketchCheckpointer:
         if bufs is None:
             pin = dev.type == "cuda"
             bufs = self._sets[i] = {
-                p: torch.empty(shape, dtype=dtype, pin_memory=pin)
+                p: torch.zeros(shape, dtype=dtype, pin_memory=pin)
                 for p, shape, dtype, _ in layout}
         devs = set()
         for p, _, _, parts in layout:
@@ -227,7 +250,23 @@ class SketchCheckpointer:
         for d in devs:
             if d.type == "cuda":
                 torch.cuda.current_stream(d).synchronize()
+        if distributed.process_count() > 1:
+            self._gather_parts(layout, bufs)
         return staged
+
+    @staticmethod
+    def _gather_parts(layout: list, bufs: dict) -> None:
+        """Rank 0 takes every other rank's parts into its buffers (a
+        collective of every rank's `stage`)."""
+        mine = [[(idx, bufs[p][idx].numpy().copy()) for idx, _ in parts]
+                for p, _, _, parts in layout]
+        every = distributed.gather_object(mine)
+        if every is None:
+            return
+        for (p, *_), *rank_parts in zip(layout, *every):
+            for parts in rank_parts:
+                for idx, part in parts:
+                    bufs[p][idx].copy_(torch.from_numpy(part))
 
     def release(self, staged: Staged) -> None:
         """Give back a staged copy that will not be written (a no-op once
@@ -238,14 +277,14 @@ class SketchCheckpointer:
                 self._sets_state[staged.index] = None
 
     @staticmethod
-    def _layout(state) -> list[tuple]:
+    def _layout(state, reading: bool = False) -> list[tuple]:
         """(dotted path, shape, dtype, parts) of each leaf to checkpoint, a
         part (index into the leaf, the tensors that hold it): a wide state
         leaf for leaf, a mesh's in the leading-axis layout
-        (`parallel/merge.dist_layout`)."""
+        (`parallel/merge.dist_layout`, `reading` for a stage)."""
         from netobserv_tpu_torch.parallel import merge as pmerge
         if isinstance(state, pmerge.DistState):
-            return pmerge.dist_layout(state)
+            return pmerge.dist_layout(state, reading)
         if not isinstance(state, sk.SketchState):
             raise TypeError("a checkpoint holds a wide SketchState or a "
                             "mesh's DistState; stage a tiered state's "
@@ -260,6 +299,9 @@ class SketchCheckpointer:
         """Write `state` (a wide state, or a `Staged` host copy) as `step`,
         in the calling thread; an error raises."""
         staged = state if isinstance(state, Staged) else self.stage(state)
+        if not _writer():
+            self.release(staged)  # rank 0 writes the gathered copy
+            return
         self._write(int(step), staged)
 
     def _write(self, step: int, staged: Staged) -> None:
@@ -308,6 +350,8 @@ class SketchCheckpointer:
     def save_metadata(self, step: int, meta: dict) -> None:
         """Atomically write step-paired JSON metadata (call BEFORE save());
         old sidecars beyond the retention are pruned."""
+        if not _writer():
+            return
         write_json_atomic(self._meta_path(step),
                           {"step": int(step), "meta": meta})
         keep = set(self.all_steps()) | {int(step)}
@@ -344,6 +388,8 @@ class SketchCheckpointer:
         return os.path.join(self._dir, "PUBLISHED.json")
 
     def save_publish_marker(self, window: int, meta: dict) -> None:
+        if not _writer():
+            return
         write_json_atomic(self._publish_marker_path(),
                           {"window": int(window), "meta": meta})
 
@@ -373,7 +419,42 @@ class SketchCheckpointer:
         unless the caller names the CPU). The stamp is checked first (a
         rejected format raises before any tensor is read); every path,
         shape and dtype is checked against the target before any tensor
-        is written."""
+        is written. Across processes every rank checks, and any rank's
+        refusal raises on every rank (`_agreed`)."""
+        if distributed.process_count() > 1:
+            template, layout, fields = self._agreed(template, step, device)
+        else:
+            template, layout, fields = self._checked(template, step, device)
+        for p, _, _, parts in layout:
+            arr = fields[p]
+            if arr.dtype == np.uint32:
+                arr = arr.astype(np.int64)
+            for idx, ts in parts:
+                part = torch.from_numpy(np.array(arr[idx]))
+                for t in ts:
+                    t.copy_(part)
+        return template
+
+    def _agreed(self, template, step: Optional[int], device) -> tuple:
+        """`_checked` on every rank, then every rank's verdict gathered:
+        any rank's refusal raises on every rank, before any tensor is
+        written (and before rank 0 may move a refused directory aside)."""
+        try:
+            out, err = self._checked(template, step, device), None
+        except Exception as exc:
+            out, err = None, f"{type(exc).__name__}: {exc}"
+        errs = [(r, e) for r, e in enumerate(
+            distributed.all_gather_object(err)) if e is not None]
+        if errs:
+            raise ValueError(f"checkpoint under {self._dir} refused on "
+                             "rank(s) " + "; ".join(f"{r}: {e}"
+                                                    for r, e in errs))
+        return out
+
+    def _checked(self, template, step: Optional[int], device) -> tuple:
+        """(target, its layout, the tensor file of `step` upgraded), the
+        stamp checked first and every path, shape and dtype checked
+        against the target's layout."""
         old_version = self.check_format()  # raises on reject
         step = self.latest_step() if step is None else step
         if step is None:
@@ -403,15 +484,7 @@ class SketchCheckpointer:
                     f"checkpoint step {step}: {p} is {arr.dtype}"
                     f"{list(arr.shape)}, the state's "
                     f"{np.dtype(_JAX_DTYPES[dtype])}{list(shape)}")
-        for p, _, _, parts in layout:
-            arr = fields[p]
-            if arr.dtype == np.uint32:
-                arr = arr.astype(np.int64)
-            for idx, ts in parts:
-                part = torch.from_numpy(np.array(arr[idx]))
-                for t in ts:
-                    t.copy_(part)
-        return template
+        return template, layout, fields
 
     def close(self) -> None:
         """Free the host buffer sets that hold no unwritten copy (every

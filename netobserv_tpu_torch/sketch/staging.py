@@ -75,6 +75,14 @@ CUDA each ladder entry is captured once per device of the mesh: one CUDA
 graph of every shard's fold where the shards share one device (a graph
 cannot span devices).
 
+**On a mesh that spans processes** (`parallel/mesh.Mesh.ranks`, reference
+`:478-481`): every rank is given and packs the same global batches, so
+the lane dictionaries of every rank agree, and each ships and folds only
+the data shards it holds (its device buffers, copy events and captured
+graphs are its own cells'; the other cells are None). A fold makes no
+cross-process call, so no captured graph holds a collective; the ladder
+entry a fold takes depends only on its rows, the same on every rank.
+
 Not here: `ShardedResidentStagingRing.fold_packed` with
 `ResidentPackSurface`, which need the reference's fused drain pipeline
 (A7).
@@ -339,12 +347,11 @@ class _Events:
 
 
 def _mesh_groups(mesh) -> list[tuple[torch.device, list[tuple[int, int]]]]:
-    """The mesh's shards grouped by device, in grid order: one captured
-    fold a group."""
+    """This rank's shards of the mesh grouped by device, in grid order:
+    one captured fold a group."""
     groups: dict = {}
-    for d, row in enumerate(mesh.devices):
-        for s, dev in enumerate(row):
-            groups.setdefault(dev, []).append((d, s))
+    for d, s in mesh.addressable():
+        groups.setdefault(mesh.devices[d][s], []).append((d, s))
     return list(groups.items())
 
 
@@ -459,12 +466,13 @@ class _SlotRing:
         grid, done = [], {}
         for d, row in enumerate(self._dev):
             for buf in row:
-                if id(buf) not in done:
+                if buf is not None and id(buf) not in done:
                     view = buf[:per]
                     view.copy_(host[d * per:(d + 1) * per],
                                non_blocking=True)
                     done[id(buf)] = view
-            grid.append(tuple(done[id(buf)] for buf in row))
+            grid.append(tuple(None if buf is None else done[id(buf)]
+                              for buf in row))
         if self.device.type == "cuda":
             evs = self._copied[slot]
             if evs is None:
@@ -718,9 +726,7 @@ class DenseStagingRing(_SlotRing):
     def _dispatch_mesh(self, dist, flats: tuple) -> None:
         """Fold every shard's rows: each device's captured graph, or
         eagerly."""
-        groups = self.captured or [(None, [
-            (d, s) for d in range(self.mesh.data)
-            for s in range(self.mesh.sketch)])]
+        groups = self.captured or [(None, self.mesh.addressable())]
         for fold, shards in groups:
             args = (tuple(dist.shards[d][s] for d, s in shards),
                     tuple(flats[d][s] for d, s in shards))
@@ -1011,8 +1017,7 @@ class ShardedResidentStagingRing(_SlotRing):
             for fold, shards in self.captured[k]:
                 fold(*self._group_args(shards, state, self.key_tables, flat))
         else:
-            every = [(d, s) for d in range(self.mesh.data)
-                     for s in range(self.mesh.sketch)]
+            every = self.mesh.addressable()
             self._ingest_group(k, every, *self._group_args(
                 every, state, self.key_tables, flat))
 
@@ -1022,10 +1027,18 @@ class ShardedResidentStagingRing(_SlotRing):
     def flat_key_tables(self) -> torch.Tensor:
         """Every region's key table in dictionary order, one row a
         dictionary of `kdicts`: `key_tables` itself on one device, the
-        data shards' tables stacked on the first device on a mesh."""
+        data shards' tables stacked on the first device on a mesh. On a
+        mesh that spans processes another rank's data shard raises."""
         if self.mesh is None:
             return self.key_tables
-        return torch.cat([row[0].to(self.device) for row in self.key_tables])
+        rows = []
+        for d, row in enumerate(self.key_tables):
+            mine = [t for t in row if t is not None]
+            if not mine:
+                raise ValueError(f"data shard {d}'s key tables are another "
+                                 "rank's")
+            rows.append(mine[0].to(self.device))
+        return torch.cat(rows)
 
     def mark_warm(self, *ks: int) -> None:
         """Make ladder entries selectable."""
@@ -1040,7 +1053,8 @@ class ShardedResidentStagingRing(_SlotRing):
                                      self._dev[:self._ship_words(k)])
         elif self.captured is not None:
             per = self._ship_words(k) // self.mesh.data
-            flats = tuple(tuple(b[:per] for b in row) for row in self._dev)
+            flats = tuple(tuple(None if b is None else b[:per] for b in row)
+                          for row in self._dev)
             for fold, shards in self.captured[k]:
                 fold.prepare(*self._group_args(shards, state,
                                                self.key_tables, flats))

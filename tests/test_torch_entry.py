@@ -149,13 +149,16 @@ def test_cli_replays_a_syn_flood_on_the_cpu_and_stops_on_sigterm(tmp_path):
                 buf += proc.stdout.read() or b""
             *lines, buf = buf.split(b"\n")
             reports += [json.loads(x) for x in lines if x.strip()]
-            if health is None:
+            if health is None or health[1].get("status") != "Started":
+                # the metrics server answers from before `run` sets
+                # Started: ask again until it says so (or the deadline)
                 try:
                     health = _get(f"http://127.0.0.1:{port}/healthz")
                 except OSError:
                     pass
             if any(r["SynFloodSuspectBuckets"] for r in reports) \
-                    and health is not None:
+                    and health is not None \
+                    and health[1].get("status") == "Started":
                 break
         sel.close()
         assert health is not None and health[0] == 200, health

@@ -55,7 +55,7 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "datapath/replay.py", "model/packet_record.py",
                  "scenarios/synth.py", "agent/agent.py", "__main__.py",
                  "sketch/tenancy.py", "parallel/mesh.py",
-                 "parallel/merge.py")
+                 "parallel/merge.py", "parallel/distributed.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -96,13 +96,18 @@ def test_port_imports_neither_protobuf_nor_grpc():
 
 
 def test_port_imports_no_torch_distributed():
-    """The mesh runs in one process over a grid of devices
-    (`parallel/`): no module of the port (nor chip_smoke.py) imports
-    `torch.distributed`, at any level; the multi-host tier (ROADMAP A6b)
-    brings it."""
+    """Only the multi-host tier's module (`parallel/distributed.py`)
+    imports `torch.distributed`: every other module of the port (and
+    chip_smoke.py) reaches the process group through it, and names it in
+    no import and no attribute, at any level."""
+    only = ROOT / "netobserv_tpu_torch" / "parallel" / "distributed.py"
     files = sorted((ROOT / "netobserv_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    assert only in files
+    assert "torch.distributed" in _imported_modules(only)
     for f in files:
+        if f == only:
+            continue
         for name in _imported_modules(f):
             assert not name.startswith("torch.distributed"), (f, name)
         assert "torch.distributed" not in f.read_text(), f
