@@ -239,6 +239,44 @@ launch counts set to 0 just before it and read just after:
   then a DATAPATH=synthetic child that starts, answers `/healthz` and
   stops on SIGTERM, and one with no DATAPATH that exits 2 naming ROADMAP
   A8. It prints each child's start-to-Started and SIGTERM-to-exit times;
+- the scenario zoo (`scenarios`): first each kernel of the zoo's path
+  (kernels 1, 2, 4 and the folds launch, and kernels 3 and 8 cut from
+  the folds launch's calls) against its plain twin at the zoo's shapes:
+  the pcaps of ZOO_KERNEL_SCENARIOS evicted as the replay fetcher evicts
+  them into an eager exporter of the runner's geometry (CM 4 x 16,384,
+  HLL p = 12, K = 256) and batch (ZOO_BATCH = 512, so 544 rows a fold
+  with the resident feed's spill rows) running the plain versions, every
+  wrapper call recorded, the first, middle and last call of each
+  compared in the production and the integer regime under the kernel
+  phase's bounds. Then all nine scenarios of `scenarios/zoo.py`, one
+  after another, through the port's `scenarios/runner.run_scenario` on
+  `cuda:0`: each replays its pcap through a full agent (replay fetcher,
+  map tracer, limiter, terminal, the exporter's captured resident feed
+  with the mid-window refresh and the default alert rules, the metrics
+  server) and grades it through `/query/*` over HTTP; each agent stops
+  and closes its exporter before the next one captures its ring (C4).
+  It prints a line a scenario (grade, failures, alarms fired, alerts
+  raised, time to detect, retraces, seconds, folds, captures and
+  launches a fold, a capture's warm-up counted as one) and fails unless
+  every grade passes with 0 retraces, every launch count is the
+  resident path's per fold and no plain version ran;
+- the ring-buffer fallback (`ringbuf`): a `FlowsAgent` from
+  `config.load_config` with ENABLE_FLOWS_RINGBUF_FALLBACK=true at the
+  default geometry and batch and the default CACHE_MAX_FLOWS (5,000) and
+  CACHE_ACTIVE_TIMEOUT (5 s), over the port's `FakeFetcher`, fed
+  RB_EVENTS single-packet events over RB_FLOWS Zipf RB_ZIPF flows
+  (`_rb_events`, seed RB_SEED) through `inject_ringbuf`, at most
+  RB_BACKLOG events ahead of the accounter, so neither the tracer's
+  queue nor the evicted queue drops. It checks `ringbuf_events_total`
+  against the events injected, no drop, evictions both at
+  CACHE_MAX_FLOWS and on the timeout, every flow's bytes and packets
+  over the accounter's evictions against the injected sums, the
+  window's report, the launches (the record path's captured fold), and
+  the pre-roll tables bit for bit against a CPU exporter of the same
+  settings fed the same record lists through `export_batch` (the whole
+  stream stays below 2^24 bytes, the integer regime). It prints events/s
+  through tracer and accounter and the seconds of the terminal's
+  `export_batch` calls;
 - the tenant planes (`tenants`, SKETCH_TENANTS: `sketch/tenancy.py`, N
   tenant states stacked on a leading axis, one captured graph a tenant
   count folding every tenant's rows). (a) The ladder of the reference's
@@ -1597,15 +1635,20 @@ def capture_main_path_inputs(specs, dense, cfg) -> dict:
     return calls
 
 
+def _calls_of(spec, calls: dict) -> list:
+    """A kernel's recorded calls: its own, or (`derive`) those cut from
+    another kernel's."""
+    if "derive" in spec:
+        src, cut = spec["derive"]
+        return [c for a in calls.get(src, []) for c in cut(a)]
+    return calls.get(spec["name"], [])
+
+
 def phase_kernels(specs, calls) -> list[dict]:
     import torch
     results = []
     for s in specs:
-        if "derive" in s:
-            src, cut = s["derive"]
-            recs = [c for a in calls[s["path"]].get(src, []) for c in cut(a)]
-        else:
-            recs = calls[s["path"]].get(s["name"], [])
+        recs = _calls_of(s, calls[s["path"]])
         check(len(recs) >= 1, f"{s['name']}: the main path never called it")
         case = {"phase": "kernel", "name": s["name"], "path": s["path"],
                 "calls_per_fold": len(recs), "cases": []}
@@ -5212,6 +5255,339 @@ def phase_agent_entry(specs, events, lanes_rate: float, wt_rate: float,
             "seconds": time.perf_counter() - t_phase}
 
 
+#: the scenarios phase: the zoo runner's batch, the scenarios whose folds
+#: the kernel check records, and the recorded calls of each kernel it
+#: holds against the kernel's twin
+ZOO_BATCH = 512
+ZOO_KERNEL_SCENARIOS = ("overlay_syn_scan", "elephant_mice", "ipv6_heavy")
+ZOO_CHECK_CALLS = 4
+#: the kernels of the zoo's path (the resident feed): kernels 1, 2, 4, the
+#: folds launch, and kernels 3 and 8 as cut from the folds launch's calls
+ZOO_KERNELS = ("countmin_fold2", "topk_reduce", "signal_fold",
+               "hll_fold_folds", "hll_fold", "hll_fold_grid")
+
+
+def _zoo_kernel_check(specs) -> list:
+    """Each kernel of the zoo's path held against its plain twin at the
+    zoo's shapes (module docstring, `scenarios`): the pcaps of
+    ZOO_KERNEL_SCENARIOS evicted as the replay fetcher evicts them into an
+    eager exporter of the runner's geometry and batch running the plain
+    versions, every wrapper call recorded; the first, middle and last of
+    up to ZOO_CHECK_CALLS calls of each kernel compared in the production
+    and the integer regime."""
+    import os
+    import tempfile
+    from netobserv_tpu_torch.datapath.replay import PcapReplayFetcher
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.scenarios import runner, zoo
+    calls: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ZOO_KERNEL_SCENARIOS:
+            pcap = os.path.join(tmp, f"{name}.pcap")
+            zoo.SCENARIOS[name](pcap)
+            fetcher = PcapReplayFetcher(pcap, window_s=5.0)
+            exp = TorchSketchExporter(
+                runner._sketch_cfg(), batch_size=ZOO_BATCH, device="cuda",
+                capture=False, sink=_discard, pack_threads=1,
+                superbatch=(1,))
+            try:
+                with plain_versions(specs), recording(specs, calls):
+                    while not fetcher.exhausted():
+                        exp.export_evicted(fetcher.lookup_and_delete())
+                    exp.flush()
+            finally:
+                exp.close()
+    out = []
+    for s in specs:
+        if s["name"] not in ZOO_KERNELS:
+            continue
+        recs = _calls_of(s, calls)
+        check(len(recs) >= 1, f"{s['name']}: the zoo's path never called it")
+        picks = sorted({0, len(recs) // 2, len(recs) - 1})[:ZOO_CHECK_CALLS]
+        cases = []
+        for ci in picks:
+            args = recs[ci]
+            for regime, a in (("production", args),
+                              ("integer", integer_inputs(s, args))):
+                r = compare(s, a, regime)
+                r.update(call=ci, regime=regime)
+                cases.append(r)
+        out.append({"name": s["name"], "calls": len(recs),
+                    "shapes": [list(t.shape) for t in _tensors(recs[0])],
+                    "max_abs_err": max(c["max_abs_err"] for c in cases),
+                    "bounds": sorted({c["bound"] for c in cases}),
+                    "cases": len(cases)})
+    return out
+
+
+def phase_scenarios(specs, card: str) -> dict:
+    """The scenario zoo graded end to end on the card (module docstring,
+    `scenarios`)."""
+    import tempfile
+    import torch
+    from netobserv_tpu_torch.scenarios import runner, zoo
+    t_phase = time.perf_counter()
+    kernels = _zoo_kernel_check(specs)
+    emit({"phase": "scenarios_kernels", "card": card, "batch": ZOO_BATCH,
+          "kernels": kernels})
+    total = {s["name"]: 0 for s in specs}
+    lines, bad = [], []
+    for name in zoo.SCENARIOS:
+        for s in specs:
+            s["kernel"].launches = 0
+        plains: dict = {}
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, \
+                counting_plains(specs, plains):
+            r = runner.run_scenario(name, tmp, device="cuda")
+        torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        folds = r["folds"] + r["captures"]
+        want = _want_launches(specs, "resident", folds)
+        line = {"phase": "scenario", "card": card, "name": name,
+                "passed": r["passed"], "failures": r["failures"],
+                "alarms_fired": r.get("alarms_fired"),
+                "alerts_raised": r.get("alerts_raised"),
+                "time_to_detect_s": r.get("time_to_detect_s"),
+                "retraces": r["retraces"],
+                "seconds": time.perf_counter() - t0,
+                "folds": r["folds"], "captures": r["captures"],
+                "records": r["records"],
+                "launches_per_fold": {k: v / folds
+                                      for k, v in launches.items() if v},
+                "plain_calls": plains,
+                **{k: r[k] for k in ("topk_recall", "distinct_src_err",
+                                     "dns_p50_us", "quic_records",
+                                     "frequency_est_bytes",
+                                     "resident_spill_rows",
+                                     "dense_fallbacks") if k in r}}
+        emit(line)
+        lines.append(line)
+        for k, v in launches.items():
+            total[k] += v
+        if not r["passed"] or r["retraces"]:
+            bad.append(f"{name}: {r['failures']}, {r['retraces']} retraces")
+        if plains:
+            bad.append(f"{name}: plain versions ran {plains}")
+        if launches != want or not all(launches[n] for n, v in want.items()
+                                       if v):
+            bad.append(f"{name}: launches {launches}, want {want}")
+    check(not bad, "; ".join(bad))
+    return {"phase": "scenarios", "card": card, "scenarios": len(lines),
+            "passed": sum(x["passed"] for x in lines),
+            "seconds_per_scenario": {x["name"]: x["seconds"] for x in lines},
+            "time_to_detect_s": {x["name"]: x["time_to_detect_s"]
+                                 for x in lines},
+            "launches": total, "seconds": time.perf_counter() - t_phase}
+
+
+#: the ringbuf phase: single-packet events injected, the flows they
+#: cover (Zipf RB_ZIPF), the seed, and the events the feeder keeps ahead
+#: of the accounter (below the tracer's queue of 10 x BUFFERS_LENGTH =
+#: 500, so none drops) and injects at once
+RB_EVENTS = 200_000
+RB_FLOWS = 20_000
+RB_ZIPF = 1.1
+RB_SEED = 20
+RB_BACKLOG = 256
+RB_CHUNK = 64
+
+
+def _rb_events(rng):
+    """RB_EVENTS single-packet flow events over RB_FLOWS Zipf-skewed v4
+    flows, as the datapath sends them when its map is full: 40-79 bytes
+    (a SYN or an ACK: the whole stream stays below 2^24 bytes, so every
+    per-cell sum is an integer f32 adds exactly), one packet, a TCP flag,
+    rising times, one of three interfaces."""
+    import numpy as np
+    from netobserv_tpu_torch.model import binfmt
+    keys = np.zeros(RB_FLOWS, binfmt.FLOW_KEY_DTYPE)
+    for side in ("src_ip", "dst_ip"):
+        keys[side][:, 10:12] = 0xFF
+        keys[side][:, 12:] = rng.integers(0, 256, (RB_FLOWS, 4))
+    keys["src_port"] = rng.integers(1024, 65536, RB_FLOWS)
+    keys["dst_port"] = rng.choice([53, 80, 443, 8080], RB_FLOWS)
+    keys["proto"] = 6
+    weights = 1.0 / np.arange(1, RB_FLOWS + 1) ** RB_ZIPF
+    ranks = rng.choice(RB_FLOWS, RB_EVENTS, p=weights / weights.sum())
+    ev = np.zeros(RB_EVENTS, binfmt.FLOW_EVENT_DTYPE)
+    ev["key"] = keys[ranks]
+    st = ev["stats"]
+    st["bytes"] = rng.integers(40, 80, RB_EVENTS)
+    st["packets"] = 1
+    st["tcp_flags"] = rng.choice([0x02, 0x10, 0x12, 0x18], RB_EVENTS)
+    st["first_seen_ns"] = 10**12 + np.cumsum(
+        rng.integers(1, 1000, RB_EVENTS))
+    st["last_seen_ns"] = st["first_seen_ns"]
+    st["eth_protocol"] = 0x0800
+    st["if_index_first"] = rng.integers(1, 4, RB_EVENTS)
+    return ev
+
+
+def _key_sums(keys, nbytes, npkts) -> dict:
+    """40-byte key -> (bytes, packets) summed over rows."""
+    import numpy as np
+    kv = np.ascontiguousarray(keys).view(f"V{keys.dtype.itemsize}")
+    uniq, inv = np.unique(kv, return_inverse=True)
+    b = np.bincount(inv, weights=nbytes.astype(np.float64))
+    p = np.bincount(inv, weights=npkts.astype(np.float64))
+    return {u.tobytes(): (int(x), int(y)) for u, x, y in zip(uniq, b, p)}
+
+
+def phase_ringbuf(specs, card: str) -> dict:
+    """The ring-buffer fallback on the card (module docstring,
+    `ringbuf`)."""
+    import dataclasses
+    import threading
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.agent import FlowsAgent, Status
+    from netobserv_tpu_torch.config import load_config
+    from netobserv_tpu_torch.datapath.fetcher import FakeFetcher
+    from netobserv_tpu_torch.exporter import torch_sketch
+    from netobserv_tpu_torch.metrics.registry import Metrics, MetricsSettings
+    from netobserv_tpu_torch.sketch import state as sk
+    t_phase = time.perf_counter()
+    ev = _rb_events(np.random.default_rng(RB_SEED))
+    raw, size = ev.tobytes(), ev.dtype.itemsize
+    items = [raw[i * size:(i + 1) * size] for i in range(len(ev))]
+    cfg = load_config({"EXPORT": "tpu-sketch", "AGENT_IP": "127.0.0.1",
+                       "ENABLE_FLOWS_RINGBUF_FALLBACK": "true",
+                       "SKETCH_WINDOW": "10m"})
+    cfg.validate()
+    metrics = Metrics(MetricsSettings())
+    exp = torch_sketch.TorchSketchExporter.from_config(cfg, metrics=metrics,
+                                                       sink=_discard)
+    fake = FakeFetcher()
+    agent = FlowsAgent(cfg, fake, exp, metrics=metrics)
+    batches, export_s = [], []
+    export = agent.terminal._export
+
+    def tapped(recs):
+        t0 = time.perf_counter()
+        export(recs)
+        export_s.append(time.perf_counter() - t0)
+        batches.append(recs)
+    agent.terminal._export = tapped
+
+    def events_in() -> int:
+        return int(metrics.ringbuf_events_total._value.get())
+
+    def packets_out() -> int:
+        return sum(r.packets for b in batches for r in b)
+
+    def wait(pred, secs: float, what: str) -> None:
+        deadline = time.monotonic() + secs
+        while not pred() and time.monotonic() < deadline:
+            time.sleep(0.001)
+        check(pred(), f"timed out waiting for {what}")
+
+    for s in specs:
+        s["kernel"].launches = 0
+    plains: dict = {}
+    stop = threading.Event()
+    runner = threading.Thread(target=agent.run, args=(stop,), daemon=True)
+    with counting_plains(specs, plains):
+        runner.start()
+        try:
+            wait(lambda: agent.status == Status.STARTED, 10, "the agent")
+            t0 = time.perf_counter()
+            i = 0
+            while i < len(items):
+                if (fake._ringbuf.qsize() + agent._rb_q.qsize()
+                        >= RB_BACKLOG):
+                    time.sleep(0.0002)
+                    continue
+                for b in items[i:i + RB_CHUNK]:
+                    fake.inject_ringbuf(b)
+                i += RB_CHUNK
+            wait(lambda: events_in() == len(items) and fake._ringbuf.empty()
+                 and agent._rb_q.empty(), 60, "the tracer")
+            t1 = time.perf_counter()
+            # the accounter's last eviction comes at its timeout
+            wait(lambda: packets_out() == len(items),
+                 cfg.cache_active_timeout + 30, "the evictions")
+            t2 = time.perf_counter()
+            with exp._lock:
+                exp._drain_pending()
+                tables = sk.state_tables(exp.state)
+            torch.cuda.synchronize()
+            captures = sum(c.captures for c in exp.captures)
+            folds = exp.folds
+            report = exp.roll()
+            launches = {s["name"]: s["kernel"].launches for s in specs}
+        finally:
+            stop.set()
+            runner.join(timeout=30)
+    check(not runner.is_alive() and agent.status == Status.STOPPED,
+          f"the agent did not stop ({agent.status})")
+    n_rec = sum(len(b) for b in batches)
+    dropped = sum(m.value for fam in metrics.dropped_flows_total.collect()
+                  for m in fam.samples if m.name.endswith("_total"))
+    check(events_in() == len(items),
+          f"ringbuf_events_total {events_in()}, injected {len(items)}")
+    check(dropped == 0, f"{dropped} flows dropped")
+    check(not plains, f"plain versions ran {plains}")
+    want = _want_launches(specs, "wide", folds + captures)
+    check(launches == want and all(launches[n] for n, v in want.items()
+                                   if v),
+          f"launches {launches}, want {want}")
+    ev_rec = torch_sketch._records_to_evicted(
+        [r for b in batches for r in b]).events
+    got = _key_sums(ev_rec["key"], ev_rec["stats"]["bytes"],
+                    ev_rec["stats"]["packets"])
+    check(got == _key_sums(ev["key"], ev["stats"]["bytes"],
+                           ev["stats"]["packets"]),
+          "the accounter's per-flow bytes and packets differ from the "
+          "injected sums")
+    total_bytes = int(ev["stats"]["bytes"].sum())
+    check(total_bytes < 2 ** 24, f"{total_bytes} bytes leave the integer "
+          "regime")
+    check(report["Records"] == float(n_rec)
+          and report["Bytes"] == float(total_bytes),
+          f"report {report['Records']} records, {report['Bytes']} bytes")
+    at_max = sum(len(b) == cfg.cache_max_flows for b in batches)
+    check(at_max > 0 and len(batches) > at_max,
+          f"{at_max} of {len(batches)} evictions at CACHE_MAX_FLOWS: want "
+          "some on max_entries and some on the timeout")
+    # the same record lists through a CPU exporter of the same settings
+    t3 = time.perf_counter()
+    cpu = torch_sketch.TorchSketchExporter.from_config(
+        dataclasses.replace(cfg, sketch_devices="cpu"), sink=_discard)
+    try:
+        for b in batches:
+            cpu.export_batch(b)
+        with cpu._lock:
+            cpu._drain_pending()
+            want_tables = sk.state_tables(cpu.state)
+        cpu_folds = cpu.folds
+    finally:
+        cpu.close()
+    diff = [k for k in want_tables
+            if not np.array_equal(tables[k], want_tables[k])]
+    check(tables.keys() == want_tables.keys() and not diff,
+          f"tables {diff} differ from the CPU replay")
+    check(cpu_folds == folds, f"{folds} folds on the card, {cpu_folds} on "
+          "the CPU")
+    ms = [x * 1e3 for x in export_s]
+    return {"phase": "ringbuf", "card": card, "events": len(items),
+            "flows_touched": len(got), "zipf_s": RB_ZIPF,
+            "evictions": len(batches), "evictions_at_max_entries": at_max,
+            "records": n_rec, "folds": folds, "captures": captures,
+            "batch_size": exp.batch_size,
+            "geometry": {"cm_depth": exp.cfg.cm_depth,
+                         "cm_width": exp.cfg.cm_width,
+                         "hll_precision": exp.cfg.hll_precision,
+                         "topk": exp.cfg.topk},
+            "events_per_s_tracer_accounter": len(items) / (t1 - t0),
+            "seconds_to_last_eviction": t2 - t0,
+            "export_seconds": sum(export_s), "export_ms": _pcts(ms),
+            "fold_seconds_per_record": sum(export_s) / n_rec,
+            "tables_bit_equal_cpu_replay": len(want_tables),
+            "cpu_replay_seconds": time.perf_counter() - t3,
+            "launches": launches, "seconds": time.perf_counter() - t_phase}
+
+
 #: the stack ladder (`tenants` (a)): tenant counts, rows a tenant a
 #: dispatch, timed and warm-up dispatches, and the dispatches held bit for
 #: bit against the plain versions
@@ -6824,6 +7200,12 @@ def main() -> int:
                                    _lanes_rate(lanes_res),
                                    wt_res["records_per_s"], dev["nvidia_smi"])
         emit(ae_res)
+        phase = "scenarios"
+        zoo_res = phase_scenarios(specs, dev["nvidia_smi"])
+        emit(zoo_res)
+        phase = "ringbuf"
+        rb_res = phase_ringbuf(specs, dev["nvidia_smi"])
+        emit(rb_res)
         phase = "tenants"
         tn_res = phase_tenants(specs, events, dev["nvidia_smi"])
         emit(tn_res)
@@ -6862,6 +7244,8 @@ def main() -> int:
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
                 "agent_entry": ae_res["launches"],
+                "scenarios": zoo_res["launches"],
+                "ringbuf": rb_res["launches"],
                 "tenants": tn_res["launches"],
                 "tenants_tiered": tn_res["tiered_launches"],
                 **mesh_res["launches"],

@@ -3,20 +3,22 @@
 A copy of `netobserv_tpu/agent/agent.py` (`Status`, `FlowsAgent`,
 `build_fetcher`, `resolve_agent_ip`, lines 28-419): it builds the metrics,
 the exporter and the fetcher, wires the stages with bounded queues
-(MapTracer -> CapacityLimiter -> QueueExporter), registers every stage and
-the exporter's threads with the stage supervisor (`agent/supervisor.py`),
-and exposes a status state machine and `health_snapshot` for `/healthz`
-and `/readyz`. Inject the fetcher and exporter to test it.
+(MapTracer -> CapacityLimiter -> QueueExporter, and with
+ENABLE_FLOWS_RINGBUF_FALLBACK the ring-buffer fallback RingBufTracer ->
+Accounter into the same evicted queue, `:152-167`), registers every stage
+and the exporter's threads with the stage supervisor
+(`agent/supervisor.py`), and exposes a status state machine and
+`health_snapshot` for `/healthz` and `/readyz`. Inject the fetcher and
+exporter to test it.
 
 Left out, each refused by `config.AgentConfig.validate` when asked for
-(ROADMAP A8): SSL correlation and tracing (ENABLE_OPENSSL_TRACKING), the
-ring-buffer fallback with its accounter (ENABLE_FLOWS_RINGBUF_FALLBACK),
-UDN mapping (ENABLE_UDN_MAPPING), the OVN network-events decoder
-(ENABLE_NETWORK_EVENTS_MONITORING), kernel flow filters
-(FLOW_FILTER_RULES, `program_filters`), the fused drain's pack surface
-(EVICT_NATIVE_PIPELINE, `bind_pack_surface`) and the bpfman datapath;
-and the interface listener, which only the kernel fetchers ask for
-(`needs_iface_discovery`). `build_fetcher` knows `DATAPATH=synthetic`
+(ROADMAP A8): SSL correlation and tracing (ENABLE_OPENSSL_TRACKING), so
+the accounter takes no SSL correlator; UDN mapping (ENABLE_UDN_MAPPING),
+the OVN network-events decoder (ENABLE_NETWORK_EVENTS_MONITORING), kernel
+flow filters (FLOW_FILTER_RULES, `program_filters`), the fused drain's
+pack surface (EVICT_NATIVE_PIPELINE, `bind_pack_surface`) and the bpfman
+datapath; and the interface listener, which only the kernel fetchers ask
+for (`needs_iface_discovery`). `build_fetcher` knows `DATAPATH=synthetic`
 and `DATAPATH=pcap:<file>`; every other value, unset and `auto` among
 them, raises `ValueError` naming ROADMAP A8, where the reference loads a
 kernel datapath or falls back to synthetic replay.
@@ -37,7 +39,9 @@ from netobserv_tpu_torch.config import AgentConfig
 from netobserv_tpu_torch.datapath.fetcher import FlowFetcher
 from netobserv_tpu_torch.exporter import build_exporter
 from netobserv_tpu_torch.exporter.base import Exporter, QueueExporter
-from netobserv_tpu_torch.flow import CapacityLimiter, MapTracer
+from netobserv_tpu_torch.flow import (
+    Accounter, CapacityLimiter, MapTracer, RingBufTracer,
+)
 from netobserv_tpu_torch.metrics.registry import Metrics, MetricsSettings
 from netobserv_tpu_torch.utils import retrace, tracing
 
@@ -109,6 +113,19 @@ class FlowsAgent:
         self.terminal = QueueExporter(
             exporter, self._export_q, metrics=self.metrics)
 
+        self.rb_tracer: Optional[RingBufTracer] = None
+        self.accounter: Optional[Accounter] = None
+        if cfg.enable_flows_ringbuf_fallback:
+            self._rb_q: queue.Queue = queue.Queue(maxsize=buf * 10)
+            self.rb_tracer = RingBufTracer(
+                fetcher, self._rb_q, flusher=self.map_tracer.flush,
+                metrics=self.metrics)
+            self.accounter = Accounter(
+                self._rb_q, self._evicted_q,
+                max_entries=cfg.cache_max_flows,
+                evict_timeout_s=cfg.cache_active_timeout,
+                agent_ip=agent_ip, metrics=self.metrics)
+
         if cfg.sampling:
             self.metrics.sampling_rate.set(cfg.sampling)
 
@@ -142,6 +159,12 @@ class FlowsAgent:
                            heartbeat_timeout_s=hb, **budget)
         sup.register_stage("exporter", self.terminal,
                            heartbeat_timeout_s=hb, **budget)
+        if self.accounter is not None:
+            sup.register_stage("accounter", self.accounter,
+                               heartbeat_timeout_s=hb, **budget)
+        if self.rb_tracer is not None:
+            sup.register_stage("ringbuf-tracer", self.rb_tracer,
+                               heartbeat_timeout_s=hb, **budget)
         # the sketch exporter supervises its own window and fold threads
         register = getattr(self.exporter, "register_supervised", None)
         if register is not None:
@@ -199,6 +222,10 @@ class FlowsAgent:
         self._set_status(Status.STARTING)
         self.terminal.start()
         self.limiter.start()
+        if self.accounter is not None:
+            self.accounter.start()
+        if self.rb_tracer is not None:
+            self.rb_tracer.start()
         self.map_tracer.start()
         if self.cfg.supervisor_enable:
             self.supervisor.start()
@@ -224,6 +251,10 @@ class FlowsAgent:
         # lost; the terminal drains its queue, then closes the exporter,
         # which publishes the last window
         self.map_tracer.stop(final_evict=True)
+        if self.rb_tracer is not None:
+            self.rb_tracer.stop()
+        if self.accounter is not None:
+            self.accounter.stop()
         self.limiter.stop()
         self.terminal.stop()
         self.fetcher.close()

@@ -398,8 +398,6 @@ VALID_EXPORTERS = (
 _UNPORTED = (
     ("enable_openssl_tracking", "ENABLE_OPENSSL_TRACKING",
      "SSL plaintext correlation and tracing"),
-    ("enable_flows_ringbuf_fallback", "ENABLE_FLOWS_RINGBUF_FALLBACK",
-     "the ring-buffer fallback and its accounter"),
     ("enable_udn_mapping", "ENABLE_UDN_MAPPING", "UDN mapping"),
     ("enable_network_events_monitoring", "ENABLE_NETWORK_EVENTS_MONITORING",
      "the OVN network-events decoder"),

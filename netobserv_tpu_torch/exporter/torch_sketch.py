@@ -228,10 +228,14 @@ the reference's signature, such as the port's `agent/supervisor.py`.
 `:1257-1295`, `:1346-1349`). `name` ("tpu-sketch", the metrics label)
 and `supports_columnar` are the `exporter/base.Exporter` seam: the map
 tracer then forwards evictions as they are, and the terminal stage calls
-`export_evicted`. `export_batch` takes the record path's records, as
-flow events with their RTT, DNS and drop lanes (`_records_to_evicted`,
-the fields the reference's `FlowBatch.from_records` reads), into the
-pending buffer, without admission, as the reference's takes them.
+`export_evicted`. `export_batch` takes the record path's records without
+admission, as the reference's takes them: on one device it folds them in
+record order, `batch_size` a fold, apart from the evictions, with the
+columns of the reference's `FlowBatch.from_records` (`_records_to_arrays`;
+no QUIC markers, no drop cause) through the dense entry's buffers and a
+captured graph of its own (`fold_records`); in tenant mode and on a mesh
+it puts them into the pending buffer as flow events with their RTT, DNS
+and drop lanes (`_records_to_evicted`).
 `from_config` builds the exporter an `AgentConfig` describes
 (`config.py`): the SKETCH_* geometry, batch, window, feed, ladder,
 thresholds, overload, query, alert, archive and checkpoint settings, the
@@ -351,6 +355,7 @@ from netobserv_tpu_torch.exporter.report import (
     make_report_sink, report_numpy, report_to_json,
 )
 from netobserv_tpu_torch.model import binfmt
+from netobserv_tpu_torch.model.columnar import pack_key_words
 from netobserv_tpu_torch.ops.kernels import _build
 from netobserv_tpu_torch.parallel import distributed
 from netobserv_tpu_torch.parallel import merge as pmerge
@@ -635,7 +640,15 @@ class TorchSketchExporter:
                                          self._pool)
                             if self._capture and self.mesh is None
                             else None)
-        self._dense_ready = False
+        #: the record path's entry on one device (`export_batch`): records
+        #: waiting for a whole batch, and their captured fold
+        self._pending_records: list = []
+        self._fold_rec = (CapturedFold("fold_records", self._ingest_records,
+                                       self._pool)
+                          if self._capture and self.mesh is None
+                          else None)
+        #: the entries on the dense buffers prepared so far
+        self._entries_ready: set = set()
         self._prev_index: Optional[dict] = None
         #: a sampled batch trace riding an eviction, parked for the next
         #: fold, which finishes it
@@ -839,10 +852,11 @@ class TorchSketchExporter:
 
     @property
     def captures(self) -> list[CapturedFold]:
-        """The captured folds made so far: the dense entry's, and the
-        ring's once it is made."""
+        """The captured folds made so far: the dense entry's, the record
+        path's, and the ring's once it is made."""
         ring = self.ring.captures if self.ring is not None else []
-        return [c for c in (self._fold_dense, *ring) if c is not None]
+        return [c for c in (self._fold_dense, self._fold_rec, *ring)
+                if c is not None]
 
     def _next_deadline(self) -> Optional[float]:
         return (time.monotonic() + self.window_s
@@ -959,17 +973,38 @@ class TorchSketchExporter:
         self._export_evicted_now(evicted)
 
     def export_batch(self, records: list) -> None:
-        """Take the record path's records (`model/record.Record`) as one
-        eviction of flow events into the pending buffer, without admission,
-        and close the window if its deadline passed
-        (`tpu_sketch.py:1208-1216`)."""
+        """Take the record path's records (`model/record.Record`) without
+        admission, and close the window if its deadline passed
+        (`tpu_sketch.py:1208-1216`). On one device they fold as the
+        reference folds them: queued apart from the evictions, in record
+        order, `batch_size` records a fold through the record entry
+        (`_fold_record_chunk`), a partial batch at the next drain. In
+        tenant mode and on a mesh they go into the pending buffer as one
+        eviction of flow events."""
         self._check_open()
-        evicted = _records_to_evicted(records)
+        routed = self.tenants or self.mesh is not None
+        if routed:
+            evicted = _records_to_evicted(records)
         with self._lock:
-            self._ensure_ring()
-            self.pending.append(evicted, self._fold_events)
+            if routed:
+                self._ensure_ring()
+                self.pending.append(evicted, self._fold_events)
+            else:
+                self._pending_records.extend(records)
+                while len(self._pending_records) >= self.batch_size:
+                    chunk = self._pending_records[:self.batch_size]
+                    del self._pending_records[:self.batch_size]
+                    self._fold_record_chunk(chunk)
             if self._fold_due():
                 self._close_window_locked()
+
+    def _fold_record_chunk(self, records: list) -> None:
+        """Under the lock: fold at most `batch_size` records, contained,
+        through the dense entry's buffers and the record path's ingest
+        (`_ingest_records`)."""
+        self._ensure_entry("records", self._fold_rec)
+        self._fold_one(sk.arrays_to_dense(_records_to_arrays(records)),
+                       records=True)
 
     def _queued_overlap_rows(self) -> int:
         """Rows in the overlap handoff, not yet taken by the fold thread (0
@@ -1170,27 +1205,29 @@ class TorchSketchExporter:
                              f"{sk.DENSE_WORDS}-word rows")
         step = self.batch_size * sk.DENSE_WORDS
         with self._lock:
-            self._ensure_dense()
+            self._ensure_entry("dense", self._fold_dense)
             for lo in range(0, flat.size, step):
                 self._fold_one(flat[lo:lo + step])
             if self._due():
                 self._close_window_locked()
 
-    def _ensure_dense(self) -> None:
-        """The dense entry's first use (under the lock): on CUDA build and
-        load the kernels and capture its graph, before any fold; any
-        failure here raises."""
-        if self._dense_ready:
+    def _ensure_entry(self, name: str, fold: Optional[CapturedFold]) -> None:
+        """The first use of an entry on the dense buffers (`fold_dense`'s or
+        the record path's), under the lock: on CUDA build and load the
+        kernels and capture its graph, before any fold; any failure here
+        raises, where a fold's is contained."""
+        if name in self._entries_ready:
             return
         if self.device.type == "cuda":
             _build.load_all()
-        if self._fold_dense is not None:
-            self._fold_dense.prepare(self.state, self._dev)
-        self._dense_ready = True
+        if fold is not None:
+            fold.prepare(self.state, self._dev)
+        self._entries_ready.add(name)
 
-    def _fold_one(self, chunk: np.ndarray) -> None:
+    def _fold_one(self, chunk: np.ndarray, records: bool = False) -> None:
         """Stage and fold one dense batch, contained (reference `_fold`,
-        `tpu_sketch.py:1636-1689`)."""
+        `tpu_sketch.py:1636-1689`): through the dense entry, or with
+        `records` through the record path's."""
         t0 = time.perf_counter()
         n = chunk.size // sk.DENSE_WORDS
         trace = tracing.start_trace("fold")
@@ -1207,10 +1244,13 @@ class TorchSketchExporter:
                     if self._copied is not None:
                         self._copied.record(
                             torch.cuda.current_stream(self.device))
-                    if self._fold_dense is not None:
-                        self._fold_dense(self.state, self._dev)
+                    fold, eager = ((self._fold_rec, self._ingest_records)
+                                   if records else
+                                   (self._fold_dense, self._ingest_dense))
+                    if fold is not None:
+                        fold(self.state, self._dev)
                     else:
-                        self._ingest_dense(self.state, self._dev)
+                        eager(self.state, self._dev)
                     self.folds += 1
             except Exception as exc:
                 self._count_ingest_error(n, exc)
@@ -1222,6 +1262,16 @@ class TorchSketchExporter:
     def _ingest_dense(self, state, dev: torch.Tensor):
         return sk.ingest(state, sk.dense_to_arrays(dev),
                          enable_fanout=self.cfg.enable_fanout,
+                         enable_asym=self.cfg.enable_asym)
+
+    def _ingest_records(self, state, dev: torch.Tensor):
+        """The dense rows of records, folded with the columns the
+        reference's `FlowBatch` carries: it has no QUIC markers and no
+        drop cause (`model/columnar.py:24-44`), so neither reaches the
+        ingest (`sketch/state.py:208-224`)."""
+        arrays = sk.dense_to_arrays(dev)
+        del arrays["markers"], arrays["drop_cause"]
+        return sk.ingest(state, arrays, enable_fanout=self.cfg.enable_fanout,
                          enable_asym=self.cfg.enable_asym)
 
     def state_tables(self):
@@ -1262,6 +1312,9 @@ class TorchSketchExporter:
         fold (reference `_drain_pending_locked`, `tpu_sketch.py:1427-1444`);
         a wedged fold is `_fold_events`'s, and a wedged flush is logged and
         counted here, its rows left in the tenant buffers."""
+        if self._pending_records:
+            chunk, self._pending_records = self._pending_records, []
+            self._fold_record_chunk(chunk)
         if self.pending is not None:
             self.pending.flush_to(self._fold_events)
         if not self.tenants:
@@ -1988,8 +2041,37 @@ class TorchSketchExporter:
             self.ring.close()
         self.pending = None
         self._staging = None
-        self._fold_dense = None
+        self._fold_dense = self._fold_rec = None
         self._host = self._host_u32 = self._dev = None
+
+
+def _records_to_arrays(records: list) -> dict:
+    """Records (`model/record.Record`) as the host columns the ingest reads
+    of the reference's `FlowBatch.from_records` (`model/columnar.py:160-197`)
+    through its `batch_to_device` (`sketch/state.py:208-224`), one row a
+    record, in order."""
+    n = len(records)
+    keys = np.zeros(n, binfmt.FLOW_KEY_DTYPE)
+    cols = {name: np.zeros(n, np.uint64 if name == "bytes" else np.uint32)
+            for name in ("bytes", "packets", "rtt_us", "dns_latency_us",
+                         "sampling", "tcp_flags", "dscp", "drop_bytes",
+                         "drop_packets")}
+    for i, r in enumerate(records):
+        k, f = r.key, r.features
+        keys[i]["src_ip"] = np.frombuffer(k.src_ip, np.uint8)
+        keys[i]["dst_ip"] = np.frombuffer(k.dst_ip, np.uint8)
+        keys[i]["src_port"], keys[i]["dst_port"] = k.src_port, k.dst_port
+        keys[i]["proto"] = k.proto
+        keys[i]["icmp_type"], keys[i]["icmp_code"] = k.icmp_type, k.icmp_code
+        cols["bytes"][i], cols["packets"][i] = r.bytes_, r.packets
+        cols["rtt_us"][i] = f.rtt_ns // 1000
+        cols["dns_latency_us"][i] = f.dns_latency_ns // 1000
+        cols["sampling"][i], cols["tcp_flags"][i] = r.sampling, r.tcp_flags
+        cols["dscp"][i] = r.dscp
+        cols["drop_bytes"][i], cols["drop_packets"][i] = f.drop_bytes, \
+            f.drop_packets
+    return {"keys": pack_key_words(keys), "valid": np.ones(n, bool),
+            **cols}
 
 
 def _records_to_evicted(records: list) -> EvictedFlows:

@@ -18,15 +18,15 @@ and the aggregator's checkpoints' (`archive_*`,
 (`stage_failures_total`, `stage_restarts_total`, `stage_degraded`,
 `:352-366`, with `count_stage_failure`, `count_stage_restart` and
 `set_stage_degraded`, `:530-537`); and the families of the agent's
-stages, the map tracer, the limiter, the terminal and the agent
-(`evictions_total`, `evicted_flows_total`, `dropped_flows_total`,
-`kernel_counters_total`, `exported_*`, `export_errors_total`,
+stages, the map tracer, the limiter, the terminal, the ring-buffer
+tracer and the agent (`evictions_total`, `evicted_flows_total`,
+`dropped_flows_total`, `ringbuf_events_total`, `kernel_counters_total`, `exported_*`, `export_errors_total`,
 `buffer_size`, `sampling_rate`, the eviction histograms,
 `flowpack_*`, `host_native_pipeline_seconds`, `map_occupancy_ratio`,
 `map_pressure_evictions_total` and `evict_ringbuf_fallback_total`,
 `:70-143`, `:282-300`, with `observe_eviction`, `count_dropped`,
-`add_global_counter`, `count_exported` and `count_export_error`,
-`:483-506`); and the tenant planes' (`sketch_tenant_folds_total`,
+`count_ringbuf_event`, `add_global_counter`, `count_exported` and
+`count_export_error`, `:483-506`); and the tenant planes' (`sketch_tenant_folds_total`,
 `sketch_tenants_active`, `sketch_tenant_window_records{tenant}`,
 `:248-268`) with `sketch_resident_hbm_bytes` (`:269-275`). Each
 family has the reference family's name, type, help text, labels and
@@ -35,8 +35,7 @@ instead of falling back (`datapath/flowpack.py`), so
 `flowpack_abi_fallback_total` stays 0; no port datapath takes the fused
 drain, so `flowpack_native_calls_total` and
 `host_native_pipeline_seconds` stay empty. The families of the
-interfaces and the ring buffer come with the step that ports those
-planes (ROADMAP A8).
+interfaces come with the step that ports that plane (ROADMAP A8).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -110,6 +109,10 @@ class Metrics:
         self.dropped_flows_total = Counter(
             p + "dropped_flows_total", "Flows dropped by the pipeline",
             ["source"], registry=self.registry)
+        self.ringbuf_events_total = Counter(
+            p + "ringbuf_events_total",
+            "Flow events received via the map-full fallback ring buffer",
+            registry=self.registry)
         self.kernel_counters_total = Counter(
             p + "kernel_counters_total",
             "Datapath global counters (scraped each eviction)", ["name"],
@@ -509,6 +512,9 @@ class Metrics:
 
     def count_dropped(self, n: int, source: str) -> None:
         self.dropped_flows_total.labels(source).inc(n)
+
+    def count_ringbuf_event(self) -> None:
+        self.ringbuf_events_total.inc()
 
     def add_global_counter(self, key: GlobalCounter, val: int) -> None:
         if val:

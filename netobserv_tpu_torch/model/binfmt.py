@@ -2,9 +2,10 @@
 
 Counterpart of `netobserv_tpu/model/binfmt.py` (the dtypes `FLOW_KEY_DTYPE`,
 `FLOW_STATS_DTYPE`, `FLOW_EVENT_DTYPE`, `DNS_REC_DTYPE`, `DROPS_REC_DTYPE`,
-`XLAT_REC_DTYPE`, `EXTRA_REC_DTYPE`, `QUIC_REC_DTYPE` and the functions
-`decode_flow_events`, `encode_flow_events`, `events_from_keys_stats`), kept
-as a copy so the port imports nothing of the JAX package. The layouts are
+`NEVENTS_REC_DTYPE`, `XLAT_REC_DTYPE`, `EXTRA_REC_DTYPE`, `QUIC_REC_DTYPE`
+and the functions `decode_flow_events`, `encode_flow_events`,
+`events_from_keys_stats`), kept as a copy so the port imports nothing of
+the JAX package. The layouts are
 the eBPF datapath's structs (`netobserv_tpu/datapath/bpf/records.h`),
 native-endian and naturally aligned; a CPU test pins every dtype against
 the reference's.
@@ -14,7 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from netobserv_tpu_torch.model.flow import MAX_OBSERVED_INTERFACES
+from netobserv_tpu_torch.model.flow import (
+    MAX_EVENT_MD, MAX_NETWORK_EVENTS, MAX_OBSERVED_INTERFACES,
+)
 
 # flow key: C struct no_flow_key (40 bytes)
 FLOW_KEY_DTYPE = np.dtype([
@@ -95,6 +98,18 @@ DROPS_REC_DTYPE = np.dtype([
     ("pad0", "u1", 3),
 ])
 assert DROPS_REC_DTYPE.itemsize == 32, DROPS_REC_DTYPE.itemsize
+
+NEVENTS_REC_DTYPE = np.dtype([
+    ("first_seen_ns", "u8"),
+    ("last_seen_ns", "u8"),
+    ("events", "u1", (MAX_NETWORK_EVENTS, MAX_EVENT_MD)),
+    ("bytes", "u2", MAX_NETWORK_EVENTS),
+    ("packets", "u2", MAX_NETWORK_EVENTS),
+    ("eth_protocol", "u2"),
+    ("n_events", "u1"),
+    ("pad0", "u1", 5),
+])
+assert NEVENTS_REC_DTYPE.itemsize == 72, NEVENTS_REC_DTYPE.itemsize
 
 XLAT_REC_DTYPE = np.dtype([
     ("first_seen_ns", "u8"),

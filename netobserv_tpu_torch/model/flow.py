@@ -2,8 +2,9 @@
 
 Counterpart of `netobserv_tpu/model/flow.py` (`Direction`, `TcpFlags`,
 `classify_tcp_flags`, `GlobalCounter`, `FlowKey`, `FlowFeatures`,
-`ip_from_16`, `ip_to_16`, `MAX_OBSERVED_INTERFACES`), kept as a copy so
-the port imports nothing of the JAX package.
+`ip_from_16`, `ip_to_16`, `MAX_OBSERVED_INTERFACES`, `MAX_NETWORK_EVENTS`,
+`MAX_EVENT_MD`), kept as a copy so the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,6 +18,10 @@ IP_LEN = 16  # all addresses stored as 16B; IPv4 as ::ffff:a.b.c.d
 IP4_IN_6_PREFIX = b"\x00" * 10 + b"\xff\xff"
 #: interfaces a flow record lists (the datapath's NO_MAX_OBSERVED_INTERFACES)
 MAX_OBSERVED_INTERFACES = 6
+#: network events a flow keeps, and the metadata bytes of each (the
+#: datapath's MAX_NETWORK_EVENTS and MAX_EVENT_MD)
+MAX_NETWORK_EVENTS = 4
+MAX_EVENT_MD = 8
 
 
 class Direction(enum.IntEnum):

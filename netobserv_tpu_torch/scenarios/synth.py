@@ -1,8 +1,8 @@
 """Deterministic packet/pcap synthesis for the scenario zoo.
 
 A copy of `netobserv_tpu/scenarios/synth.py` (lines 1-133); the port's
-tests and `chip_smoke.py` build their pcaps with it (the zoo and its
-runner are not ported).
+scenario zoo (`scenarios/zoo.py`), its tests and `chip_smoke.py` build
+their pcaps with it.
 
 Everything is seed-free and arithmetic: a scenario built twice produces
 byte-identical pcaps, so detection-quality assertions never chase RNG

@@ -166,6 +166,34 @@ def test_validate_refuses_unported_features(name, env_name):
         cfg.validate()
 
 
+def test_validate_accepts_the_ringbuf_fallback_and_the_agent_builds_it():
+    """ENABLE_FLOWS_RINGBUF_FALLBACK, once refused, is ported: both
+    packages' `validate` take it, and the port's agent builds the tracer
+    and the accounter, registered with its supervisor."""
+    from netobserv_tpu_torch.agent import FlowsAgent
+    from netobserv_tpu_torch.datapath.fetcher import FakeFetcher
+    from netobserv_tpu_torch.flow import Accounter, RingBufTracer
+
+    class Collect:
+        name = "collect"
+
+        def export_batch(self, records):
+            pass
+
+    env = {"EXPORT": "tpu-sketch", "ENABLE_FLOWS_RINGBUF_FALLBACK": "true"}
+    jcfg.load_config(env).validate()
+    cfg = tcfg.load_config(env)
+    cfg.validate()
+    assert cfg.enable_flows_ringbuf_fallback
+    assert "enable_flows_ringbuf_fallback" not in [n for n, _, _ in
+                                                   tcfg._UNPORTED]
+    agent = FlowsAgent(cfg, FakeFetcher(), Collect())
+    assert isinstance(agent.rb_tracer, RingBufTracer)
+    assert isinstance(agent.accounter, Accounter)
+    assert {"accounter", "ringbuf-tracer"} <= set(
+        agent.supervisor.snapshot())
+
+
 @pytest.mark.parametrize("env", [
     {}, {"SKETCH_TIERED": "yes", "SKETCH_TIER_MID_GROUP": "16",
          "SKETCH_TIER_TOP_GROUP": "512", "SKETCH_TIER_BYTES_UNIT": "64",

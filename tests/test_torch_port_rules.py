@@ -55,7 +55,10 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "datapath/replay.py", "model/packet_record.py",
                  "scenarios/synth.py", "agent/agent.py", "__main__.py",
                  "sketch/tenancy.py", "parallel/mesh.py",
-                 "parallel/merge.py", "parallel/distributed.py")
+                 "parallel/merge.py", "parallel/distributed.py",
+                 "model/accumulate.py", "flow/ringbuf_tracer.py",
+                 "flow/accounter.py", "scenarios/zoo.py",
+                 "scenarios/runner.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
