@@ -14,9 +14,10 @@ C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
 the launch floor (one `nvcc` per source, all started together), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives five
-paths through `TorchSketchExporter` at the default geometry (and five
-planes on the lanes path after them: the window thread, the query,
-federation and archive planes and overload control), each with the
+paths through `TorchSketchExporter` at the default geometry (and six
+planes on the lanes path after them: the fused drain's seam, the window
+thread, the query, federation and archive planes and overload control),
+each with the
 launch counts set to 0 just before it and read just after:
 
 - the wide main path, `SketchConfig()` through the dense feed
@@ -47,6 +48,39 @@ launch counts set to 0 just before it and read just after:
   evictions took the pending buffer's direct path; it prints records/s,
   pack and ingest seconds per 16,384 records, the lanes and
   `os.cpu_count()`;
+- the fused drain's seam (`fused_drain`, ROADMAP A7: `datapath/loader`'s
+  gate, `csrc/flowpack.cc` `fp_drain_to_resident`,
+  `ShardedResidentStagingRing.fold_packed`), at the lanes path's
+  geometry (LANES_KW) on the integer copy of its stream
+  (`_integer_stream`), cut as `_stream_evictions` cuts it, 2 windows x
+  32 x 16,384 records. Each eviction becomes a drain's injected maps
+  (`_split_maps`: the aggregation map and per-CPU extra, DNS and drop
+  maps at FD_CPUS CPUs whose integer partials merge to the records'
+  values, about FD_ORPHANS of the feature rows orphans), drained by a
+  `NativeEvictPipeline` over a duck-typed fetcher (fd < 0, FD_LANES
+  lanes) bound to the exporter's `resident_pack_surface()`: drain 1 runs
+  the Python chain (`decode_eviction`), every later drain is fused and
+  rides `export_evicted` with `packed`. Three runs: the raw chain (the
+  Python chain into the unfused lanes ring) and the fused one, each
+  timed over window 0 and profiled over window 1 (the device's busy
+  share), their launches a fold's per dispatch (no kernel falls back:
+  no plain version runs), one capture a ladder entry and no retrace;
+  then a checked run, a fused exporter beside a raw twin of its
+  settings: each fused drain's events and features byte for byte
+  against the Python chain of the same maps, each arena byte for byte
+  against the twin ring's own pack of the same rows (`_ShipRecorder`),
+  both windows' pre-roll tables bit for bit, and one raw fold between a
+  pack and its ship (the arena discarded for its stale epoch,
+  `outstanding` back to 0, its rows refolded raw, the twin's
+  dictionaries given the same epoch roll). It prints records/s fused
+  and raw, host ms per 16,384 records in the chain (to the eviction in
+  hand, less the injection of the rows, the stand-in for the kernel
+  drain's copy, printed apart) and in `export_evicted`, the native
+  call's split into drain,
+  merge, join and pack (`decode_stats["native"]`) against the raw
+  chain's merge and align and its ring's pack, `fold_packed` ms, the
+  busy share, the lanes, `os.cpu_count()`, spill rows, dictionary
+  resets and segments;
 - the window thread (`window_thread`), the lanes path's exporter with its
   window thread on (`window_s` = WINDOW_S), a metrics registry where
   `prometheus_client` imports, tracing at sample 1.0 and a sink that
@@ -314,7 +348,11 @@ launch counts set to 0 just before it and read just after:
   rolls' time), the router's host ms per 16,384 rows (`route` and the
   per-tenant selection), the roll's lock hold and each `roll()`'s
   seconds (the publish of 8 reports and frames included), and the
-  stacked dispatches;
+  stacked dispatches. (c) Fault C14's record path (`_record_path`):
+  C14_RECORDS integer-mass records of the lanes stream through
+  `export_batch` of a tenants=TN_EXP_N exporter on the card and on the
+  CPU, every tenant's tables bit for bit, the reports' records and
+  bytes equal; it prints the card's ms per 16,384 records;
 - the mesh (`mesh`, `parallel/`: one process drives a (data, sketch)
   grid of devices, each shard folding its rows into its own partial, the
   cross-shard merge at the roll), on MESH_SLOTS devices taken round robin
@@ -347,7 +385,9 @@ launch counts set to 0 just before it and read just after:
   lanes-path agents (the integer-mass stream split by a seeded owner), 2
   windows: every cluster window's CM planes and totals bit for bit; it
   prints `ingest_frame` p50, each flush's ms and the heavy tables'
-  identity overlap. The path keys `mesh_4x1`, `mesh_2x2`,
+  identity overlap. (d) Fault C14's record path (`_record_path`) on a
+  4x1 and a 1x2 mesh, every shard's leaves (`dist_tables`) bit for bit
+  against the same mesh on the CPU. The path keys `mesh_4x1`, `mesh_2x2`,
   `mesh_exporter` (over its shard folds) and `mesh_aggregator` (the
   agents' folds) join the `kernels` line's `launches_by_path`, and kernel
   5's `launches` is its 2x2 count;
@@ -2504,6 +2544,430 @@ def _window_recall(words, valid, evictions, ranks, nbytes, universe,
     got = {tuple(w) for w, v in zip(np.asarray(words, np.uint32),
                                     np.asarray(valid)) if v}
     return sum(tuple(universe[t]) in got for t in top) / k
+
+
+#: the fused_drain phase (module docstring, `fused_drain`): the gate's
+#: drain lanes, the per-CPU images of each feature map, the share of
+#: feature rows that are orphans, the feature maps, and the eviction of
+#: window 1 whose pack the stale-epoch check holds back
+FD_LANES = 4
+FD_CPUS = 8
+FD_ORPHANS = 0.02
+FD_KINDS = ("extra", "dns", "drops")
+FD_SEED = 21
+
+
+def _split_maps(rng, events, feats) -> list:
+    """An eviction as a drain's injected maps: [(keys (n, 40) u8, values
+    (n, n_cpus) records)], the aggregation map (the stats, one CPU) first,
+    then each of FD_KINDS at FD_CPUS CPUs, whose partials merge to the
+    row's record (the drop counters split over the CPUs at seeded cuts,
+    every other field the record's on each CPU), about FD_ORPHANS of its
+    rows under a key the aggregation map lacks (its pad byte set)."""
+    import numpy as np
+    n = len(events)
+    keys = np.ascontiguousarray(events["key"]).view(np.uint8).reshape(n, 40)
+    maps = [(keys, np.ascontiguousarray(events["stats"])[:, None])]
+    for kind in FD_KINDS:
+        rec = np.ascontiguousarray(feats[kind])
+        fk = keys.copy()
+        orphan = rng.random(n) < FD_ORPHANS
+        fk[orphan, 39] = 0xA5
+        parts = np.repeat(rec[:, None], FD_CPUS, axis=1)
+        if kind == "drops":
+            for col in ("bytes", "packets"):
+                total = rec[col].astype(np.int64)
+                cut = np.sort((rng.random((n, FD_CPUS - 1))
+                               * (total[:, None] + 1)).astype(np.int64),
+                              axis=1)
+                edges = np.concatenate([np.zeros((n, 1), np.int64), cut,
+                                        total[:, None]], axis=1)
+                parts[col] = np.diff(edges, axis=1)
+        maps.append((fk, np.ascontiguousarray(parts)))
+    return maps
+
+
+class _InjectedMaps:
+    """The kernel fetchers' duck type (`datapath/loader.py` module
+    docstring) over injected maps (fd < 0), with the gate's binding hook:
+    `drain(maps)` is one drain of `maps`, fused once the gate is engaged
+    (its rows injected into the pipe first, outside the drain's time),
+    else through the port's Python chain (`decode_eviction`)."""
+
+    def __init__(self, lanes: int):
+        from netobserv_tpu_torch.datapath import flowpack, loader
+
+        class Map:
+            def __init__(self, dtype, n_cpus):
+                self.fd, self.n_cpus, self.max_entries = -1, n_cpus, 1 << 20
+                self._no_batch_ops, self._pad_vs = False, dtype.itemsize
+
+        self._loader = loader
+        self._agg = Map(flowpack.PIPE_DTYPES["stats"], 1)
+        self._features = {k: (Map(flowpack.PIPE_DTYPES[k], FD_CPUS),
+                              flowpack.PIPE_DTYPES[k]) for k in FD_KINDS}
+        self.gate = loader.NativeEvictPipeline(self, lanes)
+        #: seconds spent injecting rows (the stand-in for the kernel
+        #: drain's copy, which the native call's drain stage then skips)
+        self.inject_s = 0.0
+
+    def bind_pack_surface(self, surface) -> None:
+        self.gate.bind_pack_surface(surface)
+
+    def python_chain(self, maps):
+        return self._loader.decode_eviction(
+            maps[0][0], maps[0][1],
+            {k: maps[i + 1] for i, k in enumerate(FD_KINDS)})
+
+    def drain(self, maps):
+        from netobserv_tpu_torch.utils import tracing
+        gate = self.gate
+        if gate._drains and not gate.disabled and (
+                gate._pipe is not None or gate._build()):
+            t0 = time.perf_counter()
+            for i, (k, v) in enumerate(maps):
+                gate._pipe.set_drained(i, k, v)
+            self.inject_s += time.perf_counter() - t0
+        out = gate.drain(tracing.NULL_TRACE, time.perf_counter())
+        return out if out is not None else self.python_chain(maps)
+
+
+class _ShipRecorder:
+    """On a lane ring: every slot zeroed when it is taken (as a fresh
+    ring's are, so an exhausted region's unread words compare too), and
+    every image it ships kept in `images`."""
+
+    def __init__(self, ring):
+        self.images: list = []
+        wait, ship = ring._wait_slot, ring._ship
+
+        def wait_slot(*a):
+            slot = wait(*a)
+            ring._bufs[slot][:] = 0
+            return slot
+
+        def ship_slot(slot, words=None):
+            self.images.append(ring._bufs[slot][:words].copy())
+            return ship(slot, words)
+
+        ring._wait_slot, ring._ship = wait_slot, ship_slot
+
+
+def _fd_exporter():
+    """The lanes path's exporter (LANES_KW, default geometry), its ring
+    and ladder captured, and its pack surface."""
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.sketch import state as sk
+    exp = TorchSketchExporter(sk.SketchConfig(), batch_size=BATCH,
+                              sink=_discard, **LANES_KW)
+    surface = exp.resident_pack_surface()
+    check(surface is not None and exp.ring.lanes == 8,
+          "the lanes exporter offers no pack surface")
+    return exp, surface
+
+
+def _unpacked(ev):
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+    return EvictedFlows(ev.events, **{k: getattr(ev, k) for k in FD_KINDS})
+
+
+def _fd_timed(specs, windows: list, fused: bool) -> dict:
+    """One timed run over `windows` (each a list of an eviction's maps):
+    the fused gate into a fresh exporter, or the Python chain into
+    another; window 0 on the wall clock, window 1 under torch.profiler
+    (the device's busy share); the launches, captures and retraces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from netobserv_tpu_torch.utils import retrace
+    exp, surface = _fd_exporter()
+    maps_in = _InjectedMaps(FD_LANES)
+    if fused:
+        maps_in.bind_pack_surface(surface)
+    captures0 = [c.captures for c in exp.captures]
+    retraces0 = retrace.total_retraces()
+    torch.cuda.synchronize()
+    for s in specs:
+        s["kernel"].launches = 0
+    folds0 = exp.folds
+    walls, busy, native, segs = [], None, {}, 0
+    chain_s = export_s = packed_s = 0.0
+    decode = {"merge_s": 0.0, "align_s": 0.0}
+    pack0 = exp.ring.pack_seconds
+    try:
+        for w, window in enumerate(windows):
+            prof = profile(activities=[ProfilerActivity.CUDA]) if w else None
+            if prof is not None:
+                prof.__enter__()
+            t0 = time.perf_counter()
+            for maps in window:
+                t1, inj = time.perf_counter(), maps_in.inject_s
+                ev = maps_in.drain(maps) if fused else \
+                    maps_in.python_chain(maps)
+                chain_s += time.perf_counter() - t1 - (maps_in.inject_s
+                                                       - inj)
+                st = ev.decode_stats
+                for k, v in (st.get("native") or {}).items():
+                    native[k] = native.get(k, 0.0) + v
+                if "native" not in st:
+                    for k in decode:
+                        decode[k] += st[k]
+                packed = ev.packed is not None
+                if packed:
+                    segs += ev.packed.segs
+                t1 = time.perf_counter()
+                exp.export_evicted(ev)
+                export_s += time.perf_counter() - t1
+                if packed:
+                    packed_s += time.perf_counter() - t1
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                rows = _device_rows(prof)
+                check(rows, "the profiler saw no device time")
+                busy = sum(r[0] for r in rows) / 1e6 / walls[-1]
+            exp.roll()
+        torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        folds = exp.folds - folds0
+        check(launches == _want_launches(specs, "lanes", folds),
+              f"fused={fused}: launches {launches} for {folds} folds")
+        check([c.captures for c in exp.captures] == captures0
+              and [c.captures for c in exp.ring.captures] == [1, 1, 1]
+              and retrace.total_retraces() == retraces0,
+              f"fused={fused}: captures {captures0} -> "
+              f"{[c.captures for c in exp.captures]}, retraces")
+        ring = exp.ring
+        _check_watch({"watch": _watch_stats(exp)},
+                     {f"fold_resident_lanes_x{k}": n
+                      for k, n in ring.superbatch_folds.items()})
+        rows = sum(len(m[0][0]) for win in windows for m in win)
+        per = BATCH / rows * 1e3  # ms per 16,384 records per second
+        return {"records_per_s": [
+                    sum(len(m[0][0]) for m in win) / wl
+                    for win, wl in zip(windows, walls)],
+                "wall_s": walls, "device_busy_share_window1": busy,
+                "host_ms_per_16384": (
+                    {k[:-2]: v * per for k, v in native.items()}
+                    if fused else {k[:-2]: v * per
+                                   for k, v in decode.items()}),
+                "ring_pack_ms_per_16384": (ring.pack_seconds - pack0) * per,
+                "fold_packed_ms_per_16384": packed_s * per if fused else None,
+                "chain_ms_per_16384": chain_s * per,
+                "inject_ms_per_16384": maps_in.inject_s * per,
+                "export_ms_per_16384": export_s * per,
+                "folds": folds, "launches": launches,
+                "superbatch_folds": {str(k): v for k, v in
+                                     sorted(ring.superbatch_folds.items())},
+                "spill_rows": ring.spill_rows,
+                "dict_resets": ring.dict_resets, "segs": segs,
+                "fused_drains": maps_in.gate._drains - 1 if fused else 0,
+                "rows": rows}
+    finally:
+        exp.close()
+        maps_in.gate.close()
+
+
+def phase_fused_drain(specs, events, card: str) -> dict:
+    """The fused drain's seam on the card (module docstring,
+    `fused_drain`)."""
+    import os
+    import numpy as np
+    t_phase = time.perf_counter()
+    ev_all, lanes_all = _integer_stream(events)
+    gen = _stream_evictions(len(ev_all))
+    cuts = []
+    for _ in range(WINDOWS):
+        cut, end = [], 0
+        while end < len(ev_all):
+            lo, end = next(gen)
+            cut.append((lo, end))
+        cuts.append(cut)
+    rng = np.random.default_rng(FD_SEED)
+    windows = [[_split_maps(rng, ev_all[lo:hi],
+                            {k: lanes_all[k][lo:hi] for k in FD_KINDS})
+                for lo, hi in cut] for cut in cuts]
+    t_maps = time.perf_counter() - t_phase
+    plains: dict = {}
+    with counting_plains(specs, plains):
+        raw_run = _fd_timed(specs, windows, fused=False)
+        fused_run = _fd_timed(specs, windows, fused=True)
+        checks = _fd_checked(windows, cuts)
+    check(not plains, f"plain versions ran {plains}")
+    check(fused_run["fused_drains"] == sum(map(len, windows)) - 1,
+          f"{fused_run['fused_drains']} fused drains")
+    return {"phase": "fused_drain", "card": card, "lanes": FD_LANES,
+            "cpu_count": os.cpu_count(), "n_cpus": FD_CPUS,
+            "orphan_share": FD_ORPHANS, "evictions": sum(map(len, cuts)),
+            "eviction_rows": [hi - lo for lo, hi in cuts[0]][:8],
+            "maps_build_s": t_maps, "fused": fused_run, "raw": raw_run,
+            "records_per_s_fused_over_raw": (
+                fused_run["records_per_s"][0] / raw_run["records_per_s"][0]),
+            "checks": checks, "launches": fused_run["launches"],
+            "raw_launches": raw_run["launches"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _fd_checked(windows: list, cuts: list) -> dict:
+    """The checked run: a fused exporter and a raw twin of its settings in
+    lock step over `windows`. Each fused drain's events and features
+    against the Python chain of the same maps, byte for byte; each arena
+    against the twin's ring's pack of the same rows (`_ShipRecorder`),
+    byte for byte, every row of the twin's pending buffer folded first
+    (a fused eviction ships at once, its last partial batch too); at the
+    first eviction of window 1 with a whole batch after it, that
+    eviction's arena held back while the next folds raw (the twin's
+    dictionaries take the same epoch roll), then discarded for its stale
+    epoch and its rows folded raw; every window's pre-roll tables bit for
+    bit."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.sketch import state as sk
+    fexp, surface = _fd_exporter()
+    twin, tsurface = _fd_exporter()
+    rec = _ShipRecorder(twin.ring)
+    maps_in = _InjectedMaps(FD_LANES)
+    maps_in.bind_pack_surface(surface)
+    out = {"drains_checked": 0, "arenas_checked": 0, "stale_discards": 0,
+           "windows_bit_equal": 0, "arena_words": 0}
+
+    def drain_both():
+        for x in (fexp, twin):
+            with x._lock:
+                x._drain_pending()
+
+    def one(maps, hold=False):
+        if maps_in.gate._drains and len(fexp.pending):
+            drain_both()  # before the pack: a raw fold after it stales it
+        ev = maps_in.drain(maps)
+        want = maps_in.python_chain(maps)
+        check(ev.events.tobytes() == want.events.tobytes()
+              and all(getattr(ev, k).tobytes() == getattr(want, k).tobytes()
+                      for k in FD_KINDS),
+              "a fused drain's events or features differ from the Python "
+              "chain's")
+        out["drains_checked"] += 1
+        if hold:
+            return ev
+        export(ev)
+
+    def export(ev):
+        packed = ev.packed
+        shipped = packed is not None and packed.epoch == surface.epoch
+        arena = packed.arena.copy() if shipped else None
+        rec.images.clear()
+        twin.export_evicted(_unpacked(ev))
+        if shipped:
+            with twin._lock:
+                twin._drain_pending()
+            got = np.concatenate(rec.images) if rec.images else None
+            check(got is not None and got.tobytes() == arena.tobytes(),
+                  "a fused arena differs from the ring's own pack of its "
+                  "rows")
+            out["arenas_checked"] += 1
+            out["arena_words"] += len(arena)
+        fexp.export_evicted(ev)
+
+    try:
+        for w, window in enumerate(windows):
+            i = 0
+            stale_at = (next(j for j in range(len(window) - 1)
+                             if len(window[j + 1][0][0]) >= BATCH)
+                        if w == 1 else None)
+            while i < len(window):
+                if i == stale_at:
+                    held = one(window[i], hold=True)
+                    check(held.packed is not None
+                          and surface.outstanding == 1,
+                          "no arena outstanding to hold")
+                    arena = held.packed
+                    tsurface.outstanding += 1  # the twin's epoch roll
+                    raw = maps_in.python_chain(window[i + 1])
+                    twin.export_evicted(_unpacked(raw))
+                    fexp.export_evicted(raw)
+                    check(surface.outstanding == 0 and surface.epoch
+                          == tsurface.epoch == 1, "the raw fold did not "
+                          "roll the surface's epoch")
+                    twin.export_evicted(_unpacked(held))
+                    fexp.export_evicted(held)
+                    check(arena.arena is None and held.packed is None,
+                          "the stale arena was not freed")
+                    out["stale_discards"] += 1
+                    i += 2
+                    continue
+                one(window[i])
+                i += 1
+            drain_both()
+            got, want = (sk.state_tables(x.state) for x in (fexp, twin))
+            diff = [k for k in want if not np.array_equal(got[k], want[k])]
+            check(not diff, f"window {w}: tables {diff} differ from the "
+                  "raw twin's")
+            out["windows_bit_equal"] += 1
+            check(fexp.records == twin.records, "records differ")
+            fexp.roll()
+            twin.roll()
+        torch.cuda.synchronize()
+        check(fexp.ingest_errors == twin.ingest_errors == 0, "ingest errors")
+        out["fused_folds"], out["twin_folds"] = fexp.folds, twin.folds
+        return out
+    finally:
+        fexp.close()
+        twin.close()
+        maps_in.gate.close()
+
+
+#: fault C14's check on the card: integer-mass records a mode
+C14_RECORDS = 20_000
+C14_CHUNK = 1_000
+
+
+def _record_path(specs, events, make, read) -> dict:
+    """Fault C14's check: C14_RECORDS integer-mass records of the lanes
+    stream through `export_batch` (C14_CHUNK a call) of the exporter
+    `make(device)` builds on the card and on the CPU; the card's tables
+    (`read(exp)`, after the pending records fold) bit for bit against the
+    CPU's, the rolled reports' records and bytes equal, no plain version
+    on the card; the card's ms per 16,384 records."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.model.record import records_from_events
+    ev = _integer_stream(events)[0][:C14_RECORDS]
+    recs = records_from_events(ev)
+    out = {}
+    tables, reports = {}, {}
+    for where in ("card", "cpu"):
+        exp = make(where)
+        plains: dict = {}
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting_plains(specs, plains):
+                for lo in range(0, len(recs), C14_CHUNK):
+                    exp.export_batch(recs[lo:lo + C14_CHUNK])
+                with exp._lock, exp._on_device():
+                    exp._drain_pending()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                tables[where] = read(exp)
+            if where == "card":
+                check(not plains, f"record path: plain versions ran {plains}")
+                out["ms_per_16384"] = wall * 1e3 * BATCH / len(recs)
+                out["folds"] = exp.folds
+            reports[where] = exp.roll()
+        finally:
+            exp.close()
+    a, b = tables["card"], tables["cpu"]
+    diff = [k for k in b if not np.array_equal(a[k], b[k])]
+    check(a.keys() == b.keys() and not diff,
+          f"record path: tables {diff} differ from the CPU's")
+    ra, rb = ([(r["Records"], r["Bytes"]) for r in
+               (x if isinstance(x, list) else [x])] for x in
+              (reports["card"], reports["cpu"]))
+    check(ra == rb and sum(r for r, _ in ra) == len(recs),
+          f"record path reports {ra} / {rb}")
+    out.update({"records": len(recs), "tables_bit_equal_cpu": len(b),
+                "bytes": float(ev["stats"]["bytes"].sum())})
+    return out
 
 
 def phase_window_thread(specs, universe, pool, events) -> dict:
@@ -5425,10 +5889,12 @@ def _rb_events(rng):
 
 
 def _key_sums(keys, nbytes, npkts) -> dict:
-    """40-byte key -> (bytes, packets) summed over rows."""
+    """Key bytes (a row of `keys`: flow keys or their packed words) ->
+    (bytes, packets) summed over rows."""
     import numpy as np
-    kv = np.ascontiguousarray(keys).view(f"V{keys.dtype.itemsize}")
-    uniq, inv = np.unique(kv, return_inverse=True)
+    kv = np.ascontiguousarray(keys).view(np.uint8).reshape(len(keys), -1)
+    uniq, inv = np.unique(kv, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
     b = np.bincount(inv, weights=nbytes.astype(np.float64))
     p = np.bincount(inv, weights=npkts.astype(np.float64))
     return {u.tobytes(): (int(x), int(y)) for u, x, y in zip(uniq, b, p)}
@@ -5446,6 +5912,7 @@ def phase_ringbuf(specs, card: str) -> dict:
     from netobserv_tpu_torch.datapath.fetcher import FakeFetcher
     from netobserv_tpu_torch.exporter import torch_sketch
     from netobserv_tpu_torch.metrics.registry import Metrics, MetricsSettings
+    from netobserv_tpu_torch.model.columnar import pack_key_words
     from netobserv_tpu_torch.sketch import state as sk
     t_phase = time.perf_counter()
     ev = _rb_events(np.random.default_rng(RB_SEED))
@@ -5532,11 +5999,9 @@ def phase_ringbuf(specs, card: str) -> dict:
     check(launches == want and all(launches[n] for n, v in want.items()
                                    if v),
           f"launches {launches}, want {want}")
-    ev_rec = torch_sketch._records_to_evicted(
-        [r for b in batches for r in b]).events
-    got = _key_sums(ev_rec["key"], ev_rec["stats"]["bytes"],
-                    ev_rec["stats"]["packets"])
-    check(got == _key_sums(ev["key"], ev["stats"]["bytes"],
+    rec = torch_sketch._records_to_arrays([r for b in batches for r in b])
+    got = _key_sums(rec["keys"], rec["bytes"], rec["packets"])
+    check(got == _key_sums(pack_key_words(ev["key"]), ev["stats"]["bytes"],
                            ev["stats"]["packets"]),
           "the accounter's per-flow bytes and packets differ from the "
           "injected sums")
@@ -6058,9 +6523,19 @@ def phase_tenants(specs, events, card: str) -> dict:
           f"{trun['launches']}, want {twant}")
     check([r["Records"] for r in trun["reports"][0]] == list(per_tenant),
           "tiered records")
+    # fault C14: the record path in tenant mode
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    records = _record_path(
+        specs, events,
+        lambda where: TorchSketchExporter(
+            cfg, batch_size=BATCH, tenants=TN_EXP_N, sink=_discard,
+            device=None if where == "card" else "cpu"),
+        lambda exp: {f"{t}.{k}": v
+                     for t, tab in enumerate(exp.state_tables())
+                     for k, v in tab.items()})
     holds = run["holds_ms"]
     return {"phase": "tenants", "card": card, "ladder": ladder,
-            "recall": recall,
+            "recall": recall, "record_path": records,
             "exporter": {
                 "tenants": TN_EXP_N, "batch": BATCH,
                 "windows": TN_EXP_WINDOWS, "records_fed": run["rows"],
@@ -6545,9 +7020,24 @@ def phase_mesh(specs, universe, pool, dense, events, main_res,
                                     main_res)
     exp_res, exp_launches = _mesh_exporter(specs, events, devices)
     agg_res, agg_launches = _mesh_aggregator(specs, events, devices)
+    # fault C14: the record path on a 4x1 and a 1x2 mesh
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.parallel import merge as pmerge
+    from netobserv_tpu_torch.sketch import state as sk
+    records = {}
+    for shape in ("4x1", "1x2"):
+        n = 4 if shape == "4x1" else 2
+        records[shape] = _record_path(
+            specs, events,
+            lambda where, _s=shape, _n=n: TorchSketchExporter(
+                sk.SketchConfig(), batch_size=BATCH, mesh_shape=_s,
+                devices=(devices[:_n] if where == "card"
+                         else ["cpu"] * _n), sink=_discard),
+            lambda exp: pmerge.dist_tables(exp.state))
     return {"phase": "mesh", "card": card,
             "device_count": torch.cuda.device_count(), "devices": devices,
             "ingest": ingest, "exporter": exp_res, "aggregator": agg_res,
+            "record_path": records,
             "launches": {"mesh_4x1": launches["4x1"],
                          "mesh_2x2": launches["2x2"],
                          "mesh_exporter": exp_launches,
@@ -7177,6 +7667,9 @@ def main() -> int:
         phase = "lanes_path"
         lanes_res = phase_lanes_path(specs, universe, pool, events)
         emit(lanes_res)
+        phase = "fused_drain"
+        fd_res = phase_fused_drain(specs, events, dev["nvidia_smi"])
+        emit(fd_res)
         phase = "window_thread"
         wt_res = phase_window_thread(specs, universe, pool, events)
         emit(wt_res)
@@ -7238,6 +7731,8 @@ def main() -> int:
     launches = {"wide": main_res["launches"], "tiered": tier_res["launches"],
                 "resident": res_res["launches"],
                 "lanes": lanes_res["launches"],
+                "fused_drain": fd_res["launches"],
+                "fused_drain_raw": fd_res["raw_launches"],
                 "window_thread": wt_res["launches"],
                 "query_plane": qp_res["launches"],
                 "federation": fed_res["launches"],

@@ -15,13 +15,16 @@ Left out, each refused by `config.AgentConfig.validate` when asked for
 (ROADMAP A8): SSL correlation and tracing (ENABLE_OPENSSL_TRACKING), so
 the accounter takes no SSL correlator; UDN mapping (ENABLE_UDN_MAPPING),
 the OVN network-events decoder (ENABLE_NETWORK_EVENTS_MONITORING), kernel
-flow filters (FLOW_FILTER_RULES, `program_filters`), the fused drain's
-pack surface (EVICT_NATIVE_PIPELINE, `bind_pack_surface`) and the bpfman
-datapath; and the interface listener, which only the kernel fetchers ask
-for (`needs_iface_discovery`). `build_fetcher` knows `DATAPATH=synthetic`
-and `DATAPATH=pcap:<file>`; every other value, unset and `auto` among
-them, raises `ValueError` naming ROADMAP A8, where the reference loads a
-kernel datapath or falls back to synthetic replay.
+flow filters (FLOW_FILTER_RULES, `program_filters`), the fused native
+drain (EVICT_NATIVE_PIPELINE, which only the kernel fetchers build, A8.4)
+and the bpfman datapath; and the interface listener, which only the
+kernel fetchers ask for (`needs_iface_discovery`). The fused drain's
+binding is here (`:120-131`): a fetcher with `bind_pack_surface` is given
+the exporter's `resident_pack_surface()` where that is not None.
+`build_fetcher` knows `DATAPATH=synthetic` and `DATAPATH=pcap:<file>`;
+every other value, unset and `auto` among them, raises `ValueError`
+naming ROADMAP A8, where the reference loads a kernel datapath or falls
+back to synthetic replay.
 """
 
 from __future__ import annotations
@@ -108,6 +111,16 @@ class FlowsAgent:
             # fleet telemetry: a sketch exporter records the last drain's
             # occupancy so its delta frames carry it
             occupancy_sink=getattr(exporter, "note_map_occupancy", None))
+        # the fused drain (reference `agent.py:120-131`): where the fetcher
+        # runs one (`bind_pack_surface`) and the exporter's ring takes
+        # pre-packed regions (`resident_pack_surface`), the drain packs
+        # them with the ring's dictionaries
+        bind = getattr(fetcher, "bind_pack_surface", None)
+        surface_of = getattr(exporter, "resident_pack_surface", None)
+        if bind is not None and surface_of is not None:
+            surface = surface_of()
+            if surface is not None:
+                bind(surface)
         self.limiter = CapacityLimiter(
             self._evicted_q, self._export_q, metrics=self.metrics)
         self.terminal = QueueExporter(

@@ -405,7 +405,7 @@ _UNPORTED = (
     ("ebpf_program_manager_mode", "EBPF_PROGRAM_MANAGER_MODE",
      "the bpfman datapath"),
     ("evict_native_pipeline", "EVICT_NATIVE_PIPELINE",
-     "the fused native drain pipeline"),
+     "the fused native drain pipeline on the kernel fetchers' maps"),
 )
 
 

@@ -1,32 +1,50 @@
-// flowpack.cc: the host packers of the dense, compact and resident feeds
-// in C++ (host code, not a kernel; built with g++ by
-// ops/kernels/_build.build_host and loaded with ctypes by
-// datapath/flowpack.py).
+// flowpack.cc: the host side of the resident feed in C++ (host code, not
+// a kernel; built with g++ by ops/kernels/_build.build_host and loaded
+// with ctypes by datapath/flowpack.py): the packers of the dense, compact
+// and resident feeds, the per-CPU merges and the fused drain pipeline.
 //
-// The port's trimmed copy of the reference's native packer,
+// The port's copy of the reference's native library,
 // netobserv_tpu/datapath/native/flowpack.cc: feature_markers and
 // fill_feature_words (:97-139), fp_pack_dense (:140-178), the compact
 // layout, is_v4_mapped and fp_pack_compact (:180-274), the FP_* layout
 // constants (:95, :311-315), the fingerprint dictionary key_fp64 /
-// fp_dict_* (:317-404), make_kw, rtt_code11 and lat_code16 (:406-430)
-// and fp_pack_resident (:432-570). The per-CPU merges, CRC32C and the
-// fused drain are not here. Three entries are the port's own:
-// fp_struct_sizes and fp_layout_words, which the loader holds against
-// model/binfmt's dtypes and datapath/flowpack.py's layout constants, and
-// fp_dict_lookup, which the checks use to read the dictionary.
+// fp_dict_* (:317-404), make_kw, rtt_code11 and lat_code16 (:406-430),
+// fp_pack_resident (:432-570), the per-CPU merges fp_merge_stats ...
+// fp_merge_quic with their _batch forms (:572-835),
+// fp_events_from_keys_stats (:837-848) and the fused drain pipeline
+// fp_pipe_* / fp_drain_to_resident (:918-1576), whose pack stage calls
+// fp_pack_resident above, so there is one resident layout. CRC32C
+// (:850-916) is not here: the port's kafka/wire computes its checksum in
+// Python. Three entries are the port's own: fp_struct_sizes and
+// fp_layout_words, which the loader holds against model/binfmt's dtypes,
+// the ctypes mirrors of the pipeline's structs and datapath/flowpack.py's
+// layout constants, and fp_dict_lookup, which the checks use to read the
+// dictionary.
 //
 // Each layout is its Python twin's (datapath/flowpack.py pack_dense,
 // pack_compact, pack_resident), word for word; sketch/state's
 // dense_to_arrays, compact_to_arrays and resident_to_arrays unpack them on
-// the device. C ABI only; every buffer is the caller's.
+// the device. The merges are model/accumulate's rules and the pipeline's
+// join is datapath/loader._join_keys, bit for bit. C ABI only; every
+// buffer is the caller's but the pipeline's own (see its section).
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+
+#if defined(__linux__)
+#include <errno.h>
+#include <pthread.h>
+#include <sys/syscall.h>
+#include <time.h>
+#include <unistd.h>
+#endif
 
 #include "records.h"
 
-#define FP_ABI_VERSION 2
+#define FP_ABI_VERSION 3
 
 // row width of the dense feed and of the resident spill lane
 #define FP_DENSE_WORDS 20
@@ -42,19 +60,6 @@
 extern "C" {
 
 uint32_t fp_abi_version(void) { return FP_ABI_VERSION; }
-
-// sizeof of each record the packer reads, in this order: flow key, flow
-// stats, flow event, extra, dns, drops, xlat, quic. Writes min(n, 8)
-// sizes and returns 8.
-uint32_t fp_struct_sizes(uint64_t *out, uint32_t n) {
-    const uint64_t sizes[8] = {
-        sizeof(struct no_flow_key), sizeof(struct no_flow_stats),
-        sizeof(struct no_flow_event), sizeof(struct no_extra_rec),
-        sizeof(struct no_dns_rec), sizeof(struct no_drops_rec),
-        sizeof(struct no_xlat_rec), sizeof(struct no_quic_rec)};
-    for (uint32_t i = 0; i < n && i < 8; i++) out[i] = sizes[i];
-    return 8;
-}
 
 // The layout constants of the three feeds, in this order: dense row words,
 // compact row words, resident header words, hot row words, new-key row
@@ -512,6 +517,961 @@ int64_t fp_pack_resident(const uint8_t *events, size_t start, size_t n,
         std::memset(spill + ns * FP_DENSE_WORDS, 0,
                     (spill_cap - ns) * FP_DENSE_WORDS * sizeof(uint32_t));
     return static_cast<int64_t>(i - start);
+}
+
+static inline void merge_times(uint64_t *dfirst, uint64_t *dlast,
+                               uint64_t sfirst, uint64_t slast) {
+    if (*dfirst == 0 || (sfirst != 0 && sfirst < *dfirst))
+        *dfirst = sfirst;
+    if (slast > *dlast)
+        *dlast = slast;
+}
+
+static inline uint16_t sat_add16(uint16_t a, uint16_t b) {
+    uint32_t s = static_cast<uint32_t>(a) + b;
+    return s > 0xFFFF ? 0xFFFF : static_cast<uint16_t>(s);
+}
+
+// Merge per-CPU partials of the base stats struct.
+// values: n_cpu consecutive no_flow_stats images for ONE map entry.
+// out: one no_flow_stats. Mirrors model/accumulate.py accumulate_base.
+void fp_merge_stats(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_flow_stats out;
+    std::memcpy(&out, values, sizeof(out));
+    // the datapath's lock-free slot reservation can leave the counter
+    // TRANSIENTLY above capacity (saturation undo in flight) — clamp before
+    // any indexing
+    if (out.n_observed_intf > NO_MAX_OBSERVED_INTERFACES)
+        out.n_observed_intf = NO_MAX_OBSERVED_INTERFACES;
+    const struct no_flow_stats *v =
+        reinterpret_cast<const struct no_flow_stats *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_flow_stats *s = &v[c];
+        bool dst_empty = out.first_seen_ns == 0 && out.packets == 0;
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        uint64_t nb = out.bytes + s->bytes;
+        out.bytes = nb < out.bytes ? UINT64_MAX : nb;  // saturate on wrap
+        uint64_t np = static_cast<uint64_t>(out.packets) + s->packets;
+        out.packets = np > UINT32_MAX ? UINT32_MAX
+                                      : static_cast<uint32_t>(np);
+        out.tcp_flags |= s->tcp_flags;
+        if (s->eth_protocol) out.eth_protocol = s->eth_protocol;
+        if (s->dscp) out.dscp = s->dscp;
+        if (s->sampling) out.sampling = s->sampling;
+        if (s->errno_fallback) out.errno_fallback = s->errno_fallback;
+        bool src_mac_zero = true, dst_mac_zero = true;
+        for (int i = 0; i < NO_ETH_ALEN; i++) {
+            if (out.src_mac[i]) src_mac_zero = false;
+            if (out.dst_mac[i]) dst_mac_zero = false;
+        }
+        if (src_mac_zero) std::memcpy(out.src_mac, s->src_mac, NO_ETH_ALEN);
+        if (dst_mac_zero) std::memcpy(out.dst_mac, s->dst_mac, NO_ETH_ALEN);
+        if (dst_empty) {
+            out.if_index_first = s->if_index_first;
+            out.direction_first = s->direction_first;
+        }
+        // ssl_version: first non-zero wins; a conflicting later version sets
+        // the mismatch flag (mirrors accumulate_base / kernel entry rule)
+        if (s->ssl_version) {
+            if (out.ssl_version == 0)
+                out.ssl_version = s->ssl_version;
+            else if (out.ssl_version != s->ssl_version)
+                out.misc_flags |= NO_MISC_SSL_MISMATCH;
+        }
+        if (s->tls_cipher_suite) out.tls_cipher_suite = s->tls_cipher_suite;
+        if (s->tls_key_share) out.tls_key_share = s->tls_key_share;
+        out.tls_types |= s->tls_types;
+        out.misc_flags |= s->misc_flags;
+        int ns_obs = s->n_observed_intf > NO_MAX_OBSERVED_INTERFACES
+                         ? NO_MAX_OBSERVED_INTERFACES
+                         : s->n_observed_intf;
+        for (int j = 0; j < ns_obs; j++) {
+            bool seen = false;
+            for (int i = 0; i < out.n_observed_intf; i++) {
+                if (out.observed_intf[i] == s->observed_intf[j] &&
+                    out.observed_direction[i] == s->observed_direction[j]) {
+                    seen = true;
+                    break;
+                }
+            }
+            if (!seen && out.n_observed_intf < NO_MAX_OBSERVED_INTERFACES) {
+                out.observed_intf[out.n_observed_intf] = s->observed_intf[j];
+                out.observed_direction[out.n_observed_intf] =
+                    s->observed_direction[j];
+                out.n_observed_intf++;
+            }
+        }
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// Merge per-CPU partials of the extra (rtt/ipsec) record.
+void fp_merge_extra(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_extra_rec out;
+    std::memcpy(&out, values, sizeof(out));
+    const struct no_extra_rec *v =
+        reinterpret_cast<const struct no_extra_rec *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_extra_rec *s = &v[c];
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        if (s->rtt_ns > out.rtt_ns) out.rtt_ns = s->rtt_ns;
+        if (out.ipsec_ret < s->ipsec_ret) {
+            out.ipsec_ret = s->ipsec_ret;
+            out.ipsec_encrypted = s->ipsec_encrypted;
+        } else if (out.ipsec_ret == s->ipsec_ret && s->ipsec_encrypted) {
+            out.ipsec_encrypted = s->ipsec_encrypted;
+        }
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// Merge per-CPU partials of the drops record.
+void fp_merge_drops(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_drops_rec out;
+    std::memcpy(&out, values, sizeof(out));
+    const struct no_drops_rec *v =
+        reinterpret_cast<const struct no_drops_rec *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_drops_rec *s = &v[c];
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        out.bytes = sat_add16(out.bytes, s->bytes);
+        out.packets = sat_add16(out.packets, s->packets);
+        out.latest_flags |= s->latest_flags;
+        if (s->latest_cause) out.latest_cause = s->latest_cause;
+        if (s->latest_state) out.latest_state = s->latest_state;
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// Merge per-CPU partials of the DNS record (max latency wins).
+void fp_merge_dns(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_dns_rec out;
+    std::memcpy(&out, values, sizeof(out));
+    const struct no_dns_rec *v =
+        reinterpret_cast<const struct no_dns_rec *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_dns_rec *s = &v[c];
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        out.dns_flags |= s->dns_flags;
+        if (s->dns_id) out.dns_id = s->dns_id;
+        if (out.errno_code != s->errno_code) out.errno_code = s->errno_code;
+        if (s->latency_ns > out.latency_ns) out.latency_ns = s->latency_ns;
+        if (s->name[0]) std::memcpy(out.name, s->name, NO_DNS_NAME_MAX_LEN);
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// Merge per-CPU partials of the network-events record: dedup-append into a
+// wrapping ring of NO_MAX_NETWORK_EVENTS slots (n_events is the ring CURSOR,
+// not a count — renderers scan slots keyed on packets[i] != 0). Mirrors
+// model/accumulate.py accumulate_network_events.
+void fp_merge_nevents(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_nevents_rec out;
+    std::memcpy(&out, values, sizeof(out));
+    const struct no_nevents_rec *v =
+        reinterpret_cast<const struct no_nevents_rec *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_nevents_rec *s = &v[c];
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        uint8_t idx = out.n_events % NO_MAX_NETWORK_EVENTS;
+        for (int j = 0; j < NO_MAX_NETWORK_EVENTS; j++) {
+            if (s->packets[j] == 0)
+                continue;
+            bool dup = false;
+            for (int i = 0; i < NO_MAX_NETWORK_EVENTS; i++) {
+                if (std::memcmp(out.events[i], s->events[j],
+                                NO_MAX_EVENT_MD) == 0) {
+                    dup = true;
+                    break;
+                }
+            }
+            if (!dup) {
+                std::memcpy(out.events[idx], s->events[j], NO_MAX_EVENT_MD);
+                out.bytes[idx] = sat_add16(out.bytes[idx], s->bytes[j]);
+                out.packets[idx] = sat_add16(out.packets[idx], s->packets[j]);
+                idx = (idx + 1) % NO_MAX_NETWORK_EVENTS;
+            }
+        }
+        out.n_events = idx;
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// Merge per-CPU partials of the NAT-translation record: a complete
+// (both-endpoints) observation replaces. Mirrors accumulate_xlat.
+void fp_merge_xlat(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_xlat_rec out;
+    std::memcpy(&out, values, sizeof(out));
+    const struct no_xlat_rec *v =
+        reinterpret_cast<const struct no_xlat_rec *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_xlat_rec *s = &v[c];
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        bool src_set = false, dst_set = false;
+        for (int i = 0; i < NO_IP_LEN; i++) {
+            if (s->src_ip[i]) src_set = true;
+            if (s->dst_ip[i]) dst_set = true;
+        }
+        if (src_set && dst_set) {
+            std::memcpy(out.src_ip, s->src_ip, NO_IP_LEN);
+            std::memcpy(out.dst_ip, s->dst_ip, NO_IP_LEN);
+            out.src_port = s->src_port;
+            out.dst_port = s->dst_port;
+            out.zone_id = s->zone_id;
+        }
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// Merge per-CPU partials of the QUIC record: max version wins, header-seen
+// flags accumulate. Mirrors accumulate_quic.
+void fp_merge_quic(const uint8_t *values, size_t n_cpu, uint8_t *out_buf) {
+    struct no_quic_rec out;
+    std::memcpy(&out, values, sizeof(out));
+    const struct no_quic_rec *v =
+        reinterpret_cast<const struct no_quic_rec *>(values);
+    for (size_t c = 1; c < n_cpu; c++) {
+        const struct no_quic_rec *s = &v[c];
+        merge_times(&out.first_seen_ns, &out.last_seen_ns,
+                    s->first_seen_ns, s->last_seen_ns);
+        if (s->version > out.version) out.version = s->version;
+        if (s->seen_long_hdr > out.seen_long_hdr)
+            out.seen_long_hdr = s->seen_long_hdr;
+        if (s->seen_short_hdr > out.seen_short_hdr)
+            out.seen_short_hdr = s->seen_short_hdr;
+    }
+    std::memcpy(out_buf, &out, sizeof(out));
+}
+
+// ---------------------------------------------------------------------------
+// Batched per-CPU merges: one call for ALL keys of a drained feature map.
+// values: n_keys * n_cpu consecutive record images (the kernel's
+// LOOKUP_AND_DELETE_BATCH value buffer, padding already stripped/absent —
+// every record struct here is 8-byte-aligned so the per-CPU stride equals
+// sizeof); out: n_keys records. One ctypes round trip replaces n_keys of
+// them (columnar Python twin: model/accumulate.py COLUMNAR_MERGES; held
+// against it and the reference's in tests/test_torch_evict_chain.py).
+// ---------------------------------------------------------------------------
+#define FP_MERGE_BATCH(name, type)                                          \
+    void name##_batch(const uint8_t *values, size_t n_keys, size_t n_cpu,   \
+                      uint8_t *out) {                                       \
+        for (size_t k = 0; k < n_keys; k++)                                 \
+            name(values + k * n_cpu * sizeof(type), n_cpu,                  \
+                 out + k * sizeof(type));                                   \
+    }
+
+FP_MERGE_BATCH(fp_merge_stats, struct no_flow_stats)
+FP_MERGE_BATCH(fp_merge_extra, struct no_extra_rec)
+FP_MERGE_BATCH(fp_merge_drops, struct no_drops_rec)
+FP_MERGE_BATCH(fp_merge_dns, struct no_dns_rec)
+FP_MERGE_BATCH(fp_merge_nevents, struct no_nevents_rec)
+FP_MERGE_BATCH(fp_merge_xlat, struct no_xlat_rec)
+FP_MERGE_BATCH(fp_merge_quic, struct no_quic_rec)
+
+// ---------------------------------------------------------------------------
+// FLOW_EVENT interleave: compose contiguous no_flow_event rows (key 40B |
+// stats 104B) from the two columns a batched map drain yields — the columnar
+// eviction plane's single copy boundary done as one native pass instead of
+// two strided numpy field assignments (Python twin:
+// model/binfmt.py events_from_keys_stats). `out` must hold n events; tail
+// rows beyond n (the loader's orphan appendix) are the caller's to zero.
+// ---------------------------------------------------------------------------
+void fp_events_from_keys_stats(const uint8_t *keys, const uint8_t *stats,
+                               size_t n, uint8_t *out) {
+    for (size_t i = 0; i < n; i++) {
+        struct no_flow_event *ev =
+            reinterpret_cast<struct no_flow_event *>(
+                out + i * sizeof(struct no_flow_event));
+        std::memcpy(&ev->key, keys + i * sizeof(struct no_flow_key),
+                    sizeof(struct no_flow_key));
+        std::memcpy(&ev->stats, stats + i * sizeof(struct no_flow_stats),
+                    sizeof(struct no_flow_stats));
+    }
+}
+
+
+// ===========================================================================
+// Fused one-call eviction pipeline (fp_drain_to_resident). ONE native call
+// owns the whole host chain of a drain: batched bpf(2) lookup-and-delete
+// over every map, per-CPU columnar merge, hash-sort key join (the
+// loader._join_keys twin), feature alignment, and — optionally — the direct
+// resident-region pack replicating ShardedResidentStagingRing._fold_chunk.
+// The call releases the GIL for its whole duration (ctypes), so drain lanes
+// scale with cores instead of re-entering the interpreter between stages.
+//
+// SCHEDULING ONLY: the merge semantics are the very fp_merge_*_batch calls
+// above (never a fifth merge form), the pack is the very fp_pack_resident
+// above (never a fourth resident layout), and the join replicates
+// loader._join_keys bit-exactly (stable hash sort, collision fallback to the
+// lexicographic order, orphan appendix in sorted-group order, last-agg-row
+// match). tests/test_torch_native_pipeline.py holds the fused output
+// against the Python-orchestrated chain (datapath/loader.decode_eviction).
+//
+// Buffer ownership: per-map drain scratch, merged/aligned arrays, the event
+// compose buffer and the chunk table live in the fp_pipe handle and are
+// valid until the next fp_drain_to_resident call (the caller copies at the
+// EvictedFlows boundary — the cached-buffer lifetime rule of a batched
+// map drain). The packed arena is malloc'd fresh per call and
+// ownership passes to the caller (fp_buf_free) because packed regions may
+// outlive the next drain in the overlap handoff.
+// ===========================================================================
+
+enum {
+    FPK_STATS = 0, FPK_EXTRA = 1, FPK_DNS = 2, FPK_DROPS = 3,
+    FPK_NEVENTS = 4, FPK_XLAT = 5, FPK_QUIC = 6,
+};
+
+#define FP_PIPE_MAX_MAPS 8
+#define FP_PIPE_MAX_LADDER 8
+#define FP_BPF_LOOKUP_AND_DELETE_BATCH 25
+
+#if defined(__linux__)
+#if defined(SYS_bpf)
+#define FP_SYS_BPF SYS_bpf
+#elif defined(__x86_64__)
+#define FP_SYS_BPF 321
+#elif defined(__aarch64__) || defined(__riscv)
+#define FP_SYS_BPF 280
+#elif defined(__powerpc64__)
+#define FP_SYS_BPF 361
+#elif defined(__s390x__)
+#define FP_SYS_BPF 351
+#endif
+#endif
+
+struct fp_pipe_map_cfg {
+    int32_t fd;            // >= 0: drain via batched bpf(2); < 0: injected
+    uint32_t kind;         // FPK_*
+    uint32_t value_size;   // sizeof record struct (8-aligned)
+    uint32_t n_cpus;       // per-CPU images per entry (1 = plain map)
+    uint32_t max_entries;  // drain capacity bound
+};
+
+struct fp_pipe_ladder {
+    uint32_t k;             // superbatch ladder entry
+    uint32_t nr;            // regions per k-chunk (n_shards * k * lanes)
+    const uint64_t *dicts;  // [nr] fp_dict handles (ring.kdicts mapping)
+};
+
+struct fp_pipe_pack_cfg {
+    uint32_t n_ladder, batch_size, batch_per_region, slot_cap;
+    uint32_t dns_cap, drop_cap, nk_cap, spill_cap;
+    struct fp_pipe_ladder ladder[FP_PIPE_MAX_LADDER];  // ascending k; [0].k==1
+};
+
+struct fp_pipe_chunk {
+    uint64_t row_start;   // first event row of this chunk
+    uint64_t rows;        // rows packed by this chunk
+    uint64_t arena_off;   // word offset of the chunk's first segment
+    uint32_t k, n_segs, spills, resets;
+};
+
+struct fp_pipe_result {
+    uint64_t n_events, n_agg, n_orphans, packed_rows;
+    uint64_t drain_ns, merge_ns, join_ns, pack_ns;   // drain/merge: summed lane CPU
+    uint64_t syscalls, lex_fallback, batch_err_mask, n_chunks;
+    uint64_t arena_words, spill_rows, dict_resets, segs;
+    const uint8_t *events;               // [n_events] no_flow_event (handle-owned)
+    uint32_t *arena;                     // packed regions (caller frees: fp_buf_free)
+    const struct fp_pipe_chunk *chunks;  // [n_chunks] (handle-owned)
+    const uint8_t *aligned[FP_PIPE_MAX_MAPS];  // per map; NULL when absent/empty
+    uint64_t map_rows[FP_PIPE_MAX_MAPS];       // drained rows per map
+};
+
+struct fp_pipe_buf {
+    uint8_t *p;
+    size_t cap;
+};
+
+static int pipe_reserve(struct fp_pipe_buf *b, size_t need) {
+    if (need == 0 || b->cap >= need)
+        return 0;
+    size_t cap = b->cap ? b->cap : 4096;
+    while (cap < need)
+        cap *= 2;
+    uint8_t *np = static_cast<uint8_t *>(realloc(b->p, cap));
+    if (!np)
+        return -1;
+    b->p = np;
+    b->cap = cap;
+    return 0;
+}
+
+struct fp_pipe_map_state {
+    int32_t fd;
+    uint32_t kind, value_size, n_cpus, max_entries;
+    struct fp_pipe_buf keys, vals, merged, aligned;
+    uint32_t n;       // drained rows this call (injected rows when fd < 0)
+    int32_t err;      // last drain/merge errno (0 = ok)
+    uint64_t drain_ns, merge_ns, syscalls;
+    uint8_t tok_a[64], tok_b[64];  // batch iteration tokens (>= key size)
+};
+
+struct fp_pipe {
+    uint32_t n_maps, lanes;
+    struct fp_pipe_map_state maps[FP_PIPE_MAX_MAPS];
+    struct fp_pipe_buf events, join;
+    struct fp_pipe_chunk *chunks;
+    size_t chunks_cap;
+};
+
+static uint64_t pipe_now_ns(void) {
+#if defined(__linux__)
+    struct timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    return static_cast<uint64_t>(ts.tv_sec) * 1000000000ull +
+           static_cast<uint64_t>(ts.tv_nsec);
+#else
+    return 0;
+#endif
+}
+
+void *fp_pipe_new(const struct fp_pipe_map_cfg *cfgs, uint32_t n_maps,
+                  uint32_t lanes) {
+    if (!cfgs || n_maps == 0 || n_maps > FP_PIPE_MAX_MAPS)
+        return NULL;
+    if (cfgs[0].kind != FPK_STATS || cfgs[0].n_cpus != 1)
+        return NULL;  // map 0 is the aggregation map, used verbatim
+    for (uint32_t i = 0; i < n_maps; i++) {
+        if (cfgs[i].kind > FPK_QUIC || cfgs[i].n_cpus == 0 ||
+            cfgs[i].max_entries == 0 || cfgs[i].value_size == 0 ||
+            cfgs[i].value_size % 8 != 0)  // padded stride == struct size
+            return NULL;
+    }
+    struct fp_pipe *p =
+        static_cast<struct fp_pipe *>(calloc(1, sizeof(struct fp_pipe)));
+    if (!p)
+        return NULL;
+    p->n_maps = n_maps;
+    p->lanes = lanes ? lanes : 1;
+    for (uint32_t i = 0; i < n_maps; i++) {
+        p->maps[i].fd = cfgs[i].fd;
+        p->maps[i].kind = cfgs[i].kind;
+        p->maps[i].value_size = cfgs[i].value_size;
+        p->maps[i].n_cpus = cfgs[i].n_cpus;
+        p->maps[i].max_entries = cfgs[i].max_entries;
+    }
+    return p;
+}
+
+void fp_pipe_free(void *h) {
+    if (!h)
+        return;
+    struct fp_pipe *p = static_cast<struct fp_pipe *>(h);
+    for (uint32_t i = 0; i < p->n_maps; i++) {
+        free(p->maps[i].keys.p);
+        free(p->maps[i].vals.p);
+        free(p->maps[i].merged.p);
+        free(p->maps[i].aligned.p);
+    }
+    free(p->events.p);
+    free(p->join.p);
+    free(p->chunks);
+    free(p);
+}
+
+void fp_buf_free(void *ptr) { free(ptr); }
+
+// Injection for fd < 0 maps (tests and the smoke drive): pre-load one drain's (keys, vals)
+// as if the batched syscall had produced them. vals layout is the kernel's:
+// n rows x n_cpus images x value_size bytes, contiguous.
+int fp_pipe_set_drained(void *h, uint32_t idx, const uint8_t *keys,
+                        const uint8_t *vals, uint32_t n) {
+    struct fp_pipe *p = static_cast<struct fp_pipe *>(h);
+    if (!p || idx >= p->n_maps || p->maps[idx].fd >= 0)
+        return -1;
+    struct fp_pipe_map_state *m = &p->maps[idx];
+    size_t ks = sizeof(struct no_flow_key);
+    size_t vstride = static_cast<size_t>(m->value_size) * m->n_cpus;
+    if (pipe_reserve(&m->keys, n * ks) || pipe_reserve(&m->vals, n * vstride))
+        return -1;
+    if (n) {
+        std::memcpy(m->keys.p, keys, n * ks);
+        std::memcpy(m->vals.p, vals, n * vstride);
+    }
+    m->n = n;
+    return 0;
+}
+
+// One map's batched lookup-and-delete loop (the reference's
+// syscall_bpf drain_batched_arrays: the same attr layout, token handoff
+// and partial-round banking). The
+// caller pre-probed batch support through the Python chain's first drain,
+// so a hard error here is recorded, never retried per-key.
+static void pipe_drain_map(struct fp_pipe_map_state *m) {
+    m->err = 0;
+    m->syscalls = 0;
+    if (m->fd < 0)
+        return;  // injected rows (fp_pipe_set_drained) stay as-is
+    m->n = 0;
+#if defined(__linux__) && defined(FP_SYS_BPF)
+    const size_t ks = sizeof(struct no_flow_key);
+    const size_t vstride = static_cast<size_t>(m->value_size) * m->n_cpus;
+    if (pipe_reserve(&m->keys, static_cast<size_t>(m->max_entries) * ks) ||
+        pipe_reserve(&m->vals, static_cast<size_t>(m->max_entries) * vstride)) {
+        m->err = ENOMEM;
+        return;
+    }
+    struct {
+        uint64_t in_batch, out_batch, keys, values;
+        uint32_t count, map_fd;
+        uint64_t elem_flags, flags;
+    } attr;
+    bool first = true;
+    uint32_t total = 0;
+    while (total < m->max_entries) {
+        std::memset(&attr, 0, sizeof(attr));
+        attr.in_batch =
+            first ? 0 : static_cast<uint64_t>(reinterpret_cast<uintptr_t>(m->tok_a));
+        attr.out_batch =
+            static_cast<uint64_t>(reinterpret_cast<uintptr_t>(m->tok_b));
+        attr.keys = static_cast<uint64_t>(
+            reinterpret_cast<uintptr_t>(m->keys.p + static_cast<size_t>(total) * ks));
+        attr.values = static_cast<uint64_t>(reinterpret_cast<uintptr_t>(
+            m->vals.p + static_cast<size_t>(total) * vstride));
+        attr.count = m->max_entries - total;
+        attr.map_fd = static_cast<uint32_t>(m->fd);
+        long rc = syscall(FP_SYS_BPF, FP_BPF_LOOKUP_AND_DELETE_BATCH, &attr,
+                          static_cast<unsigned long>(sizeof(attr)));
+        int err = rc < 0 ? errno : 0;
+        m->syscalls++;
+        if (rc == 0 || err == ENOENT) {
+            total += attr.count;  // partial counts on ENOENT are valid
+        } else {
+            m->err = err;  // keep banked rounds: their entries are deleted
+            break;
+        }
+        if (rc < 0 || attr.count == 0)
+            break;  // drained to empty
+        std::memcpy(m->tok_a, m->tok_b, sizeof(m->tok_a));
+        first = false;
+    }
+    m->n = total;
+#else
+    m->err = 38;  // ENOSYS: no bpf(2) on this platform — fd<0 mode only
+#endif
+}
+
+static void pipe_merge_map(struct fp_pipe_map_state *m) {
+    if (m->kind == FPK_STATS || m->n == 0)
+        return;  // aggregation rows are used verbatim (no per-CPU images)
+    size_t need = static_cast<size_t>(m->n) * m->value_size;
+    if (pipe_reserve(&m->merged, need)) {
+        m->err = ENOMEM;
+        return;
+    }
+    switch (m->kind) {
+    case FPK_EXTRA:
+        fp_merge_extra_batch(m->vals.p, m->n, m->n_cpus, m->merged.p);
+        break;
+    case FPK_DNS:
+        fp_merge_dns_batch(m->vals.p, m->n, m->n_cpus, m->merged.p);
+        break;
+    case FPK_DROPS:
+        fp_merge_drops_batch(m->vals.p, m->n, m->n_cpus, m->merged.p);
+        break;
+    case FPK_NEVENTS:
+        fp_merge_nevents_batch(m->vals.p, m->n, m->n_cpus, m->merged.p);
+        break;
+    case FPK_XLAT:
+        fp_merge_xlat_batch(m->vals.p, m->n, m->n_cpus, m->merged.p);
+        break;
+    case FPK_QUIC:
+        fp_merge_quic_batch(m->vals.p, m->n, m->n_cpus, m->merged.p);
+        break;
+    default:
+        break;
+    }
+}
+
+static void pipe_run_map(struct fp_pipe_map_state *m) {
+    uint64_t t0 = pipe_now_ns();
+    pipe_drain_map(m);
+    uint64_t t1 = pipe_now_ns();
+    pipe_merge_map(m);
+    m->drain_ns = t1 - t0;
+    m->merge_ns = pipe_now_ns() - t1;
+}
+
+#if defined(__linux__)
+struct fp_pipe_job {
+    struct fp_pipe *p;
+    uint32_t next;
+    pthread_mutex_t mu;
+};
+
+static void *pipe_worker(void *arg) {
+    struct fp_pipe_job *job = static_cast<struct fp_pipe_job *>(arg);
+    for (;;) {
+        pthread_mutex_lock(&job->mu);
+        uint32_t i = job->next++;
+        pthread_mutex_unlock(&job->mu);
+        if (i >= job->p->n_maps)
+            return NULL;
+        pipe_run_map(&job->p->maps[i]);
+    }
+}
+#endif
+
+// loader._hash_keys_u64 twin: the join's pre-sort hash over the 5 key words.
+static inline uint64_t pipe_key_hash(const uint8_t *k) {
+    uint64_t w[5];
+    std::memcpy(w, k, sizeof(w));
+    uint64_t h = w[0];
+    for (int i = 1; i < 5; i++) {
+        h = (h ^ (w[i] * 0xC2B2AE3D27D4EB4FULL)) * 0x9E3779B97F4A7C15ULL;
+        h ^= h >> 29;  // per-round mix, exactly like the numpy twin
+    }
+    return h;
+}
+
+static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
+                         struct fp_pipe_result *res) {
+    const uint64_t n_events = res->n_events;
+    if (pk->n_ladder == 0 || pk->n_ladder > FP_PIPE_MAX_LADDER ||
+        pk->ladder[0].k != 1 || pk->batch_per_region == 0 ||
+        pk->spill_cap == 0 || pk->nk_cap == 0)
+        return -2;
+    const size_t region_words =
+        FP_RESIDENT_HDR + static_cast<size_t>(pk->batch_per_region) * FP_HOT_WORDS +
+        pk->dns_cap + static_cast<size_t>(pk->drop_cap) * 2 +
+        static_cast<size_t>(pk->nk_cap) * FP_NK_WORDS +
+        static_cast<size_t>(pk->spill_cap) * FP_DENSE_WORDS;
+    // per-kind aligned feature bases the resident pack consumes (nevents
+    // rides EvictedFlows only — the fold lanes never carry it)
+    const uint8_t *ali[FPK_QUIC + 1] = {NULL, NULL, NULL, NULL, NULL, NULL, NULL};
+    for (uint32_t i = 1; i < p->n_maps; i++)
+        if (p->maps[i].n)
+            ali[p->maps[i].kind] = p->maps[i].aligned.p;
+    uint32_t *arena = NULL;
+    size_t arena_cap_words = 0, arena_words = 0;
+    uint64_t row = 0, starts[1u << 10];
+    while (row < n_events) {
+        const uint64_t remaining = n_events - row;
+        // the ring's ladder rule: largest available k whose k*batch fits
+        uint32_t sel = 0;
+        for (uint32_t L = 0; L < pk->n_ladder; L++)
+            if (static_cast<uint64_t>(pk->ladder[L].k) * pk->batch_size <=
+                remaining)
+                sel = L;
+        const struct fp_pipe_ladder *lad = &pk->ladder[sel];
+        const uint32_t nr = lad->nr;
+        if (nr == 0 || nr > (1u << 10)) {
+            free(arena);
+            return -2;
+        }
+        const uint64_t take =
+            remaining < static_cast<uint64_t>(lad->k) * pk->batch_size
+                ? remaining
+                : static_cast<uint64_t>(lad->k) * pk->batch_size;
+        // chunk bookkeeping
+        if (res->n_chunks >= p->chunks_cap) {
+            size_t cap = p->chunks_cap ? p->chunks_cap * 2 : 16;
+            struct fp_pipe_chunk *nc = static_cast<struct fp_pipe_chunk *>(
+                realloc(p->chunks, cap * sizeof(*nc)));
+            if (!nc) {
+                free(arena);
+                return -1;
+            }
+            p->chunks = nc;
+            p->chunks_cap = cap;
+        }
+        struct fp_pipe_chunk *ch = &p->chunks[res->n_chunks];
+        std::memset(ch, 0, sizeof(*ch));
+        ch->row_start = row;
+        ch->rows = take;
+        ch->k = lad->k;
+        ch->arena_off = arena_words;
+        for (uint32_t i = 0; i < nr; i++)
+            starts[i] = 0;
+        bool done = false;
+        while (!done) {
+            // one segment = one shipped ring-slot image of nr regions (the
+            // continuation loop of _fold_chunk)
+            size_t need_words = arena_words + static_cast<size_t>(nr) * region_words;
+            if (need_words > arena_cap_words) {
+                size_t cap = arena_cap_words ? arena_cap_words : 65536;
+                while (cap < need_words)
+                    cap *= 2;
+                uint32_t *na =
+                    static_cast<uint32_t *>(realloc(arena, cap * sizeof(uint32_t)));
+                if (!na) {
+                    free(arena);
+                    return -1;
+                }
+                arena = na;
+                arena_cap_words = cap;
+            }
+            done = true;
+            for (uint32_t i = 0; i < nr; i++) {
+                uint32_t *region = arena + arena_words + i * region_words;
+                const uint64_t lo = row + take * i / nr;
+                const uint64_t hi = row + take * (i + 1) / nr;
+                const uint64_t len = hi - lo;
+                if (starts[i] >= len) {
+                    // exhausted region in a continuation segment: the
+                    // zero_resident_region mask, done as a full memset so
+                    // the arena is deterministic (the device reads only the
+                    // validity words either way)
+                    std::memset(region, 0, region_words * sizeof(uint32_t));
+                    continue;
+                }
+                fp_dict *d = reinterpret_cast<fp_dict *>(
+                    static_cast<uintptr_t>(lad->dicts[i]));
+                if (d->next_slot >= pk->slot_cap) {
+                    fp_dict_reset(d);  // per-region epoch roll (_fold_chunk)
+                    ch->resets++;
+                }
+                int64_t consumed = fp_pack_resident(
+                    reinterpret_cast<const uint8_t *>(
+                        reinterpret_cast<const struct no_flow_event *>(
+                            p->events.p) + lo),
+                    starts[i], len,
+                    ali[FPK_EXTRA] ? ali[FPK_EXTRA] + lo * sizeof(struct no_extra_rec) : NULL,
+                    ali[FPK_DNS] ? ali[FPK_DNS] + lo * sizeof(struct no_dns_rec) : NULL,
+                    ali[FPK_DROPS] ? ali[FPK_DROPS] + lo * sizeof(struct no_drops_rec) : NULL,
+                    ali[FPK_XLAT] ? ali[FPK_XLAT] + lo * sizeof(struct no_xlat_rec) : NULL,
+                    ali[FPK_QUIC] ? ali[FPK_QUIC] + lo * sizeof(struct no_quic_rec) : NULL,
+                    d, region, pk->batch_per_region, pk->dns_cap, pk->drop_cap,
+                    pk->nk_cap, pk->spill_cap);
+                if (consumed <= 0) {
+                    free(arena);
+                    return -3;  // no progress: caps violate the guarantee
+                }
+                ch->spills += region[2];
+                starts[i] += static_cast<uint64_t>(consumed);
+                if (starts[i] < len)
+                    done = false;
+            }
+            arena_words += static_cast<size_t>(nr) * region_words;
+            ch->n_segs++;
+        }
+        res->spill_rows += ch->spills;
+        res->dict_resets += ch->resets;
+        res->segs += ch->n_segs;
+        res->n_chunks++;
+        row += take;
+    }
+    res->arena = arena;
+    res->arena_words = arena_words;
+    res->packed_rows = n_events;
+    res->chunks = p->chunks;
+    return 0;
+}
+
+// The fused drain: every map's batched drain + per-CPU merge (fanned out
+// over `lanes` worker threads), the key join + feature alignment, and —
+// when `pack` is non-NULL — the resident-region pack. Returns n_events
+// (>= 0) or a negative error (-1 alloc, -2 bad args, -3 pack stuck).
+int64_t fp_drain_to_resident(void *h, const struct fp_pipe_pack_cfg *pack,
+                             struct fp_pipe_result *res) {
+    struct fp_pipe *p = static_cast<struct fp_pipe *>(h);
+    if (!p || !res)
+        return -2;
+    std::memset(res, 0, sizeof(*res));
+    // ---- drain + merge (per-map, worker fan-out) ----
+    uint32_t nw = p->lanes < p->n_maps ? p->lanes : p->n_maps;
+#if defined(__linux__)
+    if (nw > 1) {
+        struct fp_pipe_job job;
+        job.p = p;
+        job.next = 0;
+        pthread_mutex_init(&job.mu, NULL);
+        pthread_t tids[FP_PIPE_MAX_MAPS];
+        uint32_t started = 0;
+        for (uint32_t t = 0; t + 1 < nw; t++)
+            if (pthread_create(&tids[started], NULL, pipe_worker, &job) == 0)
+                started++;
+        pipe_worker(&job);  // the calling thread is a worker too
+        for (uint32_t t = 0; t < started; t++)
+            pthread_join(tids[t], NULL);
+        pthread_mutex_destroy(&job.mu);
+    } else
+#endif
+    {
+        for (uint32_t i = 0; i < p->n_maps; i++)
+            pipe_run_map(&p->maps[i]);
+    }
+    uint64_t total = 0;
+    for (uint32_t i = 0; i < p->n_maps; i++) {
+        struct fp_pipe_map_state *m = &p->maps[i];
+        res->drain_ns += m->drain_ns;
+        res->merge_ns += m->merge_ns;
+        res->syscalls += m->syscalls;
+        res->map_rows[i] = m->n;
+        total += m->n;
+        if (m->err == ENOMEM)
+            return -1;
+        if (m->err)
+            res->batch_err_mask |= 1ull << i;
+    }
+    const uint64_t n_agg = p->maps[0].n;
+    // ---- join (loader._join_keys twin) + event compose + alignment ----
+    uint64_t t_join = pipe_now_ns();
+    const size_t ptr_sz = sizeof(const uint8_t *);
+    if (pipe_reserve(&p->join, total * (2 * ptr_sz + 5 * sizeof(uint64_t))))
+        return -1;
+    const uint8_t **kp = reinterpret_cast<const uint8_t **>(p->join.p);
+    const uint8_t **app_key = kp + total;
+    uint64_t *hs = reinterpret_cast<uint64_t *>(app_key + total);
+    uint64_t *ord = hs + total;
+    uint64_t *feat_eidx = ord + total;
+    uint64_t *app_first = feat_eidx + total;
+    uint64_t *app_last = app_first + total;
+    {
+        uint64_t g = 0;
+        for (uint32_t mi = 0; mi < p->n_maps; mi++) {
+            struct fp_pipe_map_state *m = &p->maps[mi];
+            for (uint32_t r = 0; r < m->n; r++, g++) {
+                kp[g] = m->keys.p + static_cast<size_t>(r) * sizeof(struct no_flow_key);
+                hs[g] = pipe_key_hash(kp[g]);
+                ord[g] = g;
+            }
+        }
+    }
+    std::sort(ord, ord + total, [hs](uint64_t a, uint64_t b) {
+        return hs[a] != hs[b] ? hs[a] < hs[b] : a < b;  // stable argsort twin
+    });
+    // collision check: distinct keys vs distinct hashes over the sort
+    uint64_t key_groups = total ? 1 : 0, hash_groups = total ? 1 : 0;
+    for (uint64_t j = 1; j < total; j++) {
+        if (std::memcmp(kp[ord[j]], kp[ord[j - 1]], sizeof(struct no_flow_key)))
+            key_groups++;
+        if (hs[ord[j]] != hs[ord[j - 1]])
+            hash_groups++;
+    }
+    if (key_groups != hash_groups) {
+        // u64 hash collision (~never): the exact lexicographic order twin
+        res->lex_fallback = 1;
+        std::sort(ord, ord + total, [kp](uint64_t a, uint64_t b) {
+            uint64_t wa[5], wb[5];
+            std::memcpy(wa, kp[a], sizeof(wa));
+            std::memcpy(wb, kp[b], sizeof(wb));
+            for (int i = 0; i < 5; i++)
+                if (wa[i] != wb[i])
+                    return wa[i] < wb[i];
+            return a < b;
+        });
+    }
+    // group walk: stable sort puts agg members (src < n_agg) first in each
+    // group, so the match is the LAST agg member; groups with none append
+    // one orphan event, in sorted-group order (the searchsorted twin)
+    uint64_t n_app = 0;
+    {
+        uint64_t a = 0;
+        while (a < total) {
+            uint64_t b = a + 1;
+            while (b < total && !std::memcmp(kp[ord[b]], kp[ord[a]],
+                                             sizeof(struct no_flow_key)))
+                b++;
+            int64_t agg_max = -1;
+            for (uint64_t j = a; j < b && ord[j] < n_agg; j++)
+                agg_max = static_cast<int64_t>(ord[j]);
+            uint64_t eidx;
+            if (agg_max >= 0) {
+                eidx = static_cast<uint64_t>(agg_max);
+            } else {
+                app_key[n_app] = kp[ord[a]];
+                app_first[n_app] = UINT64_MAX;
+                app_last[n_app] = 0;
+                eidx = n_agg + n_app++;
+            }
+            for (uint64_t j = a; j < b; j++)
+                if (ord[j] >= n_agg)
+                    feat_eidx[ord[j] - n_agg] = eidx;
+            a = b;
+        }
+    }
+    const uint64_t n_events = n_agg + n_app;
+    res->n_events = n_events;
+    res->n_agg = n_agg;
+    res->n_orphans = n_app;
+    if (pipe_reserve(&p->events, n_events * sizeof(struct no_flow_event)))
+        return -1;
+    std::memset(p->events.p, 0, n_events * sizeof(struct no_flow_event));
+    if (n_agg)
+        fp_events_from_keys_stats(p->maps[0].keys.p, p->maps[0].vals.p, n_agg,
+                                  p->events.p);
+    struct no_flow_event *ev =
+        reinterpret_cast<struct no_flow_event *>(p->events.p);
+    for (uint64_t a = 0; a < n_app; a++)
+        std::memcpy(&ev[n_agg + a].key, app_key[a],
+                    sizeof(struct no_flow_key));
+    // feature alignment: scatter merged rows to their event row (ascending —
+    // duplicate keys across drain chunks: last wins, like `out[idx] = recs`)
+    uint64_t fbase = 0;
+    for (uint32_t mi = 1; mi < p->n_maps; mi++) {
+        struct fp_pipe_map_state *m = &p->maps[mi];
+        if (m->n == 0 || n_events == 0) {
+            fbase += m->n;
+            continue;
+        }
+        const size_t vs = m->value_size;
+        if (pipe_reserve(&m->aligned, n_events * vs))
+            return -1;
+        std::memset(m->aligned.p, 0, n_events * vs);
+        for (uint32_t r = 0; r < m->n; r++) {
+            const uint8_t *rec = m->merged.p + static_cast<size_t>(r) * vs;
+            const uint64_t e = feat_eidx[fbase + r];
+            std::memcpy(m->aligned.p + e * vs, rec, vs);
+            if (e >= n_agg) {
+                // orphan times: every record type leads with first/last u64s
+                uint64_t ft, lt;
+                std::memcpy(&ft, rec, 8);
+                std::memcpy(&lt, rec + 8, 8);
+                uint64_t *af = &app_first[e - n_agg];
+                uint64_t *al = &app_last[e - n_agg];
+                if (ft == 0)
+                    ft = UINT64_MAX;  // the 0 -> U64_MAX sentinel (loader)
+                if (ft < *af)
+                    *af = ft;
+                if (lt > *al)
+                    *al = lt;
+            }
+        }
+        res->aligned[mi] = m->aligned.p;
+        fbase += m->n;
+    }
+    for (uint64_t a = 0; a < n_app; a++) {
+        ev[n_agg + a].stats.first_seen_ns =
+            app_first[a] == UINT64_MAX ? 0 : app_first[a];
+        ev[n_agg + a].stats.last_seen_ns = app_last[a];
+    }
+    res->events = p->events.p;
+    res->join_ns = pipe_now_ns() - t_join;
+    // ---- resident-region pack (_fold_chunk twin) ----
+    if (pack && n_events) {
+        uint64_t t_pack = pipe_now_ns();
+        int64_t rc = pipe_pack(p, pack, res);
+        res->pack_ns = pipe_now_ns() - t_pack;
+        if (rc < 0)
+            return rc;
+    }
+    return static_cast<int64_t>(n_events);
+}
+
+// sizeof of each struct the library shares with Python, in this order:
+// flow key, flow stats, flow event, extra, dns, drops, xlat, quic and
+// nevents records, then the pipeline's fp_pipe_map_cfg, fp_pipe_pack_cfg,
+// fp_pipe_chunk and fp_pipe_result. Writes min(n, 13) sizes and
+// returns 13.
+uint32_t fp_struct_sizes(uint64_t *out, uint32_t n) {
+    const uint64_t sizes[13] = {
+        sizeof(struct no_flow_key), sizeof(struct no_flow_stats),
+        sizeof(struct no_flow_event), sizeof(struct no_extra_rec),
+        sizeof(struct no_dns_rec), sizeof(struct no_drops_rec),
+        sizeof(struct no_xlat_rec), sizeof(struct no_quic_rec),
+        sizeof(struct no_nevents_rec), sizeof(struct fp_pipe_map_cfg),
+        sizeof(struct fp_pipe_pack_cfg), sizeof(struct fp_pipe_chunk),
+        sizeof(struct fp_pipe_result)};
+    for (uint32_t i = 0; i < n && i < 13; i++) out[i] = sizes[i];
+    return 13;
 }
 
 }  // extern "C"

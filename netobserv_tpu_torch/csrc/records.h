@@ -2,8 +2,9 @@
 // the datapath lays them out.
 //
 // The port's trimmed copy of netobserv_tpu/datapath/bpf/records.h (the
-// structs no_flow_key, no_flow_stats, no_flow_event, no_dns_rec,
-// no_drops_rec, no_xlat_rec, no_extra_rec and no_quic_rec, lines 48-171),
+// constants of lines 34-44 and the structs no_flow_key, no_flow_stats,
+// no_flow_event, no_dns_rec, no_drops_rec, no_nevents_rec, no_xlat_rec,
+// no_extra_rec and no_quic_rec, lines 48-171),
 // for host builds only: fixed-width types, explicit padding, native byte
 // order. Every struct must match the numpy dtype of the same record in
 // netobserv_tpu_torch/model/binfmt.py byte for byte; the packer's loader
@@ -17,7 +18,12 @@
 #define NO_IP_LEN 16
 #define NO_ETH_ALEN 6
 #define NO_MAX_OBSERVED_INTERFACES 6
+#define NO_MAX_NETWORK_EVENTS 4
+#define NO_MAX_EVENT_MD 8
 #define NO_DNS_NAME_MAX_LEN 32
+
+/* no_flow_stats.misc_flags bits */
+#define NO_MISC_SSL_MISMATCH 0x01
 
 /* Flow identity: 5-tuple plus ICMP discriminator. IPv4 addresses are stored
  * v4-in-v6 mapped (::ffff/96). 40 bytes. */
@@ -91,6 +97,19 @@ struct no_drops_rec {
     uint16_t eth_protocol;
     uint8_t latest_state;
     uint8_t pad0[3];
+};
+
+/* Network-events record: a wrapping ring of NO_MAX_NETWORK_EVENTS
+ * metadata slots. 72 bytes. */
+struct no_nevents_rec {
+    uint64_t first_seen_ns;
+    uint64_t last_seen_ns;
+    uint8_t events[NO_MAX_NETWORK_EVENTS][NO_MAX_EVENT_MD];
+    uint16_t bytes[NO_MAX_NETWORK_EVENTS];
+    uint16_t packets[NO_MAX_NETWORK_EVENTS];
+    uint16_t eth_protocol;
+    uint8_t n_events;
+    uint8_t pad0[5];
 };
 
 /* NAT translation record. 56 bytes. */

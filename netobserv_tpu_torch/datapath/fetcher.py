@@ -1,13 +1,13 @@
 """The fetcher seam: one map eviction, the fetcher protocol, a fake.
 
 Counterpart of `netobserv_tpu/datapath/fetcher.py`. `EvictedFlows`
-(`:22`) has the reference's fields but its fused-pipeline `packed` arena
-(the port has no fused drain, ROADMAP A8): the flow events, the five
-feature lanes the sketch plane reads, the per-CPU event counters
-(`nevents`, which the overload controller thins with the rows), the
-drain's `decode_stats` and a batch trace (`trace`), which the map tracer
-(`flow/map_tracer.py`) hangs on a sampled eviction and the exporter
-finishes at its next fold. `FlowFetcher` and `FakeFetcher` are copies of
+(`:22`) has the reference's fields: the flow events, the five feature
+lanes the sketch plane reads, the per-CPU event counters (`nevents`,
+which the overload controller thins with the rows), the drain's
+`decode_stats`, the fused drain's pre-packed resident regions (`packed`,
+a `datapath/loader.PackedEviction`) and a batch trace (`trace`), which
+the map tracer (`flow/map_tracer.py`) hangs on a sampled eviction and the
+exporter finishes at its next fold. `FlowFetcher` and `FakeFetcher` are copies of
 the reference's (`:62-170`). The replay fetchers are in `replay.py`; the
 kernel fetchers are ROADMAP A8.
 """
@@ -30,11 +30,13 @@ class EvictedFlows:
     `xlat`, `quic`, of their `binfmt` record dtypes) is row for row with
     it, or None when the feature is off. A lane shorter than the events
     stands for zero rows past its end. `decode_stats` (the producing
-    drain's stage seconds) and `trace` (a sampled batch trace) are None
-    unless set."""
+    drain's stage seconds), `packed` (a fused drain's resident regions;
+    the rows above are always the whole eviction, which a consumer that
+    cannot ship the regions folds instead) and `trace` (a sampled batch
+    trace) are None unless set."""
 
     __slots__ = ("events", "extra", "dns", "drops", "xlat", "quic",
-                 "nevents", "decode_stats", "trace")
+                 "nevents", "decode_stats", "packed", "trace")
 
     def __init__(self, events: np.ndarray,
                  dns: Optional[np.ndarray] = None,
@@ -51,6 +53,7 @@ class EvictedFlows:
         self.nevents = nevents
         self.quic = quic
         self.decode_stats: Optional[dict] = None
+        self.packed = None
         self.trace = None
 
     def __len__(self) -> int:

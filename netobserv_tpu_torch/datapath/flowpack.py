@@ -1,4 +1,5 @@
-"""The host packers of the three device feeds: dense, compact and resident.
+"""The host packers of the three device feeds (dense, compact and
+resident), the per-CPU merges and the fused drain pipeline.
 
 Counterpart of `netobserv_tpu/datapath/flowpack.py`: the layout constants
 (`DENSE_WORDS`, `COMPACT_WORDS`, `RESIDENT_HDR`, `HOT_WORDS`, `NK_WORDS`,
@@ -41,9 +42,17 @@ built with the host C++ compiler at first use
   rings' default on every device, or `KeyDict` with `pack_resident`. The
   two dictionaries do not mix.
 
+The per-CPU merges (`merge_percpu`, `merge_percpu_batch` with its
+`threads=` row split, reference `:724-816`), the event compose
+(`events_from_keys_stats`, `:819-852`) and the fused drain pipeline
+(`NativePipe` with `PipeResult` and `PipeChunk` and their ctypes structs,
+`:854-1102`) call the same library; their plain twins are
+`model/accumulate.COLUMNAR_MERGES` and `model/binfmt.events_from_keys_stats`
+and the Python drain chain of `datapath/loader.py`.
+
 A missing compiler, a failed build or a library whose ABI version, record
-sizes or layout constants disagree with this package raises; nothing
-falls back to a Python packer.
+or struct sizes or layout constants disagree with this package raises;
+nothing falls back to a Python form.
 
 The native and Python packers give the same buffers word for word (and
 for the resident feed the same rows consumed and dictionary count, chunk
@@ -57,6 +66,7 @@ slot of its own.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional
@@ -374,12 +384,14 @@ def pack_resident(events_raw: bytes | np.ndarray,
 
 # ------------------------------------------------------ the native packer
 
-#: the packer's source in csrc/, and the ABI version it must report
+#: the library's source in csrc/, and the ABI version it must report
 NATIVE_SOURCE = "flowpack.cc"
-ABI_VERSION = 2
-#: the records the packer reads, in `fp_struct_sizes` order
+ABI_VERSION = 3
+#: the records the library reads, in `fp_struct_sizes` order (the
+#: pipeline's structs follow them, `_PIPE_STRUCTS`)
 _NATIVE_RECORDS = (binfmt.FLOW_KEY_DTYPE, binfmt.FLOW_STATS_DTYPE,
-                   binfmt.FLOW_EVENT_DTYPE, *_LANE_DTYPES)
+                   binfmt.FLOW_EVENT_DTYPE, *_LANE_DTYPES,
+                   binfmt.NEVENTS_REC_DTYPE)
 #: the layout constants, in `fp_layout_words` order
 _NATIVE_LAYOUT = (DENSE_WORDS, COMPACT_WORDS, RESIDENT_HDR, HOT_WORDS,
                   NK_WORDS, V4_PREFIX_WORD2)
@@ -388,7 +400,7 @@ _LIB: Optional[ctypes.CDLL] = None
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+    vp, sz, u32 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32
     for name, res, args in (
             ("fp_abi_version", ctypes.c_uint32, []),
             ("fp_struct_sizes", ctypes.c_uint32, [vp, ctypes.c_uint32]),
@@ -402,24 +414,36 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("fp_dict_count", ctypes.c_uint32, [vp]),
             ("fp_dict_lookup", None, [vp, vp, sz, vp]),
             ("fp_pack_resident", ctypes.c_int64,
-             [vp, sz, sz, vp, vp, vp, vp, vp, vp, vp, sz, sz, sz, sz, sz])):
+             [vp, sz, sz, vp, vp, vp, vp, vp, vp, vp, sz, sz, sz, sz, sz]),
+            ("fp_events_from_keys_stats", None, [vp, vp, sz, vp]),
+            ("fp_pipe_new", vp, [vp, u32, u32]),
+            ("fp_pipe_free", None, [vp]),
+            ("fp_buf_free", None, [vp]),
+            ("fp_pipe_set_drained", ctypes.c_int, [vp, u32, vp, vp, u32]),
+            ("fp_drain_to_resident", ctypes.c_int64, [vp, vp, vp]),
+            *((fn, None, [vp, sz, vp]) for fn, _ in _MERGE_FNS.values()),
+            *((fn + "_batch", None, [vp, sz, sz, vp])
+              for fn, _ in _MERGE_FNS.values())):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = res, args
 
 
 def _check_abi(lib: ctypes.CDLL, path) -> None:
     """Raise unless the library reports ABI_VERSION, the record sizes of
-    `model/binfmt`'s dtypes and this module's layout constants."""
+    `model/binfmt`'s dtypes, the sizes of this module's ctypes mirrors of
+    the pipeline's structs and this module's layout constants."""
     ver = int(lib.fp_abi_version())
     if ver != ABI_VERSION:
         raise RuntimeError(f"{path}: packer ABI version {ver}, this package "
                            f"needs {ABI_VERSION}")
-    sizes = np.zeros(len(_NATIVE_RECORDS), np.uint64)
+    want = ([dt.itemsize for dt in _NATIVE_RECORDS]
+            + [ctypes.sizeof(c) for c in _PIPE_STRUCTS])
+    sizes = np.zeros(len(want), np.uint64)
     n = int(lib.fp_struct_sizes(sizes.ctypes.data, len(sizes)))
-    want = [dt.itemsize for dt in _NATIVE_RECORDS]
     if n != len(want) or sizes.tolist() != want:
         raise RuntimeError(f"{path}: record sizes {sizes.tolist()[:n]} "
-                           f"differ from model/binfmt's {want}")
+                           "differ from model/binfmt's and the pipeline "
+                           f"structs' {want}")
     words = np.zeros(len(_NATIVE_LAYOUT), np.uint32)
     n = int(lib.fp_layout_words(words.ctypes.data, len(words)))
     if n != len(_NATIVE_LAYOUT) or words.tolist() != list(_NATIVE_LAYOUT):
@@ -516,6 +540,341 @@ def pack_resident_native(events_raw: bytes | np.ndarray,
         kdict._live_handle(), out.ctypes.data, batch_size, caps.dns, caps.drop,
         caps.nk, caps.spill)
     return out, int(consumed)
+
+
+# ------------------------------------------------------ the per-CPU merges
+
+#: merge kind -> (native entry, record dtype); the kinds of
+#: `model/accumulate.COLUMNAR_MERGES`, the plain twins
+_MERGE_FNS = {
+    "stats": ("fp_merge_stats", binfmt.FLOW_STATS_DTYPE),
+    "extra": ("fp_merge_extra", binfmt.EXTRA_REC_DTYPE),
+    "drops": ("fp_merge_drops", binfmt.DROPS_REC_DTYPE),
+    "dns": ("fp_merge_dns", binfmt.DNS_REC_DTYPE),
+    "nevents": ("fp_merge_nevents", binfmt.NEVENTS_REC_DTYPE),
+    "xlat": ("fp_merge_xlat", binfmt.XLAT_REC_DTYPE),
+    "quic": ("fp_merge_quic", binfmt.QUIC_REC_DTYPE),
+}
+
+#: rows below which splitting one map's merge over threads costs more than
+#: it saves (one batch call is already a few ns a row)
+_MERGE_LANE_MIN_ROWS = 4096
+
+
+def merge_percpu(kind: str, values: np.ndarray) -> np.ndarray:
+    """Merge one key's per-CPU partials ((n_cpu,) records of `kind`) into
+    one record, natively (reference `datapath/flowpack.py:746-761`)."""
+    fn_name, dtype = _MERGE_FNS[kind]
+    values = np.ascontiguousarray(values, dtype=dtype)
+    out = np.zeros(1, dtype=dtype)
+    getattr(native_lib(), fn_name)(values.ctypes.data, len(values),
+                                   out.ctypes.data)
+    return out[0]
+
+
+def merge_percpu_batch(kind: str, values: np.ndarray,
+                       out: Optional[np.ndarray] = None,
+                       threads: int = 1) -> np.ndarray:
+    """Merge a whole drained map's per-CPU partials ((n_keys, n_cpus)
+    records of `kind`) into (n_keys,) records in one native call
+    (reference `:769-816`); `model/accumulate.COLUMNAR_MERGES[kind]` is
+    the plain twin. `out` is a caller buffer of (n_keys,) records.
+    `threads` > 1 splits the rows of a map of at least
+    `_MERGE_LANE_MIN_ROWS` into that many contiguous ranges, one native
+    call each on the packer pool (ctypes releases the GIL)."""
+    fn_name, dtype = _MERGE_FNS[kind]
+    values = np.ascontiguousarray(values, dtype=dtype)
+    if values.ndim != 2:
+        raise ValueError(f"values must be (n_keys, n_cpus), got "
+                         f"{values.shape}")
+    n_keys, n_cpus = values.shape
+    if out is not None and (out.dtype != dtype or len(out) != n_keys
+                            or not out.flags.c_contiguous):
+        raise ValueError("out must be a contiguous (n_keys,) array of the "
+                         "record dtype")
+    if out is None:
+        out = np.zeros(n_keys, dtype=dtype)
+    if not n_keys:
+        return out
+    fn = getattr(native_lib(), fn_name + "_batch")
+
+    def run(lo: int, hi: int) -> None:
+        fn(values[lo:hi].ctypes.data, hi - lo, n_cpus, out[lo:hi].ctypes.data)
+
+    if threads > 1 and n_keys >= max(_MERGE_LANE_MIN_ROWS, 2 * threads):
+        bounds = [n_keys * i // threads for i in range(threads + 1)]
+        for f in _pack_submit(threads, [
+                functools.partial(run, bounds[i], bounds[i + 1])
+                for i in range(threads)]):
+            f.result()
+    else:
+        run(0, n_keys)
+    return out
+
+
+def events_from_keys_stats(keys: np.ndarray, stats: np.ndarray,
+                           n_total: Optional[int] = None) -> np.ndarray:
+    """FLOW_EVENT rows composed from a drain's two columns in one native
+    pass (reference `:819-852`): `keys` (n, 40) u8 or (n,) FLOW_KEY,
+    `stats` (n,) FLOW_STATS; `n_total` adds zeroed rows past n (the
+    loader's orphan rows). `model/binfmt.events_from_keys_stats` is the
+    plain twin."""
+    if keys.dtype != np.uint8:
+        keys = np.ascontiguousarray(keys).view(np.uint8).reshape(
+            -1, binfmt.FLOW_KEY_DTYPE.itemsize)
+    n = len(keys)
+    if len(stats) != n:
+        raise ValueError(f"keys/stats length mismatch: {n} vs {len(stats)}")
+    if n_total is not None and n_total < n:
+        raise ValueError(f"n_total {n_total} < {n} rows")
+    keys = np.ascontiguousarray(keys)
+    stats = np.ascontiguousarray(stats, dtype=binfmt.FLOW_STATS_DTYPE)
+    out = np.zeros(n_total if n_total is not None else n,
+                   dtype=binfmt.FLOW_EVENT_DTYPE)
+    if n:
+        native_lib().fp_events_from_keys_stats(
+            keys.ctypes.data, stats.ctypes.data, n, out.ctypes.data)
+    return out
+
+
+# ------------------------------------------------- the fused drain pipeline
+#
+# One native call (`fp_drain_to_resident`) runs the drain chain of
+# `datapath/loader.py`: every map's drain (batched bpf(2) lookup-and-delete,
+# or rows injected with `set_drained`), the per-CPU merges
+# (`fp_merge_*_batch`), the key join (`loader._join_keys`'s rules) and,
+# with a pack geometry, the resident pack of the ring's `_fold_chunk`
+# (`fp_pack_resident`), with the ring's own dictionaries. Its output is
+# the Python chain's, byte for byte (tests/test_torch_native_pipeline.py).
+
+#: map kind ids of the pipeline (flowpack.cc FPK_*); map 0 of a pipe is the
+#: aggregation map, kind "stats"
+PIPE_KINDS = {"stats": 0, "extra": 1, "dns": 2, "drops": 3,
+              "nevents": 4, "xlat": 5, "quic": 6}
+
+#: record dtype of each kind (the aligned feature arrays' dtypes)
+PIPE_DTYPES = {kind: dtype for kind, (_, dtype) in _MERGE_FNS.items()}
+
+_PIPE_MAX_MAPS = 8
+_PIPE_MAX_LADDER = 8
+
+
+class _PipeMapCfg(ctypes.Structure):
+    _fields_ = [("fd", ctypes.c_int32), ("kind", ctypes.c_uint32),
+                ("value_size", ctypes.c_uint32), ("n_cpus", ctypes.c_uint32),
+                ("max_entries", ctypes.c_uint32)]
+
+
+class _PipeLadder(ctypes.Structure):
+    _fields_ = [("k", ctypes.c_uint32), ("nr", ctypes.c_uint32),
+                ("dicts", ctypes.POINTER(ctypes.c_uint64))]
+
+
+class _PipePackCfg(ctypes.Structure):
+    _fields_ = [("n_ladder", ctypes.c_uint32), ("batch_size", ctypes.c_uint32),
+                ("batch_per_region", ctypes.c_uint32),
+                ("slot_cap", ctypes.c_uint32), ("dns_cap", ctypes.c_uint32),
+                ("drop_cap", ctypes.c_uint32), ("nk_cap", ctypes.c_uint32),
+                ("spill_cap", ctypes.c_uint32),
+                ("ladder", _PipeLadder * _PIPE_MAX_LADDER)]
+
+
+class _PipeChunk(ctypes.Structure):
+    _fields_ = [("row_start", ctypes.c_uint64), ("rows", ctypes.c_uint64),
+                ("arena_off", ctypes.c_uint64), ("k", ctypes.c_uint32),
+                ("n_segs", ctypes.c_uint32), ("spills", ctypes.c_uint32),
+                ("resets", ctypes.c_uint32)]
+
+
+class _PipeResult(ctypes.Structure):
+    _fields_ = [("n_events", ctypes.c_uint64), ("n_agg", ctypes.c_uint64),
+                ("n_orphans", ctypes.c_uint64),
+                ("packed_rows", ctypes.c_uint64),
+                ("drain_ns", ctypes.c_uint64), ("merge_ns", ctypes.c_uint64),
+                ("join_ns", ctypes.c_uint64), ("pack_ns", ctypes.c_uint64),
+                ("syscalls", ctypes.c_uint64),
+                ("lex_fallback", ctypes.c_uint64),
+                ("batch_err_mask", ctypes.c_uint64),
+                ("n_chunks", ctypes.c_uint64),
+                ("arena_words", ctypes.c_uint64),
+                ("spill_rows", ctypes.c_uint64),
+                ("dict_resets", ctypes.c_uint64), ("segs", ctypes.c_uint64),
+                ("events", ctypes.c_void_p), ("arena", ctypes.c_void_p),
+                ("chunks", ctypes.c_void_p),
+                ("aligned", ctypes.c_void_p * _PIPE_MAX_MAPS),
+                ("map_rows", ctypes.c_uint64 * _PIPE_MAX_MAPS)]
+
+
+#: the ctypes mirrors, in `fp_struct_sizes` order after the records
+_PIPE_STRUCTS = (_PipeMapCfg, _PipePackCfg, _PipeChunk, _PipeResult)
+
+
+def _pipe_view(addr: Optional[int], nbytes: int,
+               dtype) -> Optional[np.ndarray]:
+    if not addr or nbytes == 0:
+        return None
+    buf = (ctypes.c_uint8 * nbytes).from_address(addr)
+    return np.frombuffer(buf, dtype=dtype)
+
+
+class PipeChunk:
+    """One pack chunk of a fused drain: one k-chunk of the ring's `fold`
+    (reference `:958-977`). Its `n_segs` segments of `n_shards * k * lanes`
+    regions each start at word `arena_off` of the arena, one ring slot
+    image a segment."""
+
+    __slots__ = ("row_start", "rows", "arena_off", "k", "n_segs", "spills",
+                 "resets")
+
+    def __init__(self, c: _PipeChunk):
+        self.row_start = int(c.row_start)
+        self.rows = int(c.rows)
+        self.arena_off = int(c.arena_off)
+        self.k = int(c.k)
+        self.n_segs = int(c.n_segs)
+        self.spills = int(c.spills)
+        self.resets = int(c.resets)
+
+
+class PipeResult:
+    """What one fused drain gives (reference `:980-1038`). `events` and
+    `aligned[kind]` are views of the pipe's scratch, valid until its next
+    drain (the caller copies them once, into its `EvictedFlows`); the
+    packed `arena` belongs to this object until `free()`."""
+
+    __slots__ = ("n_events", "n_agg", "n_orphans", "packed_rows", "drain_s",
+                 "merge_s", "join_s", "pack_s", "syscalls", "lex_fallback",
+                 "batch_err_mask", "map_rows", "events", "aligned", "arena",
+                 "chunks", "spill_rows", "dict_resets", "segs", "_arena_ptr")
+
+    def __init__(self, res: _PipeResult, kinds: list):
+        self.n_events = int(res.n_events)
+        self.n_agg = int(res.n_agg)
+        self.n_orphans = int(res.n_orphans)
+        self.packed_rows = int(res.packed_rows)
+        self.drain_s = res.drain_ns * 1e-9
+        self.merge_s = res.merge_ns * 1e-9
+        self.join_s = res.join_ns * 1e-9
+        self.pack_s = res.pack_ns * 1e-9
+        self.syscalls = int(res.syscalls)
+        self.lex_fallback = int(res.lex_fallback)
+        self.batch_err_mask = int(res.batch_err_mask)
+        self.spill_rows = int(res.spill_rows)
+        self.dict_resets = int(res.dict_resets)
+        self.segs = int(res.segs)
+        self.map_rows = [int(res.map_rows[i]) for i in range(len(kinds))]
+        self.events = _pipe_view(
+            res.events, self.n_events * binfmt.FLOW_EVENT_DTYPE.itemsize,
+            binfmt.FLOW_EVENT_DTYPE)
+        self.aligned = {}
+        for i, kind in enumerate(kinds[1:], 1):
+            dt = PIPE_DTYPES[kind]
+            self.aligned[kind] = _pipe_view(
+                res.aligned[i], self.n_events * dt.itemsize, dt)
+        self._arena_ptr = res.arena or 0
+        self.arena = _pipe_view(self._arena_ptr, int(res.arena_words) * 4,
+                                np.uint32)
+        self.chunks = []
+        if res.n_chunks and res.chunks:
+            carr = (_PipeChunk * int(res.n_chunks)).from_address(res.chunks)
+            self.chunks = [PipeChunk(c) for c in carr]
+
+    def free(self) -> None:
+        """Free the arena (idempotent)."""
+        if self._arena_ptr:
+            native_lib().fp_buf_free(self._arena_ptr)
+            self._arena_ptr = 0
+            self.arena = None
+
+    def __del__(self):
+        if getattr(self, "_arena_ptr", 0):
+            self.free()
+
+
+class NativePipe:
+    """One `fp_drain_to_resident` pipeline over a fixed set of maps
+    (reference `:1041-1102`). `maps` is [(fd, kind, value_size, n_cpus,
+    max_entries)], map 0 the aggregation map (kind "stats", n_cpus 1); a
+    map of fd < 0 is injected (`set_drained`). `lanes` spreads the maps'
+    drains and merges over that many native threads; the call holds no
+    GIL. A configuration the library rejects raises ValueError."""
+
+    def __init__(self, maps: list, lanes: int = 1):
+        if not maps or len(maps) > _PIPE_MAX_MAPS:
+            raise ValueError(f"1..{_PIPE_MAX_MAPS} maps required")
+        self._lib = native_lib()
+        self.kinds = [m[1] for m in maps]
+        cfgs = (_PipeMapCfg * len(maps))()
+        for i, (fd, kind, value_size, n_cpus, max_entries) in enumerate(maps):
+            cfgs[i] = _PipeMapCfg(fd=fd, kind=PIPE_KINDS[kind],
+                                  value_size=value_size, n_cpus=n_cpus,
+                                  max_entries=max_entries)
+        self._handle = self._lib.fp_pipe_new(ctypes.addressof(cfgs),
+                                             len(maps), max(lanes, 1))
+        if not self._handle:
+            raise ValueError("fp_pipe_new rejected the map configuration")
+
+    def _live_handle(self) -> int:
+        if not self._handle:
+            raise ValueError("NativePipe is closed")
+        return self._handle
+
+    def set_drained(self, idx: int, keys: np.ndarray,
+                    vals: np.ndarray) -> None:
+        """Inject one drain of map `idx` (fd < 0): keys (n, 40) u8, vals
+        n rows of n_cpus records, contiguous (the kernel's layout)."""
+        keys = np.ascontiguousarray(keys)
+        vals = np.ascontiguousarray(vals)
+        rc = self._lib.fp_pipe_set_drained(
+            self._live_handle(), idx, keys.ctypes.data, vals.ctypes.data,
+            len(keys))
+        if rc != 0:
+            raise ValueError(f"fp_pipe_set_drained({idx}) failed")
+
+    def drain(self, pack: Optional[dict] = None) -> PipeResult:
+        """Run the pipeline. `pack` (None: drain, merge and join only) is
+        {"batch_size", "batch_per_region", "slot_cap", "caps":
+        ResidentCaps, "ladder": [(k, [dictionary handles])]}, the ladder
+        ascending from k = 1, the handles `NativeKeyDict._live_handle()`s
+        in the ring's per-region order
+        (`sketch/staging.ResidentPackSurface.pack_spec`). Raises
+        RuntimeError on a failed allocation or a pack that made no
+        progress."""
+        res = _PipeResult()
+        keepalive = []
+        pk_addr = None
+        if pack is not None:
+            caps, ladder = pack["caps"], pack["ladder"]
+            if len(ladder) > _PIPE_MAX_LADDER:
+                raise ValueError("ladder too deep")
+            pk = _PipePackCfg(
+                n_ladder=len(ladder), batch_size=pack["batch_size"],
+                batch_per_region=pack["batch_per_region"],
+                slot_cap=pack["slot_cap"], dns_cap=caps.dns,
+                drop_cap=caps.drop, nk_cap=caps.nk, spill_cap=caps.spill)
+            for li, (k, handles) in enumerate(ladder):
+                arr = (ctypes.c_uint64 * len(handles))(*handles)
+                keepalive.append(arr)
+                pk.ladder[li] = _PipeLadder(
+                    k=k, nr=len(handles),
+                    dicts=ctypes.cast(arr, ctypes.POINTER(ctypes.c_uint64)))
+            keepalive.append(pk)
+            pk_addr = ctypes.addressof(pk)
+        rc = int(self._lib.fp_drain_to_resident(
+            self._live_handle(), pk_addr, ctypes.addressof(res)))
+        del keepalive
+        if rc < 0:
+            raise RuntimeError(f"fp_drain_to_resident failed (rc={rc})")
+        return PipeResult(res, self.kinds)
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.fp_pipe_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()
 
 
 # ------------------------------------------------- the dense and compact feeds

@@ -229,13 +229,14 @@ the reference's signature, such as the port's `agent/supervisor.py`.
 and `supports_columnar` are the `exporter/base.Exporter` seam: the map
 tracer then forwards evictions as they are, and the terminal stage calls
 `export_evicted`. `export_batch` takes the record path's records without
-admission, as the reference's takes them: on one device it folds them in
-record order, `batch_size` a fold, apart from the evictions, with the
-columns of the reference's `FlowBatch.from_records` (`_records_to_arrays`;
-no QUIC markers, no drop cause) through the dense entry's buffers and a
-captured graph of its own (`fold_records`); in tenant mode and on a mesh
-it puts them into the pending buffer as flow events with their RTT, DNS
-and drop lanes (`_records_to_evicted`).
+admission, as the reference's takes them: in record order, `batch_size`
+a fold, apart from the evictions, with the columns of the reference's
+`FlowBatch.from_records` (`_records_to_arrays`; no QUIC markers, no drop
+cause). On one device they fold through the dense entry's buffers and a
+captured graph of their own (`fold_records`), in tenant mode as dense rows
+routed into the stack (`TenantStack.fold_rows`), and on a mesh as a
+padded batch split over the data shards into the mesh's plain ingest
+(`parallel/merge.shard_batch`, `make_sharded_ingest_fn`).
 `from_config` builds the exporter an `AgentConfig` describes
 (`config.py`): the SKETCH_* geometry, batch, window, feed, ladder,
 thresholds, overload, query, alert, archive and checkpoint settings, the
@@ -249,9 +250,21 @@ the CPU with the plain versions, repeated for a mesh; FEDERATION_TARGET
 A sampled batch trace riding an eviction (`evicted.trace`, the map
 tracer's) is parked until
 the next fold, which finishes it with its `fold` span; a second one
-arriving before that fold is finished at once. The reference's
-fused-drain branch (`evicted.packed`) waits for a fused drain (ROADMAP
-A7).
+arriving before that fold is finished at once.
+
+**The fused drain's seam** (`tpu_sketch.py:1128-1198`, `:1258-1273`,
+`:1356-1362`, `:1421-1425`). `resident_pack_surface()` gives the lanes
+ring's `staging.ResidentPackSurface` (making the ring if need be), which
+the agent binds to a fetcher's fused drain (`bind_pack_surface`,
+`datapath/loader.NativeEvictPipeline`); it is None for another ring, with
+overload control on (a packed arena cannot be thinned) and with
+`packer="python"` (the fused pack keys on the native dictionaries). An
+eviction that carries `packed` regions ships them at once, under the
+lock, before admission and before the pending buffer, through
+`ShardedResidentStagingRing.fold_packed` (`_fold_packed_locked`); an
+arena whose epoch is stale is freed and the eviction's rows take the raw
+path. Every raw fold of the ring first calls `invalidate_for_raw_fold`,
+and the ingest error's epoch roll calls `note_external_reset`.
 
 **Tenant planes** (`tenants=N`, SKETCH_TENANTS; `tpu_sketch.py:524-535`,
 `:646-693`, `:732-781`, `:1427-1444`, `:1761-1860`, `:1915-1934`,
@@ -646,13 +659,17 @@ class TorchSketchExporter:
         self._fold_rec = (CapturedFold("fold_records", self._ingest_records,
                                        self._pool)
                           if self._capture and self.mesh is None
-                          else None)
+                          and not tenants else None)
+        #: the record path's ingest on a mesh, made at its first use
+        self._mesh_rec_ingest = None
         #: the entries on the dense buffers prepared so far
         self._entries_ready: set = set()
         self._prev_index: Optional[dict] = None
         #: a sampled batch trace riding an eviction, parked for the next
         #: fold, which finishes it
         self._pending_trace = None
+        #: the fused drain's pack surface, made by `resident_pack_surface`
+        self._pack_surface: Optional[staging.ResidentPackSurface] = None
         # folds, rolls and every CUDA call of the window plane hold _lock;
         # _roll_mutex serializes the roll itself; _publish_lock the
         # publishes of the queued reports
@@ -975,36 +992,94 @@ class TorchSketchExporter:
     def export_batch(self, records: list) -> None:
         """Take the record path's records (`model/record.Record`) without
         admission, and close the window if its deadline passed
-        (`tpu_sketch.py:1208-1216`). On one device they fold as the
-        reference folds them: queued apart from the evictions, in record
-        order, `batch_size` records a fold through the record entry
-        (`_fold_record_chunk`), a partial batch at the next drain. In
-        tenant mode and on a mesh they go into the pending buffer as one
-        eviction of flow events."""
+        (`tpu_sketch.py:1208-1216`). They fold as the reference folds them
+        in every mode: queued apart from the evictions, in record order,
+        `batch_size` records a fold (`_fold_record_chunk`), a partial
+        batch at the next drain."""
         self._check_open()
-        routed = self.tenants or self.mesh is not None
-        if routed:
-            evicted = _records_to_evicted(records)
         with self._lock:
-            if routed:
-                self._ensure_ring()
-                self.pending.append(evicted, self._fold_events)
-            else:
-                self._pending_records.extend(records)
-                while len(self._pending_records) >= self.batch_size:
-                    chunk = self._pending_records[:self.batch_size]
-                    del self._pending_records[:self.batch_size]
-                    self._fold_record_chunk(chunk)
+            self._pending_records.extend(records)
+            while len(self._pending_records) >= self.batch_size:
+                chunk = self._pending_records[:self.batch_size]
+                del self._pending_records[:self.batch_size]
+                self._fold_record_chunk(chunk)
             if self._fold_due():
                 self._close_window_locked()
 
     def _fold_record_chunk(self, records: list) -> None:
         """Under the lock: fold at most `batch_size` records, contained,
-        through the dense entry's buffers and the record path's ingest
-        (`_ingest_records`)."""
-        self._ensure_entry("records", self._fold_rec)
-        self._fold_one(sk.arrays_to_dense(_records_to_arrays(records)),
-                       records=True)
+        with the columns of the reference's `FlowBatch.from_records`
+        (`_records_to_arrays`; reference `_fold`, `tpu_sketch.py:1636-1689`):
+        in tenant mode their dense rows routed into the stack
+        (`TenantStack.fold_rows`), on a mesh the batch padded to
+        `batch_size` and split over the data shards (`shard_batch`) into
+        the mesh's plain ingest, else through the dense entry's buffers and
+        the record path's ingest (`_ingest_records`)."""
+        arrays = _records_to_arrays(records)
+        if self.tenants:
+            self._fold_record_rows(sk.arrays_to_dense(arrays).reshape(
+                -1, sk.DENSE_WORDS))
+        elif self.mesh is not None:
+            self._fold_record_shards(arrays)
+        else:
+            self._ensure_entry("records", self._fold_rec)
+            self._fold_one(sk.arrays_to_dense(arrays), records=True)
+
+    def _fold_record_rows(self, rows: np.ndarray) -> None:
+        """Tenant mode: route a record chunk's dense rows into the stack,
+        contained; a wedged slot wait adopts the stack's state (reference
+        `tpu_sketch.py:1652-1677`)."""
+        t0 = time.perf_counter()
+        folds = self.ring.folds
+        trace = tracing.start_trace("fold")
+        try:
+            faultinject.fire("sketch.ingest")
+            self.state = self.ring.fold_rows(self.state, rows, trace=trace)
+        except staging.StagingWedged as exc:
+            if exc.state is not None:
+                self.state = exc.state
+            log.error("staging slot-wait budget exceeded (up to %d rows "
+                      "dropped): %s", len(rows), exc)
+            self.ingest_errors += 1
+            if self._metrics is not None:
+                self._metrics.sketch_ingest_errors_total.inc()
+                self._metrics.count_error("tpu-sketch-ingest")
+            return
+        except Exception as exc:
+            self._count_ingest_error(len(rows), exc)
+            return
+        finally:
+            self.folds += self.ring.folds - folds
+            trace.finish()
+        self._count_fold(len(rows), t0)
+
+    def _fold_record_shards(self, arrays: dict) -> None:
+        """On a mesh: the record chunk padded to `batch_size` with invalid
+        rows, as `FlowBatch.from_records` pads it, and folded, contained,
+        through the mesh's plain ingest (reference `tpu_sketch.py:1660-1666`)."""
+        t0 = time.perf_counter()
+        n = len(arrays["valid"])
+        pad = self.batch_size - n
+        arrays = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:],
+                                                 v.dtype)])
+                  for k, v in arrays.items()}
+        trace = tracing.start_trace("fold")
+        try:
+            if self._mesh_rec_ingest is None:
+                self._ensure_entry("records", None)
+                self._mesh_rec_ingest = pmerge.make_sharded_ingest_fn(
+                    self.mesh, self.cfg)
+            faultinject.fire("sketch.ingest")
+            with trace.stage("ingest_dispatch"):
+                self.state = self._mesh_rec_ingest(
+                    self.state, pmerge.shard_batch(self.mesh, arrays))
+                self.folds += 1
+        except Exception as exc:
+            self._count_ingest_error(n, exc)
+            return
+        finally:
+            trace.finish()
+        self._count_fold(n, t0)
 
     def _queued_overlap_rows(self) -> int:
         """Rows in the overlap handoff, not yet taken by the fold thread (0
@@ -1025,6 +1100,17 @@ class TorchSketchExporter:
         trace = evicted.trace
         with self._lock:
             self._ensure_ring()
+            packed = evicted.packed
+            if packed is not None:
+                # a fused drain's regions: ship them in place of the rows,
+                # or, with a stale epoch, fold the rows below
+                evicted.packed = None
+                if self._fold_packed_locked(packed, trace, len(evicted)):
+                    if trace is not None:
+                        trace.finish()
+                    if self._fold_due():
+                        self._close_window_locked()
+                    return
             ctl = self._overload
             if ctl is not None:
                 # busy: fold seconds per wall second since the last arrival
@@ -1047,6 +1133,76 @@ class TorchSketchExporter:
             self.pending.append(evicted, self._fold_events)
             if self._fold_due():
                 self._close_window_locked()
+
+    def resident_pack_surface(self) -> Optional[staging.ResidentPackSurface]:
+        """The pack surface of the fused drain (reference
+        `tpu_sketch.py:1128-1145`), made once with the ring; None when
+        the ring is not the lanes ring (`ShardedResidentStagingRing`),
+        with overload control on (the controller thins rows after the
+        drain, and a packed arena cannot be thinned) or with
+        `packer="python"` (the fused pack keys on the native
+        dictionaries)."""
+        if self._pack_surface is not None:
+            return self._pack_surface
+        if self._overload is not None or self._packer != "native":
+            return None
+        with self._lock, self._on_device():
+            self._ensure_ring()
+            if not isinstance(self.ring, staging.ShardedResidentStagingRing):
+                return None
+            self._pack_surface = staging.ResidentPackSurface(self.ring)
+        return self._pack_surface
+
+    def _fold_packed_locked(self, packed, trace, n: int) -> bool:
+        """Under the lock: ship a fused drain's arena of n rows (reference
+        `tpu_sketch.py:1147-1198`). True: shipped, or its fold failed and
+        was contained (the rows are never folded twice); False: discarded
+        (no surface, overload control on, or a stale epoch), and the
+        caller folds the eviction's rows. The arena is freed on every
+        exit."""
+        surface = self._pack_surface
+        if surface is None or self._overload is not None:
+            packed.free()
+            return False
+        with surface.lock:
+            if packed.epoch != surface.epoch:
+                # an invalidation already reset the dictionaries this
+                # arena's slots refer to
+                packed.free()
+                return False
+            surface.outstanding -= 1
+        t0 = time.perf_counter()
+        chunks = self.ring.chunks
+        owned = trace is None
+        if owned:
+            trace = tracing.start_trace("fold")
+        try:
+            with trace.stage("fold"):
+                faultinject.fire("sketch.ingest")
+                self.ring.fold_packed(self.state, packed, trace=trace)
+        except staging.StagingWedged as exc:
+            # the segments before the wedge folded into exc.state; the
+            # rest of the arena's slot definitions are lost with it
+            if exc.state is not None:
+                self.state = exc.state
+            surface.invalidate()
+            log.error("staging slot-wait budget exceeded mid packed fold "
+                      "(%d segments): %s", packed.segs, exc)
+            self.ingest_errors += 1
+            if self._metrics is not None:
+                self._metrics.sketch_ingest_errors_total.inc()
+                self._metrics.count_error("tpu-sketch-ingest")
+            return True
+        except Exception as exc:
+            self._count_ingest_error(n, exc)  # rolls the surface's epoch
+            return True
+        finally:
+            packed.free()
+            self.folds += self.ring.chunks - chunks
+            if owned:
+                trace.finish()
+        self._count_fold(n, t0)
+        return True
 
     def _start_fold_worker(self) -> None:
         """(Re)start the overlap fold thread; a supervisor uses this as the
@@ -1131,6 +1287,11 @@ class TorchSketchExporter:
         try:
             with trace.stage("fold"):
                 faultinject.fire("sketch.ingest")
+                if self._pack_surface is not None:
+                    # ship order must be dictionary order: this fold packs
+                    # now, so an arena still outstanding must not ship
+                    # after it (a no-op with none outstanding)
+                    self._pack_surface.invalidate_for_raw_fold()
                 self.ring.fold(self.state, events, trace=trace, **feats)
         except staging.StagingWedged as exc:
             # the slot-wait budget tripped at a chunk boundary: the rows not
@@ -1168,9 +1329,9 @@ class TorchSketchExporter:
 
     def _count_ingest_error(self, n: int, exc: Exception) -> None:
         """Count a contained fold of n rows, and roll the epoch of every
-        dictionary of a resident ring: the dropped chunk may have committed
-        slots whose new-key rows never reached the device key tables
-        (`tpu_sketch.py:1399-1425`)."""
+        dictionary of a resident ring, and of the pack surface: the
+        dropped chunk may have committed slots whose new-key rows never
+        reached the device key tables (`tpu_sketch.py:1399-1425`)."""
         log.error("sketch ingest failed (batch of %d dropped): %s", n, exc)
         self.ingest_errors += 1
         m = self._metrics
@@ -1187,6 +1348,10 @@ class TorchSketchExporter:
             self.ring.dict_resets += len(kdicts)
             if m is not None:
                 m.sketch_resident_dict_epochs_total.inc(len(kdicts))
+        if self._pack_surface is not None:
+            # that reset is an epoch roll: outstanding fused arenas were
+            # packed against the dictionaries before it
+            self._pack_surface.note_external_reset()
 
     def fold_dense(self, flat: np.ndarray) -> None:
         """Fold a flat uint32 dense feed (rows of 20 words, any row count;
@@ -2072,36 +2237,3 @@ def _records_to_arrays(records: list) -> dict:
             f.drop_packets
     return {"keys": pack_key_words(keys), "valid": np.ones(n, bool),
             **cols}
-
-
-def _records_to_evicted(records: list) -> EvictedFlows:
-    """Records (`model/record.Record`) as one eviction: flow events with the
-    RTT, DNS and drop lanes, from the fields the reference's
-    `FlowBatch.from_records` reads (`model/columnar.py:160-197`)."""
-    n = len(records)
-    events = np.zeros(n, binfmt.FLOW_EVENT_DTYPE)
-    extra = np.zeros(n, binfmt.EXTRA_REC_DTYPE)
-    dns = np.zeros(n, binfmt.DNS_REC_DTYPE)
-    drops = np.zeros(n, binfmt.DROPS_REC_DTYPE)
-    key, st = events["key"], events["stats"]
-    for i, r in enumerate(records):
-        k, f = r.key, r.features
-        key[i]["src_ip"] = np.frombuffer(k.src_ip, np.uint8)
-        key[i]["dst_ip"] = np.frombuffer(k.dst_ip, np.uint8)
-        key[i]["src_port"], key[i]["dst_port"] = k.src_port, k.dst_port
-        key[i]["proto"] = k.proto
-        key[i]["icmp_type"], key[i]["icmp_code"] = k.icmp_type, k.icmp_code
-        st[i]["bytes"], st[i]["packets"] = r.bytes_, r.packets
-        st[i]["tcp_flags"], st[i]["eth_protocol"] = r.tcp_flags, \
-            r.eth_protocol
-        st[i]["direction_first"], st[i]["if_index_first"] = r.direction, \
-            r.if_index
-        st[i]["dscp"], st[i]["sampling"] = r.dscp, r.sampling
-        st[i]["first_seen_ns"], st[i]["last_seen_ns"] = r.mono_start_ns, \
-            r.mono_end_ns
-        extra[i]["rtt_ns"] = f.rtt_ns
-        dns[i]["latency_ns"], dns[i]["dns_id"] = f.dns_latency_ns, f.dns_id
-        dns[i]["dns_flags"], dns[i]["errno"] = f.dns_flags, f.dns_errno
-        drops[i]["bytes"], drops[i]["packets"] = f.drop_bytes, \
-            f.drop_packets
-    return EvictedFlows(events, dns=dns, drops=drops, extra=extra)

@@ -12,9 +12,10 @@ source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
 source or header never loads a stale build. Several
 sources build in parallel, one `nvcc` process each (`build`).
 
-Host code of `csrc/` (the resident packer, `flowpack.cc` with
-`records.h`) builds the same way with the host C++ compiler
-(`build_host`: `g++ -O2 -std=c++17 -shared -fPIC`), keyed on a digest of
+Host code of `csrc/` (the packers, the per-CPU merges and the fused
+drain, `flowpack.cc` with `records.h`) builds the same way with the host
+C++ compiler (`build_host`: `g++ -O2 -std=c++17 -shared -fPIC -pthread`;
+the fused drain's lanes are threads of their own), keyed on a digest of
 the source, the host headers (`csrc/*.h`) and the flags; a missing
 compiler or a failed build raises as well.
 """
@@ -36,7 +37,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 #: shared memory one block may use on sm_90 (bytes)
 SMEM_LIMIT = 232448

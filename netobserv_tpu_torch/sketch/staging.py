@@ -83,14 +83,20 @@ graphs are its own cells'; the other cells are None). A fold makes no
 cross-process call, so no captured graph holds a collective; the ladder
 entry a fold takes depends only on its rows, the same on every rank.
 
-Not here: `ShardedResidentStagingRing.fold_packed` with
-`ResidentPackSurface`, which need the reference's fused drain pipeline
-(A7).
+**The fused drain's seam** (reference `:684-823`).
+`ShardedResidentStagingRing.fold_packed` ships regions that the fused
+drain (`datapath/loader.NativeEvictPipeline`, `fp_drain_to_resident`)
+packed at drain time with the ring's own dictionaries: each segment of
+the arena is copied into a slot's pinned buffer and shipped and
+dispatched as `_fold_chunk` ships its own pack, with the same counters
+and metrics. `ResidentPackSurface` keeps ship order equal to the order in
+which the dictionaries changed (its docstring).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 import time
 from typing import Callable, Optional
 
@@ -1173,7 +1179,137 @@ class ShardedResidentStagingRing(_SlotRing):
             self.chunks += 1
             self._advance(slot)
 
+    def fold_packed(self, state, packed, trace=None):
+        """Ship and fold regions the fused drain packed with this ring's
+        dictionaries (`datapath/loader.PackedEviction`; reference
+        `:684-751`): each segment of each chunk is copied into a slot's
+        pinned buffer, shipped and dispatched through ladder entry k as
+        `_fold_chunk` ships its own pack, and the counters and metrics
+        advance as `_fold_chunk`'s would. The caller holds the exporter's
+        lock and has checked the pack's epoch. A wedged slot wait raises
+        `StagingWedged` with the state, the segments before it folded.
+        Returns `state`, updated in place."""
+        trace, owned = self._fold_trace(trace)
+        m = self._metrics
+        try:
+            rw = self._region_words
+            for ch in packed.chunks:
+                seg_words = self.n_shards * ch.k * self.lanes * rw
+                for seg in range(ch.n_segs):
+                    try:
+                        slot = self._wait_slot(trace)
+                    except StagingWedged as exc:
+                        exc.state = state  # the segments before it folded
+                        raise
+                    off = ch.arena_off + seg * seg_words
+                    t0 = time.perf_counter()
+                    with trace.stage("resident_pack"):
+                        np.copyto(self._bufs[slot][:seg_words],
+                                  packed.arena[off:off + seg_words])
+                    self.pack_seconds += time.perf_counter() - t0
+                    self.superbatch_folds[ch.k] = \
+                        self.superbatch_folds.get(ch.k, 0) + 1
+                    self.continuations += seg > 0
+                    if m is not None:
+                        if seg:
+                            m.sketch_resident_continuations_total.inc()
+                        m.sketch_superbatch_folds_total.labels(
+                            str(ch.k)).inc()
+                    with trace.stage("ingest_dispatch"):
+                        self._dispatch(ch.k, state,
+                                       self._ship(slot, seg_words))
+                    self.chunks += 1
+                    self._advance(slot)
+                # the chunk's counters, which the native pack summed
+                self.spill_rows += ch.spills
+                self.dict_resets += ch.resets
+                if m is not None:
+                    if ch.spills:
+                        m.sketch_resident_spill_rows_total.inc(ch.spills)
+                    if ch.resets:
+                        m.sketch_resident_dict_epochs_total.inc(ch.resets)
+            return state
+        finally:
+            if owned:
+                trace.finish()
+
     def close(self) -> None:
         """Drain, then drop the buffers and the captured folds."""
         super().close()
         self.captured = None
+
+
+class ResidentPackSurface:
+    """Where the fused drain's pack (`datapath/loader.NativeEvictPipeline`)
+    meets the ring whose dictionaries it changes (reference `:754-823`).
+
+    A shipped region must carry, or follow, every slot definition its hot
+    rows name: ship order must equal the order in which the dictionaries
+    changed. A fused pack changes them at drain time and ships at fold
+    time; a raw fold packs and ships at once. So a raw fold while fused
+    arenas are outstanding (packed, not shipped) would ship their slot
+    definitions after rows that name them: `invalidate_for_raw_fold` then
+    rolls the epoch (the outstanding arenas are discarded at their fold,
+    and their rows refold raw) and resets every dictionary of the ring
+    (each live slot is defined again through the new-key lane before a
+    hot row names it). With no arena outstanding a raw fold costs
+    nothing.
+
+    Lock order: `lock` may be taken under the exporter's lock, and its
+    holder never takes the exporter's lock (the drain thread holds it
+    across the whole native call)."""
+
+    def __init__(self, ring: ShardedResidentStagingRing):
+        self.ring = ring
+        self.lock = threading.Lock()
+        self.epoch = 0
+        #: fused arenas packed and not yet shipped or discarded
+        self.outstanding = 0
+
+    def pack_spec(self) -> dict:
+        """The ring's pack geometry for `flowpack.NativePipe.drain(pack=)`:
+        the selectable ladder entries, each with its regions' dictionary
+        handles in the ring's order, region i of entry k packing with
+        dictionary `(i // kl) * kmax_l + (i % kl)`. Call under `lock`."""
+        ring = self.ring
+        kmax_l = ring.superbatch_max * ring.lanes
+        ladder = []
+        for k in sorted(k for k in ring.ladder if k in ring._available):
+            kl = k * ring.lanes
+            ladder.append((k, [
+                ring.kdicts[(i // kl) * kmax_l + (i % kl)]._live_handle()
+                for i in range(ring.n_shards * kl)]))
+        return {"batch_size": ring.batch_size,
+                "batch_per_region": ring.batch_per_region,
+                "slot_cap": ring.slot_cap, "caps": ring.caps,
+                "ladder": ladder}
+
+    def invalidate_for_raw_fold(self) -> None:
+        """Call before every raw fold of the ring while the surface is
+        bound; a no-op with no arena outstanding."""
+        with self.lock:
+            if self.outstanding:
+                self._invalidate_locked()
+
+    def invalidate(self) -> None:
+        with self.lock:
+            self._invalidate_locked()
+
+    def note_external_reset(self) -> None:
+        """The caller reset the ring's dictionaries itself (the ingest
+        error's epoch roll): roll the epoch, so outstanding arenas, packed
+        against the dictionaries before it, are discarded at their fold."""
+        with self.lock:
+            self.epoch += 1
+            self.outstanding = 0
+
+    def _invalidate_locked(self) -> None:
+        self.epoch += 1
+        self.outstanding = 0
+        ring = self.ring
+        for kd in ring.kdicts:
+            kd.reset()
+        ring.dict_resets += len(ring.kdicts)
+        if ring._metrics is not None:
+            ring._metrics.sketch_resident_dict_epochs_total.inc(
+                len(ring.kdicts))

@@ -106,14 +106,17 @@ def test_native_dictionary_count_reset_lookup_and_close(native):
 def test_native_library_reports_its_abi_and_the_binfmt_record_sizes(
         native, monkeypatch):
     assert native.fp_abi_version() == tfp.ABI_VERSION
-    sizes = np.zeros(8, np.uint64)
-    assert native.fp_struct_sizes(sizes.ctypes.data, 8) == 8
+    sizes = np.zeros(13, np.uint64)
+    assert native.fp_struct_sizes(sizes.ctypes.data, 13) == 13
     names = ("FLOW_KEY_DTYPE", "FLOW_STATS_DTYPE", "FLOW_EVENT_DTYPE",
              "EXTRA_REC_DTYPE", "DNS_REC_DTYPE", "DROPS_REC_DTYPE",
-             "XLAT_REC_DTYPE", "QUIC_REC_DTYPE")
+             "XLAT_REC_DTYPE", "QUIC_REC_DTYPE", "NEVENTS_REC_DTYPE")
     want = [getattr(tbin, n).itemsize for n in names]
-    assert sizes.tolist() == want == [getattr(jbin, n).itemsize
-                                      for n in names]
+    assert sizes.tolist()[:9] == want == [getattr(jbin, n).itemsize
+                                          for n in names]
+    # then the fused pipeline's structs, as their ctypes mirrors lay out
+    assert sizes.tolist()[9:] == [ctypes.sizeof(c)
+                                  for c in tfp._PIPE_STRUCTS]
     tfp._check_abi(native, "lib")
     monkeypatch.setattr(tfp, "ABI_VERSION", tfp.ABI_VERSION + 1)
     with pytest.raises(RuntimeError, match="ABI version"):

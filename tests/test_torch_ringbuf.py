@@ -408,3 +408,92 @@ def test_fallback_records_fold_to_the_reference_tables():
         [(r["Records"], r["Bytes"]) for r in jreports[:1]] == \
         [(float(sum(len(b) for b in ours)),
           float(events["stats"]["bytes"].sum()))]
+
+
+@pytest.fixture(scope="module")
+def contended_records():
+    """The fallback's contended records (2,400 singles over 600 flows,
+    evictions of at most 128), as each package's accounter evicts them."""
+    events = singles(np.random.default_rng(14), 2400, 600)
+    ours, _, _ = _fallback_run("port", events, 128)
+    ref, _, _ = _fallback_run("reference", events, 128)
+    return ours, ref, events
+
+
+def _routed_pair(mode: str) -> tuple:
+    """The port's exporter on the CPU and the JAX one in `mode`: three
+    tenants (the JAX exporter shown one device while it is made), or a
+    2x1 or 1x2 mesh (the port's on the CPU repeated, the JAX one's on
+    two of the 8 virtual CPU devices)."""
+    kw = dict(batch_size=512, window_s=3600.0, sink=lambda r: None)
+    jcfg = js.SketchConfig(**GEOM, use_pallas=False)
+    if mode == "tenants":
+        exp = TorchSketchExporter(ts.SketchConfig(**GEOM), device="cpu",
+                                  pack_threads=1, tenants=3, **kw)
+        devices = jax.devices
+        jax.devices = lambda *a, **k: devices(*a, **k)[:1]
+        try:
+            jexp = TpuSketchExporter(sketch_cfg=jcfg, pack_threads=1,
+                                     tenants=3, **kw)
+        finally:
+            jax.devices = devices
+        assert jexp._tenancy is not None
+        return exp, jexp
+    exp = TorchSketchExporter(ts.SketchConfig(**GEOM), device="cpu",
+                              devices=["cpu"] * 2, mesh_shape=mode,
+                              pack_threads=2, **kw)
+    jexp = TpuSketchExporter(sketch_cfg=jcfg, mesh_shape=mode,
+                             pack_threads=2, feed="dense", **kw)
+    assert jexp._distributed and exp.mesh is not None
+    return exp, jexp
+
+
+@pytest.mark.parametrize("mode", ["tenants", "2x1", "1x2"])
+def test_records_fold_to_the_reference_tables_in_tenant_and_mesh_modes(
+        contended_records, mode):
+    """Fault C14: the same contended records through both exporters'
+    `export_batch` with tenants=3 and on a 2x1 and a 1x2 mesh, one window
+    rolled between two halves of them: the second window's pre-roll
+    tables are the reference's bit for bit (each tenant's `state_tables`;
+    on a mesh every shard's leaves, the rolled EWMA baselines within
+    `tests/test_torch_mesh`'s bound), and the first window's records and
+    bytes are too."""
+    from netobserv_tpu.sketch import tenancy as jten
+    from tests.test_torch_mesh import _assert_dist
+    ours, ref, _ = contended_records
+    exp, jexp = _routed_pair(mode)
+    reports, jreports = [], []
+    exp.sink, jexp._sink = reports.append, jreports.append
+    half = len(ours) // 2
+    try:
+        for part in (slice(0, half), slice(half, None)):
+            if part.start:
+                exp.flush()
+                jexp.flush()
+            for a, b in zip(ours[part], ref[part]):
+                exp.export_batch(a)
+                jexp.export_batch(b)
+        with exp._lock:
+            exp._drain_pending()
+        with jexp._lock:
+            jexp._drain_pending_locked()
+        if mode == "tenants":
+            for t, (g, w) in enumerate(zip(exp.state_tables(),
+                                           jten.split_tenants(jexp._state,
+                                                              3))):
+                w = js.state_tables(w)
+                assert g.keys() == w.keys()
+                for k in w:
+                    np.testing.assert_array_equal(g[k], np.asarray(w[k]),
+                                                  err_msg=f"t={t} {k}")
+        else:
+            _assert_dist(exp.state, jexp._state, mode)
+            assert exp.ring is None  # records never reach the ring
+        assert exp.records == sum(len(b) for b in ours)
+    finally:
+        exp.close()
+        jexp.close()
+    n = 3 if mode == "tenants" else 1  # the first window's reports
+    per = [(r["Records"], r["Bytes"]) for r in reports[:n]]
+    assert per == [(r["Records"], r["Bytes"]) for r in jreports[:n]]
+    assert sum(r for r, _ in per) == float(sum(len(b) for b in ours[:half]))
