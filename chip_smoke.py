@@ -81,6 +81,48 @@ launch counts set to 0 just before it and read just after:
   chain's merge and align and its ring's pack, `fold_packed` ms, the
   busy share, the lanes, `os.cpu_count()`, spill rows, dictionary
   resets and segments;
+- the kernel datapath (`kernel_datapath`, ROADMAP A8.3 and A8.4's first
+  half: `datapath/asm*.py`, `syscall_bpf.py`, `loader.BpfmanFetcher` and
+  `MinimalKernelFetcher`), in three parts. (1) Always: every program of
+  the port's builders at fixed arguments (`kd_program_args`: both
+  directions of the flow program bare and with every feature's fds, the
+  RTT and drop probes with and without the sampling gate, SSL write,
+  PCA), each against the reference builders' SHA-256 (KD_PROGRAM_SHA256,
+  which `tests/test_torch_asm.py` holds against them), and the probes at
+  the live kernel's offsets where tracefs is mounted and vmlinux BTF
+  exists; an earlier line prints each program's instruction count and
+  SHA-256. (2) Where bpf(2) may create maps and bpffs is writable: the
+  maps bpfman would pin (`aggregated_flows` of KD_CAPACITY, per-CPU
+  `flows_extra`, `flows_dns` and `flows_drops` over every possible CPU,
+  `global_counters`), pinned under a directory of the phase's own and
+  filled by BPF_MAP_UPDATE_BATCH (`bpf_update_batch`) with the
+  fused_drain phase's evictions of EVICT_LARGE rows, each key once (a
+  repeat takes another source port), split as `_split_maps` splits them
+  over the possible CPUs. A timed run drains them with
+  `BpfmanFetcher(native_pipeline=True, drain_lanes=KD_LANES)` bound to a
+  lanes exporter's pack surface (the gate asserted engaged: drain 1 the
+  Python chain, every later one fused), another with the raw fetcher
+  (`native_pipeline=False`), each drain and export timed between two
+  synchronizations, the fill not; launches a fold's per dispatch, no
+  plain version, no capture or retrace; then a checked run, the fused
+  and raw drains of each content in lock step into a fused exporter and
+  a raw twin, each fused drain byte for byte against the raw one and
+  each half's tables bit for bit. It prints per 16,384 records the
+  native call's drain, merge, join and pack ms (the raw chain's merge,
+  align and decode), records/s and the busy share, beside this run's
+  fused_drain figures over injected maps, and unpins everything, also on
+  failure. (3) Where the process is also root, `tc` is present and the
+  kernel has TCX: `MinimalKernelFetcher` (DNS on, so its gate has a map)
+  through the verifier, attached by TCX (no qdisc, no device made) to
+  the loopback device on both directions, KD_LIVE_PER_PORT datagrams to
+  each of KD_LIVE_PORTS on 127.0.0.1, drained into a lanes exporter:
+  every flow captured with its packets and bytes as sent, counted once a
+  pass of a hook (twice a datagram on the loopback device), and the
+  window's records those drained; detached and closed in a `finally`.
+  A part whose probe says no prints one line naming the missing
+  capability (`bpf(2): EPERM`, `not root`, `no tc`, `no tcx`) and does
+  not run; once a probe says yes, any failure of the part fails the
+  script;
 - the window thread (`window_thread`), the lanes path's exporter with its
   window thread on (`window_s` = WINDOW_S), a metrics registry where
   `prometheus_client` imports, tracing at sample 1.0 and a sink that
@@ -2557,10 +2599,10 @@ FD_KINDS = ("extra", "dns", "drops")
 FD_SEED = 21
 
 
-def _split_maps(rng, events, feats) -> list:
+def _split_maps(rng, events, feats, n_cpus: int = FD_CPUS) -> list:
     """An eviction as a drain's injected maps: [(keys (n, 40) u8, values
     (n, n_cpus) records)], the aggregation map (the stats, one CPU) first,
-    then each of FD_KINDS at FD_CPUS CPUs, whose partials merge to the
+    then each of FD_KINDS at `n_cpus` CPUs, whose partials merge to the
     row's record (the drop counters split over the CPUs at seeded cuts,
     every other field the record's on each CPU), about FD_ORPHANS of its
     rows under a key the aggregation map lacks (its pad byte set)."""
@@ -2573,11 +2615,11 @@ def _split_maps(rng, events, feats) -> list:
         fk = keys.copy()
         orphan = rng.random(n) < FD_ORPHANS
         fk[orphan, 39] = 0xA5
-        parts = np.repeat(rec[:, None], FD_CPUS, axis=1)
+        parts = np.repeat(rec[:, None], n_cpus, axis=1)
         if kind == "drops":
             for col in ("bytes", "packets"):
                 total = rec[col].astype(np.int64)
-                cut = np.sort((rng.random((n, FD_CPUS - 1))
+                cut = np.sort((rng.random((n, n_cpus - 1))
                                * (total[:, None] + 1)).astype(np.int64),
                               axis=1)
                 edges = np.concatenate([np.zeros((n, 1), np.int64), cut,
@@ -2914,6 +2956,570 @@ def _fd_checked(windows: list, cuts: list) -> dict:
         fexp.close()
         twin.close()
         maps_in.gate.close()
+
+
+#: the kernel datapath phase (`kernel_datapath`): the capacity of the
+#: pinned maps, the drain lanes, the seed of the map contents' splits
+KD_CAPACITY = 131_072
+KD_LANES = 8
+KD_SEED = 22
+#: the live capture: datagrams of KD_LIVE_PAYLOAD bytes from one source
+#: port, KD_LIVE_PER_PORT to each of KD_LIVE_PORTS destination ports
+KD_LIVE_SPORT = 45_123
+KD_LIVE_PORTS = range(47_000, 47_300)
+KD_LIVE_PER_PORT = 2
+KD_LIVE_PAYLOAD = 120
+#: the fixed tracepoint offsets of the probe programs' builds
+KD_RTT_FIELDS = {"saddr": 8, "daddr": 36, "sport": 64, "dport": 66,
+                 "family": 68, "srtt": 92}
+KD_DROP_FIELDS = {"skbaddr": 8, "reason": 28}
+#: the fixed map fds of the builds, one integer a map
+KD_FDS = {"ringbuf_fd": 11, "counters_fd": 12, "dns_inflight_fd": 13,
+          "flows_dns_fd": 14, "rtt_inflight_fd": 15, "flows_extra_fd": 16,
+          "filter_rules_fd": 17, "filter_peers_fd": 18, "flows_quic_fd": 19,
+          "sampling_gate_fd": 20}
+
+
+class KdOffsets:
+    """Fixed sk_buff and sock offsets, the BTF reader of the drop
+    program's fixed build."""
+
+    TABLE = {("sk_buff", "len"): 112, ("sk_buff", "head"): 200,
+             ("sk_buff", "network_header"): 182,
+             ("sk_buff", "transport_header"): 180, ("sk_buff", "sk"): 24,
+             ("sock", "__sk_common.skc_state"): 18}
+
+    def offset_of(self, struct_name: str, path: str) -> int:
+        return self.TABLE[(struct_name, path)]
+
+
+def kd_program_args() -> list:
+    """Every program of the builders at fixed arguments, as (name, module
+    of `datapath/`, builder, args, kwargs): both directions of the flow
+    program with no feature and with every feature's fds set, the probe
+    programs with and without the sampling gate, the SSL-write and PCA
+    programs."""
+    all_fds = {**KD_FDS, "dns_port": 53, "quic_mode": 2, "enable_tls": True,
+               "has_filter_sampling": True}
+    out = []
+    for d in (0, 1):
+        out.append((f"flow_dir{d}_none", "asm_flowpath",
+                    "build_flow_program", (3,), {"direction": d}))
+        out.append((f"flow_dir{d}_all", "asm_flowpath", "build_flow_program",
+                    (3,), {"direction": d, "sampling": 50, **all_fds}))
+    for gate in (None, 20):
+        g = "gate" if gate else "nogate"
+        out.append((f"rtt_{g}", "asm_probes", "build_rtt_tracepoint_program",
+                    (dict(KD_RTT_FIELDS), 16, gate), {}))
+        out.append((f"drops_{g}", "asm_probes", "build_drops_program",
+                    (KdOffsets(), 21, dict(KD_DROP_FIELDS)),
+                    {"sampling_gate_fd": gate}))
+    out.append(("ssl_write", "asm_ssl", "build_ssl_write_program", (9,), {}))
+    out.append(("pca_none", "asm_pca", "build_pca_program", (9,), {}))
+    out.append(("pca_all", "asm_pca", "build_pca_program", (9,),
+                {"sampling": 4, "direction": 1, "filter_rules_fd": 17,
+                 "filter_peers_fd": 18, "counters_fd": 12}))
+    return out
+
+
+#: SHA-256 of each program of `kd_program_args`, the reference builders'
+#: (tests/test_torch_asm.py holds this table against them)
+KD_PROGRAM_SHA256 = {
+    "flow_dir0_none":
+        "357e53706a517be722298b1c2391986b1630e62268f07b69d5560437193e30e1",
+    "flow_dir0_all":
+        "41cf07a11503ee3939a33c6c6cc76302dd18150e2408c633eec0af9614982a1f",
+    "flow_dir1_none":
+        "bdaf08725eac7652f718043cc1772d007f97dc6aa9c7b640815ff92a7df6b22f",
+    "flow_dir1_all":
+        "1dfe27782be2f7e5095600eb85c77f5a74168ccbf335e199fb1c2cb8d033b235",
+    "rtt_nogate":
+        "8b583c16b295eb239e4e3965d0177c1a9cc6ff06e640cccfb4121337b625749b",
+    "drops_nogate":
+        "7cfc19af7a5c51d792cf24487e99b1080d3823560aea049e9170b6e636ccf858",
+    "rtt_gate":
+        "e294901c18a7f98af0571d09332ba704acda45cf323f83d650fcdd36764ceffd",
+    "drops_gate":
+        "1053aa41ce00b288e6a764eef75813640bf3d521bade8c2d419abccbb1a00547",
+    "ssl_write":
+        "7f3243922623ec36ec3d8ca4b80a878022fbe8265319705c57dd3f4ab46f6cc7",
+    "pca_none":
+        "6cf4e748c1b06e0059ed0850df2978e05a3538feaffb96b20cb16ba88fdcd0dd",
+    "pca_all":
+        "d2d385631989f767bcb1a9c8f0991dcd839af2f870448c64a9499ce7b2af8e56"}
+
+
+def _kd_builders() -> dict:
+    """Part 1: every program of `kd_program_args` from the port's builders,
+    each against its SHA-256 in KD_PROGRAM_SHA256; then the probe programs
+    at the live kernel's offsets where tracefs is mounted and vmlinux BTF
+    exists (not mounted: the fixed table; a reader would mount it)."""
+    import hashlib
+    import importlib
+    import os
+    from netobserv_tpu_torch.datapath import btf, uprobe
+    progs = {}
+    for name, mod, fn, args, kw in kd_program_args():
+        code = getattr(importlib.import_module(
+            f"netobserv_tpu_torch.datapath.{mod}"), fn)(*args, **kw)
+        progs[name] = {"insns": len(code) // 8,
+                       "sha256": hashlib.sha256(code).hexdigest()}
+    bad = [n for n, p in progs.items()
+           if p["sha256"] != KD_PROGRAM_SHA256.get(n)]
+    check(not bad, f"programs {bad} differ from the reference builders'")
+    live = {}
+    from netobserv_tpu_torch.datapath import asm_probes
+    if os.path.isdir(os.path.join(uprobe._TRACEFS, "events")):
+        rtt = uprobe.tracepoint_fields("tcp", "tcp_probe")
+        live["rtt_live"] = asm_probes.build_rtt_tracepoint_program(rtt, 16)
+        if btf.available():
+            live["drops_live"] = asm_probes.build_drops_program(
+                btf.kernel_btf(), 21, uprobe.tracepoint_fields(
+                    "skb", "kfree_skb"))
+    for name, code in live.items():
+        check(code and len(code) % 8 == 0, f"{name}: no program")
+        progs[name] = {"insns": len(code) // 8,
+                       "sha256": hashlib.sha256(code).hexdigest()}
+    return progs
+
+
+def _kd_probe_bpf() -> str | None:
+    """None where this process can create BPF maps and pin them on a
+    writable bpffs; else the missing capability."""
+    import errno
+    import os
+    from netobserv_tpu_torch.datapath import syscall_bpf as sb
+    try:
+        sb.BpfMap.create(1, 4, 8, 4, b"probe").close()
+    except OSError as exc:
+        return f"bpf(2): {errno.errorcode.get(exc.errno, exc.errno)}"
+    if not (os.path.ismount("/sys/fs/bpf")
+            and os.access("/sys/fs/bpf", os.W_OK)):
+        return "bpffs: not mounted writable at /sys/fs/bpf"
+    return None
+
+
+def _kd_unique(ev, lanes):
+    """An eviction as a map holds it, each key once: the k-th repeat of
+    a key within the eviction takes another source port (a connection
+    of its own), and a key still repeated after is dropped."""
+    import numpy as np
+    n = len(ev)
+    ev = ev.copy()
+    lanes = {k: v.copy() for k, v in lanes.items()}
+
+    def void(e):
+        return np.ascontiguousarray(e["key"]).view(
+            np.dtype((np.void, 40))).ravel()
+
+    _u, inv = np.unique(void(ev), return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    starts = np.r_[0, np.flatnonzero(np.diff(inv[order])) + 1]
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n) - np.repeat(starts, np.diff(np.r_[starts,
+                                                                  n]))
+    sp = ev["key"]["src_port"].astype(np.int64)
+    ev["key"]["src_port"] = (sp ^ ((rank * 0x9E37) & 0xFFFF)).astype(
+        ev["key"]["src_port"].dtype)
+    _u, first = np.unique(void(ev), return_index=True)
+    keep = np.sort(first)
+    return ev[keep], {k: v[keep] for k, v in lanes.items()}
+
+
+class _KdMaps:
+    """The maps bpfman would pin, made and pinned under a directory of the
+    phase's own: the aggregation map, the per-CPU extra, DNS and drop maps
+    over every possible CPU, and the global counters."""
+
+    def __init__(self):
+        import os
+        from netobserv_tpu_torch.datapath import flowpack
+        from netobserv_tpu_torch.datapath import syscall_bpf as sb
+        from netobserv_tpu_torch.model import binfmt
+        from netobserv_tpu_torch.model.flow import GlobalCounter
+        self.dir = f"/sys/fs/bpf/netobserv_torch_smoke_{os.getpid()}"
+        self.n_cpus = sb.n_possible_cpus()
+        self.maps = {}
+        os.makedirs(self.dir, exist_ok=True)
+        try:
+            self.maps["aggregated_flows"] = sb.BpfMap.create(
+                1, 40, binfmt.FLOW_STATS_DTYPE.itemsize, KD_CAPACITY, b"agg")
+            for kind in FD_KINDS:
+                self.maps[f"flows_{kind}"] = sb.BpfMap.create(
+                    5, 40, flowpack.PIPE_DTYPES[kind].itemsize, KD_CAPACITY,
+                    kind.encode())
+            self.maps["global_counters"] = sb.BpfMap.create(
+                6, 4, 8, int(GlobalCounter.MAX), b"ctrs")
+            for name, m in self.maps.items():
+                m.pin(os.path.join(self.dir, name))
+        except BaseException:
+            self.close()
+            raise
+
+    def fill(self, maps: list) -> float:
+        """One eviction's contents (`_split_maps`) into the maps; seconds."""
+        t0 = time.perf_counter()
+        for (keys, vals), name in zip(maps, ["aggregated_flows"] + [
+                f"flows_{k}" for k in FD_KINDS]):
+            bpf_update_batch(self.maps[name], keys, vals)
+        return time.perf_counter() - t0
+
+    def close(self) -> None:
+        import shutil
+        for m in self.maps.values():
+            m.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _kd_evictions(events, n_cpus: int) -> list:
+    """The fused drain phase's evictions of EVICT_LARGE rows (the integer
+    stream cut by `_stream_evictions`, both windows), each made a map's
+    content (`_kd_unique`) and split over `n_cpus` CPUs (`_split_maps`,
+    seed KD_SEED)."""
+    import numpy as np
+    ev_all, lanes_all = _integer_stream(events)
+    gen = _stream_evictions(len(ev_all))
+    out, rng = [], np.random.default_rng(KD_SEED)
+    for _ in range(WINDOWS):
+        end = 0
+        while end < len(ev_all):
+            lo, end = next(gen)
+            if end - lo < EVICT_LARGE[0]:
+                continue
+            ev, lanes = _kd_unique(ev_all[lo:end], {
+                k: lanes_all[k][lo:end] for k in FD_KINDS})
+            out.append(_split_maps(rng, ev, lanes, n_cpus))
+    return out
+
+
+def _kd_timed(specs, kmaps, evictions: list, fused: bool) -> dict:
+    """One timed run over `evictions`: each filled into the real maps,
+    then drained by the port's `BpfmanFetcher` (KD_LANES lanes; `fused`:
+    EVICT_NATIVE_PIPELINE, bound to the exporter's pack surface) and
+    exported, the device synchronized before and after (the fill is not
+    timed); the second half under torch.profiler for the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from netobserv_tpu_torch.datapath.loader import BpfmanFetcher
+    from netobserv_tpu_torch.utils import retrace
+    exp, surface = _fd_exporter()
+    fetcher = BpfmanFetcher(kmaps.dir, drain_lanes=KD_LANES,
+                            native_pipeline=fused)
+    try:
+        if fused:
+            fetcher.bind_pack_surface(surface)
+        captures0 = [c.captures for c in exp.captures]
+        retraces0 = retrace.total_retraces()
+        torch.cuda.synchronize()
+        for sp in specs:
+            sp["kernel"].launches = 0
+        folds0 = exp.folds
+        half = len(evictions) // 2
+        secs, fill_s, rows, paths = [0.0, 0.0], 0.0, [0, 0], []
+        native, chain = {}, {"merge_s": 0.0, "align_s": 0.0, "decode_s": 0.0}
+        prof = None
+        for i, maps in enumerate(evictions):
+            part = int(i >= half)
+            if i == half:
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            fill_s += kmaps.fill(maps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev = fetcher.lookup_and_delete()
+            exp.export_evicted(ev)
+            torch.cuda.synchronize()
+            secs[part] += time.perf_counter() - t0
+            rows[part] += len(ev)
+            st = ev.decode_stats
+            paths.append(st.get("native_path", "chain"))
+            if "native" in st:
+                for k, v in st["native"].items():
+                    native[k] = native.get(k, 0.0) + v
+            else:
+                for k in chain:
+                    chain[k] += st[k]
+        prof.__exit__(None, None, None)
+        dev = _device_rows(prof)
+        check(dev, "the profiler saw no device time")
+        busy = sum(r[0] for r in dev) / 1e6 / secs[1]
+        with exp._lock:
+            exp._drain_pending()
+        torch.cuda.synchronize()
+        launches = {sp["name"]: sp["kernel"].launches for sp in specs}
+        folds = exp.folds - folds0
+        check(launches == _want_launches(specs, "lanes", folds),
+              f"real maps, fused={fused}: launches {launches} for "
+              f"{folds} folds")
+        check([c.captures for c in exp.captures] == captures0
+              and retrace.total_retraces() == retraces0,
+              f"real maps, fused={fused}: a capture or a retrace")
+        check(exp.records == sum(rows) and exp.ingest_errors == 0,
+              f"real maps: {exp.records} records folded of {sum(rows)}")
+        gate = fetcher._native_gate
+        if fused:
+            check(gate is not None and gate._pipe is not None
+                  and not gate.disabled
+                  and paths == ["chain"] + ["fused"] * (len(paths) - 1),
+                  f"the fused gate did not stay engaged: {paths}")
+        else:
+            check(gate is None and set(paths) == {"chain"},
+                  f"the raw fetcher ran {set(paths)}")
+        per = BATCH / sum(rows) * 1e3
+        return {"records_per_s": [r / t for r, t in zip(rows, secs)],
+                "rows": rows, "drain_export_s": secs,
+                "fill_ms_per_16384": fill_s * per,
+                "device_busy_share_second_half": busy,
+                "host_ms_per_16384": (
+                    {k[:-2]: v * per for k, v in native.items()} if fused
+                    else {k[:-2]: v * per for k, v in chain.items()}),
+                "drain_lanes": fetcher._drain_lanes, "folds": folds,
+                "launches": launches, "paths": paths[:2]}
+    finally:
+        fetcher.close()
+        exp.close()
+
+
+def _kd_checked(kmaps, evictions: list) -> dict:
+    """The checked run: a fused exporter fed the fused fetcher's drains and
+    a raw twin fed the raw fetcher's drains of the same contents, in lock
+    step (`_fd_checked`'s order: every pending row folded before a fused
+    drain packs, and after a shipped arena); each fused drain's events and
+    features byte for byte against the raw drain's, and each half's
+    tables bit for bit."""
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.datapath.loader import BpfmanFetcher
+    from netobserv_tpu_torch.sketch import state as sk
+    fexp, surface = _fd_exporter()
+    twin, _ts = _fd_exporter()
+    ffetch = rfetch = None
+    out = {"drains_checked": 0, "windows_bit_equal": 0, "fused_drains": 0}
+    try:
+        ffetch = BpfmanFetcher(kmaps.dir, drain_lanes=KD_LANES,
+                               native_pipeline=True)
+        rfetch = BpfmanFetcher(kmaps.dir, drain_lanes=KD_LANES)
+        ffetch.bind_pack_surface(surface)
+
+        def drain_both():
+            for x in (fexp, twin):
+                with x._lock:
+                    x._drain_pending()
+
+        half = len(evictions) // 2
+        for i, maps in enumerate(evictions):
+            if i and len(fexp.pending):
+                drain_both()
+            kmaps.fill(maps)
+            ev = ffetch.lookup_and_delete()
+            kmaps.fill(maps)
+            want = rfetch.lookup_and_delete()
+            check(ev.events.tobytes() == want.events.tobytes()
+                  and all(getattr(ev, k).tobytes()
+                          == getattr(want, k).tobytes() for k in FD_KINDS),
+                  "a fused drain of real maps differs from the raw drain")
+            out["drains_checked"] += 1
+            out["fused_drains"] += ev.decode_stats["native_path"] == "fused"
+            shipped = ev.packed is not None and \
+                ev.packed.epoch == surface.epoch
+            twin.export_evicted(want)
+            if shipped:
+                with twin._lock:
+                    twin._drain_pending()
+            fexp.export_evicted(ev)
+            if i + 1 in (half, len(evictions)):
+                drain_both()
+                got, exp_t = (sk.state_tables(x.state) for x in (fexp, twin))
+                diff = [k for k in exp_t
+                        if not np.array_equal(got[k], exp_t[k])]
+                check(not diff, f"real maps: tables {diff} differ from "
+                      "the raw twin's")
+                check(fexp.records == twin.records, "records differ")
+                out["windows_bit_equal"] += 1
+                fexp.roll()
+                twin.roll()
+        torch.cuda.synchronize()
+        check(out["fused_drains"] == len(evictions) - 1,
+              f"{out['fused_drains']} fused drains of {len(evictions)}")
+        check(fexp.ingest_errors == twin.ingest_errors == 0,
+              "ingest errors")
+        return out
+    finally:
+        for f in (ffetch, rfetch):
+            if f is not None:
+                f.close()
+        fexp.close()
+        twin.close()
+
+
+def _kd_live() -> dict:
+    """Part 3: `MinimalKernelFetcher` (the port's bytecode through the
+    kernel verifier; DNS on, so that it has a feature map and
+    EVICT_NATIVE_PIPELINE a gate) attached by TCX to the loopback device
+    on both directions; KD_LIVE_PER_PORT datagrams to each of
+    KD_LIVE_PORTS on 127.0.0.1; the drains into a lanes exporter on the
+    card. Every flow's packets and bytes as sent, counted once a pass of
+    a hook on its first-seen interface (both hooks are on the loopback
+    device: twice a datagram)."""
+    import socket
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.datapath.loader import MinimalKernelFetcher
+    lo = socket.if_nametoindex("lo")
+    exp, surface = _fd_exporter()
+    fetcher = None
+    try:
+        fetcher = MinimalKernelFetcher(cache_max_flows=4096,
+                                       attach_mode="tcx", enable_dns=True,
+                                       native_pipeline=True)
+        fetcher.bind_pack_surface(surface)
+        fetcher.attach(lo, "lo", "both")
+        kinds = {a.kind for a in fetcher._attached[("", lo)][1].values()}
+        check(kinds == {"tcx"}, f"attached as {kinds}")
+        first = fetcher.lookup_and_delete()  # the gate's probe drain
+        exp.export_evicted(first)
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.bind(("127.0.0.1", KD_LIVE_SPORT))
+        try:
+            for port in KD_LIVE_PORTS:
+                for _ in range(KD_LIVE_PER_PORT):
+                    s.sendto(b"z" * KD_LIVE_PAYLOAD, ("127.0.0.1", port))
+        finally:
+            s.close()
+        time.sleep(0.3)
+        ev = fetcher.lookup_and_delete()
+        check(ev.decode_stats.get("native_path") == "fused",
+              f"the live drain ran {ev.decode_stats.get('native_path')}")
+        k, st = ev.events["key"], ev.events["stats"]
+        mine = (k["proto"] == 17) & (k["src_port"] == KD_LIVE_SPORT)
+        ports = sorted(int(p) for p in k["dst_port"][mine])
+        check(ports == list(KD_LIVE_PORTS),
+              f"{len(ports)} flows captured of {len(KD_LIVE_PORTS)}")
+        want_pkts = 2 * KD_LIVE_PER_PORT
+        want_bytes = want_pkts * (KD_LIVE_PAYLOAD + 42)
+        check(bool(np.all(st["packets"][mine] == want_pkts)
+                   and np.all(st["bytes"][mine] == want_bytes)
+                   and np.all(st["n_observed_intf"][mine] == 1)
+                   and np.all(st["if_index_first"][mine] == lo)),
+              "a captured flow's packets or bytes differ from those sent")
+        exp.export_evicted(ev)
+        with exp._lock:
+            exp._drain_pending()
+        torch.cuda.synchronize()
+        report = exp.roll()
+        rep = report if isinstance(report, dict) else report[0]
+        check(rep["Records"] == len(first) + len(ev)
+              and exp.ingest_errors == 0,
+              f"the window folded {rep['Records']} of "
+              f"{len(first) + len(ev)} records")
+        return {"flows": len(ports), "packets_per_flow": want_pkts,
+                "bytes_per_flow": want_bytes, "evicted_rows": len(ev),
+                "other_rows": int((~mine).sum()), "attach": "tcx",
+                "window_records": rep["Records"]}
+    finally:
+        if fetcher is not None:
+            fetcher.close()
+        exp.close()
+
+
+def phase_kernel_datapath(specs, events, card: str,
+                          injected: dict | None = None) -> dict:
+    """The kernel datapath's programs and its bpf(2) layer (module
+    docstring, `kernel_datapath`); `injected` is this run's fused_drain
+    fused run, whose figures over injected maps print beside the real
+    maps'."""
+    import os
+    import shutil
+    from netobserv_tpu_torch.datapath import kernel
+    t0 = time.perf_counter()
+    out = {"phase": "kernel_datapath", "card": card,
+           "programs": _kd_builders(), "parts_run": ["builders"],
+           "skipped": {}}
+    emit({"phase": "kernel_datapath_builders",
+          "programs": out.pop("programs")})
+    why = _kd_probe_bpf()
+    if why is not None:
+        print(f"kernel_datapath: real maps and live capture skipped: {why}",
+              flush=True)
+        out["skipped"]["real_maps"] = out["skipped"]["live_capture"] = why
+    else:
+        kmaps = _KdMaps()
+        try:
+            evictions = _kd_evictions(events, kmaps.n_cpus)
+            plains: dict = {}
+            with counting_plains(specs, plains):
+                fused = _kd_timed(specs, kmaps, evictions, fused=True)
+                raw = _kd_timed(specs, kmaps, evictions, fused=False)
+                checked = _kd_checked(kmaps, evictions)
+            check(not plains, f"real maps: plain versions ran {plains}")
+        finally:
+            kmaps.close()
+        check(not os.path.exists(kmaps.dir), "the pin directory remains")
+        out["parts_run"].append("real_maps")
+        out.update({"n_possible_cpus": kmaps.n_cpus,
+                    "evictions": len(evictions),
+                    "eviction_keys": [len(m[0][0]) for m in evictions],
+                    "fused": fused, "raw": raw, "checks": checked,
+                    "launches": fused["launches"],
+                    "raw_launches": raw["launches"],
+                    "injected_maps": None if injected is None else {
+                        "host_ms_per_16384": injected["host_ms_per_16384"],
+                        "records_per_s": injected["records_per_s"],
+                        "device_busy_share_window1":
+                            injected["device_busy_share_window1"]}})
+        live_why = ("not root" if os.geteuid() != 0 else
+                    "no tc" if shutil.which("tc") is None else
+                    None if kernel.supports_tcx() else
+                    f"no tcx (kernel {kernel.current_release()})")
+        if live_why is not None:
+            print(f"kernel_datapath: live capture skipped: {live_why}",
+                  flush=True)
+            out["skipped"]["live_capture"] = live_why
+        else:
+            plains = {}
+            with counting_plains(specs, plains):
+                out["live"] = _kd_live()
+            check(not plains, f"live capture: plain versions ran {plains}")
+            out["parts_run"].append("live_capture")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+#: bpf(2) command of a batched map update (uapi/linux/bpf.h)
+BPF_MAP_UPDATE_BATCH = 26
+
+
+def bpf_update_batch(bmap, keys, vals) -> None:
+    """Write n entries into a real map in one BPF_MAP_UPDATE_BATCH call:
+    keys (n, key_size) u8, vals (n, n_cpus) records of the map's value
+    size (each CPU's record padded to the kernel's 8-byte stride for a
+    per-CPU map). A later duplicate key overwrites an earlier one, as
+    the kernel applies the entries in order."""
+    import struct
+    import numpy as np
+    from netobserv_tpu_torch.datapath import syscall_bpf as sb
+    keys = np.ascontiguousarray(keys, np.uint8)
+    n, vs = len(keys), bmap.value_size
+    if (keys.ndim != 2 or keys.shape[1] != bmap.key_size or len(vals) != n
+            or vals.shape[1:] != (bmap.n_cpus,)
+            or vals.dtype.itemsize != vs):
+        raise ValueError(
+            f"keys {keys.shape} / values {vals.shape} of {vals.dtype.itemsize}"
+            f" B do not fit a map of key {bmap.key_size} B, value {vs} B "
+            f"at {bmap.n_cpus} CPUs")
+    if not n:
+        return
+    pad = (vs + 7) & ~7 if bmap.percpu else vs
+    buf = np.zeros((n, bmap.n_cpus, pad), np.uint8)
+    buf[:, :, :vs] = np.ascontiguousarray(vals).view(np.uint8).reshape(
+        n, bmap.n_cpus, vs)
+    attr = bytearray(struct.pack(
+        "=QQQQIIQQ", 0, 0, keys.ctypes.data, buf.ctypes.data, n, bmap.fd,
+        0, 0))
+    sb._bpf_inout(BPF_MAP_UPDATE_BATCH, attr)
+    done = struct.unpack_from("=I", attr, 32)[0]
+    if done != n:
+        raise OSError(f"batched update wrote {done} of {n} entries")
 
 
 #: fault C14's check on the card: integer-mass records a mode
@@ -7670,6 +8276,10 @@ def main() -> int:
         phase = "fused_drain"
         fd_res = phase_fused_drain(specs, events, dev["nvidia_smi"])
         emit(fd_res)
+        phase = "kernel_datapath"
+        kd_res = phase_kernel_datapath(specs, events, dev["nvidia_smi"],
+                                       fd_res["fused"])
+        emit(kd_res)
         phase = "window_thread"
         wt_res = phase_window_thread(specs, universe, pool, events)
         emit(wt_res)
@@ -7733,6 +8343,10 @@ def main() -> int:
                 "lanes": lanes_res["launches"],
                 "fused_drain": fd_res["launches"],
                 "fused_drain_raw": fd_res["raw_launches"],
+                # the real maps' runs, where this machine allows bpf(2)
+                **({"kernel_datapath": kd_res["launches"],
+                    "kernel_datapath_raw": kd_res["raw_launches"]}
+                   if "launches" in kd_res else {}),
                 "window_thread": wt_res["launches"],
                 "query_plane": qp_res["launches"],
                 "federation": fed_res["launches"],

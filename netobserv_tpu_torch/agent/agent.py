@@ -13,18 +13,21 @@ exporter to test it.
 
 Left out, each refused by `config.AgentConfig.validate` when asked for
 (ROADMAP A8): SSL correlation and tracing (ENABLE_OPENSSL_TRACKING), so
-the accounter takes no SSL correlator; UDN mapping (ENABLE_UDN_MAPPING),
-the OVN network-events decoder (ENABLE_NETWORK_EVENTS_MONITORING), kernel
-flow filters (FLOW_FILTER_RULES, `program_filters`), the fused native
-drain (EVICT_NATIVE_PIPELINE, which only the kernel fetchers build, A8.4)
-and the bpfman datapath; and the interface listener, which only the
-kernel fetchers ask for (`needs_iface_discovery`). The fused drain's
+the accounter takes no SSL correlator; UDN mapping (ENABLE_UDN_MAPPING)
+and the OVN network-events decoder (ENABLE_NETWORK_EVENTS_MONITORING);
+and the interface listener, which only the self-managed kernel fetchers
+ask for (`needs_iface_discovery`, ROADMAP A8.5). The fused drain's
 binding is here (`:120-131`): a fetcher with `bind_pack_surface` is given
-the exporter's `resident_pack_surface()` where that is not None.
-`build_fetcher` knows `DATAPATH=synthetic` and `DATAPATH=pcap:<file>`;
-every other value, unset and `auto` among them, raises `ValueError`
-naming ROADMAP A8, where the reference loads a kernel datapath or falls
-back to synthetic replay.
+the exporter's `resident_pack_surface()` where that is not None; so is the
+kernel flow filters' programming (`:170-171`): with FLOW_FILTER_RULES set,
+a fetcher with `program_filters` is given the parsed rules.
+`build_fetcher` knows `DATAPATH=synthetic`, `DATAPATH=pcap:<file>` and,
+with EBPF_PROGRAM_MANAGER_MODE, the bpfman datapath
+(`datapath/loader.BpfmanFetcher` over the pinned maps, `:353-355`); every
+other value, unset, `auto` and `kernel` among them, raises `ValueError`
+naming ROADMAP A8.4b and A8.5 (the clang-built kernel datapath, its
+fallback ladder and the interface listener), where the reference loads a
+kernel datapath or falls back to synthetic replay.
 """
 
 from __future__ import annotations
@@ -141,6 +144,10 @@ class FlowsAgent:
 
         if cfg.sampling:
             self.metrics.sampling_rate.set(cfg.sampling)
+
+        # program kernel flow filters when the datapath supports it
+        if cfg.flow_filter_rules and hasattr(fetcher, "program_filters"):
+            fetcher.program_filters(cfg.parsed_filter_rules())
 
         # query plane: the sketch exporter's QueryRoutes, which the metrics
         # server serves at /query/*
@@ -277,9 +284,11 @@ class FlowsAgent:
 def build_fetcher(cfg: AgentConfig) -> FlowFetcher:
     """The datapath DATAPATH names: "synthetic" (zipf-skewed synthetic
     flows) or "pcap:<path>" (a pcap replayed one CACHE_ACTIVE_TIMEOUT of
-    capture an eviction). The kernel datapaths, the gRPC ingest and the
+    capture an eviction); else, with EBPF_PROGRAM_MANAGER_MODE, the bpfman
+    datapath over the maps pinned at BPFMAN_BPF_FS_PATH (reference
+    `agent.py:353-355`). The gRPC ingest is ROADMAP A8, and the
     reference's default ("auto": the kernel loader, else synthetic replay)
-    are ROADMAP A8 and raise."""
+    and "kernel" are A8.4b and A8.5: each raises."""
     mode = os.environ.get("DATAPATH", "auto")
     if mode.startswith("pcap:"):
         from netobserv_tpu_torch.datapath.replay import PcapReplayFetcher
@@ -287,10 +296,17 @@ def build_fetcher(cfg: AgentConfig) -> FlowFetcher:
     if mode == "synthetic":
         from netobserv_tpu_torch.datapath.replay import SyntheticFetcher
         return SyntheticFetcher()
+    if mode.startswith("grpc:"):
+        raise ValueError(
+            f"DATAPATH={mode!r}: the gRPC ingest is not ported (ROADMAP A8)")
+    if cfg.ebpf_program_manager_mode:
+        from netobserv_tpu_torch.datapath.loader import BpfmanFetcher
+        return BpfmanFetcher.load(cfg)
     raise ValueError(
-        f"DATAPATH={mode!r}: the port replays only DATAPATH=synthetic or "
-        "DATAPATH=pcap:<file>; the kernel datapaths and the gRPC ingest are "
-        "not ported (ROADMAP A8)")
+        f"DATAPATH={mode!r}: the port replays DATAPATH=synthetic or "
+        "DATAPATH=pcap:<file>, or drains bpfman's pinned maps with "
+        "EBPF_PROGRAM_MANAGER_MODE; the self-managed kernel datapath and "
+        "its fallback ladder are not ported (ROADMAP A8.4b, A8.5)")
 
 
 def resolve_agent_ip(cfg: AgentConfig) -> str:

@@ -401,11 +401,6 @@ _UNPORTED = (
     ("enable_udn_mapping", "ENABLE_UDN_MAPPING", "UDN mapping"),
     ("enable_network_events_monitoring", "ENABLE_NETWORK_EVENTS_MONITORING",
      "the OVN network-events decoder"),
-    ("flow_filter_rules", "FLOW_FILTER_RULES", "kernel flow filters"),
-    ("ebpf_program_manager_mode", "EBPF_PROGRAM_MANAGER_MODE",
-     "the bpfman datapath"),
-    ("evict_native_pipeline", "EVICT_NATIVE_PIPELINE",
-     "the fused native drain pipeline on the kernel fetchers' maps"),
 )
 
 

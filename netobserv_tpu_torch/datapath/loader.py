@@ -1,23 +1,34 @@
-"""The drain chain: from a drained kernel map to the exporter's eviction.
+"""The kernel datapath's fetchers and their drain chain: from a kernel map
+to the exporter's eviction.
 
-Counterpart of the drain half of `netobserv_tpu/datapath/loader.py`
-(`:85-465`), kept as a copy so the port imports nothing of the JAX
-package: `_hash_keys_u64`, `_join_keys`, `_drain_map_arrays` and
-`decode_eviction` (the Python chain: per-CPU merges, the key join, the
-one copy into an `EvictedFlows`), `PackedEviction`, `NativeEvictPipeline`
-(the fused drain's gate) and `resolve_drain_lanes`. The kernel fetchers
-that own real maps (`BpfmanFetcher`, `MinimalKernelFetcher`,
-`LibbpfKernelFetcher`) and their drain lanes come with ROADMAP A8.4; until
-then the gate runs over any fetcher of their duck type (`_agg`, and
-`_features` of attr -> (map, record dtype), each map with `fd`, `n_cpus`,
-`max_entries`, `_no_batch_ops` and `_pad_vs`), as the tests and
-`chip_smoke.py` drive it with injected maps (fd < 0).
+Counterpart of `netobserv_tpu/datapath/loader.py` (`:60-72`, `:85-1279`),
+kept as a copy so the port imports nothing of the JAX package:
+
+- the drain chain: `_hash_keys_u64`, `_join_keys`, `_drain_map_arrays` and
+  `decode_eviction` (the Python chain: per-CPU merges, the key join, the
+  one copy into an `EvictedFlows`), `PackedEviction`,
+  `NativeEvictPipeline` (the fused drain's gate) and `resolve_drain_lanes`;
+- `BpfmanFetcher` (EBPF_PROGRAM_MANAGER_MODE): an external manager owns the
+  programs and pins the maps on bpffs, and the fetcher drains them through
+  `datapath/syscall_bpf`, with drain lanes and the fused gate;
+- `MinimalKernelFetcher`: the self-managed datapath of the hand-assembled
+  programs (`datapath/asm_flowpath`, `asm_probes`, `asm_ssl`), its maps
+  created and its programs loaded through the kernel verifier and attached
+  by TCX or tc (`_SelfManagedAttach`), with the flow-filter tries.
 
 The merges, the event compose and the fused pipeline are the port's
 native library (`datapath/flowpack.py`, `csrc/flowpack.cc`); a library
 that cannot be built raises, and nothing falls back to the numpy forms
 (`model/accumulate.COLUMNAR_MERGES`, `model/binfmt.events_from_keys_stats`),
-which stay the tests' plain twins.
+which stay the tests' plain twins. The gate also runs over any fetcher of
+`BpfmanFetcher`'s duck type (`_agg`, and `_features` of attr -> (map,
+record dtype), each map with `fd`, `n_cpus`, `max_entries`,
+`_no_batch_ops` and `_pad_vs`), as tests drive it with injected maps.
+
+Not here yet: the libbpf fetchers of the clang-built object
+(`LibbpfKernelFetcher`, `KernelFetcher` and its fallback ladder, ROADMAP
+A8.4b) and the packet fetchers of PCA (`MinimalPacketFetcher`,
+`LibbpfPacketFetcher`, `load_packet_fetcher`, ROADMAP A8.8).
 """
 
 from __future__ import annotations
@@ -29,14 +40,32 @@ from typing import Optional
 
 import numpy as np
 
-from netobserv_tpu_torch.datapath import flowpack
+from netobserv_tpu_torch.config import AgentConfig
+from netobserv_tpu_torch.datapath import flowpack, syscall_bpf
 from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
 from netobserv_tpu_torch.model import binfmt
+from netobserv_tpu_torch.model.flow import GlobalCounter
 from netobserv_tpu_torch.utils import tracing
 
 log = logging.getLogger("netobserv_tpu_torch.datapath.loader")
 
 _U64_MAX = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
+
+# (map name, value dtype, EvictedFlows attr) — ALL per-CPU feature maps the
+# fetcher drains at eviction (reference merges every enabled feature map,
+# pkg/tracer/tracer.go:1057-1110, incl. quic_flows at :1098-1110). The attr
+# doubles as the flowpack merge kind.
+_FEATURE_MAPS = [
+    ("flows_extra", binfmt.EXTRA_REC_DTYPE, "extra"),
+    ("flows_dns", binfmt.DNS_REC_DTYPE, "dns"),
+    ("flows_drops", binfmt.DROPS_REC_DTYPE, "drops"),
+    ("flows_nevents", binfmt.NEVENTS_REC_DTYPE, "nevents"),
+    ("flows_xlat", binfmt.XLAT_REC_DTYPE, "xlat"),
+    ("flows_quic", binfmt.QUIC_REC_DTYPE, "quic"),
+]
+
+
+
 _KEY_SIZE = binfmt.FLOW_KEY_DTYPE.itemsize
 _KEY_WORDS64 = _KEY_SIZE // 8
 
@@ -389,3 +418,870 @@ def resolve_drain_lanes(requested: int, n_feature_maps: int) -> int:
     if requested <= 0:
         return max(1, min(n_feature_maps, os.cpu_count() or 1))
     return min(requested, _MAX_DRAIN_LANES)
+
+
+class BpfmanFetcher:
+    """FlowFetcher over maps pinned by an external manager (bpfman mode).
+
+    Eviction runs the columnar plane (decode_eviction); with more than one
+    DRAIN LANE (EVICT_DRAIN_LANES) the per-feature-map drain→per-CPU-merge
+    pairs run on a worker pool — one batched bpf(2) syscall stream per lane
+    — while the calling thread drains the aggregation map, and the
+    vectorized `_join_keys` alignment stays the single join point. The
+    zero-copy drain-view lifetime rule holds PER LANE: a lane's views alias
+    only its own map's cached batch buffers, each map is owned by exactly
+    one lane per drain, and every view is copied out at the EvictedFlows
+    boundary before lookup_and_delete returns (pinned by
+    tests/test_evict_parallel.py + the bpffs aliasing suite). Drains
+    serialize (MapTracer's eviction lock), so a lane's buffers are never
+    redrained while its views are still being aligned.
+
+    Reference: `netobserv_tpu/datapath/loader.py:466`."""
+
+    needs_iface_discovery = False  # program lifecycle is externally managed
+    # class-level default so partially-constructed fetchers (subclasses
+    # mid-__init__, test stubs) read an absent gate, never AttributeError
+    _native_gate: Optional["NativeEvictPipeline"] = None
+
+    def __init__(self, bpf_fs_path: str, drain_lanes: int = 0,
+                 native_pipeline: bool = False):
+        """Reference: `netobserv_tpu/datapath/loader.py:487`."""
+        self._n_cpus = syscall_bpf.n_possible_cpus()
+        self._base = bpf_fs_path
+
+        def openmap(name, value_size, per_cpu):
+            return syscall_bpf.BpfMap.open_pinned(
+                os.path.join(bpf_fs_path, name),
+                key_size=binfmt.FLOW_KEY_DTYPE.itemsize,
+                value_size=value_size,
+                n_cpus=self._n_cpus if per_cpu else 1)
+
+        self._agg = openmap("aggregated_flows",
+                            binfmt.FLOW_STATS_DTYPE.itemsize, False)
+        self._features = {}
+        for name, dtype, attr in _FEATURE_MAPS:
+            try:
+                self._features[attr] = (openmap(name, dtype.itemsize, True),
+                                        dtype)
+            except OSError:
+                log.debug("pinned map %s absent (feature disabled)", name)
+        try:
+            self._counters = syscall_bpf.BpfMap.open_pinned(
+                os.path.join(bpf_fs_path, "global_counters"), key_size=4,
+                value_size=8, n_cpus=self._n_cpus)
+        except OSError:
+            self._counters = None
+        # map-full fallback ring buffer (consumed via mmap when pinned)
+        self._ringbuf = None
+        try:
+            rb_map = syscall_bpf.BpfMap.open_pinned(
+                os.path.join(bpf_fs_path, "direct_flows"), key_size=0,
+                value_size=0)
+            self._ringbuf = syscall_bpf.RingBufReader(rb_map)
+        except (OSError, ValueError):
+            log.debug("pinned direct_flows ringbuf absent; fallback disabled")
+        # OpenSSL-uprobe plaintext events (consumed via mmap when pinned)
+        self._ssl_rb = None
+        try:
+            ssl_map = syscall_bpf.BpfMap.open_pinned(
+                os.path.join(bpf_fs_path, "ssl_events"), key_size=0,
+                value_size=0)
+            self._ssl_rb = syscall_bpf.RingBufReader(ssl_map)
+        except (OSError, ValueError):
+            log.debug("pinned ssl_events ringbuf absent")
+        self._init_drain_lanes(drain_lanes)
+        if native_pipeline and self._features:
+            self._native_gate = NativeEvictPipeline(self, self._drain_lanes)
+
+    def _init_drain_lanes(self, drain_lanes: int) -> None:
+        """Provision the drain-lane pool (shared by the subclassed
+        self-managed fetchers, which call this after their own map setup).
+        Sequential resolution (1 lane) keeps the pool unbuilt — the
+        parallel path is then one is-None check.
+
+        Reference: `netobserv_tpu/datapath/loader.py:536`."""
+        self._drain_lanes = resolve_drain_lanes(drain_lanes,
+                                                len(self._features))
+        self._drain_pool = None
+        # EVICT_NATIVE_PIPELINE gate (bpfman mode only; unset = one
+        # is-None check on the drain path)
+        self._native_gate: Optional[NativeEvictPipeline] = None
+        if self._drain_lanes > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            # the pool never needs more workers than maps — lanes beyond
+            # the map count become per-map merge row-shards instead
+            # (_lookup_and_delete_lanes mthreads)
+            self._drain_pool = ThreadPoolExecutor(
+                max_workers=min(self._drain_lanes, len(self._features)),
+                thread_name_prefix="evict-drain")
+            log.info("eviction drain lanes: %d (feature maps: %d)",
+                     self._drain_lanes, len(self._features))
+
+    @classmethod
+    def load(cls, cfg: AgentConfig) -> "BpfmanFetcher":
+        """Reference: `netobserv_tpu/datapath/loader.py:559`."""
+        return cls(cfg.bpfman_bpf_fs_path,
+                   drain_lanes=cfg.evict_drain_lanes,
+                   native_pipeline=cfg.evict_native_pipeline)
+
+    def bind_pack_surface(self, surface) -> None:
+        """Exporter hook: with EVICT_NATIVE_PIPELINE engaged, fused drains
+        also pack resident regions with the exporter ring's dictionaries
+        (staging.ResidentPackSurface). No-op when the gate is off.
+
+        Reference: `netobserv_tpu/datapath/loader.py:564`."""
+        if self._native_gate is not None:
+            self._native_gate.bind_pack_surface(surface)
+
+    def map_capacity(self) -> int:
+        """max_entries of the kernel aggregation map — the denominator of
+        the map-pressure watermark. In bpfman mode the external manager
+        sized the map, so the agent reads the REAL capacity instead of
+        trusting its own CACHE_MAX_FLOWS; 0 when unknown.
+
+        Reference: `netobserv_tpu/datapath/loader.py:571`."""
+        if self._agg is None:
+            return 0
+        return int(getattr(self._agg, "max_entries", 0) or 0)
+
+    def lookup_and_delete(self) -> EvictedFlows:
+        """Reference: `netobserv_tpu/datapath/loader.py:580`."""
+        # columnar eviction plane: whole-array drain decode -> one batched
+        # per-CPU merge per feature map -> vectorized key alignment. Child
+        # spans ride the batch trace map_tracer bound for this drain (per
+        # drain, never per record; unsampled drains get the null trace).
+        trace = tracing.active_trace()
+        t0 = time.perf_counter()
+        if self._native_gate is not None:
+            evicted = self._native_gate.drain(trace, t0)
+            if evicted is not None:
+                return evicted
+            # probe drain or disqualified: island chain carries this one
+        if self._drain_pool is not None and self._features:
+            evicted = self._lookup_and_delete_lanes(trace, t0)
+            if self._native_gate is not None:
+                evicted.decode_stats["native_path"] = "chain"
+            return evicted
+        with trace.stage("decode"):
+            agg_keys, agg_vals = _drain_map_arrays(
+                self._agg, binfmt.FLOW_STATS_DTYPE)
+            drained = {attr: _drain_map_arrays(fmap, dtype)
+                       for attr, (fmap, dtype) in self._features.items()}
+        t1 = time.perf_counter()
+        evicted = decode_eviction(agg_keys, agg_vals, drained, trace=trace)
+        evicted.decode_stats["decode_s"] = t1 - t0
+        evicted.decode_stats["drain_lanes"] = 1
+        evicted.decode_stats["seconds"] = time.perf_counter() - t0
+        if self._native_gate is not None:
+            evicted.decode_stats["native_path"] = "chain"
+        return evicted
+
+    def _lookup_and_delete_lanes(self, trace, t0: float) -> EvictedFlows:
+        """Parallel drain lanes: each worker owns one feature map for this
+        drain — batched drain syscalls + the native per-CPU merge, both of
+        which release the GIL, run concurrently across maps while the
+        calling thread drains the (largest) aggregation map. Merged records
+        are fresh arrays; only the key views still alias lane buffers, and
+        `decode_eviction` copies them out before returning (the per-lane
+        zero-copy lifetime rule — class docstring).
+
+        Reference: `netobserv_tpu/datapath/loader.py:611`."""
+        # maps with fewer lanes than workers row-shard their native merge
+        mthreads = max(1, self._drain_lanes // max(1, len(self._features)))
+
+        def lane(attr, fmap, dtype):
+            ks, vals = _drain_map_arrays(fmap, dtype)
+            tm = time.perf_counter()
+            recs = flowpack.merge_percpu_batch(attr, vals,
+                                               threads=mthreads)
+            return attr, ks, recs, time.perf_counter() - tm
+
+        with trace.stage("decode"):
+            futs = [self._drain_pool.submit(lane, attr, fmap, dtype)
+                    for attr, (fmap, dtype) in self._features.items()]
+            agg_keys, agg_vals = _drain_map_arrays(
+                self._agg, binfmt.FLOW_STATS_DTYPE)
+            lanes = [f.result() for f in futs]
+        t1 = time.perf_counter()
+        # vals half None: the per-CPU partials were consumed in-lane —
+        # decode_eviction's merged= contract (never smuggle merged
+        # records into the partials slot)
+        drained = {attr: (ks, None) for attr, ks, _recs, _dt in lanes}
+        evicted = decode_eviction(
+            agg_keys, agg_vals, drained, trace=trace,
+            merged={attr: recs for attr, _ks, recs, _dt in lanes})
+        # merge ran inside the lanes: report the summed lane CPU (the
+        # overlap evidence — decode_s is the whole section's WALL)
+        evicted.decode_stats["merge_s"] = sum(dt for *_x, dt in lanes)
+        evicted.decode_stats["decode_s"] = t1 - t0
+        evicted.decode_stats["drain_lanes"] = self._drain_lanes
+        evicted.decode_stats["seconds"] = time.perf_counter() - t0
+        return evicted
+
+    def read_ringbuf(self, timeout_s: float) -> Optional[bytes]:
+        """Consume the map-full fallback ring buffer (mmap reader) — the
+        reference's bpfman branch also runs the ringbuf reader over the
+        pinned map.
+
+        Reference: `netobserv_tpu/datapath/loader.py:651`."""
+        if self._ringbuf is None:
+            time.sleep(timeout_s)
+            return None
+        return self._ringbuf.read(timeout_s)
+
+    def read_ssl(self, timeout_s: float) -> Optional[bytes]:
+        """Reference: `netobserv_tpu/datapath/loader.py:660`."""
+        if self._ssl_rb is None:
+            time.sleep(timeout_s)
+            return None
+        return self._ssl_rb.read(timeout_s)
+
+    def read_global_counters(self) -> dict[GlobalCounter, int]:
+        """Reference: `netobserv_tpu/datapath/loader.py:666`."""
+        out: dict[GlobalCounter, int] = {}
+        if self._counters is None:
+            return out
+        import struct as _struct
+        for ctr in GlobalCounter:
+            if ctr is GlobalCounter.MAX:
+                continue
+            key = _struct.pack("=I", ctr.value)
+            raw = self._counters.lookup(key)
+            if raw is None:
+                continue
+            total = sum(_struct.unpack_from("=Q", raw, off)[0]
+                        for off in range(0, len(raw), 8))
+            if total:
+                out[ctr] = total
+                # reset by writing zeros
+                self._counters.update(key, b"\x00" * len(raw))
+        return out
+
+    def program_filters(self, rules) -> int:
+        """Compile FLOW_FILTER_RULES into the pinned LPM tries (reference:
+        Filter.ProgramFilter). Returns the number of rules written; 0 when
+        the filter maps aren't pinned.
+
+        Reference: `netobserv_tpu/datapath/loader.py:686`."""
+        from netobserv_tpu_torch.datapath import filter_compile
+
+        compiled = filter_compile.compile_filters(rules)
+        rules_map = peers_map = None
+        try:
+            try:
+                rules_map = syscall_bpf.BpfMap.open_pinned(
+                    os.path.join(self._base, "filter_rules"),
+                    key_size=filter_compile.FILTER_KEY_SIZE,
+                    value_size=filter_compile.FILTER_RULE_SIZE)
+                peers_map = syscall_bpf.BpfMap.open_pinned(
+                    os.path.join(self._base, "filter_peers"),
+                    key_size=filter_compile.FILTER_KEY_SIZE, value_size=1)
+            except OSError:
+                log.warning("filter maps not pinned; FLOW_FILTER_RULES ignored")
+                return 0
+            if (rules_map.max_entries
+                    and len(compiled.rules) > rules_map.max_entries):
+                raise ValueError(
+                    f"{len(compiled.rules)} filter rules exceed the pinned "
+                    f"trie capacity {rules_map.max_entries}")
+            for key, value in compiled.rules:
+                rules_map.update(key, value)
+            for key, value in compiled.peers:
+                peers_map.update(key, value)
+        finally:
+            if rules_map is not None:
+                rules_map.close()
+            if peers_map is not None:
+                peers_map.close()
+        # NOTE: matching only takes effect if the external manager loaded the
+        # datapath with cfg_enable_flow_filtering=1 (a load-time constant this
+        # process cannot flip)
+        log.info("wrote %d filter rules (+%d peer CIDRs); effective only if "
+                 "the datapath was loaded with filtering enabled",
+                 len(compiled.rules), len(compiled.peers))
+        return len(compiled.rules)
+
+    # no_dns_corr_key layout (bpf/maps.h); value = u64 query timestamp (mono)
+    DNS_CORR_KEY_SIZE = 40
+
+    def purge_stale(self, older_than_s: float) -> int:
+        """Drop unanswered DNS/RTT correlations older than the deadline
+        (reference: DeleteMapsStaleEntries, `tracer.go:1188-1216`). Lazily
+        opens the pinned correlation maps; returns the purge count.
+
+        Reference: `netobserv_tpu/datapath/loader.py:731`."""
+        for attr, pin in (("_dns_inflight", "dns_inflight"),
+                          ("_rtt_inflight", "rtt_inflight")):
+            if not hasattr(self, attr):
+                try:
+                    setattr(self, attr, syscall_bpf.BpfMap.open_pinned(
+                        os.path.join(self._base, pin),
+                        key_size=self.DNS_CORR_KEY_SIZE, value_size=8))
+                except (OSError, ValueError):
+                    setattr(self, attr, None)
+        import struct as _struct
+
+        deadline = time.clock_gettime_ns(time.CLOCK_MONOTONIC) - int(
+            older_than_s * 1e9)
+        purged = 0
+        # both correlation maps hold a u64 monotonic stamp per 40-byte key
+        for corr in (self._dns_inflight, self._rtt_inflight):
+            if corr is None:
+                continue
+            for key in corr.keys():
+                raw = corr.lookup(key)
+                if raw is None:
+                    continue
+                (sent_ns,) = _struct.unpack_from("=Q", raw, 0)
+                if sent_ns < deadline:
+                    if corr.delete(key):
+                        purged += 1
+        if purged:
+            log.debug("purged %d stale correlations (dns/rtt)", purged)
+        return purged
+
+    def attach(self, if_index: int, if_name: str, direction: str,
+               netns: str = "") -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:765`."""
+        pass  # programs are attached by the external manager
+
+    def detach(self, if_index: int, if_name: str,
+               netns: str = "") -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:769`."""
+        pass
+
+    def close(self) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:773`."""
+        if getattr(self, "_drain_pool", None) is not None:
+            self._drain_pool.shutdown(wait=True)
+            self._drain_pool = None
+        if getattr(self, "_native_gate", None) is not None:
+            self._native_gate.close()
+            self._native_gate = None
+        self._agg.close()
+        for fmap, _ in self._features.values():
+            fmap.close()
+        if self._counters is not None:
+            self._counters.close()
+        if self._ringbuf is not None:
+            self._ringbuf.close()
+        if self._ssl_rb is not None:
+            self._ssl_rb.close()
+        for attr in ("_dns_inflight", "_rtt_inflight"):
+            corr = getattr(self, attr, None)
+            if corr is not None:
+                corr.close()
+
+
+BPF_MAP_TYPE_LPM_TRIE = 11
+BPF_F_NO_PREALLOC = 1
+
+
+def _create_filter_tries():
+    """(filter_rules, filter_peers) LPM tries — shared by the flow and PCA
+    self-managed fetchers.
+
+    Reference: `netobserv_tpu/datapath/loader.py:799`."""
+    from netobserv_tpu_torch.datapath import filter_compile
+
+    rules = syscall_bpf.BpfMap.create(
+        BPF_MAP_TYPE_LPM_TRIE, filter_compile.FILTER_KEY_SIZE,
+        filter_compile.FILTER_RULE_SIZE, filter_compile.MAX_FILTER_RULES,
+        b"filter_rules", flags=BPF_F_NO_PREALLOC)
+    peers = syscall_bpf.BpfMap.create(
+        BPF_MAP_TYPE_LPM_TRIE, filter_compile.FILTER_KEY_SIZE, 1,
+        filter_compile.MAX_FILTER_RULES, b"filter_peers",
+        flags=BPF_F_NO_PREALLOC)
+    return rules, peers
+
+
+def _program_filter_tries(rules_map, peers_map, rules) -> int:
+    """Compile FLOW_FILTER_RULES into live LPM tries; returns rules written.
+
+    Reference: `netobserv_tpu/datapath/loader.py:815`."""
+    from netobserv_tpu_torch.datapath import filter_compile
+
+    compiled = filter_compile.compile_filters(rules)
+    for key, value in compiled.rules:
+        rules_map.update(key, value)
+    for key, value in compiled.peers:
+        peers_map.update(key, value)
+    return len(compiled.rules)
+
+
+class _SelfManagedAttach:
+    """TC/TCX attach lifecycle shared by the self-managed fetchers (flow +
+    PCA): per-direction pinned programs, tcx/tc/any mode dispatch, netns
+    entry, stale legacy cleanup, and full detach on close. Users provide
+    `self._prog_fds`/`self._pins` (direction -> fd / pin path) and
+    `self._mode`; `self._attached` maps (netns, if_index) -> (name, dir ->
+    Attachment).
+
+    Reference: `netobserv_tpu/datapath/loader.py:827`."""
+
+    def attach(self, if_index: int, if_name: str, direction: str,
+               netns: str = "") -> None:
+        """Attach inside `netns` when named: the calling thread enters the
+        namespace for the attach syscalls (ifindex resolves there; TCX links
+        and tc subprocesses bind to it) and restores itself after (reference:
+        interfaces_listener.go:272-298 netns-scoped attach).
+
+        Reference: `netobserv_tpu/datapath/loader.py:835`."""
+        from netobserv_tpu_torch.datapath import tc_attach
+        from netobserv_tpu_torch.ifaces.netns import netns_context
+
+        wanted = (["ingress", "egress"] if direction == "both"
+                  else [direction])
+        name, done = self._attached.setdefault(
+            (netns, if_index), (if_name, {}))
+
+        def stale_cleanup():
+            # first legacy attach on this interface: drop stale clsact state
+            # from prior runs (reference removeTCFilters, tracer.go:542-566);
+            # never run when TCX succeeded — it would destroy third-party
+            # clsact filters for nothing
+            if not any(a.kind == "tc" for a in done.values()):
+                tc_attach.remove_clsact(if_name)
+
+        with netns_context(netns):
+            for d in wanted:
+                if d in done:
+                    continue  # idempotent across listener retries
+                done[d] = tc_attach.attach_mode(
+                    self._prog_fds[d], self._pins[d], if_name, if_index, d,
+                    mode=self._mode, pre_legacy=stale_cleanup)
+
+    def detach(self, if_index: int, if_name: str,
+               netns: str = "") -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:865`."""
+        from netobserv_tpu_torch.ifaces.netns import netns_context
+
+        entry = self._attached.pop((netns, if_index), None)
+        if entry is None:
+            return
+        name, done = entry
+        # TCX link closes are namespace-agnostic (fd-bound); legacy tc CLI
+        # detaches must run inside the namespace. Enter it separately so a
+        # failed entry/exit never re-runs detach on already-closed link fds.
+        ctx = netns_context(netns)
+        entered = True
+        try:
+            ctx.__enter__()
+        except OSError as exc:
+            entered = False
+            log.debug("cannot enter netns %r to detach %s (%s); tc filters "
+                      "die with the namespace", netns, name, exc)
+        try:
+            for d, att in done.items():
+                if att.kind == "tc" and not entered:
+                    continue  # tc CLI would hit the wrong namespace
+                try:
+                    att.detach()
+                except Exception as exc:
+                    log.debug("detach %s %s failed: %s", name, d, exc)
+        finally:
+            if entered:
+                try:
+                    ctx.__exit__(None, None, None)
+                except OSError as exc:  # pragma: no cover - setns restore
+                    log.warning("failed to restore netns after detach: %s",
+                                exc)
+
+    def _sweep_stale_pins(self) -> None:
+        """Unpin leftovers from crashed runs (their TC filters die with the
+        clsact qdisc, which attach() resets per interface; TCX links die with
+        their fds at process exit — only the pins linger).
+
+        Reference: `netobserv_tpu/datapath/loader.py:900`."""
+        import glob
+
+        for path in glob.glob(self._PIN_PREFIX + "*"):
+            try:
+                os.unlink(path)
+                log.info("removed stale program pin %s", path)
+            except OSError:
+                pass
+
+    def _init_empty_maps(self) -> None:
+        """The inherited eviction path expects these BpfmanFetcher fields;
+        everything close() touches is initialized here so a failed
+        _provision can clean up safely.
+
+        Reference: `netobserv_tpu/datapath/loader.py:913`."""
+        self._n_cpus = syscall_bpf.n_possible_cpus()
+        self._base = ""
+        self._features = {}
+        self._drain_pool = None
+        self._drain_lanes = 1
+        self._agg = None
+        self._prog_fds = {}
+        self._pins = {}
+        self._attached = {}
+        self._counters = None
+        self._ringbuf = None
+        self._ssl_rb = None
+        self._ssl_map = None
+        self._ssl_uprobe = None
+        self._kprobes = []
+        self._gate_map = None
+        self._dns_inflight = None
+        self._rtt_inflight = None
+        self._rb_map = None
+        self._filter_rules = None
+        self._filter_peers = None
+
+    def _teardown_attachments(self) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:939`."""
+        from netobserv_tpu_torch.datapath import tc_attach
+        from netobserv_tpu_torch.ifaces.netns import netns_context
+
+        for key in list(self._attached):
+            netns, if_index = key
+            name, dirs = self._attached[key]
+            legacy = any(att.kind == "tc" for att in dirs.values())
+            try:
+                self.detach(if_index, name, netns=netns)
+                if legacy:
+                    with netns_context(netns):
+                        tc_attach.remove_clsact(name)
+            except Exception as exc:
+                log.debug("cleanup of %s failed: %s", name, exc)
+        for fd in set(self._prog_fds.values()):
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+        for pin in set(self._pins.values()):
+            if os.path.exists(pin):
+                os.unlink(pin)
+
+
+class MinimalKernelFetcher(_SelfManagedAttach, BpfmanFetcher):
+    """Self-managed kernel datapath from the hand-assembled flow program
+    (datapath/asm_flowpath.py): creates the maps, loads one program per
+    direction through the live verifier, attaches/detaches interfaces via
+    TCX/TC, and evicts with the same syscall drain as bpfman mode.
+
+    Feature coverage (each gated on config, like the C datapath's
+    loader-rewritten constants): IPv4+IPv6 TCP/UDP/ICMP flows with MACs/DSCP/
+    TCP flags, first-seen-interface dedup, 1/N sampling, DNS latency tracking
+    (dns_inflight correlation + per-CPU flows_dns feature map), map-full
+    fallback into the direct_flows ring buffer, and global health counters.
+    Remaining clang-object-only features: in-kernel flow filter, TLS/QUIC
+    inline trackers, RTT/drops/network-events probes (reference:
+    pkg/tracer/tracer.go:92-273 loads the CO-RE object instead).
+
+    Reference: `netobserv_tpu/datapath/loader.py:964`."""
+
+    needs_iface_discovery = True
+    # a prefix of its own, which the reference's stale-pin sweep
+    # ("netobserv_minflow_*") does not match, nor this one the reference's:
+    # the two agents' fetchers may run side by side on one host
+    _PIN_PREFIX = "/sys/fs/bpf/netobserv_torch_minflow_"
+
+    BPF_MAP_TYPE_HASH = 1
+    BPF_MAP_TYPE_LPM_TRIE = 11
+    BPF_MAP_TYPE_PERCPU_HASH = 5
+    BPF_MAP_TYPE_PERCPU_ARRAY = 6
+    BPF_MAP_TYPE_RINGBUF = 27
+    BPF_F_NO_PREALLOC = 1
+
+    def __init__(self, cache_max_flows: int = 5000,
+                 attach_mode: str = "tcx", sampling: int = 0,
+                 enable_dns: bool = False, dns_port: int = 53,
+                 enable_rtt: bool = False, enable_pkt_drops: bool = False,
+                 enable_filters: bool = False, quic_mode: int = 0,
+                 has_filter_sampling: bool = False,
+                 enable_tls: bool = False,
+                 enable_openssl: bool = False, libssl_path: str = "",
+                 enable_ringbuf_fallback: bool = True,
+                 ringbuf_bytes: int = 1 << 17,
+                 drain_lanes: int = 0,
+                 native_pipeline: bool = False,
+                 # maps.h DEF_RINGBUF(ssl_events, 1<<27): 16KB * 1000/s * 5s
+                 ssl_ring_bytes: int = 1 << 27):
+        """Reference: `netobserv_tpu/datapath/loader.py:989`."""
+        self._init_empty_maps()
+        self._sweep_stale_pins()
+        self._mode = attach_mode
+        try:
+            self._has_filter_sampling = (has_filter_sampling
+                                         and enable_filters)
+            self._provision(
+                cache_max_flows, sampling, enable_dns, dns_port, enable_rtt,
+                enable_pkt_drops, enable_filters, quic_mode, enable_tls,
+                enable_openssl, libssl_path, enable_ringbuf_fallback,
+                ringbuf_bytes, ssl_ring_bytes)
+            self._init_drain_lanes(drain_lanes)
+            if native_pipeline and self._features:
+                self._native_gate = NativeEvictPipeline(self,
+                                                        self._drain_lanes)
+        except Exception:
+            # a half-provisioned fetcher must not leak map/prog fds (a
+            # supervisor retrying construction would exhaust fds)
+            self.close()
+            raise
+
+    def _provision(self, cache_max_flows, sampling, enable_dns, dns_port,
+                   enable_rtt, enable_pkt_drops, enable_filters, quic_mode,
+                   enable_tls, enable_openssl, libssl_path,
+                   enable_ringbuf_fallback, ringbuf_bytes, ssl_ring_bytes):
+        """Reference: `netobserv_tpu/datapath/loader.py:1024`."""
+        from netobserv_tpu_torch.datapath import asm_flowpath
+        from netobserv_tpu_torch.model.flow import GlobalCounter
+
+        log.info("assembler datapath features: dns=%s rtt=%s drops=%s "
+                 "filters=%s quic=%d tls=%s openssl=%s sampling=%d "
+                 "filter_sampling=%s", enable_dns, enable_rtt,
+                 enable_pkt_drops, enable_filters, quic_mode, enable_tls,
+                 enable_openssl, sampling, self._has_filter_sampling)
+        self._agg = syscall_bpf.BpfMap.create(
+            self.BPF_MAP_TYPE_HASH, binfmt.FLOW_KEY_DTYPE.itemsize,
+            binfmt.FLOW_STATS_DTYPE.itemsize, cache_max_flows, b"agg_flows")
+        self._counters = syscall_bpf.BpfMap.create(
+            self.BPF_MAP_TYPE_PERCPU_ARRAY, 4, 8, int(GlobalCounter.MAX),
+            b"global_counters")
+        dns_q_fd = dns_rec_fd = None
+        if enable_dns:
+            self._dns_inflight = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_HASH, self.DNS_CORR_KEY_SIZE, 8,
+                max(cache_max_flows, 1024), b"dns_inflight")
+            dns_rec = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_PERCPU_HASH, binfmt.FLOW_KEY_DTYPE.itemsize,
+                binfmt.DNS_REC_DTYPE.itemsize, cache_max_flows, b"flows_dns")
+            self._features["dns"] = (dns_rec, binfmt.DNS_REC_DTYPE)
+            dns_q_fd, dns_rec_fd = self._dns_inflight.fd, dns_rec.fd
+        rtt_q_fd = rtt_rec_fd = None
+        if enable_rtt:
+            self._rtt_inflight = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_HASH, self.DNS_CORR_KEY_SIZE, 8,
+                max(cache_max_flows, 1024), b"rtt_inflight")
+            extra_rec = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_PERCPU_HASH, binfmt.FLOW_KEY_DTYPE.itemsize,
+                binfmt.EXTRA_REC_DTYPE.itemsize, cache_max_flows,
+                b"flows_extra")
+            self._features["extra"] = (extra_rec, binfmt.EXTRA_REC_DTYPE)
+            rtt_q_fd, rtt_rec_fd = self._rtt_inflight.fd, extra_rec.fd
+        # per-CPU sampling gate: only needed when sampling can skip packets
+        # AND a kprobe consumes the decision (reference do_sampling pattern)
+        self._gate_map = None
+        want_probes = enable_rtt or enable_pkt_drops
+        if (sampling > 1 or self._has_filter_sampling) and want_probes:
+            self._gate_map = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_PERCPU_ARRAY, 4, 1, 1, b"sampling_gate")
+        gate_fd = self._gate_map.fd if self._gate_map else None
+        if enable_rtt:
+            # smoothed-RTT tracepoint (tcp/tcp_probe) alongside the TC
+            # handshake RTT: both max-merge into flows_extra (handle_rtt).
+            # Best-effort: a locked-down tracefs must not take down the
+            # still-functional handshake-RTT path.
+            from netobserv_tpu_torch.datapath import asm_probes, uprobe
+
+            try:
+                self._attach_tracepoint(
+                    asm_probes.build_rtt_tracepoint_program(
+                        uprobe.tracepoint_fields("tcp", "tcp_probe"),
+                        self._features["extra"][0].fd, gate_fd),
+                    "tcp", "tcp_probe", b"rtt_srtt")
+                log.info("smoothed-RTT tracepoint attached (tcp/tcp_probe)")
+            except (OSError, RuntimeError, KeyError) as exc:
+                log.warning("smoothed-RTT tracepoint unavailable (%s); "
+                            "handshake RTT only", exc)
+        if enable_pkt_drops:
+            from netobserv_tpu_torch.datapath import asm_probes, btf, uprobe
+
+            if not btf.available():
+                raise RuntimeError("ENABLE_PKT_DROPS needs "
+                                   "/sys/kernel/btf/vmlinux to walk the "
+                                   "dropped skb's headers")
+            drops_rec = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_PERCPU_HASH,
+                binfmt.FLOW_KEY_DTYPE.itemsize,
+                binfmt.DROPS_REC_DTYPE.itemsize, cache_max_flows,
+                b"flows_drops")
+            self._features["drops"] = (drops_rec, binfmt.DROPS_REC_DTYPE)
+            self._attach_tracepoint(
+                asm_probes.build_drops_program(
+                    btf.kernel_btf(), drops_rec.fd,
+                    uprobe.tracepoint_fields("skb", "kfree_skb"),
+                    sampling_gate_fd=gate_fd),
+                "skb", "kfree_skb", b"pkt_drops")
+            log.info("packet-drop tracepoint attached (skb/kfree_skb, "
+                     "BTF-resolved skb offsets)")
+        quic_fd = None
+        if quic_mode:
+            quic_rec = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_PERCPU_HASH, binfmt.FLOW_KEY_DTYPE.itemsize,
+                binfmt.QUIC_REC_DTYPE.itemsize, cache_max_flows,
+                b"flows_quic")
+            self._features["quic"] = (quic_rec, binfmt.QUIC_REC_DTYPE)
+            quic_fd = quic_rec.fd
+        flt_rules_fd = flt_peers_fd = None
+        if enable_filters:
+            self._filter_rules, self._filter_peers = _create_filter_tries()
+            flt_rules_fd = self._filter_rules.fd
+            flt_peers_fd = self._filter_peers.fd
+        rb_fd = None
+        if enable_ringbuf_fallback:
+            self._rb_map = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_RINGBUF, 0, 0, ringbuf_bytes,
+                b"direct_flows")
+            self._ringbuf = syscall_bpf.RingBufReader(self._rb_map)
+            rb_fd = self._rb_map.fd
+        if enable_openssl:
+            from netobserv_tpu_torch.datapath import asm_ssl, uprobe
+
+            path, sym_off = uprobe.resolve_ssl_library(libssl_path)
+            self._ssl_map = syscall_bpf.BpfMap.create(
+                self.BPF_MAP_TYPE_RINGBUF, 0, 0, ssl_ring_bytes,
+                b"ssl_events")
+            ssl_prog = syscall_bpf.prog_load(
+                asm_ssl.build_ssl_write_program(self._ssl_map.fd),
+                prog_type=syscall_bpf.BPF_PROG_TYPE_KPROBE,
+                name=b"ssl_write")
+            try:
+                self._ssl_uprobe = uprobe.UprobeAttachment(
+                    ssl_prog, path, sym_off)
+            finally:
+                os.close(ssl_prog)  # the perf event holds its own reference
+            self._ssl_rb = syscall_bpf.RingBufReader(self._ssl_map)
+            log.info("OpenSSL plaintext tracer attached: uprobe on %s", path)
+        # one program instance per direction so direction_first is correct
+        self._prog_fds: dict[str, int] = {}
+        self._pins: dict[str, str] = {}
+        for name, code in (("ingress", 0), ("egress", 1)):
+            fd = syscall_bpf.prog_load(
+                asm_flowpath.build_flow_program(
+                    self._agg.fd, direction=code, sampling=sampling,
+                    ringbuf_fd=rb_fd, counters_fd=self._counters.fd,
+                    dns_inflight_fd=dns_q_fd, flows_dns_fd=dns_rec_fd,
+                    dns_port=dns_port, rtt_inflight_fd=rtt_q_fd,
+                    flows_extra_fd=rtt_rec_fd,
+                    filter_rules_fd=flt_rules_fd,
+                    filter_peers_fd=flt_peers_fd,
+                    flows_quic_fd=quic_fd, quic_mode=quic_mode,
+                    enable_tls=enable_tls, sampling_gate_fd=gate_fd,
+                    has_filter_sampling=self._has_filter_sampling))
+            pin = f"{self._PIN_PREFIX}{os.getpid()}_{name}"
+            if os.path.exists(pin):
+                os.unlink(pin)
+            syscall_bpf.obj_pin(fd, pin)
+            self._prog_fds[name] = fd
+            self._pins[name] = pin
+        # (netns, if_index) -> (if_name, direction -> live Attachment)
+        self._attached: dict[tuple[str, int], tuple[str, dict]] = {}
+
+    _UNSUPPORTED_FEATURES = (
+        ("enable_network_events_monitoring", "network events (psample)"),
+        ("enable_pkt_translation", "packet translation (nf_nat)"),
+        ("enable_ipsec_tracking", "IPsec (xfrm)"),
+    )
+
+    @classmethod
+    def load(cls, cfg: AgentConfig) -> "MinimalKernelFetcher":
+        """Reference: `netobserv_tpu/datapath/loader.py:1179`."""
+        import shutil
+
+        if os.geteuid() != 0:
+            raise RuntimeError("kernel datapath requires root/CAP_BPF")
+        if cfg.tc_attach_mode != "tcx" and shutil.which("tc") is None:
+            raise RuntimeError("tc (iproute2) not found; cannot attach")
+        wanted = [label for attr, label in cls._UNSUPPORTED_FEATURES
+                  if getattr(cfg, attr)]
+        if wanted:
+            log.warning("enabled features need kprobe/fentry hooks the "
+                        "assembler datapath cannot provide: %s — they will "
+                        "produce no data (build the clang probes object or "
+                        "use bpfman mode)", ", ".join(wanted))
+        has_filter_sampling = bool(cfg.flow_filter_rules) and any(
+            getattr(r, "sample", 0) for r in cfg.parsed_filter_rules())
+        return cls(cache_max_flows=cfg.cache_max_flows,
+                   attach_mode=cfg.tc_attach_mode, sampling=cfg.sampling,
+                   enable_dns=cfg.enable_dns_tracking,
+                   dns_port=cfg.dns_tracking_port,
+                   enable_rtt=cfg.enable_rtt,
+                   enable_pkt_drops=cfg.enable_pkt_drops,
+                   enable_filters=bool(cfg.flow_filter_rules),
+                   has_filter_sampling=has_filter_sampling,
+                   quic_mode=cfg.quic_tracking_mode,
+                   enable_tls=cfg.enable_tls_tracking,
+                   enable_openssl=cfg.enable_openssl_tracking,
+                   libssl_path=cfg.openssl_path,
+                   enable_ringbuf_fallback=cfg.enable_flows_ringbuf_fallback,
+                   drain_lanes=cfg.evict_drain_lanes,
+                   native_pipeline=cfg.evict_native_pipeline)
+
+    def _attach_tracepoint(self, prog_bytes: bytes, category: str,
+                           name: str, prog_name: bytes) -> None:
+        """Load a tracepoint program and bind it to its perf event; the
+        live attachment owns the program (the prog fd is dropped).
+
+        Reference: `netobserv_tpu/datapath/loader.py:1211`."""
+        from netobserv_tpu_torch.datapath import uprobe
+
+        prog = syscall_bpf.prog_load(
+            prog_bytes, prog_type=syscall_bpf.BPF_PROG_TYPE_TRACEPOINT,
+            name=prog_name)
+        try:
+            self._kprobes.append(
+                uprobe.TracepointAttachment(prog, category, name))
+        finally:
+            os.close(prog)
+
+    def program_filters(self, rules) -> int:
+        """Compile FLOW_FILTER_RULES into this fetcher's own LPM tries (the
+        bpfman override programs pinned tries instead). The kernel-side gate
+        is active because the programs were built with the trie fds wired.
+
+        Reference: `netobserv_tpu/datapath/loader.py:1226`."""
+        from netobserv_tpu_torch.datapath import filter_compile
+
+        if self._filter_rules is None:
+            if rules:
+                log.warning("filter maps not provisioned (enable_filters "
+                            "was off at load); FLOW_FILTER_RULES ignored")
+            return 0
+        if (any(getattr(r, "sample", 0) for r in rules)
+                and not getattr(self, "_has_filter_sampling", False)):
+            log.warning("rules carry sample overrides but the programs were "
+                        "built without has_filter_sampling; overrides will "
+                        "not take effect (reload with the flag)")
+        n = _program_filter_tries(self._filter_rules, self._filter_peers,
+                                  rules)
+        log.info("programmed %d filter rules into the kernel gate", n)
+        return n
+
+    def close(self) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1247`."""
+        if getattr(self, "_drain_pool", None) is not None:
+            self._drain_pool.shutdown(wait=True)
+            self._drain_pool = None
+        self._teardown_attachments()
+        if self._agg is not None:
+            self._agg.close()
+        if self._counters is not None:
+            self._counters.close()
+        if self._ringbuf is not None:
+            self._ringbuf.close()
+        if self._rb_map is not None:
+            self._rb_map.close()
+        if self._dns_inflight is not None:
+            self._dns_inflight.close()
+        if self._rtt_inflight is not None:
+            self._rtt_inflight.close()
+        if self._filter_rules is not None:
+            self._filter_rules.close()
+        if self._filter_peers is not None:
+            self._filter_peers.close()
+        if self._ssl_uprobe is not None:
+            self._ssl_uprobe.close()
+        if self._ssl_rb is not None:
+            self._ssl_rb.close()
+        if self._ssl_map is not None:
+            self._ssl_map.close()
+        for kp in self._kprobes:
+            kp.close()
+        if self._gate_map is not None:
+            self._gate_map.close()
+        for fmap, _dtype in self._features.values():
+            fmap.close()

@@ -7,13 +7,13 @@ eviction; only one eviction runs at a time. It has the columnar path (the
 eviction goes downstream as it is, for the sketch exporter), the record
 path (`model/record.records_from_events` with the feature lanes
 attached), map-pressure relief (MAP_PRESSURE_WATERMARK), the occupancy
-sink, the "batch" trace born at `evict` and finished by the exporter's
-next fold, and the fault points `map_tracer.evict` and
-`map_tracer.pressure_evict`. Left out: the one-time sync of the native
-packer's ABI fallbacks (the port's packer raises on an ABI mismatch, so
-`flowpack_abi_fallback_total` stays 0); the binding of the sampled trace
-as the drain thread's active one, which only a kernel drain's child spans
-read; and the SSL correlator and UDN mapper, whose features
+sink, the "batch" trace born at `evict` (bound as the drain thread's
+active trace while a sampled drain runs, for a kernel drain's child
+spans) and finished by the exporter's next fold, and the fault points
+`map_tracer.evict` and `map_tracer.pressure_evict`. Left out: the
+one-time sync of the native packer's ABI fallbacks (the port's packer
+raises on an ABI mismatch, so `flowpack_abi_fallback_total` stays 0); and
+the SSL correlator and UDN mapper, whose features
 `config.validate` refuses (ROADMAP A8).
 """
 
@@ -170,7 +170,16 @@ class MapTracer:
         trace = tracing.start_trace("batch")
         t0 = time.perf_counter()
         with trace.stage("evict"):
-            evicted = self._fetcher.lookup_and_delete()
+            # bind the sampled trace for the drain's child spans
+            # (decode/merge_percpu/align in the columnar eviction plane);
+            # unsampled drains pay one bool check
+            if trace.sampled:
+                tracing.set_active(trace)
+            try:
+                evicted = self._fetcher.lookup_and_delete()
+            finally:
+                if trace.sampled:
+                    tracing.clear_active()
             # purge orphaned auxiliary entries (e.g. DNS never answered)
             purge = getattr(self._fetcher, "purge_stale", None)
             if purge is not None:

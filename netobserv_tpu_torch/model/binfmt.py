@@ -2,8 +2,10 @@
 
 Counterpart of `netobserv_tpu/model/binfmt.py` (the dtypes `FLOW_KEY_DTYPE`,
 `FLOW_STATS_DTYPE`, `FLOW_EVENT_DTYPE`, `DNS_REC_DTYPE`, `DROPS_REC_DTYPE`,
-`NEVENTS_REC_DTYPE`, `XLAT_REC_DTYPE`, `EXTRA_REC_DTYPE`, `QUIC_REC_DTYPE`
-and the functions `decode_flow_events`, `encode_flow_events`,
+`NEVENTS_REC_DTYPE`, `XLAT_REC_DTYPE`, `EXTRA_REC_DTYPE`, `QUIC_REC_DTYPE`,
+the filter, packet and SSL layouts of lines 164-222 (`FILTER_KEY_DTYPE`,
+`FILTER_RULE_DTYPE`, `MAX_PAYLOAD_SIZE`, `PACKET_EVENT_DTYPE`,
+`MAX_SSL_DATA`, `SSL_EVENT_DTYPE`) and the functions `decode_flow_events`, `encode_flow_events`,
 `events_from_keys_stats`), kept as a copy so the port imports nothing of
 the JAX package. The layouts are
 the eBPF datapath's structs (`netobserv_tpu/datapath/bpf/records.h`),
@@ -143,6 +145,66 @@ QUIC_REC_DTYPE = np.dtype([
     ("seen_short_hdr", "u1"),
 ])
 assert QUIC_REC_DTYPE.itemsize == 24, QUIC_REC_DTYPE.itemsize
+
+# ---------------------------------------------------------------------------
+# flow-filter LPM entries — C: struct no_filter_key / no_filter_rule
+# (written by datapath/filter_compile.py, matched by bpf/filter.h)
+# ---------------------------------------------------------------------------
+FILTER_KEY_DTYPE = np.dtype([
+    ("prefix_len", "u4"),
+    ("ip", "u1", 16),
+])
+assert FILTER_KEY_DTYPE.itemsize == 20
+
+FILTER_RULE_DTYPE = np.dtype([
+    ("proto", "u1"),
+    ("icmp_type", "u1"),
+    ("icmp_code", "u1"),
+    ("direction", "u1"),
+    ("action", "u1"),
+    ("want_drops", "u1"),
+    ("peer_cidr_check", "u1"),
+    ("pad0", "u1"),
+    ("dport_start", "u2"), ("dport_end", "u2"),
+    ("dport1", "u2"), ("dport2", "u2"),
+    ("sport_start", "u2"), ("sport_end", "u2"),
+    ("sport1", "u2"), ("sport2", "u2"),
+    ("port_start", "u2"), ("port_end", "u2"),
+    ("port1", "u2"), ("port2", "u2"),
+    ("tcp_flags", "u2"),
+    ("pad1", "u1", 2),
+    ("sample_override", "u4"),
+])
+assert FILTER_RULE_DTYPE.itemsize == 40, FILTER_RULE_DTYPE.itemsize
+
+# ---------------------------------------------------------------------------
+# PCA packet payload record — C: struct no_packet_event
+# ---------------------------------------------------------------------------
+MAX_PAYLOAD_SIZE = 256
+
+PACKET_EVENT_DTYPE = np.dtype([
+    ("if_index", "u4"),
+    ("pkt_len", "u4"),
+    ("timestamp_ns", "u8"),
+    ("payload", "u1", MAX_PAYLOAD_SIZE),
+])
+assert PACKET_EVENT_DTYPE.itemsize == 272
+
+# ---------------------------------------------------------------------------
+# SSL (OpenSSL uprobe) event — C: struct no_ssl_event
+# ---------------------------------------------------------------------------
+MAX_SSL_DATA = 16 * 1024
+
+SSL_EVENT_DTYPE = np.dtype([
+    ("timestamp_ns", "u8"),
+    ("pid_tgid", "u8"),
+    ("data_len", "i4"),
+    ("ssl_type", "u1"),
+    ("pad0", "u1", 3),
+    ("data", "u1", MAX_SSL_DATA),
+])
+assert SSL_EVENT_DTYPE.itemsize == 24 + MAX_SSL_DATA
+
 
 
 def decode_flow_events(raw: bytes | bytearray | memoryview) -> np.ndarray:

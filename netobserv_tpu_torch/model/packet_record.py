@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import struct
 
+from netobserv_tpu_torch.model import binfmt
+
 PCAP_MAGIC = 0xA1B2C3D4
 PCAP_VERSION_MAJOR = 2
 PCAP_VERSION_MINOR = 4
 LINKTYPE_ETHERNET = 1
-#: the datapath's packet payload cap (`binfmt.MAX_PAYLOAD_SIZE`)
-PCAP_SNAP_LEN = 256
+#: the datapath's packet payload cap
+PCAP_SNAP_LEN = binfmt.MAX_PAYLOAD_SIZE
 
 
 def pcap_file_header(snap_len: int = PCAP_SNAP_LEN) -> bytes:

@@ -1,8 +1,8 @@
 """Flight recorder: sampled end-to-end batch tracing with stage spans.
 
-A copy of `netobserv_tpu/utils/tracing.py` (lines 1-443) without the
+A copy of `netobserv_tpu/utils/tracing.py` (lines 1-443), the
 per-thread active trace (`set_active`, `clear_active`, `active_trace`,
-`:402-423`), which only the kernel drains read (ROADMAP A8). The map
+`:402-423`) among it, which the kernel fetchers' drains read. The map
 tracer (`flow/map_tracer.py`) births a "batch" trace at each eviction
 (span `evict`) and hangs a sampled one on the eviction; the exporter's
 next fold finishes it (span `fold` and the ring's spans). `context_of` serves the delta frame's sender; `continue_trace`
@@ -52,6 +52,7 @@ __all__ = [
     "NULL_SPAN", "NULL_TRACE", "Trace", "FlightRecorder", "TraceContext",
     "start_trace", "configure", "set_metrics", "snapshot", "enabled",
     "context_of", "continue_trace", "group", "TraceGroup",
+    "set_active", "clear_active", "active_trace",
 ]
 
 
@@ -402,6 +403,35 @@ def snapshot(limit: Optional[int] = None,
     """Newest-first completed traces (the /debug/traces payload); see
     :meth:`FlightRecorder.snapshot` for the filter params."""
     return _recorder.snapshot(limit=limit, trace_id=trace_id)
+
+
+# Per-thread active trace: lets a deep callee (the kernel drain inside
+# BpfmanFetcher.lookup_and_delete) attach child spans to the trace born in
+# map_tracer WITHOUT widening the FlowFetcher protocol. Only SAMPLED traces
+# are ever bound (map_tracer gates on trace.sampled), so the disabled path
+# pays nothing for the binding; the callee's active_trace() lookup is one
+# thread-local getattr PER DRAIN, never per record.
+_active = threading.local()
+
+
+def set_active(trace) -> None:
+    """Bind `trace` as the calling thread's active trace (sampled only).
+
+    Reference: `netobserv_tpu/utils/tracing.py:411`."""
+    _active.trace = trace
+
+
+def clear_active() -> None:
+    """Reference: `netobserv_tpu/utils/tracing.py:416`."""
+    _active.trace = None
+
+
+def active_trace():
+    """The calling thread's bound trace, or the shared NULL_TRACE.
+
+    Reference: `netobserv_tpu/utils/tracing.py:420`."""
+    t = getattr(_active, "trace", None)
+    return NULL_TRACE if t is None else t
 
 
 # arm from the environment at import; unset -> disabled, start_trace stays

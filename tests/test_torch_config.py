@@ -152,16 +152,33 @@ def test_the_agent_run_configuration_validates_in_both():
     tcfg.load_config(env).validate()
 
 
+#: settings the port once refused, ported since with the kernel datapath's
+#: bpf(2) layer: both packages' `validate` take them
+_PORTED_SINCE = (
+    ("flow_filter_rules", "FLOW_FILTER_RULES"),
+    ("ebpf_program_manager_mode", "EBPF_PROGRAM_MANAGER_MODE"),
+    ("evict_native_pipeline", "EVICT_NATIVE_PIPELINE"),
+)
+
+
 @pytest.mark.parametrize("name,env_name",
-                         [(n, e) for n, e, _ in tcfg._UNPORTED])
+                         [(n, e) for n, e, _ in tcfg._UNPORTED]
+                         + list(_PORTED_SINCE))
 def test_validate_refuses_unported_features(name, env_name):
     """The reference takes each (its `validate` passes); the port names
-    ROADMAP A8."""
+    ROADMAP A8 for each setting of `_UNPORTED`, and takes the ported ones
+    as the reference does."""
     env = {"EXPORT": "tpu-sketch",
            env_name: "[{}]" if name == "flow_filter_rules" else "true"}
     jcfg.load_config(env).validate()
     cfg = tcfg.load_config(env)
     assert getattr(cfg, name)
+    if (name, env_name) in _PORTED_SINCE:
+        assert name not in [n for n, _, _ in tcfg._UNPORTED]
+        cfg.validate()
+        if name == "flow_filter_rules":
+            assert cfg.parsed_filter_rules() == [tcfg.FlowFilterRule()]
+        return
     with pytest.raises(ValueError, match=f"{env_name}.*A8"):
         cfg.validate()
 

@@ -348,9 +348,12 @@ def test_the_agent_binds_the_surface_only_when_both_sides_hook():
         assert bare.bound == []
     finally:
         real.close()
-    with pytest.raises(ValueError, match="EVICT_NATIVE_PIPELINE"):
-        tcfg.load_config({"EXPORT": "tpu-sketch",
-                          "EVICT_NATIVE_PIPELINE": "true"}).validate()
+    # EVICT_NATIVE_PIPELINE is taken now that the kernel fetchers build
+    # the gate (`datapath/loader.BpfmanFetcher`, `MinimalKernelFetcher`)
+    native = tcfg.load_config({"EXPORT": "tpu-sketch",
+                               "EVICT_NATIVE_PIPELINE": "true"})
+    native.validate()
+    assert native.evict_native_pipeline
 
 
 @pytest.mark.parametrize("kw", [dict(packer="python"),
