@@ -313,8 +313,45 @@ launch counts set to 0 just before it and read just after:
   Records and Bytes equal to the replay fetcher's own totals, SIGTERM
   ending it with exit 0 within 15 s after publishing its last window;
   then a DATAPATH=synthetic child that starts, answers `/healthz` and
-  stops on SIGTERM, and one with no DATAPATH that exits 2 naming ROADMAP
-  A8. It prints each child's start-to-Started and SIGTERM-to-exit times;
+  stops on SIGTERM; then one with no DATAPATH, INTERFACES=lo, no
+  EXCLUDE_INTERFACES (whose default is lo) and LISTEN_INTERFACES=poll
+  (its own namespace's links only), which takes the reference's
+  ladder (`agent.build_fetcher`) to the rung this machine allows
+  (`_expected_rung`: the hand-assembled datapath where the child is root
+  and bpf(2) and bpffs answer (`_kd_probe_bpf`), else synthetic replay):
+  its log shows the clang-object line, then the provisioning of the
+  assembler datapath or the fallback warning carrying the minimal rung's
+  error; it attaches to nothing but lo in its own namespace, answers
+  `/healthz` 200 Started, exports flows, publishes reports with Records >
+  0 folded on the card and exits 0 on SIGTERM; where that rung fails, a
+  DATAPATH=kernel child exits non-zero with the rung's error on its
+  standard error. It prints
+  each child's start-to-Started and SIGTERM-to-exit times;
+- interface discovery and the SSL, UDN and network-events branches
+  (`ifaces_features`, within IF_BUDGET_S): (a) the port's
+  `ifaces/netlink.dump_links()` against the names and indices of a
+  listing made without netlink (`_link_witness`: `/sys/class/net`, else
+  `/proc/net/dev`'s names through `if_nametoindex`, else libc's
+  `if_nameindex`; where the machine refuses the netlink socket, the errno
+  is printed and (a) is reported as not run, as it is where no witness
+  exists); (b) an `InterfaceListener` over a `Poller` (where netlink is
+  refused, over IF_SCRIPTED_LINKS, named so) with a recording fetcher
+  that asks for discovery, INTERFACES=/./ and EXCLUDE_INTERFACES of lo
+  and one more: it attaches exactly the up interfaces the pair allows,
+  `interface_events_total` counts each added and attached, and stop
+  restores the default namer; (c) a `FlowsAgent`
+  with the ring-buffer fallback on the card's sketch exporter, taken on
+  its record path, with ENABLE_OPENSSL_TRACKING, ENABLE_UDN_MAPPING (a
+  UDN_MAPPING_FILE) and ENABLE_NETWORK_EVENTS_MONITORING (no OVN socket),
+  fed by a `FakeFetcher` in a fixed order (IF_SSL_EVENTS SSL writes, each
+  handled; IF_RB_EVENTS singles, each accounted; one map eviction of
+  IF_MAP_ROWS flows; everything evicted at stop): its tables bit for bit
+  and its report equal those of the same run without the three settings,
+  the SSL credits on its records and their UDNs equal a CPU run's, the
+  static OVN decoder installed and removed, the `ssl-tracer` stage
+  registered, the folds' kernels launched and no plain version run; its
+  runs keep FORCE_GARBAGE_COLLECTION at its default and print the full
+  collections each made and their seconds;
 - the scenario zoo (`scenarios`): first each kernel of the zoo's path
   (kernels 1, 2, 4 and the folds launch, and kernels 3 and 8 cut from
   the folds launch's calls) against its plain twin at the zoo's shapes:
@@ -6263,8 +6300,125 @@ def _agent_children(root: str, out_dir: str) -> dict:
     check(proc.returncode == 0, f"the synthetic child exited "
           f"{proc.returncode}")
 
-    proc, fo, fe = _agent_child(root, {"EXPORT": "tpu-sketch"}, out_dir,
-                                "no_datapath")
+    out.update(_ladder_children(root, out_dir, free_port()))
+    return out
+
+
+#: what the no-DATAPATH child's log must show, by the rung it reaches
+#: (`agent.build_fetcher`, `datapath/loader._load_clang_or_fallback`)
+AE_CLANG_LINE = "no clang-built BPF object ("
+AE_MINIMAL_LINE = "assembler datapath features:"
+AE_FALLBACK_LINE = "kernel datapath unavailable ("
+
+
+def _expected_rung() -> tuple[str, str]:
+    """The rung this machine allows a child with no clang object, and the
+    minimal rung's error text where it fails: "minimal" where the child is
+    root and bpf(2) and a writable bpffs answer (`_kd_probe_bpf`; the
+    default TC_ATTACH_MODE=tcx needs no tc binary), else "synthetic"."""
+    import errno
+    import os
+    if os.geteuid() != 0:
+        return "synthetic", "kernel datapath requires root/CAP_BPF"
+    why = _kd_probe_bpf()
+    if why is None:
+        return "minimal", ""
+    if why.startswith("bpf(2): "):
+        code = getattr(errno, why[len("bpf(2): "):], None)
+        return "synthetic", os.strerror(code) if code else ""
+    return "synthetic", ""
+
+
+def _ladder_children(root: str, out_dir: str, port: int) -> dict:
+    """`agent_entry` (b)'s last two children: no DATAPATH, and
+    DATAPATH=kernel (module docstring)."""
+    import os
+    import urllib.request
+    rung, error = _expected_rung()
+    out = {"ladder_rung_expected": rung, "ladder_minimal_error": error,
+           "bpf_probe": _kd_probe_bpf()}
+    base = f"http://127.0.0.1:{port}"
+    # INTERFACES=lo and no EXCLUDE_INTERFACES (whose default is lo): a
+    # kernel rung may attach to lo and nothing else; LISTEN_INTERFACES=poll
+    # lists this namespace's links only, where the default watch would
+    # enter every namespace under /var/run/netns
+    proc, fo, fe = _agent_child(root, {
+        "EXPORT": "tpu-sketch", "INTERFACES": "lo", "EXCLUDE_INTERFACES": "",
+        "LISTEN_INTERFACES": "poll", "METRICS_ENABLE": "true",
+        "METRICS_SERVER_ADDRESS": "127.0.0.1",
+        "METRICS_SERVER_PORT": str(port)}, out_dir, "no_datapath")
+    try:
+        out["no_datapath_start_to_started_s"] = _wait_started(proc, base)
+        code, body = _http_json(base + "/healthz")
+        check(code == 200 and body["status"] == "Started",
+              f"/healthz: {code} {body.get('status')}")
+        deadline = time.monotonic() + 30
+        text = ""
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+                text = r.read().decode()
+            if _metric(text, "ebpf_agent_exported_flows_total",
+                       '{exporter="tpu-sketch"}') > 0:
+                break
+            time.sleep(0.05)
+        out["no_datapath_exported_before_sigterm"] = _metric(
+            text, "ebpf_agent_exported_flows_total",
+            '{exporter="tpu-sketch"}')
+        out["no_datapath_sigterm_to_exit_s"] = _sigterm(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+    err = open(fe.name, "rb").read().decode(errors="replace")
+    check(proc.returncode == 0, f"no DATAPATH: exit {proc.returncode}, "
+          f"{err[-1500:]!r}")
+    reps = _read_reports(fo.name)
+    records = sum(r["Records"] for r in reps)
+    check(records > 0, f"no DATAPATH: {len(reps)} reports, {records} "
+          "records")
+    at = {line: err.find(line) for line in (
+        AE_CLANG_LINE, AE_MINIMAL_LINE, AE_FALLBACK_LINE)}
+    if os.geteuid() == 0:
+        check(at[AE_CLANG_LINE] >= 0, "no DATAPATH: the clang-object line "
+              f"is missing: {err[-1500:]!r}")
+    import re
+    # `interfaces_listener`'s line: attached to NAME (index N, netns 'NS')
+    attached = re.findall(
+        r"attached to (\S+) \(index \d+, netns '([^']*)'\)", err)
+    check(set(attached) <= {("lo", "")},
+          f"no DATAPATH: attached to {attached}")
+    out["no_datapath_attached"] = [name for name, _ns in attached]
+    if rung == "minimal":
+        # the first rung's own fallback provisions the assembler datapath
+        check(at[AE_MINIMAL_LINE] > at[AE_CLANG_LINE]
+              and at[AE_FALLBACK_LINE] < 0,
+              f"no DATAPATH: the minimal rung not reached: {err[-1500:]!r}")
+        reached = "minimal"
+    else:
+        warn = err[at[AE_FALLBACK_LINE]:].split("\n", 1)[0]
+        check(at[AE_FALLBACK_LINE] > at[AE_CLANG_LINE] and error in warn,
+              f"no DATAPATH: the fallback warning with {error!r} missing: "
+              f"{err[-1500:]!r}")
+        out["no_datapath_fallback_warning"] = warn
+        reached = "synthetic"
+    out.update(no_datapath_rung=reached, no_datapath_reports=len(reps),
+               no_datapath_records=records)
+    print(f"agent_entry: no DATAPATH reached the {reached} rung, Started in "
+          f"{out['no_datapath_start_to_started_s']:.2f} s, {records:.0f} "
+          "records", flush=True)
+
+    if rung == "minimal":
+        # the kernel rung loads here, so a DATAPATH=kernel child would run
+        # the same agent as the one above
+        out["kernel_child"] = "not run: the minimal rung loads on this host"
+        return out
+    proc, fo, fe = _agent_child(root, {
+        "EXPORT": "tpu-sketch", "DATAPATH": "kernel", "INTERFACES": "lo",
+        "EXCLUDE_INTERFACES": "", "LISTEN_INTERFACES": "poll"}, out_dir,
+        "kernel")
+    t0 = time.perf_counter()
     try:
         proc.wait(timeout=90)
     finally:
@@ -6273,10 +6427,15 @@ def _agent_children(root: str, out_dir: str) -> dict:
             proc.wait()
         fo.close()
         fe.close()
-    err = open(fe.name, "rb").read()
-    check(proc.returncode == 2 and b"A8" in err,
-          f"no DATAPATH: exit {proc.returncode}, {err[-500:]!r}")
-    out["no_datapath_exit"] = proc.returncode
+    err = open(fe.name, "rb").read().decode(errors="replace")
+    check(proc.returncode not in (0, None) and (error or "kernel") in err,
+          f"DATAPATH=kernel: exit {proc.returncode}, {err[-1500:]!r}")
+    out.update(kernel_exit=proc.returncode,
+               kernel_start_to_exit_s=time.perf_counter() - t0,
+               kernel_error=err.strip().splitlines()[-1][-300:])
+    print(f"agent_entry: DATAPATH=kernel exited {proc.returncode} after "
+          f"{out['kernel_start_to_exit_s']:.2f} s: {out['kernel_error']}",
+          flush=True)
     return out
 
 
@@ -6309,6 +6468,10 @@ def phase_agent_entry(specs, events, lanes_rate: float, wt_rate: float,
     with tempfile.TemporaryDirectory() as tmp:
         children = _agent_children(
             os.path.dirname(os.path.abspath(__file__)), tmp)
+    print("agent_entry: start to Started s: " + ", ".join(
+        f"{k[:-len('_start_to_started_s')]} "
+        f"{children[k]:.2f}" for k in children
+        if k.endswith("_start_to_started_s")), flush=True)
     drop = ("exp", "ring", "seam", "fed", "reports", "launches")
     return {"phase": "agent_entry", "card": card,
             "in_process": {k: v for k, v in run.items() if k not in drop},
@@ -6323,6 +6486,493 @@ def phase_agent_entry(specs, events, lanes_rate: float, wt_rate: float,
                                            for r in irun["reports"]],
             "children": children,
             "seconds": time.perf_counter() - t_phase}
+
+
+#: the ifaces_features phase: the feature run's map rows, ring-buffer
+#: singles over IF_RB_FLOWS flows, SSL writes over IF_PIDS processes, its
+#: seed and its budget
+IF_MAP_ROWS = 8192
+IF_RB_EVENTS = 4096
+IF_RB_FLOWS = 512
+IF_SSL_EVENTS = 256
+IF_PIDS = 64
+IF_SEED = 23
+IF_BUDGET_S = 60.0
+#: the UDN mapping file's names, by interface name (the default namer
+#: names an interface by its index)
+IF_UDNS = {"1": "udn-blue", "2": "udn-red"}
+
+
+class _RecordingFetcher:
+    """(b)'s fetcher: asks for discovery and records attach and detach."""
+
+    needs_iface_discovery = True
+
+    def __init__(self):
+        self.calls: list = []
+
+    def attach(self, if_index, if_name, direction, netns=""):
+        self.calls.append(("attach", if_index, if_name, direction, netns))
+
+    def detach(self, if_index, if_name, netns=""):
+        self.calls.append(("detach", if_index, if_name, netns))
+
+
+class _ScriptedInformer:
+    """(b)'s informer where the netlink socket is refused: the up
+    interfaces of IF_SCRIPTED_LINKS, as a `Poller`'s first dump reports
+    them."""
+
+    def __init__(self, links):
+        import queue
+        from netobserv_tpu_torch import ifaces
+        self.events = queue.Queue()
+        for idx, name, mac in links:
+            self.events.put(ifaces.Event(ifaces.EventType.ADDED,
+                                         ifaces.Interface(idx, name, mac)))
+
+    def subscribe(self):
+        return self.events
+
+    def stop(self):
+        pass
+
+
+#: (b)'s interfaces where the netlink socket is refused
+IF_SCRIPTED_LINKS = [(1, "lo", bytes(6), True),
+                     (2, "eth0", b"\x02" * 6, True),
+                     (3, "eth1", b"\x03" * 6, True),
+                     (4, "eth2", b"\x04" * 6, False)]
+
+
+def _link_witness() -> tuple[str, dict] | None:
+    """(a)'s witness: (its source, name -> index) of this namespace's
+    interfaces as listed without the port's netlink code, from
+    /sys/class/net, else /proc/net/dev's names through if_nametoindex(3),
+    else libc's if_nameindex(3); None where none of them lists any."""
+    import os
+    import socket
+    if os.path.isdir("/sys/class/net"):
+        got = {}
+        for name in os.listdir("/sys/class/net"):
+            with open(f"/sys/class/net/{name}/ifindex") as fh:
+                got[name] = int(fh.read())
+        if got:
+            return "/sys/class/net", got
+    try:
+        with open("/proc/net/dev") as fh:
+            names = [ln.split(":", 1)[0].strip()
+                     for ln in fh.readlines()[2:] if ":" in ln]
+        got = {n: socket.if_nametoindex(n) for n in names}
+        if got:
+            return "/proc/net/dev", got
+    except OSError:
+        pass
+    try:
+        got = {n: i for i, n in socket.if_nameindex()}
+    except OSError:
+        return None
+    return ("if_nameindex", got) if got else None
+
+
+def _if_listener(links: list, source: str) -> dict:
+    """(b): an `InterfaceListener` over a `Poller` where `links` (index,
+    name, mac, up) came from netlink, else over IF_SCRIPTED_LINKS, with a
+    recording fetcher and an INTERFACES/EXCLUDE_INTERFACES pair."""
+    from netobserv_tpu_torch import ifaces
+    from netobserv_tpu_torch.agent.interfaces_listener import (
+        InterfaceListener,
+    )
+    from netobserv_tpu_torch.config import load_config
+    from netobserv_tpu_torch.metrics.registry import Metrics, MetricsSettings
+    from netobserv_tpu_torch.model import record
+    up = [(i, n, m) for i, n, m, u in links if u]
+    others = [n for _i, n, _m in up if n != "lo"]
+    # lo, and one more where that leaves an interface to attach
+    excluded = ["lo"] + others[:len(others) > 1]
+    cfg = load_config({"EXPORT": "tpu-sketch", "INTERFACES": "/./",
+                       "EXCLUDE_INTERFACES": ",".join(excluded)})
+    want = sorted((i, n) for i, n, _m in up if n not in excluded)
+    metrics = Metrics(MetricsSettings())
+    fetcher = _RecordingFetcher()
+    informer = (ifaces.Poller(period_s=60) if source == "netlink"
+                else _ScriptedInformer(up))
+    listener = InterfaceListener(cfg, fetcher, metrics=metrics,
+                                 informer=informer)
+    listener.start()
+    try:
+        check(record.interface_namer() == listener._registerer.name_for,
+              "the listener did not install its namer")
+        deadline = time.monotonic() + 10
+        while (len(fetcher.calls) < len(want)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        time.sleep(0.3)  # anything more would be an attach too many
+    finally:
+        listener.stop()
+    check(record.interface_namer() is record.default_namer,
+          "stop did not restore the default namer")
+    got = sorted((c[1], c[2]) for c in fetcher.calls)
+    check(got == want and all(c[0] == "attach" and c[3] == cfg.direction
+                              for c in fetcher.calls),
+          f"attached {fetcher.calls}, want {want}")
+    counted = {}
+    for fam in metrics.interface_events_total.collect():
+        for smp in fam.samples:
+            if smp.name.endswith("_total"):
+                kind = smp.labels["type"]
+                counted[kind] = counted.get(kind, 0) + smp.value
+    expect = {k: float(v) for k, v in (("added", len(up)),
+                                       ("attach", len(want))) if v}
+    check(counted == expect,
+          f"interface_events_total {counted}, up {len(up)}, want "
+          f"{len(want)}")
+    return {"informer": type(informer).__name__, "links_from": source,
+            "up": len(up),
+            "excluded": excluded, "attached": [n for _i, n in got],
+            "interface_events_total": counted}
+
+
+def _if_feed(rng):
+    """(c)'s feed: one map eviction of IF_MAP_ROWS distinct flows,
+    IF_RB_EVENTS ring-buffer singles over IF_RB_FLOWS others, and
+    IF_SSL_EVENTS SSL writes by IF_PIDS processes, each owning the
+    sockets of a few of the map's flows (the resolver of the correlator);
+    integer bytes on three interfaces."""
+    import numpy as np
+    from netobserv_tpu_torch.model import binfmt
+
+    def flows(n, first_octet):
+        ev = np.zeros(n, binfmt.FLOW_EVENT_DTYPE)
+        k = ev["key"]
+        for side, octet in (("src_ip", first_octet), ("dst_ip", 172)):
+            k[side][:, 10:12] = 0xFF
+            k[side][:, 12] = octet
+            k[side][:, 13:] = rng.integers(0, 256, (n, 3))
+        k["src_port"] = rng.integers(1024, 65536, n)
+        k["dst_port"] = rng.choice([443, 8443], n)
+        k["proto"] = 6
+        st = ev["stats"]
+        # small packets: the whole feed stays below 2^24 bytes, so every
+        # per-cell f32 sum is an integer added exactly in any order
+        st["packets"] = rng.integers(1, 9, n)
+        st["bytes"] = st["packets"] * rng.integers(40, 80, n)
+        st["eth_protocol"] = 0x0800
+        st["if_index_first"] = rng.integers(1, 4, n)
+        st["first_seen_ns"] = 10**12 + np.arange(n)
+        st["last_seen_ns"] = st["first_seen_ns"] + 1000
+        return ev
+
+    agg = flows(IF_MAP_ROWS, 10)
+    _, first = np.unique(np.array([k.tobytes() for k in agg["key"]]),
+                         return_index=True)
+    agg = agg[np.sort(first)]
+    rb_keys = flows(IF_RB_FLOWS, 11)
+    singles = rb_keys[rng.integers(0, len(rb_keys), IF_RB_EVENTS)]
+    singles["stats"]["packets"] = 1
+    singles["stats"]["bytes"] = rng.integers(40, 80, IF_RB_EVENTS)
+    owned = {}
+    for pid in range(1, IF_PIDS + 1):
+        rows = rng.integers(0, len(agg), int(rng.integers(0, 4)))
+        owned[pid] = [(bytes(agg[r]["key"]["src_ip"]),
+                       int(agg[r]["key"]["src_port"]),
+                       bytes(agg[r]["key"]["dst_ip"]),
+                       int(agg[r]["key"]["dst_port"])) for r in rows]
+    ssl = []
+    for _ in range(IF_SSL_EVENTS):
+        ev = np.zeros(1, binfmt.SSL_EVENT_DTYPE)
+        n = int(rng.integers(1, 200))
+        pid = int(rng.integers(1, IF_PIDS + 1))
+        ev["pid_tgid"] = (pid << 32) | pid
+        ev["data_len"] = n
+        ev["ssl_type"] = 1
+        ev[0]["data"][:n] = rng.integers(0, 256, n, dtype=np.uint8)
+        ssl.append(ev.tobytes())
+    return agg, singles, ssl, owned
+
+
+class _RecordPath:
+    """The sketch exporter taken on its record path (`export_batch`), as
+    the reference's agent takes a record exporter: on its columnar path
+    no record is made, so the agent builds no correlator there (it only
+    warns). Keeps each batch it hands on."""
+
+    supports_columnar = False
+
+    def __init__(self, exp):
+        self.exp = exp
+        self.name = exp.name
+        self.batches: list = []
+
+    def export_batch(self, records) -> None:
+        self.batches.append(records)
+        self.exp.export_batch(records)
+
+    def close(self) -> None:
+        self.exp.close()
+
+
+def _if_agent_run(specs, feed, features: bool, device: str,
+                  udn_path: str) -> dict:
+    """(c): one agent with the ring-buffer fallback, and with the three
+    settings when `features`, fed `feed` by a `FakeFetcher` in a fixed
+    order: the SSL writes (each handled), the singles (each accounted),
+    then the map eviction, all evicted at stop (1 h timeouts), so every
+    run folds the same records in the same batches."""
+    import os
+    import threading
+    import torch
+    from netobserv_tpu_torch.agent import FlowsAgent, Status
+    from netobserv_tpu_torch.config import load_config
+    from netobserv_tpu_torch.datapath.fetcher import EvictedFlows, FakeFetcher
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.metrics.registry import Metrics, MetricsSettings
+    from netobserv_tpu_torch.sketch import state as sk
+    from netobserv_tpu_torch.utils import ovn_decoder
+    import gc
+    agg, singles, ssl, owned = feed
+    # FORCE_GARBAGE_COLLECTION at its default: the map tracer collects the
+    # whole heap after the record path's first eviction of each active
+    # timeout, where every single asks for an eviction (ROADMAP C2, C5)
+    env = {"EXPORT": "tpu-sketch", "AGENT_IP": "127.0.0.1",
+           "ENABLE_FLOWS_RINGBUF_FALLBACK": "true",
+           "CACHE_ACTIVE_TIMEOUT": "1h", "SKETCH_WINDOW": "1h",
+           "CACHE_MAX_FLOWS": str(4 * IF_RB_FLOWS)}
+    if features:
+        env.update(ENABLE_OPENSSL_TRACKING="true", ENABLE_UDN_MAPPING="true",
+                   ENABLE_NETWORK_EVENTS_MONITORING="true")
+    if device == "cpu":
+        env.update(SKETCH_DEVICES="cpu", SKETCH_CM_WIDTH="4096",
+                   SKETCH_TOPK="256", SKETCH_HLL_PRECISION="10")
+    cfg = load_config(env)
+    cfg.validate()
+    metrics = Metrics(MetricsSettings())
+    sink = WindowSink()
+    exp = TorchSketchExporter.from_config(cfg, metrics=metrics, sink=sink)
+    rolls: list = []  # a device clone of each pre-roll state
+    roll_locked = exp._roll_locked
+
+    def keep_state(*args):
+        rolls.append(_clone(exp.state))
+        return roll_locked(*args)
+    exp._roll_locked = keep_state
+    tap = _RecordPath(exp)
+    fake = FakeFetcher()
+    saved_udn = os.environ.get("UDN_MAPPING_FILE")
+    os.environ["UDN_MAPPING_FILE"] = udn_path
+    try:
+        agent = FlowsAgent(cfg, fake, tap, metrics=metrics)
+    finally:
+        if saved_udn is None:
+            del os.environ["UDN_MAPPING_FILE"]
+        else:
+            os.environ["UDN_MAPPING_FILE"] = saved_udn
+    handled = []
+    decoder = None
+    if features:
+        check(agent.ssl_tracer is not None
+              and agent.ssl_correlator is not None
+              and agent.accounter._ssl_correlator is agent.ssl_correlator,
+              "the SSL branch was not built")
+        agent.ssl_correlator._resolver = lambda pid: list(owned.get(pid, []))
+        handle = agent.ssl_tracer._handler
+
+        def counted(event):
+            handle(event)
+            handled.append(1)
+        agent.ssl_tracer._handler = counted
+        decoder = ovn_decoder.active_decoder()
+        check(decoder is agent._ovn_decoder, "the OVN decoder not installed")
+    stages = sorted(agent.supervisor.snapshot())
+
+    def wait(pred, what: str, secs: float = 20.0) -> None:
+        deadline = time.monotonic() + secs
+        while not pred() and time.monotonic() < deadline:
+            time.sleep(0.002)
+        check(pred(), f"timed out waiting for {what}")
+
+    # the full collections of the run (the map tracer's and the
+    # interpreter's own) and their seconds
+    collects: list = []
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            collects.append((phase, time.perf_counter()))
+    stop = threading.Event()
+    runner = threading.Thread(target=agent.run, args=(stop,), daemon=True)
+    gc.callbacks.append(on_gc)
+    runner.start()
+    try:
+        wait(lambda: agent.status == Status.STARTED, "the agent to start")
+        if features:
+            for raw in ssl:
+                fake.inject_ssl(raw)
+            wait(lambda: len(handled) == len(ssl), "the SSL writes")
+        for i in range(len(singles)):
+            # paced as `ringbuf` paces them, so that none is dropped
+            wait(lambda: fake._ringbuf.qsize() + agent._rb_q.qsize()
+                 < RB_BACKLOG, "room for the singles")
+            fake.inject_ringbuf(singles[i:i + 1])
+
+        def accounted() -> bool:
+            try:
+                packets = sum(int(e["stats"]["packets"]) for e in
+                              list(agent.accounter._entries.values()))
+            except RuntimeError:  # resized under the accounter's thread
+                return False
+            return (metrics.ringbuf_events_total._value.get()
+                    == len(singles) and packets == len(singles))
+        wait(accounted, "the singles")
+        fake.inject_eviction(EvictedFlows(agg))
+    finally:
+        stop.set()
+        runner.join(timeout=30)
+        gc.callbacks.remove(on_gc)
+    check(not runner.is_alive() and agent.status == Status.STOPPED,
+          f"the agent did not stop ({agent.status})")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    records = [r for b in tap.batches for r in b]
+    check(len(records) == len(agg) + len(
+        {k.tobytes() for k in singles["key"]}),
+        f"{len(records)} records")
+    credits = sorted(
+        (r.key.src_ip + r.key.dst_ip, r.key.src_port, r.key.dst_port,
+         r.features.ssl_plaintext_events, r.features.ssl_plaintext_bytes)
+        for r in records if r.features.ssl_plaintext_events)
+    # (first octet of the source: 10 the map's flows, 11 the singles',
+    # interface, UDN)
+    udns = sorted({(r.key.src_ip[12], r.interface, r.udn) for r in records})
+    check(len(rolls) == 1, f"{len(rolls)} rolls")
+    return {"tables": sk.state_tables(rolls[0]),
+            "reports": [{k: v for k, v in rep.items()
+                         if k != "TimestampMs"} for rep in sink.reports],
+            "credits": credits, "udns": udns, "stages": stages,
+            "decoder": type(decoder).__name__ if decoder else None,
+            "decoder_after": type(ovn_decoder.active_decoder()).__name__,
+            "records": len(records), "batches": len(tap.batches),
+            "folds": exp.folds,
+            "full_collects": sum(p == "stop" for p, _t in collects),
+            "collect_s": sum(t1 - t0 for (p0, t0), (p1, t1)
+                             in zip(collects, collects[1:])
+                             if p0 == "start" and p1 == "stop")}
+
+
+def phase_ifaces_features(specs, card: str) -> dict:
+    """Interface discovery and the SSL, UDN and network-events branches
+    on the card (module docstring, `ifaces_features`)."""
+    import faulthandler
+    # a phase that overruns half its budget leaves every thread's stack
+    faulthandler.dump_traceback_later(IF_BUDGET_S / 2, file=sys.stderr)
+    try:
+        return _ifaces_features(specs, card)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _ifaces_features(specs, card: str) -> dict:
+    import errno
+    import os
+    import tempfile
+    import numpy as np
+    from netobserv_tpu_torch.ifaces import netlink
+    t_phase = time.perf_counter()
+    out = {"phase": "ifaces_features", "card": card}
+    # (a) the netlink dump against a listing made without netlink
+    witness = _link_witness()
+    try:
+        links = [(lk.index, lk.name, lk.mac, lk.up)
+                 for lk in netlink.dump_links()]
+    except OSError as exc:
+        code = errno.errorcode.get(exc.errno, exc.errno)
+        print(f"ifaces_features: the netlink socket refused ({code})",
+              flush=True)
+        links = None
+    if links is None or witness is None:
+        why = ("the netlink socket refused" if links is None
+               else "no listing of the interfaces without netlink")
+        print(f"ifaces_features: part (a) not run: {why}", flush=True)
+        out["netlink"] = f"not run: {why}"
+    else:
+        source, want = witness
+        got = {n: i for i, n, _m, _u in links}
+        check(got == want, f"netlink {got} against {source} {want}")
+        out["netlink"] = {"links": len(links), "equal_to": source}
+        print(f"ifaces_features: (a) netlink's {len(links)} links equal "
+              f"{source}'s", flush=True)
+    # (b) the listener
+    if links is not None:
+        out["listener"] = _if_listener(links, "netlink")
+    else:
+        out["listener"] = _if_listener(IF_SCRIPTED_LINKS, "scripted")
+    out["netlink_and_listener_s"] = time.perf_counter() - t_phase
+    print(f"ifaces_features: (a) and (b) took "
+          f"{out['netlink_and_listener_s']:.2f} s", flush=True)
+    # (c) the three settings on the card, without them, and on the CPU
+    feed = _if_feed(np.random.default_rng(IF_SEED))
+    check(int(feed[0]["stats"]["bytes"].sum())
+          + int(feed[1]["stats"]["bytes"].sum()) < 1 << 24,
+          "the feed leaves the integer regime")
+    plains: dict = {}
+    runs = {}
+
+    def run(name: str, features: bool, device: str) -> None:
+        t0 = time.perf_counter()
+        runs[name] = _if_agent_run(specs, feed, features, device, udn_path)
+        out[f"{name}_run_s"] = time.perf_counter() - t0
+        out[f"{name}_full_collects"] = runs[name]["full_collects"]
+        print(f"ifaces_features: the {name} run took "
+              f"{out[name + '_run_s']:.2f} s, {runs[name]['full_collects']} "
+              f"full collections in {runs[name]['collect_s']:.3f} s",
+              flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        udn_path = os.path.join(tmp, "udn.json")
+        with open(udn_path, "w") as fh:
+            json.dump(IF_UDNS, fh)
+        with counting_plains(specs, plains):
+            for s in specs:
+                s["kernel"].launches = 0
+            run("on", True, "cuda")
+            launches = {s["name"]: s["kernel"].launches for s in specs}
+            run("off", False, "cuda")
+        # the CPU run's folds are the plain versions, counted by nothing
+        run("cpu", True, "cpu")
+    on, off, cpu = runs["on"], runs["off"], runs["cpu"]
+    check(not plains, f"plain versions ran: {plains}")
+    diff = [k for k in on["tables"]
+            if not np.array_equal(on["tables"][k], off["tables"][k])]
+    check(not diff and on["reports"] == off["reports"],
+          f"tables {diff} differ with the three settings")
+    check(on["credits"] == cpu["credits"] and on["credits"],
+          f"{len(on['credits'])} credited records, the CPU run's "
+          f"{len(cpu['credits'])}")
+    # the map tracer names UDNs; the accounter's records carry none, as
+    # the reference's (`flow/map_tracer.py:254-261`, `accounter.py`)
+    check(on["udns"] == cpu["udns"] and all(
+        u == (IF_UDNS.get(i, "") if octet == 10 else "")
+        for octet, i, u in on["udns"]), f"udns {on['udns']}")
+    check({"ssl-tracer", "accounter", "ringbuf-tracer"} <= set(on["stages"])
+          and "ssl-tracer" not in off["stages"],
+          f"stages {on['stages']} / {off['stages']}")
+    check(on["decoder"] == "StaticCookieDecoder" or os.path.exists(
+        "/var/run/ovn/ovnnb_db.sock"), f"decoder {on['decoder']}")
+    check(on["decoder_after"] == "StaticCookieDecoder",
+          f"decoder after shutdown {on['decoder_after']}")
+    check(all(launches[n] > 0 for n in ("countmin_fold2", "topk_reduce",
+                                         "signal_fold", "hll_fold_folds")),
+          f"launches {launches}")
+    out.update(
+        launches=launches, records=on["records"], folds=on["folds"],
+        record_batches=on["batches"], credited_records=len(on["credits"]),
+        credits_equal_cpu=True, tables_equal_without=True,
+        udns=on["udns"], decoder=on["decoder"],
+        report_records=[r["Records"] for r in on["reports"]])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ifaces_features: {out['seconds']:.2f} s", flush=True)
+    check(out["seconds"] <= IF_BUDGET_S,
+          f"the phase took {out['seconds']:.1f} s of {IF_BUDGET_S}")
+    return out
 
 
 #: the scenarios phase: the zoo runner's batch, the scenarios whose folds
@@ -8303,6 +8953,9 @@ def main() -> int:
                                    _lanes_rate(lanes_res),
                                    wt_res["records_per_s"], dev["nvidia_smi"])
         emit(ae_res)
+        phase = "ifaces_features"
+        if_res = phase_ifaces_features(specs, dev["nvidia_smi"])
+        emit(if_res)
         phase = "scenarios"
         zoo_res = phase_scenarios(specs, dev["nvidia_smi"])
         emit(zoo_res)
@@ -8353,6 +9006,7 @@ def main() -> int:
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
                 "agent_entry": ae_res["launches"],
+                "ifaces_features": if_res["launches"],
                 "scenarios": zoo_res["launches"],
                 "ringbuf": rb_res["launches"],
                 "tenants": tn_res["launches"],

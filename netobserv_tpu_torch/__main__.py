@@ -7,12 +7,18 @@ the debug server on PPROF_ADDR (`server/debug.py`), builds the agent
 server with the agent's health (`/healthz`, `/readyz`) and the sketch
 exporter's `/query/*` routes, then runs the agent until SIGTERM or SIGINT,
 which stop it: the map tracer's final eviction, the limiter's and the
-terminal's drain, and the exporter's last window. It exits 0 then. A
-`ValueError` or `RuntimeError` while the agent is built exits 2 with the
-message on the log: among them every setting the port has not ported,
-naming its ROADMAP item, FEDERATION_MODE=aggregator and ENABLE_PCA (A8)
-here. The sketch exporter folds on the card; SKETCH_DEVICES=cpu runs it
-on the CPU, and without CUDA the agent refuses to start unless asked so.
+terminal's drain, and the exporter's last window. It exits 0 then. With
+no DATAPATH the agent takes the reference's ladder
+(`agent.build_fetcher`): the clang-built object through libbpf, else the
+hand-assembled kernel datapath, else synthetic replay with a warning, so
+a host without bpf(2) still starts. A `ValueError` or `RuntimeError`
+while the agent is built exits 2 with the message on the log: among them
+the modes the port has not ported, naming their ROADMAP item,
+FEDERATION_MODE=aggregator and ENABLE_PCA here (A8), and DATAPATH=kernel
+on a host that is not root; DATAPATH=kernel where bpf(2) fails raises
+its `OSError`, as the reference's does. The sketch exporter folds on the
+card; SKETCH_DEVICES=cpu runs it on the CPU, and without CUDA the agent
+refuses to start unless asked so.
 """
 
 from __future__ import annotations

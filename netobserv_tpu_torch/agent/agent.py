@@ -11,23 +11,29 @@ and the exporter's threads with the stage supervisor
 `health_snapshot` for `/healthz` and `/readyz`. Inject the fetcher and
 exporter to test it.
 
-Left out, each refused by `config.AgentConfig.validate` when asked for
-(ROADMAP A8): SSL correlation and tracing (ENABLE_OPENSSL_TRACKING), so
-the accounter takes no SSL correlator; UDN mapping (ENABLE_UDN_MAPPING)
-and the OVN network-events decoder (ENABLE_NETWORK_EVENTS_MONITORING);
-and the interface listener, which only the self-managed kernel fetchers
-ask for (`needs_iface_discovery`, ROADMAP A8.5). The fused drain's
+The feature branches (`:66-94`, `:135-167`): ENABLE_UDN_MAPPING gives
+the map tracer an `ifaces/udn.UdnMapper`; ENABLE_NETWORK_EVENTS_MONITORING
+installs the OVN sample decoder `utils/ovn_decoder.make_decoder` picks,
+closed and uninstalled at shutdown; ENABLE_OPENSSL_TRACKING, with a
+fetcher that reads SSL events (`read_ssl`), adds the `ssl-tracer` stage
+(`flow/ssl_tracer.SSLTracer`) and an `SSLCorrelator` whose credits the
+map tracer and the accounter attach to records, except on the columnar
+path, which never makes records and only warns. The interface listener
+(`agent/interfaces_listener.py`, `:172-183`) is built when the fetcher
+asks (`needs_iface_discovery`, the self-managed kernel fetchers) or an
+informer is injected (`iface_informer`); it registers as the
+`iface-listener` stage, starts first and stops first. The fused drain's
 binding is here (`:120-131`): a fetcher with `bind_pack_surface` is given
 the exporter's `resident_pack_surface()` where that is not None; so is the
 kernel flow filters' programming (`:170-171`): with FLOW_FILTER_RULES set,
 a fetcher with `program_filters` is given the parsed rules.
-`build_fetcher` knows `DATAPATH=synthetic`, `DATAPATH=pcap:<file>` and,
-with EBPF_PROGRAM_MANAGER_MODE, the bpfman datapath
-(`datapath/loader.BpfmanFetcher` over the pinned maps, `:353-355`); every
-other value, unset, `auto` and `kernel` among them, raises `ValueError`
-naming ROADMAP A8.4b and A8.5 (the clang-built kernel datapath, its
-fallback ladder and the interface listener), where the reference loads a
-kernel datapath or falls back to synthetic replay.
+`build_fetcher` is the reference's ladder (`:333-375`): DATAPATH=pcap:<file>
+and DATAPATH=synthetic replay; with EBPF_PROGRAM_MANAGER_MODE the bpfman
+datapath; otherwise (unset, `auto`, `kernel`) `datapath/loader.KernelFetcher`
+(the clang-built object through libbpf, else the hand-assembled
+datapath), then `MinimalKernelFetcher`, then synthetic replay with a
+warning, except that DATAPATH=kernel raises the last rung's error.
+DATAPATH=grpc:<port> raises `ValueError` naming ROADMAP A8.9.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ class FlowsAgent:
 
     def __init__(self, cfg: AgentConfig, fetcher: FlowFetcher,
                  exporter: Exporter, metrics: Optional[Metrics] = None,
-                 agent_ip: str = ""):
+                 agent_ip: str = "", iface_informer=None):
         self.cfg = cfg
         self.fetcher = fetcher
         self.exporter = exporter
@@ -92,7 +98,33 @@ class FlowsAgent:
         self._evicted_q: queue.Queue = queue.Queue(maxsize=buf)
         self._export_q: queue.Queue = queue.Queue(maxsize=export_buf)
 
+        udn_mapper = None
+        if cfg.enable_udn_mapping:
+            from netobserv_tpu_torch.ifaces.udn import UdnMapper
+            udn_mapper = UdnMapper()
+        self._ovn_decoder = None
+        if cfg.enable_network_events_monitoring:
+            # install the OVN sample decoder (ovsdb-backed when the OVN
+            # socket exists, static otherwise; reference agent.go:136-147)
+            from netobserv_tpu_torch.utils import ovn_decoder
+            self._ovn_decoder = ovn_decoder.make_decoder(cfg)
+            ovn_decoder.set_decoder(self._ovn_decoder)
         columnar = getattr(exporter, "supports_columnar", False)
+        ssl_tracking = (cfg.enable_openssl_tracking
+                        and hasattr(fetcher, "read_ssl"))
+        self.ssl_correlator = None
+        if ssl_tracking:
+            if columnar:
+                # _attach_features never runs on the columnar fast path, so
+                # credits would accumulate forever and never export
+                log.warning("SSL plaintext correlation is a no-op on the "
+                            "columnar fast path (records are never "
+                            "materialized)")
+            else:
+                from netobserv_tpu_torch.flow.ssl_correlator import (
+                    SSLCorrelator,
+                )
+                self.ssl_correlator = SSLCorrelator()
         # map capacity for the occupancy histogram + pressure relief: a
         # fetcher that knows its map's capacity reports it, else the
         # datapath was sized from CACHE_MAX_FLOWS
@@ -108,7 +140,9 @@ class FlowsAgent:
             # columnar fast path: exporters that consume raw evictions skip
             # per-record Python object materialization entirely
             columnar=columnar,
+            udn_mapper=udn_mapper,
             force_gc=cfg.force_garbage_collection,
+            ssl_correlator=self.ssl_correlator,
             map_capacity=map_capacity,
             pressure_watermark=cfg.map_pressure_watermark,
             # fleet telemetry: a sketch exporter records the last drain's
@@ -129,6 +163,21 @@ class FlowsAgent:
         self.terminal = QueueExporter(
             exporter, self._export_q, metrics=self.metrics)
 
+        self.ssl_tracer = None
+        if ssl_tracking:
+            from netobserv_tpu_torch.flow.ssl_tracer import SSLTracer
+
+            def _ssl_handle(event):
+                if self.ssl_correlator is not None:
+                    credited = self.ssl_correlator.observe(event)
+                else:
+                    credited = 0
+                log.debug("ssl %s pid=%d %dB -> %d flow keys credited",
+                          "write" if event.direction else "read", event.pid,
+                          len(event.data), credited)
+
+            self.ssl_tracer = SSLTracer(fetcher, _ssl_handle)
+
         self.rb_tracer: Optional[RingBufTracer] = None
         self.accounter: Optional[Accounter] = None
         if cfg.enable_flows_ringbuf_fallback:
@@ -140,7 +189,8 @@ class FlowsAgent:
                 self._rb_q, self._evicted_q,
                 max_entries=cfg.cache_max_flows,
                 evict_timeout_s=cfg.cache_active_timeout,
-                agent_ip=agent_ip, metrics=self.metrics)
+                agent_ip=agent_ip, metrics=self.metrics,
+                ssl_correlator=self.ssl_correlator)
 
         if cfg.sampling:
             self.metrics.sampling_rate.set(cfg.sampling)
@@ -148,6 +198,18 @@ class FlowsAgent:
         # program kernel flow filters when the datapath supports it
         if cfg.flow_filter_rules and hasattr(fetcher, "program_filters"):
             fetcher.program_filters(cfg.parsed_filter_rules())
+
+        # discovery is only useful when the datapath attaches to interfaces
+        # (the kernel loaders); replay and fake fetchers skip it unless an
+        # informer is injected
+        self.iface_listener = None
+        if iface_informer is not None or getattr(
+                fetcher, "needs_iface_discovery", False):
+            from netobserv_tpu_torch.agent.interfaces_listener import (
+                InterfaceListener,
+            )
+            self.iface_listener = InterfaceListener(
+                cfg, fetcher, metrics=self.metrics, informer=iface_informer)
 
         # query plane: the sketch exporter's QueryRoutes, which the metrics
         # server serves at /query/*
@@ -184,6 +246,12 @@ class FlowsAgent:
                                heartbeat_timeout_s=hb, **budget)
         if self.rb_tracer is not None:
             sup.register_stage("ringbuf-tracer", self.rb_tracer,
+                               heartbeat_timeout_s=hb, **budget)
+        if self.ssl_tracer is not None:
+            sup.register_stage("ssl-tracer", self.ssl_tracer,
+                               heartbeat_timeout_s=hb, **budget)
+        if self.iface_listener is not None:
+            sup.register_stage("iface-listener", self.iface_listener,
                                heartbeat_timeout_s=hb, **budget)
         # the sketch exporter supervises its own window and fold threads
         register = getattr(self.exporter, "register_supervised", None)
@@ -222,9 +290,14 @@ class FlowsAgent:
         metrics = Metrics(MetricsSettings(
             prefix=cfg.metrics_prefix, level=cfg.metrics_level))
         # the fetcher first: an unported DATAPATH raises before the
-        # exporter builds its kernels and captures its graphs
+        # exporter builds its kernels and captures its graphs; a kernel
+        # fetcher's maps and pins are released if the exporter fails
         fetcher = build_fetcher(cfg)
-        exporter = build_exporter(cfg, metrics=metrics)
+        try:
+            exporter = build_exporter(cfg, metrics=metrics)
+        except BaseException:
+            fetcher.close()
+            raise
         return cls(cfg, fetcher, exporter, metrics=metrics, agent_ip=agent_ip)
 
     @property
@@ -240,12 +313,16 @@ class FlowsAgent:
     def run(self, stop: Optional[threading.Event] = None) -> None:
         """Start the pipeline and block until `stop` is set (or .stop())."""
         self._set_status(Status.STARTING)
+        if self.iface_listener is not None:
+            self.iface_listener.start()
         self.terminal.start()
         self.limiter.start()
         if self.accounter is not None:
             self.accounter.start()
         if self.rb_tracer is not None:
             self.rb_tracer.start()
+        if self.ssl_tracer is not None:
+            self.ssl_tracer.start()
         self.map_tracer.start()
         if self.cfg.supervisor_enable:
             self.supervisor.start()
@@ -270,7 +347,11 @@ class FlowsAgent:
         # stop stages source-first, with a final eviction so nothing is
         # lost; the terminal drains its queue, then closes the exporter,
         # which publishes the last window
+        if self.iface_listener is not None:
+            self.iface_listener.stop()
         self.map_tracer.stop(final_evict=True)
+        if self.ssl_tracer is not None:
+            self.ssl_tracer.stop()
         if self.rb_tracer is not None:
             self.rb_tracer.stop()
         if self.accounter is not None:
@@ -278,18 +359,26 @@ class FlowsAgent:
         self.limiter.stop()
         self.terminal.stop()
         self.fetcher.close()
+        if self._ovn_decoder is not None:
+            from netobserv_tpu_torch.utils import ovn_decoder
+            self._ovn_decoder.close()
+            ovn_decoder.set_decoder(None)  # drop this agent's global install
+            self._ovn_decoder = None
         self._set_status(Status.STOPPED)
 
 
 def build_fetcher(cfg: AgentConfig) -> FlowFetcher:
-    """The datapath DATAPATH names: "synthetic" (zipf-skewed synthetic
-    flows) or "pcap:<path>" (a pcap replayed one CACHE_ACTIVE_TIMEOUT of
-    capture an eviction); else, with EBPF_PROGRAM_MANAGER_MODE, the bpfman
-    datapath over the maps pinned at BPFMAN_BPF_FS_PATH (reference
-    `agent.py:353-355`). The gRPC ingest is ROADMAP A8, and the
-    reference's default ("auto": the kernel loader, else synthetic replay)
-    and "kernel" are A8.4b and A8.5: each raises."""
+    """Datapath selection: kernel loader when available, replay otherwise
+    (`netobserv_tpu/agent/agent.py:333-375`).
+
+    DATAPATH ("kernel" | "synthetic" | "pcap:<path>") overrides; the
+    default tries the kernel loader (bpfman mode when
+    EBPF_PROGRAM_MANAGER_MODE is set) and falls back to synthetic replay
+    with a warning. "grpc:<port>", the collector tier's ingest, is not
+    ported (ROADMAP A8.9) and raises.
+    """
     mode = os.environ.get("DATAPATH", "auto")
+    # an explicit DATAPATH replay request overrides everything (debug/replay)
     if mode.startswith("pcap:"):
         from netobserv_tpu_torch.datapath.replay import PcapReplayFetcher
         return PcapReplayFetcher(mode[5:], window_s=cfg.cache_active_timeout)
@@ -297,16 +386,32 @@ def build_fetcher(cfg: AgentConfig) -> FlowFetcher:
         from netobserv_tpu_torch.datapath.replay import SyntheticFetcher
         return SyntheticFetcher()
     if mode.startswith("grpc:"):
-        raise ValueError(
-            f"DATAPATH={mode!r}: the gRPC ingest is not ported (ROADMAP A8)")
+        raise ValueError(f"DATAPATH={mode!r}: the gRPC ingest is not "
+                         "ported (ROADMAP A8.9)")
     if cfg.ebpf_program_manager_mode:
         from netobserv_tpu_torch.datapath.loader import BpfmanFetcher
         return BpfmanFetcher.load(cfg)
-    raise ValueError(
-        f"DATAPATH={mode!r}: the port replays DATAPATH=synthetic or "
-        "DATAPATH=pcap:<file>, or drains bpfman's pinned maps with "
-        "EBPF_PROGRAM_MANAGER_MODE; the self-managed kernel datapath and "
-        "its fallback ladder are not ported (ROADMAP A8.4b, A8.5)")
+    try:
+        from netobserv_tpu_torch.datapath.loader import KernelFetcher
+        return KernelFetcher.load(cfg)
+    except Exception as exc:
+        log.debug("full kernel datapath unavailable: %s", exc)
+    try:
+        # hand-assembled minimal datapath: real IPv4 TCP/UDP flow capture
+        # without a compiled BPF object (datapath/asm_flowpath.py)
+        from netobserv_tpu_torch.datapath.loader import MinimalKernelFetcher
+        fetcher = MinimalKernelFetcher.load(cfg)
+        log.info("using the minimal hand-assembled kernel datapath "
+                 "(IPv4 TCP/UDP base flows; build the clang object for "
+                 "full features)")
+        return fetcher
+    except Exception as exc:
+        if mode == "kernel":
+            raise
+        log.warning("kernel datapath unavailable (%s); using synthetic replay",
+                    exc)
+        from netobserv_tpu_torch.datapath.replay import SyntheticFetcher
+        return SyntheticFetcher()
 
 
 def resolve_agent_ip(cfg: AgentConfig) -> str:

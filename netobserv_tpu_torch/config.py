@@ -6,9 +6,11 @@ the `EXPORT_*` names are a copy of `netobserv_tpu/config.py` (`:53-141`,
 the same rules, so one environment gives equal configurations in both
 packages. `AgentConfig.validate` runs the reference's checks (the
 alert-rule check, `:726-734`, through the port's `alerts/rules` and
-`alerts/sinks`), then refuses each setting of `_UNPORTED`, naming ROADMAP
-A8. The agent (`agent/agent.py`), `exporter.build_exporter` and
-`TorchSketchExporter.from_config` read it.
+`alerts/sinks`); every setting of the flow agent is ported, and the modes
+the port lacks (ENABLE_PCA, FEDERATION_MODE=aggregator, DATAPATH=grpc:)
+are refused where they are read (`__main__.py`, `agent.build_fetcher`),
+naming ROADMAP A8. The agent (`agent/agent.py`),
+`exporter.build_exporter` and `TorchSketchExporter.from_config` read it.
 
 The `DEFAULT_*` thresholds are copies of the reference's: the window
 report renderer (`exporter/report.py`) reads them as its defaults.
@@ -392,17 +394,6 @@ VALID_EXPORTERS = (
 )
 
 
-#: settings that turn on a feature the port's agent has not ported, by
-#: field, environment name and feature: `validate` refuses each (their
-#: defaults are off), so none is silently ignored
-_UNPORTED = (
-    ("enable_openssl_tracking", "ENABLE_OPENSSL_TRACKING",
-     "SSL plaintext correlation and tracing"),
-    ("enable_udn_mapping", "ENABLE_UDN_MAPPING", "UDN mapping"),
-    ("enable_network_events_monitoring", "ENABLE_NETWORK_EVENTS_MONITORING",
-     "the OVN network-events decoder"),
-)
-
 
 @dataclass
 class FlowFilterRule:
@@ -452,8 +443,7 @@ class AgentConfig:  # noqa: PLR0902 - deliberately wide, as the reference's
     `AgentConfig` (`:142-772`): every field with its environment name and
     default in its metadata, so one environment reads the same in both
     packages (each field's comment is at the reference). `validate` runs
-    the reference's checks, then refuses what the port has not ported
-    (`_UNPORTED`)."""
+    the reference's checks."""
 
     # --- identity / export target ---
     agent_ip: str = field(default="", **_env("AGENT_IP"))
@@ -864,11 +854,6 @@ class AgentConfig:  # noqa: PLR0902 - deliberately wide, as the reference's
                 "precision degrades measurably at this ratio (docs/"
                 "accuracy.md); widen the sketch or shrink the top-K",
                 self.sketch_cm_width, 16 * self.sketch_topk)
-        for name, env, what in _UNPORTED:
-            if getattr(self, name):
-                raise ValueError(
-                    f"{env} asks for {what}, which the port has not "
-                    "ported (ROADMAP A8)")
 
 
 _DURATION_FIELDS = {

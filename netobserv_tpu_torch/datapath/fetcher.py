@@ -9,7 +9,7 @@ a `datapath/loader.PackedEviction`) and a batch trace (`trace`), which
 the map tracer (`flow/map_tracer.py`) hangs on a sampled eviction and the
 exporter finishes at its next fold. `FlowFetcher` and `FakeFetcher` are copies of
 the reference's (`:62-170`). The replay fetchers are in `replay.py`; the
-kernel fetchers are ROADMAP A8.
+kernel fetchers in `loader.py`.
 """
 
 from __future__ import annotations

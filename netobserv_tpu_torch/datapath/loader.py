@@ -14,7 +14,14 @@ kept as a copy so the port imports nothing of the JAX package:
 - `MinimalKernelFetcher`: the self-managed datapath of the hand-assembled
   programs (`datapath/asm_flowpath`, `asm_probes`, `asm_ssl`), its maps
   created and its programs loaded through the kernel verifier and attached
-  by TCX or tc (`_SelfManagedAttach`), with the flow-filter tries.
+  by TCX or tc (`_SelfManagedAttach`), with the flow-filter tries;
+- `LibbpfKernelFetcher` (`:1387-1762`): the clang-built object
+  `_OBJ_PATH` (`datapath/bpf_build.py` makes it; nothing here compiles)
+  opened, resized, patched and loaded through `datapath/libbpf`, with its
+  probes object's fentry -> kprobe -> none ladder; and `KernelFetcher`
+  with `_load_clang_or_fallback` (`:38-56`, `:1850-1876`), the ladder
+  from that object to `MinimalKernelFetcher`. Its pins take a prefix of
+  their own, as `MinimalKernelFetcher`'s do.
 
 The merges, the event compose and the fused pipeline are the port's
 native library (`datapath/flowpack.py`, `csrc/flowpack.cc`); a library
@@ -25,9 +32,7 @@ which stay the tests' plain twins. The gate also runs over any fetcher of
 record dtype), each map with `fd`, `n_cpus`, `max_entries`,
 `_no_batch_ops` and `_pad_vs`), as tests drive it with injected maps.
 
-Not here yet: the libbpf fetchers of the clang-built object
-(`LibbpfKernelFetcher`, `KernelFetcher` and its fallback ladder, ROADMAP
-A8.4b) and the packet fetchers of PCA (`MinimalPacketFetcher`,
+Not here yet: the packet fetchers of PCA (`MinimalPacketFetcher`,
 `LibbpfPacketFetcher`, `load_packet_fetcher`, ROADMAP A8.8).
 """
 
@@ -41,7 +46,7 @@ from typing import Optional
 import numpy as np
 
 from netobserv_tpu_torch.config import AgentConfig
-from netobserv_tpu_torch.datapath import flowpack, syscall_bpf
+from netobserv_tpu_torch.datapath import bpf_build, flowpack, syscall_bpf
 from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
 from netobserv_tpu_torch.model import binfmt
 from netobserv_tpu_torch.model.flow import GlobalCounter
@@ -50,6 +55,8 @@ from netobserv_tpu_torch.utils import tracing
 log = logging.getLogger("netobserv_tpu_torch.datapath.loader")
 
 _U64_MAX = np.uint64(0xFFFF_FFFF_FFFF_FFFF)
+
+_OBJ_PATH = os.path.join(bpf_build.BUILD_DIR, bpf_build.OBJ_NAME)
 
 # (map name, value dtype, EvictedFlows attr) — ALL per-CPU feature maps the
 # fetcher drains at eviction (reference merges every enabled feature map,
@@ -809,6 +816,21 @@ def _program_filter_tries(rules_map, peers_map, rules) -> int:
     return len(compiled.rules)
 
 
+def _pin_owner_alive(suffix: str) -> bool:
+    """Whether the process named by a pin's `<pid>_<program>` suffix still
+    runs. A suffix with no pid is no pin of the port's, and is swept."""
+    pid, sep, _name = suffix.partition("_")
+    if not sep or not pid.isdigit() or int(pid) <= 0:
+        return False
+    try:
+        os.kill(int(pid), 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True  # alive, owned by another user
+    return True
+
+
 class _SelfManagedAttach:
     """TC/TCX attach lifecycle shared by the self-managed fetchers (flow +
     PCA): per-direction pinned programs, tcx/tc/any mode dispatch, netns
@@ -892,10 +914,15 @@ class _SelfManagedAttach:
         clsact qdisc, which attach() resets per interface; TCX links die with
         their fds at process exit — only the pins linger).
 
-        Reference: `netobserv_tpu/datapath/loader.py:900`."""
+        Reference: `netobserv_tpu/datapath/loader.py:900`, which unlinks
+        every pin under its prefix. Here a pin is named
+        `<prefix><pid>_<program>`, and one whose process still lives is
+        kept: another agent or test of the port may be using it."""
         import glob
 
         for path in glob.glob(self._PIN_PREFIX + "*"):
+            if _pin_owner_alive(path[len(self._PIN_PREFIX):]):
+                continue
             try:
                 os.unlink(path)
                 log.info("removed stale program pin %s", path)
@@ -1285,3 +1312,448 @@ class MinimalKernelFetcher(_SelfManagedAttach, BpfmanFetcher):
             self._gate_map.close()
         for fmap, _dtype in self._features.values():
             fmap.close()
+
+
+def _libbpf_open_and_load(obj_path: str, resize: dict, knobs: dict,
+                          entry_names: dict):
+    """Shared clang-object lifecycle (both fetcher twins): open, pinning
+    strip, map resize, volatile-const patch (ELF-symtab offsets), entry-
+    point check, prune everything but the selected entries, verifier load.
+    Returns the loaded BpfObject.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1387`."""
+    from netobserv_tpu_torch.datapath import libbpf as lb
+
+    obj = lb.BpfObject(obj_path)
+    try:
+        for m in obj.maps():
+            m.disable_pinning()
+            want = resize.get(m.name)
+            if want:
+                m.set_max_entries(want)
+        syms = lb.rodata_symbols(obj_path)
+        patches = {}
+        for name, val in knobs.items():
+            if name in syms:
+                off, size = syms[name]
+                patches[off] = (size, int(val))
+            else:
+                log.debug("const %s absent in %s", name, obj_path)
+        if patches:
+            obj.patch_rodata(patches)
+        for pname in entry_names.values():
+            if obj.program(pname) is None:
+                raise RuntimeError(f"object lacks program {pname}")
+        wanted = set(entry_names.values())
+        for p in obj.programs():
+            if p.name not in wanted:
+                p.set_autoload(False)
+            else:
+                # force SCHED_CLS on EVERY entry: this tree's "tc_*"
+                # sections are custom, and "tcx/..." sec_defs only exist in
+                # libbpf >= 1.3 (v1.1 leaves them UNSPEC and load fails);
+                # plain SCHED_CLS attaches through both the TCX link and
+                # legacy tc paths, exactly like the assembler programs
+                p.set_type(3)
+        obj.load()
+        return obj
+    except Exception:
+        obj.close()
+        raise
+
+
+def _libbpf_default_resize(cache: int) -> dict:
+    """Every oversized map in maps.h must shrink BEFORE load — libbpf
+    creates ALL object maps regardless of program autoload, and the
+    declared 1<<24-entry preallocated per-CPU hashes would ENOMEM.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1433`."""
+    return {"aggregated_flows": cache, "flows_dns": cache,
+            "flows_drops": cache, "flows_nevents": cache,
+            "flows_xlat": cache, "flows_extra": cache,
+            "flows_quic": cache, "dns_inflight": max(cache, 1024),
+            "direct_flows": 1 << 17, "ssl_events": 1 << 20,
+            "packet_records": 1 << 17}
+
+
+def _libbpf_pin_entries(obj, entry_names: dict, prefix: str):
+    """(prog_fds, pins): dup per-direction entry fds and pin them (the
+    legacy tc attach path needs a pinned program path).
+
+    Reference: `netobserv_tpu/datapath/loader.py:1445`."""
+    prog_fds, pins = {}, {}
+    for d, pname in entry_names.items():
+        fd = os.dup(obj.program(pname).fd)
+        pin = f"{prefix}{os.getpid()}_{d}"
+        if os.path.exists(pin):
+            os.unlink(pin)
+        syscall_bpf.obj_pin(fd, pin)
+        prog_fds[d] = fd
+        pins[d] = pin
+    return prog_fds, pins
+
+
+def _libbpf_release(self) -> None:
+    """Shared teardown for the libbpf fetchers' fds/pins/object.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1460`."""
+    for fd in self._prog_fds.values():
+        try:
+            os.close(fd)
+        except OSError:
+            pass
+    self._prog_fds = {}
+    for pin in self._pins.values():
+        try:
+            os.unlink(pin)
+        except OSError:
+            pass
+    self._pins = {}
+    if self._obj is not None:
+        self._obj.close()
+        self._obj = None
+
+
+class LibbpfKernelFetcher(_SelfManagedAttach, BpfmanFetcher):
+    """Full C datapath: loads the clang-built CO-RE object (flowpath.c —
+    every inline tracker; `datapath/bpf_build.py`) through the system
+    libbpf, with the reference's load lifecycle (`pkg/tracer/tracer.go:
+    92-273`): map resize per config, pinning strip, `volatile const`
+    rewrite from the parsed env config, capability-based program pruning,
+    verifier load, per-direction TCX/TC attach, and the shared per-CPU
+    drain at eviction.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1479`."""
+
+    needs_iface_discovery = True
+    # a prefix of its own, which the reference's stale-pin sweep
+    # ("netobserv_cobj_*") does not match, nor this one the reference's:
+    # the two agents' fetchers may run side by side on one host
+    _PIN_PREFIX = "/sys/fs/bpf/netobserv_torch_cobj_"
+
+    def __init__(self, cfg: AgentConfig, obj_path: str = _OBJ_PATH):
+        """Reference: `netobserv_tpu/datapath/loader.py:1494`."""
+        self._init_empty_maps()
+        self._sweep_stale_pins()
+        self._mode = cfg.tc_attach_mode
+        self._obj = None
+        try:
+            self._provision_object(cfg, obj_path)
+            self._init_drain_lanes(cfg.evict_drain_lanes)
+            if cfg.evict_native_pipeline and self._features:
+                self._native_gate = NativeEvictPipeline(self,
+                                                        self._drain_lanes)
+        except Exception:
+            self.close()
+            raise
+
+    def _provision_object(self, cfg: AgentConfig, obj_path: str) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1509`."""
+        use_tcx = self._mode != "tc"
+        entry_names = {"ingress": ("tcx_ingress_flow" if use_tcx
+                                   else "tc_ingress_flow"),
+                       "egress": ("tcx_egress_flow" if use_tcx
+                                  else "tc_egress_flow")}
+        knobs = {
+            "cfg_sampling": cfg.sampling,
+            "cfg_trace_messages": int(cfg.log_level.lower() in
+                                      ("debug", "trace")),
+            "cfg_enable_rtt": int(cfg.enable_rtt),
+            "cfg_enable_dns_tracking": int(cfg.enable_dns_tracking),
+            "cfg_dns_port": cfg.dns_tracking_port,
+            "cfg_enable_pkt_drops": int(cfg.enable_pkt_drops),
+            "cfg_enable_flow_filtering": int(bool(cfg.flow_filter_rules)),
+            "cfg_enable_tls_tracking": int(cfg.enable_tls_tracking),
+            "cfg_quic_mode": cfg.quic_tracking_mode,
+            "cfg_enable_ringbuf_fallback":
+                int(cfg.enable_flows_ringbuf_fallback),
+            "cfg_enable_ipsec": int(cfg.enable_ipsec_tracking),
+            "cfg_enable_network_events":
+                int(cfg.enable_network_events_monitoring),
+            "cfg_network_events_group_id":
+                cfg.network_events_monitoring_group_id,
+            "cfg_enable_pkt_translation": int(cfg.enable_pkt_translation),
+        }
+        if cfg.flow_filter_rules:
+            # per-rule sampling moves the 1/N gate after the filter
+            # (config.h:52, flowpath.c:155-180)
+            knobs["cfg_has_sampling"] = int(any(
+                getattr(r, "sample", 0) for r in cfg.parsed_filter_rules()))
+        obj = _libbpf_open_and_load(
+            obj_path, _libbpf_default_resize(cfg.cache_max_flows), knobs,
+            entry_names)
+        self._obj = obj
+        # layout contract: the object's maps must match the binfmt dtypes
+        # byte-for-byte or the drain would mis-decode (records.h <-> binfmt)
+        agg_h = obj.map("aggregated_flows")
+        if agg_h is None:
+            raise RuntimeError("object lacks aggregated_flows")
+        if (agg_h.key_size != binfmt.FLOW_KEY_DTYPE.itemsize
+                or agg_h.value_size != binfmt.FLOW_STATS_DTYPE.itemsize):
+            raise RuntimeError(
+                f"object layout mismatch: aggregated_flows "
+                f"{agg_h.key_size}/{agg_h.value_size} != binfmt "
+                f"{binfmt.FLOW_KEY_DTYPE.itemsize}/"
+                f"{binfmt.FLOW_STATS_DTYPE.itemsize} — rebuild the object "
+                "against this tree's records.h")
+        for name, dtype, _attr in _FEATURE_MAPS:
+            h = obj.map(name)
+            if h is not None and h.value_size != dtype.itemsize:
+                raise RuntimeError(
+                    f"object layout mismatch: {name} value {h.value_size} "
+                    f"!= {dtype.itemsize}")
+
+        def wrap(name: str, n_cpus: int = 1):
+            h = obj.map(name)
+            if h is None:
+                return None
+            return syscall_bpf.BpfMap(
+                os.dup(h.fd), h.key_size, h.value_size, h.max_entries,
+                n_cpus=n_cpus,
+                percpu=h.type in syscall_bpf.PERCPU_MAP_TYPES)
+
+        ncpu = self._n_cpus
+        self._agg = wrap("aggregated_flows")
+        self._counters = wrap("global_counters", ncpu)
+        for name, dtype, attr in _FEATURE_MAPS:
+            bm = wrap(name, ncpu)
+            if bm is not None:
+                self._features[attr] = (bm, dtype)
+        self._dns_inflight = wrap("dns_inflight")
+        self._filter_rules = wrap("filter_rules")
+        self._filter_peers = wrap("filter_peers")
+        if cfg.enable_flows_ringbuf_fallback:
+            self._rb_map = wrap("direct_flows")
+            if self._rb_map is not None:
+                self._ringbuf = syscall_bpf.RingBufReader(self._rb_map)
+        self._prog_fds, self._pins = _libbpf_pin_entries(
+            obj, entry_names, self._PIN_PREFIX)
+        self._probe_links = []
+        self._probes_obj = None
+        probes_path = os.path.join(os.path.dirname(obj_path),
+                                   "flowpath_probes.bpf.o")
+        if os.path.exists(probes_path):
+            try:
+                self._load_probes(cfg, probes_path, knobs)
+            except Exception as exc:
+                log.warning("probes object %s unusable (%s); probe-based "
+                            "features degrade to the inline trackers",
+                            probes_path, exc)
+
+    @staticmethod
+    def _probe_wanted(cfg, section: str, rtt_tier: str,
+                      have_kprobes: bool, have_tracepoints: bool) -> bool:
+        """SEC-prefix -> (config gate, capability) for the aux hook
+        programs (the reference's attach ladder, tracer.go:184-273).
+        `rtt_tier` selects the RTT hook flavour: "fentry" -> "kprobe"
+        (trampoline unusable) -> "none" (both RTT twins rejected; every
+        other wanted probe still loads).
+
+        Reference: `netobserv_tpu/datapath/loader.py:1608`."""
+        if section.startswith("tracepoint/skb/kfree_skb"):
+            return cfg.enable_pkt_drops and have_tracepoints
+        if section.startswith("fentry/tcp_rcv"):
+            return cfg.enable_rtt and rtt_tier == "fentry"
+        if section.startswith("kprobe/tcp_rcv"):
+            # kprobe fallback only when fentry is off the table
+            return cfg.enable_rtt and have_kprobes and rtt_tier == "kprobe"
+        if section.startswith("kprobe/psample"):
+            return cfg.enable_network_events_monitoring and have_kprobes
+        if section.startswith("kprobe/nf_nat"):
+            return cfg.enable_pkt_translation and have_kprobes
+        if section.startswith(("kprobe/xfrm", "kretprobe/xfrm")):
+            return cfg.enable_ipsec_tracking and have_kprobes
+        return False                            # uprobe/...: asm path owns it
+
+    def _load_probes(self, cfg, probes_path: str, knobs: dict) -> None:
+        """Load the aux-hook object, sharing the flow object's maps
+        (bpf_map__reuse_fd) so probe records land in the maps the drain
+        reads. fentry needs trampoline support libbpf only reveals at load
+        — ladder: try with fentry, retry without (reference fentry->kprobe
+        fallback, tracer.go:203-222).
+
+        Reference: `netobserv_tpu/datapath/loader.py:1625`."""
+        from netobserv_tpu_torch.datapath import libbpf as lb
+
+        have_tracepoints = any(os.path.isdir(p) for p in (
+            "/sys/kernel/tracing/events",
+            "/sys/kernel/debug/tracing/events"))
+        have_kprobes = (os.path.isdir("/sys/bus/event_source/devices/kprobe")
+                        or any(os.path.exists(p) for p in (
+                            "/sys/kernel/tracing/kprobe_events",
+                            "/sys/kernel/debug/tracing/kprobe_events")))
+        syms = lb.rodata_symbols(probes_path)
+        last_exc: Exception | None = None
+        rtt_ladder = ["fentry"]
+        if have_kprobes:
+            rtt_ladder.append("kprobe")
+        rtt_ladder.append("none")
+        for rtt_tier in rtt_ladder:
+            pobj = lb.BpfObject(probes_path)
+            try:
+                wanted_any = False
+                for p in pobj.programs():
+                    want = self._probe_wanted(cfg, p.section, rtt_tier,
+                                              have_kprobes, have_tracepoints)
+                    if not want:
+                        p.set_autoload(False)
+                    wanted_any = wanted_any or want
+                if not wanted_any:
+                    pobj.close()
+                    log.info("no probe hooks wanted/attachable on this "
+                             "kernel; skipping %s", probes_path)
+                    return
+                resize = _libbpf_default_resize(cfg.cache_max_flows)
+                for m in pobj.maps():
+                    m.disable_pinning()
+                    # internal maps are named '<8-char-obj-prefix>.rodata'
+                    # etc. — never share those: the probes object needs its
+                    # OWN patched consts, not the flow object's image
+                    if "." in m.name:
+                        continue
+                    shared = self._obj.map(m.name)
+                    if shared is not None:
+                        m.reuse_fd(shared.fd)
+                    elif m.name in resize:
+                        # unshared probes-only maps get the same pre-load
+                        # shrink the flow object does: libbpf creates every
+                        # object map at its declared size regardless of
+                        # program autoload, and maps.h declares 1<<24-scale
+                        m.set_max_entries(resize[m.name])
+                patches = {}
+                for name, val in knobs.items():
+                    if name in syms:
+                        off, size = syms[name]
+                        patches[off] = (size, int(val))
+                if patches:
+                    pobj.patch_rodata(patches)
+                pobj.load()
+                links = []
+                fentry_attach_failed = False
+                # fentry first: if its trampoline is rejected at ATTACH we
+                # rerun the whole ladder, so don't attach anything else
+                # before that verdict is in
+                progs = sorted((p for p in pobj.programs() if p.autoload),
+                               key=lambda p:
+                               not p.section.startswith("fentry/"))
+                for p in progs:
+                    try:
+                        links.append(p.attach())
+                        log.info("probe attached: %s", p.section)
+                    except OSError as exc:
+                        if (rtt_tier == "fentry"
+                                and p.section.startswith("fentry/")):
+                            # some kernels accept the fentry program at load
+                            # but reject the trampoline at ATTACH; the
+                            # reference falls back to the kprobe twin there
+                            # too (tracer.go:203-222), so rerun the ladder
+                            fentry_attach_failed = True
+                            log.warning(
+                                "fentry probe %s attach failed (%s); %s",
+                                p.section, exc,
+                                "retrying with the kprobe fallback"
+                                if have_kprobes else
+                                "no kprobe support here — RTT probe dropped")
+                            break
+                        log.warning("probe %s attach failed: %s",
+                                    p.section, exc)
+                if fentry_attach_failed:
+                    for link in links:
+                        link.destroy()
+                    pobj.close()
+                    continue
+                self._probes_obj = pobj
+                self._probe_links = links
+                return
+            except OSError as exc:
+                pobj.close()
+                last_exc = exc
+                if rtt_tier != "none":
+                    log.debug("probes load at RTT tier %r failed (%s); "
+                              "laddering down", rtt_tier, exc)
+        raise last_exc if last_exc else RuntimeError("probes load failed")
+
+    def program_filters(self, rules) -> int:
+        """Reference: `netobserv_tpu/datapath/loader.py:1731`."""
+        if self._filter_rules is None:
+            if rules:
+                log.warning("object has no filter maps; rules ignored")
+            return 0
+        return _program_filter_tries(self._filter_rules, self._filter_peers,
+                                     rules)
+
+    def close(self) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1739`."""
+        if getattr(self, "_drain_pool", None) is not None:
+            self._drain_pool.shutdown(wait=True)
+            self._drain_pool = None
+        self._teardown_attachments()
+        for link in getattr(self, "_probe_links", []):
+            link.destroy()
+        self._probe_links = []
+        pobj = getattr(self, "_probes_obj", None)
+        if pobj is not None:
+            pobj.close()
+            self._probes_obj = None
+        if self._ringbuf is not None:
+            self._ringbuf.close()
+            self._ringbuf = None
+        for bm in [self._agg, self._counters, self._dns_inflight,
+                   self._filter_rules, self._filter_peers, self._rb_map]:
+            if bm is not None:
+                bm.close()
+        for bm, _dtype in self._features.values():
+            bm.close()
+        self._features = {}
+        _libbpf_release(self)
+
+
+class KernelFetcher:
+    """Self-managed kernel datapath entry point (reference analog:
+    `pkg/tracer/tracer.go:92-273` NewFlowFetcher).
+
+    Where the clang-built object (`datapath/bpf_build.py`) is present and
+    libbpf is available, loads the full C datapath through
+    `LibbpfKernelFetcher`. Otherwise provisions the hand-assembled
+    datapath (`MinimalKernelFetcher`), which needs no compiler or libbpf.
+
+    Reference: `netobserv_tpu/datapath/loader.py:38`."""
+
+    needs_iface_discovery = True  # the agent starts an InterfaceListener
+
+    @classmethod
+    def load(cls, cfg: AgentConfig):
+        return _load_clang_or_fallback(
+            cfg, lambda c: LibbpfKernelFetcher(c, _OBJ_PATH),
+            MinimalKernelFetcher.load, "datapath")
+
+
+def _load_clang_or_fallback(cfg: AgentConfig, clang_ctor, fallback,
+                            noun: str):
+    """Shared dispatch ladder: clang object via libbpf when present and
+    loadable, else the assembler implementation, with one log line per
+    branch so a degraded start is always explained.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1850`."""
+    if os.geteuid() != 0:
+        raise RuntimeError("kernel datapath requires root/CAP_BPF")
+    if os.path.exists(_OBJ_PATH):
+        from netobserv_tpu_torch.datapath import libbpf as lb
+
+        if lb.available():
+            try:
+                fetcher = clang_ctor(cfg)
+                log.info("loaded the clang-built %s %s via libbpf",
+                         noun, _OBJ_PATH)
+                return fetcher
+            except Exception as exc:
+                log.warning("clang %s failed to load (%s); falling back "
+                            "to the assembler implementation", noun, exc)
+        else:
+            log.warning("clang object %s present but libbpf is not "
+                        "available; using the assembler %s",
+                        _OBJ_PATH, noun)
+    else:
+        log.info("no clang-built BPF object (%s); using the assembler %s",
+                 _OBJ_PATH, noun)
+    return fallback(cfg)

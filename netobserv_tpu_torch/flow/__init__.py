@@ -5,6 +5,9 @@ Copies of `netobserv_tpu/flow/`'s `MapTracer`, `RingBufTracer`,
 MapTracer -> CapacityLimiter -> exporter (`exporter/base.QueueExporter`),
 with the ring-buffer fallback RingBufTracer -> Accounter feeding the same
 limiter (ENABLE_FLOWS_RINGBUF_FALLBACK), lossy at one point, the limiter.
+With ENABLE_OPENSSL_TRACKING the agent adds `ssl_tracer.SSLTracer` and
+`ssl_correlator.SSLCorrelator`, whose credits the map tracer and the
+accounter attach to records.
 """
 
 from netobserv_tpu_torch.flow.map_tracer import MapTracer  # noqa: F401

@@ -9,8 +9,8 @@ it holds `max_entries` flows, and once more on `stop`. Each eviction is
 observed as source "accounter"; one the queue cannot take is counted as
 dropped under that source. Its fault point is `accounter.loop`, and
 `heartbeat` beats once a poll for the stage supervisor. `ssl_correlator`
-credits each evicted record with its SSL plaintext counts when given;
-the port has no correlator yet (ROADMAP A8), so the agent passes None.
+credits each evicted record with its SSL plaintext counts when given:
+the agent passes its correlator under ENABLE_OPENSSL_TRACKING.
 """
 
 from __future__ import annotations

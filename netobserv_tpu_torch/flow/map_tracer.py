@@ -10,11 +10,15 @@ attached), map-pressure relief (MAP_PRESSURE_WATERMARK), the occupancy
 sink, the "batch" trace born at `evict` (bound as the drain thread's
 active trace while a sampled drain runs, for a kernel drain's child
 spans) and finished by the exporter's next fold, and the fault points
-`map_tracer.evict` and `map_tracer.pressure_evict`. Left out: the
-one-time sync of the native packer's ABI fallbacks (the port's packer
-raises on an ABI mismatch, so `flowpack_abi_fallback_total` stays 0); and
-the SSL correlator and UDN mapper, whose features
-`config.validate` refuses (ROADMAP A8).
+`map_tracer.evict` and `map_tracer.pressure_evict`. On the record path
+a `udn_mapper` (`ifaces/udn.UdnMapper`, ENABLE_UDN_MAPPING) names each
+record's UDN and its dup list's, and an `ssl_correlator`
+(`flow/ssl_correlator.SSLCorrelator`, ENABLE_OPENSSL_TRACKING) gives each
+record the SSL plaintext credits of its key. Left out: the one-time sync
+of the native packer's ABI fallbacks (the port's packer raises on an ABI
+mismatch, so `flowpack_abi_fallback_total` stays 0). Changed:
+FORCE_GARBAGE_COLLECTION collects after the first eviction of each
+active timeout, where the reference collects after every one.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ class MapTracer:
                  active_timeout_s: float = 5.0, agent_ip: str = "",
                  namer: Optional[InterfaceNamer] = None,
                  metrics=None, stale_purge_s: float = 5.0,
-                 columnar: bool = False, force_gc: bool = False,
+                 columnar: bool = False, udn_mapper=None,
+                 force_gc: bool = False, ssl_correlator=None,
                  map_capacity: int = 0,
                  pressure_watermark: float = 0.0,
                  occupancy_sink=None):
@@ -70,10 +75,21 @@ class MapTracer:
         # columnar mode: forward EvictedFlows untouched (no per-record Python
         # objects) for exporters that consume columns directly (tpu-sketch)
         self._columnar = columnar
-        # FORCE_GARBAGE_COLLECTION parity: collect after each eviction so
-        # the burst of short-lived record objects returns to the allocator
-        # (record path only — the columnar path births no per-record objects)
+        self._udn_mapper = udn_mapper  # ifaces.udn.UdnMapper when enabled
+        # flow/ssl_correlator.SSLCorrelator when OpenSSL tracking is on:
+        # enrichment consumes its per-flow plaintext counters
+        self._ssl_correlator = ssl_correlator
+        if columnar and udn_mapper is not None:
+            log.warning("UDN mapping is a no-op on the columnar fast path "
+                        "(records are never materialized)")
+        # FORCE_GARBAGE_COLLECTION: collect after an eviction so the burst
+        # of short-lived record objects returns to the allocator (record
+        # path only — the columnar path births no per-record objects), at
+        # most once an active timeout: the reference collects after every
+        # eviction, and every early eviction a ring-buffer single asks for
+        # then walks the whole heap under the interpreter lock
         self._force_gc = force_gc
+        self._gc_at: Optional[float] = None
         self._flush = threading.Event()
         self._stop = threading.Event()
         # one eviction at a time — ALSO load-bearing for the parallel
@@ -222,11 +238,13 @@ class MapTracer:
                 self._metrics.add_global_counter(key, val)
         self._check_map_pressure(len(evicted))
         if self._force_gc and not self._columnar:
-            # FORCE_GARBAGE_COLLECTION parity is for the record path's burst
-            # of short-lived objects; the columnar fast path materializes no
-            # per-record Python objects, so a collect there is pure stall
-            import gc
-            gc.collect()
+            # the columnar fast path materializes no per-record Python
+            # objects, so a collect there is pure stall
+            now = time.monotonic()
+            if self._gc_at is None or now - self._gc_at >= self._timeout:
+                self._gc_at = now
+                import gc
+                gc.collect()
         if len(evicted) == 0:
             return  # idle eviction: drop the trace unrecorded (no flows)
         if self._columnar:
@@ -246,7 +264,14 @@ class MapTracer:
             records = records_from_events(
                 evicted.events, clock=self._clock, agent_ip=self._agent_ip,
                 namer=namer)
-            _attach_features(records, evicted)
+            _attach_features(records, evicted,
+                             ssl_correlator=self._ssl_correlator)
+            if self._udn_mapper is not None:
+                for rec in records:
+                    rec.udn = self._udn_mapper.udn_for(rec.interface)
+                    rec.dup_list = [
+                        (name, d, self._udn_mapper.udn_for(name))
+                        for name, d, _u in rec.dup_list]
         # record batches are plain lists and cannot carry a trace context;
         # the record path's trace ends at enqueue (evict + enrich spans)
         trace.finish()
@@ -260,10 +285,15 @@ class MapTracer:
                         len(records))
 
 
-def _attach_features(records: list[Record], evicted) -> None:
+def _attach_features(records: list[Record], evicted,
+                     ssl_correlator=None) -> None:
     """Copy per-feature arrays onto the enriched records (already merged)."""
     for i, rec in enumerate(records):
         f = rec.features
+        if ssl_correlator is not None:
+            n_ev, n_bytes = ssl_correlator.take(rec.key)
+            f.ssl_plaintext_events = n_ev
+            f.ssl_plaintext_bytes = n_bytes
         if evicted.dns is not None and i < len(evicted.dns):
             d = evicted.dns[i]
             f.dns_id = int(d["dns_id"])

@@ -10,11 +10,11 @@ its work, and restores its original namespace on exit. Namespace-bound
 resources created inside (netlink sockets, TCX links, tc subprocesses forked
 while inside) remain bound to the target namespace afterwards.
 
-The port's copy of `netns_context` and `list_netns` of
-`netobserv_tpu/ifaces/netns.py` (lines 25-74), which the self-managed
-fetchers' attach and detach enter (`datapath/loader._SelfManagedAttach`).
-The netlink enumeration (`links_in`, `subscribe_links_in`) comes with the
-interface listener (ROADMAP A8.5).
+A copy of `netobserv_tpu/ifaces/netns.py` (lines 1-92): `netns_context`
+and `list_netns`, which the self-managed fetchers' attach and detach enter
+(`datapath/loader._SelfManagedAttach`), and the netlink enumeration inside
+a namespace (`links_in`, `subscribe_links_in`) that the `Watcher` of
+`ifaces/informers.py` runs.
 """
 
 from __future__ import annotations
@@ -82,3 +82,25 @@ def list_netns(netns_dir: str = NETNS_DIR) -> list[str]:
     except OSError:
         return []
 
+
+
+def links_in(name: str, netns_dir: str = NETNS_DIR):
+    """Enumerate links inside a named namespace (enter, dump, restore).
+
+    Reference: `netobserv_tpu/ifaces/netns.py:77`."""
+    from netobserv_tpu_torch.ifaces import netlink
+
+    with netns_context(name, netns_dir):
+        return netlink.dump_links()
+
+
+def subscribe_links_in(name: str, netns_dir: str = NETNS_DIR):
+    """Create a netlink RTMGRP_LINK subscription bound INSIDE the namespace;
+    the socket keeps delivering that namespace's events after the thread
+    returns to its original namespace.
+
+    Reference: `netobserv_tpu/ifaces/netns.py:85`."""
+    from netobserv_tpu_torch.ifaces import netlink
+
+    with netns_context(name, netns_dir):
+        return netlink.subscribe_links()

@@ -34,8 +34,10 @@ buckets. The port's packer raises on an ABI mismatch
 instead of falling back (`datapath/flowpack.py`), so
 `flowpack_abi_fallback_total` stays 0; no port datapath takes the fused
 drain, so `flowpack_native_calls_total` and
-`host_native_pipeline_seconds` stay empty. The families of the
-interfaces come with the step that ports that plane (ROADMAP A8).
+`host_native_pipeline_seconds` stay empty. The interface listener's
+`interface_events_total` (`:102-104`) with `count_interface_event`, its
+labels gated by METRICS_LEVEL, and the janitor that removes a
+trace-level series `trace_ttl_s` after its last increment (`:539-595`).
 
 `prometheus_client` is imported only when a `Metrics` is made, or when
 `exposition` renders a registry for the metrics server's `/metrics`: no
@@ -45,6 +47,8 @@ its own that work without a registry.
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 
 from netobserv_tpu_torch.model.flow import GlobalCounter
@@ -62,14 +66,13 @@ LEVELS = ("info", "debug", "trace")
 
 @dataclass
 class MetricsSettings:
-    """The family prefix and verbosity level of the reference's settings
-    (`metrics/registry.py:37-48`). The level is checked as the
-    reference checks it (METRICS_LEVEL), and selects nothing here: it
-    sets the cardinality of the interface-event families, which the port
-    does not have (ROADMAP A8), as it does not have their series TTL."""
+    """The family prefix, verbosity level and trace-series lifetime of the
+    reference's settings (`metrics/registry.py:37-48`). The level sets the
+    cardinality of `interface_events_total` (`count_interface_event`)."""
 
     prefix: str = "ebpf_agent_"
     level: str = "info"
+    trace_ttl_s: float = 300.0  # trace-level series lifetime (reference: 5min)
 
     def normalized_level(self) -> str:
         lvl = self.level.rstrip("!").lower()  # reference spells trace "trace!"
@@ -92,6 +95,9 @@ class Metrics:
             settings = MetricsSettings()
         self.settings = settings
         self.level = settings.normalized_level()
+        self._trace_expiry: dict[tuple[str, ...], float] = {}
+        self._trace_lock = threading.Lock()
+        self._trace_janitor = None
         self.registry = (registry if registry is not None
                          else CollectorRegistry())
         p = settings.prefix
@@ -128,6 +134,10 @@ class Metrics:
             registry=self.registry)
         self.buffer_size = Gauge(
             p + "buffer_size", "Pipeline buffer occupancy", ["name"],
+            registry=self.registry)
+        self.interface_events_total = Counter(
+            p + "interface_events_total", "Interface attach/detach events",
+            ["type", "ifname", "ifindex", "netns", "mac", "retries"],
             registry=self.registry)
         self.sampling_rate = Gauge(
             p + "sampling_rate", "Configured sampling (1/N; 0=all)",
@@ -557,3 +567,66 @@ class Metrics:
 
     def set_stage_degraded(self, stage: str, degraded: bool) -> None:
         self.stage_degraded.labels(stage).set(1 if degraded else 0)
+
+    def count_interface_event(self, kind: str, ifname: str = "",
+                              ifindex: int = 0, netns: str = "",
+                              mac: str = "", retries: int = 0) -> None:
+        """Level-gated cardinality, mirroring the reference's
+        `newInterfaceEventsCounter` (`pkg/metrics/metrics.go:337-368`):
+        info = type only; debug = + retries; trace = full per-interface
+        series that self-expire after `trace_ttl_s`.
+
+        Reference: `netobserv_tpu/metrics/registry.py:539`."""
+        if self.level == "info":
+            self.interface_events_total.labels(kind, "", "", "", "", "").inc()
+        elif self.level == "debug":
+            self.interface_events_total.labels(
+                kind, "", "", "", "", str(retries)).inc()
+        else:
+            labels = (kind, ifname, str(ifindex), netns, mac, str(retries))
+            # refresh the deadline BEFORE incrementing: the janitor re-checks
+            # deadlines under the lock at removal time, so an increment can
+            # never be swallowed by a concurrent expiry
+            self._schedule_trace_expiry(labels)
+            self.interface_events_total.labels(*labels).inc()
+
+    def _schedule_trace_expiry(self, labels: tuple[str, ...]) -> None:
+        """Trace-level series have unbounded cardinality (one per interface
+        identity); a single janitor thread removes each series trace_ttl_s
+        after its LAST increment — re-incrementing refreshes the deadline.
+
+        Reference: `netobserv_tpu/metrics/registry.py:559`."""
+        deadline = time.monotonic() + self.settings.trace_ttl_s
+        with self._trace_lock:
+            self._trace_expiry[labels] = deadline
+            if self._trace_janitor is None:
+                self._trace_janitor = threading.Thread(
+                    target=self._trace_janitor_loop, name="metrics-trace-ttl",
+                    daemon=True)
+                self._trace_janitor.start()
+
+    def _trace_janitor_loop(self) -> None:
+        """Reference: `netobserv_tpu/metrics/registry.py:573`."""
+        while True:
+            with self._trace_lock:
+                now = time.monotonic()
+                due = [lb for lb, d in self._trace_expiry.items()
+                       if d <= now]
+                for labels in due:
+                    del self._trace_expiry[labels]
+            for labels in due:
+                with self._trace_lock:
+                    if labels in self._trace_expiry:
+                        continue  # refreshed since collection — keep it
+                    try:
+                        self.interface_events_total.remove(*labels)
+                    except KeyError:
+                        pass  # raced with registry-level removal
+            with self._trace_lock:
+                if not self._trace_expiry:
+                    # nothing left to expire: exit so an idle Metrics (and
+                    # its registry) can be GC'd; the next trace increment
+                    # restarts the janitor
+                    self._trace_janitor = None
+                    return
+            time.sleep(min(self.settings.trace_ttl_s / 4, 5.0))

@@ -273,6 +273,49 @@ def test_map_pressure_latch_metrics_occupancy_sink_and_fault_point(pkg):
     assert quiet._pressure_relief is False
 
 
+def _count_collects(monkeypatch, tracer_cls, fetch, columnar: bool,
+                    evictions: int, timeout_s: float,
+                    pause_s: float = 0.0) -> int:
+    """gc.collect calls over `evictions` evictions of a three-flow map,
+    `pause_s` apart, by a tracer with FORCE_GARBAGE_COLLECTION."""
+    import gc
+    calls = []
+    monkeypatch.setattr(gc, "collect", lambda *a: calls.append(1) or 0)
+    fetcher = fetch.FakeFetcher()
+    tracer = tracer_cls(fetcher, queue.Queue(), active_timeout_s=timeout_s,
+                        columnar=columnar, force_gc=True)
+    events = np.zeros(3, tbin.FLOW_EVENT_DTYPE)
+    events["key"]["src_port"] = [1, 2, 3]
+    for i in range(evictions):
+        if i:
+            time.sleep(pause_s)
+        fetcher.inject_events(events.copy())
+        tracer._evict_once()
+    return len(calls)
+
+
+@pytest.mark.parametrize("columnar", [False, True],
+                         ids=["records", "columnar"])
+def test_one_eviction_collects_as_the_reference(monkeypatch, columnar):
+    """FORCE_GARBAGE_COLLECTION collects after the record path's eviction
+    and never on the columnar path, in both packages
+    (tests/test_evict_columnar.py::TestColumnarGcSkip)."""
+    got = [_count_collects(monkeypatch, cls, fetch, columnar, 1, 60.0)
+           for cls, fetch in ((MapTracer, tfetch), (JMapTracer, jfetch))]
+    assert got == [0, 0] if columnar else got == [1, 1]
+
+
+def test_early_evictions_collect_once_an_active_timeout(monkeypatch):
+    """A storm of early evictions (one a ring-buffer single) collects once
+    an active timeout, where the reference collects after each."""
+    assert _count_collects(monkeypatch, MapTracer, tfetch, False,
+                           50, 60.0) == 1
+    assert _count_collects(monkeypatch, JMapTracer, jfetch, False,
+                           50, 60.0) == 50
+    assert _count_collects(monkeypatch, MapTracer, tfetch, False,
+                           3, 0.05, pause_s=0.1) == 3
+
+
 def test_map_pressure_halves_the_wait_and_relaxes_back():
     """Under pressure the next wakeup comes at half the period, and the
     period comes back when occupancy falls (tests/test_overload.py)."""

@@ -474,11 +474,16 @@ def test_agent_builds_the_bpfman_fetcher_from_the_environment(tmp_path,
                                                               monkeypatch):
     """`build_fetcher` with EBPF_PROGRAM_MANAGER_MODE and no DATAPATH goes
     to `BpfmanFetcher.load`, which raises over a directory without maps
-    as the reference's does; unset and `kernel` DATAPATH still raise,
-    naming A8.4b."""
+    as the reference's does. Without it, unset, `auto` and `kernel`
+    DATAPATH take the reference's ladder to the same rung under the same
+    forced failures: the first kernel rung, else the minimal one, else
+    synthetic replay, except that `kernel` raises the last rung's error
+    (both rungs are stubbed, so nothing loads or attaches)."""
     from netobserv_tpu import config as jcfg
     from netobserv_tpu.agent import agent as jagent
+    from netobserv_tpu.datapath import replay as jreplay
     from netobserv_tpu_torch.agent import agent as tagent
+    from netobserv_tpu_torch.datapath import replay as treplay
 
     monkeypatch.delenv("DATAPATH", raising=False)
     env = {"EXPORT": "tpu-sketch", "EBPF_PROGRAM_MANAGER_MODE": "true",
@@ -500,13 +505,49 @@ def test_agent_builds_the_bpfman_fetcher_from_the_environment(tmp_path,
     with pytest.raises(OSError) as want:
         jagent.build_fetcher(jcfg.load_config(env))
     assert got.value.errno == want.value.errno
+
+    def rung(outcome):
+        def load(cls, c):
+            if isinstance(outcome, Exception):
+                raise outcome
+            return outcome
+        return classmethod(load)
+
+    def reached(mod_agent, mod_loader, mod_replay, cfg_mod, first, minimal):
+        monkeypatch.setattr(mod_loader.KernelFetcher, "load", rung(first))
+        monkeypatch.setattr(mod_loader.MinimalKernelFetcher, "load",
+                            rung(minimal))
+        try:
+            out = mod_agent.build_fetcher(
+                cfg_mod.load_config({"EXPORT": "tpu-sketch"}))
+        except Exception as exc:
+            return ("raised", type(exc).__name__, str(exc))
+        if isinstance(out, mod_replay.SyntheticFetcher):
+            return ("synthetic",)
+        return ("fetcher", out)
+
+    cases = [("first", "minimal"), (RuntimeError("no root"), "minimal"),
+             (OSError(38, "Function not implemented"), "minimal"),
+             (RuntimeError("no root"), RuntimeError("no root")),
+             (OSError(38, "ENOSYS"), OSError(38, "Function not implemented"))]
     for mode in (None, "auto", "kernel"):
         if mode is None:
             monkeypatch.delenv("DATAPATH", raising=False)
         else:
             monkeypatch.setenv("DATAPATH", mode)
-        with pytest.raises(ValueError, match="A8.4b"):
-            tagent.build_fetcher(tcfg.load_config({"EXPORT": "tpu-sketch"}))
+        for first, minimal in cases:
+            got = reached(tagent, tloader, treplay, tcfg, first, minimal)
+            want = reached(jagent, jloader, jreplay, jcfg, first, minimal)
+            assert got == want, (mode, first, minimal)
+            if not isinstance(first, Exception):
+                assert got == ("fetcher", "first")
+            elif not isinstance(minimal, Exception):
+                assert got == ("fetcher", "minimal")
+            elif mode == "kernel":
+                assert got == ("raised", type(minimal).__name__,
+                               str(minimal))
+            else:
+                assert got == ("synthetic",)
 
 
 class _Collect:

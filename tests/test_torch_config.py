@@ -152,35 +152,34 @@ def test_the_agent_run_configuration_validates_in_both():
     tcfg.load_config(env).validate()
 
 
-#: settings the port once refused, ported since with the kernel datapath's
-#: bpf(2) layer: both packages' `validate` take them
+#: settings the port once refused, ported since: with the kernel
+#: datapath's bpf(2) layer the first three, with the SSL, UDN and
+#: network-events branches the last three; both packages' `validate` take
+#: them, and no setting of the flow agent is refused any more
 _PORTED_SINCE = (
     ("flow_filter_rules", "FLOW_FILTER_RULES"),
     ("ebpf_program_manager_mode", "EBPF_PROGRAM_MANAGER_MODE"),
     ("evict_native_pipeline", "EVICT_NATIVE_PIPELINE"),
+    ("enable_openssl_tracking", "ENABLE_OPENSSL_TRACKING"),
+    ("enable_udn_mapping", "ENABLE_UDN_MAPPING"),
+    ("enable_network_events_monitoring", "ENABLE_NETWORK_EVENTS_MONITORING"),
 )
 
 
-@pytest.mark.parametrize("name,env_name",
-                         [(n, e) for n, e, _ in tcfg._UNPORTED]
-                         + list(_PORTED_SINCE))
+@pytest.mark.parametrize("name,env_name", list(_PORTED_SINCE))
 def test_validate_refuses_unported_features(name, env_name):
-    """The reference takes each (its `validate` passes); the port names
-    ROADMAP A8 for each setting of `_UNPORTED`, and takes the ported ones
-    as the reference does."""
+    """Each setting the port once refused: the reference takes it (its
+    `validate` passes), and so does the port's `validate`, with no
+    refusal table left (`_UNPORTED` went with the last of them)."""
     env = {"EXPORT": "tpu-sketch",
            env_name: "[{}]" if name == "flow_filter_rules" else "true"}
     jcfg.load_config(env).validate()
     cfg = tcfg.load_config(env)
     assert getattr(cfg, name)
-    if (name, env_name) in _PORTED_SINCE:
-        assert name not in [n for n, _, _ in tcfg._UNPORTED]
-        cfg.validate()
-        if name == "flow_filter_rules":
-            assert cfg.parsed_filter_rules() == [tcfg.FlowFilterRule()]
-        return
-    with pytest.raises(ValueError, match=f"{env_name}.*A8"):
-        cfg.validate()
+    assert not hasattr(tcfg, "_UNPORTED")
+    cfg.validate()
+    if name == "flow_filter_rules":
+        assert cfg.parsed_filter_rules() == [tcfg.FlowFilterRule()]
 
 
 def test_validate_accepts_the_ringbuf_fallback_and_the_agent_builds_it():
@@ -202,8 +201,6 @@ def test_validate_accepts_the_ringbuf_fallback_and_the_agent_builds_it():
     cfg = tcfg.load_config(env)
     cfg.validate()
     assert cfg.enable_flows_ringbuf_fallback
-    assert "enable_flows_ringbuf_fallback" not in [n for n, _, _ in
-                                                   tcfg._UNPORTED]
     agent = FlowsAgent(cfg, FakeFetcher(), Collect())
     assert isinstance(agent.rb_tracer, RingBufTracer)
     assert isinstance(agent.accounter, Accounter)

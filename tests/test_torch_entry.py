@@ -9,9 +9,12 @@ netobserv_tpu_torch/__main__.py; agent/agent.py `FlowsAgent.from_config`,
   `/healthz` answers Started meanwhile, and SIGTERM ends it with exit 0
   after it published its last window, whose records sum with the others
   to the pcap's packets.
-- An unported EXPORT exits 2 (a child process); an unported DATAPATH,
+- An unported EXPORT exits 2 (a child process); DATAPATH=grpc:,
   FEDERATION_MODE=aggregator and ENABLE_PCA exit 2 from `main()` in
-  process, each naming its ROADMAP item.
+  process, each naming its ROADMAP item. With both kernel rungs forced to
+  fail, DATAPATH=kernel exits 2 with the last rung's error, and no
+  DATAPATH falls back to synthetic replay with the reference's warning:
+  `main()` starts, and exits 0 on SIGTERM.
 - In process, both packages' `FlowsAgent.from_config` over the same pcap
   (one replay fetcher each, one clock) are driven eviction by eviction
   through their map tracer, limiter and terminal, rolled after the same
@@ -194,21 +197,80 @@ def test_cli_exits_2_for_an_unported_exporter():
     assert b"A8" in proc.stderr and proc.stdout == b""
 
 
+def _forced_rungs(monkeypatch):
+    """Both kernel rungs of both packages' ladders fail, so no test agent
+    loads a datapath or attaches to an interface."""
+    from netobserv_tpu.datapath import loader as jloader
+    from netobserv_tpu_torch.datapath import loader as tloader
+
+    def refuse(cls, cfg):
+        raise RuntimeError(f"{cls.__name__} refused by the test")
+
+    for mod in (tloader, jloader):
+        for name in ("KernelFetcher", "MinimalKernelFetcher"):
+            monkeypatch.setattr(getattr(mod, name), "load",
+                                classmethod(refuse))
+
+
+def _main_until_started(monkeypatch) -> tuple[int, object]:
+    """`main()` in this process, SIGTERM sent to it once its agent is
+    Started; the exit code and the agent. The signal handlers it installs
+    are put back."""
+    import threading
+
+    from netobserv_tpu_torch.agent import agent as tagent
+
+    made = []
+    real = tagent.FlowsAgent.from_config.__func__
+
+    def from_config(cls, cfg):
+        made.append(real(cls, cfg))
+        return made[-1]
+
+    monkeypatch.setattr(tagent.FlowsAgent, "from_config",
+                        classmethod(from_config))
+
+    def terminate_once_started():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            if made and made[0].status == tagent.Status.STARTED:
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+            time.sleep(0.02)
+
+    saved = {sig: signal.getsignal(sig)
+             for sig in (signal.SIGTERM, signal.SIGINT)}
+    t = threading.Thread(target=terminate_once_started, daemon=True)
+    t.start()
+    try:
+        rc = cli.main()
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+    t.join(timeout=5)
+    return rc, (made[0] if made else None)
+
+
 @pytest.mark.parametrize("env,item", [
-    ({"DATAPATH": None}, "DATAPATH='auto'.*A8"),
-    ({"DATAPATH": "kernel"}, "A8"), ({"DATAPATH": "grpc:9000"}, "A8"),
+    ({"DATAPATH": None}, "start"),
+    ({"DATAPATH": "kernel"}, "MinimalKernelFetcher refused"),
+    ({"DATAPATH": "grpc:9000"}, "A8"),
     ({"FEDERATION_MODE": "aggregator"}, "aggregator.*A8"),
     ({"ENABLE_PCA": "true"}, "ENABLE_PCA.*A8"),
-    ({"ENABLE_OPENSSL_TRACKING": "true"}, "ENABLE_OPENSSL_TRACKING.*A8"),
+    ({"ENABLE_OPENSSL_TRACKING": "true"}, "start"),
     ({"SKETCH_TENANTS": "2"}, None)],
     ids=["unset", "kernel", "grpc", "aggregator", "pca", "openssl",
          "tenants"])
 def test_main_exits_2_for_unported_settings(env, item, monkeypatch, caplog,
                                             tmp_path):
-    """Each setting the port lacks exits 2 naming its ROADMAP item; the
-    tenants case (item None, ported since) starts: a child with
-    SKETCH_TENANTS=2 publishes its first window's two reports and stops
-    with exit 0 on SIGTERM."""
+    """Each setting the port lacks exits 2 naming its ROADMAP item. With
+    the kernel rungs forced to fail, DATAPATH=kernel exits 2 with the last
+    rung's error, and no DATAPATH falls back to synthetic replay, as the
+    reference's ladder does: it starts and exits 0 on SIGTERM, as does
+    ENABLE_OPENSSL_TRACKING (ported since, over synthetic replay, which
+    reads no SSL events). The tenants case (item None, ported since)
+    starts a child with SKETCH_TENANTS=2, which publishes its first
+    window's two reports and stops with exit 0 on SIGTERM."""
     if item is None:
         flood_pcap(tmp_path / "flood.pcap")
         rc, reports, err = run_tenant_child(tmp_path / "flood.pcap",
@@ -216,14 +278,31 @@ def test_main_exits_2_for_unported_settings(env, item, monkeypatch, caplog,
         assert rc == 0, err.decode()[-2000:]
         assert [r["Tenant"] for r in reports[:2]] == [0, 1]
         return
+    _forced_rungs(monkeypatch)
     base = {"EXPORT": "tpu-sketch", "SKETCH_DEVICES": "cpu",
             "DATAPATH": "synthetic", "AGENT_IP": "127.0.0.1",
-            "SKETCH_CM_WIDTH": "1024", "SKETCH_TOPK": "64"}
+            "SKETCH_CM_WIDTH": "1024", "SKETCH_TOPK": "64",
+            "SKETCH_BATCH_SIZE": "256", "SKETCH_RESIDENT_SLOTS": "1024",
+            "SKETCH_REPORT_SINK": "stdout"}
     for k, v in {**base, **env}.items():
         if v is None:
             monkeypatch.delenv(k, raising=False)
         else:
             monkeypatch.setenv(k, v)
+    if item == "start":
+        from netobserv_tpu_torch.datapath.replay import SyntheticFetcher
+
+        with caplog.at_level(logging.INFO, logger="netobserv_tpu_torch"):
+            rc, agent = _main_until_started(monkeypatch)
+        assert rc == 0
+        assert isinstance(agent.fetcher, SyntheticFetcher)
+        assert agent.status.value == "Stopped"
+        warned = [r.getMessage() for r in caplog.records
+                  if "using synthetic replay" in r.getMessage()]
+        assert len(warned) == (1 if env.get("DATAPATH", "") is None else 0)
+        if warned:
+            assert "MinimalKernelFetcher refused" in warned[0]
+        return
     with caplog.at_level(logging.ERROR, logger="netobserv_tpu_torch"):
         assert cli.main() == 2
     assert caplog.records

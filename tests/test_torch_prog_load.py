@@ -321,6 +321,40 @@ def test_minimal_fetcher_provisions_through_the_verifier(feature):
     assert _fetcher_pins() == []
 
 
+def test_a_fetcher_keeps_the_live_pins_of_another_process():
+    """A new fetcher's stale sweep leaves a pin whose process runs (another
+    agent's or test's) and removes one whose process is gone."""
+    import subprocess
+    import sys
+    from netobserv_tpu_torch.datapath.loader import MinimalKernelFetcher
+
+    done = subprocess.Popen([sys.executable, "-c", "pass"])
+    done.wait()
+    live = subprocess.Popen([sys.executable, "-c",
+                             "import time; time.sleep(60)"])
+    prefix = MinimalKernelFetcher._PIN_PREFIX
+    theirs = f"{prefix}{live.pid}_ingress"
+    stale = f"{prefix}{done.pid}_ingress"
+    try:
+        first = MinimalKernelFetcher(cache_max_flows=256)
+        try:
+            sb.obj_pin(first._prog_fds["ingress"], theirs)
+            sb.obj_pin(first._prog_fds["egress"], stale)
+        finally:
+            first.close()
+        second = MinimalKernelFetcher(cache_max_flows=256)
+        second.close()
+        assert os.path.exists(theirs)
+        assert not os.path.exists(stale)
+    finally:
+        live.kill()
+        live.wait()
+        for pin in (theirs, stale):
+            if os.path.exists(pin):
+                os.unlink(pin)
+    assert _fetcher_pins() == []
+
+
 def test_a_failed_provisioning_closes_what_it_made(monkeypatch):
     from netobserv_tpu_torch.datapath import asm_flowpath, loader
 
