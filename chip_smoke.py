@@ -14,9 +14,10 @@ C entries: kernels 1-8 and the HLL folds launch) and the empty kernel of
 the launch floor (one `nvcc` per source, all started together), holds each
 against its plain PyTorch version at the shapes its path gives it, then
 drives five
-paths through `TorchSketchExporter` at the default geometry (and six
+paths through `TorchSketchExporter` at the default geometry (and seven
 planes on the lanes path after them: the fused drain's seam, the window
-thread, the query, federation and archive planes and overload control),
+thread, the query and federation planes, the exporters over the port's
+own gRPC transport, the archive and overload control),
 each with the
 launch counts set to 0 just before it and read just after:
 
@@ -201,6 +202,44 @@ launch counts set to 0 just before it and read just after:
   `roll_dispatch` on empty windows with a delta sink (the whole
   `state_tables` copied under the lock) and without, and the agents'
   records/s beside `window_thread`'s;
+- the record exporters and the port's own gRPC transport (`exporters`,
+  ROADMAP A8.7: `exporter/grpc_flow.py`, `ipfix.py`, `stdout_json.py`,
+  `pb_convert.py`, `exporter/federation.py`, `grpc/h2.py`, `pb/flow.py`),
+  in three parts. (a) EXP_RECORDS records of the lanes stream
+  (`records_from_events`), seeded into v4 and v6 keys, ICMP, DNS, drops,
+  xlat, TLS, QUIC, IPsec and network events: through `GRPCFlowExporter`
+  into the port's `start_flow_collector` at 2 flows a message (the first
+  EXP_SMALL) and at 10,000, each received record equal to its original
+  in every field pbflow carries; where `openssl` is on PATH the same over
+  TLS with a self-signed certificate (EXP_UDP records), else one printed
+  skip line; `IPFIXExporter` over UDP (EXP_UDP records) and TCP to local
+  sockets, decoded here: the templates the IANA elements of
+  EXP_IPFIX_TEMPLATES, each header's sequence number the data records
+  before it, every field the record's; `StdoutJSONExporter` into a
+  buffer, each line `to_json_obj`. It prints each backend's flows/s and
+  wire bytes a flow. (b) `python3 -m netobserv_tpu_torch` as a child
+  with EXPORT=grpc (the DaemonSet's setting) to the port's collector and
+  no DATAPATH (the synthetic rung where bpf(2) fails): Started on
+  /healthz, flows at the collector before SIGTERM, exit 0; it prints the
+  time to Started and the flows. (c) FEDERATION_TARGET: FED_AGENTS
+  lanes-path agents from `TorchSketchExporter.from_config` fold seeded
+  quarters of the integer stream (`_integer_stream`, so add order cannot
+  change a bit), two windows closed by `flush()` from this thread. First
+  in process (each agent's sink swapped for the aggregator's
+  `ingest_frame`), then over the wire: an aggregator at the default
+  geometry, the agents' rings captured, then the port's
+  `start_federation_collector` on the port the agents were given. Every
+  cluster window equals the in-process run's bit for bit, its records
+  the agents' sum; the launches are the folds' (kernels 1, 2, 4 and the
+  folds launch), no plain version runs, no ring captures again. Then
+  EXP_PUSH_ROUNDS rounds of the live frames re-headered under fresh ids,
+  each pushed over the wire and handed to `ingest_frame` in process, and
+  three failures: a cold start (a sink made before its server exists
+  delivers once it appears), a server without Push (UNIMPLEMENTED, one
+  attempt, counted `terminal`) and a raw frame over 4 MiB
+  (RESOURCE_EXHAUSTED, classified `retry`). It prints the push p50/p99
+  over the wire beside `ingest_frame`'s, the wire bytes a frame and
+  frames/s;
 - the archive and checkpoint planes (`archive`): an `archive.SketchArchive`
   at the default geometry (ARC_RAW raw windows a level, groups of
   ARC_GROUP, ARC_LEVELS levels, a ladder to ARC_LADDER), its merge ladder
@@ -4317,8 +4356,13 @@ def _span_ms(trace: dict, name: str) -> float:
 def _agent_quarters(events):
     """Each agent's seeded quarter of the lanes path's stream (one window
     of the pool, as every path's), as its rows in order."""
+    return _agent_quarters_of(LaneFeeder(events).stream)
+
+
+def _agent_quarters_of(stream):
+    """`_agent_quarters` of an (events, lanes) stream."""
     import numpy as np
-    ev, lanes = LaneFeeder(events).stream
+    ev, lanes = stream
     owner = np.random.default_rng(13).integers(0, FED_AGENTS, len(ev))
     return [(ev[owner == a], {k: v[owner == a] for k, v in lanes.items()})
             for a in range(FED_AGENTS)]
@@ -4805,6 +4849,725 @@ def _chain_replay(engine, table_dicts) -> dict:
         if not pending:
             return acc
         pending = [acc] + pending
+
+
+#: the exporters phase: the records through the record exporters, the
+#: gRPC leg's small batch (at 2 flows a message), the share of UDP and of
+#: the TLS leg, and the pushes timed over the wire and in process after
+#: the two live windows
+EXP_RECORDS = 20_000
+EXP_SMALL = 2_000
+EXP_UDP = 5_000
+EXP_PUSH_ROUNDS = 32
+#: the IANA information elements of the IPFIX templates (RFC 7011/7012):
+#: the shared head, then the v4 and v6 address and ICMP elements
+EXP_IPFIX_HEAD = [(152, 8), (153, 8), (1, 8), (2, 8), (10, 4), (61, 1),
+                  (56, 6), (80, 6), (256, 2), (4, 1), (6, 2), (7, 2),
+                  (11, 2)]
+EXP_IPFIX_TEMPLATES = {
+    256: EXP_IPFIX_HEAD + [(8, 4), (12, 4), (176, 1), (177, 1)],
+    257: EXP_IPFIX_HEAD + [(27, 16), (28, 16), (178, 1), (179, 1)]}
+
+
+def _exp_records(events) -> list:
+    """EXP_RECORDS records of the lanes stream (`records_from_events`),
+    seeded into v4 and v6 keys, ICMP and ICMPv6, DNS, drops, RTT, xlat,
+    TLS, QUIC, IPsec and network events."""
+    import numpy as np
+    from netobserv_tpu_torch.model.flow import (
+        IP4_IN_6_PREFIX, FlowFeatures, FlowKey,
+    )
+    from netobserv_tpu_torch.model.record import records_from_events
+    ev = LaneFeeder(events).stream[0][:EXP_RECORDS]
+    recs = records_from_events(ev, agent_ip="127.0.0.1")
+    rng = np.random.default_rng(24)
+    for i, r in enumerate(recs):
+        k = r.key
+        v4 = i % 2 == 0
+        if v4:
+            k = FlowKey(IP4_IN_6_PREFIX + k.src_ip[12:],
+                        IP4_IN_6_PREFIX + k.dst_ip[12:], k.src_port,
+                        k.dst_port, k.proto)
+        r.eth_protocol = 0x0800 if v4 else 0x86DD
+        if i % 10 in (3, 4):
+            k = FlowKey(k.src_ip, k.dst_ip, 0, 0, 1 if v4 else 58,
+                        int(rng.integers(0, 256)), int(rng.integers(0, 16)))
+        f = FlowFeatures()
+        if i % 5 == 1:
+            f.dns_id = int(rng.integers(1, 1 << 16))
+            f.dns_flags = 0x8180
+            f.dns_latency_ns = int(rng.integers(1, 10**8))
+            f.dns_name = f"host{i % 97}.example.com"
+        if i % 7 == 2:
+            f.drop_bytes = int(rng.integers(1, 1 << 20))
+            f.drop_packets = int(rng.integers(1, 100))
+            f.drop_latest_flags = int(rng.integers(0, 1 << 9))
+            f.drop_latest_state = int(rng.integers(0, 12))
+            f.drop_latest_cause = int(rng.integers(0, 1 << 9))
+        if i % 3 == 0:
+            f.rtt_ns = int(rng.integers(1, 10**9))
+        if i % 11 == 5:
+            f.xlat_src_ip = IP4_IN_6_PREFIX + rng.bytes(4)
+            f.xlat_dst_ip = k.dst_ip
+            f.xlat_src_port = int(rng.integers(1, 1 << 16))
+            f.xlat_dst_port = k.dst_port
+            f.xlat_zone_id = int(rng.integers(0, 1 << 16))
+        if i % 13 == 6:
+            f.quic_version = 1
+            f.quic_seen_long_hdr = True
+            f.quic_seen_short_hdr = bool(i % 2)
+        if i % 17 == 8:
+            f.network_events = [bytes([1, 1, 2, 0]) + rng.bytes(4)]
+        if i % 19 == 9:
+            f.ipsec_encrypted = True
+            f.ipsec_encrypted_ret = -int(rng.integers(0, 100))
+        if i % 9 == 4:
+            r.ssl_version = 0x0304
+            r.tls_cipher_suite = 0x1301
+            r.tls_key_share = 0x001D
+            r.tls_types = 0x0B
+            r.ssl_mismatch = bool(i % 2)
+        r.key, r.features = k, f
+    return recs
+
+
+def _pbflow_view(r) -> tuple:
+    """Every field of a record that pbflow carries, as `pb_convert`
+    carries it (the DNS and drop blocks only when set)."""
+    f = r.features
+    dns = bool(f.dns_id or f.dns_latency_ns or f.dns_errno)
+    drop = bool(f.drop_bytes or f.drop_packets)
+    xlat = (f.xlat_src_ip, f.xlat_dst_ip, f.xlat_src_port, f.xlat_dst_port,
+            f.xlat_zone_id) if f.xlat_src_ip else None
+    return (r.key, r.bytes_, r.packets, r.eth_protocol, r.tcp_flags,
+            int(r.direction == 1), r.src_mac, r.dst_mac, r.interface,
+            r.dscp, r.sampling, r.time_flow_start_ns, r.time_flow_end_ns,
+            r.agent_ip, [(n, int(d == 1), u) for n, d, u in r.dup_list],
+            (f.dns_id, f.dns_flags, f.dns_errno, f.dns_latency_ns,
+             f.dns_name) if dns else None,
+            (f.drop_bytes, f.drop_packets, f.drop_latest_flags,
+             f.drop_latest_state, f.drop_latest_cause) if drop else None,
+            f.rtt_ns, xlat, bool(f.ipsec_encrypted), f.ipsec_encrypted_ret,
+            (f.quic_version, bool(f.quic_seen_long_hdr),
+             bool(f.quic_seen_short_hdr)), r.ssl_version,
+            bool(r.ssl_mismatch), r.tls_types, r.tls_cipher_suite,
+            r.tls_key_share)
+
+
+class _WireCount:
+    """Bytes the port's gRPC transport writes, over every connection."""
+
+    def __init__(self):
+        from netobserv_tpu_torch.grpc import h2
+        self.h2, self.n = h2, 0
+        self.saved = (h2._Plain.send, h2._Tls.send)
+
+    def __enter__(self):
+        plain, tls = self.saved
+
+        def count(fn):
+            def send(t, data):
+                self.n += len(data)
+                return fn(t, data)
+            return send
+        self.h2._Plain.send, self.h2._Tls.send = count(plain), count(tls)
+        return self
+
+    def __exit__(self, *exc):
+        self.h2._Plain.send, self.h2._Tls.send = self.saved
+
+
+def _exp_grpc_leg(recs, per_message: int, tls: dict | None) -> dict:
+    """The records through `GRPCFlowExporter` into the port's
+    `start_flow_collector`; each received record equal to its original
+    in every field pbflow carries."""
+    from netobserv_tpu_torch.exporter.grpc_flow import GRPCFlowExporter
+    from netobserv_tpu_torch.exporter.pb_convert import pb_to_record
+    from netobserv_tpu_torch.grpc.flow import start_flow_collector
+    tls = tls or {}
+    srv, port, out = start_flow_collector(
+        0, tls_cert=tls.get("cert", ""), tls_key=tls.get("key", ""))
+    try:
+        exp = GRPCFlowExporter("127.0.0.1", port,
+                               max_flows_per_message=per_message,
+                               tls_ca=tls.get("cert", ""))
+        try:
+            with _WireCount() as wire:
+                t0 = time.perf_counter()
+                exp.export_batch(recs)
+                dt = time.perf_counter() - t0
+        finally:
+            exp.close()
+        msgs = [out.get(timeout=10) for _ in range(-(-len(recs)
+                                                       // per_message))]
+        check(out.empty(), "the collector got more messages than sent")
+    finally:
+        srv.stop(None)
+    got = [pb_to_record(e) for m in msgs for e in m.entries]
+    check(len(got) == len(recs), f"{len(got)} of {len(recs)} records")
+    bad = [i for i, (g, r) in enumerate(zip(got, recs))
+           if _pbflow_view(g) != _pbflow_view(r)]
+    check(not bad, f"gRPC at {per_message} a message: records {bad[:5]} "
+          "differ")
+    return {"flows_per_s": len(recs) / dt, "messages": len(msgs),
+            "wire_bytes_per_flow": wire.n / len(recs)}
+
+
+def _ipfix_expect(r, v6: bool) -> dict:
+    ip = (lambda b: b) if v6 else (lambda b: b[12:16])
+    return {152: r.time_flow_start_ns // 1_000_000,
+            153: r.time_flow_end_ns // 1_000_000, 1: r.bytes_,
+            2: r.packets, 10: r.if_index, 61: r.direction & 0xFF,
+            56: r.src_mac, 80: r.dst_mac, 256: r.eth_protocol,
+            4: r.key.proto, 6: r.tcp_flags & 0xFFFF, 7: r.key.src_port,
+            11: r.key.dst_port, (27 if v6 else 8): ip(r.key.src_ip),
+            (28 if v6 else 12): ip(r.key.dst_ip),
+            (178 if v6 else 176): r.key.icmp_type,
+            (179 if v6 else 177): r.key.icmp_code}
+
+
+def _ipfix_check(msgs: list, recs: list) -> int:
+    """Decode IPFIX messages: the templates must be EXP_IPFIX_TEMPLATES,
+    each header's sequence number the data records before it, and the
+    data records, in order, the v4 records then the v6 ones with every
+    field equal. Returns the data records decoded."""
+    import struct
+    from netobserv_tpu_torch.model.flow import IP4_IN_6_PREFIX
+    templates, seq, got = {}, 0, []
+    for m in msgs:
+        version, length, _, mseq, domain = struct.unpack(">HHIII", m[:16])
+        check(version == 10 and length == len(m) and domain == 1,
+              f"IPFIX header {version} {length}/{len(m)} {domain}")
+        check(mseq == seq, f"IPFIX sequence {mseq}, want {seq}")
+        off = 16
+        while off < len(m):
+            sid, slen = struct.unpack(">HH", m[off:off + 4])
+            body = m[off + 4:off + slen]
+            if sid == 2:
+                p = 0
+                while p < len(body):
+                    tid, n = struct.unpack(">HH", body[p:p + 4])
+                    templates[tid] = [struct.unpack(">HH", body[q:q + 4])
+                                      for q in range(p + 4, p + 4 + 4 * n,
+                                                     4)]
+                    p += 4 + 4 * n
+            else:
+                fields = templates[sid]
+                size = sum(n for _, n in fields)
+                for q in range(0, len(body), size):
+                    rec, o = {}, q
+                    for ie, n in fields:
+                        v = body[o:o + n]
+                        rec[ie] = (v if ie in (56, 80, 8, 12, 27, 28)
+                                   else int.from_bytes(v, "big"))
+                        o += n
+                    got.append((sid, rec))
+                seq += len(body) // size
+            off += slen
+    check(templates == EXP_IPFIX_TEMPLATES, f"IPFIX templates {templates}")
+
+    def v6(r):
+        return (r.eth_protocol == 0x86DD
+                or r.key.src_ip[:12] != IP4_IN_6_PREFIX
+                or r.key.dst_ip[:12] != IP4_IN_6_PREFIX)
+    want = ([(256, _ipfix_expect(r, False)) for r in recs if not v6(r)]
+            + [(257, _ipfix_expect(r, True)) for r in recs if v6(r)])
+    check(len(got) == len(want), f"IPFIX: {len(got)} of {len(want)} "
+          "records")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    check(not bad, f"IPFIX records {bad[:5]} differ")
+    return len(got)
+
+
+def _exp_ipfix(recs: list, transport: str) -> dict:
+    """The records through `IPFIXExporter` to a local socket read on a
+    thread of its own, then decoded and checked (`_ipfix_check`)."""
+    import socket
+    import struct
+    import threading
+    from netobserv_tpu_torch.exporter.ipfix import IPFIXExporter
+    chunks, stop = [], threading.Event()
+    if transport == "udp":
+        rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 16 << 20)
+        rx.bind(("127.0.0.1", 0))
+    else:
+        rx = socket.create_server(("127.0.0.1", 0))
+    rx.settimeout(0.2)
+
+    def read():
+        conn = rx
+        if transport == "tcp":
+            conn = None
+            while conn is None and not stop.is_set():
+                try:
+                    conn, _ = rx.accept()
+                except socket.timeout:
+                    pass
+            if conn is None:
+                return
+            conn.settimeout(0.2)
+        while True:
+            try:
+                data = conn.recv(65535)
+            except socket.timeout:
+                if stop.is_set():
+                    break
+                continue
+            if not data:
+                break
+            chunks.append(data)
+        if conn is not rx:
+            conn.close()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        exp = IPFIXExporter("127.0.0.1", rx.getsockname()[1],
+                            transport=transport)
+        t0 = time.perf_counter()
+        exp.export_batch(recs)
+        dt = time.perf_counter() - t0
+        exp.close()
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        reader.join(timeout=10)
+        rx.close()
+    if transport == "udp":
+        msgs = chunks
+    else:
+        stream, msgs, off = b"".join(chunks), [], 0
+        while off < len(stream):
+            n = struct.unpack(">H", stream[off + 2:off + 4])[0]
+            msgs.append(stream[off:off + n])
+            off += n
+    n = _ipfix_check(msgs, recs)
+    return {"flows_per_s": n / dt, "messages": len(msgs),
+            "wire_bytes_per_flow": sum(map(len, msgs)) / n}
+
+
+def _exp_tls_files(tmp: str) -> dict | None:
+    """A self-signed certificate for 127.0.0.1 made by `openssl`, or None
+    where there is no `openssl`."""
+    import os
+    import shutil
+    if shutil.which("openssl") is None:
+        return None
+    cert, key = os.path.join(tmp, "cert.pem"), os.path.join(tmp, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                    "-nodes", "-keyout", key, "-out", cert, "-days", "1",
+                    "-subj", "/CN=localhost", "-addext",
+                    "subjectAltName=IP:127.0.0.1,DNS:localhost"],
+                   check=True, capture_output=True, timeout=60)
+    return {"cert": cert, "key": key}
+
+
+def _exp_records_part(events, tmp: str) -> dict:
+    """`exporters` (a): the record exporters on this machine."""
+    import io
+    import json
+    from netobserv_tpu_torch.exporter.stdout_json import StdoutJSONExporter
+    recs = _exp_records(events)
+    out = {"records": len(recs)}
+    out["grpc_2"] = _exp_grpc_leg(recs[:EXP_SMALL], 2, None)
+    out["grpc_10000"] = _exp_grpc_leg(recs, 10_000, None)
+    tls = _exp_tls_files(tmp)
+    if tls is None:
+        print("exporters: skip the gRPC leg over TLS: no openssl on PATH "
+              "to make a certificate", flush=True)
+        out["grpc_tls"] = "skipped: no openssl on PATH"
+    else:
+        out["grpc_tls"] = _exp_grpc_leg(recs[:EXP_UDP], 10_000, tls)
+    out["ipfix_udp"] = _exp_ipfix(recs[:EXP_UDP], "udp")
+    out["ipfix_tcp"] = _exp_ipfix(recs, "tcp")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    StdoutJSONExporter(stream=buf).export_batch(recs)
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    check(len(lines) == len(recs), f"{len(lines)} stdout lines")
+    bad = [i for i, (line, r) in enumerate(zip(lines, recs))
+           if json.loads(line) != r.to_json_obj()]
+    check(not bad, f"stdout lines {bad[:5]} differ from to_json_obj")
+    out["stdout"] = {"flows_per_s": len(recs) / dt,
+                     "wire_bytes_per_flow": len(buf.getvalue()) / len(recs)}
+    legs = [k for k in ("grpc_2", "grpc_10000", "grpc_tls", "ipfix_udp",
+                        "ipfix_tcp", "stdout") if isinstance(out[k], dict)]
+    print("exporters: flows/s " + ", ".join(
+        f"{k} {out[k]['flows_per_s']:.0f}" for k in legs)
+        + "; wire bytes a flow " + ", ".join(
+        f"{k} {out[k]['wire_bytes_per_flow']:.1f}" for k in legs),
+        flush=True)
+    return out
+
+
+def _exp_child(tmp: str) -> dict:
+    """`exporters` (b): the DaemonSet's configuration as a process."""
+    import os
+    import queue
+    from netobserv_tpu_torch.grpc.flow import start_flow_collector
+    srv, port, out = start_flow_collector(0)
+    mport = _free_port()
+    base = f"http://127.0.0.1:{mport}"
+    res = {"ladder_rung_expected": _expected_rung()[0]}
+    proc, fo, fe = _agent_child(
+        os.path.dirname(os.path.abspath(__file__)), {
+            "EXPORT": "grpc", "TARGET_HOST": "127.0.0.1",
+            "TARGET_PORT": str(port), "INTERFACES": "lo",
+            "EXCLUDE_INTERFACES": "", "LISTEN_INTERFACES": "poll",
+            "CACHE_ACTIVE_TIMEOUT": AE_CHILD_TICK,
+            "METRICS_ENABLE": "true", "METRICS_SERVER_ADDRESS": "127.0.0.1",
+            "METRICS_SERVER_PORT": str(mport)}, tmp, "grpc_child")
+    try:
+        res["start_to_started_s"] = _wait_started(proc, base)
+        flows, msgs, deadline = 0, 0, time.monotonic() + 60
+        while flows == 0 and time.monotonic() < deadline:
+            try:
+                flows += len(out.get(timeout=1).entries)
+                msgs += 1
+            except queue.Empty:
+                check(proc.poll() is None,
+                      f"the child exited {proc.returncode}")
+        res["flows_before_sigterm"] = flows
+        res["sigterm_to_exit_s"] = _sigterm(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+        srv.stop(None)
+    with open(fe.name, "rb") as fh:
+        err = fh.read().decode(errors="replace")
+    check(proc.returncode == 0, f"EXPORT=grpc child: exit "
+          f"{proc.returncode}, {err[-1500:]!r}")
+    check(res["flows_before_sigterm"] > 0,
+          f"the collector got no flows from the child: {err[-1500:]!r}")
+    print(f"exporters: EXPORT=grpc child Started in "
+          f"{res['start_to_started_s']:.2f} s, {flows} flows reached the "
+          "collector before SIGTERM", flush=True)
+    return res
+
+
+def _exp_agents(target: str, device: str, sinks: list) -> list:
+    """FED_AGENTS lanes-path agents from `TorchSketchExporter.from_config`
+    with FEDERATION_TARGET `target`, each ring captured."""
+    from netobserv_tpu_torch import config as tconfig
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    agents = []
+    try:
+        for a in range(FED_AGENTS):
+            env = {"EXPORT": "tpu-sketch", "SKETCH_BATCH_SIZE": str(BATCH),
+                   "SKETCH_WINDOW": "1h", "SKETCH_PACK_THREADS": "8",
+                   "SKETCH_SUPERBATCH": "1,2,4",
+                   "FEDERATION_TARGET": target,
+                   "FEDERATION_AGENT_ID": f"agent-{a}",
+                   **({"SKETCH_DEVICES": "cpu"} if device == "cpu" else {})}
+            exp = TorchSketchExporter.from_config(tconfig.load_config(env),
+                                                  sink=sinks[a])
+            agents.append(exp)
+            with exp._lock:
+                exp._ensure_ring()  # every capture before the server
+    except BaseException:
+        for exp in agents:
+            exp.close()
+        raise
+    return agents
+
+
+def _exp_windows(agents, agg, quarters) -> int:
+    """The federation phase's schedule: each agent folds its quarter of a
+    window, then each closes it by `flush()` from this thread (its frame
+    pushed in agent order), then the aggregator closes the cluster
+    window."""
+    import numpy as np
+    records = 0
+    for w in range(WINDOWS):
+        rng = np.random.default_rng(100 + w)
+        for a, exp in enumerate(agents):
+            records += _evict(exp, quarters[a], rng)
+            with exp._lock:
+                exp._drain_pending()
+        for exp in agents:
+            exp.flush()
+        agg.flush()
+    return records
+
+
+def _published(agg) -> dict:
+    """The tables each cluster window publishes, by window."""
+    out = {}
+    publish = agg._publish
+
+    def tap(report, tables, agent_ids, wtrace):
+        out[int(report.window)] = tables
+        return publish(report, tables, agent_ids, wtrace)
+    agg._publish = tap
+    return out
+
+
+class _TimedSink:
+    """An agent's `FederationDeltaSink`, each call's frame, verdict and
+    wall seconds kept."""
+
+    def __init__(self, sink):
+        self.sink = sink
+        self.frames, self.results, self.seconds = [], [], []
+
+    def __call__(self, frame: bytes):
+        t0 = time.perf_counter()
+        ok = self.sink(frame)
+        self.seconds.append(time.perf_counter() - t0)
+        self.frames.append(frame)
+        self.results.append(ok)
+        return ok
+
+    def close(self):
+        self.sink.close()
+
+
+def _exp_failures(frame: bytes, agg, port: int) -> dict:
+    """`exporters` (c)'s three failure cases over the port's transport."""
+    import uuid
+    from netobserv_tpu_torch.exporter.federation import FederationDeltaSink
+    from netobserv_tpu_torch.federation import pbwire
+    from netobserv_tpu_torch.grpc import h2
+    from netobserv_tpu_torch.grpc.federation import (
+        classify_rpc_error, start_federation_collector,
+    )
+
+    def fresh(agent: str) -> bytes:
+        m = pbwire.SketchDelta.FromString(frame)
+        m.agent_id, m.frame_uuid = agent, uuid.uuid4().hex
+        m.trace_ctx = None
+        return m.SerializeToString()
+
+    def counted(sink) -> list:
+        results, count = [], sink._count
+        sink._count = lambda r, n: (results.append(r), count(r, n))[1]
+        return results
+    out = {}
+    # a cold start: the sink is made before its server exists
+    cold_port = _free_port()
+    sink = FederationDeltaSink("127.0.0.1", cold_port, retries=2,
+                               backoff_initial_s=0.01, timeout_s=2.0)
+    srv = None
+    try:
+        check(sink(fresh("cold-0")) is False, "a push with no server "
+              "succeeded")
+        srv, bound, _ = start_federation_collector(
+            cold_port, handler=agg.ingest_frame)
+        check(bound == cold_port, f"bound {bound}, want {cold_port}")
+        check(sink(fresh("cold-1")) is True, "the sink never recovered "
+              "from its cold start")
+        out["cold_start"] = "delivered after the server appeared"
+    finally:
+        sink.close()
+        if srv is not None:
+            srv.stop(None)
+    # a server without Push: UNIMPLEMENTED, one attempt, terminal
+    bare = h2.Server(max_workers=1)
+    bare_port = bare.add_port("127.0.0.1:0")
+    bare.start()
+    sink = FederationDeltaSink("127.0.0.1", bare_port, retries=3,
+                               backoff_initial_s=0.01)
+    try:
+        results, sends, send = counted(sink), [], sink._client.send
+        sink._client.send = lambda f, timeout_s=10.0: (
+            sends.append(1), send(f, timeout_s))[1]
+        check(sink(fresh("bare-0")) is False, "a push to a server without "
+              "Push succeeded")
+        check(len(sends) == 1 and results == ["terminal"]
+              and sink.last_ladder == [],
+              f"no Push: {len(sends)} attempts, {results}, ladder "
+              f"{sink.last_ladder}")
+        out["unimplemented"] = {"attempts": len(sends), "counted": results}
+    finally:
+        sink.close()
+        bare.stop(None)
+    # a raw frame over grpc's 4 MiB receive limit
+    sink = FederationDeltaSink("127.0.0.1", port, retries=2,
+                               backoff_initial_s=0.01)
+    try:
+        big = bytes(h2.MAX_MESSAGE + 1)
+        try:
+            sink._client.send(big, timeout_s=30.0)
+            raise PhaseError("a frame over 4 MiB was accepted")
+        except h2.RpcError as exc:
+            check(exc.code() == h2.StatusCode.RESOURCE_EXHAUSTED,
+                  f"over 4 MiB: {exc.code().name} {exc.details()}")
+            verdict = classify_rpc_error(exc)
+        check(verdict == "retry", f"RESOURCE_EXHAUSTED is {verdict}")
+        results = counted(sink)
+        check(sink(big) is False and results == ["error"]
+              and sink.last_ladder == [0.01],
+              f"over 4 MiB: {results}, ladder {sink.last_ladder}")
+        out["oversize"] = {"code": "RESOURCE_EXHAUSTED", "class": verdict}
+    finally:
+        sink.close()
+    return out
+
+
+def _exp_federation(specs, events, device: str) -> dict:
+    """`exporters` (c): FEDERATION_TARGET on the card."""
+    import uuid
+
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.federation import pbwire
+    from netobserv_tpu_torch.federation.aggregator import (
+        FederationAggregator,
+    )
+    from netobserv_tpu_torch.grpc.federation import (
+        FederationClient, start_federation_collector,
+    )
+    from netobserv_tpu_torch.sketch import state as sk
+    cfg = sk.SketchConfig()
+    quarters = _agent_quarters_of(_integer_stream(events))
+    agg_device = "cpu" if device == "cpu" else None
+    res = {}
+    # the in-process run: the same schedule, each frame handed to the
+    # aggregator's ingest_frame (the aggregator first, then the rings)
+    agg = FederationAggregator(cfg, window_s=3600.0, sink=lambda o: None,
+                               device=agg_device)
+    agents = []
+    try:
+        want = _published(agg)
+        sinks = [WindowSink() for _ in range(FED_AGENTS)]
+        agents = _exp_agents(f"127.0.0.1:{_free_port()}", device, sinks)
+        taps = []
+        for exp in agents:
+            exp._delta_sink.close()  # never dialled: it connects lazily
+            exp._delta_sink = FrameTap(agg)
+            taps.append(exp._delta_sink)
+        _exp_windows(agents, agg, quarters)
+        check(all(len(t.acks) == WINDOWS and all(k.accepted == 1 for k in
+                                                 t.acks) for t in taps),
+              "in-process acks")
+    finally:
+        for exp in agents:
+            exp.close()
+        agg.close()
+    local_ms = [s * 1e3 for t in taps for s in t.seconds]
+    # over the wire: the aggregator, every ring captured, then the server
+    port = _free_port()
+    agg = FederationAggregator(cfg, window_s=3600.0, sink=lambda o: None,
+                               device=agg_device)
+    agents, srv, client = [], None, None
+    try:
+        got = _published(agg)
+        sinks = [WindowSink() for _ in range(FED_AGENTS)]
+        agents = _exp_agents(f"127.0.0.1:{port}", device, sinks)
+        wired = []
+        for exp in agents:
+            check(type(exp._delta_sink).__name__ == "FederationDeltaSink",
+                  f"FEDERATION_TARGET built {type(exp._delta_sink)}")
+            exp._delta_sink = _TimedSink(exp._delta_sink)
+            wired.append(exp._delta_sink)
+        captures0 = [[c.captures for c in e.captures] for e in agents]
+        srv, bound, _ = start_federation_collector(port,
+                                                   handler=agg.ingest_frame)
+        check(bound == port, f"bound {bound}, want {port}")
+        for s in specs:
+            s["kernel"].launches = 0
+        plain_calls: dict = {}
+        with counting_plains(specs, plain_calls):
+            records = _exp_windows(agents, agg, quarters)
+            if device != "cpu":
+                torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        folds = sum(e.folds for e in agents)
+        check(launches == _want_launches(specs, "lanes", folds),
+              f"launches {launches}, want "
+              f"{_want_launches(specs, 'lanes', folds)}")
+        check(not plain_calls, f"plain versions ran: {plain_calls}")
+        for exp, c0 in zip(agents, captures0):
+            check([c.captures for c in exp.captures] == c0,
+                  f"an agent captured again: {c0}")
+        check(all(w.results == [True] * WINDOWS for w in wired),
+              f"pushes {[w.results for w in wired]}")
+        # (the in-process aggregator published an empty third window at
+        # its close)
+        check(sorted(got) == list(range(WINDOWS))
+              and set(got) <= set(want),
+              f"cluster windows {sorted(got)} and {sorted(want)}")
+        for w in range(WINDOWS):
+            diff = [k for k in want[w] if not (
+                got[w][k].dtype == want[w][k].dtype
+                and np.array_equal(got[w][k], want[w][k]))]
+            check(not diff, f"cluster window {w}: {diff} differ from the "
+                  "in-process run")
+        for w in range(WINDOWS):
+            mine = sum(s.reports[w]["Records"] for s in sinks)
+            check(float(got[w]["scalars"][0]) == mine,
+                  f"cluster window {w} records {got[w]['scalars'][0]}, "
+                  f"agents {mine}")
+        res.update(records=records, folds=folds, launches=launches)
+        # the pushes timed: each live frame re-headered under fresh ids,
+        # over the wire and into ingest_frame in process
+        client = FederationClient("127.0.0.1", port)
+        wire_s, local_s = [], []
+        with _WireCount() as wire:
+            for i in range(EXP_PUSH_ROUNDS):
+                for a, tap in enumerate(wired):
+                    m = pbwire.SketchDelta.FromString(tap.frames[0])
+                    m.window = m.window_seq = WINDOWS
+                    m.agent_epoch, m.trace_ctx = 1 + a, None
+                    for side in ("wire", "local"):
+                        m.agent_id = f"agent-{a}.{i}.{side}"
+                        m.frame_uuid = uuid.uuid4().hex
+                        data = m.SerializeToString()
+                        t0 = time.perf_counter()
+                        ack = (client.send(data) if side == "wire"
+                               else agg.ingest_frame(data))
+                        (wire_s if side == "wire" else local_s).append(
+                            time.perf_counter() - t0)
+                        check(ack.accepted == 1 and ack.duplicate == 0,
+                              f"{side} push ack {ack}")
+        client.close()
+        client = None
+        res["failures"] = _exp_failures(wired[0].frames[0], agg, port)
+    finally:
+        if client is not None:
+            client.close()
+        for exp in agents:
+            exp.close()
+        if srv is not None:
+            srv.stop(None)
+        agg.close()
+    live = [s * 1e3 for w in wired for s in w.seconds]
+    frame_bytes = [len(f) for w in wired for f in w.frames]
+    res.update(
+        push_wire_ms_p50=_pct(wire_s, 50) * 1e3,
+        push_wire_ms_p99=_pct(wire_s, 99) * 1e3,
+        ingest_frame_ms_p50=_pct(local_s, 50) * 1e3,
+        ingest_frame_ms_p99=_pct(local_s, 99) * 1e3,
+        live_push_wire_ms=live, live_ingest_frame_ms=local_ms,
+        frame_bytes=frame_bytes,
+        wire_bytes_per_frame=wire.n / len(wire_s),
+        wire_frames_per_s=len(wire_s) / sum(wire_s))
+    print(f"exporters: push over the wire p50 {res['push_wire_ms_p50']:.3f} "
+          f"ms p99 {res['push_wire_ms_p99']:.3f} ms, ingest_frame in "
+          f"process p50 {res['ingest_frame_ms_p50']:.3f} ms p99 "
+          f"{res['ingest_frame_ms_p99']:.3f} ms; "
+          f"{res['wire_bytes_per_frame']:.0f} wire bytes a frame, "
+          f"{res['wire_frames_per_s']:.1f} frames/s", flush=True)
+    return res
+
+
+def phase_exporters(specs, events, device: str = "cuda") -> dict:
+    """The record exporters, the agent's EXPORT=grpc process and
+    FEDERATION_TARGET over the port's own gRPC transport (module
+    docstring, `exporters`)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = _exp_records_part(events, tmp)
+        child = _exp_child(tmp)
+    fed = _exp_federation(specs, events, device)
+    return {"phase": "exporters", "seconds": time.perf_counter() - t0,
+            "record_exporters": rec, "grpc_child": child,
+            "launches": fed.pop("launches"), "federation_target": fed}
 
 
 def phase_archive(specs, universe, pool, events) -> dict:
@@ -8941,6 +9704,9 @@ def main() -> int:
         fed_res = phase_federation(specs, universe, pool, events,
                                    wt_res["records_per_s"])
         emit(fed_res)
+        phase = "exporters"
+        ex_res = phase_exporters(specs, events)
+        emit(ex_res)
         phase = "archive"
         arc_res = phase_archive(specs, universe, pool, events)
         emit(arc_res)
@@ -9003,6 +9769,7 @@ def main() -> int:
                 "window_thread": wt_res["launches"],
                 "query_plane": qp_res["launches"],
                 "federation": fed_res["launches"],
+                "exporters": ex_res["launches"],
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
                 "agent_entry": ae_res["launches"],

@@ -14,11 +14,14 @@ hand-assembled kernel datapath, else synthetic replay with a warning, so
 a host without bpf(2) still starts. A `ValueError` or `RuntimeError`
 while the agent is built exits 2 with the message on the log: among them
 the modes the port has not ported, naming their ROADMAP item,
-FEDERATION_MODE=aggregator and ENABLE_PCA here (A8), and DATAPATH=kernel
-on a host that is not root; DATAPATH=kernel where bpf(2) fails raises
+FEDERATION_MODE=aggregator (A8.9) and ENABLE_PCA (A8.8) here and
+EXPORT=direct-flp (A8.7b) in `exporter.build_exporter`, and
+DATAPATH=kernel on a host that is not root; DATAPATH=kernel where bpf(2) fails raises
 its `OSError`, as the reference's does. The sketch exporter folds on the
 card; SKETCH_DEVICES=cpu runs it on the CPU, and without CUDA the agent
-refuses to start unless asked so.
+refuses to start unless asked so. The record exporters (EXPORT=grpc, the
+DaemonSet's and the default, stdout, ipfix+udp, ipfix+tcp and kafka)
+need no card.
 """
 
 from __future__ import annotations
@@ -51,10 +54,10 @@ def main() -> int:
         if cfg.federation_mode == "aggregator":
             raise ValueError(
                 "FEDERATION_MODE=aggregator: the aggregator's gRPC service "
-                "is not ported (ROADMAP A8)")
+                "is not ported (ROADMAP A8.9)")
         if cfg.enable_pca:
             raise ValueError("ENABLE_PCA: packet capture is not ported "
-                             "(ROADMAP A8)")
+                             "(ROADMAP A8.8)")
         from netobserv_tpu_torch.agent import FlowsAgent
         agent = FlowsAgent.from_config(cfg)
     except (ValueError, RuntimeError) as exc:

@@ -9,7 +9,10 @@ Accounter into the same evicted queue, `:152-167`), registers every stage
 and the exporter's threads with the stage supervisor
 (`agent/supervisor.py`), and exposes a status state machine and
 `health_snapshot` for `/healthz` and `/readyz`. Inject the fetcher and
-exporter to test it.
+exporter to test it. The exporter is any that `exporter.build_exporter`
+builds: the sketch exporter takes evictions columnar
+(`supports_columnar`), every record exporter (grpc, stdout, ipfix, kafka)
+the map tracer's and the accounter's records through `export_batch`.
 
 The feature branches (`:66-94`, `:135-167`): ENABLE_UDN_MAPPING gives
 the map tracer an `ifaces/udn.UdnMapper`; ENABLE_NETWORK_EVENTS_MONITORING

@@ -7,9 +7,10 @@ the same rules, so one environment gives equal configurations in both
 packages. `AgentConfig.validate` runs the reference's checks (the
 alert-rule check, `:726-734`, through the port's `alerts/rules` and
 `alerts/sinks`); every setting of the flow agent is ported, and the modes
-the port lacks (ENABLE_PCA, FEDERATION_MODE=aggregator, DATAPATH=grpc:)
-are refused where they are read (`__main__.py`, `agent.build_fetcher`),
-naming ROADMAP A8. The agent (`agent/agent.py`),
+the port lacks (ENABLE_PCA, FEDERATION_MODE=aggregator, DATAPATH=grpc:,
+EXPORT=direct-flp) are refused where they are read (`__main__.py`,
+`agent.build_fetcher`, `exporter.build_exporter`), naming their ROADMAP
+item (A8.7b-A8.9). The agent (`agent/agent.py`),
 `exporter.build_exporter` and `TorchSketchExporter.from_config` read it.
 
 The `DEFAULT_*` thresholds are copies of the reference's: the window

@@ -245,8 +245,11 @@ of SKETCH_WINDOW_MODE=decay, and with SKETCH_TENANTS the tenant planes,
 with a per-tenant archive set (`archive.tenant_archives`) where
 ARCHIVE_DIR is set, and with SKETCH_MESH_SHAPE the mesh. SKETCH_DEVICES
 "" means the cards (`pick_device`, which raises without CUDA) and "cpu"
-the CPU with the plain versions, repeated for a mesh; FEDERATION_TARGET
-(its gRPC sender, A8) and any other SKETCH_DEVICES raise `ValueError`.
+the CPU with the plain versions, repeated for a mesh; any other
+SKETCH_DEVICES raises `ValueError`. FEDERATION_TARGET (`host:port`)
+makes the delta sink the port's `exporter/federation.FederationDeltaSink`
+over its own gRPC transport (`grpc/h2.py`), as `tpu_sketch.py:1011-1015`
+does.
 A sampled batch trace riding an eviction (`evicted.trace`, the map
 tracer's) is parked until
 the next fold, which finishes it with its `fold` span; a second one
@@ -337,8 +340,6 @@ multi-process mesh:
 
 Every CUDA call of the roll, the collectives included, holds the
 exporter's lock (ROADMAP C4).
-
-Not in this slice: the gRPC delta transport (A4.3's transport, A8).
 """
 
 from __future__ import annotations
@@ -722,10 +723,6 @@ class TorchSketchExporter:
         naming its ROADMAP item."""
         from netobserv_tpu_torch.alerts.engine import maybe_engine
         from netobserv_tpu_torch.archive import maybe_archive, tenant_archives
-        if cfg.federation_target:
-            raise ValueError(
-                f"FEDERATION_TARGET={cfg.federation_target!r}: the gRPC "
-                "delta sender (FederationDeltaSink) is ROADMAP A8")
         if cfg.sketch_devices not in ("", "cpu"):
             raise ValueError(
                 f"SKETCH_DEVICES={cfg.sketch_devices!r} (want empty, the "
@@ -745,6 +742,14 @@ class TorchSketchExporter:
         sketch_cfg = sk.SketchConfig.from_agent_config(cfg)
         if sink is None:
             sink = make_report_sink(cfg)
+        delta_sink = None
+        if cfg.federation_target:
+            from netobserv_tpu_torch.exporter.federation import (
+                FederationDeltaSink,
+            )
+            host, _, port = cfg.federation_target.rpartition(":")
+            delta_sink = FederationDeltaSink(host or "127.0.0.1", int(port),
+                                             metrics=metrics)
         if spec is not None and spec.sketch > 1:
             # no whole-width table snapshot to archive: decided from the
             # shape alone, so no store is opened (it would heal and rewrite
@@ -785,7 +790,7 @@ class TorchSketchExporter:
             query_refresh_s=cfg.sketch_query_refresh,
             query_history=cfg.sketch_query_history,
             alerts=maybe_engine(cfg, metrics),
-            agent_id=cfg.federation_agent_id,
+            agent_id=cfg.federation_agent_id, delta_sink=delta_sink,
             checkpoint_dir=cfg.sketch_checkpoint_dir,
             checkpoint_every=cfg.sketch_checkpoint_every,
             archive=archive,

@@ -1,13 +1,11 @@
 """Enriched flow record — what the record path's exporters consume.
 
 A copy of `netobserv_tpu/model/record.py` (lines 1-261): the interface
-namer hook, `MonotonicClock`, `Record` and `records_from_events`, which
-reconstruct wall-clock times from the datapath's monotonic timestamps,
-name interfaces and carry per-feature metrics. `Record.to_json_obj` (the
-stdout exporter's rendering, `:97-177`) is not here: the port's only
-exporter, the sketch exporter, takes columnar evictions, and its
-`export_batch` folds records without rendering them (ROADMAP A8 names the
-record exporters).
+namer hook, `MonotonicClock`, `Record` with `to_json_obj` (the stdout
+exporter's rendering, `:97-174`, its TLS names and OVN decode the port's
+own) and `records_from_events`, which reconstruct wall-clock times from
+the datapath's monotonic timestamps, name interfaces and carry
+per-feature metrics.
 """
 
 from __future__ import annotations
@@ -18,7 +16,9 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from netobserv_tpu_torch.model.flow import Direction, FlowFeatures, FlowKey
+from netobserv_tpu_torch.model.flow import (
+    Direction, FlowFeatures, FlowKey, ip_from_16,
+)
 
 # interfaceNamer hook (reference: `model.SetInterfaceNamer`,
 # `pkg/agent/interfaces_listener.go:74-81`)
@@ -93,6 +93,86 @@ class Record:
     tls_key_share: int = 0
     tls_types: int = 0
     ssl_mismatch: bool = False
+
+    def to_json_obj(self) -> dict:
+        """Stable JSON shape for the stdout exporter. Field NAMES follow the
+        FLP GenericMap naming (exporter/flp_map.py) so consumers can switch
+        exporters without remapping; this surface keeps raw numeric values
+        where flp_map decodes strings (drop causes, TCP states).
+
+        A copy of `netobserv_tpu/model/record.py:97-174`, with the port's
+        `model/tls_types` and `utils/ovn_decoder`."""
+        f = self.features
+        obj = {
+            "SrcAddr": self.key.src,
+            "DstAddr": self.key.dst,
+            "SrcPort": self.key.src_port,
+            "DstPort": self.key.dst_port,
+            "Proto": self.key.proto,
+            "Bytes": self.bytes_,
+            "Packets": self.packets,
+            "Flags": self.tcp_flags,
+            "Etype": self.eth_protocol,
+            "Dscp": self.dscp,
+            "IfDirection": self.direction,
+            "Interface": self.interface or str(self.if_index),
+            "TimeFlowStartMs": self.time_flow_start_ns // 1_000_000,
+            "TimeFlowEndMs": self.time_flow_end_ns // 1_000_000,
+            "AgentIP": self.agent_ip,
+            "Sampling": self.sampling,
+        }
+        if self.key.proto in (1, 58):  # ICMP / ICMPv6
+            obj["IcmpType"] = self.key.icmp_type
+            obj["IcmpCode"] = self.key.icmp_code
+        if f.dns_id or f.dns_latency_ns:
+            obj.update(DnsId=f.dns_id, DnsFlags=f.dns_flags,
+                       DnsLatencyMs=f.dns_latency_ns // 1_000_000,
+                       DnsErrno=f.dns_errno)
+            if f.dns_name:
+                obj["DnsName"] = f.dns_name
+        if f.drop_packets or f.drop_bytes:
+            obj.update(PktDropBytes=f.drop_bytes, PktDropPackets=f.drop_packets,
+                       PktDropLatestFlags=f.drop_latest_flags,
+                       PktDropLatestState=f.drop_latest_state,
+                       PktDropLatestDropCause=f.drop_latest_cause)
+        if f.rtt_ns:
+            obj["TimeFlowRttNs"] = f.rtt_ns
+        if f.xlat_src_ip:
+            obj.update(XlatSrcAddr=ip_from_16(f.xlat_src_ip),
+                       XlatDstAddr=ip_from_16(f.xlat_dst_ip),
+                       XlatSrcPort=f.xlat_src_port, XlatDstPort=f.xlat_dst_port,
+                       ZoneId=f.xlat_zone_id)
+        if f.ipsec_encrypted or f.ipsec_encrypted_ret:
+            obj.update(IPSecRet=f.ipsec_encrypted_ret,
+                       IPSecStatus="success" if f.ipsec_encrypted
+                       else "failure")
+        if (self.ssl_version or self.tls_types or self.tls_cipher_suite
+                or self.tls_key_share):
+            # tls_types/cipher can be set without a hello version (e.g. the
+            # agent attached mid-connection and saw only ApplicationData)
+            from netobserv_tpu_torch.model import tls_types as _tt
+            if self.ssl_version:
+                obj["TlsVersion"] = _tt.tls_version_name(self.ssl_version)
+            if self.tls_cipher_suite:
+                obj["TlsCipher"] = _tt.cipher_suite_name(self.tls_cipher_suite)
+            if self.tls_key_share:
+                obj["TlsKeyShare"] = _tt.key_share_name(self.tls_key_share)
+            if self.tls_types:
+                obj["TlsTypes"] = _tt.tls_types_names(self.tls_types)
+            if self.ssl_mismatch:
+                obj["TlsMismatch"] = True
+        if f.ssl_plaintext_events:
+            obj.update(SslPlaintextEvents=f.ssl_plaintext_events,
+                       SslPlaintextBytes=f.ssl_plaintext_bytes)
+        if f.quic_version or f.quic_seen_long_hdr or f.quic_seen_short_hdr:
+            obj.update(QuicVersion=f.quic_version,
+                       QuicLongHdr=f.quic_seen_long_hdr,
+                       QuicShortHdr=f.quic_seen_short_hdr)
+        if f.network_events:
+            from netobserv_tpu_torch.utils.ovn_decoder import decode_event
+            obj["NetworkEvents"] = [decode_event(ev)
+                                    for ev in f.network_events]
+        return obj
 
 
 def records_from_events(

@@ -22,8 +22,8 @@ handle through every caller would contaminate every exporter signature.
 A copy of `netobserv_tpu/utils/ovn_decoder.py` (lines 1-208). The agent
 installs the decoder `make_decoder` picks under
 ENABLE_NETWORK_EVENTS_MONITORING and closes and uninstalls it at shutdown;
-the record renderer that decodes through it comes with the other
-exporters (ROADMAP A8.7).
+`model/record.Record.to_json_obj` and `exporter/pb_convert.record_to_pb`
+decode each record's events through it.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ CPU.
   query, alert, archive, checkpoint and decay settings and sink type are
   the JAX `TpuSketchExporter.from_config`'s on the same environment.
 - Every setting the port has not ported raises `ValueError` naming its
-  ROADMAP item.
+  ROADMAP item; FEDERATION_TARGET and the record exporters build.
 """
 
 import dataclasses
@@ -333,33 +333,75 @@ def test_from_config_matches_the_reference(name, tmp_path):
 
 @pytest.mark.parametrize("env,item", [
     ({"SKETCH_MESH_SHAPE": "2x1"}, None), ({"SKETCH_TENANTS": "2"}, None),
-    ({"FEDERATION_TARGET": "agg:9999"}, "A8"),
+    ({"FEDERATION_TARGET": "127.0.0.1:9"}, None),
     ({"SKETCH_DEVICES": "tpu"}, "SKETCH_DEVICES"),
-    ({"EXPORT": "grpc", "TARGET_HOST": "h", "TARGET_PORT": "1"}, "A8"),
-    ({"EXPORT": "stdout"}, "A8"), ({"EXPORT": "direct-flp"}, "A8")],
+    ({"EXPORT": "grpc", "TARGET_HOST": "127.0.0.1", "TARGET_PORT": "9",
+      "GRPC_MESSAGE_MAX_FLOWS": "7", "GRPC_RECONNECT_TIMER": "30s",
+      "GRPC_RECONNECT_TIMER_RANDOMIZATION": "5s"}, None),
+    ({"EXPORT": "stdout"}, None), ({"EXPORT": "direct-flp"}, "A8.7b")],
     ids=["mesh", "tenants", "federation", "devices", "grpc", "stdout",
          "direct-flp"])
 def test_build_exporter_refuses_what_the_port_lacks(env, item):
-    """Each setting the port lacks raises naming its ROADMAP item; the
-    tenants and mesh cases (item None, ported since) build the tenant
-    planes (a `TenantStack` ring and one query publisher a tenant) and
-    the mesh exporter (a 2x1 mesh of the CPU, its state a `DistState`)."""
+    """Each setting the port lacks raises naming its ROADMAP item (only
+    EXPORT=direct-flp, A8.7b, and SKETCH_DEVICES); the cases with item
+    None, ported since, build: the tenant planes (a `TenantStack` ring
+    and one query publisher a tenant), the mesh exporter (a 2x1 mesh of
+    the CPU, its state a `DistState`), FEDERATION_TARGET's delta sink
+    and the grpc and stdout record exporters, each of the reference's
+    type with the reference's settings (the reference's gRPC objects
+    connect lazily, so nothing dials port 9)."""
     cfg = tcfg.load_config({**_SMALL_ENV, **env})
-    if item is None:
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            build_exporter(cfg)
+        return
+    if "EXPORT" in env:
+        from netobserv_tpu.exporter import build_exporter as ref_build
+        ref = ref_build(jcfg.load_config({**_SMALL_ENV, **env}))
         exp = build_exporter(cfg)
         try:
-            if "SKETCH_MESH_SHAPE" in env:
-                from netobserv_tpu_torch.parallel.merge import DistState
-                assert exp.mesh.shape == {"data": 2, "sketch": 1}
-                assert isinstance(exp.state, DistState)
-                return
-            assert isinstance(exp.ring, TenantStack)
-            assert exp.ring.n_tenants == 2 and len(exp._tenant_query) == 2
+            assert type(exp).__name__ == type(ref).__name__
+            assert exp.name == ref.name and not exp.supports_columnar
+            if env["EXPORT"] == "grpc":
+                assert exp._max_flows == ref._max_flows == 7
+                assert exp._reconnect_every == ref._reconnect_every == 30
+                assert exp._reconnect_rand == ref._reconnect_rand == 5
+                assert exp._client._target == ref._client._target
+            else:
+                assert exp._stream is ref._stream
         finally:
             exp.close()
+            getattr(ref, "close", lambda: None)()
         return
-    with pytest.raises(ValueError, match=item):
-        build_exporter(cfg)
+    exp = build_exporter(cfg)
+    try:
+        if "FEDERATION_TARGET" in env:
+            from netobserv_tpu.exporter.federation import (
+                FederationDeltaSink as RefSink,
+            )
+            from netobserv_tpu_torch.exporter.federation import (
+                FederationDeltaSink,
+            )
+            ref = RefSink("127.0.0.1", 9)
+            try:
+                sink = exp._delta_sink
+                assert isinstance(sink, FederationDeltaSink)
+                assert sink._client._target == ref._client._target
+                for attr in ("_retries", "_backoff_initial",
+                             "_backoff_max", "_timeout"):
+                    assert getattr(sink, attr) == getattr(ref, attr)
+            finally:
+                ref.close()
+            return
+        if "SKETCH_MESH_SHAPE" in env:
+            from netobserv_tpu_torch.parallel.merge import DistState
+            assert exp.mesh.shape == {"data": 2, "sketch": 1}
+            assert isinstance(exp.state, DistState)
+            return
+        assert isinstance(exp.ring, TenantStack)
+        assert exp.ring.n_tenants == 2 and len(exp._tenant_query) == 2
+    finally:
+        exp.close()
 
 
 def test_from_config_takes_the_card_unless_asked_for_the_cpu():

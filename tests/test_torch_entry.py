@@ -190,11 +190,11 @@ def test_cli_replays_a_syn_flood_on_the_cpu_and_stops_on_sigterm(tmp_path):
 def test_cli_exits_2_for_an_unported_exporter():
     proc = subprocess.run(
         [sys.executable, "-m", "netobserv_tpu_torch"], cwd=str(ROOT),
-        env=_child_env(EXPORT="kafka", KAFKA_BROKERS="127.0.0.1:1",
-                       DATAPATH="synthetic", SKETCH_DEVICES="cpu"),
+        env=_child_env(EXPORT="direct-flp", DATAPATH="synthetic",
+                       SKETCH_DEVICES="cpu"),
         capture_output=True, timeout=60)
     assert proc.returncode == 2
-    assert b"A8" in proc.stderr and proc.stdout == b""
+    assert b"A8.7b" in proc.stderr and proc.stdout == b""
 
 
 def _forced_rungs(monkeypatch):

@@ -58,7 +58,12 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "parallel/merge.py", "parallel/distributed.py",
                  "model/accumulate.py", "flow/ringbuf_tracer.py",
                  "flow/accounter.py", "scenarios/zoo.py",
-                 "scenarios/runner.py")
+                 "scenarios/runner.py", "pb/__init__.py", "pb/flow.py",
+                 "exporter/pb_convert.py", "exporter/stdout_json.py",
+                 "exporter/kafka.py", "exporter/ipfix.py",
+                 "exporter/grpc_flow.py", "exporter/federation.py",
+                 "grpc/__init__.py", "grpc/h2.py", "grpc/flow.py",
+                 "grpc/federation.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
