@@ -17,7 +17,8 @@ drives five
 paths through `TorchSketchExporter` at the default geometry (and seven
 planes on the lanes path after them: the fused drain's seam, the window
 thread, the query and federation planes, the exporters over the port's
-own gRPC transport, the archive and overload control),
+own gRPC transport, the archive and overload control; and, host only,
+the embedded flowlogs-pipeline and packet capture),
 each with the
 launch counts set to 0 just before it and read just after:
 
@@ -240,6 +241,41 @@ launch counts set to 0 just before it and read just after:
   (RESOURCE_EXHAUSTED, classified `retry`). It prints the push p50/p99
   over the wire beside `ingest_frame`'s, the wire bytes a frame and
   frames/s;
+- the embedded flowlogs-pipeline and packet capture (`flp_pca`, ROADMAP
+  A8.7b and A8.8: `exporter/direct_flp.py`, `flp_map.py`, `flp_tables.py`,
+  `flp_enrich.py`, `pb/packet.py`, `grpc/packet.py`,
+  `exporter/grpc_packets.py`, `flow/perf_buffer.py`,
+  `agent/packets_agent.py`, `datapath/replay.PcapPacketFetcher`,
+  `datapath/loader.load_packet_fetcher`), host only: no kernel launches,
+  checked. (a) In process, the port's `FlowsAgent` with EXPORT=direct-flp
+  (`build_exporter`, the agent's metrics registry) over a
+  `PcapReplayFetcher` of a seeded `scenarios/synth` pcap of FLP_CONNS TCP
+  connections (both directions, so at least 2 * FLP_CONNS records),
+  evicting every FLP_EVICT_S; FLP_CONFIG (FLP_CHIP_CFG) holds a filter, a
+  network transform (`add_subnet`, `decode_tcp_flags`), a bidirectional
+  conntrack, a prom encode and `write grpc` into the port's
+  `start_flow_collector`. The conntrack clock is patched (`_FlpClock`,
+  FLP_CLOCK_STEP_S a batch); the agent's batches are recorded and then
+  replayed on the CPU through a second `DirectFLPExporter` of the same
+  configuration under the same clock into a second collector: the
+  collectors' messages equal byte for byte, the `flp_` prom samples equal,
+  one endConnection for each newConnection. It prints records/s through
+  `export_batch` and the entries the collector got. (b) An
+  EXPORT=direct-flp `python3 -m netobserv_tpu_torch` child with no
+  DATAPATH: Started on /healthz, exit 0 on SIGTERM; it prints the time to
+  Started. (c) An ENABLE_PCA child with `DATAPATH=pcap:` over a seeded
+  pcap of PCA_FRAMES UDP frames of 64 to 1,514 bytes into the port's
+  `start_packet_collector`: the stream is the pcap file header, then
+  each frame truncated at MAX_PAYLOAD_SIZE with its captured and original
+  lengths, its stamp the file's offset rebased to the wall clock (each
+  base between the child's start and the last arrival; the spread of the
+  bases printed: the tracer reads its two clocks one after the other);
+  exit 0 on SIGTERM; the same over TLS where
+  `openssl` is on PATH (else one printed skip line). It prints packets/s
+  at the collector. (d) `load_packet_fetcher`: where bpf(2) answers
+  ENOSYS, it prints the error and marks the part not run; any other
+  failure fails the phase. `flp_pca` joins the `kernels` line's
+  `launches_by_path` with 0 launches;
 - the archive and checkpoint planes (`archive`): an `archive.SketchArchive`
   at the default geometry (ARC_RAW raw windows a level, groups of
   ARC_GROUP, ARC_LEVELS levels, a ladder to ARC_LADDER), its merge ladder
@@ -1749,9 +1785,16 @@ def phase_device() -> dict:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     line = smi.stdout.strip().splitlines()[0]
     print(line, flush=True)
+    # FLP_CONFIG is YAML: direct-flp parses it with PyYAML
+    try:
+        import yaml
+        have_yaml = f"yaml {yaml.__version__}"
+    except ImportError as exc:
+        have_yaml = f"yaml: ImportError: {exc}"
+    print(have_yaml, flush=True)
     return {"phase": "device", "kind": name, "nvidia_smi": line,
             "count": torch.cuda.device_count(), "torch": torch.__version__,
-            "cuda": torch.version.cuda}
+            "cuda": torch.version.cuda, "yaml": have_yaml}
 
 
 def phase_build(specs) -> dict:
@@ -4123,8 +4166,11 @@ def phase_query_plane(specs, universe, pool, events, wt_records_per_s
             answered = json.loads(proc.communicate("", timeout=60)[0])
             check(proc.returncode == 0 and len(answered) == QP_POLLERS,
                   f"pollers exited {proc.returncode}")
-            launches = {s["name"]: s["kernel"].launches for s in specs}
-            folds = exp.folds
+            # under the lock: the window thread's timer close folds the
+            # pending rows under it, launching before it counts the fold
+            with exp._lock:
+                launches = {s["name"]: s["kernel"].launches for s in specs}
+                folds = exp.folds
             captures1 = [c.captures for c in exp.captures]
             watch = _watch_stats(exp)
             # a refresh with the folds paused (no feed, no close due)
@@ -5568,6 +5614,431 @@ def phase_exporters(specs, events, device: str = "cuda") -> dict:
     return {"phase": "exporters", "seconds": time.perf_counter() - t0,
             "record_exporters": rec, "grpc_child": child,
             "launches": fed.pop("launches"), "federation_target": fed}
+
+
+#: `flp_pca` (a): the connections of the seeded synth pcap (two directions
+#: each, so at least 2 * FLP_CONNS records), the replay window and the
+#: agent's eviction period, and the step the patched clock takes a batch
+FLP_CONNS = 12_000
+FLP_EVICT_S = 0.1
+FLP_SPAN_US = 2_400_000
+FLP_CLOCK_STEP_S = 0.25
+#: (c): the frames of the PCA pcap (PCA_FRAMES fit the packets agent's
+#: queues, so none is shed)
+PCA_FRAMES = 3_000
+#: FLP_CONFIG of (a) (write grpc to %d) and, with a stdout writer, of (b)
+FLP_CHIP_CFG = """
+pipeline:
+  - {name: f}
+  - {name: n, follows: f}
+  - {name: ct, follows: n}
+  - {name: p, follows: ct}
+  - {name: w, follows: p}
+parameters:
+  - name: f
+    transform:
+      type: filter
+      filter:
+        rules:
+          - {type: keep_entry_if_exists, keepEntryField: SrcAddr}
+          - {type: remove_field, removeField: DstMac}
+  - name: n
+    transform:
+      type: network
+      network:
+        rules:
+          - type: add_subnet
+            add_subnet: {input: SrcAddr, output: SrcSubnet, parameters: /16}
+          - type: decode_tcp_flags
+            decode_tcp_flags: {input: Flags, output: FlagNames}
+  - name: ct
+    extract:
+      type: conntrack
+      conntrack:
+        keyDefinition:
+          fieldGroups:
+            - {name: src, fields: [SrcAddr, SrcPort]}
+            - {name: dst, fields: [DstAddr, DstPort]}
+            - {name: common, fields: [Proto]}
+          hash:
+            fieldGroupRefs: [common]
+            fieldGroupARef: src
+            fieldGroupBRef: dst
+        outputRecordTypes: [newConnection, endConnection]
+        outputFields:
+          - {name: Bytes, operation: sum, splitAB: true}
+          - {name: Packets, operation: sum}
+          - {name: numFlowLogs, operation: count}
+        scheduling:
+          - {endConnectionTimeout: 2s, terminatingTimeout: 500ms,
+             heartbeatInterval: 30s}
+        tcpFlags: {fieldName: Flags, detectEndConnection: true}
+  - name: p
+    encode:
+      type: prom
+      prom:
+        prefix: flp_
+        metrics:
+          - {name: records_total, type: counter, labels: [_RecordType]}
+          - {name: ended_bytes_total, type: counter, valueKey: Bytes_AB,
+             filters: [{type: equal, key: _RecordType,
+                        value: endConnection}]}
+          - {name: flow_logs, type: histogram, valueKey: numFlowLogs,
+             buckets: [1, 2, 4]}
+  - name: w
+    write: %s
+"""
+
+
+class _FlpClock:
+    """`direct_flp`'s clock module with one patched `monotonic`, which
+    moves FLP_CLOCK_STEP_S a batch: the agent's run and its replay see
+    the same instants."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    def monotonic(self) -> float:
+        return self.t
+
+
+def _flp_pcap(path: str) -> int:
+    """FLP_CONNS seeded TCP connections of `scenarios/synth` frames over
+    FLP_SPAN_US: a SYN, data and a FIN from the client, a SYN-ACK and
+    data from the server; the pcap's frames."""
+    import numpy as np
+    from netobserv_tpu_torch.scenarios import synth
+    rng = np.random.default_rng(25)
+    pb = synth.PcapBuilder()
+    for i in range(FLP_CONNS):
+        cli = f"10.{(i >> 16) & 255}.{(i >> 8) & 255}.{i & 255}"
+        srv = f"172.16.{i % 16}.{1 + i % 7}"
+        sport, dport = 1024 + i % 50_000, int(rng.choice([80, 443, 8080]))
+        t = i * FLP_SPAN_US // FLP_CONNS
+        pb.add(t, cli, srv, 6, synth.tcp(sport, dport, 0x02), sport=sport,
+               dport=dport)
+        pb.add(t + 20, srv, cli, 6, synth.tcp(dport, sport, 0x12),
+               sport=dport, dport=sport)
+        for k in range(int(rng.integers(1, 4))):
+            pb.add(t + 40 + k, cli, srv, 6, synth.tcp(sport, dport, 0x18)
+                   + rng.bytes(int(rng.integers(0, 600))), sport=sport,
+                   dport=dport)
+        pb.add(t + 60, srv, cli, 6, synth.tcp(dport, sport, 0x18)
+               + rng.bytes(int(rng.integers(0, 1400))), sport=dport,
+               dport=sport)
+        if i % 3:
+            pb.add(t + 80, cli, srv, 6, synth.tcp(sport, dport, 0x11),
+                   sport=sport, dport=dport)
+    pb.write(path)
+    return len(pb)
+
+
+def _flp_samples(reg) -> list:
+    return sorted((s.name, tuple(sorted(s.labels.items())), s.value)
+                  for m in reg.collect() for s in m.samples
+                  if s.name.startswith("flp_")
+                  and not s.name.endswith("_created"))
+
+
+def _flp_agent(tmp: str) -> dict:
+    """`flp_pca` (a): the agent with EXPORT=direct-flp in process."""
+    import os
+    import queue
+    import threading
+    from netobserv_tpu_torch import config as tconfig
+    from netobserv_tpu_torch.agent.agent import FlowsAgent
+    from netobserv_tpu_torch.datapath.replay import PcapReplayFetcher
+    from netobserv_tpu_torch.exporter import build_exporter, direct_flp
+    from netobserv_tpu_torch.grpc.flow import start_flow_collector
+    from netobserv_tpu_torch.metrics.registry import (
+        Metrics, MetricsSettings, new_registry,
+    )
+    pcap = os.path.join(tmp, "flp.pcap")
+    frames = _flp_pcap(pcap)
+    srv_a, port_a, out_a = start_flow_collector(0)
+    srv_b, port_b, out_b = start_flow_collector(0)
+    clock, real = _FlpClock(), direct_flp._time
+    direct_flp._time = clock
+    grpc_w = "{type: grpc, grpc: {targetHost: 127.0.0.1, targetPort: %d}}"
+    try:
+        cfg = tconfig.load_config(environ={
+            "EXPORT": "direct-flp",
+            "CACHE_ACTIVE_TIMEOUT": f"{int(FLP_EVICT_S * 1000)}ms",
+            "AGENT_IP": "127.0.0.1",
+            "FLP_CONFIG": FLP_CHIP_CFG % (grpc_w % port_a)})
+        cfg.validate()
+        # `FlowsAgent.from_config` with DATAPATH=pcap:, which it reads from
+        # this process's environment
+        metrics = Metrics(MetricsSettings(prefix=cfg.metrics_prefix,
+                                          level=cfg.metrics_level))
+        exp = build_exporter(cfg, metrics=metrics)
+        agent = FlowsAgent(cfg, PcapReplayFetcher(pcap, window_s=FLP_EVICT_S),
+                           exp, metrics=metrics, agent_ip="127.0.0.1")
+        batches, spent = [], [0.0]
+        inner = exp.export_batch
+
+        def export_batch(records):
+            batches.append(list(records))
+            clock.t += FLP_CLOCK_STEP_S
+            t0 = time.perf_counter()
+            inner(records)
+            spent[0] += time.perf_counter() - t0
+        exp.export_batch = export_batch
+        stop = threading.Event()
+        th = threading.Thread(target=agent.run, args=(stop,), daemon=True)
+        t_run = time.perf_counter()
+        th.start()
+        deadline = time.monotonic() + 120
+        while not agent.fetcher.exhausted():
+            check(time.monotonic() < deadline, "the replay never ended")
+            time.sleep(0.05)
+        time.sleep(4 * FLP_EVICT_S)          # the last window's eviction
+        stop.set()
+        th.join(timeout=60)
+        check(not th.is_alive(), "the agent outlived its stop")
+        run_s = time.perf_counter() - t_run
+        records = sum(len(b) for b in batches)
+        check(records >= 2 * FLP_CONNS - 1000,
+              f"{records} records from {FLP_CONNS} connections")
+        got_a = []
+        while True:
+            try:
+                got_a.append(out_a.get(timeout=2))
+            except queue.Empty:
+                break
+        # the replay: the same batches, config and clock, on the CPU
+        clock.t = 1000.0
+        reg = new_registry()
+        ref = direct_flp.DirectFLPExporter(
+            flp_config=FLP_CHIP_CFG % (grpc_w % port_b), prom_registry=reg)
+        for b in batches:
+            clock.t += FLP_CLOCK_STEP_S
+            ref.export_batch(b)
+        ref.close()
+        got_b = []
+        while True:
+            try:
+                got_b.append(out_b.get(timeout=2))
+            except queue.Empty:
+                break
+    finally:
+        direct_flp._time = real
+        srv_a.stop(None)
+        srv_b.stop(None)
+    wire_a = [m.SerializeToString() for m in got_a]
+    wire_b = [m.SerializeToString() for m in got_b]
+    check(wire_a == wire_b, f"the collector's {len(wire_a)} messages "
+          f"differ from the replay's {len(wire_b)}")
+    entries = sum(len(m.entries) for m in got_a)
+    ours, theirs = _flp_samples(agent.metrics.registry), _flp_samples(reg)
+    check(ours == theirs, "the agent's flp_ samples differ from the "
+          "replay's")
+    kinds = {dict(k).get("_RecordType"): v for n, k, v in ours
+             if n == "flp_records_total"}
+    check(kinds.get("newConnection", 0) >= FLP_CONNS - 500 and
+          kinds.get("endConnection") == kinds.get("newConnection"),
+          f"connection records {kinds}")
+    check(entries == sum(kinds.values()),
+          f"{entries} entries at the collector, {kinds} counted")
+    res = {"pcap_frames": frames, "records": records,
+           "batches": len(batches), "collector_messages": len(got_a),
+           "collector_entries": entries, "records_total": kinds,
+           "export_seconds": spent[0], "run_seconds": run_s,
+           "records_per_s": records / spent[0],
+           "entries_per_s": entries / spent[0]}
+    print(f"flp_pca: (a) {records} records in {len(batches)} batches "
+          f"through direct-flp at {res['records_per_s']:.0f} records/s "
+          f"({res['entries_per_s']:.0f} connection entries/s out); the "
+          f"collector got {entries} entries in {len(got_a)} messages, equal "
+          "to the replay's", flush=True)
+    return res
+
+
+def _flp_child(tmp: str) -> dict:
+    """`flp_pca` (b): EXPORT=direct-flp as a process with no DATAPATH."""
+    import os
+    mport = _free_port()
+    proc, fo, fe = _agent_child(
+        os.path.dirname(os.path.abspath(__file__)), {
+            "EXPORT": "direct-flp",
+            "FLP_CONFIG": FLP_CHIP_CFG % "{type: stdout}",
+            "INTERFACES": "lo", "EXCLUDE_INTERFACES": "",
+            "LISTEN_INTERFACES": "poll", "CACHE_ACTIVE_TIMEOUT": AE_CHILD_TICK,
+            "METRICS_ENABLE": "true", "METRICS_SERVER_ADDRESS": "127.0.0.1",
+            "METRICS_SERVER_PORT": str(mport)}, tmp, "flp_child")
+    try:
+        res = {"ladder_rung_expected": _expected_rung()[0],
+               "start_to_started_s": _wait_started(
+                   proc, f"http://127.0.0.1:{mport}")}
+        res["sigterm_to_exit_s"] = _sigterm(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+    with open(fe.name, "rb") as fh:
+        err = fh.read().decode(errors="replace")
+    check(proc.returncode == 0, f"EXPORT=direct-flp child: exit "
+          f"{proc.returncode}, {err[-1500:]!r}")
+    print(f"flp_pca: (b) EXPORT=direct-flp child Started in "
+          f"{res['start_to_started_s']:.2f} s", flush=True)
+    return res
+
+
+def _pca_pcap(path: str) -> list:
+    """PCA_FRAMES seeded UDP frames of `scenarios/synth`, 64 to 1,514
+    bytes, 500 us apart; the frames."""
+    import struct
+
+    import numpy as np
+    from netobserv_tpu_torch.scenarios import synth
+    rng = np.random.default_rng(26)
+    pb = synth.PcapBuilder()
+    for i in range(PCA_FRAMES):
+        pb.add(i * 500, "10.9.0.1", f"10.9.{1 + i % 200}.2", 17,
+               synth.udp(40_000 + i % 1000, 5_000,
+                         rng.bytes(int(rng.integers(22, 1473)))))
+    pb.write(path)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    frames, off = [], 24
+    while off < len(data):
+        _s, _u, incl, _o = struct.unpack("<IIII", data[off:off + 16])
+        frames.append(data[off + 16:off + 16 + incl])
+        off += 16 + incl
+    return frames
+
+
+def _pca_leg(tmp: str, pcap: str, frames: list, tls: dict | None) -> dict:
+    """`flp_pca` (c): an ENABLE_PCA child over `pcap` into the port's
+    packet collector (over TLS with `tls`): the stream is the pcap file
+    header, then each frame truncated at MAX_PAYLOAD_SIZE with its
+    lengths. Its stamp is the file's offset (500 us a frame) rebased to
+    the wall clock when the packet is read: the tracer reads the
+    monotonic and the wall clock one after the other, so a thread switch
+    between them shifts one stamp, and each rebased base lies between the
+    child's start and the last packet's arrival."""
+    import os
+    import queue
+    import struct
+    from netobserv_tpu_torch.grpc.packet import start_packet_collector
+    from netobserv_tpu_torch.model import binfmt
+    from netobserv_tpu_torch.model.packet_record import pcap_file_header
+    tls = tls or {}
+    srv, port, out = start_packet_collector(
+        0, tls_cert=tls.get("cert", ""), tls_key=tls.get("key", ""))
+    name = "pca_tls" if tls else "pca"
+    env = {"ENABLE_PCA": "true", "TARGET_HOST": "127.0.0.1",
+           "TARGET_PORT": str(port), "DATAPATH": f"pcap:{pcap}"}
+    if tls:
+        env["TARGET_TLS_CA_CERT_PATH"] = tls["cert"]
+    t0, wall0 = time.perf_counter(), time.time_ns() // 1000
+    proc, fo, fe = _agent_child(
+        os.path.dirname(os.path.abspath(__file__)), env, tmp, name)
+    got, stamps = [], []
+    try:
+        while len(got) < len(frames) + 1:
+            try:
+                got.append(out.get(timeout=60))
+            except queue.Empty:
+                raise PhaseError(f"{name}: {len(got)} of {len(frames) + 1} "
+                                 "messages, then nothing for 60 s")
+            stamps.append(time.perf_counter())
+        wall1 = time.time_ns() // 1000
+        first_s = stamps[0] - t0
+        res = {"start_to_header_s": first_s,
+               "packets_per_s": len(frames) / (stamps[-1] - stamps[0]),
+               "sigterm_to_exit_s": _sigterm(proc)}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+        srv.stop(None)
+    with open(fe.name, "rb") as fh:
+        err = fh.read().decode(errors="replace")
+    check(proc.returncode == 0, f"{name} child: exit {proc.returncode}, "
+          f"{err[-1500:]!r}")
+    check(out.empty(), f"{name}: more messages than frames")
+    check(got[0] == pcap_file_header(), f"{name}: not the pcap file header")
+    cap, bases, bad = binfmt.MAX_PAYLOAD_SIZE, [], []
+    for i, (chunk, frame) in enumerate(zip(got[1:], frames)):
+        n = min(len(frame), cap)
+        sec, usec, incl, orig = struct.unpack("<IIII", chunk[:16])
+        bases.append(sec * 1_000_000 + usec - 500 * i)
+        if (incl, orig) != (n, n) or chunk[16:] != frame[:n]:
+            bad.append(i)
+    check(not bad, f"{name}: frames {bad[:5]} differ from the pcap's")
+    check(wall0 <= min(bases) and max(bases) <= wall1,
+          f"{name}: stamps off the wall clock: bases {min(bases)}-"
+          f"{max(bases)} us outside the run's {wall0}-{wall1}")
+    res["stamp_base_spread_us"] = max(bases) - min(bases)
+    print(f"flp_pca: (c) {name}: {len(frames)} frames at "
+          f"{res['packets_per_s']:.0f} packets/s, the stream equal to the "
+          "pcap's header and frames, the stamps' rebased bases within "
+          f"{res['stamp_base_spread_us']} us", flush=True)
+    return res
+
+
+def _pca_kernel() -> dict:
+    """`flp_pca` (d): `load_packet_fetcher`; ENOSYS from bpf(2) is the
+    one failure that marks the part not run."""
+    import errno
+    from netobserv_tpu_torch import config as tconfig
+    from netobserv_tpu_torch.datapath.loader import load_packet_fetcher
+    cfg = tconfig.load_config(environ={
+        "ENABLE_PCA": "true", "TARGET_HOST": "127.0.0.1",
+        "TARGET_PORT": "9"})
+    try:
+        fetcher = load_packet_fetcher(cfg)
+    except OSError as exc:
+        if exc.errno != errno.ENOSYS:
+            raise
+        print(f"flp_pca: (d) load_packet_fetcher not run: bpf(2) answers "
+              f"{exc}", flush=True)
+        return {"run": False, "error": f"OSError: {exc}"}
+    try:
+        kind = type(fetcher).__name__
+        check(fetcher.read_packet(0.05) is None,
+              "an unattached fetcher read a packet")
+    finally:
+        fetcher.close()
+    print(f"flp_pca: (d) load_packet_fetcher took {kind}", flush=True)
+    return {"run": True, "fetcher": kind}
+
+
+def phase_flp_pca(specs) -> dict:
+    """The embedded flowlogs-pipeline and packet capture (module
+    docstring, `flp_pca`); host only, no kernel launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    for s in specs:
+        s["kernel"].launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"phase": "flp_pca", "direct_flp": _flp_agent(tmp),
+               "direct_flp_child": _flp_child(tmp)}
+        pcap = f"{tmp}/pca.pcap"
+        frames = _pca_pcap(pcap)
+        res["pca"] = _pca_leg(tmp, pcap, frames, None)
+        tls = _exp_tls_files(tmp)
+        if tls is None:
+            print("flp_pca: skip the PCA leg over TLS: no openssl on PATH "
+                  "to make a certificate", flush=True)
+            res["pca_tls"] = "skipped: no openssl on PATH"
+        else:
+            res["pca_tls"] = _pca_leg(tmp, pcap, frames, tls)
+        res["pca_frames"] = len(frames)
+    res["load_packet_fetcher"] = _pca_kernel()
+    res["launches"] = {s["name"]: s["kernel"].launches for s in specs}
+    check(not any(res["launches"].values()),
+          f"flp_pca launched kernels: {res['launches']}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def phase_archive(specs, universe, pool, events) -> dict:
@@ -9707,6 +10178,9 @@ def main() -> int:
         phase = "exporters"
         ex_res = phase_exporters(specs, events)
         emit(ex_res)
+        phase = "flp_pca"
+        flp_res = phase_flp_pca(specs)
+        emit(flp_res)
         phase = "archive"
         arc_res = phase_archive(specs, universe, pool, events)
         emit(arc_res)
@@ -9770,6 +10244,7 @@ def main() -> int:
                 "query_plane": qp_res["launches"],
                 "federation": fed_res["launches"],
                 "exporters": ex_res["launches"],
+                "flp_pca": flp_res["launches"],
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
                 "agent_entry": ae_res["launches"],

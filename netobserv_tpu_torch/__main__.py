@@ -11,17 +11,27 @@ terminal's drain, and the exporter's last window. It exits 0 then. With
 no DATAPATH the agent takes the reference's ladder
 (`agent.build_fetcher`): the clang-built object through libbpf, else the
 hand-assembled kernel datapath, else synthetic replay with a warning, so
-a host without bpf(2) still starts. A `ValueError` or `RuntimeError`
-while the agent is built exits 2 with the message on the log: among them
-the modes the port has not ported, naming their ROADMAP item,
-FEDERATION_MODE=aggregator (A8.9) and ENABLE_PCA (A8.8) here and
-EXPORT=direct-flp (A8.7b) in `exporter.build_exporter`, and
-DATAPATH=kernel on a host that is not root; DATAPATH=kernel where bpf(2) fails raises
-its `OSError`, as the reference's does. The sketch exporter folds on the
-card; SKETCH_DEVICES=cpu runs it on the CPU, and without CUDA the agent
+a host without bpf(2) still starts.
+
+ENABLE_PCA runs the packets agent instead (`agent/packets_agent.py`,
+`netobserv_tpu/__main__.py:43-62`): TARGET_HOST and TARGET_PORT (or
+PCA_SERVER_PORT) name the packet collector, `DATAPATH=pcap:<file>`
+replays a pcap file's frames (`datapath/replay.PcapPacketFetcher`) and
+anything else takes `datapath/loader.load_packet_fetcher`. It keeps no
+metrics, so no metrics server starts for it, as in the reference.
+
+A `ValueError` or `RuntimeError` while the agent is built exits 2 with
+the message on the log: among them ENABLE_PCA without its target, the
+modes the port has not ported, naming their ROADMAP item
+(FEDERATION_MODE=aggregator here and DATAPATH=grpc: in
+`agent.build_fetcher`, both A8.9), and DATAPATH=kernel on a host that is
+not root; DATAPATH=kernel where bpf(2) fails raises its `OSError`, as
+the reference's does. The sketch exporter folds on the card;
+SKETCH_DEVICES=cpu runs it on the CPU, and without CUDA the agent
 refuses to start unless asked so. The record exporters (EXPORT=grpc, the
-DaemonSet's and the default, stdout, ipfix+udp, ipfix+tcp and kafka)
-need no card.
+DaemonSet's and the default, stdout, ipfix+udp, ipfix+tcp, kafka and
+direct-flp, the embedded flowlogs-pipeline) and the packets agent need
+no card.
 """
 
 from __future__ import annotations
@@ -34,6 +44,27 @@ import threading
 from netobserv_tpu_torch.config import load_config
 
 log = logging.getLogger("netobserv_tpu_torch")
+
+
+def _packets_agent(cfg):
+    """The ENABLE_PCA agent (`netobserv_tpu/__main__.py:43-62`)."""
+    import os
+
+    if not cfg.target_host or not cfg.target_port:
+        raise ValueError(
+            "ENABLE_PCA: TARGET_HOST and TARGET_PORT (or "
+            "PCA_SERVER_PORT) are required")
+    from netobserv_tpu_torch.agent.packets_agent import PacketsAgent
+    mode = os.environ.get("DATAPATH", "auto")
+    if mode.startswith("pcap:"):
+        from netobserv_tpu_torch.datapath.replay import PcapPacketFetcher
+        fetcher = PcapPacketFetcher(mode[5:])
+    else:
+        # self-managed kernel capture: the clang object or the
+        # hand-assembled PCA program, verifier-loaded
+        from netobserv_tpu_torch.datapath.loader import load_packet_fetcher
+        fetcher = load_packet_fetcher(cfg)
+    return PacketsAgent(cfg, fetcher)
 
 
 def main() -> int:
@@ -56,10 +87,10 @@ def main() -> int:
                 "FEDERATION_MODE=aggregator: the aggregator's gRPC service "
                 "is not ported (ROADMAP A8.9)")
         if cfg.enable_pca:
-            raise ValueError("ENABLE_PCA: packet capture is not ported "
-                             "(ROADMAP A8.8)")
-        from netobserv_tpu_torch.agent import FlowsAgent
-        agent = FlowsAgent.from_config(cfg)
+            agent = _packets_agent(cfg)
+        else:
+            from netobserv_tpu_torch.agent import FlowsAgent
+            agent = FlowsAgent.from_config(cfg)
     except (ValueError, RuntimeError) as exc:
         log.error("invalid configuration: %s", exc)
         if dbg is not None:
@@ -67,10 +98,11 @@ def main() -> int:
         return 2
 
     srv = None
-    if cfg.metrics_enable:
+    metrics = getattr(agent, "metrics", None)
+    if cfg.metrics_enable and metrics is not None:
         from netobserv_tpu_torch.metrics.server import start_metrics_server
         srv = start_metrics_server(
-            agent.metrics.registry, cfg.metrics_server_address,
+            metrics.registry, cfg.metrics_server_address,
             cfg.metrics_server_port, cfg.metrics_tls_cert_path,
             cfg.metrics_tls_key_path,
             health_source=agent.health_snapshot,

@@ -6,11 +6,12 @@ the `EXPORT_*` names are a copy of `netobserv_tpu/config.py` (`:53-141`,
 the same rules, so one environment gives equal configurations in both
 packages. `AgentConfig.validate` runs the reference's checks (the
 alert-rule check, `:726-734`, through the port's `alerts/rules` and
-`alerts/sinks`); every setting of the flow agent is ported, and the modes
-the port lacks (ENABLE_PCA, FEDERATION_MODE=aggregator, DATAPATH=grpc:,
-EXPORT=direct-flp) are refused where they are read (`__main__.py`,
-`agent.build_fetcher`, `exporter.build_exporter`), naming their ROADMAP
-item (A8.7b-A8.9). The agent (`agent/agent.py`),
+`alerts/sinks`); every setting of the flow agent, of EXPORT=direct-flp
+(FLP_CONFIG, FLP_KUBE_MAP, FLP_LOCATION_DB) and of the packets agent
+(ENABLE_PCA, PCA_SERVER_PORT) is ported, and the modes the port lacks
+(FEDERATION_MODE=aggregator, DATAPATH=grpc:) are refused where they are
+read (`__main__.py`, `agent.build_fetcher`), naming their ROADMAP item
+(A8.9). The agents (`agent/agent.py`, `agent/packets_agent.py`),
 `exporter.build_exporter` and `TorchSketchExporter.from_config` read it.
 
 The `DEFAULT_*` thresholds are copies of the reference's: the window

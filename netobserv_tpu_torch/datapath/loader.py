@@ -32,8 +32,12 @@ which stay the tests' plain twins. The gate also runs over any fetcher of
 record dtype), each map with `fd`, `n_cpus`, `max_entries`,
 `_no_batch_ops` and `_pad_vs`), as tests drive it with injected maps.
 
-Not here yet: the packet fetchers of PCA (`MinimalPacketFetcher`,
-`LibbpfPacketFetcher`, `load_packet_fetcher`, ROADMAP A8.8).
+The packet fetchers of PCA (`:1282-1385`, `:1764-1848`):
+`MinimalPacketFetcher` over the hand-assembled capture program
+(`datapath/asm_pca.py`), `LibbpfPacketFetcher` over the clang object, and
+`load_packet_fetcher`, their ladder through `_load_clang_or_fallback`.
+Every pin of the port's fetchers is `<prefix><pid>_<program>` under a
+prefix of the port's own.
 """
 
 from __future__ import annotations
@@ -1313,6 +1317,113 @@ class MinimalKernelFetcher(_SelfManagedAttach, BpfmanFetcher):
         for fmap, _dtype in self._features.values():
             fmap.close()
 
+class MinimalPacketFetcher(_SelfManagedAttach):
+    """Self-managed PCA datapath from the hand-assembled capture program
+    (datapath/asm_pca.py): creates the packet_records ring buffer, loads the
+    program through the live verifier, attaches via TCX/tc, and serves raw
+    `no_packet_event` records to PerfTracer through the mmap ring reader —
+    the compiler-free analog of the reference's PCA fetcher
+    (pkg/tracer/tracer.go:1552-2076).
+
+    Reference: `netobserv_tpu/datapath/loader.py:1282`. Its pins take the
+    port's own prefix, each named `<prefix><pid>_<program>` (the one
+    program without filters `_pca`), so the stale-pin sweep keeps a live
+    process's pins and neither package's sweep removes the other's."""
+
+    needs_iface_discovery = True
+    _PIN_PREFIX = "/sys/fs/bpf/netobserv_torch_minpca_"
+
+    def __init__(self, ring_bytes: int = 1 << 21, attach_mode: str = "tcx",
+                 sampling: int = 0, enable_filters: bool = False):
+        self._mode = attach_mode
+        self._sweep_stale_pins()
+        self._filter_rules = self._filter_peers = None
+        self._rb_map = None
+        self._reader = None
+        self._prog_fds = {}
+        self._pins = {}
+        self._attached: dict[tuple[str, int], tuple[str, dict]] = {}
+        try:
+            self._provision(ring_bytes, sampling, enable_filters)
+        except Exception:
+            self.close()  # a half-provisioned fetcher must not leak fds
+            raise
+
+    def _provision(self, ring_bytes, sampling, enable_filters) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1309`."""
+        from netobserv_tpu_torch.datapath import asm_pca
+
+        BPF_MAP_TYPE_RINGBUF = 27
+        flt_rules_fd = flt_peers_fd = None
+        if enable_filters:
+            self._filter_rules, self._filter_peers = _create_filter_tries()
+            flt_rules_fd = self._filter_rules.fd
+            flt_peers_fd = self._filter_peers.fd
+        self._rb_map = syscall_bpf.BpfMap.create(
+            BPF_MAP_TYPE_RINGBUF, 0, 0, ring_bytes, b"pkt_records")
+        if enable_filters:
+            # filters evaluate a direction predicate, so each hook needs its
+            # own program instance (like the flow datapath)
+            programs = [(name, asm_pca.build_pca_program(
+                self._rb_map.fd, sampling=sampling, direction=code,
+                filter_rules_fd=flt_rules_fd, filter_peers_fd=flt_peers_fd))
+                for name, code in (("ingress", 0), ("egress", 1))]
+        else:
+            # one program serves both hooks (the record carries no direction)
+            programs = [("pca", asm_pca.build_pca_program(
+                self._rb_map.fd, sampling=sampling))]
+        for name, prog in programs:
+            fd = syscall_bpf.prog_load(prog, name=b"netobserv_pca")
+            pin = f"{self._PIN_PREFIX}{os.getpid()}_{name}"
+            if os.path.exists(pin):
+                os.unlink(pin)
+            syscall_bpf.obj_pin(fd, pin)
+            hooks = ("ingress", "egress") if name == "pca" else (name,)
+            for hook in hooks:
+                self._prog_fds[hook] = fd
+                self._pins[hook] = pin
+        self._reader = syscall_bpf.RingBufReader(self._rb_map)
+
+    @classmethod
+    def load(cls, cfg: AgentConfig) -> "MinimalPacketFetcher":
+        """Reference: `netobserv_tpu/datapath/loader.py:1350`."""
+        import shutil
+
+        if os.geteuid() != 0:
+            raise RuntimeError("kernel datapath requires root/CAP_BPF")
+        if cfg.tc_attach_mode != "tcx" and shutil.which("tc") is None:
+            raise RuntimeError("tc (iproute2) not found; cannot attach")
+        return cls(attach_mode=cfg.tc_attach_mode, sampling=cfg.sampling,
+                   enable_filters=bool(cfg.flow_filter_rules))
+
+    def program_filters(self, rules) -> int:
+        """Same kernel-gate programming as the flow fetcher: captured
+        packets are the ones an Accept rule matches (pca.h parity).
+
+        Reference: `netobserv_tpu/datapath/loader.py:1360`."""
+        if self._filter_rules is None:
+            if rules:
+                log.warning("PCA filter maps not provisioned; "
+                            "FLOW_FILTER_RULES ignored")
+            return 0
+        return _program_filter_tries(self._filter_rules, self._filter_peers,
+                                     rules)
+
+    def read_packet(self, timeout_s: float):
+        return self._reader.read(timeout_s)
+
+    def close(self) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1374`."""
+        self._teardown_attachments()
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+        for bm in (self._rb_map, self._filter_rules, self._filter_peers):
+            if bm is not None:
+                bm.close()
+        self._rb_map = self._filter_rules = self._filter_peers = None
+
+
 
 def _libbpf_open_and_load(obj_path: str, resize: dict, knobs: dict,
                           entry_names: dict):
@@ -1726,6 +1837,100 @@ class KernelFetcher:
         return _load_clang_or_fallback(
             cfg, lambda c: LibbpfKernelFetcher(c, _OBJ_PATH),
             MinimalKernelFetcher.load, "datapath")
+
+class LibbpfPacketFetcher(_SelfManagedAttach):
+    """PCA twin of LibbpfKernelFetcher (reference PacketFetcher,
+    tracer.go:1552-2076): loads the CI-built object with cfg_enable_pca
+    patched on, autoloads only the PCA entry points, and serves raw
+    packet_records to the packets agent through the mmap ring reader.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1764`; its pins take the
+    port's own prefix."""
+
+    needs_iface_discovery = True
+    _PIN_PREFIX = "/sys/fs/bpf/netobserv_torch_cpca_"
+
+    def __init__(self, cfg: AgentConfig, obj_path: str = _OBJ_PATH,
+                 ring_bytes: int = 1 << 21):
+        self._mode = cfg.tc_attach_mode
+        self._sweep_stale_pins()
+        self._filter_rules = self._filter_peers = None
+        self._rb_map = None
+        self._reader = None
+        self._obj = None
+        self._prog_fds = {}
+        self._pins = {}
+        self._attached = {}
+        try:
+            self._provision_object(cfg, obj_path, ring_bytes)
+        except Exception:
+            self.close()
+            raise
+
+    def _provision_object(self, cfg, obj_path, ring_bytes) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1790`."""
+        use_tcx = self._mode != "tc"
+        entry_names = {"ingress": ("tcx_pca_ingress" if use_tcx
+                                   else "tc_pca_ingress"),
+                       "egress": ("tcx_pca_egress" if use_tcx
+                                  else "tc_pca_egress")}
+        # the flow maps still get created at load (libbpf creates every
+        # object map regardless of autoload) — shrink them all
+        resize = _libbpf_default_resize(cache=512)
+        resize["packet_records"] = ring_bytes
+        knobs = {"cfg_enable_pca": 1, "cfg_sampling": cfg.sampling,
+                 "cfg_enable_flow_filtering":
+                     int(bool(cfg.flow_filter_rules))}
+        obj = _libbpf_open_and_load(obj_path, resize, knobs, entry_names)
+        self._obj = obj
+        rb = obj.map("packet_records")
+        if rb is None:
+            raise RuntimeError("object lacks packet_records")
+        self._rb_map = syscall_bpf.BpfMap(os.dup(rb.fd), 0, 0)
+        self._reader = syscall_bpf.RingBufReader(self._rb_map)
+        fr, fp = obj.map("filter_rules"), obj.map("filter_peers")
+        if fr is not None and fp is not None:
+            self._filter_rules = syscall_bpf.BpfMap(
+                os.dup(fr.fd), fr.key_size, fr.value_size)
+            self._filter_peers = syscall_bpf.BpfMap(
+                os.dup(fp.fd), fp.key_size, fp.value_size)
+        self._prog_fds, self._pins = _libbpf_pin_entries(
+            obj, entry_names, self._PIN_PREFIX)
+
+    def program_filters(self, rules) -> int:
+        """Reference: `netobserv_tpu/datapath/loader.py:1819`."""
+        if self._filter_rules is None:
+            if rules:
+                log.warning("object has no filter maps; rules ignored")
+            return 0
+        return _program_filter_tries(self._filter_rules, self._filter_peers,
+                                     rules)
+
+    def read_packet(self, timeout_s: float):
+        return self._reader.read(timeout_s)
+
+    def close(self) -> None:
+        """Reference: `netobserv_tpu/datapath/loader.py:1830`."""
+        self._teardown_attachments()
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+        for bm in (self._rb_map, self._filter_rules, self._filter_peers):
+            if bm is not None:
+                bm.close()
+        self._rb_map = self._filter_rules = self._filter_peers = None
+        _libbpf_release(self)
+
+
+def load_packet_fetcher(cfg: AgentConfig):
+    """PCA fetcher dispatch, mirroring KernelFetcher.load: the CI-built
+    clang object when present+loadable, else the assembler PCA program.
+
+    Reference: `netobserv_tpu/datapath/loader.py:1842`."""
+    return _load_clang_or_fallback(
+        cfg, lambda c: LibbpfPacketFetcher(c, _OBJ_PATH),
+        MinimalPacketFetcher.load, "PCA datapath")
+
 
 
 def _load_clang_or_fallback(cfg: AgentConfig, clang_ctor, fallback,

@@ -1,11 +1,12 @@
 """Replay fetchers: synthetic traffic and pcap files as a datapath.
 
 A copy of `netobserv_tpu/datapath/replay.py` (`SyntheticFetcher`,
-`PcapReplayFetcher`, `_parse_packet`, lines 1-281 and 351-411). They
-implement the `FlowFetcher` seam (`fetcher.py`), so the whole agent runs
-without kernel privileges: `DATAPATH=synthetic` and `DATAPATH=pcap:<file>`
-(`agent/agent.build_fetcher`). `PcapPacketFetcher` (PCA mode) is ROADMAP
-A8.
+`PcapReplayFetcher`, `PcapPacketFetcher`, `_parse_packet`, lines 1-411).
+The first two implement the `FlowFetcher` seam (`fetcher.py`), so the
+whole agent runs without kernel privileges: `DATAPATH=synthetic` and
+`DATAPATH=pcap:<file>` (`agent/agent.build_fetcher`).
+`PcapPacketFetcher` is the packet source of PCA mode (ENABLE_PCA with
+`DATAPATH=pcap:<file>`, `__main__.py`).
 """
 
 from __future__ import annotations
@@ -288,6 +289,73 @@ class PcapReplayFetcher:
 #: QUIC payload probe's UDP/443 gate)
 _DNS_PORT = 53
 _QUIC_PORT = 443
+
+
+class PcapPacketFetcher:
+    """PCA-mode packet source from a pcap file: each captured frame becomes a
+    packet event (payload truncated at NO_MAX_PAYLOAD_SIZE), released in
+    arrival order at a configurable pace. Implements the PacketFetcher seam
+    so the full PCA pipeline (PerfTracer -> PerfBuffer -> pcap gRPC stream)
+    runs without kernel privileges."""
+
+    def __init__(self, path: str, rate_pps: float = 0.0):
+        self._events: list[bytes] = []
+        self._idx = 0
+        self._lock = threading.Lock()
+        self._interval = 1.0 / rate_pps if rate_pps > 0 else 0.0
+        self._parse(path)
+
+    def _parse(self, path: str) -> None:
+        with open(path, "rb") as fh:
+            data = fh.read()
+        if len(data) < 24:
+            raise ValueError(f"not a pcap file (too short): {path}")
+        magic = struct.unpack("<I", data[:4])[0]
+        if magic == 0xA1B2C3D4:
+            endian, tscale = "<", 1_000
+        elif magic == 0xA1B23C4D:
+            endian, tscale = "<", 1
+        elif magic == 0xD4C3B2A1:
+            endian, tscale = ">", 1_000
+        else:
+            raise ValueError(f"not a pcap file: magic {magic:#x}")
+        mono_now = time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+        first_ts = None
+        off = 24
+        while off + 16 <= len(data):
+            ts_sec, ts_sub, incl, orig = struct.unpack(
+                endian + "IIII", data[off:off + 16])
+            off += 16
+            payload = data[off:off + incl]
+            off += incl
+            ts_ns = ts_sec * 1_000_000_000 + ts_sub * tscale
+            if first_ts is None:
+                first_ts = ts_ns
+            ev = np.zeros(1, dtype=binfmt.PACKET_EVENT_DTYPE)
+            ev[0]["if_index"] = 1
+            ev[0]["pkt_len"] = orig
+            ev[0]["timestamp_ns"] = mono_now - first_ts + ts_ns
+            n = min(len(payload), binfmt.MAX_PAYLOAD_SIZE)
+            ev[0]["payload"][:n] = np.frombuffer(payload[:n], np.uint8)
+            self._events.append(ev.tobytes())
+
+    def read_packet(self, timeout_s: float) -> Optional[bytes]:
+        with self._lock:
+            if self._idx >= len(self._events):
+                time.sleep(timeout_s)
+                return None
+            ev = self._events[self._idx]
+            self._idx += 1
+        if self._interval:
+            time.sleep(self._interval)
+        return ev
+
+    def exhausted(self) -> bool:
+        with self._lock:
+            return self._idx >= len(self._events)
+
+    def close(self) -> None:
+        pass
 
 
 def _parse_packet(pkt: bytes):

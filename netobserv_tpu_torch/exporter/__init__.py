@@ -5,9 +5,11 @@
 report renderer and sinks in `report.py` and its gRPC delta sink in
 `federation.py`; `stdout_json.py`, `grpc_flow.py`, `ipfix.py` and
 `kafka.py` the record exporters, on `pb_convert.py` and the port's own
-gRPC transport (`grpc/h2.py`). `build_exporter` is a copy of the
-reference's switch (`netobserv_tpu/exporter/__init__.py:23-55`); only
-EXPORT=direct-flp still raises `ValueError`, naming ROADMAP A8.7b.
+gRPC transport (`grpc/h2.py`); `direct_flp.py` the embedded
+flowlogs-pipeline, with `flp_map.py`, `flp_tables.py` and
+`flp_enrich.py`; `grpc_packets.py` the packet-capture (PCA) stream.
+`build_exporter` is a copy of the reference's switch
+(`netobserv_tpu/exporter/__init__.py:15-55`), every EXPORT included.
 """
 
 from netobserv_tpu_torch import config as c
@@ -15,16 +17,28 @@ from netobserv_tpu_torch import config as c
 
 def build_exporter(cfg, metrics=None):
     """The exporter an `AgentConfig` asks for (EXPORT), as
-    `build_exporter` (`netobserv_tpu/exporter/__init__.py:23-55`)."""
+    `build_exporter` (`netobserv_tpu/exporter/__init__.py:15-55`)."""
     if cfg.export == c.EXPORT_STDOUT:
         from netobserv_tpu_torch.exporter.stdout_json import (
             StdoutJSONExporter,
         )
         return StdoutJSONExporter(metrics=metrics)
     if cfg.export == c.EXPORT_DIRECT_FLP:
-        raise ValueError(
-            f"EXPORT={cfg.export!r}: the direct-FLP exporter is not ported "
-            "(ROADMAP A8.7b)")
+        from netobserv_tpu_torch.exporter.direct_flp import DirectFLPExporter
+        kube_source = location_db = None
+        if cfg.flp_kube_map:
+            from netobserv_tpu_torch.exporter.flp_enrich import (
+                StaticKubeDataSource,
+            )
+            kube_source = StaticKubeDataSource(path=cfg.flp_kube_map)
+        if cfg.flp_location_db:
+            from netobserv_tpu_torch.exporter.flp_enrich import CsvLocationDB
+            location_db = CsvLocationDB(cfg.flp_location_db)
+        return DirectFLPExporter(
+            flp_config=cfg.flp_config,
+            # encode/prom metrics surface on the agent's /metrics server
+            prom_registry=metrics.registry if metrics is not None else None,
+            kube_source=kube_source, location_db=location_db)
     if cfg.export == c.EXPORT_TPU_SKETCH:
         from netobserv_tpu_torch.exporter.torch_sketch import (
             TorchSketchExporter,

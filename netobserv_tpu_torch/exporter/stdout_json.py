@@ -2,7 +2,7 @@
 
 A copy of `netobserv_tpu/exporter/stdout_json.py` (lines 1-27): one
 `Record.to_json_obj` a line, compact separators, flushed a batch.
-(direct-flp mode is not ported: ROADMAP A8.7b.)
+(EXPORT=direct-flp writes FLP's field naming instead: `direct_flp.py`.)
 """
 
 from __future__ import annotations

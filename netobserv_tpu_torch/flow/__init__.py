@@ -7,7 +7,9 @@ with the ring-buffer fallback RingBufTracer -> Accounter feeding the same
 limiter (ENABLE_FLOWS_RINGBUF_FALLBACK), lossy at one point, the limiter.
 With ENABLE_OPENSSL_TRACKING the agent adds `ssl_tracer.SSLTracer` and
 `ssl_correlator.SSLCorrelator`, whose credits the map tracer and the
-accounter attach to records.
+accounter attach to records. PCA mode's stages, `perf_buffer.PerfTracer`
+and `perf_buffer.PerfBuffer`, feed the packets agent
+(`agent/packets_agent.py`).
 """
 
 from netobserv_tpu_torch.flow.map_tracer import MapTracer  # noqa: F401

@@ -39,10 +39,16 @@ drain, so `flowpack_native_calls_total` and
 labels gated by METRICS_LEVEL, and the janitor that removes a
 trace-level series `trace_ttl_s` after its last increment (`:539-595`).
 
-`prometheus_client` is imported only when a `Metrics` is made, or when
-`exposition` renders a registry for the metrics server's `/metrics`: no
-other module imports it, and the exporter keeps plain integer counters of
-its own that work without a registry.
+The direct-flp exporter's `encode prom` stage makes its collectors here
+(`new_registry`, `make_metric`, and for its adopt and skip rules on a
+rebuild `live_metric`, `metric_kind`, `metric_labels`,
+`histogram_bounds`, `default_buckets`), after
+`netobserv_tpu/exporter/direct_flp.py:235-300`.
+
+`prometheus_client` is imported only when a `Metrics` is made, when one
+of those functions runs, or when `exposition` renders a registry for the
+metrics server's `/metrics`: no other module imports it, and the exporter
+keeps plain integer counters of its own that work without a registry.
 """
 
 from __future__ import annotations
@@ -59,6 +65,60 @@ def exposition(registry) -> tuple[bytes, str]:
     from prometheus_client import generate_latest
     from prometheus_client.exposition import CONTENT_TYPE_LATEST
     return generate_latest(registry), CONTENT_TYPE_LATEST
+
+
+def new_registry():
+    """A fresh `CollectorRegistry` (the direct-flp exporter's own, where
+    the agent gives it none)."""
+    from prometheus_client import CollectorRegistry
+    return CollectorRegistry()
+
+
+def default_buckets() -> tuple:
+    """prometheus_client's default histogram buckets."""
+    from prometheus_client import Histogram
+    return Histogram.DEFAULT_BUCKETS
+
+
+def make_metric(kind: str, name: str, documentation: str, labels: list,
+                registry, buckets=None):
+    """A counter, gauge or histogram (`kind` "counter", "gauge" or
+    "histogram") named `name` on `registry`; a histogram takes `buckets`
+    or the defaults.
+    A name the registry already holds raises `ValueError`, as
+    prometheus_client's constructors do."""
+    from prometheus_client import Counter, Gauge, Histogram
+    if kind == "histogram":
+        return Histogram(name, documentation, labels,
+                         buckets=buckets or Histogram.DEFAULT_BUCKETS,
+                         registry=registry)
+    cls = {"counter": Counter, "gauge": Gauge}[kind]
+    return cls(name, documentation, labels, registry=registry)
+
+
+def live_metric(registry, name: str):
+    """The collector registered under `name` on `registry`, or None."""
+    return getattr(registry, "_names_to_collectors", {}).get(name)
+
+
+def metric_kind(metric) -> str | None:
+    """The kind of one of `make_metric`'s collectors ("counter", "gauge"
+    or "histogram"), None for another collector."""
+    from prometheus_client import Counter, Gauge, Histogram
+    for kind, cls in (("counter", Counter), ("gauge", Gauge),
+                      ("histogram", Histogram)):
+        if isinstance(metric, cls):
+            return kind
+    return None
+
+
+def metric_labels(metric) -> list:
+    return list(getattr(metric, "_labelnames", ()))
+
+
+def histogram_bounds(metric) -> list:
+    """A histogram's upper bounds, +inf last."""
+    return list(getattr(metric, "_upper_bounds", ()))
 
 
 LEVELS = ("info", "debug", "trace")

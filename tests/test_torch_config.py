@@ -331,6 +331,17 @@ def test_from_config_matches_the_reference(name, tmp_path):
         ref.close()
 
 
+#: EXPORT=direct-flp's case: a conntrack extract and a prom encode
+_FLP_CONFIG = """
+pipeline: [{name: c}, {name: p, follows: c}]
+parameters:
+  - name: c
+    extract: {type: conntrack, conntrack: {outputRecordTypes: [flowLog]}}
+  - name: p
+    encode: {type: prom, prom: {metrics: [{name: x_total, type: counter}]}}
+"""
+
+
 @pytest.mark.parametrize("env,item", [
     ({"SKETCH_MESH_SHAPE": "2x1"}, None), ({"SKETCH_TENANTS": "2"}, None),
     ({"FEDERATION_TARGET": "127.0.0.1:9"}, None),
@@ -338,18 +349,20 @@ def test_from_config_matches_the_reference(name, tmp_path):
     ({"EXPORT": "grpc", "TARGET_HOST": "127.0.0.1", "TARGET_PORT": "9",
       "GRPC_MESSAGE_MAX_FLOWS": "7", "GRPC_RECONNECT_TIMER": "30s",
       "GRPC_RECONNECT_TIMER_RANDOMIZATION": "5s"}, None),
-    ({"EXPORT": "stdout"}, None), ({"EXPORT": "direct-flp"}, "A8.7b")],
+    ({"EXPORT": "stdout"}, None),
+    ({"EXPORT": "direct-flp", "FLP_CONFIG": _FLP_CONFIG}, None)],
     ids=["mesh", "tenants", "federation", "devices", "grpc", "stdout",
          "direct-flp"])
 def test_build_exporter_refuses_what_the_port_lacks(env, item):
     """Each setting the port lacks raises naming its ROADMAP item (only
-    EXPORT=direct-flp, A8.7b, and SKETCH_DEVICES); the cases with item
-    None, ported since, build: the tenant planes (a `TenantStack` ring
-    and one query publisher a tenant), the mesh exporter (a 2x1 mesh of
-    the CPU, its state a `DistState`), FEDERATION_TARGET's delta sink
-    and the grpc and stdout record exporters, each of the reference's
-    type with the reference's settings (the reference's gRPC objects
-    connect lazily, so nothing dials port 9)."""
+    SKETCH_DEVICES now); the cases with item None, ported since, build:
+    the tenant planes (a `TenantStack` ring and one query publisher a
+    tenant), the mesh exporter (a 2x1 mesh of the CPU, its state a
+    `DistState`), FEDERATION_TARGET's delta sink and the grpc, stdout and
+    direct-flp record exporters, each of the reference's type with the
+    reference's settings (the reference's gRPC objects connect lazily, so
+    nothing dials port 9; direct-flp's stages the reference's, its prom
+    metrics on its own registry, as no agent metrics are given)."""
     cfg = tcfg.load_config({**_SMALL_ENV, **env})
     if item is not None:
         with pytest.raises(ValueError, match=item):
@@ -367,6 +380,12 @@ def test_build_exporter_refuses_what_the_port_lacks(env, item):
                 assert exp._reconnect_every == ref._reconnect_every == 30
                 assert exp._reconnect_rand == ref._reconnect_rand == 5
                 assert exp._client._target == ref._client._target
+            elif env["EXPORT"] == "direct-flp":
+                assert [type(st).__name__ for st in exp._stages] == \
+                    [type(st).__name__ for st in ref._stages]
+                assert len(exp._stages) == 2
+                assert exp._prom_names == ref._prom_names == {"x_total"}
+                assert exp._stream is ref._stream
             else:
                 assert exp._stream is ref._stream
         finally:

@@ -9,9 +9,11 @@ netobserv_tpu_torch/__main__.py; agent/agent.py `FlowsAgent.from_config`,
   `/healthz` answers Started meanwhile, and SIGTERM ends it with exit 0
   after it published its last window, whose records sum with the others
   to the pcap's packets.
-- An unported EXPORT exits 2 (a child process); DATAPATH=grpc:,
-  FEDERATION_MODE=aggregator and ENABLE_PCA exit 2 from `main()` in
-  process, each naming its ROADMAP item. With both kernel rungs forced to
+- An EXPORT outside the reference's list exits 2, and EXPORT=direct-flp
+  (ported since) runs its embedded pipeline and exits 0 on SIGTERM (child
+  processes); DATAPATH=grpc: and FEDERATION_MODE=aggregator exit 2 from
+  `main()` in process, each naming its ROADMAP item, and ENABLE_PCA
+  without a target with the reference's message. With both kernel rungs forced to
   fail, DATAPATH=kernel exits 2 with the last rung's error, and no
   DATAPATH falls back to synthetic replay with the reference's warning:
   `main()` starts, and exits 0 on SIGTERM.
@@ -187,14 +189,60 @@ def test_cli_replays_a_syn_flood_on_the_cpu_and_stops_on_sigterm(tmp_path):
     assert b"agent stopped" in err
 
 
+#: FLP_CONFIG of the direct-flp child: a filter, a network transform and
+#: the stdout writer
+FLP_CHILD_CFG = """
+pipeline: [{name: f}, {name: n, follows: f}, {name: w, follows: n}]
+parameters:
+  - name: f
+    transform:
+      type: filter
+      filter:
+        rules: [{type: remove_field, removeField: SrcMac}]
+  - name: n
+    transform:
+      type: network
+      network:
+        rules:
+          - type: add_subnet
+            add_subnet: {input: SrcAddr, output: SrcSubnet, parameters: /16}
+  - name: w
+    write: {type: stdout}
+"""
+
+
 def test_cli_exits_2_for_an_unported_exporter():
+    """Every EXPORT of the reference is ported: one outside its list exits
+    2 naming the list, and EXPORT=direct-flp (which exited 2 naming
+    ROADMAP A8.7b before it was ported) runs its pipeline over synthetic
+    replay, writing FLP entries to stdout, and exits 0 on SIGTERM."""
     proc = subprocess.run(
         [sys.executable, "-m", "netobserv_tpu_torch"], cwd=str(ROOT),
-        env=_child_env(EXPORT="direct-flp", DATAPATH="synthetic",
+        env=_child_env(EXPORT="no-such-export", DATAPATH="synthetic",
                        SKETCH_DEVICES="cpu"),
         capture_output=True, timeout=60)
     assert proc.returncode == 2
-    assert b"A8.7b" in proc.stderr and proc.stdout == b""
+    assert b"direct-flp" in proc.stderr and proc.stdout == b""
+    child = subprocess.Popen(
+        [sys.executable, "-m", "netobserv_tpu_torch"], cwd=str(ROOT),
+        env=_child_env(EXPORT="direct-flp", DATAPATH="synthetic",
+                       FLP_CONFIG=FLP_CHILD_CFG,
+                       CACHE_ACTIVE_TIMEOUT="200ms"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        first = child.stdout.readline()     # blocks until an eviction
+        child.send_signal(signal.SIGTERM)
+        out, err = child.communicate(timeout=30)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    assert child.returncode == 0, err.decode()[-2000:]
+    entries = [json.loads(x) for x in (first + out).splitlines()]
+    assert len(entries) >= 100              # one synthetic eviction at least
+    assert all("SrcMac" not in e and e["SrcSubnet"].endswith("/16")
+               for e in entries)
+    assert b"agent stopped" in err
 
 
 def _forced_rungs(monkeypatch):
@@ -256,14 +304,19 @@ def _main_until_started(monkeypatch) -> tuple[int, object]:
     ({"DATAPATH": "kernel"}, "MinimalKernelFetcher refused"),
     ({"DATAPATH": "grpc:9000"}, "A8"),
     ({"FEDERATION_MODE": "aggregator"}, "aggregator.*A8"),
-    ({"ENABLE_PCA": "true"}, "ENABLE_PCA.*A8"),
+    ({"ENABLE_PCA": "true", "TARGET_HOST": None, "TARGET_PORT": None,
+      "PCA_SERVER_PORT": None},
+     r"ENABLE_PCA: TARGET_HOST and TARGET_PORT \(or PCA_SERVER_PORT\) "
+     "are required"),
     ({"ENABLE_OPENSSL_TRACKING": "true"}, "start"),
     ({"SKETCH_TENANTS": "2"}, None)],
     ids=["unset", "kernel", "grpc", "aggregator", "pca", "openssl",
          "tenants"])
 def test_main_exits_2_for_unported_settings(env, item, monkeypatch, caplog,
                                             tmp_path):
-    """Each setting the port lacks exits 2 naming its ROADMAP item. With
+    """Each setting the port lacks exits 2 naming its ROADMAP item;
+    ENABLE_PCA (ported since) without TARGET_HOST and TARGET_PORT exits 2
+    with the reference's message. With
     the kernel rungs forced to fail, DATAPATH=kernel exits 2 with the last
     rung's error, and no DATAPATH falls back to synthetic replay, as the
     reference's ladder does: it starts and exits 0 on SIGTERM, as does

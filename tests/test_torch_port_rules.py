@@ -63,7 +63,11 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "exporter/kafka.py", "exporter/ipfix.py",
                  "exporter/grpc_flow.py", "exporter/federation.py",
                  "grpc/__init__.py", "grpc/h2.py", "grpc/flow.py",
-                 "grpc/federation.py")
+                 "grpc/federation.py", "exporter/flp_tables.py",
+                 "exporter/flp_map.py", "exporter/flp_enrich.py",
+                 "exporter/direct_flp.py", "pb/packet.py", "grpc/packet.py",
+                 "exporter/grpc_packets.py", "flow/perf_buffer.py",
+                 "agent/packets_agent.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -135,6 +139,32 @@ def test_only_the_metrics_facade_imports_prometheus_client():
         assert "prometheus_client" not in names, f
         if f.name != "registry.py":
             assert "prometheus_client" not in _imported_modules(f), f
+
+
+def test_only_the_direct_flp_exporter_imports_yaml():
+    """PyYAML is on the card's machine, and FLP_CONFIG is YAML: the
+    direct-flp exporter imports it only where it parses a non-empty
+    FLP_CONFIG (inside `DirectFLPExporter.__init__`), and no other module
+    of the port imports it. (chip_smoke.py's device phase imports it to
+    print the card machine's answer, and it is no module of the port.)"""
+    only = ROOT / "netobserv_tpu_torch" / "exporter" / "direct_flp.py"
+    files = sorted((ROOT / "netobserv_tpu_torch").rglob("*.py"))
+    assert only in files
+    for f in files:
+        tree = ast.parse(f.read_text(), str(f))
+        top = [a.name for n in tree.body if isinstance(n, ast.Import)
+               for a in n.names]
+        top += [n.module for n in tree.body
+                if isinstance(n, ast.ImportFrom) and n.module]
+        assert "yaml" not in [t.split(".")[0] for t in top], f
+        if f != only:
+            assert "yaml" not in [m.split(".")[0]
+                                  for m in _imported_modules(f)], f
+    init = next(n for n in ast.walk(ast.parse(only.read_text()))
+                if isinstance(n, ast.FunctionDef) and n.name == "__init__"
+                and "flp_config" in [a.arg for a in n.args.args])
+    assert "yaml" in [a.name for n in ast.walk(init)
+                      if isinstance(n, ast.Import) for a in n.names]
 
 
 def test_port_sources_include_no_header_of_the_jax_package():
