@@ -17,7 +17,8 @@ drives five
 paths through `TorchSketchExporter` at the default geometry (and seven
 planes on the lanes path after them: the fused drain's seam, the window
 thread, the query and federation planes, the exporters over the port's
-own gRPC transport, the archive and overload control; and, host only,
+own gRPC transport, the collector tier's aggregator process and
+DATAPATH=grpc worker, the archive and overload control; and, host only,
 the embedded flowlogs-pipeline and packet capture),
 each with the
 launch counts set to 0 just before it and read just after:
@@ -276,6 +277,44 @@ launch counts set to 0 just before it and read just after:
   ENOSYS, it prints the error and marks the part not run; any other
   failure fails the phase. `flp_pca` joins the `kernels` line's
   `launches_by_path` with 0 launches;
+- the collector tier (`two_tier`: `federation/service.py`,
+  `datapath/grpc_ingest.py`, `__main__.py`'s FEDERATION_MODE=aggregator
+  and `agent.build_fetcher`'s DATAPATH=grpc:<port>), in two parts, each
+  held against a CPU replay. (a) A `python3 -m netobserv_tpu_torch`
+  child with FEDERATION_MODE=aggregator at the default geometry on the
+  card (free FEDERATION_LISTEN_PORT and FEDERATION_QUERY_PORT, a one-hour
+  FEDERATION_WINDOW, METRICS_ENABLE, reports on its standard output);
+  once `/healthz` says Started, FED_AGENTS lanes-path agents
+  (`_exp_agents`, FEDERATION_TARGET the child) fold their quarters of the
+  integer stream for WINDOWS windows and push each window's frame over
+  the port's transport (their frames tapped); `/federation/status` must
+  list every agent, `/metrics` must count every frame merged, the agents'
+  launches must be a fold's on the lanes path, no plain version; the
+  agents close (each pushes its empty last window), SIGTERM ends the
+  child with exit 0 and its one published report (the window SIGTERM
+  closes) must equal, under `_reports_differ`'s bounds, the report of a
+  CPU `FederationAggregator.from_config` of the same settings fed the
+  tapped frames in push order. It prints the seconds to Started, frames
+  merged per second (frames over the pushes' wall seconds), the
+  `ingest_frame` mean and its median's bucket from the child's
+  `federation_merge_seconds` and SIGTERM to exit. (b) A DATAPATH=grpc
+  worker in process (`build_fetcher` with DATAPATH=grpc:<port>, a
+  `FlowsAgent` over `TorchSketchExporter.from_config`: EXPORT=tpu-sketch,
+  B = 16,384, 8 lanes, the ladder (1, 2, 4), every capture made before a
+  fold) fed by TT_AGENTS EXPORT=grpc agents (`FakeFetcher`s) of
+  TT_RECORDS records of the integer stream each, injected as evictions
+  of TT_EVICT rows: the worker must fold every record, its launches must
+  be a fold's on the lanes path times its folds, with no plain version,
+  no new capture and no retrace; its pre-roll tables must equal bit for
+  bit those of the same exporter on the CPU fed the worker's evictions in
+  their arrival order (`_EvictionTap`), its recall@100 against the exact
+  totals of the rows it got must be at least 0.99, and its one report
+  (published at stop) must count every record. It prints records/s end
+  to end, from the first injection to the last fold. The Kafka consumer
+  (`kafka/consumer.py`) has no broker here and is held on the CPU only
+  (`tests/test_torch_kafka.py`). `two_tier` joins the `kernels` line's
+  `launches_by_path` with the worker's launches, and `two_tier_agents`
+  with (a)'s agents';
 - the archive and checkpoint planes (`archive`): an `archive.SketchArchive`
   at the default geometry (ARC_RAW raw windows a level, groups of
   ARC_GROUP, ARC_LEVELS levels, a ladder to ARC_LADDER), its merge ladder
@@ -6041,6 +6080,391 @@ def phase_flp_pca(specs) -> dict:
     return res
 
 
+#: `two_tier` (module docstring): the EXPORT=grpc agents of part (b), the
+#: records each sends (rows of the integer stream), the rows of each of
+#: its injected evictions, and how long part (b) may wait for the worker
+TT_AGENTS = 2
+TT_RECORDS = 20_000
+TT_EVICT = 5_000
+TT_WAIT_S = 180.0
+#: the DATAPATH=grpc worker's map-tracer tick (`CACHE_ACTIVE_TIMEOUT`)
+TT_TICK = "200ms"
+
+
+def _reports_differ(got, want, gamma: float, path: str = "report") -> list:
+    """The paths where two rendered reports differ: keys and strings and
+    integers equal, floats to 1e-5 relative, a quantile to one histogram
+    bucket (a factor `gamma`), the publish time left out."""
+    import math
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [path]
+        out = []
+        for k in want:
+            if k == "TimestampMs":
+                continue
+            if k.endswith("QuantilesUs"):
+                for q, w in want[k].items():
+                    g = got[k][q]
+                    if not (g == w or (g > 0 and w > 0 and abs(math.log(
+                            g / w)) <= math.log(gamma) * (1 + 1e-6))):
+                        out.append(f"{path}.{k}.{q}")
+                continue
+            out += _reports_differ(got[k], want[k], gamma, f"{path}.{k}")
+        return out
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [path]
+        return [p for i, (g, w) in enumerate(zip(got, want))
+                for p in _reports_differ(g, w, gamma, f"{path}[{i}]")]
+    if isinstance(want, float) and isinstance(got, (int, float)):
+        return [] if math.isclose(got, want, rel_tol=1e-5,
+                                  abs_tol=1e-9) else [path]
+    return [] if got == want else [path]
+
+
+def _tt_aggregator(specs, events, tmp: str, device: str) -> dict:
+    """`two_tier` (a): the FEDERATION_MODE=aggregator child."""
+    import os
+    import re
+    import urllib.request
+
+    import torch
+    from netobserv_tpu_torch import config as tconfig
+    from netobserv_tpu_torch.federation.aggregator import (
+        FederationAggregator,
+    )
+    from netobserv_tpu_torch.ops import quantile as tq
+    from netobserv_tpu_torch.sketch import state as sk
+    fport, qport, mport = _free_port(), _free_port(), _free_port()
+    env = {"FEDERATION_MODE": "aggregator",
+           "FEDERATION_LISTEN_PORT": str(fport),
+           "FEDERATION_QUERY_PORT": str(qport), "FEDERATION_WINDOW": "1h",
+           "METRICS_ENABLE": "true", "METRICS_SERVER_ADDRESS": "127.0.0.1",
+           "METRICS_SERVER_PORT": str(mport),
+           **({"SKETCH_DEVICES": "cpu"} if device == "cpu" else {})}
+    base = f"http://127.0.0.1:{mport}"
+    res = {}
+    quarters = _agent_quarters_of(_integer_stream(events))
+    proc, fo, fe = _agent_child(os.path.dirname(os.path.abspath(__file__)),
+                                env, tmp, "aggregator")
+    agents = []
+    try:
+        res["start_to_started_s"] = _wait_started(proc, base)
+        sinks = [WindowSink() for _ in range(FED_AGENTS)]
+        agents = _exp_agents(f"127.0.0.1:{fport}", device, sinks)
+        wired = []
+        for exp in agents:
+            exp._delta_sink = _TimedSink(exp._delta_sink)
+            wired.append(exp._delta_sink)
+        for s in specs:
+            s["kernel"].launches = 0
+        plains: dict = {}
+        with counting_plains(specs, plains):
+            records = _exp_windows(agents, _NoAggregator(), quarters)
+            if device != "cpu":
+                torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        folds = sum(e.folds for e in agents)
+        check(launches == _want_launches(specs, "lanes", folds),
+              f"two_tier (a): agents' launches {launches}, want "
+              f"{_want_launches(specs, 'lanes', folds)}")
+        check(not plains, f"two_tier (a): plain versions ran {plains}")
+        check(all(w.results == [True] * WINDOWS for w in wired),
+              f"two_tier (a): pushes {[w.results for w in wired]}")
+        code, status = _http_json(f"http://127.0.0.1:{qport}"
+                                  "/federation/status")
+        want_ids = {f"agent-{a}" for a in range(FED_AGENTS)}
+        check(code == 200 and set(status["agents"]) == want_ids,
+              f"two_tier (a): /federation/status {code} lists "
+              f"{sorted(status.get('agents', {}))}")
+        code, health = _http_json(base + "/healthz")
+        check(code == 200 and health["status"] == "Started",
+              f"two_tier (a): /healthz {code} {health}")
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+            text = r.read().decode()
+        name = "ebpf_agent_federation_merge_seconds"
+        count = _metric(text, name + "_count")
+        check(count == FED_AGENTS * WINDOWS,
+              f"two_tier (a): {count} frames merged, want "
+              f"{FED_AGENTS * WINDOWS}")
+        buckets = [(float(le), float(v)) for le, v in re.findall(
+            rf'^{name}_bucket{{le="([^"]+)"}} (\S+)$', text, re.M)]
+        # the median's histogram bucket: the first whose count covers half
+        res["ingest_frame_ms_p50_bucket"] = min(
+            le for le, v in buckets if v >= count / 2) * 1e3
+        res["ingest_frame_ms_mean"] = (_metric(text, name + "_sum")
+                                      / count * 1e3)
+        push_s = [s for w in wired for s in w.seconds]
+        res.update(records=records, folds=folds, agent_launches=launches,
+                   frames=len(push_s),
+                   frames_per_s=len(push_s) / sum(push_s),
+                   push_ms_p50=_pct(push_s, 50) * 1e3,
+                   push_ms_max=max(push_s) * 1e3)
+        # each agent's close publishes its empty last window: one frame more
+        for exp in agents:
+            exp.close()
+        agents = []
+        check(all(w.results == [True] * (WINDOWS + 1) for w in wired),
+              f"two_tier (a): pushes at close {[w.results for w in wired]}")
+        res["sigterm_to_exit_s"] = _sigterm(proc)
+    finally:
+        for exp in agents:
+            exp.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
+    with open(fe.name, "rb") as fh:
+        err = fh.read().decode(errors="replace")
+    check(proc.returncode == 0, f"two_tier (a): the aggregator exited "
+          f"{proc.returncode}: {err[-1500:]!r}")
+    published = _read_reports(fo.name)
+    check(len(published) == 1,
+          f"two_tier (a): {len(published)} reports published, want the one "
+          f"window SIGTERM closes: {err[-1500:]!r}")
+    # the CPU replay: the same settings, the tapped frames in push order
+    frames = [t.frames[w] for w in range(WINDOWS + 1) for t in wired]
+    want = []
+    cfg = tconfig.load_config({**env, "SKETCH_DEVICES": "cpu"})
+    cpu = FederationAggregator.from_config(cfg, sink=want.append)
+    try:
+        for f in frames:
+            ack = cpu.ingest_frame(f)
+            check(ack.accepted == 1 and not ack.duplicate,
+                  f"two_tier (a): CPU replay ack {ack}")
+        cpu.flush()
+    finally:
+        cpu.close()
+    got, ref = published[0], json.loads(json.dumps(want[0]))
+    gamma = tq.gamma_for(sk.SketchConfig.from_agent_config(cfg).hist_buckets)
+    diff = _reports_differ(got, ref, gamma)
+    check(not diff, f"two_tier (a): the child's report differs from the CPU "
+          f"replay at {diff[:8]}")
+    check(got["Agents"] == sorted(want_ids) and got["Records"] == records,
+          f"two_tier (a): report agents {got['Agents']}, records "
+          f"{got['Records']} of {records}")
+    res["report_equals_cpu_replay"] = True
+    print(f"two_tier (a): aggregator child Started in "
+          f"{res['start_to_started_s']:.2f} s; {res['frames']} frames at "
+          f"{res['frames_per_s']:.1f} frames/s (push p50 "
+          f"{res['push_ms_p50']:.2f} ms); ingest_frame mean "
+          f"{res['ingest_frame_ms_mean']:.2f} ms, p50 within the "
+          f"{res['ingest_frame_ms_p50_bucket']:g} ms bucket; SIGTERM to "
+          f"exit {res['sigterm_to_exit_s']:.2f} s", flush=True)
+    return res
+
+
+class _NoAggregator:
+    """`_exp_windows`'s aggregator where the agents push over the wire:
+    the cluster window closes in the aggregator process."""
+
+    def flush(self) -> None:
+        pass
+
+
+class _EvictionTap:
+    """The worker exporter's `export_evicted`: each eviction's rows kept,
+    in arrival order, once its call has returned."""
+
+    def __init__(self, exp):
+        self.evictions: list = []
+        self.rows = 0
+        self._export = exp.export_evicted
+        exp.export_evicted = self
+
+    def __call__(self, evicted):
+        kept = (evicted.events.copy(),
+                {k: getattr(evicted, k).copy() for k in ("extra", "dns")
+                 if getattr(evicted, k) is not None})
+        self._export(evicted)
+        self.evictions.append(kept)
+        self.rows += len(kept[0])
+
+
+def _tt_worker_cfg(port: int, cpu: bool):
+    from netobserv_tpu_torch import config as tconfig
+    return tconfig.load_config({
+        "EXPORT": "tpu-sketch", "DATAPATH": f"grpc:{port}",
+        "SKETCH_BATCH_SIZE": str(BATCH), "SKETCH_WINDOW": "1h",
+        "SKETCH_PACK_THREADS": "8", "SKETCH_SUPERBATCH": "1,2,4",
+        "CACHE_ACTIVE_TIMEOUT": TT_TICK, "AGENT_IP": "127.0.0.1",
+        **({"SKETCH_DEVICES": "cpu"} if cpu else {})})
+
+
+def _tt_worker_tables(exp) -> dict:
+    with exp._lock, exp._on_device():
+        exp._drain_pending()
+        from netobserv_tpu_torch.sketch import state as sk
+        return sk.state_tables(exp.state)
+
+
+def _tt_recall(evictions, tables, k: int = 100) -> float:
+    """Recall@k of the worker's heavy table against the exact byte totals
+    of the rows it received."""
+    import numpy as np
+    from netobserv_tpu_torch.model.columnar import pack_key_words
+    ev = np.concatenate([e for e, _ in evictions])
+    words = pack_key_words(ev["key"])
+    uniq, inv = np.unique(words, axis=0, return_inverse=True)
+    totals = np.bincount(inv.ravel(), weights=ev["stats"]["bytes"].astype(
+        np.float64), minlength=len(uniq))
+    top = np.argsort(-totals, kind="stable")[:k]
+    got = {tuple(w) for w, v in zip(np.asarray(tables["heavy_words"],
+                                               np.uint32),
+                                    np.asarray(tables["heavy_valid"])) if v}
+    return sum(tuple(uniq[t]) in got for t in top) / min(k, len(uniq))
+
+
+def _tt_worker(specs, events, device: str) -> dict:
+    """`two_tier` (b): EXPORT=grpc agents into a DATAPATH=grpc worker."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+    from netobserv_tpu_torch.agent.agent import FlowsAgent, build_fetcher
+    from netobserv_tpu_torch import config as tconfig
+    from netobserv_tpu_torch.datapath.fetcher import FakeFetcher
+    from netobserv_tpu_torch.datapath.grpc_ingest import GrpcIngestFetcher
+    from netobserv_tpu_torch.exporter import build_exporter
+    from netobserv_tpu_torch.exporter.torch_sketch import TorchSketchExporter
+    from netobserv_tpu_torch.utils import retrace
+    ev_all, lanes_all = _integer_stream(events)
+    n = TT_AGENTS * TT_RECORDS
+    check(len(ev_all) >= n, f"two_tier (b): a stream of {len(ev_all)} rows")
+    reports: list = []
+    port = _free_port()
+    cfg = _tt_worker_cfg(port, cpu=device == "cpu")
+    os.environ["DATAPATH"] = f"grpc:{port}"
+    try:
+        fetcher = build_fetcher(cfg)
+    finally:
+        del os.environ["DATAPATH"]
+    check(isinstance(fetcher, GrpcIngestFetcher) and fetcher.port == port,
+          f"two_tier (b): DATAPATH=grpc built {type(fetcher).__name__}")
+    res = {}
+    worker = agents = None
+    try:
+        exp = TorchSketchExporter.from_config(cfg, sink=reports.append)
+        with exp._lock:
+            exp._ensure_ring()  # every capture before a fold
+        worker = FlowsAgent(cfg, fetcher, exp)
+        tap = _EvictionTap(exp)
+        captures0 = [c.captures for c in exp.captures]
+        retraces0 = retrace.total_retraces()
+        stop_w = threading.Event()
+        tw = threading.Thread(target=worker.run, args=(stop_w,),
+                              daemon=True)
+        tw.start()
+        agents = []
+        for _ in range(TT_AGENTS):
+            acfg = tconfig.load_config({
+                "EXPORT": "grpc", "TARGET_HOST": "127.0.0.1",
+                "TARGET_PORT": str(port), "CACHE_ACTIVE_TIMEOUT": TT_TICK,
+                "AGENT_IP": "127.0.0.1"})
+            fake = FakeFetcher()
+            agent = FlowsAgent(acfg, fake, build_exporter(acfg))
+            stop = threading.Event()
+            t = threading.Thread(target=agent.run, args=(stop,),
+                                 daemon=True)
+            agents.append((agent, fake, stop, t))
+        for s in specs:
+            s["kernel"].launches = 0
+        plains: dict = {}
+        with counting_plains(specs, plains):
+            t0 = time.perf_counter()
+            for _, _, _, t in agents:
+                t.start()
+            for a, (_, fake, _, _) in enumerate(agents):
+                for lo in range(a * TT_RECORDS, (a + 1) * TT_RECORDS,
+                                TT_EVICT):
+                    hi = min(lo + TT_EVICT, (a + 1) * TT_RECORDS)
+                    fake.inject_events(ev_all[lo:hi], **{
+                        k: v[lo:hi] for k, v in lanes_all.items()})
+            while tap.rows < n and time.perf_counter() - t0 < TT_WAIT_S:
+                time.sleep(0.01)
+            wall = time.perf_counter() - t0
+            check(tap.rows == n, f"two_tier (b): the worker folded "
+                  f"{tap.rows} of {n} records in {wall:.1f} s")
+            tables = _tt_worker_tables(exp)
+            if device != "cpu":
+                torch.cuda.synchronize()
+        launches = {s["name"]: s["kernel"].launches for s in specs}
+        check(launches == _want_launches(specs, "lanes", exp.folds),
+              f"two_tier (b): worker launches {launches}, want "
+              f"{_want_launches(specs, 'lanes', exp.folds)}")
+        check(not plains, f"two_tier (b): plain versions ran {plains}")
+        check([c.captures for c in exp.captures] == captures0
+              and retrace.total_retraces() == retraces0,
+              f"two_tier (b): captures {[c.captures for c in exp.captures]}"
+              f" (was {captures0}), retraces "
+              f"{retrace.total_retraces() - retraces0}")
+        res.update(records=n, evictions=len(tap.evictions), folds=exp.folds,
+                   launches=launches, seconds_end_to_end=wall,
+                   records_per_s=n / wall)
+        for agent, _, stop, t in agents:
+            stop.set()
+            t.join(timeout=15)
+            check(not t.is_alive(), "two_tier (b): an agent outlived stop")
+        stop_w.set()
+        tw.join(timeout=30)
+        check(not tw.is_alive(), "two_tier (b): the worker outlived stop")
+    finally:
+        if worker is None:
+            fetcher.close()
+        for agent, _, stop, t in agents or []:
+            stop.set()
+        if worker is not None:
+            stop_w.set()
+    # the CPU replay of the same evictions in the worker's arrival order
+    cpu = TorchSketchExporter.from_config(_tt_worker_cfg(port, cpu=True),
+                                          sink=lambda r: None)
+    try:
+        from netobserv_tpu_torch.datapath.fetcher import EvictedFlows
+        for rows, feats in tap.evictions:
+            cpu.export_evicted(EvictedFlows(rows, **feats))
+        want = _tt_worker_tables(cpu)
+        check(cpu.folds == res["folds"],
+              f"two_tier (b): CPU replay folds {cpu.folds}, card "
+              f"{res['folds']}")
+    finally:
+        cpu.close()
+    diff = [k for k in want if not (tables[k].dtype == want[k].dtype
+                                    and np.array_equal(tables[k], want[k]))]
+    check(tables.keys() == want.keys() and not diff,
+          f"two_tier (b): the worker's tables {diff} differ from the CPU "
+          "replay's")
+    res["recall_at_100"] = _tt_recall(tap.evictions, tables)
+    check(res["recall_at_100"] >= 0.99,
+          f"two_tier (b): recall@100 {res['recall_at_100']}")
+    check(len(reports) == 1 and reports[0]["Records"] == n,
+          f"two_tier (b): reports {[r['Records'] for r in reports]}")
+    res["tables_bit_equal_cpu"] = len(want)
+    print(f"two_tier (b): {TT_AGENTS} EXPORT=grpc agents x {TT_RECORDS} "
+          f"records into a DATAPATH=grpc worker: {res['records_per_s']:.0f} "
+          f"records/s end to end over {res['evictions']} evictions and "
+          f"{res['folds']} folds; tables equal the CPU replay's bit for "
+          f"bit; recall@100 {res['recall_at_100']:.3f}", flush=True)
+    return res
+
+
+def phase_two_tier(specs, events, device: str = "cuda") -> dict:
+    """The aggregator process and the two-tier deployment (module
+    docstring, `two_tier`); the Kafka consumer is held on the CPU only.
+    `device` "cpu" rehearses it without a card."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        agg = _tt_aggregator(specs, events, tmp, device)
+    worker = _tt_worker(specs, events, device)
+    return {"phase": "two_tier", "seconds": time.perf_counter() - t0,
+            "aggregator": agg, "launches": worker.pop("launches"),
+            "agent_launches": agg.pop("agent_launches"), "worker": worker}
+
+
+
 def phase_archive(specs, universe, pool, events) -> dict:
     """The archive and checkpoint planes on the card (module docstring's
     `archive`): the merge ladder captured first, then one lanes-path agent
@@ -10181,6 +10605,9 @@ def main() -> int:
         phase = "flp_pca"
         flp_res = phase_flp_pca(specs)
         emit(flp_res)
+        phase = "two_tier"
+        tt_res = phase_two_tier(specs, events)
+        emit(tt_res)
         phase = "archive"
         arc_res = phase_archive(specs, universe, pool, events)
         emit(arc_res)
@@ -10245,6 +10672,8 @@ def main() -> int:
                 "federation": fed_res["launches"],
                 "exporters": ex_res["launches"],
                 "flp_pca": flp_res["launches"],
+                "two_tier": tt_res["launches"],
+                "two_tier_agents": tt_res["agent_launches"],
                 "archive": arc_res["launches"],
                 "overload": ov_res["launches"],
                 "agent_entry": ae_res["launches"],

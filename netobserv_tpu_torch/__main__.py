@@ -20,15 +20,22 @@ replays a pcap file's frames (`datapath/replay.PcapPacketFetcher`) and
 anything else takes `datapath/loader.load_packet_fetcher`. It keeps no
 metrics, so no metrics server starts for it, as in the reference.
 
+FEDERATION_MODE=aggregator runs the aggregator tier instead
+(`federation/service.FederationAggregatorService`,
+`netobserv_tpu/__main__.py:36-42`): the Federation gRPC collector on
+FEDERATION_LISTEN_PORT, the device merge and cluster window, and the
+query surface on FEDERATION_QUERY_PORT; no datapath and no flow
+pipeline. Its metrics server serves its health and no `/query/*`
+routes, since it has none. DATAPATH=grpc:<port> makes a flow agent the
+collector-tier worker (`agent.build_fetcher`).
+
 A `ValueError` or `RuntimeError` while the agent is built exits 2 with
-the message on the log: among them ENABLE_PCA without its target, the
-modes the port has not ported, naming their ROADMAP item
-(FEDERATION_MODE=aggregator here and DATAPATH=grpc: in
-`agent.build_fetcher`, both A8.9), and DATAPATH=kernel on a host that is
-not root; DATAPATH=kernel where bpf(2) fails raises its `OSError`, as
-the reference's does. The sketch exporter folds on the card;
-SKETCH_DEVICES=cpu runs it on the CPU, and without CUDA the agent
-refuses to start unless asked so. The record exporters (EXPORT=grpc, the
+the message on the log: among them ENABLE_PCA without its target and
+DATAPATH=kernel on a host that is not root; DATAPATH=kernel where bpf(2)
+fails raises its `OSError`, as the reference's does. The sketch exporter
+and the aggregator fold on the card; SKETCH_DEVICES=cpu runs them on the
+CPU, and without CUDA they refuse to start unless asked so. The record
+exporters (EXPORT=grpc, the
 DaemonSet's and the default, stdout, ipfix+udp, ipfix+tcp, kafka and
 direct-flp, the embedded flowlogs-pipeline) and the packets agent need
 no card.
@@ -83,10 +90,11 @@ def main() -> int:
 
     try:
         if cfg.federation_mode == "aggregator":
-            raise ValueError(
-                "FEDERATION_MODE=aggregator: the aggregator's gRPC service "
-                "is not ported (ROADMAP A8.9)")
-        if cfg.enable_pca:
+            from netobserv_tpu_torch.federation.service import (
+                FederationAggregatorService,
+            )
+            agent = FederationAggregatorService(cfg)
+        elif cfg.enable_pca:
             agent = _packets_agent(cfg)
         else:
             from netobserv_tpu_torch.agent import FlowsAgent
@@ -105,8 +113,8 @@ def main() -> int:
             metrics.registry, cfg.metrics_server_address,
             cfg.metrics_server_port, cfg.metrics_tls_cert_path,
             cfg.metrics_tls_key_path,
-            health_source=agent.health_snapshot,
-            query_routes=agent.query_routes)
+            health_source=getattr(agent, "health_snapshot", None),
+            query_routes=getattr(agent, "query_routes", None))
 
     stop = threading.Event()
 

@@ -36,7 +36,9 @@ datapath; otherwise (unset, `auto`, `kernel`) `datapath/loader.KernelFetcher`
 (the clang-built object through libbpf, else the hand-assembled
 datapath), then `MinimalKernelFetcher`, then synthetic replay with a
 warning, except that DATAPATH=kernel raises the last rung's error.
-DATAPATH=grpc:<port> raises `ValueError` naming ROADMAP A8.9.
+DATAPATH=grpc:<port> serves the pbflow collector on that port
+(`datapath/grpc_ingest.GrpcIngestFetcher`): the collector-tier worker
+that per-node EXPORT=grpc agents feed.
 """
 
 from __future__ import annotations
@@ -292,9 +294,11 @@ class FlowsAgent:
         agent_ip = resolve_agent_ip(cfg)
         metrics = Metrics(MetricsSettings(
             prefix=cfg.metrics_prefix, level=cfg.metrics_level))
-        # the fetcher first: an unported DATAPATH raises before the
-        # exporter builds its kernels and captures its graphs; a kernel
-        # fetcher's maps and pins are released if the exporter fails
+        # the fetcher first: a DATAPATH that cannot start raises before
+        # the exporter builds its kernels and captures its graphs (the
+        # gRPC ingest's server threads only parse and queue, no CUDA
+        # call); a fetcher's maps, pins or server are released if the
+        # exporter fails
         fetcher = build_fetcher(cfg)
         try:
             exporter = build_exporter(cfg, metrics=metrics)
@@ -374,11 +378,11 @@ def build_fetcher(cfg: AgentConfig) -> FlowFetcher:
     """Datapath selection: kernel loader when available, replay otherwise
     (`netobserv_tpu/agent/agent.py:333-375`).
 
-    DATAPATH ("kernel" | "synthetic" | "pcap:<path>") overrides; the
-    default tries the kernel loader (bpfman mode when
+    DATAPATH ("kernel" | "synthetic" | "pcap:<path>" | "grpc:<port>")
+    overrides; the default tries the kernel loader (bpfman mode when
     EBPF_PROGRAM_MANAGER_MODE is set) and falls back to synthetic replay
-    with a warning. "grpc:<port>", the collector tier's ingest, is not
-    ported (ROADMAP A8.9) and raises.
+    with a warning. "grpc:<port>" is the collector tier's ingest: a
+    `GrpcIngestFetcher` serving the pbflow collector on that port.
     """
     mode = os.environ.get("DATAPATH", "auto")
     # an explicit DATAPATH replay request overrides everything (debug/replay)
@@ -389,8 +393,8 @@ def build_fetcher(cfg: AgentConfig) -> FlowFetcher:
         from netobserv_tpu_torch.datapath.replay import SyntheticFetcher
         return SyntheticFetcher()
     if mode.startswith("grpc:"):
-        raise ValueError(f"DATAPATH={mode!r}: the gRPC ingest is not "
-                         "ported (ROADMAP A8.9)")
+        from netobserv_tpu_torch.datapath.grpc_ingest import GrpcIngestFetcher
+        return GrpcIngestFetcher(int(mode[5:]))
     if cfg.ebpf_program_manager_mode:
         from netobserv_tpu_torch.datapath.loader import BpfmanFetcher
         return BpfmanFetcher.load(cfg)

@@ -8,11 +8,12 @@ packages. `AgentConfig.validate` runs the reference's checks (the
 alert-rule check, `:726-734`, through the port's `alerts/rules` and
 `alerts/sinks`); every setting of the flow agent, of EXPORT=direct-flp
 (FLP_CONFIG, FLP_KUBE_MAP, FLP_LOCATION_DB) and of the packets agent
-(ENABLE_PCA, PCA_SERVER_PORT) is ported, and the modes the port lacks
-(FEDERATION_MODE=aggregator, DATAPATH=grpc:) are refused where they are
-read (`__main__.py`, `agent.build_fetcher`), naming their ROADMAP item
-(A8.9). The agents (`agent/agent.py`, `agent/packets_agent.py`),
-`exporter.build_exporter` and `TorchSketchExporter.from_config` read it.
+(ENABLE_PCA, PCA_SERVER_PORT) and of the two collector-tier processes
+(FEDERATION_MODE=aggregator, read by `__main__.py`; DATAPATH=grpc:<port>,
+read by `agent.build_fetcher`) is ported. The agents (`agent/agent.py`,
+`agent/packets_agent.py`), the aggregator process
+(`federation/service.py`), `exporter.build_exporter` and
+`TorchSketchExporter.from_config` read it.
 
 The `DEFAULT_*` thresholds are copies of the reference's: the window
 report renderer (`exporter/report.py`) reads them as its defaults.

@@ -8,6 +8,15 @@ the columnar path) to `export_evicted`. Fault points: `exporter.loop`
 `exporter.export` (inside the export's containment: swallowed and
 counted like an exporter error). `stop` drains the queue, then closes the
 exporter, which publishes its last window.
+
+No two calls into one exporter (`export_batch`, `export_evicted`,
+`close`) ever run at once: each runs under the `QueueExporter`'s call
+lock, so `stop`'s drain and close wait for a batch the loop thread still
+has in flight. The reference (`netobserv_tpu/exporter/base.py:59-64`)
+drains and closes on the stopping thread once its 2 s join returns,
+whether or not the loop thread is still exporting, and a direct-FLP
+batch then ran beside the drain's, tearing its output lines and its
+conntrack state (ROADMAP C16).
 """
 
 from __future__ import annotations
@@ -45,7 +54,21 @@ class Exporter:
 
 
 class QueueExporter:
-    """Runs an Exporter as the pipeline's terminal node."""
+    """Runs an Exporter as the pipeline's terminal node.
+
+    `stop()` waits up to 2 s for the loop thread to end, then up to
+    `stop_wait_s` (30 s) more for the call it has in flight. Only a
+    wedged exporter reaches that bound: every exporter bounds its own
+    calls (the gRPC deadline and Kafka's socket timeout are 10 s, the
+    sketch exporter's slot budget and close wait are bounded too). Past
+    it, `stop` logs an error and returns without the drain and the close,
+    leaving the queued batches undelivered, since running them beside the
+    call in flight would interleave the two. So a wedged exporter delays
+    shutdown by at most 32 s, and a healthy one by the remainder of one
+    batch."""
+
+    #: seconds `stop` waits for the call in flight after its join
+    stop_wait_s = 30.0
 
     def __init__(self, exporter: Exporter,
                  inp: "queue.Queue[list[Record]]", metrics=None):
@@ -54,6 +77,8 @@ class QueueExporter:
         self._metrics = metrics
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        #: held across every call into the exporter (module docstring)
+        self._calls = threading.Lock()
         #: supervision hook: beats once per poll (agent/supervisor.py)
         self.heartbeat = lambda: None
 
@@ -67,13 +92,22 @@ class QueueExporter:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=2.0)
-        self._drain()
-        self._exporter.close()
+        if not self._calls.acquire(timeout=self.stop_wait_s):
+            log.error("%s export still running %.0f s after stop; its "
+                      "queued batches are not drained and it is not "
+                      "closed", self._exporter.name, self.stop_wait_s)
+            return
+        try:
+            self._drain()
+            self._exporter.close()
+        finally:
+            self._calls.release()
 
     def _drain(self) -> None:
+        """The queue's rest, exported by the caller, who holds `_calls`."""
         while True:
             try:
-                self._export(self._in.get_nowait())
+                self._export_locked(self._in.get_nowait())
             except queue.Empty:
                 return
 
@@ -91,6 +125,10 @@ class QueueExporter:
             self._export(batch)
 
     def _export(self, batch) -> None:
+        with self._calls:
+            self._export_locked(batch)
+
+    def _export_locked(self, batch) -> None:
         try:
             # inside the try: an armed "exporter.export" behaves exactly
             # like a throwing exporter — swallowed and counted, never fatal

@@ -49,6 +49,12 @@ Supported stage subset (the shapes the reference's smoke-test configs use):
 
 Not embedded: the OTLP encode family and FLP ingest stages (meaningless
 in direct mode: the agent IS the ingest).
+
+`_emit` writes a batch's stdout lines, each whole, and flushes under the
+exporter's own lock, so no caller on another thread (a `close()` from
+the stopping thread, say) tears a line or interleaves two batches;
+`exporter/base.QueueExporter` keeps the calls themselves apart (ROADMAP
+C16).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from __future__ import annotations
 import json
 import logging
 import sys
+import threading
 import time as _time
 from typing import Callable, Optional
 
@@ -992,6 +999,8 @@ class DirectFLPExporter(Exporter):
         from netobserv_tpu_torch.metrics.registry import new_registry
 
         self._stream = stream if stream is not None else sys.stdout
+        #: one batch's lines are written whole under it (module docstring)
+        self._emit_lock = threading.Lock()
         self._stages: list[Stage] = []
         # encode/prom metrics land here; the agent passes its own registry so
         # they surface on the existing /metrics server
@@ -1090,9 +1099,11 @@ class DirectFLPExporter(Exporter):
         if self._writer is not None:
             self._writer.push(out)
             return
-        for entry in out:
-            self._stream.write(json.dumps(entry, separators=(",", ":")) + "\n")
-        self._stream.flush()
+        with self._emit_lock:
+            for entry in out:
+                self._stream.write(
+                    json.dumps(entry, separators=(",", ":")) + "\n")
+            self._stream.flush()
 
     def close(self) -> None:
         """Drain stateful stages: live connections emit endConnection

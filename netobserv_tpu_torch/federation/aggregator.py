@@ -278,7 +278,8 @@ class FederationAggregator:
         FEDERATION_CHECKPOINT_* settings, ALERT_RULES, ARCHIVE_DIR and the
         report sink (`sink` overrides it). SKETCH_DEVICES=cpu runs on the
         CPU, repeated for a mesh; "" on the cards. The process around it
-        (gRPC, supervision) is ROADMAP A8."""
+        (the gRPC collector, the query server, supervision) is
+        `federation/service.FederationAggregatorService`."""
         from netobserv_tpu_torch.alerts.engine import maybe_engine
         from netobserv_tpu_torch.archive import maybe_archive
         from netobserv_tpu_torch.exporter.report import make_report_sink

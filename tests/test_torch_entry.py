@@ -11,12 +11,14 @@ netobserv_tpu_torch/__main__.py; agent/agent.py `FlowsAgent.from_config`,
   to the pcap's packets.
 - An EXPORT outside the reference's list exits 2, and EXPORT=direct-flp
   (ported since) runs its embedded pipeline and exits 0 on SIGTERM (child
-  processes); DATAPATH=grpc: and FEDERATION_MODE=aggregator exit 2 from
-  `main()` in process, each naming its ROADMAP item, and ENABLE_PCA
-  without a target with the reference's message. With both kernel rungs forced to
-  fail, DATAPATH=kernel exits 2 with the last rung's error, and no
-  DATAPATH falls back to synthetic replay with the reference's warning:
-  `main()` starts, and exits 0 on SIGTERM.
+  processes); ENABLE_PCA without a target exits 2 from `main()` in
+  process with the reference's message. DATAPATH=grpc:0 (ported since)
+  starts a collector-tier worker on a `GrpcIngestFetcher`, and
+  FEDERATION_MODE=aggregator (ported since) starts the aggregator
+  process with METRICS_ENABLE; each exits 0 on SIGTERM. With both kernel
+  rungs forced to fail, DATAPATH=kernel exits 2 with the last rung's
+  error, and no DATAPATH falls back to synthetic replay with the
+  reference's warning: `main()` starts, and exits 0 on SIGTERM.
 - In process, both packages' `FlowsAgent.from_config` over the same pcap
   (one replay fetcher each, one clock) are driven eviction by eviction
   through their map tracer, limiter and terminal, rolled after the same
@@ -261,12 +263,13 @@ def _forced_rungs(monkeypatch):
 
 
 def _main_until_started(monkeypatch) -> tuple[int, object]:
-    """`main()` in this process, SIGTERM sent to it once its agent is
-    Started; the exit code and the agent. The signal handlers it installs
-    are put back."""
+    """`main()` in this process, SIGTERM sent to it once its agent (a
+    `FlowsAgent` or the aggregator process) is Started; the exit code and
+    the agent. The signal handlers it installs are put back."""
     import threading
 
     from netobserv_tpu_torch.agent import agent as tagent
+    from netobserv_tpu_torch.federation import service as tservice
 
     made = []
     real = tagent.FlowsAgent.from_config.__func__
@@ -278,10 +281,17 @@ def _main_until_started(monkeypatch) -> tuple[int, object]:
     monkeypatch.setattr(tagent.FlowsAgent, "from_config",
                         classmethod(from_config))
 
+    class Service(tservice.FederationAggregatorService):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(tservice, "FederationAggregatorService", Service)
+
     def terminate_once_started():
         deadline = time.monotonic() + 60
         while time.monotonic() < deadline:
-            if made and made[0].status == tagent.Status.STARTED:
+            if made and made[0].health_snapshot()["status"] == "Started":
                 os.kill(os.getpid(), signal.SIGTERM)
                 return
             time.sleep(0.02)
@@ -302,8 +312,11 @@ def _main_until_started(monkeypatch) -> tuple[int, object]:
 @pytest.mark.parametrize("env,item", [
     ({"DATAPATH": None}, "start"),
     ({"DATAPATH": "kernel"}, "MinimalKernelFetcher refused"),
-    ({"DATAPATH": "grpc:9000"}, "A8"),
-    ({"FEDERATION_MODE": "aggregator"}, "aggregator.*A8"),
+    ({"DATAPATH": "grpc:0"}, "worker"),
+    ({"FEDERATION_MODE": "aggregator", "FEDERATION_LISTEN_PORT": "0",
+      "FEDERATION_QUERY_PORT": "0", "METRICS_ENABLE": "true",
+      "METRICS_SERVER_ADDRESS": "127.0.0.1", "METRICS_SERVER_PORT": "0"},
+     "aggregator"),
     ({"ENABLE_PCA": "true", "TARGET_HOST": None, "TARGET_PORT": None,
       "PCA_SERVER_PORT": None},
      r"ENABLE_PCA: TARGET_HOST and TARGET_PORT \(or PCA_SERVER_PORT\) "
@@ -314,9 +327,13 @@ def _main_until_started(monkeypatch) -> tuple[int, object]:
          "tenants"])
 def test_main_exits_2_for_unported_settings(env, item, monkeypatch, caplog,
                                             tmp_path):
-    """Each setting the port lacks exits 2 naming its ROADMAP item;
-    ENABLE_PCA (ported since) without TARGET_HOST and TARGET_PORT exits 2
-    with the reference's message. With
+    """ENABLE_PCA (ported since) without TARGET_HOST and TARGET_PORT
+    exits 2 with the reference's message. DATAPATH=grpc:0 and
+    FEDERATION_MODE=aggregator (exits 2 naming ROADMAP A8.9 before they
+    were ported) start: a worker whose fetcher is a `GrpcIngestFetcher`
+    on a bound port, and the aggregator process with its collector, query
+    and metrics servers (METRICS_ENABLE, which needs no `query_routes`);
+    each exits 0 on SIGTERM, Stopped. With
     the kernel rungs forced to fail, DATAPATH=kernel exits 2 with the last
     rung's error, and no DATAPATH falls back to synthetic replay, as the
     reference's ladder does: it starts and exits 0 on SIGTERM, as does
@@ -342,6 +359,19 @@ def test_main_exits_2_for_unported_settings(env, item, monkeypatch, caplog,
             monkeypatch.delenv(k, raising=False)
         else:
             monkeypatch.setenv(k, v)
+    if item in ("worker", "aggregator"):
+        rc, agent = _main_until_started(monkeypatch)
+        assert rc == 0
+        assert agent.health_snapshot()["status"] == "Stopped"
+        if item == "worker":
+            from netobserv_tpu_torch.datapath.grpc_ingest import (
+                GrpcIngestFetcher,
+            )
+            assert isinstance(agent.fetcher, GrpcIngestFetcher)
+            assert agent.fetcher.port > 0
+        else:
+            assert agent.grpc_port > 0 and agent.query_port > 0
+        return
     if item == "start":
         from netobserv_tpu_torch.datapath.replay import SyntheticFetcher
 

@@ -10,6 +10,16 @@ CPU.
   the same report through the in-process fake broker of
   tests/test_kafka_broker.py, which receives equal messages, with and
   without acks, gzip and SASL PLAIN.
+- The consumer (`kafka/consumer.py`), the twins of
+  tests/test_kafka_broker.py:263-360: `decode_record_batches` on the same
+  blobs gives the reference's (key, value) pairs and next offset, or its
+  error, for good batches (uncompressed and gzip), a truncated tail, a
+  runt, a corrupt short batch alone and after a good one, a legacy-magic
+  set and an unsupported codec; `KafkaConsumer` reads back through
+  `FakeBroker` what the port's producer sent, as the reference's consumer
+  reads it, and nothing more on a second poll; and an EXPORT=kafka
+  pbflow round trip (the port's `KafkaExporter`, then each package's
+  consumer and pbflow parser) gives equal records.
 """
 
 import gzip
@@ -22,10 +32,12 @@ import pytest
 
 from netobserv_tpu import config as jcfg
 from netobserv_tpu.exporter.tpu_sketch import KafkaReportSink as JSink
+from netobserv_tpu.kafka import consumer as jcons
 from netobserv_tpu.kafka import producer as jprod
 from netobserv_tpu.kafka import wire as jwire
 from netobserv_tpu_torch import config as tcfg
 from netobserv_tpu_torch.exporter.report import KafkaReportSink
+from netobserv_tpu_torch.kafka import consumer as tcons
 from netobserv_tpu_torch.kafka import producer as tprod
 from netobserv_tpu_torch.kafka import wire as twire
 from tests.test_kafka_broker import FakeBroker
@@ -151,3 +163,127 @@ def test_report_sinks_send_the_same_messages(env, tmp_path):
     assert tokens[0] == tokens[1]
     if "KAFKA_ENABLE_SASL" in env:
         assert tokens[1] and set(tokens[1]) == {b"\x00agent\x00s3cret"}
+
+
+# ---------------------------------------------------------------- consumer
+
+_GOOD = [(b"k1", b"v1"), (None, b"v2"), (b"", b"x" * 1000)]
+
+
+def _blob(case: str) -> bytes:
+    """The blobs of tests/test_kafka_broker.py:263-322, by name."""
+    good = tprod._record_batch(_GOOD[:1])
+    if case in ("none", "gzip"):
+        return tprod._record_batch(_GOOD, compression=case)
+    if case == "truncated_tail":
+        two = tprod._record_batch(_GOOD[:1]) + tprod._record_batch(_GOOD[1:])
+        return two + two[:10]
+    if case == "runt":
+        runt = struct.pack(">q", 7) + struct.pack(">i", 2) + b"\x00\x00"
+        return good + runt + good
+    if case.startswith("corrupt"):
+        bad_len = int(case.split("_")[1])
+        corrupt = (struct.pack(">q", 7) + struct.pack(">i", bad_len)
+                   + b"\x00\x00\x00\x00\x02" + b"\x00" * (bad_len - 5))
+        return corrupt if case.endswith("alone") else good + corrupt
+    if case == "legacy":
+        return good + struct.pack(">q", 7) + struct.pack(">i", 17) \
+            + b"\x00\x00\x00\x00\x01" + b"\x00" * 12
+    if case == "snappy":
+        batch = bytearray(tprod._record_batch(_GOOD))
+        batch[21:23] = struct.pack(">h", 2)
+        return bytes(batch)
+    if case == "seeded":
+        return b"".join(tprod._record_batch(_messages(s, 1 + s * 7),
+                                            "gzip" if s % 2 else "none")
+                        for s in range(6))
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "none", "gzip", "truncated_tail", "runt", "corrupt_5", "corrupt_17",
+    "corrupt_48", "corrupt_5_alone", "corrupt_48_alone", "legacy", "snappy",
+    "seeded"])
+def test_record_batches_decode_as_the_reference(case):
+    blob = _blob(case)
+    if case == "snappy":
+        for mod in (tcons, jcons):
+            with pytest.raises(ValueError, match="codec 2"):
+                mod.decode_record_batches(blob)
+        return
+    got = tcons.decode_record_batches(blob)
+    assert got == jcons.decode_record_batches(blob)
+    if case in ("none", "gzip"):
+        assert got == (_GOOD, 3)
+    if case.endswith("alone"):
+        assert got == ([], None)
+    if case == "legacy":
+        assert got == (_GOOD[:1], 8)
+
+
+def _poll_all(consumer, want: int) -> list:
+    got = []
+    for _ in range(5):
+        got.extend(consumer.poll())
+        if len(got) >= want:
+            break
+    return got
+
+
+def test_consumer_reads_what_the_producer_sent():
+    broker = FakeBroker()
+    broker.start()
+    try:
+        brokers = [f"127.0.0.1:{broker.port}"]
+        producer = tprod.KafkaProducer(brokers=brokers, topic=broker.topic)
+        sent = [(f"k{i}".encode(), f"value-{i}".encode()) for i in range(20)]
+        producer.send_batch(sent[:12])
+        producer.send_batch(sent[12:])
+        producer.close()
+        ours = tcons.KafkaConsumer(brokers=brokers, topic=broker.topic)
+        ref = jcons.KafkaConsumer(brokers=brokers, topic=broker.topic)
+        got, want = _poll_all(ours, len(sent)), _poll_all(ref, len(sent))
+        assert sorted(got) == sorted(sent)
+        assert got == want
+        assert ours._offsets == ref._offsets
+        assert sum(ours._offsets.values()) == len(sent)
+        assert ours.poll() == [] == ref.poll()
+        ours.close()
+        ref.close()
+    finally:
+        broker.stop()
+
+
+def test_export_then_consume_pbflow_round_trip():
+    """EXPORT=kafka's pbflow messages come back through each package's
+    consumer and parser with the records intact."""
+    from netobserv_tpu.exporter import pb_convert as rconv
+    from netobserv_tpu.pb import flow_pb2
+    from netobserv_tpu_torch.exporter import pb_convert as pconv
+    from netobserv_tpu_torch.exporter.kafka import KafkaExporter
+    from netobserv_tpu_torch.pb import flow as pbflow
+    from tests.test_torch_pbflow import as_tuple, seeded_records
+
+    broker = FakeBroker()
+    broker.start()
+    try:
+        brokers = [f"127.0.0.1:{broker.port}"]
+        exp = KafkaExporter(tprod.KafkaProducer(brokers=brokers,
+                                                topic=broker.topic))
+        sent = seeded_records(41, 25)
+        exp.export_batch(sent)
+        exp.close()
+        ours = tcons.KafkaConsumer(brokers=brokers, topic=broker.topic)
+        ref = jcons.KafkaConsumer(brokers=brokers, topic=broker.topic)
+        got = [pconv.pb_to_record(pbflow.Record.FromString(v))
+               for _, v in _poll_all(ours, len(sent))]
+        want = [rconv.pb_to_record(flow_pb2.Record.FromString(v))
+                for _, v in _poll_all(ref, len(sent))]
+        ours.close()
+        ref.close()
+    finally:
+        broker.stop()
+    assert len(got) == len(want) == len(sent)
+    assert [as_tuple(r) for r in got] == [as_tuple(r) for r in want]
+    assert sorted(as_tuple(r) for r in got) == sorted(
+        as_tuple(pconv.pb_to_record(pconv.record_to_pb(r))) for r in sent)

@@ -67,7 +67,8 @@ SLICE_MODULES = ("model/binfmt.py", "datapath/flowpack.py",
                  "exporter/flp_map.py", "exporter/flp_enrich.py",
                  "exporter/direct_flp.py", "pb/packet.py", "grpc/packet.py",
                  "exporter/grpc_packets.py", "flow/perf_buffer.py",
-                 "agent/packets_agent.py")
+                 "agent/packets_agent.py", "datapath/grpc_ingest.py",
+                 "federation/service.py", "kafka/consumer.py")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -257,6 +258,32 @@ def test_the_agent_entry_refuses_to_run_on_the_cpu_unasked():
                EXPORT="tpu-sketch", DATAPATH="synthetic")
     proc = subprocess.run([sys.executable, "-m", "netobserv_tpu_torch"],
                           cwd=str(ROOT), env=env, capture_output=True,
+                          timeout=60)
+    assert proc.returncode == 2
+    assert b"torch.cuda.is_available() is False" in proc.stderr
+    assert proc.stdout == b""
+
+
+@pytest.mark.parametrize("env", [
+    {"FEDERATION_MODE": "aggregator", "FEDERATION_LISTEN_PORT": "0",
+     "FEDERATION_QUERY_PORT": "0"},
+    {"DATAPATH": "grpc:0"}], ids=["aggregator", "grpc_worker"])
+def test_the_collector_tier_refuses_to_run_on_the_cpu_unasked(env):
+    """The aggregator process and the DATAPATH=grpc worker fold on the
+    card: on a box without CUDA each exits 2 naming CUDA; SKETCH_DEVICES=cpu
+    runs them on the CPU (tests/test_torch_entry.py)."""
+    import os
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA box runs them on its card")
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("SKETCH_", "DATAPATH", "EXPORT",
+                                 "FEDERATION_"))}
+    base.update(PYTHONPATH=str(ROOT), AGENT_IP="127.0.0.1",
+                EXPORT="tpu-sketch", **env)
+    proc = subprocess.run([sys.executable, "-m", "netobserv_tpu_torch"],
+                          cwd=str(ROOT), env=base, capture_output=True,
                           timeout=60)
     assert proc.returncode == 2
     assert b"torch.cuda.is_available() is False" in proc.stderr
