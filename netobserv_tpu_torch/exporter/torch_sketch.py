@@ -139,6 +139,16 @@ its ring and its pending buffer count the reference's `sketch_*` families,
 and `utils/retrace` and `utils/tracing` are bound to it. Without one the
 plain counters below still count.
 
+The device timeline (`utils/tracing.Timeline`, on one CUDA device without
+tenants): at any TRACE_SAMPLE above 0 every dispatch's slot copy and
+fold, and every roll's device work, is timed between two CUDA events
+(`device_busy_seconds_total{span}`), and the device's idle time between
+them is put down to the phase of the thread holding `_lock`
+(`tracing.PhaseLock`: `pack`, `dispatch`, `roll`, `entry` or, the lock
+free, `caller`; `device_idle_seconds_total{phase}`). `_roll_locked` times
+the state's copy and roll and reads every interval back after the
+report's copy to the host.
+
 With `SketchConfig(tiered=TierSpec())` the state stays resident in tiered
 form (`sketch/tiered.py`); folds, rolls and `state_tables` work the same,
 `counter_table_bytes` gives the resident bytes of the tier-covered tables,
@@ -535,6 +545,13 @@ class TorchSketchExporter:
         self._tier_prev_promoted: dict = {}
         #: the tenant count (0: one state, no tenant plane)
         self.tenants = tenants
+        #: the device timeline of the folds and rolls (`utils/tracing`;
+        #: one CUDA device without tenants), which times them while
+        #: tracing is on, else None
+        self._timeline = (tracing.device_timeline(self.device)
+                          if self.mesh is None and not tenants else None)
+        if self._timeline is not None:
+            self._timeline.bind(metrics)
         #: each tenant's previous closed window's heavy index
         self._tenant_prev_index: dict[int, Optional[dict]] = {}
         if self.mesh is not None:
@@ -661,6 +678,9 @@ class TorchSketchExporter:
                                        self._pool)
                           if self._capture and self.mesh is None
                           and not tenants else None)
+        for fold in (self._fold_dense, self._fold_rec):
+            if fold is not None:
+                fold.timeline = self._timeline
         #: the record path's ingest on a mesh, made at its first use
         self._mesh_rec_ingest = None
         #: the entries on the dense buffers prepared so far
@@ -671,10 +691,12 @@ class TorchSketchExporter:
         self._pending_trace = None
         #: the fused drain's pack surface, made by `resident_pack_surface`
         self._pack_surface: Optional[staging.ResidentPackSurface] = None
-        # folds, rolls and every CUDA call of the window plane hold _lock;
+        # folds, rolls and every CUDA call of the window plane hold _lock
+        # (with a timeline it marks the phases "entry" and "caller");
         # _roll_mutex serializes the roll itself; _publish_lock the
         # publishes of the queued reports
-        self._lock = threading.Lock()
+        self._lock = (tracing.PhaseLock(self._timeline)
+                      if self._timeline is not None else threading.Lock())
         if archive is not None:
             archive.share_device_lock(self._lock)
         self._roll_mutex = threading.Lock()
@@ -946,6 +968,10 @@ class TorchSketchExporter:
             ring.warm(self.state)
         else:
             self.warm_superbatch_ladder()
+        if self._timeline is not None:
+            ring.timeline = self._timeline
+            for fold in ring.captures:
+                fold.timeline = self._timeline
 
     def _make_mesh_ring(self, kw: dict):
         """The mesh's ring (reference `tpu_sketch.py:607-647`): the
@@ -1402,15 +1428,17 @@ class TorchSketchExporter:
         n = chunk.size // sk.DENSE_WORDS
         trace = tracing.start_trace("fold")
         try:
-            with trace.stage("pack"):
+            with tracing.stage(trace, "pack", self._timeline):
                 if self._copied is not None:
                     self._copied.synchronize()  # the last copy is done
                 self._host_u32[:chunk.size] = chunk
                 self._host_u32[chunk.size:] = 0  # zero rows are invalid
             try:
                 faultinject.fire("sketch.ingest")
-                with trace.stage("ingest_dispatch"):
-                    self._dev.copy_(self._host, non_blocking=True)
+                tl = self._timeline
+                with tracing.stage(trace, "ingest_dispatch", tl):
+                    with tracing.timed(tl, "ingest_dispatch"):
+                        self._dev.copy_(self._host, non_blocking=True)
                     if self._copied is not None:
                         self._copied.record(
                             torch.cuda.current_stream(self.device))
@@ -1420,7 +1448,8 @@ class TorchSketchExporter:
                     if fold is not None:
                         fold(self.state, self._dev)
                     else:
-                        eager(self.state, self._dev)
+                        with tracing.timed(tl, "ingest_dispatch"):
+                            eager(self.state, self._dev)
                     self.folds += 1
             except Exception as exc:
                 self._count_ingest_error(n, exc)
@@ -1509,7 +1538,7 @@ class TorchSketchExporter:
         (`roll_drain`, `roll_dispatch`); returns the queued report."""
         wtrace = tracing.start_trace("window")
         try:
-            with wtrace.stage("roll_drain"):
+            with tracing.stage(wtrace, "roll_drain", self._timeline):
                 self._drain_pending()
             return self._roll_locked(wtrace)
         except BaseException:
@@ -1529,7 +1558,7 @@ class TorchSketchExporter:
             # a window with no pressure snaps the shed factor back to 1
             self._overload.window_roll()
         whole = self._delta_sink is not None or self._archive is not None
-        with wtrace.stage("roll_dispatch"):
+        with tracing.stage(wtrace, "roll_dispatch", self._timeline):
             with self._roll_mutex:
                 if self.tenants:
                     # every tenant's window, rolled here; the publish fans
@@ -1539,11 +1568,14 @@ class TorchSketchExporter:
                 elif self.mesh is not None:
                     report, tables = self._roll_mesh(self.state, whole)
                 else:
-                    tables = (sk.state_tables(self.state) if whole
-                              else sk.host_cm_planes(self.state))
-                    _, report = sk.roll_window(self.state, self.cfg,
-                                               self.reset_sketches,
-                                               self.decay_factor)
+                    # the roll's device work, timed; the report's copy to
+                    # the host then finds every interval's events done
+                    with tracing.timed(self._timeline, "roll_dispatch"):
+                        tables = (sk.state_tables(self.state) if whole
+                                  else sk.host_cm_planes(self.state))
+                        _, report = sk.roll_window(self.state, self.cfg,
+                                                   self.reset_sketches,
+                                                   self.decay_factor)
                     report = report_numpy(report)
         self.rolls += 1
         entry = _Queued(report, tables, wtrace)

@@ -30,7 +30,9 @@ tracer and the agent (`evictions_total`, `evicted_flows_total`,
 `sketch_tenants_active`, `sketch_tenant_window_records{tenant}`,
 `:248-268`) with `sketch_resident_hbm_bytes` (`:269-275`). Each
 family has the reference family's name, type, help text, labels and
-buckets. The port's packer raises on an ABI mismatch
+buckets. Two families are the port's own: `device_busy_seconds_total{span}`
+and `device_idle_seconds_total{phase}`, which the device timeline of
+`utils/tracing.py` feeds. The port's packer raises on an ABI mismatch
 instead of falling back (`datapath/flowpack.py`), so
 `flowpack_abi_fallback_total` stays 0; no port datapath takes the fused
 drain, so `flowpack_native_calls_total` and
@@ -432,6 +434,21 @@ class Metrics:
             ["stage"],
             buckets=(.0001, .0005, .001, .005, .01, .05, .1, .5, 1, 5),
             registry=self.registry)
+        # the device timeline of utils/tracing.py (the port's own)
+        self.device_busy_seconds_total = Counter(
+            p + "device_busy_seconds_total",
+            "Device seconds between the CUDA events around each ingest "
+            "dispatch (the slot's copy and the fold) and each window "
+            "roll's device work, by span (ingest_dispatch, roll_dispatch); "
+            "every fold and roll counts when TRACE_SAMPLE > 0",
+            ["span"], registry=self.registry)
+        self.device_idle_seconds_total = Counter(
+            p + "device_idle_seconds_total",
+            "Device seconds idle between two timed intervals, by the "
+            "exporter phase the host was in: pack, dispatch, roll, entry "
+            "(the rest under the exporter lock: admission, the pending "
+            "buffer, slot waits) or caller (the lock free); populated only "
+            "when TRACE_SAMPLE > 0", ["phase"], registry=self.registry)
         self.sketch_retraces_total = Counter(
             p + "sketch_retraces_total",
             "Post-warmup XLA recompilations of a watched jitted entry "

@@ -64,7 +64,7 @@ from typing import Any, Callable
 import torch
 
 from netobserv_tpu_torch.ops.kernels._build import CudaKernel
-from netobserv_tpu_torch.utils import retrace
+from netobserv_tpu_torch.utils import retrace, tracing
 
 
 def clone(x: Any, memo: dict | None = None) -> Any:
@@ -118,7 +118,14 @@ class CapturedFold:
     replayed at every later call with the same binding (module
     docstring); `tenants` marks a tenant-stacked fold in the compile
     watch (`utils/retrace.watch`). `launches` maps each kernel to its
-    launches per replay; `captures` counts the captures."""
+    launches per replay; `captures` counts the captures. With a
+    `timeline` (`utils/tracing.Timeline`, which the exporter sets) and
+    tracing on, each replay is timed between two CUDA events recorded
+    just before and after it, so the host's work ahead of the launch
+    (the binding's check) is not the device's."""
+
+    #: the device timeline that times each replay, or None
+    timeline = None
 
     def __init__(self, name: str, fold: Callable[..., Any], pool=None,
                  tenants: int | None = None):
@@ -183,7 +190,8 @@ class CapturedFold:
         self._device = dev
 
     def _replay(self) -> None:
-        with torch.cuda.device(self._device):
+        with torch.cuda.device(self._device), \
+                tracing.timed(self.timeline, "ingest_dispatch"):
             self.graph.replay()
         for k, n in self.launches.items():
             k.launches += n

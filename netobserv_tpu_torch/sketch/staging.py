@@ -39,9 +39,16 @@ optional `metrics` facade (`metrics/registry.Metrics`) and count
 where the reference does. Every ring's `fold` takes `trace=`, the
 caller's trace (`utils/tracing`), and records its spans on it:
 `staging_wait` (a slot wait that stalled), `pack` (dense and compact),
-`resident_pack` and `ingest_dispatch`; with no trace given it samples one
-of its own (`_fold_trace`) and finishes only that one. `_wait_slot` fires
-the `sketch.staging_wait` fault point (`utils/faultinject`).
+`resident_pack`, `pack_lane` (each region's pack in
+`ShardedResidentStagingRing`, on its pool thread) and `ingest_dispatch`;
+with no trace given it samples one of its own (`_fold_trace`) and
+finishes only that one. With tracing on, `pack`, `resident_pack` and
+`ingest_dispatch` also mark the exporter's phase on the ring's
+`timeline` (set by the exporter; `tracing.stage`), and a dispatch times
+`_ship`'s copy and the fold each between two CUDA events
+(`tracing.timed`; a captured fold times its graph's replay, an eager
+fold its call). `_wait_slot` fires the `sketch.staging_wait` fault
+point (`utils/faultinject`).
 
 A ring's `fold` raises whatever its pack or dispatch raises: containment
 is the exporter's (`exporter/torch_sketch.py`), as in the reference.
@@ -368,6 +375,8 @@ class _SlotRing:
     WAIT_WINDOW = 64
     #: the mesh the ring ships to, or None (one device)
     mesh = None
+    #: the exporter's device timeline (`utils/tracing.Timeline`), or None
+    timeline = None
 
     def _init_slots(self, n_slots: int, words: int,
                     device: torch.device, metrics) -> None:
@@ -458,7 +467,8 @@ class _SlotRing:
         dev, host = self._dev, self._host[slot]
         if words is not None:
             dev, host = dev[:words], host[:words]
-        dev.copy_(host, non_blocking=True)
+        with tracing.timed(self.timeline, "ingest_dispatch"):
+            dev.copy_(host, non_blocking=True)
         if self.device.type == "cuda":
             ev = self._copied[slot] or torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
@@ -592,7 +602,7 @@ class ResidentStagingRing(_SlotRing):
                     exc.state = state  # the chunks before it dispatched
                     raise
                 t0 = time.perf_counter()
-                with trace.stage("resident_pack"):
+                with tracing.stage(trace, "resident_pack", self.timeline):
                     buf, consumed = self._pack(
                         events, batch_size=self.batch_size, kdict=self.kdict,
                         caps=self.caps, start=start, out=self._bufs[slot],
@@ -608,12 +618,14 @@ class ResidentStagingRing(_SlotRing):
                     if start > 0:
                         m.sketch_resident_continuations_total.inc()
                 start += consumed
-                with trace.stage("ingest_dispatch"):
+                with tracing.stage(trace, "ingest_dispatch", self.timeline):
                     flat = self._ship(slot)
                     if self.captured is not None:
                         self.captured(state, self.key_table, flat)
                     else:
-                        state = self._ingest(state, self.key_table, flat)
+                        with tracing.timed(self.timeline, "ingest_dispatch"):
+                            state = self._ingest(state, self.key_table,
+                                                 flat)
                 self.chunks += 1
                 self._advance(slot)
             return state
@@ -784,7 +796,8 @@ class DenseStagingRing(_SlotRing):
         if captured is not None:
             captured(state, flat)
         else:
-            fn(state, flat)
+            with tracing.timed(self.timeline, "ingest_dispatch"):
+                fn(state, flat)
         self.chunks += 1
 
     def fold(self, state, events: np.ndarray, extra=None, dns=None,
@@ -802,7 +815,7 @@ class DenseStagingRing(_SlotRing):
                 exc.state = state  # nothing dispatched
                 raise
             t0 = time.perf_counter()
-            with trace.stage("pack"):
+            with tracing.stage(trace, "pack", self.timeline):
                 if self.spill_cap is not None:
                     buf = flowpack.pack_compact(
                         events, batch_size=self.batch_size,
@@ -818,7 +831,7 @@ class DenseStagingRing(_SlotRing):
             self.pack_seconds += time.perf_counter() - t0
             if buf is None:
                 return self._fold_dense_fallback(state, events, feats)
-            with trace.stage("ingest_dispatch"):
+            with tracing.stage(trace, "ingest_dispatch", self.timeline):
                 if self.mesh is not None:
                     self._dispatch_mesh(state, self._ship(slot))
                 else:
@@ -1018,7 +1031,8 @@ class ShardedResidentStagingRing(_SlotRing):
             if self.captured is not None:
                 self.captured[k](state, self.key_tables, flat)
             else:
-                self._ingest(k, state, self.key_tables, flat)
+                with tracing.timed(self.timeline, "ingest_dispatch"):
+                    self._ingest(k, state, self.key_tables, flat)
         elif self.captured is not None:
             for fold, shards in self.captured[k]:
                 fold(*self._group_args(shards, state, self.key_tables, flat))
@@ -1127,29 +1141,30 @@ class ShardedResidentStagingRing(_SlotRing):
             def pack_region(i):
                 # touches only region i's dictionary, buffer region and
                 # start, and returns its counters, so threads never race
-                region = buf[i * rw:(i + 1) * rw]
-                if starts[i] >= len(shard_ev[i]):
-                    # an exhausted region of a continuation chunk ships
-                    # empty, and its dictionary's epoch stays
-                    flowpack.zero_resident_region(
-                        region, self.batch_per_region, self.caps)
-                    return 0, 0
-                kd = self.kdicts[(i // kl) * kmax_l + (i % kl)]
-                resets = 0
-                if kd.count() >= self.slot_cap:
-                    kd.reset()
-                    resets = 1
-                _, consumed = self._pack(
-                    shard_ev[i], batch_size=self.batch_per_region, kdict=kd,
-                    caps=self.caps, start=starts[i], out=region,
-                    **shard_feats[i])
-                if consumed == 0:
-                    raise RuntimeError("resident pack made no progress")
-                starts[i] += consumed
-                return int(region[2]), resets
+                with trace.stage("pack_lane"):
+                    region = buf[i * rw:(i + 1) * rw]
+                    if starts[i] >= len(shard_ev[i]):
+                        # an exhausted region of a continuation chunk
+                        # ships empty, and its dictionary's epoch stays
+                        flowpack.zero_resident_region(
+                            region, self.batch_per_region, self.caps)
+                        return 0, 0
+                    kd = self.kdicts[(i // kl) * kmax_l + (i % kl)]
+                    resets = 0
+                    if kd.count() >= self.slot_cap:
+                        kd.reset()
+                        resets = 1
+                    _, consumed = self._pack(
+                        shard_ev[i], batch_size=self.batch_per_region,
+                        kdict=kd, caps=self.caps, start=starts[i],
+                        out=region, **shard_feats[i])
+                    if consumed == 0:
+                        raise RuntimeError("resident pack made no progress")
+                    starts[i] += consumed
+                    return int(region[2]), resets
 
             t0 = time.perf_counter()
-            with trace.stage("resident_pack"):
+            with tracing.stage(trace, "resident_pack", self.timeline):
                 if self.pack_threads > 1 and nr > 1:
                     outs = [f.result() for f in flowpack._pack_submit(
                         min(self.pack_threads, nr),
@@ -1173,7 +1188,7 @@ class ShardedResidentStagingRing(_SlotRing):
                     m.sketch_resident_continuations_total.inc()
                 m.sketch_superbatch_folds_total.labels(str(k)).inc()
             first = False
-            with trace.stage("ingest_dispatch"):
+            with tracing.stage(trace, "ingest_dispatch", self.timeline):
                 self._dispatch(k, state, self._ship(slot,
                                                     self._ship_words(k)))
             self.chunks += 1
@@ -1203,7 +1218,7 @@ class ShardedResidentStagingRing(_SlotRing):
                         raise
                     off = ch.arena_off + seg * seg_words
                     t0 = time.perf_counter()
-                    with trace.stage("resident_pack"):
+                    with tracing.stage(trace, "resident_pack", self.timeline):
                         np.copyto(self._bufs[slot][:seg_words],
                                   packed.arena[off:off + seg_words])
                     self.pack_seconds += time.perf_counter() - t0
@@ -1215,7 +1230,8 @@ class ShardedResidentStagingRing(_SlotRing):
                             m.sketch_resident_continuations_total.inc()
                         m.sketch_superbatch_folds_total.labels(
                             str(ch.k)).inc()
-                    with trace.stage("ingest_dispatch"):
+                    with tracing.stage(trace, "ingest_dispatch",
+                                       self.timeline):
                         self._dispatch(ch.k, state,
                                        self._ship(slot, seg_words))
                     self.chunks += 1

@@ -37,10 +37,36 @@ Sampling and the zero-cost contract:
 
 ``TRACE_RING`` (env, default 64) bounds how many completed traces the
 recorder keeps; snapshots are newest-first.
+
+The profiler mirror: while a ``torch.profiler`` session records the thread
+that opens a span of a live trace, the span also opens
+``record_function("netobserv.<stage>")``, so a profiler trace shows the
+program's stages on the kernels' clock. The profiler records only the
+thread that started it: a span opened on another thread (``pack_lane`` on
+the pack pool) feeds ``stage_seconds`` alone.
+
+The device timeline (:class:`Timeline`, one an exporter on one CUDA
+device): at any ``TRACE_SAMPLE`` above 0 it times EVERY fold and roll,
+sampled or not, since an idle gap needs both of its neighbours. An ingest
+dispatch's slot copy and its fold, and a roll's device work, each lie
+between two timing CUDA events from a bounded pool (:func:`timed`); their
+elapsed time feeds ``device_busy_seconds_total{span}``. The device time
+between one interval's end and the next one's start is idle: it ends at
+the host stamp taken when the opening event of the next was recorded
+(the card, idle, reached it within the launch latency) and is split over
+the exporter's phase log
+(:class:`PhaseLock` and :func:`stage` mark it) into
+``device_idle_seconds_total{phase}``: ``pack``, ``dispatch``, ``roll``,
+``entry`` (the rest under the exporter's lock) and ``caller`` (the lock
+free). Busy time and the five phases partition the timeline. Events are
+read back with ``query()`` only, never waited on. Disabled, a fold pays
+the bool check of :func:`stage` and :class:`PhaseLock`: no event, no
+stamp, no allocation, no profiler query.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import threading
@@ -53,6 +79,7 @@ __all__ = [
     "start_trace", "configure", "set_metrics", "snapshot", "enabled",
     "context_of", "continue_trace", "group", "TraceGroup",
     "set_active", "clear_active", "active_trace",
+    "PHASES", "Timeline", "PhaseLock", "device_timeline", "stage", "timed",
 ]
 
 
@@ -110,24 +137,48 @@ class _Span:
         self.thread = thread
 
 
+_torch = None  # torch, imported at the first live span
+
+
+def _profiler_range(stage: str):
+    """An open ``record_function("netobserv.<stage>")`` when a
+    torch.profiler session records the calling thread, else None."""
+    global _torch
+    if _torch is None:
+        import torch
+        import torch.autograd.profiler  # noqa: F401 (the flag below)
+        _torch = torch
+    if not (_torch.autograd.profiler._is_profiler_enabled
+            and _torch.autograd._profiler_enabled()):
+        return None
+    rf = _torch.profiler.record_function("netobserv." + stage)
+    rf.__enter__()
+    return rf
+
+
 class _SpanCtx:
     """Context manager recording one stage span onto its trace (records on
     exit even when the stage raised — a failed stage's duration is evidence,
-    not noise)."""
+    not noise), mirrored to the profiler (module docstring)."""
 
-    __slots__ = ("_trace", "_stage", "_t0")
+    __slots__ = ("_trace", "_stage", "_t0", "_rf")
 
     def __init__(self, trace: "Trace", stage: str):
         self._trace = trace
         self._stage = stage
         self._t0 = 0.0
+        self._rf = None
 
     def __enter__(self):
+        self._rf = _profiler_range(self._stage)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self._trace._add(self._stage, self._t0, time.perf_counter())
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
         return False
 
 
@@ -432,6 +483,288 @@ def active_trace():
     Reference: `netobserv_tpu/utils/tracing.py:420`."""
     t = getattr(_active, "trace", None)
     return NULL_TRACE if t is None else t
+
+
+# --- device timeline (module docstring) ------------------------------------
+
+#: the exporter phase each span marks while it is open (innermost wins);
+#: under the exporter's lock and in none of them: "entry"; the lock free:
+#: "caller"
+PHASES = {"pack": "pack", "resident_pack": "pack",
+          "ingest_dispatch": "dispatch",
+          "roll_drain": "roll", "roll_dispatch": "roll"}
+
+
+class Timeline:
+    """The device timeline of one exporter (module docstring). Every call
+    comes from the thread holding the exporter's lock, so it keeps no lock
+    of its own.
+
+    `event()` makes a timing event (`record(stream)`, `query()`,
+    `elapsed_time(other)` in ms), `stream()` gives the stream to record
+    on, `capturing()` says whether that stream is being captured (no
+    event is recorded inside a capture) and `clock()` is the host clock
+    of the phase log. `busy` (by span) and `idle` (by phase) sum what has
+    been read, in seconds; `made` counts the events the pool made, at
+    most `POOL`. An interval that finds the pool empty is not timed: the
+    gap across it is dropped, so the partition holds over what is timed."""
+
+    #: events the pool makes at most (two an interval; the host runs at
+    #: most a few dispatches ahead of the device)
+    POOL = 64
+    #: phase-log entries kept at most while nothing is read
+    LOG = 4096
+
+    def __init__(self, event, stream=lambda: None, capturing=lambda: False,
+                 clock=time.perf_counter):
+        self._event = event
+        self._stream = stream
+        self._capturing = capturing
+        self._clock = clock
+        self._free: list = []
+        self.made = 0
+        # [span, before, its host stamp, after, its host stamp], oldest
+        # first, not yet read; None where an interval went untimed
+        self._open: deque = deque()
+        self._cur: Optional[list] = None
+        # (after event, host stamp) of the last interval read
+        self._prev: Optional[tuple] = None
+        # (host time, phase) at each change of phase, oldest first
+        self._log: deque = deque([(clock(), "caller")], maxlen=self.LOG)
+        self._stack: list = []
+        self.busy: dict = {}
+        self.idle: dict = {}
+        self._busy_family = self._idle_family = None
+
+    def bind(self, metrics) -> None:
+        """Feed `device_busy_seconds_total{span}` and
+        `device_idle_seconds_total{phase}` of `metrics` (None: none)."""
+        self._busy_family = getattr(metrics, "device_busy_seconds_total",
+                                    None)
+        self._idle_family = getattr(metrics, "device_idle_seconds_total",
+                                    None)
+
+    # -- the phase log
+
+    def _mark(self, phase: str) -> None:
+        if self._log[-1][1] != phase:
+            self._log.append((self._clock(), phase))
+
+    def taken(self) -> None:
+        """The exporter's lock was taken: phase "entry"."""
+        self._stack.clear()
+        self._stack.append("entry")
+        self._mark("entry")
+
+    def freed(self) -> None:
+        """The exporter's lock is about to be freed: phase "caller"."""
+        self._stack.clear()
+        self._mark("caller")
+
+    def push(self, phase: str) -> None:
+        self._stack.append(phase)
+        self._mark(phase)
+
+    def pop(self) -> None:
+        if self._stack:
+            self._stack.pop()
+        self._mark(self._stack[-1] if self._stack else "caller")
+
+    # -- the intervals
+
+    def _take(self):
+        if self._free:
+            return self._free.pop()
+        if self.made < self.POOL:
+            self.made += 1
+            return self._event()
+        return None
+
+    def begin(self, span: str) -> None:
+        """Record the event that opens an interval of `span`'s device
+        work, and its host stamp."""
+        if self._capturing():
+            return
+        before = self._take()
+        after = self._take() if before is not None else None
+        if after is None:
+            if before is not None:
+                self._free.append(before)
+            if not self._open or self._open[-1] is not None:
+                self._open.append(None)
+            return
+        before.record(self._stream())
+        self._cur = [span, before, self._clock(), after, 0.0]
+
+    def end(self) -> None:
+        """Record the event that closes the open interval, if any."""
+        cur = self._cur
+        if cur is None:
+            return
+        self._cur = None
+        cur[3].record(self._stream())
+        cur[4] = self._clock()
+        self._open.append(cur)
+
+    def poll(self) -> None:
+        """Read every interval whose closing event is done, oldest first,
+        stopping at the first that is not (never waits): its busy time,
+        and the idle gap before it split over the phase log."""
+        busy: dict = {}
+        idle: dict = {}
+        opened = self._open
+        while opened:
+            iv = opened[0]
+            if iv is None:  # an untimed interval: no gap across it
+                opened.popleft()
+                if self._prev is not None:
+                    self._free.append(self._prev[0])
+                    self._prev = None
+                continue
+            span, before, t_before, after, t_after = iv
+            if not after.query():
+                break
+            opened.popleft()
+            busy[span] = busy.get(span, 0.0) + \
+                before.elapsed_time(after) / 1e3
+            if self._prev is not None:
+                gap = max(0.0, self._prev[0].elapsed_time(before) / 1e3)
+                self._split(t_before - gap, t_before, idle)
+                self._free.append(self._prev[0])
+            self._free.append(before)
+            self._prev = (after, t_after)
+        if not busy:
+            return
+        # the next gap starts after the last read interval's end (none
+        # across an untimed interval)
+        log = self._log
+        cut = self._prev[1] if self._prev is not None else float("inf")
+        while len(log) > 1 and log[1][0] <= cut:
+            log.popleft()
+        self._add(self.busy, busy, self._busy_family)
+        self._add(self.idle, idle, self._idle_family)
+
+    def _split(self, a: float, b: float, out: dict) -> None:
+        """Add [a, b] of the host clock to `out` by the phase in effect
+        over each part; before the log's first entry, that entry's."""
+        log = self._log
+        last = len(log) - 1
+        for i, (t, phase) in enumerate(log):
+            lo = a if i == 0 else max(a, t)
+            hi = b if i == last else min(b, log[i + 1][0])
+            if hi > lo:
+                out[phase] = out.get(phase, 0.0) + (hi - lo)
+            if hi >= b:
+                return
+
+    @staticmethod
+    def _add(total: dict, part: dict, family) -> None:
+        for k, v in part.items():
+            total[k] = total.get(k, 0.0) + v
+            if family is not None:
+                family.labels(k).inc(v)
+
+
+def device_timeline(device) -> Optional[Timeline]:
+    """A :class:`Timeline` of CUDA timing events on `device`'s current
+    stream, or None off CUDA. It makes no event until tracing is on and a
+    fold begins."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+    return Timeline(functools.partial(torch.cuda.Event, enable_timing=True),
+                    stream=lambda: torch.cuda.current_stream(device),
+                    capturing=torch.cuda.is_current_stream_capturing)
+
+
+class PhaseLock:
+    """The exporter's lock, marking the timeline's phase: "entry" from the
+    moment it is taken, "caller" from the moment it is freed."""
+
+    __slots__ = ("_lock", "_timeline")
+
+    def __init__(self, timeline: Timeline):
+        self._lock = threading.Lock()
+        self._timeline = timeline
+
+    def __enter__(self):
+        self._lock.acquire()
+        if _enabled:
+            self._timeline.taken()
+        return True
+
+    def __exit__(self, *exc):
+        if _enabled:
+            self._timeline.freed()
+        self._lock.release()
+        return False
+
+
+class _PhaseSpan:
+    """A stage span that also marks its phase (`PHASES`) on the timeline;
+    an ingest dispatch first reads back what is done, and a roll's
+    dispatch reads back everything when it ends, after the roll's host
+    copy."""
+
+    __slots__ = ("_span", "_timeline", "_stage")
+
+    def __init__(self, span, timeline: Timeline, stage: str):
+        self._span = span
+        self._timeline = timeline
+        self._stage = stage
+
+    def __enter__(self):
+        tl = self._timeline
+        tl.push(PHASES[self._stage])
+        if self._stage == "ingest_dispatch":
+            tl.poll()
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._span.__exit__(*exc)
+        tl = self._timeline
+        if self._stage == "roll_dispatch":
+            tl.poll()
+        tl.pop()
+        return False
+
+
+class _Interval:
+    """The device work of a `with` block, timed on the timeline."""
+
+    __slots__ = ("_timeline", "_span")
+
+    def __init__(self, timeline: Timeline, span: str):
+        self._timeline = timeline
+        self._span = span
+
+    def __enter__(self):
+        self._timeline.begin(self._span)
+        return self
+
+    def __exit__(self, *exc):
+        self._timeline.end()
+        return False
+
+
+def stage(trace, name: str, timeline: Optional[Timeline] = None):
+    """``trace.stage(name)`` for a stage of `PHASES`; with tracing on and a
+    timeline, also its phase (and the read-backs of `_PhaseSpan`)."""
+    if not _enabled or timeline is None:
+        return trace.stage(name)
+    return _PhaseSpan(trace.stage(name), timeline, name)
+
+
+def timed(timeline: Optional[Timeline], span: str):
+    """Time the device work a `with` block enqueues as an interval of
+    `span`, or with tracing off or no timeline do nothing. A dispatch
+    times its slot's copy and its fold as two intervals, so the host's
+    time between them (the launch), which the card waits out idle, is
+    the `dispatch` phase's."""
+    if not _enabled or timeline is None:
+        return NULL_SPAN
+    return _Interval(timeline, span)
 
 
 # arm from the environment at import; unset -> disabled, start_trace stays
