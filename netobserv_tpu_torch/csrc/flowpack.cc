@@ -15,11 +15,15 @@
 // fp_pipe_* / fp_drain_to_resident (:918-1576), whose pack stage calls
 // fp_pack_resident above, so there is one resident layout. CRC32C
 // (:850-916) is not here: the port's kafka/wire computes its checksum in
-// Python. Three entries are the port's own: fp_struct_sizes and
+// Python. These entries are the port's own: fp_struct_sizes and
 // fp_layout_words, which the loader holds against model/binfmt's dtypes,
 // the ctypes mirrors of the pipeline's structs and datapath/flowpack.py's
-// layout constants, and fp_dict_lookup, which the checks use to read the
-// dictionary.
+// layout constants; fp_dict_lookup, which the checks use to read the
+// dictionary; and the one-call segment pack, fp_pack_resident_segment
+// with its parked helper threads (fp_workers_new / fp_workers_free), which
+// packs every region of one ring-slot image through fp_pack_resident and
+// whose region loop (seg_region, seg_dispatch) the fused drain's
+// pipe_pack shares.
 //
 // Each layout is its Python twin's (datapath/flowpack.py pack_dense,
 // pack_compact, pack_resident), word for word; sketch/state's
@@ -29,6 +33,7 @@
 // buffer is the caller's but the pipeline's own (see its section).
 
 #include <algorithm>
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
@@ -44,7 +49,7 @@
 
 #include "records.h"
 
-#define FP_ABI_VERSION 3
+#define FP_ABI_VERSION 4
 
 // row width of the dense feed and of the resident spill lane
 #define FP_DENSE_WORDS 20
@@ -1131,6 +1136,271 @@ static inline uint64_t pipe_key_hash(const uint8_t *k) {
     return h;
 }
 
+// ===========================================================================
+// One-call segment pack (fp_pack_resident_segment): one ring-slot image of
+// nr regions, each fp_pack_resident above against its own dictionary, the
+// regions spread over worker threads that take them through an atomic
+// next-region index (a host that lends fewer cores than workers only slows
+// the call). The raw fold's pack (sketch/staging.py
+// ShardedResidentStagingRing._fold_chunk) makes one such call a segment,
+// the interpreter lock released once; the fused drain's pipe_pack below
+// runs the same region loop in its calling thread.
+// ===========================================================================
+
+struct fp_seg {
+    // the chunk's bases (row 0 of region 0); absent lanes are NULL
+    const uint8_t *events, *extra, *dns, *drops, *xlat, *quic;
+    const uint64_t *bounds;  // [nr + 1] row bounds of the regions
+    const uint64_t *dicts;   // [nr] fp_dict handles
+    uint64_t *starts;        // [nr] rows each region consumed so far
+    uint32_t *out;           // nr regions of region_words
+    int64_t *stats;          // [nr][4] rows consumed, spill rows, reset, ns
+    size_t region_words;
+    uint32_t nr, batch_size, dns_cap, drop_cap, nk_cap, spill_cap, slot_cap;
+    bool full_zero;  // mask an exhausted region by a full memset
+    std::atomic<uint32_t> next;
+    std::atomic<int64_t> err;
+};
+
+static size_t region_words_of(uint32_t batch_size, uint32_t dns_cap,
+                              uint32_t drop_cap, uint32_t nk_cap,
+                              uint32_t spill_cap) {
+    return FP_RESIDENT_HDR + static_cast<size_t>(batch_size) * FP_HOT_WORDS +
+           dns_cap + static_cast<size_t>(drop_cap) * 2 +
+           static_cast<size_t>(nk_cap) * FP_NK_WORDS +
+           static_cast<size_t>(spill_cap) * FP_DENSE_WORDS;
+}
+
+// datapath/flowpack.zero_resident_region: zero only the words the device
+// unpack reads as validity gates (header, hot word 0, the sparse lanes,
+// new-key word 0, spill word 14)
+static void mask_region(uint32_t *out, size_t batch_size, size_t dns_cap,
+                        size_t drop_cap, size_t nk_cap, size_t spill_cap) {
+    std::memset(out, 0, FP_RESIDENT_HDR * sizeof(uint32_t));
+    uint32_t *hot = out + FP_RESIDENT_HDR;
+    for (size_t r = 0; r < batch_size; r++) hot[r * FP_HOT_WORDS] = 0;
+    uint32_t *dnsl = hot + batch_size * FP_HOT_WORDS;
+    std::memset(dnsl, 0, (dns_cap + drop_cap * 2) * sizeof(uint32_t));
+    uint32_t *nkl = dnsl + dns_cap + drop_cap * 2;
+    for (size_t r = 0; r < nk_cap; r++) nkl[r * FP_NK_WORDS] = 0;
+    uint32_t *spill = nkl + nk_cap * FP_NK_WORDS;
+    for (size_t r = 0; r < spill_cap; r++) spill[r * FP_DENSE_WORDS + 14] = 0;
+}
+
+static inline const uint8_t *lane_at(const uint8_t *base, uint64_t row,
+                                     size_t size) {
+    return base ? base + row * size : NULL;
+}
+
+// Region i of the segment: the per-region epoch roll when its dictionary
+// is at slot_cap and the pack, or the mask of a region already exhausted.
+static void seg_region(struct fp_seg *s, uint32_t i) {
+    int64_t *st = s->stats + 4 * static_cast<size_t>(i);
+    uint32_t *region = s->out + i * s->region_words;
+    const uint64_t lo = s->bounds[i], len = s->bounds[i + 1] - lo;
+    st[0] = st[1] = st[2] = st[3] = 0;
+    if (s->starts[i] >= len) {
+        // an exhausted region of a continuation segment ships empty, and
+        // its dictionary's epoch stays
+        if (s->full_zero)
+            std::memset(region, 0, s->region_words * sizeof(uint32_t));
+        else
+            mask_region(region, s->batch_size, s->dns_cap, s->drop_cap,
+                        s->nk_cap, s->spill_cap);
+        return;
+    }
+    const uint64_t t0 = pipe_now_ns();
+    fp_dict *d =
+        reinterpret_cast<fp_dict *>(static_cast<uintptr_t>(s->dicts[i]));
+    if (d->next_slot >= s->slot_cap) {
+        fp_dict_reset(d);  // per-region epoch roll
+        st[2] = 1;
+    }
+    const int64_t consumed = fp_pack_resident(
+        lane_at(s->events, lo, sizeof(struct no_flow_event)), s->starts[i],
+        len, lane_at(s->extra, lo, sizeof(struct no_extra_rec)),
+        lane_at(s->dns, lo, sizeof(struct no_dns_rec)),
+        lane_at(s->drops, lo, sizeof(struct no_drops_rec)),
+        lane_at(s->xlat, lo, sizeof(struct no_xlat_rec)),
+        lane_at(s->quic, lo, sizeof(struct no_quic_rec)), d, region,
+        s->batch_size, s->dns_cap, s->drop_cap, s->nk_cap, s->spill_cap);
+    if (consumed <= 0) {
+        s->err.store(-3);  // no progress: caps violate the guarantee
+        return;
+    }
+    s->starts[i] += static_cast<uint64_t>(consumed);
+    st[0] = consumed;
+    st[1] = region[2];
+    st[3] = static_cast<int64_t>(pipe_now_ns() - t0);
+}
+
+static void seg_run(struct fp_seg *s) {
+    for (;;) {
+        const uint32_t i = s->next.fetch_add(1);
+        if (i >= s->nr) return;
+        seg_region(s, i);
+    }
+}
+
+#define FP_MAX_WORKERS 64
+
+#if defined(__linux__)
+// Parked helper threads of the segment pack (fp_workers_new): started by
+// the first call that wants them, asleep on `go` between calls. One call
+// at a time uses them; a call that finds them busy runs in its own thread.
+struct fp_workers {
+    pthread_mutex_t mu;
+    pthread_cond_t go, done;
+    pthread_t tids[FP_MAX_WORKERS];
+    uint32_t n_threads;             // helpers started
+    uint64_t gen;                   // calls handed out
+    struct fp_seg *job;             // the open call's segment, or NULL
+    uint32_t want, joined, active;  // helpers the call wants, took, working
+    bool busy, stop;
+};
+
+static void *seg_worker(void *arg) {
+    struct fp_workers *w = static_cast<struct fp_workers *>(arg);
+    uint64_t seen = 0;
+    pthread_mutex_lock(&w->mu);
+    for (;;) {
+        while (!w->stop &&
+               (!w->job || w->gen == seen || w->joined >= w->want))
+            pthread_cond_wait(&w->go, &w->mu);
+        if (w->stop) break;
+        seen = w->gen;
+        struct fp_seg *s = w->job;
+        w->joined++;
+        w->active++;
+        pthread_mutex_unlock(&w->mu);
+        seg_run(s);
+        pthread_mutex_lock(&w->mu);
+        if (--w->active == 0) pthread_cond_signal(&w->done);
+    }
+    pthread_mutex_unlock(&w->mu);
+    return NULL;
+}
+#endif
+
+void *fp_workers_new(void) {
+#if defined(__linux__)
+    struct fp_workers *w = new fp_workers();
+    pthread_mutex_init(&w->mu, NULL);
+    pthread_cond_init(&w->go, NULL);
+    pthread_cond_init(&w->done, NULL);
+    return w;
+#else
+    return NULL;
+#endif
+}
+
+void fp_workers_free(void *h) {
+#if defined(__linux__)
+    struct fp_workers *w = static_cast<struct fp_workers *>(h);
+    if (!w) return;
+    pthread_mutex_lock(&w->mu);
+    w->stop = true;
+    pthread_cond_broadcast(&w->go);
+    pthread_mutex_unlock(&w->mu);
+    for (uint32_t t = 0; t < w->n_threads; t++) pthread_join(w->tids[t], NULL);
+    pthread_cond_destroy(&w->done);
+    pthread_cond_destroy(&w->go);
+    pthread_mutex_destroy(&w->mu);
+    delete w;
+#else
+    (void)h;
+#endif
+}
+
+// Run the segment's regions over min(n_workers, nr) threads: the caller
+// and parked helpers of `workers`; with one, or no `workers`, the caller.
+static void seg_dispatch(struct fp_seg *s, void *workers,
+                         uint32_t n_workers) {
+    s->next.store(0);
+    s->err.store(0);
+    if (n_workers > s->nr) n_workers = s->nr;
+#if defined(__linux__)
+    struct fp_workers *w = static_cast<struct fp_workers *>(workers);
+    if (w && n_workers > 1) {
+        pthread_mutex_lock(&w->mu);
+        if (!w->busy) {
+            const uint32_t helpers =
+                std::min<uint32_t>(n_workers - 1, FP_MAX_WORKERS);
+            while (w->n_threads < helpers &&
+                   pthread_create(&w->tids[w->n_threads], NULL, seg_worker,
+                                  w) == 0)
+                w->n_threads++;
+            w->busy = true;
+            w->job = s;
+            w->gen++;
+            w->want = helpers;
+            w->joined = 0;
+            pthread_cond_broadcast(&w->go);
+            pthread_mutex_unlock(&w->mu);
+            seg_run(s);  // the calling thread is a worker too
+            pthread_mutex_lock(&w->mu);
+            w->job = NULL;  // no helper joins after this
+            while (w->active) pthread_cond_wait(&w->done, &w->mu);
+            w->busy = false;
+            pthread_mutex_unlock(&w->mu);
+            return;
+        }
+        pthread_mutex_unlock(&w->mu);
+    }
+#else
+    (void)workers;
+#endif
+    seg_run(s);
+}
+
+// Pack one segment of a chunk: region i is rows [bounds[i], bounds[i+1])
+// of the chunk's events (and of each feature lane, NULL where absent),
+// packed with dictionary dicts[i] from row starts[i] on (updated) into
+// region i of `out`; stats[i] gets its rows consumed, spill rows, epoch
+// roll (0/1) and pack nanoseconds (all 0 for an exhausted region, which is
+// masked). Returns the regions with rows left (>= 0; 0 ends the chunk),
+// or -2 for bad arguments, -3 when a region made no progress.
+int64_t fp_pack_resident_segment(
+    const uint8_t *events, const uint8_t *extra, const uint8_t *dns,
+    const uint8_t *drops, const uint8_t *xlat, const uint8_t *quic,
+    const uint64_t *bounds, uint32_t nr, const uint64_t *dicts,
+    uint64_t *starts, uint32_t *out, uint32_t batch_size, uint32_t dns_cap,
+    uint32_t drop_cap, uint32_t nk_cap, uint32_t spill_cap,
+    uint32_t slot_cap, int64_t *stats, void *workers, uint32_t n_workers) {
+    if (!events || !bounds || !dicts || !starts || !out || !stats ||
+        nr == 0 || batch_size == 0 || batch_size > 0xFFFFu || nk_cap == 0 ||
+        spill_cap == 0 || slot_cap == 0)
+        return -2;
+    struct fp_seg s;
+    s.events = events;
+    s.extra = extra;
+    s.dns = dns;
+    s.drops = drops;
+    s.xlat = xlat;
+    s.quic = quic;
+    s.bounds = bounds;
+    s.dicts = dicts;
+    s.starts = starts;
+    s.out = out;
+    s.stats = stats;
+    s.region_words =
+        region_words_of(batch_size, dns_cap, drop_cap, nk_cap, spill_cap);
+    s.nr = nr;
+    s.batch_size = batch_size;
+    s.dns_cap = dns_cap;
+    s.drop_cap = drop_cap;
+    s.nk_cap = nk_cap;
+    s.spill_cap = spill_cap;
+    s.slot_cap = slot_cap;
+    s.full_zero = false;
+    seg_dispatch(&s, workers, n_workers);
+    if (s.err.load()) return s.err.load();
+    int64_t left = 0;
+    for (uint32_t i = 0; i < nr; i++)
+        left += starts[i] < bounds[i + 1] - bounds[i];
+    return left;
+}
+
 static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
                          struct fp_pipe_result *res) {
     const uint64_t n_events = res->n_events;
@@ -1138,11 +1408,9 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
         pk->ladder[0].k != 1 || pk->batch_per_region == 0 ||
         pk->spill_cap == 0 || pk->nk_cap == 0)
         return -2;
-    const size_t region_words =
-        FP_RESIDENT_HDR + static_cast<size_t>(pk->batch_per_region) * FP_HOT_WORDS +
-        pk->dns_cap + static_cast<size_t>(pk->drop_cap) * 2 +
-        static_cast<size_t>(pk->nk_cap) * FP_NK_WORDS +
-        static_cast<size_t>(pk->spill_cap) * FP_DENSE_WORDS;
+    const size_t region_words = region_words_of(
+        pk->batch_per_region, pk->dns_cap, pk->drop_cap, pk->nk_cap,
+        pk->spill_cap);
     // per-kind aligned feature bases the resident pack consumes (nevents
     // rides EvictedFlows only — the fold lanes never carry it)
     const uint8_t *ali[FPK_QUIC + 1] = {NULL, NULL, NULL, NULL, NULL, NULL, NULL};
@@ -1151,7 +1419,25 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
             ali[p->maps[i].kind] = p->maps[i].aligned.p;
     uint32_t *arena = NULL;
     size_t arena_cap_words = 0, arena_words = 0;
-    uint64_t row = 0, starts[1u << 10];
+    uint64_t row = 0, starts[1u << 10], bounds[(1u << 10) + 1];
+    int64_t *stats =
+        static_cast<int64_t *>(malloc((1u << 10) * 4 * sizeof(int64_t)));
+    if (!stats)
+        return -1;
+    struct fp_seg seg;
+    seg.bounds = bounds;
+    seg.starts = starts;
+    seg.stats = stats;
+    seg.region_words = region_words;
+    seg.batch_size = pk->batch_per_region;
+    seg.dns_cap = pk->dns_cap;
+    seg.drop_cap = pk->drop_cap;
+    seg.nk_cap = pk->nk_cap;
+    seg.spill_cap = pk->spill_cap;
+    seg.slot_cap = pk->slot_cap;
+    // full memset, so the malloc'd arena is deterministic (the device
+    // reads only the validity words either way)
+    seg.full_zero = true;
     while (row < n_events) {
         const uint64_t remaining = n_events - row;
         // the ring's ladder rule: largest available k whose k*batch fits
@@ -1164,6 +1450,7 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
         const uint32_t nr = lad->nr;
         if (nr == 0 || nr > (1u << 10)) {
             free(arena);
+            free(stats);
             return -2;
         }
         const uint64_t take =
@@ -1177,6 +1464,7 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
                 realloc(p->chunks, cap * sizeof(*nc)));
             if (!nc) {
                 free(arena);
+                free(stats);
                 return -1;
             }
             p->chunks = nc;
@@ -1188,8 +1476,19 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
         ch->rows = take;
         ch->k = lad->k;
         ch->arena_off = arena_words;
-        for (uint32_t i = 0; i < nr; i++)
+        for (uint32_t i = 0; i < nr; i++) {
             starts[i] = 0;
+            bounds[i] = take * i / nr;
+        }
+        bounds[nr] = take;
+        seg.events = p->events.p + row * sizeof(struct no_flow_event);
+        seg.extra = lane_at(ali[FPK_EXTRA], row, sizeof(struct no_extra_rec));
+        seg.dns = lane_at(ali[FPK_DNS], row, sizeof(struct no_dns_rec));
+        seg.drops = lane_at(ali[FPK_DROPS], row, sizeof(struct no_drops_rec));
+        seg.xlat = lane_at(ali[FPK_XLAT], row, sizeof(struct no_xlat_rec));
+        seg.quic = lane_at(ali[FPK_QUIC], row, sizeof(struct no_quic_rec));
+        seg.dicts = lad->dicts;
+        seg.nr = nr;
         bool done = false;
         while (!done) {
             // one segment = one shipped ring-slot image of nr regions (the
@@ -1203,50 +1502,24 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
                     static_cast<uint32_t *>(realloc(arena, cap * sizeof(uint32_t)));
                 if (!na) {
                     free(arena);
+                    free(stats);
                     return -1;
                 }
                 arena = na;
                 arena_cap_words = cap;
             }
+            seg.out = arena + arena_words;
+            seg_dispatch(&seg, NULL, 1);
+            if (seg.err.load()) {
+                free(arena);
+                free(stats);
+                return -3;  // no progress: caps violate the guarantee
+            }
             done = true;
             for (uint32_t i = 0; i < nr; i++) {
-                uint32_t *region = arena + arena_words + i * region_words;
-                const uint64_t lo = row + take * i / nr;
-                const uint64_t hi = row + take * (i + 1) / nr;
-                const uint64_t len = hi - lo;
-                if (starts[i] >= len) {
-                    // exhausted region in a continuation segment: the
-                    // zero_resident_region mask, done as a full memset so
-                    // the arena is deterministic (the device reads only the
-                    // validity words either way)
-                    std::memset(region, 0, region_words * sizeof(uint32_t));
-                    continue;
-                }
-                fp_dict *d = reinterpret_cast<fp_dict *>(
-                    static_cast<uintptr_t>(lad->dicts[i]));
-                if (d->next_slot >= pk->slot_cap) {
-                    fp_dict_reset(d);  // per-region epoch roll (_fold_chunk)
-                    ch->resets++;
-                }
-                int64_t consumed = fp_pack_resident(
-                    reinterpret_cast<const uint8_t *>(
-                        reinterpret_cast<const struct no_flow_event *>(
-                            p->events.p) + lo),
-                    starts[i], len,
-                    ali[FPK_EXTRA] ? ali[FPK_EXTRA] + lo * sizeof(struct no_extra_rec) : NULL,
-                    ali[FPK_DNS] ? ali[FPK_DNS] + lo * sizeof(struct no_dns_rec) : NULL,
-                    ali[FPK_DROPS] ? ali[FPK_DROPS] + lo * sizeof(struct no_drops_rec) : NULL,
-                    ali[FPK_XLAT] ? ali[FPK_XLAT] + lo * sizeof(struct no_xlat_rec) : NULL,
-                    ali[FPK_QUIC] ? ali[FPK_QUIC] + lo * sizeof(struct no_quic_rec) : NULL,
-                    d, region, pk->batch_per_region, pk->dns_cap, pk->drop_cap,
-                    pk->nk_cap, pk->spill_cap);
-                if (consumed <= 0) {
-                    free(arena);
-                    return -3;  // no progress: caps violate the guarantee
-                }
-                ch->spills += region[2];
-                starts[i] += static_cast<uint64_t>(consumed);
-                if (starts[i] < len)
+                ch->spills += static_cast<uint32_t>(stats[4 * i + 1]);
+                ch->resets += static_cast<uint32_t>(stats[4 * i + 2]);
+                if (starts[i] < bounds[i + 1] - bounds[i])
                     done = false;
             }
             arena_words += static_cast<size_t>(nr) * region_words;
@@ -1258,6 +1531,7 @@ static int64_t pipe_pack(struct fp_pipe *p, const struct fp_pipe_pack_cfg *pk,
         res->n_chunks++;
         row += take;
     }
+    free(stats);
     res->arena = arena;
     res->arena_words = arena_words;
     res->packed_rows = n_events;

@@ -40,7 +40,10 @@ built with the host C++ compiler at first use
   on its own row range (ctypes releases the GIL, so they run at once);
 - resident: `NativeKeyDict` with `pack_resident_native`, the staging
   rings' default on every device, or `KeyDict` with `pack_resident`. The
-  two dictionaries do not mix.
+  two dictionaries do not mix. `pack_resident_segment` (the port's own)
+  packs every region of one ring-slot image in one native call, spread
+  over the caller and the parked threads of a `PackWorkers`; each region
+  equals `pack_resident_native`'s.
 
 The per-CPU merges (`merge_percpu`, `merge_percpu_batch` with its
 `threads=` row split, reference `:724-816`), the event compose
@@ -386,7 +389,7 @@ def pack_resident(events_raw: bytes | np.ndarray,
 
 #: the library's source in csrc/, and the ABI version it must report
 NATIVE_SOURCE = "flowpack.cc"
-ABI_VERSION = 3
+ABI_VERSION = 4
 #: the records the library reads, in `fp_struct_sizes` order (the
 #: pipeline's structs follow them, `_PIPE_STRUCTS`)
 _NATIVE_RECORDS = (binfmt.FLOW_KEY_DTYPE, binfmt.FLOW_STATS_DTYPE,
@@ -415,6 +418,11 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("fp_dict_lookup", None, [vp, vp, sz, vp]),
             ("fp_pack_resident", ctypes.c_int64,
              [vp, sz, sz, vp, vp, vp, vp, vp, vp, vp, sz, sz, sz, sz, sz]),
+            ("fp_pack_resident_segment", ctypes.c_int64,
+             [vp, vp, vp, vp, vp, vp, vp, u32, vp, vp, vp, u32, u32, u32,
+              u32, u32, u32, vp, vp, u32]),
+            ("fp_workers_new", vp, []),
+            ("fp_workers_free", None, [vp]),
             ("fp_events_from_keys_stats", None, [vp, vp, sz, vp]),
             ("fp_pipe_new", vp, [vp, u32, u32]),
             ("fp_pipe_free", None, [vp]),
@@ -540,6 +548,81 @@ def pack_resident_native(events_raw: bytes | np.ndarray,
         kdict._live_handle(), out.ctypes.data, batch_size, caps.dns, caps.drop,
         caps.nk, caps.spill)
     return out, int(consumed)
+
+
+class PackWorkers:
+    """Parked native threads of `pack_resident_segment` (`csrc/flowpack.cc`
+    `fp_workers_new`): started by the first call that wants them, asleep
+    between calls. One call at a time uses them; a call that finds them
+    busy packs in its own thread. `close` stops and joins them (also on
+    garbage collection)."""
+
+    def __init__(self):
+        self._lib = native_lib()
+        self._handle = self._lib.fp_workers_new()
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.fp_workers_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self.close()
+
+
+def pack_resident_segment(events: np.ndarray, lanes: tuple,
+                          bounds: np.ndarray, dicts: np.ndarray,
+                          starts: np.ndarray, out: np.ndarray,
+                          batch_size: int, caps: ResidentCaps, slot_cap: int,
+                          stats: np.ndarray,
+                          workers: Optional[PackWorkers] = None,
+                          threads: int = 1) -> int:
+    """Pack one segment of a chunk, every region in one native call
+    (`fp_pack_resident_segment`, the interpreter lock released once):
+    region i is rows `bounds[i]:bounds[i + 1]` of `events` and of each
+    feature lane (`lanes`: extra, dns, drops, xlat, quic, each None or
+    fitted to the events as `_fit_rows` fits them), packed from row
+    `starts[i]` on (advanced in place) with the dictionary whose handle is
+    `dicts[i]` into words `i * resident_buf_len(batch_size, caps)` on of
+    `out`, after an epoch roll where that dictionary holds `slot_cap`
+    slots; a region already exhausted is masked as `zero_resident_region`
+    masks it. Each region's buffer, rows consumed and dictionary equal
+    `pack_resident_native`'s. `stats[i]` gets region i's rows consumed,
+    spill rows, epoch roll (0 or 1) and pack nanoseconds, all 0 for a
+    masked region. The regions spread over min(threads, regions) threads:
+    the caller and `workers`' helpers. Returns the regions with rows left
+    (0 ends the chunk)."""
+    nr = len(dicts)
+    rw = resident_buf_len(batch_size, caps)
+    if (events.dtype != binfmt.FLOW_EVENT_DTYPE
+            or not events.flags.c_contiguous):
+        raise ValueError("events must be C-contiguous flow events")
+    if (bounds.dtype != np.uint64 or bounds.shape != (nr + 1,)
+            or dicts.dtype != np.uint64 or starts.dtype != np.uint64
+            or starts.shape != (nr,) or stats.dtype != np.int64
+            or stats.shape != (nr, 4) or not stats.flags.c_contiguous):
+        raise ValueError("bounds, dicts and starts must be uint64 and "
+                         "stats (regions, 4) int64")
+    if bounds[-1] > len(events) or any(
+            a is not None and len(a) < len(events) for a in lanes):
+        raise ValueError("a region runs past the events or a lane")
+    if (out.dtype != np.uint32 or not out.flags.c_contiguous
+            or len(out) < nr * rw):
+        raise ValueError(f"out must be C-contiguous uint32 of at least "
+                         f"{nr * rw} words")
+    left = native_lib().fp_pack_resident_segment(
+        events.ctypes.data, *(_addr(a) for a in lanes), bounds.ctypes.data,
+        nr, dicts.ctypes.data, starts.ctypes.data, out.ctypes.data,
+        batch_size, caps.dns, caps.drop, caps.nk, caps.spill, slot_cap,
+        stats.ctypes.data, workers._handle if workers else None,
+        threads)
+    if left == -3:
+        raise RuntimeError("resident pack made no progress")
+    if left < 0:
+        raise ValueError(f"fp_pack_resident_segment refused its arguments "
+                         f"({left})")
+    return int(left)
 
 
 # ------------------------------------------------------ the per-CPU merges

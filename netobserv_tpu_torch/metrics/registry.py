@@ -30,9 +30,11 @@ tracer and the agent (`evictions_total`, `evicted_flows_total`,
 `sketch_tenants_active`, `sketch_tenant_window_records{tenant}`,
 `:248-268`) with `sketch_resident_hbm_bytes` (`:269-275`). Each
 family has the reference family's name, type, help text, labels and
-buckets. Two families are the port's own: `device_busy_seconds_total{span}`
+buckets. Three families are the port's own: `device_busy_seconds_total{span}`
 and `device_idle_seconds_total{phase}`, which the device timeline of
-`utils/tracing.py` feeds. The port's packer raises on an ABI mismatch
+`utils/tracing.py` feeds, and `sketch_resident_native_segments_total`,
+the resident ring's segments packed in one native call
+(`datapath/flowpack.pack_resident_segment`). The port's packer raises on an ABI mismatch
 instead of falling back (`datapath/flowpack.py`), so
 `flowpack_abi_fallback_total` stays 0; no port datapath takes the fused
 drain, so `flowpack_native_calls_total` and
@@ -449,6 +451,11 @@ class Metrics:
             "(the rest under the exporter lock: admission, the pending "
             "buffer, slot waits) or caller (the lock free); populated only "
             "when TRACE_SAMPLE > 0", ["phase"], registry=self.registry)
+        # the one-call segment pack of sketch/staging.py (the port's own)
+        self.sketch_resident_native_segments_total = Counter(
+            p + "sketch_resident_native_segments_total",
+            "Resident-feed segments (one ring slot image of every region) "
+            "packed in one native call", registry=self.registry)
         self.sketch_retraces_total = Counter(
             p + "sketch_retraces_total",
             "Post-warmup XLA recompilations of a watched jitted entry "

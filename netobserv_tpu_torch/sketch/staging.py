@@ -40,7 +40,9 @@ where the reference does. Every ring's `fold` takes `trace=`, the
 caller's trace (`utils/tracing`), and records its spans on it:
 `staging_wait` (a slot wait that stalled), `pack` (dense and compact),
 `resident_pack`, `pack_lane` (each region's pack in
-`ShardedResidentStagingRing`, on its pool thread) and `ingest_dispatch`;
+`ShardedResidentStagingRing`: with the native packer its native pack
+time, recorded after the segment's one call; with the Python packer a span
+on its pool thread) and `ingest_dispatch`;
 with no trace given it samples one of its own (`_fold_trace`) and
 finishes only that one. With tracing on, `pack`, `resident_pack` and
 `ingest_dispatch` also mark the exporter's phase on the ring's
@@ -883,9 +885,13 @@ class ShardedResidentStagingRing(_SlotRing):
 
     Lanes: a batch splits into `lanes` contiguous row blocks, each packed
     by its own dictionary into its own resident region (caps for
-    batch_size / lanes rows); `pack_threads > 1` packs the regions in a
-    thread pool (`flowpack._pack_submit`: the native pack releases the GIL,
-    so the regions pack at once). Each region has its own device key table,
+    batch_size / lanes rows). With the native packer each slot image (a
+    segment: every region of a chunk, or of its continuation) packs in one
+    native call, `flowpack.pack_resident_segment`, its regions spread over
+    min(pack_threads, regions) threads (the caller and parked native
+    threads, `flowpack.PackWorkers`); the Python packer packs region by
+    region, with `pack_threads > 1` on a thread pool
+    (`flowpack._pack_submit`). Each region has its own device key table,
     a row of `key_tables` (`sketch.state.init_key_tables`); one ingest
     folds all of a chunk's regions (`sketch.state.ingest_resident_lanes`).
 
@@ -911,8 +917,9 @@ class ShardedResidentStagingRing(_SlotRing):
 
     Counters: `continuations`, `dict_resets`, `spill_rows`,
     `superbatch_folds` (dispatches by k), `stalls`, `slot_wait_p95`, and
-    `chunks` (ingest dispatches) and `pack_seconds` (host wall time of the
-    packs)."""
+    `chunks` (ingest dispatches), `pack_seconds` (host wall time of the
+    packs) and `native_segments` (segments packed in one native call,
+    metric `sketch_resident_native_segments_total`)."""
 
     def __init__(self, batch_size: int, n_shards: int = 1,
                  caps: Optional[flowpack.ResidentCaps] = None,
@@ -938,6 +945,7 @@ class ShardedResidentStagingRing(_SlotRing):
         self.mesh = mesh
         dev = mesh.first if mesh is not None else pick_device(device)
         make_dict, self._pack = _pick_packer(packer, slot_cap)
+        self._native = packer == "native"
         self.superbatch_max = self.ladder[-1]
         self._available = {1} if lazy_ladder else set(self.ladder)
         self.batch_size = batch_size
@@ -986,6 +994,12 @@ class ShardedResidentStagingRing(_SlotRing):
         self.superbatch_folds: dict[int, int] = {}
         self.chunks = 0
         self.pack_seconds = 0.0
+        #: segments packed in one native call (`_native_segments`)
+        self.native_segments = 0
+        #: ladder entry -> its regions' dictionary handles, and the parked
+        #: threads of the native segment pack (made at first use)
+        self._dict_handles: dict[int, np.ndarray] = {}
+        self._workers: Optional[flowpack.PackWorkers] = None
         self._init_slots(n_slots, self.superbatch_max * self.n_regions
                          * self._region_words, dev, metrics)
 
@@ -1116,65 +1130,20 @@ class ShardedResidentStagingRing(_SlotRing):
         """Pack and dispatch one k-superbatch chunk (<= k * batch_size
         rows) through ladder entry k, in as many slots as its regions
         need."""
-        n = len(events)
-        nr = self.n_shards * k * self.lanes
-        kl = k * self.lanes
-        kmax_l = self.superbatch_max * self.lanes
-        rw = self._region_words
-        bounds = [n * i // nr for i in range(nr + 1)]
-        shard_ev = [events[bounds[i]:bounds[i + 1]] for i in range(nr)]
-        shard_feats = [
-            {name: (v[bounds[i]:bounds[i + 1]] if v is not None and len(v)
-                    else None) for name, v in feats.items()}
-            for i in range(nr)]
-        starts = [0] * nr
+        pack, left = (self._native_segments if self._native
+                      else self._python_segments)(events, feats, k, trace)
         first = True
         m = self._metrics
-        while any(starts[i] < len(shard_ev[i]) for i in range(nr)):
+        while left():
             try:
                 slot = self._wait_slot(trace)
             except StagingWedged as exc:
                 exc.state = state  # the chunks before it dispatched
                 raise
-            buf = self._bufs[slot]
-
-            def pack_region(i):
-                # touches only region i's dictionary, buffer region and
-                # start, and returns its counters, so threads never race
-                with trace.stage("pack_lane"):
-                    region = buf[i * rw:(i + 1) * rw]
-                    if starts[i] >= len(shard_ev[i]):
-                        # an exhausted region of a continuation chunk
-                        # ships empty, and its dictionary's epoch stays
-                        flowpack.zero_resident_region(
-                            region, self.batch_per_region, self.caps)
-                        return 0, 0
-                    kd = self.kdicts[(i // kl) * kmax_l + (i % kl)]
-                    resets = 0
-                    if kd.count() >= self.slot_cap:
-                        kd.reset()
-                        resets = 1
-                    _, consumed = self._pack(
-                        shard_ev[i], batch_size=self.batch_per_region,
-                        kdict=kd, caps=self.caps, start=starts[i],
-                        out=region, **shard_feats[i])
-                    if consumed == 0:
-                        raise RuntimeError("resident pack made no progress")
-                    starts[i] += consumed
-                    return int(region[2]), resets
-
             t0 = time.perf_counter()
             with tracing.stage(trace, "resident_pack", self.timeline):
-                if self.pack_threads > 1 and nr > 1:
-                    outs = [f.result() for f in flowpack._pack_submit(
-                        min(self.pack_threads, nr),
-                        [functools.partial(pack_region, i)
-                         for i in range(nr)])]
-                else:
-                    outs = [pack_region(i) for i in range(nr)]
+                spills, resets = pack(self._bufs[slot])
             self.pack_seconds += time.perf_counter() - t0
-            spills = sum(o[0] for o in outs)
-            resets = sum(o[1] for o in outs)
             self.spill_rows += spills
             self.dict_resets += resets
             self.superbatch_folds[k] = self.superbatch_folds.get(k, 0) + 1
@@ -1193,6 +1162,111 @@ class ShardedResidentStagingRing(_SlotRing):
                                                     self._ship_words(k)))
             self.chunks += 1
             self._advance(slot)
+
+    def _region_dicts(self, k: int) -> list:
+        """The dictionaries of ladder entry k's regions: region i packs
+        with `kdicts[(i // kl) * kmax_l + (i % kl)]`."""
+        kl, kmax_l = k * self.lanes, self.superbatch_max * self.lanes
+        return [self.kdicts[(i // kl) * kmax_l + (i % kl)]
+                for i in range(self.n_shards * kl)]
+
+    def _native_segments(self, events: np.ndarray, feats: dict, k: int,
+                         trace):
+        """(pack, left) of a chunk for `_fold_chunk`, native packer:
+        `pack(buf)` packs the chunk's next segment into a slot buffer in
+        one native call (`flowpack.pack_resident_segment`, over
+        min(pack_threads, regions) threads) and returns its spill rows and
+        epoch rolls; `left()` says whether rows remain. The feature lanes
+        are fitted once a chunk; each region that packed records its
+        native pack time as a `pack_lane` span."""
+        n = len(events)
+        nr = self.n_shards * k * self.lanes
+        events = np.ascontiguousarray(events, dtype=binfmt.FLOW_EVENT_DTYPE)
+        lanes = tuple(flowpack._fit_rows(feats[name], n, dt)
+                      for name, dt in PendingEventBuffer.LANES)
+        bounds = np.array([n * i // nr for i in range(nr + 1)], np.uint64)
+        starts = np.zeros(nr, np.uint64)
+        stats = np.zeros((nr, 4), np.int64)
+        dicts = self._dict_handles.get(k)
+        if dicts is None:
+            dicts = self._dict_handles[k] = np.array(
+                [d._live_handle() for d in self._region_dicts(k)], np.uint64)
+        threads = min(self.pack_threads, nr)
+        if threads > 1 and self._workers is None:
+            self._workers = flowpack.PackWorkers()
+        left = [nr]
+        m = self._metrics
+
+        def pack(buf):
+            left[0] = flowpack.pack_resident_segment(
+                events, lanes, bounds, dicts, starts, buf,
+                self.batch_per_region, self.caps, self.slot_cap, stats,
+                self._workers, threads)
+            self.native_segments += 1
+            if m is not None:
+                m.sketch_resident_native_segments_total.inc()
+            if trace.sampled:
+                for ns in stats[stats[:, 0] > 0, 3].tolist():
+                    trace.record("pack_lane", ns * 1e-9)
+            spills, resets = stats[:, 1:3].sum(axis=0).tolist()
+            return spills, resets
+
+        return pack, lambda: left[0] > 0
+
+    def _python_segments(self, events: np.ndarray, feats: dict, k: int,
+                         trace):
+        """(pack, left) of a chunk for `_fold_chunk`, Python packer: one
+        `pack_lane` span and one pack call a region, on the pack pool with
+        `pack_threads` > 1."""
+        n = len(events)
+        nr = self.n_shards * k * self.lanes
+        rw = self._region_words
+        bounds = [n * i // nr for i in range(nr + 1)]
+        shard_ev = [events[bounds[i]:bounds[i + 1]] for i in range(nr)]
+        shard_feats = [
+            {name: (v[bounds[i]:bounds[i + 1]] if v is not None and len(v)
+                    else None) for name, v in feats.items()}
+            for i in range(nr)]
+        dicts = self._region_dicts(k)
+        starts = [0] * nr
+
+        def pack_region(buf, i):
+            # touches only region i's dictionary, buffer region and
+            # start, and returns its counters, so threads never race
+            with trace.stage("pack_lane"):
+                region = buf[i * rw:(i + 1) * rw]
+                if starts[i] >= len(shard_ev[i]):
+                    # an exhausted region of a continuation chunk
+                    # ships empty, and its dictionary's epoch stays
+                    flowpack.zero_resident_region(
+                        region, self.batch_per_region, self.caps)
+                    return 0, 0
+                kd = dicts[i]
+                resets = 0
+                if kd.count() >= self.slot_cap:
+                    kd.reset()
+                    resets = 1
+                _, consumed = self._pack(
+                    shard_ev[i], batch_size=self.batch_per_region,
+                    kdict=kd, caps=self.caps, start=starts[i],
+                    out=region, **shard_feats[i])
+                if consumed == 0:
+                    raise RuntimeError("resident pack made no progress")
+                starts[i] += consumed
+                return int(region[2]), resets
+
+        def pack(buf):
+            if self.pack_threads > 1 and nr > 1:
+                outs = [f.result() for f in flowpack._pack_submit(
+                    min(self.pack_threads, nr),
+                    [functools.partial(pack_region, buf, i)
+                     for i in range(nr)])]
+            else:
+                outs = [pack_region(buf, i) for i in range(nr)]
+            return sum(o[0] for o in outs), sum(o[1] for o in outs)
+
+        return pack, lambda: any(starts[i] < len(shard_ev[i])
+                                 for i in range(nr))
 
     def fold_packed(self, state, packed, trace=None):
         """Ship and fold regions the fused drain packed with this ring's
@@ -1250,9 +1324,13 @@ class ShardedResidentStagingRing(_SlotRing):
                 trace.finish()
 
     def close(self) -> None:
-        """Drain, then drop the buffers and the captured folds."""
+        """Drain, then drop the buffers and the captured folds, and stop
+        the native pack's threads."""
         super().close()
         self.captured = None
+        if self._workers is not None:
+            self._workers.close()
+            self._workers = None
 
 
 class ResidentPackSurface:
@@ -1288,13 +1366,9 @@ class ResidentPackSurface:
         handles in the ring's order, region i of entry k packing with
         dictionary `(i // kl) * kmax_l + (i % kl)`. Call under `lock`."""
         ring = self.ring
-        kmax_l = ring.superbatch_max * ring.lanes
-        ladder = []
-        for k in sorted(k for k in ring.ladder if k in ring._available):
-            kl = k * ring.lanes
-            ladder.append((k, [
-                ring.kdicts[(i // kl) * kmax_l + (i % kl)]._live_handle()
-                for i in range(ring.n_shards * kl)]))
+        ladder = [(k, [d._live_handle() for d in ring._region_dicts(k)])
+                  for k in sorted(k for k in ring.ladder
+                                  if k in ring._available)]
         return {"batch_size": ring.batch_size,
                 "batch_per_region": ring.batch_per_region,
                 "slot_cap": ring.slot_cap, "caps": ring.caps,

@@ -43,7 +43,9 @@ that opens a span of a live trace, the span also opens
 ``record_function("netobserv.<stage>")``, so a profiler trace shows the
 program's stages on the kernels' clock. The profiler records only the
 thread that started it: a span opened on another thread (``pack_lane`` on
-the pack pool) feeds ``stage_seconds`` alone.
+the Python packer's pool) feeds ``stage_seconds`` alone, as does a span of
+a duration measured elsewhere (``Trace.record``: ``pack_lane`` of the
+native segment pack, each region's pack time on its native thread).
 
 The device timeline (:class:`Timeline`, one an exporter on one CUDA
 device): at any ``TRACE_SAMPLE`` above 0 it times EVERY fold and roll,
@@ -106,6 +108,9 @@ class _NullTrace:
 
     def stage(self, name: str):
         return NULL_SPAN
+
+    def record(self, name: str, seconds: float) -> None:
+        pass
 
     def finish(self) -> None:
         pass
@@ -211,6 +216,12 @@ class Trace:
     def stage(self, name: str) -> _SpanCtx:
         return _SpanCtx(self, name)
 
+    def record(self, name: str, seconds: float) -> None:
+        """A span of a duration measured elsewhere (native code's clock),
+        ending now; the profiler does not see it."""
+        t1 = time.perf_counter()
+        self._add(name, t1 - seconds, t1)
+
     def _add(self, stage: str, t0: float, t1: float) -> None:
         with self._lock:
             if not self._done:
@@ -300,6 +311,10 @@ class TraceGroup:
 
     def stage(self, name: str) -> _GroupSpan:
         return _GroupSpan([t.stage(name) for t in self.traces])
+
+    def record(self, name: str, seconds: float) -> None:
+        for t in self.traces:
+            t.record(name, seconds)
 
     def finish(self) -> None:
         for t in self.traces:

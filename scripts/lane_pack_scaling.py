@@ -11,10 +11,17 @@ records as flow events) through `sketch/staging.ShardedResidentStagingRing`
 with the device fold left out (its ingest returns the state untouched), so
 the ring's `pack_seconds` and wall time are the host's alone: once to learn
 the keys, then `--repeats` times, per 16,384 records, for each
-(lanes, pack threads, ladder entry) of CONFIGS. Then the native pack
-without the ring: the same 8 regions of 2,048 rows, 50 times each
-(`pack_resident_native`, each with its own dictionary), one after another
-and in 8 threads; and a control that holds no lock of the interpreter's
+(lanes, pack threads, ladder entry) of CONFIGS (with the native packer
+the ring packs each segment in one native call). Then the ring's region
+loop alone at k = 4 and 8 lanes (32 regions of 1,024 rows, the
+benchmark's geometry), two ways, at 1, 2, 4 and 8 threads: region by
+region through the pack pool (`flowpack._pack_submit`, one Python closure
+and one `pack_resident_native` call a region: the ring's path before the
+one-call pack), and one `pack_resident_segment` call a segment; and that
+call's hand-off, 8 one-row regions at 8 workers against 1. Then the
+native pack without the ring: the same 8 regions of 2,048 rows, 50 times
+each (`pack_resident_native`, each with its own dictionary), one after
+another and in 8 threads; and a control that holds no lock of the interpreter's
 and touches no table (SHA-256 of a 16 MiB buffer, which hashlib computes
 with the lock released), serial and in 8 threads: where the control does
 not scale either, the host gives the process less than its CPU count. The
@@ -81,6 +88,104 @@ def ring_scaling(events, feats, repeats: int) -> None:
             "pack_ms_per_16384": ring.pack_seconds * 1e3 / n16,
             "wall_ms_per_16384": wall * 1e3 / n16}), flush=True)
         ring.close()
+
+
+def segment_scaling(events, feats, repeats: int) -> None:
+    rows, k, lanes = 1024, 4, 8
+    nr = k * lanes
+    caps = flowpack.default_resident_caps(rows)
+    rw = flowpack.resident_buf_len(rows, caps)
+    buf = np.zeros(nr * rw, np.uint32)
+    chunk = nr * rows
+    chunks = [(events[lo:lo + chunk],
+               {n: v[lo:lo + chunk] for n, v in feats.items()})
+              for lo in range(0, len(events) - chunk + 1, chunk)]
+    stats = np.zeros((nr, 4), np.int64)
+
+    def by_pool(dicts, threads, ev, f):
+        bounds = [len(ev) * i // nr for i in range(nr + 1)]
+        starts = [0] * nr
+
+        def region(i):
+            lo, hi = bounds[i], bounds[i + 1]
+            if starts[i] >= hi - lo:
+                flowpack.zero_resident_region(buf[i * rw:(i + 1) * rw],
+                                              rows, caps)
+                return
+            _, c = flowpack.pack_resident_native(
+                ev[lo:hi], rows, dicts[i], caps, start=starts[i],
+                out=buf[i * rw:(i + 1) * rw],
+                **{n: v[lo:hi] for n, v in f.items()})
+            starts[i] += c
+
+        while any(starts[i] < bounds[i + 1] - bounds[i] for i in range(nr)):
+            if threads > 1:
+                for fut in flowpack._pack_submit(
+                        threads, [lambda i=i: region(i) for i in range(nr)]):
+                    fut.result()
+            else:
+                for i in range(nr):
+                    region(i)
+
+    def by_call(dicts, threads, ev, f, workers):
+        n = len(ev)
+        bounds = np.array([n * i // nr for i in range(nr + 1)], np.uint64)
+        handles = np.array([d._live_handle() for d in dicts], np.uint64)
+        lanes_ = tuple(flowpack._fit_rows(f[name], n, dt)
+                       for name, dt in staging.PendingEventBuffer.LANES)
+        starts = np.zeros(nr, np.uint64)
+        while flowpack.pack_resident_segment(
+                ev, lanes_, bounds, handles, starts, buf, rows, caps,
+                1 << 18, stats, workers, threads):
+            pass
+
+    for path in ("pool", "call"):
+        for threads in (1, 2, 4, 8):
+            dicts = [flowpack.NativeKeyDict(1 << 18) for _ in range(nr)]
+            workers = flowpack.PackWorkers() if path == "call" else None
+
+            def one_pass():
+                for ev, f in chunks:
+                    if path == "pool":
+                        by_pool(dicts, threads, ev, f)
+                    else:
+                        by_call(dicts, threads, ev, f, workers)
+
+            one_pass()  # learn the keys
+            cpu0, t0 = time.process_time(), time.perf_counter()
+            for _ in range(repeats):
+                one_pass()
+            wall, cpu = (time.perf_counter() - t0,
+                         time.process_time() - cpu0)
+            n16 = repeats * len(chunks) * chunk / BATCH
+            print(json.dumps({
+                "measure": f"segment_{path}", "k": k, "lanes": lanes,
+                "regions": nr, "rows": rows, "threads": threads,
+                "wall_ms_per_16384": wall * 1e3 / n16,
+                "cpu_ms_per_16384": cpu * 1e3 / n16}), flush=True)
+            for d in dicts:
+                d.close()
+            if workers is not None:
+                workers.close()
+    # the hand-off: 8 one-row regions a call, at 8 workers against 1
+    dicts = [flowpack.NativeKeyDict(1 << 10) for _ in range(8)]
+    handles = np.array([d._live_handle() for d in dicts], np.uint64)
+    bounds = np.arange(9, dtype=np.uint64)
+    ev = np.ascontiguousarray(events[:8])
+    workers, calls, per = flowpack.PackWorkers(), 2000, {}
+    for threads in (1, 8, 1, 8):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            flowpack.pack_resident_segment(
+                ev, (None,) * 5, bounds, handles, np.zeros(8, np.uint64),
+                buf, rows, caps, 1 << 10, stats[:8], workers, threads)
+        per[threads] = (time.perf_counter() - t0) / calls
+    print(json.dumps({"measure": "segment_handoff", "calls": calls,
+                      "call_us_1": per[1] * 1e6, "call_us_8": per[8] * 1e6,
+                      "handoff_ms": (per[8] - per[1]) * 1e3}), flush=True)
+    workers.close()
+    for d in dicts:
+        d.close()
 
 
 def call_scaling(events, feats) -> None:
@@ -173,6 +278,7 @@ def main() -> int:
                       "cgroup_cpu_quota": _cpu_quota()}), flush=True)
     control_scaling()
     events, feats = _stream()
+    segment_scaling(events, feats, args.repeats)
     call_scaling(events, feats)
     ring_scaling(events, feats, args.repeats)
     return 0

@@ -317,8 +317,8 @@ def _annotations(prof) -> set:
 
 def test_the_profiler_shows_a_traced_folds_spans():
     """Under torch.profiler on the calling thread, a traced fold's spans
-    open `netobserv.<stage>` ranges (not `pack_lane`, which opens on the
-    pack pool's threads, which the profiler does not record); an
+    open `netobserv.<stage>` ranges (not `pack_lane`, the native pack's
+    time recorded after its call, which the profiler does not see); an
     unsampled fold opens none."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(292)
@@ -340,9 +340,11 @@ def test_the_profiler_shows_a_traced_folds_spans():
 
 
 def test_pack_lane_spans_time_each_regions_pack():
-    """A traced lane fold records one `pack_lane` span a region of each
-    chunk, on the pack pool's threads with two pack threads, into
-    `stage_seconds`."""
+    """A traced lane fold records one `pack_lane` span a packed region of
+    each chunk into `stage_seconds`: with two pack threads and the native
+    packer, each region's pack time on its native thread, recorded by the
+    folding thread after the segment's one call, inside the segment's
+    `resident_pack` span."""
     rng = np.random.default_rng(293)
     ring = _ring()
     state = ts.init_state(ts.SketchConfig(**GEOM), device="cpu")
@@ -359,7 +361,11 @@ def test_pack_lane_spans_time_each_regions_pack():
     assert len(lanes) == sum(k * 2 * n for k, n in
                              ring.superbatch_folds.items())
     assert set(ring.superbatch_folds) == {1, 2}
-    assert threading.current_thread().name not in {s.thread for s in lanes}
+    assert ring.native_segments == ring.chunks == 2
+    assert {s.thread for s in lanes} == {threading.current_thread().name}
+    packs = [s for s in trace.spans if s.stage == "resident_pack"]
+    assert all(any(p.t0 <= s.t0 <= s.t1 <= p.t1 for p in packs)
+               for s in lanes)
 
 
 class HostEvent:
